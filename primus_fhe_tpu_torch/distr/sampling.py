@@ -1,0 +1,94 @@
+"""FHE noise samplers on an explicit ``torch.Generator`` (port of the samplers
+in ``primus_fhe_tpu/distr/sampling.py`` that the gate path uses).
+
+Every sampler draws on the generator's device.  ``torch.Generator`` and
+``jax.random`` give different numbers from the same seed, so the samplers
+are held to the reference statistically, not bit for bit.
+
+``DiscreteGaussian`` keeps both of the reference's paths:
+
+- **CDT** (sigma <= 256): ``P[X <= t]`` to 64-bit fixed point out to
+  ``tail_cut`` sigmas; a 64-bit uniform is inverted against the table by
+  counting the thresholds below it, then mapped to its offset;
+- **rounded continuous** (sigma > 256, e.g. BOOLEAN_128's lwe_sigma of
+  2^18.6): ``round(sigma * N(0,1))`` in float32, as the reference does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..numeric.limb import MASK32
+
+
+def uniform_u32(generator: torch.Generator, shape) -> torch.Tensor:
+    """Uniform u32 words (int64 tensor) on the generator's device."""
+    return torch.randint(
+        0, 1 << 32, tuple(shape), generator=generator, dtype=torch.int64,
+        device=generator.device,
+    )
+
+
+def sample_binary(generator: torch.Generator, shape) -> torch.Tensor:
+    """Uniform bits in {0, 1} (``BinaryDistr``)."""
+    return uniform_u32(generator, shape) & 1
+
+
+class DiscreteGaussian:
+    """Discrete Gaussian over Z: CDT sampler for small sigma, rounded
+    continuous Gaussian above ``_CDT_SIGMA_MAX``."""
+
+    _CDT_SIGMA_MAX = 256.0
+
+    def __init__(self, sigma: float, mean: float = 0.0, tail_cut: float = 10.0):
+        if sigma <= 0:
+            raise ValueError("sigma must be positive")
+        if mean != 0.0:
+            raise NotImplementedError("nonzero mean not supported yet")
+        self.sigma = float(sigma)
+        self._tables: dict = {}
+        if sigma > self._CDT_SIGMA_MAX:
+            if sigma * tail_cut >= 2.0**31:
+                raise ValueError("sigma too large for int32 samples")
+            self.offsets = None
+            return
+        max_t = int(np.ceil(sigma * tail_cut)) + 1
+        ts = np.arange(-max_t, max_t + 1)
+        w = np.exp(-(ts.astype(np.float64) ** 2) / (2 * self.sigma**2))
+        w /= w.sum()
+        cdf = np.cumsum(w)
+        fixed = [min(int(v), (1 << 64) - 1) for v in (cdf * 2.0**64).astype(object)]
+        self.offsets = ts.astype(np.int64)
+        # thresholds shifted by -2^63 so that signed int64 order is the
+        # unsigned 64-bit order
+        self.cdf_shifted = np.array([v - (1 << 63) for v in fixed], dtype=np.int64)
+
+    def _table(self, device):
+        device = torch.device(device)
+        if device not in self._tables:
+            self._tables[device] = (
+                torch.from_numpy(self.cdf_shifted).to(device),
+                torch.from_numpy(self.offsets).to(device),
+            )
+        return self._tables[device]
+
+    def sample_signed(self, generator: torch.Generator, shape) -> torch.Tensor:
+        """Signed samples (int64) on the generator's device."""
+        shape = tuple(shape)
+        if self.offsets is None:  # large-sigma rounded-continuous path
+            g = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=generator.device)
+            return torch.round(g * np.float32(self.sigma)).to(torch.int64)
+        u_hi = uniform_u32(generator, shape)
+        u_lo = uniform_u32(generator, shape)
+        u_shifted = ((u_hi - (1 << 31)) << 32) + u_lo  # u - 2^63
+        cdf, offsets = self._table(generator.device)
+        # index = #(cdf < u): the 64-bit compare-sum of the reference
+        idx = torch.searchsorted(cdf, u_shifted.reshape(-1), right=False)
+        idx = idx.clamp_(max=offsets.shape[0] - 1)
+        return offsets[idx].reshape(shape)
+
+    def sample_torus32(self, generator: torch.Generator, shape) -> torch.Tensor:
+        """Samples wrapped mod 2^32 (TFHE torus)."""
+        return self.sample_signed(generator, shape) & MASK32

@@ -1,0 +1,96 @@
+"""32-bit modular operations on int64-carried u32 words (port of the uint32
+part of ``primus_fhe_tpu/modular/modops.py``).
+
+Lazy-range contracts as in the reference:
+
+- ``lazy_*``     results in ``[0, 2q)``
+- canonical ops  results in ``[0, q)``
+- ``reduce_once(x) = min(x, x - q)`` assumes ``x < 2q`` (Harvey min-trick)
+
+Every function broadcasts: a scalar modulus record serves a polynomial, a
+``(n_mod, 1)``-shaped record serves a CRT polynomial.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..numeric.limb import MASK32, mul_wide_u32, mulhi_u32
+from .modulus import BarrettModulus32
+
+
+def reduce_once32(x, q):
+    """``x mod q`` for ``x < 2q`` (wrapping sub then unsigned min)."""
+    return torch.minimum(x, (x - q) & MASK32)
+
+
+def reduce_twice32(x, q):
+    """``x mod q`` for ``x < 4q``."""
+    return reduce_once32(reduce_once32(x, q * 2), q)
+
+
+def add32(a, b, q):
+    """``(a + b) mod q`` for canonical inputs (q < 2^31: no overflow)."""
+    return reduce_once32(a + b, q)
+
+
+def sub32(a, b, q):
+    """``(a - b) mod q`` for canonical inputs."""
+    d = a - b
+    return torch.where(a < b, d + q, d)
+
+
+def neg32(a, q):
+    """``-a mod q`` (0 maps to 0)."""
+    return torch.where(a == 0, a, q - a)
+
+
+def barrett_lazy_reduce32(v, m: BarrettModulus32):
+    """Barrett lazy reduce of one u32 word to ``[0, 2q)``.
+
+    ``q_hat = floor(v * ratio / 2^64)`` (barrett/ops.rs:13-33), exact.
+    """
+    tmp = mulhi_u32(v, m.ratio_lo)
+    lo, hi = mul_wide_u32(v, m.ratio_hi)
+    q_hat = (hi + ((lo + tmp) >> 32)) & MASK32
+    return (v - q_hat * m.value) & MASK32
+
+
+def barrett_lazy_reduce_wide32(lo, hi, m: BarrettModulus32):
+    """Barrett lazy reduce of ``hi*2^32 + lo`` to ``[0, 2q)``.
+
+    The four-product diagram of ``lazy_reduce_wide`` (barrett/mod.rs:99-132):
+    ``q_hat = floor(value * ratio / 2^64) mod 2^32``, then one wrapping
+    low-word subtraction.  The int64 sum of the three low words cannot
+    overflow, so its carry is read with one shift.
+    """
+    ah = mulhi_u32(lo, m.ratio_lo)
+    b_lo, b_hi = mul_wide_u32(lo, m.ratio_hi)
+    c_lo, c_hi = mul_wide_u32(hi, m.ratio_lo)
+    d = (hi * m.ratio_hi) & MASK32
+    carry = (b_lo + ah + c_lo) >> 32
+    q_hat = (d + b_hi + c_hi + carry) & MASK32
+    return (lo - q_hat * m.value) & MASK32
+
+
+def mul32(a, b, m: BarrettModulus32):
+    """``a * b mod q`` canonical."""
+    lo, hi = mul_wide_u32(a, b)
+    return reduce_once32(barrett_lazy_reduce_wide32(lo, hi, m), m.value)
+
+
+def lazy_mul32(a, b, m: BarrettModulus32):
+    """``a * b mod q`` in ``[0, 2q)``."""
+    lo, hi = mul_wide_u32(a, b)
+    return barrett_lazy_reduce_wide32(lo, hi, m)
+
+
+def sum_mod32(t, m: BarrettModulus32, dim=-1):
+    """Exact modular sum of canonical terms over ``dim``.
+
+    int64 holds the exact sum of up to 2^33 terms below 2^30; one wide
+    Barrett reduce of its two words finishes.  ``m`` broadcasts against
+    the output shape.
+    """
+    s = t.sum(dim=dim)
+    return reduce_once32(barrett_lazy_reduce_wide32(s & MASK32, s >> 32, m), m.value)

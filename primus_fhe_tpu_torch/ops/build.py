@@ -1,0 +1,106 @@
+"""Builds the CUDA kernels of ``csrc/`` at first use and binds them with ctypes.
+
+The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds).
+The library lands in ``primus_fhe_tpu_torch/build/`` under a name derived
+from a hash of the sources and flags, so an edited source never loads a
+stale build.  Each C entry launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a nonzero code into an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+SOURCES = ("ntt32.cu", "cmux_fused.cu")
+HEADERS = ("modarith32.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry -> argument types (pointers, host constant packs and the stream
+# are c_void_p; sizes are c_int)
+_SIGNATURES = {
+    "pft_ntt32_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "pft_ntt32_inverse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "pft_cmux_stage1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "pft_cmux_stage2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine with the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, float, str]:
+    """Compiles the library if it is missing; returns (path, seconds, log)."""
+    so = BUILD_DIR / f"libpft_kernels_{_digest()}.so"
+    log_path = so.with_suffix(".log")
+    if so.exists():
+        return so, 0.0, log_path.read_text() if log_path.exists() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"tmp{os.getpid()}_{so.name}")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp)]
+    cmd += [str(CSRC / s) for s in SOURCES]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, so)
+    return so, seconds, log
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first call and loaded once."""
+    so, _, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.pft_error_string.argtypes = [ctypes.c_int]
+    lib.pft_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raises if a C entry reported a CUDA error."""
+    if err != 0:
+        msg = library().pft_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def ptr(t) -> int:
+    """Device pointer of a tensor, or host pointer of a numpy array."""
+    return t.data_ptr() if hasattr(t, "data_ptr") else t.ctypes.data

@@ -1,0 +1,96 @@
+"""Kernels 1-4 against their plain PyTorch versions on a CUDA card, at shapes
+``chip_smoke.py`` does not reach: N from 32 (16 threads a block) to 4096,
+three primes, the 2^1 x 12 gadget in stage 1, k=2, odd batches, and int32
+storage.  Tolerance: zero (bit-equal).
+
+The kernels have no CPU mode, so every test here needs the card and skips
+without one.  On the card (the root conftest imports JAX, which that
+machine lacks, hence ``--noconftest``)::
+
+    python -m pytest --noconftest -m cuda -q tests/test_torch_cuda_kernels.py
+"""
+
+import pytest
+import torch
+
+from primus_fhe_tpu_torch import params as P
+from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap
+from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
+from primus_fhe_tpu_torch.lattice import tfhe
+from primus_fhe_tpu_torch.ops import cmux_fused, ntt32
+
+pytestmark = pytest.mark.cuda
+
+PRIMES3 = [1073692673, 1073668097, 1073651713]  # 30-bit NTT primes, = 1 mod 2^13
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _residues(gen, primes, shape, factor, dev):
+    q = torch.tensor(primes, dtype=torch.int64, device=dev).reshape((-1,) + (1,) * len(shape))
+    r = torch.randint(0, 1 << 40, (len(primes),) + tuple(shape), generator=gen, device=dev)
+    return r % (factor * q)
+
+
+@pytest.mark.parametrize("log_n", [5, 8, 11, 12])
+def test_ntt_kernels_match_plain(dev, log_n):
+    tables = ntt32.NttTables32(log_n, PRIMES3)
+    gen = torch.Generator(device=dev).manual_seed(log_n)
+    n = 1 << log_n
+    x = _residues(gen, PRIMES3, (3, 2, n), 4, dev)
+    for out_factor in (1, 4):
+        want = ntt32.forward32_plain(tables, x, out_factor)
+        assert torch.equal(ntt32.forward32(tables, x, out_factor), want)
+        got32 = ntt32.forward32(tables, x.to(torch.int32), out_factor)
+        assert got32.dtype == torch.int32
+        assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want)
+    y = _residues(gen, PRIMES3, (3, 2, n), 2, dev)
+    for out_factor in (1, 2):
+        want = ntt32.inverse32_plain(tables, y, out_factor)
+        assert torch.equal(ntt32.inverse32(tables, y, out_factor), want)
+    roundtrip = ntt32.inverse32(tables, ntt32.forward32(tables, y % torch.tensor(
+        PRIMES3, device=dev).reshape(3, 1, 1, 1)))
+    assert torch.equal(roundtrip, y % torch.tensor(PRIMES3, device=dev).reshape(3, 1, 1, 1))
+
+
+@pytest.mark.parametrize(
+    "log_n,log_basis,level,k",
+    [(5, 8, 3, 1), (8, 1, 12, 1), (11, 7, 3, 1), (8, 8, 2, 2)],
+)
+def test_cmux_kernels_match_plain(dev, log_n, log_basis, level, k):
+    n = 1 << log_n
+    conv = tfhe.make_convolver(log_n, level, k, log_basis)
+    basis = ApproxSignedBasis32(None, log_basis, reverse_length=level)
+    gen = torch.Generator(device=dev).manual_seed(log_n * 100 + log_basis)
+    acc = torch.randint(0, 1 << 32, (3, k + 1, n), generator=gen, device=dev)
+    degrees = torch.tensor([0, 7, 2 * n - 1], dtype=torch.int32, device=dev)
+    f_want = cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees)
+    assert torch.equal(cmux_fused.cmux_stage1(conv, basis, acc, degrees), f_want)
+    key = _residues(gen, conv.primes, (k + 1, level, k + 1, n), 1, dev)
+    want = cmux_fused.cmux_stage2_plain(conv, f_want, key, acc)
+    assert torch.equal(cmux_fused.cmux_stage2(conv, f_want, key, acc), want)
+    step = cmux_fused.fused_cmux_step(
+        conv, basis, acc.to(torch.int32), degrees, key.to(torch.int32)
+    )
+    assert torch.equal(step.to(torch.int64) & 0xFFFFFFFF, want)
+
+
+def test_launch_counts_and_toy_bootstrap(dev):
+    """A TOY bootstrap on the card equals the CPU one on the same keys and
+    launches each CMux kernel once per key slice."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ctx = P.make_context(P.TOY, dev, gen)
+    cts = ctx.encrypt(torch.tensor([0, 1, 1], device=dev), gen)
+    tp = torch.full((ctx.params.n,), 1 << 29, dtype=torch.int64, device=dev)
+    before = (cmux_fused.cmux_stage1.launches, cmux_fused.cmux_stage2.launches)
+    out = bootstrap(ctx.conv, ctx.basis, ctx.bsk, cts, tp, ctx.params.log_n)
+    after = (cmux_fused.cmux_stage1.launches, cmux_fused.cmux_stage2.launches)
+    assert after[0] - before[0] == ctx.params.lwe_dim
+    assert after[1] - before[1] == ctx.params.lwe_dim
+    cpu = bootstrap(ctx.conv, ctx.basis, ctx.bsk.cpu(), cts.cpu(), tp.cpu(), ctx.params.log_n)
+    assert torch.equal(out.cpu(), cpu)
