@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``primus_fhe_tpu_torch``) on one
-NVIDIA card, at the full BOOLEAN_128 profile (N=2048, n_lwe=630, bootstrap
-gadget 2^7 x 3, key-switch gadget 2^1 x 12).
+NVIDIA card, at full width: the BOOLEAN_128 profile (N=2048, n_lwe=630,
+bootstrap gadget 2^7 x 3, key-switch gadget 2^1 x 12) on both bootstrap-key
+kinds, and the NTRU_128 profile (N=1024, q=1038337, n_lwe=700, NGS gadget
+2^3 x 6, key switch 2^1 x 16).
 
 Run from the repository root:  ``python3 chip_smoke.py``
 
@@ -10,11 +12,12 @@ non-zero):
 
 1. device facts (``nvidia-smi`` name and power limit, torch and CUDA
    versions) and the kernel build from ``primus_fhe_tpu_torch/csrc``;
-2. each of the four kernels against its plain PyTorch version on the same
-   CUDA inputs, at the main path's shapes, batch 1 and 64 (bit-equal), with
+2. each of the seven kernels against its plain PyTorch version on the same
+   CUDA inputs, at the main paths' shapes, batch 1 and 64 (bit-equal), with
    both times from CUDA events and the kernel's device time from
-   ``torch.profiler``;
-3. ``make_context(BOOLEAN_128)`` on the card from a seeded generator;
+   ``torch.profiler``; kernels 1-2 also at the NTRU_128 shape;
+3. ``make_context(BOOLEAN_128)`` (NTT key kind) on the card from a seeded
+   generator;
 4. NAND/AND/OR truth tables, NOT, and NAND(NAND(a,b), NAND(a,b)) == AND(a,b),
    key switch included, with the measured phase error beside the noise
    model's prediction;
@@ -24,7 +27,17 @@ non-zero):
    kernels exactly once per key slice per bootstrap;
 7. single-gate latency at batch 1 and gates/s at batch 64 (truth-checked),
    each split into bootstrap and key switch, with the device's busy time
-   and top kernels from ``torch.profiler``.
+   and top kernels from ``torch.profiler``;
+8. the MXU key kind (``bsk_kind="mxu"``, same seed as phase 3, so the same
+   GGSW material): truth tables and composition with its launch counts
+   (kernel A once per key slice per bootstrap, kernel C in key
+   preparation), one bootstrap through both key kinds (the same words),
+   and the phase-7 timings on this route;
+9. NTRU_128: keys on the card, truth tables and a composition on both
+   evaluation keys (MXU: kernel B; NTT: kernels 1-2) with launch counts,
+   the gate-output phase error and decision margin, one bootstrap through
+   kernel B, through kernels 1-2 and through the plain versions on the CPU
+   (the same words), and latency and gates/s on both routes.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -41,6 +54,7 @@ SEED = 2026
 BATCH = 64
 LAT_REPS = 5
 KERNEL_REPS = 20
+NTRU_NOISE_RECORD = 8519.48  # NOISE_CHECK_NTRU_r05.json measured_std (mod-q units)
 
 
 def log(msg: str) -> None:
@@ -99,6 +113,50 @@ def wall_ms(torch, fn, reps: int) -> list[float]:
     return out
 
 
+def compare_kernel(torch, table, name, bsz, kern, kern32, plain):
+    """Holds ``kern`` (int64 words) and ``kern32`` (int32 storage) against
+    ``plain`` bit for bit, then times the int32 wrapper and the plain
+    version (CUDA events) and the kernel's device time (profiler)."""
+    got, want = kern(), plain()
+    got32 = kern32()
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} batch {bsz}: kernel != plain (max abs err {err})")
+    if not torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want):
+        raise AssertionError(f"{name} batch {bsz}: int32-storage kernel != plain")
+    ms = cuda_ms(torch, kern32, KERNEL_REPS)
+    plain_ms = cuda_ms(torch, plain, KERNEL_REPS)
+    dev_ms, _ = device_time(torch, kern32, KERNEL_REPS)
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    log(f"{name:22s} batch {bsz:3d} shape {tuple(got.shape)}: bit-equal; "
+        f"wrapper {ms:.4f} ms (device {dev_txt}), plain {plain_ms:.4f} ms")
+    table.setdefault(name, {})[bsz] = (err, ms, plain_ms, dev_ms)
+
+
+def time_gate(torch, label, gate, boot, ks, check):
+    """Truth-checks ``gate`` once, then its host-clock latency, the
+    bootstrap and key-switch parts, and the profiler's device split."""
+    check(gate())
+    gate_ms = wall_ms(torch, gate, LAT_REPS)
+    big = boot()
+    boot_ms = wall_ms(torch, boot, LAT_REPS)
+    ks_ms = wall_ms(torch, lambda: ks(big), LAT_REPS)
+    mean = sum(gate_ms) / len(gate_ms)
+    log(f"{label}: truth table correct; gate mean {mean:.2f} ms (min {min(gate_ms):.2f}); "
+        f"bootstrap min {min(boot_ms):.2f} ms; key switch min {min(ks_ms):.2f} ms "
+        f"(host clock, {LAT_REPS} runs each)")
+    dev_ms, rows = device_time(torch, gate, 1)
+    if dev_ms is None:
+        log(f"{label}: device time not measured (the profiler saw no device activity)")
+    else:
+        log(f"{label}: device busy {dev_ms:.2f} ms of {mean:.2f} ms wall -> idle share "
+            f"{1 - dev_ms / mean:.3f}; top device rows:")
+        for ms_, count, key_ in rows[:6]:
+            log(f"    {ms_:9.3f} ms  x{count:<5d} {key_[:90]}")
+    return mean
+
+
 def main() -> None:
     import torch
 
@@ -106,11 +164,13 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card")
 
     from primus_fhe_tpu_torch import params as P
-    from primus_fhe_tpu_torch.boot import gates
+    from primus_fhe_tpu_torch.boot import gates, ntru_gates
+    from primus_fhe_tpu_torch.boot import ntru_blind_rotate as nbr
     from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap
     from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
     from primus_fhe_tpu_torch.lattice import keyswitch, tfhe
-    from primus_fhe_tpu_torch.ops import build, cmux_fused, ntt32
+    from primus_fhe_tpu_torch.modular.modops import add32, neg32, sub32
+    from primus_fhe_tpu_torch.ops import build, cmux_fused, cmux_mxu, ntru_cmux_mxu, ntt32, ntt_mxu8
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -127,34 +187,43 @@ def main() -> None:
     log(f"device 0: {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
     so, build_s, build_log = build.build()
     build.library()
-    log(f"kernel build: {so.name} in {build_s:.2f} s")
+    log(f"kernel build: {so.name} in {build_s:.2f} s (one nvcc per source, in parallel)")
     for line in build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
     p = P.BOOLEAN_128
     basis = ApproxSignedBasis32(None, p.log_basis, reverse_length=p.level)
     conv = tfhe.make_convolver(p.log_n, p.level, p.glwe_dim, p.log_basis)
     n, kp, k1, level = p.n, conv.count, p.glwe_dim + 1, p.level
+    plan = cmux_mxu.plan_for(conv)
     log(f"BOOLEAN_128: N={n} n_lwe={p.lwe_dim} primes={conv.primes} L={level} k1={k1}")
+    pn = P.NTRU_128
+    nctx, _ = P.make_ntru_context(pn)
+    qn, nn = nctx.q_int, nctx.n
+    nplan = ntru_cmux_mxu.get_ntru_plan(pn.log_n, qn)
+    log(f"NTRU_128: N={nn} q={qn} n_lwe={pn.lwe_dim} NGS 2^{pn.log_basis} x {pn.level}, "
+        f"key switch 2^{pn.ks_log_basis} x {pn.ks_level}")
 
     # -- phase 2: kernels against their plain versions -----------------------
     log("== phase 2: kernels vs plain versions (bit-equal)")
     g = torch.Generator(device=dev).manual_seed(SEED)
     qs = torch.tensor(conv.primes, dtype=torch.int64, device=dev).reshape(kp, 1, 1)
 
-    def residues(rows, factor):
-        r = torch.randint(0, 1 << 40, (kp, rows, n), generator=g, device=dev)
-        return r % (factor * qs)
+    def residues(rows, factor, primes=qs, count=kp, width=n):
+        r = torch.randint(0, 1 << 40, (count, rows, width), generator=g, device=dev)
+        return r % (factor * primes)
 
     def words(*shape):
         return torch.randint(0, 1 << 32, shape, generator=g, device=dev)
 
+    i32 = lambda *ts: tuple(t.to(torch.int32) for t in ts)  # noqa: E731
     table = {}
+    ntru_tables = ntt32.NttTables32(pn.log_n, (qn,))
+    qn_t = torch.tensor([qn], dtype=torch.int64, device=dev).reshape(1, 1, 1)
     for bsz in (1, BATCH):
         rows = bsz * k1
-        x_fwd = residues(rows, 4)
-        x_inv = residues(rows, 2)
+        x_fwd, x_inv = residues(rows, 4), residues(rows, 2)
         acc = words(bsz, k1, n)
         degrees = torch.randint(0, 2 * n, (bsz,), generator=g, device=dev, dtype=torch.int32)
         key = torch.randint(0, 1 << 40, (kp, k1, level, k1, n), generator=g, device=dev)
@@ -162,95 +231,121 @@ def main() -> None:
         f = cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees)
         # kernel wrappers on int64 words (checked: narrow + kernel + widen)
         # and on int32 storage (timed: what the blind-rotation loop passes)
-        x_fwd32, x_inv32, acc32, f32, key32 = (
-            t.to(torch.int32) for t in (x_fwd, x_inv, acc, f, key)
-        )
-        cases = {
-            "ntt32_forward": (
-                lambda: ntt32.forward32(conv.ntt, x_fwd),
-                lambda: ntt32.forward32(conv.ntt, x_fwd32),
-                lambda: ntt32.forward32_plain(conv.ntt, x_fwd),
-            ),
-            "ntt32_inverse": (
-                lambda: ntt32.inverse32(conv.ntt, x_inv),
-                lambda: ntt32.inverse32(conv.ntt, x_inv32),
-                lambda: ntt32.inverse32_plain(conv.ntt, x_inv),
-            ),
-            "cmux_stage1": (
-                lambda: cmux_fused.cmux_stage1(conv, basis, acc, degrees),
-                lambda: cmux_fused.cmux_stage1(conv, basis, acc32, degrees),
-                lambda: cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees),
-            ),
-            "cmux_stage2": (
-                lambda: cmux_fused.cmux_stage2(conv, f, key, acc),
-                lambda: cmux_fused.cmux_stage2(conv, f32, key32, acc32),
-                lambda: cmux_fused.cmux_stage2_plain(conv, f, key, acc),
-            ),
-        }
-        for name, (kern, kern32, plain) in cases.items():
-            got, want = kern(), plain()
-            got32 = kern32()
-            torch.cuda.synchronize()
-            err = int((got - want).abs().max())
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name} batch {bsz}: kernel != plain (max abs err {err})")
-            if not torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want):
-                raise AssertionError(f"{name} batch {bsz}: int32-storage kernel != plain")
-            ms = cuda_ms(torch, kern32, KERNEL_REPS)
-            plain_ms = cuda_ms(torch, plain, KERNEL_REPS)
-            dev_ms, _ = device_time(torch, kern32, KERNEL_REPS)
-            dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-            log(f"{name:14s} batch {bsz:3d} shape {tuple(got.shape)}: bit-equal; "
-                f"wrapper {ms:.4f} ms (device {dev_txt}), plain {plain_ms:.4f} ms")
-            table.setdefault(name, {})[bsz] = (err, ms, plain_ms, dev_ms)
+        x_fwd32, x_inv32, acc32, f32, key32 = i32(x_fwd, x_inv, acc, f, key)
+        kv, kpre = cmux_mxu.prepare_mxu_bsk(conv, words(1, k1, level, k1, n))
+        kv, kpre = kv[0], kpre[0]
+        kv32, kpre32 = i32(kv, kpre)
+        c_in = residues(bsz * k1 * level * k1, 1)  # bsz key slices per prime
+        c_in32, = i32(c_in)
+        compare_kernel(torch, table, "ntt32_forward", bsz,
+                       lambda: ntt32.forward32(conv.ntt, x_fwd),
+                       lambda: ntt32.forward32(conv.ntt, x_fwd32),
+                       lambda: ntt32.forward32_plain(conv.ntt, x_fwd))
+        compare_kernel(torch, table, "ntt32_inverse", bsz,
+                       lambda: ntt32.inverse32(conv.ntt, x_inv),
+                       lambda: ntt32.inverse32(conv.ntt, x_inv32),
+                       lambda: ntt32.inverse32_plain(conv.ntt, x_inv))
+        compare_kernel(torch, table, "cmux_stage1", bsz,
+                       lambda: cmux_fused.cmux_stage1(conv, basis, acc, degrees),
+                       lambda: cmux_fused.cmux_stage1(conv, basis, acc32, degrees),
+                       lambda: cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees))
+        compare_kernel(torch, table, "cmux_stage2", bsz,
+                       lambda: cmux_fused.cmux_stage2(conv, f, key, acc),
+                       lambda: cmux_fused.cmux_stage2(conv, f32, key32, acc32),
+                       lambda: cmux_fused.cmux_stage2_plain(conv, f, key, acc))
+        compare_kernel(torch, table, "mxu_cmux_step", bsz,
+                       lambda: cmux_mxu.mxu_cmux_step(plan, basis, conv, acc, degrees, kv, kpre),
+                       lambda: cmux_mxu.mxu_cmux_step(plan, basis, conv, acc32, degrees, kv32,
+                                                      kpre32),
+                       lambda: cmux_mxu.mxu_cmux_step_plain(conv, basis, acc, degrees, kv))
+        compare_kernel(torch, table, "mxu8_forward32", bsz,
+                       lambda: ntt_mxu8.mxu8_forward32(plan, c_in),
+                       lambda: ntt_mxu8.mxu8_forward32(plan, c_in32),
+                       lambda: ntt_mxu8.mxu8_forward32_plain(plan, c_in))
+        # NTRU_128 shapes: kernel B, and kernels 1-2 as the NTT route runs them
+        n_acc = torch.randint(0, qn, (bsz, nn), generator=g, device=dev)
+        n_deg = torch.randint(0, 2 * nn, (bsz,), generator=g, device=dev, dtype=torch.int32)
+        nkv, nkpre = ntru_cmux_mxu.prepare_mxu_evk(
+            nctx, torch.randint(0, qn, (1, pn.level, nn), generator=g, device=dev))
+        nkv, nkpre = nkv[0], nkpre[0]
+        n_acc32, nkv32, nkpre32 = i32(n_acc, nkv, nkpre)
+        compare_kernel(torch, table, "ntru_cmux_step", bsz,
+                       lambda: ntru_cmux_mxu.ntru_cmux_step(nplan, nctx.basis, n_acc, n_deg, nkv,
+                                                            nkpre),
+                       lambda: ntru_cmux_mxu.ntru_cmux_step(nplan, nctx.basis, n_acc32, n_deg,
+                                                            nkv32, nkpre32),
+                       lambda: ntru_cmux_mxu.ntru_cmux_step_plain(nplan, nctx.basis, n_acc, n_deg,
+                                                                  nkv))
+        nf = residues(bsz * pn.level, 4, qn_t, 1, nn)
+        ni = residues(bsz, 2, qn_t, 1, nn)
+        nf32, ni32 = i32(nf, ni)
+        compare_kernel(torch, table, "ntt32_forward@NTRU", bsz,
+                       lambda: ntt32.forward32(ntru_tables, nf),
+                       lambda: ntt32.forward32(ntru_tables, nf32),
+                       lambda: ntt32.forward32_plain(ntru_tables, nf))
+        compare_kernel(torch, table, "ntt32_inverse@NTRU", bsz,
+                       lambda: ntt32.inverse32(ntru_tables, ni),
+                       lambda: ntt32.inverse32(ntru_tables, ni32),
+                       lambda: ntt32.inverse32_plain(ntru_tables, ni))
 
-    # -- phases 3-4: the main path, counted ----------------------------------
-    counted = (ntt32.forward32, ntt32.inverse32, cmux_fused.cmux_stage1, cmux_fused.cmux_stage2)
-    for fn in counted:
-        fn.launches = 0
+    counted = (ntt32.forward32, ntt32.inverse32, cmux_fused.cmux_stage1, cmux_fused.cmux_stage2,
+               cmux_mxu.mxu_cmux_step, ntru_cmux_mxu.ntru_cmux_step, ntt_mxu8.mxu8_forward32)
 
-    log("== phase 3: make_context(BOOLEAN_128) on the card")
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {fn.__name__: fn.launches for fn in counted}
+
+    # -- phases 3-4: the NTT-key path, counted -------------------------------
+    reset_counts()
+    log("== phase 3: make_context(BOOLEAN_128) on the card (bsk_kind='ntt')")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ctx = P.make_context(p, dev, gen)
+    ctx = P.make_context(p, dev, gen, bsk_kind="ntt")
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
     log(f"keygen: {keygen_s:.3f} s; bsk {tuple(ctx.bsk.shape)}, ksk {tuple(ctx.ksk.shape)}")
 
     log("== phase 4: gates at full width, key switch included")
-    args = (ctx.conv, ctx.basis, ctx.bsk, ctx.ksk, ctx.ks_basis)
     a_bits = torch.tensor([0, 0, 1, 1], device=dev)
     b_bits = torch.tensor([0, 1, 0, 1], device=dev)
-    ca, cb = ctx.encrypt(a_bits, gen), ctx.encrypt(b_bits, gen)
     truth = {
         "nand_gate": lambda a, b: ~(a & b),
         "and_gate": lambda a, b: a & b,
         "or_gate": lambda a, b: a | b,
     }
-    bootstraps = 0
-    errors = []
 
-    def check(label, out, want_bits):
-        got = ctx.decrypt(out)
-        mu = torch.where(want_bits, gates.TRUE_MU, -gates.TRUE_MU)
-        errors.append(ctx.phase(out) - mu)
-        log(f"{label}: got {got.int().tolist()} want {want_bits.int().tolist()}")
-        if not torch.equal(got, want_bits):
-            raise AssertionError(f"{label}: wrong truth table")
+    def tfhe_truth_tables(c, gen_c, label):
+        """Truth tables, NOT and a composition on context ``c``; returns the
+        number of bootstraps and the phase errors of the outputs."""
+        args = (c.conv, c.basis, c.bsk, c.ksk, c.ks_basis)
+        ca, cb = c.encrypt(a_bits, gen_c), c.encrypt(b_bits, gen_c)
+        errors = []
 
-    for name, fn in truth.items():
-        out = getattr(gates, name)(*args, ca, cb, p.log_n)
-        bootstraps += 1
-        check(f"{name} (a,b)=(00,01,10,11)", out, fn(a_bits.bool(), b_bits.bool()))
-    check("not_gate (0,1)", gates.not_gate(ctx.encrypt(torch.tensor([0, 1], device=dev), gen)),
-          torch.tensor([True, False], device=dev))
-    nand = gates.nand_gate(*args, ca, cb, p.log_n)
-    comp = gates.nand_gate(*args, nand, nand, p.log_n)
-    bootstraps += 2
-    check("NAND(NAND(a,b),NAND(a,b)) == AND(a,b)", comp, a_bits.bool() & b_bits.bool())
-    torch.cuda.synchronize()
-    counts = {fn.__name__: fn.launches for fn in counted}
+        def check(tag, out, want_bits):
+            got = c.decrypt(out)
+            mu = torch.where(want_bits, gates.TRUE_MU, -gates.TRUE_MU)
+            errors.append(c.phase(out) - mu)
+            log(f"[{label}] {tag}: got {got.int().tolist()} want {want_bits.int().tolist()}")
+            if not torch.equal(got, want_bits):
+                raise AssertionError(f"[{label}] {tag}: wrong truth table")
+
+        for name, fn in truth.items():
+            out = getattr(gates, name)(*args, ca, cb, p.log_n)
+            check(f"{name} (a,b)=(00,01,10,11)", out, fn(a_bits.bool(), b_bits.bool()))
+        check("not_gate (0,1)", gates.not_gate(c.encrypt(torch.tensor([0, 1], device=dev), gen_c)),
+              torch.tensor([True, False], device=dev))
+        nand = gates.nand_gate(*args, ca, cb, p.log_n)
+        comp = gates.nand_gate(*args, nand, nand, p.log_n)
+        check("NAND(NAND(a,b),NAND(a,b)) == AND(a,b)", comp, a_bits.bool() & b_bits.bool())
+        return len(truth) + 2, errors
+
+    bootstraps, errors = tfhe_truth_tables(ctx, gen, "ntt key")
+    counts = read_counts()
 
     err = torch.cat(errors).double()
     predicted = P.gate_noise_stddev(p)
@@ -272,71 +367,215 @@ def main() -> None:
     log(f"{p.lwe_dim} steps: cuda and cpu outputs equal ({out_cpu.numel()} words); "
         f"cpu plain bootstrap took {cpu_s:.2f} s")
 
-    # -- phase 6: launch counts of the main path -----------------------------
+    # -- phase 6: launch counts of the NTT-key path --------------------------
     log("== phase 6: launch counts of phases 3-4")
     log(json.dumps(counts))
     want_cmux = bootstraps * p.lwe_dim
-    for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"{name} was never launched on the main path")
+    for name in ("forward32", "inverse32", "cmux_stage1", "cmux_stage2"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the NTT-key path")
     for name in ("cmux_stage1", "cmux_stage2"):
         if counts[name] != want_cmux:
             raise AssertionError(f"{name}: {counts[name]} launches, want {want_cmux}")
     log(f"cmux_stage1/2: {want_cmux} = {bootstraps} bootstraps x {p.lwe_dim} steps (2 x {p.lwe_dim} "
         f"launches per bootstrap)")
 
-    # -- phase 7: timings ----------------------------------------------------
-    log("== phase 7: timings")
+    # -- phase 7: timings of the NTT-key path ---------------------------------
+    log("== phase 7: timings (bsk_kind='ntt')")
 
-    def split(label, bits):
-        xa = ctx.encrypt(bits, gen)
-        xb = ctx.encrypt(bits.flip(0), gen)
-        gate = lambda: gates.nand_gate(*args, xa, xb, p.log_n)  # noqa: E731
-        if not torch.equal(ctx.decrypt(gate()), ~(bits.bool() & bits.flip(0).bool())):
-            raise AssertionError(f"NAND {label}: wrong truth table")
-        gate_ms = wall_ms(torch, gate, LAT_REPS)
-        big = bootstrap(ctx.conv, ctx.basis, ctx.bsk, xa, tp, p.log_n)
-        boot_ms = wall_ms(torch, lambda: bootstrap(ctx.conv, ctx.basis, ctx.bsk, xa, tp, p.log_n),
-                          LAT_REPS)
-        ks_ms = wall_ms(torch, lambda: keyswitch.key_switch(big, ctx.ksk, ctx.ks_basis), LAT_REPS)
-        mean = sum(gate_ms) / len(gate_ms)
-        log(f"NAND {label}: truth table correct; gate mean {mean:.2f} ms (min {min(gate_ms):.2f}); "
-            f"bootstrap min {min(boot_ms):.2f} ms; key switch min {min(ks_ms):.2f} ms "
-            f"(host clock, {LAT_REPS} runs each)")
-        dev_ms, rows = device_time(torch, gate, 1)
-        if dev_ms is None:
-            log(f"NAND {label}: device time not measured (the profiler saw no device activity)")
-        else:
-            log(f"NAND {label}: device busy {dev_ms:.2f} ms of {mean:.2f} ms wall -> idle share "
-                f"{1 - dev_ms / mean:.3f}; top device rows:")
-            for ms_, count, key_ in rows[:6]:
-                log(f"    {ms_:9.3f} ms  x{count:<5d} {key_[:90]}")
-        return mean
+    def time_tfhe(c, label, bits):
+        args = (c.conv, c.basis, c.bsk, c.ksk, c.ks_basis)
+        xa, xb = c.encrypt(bits, gen), c.encrypt(bits.flip(0), gen)
+        want = ~(bits.bool() & bits.flip(0).bool())
 
-    lat = split("batch 1", torch.tensor([1], device=dev))
-    bits = torch.randint(0, 2, (BATCH,), generator=gen, device=dev)
-    rate = split(f"batch {BATCH}", bits)
-    log(f"single-gate latency (batch 1): {lat:.2f} ms; NAND gates/s at batch {BATCH}: "
+        def check(out):
+            if not torch.equal(c.decrypt(out), want):
+                raise AssertionError(f"NAND {label}: wrong truth table")
+
+        return time_gate(
+            torch, f"NAND {label}", lambda: gates.nand_gate(*args, xa, xb, p.log_n),
+            lambda: bootstrap(c.conv, c.basis, c.bsk, xa, tp, p.log_n),
+            lambda big: keyswitch.key_switch(big, c.ksk, c.ks_basis), check)
+
+    bits64 = torch.randint(0, 2, (BATCH,), generator=gen, device=dev)
+    lat = time_tfhe(ctx, "ntt key, batch 1", torch.tensor([1], device=dev))
+    rate = time_tfhe(ctx, f"ntt key, batch {BATCH}", bits64)
+    log(f"[ntt key] single-gate latency (batch 1): {lat:.2f} ms; NAND gates/s at batch {BATCH}: "
         f"{BATCH / (rate / 1e3):.1f}")
 
+    # -- phase 8: the MXU key kind -------------------------------------------
+    log("== phase 8: BOOLEAN_128 on the MXU key kind (kernel A per CMux step, kernel C in keygen)")
+    reset_counts()
+    gen_m = torch.Generator(device=dev).manual_seed(SEED + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx_m = P.make_context(p, dev, gen_m, bsk_kind="mxu")
+    torch.cuda.synchronize()
+    keygen_m_s = time.perf_counter() - t0
+    log(f"keygen: {keygen_m_s:.3f} s; bsk (vals, precons) {tuple(ctx_m.bsk[0].shape)} x 2, "
+        f"ksk {tuple(ctx_m.ksk.shape)}")
+    if not (torch.equal(ctx_m.lwe_secret, ctx.lwe_secret) and torch.equal(ctx_m.ksk, ctx.ksk)):
+        raise AssertionError("the seeded MXU context does not share phase 3's secrets")
+    bootstraps_m, _ = tfhe_truth_tables(ctx_m, gen_m, "mxu key")
+    counts_m = read_counts()
+    log(json.dumps(counts_m))
+    want_a = bootstraps_m * p.lwe_dim
+    if counts_m["mxu_cmux_step"] != want_a:
+        raise AssertionError(f"mxu_cmux_step: {counts_m['mxu_cmux_step']} launches, want {want_a}")
+    if counts_m["mxu8_forward32"] < 1:
+        raise AssertionError("mxu8_forward32 was never launched in key preparation")
+    if counts_m["cmux_stage1"] or counts_m["cmux_stage2"]:
+        raise AssertionError("the MXU key ran the NTT-key CMux kernels")
+    log(f"mxu_cmux_step: {want_a} = {bootstraps_m} bootstraps x {p.lwe_dim} steps; "
+        f"mxu8_forward32: {counts_m['mxu8_forward32']} launch(es) in key preparation")
+    cts = ctx.encrypt(torch.tensor([1, 0, 1], device=dev), gen)
+    b_ntt = bootstrap(ctx.conv, ctx.basis, ctx.bsk, cts, tp, p.log_n)
+    b_mxu = bootstrap(ctx_m.conv, ctx_m.basis, ctx_m.bsk, cts, tp, p.log_n)
+    if not torch.equal(b_ntt, b_mxu):
+        raise AssertionError("MXU-key and NTT-key bootstraps differ")
+    log(f"one bootstrap (3 ciphertexts) through the MXU pack and the NTT key: the same "
+        f"{b_mxu.numel()} words")
+    lat_m = time_tfhe(ctx_m, "mxu key, batch 1", torch.tensor([1], device=dev))
+    rate_m = time_tfhe(ctx_m, f"mxu key, batch {BATCH}", bits64)
+    log(f"[mxu key] single-gate latency (batch 1): {lat_m:.2f} ms; NAND gates/s at batch {BATCH}: "
+        f"{BATCH / (rate_m / 1e3):.1f}  (ntt key in this run: {lat:.2f} ms; "
+        f"{BATCH / (rate / 1e3):.1f} gates/s)")
+    del ctx_m
+
+    # -- phase 9: NTRU_128 ----------------------------------------------------
+    log("== phase 9: NTRU_128 at full width (kernel B on the MXU evk; kernels 1-2 on the NTT evk)")
+    reset_counts()
+    gen_n = torch.Generator(device=dev).manual_seed(SEED + 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keys = P.make_ntru_keys(pn, dev, gen_n)
+    torch.cuda.synchronize()
+    keygen_n_s = time.perf_counter() - t0
+    kctx = keys.ctx
+    log(f"keygen: {keygen_n_s:.3f} s; evk {tuple(keys.evk.shape)}, evk_mxu "
+        f"{tuple(keys.evk_mxu[0].shape)} x 2, ksk {tuple(keys.ksk.shape)}")
+    nt = (qn - 1) // 8
+    ntru_truth = {"ntru_nand": truth["nand_gate"], "ntru_and": truth["and_gate"],
+                  "ntru_or": truth["or_gate"]}
+    n_errors = []
+    bootstraps_n = {}
+    for kind, evk in (("mxu", keys.evk_mxu), ("ntt", keys.evk)):
+        nargs = (kctx, evk, keys.ksk, keys.ks_basis)
+        ca, cb = keys.encrypt(a_bits, gen_n), keys.encrypt(b_bits, gen_n)
+
+        def ncheck(tag, out, want_bits):
+            got = keys.decrypt(out)
+            n_errors.append(keys.phase(out) - torch.where(want_bits, nt, -nt))
+            log(f"[ntru {kind} evk] {tag}: got {got.int().tolist()} want {want_bits.int().tolist()}")
+            if not torch.equal(got, want_bits):
+                raise AssertionError(f"[ntru {kind} evk] {tag}: wrong truth table")
+
+        for name, fn in ntru_truth.items():
+            ncheck(f"{name} (a,b)=(00,01,10,11)", getattr(ntru_gates, name)(*nargs, ca, cb),
+                   fn(a_bits.bool(), b_bits.bool()))
+        ncheck("ntru_not (0,1)", ntru_gates.ntru_not(kctx, keys.encrypt([0, 1], gen_n)),
+               torch.tensor([True, False], device=dev))
+        nand = ntru_gates.ntru_nand(*nargs, ca, cb)
+        ncheck("NAND(NAND(a,b),NAND(a,b)) == AND(a,b)", ntru_gates.ntru_nand(*nargs, nand, nand),
+               a_bits.bool() & b_bits.bool())
+        bootstraps_n[kind] = len(ntru_truth) + 2
+    counts_n = read_counts()
+    log(json.dumps(counts_n))
+    want_b = bootstraps_n["mxu"] * pn.lwe_dim
+    if counts_n["ntru_cmux_step"] != want_b:
+        raise AssertionError(f"ntru_cmux_step: {counts_n['ntru_cmux_step']} launches, want {want_b}")
+    for name in ("forward32", "inverse32", "mxu8_forward32"):
+        if counts_n[name] < 1:
+            raise AssertionError(f"{name} was never launched on the NTRU path")
+    log(f"ntru_cmux_step: {want_b} = {bootstraps_n['mxu']} bootstraps x {pn.lwe_dim} steps; "
+        f"forward32 {counts_n['forward32']}, inverse32 {counts_n['inverse32']} (keygen, "
+        f"encryption, NTT-evk route); mxu8_forward32 {counts_n['mxu8_forward32']} (evk preparation)")
+    nerr = torch.cat(n_errors).double()
+    nstd = nerr.std().item()
+    log(f"NTRU gate output phase error over {nerr.numel()} outputs: std {nstd:.1f} "
+        f"(2^{torch.log2(torch.tensor(nstd)).item():.2f}), max |e| {nerr.abs().max().item():.0f}; "
+        f"decision margin (q/8)/std = {qn / 8 / nstd:.2f}; noise record "
+        f"NOISE_CHECK_NTRU_r05.json measured std {NTRU_NOISE_RECORD} (a noise figure, not a speed)")
+
+    ct_n = keys.encrypt([1, 0], gen_n)
+    switched = nbr.modulus_switch_q(ct_n, kctx, pn.log_n + 1)
+    tpn = nbr.ntru_test_polynomial(nn, qn, nt, dev)
+    rot_b = nbr.ntru_blind_rotate(kctx, keys.evk_mxu, switched, tpn)
+    rot_n = nbr.ntru_blind_rotate(kctx, keys.evk, switched, tpn)
+    t0 = time.perf_counter()
+    rot_c = nbr.ntru_blind_rotate(kctx, tuple(x.cpu() for x in keys.evk_mxu), switched.cpu(),
+                                  tpn.cpu())
+    cpu_n_s = time.perf_counter() - t0
+    ext = [nbr.extract_lwe_ntru(r, qn).cpu() for r in (rot_b, rot_n, rot_c)]
+    if not (torch.equal(ext[0], ext[1]) and torch.equal(ext[0], ext[2])):
+        raise AssertionError("NTRU bootstraps through kernel B, kernels 1-2 and the CPU differ")
+    log(f"one NTRU bootstrap (2 ciphertexts, {pn.lwe_dim} steps) through kernel B, through "
+        f"kernels 1-2 and through the plain versions on the cpu: the same {ext[0].numel()} "
+        f"words; cpu plain took {cpu_n_s:.2f} s")
+
+    def time_ntru(kind, evk, label, bits):
+        nargs = (kctx, evk, keys.ksk, keys.ks_basis)
+        xa, xb = keys.encrypt(bits, gen_n), keys.encrypt(bits.flip(0), gen_n)
+        want = ~(bits.bool() & bits.flip(0).bool())
+        nand_const = torch.zeros(pn.lwe_dim + 1, dtype=torch.int64, device=dev)
+        nand_const[-1] = 5 * nt % qn
+        sw = nbr.modulus_switch_q(sub32(add32(xa, xb, qn), nand_const, qn), kctx, pn.log_n + 1)
+
+        def boot():  # the gate's bootstrap: blind rotation, extraction, mask negation
+            acc = nbr.ntru_blind_rotate(kctx, evk, sw, tpn)
+            mask = neg32(nbr.extract_lwe_ntru(acc, qn), qn)
+            return torch.cat([mask, torch.zeros_like(mask[..., :1])], dim=-1)
+
+        def check(out):
+            if not torch.equal(keys.decrypt(out), want):
+                raise AssertionError(f"NTRU NAND {label}: wrong truth table")
+
+        return time_gate(
+            torch, f"NTRU NAND {label}", lambda: ntru_gates.ntru_nand(*nargs, xa, xb), boot,
+            lambda big: nbr.ntru_key_switch(kctx, big, keys.ksk, keys.ks_basis), check)
+
+    nbits64 = torch.randint(0, 2, (BATCH,), generator=gen_n, device=dev)
+    ntru_rates = {}
+    for kind, evk in (("mxu", keys.evk_mxu), ("ntt", keys.evk)):
+        lat_n = time_ntru(kind, evk, f"{kind} evk, batch 1", torch.tensor([1], device=dev))
+        rate_n = time_ntru(kind, evk, f"{kind} evk, batch {BATCH}", nbits64)
+        ntru_rates[kind] = (lat_n, BATCH / (rate_n / 1e3))
+        log(f"[ntru {kind} evk] single-gate latency (batch 1): {lat_n:.2f} ms; NAND gates/s at "
+            f"batch {BATCH}: {BATCH / (rate_n / 1e3):.1f}")
+
+    # -- the kernel table -----------------------------------------------------
     sources = {
-        "ntt32_forward": ("primus_fhe_tpu_torch/csrc/ntt32.cu", "primus_fhe_tpu/ops/ntt_pallas.py:848"),
-        "ntt32_inverse": ("primus_fhe_tpu_torch/csrc/ntt32.cu", "primus_fhe_tpu/ops/ntt_pallas.py:855"),
-        "cmux_stage1": ("primus_fhe_tpu_torch/csrc/cmux_fused.cu", "primus_fhe_tpu/ops/cmux_fused.py:140"),
-        "cmux_stage2": ("primus_fhe_tpu_torch/csrc/cmux_fused.cu", "primus_fhe_tpu/ops/cmux_fused.py:226"),
+        "ntt32_forward": ("primus_fhe_tpu_torch/csrc/ntt32.cu",
+                          "primus_fhe_tpu/ops/ntt_pallas.py:848", counts["forward32"]),
+        "ntt32_inverse": ("primus_fhe_tpu_torch/csrc/ntt32.cu",
+                          "primus_fhe_tpu/ops/ntt_pallas.py:855", counts["inverse32"]),
+        "cmux_stage1": ("primus_fhe_tpu_torch/csrc/cmux_fused.cu",
+                        "primus_fhe_tpu/ops/cmux_fused.py:140", counts["cmux_stage1"]),
+        "cmux_stage2": ("primus_fhe_tpu_torch/csrc/cmux_fused.cu",
+                        "primus_fhe_tpu/ops/cmux_fused.py:226", counts["cmux_stage2"]),
+        "mxu_cmux_step": ("primus_fhe_tpu_torch/csrc/cmux_mxu.cu",
+                          "primus_fhe_tpu/ops/cmux_mxu.py:621", counts_m["mxu_cmux_step"]),
+        "ntru_cmux_step": ("primus_fhe_tpu_torch/csrc/cmux_mxu.cu",
+                           "primus_fhe_tpu/ops/ntru_cmux_mxu.py:259", counts_n["ntru_cmux_step"]),
+        "mxu8_forward32": ("primus_fhe_tpu_torch/csrc/ntt_mxu8.cu",
+                           "primus_fhe_tpu/ops/ntt_mxu8.py:917",
+                           counts_m["mxu8_forward32"] + counts_n["mxu8_forward32"]),
     }
-    launch_key = {"ntt32_forward": "forward32", "ntt32_inverse": "inverse32",
-                  "cmux_stage1": "cmux_stage1", "cmux_stage2": "cmux_stage2"}
     kernels = []
-    for name, (src, rep) in sources.items():
+    for name, (src, rep, launches) in sources.items():
         e1, ms1, pms1, dev1 = table[name][1]
         eb, msb, pmsb, devb = table[name][BATCH]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": counts[launch_key[name]], "max_abs_err": max(e1, eb),
+            "launches": launches, "max_abs_err": max(e1, eb),
             "ms": ms1, "plain_ms": pms1, "device_ms": dev1,
             f"ms_b{BATCH}": msb, f"plain_ms_b{BATCH}": pmsb, f"device_ms_b{BATCH}": devb,
-        })
+        }
+        if f"{name}@NTRU" in table:
+            row["launches_ntru_path"] = counts_n["forward32" if "forward" in name else "inverse32"]
+            row["ms_ntru"] = table[f"{name}@NTRU"][1][1]
+            row["plain_ms_ntru"] = table[f"{name}@NTRU"][1][2]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

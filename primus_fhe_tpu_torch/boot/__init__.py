@@ -1,11 +1,16 @@
-"""Blind-rotation bootstrapping and the boolean gates built on it."""
+"""Blind-rotation bootstrapping and the boolean gates built on it, over the
+torus (TFHE) and mod q (NTRU)."""
 
 from .blind_rotate import (
     blind_rotate,
     bootstrap,
     make_bootstrap_key,
+    make_bootstrap_key_mxu,
     modulus_switch,
     test_polynomial,
 )
 
-__all__ = ["blind_rotate", "bootstrap", "make_bootstrap_key", "modulus_switch", "test_polynomial"]
+__all__ = [
+    "blind_rotate", "bootstrap", "make_bootstrap_key", "make_bootstrap_key_mxu",
+    "modulus_switch", "test_polynomial",
+]

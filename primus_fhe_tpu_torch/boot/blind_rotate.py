@@ -1,10 +1,12 @@
 """TFHE blind-rotation bootstrapping (port of
-``primus_fhe_tpu/boot/blind_rotate.py``, NTT-domain key).
+``primus_fhe_tpu/boot/blind_rotate.py``).
 
 1. **modulus switch**: LWE coefficients mod 2^32 -> rounded mod 2N,
 2. **blind rotate**: ``acc <- acc + (acc * X^{a_i} - acc) ⊡ BSK_i`` over
-   the LWE mask — a Python loop over the ``n_lwe`` key slices, each step
-   the fused two-kernel CMux (:mod:`..ops.cmux_fused`),
+   the LWE mask — a Python loop over the ``n_lwe`` key slices.  The key
+   pack picks the step, as in the reference: an NTT-domain key tensor runs
+   the fused two-kernel CMux (:mod:`..ops.cmux_fused`), an MXU pack
+   ``(vals, precons)`` the one-kernel int8 CMux (:mod:`..ops.cmux_mxu`),
 3. **sample extract**: GLWE coefficient 0 -> LWE.
 
 The accumulator and the key are narrowed to int32 storage once per call and
@@ -20,6 +22,7 @@ from ..lattice.rlwe import extract_lwe_torus32
 from ..lattice.tfhe import ggsw_encrypt_torus
 from ..numeric.limb import MASK32, narrow_u32, widen_u32
 from ..ops.cmux_fused import fused_cmux_step, rotate_negacyclic
+from ..ops.cmux_mxu import mxu_cmux_step, plan_for, prepare_mxu_bsk
 
 
 def modulus_switch(lwe: torch.Tensor, log_2n: int) -> torch.Tensor:
@@ -33,12 +36,15 @@ def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
     """Returns the rotated accumulator GLWE ``(..., k+1, N)``.
 
     ``bsk_ntt``: ``(n_lwe, kp, k+1, L, k+1, N)`` — GGSW(s_i) in NTT
-    residues (int64 or int32 storage); ``lwe_switched``: ``(..., n_lwe+1)``
-    int32 mod 2N; ``test_poly``: ``(N,)`` torus words.  ``acc = (0, v *
-    X^{-b})``, then one fused CMux per mask element.
+    residues — or the MXU pack ``(vals, precons)``, each ``(n_lwe, kp,
+    k+1, L, k+1, A, 128)`` (int64 or int32 storage); ``lwe_switched``:
+    ``(..., n_lwe+1)`` int32 mod 2N; ``test_poly``: ``(N,)`` torus words.
+    ``acc = (0, v * X^{-b})``, then one CMux per mask element.
     """
-    n_lwe = bsk_ntt.shape[0]
-    kp, k1, level, k1b, n = bsk_ntt.shape[1:]
+    use_mxu = isinstance(bsk_ntt, (tuple, list))
+    key = bsk_ntt[0] if use_mxu else bsk_ntt
+    n_lwe, k1 = key.shape[0], key.shape[2]
+    n = conv.n
     batch = lwe_switched.shape[:-1]
     sw = lwe_switched.reshape(-1, n_lwe + 1)
     bsz = sw.shape[0]
@@ -46,11 +52,27 @@ def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
     acc = torch.zeros((bsz, k1, n), dtype=torch.int64, device=sw.device)
     acc[:, -1, :] = rotate_negacyclic(test_poly.expand(bsz, n), -sw[:, n_lwe])
     acc = narrow_u32(acc)
-    key = narrow_u32(bsk_ntt).contiguous()
     a_t = sw[:, :n_lwe].t().to(torch.int32).contiguous()  # (n_lwe, B)
-    for i in range(n_lwe):
-        acc = fused_cmux_step(conv, basis, acc, a_t[i], key[i])
+    if use_mxu:
+        plan = plan_for(conv)
+        kv = narrow_u32(bsk_ntt[0]).contiguous()
+        kpre = narrow_u32(bsk_ntt[1]).contiguous()
+        for i in range(n_lwe):
+            acc = mxu_cmux_step(plan, basis, conv, acc, a_t[i], kv[i], kpre[i])
+    else:
+        key = narrow_u32(bsk_ntt).contiguous()
+        for i in range(n_lwe):
+            acc = fused_cmux_step(conv, basis, acc, a_t[i], key[i])
     return widen_u32(acc).reshape(*batch, k1, n)
+
+
+def _bsk_coeff(lwe_secret, glwe_secret, basis, gaussian, conv, generator):
+    """GGSW(s_i) for every LWE key bit, coefficient domain ``(n_lwe, k+1,
+    L, k+1, N)``, all encrypted in one batch."""
+    n = glwe_secret.shape[-1]
+    mu = torch.zeros((lwe_secret.shape[0], n), dtype=torch.int64, device=lwe_secret.device)
+    mu[:, 0] = lwe_secret
+    return ggsw_encrypt_torus(mu, glwe_secret, basis, gaussian, conv, generator)
 
 
 def make_bootstrap_key(lwe_secret, glwe_secret, basis, gaussian, conv, generator):
@@ -60,12 +82,18 @@ def make_bootstrap_key(lwe_secret, glwe_secret, basis, gaussian, conv, generator
     ``gaussian`` is the GLWE-side sampler (glwe_sigma).  All ``n_lwe``
     GGSW encryptions and their forward transforms run as one batch.
     """
-    n = glwe_secret.shape[-1]
-    mu = torch.zeros((lwe_secret.shape[0], n), dtype=torch.int64, device=lwe_secret.device)
-    mu[:, 0] = lwe_secret
-    ggsw_all = ggsw_encrypt_torus(mu, glwe_secret, basis, gaussian, conv, generator)
+    ggsw_all = _bsk_coeff(lwe_secret, glwe_secret, basis, gaussian, conv, generator)
     # contiguous, so that every key slice the CMux loop hands on is one block
     return conv.forward(ggsw_all).movedim(0, 1).contiguous()
+
+
+def make_bootstrap_key_mxu(lwe_secret, glwe_secret, basis, gaussian, conv, generator):
+    """The MXU key pack ``(vals, precons)`` of the same GGSW material as
+    :func:`make_bootstrap_key` (the same generator draws): the byte-radix
+    forward transform (kernel C on a CUDA tensor) and exact Shoup
+    quotients, each ``(n_lwe, kp, k+1, L, k+1, A, 128)``."""
+    return prepare_mxu_bsk(conv, _bsk_coeff(lwe_secret, glwe_secret, basis, gaussian, conv,
+                                            generator))
 
 
 def test_polynomial(n: int, message_bits: int, device=None) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Single-limb approximate signed decomposition over the 2^32 torus (port of
+"""Single-limb approximate signed decomposition of u32 words (port of
 ``ApproxSignedBasis32`` in ``primus_fhe_tpu/decompose/primitive.py``).
 
 Each level extracts a window, adds the incoming carry, and branches into a
@@ -7,11 +7,16 @@ signed digit plus the next carry:
     temp       = ((value >> shr) & (B-1)) + carry
     next_carry = (temp & carry_mask) != 0          # digit >= B/2 (rounding)
     digit      = 0                        if next_carry and temp > B-1
-               = temp + (2^32 - B)        if next_carry  (i.e. temp - B)
+               = temp + (modulus - B)     if next_carry  (i.e. temp - B mod q)
                = temp                     otherwise
 
-Only the torus mode (``modulus=None``) the boolean gates use is ported; the
-mod-q mode belongs to the NTRU path.
+Two modes, as in the reference (basis.rs:39-178):
+
+- **torus** (``modulus=None``): values and digits are words mod 2^32;
+- **mod q** (NTRU path): ``value_bits`` is the bit length of ``q``, digits
+  are canonical mod ``q``, and a value at or above ``wrap_threshold`` is
+  first shifted by ``adjust_add`` so that its top digit rounds into the
+  next (dropped) level instead of wrapping.
 """
 
 from __future__ import annotations
@@ -21,43 +26,87 @@ import torch
 from ..numeric.limb import MASK32
 
 
+def _derive(modulus: int | None, bits: int, log_basis: int, reverse_length):
+    """Decomposition parameters (``_derive`` of the reference port)."""
+    if log_basis <= 0:
+        raise ValueError("log_basis must be positive")
+    basis = 1 << log_basis
+    basis_minus_one = basis - 1
+    limit = 1 << bits
+    if modulus is not None:
+        modulus = int(modulus)
+        modulus_is_pow2 = modulus & (modulus - 1) == 0
+        value_bits = modulus.bit_length() - 1 if modulus_is_pow2 else modulus.bit_length()
+        if value_bits < log_basis:
+            raise ValueError("the basis exceeds the modulus")
+        modulus_minus_basis = modulus - basis
+    else:
+        modulus_is_pow2 = True
+        value_bits = bits
+        modulus_minus_basis = (limit - basis) % limit
+
+    length = value_bits // log_basis
+    if reverse_length is not None:
+        if reverse_length > length:
+            raise ValueError("reverse_length exceeds the decompose length")
+        length = reverse_length
+    drop_bits = value_bits - length * log_basis
+
+    wrap_threshold = None
+    adjust_add = 0
+    if not modulus_is_pow2:
+        if log_basis == 1:
+            if drop_bits != 0:
+                value = ((1 << (length + 1)) - 1) << (drop_bits - 1)
+                wrap_threshold = value if value < modulus else None
+        else:
+            value = 0
+            for _ in range(length):
+                value = (value << log_basis) | (basis_minus_one >> 1)
+            if drop_bits > 0:
+                value = ((value << 1) | 1) << (drop_bits - 1)
+            else:
+                value += 1
+            wrap_threshold = value if value < modulus else None
+        adjust_add = ((1 << value_bits) - 1) - (modulus - 1)
+
+    return dict(
+        modulus=modulus,
+        modulus_is_pow2=modulus_is_pow2,
+        log_basis=log_basis,
+        basis=basis,
+        basis_minus_one=basis_minus_one,
+        modulus_minus_basis=modulus_minus_basis,
+        value_bits=value_bits,
+        decompose_length=length,
+        drop_bits=drop_bits,
+        carry_mask=2 if log_basis == 1 else (basis | (basis >> 1)),
+        init_carry_mask=(1 << (drop_bits - 1)) if drop_bits > 0 else None,
+        wrap_threshold=wrap_threshold,
+        adjust_add=adjust_add,
+        scalars=[1 << (drop_bits + j * log_basis) for j in range(length)],
+        shr_bits=[drop_bits + j * log_basis for j in range(length)],
+    )
+
+
 class ApproxSignedBasis32:
-    """u32 approximate signed basis over the 2^32 torus."""
+    """u32 approximate signed basis (values mod ``modulus`` or ``2^32``)."""
 
     def __init__(self, modulus: int | None, log_basis: int, reverse_length: int | None = None):
-        if modulus is not None:
-            raise NotImplementedError("only the torus mode (modulus=None) is ported")
-        if log_basis <= 0:
-            raise ValueError("log_basis must be positive")
-        bits = 32
-        basis = 1 << log_basis
-        length = bits // log_basis
-        if reverse_length is not None:
-            if reverse_length > length:
-                raise ValueError("reverse_length exceeds the decompose length")
-            length = reverse_length
-        drop_bits = bits - length * log_basis
-        self.modulus = None
-        self.log_basis = log_basis
-        self.basis = basis
-        self.basis_minus_one = basis - 1
-        self.modulus_minus_basis = ((1 << bits) - basis) % (1 << bits)
-        self.decompose_length = length
-        self.drop_bits = drop_bits
-        self.init_carry_mask = (1 << (drop_bits - 1)) if drop_bits > 0 else None
-        self.carry_mask = 2 if log_basis == 1 else (basis | (basis >> 1))
-        self.scalars = [1 << (drop_bits + j * log_basis) for j in range(length)]
-        self.shr_bits = [drop_bits + j * log_basis for j in range(length)]
+        self.__dict__.update(_derive(modulus, 32, log_basis, reverse_length))
 
     @property
     def approximate_error_bound(self) -> int:
         return 0 if self.drop_bits == 0 else 1 << (self.drop_bits - 1)
 
     def init_value_carry(self, values):
-        """Initial carries from the dropped bits (basis.rs:254-300)."""
+        """Pre-adjusted values and initial carries (basis.rs:254-300)."""
+        v = values
+        if self.wrap_threshold is not None:
+            v = torch.where(v >= self.wrap_threshold, (v + self.adjust_add) & MASK32, v)
         if self.init_carry_mask is None:
-            return values, torch.zeros_like(values)
-        return values, ((values & self.init_carry_mask) != 0).to(values.dtype)
+            return v, torch.zeros_like(v)
+        return v, ((v & self.init_carry_mask) != 0).to(v.dtype)
 
     def decompose_level(self, values, carries, level: int):
         """One signed-digit extraction; returns ``(digit, next_carries)``."""

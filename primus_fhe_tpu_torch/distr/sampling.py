@@ -1,5 +1,6 @@
 """FHE noise samplers on an explicit ``torch.Generator`` (port of the samplers
-in ``primus_fhe_tpu/distr/sampling.py`` that the gate path uses).
+in ``primus_fhe_tpu/distr/sampling.py`` that the TFHE and NTRU gate paths
+use).
 
 Every sampler draws on the generator's device.  ``torch.Generator`` and
 ``jax.random`` give different numbers from the same seed, so the samplers
@@ -33,6 +34,25 @@ def uniform_u32(generator: torch.Generator, shape) -> torch.Tensor:
 def sample_binary(generator: torch.Generator, shape) -> torch.Tensor:
     """Uniform bits in {0, 1} (``BinaryDistr``)."""
     return uniform_u32(generator, shape) & 1
+
+
+def sample_uniform(generator: torch.Generator, shape, q: int) -> torch.Tensor:
+    """Uniform in ``[0, q)`` for ``q < 2^31``: ``floor(u64 * q / 2^64)`` of a
+    64-bit uniform from two words (bias below 2^-33), computed exactly in
+    int64 as ``(hi*q + (lo*q >> 32)) >> 32``."""
+    if not 1 < q < 1 << 31:
+        raise ValueError("sample_uniform needs 1 < q < 2^31")
+    lo = uniform_u32(generator, shape)
+    hi = uniform_u32(generator, shape)
+    return (hi * q + ((lo * q) >> 32)) >> 32
+
+
+def uniform_ternary(generator: torch.Generator, shape) -> torch.Tensor:
+    """Uniform in {-1, 0, 1} (int64): the NTRU secret's ``f'`` draw (the
+    reference draws it with numpy's ``integers(-1, 2)``; its
+    ``sample_ternary`` is another distribution)."""
+    return torch.randint(-1, 2, tuple(shape), generator=generator, dtype=torch.int64,
+                         device=generator.device)
 
 
 class DiscreteGaussian:
@@ -88,6 +108,10 @@ class DiscreteGaussian:
         idx = torch.searchsorted(cdf, u_shifted.reshape(-1), right=False)
         idx = idx.clamp_(max=offsets.shape[0] - 1)
         return offsets[idx].reshape(shape)
+
+    def sample_mod(self, generator: torch.Generator, shape, q: int) -> torch.Tensor:
+        """Samples wrapped into ``[0, q)`` (``q < 2^31``)."""
+        return self.sample_signed(generator, shape).remainder(q)
 
     def sample_torus32(self, generator: torch.Generator, shape) -> torch.Tensor:
         """Samples wrapped mod 2^32 (TFHE torus)."""

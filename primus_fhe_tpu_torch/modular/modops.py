@@ -94,3 +94,15 @@ def sum_mod32(t, m: BarrettModulus32, dim=-1):
     """
     s = t.sum(dim=dim)
     return reduce_once32(barrett_lazy_reduce_wide32(s & MASK32, s >> 32, m), m.value)
+
+
+def dot32(a, b, m: BarrettModulus32, dim: int = -1):
+    """Modular dot product ``sum_i a_i b_i mod q`` over ``dim``, canonical.
+
+    Each product is lazily reduced to ``[0, 2q)``; int64 sums up to 2^31 of
+    them exactly and one wide Barrett reduce finishes.  ``m`` broadcasts
+    against the output shape (a record of Python ints serves any shape).
+    """
+    m_l = m.map(lambda x: x.unsqueeze(dim) if isinstance(x, torch.Tensor) and x.dim() else x)
+    s = lazy_mul32(a, b, m_l).sum(dim=dim)
+    return reduce_once32(barrett_lazy_reduce_wide32(s & MASK32, s >> 32, m), m.value)

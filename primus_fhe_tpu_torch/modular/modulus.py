@@ -37,3 +37,13 @@ def barrett32(q, device=None) -> BarrettModulus32:
         t([r & 0xFFFFFFFF for r in ratios]),
         t([r >> 32 for r in ratios]),
     )
+
+
+def barrett32_int(q: int) -> BarrettModulus32:
+    """A :class:`BarrettModulus32` of Python ints for one modulus: every
+    modular op accepts it on any device without a copy."""
+    q = int(q)
+    if not 1 < q < 1 << 31:
+        raise ValueError("BarrettModulus32 requires 1 < q < 2^31")
+    ratio = (1 << 64) // q
+    return BarrettModulus32(q, ratio & 0xFFFFFFFF, ratio >> 32)

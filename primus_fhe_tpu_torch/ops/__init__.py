@@ -2,5 +2,11 @@
 
 - :mod:`.ntt32`: kernels 1 and 2, the 32-bit NTT and inverse NTT;
 - :mod:`.cmux_fused`: kernels 3 and 4, the two launches of a CMux step;
+- :mod:`.cmux_mxu`: kernel A, the one-launch int8 TFHE CMux step, its plan
+  and the MXU bootstrap-key preparation;
+- :mod:`.ntru_cmux_mxu`: kernel B, the one-launch int8 NGS CMux step, and
+  the MXU evaluation-key preparation;
+- :mod:`.ntt_mxu8`: kernel C, the int8 four-step forward NTT;
+- :mod:`.mxu_common`: the host four-step matrices;
 - :mod:`.build`: compiles ``csrc/`` with ``nvcc`` at first use and binds it.
 """

@@ -1,7 +1,8 @@
 """Builds the CUDA kernels of ``csrc/`` at first use and binds them with ctypes.
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds).
+Each source compiles with its own ``nvcc`` for ``sm_90a``, all of them at
+once, and one more ``nvcc`` links the objects into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds).
 The library lands in ``primus_fhe_tpu_torch/build/`` under a name derived
 from a hash of the sources and flags, so an edited source never loads a
 stale build.  Each C entry launches on the stream it is given and returns
@@ -22,11 +23,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("ntt32.cu", "cmux_fused.cu")
-HEADERS = ("modarith32.cuh",)
+SOURCES = ("ntt32.cu", "cmux_fused.cu", "cmux_mxu.cu", "ntt_mxu8.cu")
+HEADERS = ("modarith32.cuh", "mxu8.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -38,6 +39,9 @@ _SIGNATURES = {
     "pft_ntt32_inverse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pft_cmux_stage1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pft_cmux_stage2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pft_cmux_mxu": (_P,) * 13 + (_I, _I, _I, _I, _I, _P),
+    "pft_ntru_cmux_mxu": (_P,) * 12 + (_I, _I, _I, _P),
+    "pft_ntt_mxu8_forward": (_P,) * 6 + (_I, _I, _I, _P),
 }
 
 
@@ -60,21 +64,43 @@ def _digest() -> str:
 
 
 def build() -> tuple[Path, float, str]:
-    """Compiles the library if it is missing; returns (path, seconds, log)."""
+    """Compiles the library if it is missing; returns (path, seconds, log).
+
+    One ``nvcc -c`` per source, all started together, then one link."""
     so = BUILD_DIR / f"libpft_kernels_{_digest()}.so"
     log_path = so.with_suffix(".log")
     if so.exists():
         return so, 0.0, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"tmp{os.getpid()}_{so.name}")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp)]
-    cmd += [str(CSRC / s) for s in SOURCES]
+    tag = f"tmp{os.getpid()}_{so.stem}"
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for s in SOURCES:
+        obj = BUILD_DIR / f"{tag}_{Path(s).stem}.o"
+        objs.append(obj)
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(CSRC / s)]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs, failed = [], []
+    for s, proc in zip(SOURCES, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {s}\n{out}")
+        if proc.returncode != 0:
+            failed.append(s)
+    tmp = BUILD_DIR / f"{tag}.so"
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, so)
     return so, seconds, log

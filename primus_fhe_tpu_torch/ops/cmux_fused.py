@@ -39,6 +39,7 @@ import torch
 
 from ..lattice.tfhe import external_product_mac
 from ..numeric.limb import MASK32, narrow_u32, widen_u32
+from ..poly.poly import rot_index
 from . import build
 from .ntt32 import forward32_plain, inverse32_plain
 
@@ -47,16 +48,12 @@ def rotate_negacyclic(v: torch.Tensor, degrees: torch.Tensor) -> torch.Tensor:
     """``v * X^d`` mod ``X^n + 1`` over the torus, one degree per leading row.
 
     ``v``: ``(B, ..., n)`` words; ``degrees``: ``(B,)`` integers (any sign,
-    taken mod 2n).  ``(v*X^d)[c] = v[(c-d) mod n]``, negated when
-    ``(c - d) mod 2n >= n``.
+    taken mod 2n); index math of :func:`..poly.poly.rot_index`.
     """
-    n = v.shape[-1]
-    d = degrees.to(device=v.device, dtype=torch.int64).remainder(2 * n)
-    idx = (torch.arange(n, device=v.device) - d[:, None]).remainder(2 * n)  # (B, n)
-    shape = (v.shape[0],) + (1,) * (v.dim() - 2) + (n,)
-    idx = idx.reshape(shape).expand(v.shape)
-    g = torch.gather(v, -1, idx.remainder(n))
-    return torch.where(idx >= n, (-g) & MASK32, g)
+    deg = degrees.to(v.device).reshape((v.shape[0],) + (1,) * (v.dim() - 2))
+    idx, neg = rot_index(v.shape[-1], deg.expand(v.shape[:-1]))
+    g = torch.gather(v, -1, idx)
+    return torch.where(neg, (-g) & MASK32, g)
 
 
 def cmux_stage1_plain(conv, basis, acc: torch.Tensor, degrees: torch.Tensor) -> torch.Tensor:
@@ -80,10 +77,13 @@ def cmux_stage2_plain(conv, f: torch.Tensor, key: torch.Tensor, acc: torch.Tenso
 
 
 def _basis_pack(basis) -> np.ndarray:
-    """Host pack the stage-1 kernel unpacks into ``BasisConsts``."""
+    """Host pack of a gadget basis: the stage-1 kernel's ``BasisConsts``
+    reads the first 7 words, the MXU kernels' ``MxuBasis`` (mod-q mode) all
+    10."""
     return np.array(
         [basis.decompose_length, basis.log_basis, basis.drop_bits, basis.basis_minus_one,
-         basis.carry_mask, basis.modulus_minus_basis, basis.init_carry_mask or 0],
+         basis.carry_mask, basis.modulus_minus_basis, basis.init_carry_mask or 0,
+         basis.wrap_threshold or 0, basis.adjust_add, basis.modulus or 0],
         dtype=np.uint64,
     )
 

@@ -1,14 +1,15 @@
-"""Turnkey context construction for a TFHE parameter set (port of
-``make_context`` in ``primus_fhe_tpu/params.py``, NTT-domain key kind).
+"""Turnkey context construction for the TFHE and NTRU parameter sets (port of
+``make_context`` and ``make_ntru_context`` in ``primus_fhe_tpu/params.py``).
 
-The parameter records (``TfheParams``, ``TOY``, ``BOOLEAN_128``) are the
-JAX package's own, which import no JAX.  Three noise widths are kept apart,
-as in the reference:
+The parameter records (``TfheParams``, ``TOY``, ``BOOLEAN_128``,
+``NtruParams``, ``NTRU_128``) are the JAX package's own, which import no
+JAX.  Noise widths are kept apart, as in the reference:
 
-- the bootstrap key is GLWE-encrypted at ``glwe_sigma``;
-- key-switch-key rows are LWE samples at ``lwe_sigma``;
-- fresh encryptions (:meth:`TfheContext.encrypt`) are sampled at
-  ``lwe_sigma``.
+- TFHE: the bootstrap key is GLWE-encrypted at ``glwe_sigma``;
+  key-switch-key rows and fresh encryptions are LWE samples at
+  ``lwe_sigma``;
+- NTRU: the secret's evaluation key (NGS rows) at ``sigma``; key-switch-key
+  rows and fresh encryptions at ``lwe_sigma``.
 """
 
 from __future__ import annotations
@@ -19,26 +20,40 @@ import numpy as np
 import torch
 
 from primus_fhe_tpu import noise
-from primus_fhe_tpu.params import BOOLEAN_128, TOY, TfheParams
+from primus_fhe_tpu.params import BOOLEAN_128, NTRU_128, TOY, NtruParams, TfheParams
 
-from .boot.blind_rotate import make_bootstrap_key
+from .boot.blind_rotate import make_bootstrap_key, make_bootstrap_key_mxu
 from .boot.gates import FALSE_MU, TRUE_MU
+from .boot.ntru_blind_rotate import (
+    NtruContext,
+    NtruSecret,
+    make_ntru_keyswitch_key,
+    ngs_encrypt_bit,
+    ntru_keygen,
+    ntru_secret,
+)
 from .decompose.primitive import ApproxSignedBasis32
-from .distr.sampling import DiscreteGaussian, sample_binary
+from .distr.sampling import DiscreteGaussian, sample_binary, sample_uniform
 from .lattice import keyswitch, tfhe
 from .lattice.lwe import encrypt_torus32, phase_torus32
+from .lattice.ntru import to_ntt
+from .ops.ntru_cmux_mxu import prepare_mxu_evk
 
 __all__ = [
-    "BOOLEAN_128", "TOY", "TfheContext", "TfheParams", "from_jax_context",
-    "gate_noise_stddev", "make_context",
+    "BOOLEAN_128", "NTRU_128", "NtruGateKeys", "NtruParams", "TOY", "TfheContext", "TfheParams",
+    "from_jax_context", "from_jax_ntru_context", "gate_noise_stddev", "make_context",
+    "make_ntru_context", "make_ntru_keys",
 ]
+
+BSK_KINDS = ("auto", "ntt", "mxu")
 
 
 @dataclasses.dataclass
 class TfheContext:
     """Everything needed to evaluate: keys, bases, convolver, samplers.
 
-    ``bsk``: ``(n_lwe, kp, k+1, L, k+1, N)`` NTT-domain GGSW rows;
+    ``bsk``: ``(n_lwe, kp, k+1, L, k+1, N)`` NTT-domain GGSW rows, or the
+    MXU pack ``(vals, precons)``, each ``(n_lwe, kp, k+1, L, k+1, A, 128)``;
     ``ksk``: ``(k*N, ks_level, n_lwe+1)``; secrets as 0/1 int64 tensors.
     """
 
@@ -49,12 +64,12 @@ class TfheContext:
     gaussian: DiscreteGaussian  # LWE side (lwe_sigma)
     lwe_secret: torch.Tensor
     glwe_secret: torch.Tensor
-    bsk: torch.Tensor
+    bsk: torch.Tensor | tuple
     ksk: torch.Tensor
 
     @property
     def device(self) -> torch.device:
-        return self.bsk.device
+        return self.ksk.device
 
     def encrypt(self, bits, generator: torch.Generator) -> torch.Tensor:
         """Fresh LWE encryptions ``(..., n_lwe+1)`` of booleans ``bits``
@@ -80,11 +95,26 @@ def _bases(p: TfheParams):
     return basis, ks_basis, conv
 
 
-def make_context(params: TfheParams, device, generator: torch.Generator) -> TfheContext:
+def _resolve_bsk_kind(p: TfheParams, bsk_kind: str) -> str:
+    """``"auto"`` is ``"ntt"``: the route whose card numbers exist; ``"mxu"``
+    needs ``log_n >= 8`` (128 lanes of the natural layout)."""
+    if bsk_kind not in BSK_KINDS:
+        raise ValueError(f"bsk_kind must be one of {BSK_KINDS}")
+    if bsk_kind == "mxu" and p.log_n < 8:
+        raise ValueError("bsk_kind='mxu' needs log_n >= 8")
+    return "ntt" if bsk_kind == "auto" else bsk_kind
+
+
+def make_context(params: TfheParams, device, generator: torch.Generator,
+                 bsk_kind: str = "auto") -> TfheContext:
     """Generates secrets and evaluation keys for a parameter set on
     ``device``, drawing every random word from ``generator`` (which must
-    live on ``device``)."""
+    live on ``device``).  ``bsk_kind`` picks the bootstrap key: ``"ntt"``
+    (the two-kernel CMux), ``"mxu"`` (the int8 one-kernel CMux) or
+    ``"auto"`` (``"ntt"``).  Both kinds hold the same GGSW material for the
+    same generator state."""
     p = params
+    kind = _resolve_bsk_kind(p, bsk_kind)
     device = torch.device(device)
     if generator.device.type != device.type:
         raise ValueError("the generator must live on the context's device")
@@ -93,32 +123,39 @@ def make_context(params: TfheParams, device, generator: torch.Generator) -> Tfhe
     glwe_gaussian = DiscreteGaussian(max(p.glwe_sigma, 1e-6))
     lwe_secret = sample_binary(generator, (p.lwe_dim,))
     glwe_secret = sample_binary(generator, (p.glwe_dim, p.n))
-    bsk = make_bootstrap_key(lwe_secret, glwe_secret, basis, glwe_gaussian, conv, generator)
+    make = make_bootstrap_key_mxu if kind == "mxu" else make_bootstrap_key
+    bsk = make(lwe_secret, glwe_secret, basis, glwe_gaussian, conv, generator)
     ksk = keyswitch.make_keyswitch_key(
         glwe_secret.reshape(-1), lwe_secret, ks_basis, gaussian, generator
     )
     return TfheContext(p, basis, ks_basis, conv, gaussian, lwe_secret, glwe_secret, bsk, ksk)
 
 
+def _t(x, device):
+    return torch.from_numpy(np.asarray(x).astype(np.int64)).to(device)
+
+
 def from_jax_context(params: TfheParams, bsk, ksk, lwe_secret, glwe_secret,
                      device="cpu") -> TfheContext:
     """The port's context over keys made by the JAX package.
 
-    Arrays come as numpy (``np.asarray`` of the JAX context's fields, NTT
-    key kind): ``bsk (n_lwe, kp, k+1, L, k+1, N)``, ``ksk (n_in, L,
-    n_out+1)``, ``lwe_secret (n_lwe,)``, ``glwe_secret (k, N)``.
+    Arrays come as numpy (``np.asarray`` of the JAX context's fields):
+    ``bsk`` the NTT key ``(n_lwe, kp, k+1, L, k+1, N)`` or the MXU pack
+    ``(vals, precons)``, ``ksk (n_in, L, n_out+1)``, ``lwe_secret
+    (n_lwe,)``, ``glwe_secret (k, N)``.
     """
     basis, ks_basis, conv = _bases(params)
-
-    def t(x):
-        return torch.from_numpy(np.asarray(x).astype(np.int64)).to(device)
-
-    bsk_t = t(bsk)
-    if bsk_t.shape[1] != conv.count:
-        raise ValueError(f"bsk has {bsk_t.shape[1]} primes, the convolver {conv.count}")
+    if isinstance(bsk, (tuple, list)):
+        bsk_t = tuple(_t(x, device) for x in bsk)
+        kp = bsk_t[0].shape[1]
+    else:
+        bsk_t = _t(bsk, device)
+        kp = bsk_t.shape[1]
+    if kp != conv.count:
+        raise ValueError(f"bsk has {kp} primes, the convolver {conv.count}")
     return TfheContext(
         params, basis, ks_basis, conv, DiscreteGaussian(max(params.lwe_sigma, 1e-6)),
-        t(lwe_secret), t(glwe_secret), bsk_t, t(ksk),
+        _t(lwe_secret, device), _t(glwe_secret, device), bsk_t, _t(ksk, device),
     )
 
 
@@ -133,3 +170,94 @@ def gate_noise_stddev(p: TfheParams) -> float:
         br, p.lwe_sigma, p.glwe_dim * p.n, p.ks_level, p.ks_log_basis, ks_basis.drop_bits
     )
     return out.stddev
+
+
+# -- NTRU ---------------------------------------------------------------------
+
+
+def make_ntru_context(params: NtruParams = NTRU_128):
+    """``(NtruContext, ks_basis)`` of a named NTRU profile (``t_scale=8``)."""
+    ctx = NtruContext(params.log_n, params.q, params.log_basis, params.level, t_scale=8)
+    return ctx, ApproxSignedBasis32(params.q, params.ks_log_basis, params.ks_level)
+
+
+@dataclasses.dataclass
+class NtruGateKeys:
+    """Keys of the NTRU gate family and the LWE side around them.
+
+    ``evk``: NTT-domain ``(n_lwe, L, N)``; ``evk_mxu``: the MXU pack
+    ``(vals, precons)`` of the same NGS material (``None`` where absent);
+    ``ksk``: ``(N, ks_level, n_lwe+1)`` mod q; ``lwe_secret``: 0/1.
+    """
+
+    params: NtruParams
+    ctx: NtruContext
+    ks_basis: ApproxSignedBasis32
+    sk: NtruSecret
+    lwe_secret: torch.Tensor
+    evk: torch.Tensor | None
+    evk_mxu: tuple | None
+    ksk: torch.Tensor
+    gaussian: DiscreteGaussian  # LWE side (lwe_sigma)
+
+    @property
+    def device(self) -> torch.device:
+        return self.ksk.device
+
+    def encrypt(self, bits, generator: torch.Generator) -> torch.Tensor:
+        """Fresh LWE encryptions ``(..., n_lwe+1)`` mod q of booleans
+        (TRUE = +(q-1)/8, FALSE = -(q-1)/8), noise at lwe_sigma."""
+        q = self.ctx.q_int
+        bits = torch.as_tensor(bits, device=self.device).to(torch.bool)
+        t = (q - 1) // 8
+        mu = torch.where(bits, t, q - t).to(torch.int64)
+        a = sample_uniform(generator, tuple(mu.shape) + (self.lwe_secret.shape[0],), q)
+        e = self.gaussian.sample_mod(generator, mu.shape, q)
+        b = ((a * self.lwe_secret).sum(dim=-1) + mu + e) % q
+        return torch.cat([a, b.unsqueeze(-1)], dim=-1)
+
+    def phase(self, ct: torch.Tensor) -> torch.Tensor:
+        """Centered phase ``b - <a, s>`` in ``(-q/2, q/2]`` (int64)."""
+        q = self.ctx.q_int
+        n = self.lwe_secret.shape[0]
+        ph = (ct[..., n] - (ct[..., :n] * self.lwe_secret).sum(dim=-1)) % q
+        return torch.where(ph > q // 2, ph - q, ph)
+
+    def decrypt(self, ct: torch.Tensor) -> torch.Tensor:
+        return self.phase(ct) > 0
+
+
+def make_ntru_keys(params: NtruParams, device, generator: torch.Generator) -> NtruGateKeys:
+    """NTRU secret, binary LWE secret, both evaluation-key forms (the MXU
+    pack for ``log_n >= 8``) from one set of NGS draws, and the key-switch
+    key, all on ``device`` from ``generator``."""
+    device = torch.device(device)
+    if generator.device.type != device.type:
+        raise ValueError("the generator must live on the keys' device")
+    ctx, ks_basis = make_ntru_context(params)
+    sk = ntru_keygen(generator, ctx)
+    s = sample_binary(generator, (params.lwe_dim,))
+    evk_coeff = ngs_encrypt_bit(generator, ctx, sk, s, DiscreteGaussian(params.sigma))
+    lwe_gauss = DiscreteGaussian(params.lwe_sigma)
+    ksk = make_ntru_keyswitch_key(generator, ctx, sk, s, ks_basis, lwe_gauss)
+    evk_mxu = prepare_mxu_evk(ctx, evk_coeff) if params.log_n >= 8 else None
+    return NtruGateKeys(params, ctx, ks_basis, sk, s, to_ntt(evk_coeff, ctx.ntt), evk_mxu, ksk,
+                        lwe_gauss)
+
+
+def from_jax_ntru_context(params: NtruParams, f, evk, ksk, lwe_secret,
+                          device="cpu") -> NtruGateKeys:
+    """The port's NTRU keys over keys made by the JAX package: numpy arrays
+    of the secret's coefficients ``f (N,)``, the evaluation key (NTT-domain
+    ``(n_lwe, L, N)`` or the MXU pair ``(vals, precons)``), the key-switch
+    key and the binary LWE secret."""
+    ctx, ks_basis = make_ntru_context(params)
+    sk = ntru_secret(ctx, _t(f, device))
+    if sk is None:
+        raise ValueError("f is not invertible mod q")
+    if isinstance(evk, (tuple, list)):
+        evk_t, evk_mxu = None, tuple(_t(x, device) for x in evk)
+    else:
+        evk_t, evk_mxu = _t(evk, device), None
+    return NtruGateKeys(params, ctx, ks_basis, sk, _t(lwe_secret, device), evk_t, evk_mxu,
+                        _t(ksk, device), DiscreteGaussian(params.lwe_sigma))

@@ -1,7 +1,9 @@
-"""Kernels 1-4 against their plain PyTorch versions on a CUDA card, at shapes
-``chip_smoke.py`` does not reach: N from 32 (16 threads a block) to 4096,
-three primes, the 2^1 x 12 gadget in stage 1, k=2, odd batches, and int32
-storage.  Tolerance: zero (bit-equal).
+"""Kernels 1-4 and A-C against their plain PyTorch versions on a CUDA card, at
+shapes ``chip_smoke.py`` does not reach: N from 32 (16 threads a block) to
+4096, three primes, the 2^1 x 12 gadget in stage 1, k=2, odd batches, and
+int32 storage; for the int8 kernels log_n 8-11, k=1 and 2, L 2-4, 1- and
+2-byte digits, and NTRU moduli of 20 and 30 bits.  Tolerance: zero
+(bit-equal).
 
 The kernels have no CPU mode, so every test here needs the card and skips
 without one.  On the card (the root conftest imports JAX, which that
@@ -10,14 +12,20 @@ machine lacks, hence ``--noconftest``)::
     python -m pytest --noconftest -m cuda -q tests/test_torch_cuda_kernels.py
 """
 
+import dataclasses
+
 import pytest
 import torch
+
+from primus_fhe_tpu.utils.primes import next_ntt_prime
 
 from primus_fhe_tpu_torch import params as P
 from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap
 from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
 from primus_fhe_tpu_torch.lattice import tfhe
-from primus_fhe_tpu_torch.ops import cmux_fused, ntt32
+from primus_fhe_tpu_torch.boot import ntru_gates
+from primus_fhe_tpu_torch.boot.ntru_blind_rotate import NtruContext
+from primus_fhe_tpu_torch.ops import cmux_fused, cmux_mxu, ntru_cmux_mxu, ntt32, ntt_mxu8
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +102,82 @@ def test_launch_counts_and_toy_bootstrap(dev):
     assert after[1] - before[1] == ctx.params.lwe_dim
     cpu = bootstrap(ctx.conv, ctx.basis, ctx.bsk.cpu(), cts.cpu(), tp.cpu(), ctx.params.log_n)
     assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.parametrize("log_n,kp", [(8, 1), (9, 2), (10, 3), (11, 2)])
+def test_mxu8_forward_matches_plain(dev, log_n, kp):
+    plan = cmux_mxu.CmuxMxuPlan(log_n, PRIMES3[:kp])
+    gen = torch.Generator(device=dev).manual_seed(log_n)
+    x = _residues(gen, PRIMES3[:kp], (5, 1 << log_n), 1, dev)
+    want = ntt_mxu8.mxu8_forward32_plain(plan, x)
+    assert torch.equal(ntt_mxu8.mxu8_forward32(plan, x), want)
+    assert torch.equal(ntt_mxu8.mxu8_forward32(plan, x.to(torch.int32)).to(torch.int64), want)
+
+
+@pytest.mark.parametrize(
+    "log_n,log_basis,level,k",
+    [(8, 8, 2, 1), (9, 10, 2, 2), (10, 4, 4, 1), (11, 7, 3, 1), (11, 7, 3, 2)],
+)
+def test_mxu_cmux_step_matches_plain(dev, log_n, log_basis, level, k):
+    n, k1 = 1 << log_n, k + 1
+    conv = tfhe.make_convolver(log_n, level, k, log_basis)
+    basis = ApproxSignedBasis32(None, log_basis, reverse_length=level)
+    plan = cmux_mxu.plan_for(conv)
+    gen = torch.Generator(device=dev).manual_seed(log_n * 10 + k)
+    acc = torch.randint(0, 1 << 32, (4, k1, n), generator=gen, device=dev)
+    degrees = torch.tensor([0, 1, n, 2 * n - 1], dtype=torch.int32, device=dev)
+    ggsw = torch.randint(0, 1 << 32, (1, k1, level, k1, n), generator=gen, device=dev)
+    kv, kpre = cmux_mxu.prepare_mxu_bsk(conv, ggsw)
+    want = cmux_mxu.mxu_cmux_step_plain(conv, basis, acc, degrees, kv[0])
+    got = cmux_mxu.mxu_cmux_step(plan, basis, conv, acc, degrees, kv[0], kpre[0])
+    assert torch.equal(got, want)
+    one = cmux_mxu.mxu_cmux_step(plan, basis, conv, acc[:1].to(torch.int32), degrees[:1],
+                                 kv[0], kpre[0])
+    assert torch.equal(one.to(torch.int64) & 0xFFFFFFFF, want[:1])
+
+
+@pytest.mark.parametrize("log_n,q_bits,log_basis,level", [(10, 20, 3, 6), (8, 30, 10, 3),
+                                                          (11, 22, 4, 4), (9, 20, 1, 16)])
+def test_ntru_cmux_step_matches_plain(dev, log_n, q_bits, log_basis, level):
+    n, q = 1 << log_n, next_ntt_prime(q_bits, log_n)
+    plan = ntru_cmux_mxu.get_ntru_plan(log_n, q)
+    basis = ApproxSignedBasis32(q, log_basis, level)
+    gen = torch.Generator(device=dev).manual_seed(q_bits)
+    acc = torch.randint(0, q, (5, n), generator=gen, device=dev)
+    acc[0, :3] = torch.tensor([0, q - 1, basis.wrap_threshold or 1])
+    degrees = torch.tensor([0, 1, n, 2 * n - 1, 7], dtype=torch.int32, device=dev)
+    coeff = torch.randint(0, q, (1, level, n), generator=gen, device=dev)
+    kv, kpre = ntru_cmux_mxu.prepare_mxu_evk(NtruContext(log_n, q, log_basis, level), coeff)
+    want = ntru_cmux_mxu.ntru_cmux_step_plain(plan, basis, acc, degrees, kv[0])
+    got = ntru_cmux_mxu.ntru_cmux_step(plan, basis, acc, degrees, kv[0], kpre[0])
+    assert torch.equal(got, want)
+
+
+def test_mxu_bootstrap_and_ntru_gate(dev):
+    """A small MXU-route TFHE bootstrap and an NTRU NAND on the card equal
+    their CPU runs on the same keys; kernels A and B launch once per key
+    slice."""
+    p = dataclasses.replace(P.TOY, log_n=8, lwe_dim=6)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    ctx = P.make_context(p, dev, gen, bsk_kind="mxu")
+    cts = ctx.encrypt(torch.tensor([0, 1, 1], device=dev), gen)
+    tp = torch.full((p.n,), 1 << 29, dtype=torch.int64, device=dev)
+    before = cmux_mxu.mxu_cmux_step.launches
+    out = bootstrap(ctx.conv, ctx.basis, ctx.bsk, cts, tp, p.log_n)
+    assert cmux_mxu.mxu_cmux_step.launches - before == p.lwe_dim
+    cpu_bsk = tuple(x.cpu() for x in ctx.bsk)
+    assert torch.equal(out.cpu(), bootstrap(ctx.conv, ctx.basis, cpu_bsk, cts.cpu(), tp.cpu(),
+                                            p.log_n))
+
+    keys = P.make_ntru_keys(dataclasses.replace(P.NTRU_128, log_n=8, lwe_dim=8, lwe_sigma=4.0),
+                            dev, gen)
+    ca, cb = keys.encrypt([0, 0, 1, 1], gen), keys.encrypt([0, 1, 0, 1], gen)
+    before = ntru_cmux_mxu.ntru_cmux_step.launches
+    got = ntru_gates.ntru_nand(keys.ctx, keys.evk_mxu, keys.ksk, keys.ks_basis, ca, cb)
+    assert ntru_cmux_mxu.ntru_cmux_step.launches - before == keys.params.lwe_dim
+    ntt = ntru_gates.ntru_nand(keys.ctx, keys.evk, keys.ksk, keys.ks_basis, ca, cb)
+    assert torch.equal(got, ntt)
+    cpu = ntru_gates.ntru_nand(keys.ctx, tuple(x.cpu() for x in keys.evk_mxu), keys.ksk.cpu(),
+                               keys.ks_basis, ca.cpu(), cb.cpu())
+    assert torch.equal(got.cpu(), cpu)
+    assert keys.decrypt(got).int().tolist() == [1, 1, 1, 0]

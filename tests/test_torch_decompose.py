@@ -1,6 +1,8 @@
 """Port vs reference: ``ApproxSignedBasis32`` in torus mode, including the
-BOOLEAN_128 key-switch gadget (2^1 x 12) and bootstrap gadget (2^7 x 3).
-Tolerance: zero (bit-equal digits)."""
+BOOLEAN_128 key-switch gadget (2^1 x 12) and bootstrap gadget (2^7 x 3), and
+in mod-q mode, including the NTRU_128 gadgets (2^3 x 6 and 2^1 x 16 mod
+q = 1038337) with values at and around ``wrap_threshold``.  Tolerance: zero
+(bit-equal digits)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +49,37 @@ def test_digits_recompose_within_drop_error(log_basis, level):
     assert int(err.abs().max()) <= port.approximate_error_bound
 
 
+MODQ_FIELDS = FIELDS + ("modulus", "value_bits", "wrap_threshold", "adjust_add")
+Q_NTRU = 1038337  # NTRU_128's q = next_ntt_prime(20, 10)
+
+
 def test_mod_q_mode_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ApproxSignedBasis32(1073692673, 8)
+    """The mod-q mode is ported now: its derived parameters equal the
+    reference's for a 30-bit prime, where no wrap threshold exists."""
+    port = ApproxSignedBasis32(1073692673, 8)
+    ref = JaxBasis(1073692673, 8)
+    for name in MODQ_FIELDS:
+        assert getattr(port, name) == getattr(ref, name), name
+
+
+@pytest.mark.parametrize(
+    "q,log_basis,level",
+    [(Q_NTRU, 3, 6), (Q_NTRU, 1, 16), (Q_NTRU, 4, None), (1073692673, 10, 3), (257, 1, None),
+     (1048573, 1, 17)],  # the last: log_basis 1 with a wrap threshold
+)
+def test_mod_q_decompose_matches_reference(q, log_basis, level):
+    port = ApproxSignedBasis32(q, log_basis, reverse_length=level)
+    ref = JaxBasis(q, log_basis, reverse_length=level)
+    for name in MODQ_FIELDS:
+        assert getattr(port, name) == getattr(ref, name), name
+    rng = np.random.default_rng(q % 1000 + log_basis)
+    v = rng.integers(0, q, 4096, dtype=np.int64)
+    edge = [0, 1, q - 1, q // 2, q // 2 + 1]
+    thr = ref.wrap_threshold
+    if thr is not None:
+        edge += [thr - 1, thr, thr + 1]
+    v[: len(edge)] = edge
+    got = port.decompose(torch.from_numpy(v).reshape(4, 1024))
+    want = np.asarray(ref.decompose(jnp.asarray(v.astype(np.uint32).reshape(4, 1024))))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    assert int(got.max()) < q

@@ -20,6 +20,16 @@ MODULES = [
     "primus_fhe_tpu_torch.ops.build",
     "primus_fhe_tpu_torch.distr.sampling",
     "primus_fhe_tpu_torch.transforms.torus",
+    "primus_fhe_tpu_torch.ops.mxu_common",
+    "primus_fhe_tpu_torch.ops.cmux_mxu",
+    "primus_fhe_tpu_torch.ops.ntt_mxu8",
+    "primus_fhe_tpu_torch.ops.ntru_cmux_mxu",
+    "primus_fhe_tpu_torch.boot.ntru_blind_rotate",
+    "primus_fhe_tpu_torch.boot.ntru_gates",
+    "primus_fhe_tpu_torch.lattice.ntru",
+    "primus_fhe_tpu_torch.poly",
+    "primus_fhe_tpu_torch.decompose.primitive",
+    "primus_fhe_tpu_torch.modular.modops",
 ]
 
 
