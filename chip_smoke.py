@@ -37,7 +37,18 @@ non-zero):
    evaluation keys (MXU: kernel B; NTT: kernels 1-2) with launch counts,
    the gate-output phase error and decision margin, one bootstrap through
    kernel B, through kernels 1-2 and through the plain versions on the CPU
-   (the same words), and latency and gates/s on both routes.
+   (the same words), and latency and gates/s on both routes;
+10. the RNS/DCRT blind rotation at N=4096 over the two 50-bit moduli of
+    ``bench_dcrt.py`` (L=4 levels of 2^25, k=1, n_lwe=630, sigma 3.2,
+    binary secrets): the four u64 NTT kernels against their plain versions
+    at the rotation's shapes (batch 1 and 16), key generation on the card,
+    the rotation at batch 1 and 16 on the MXU route (``"auto"``) and the
+    butterfly route (the same words) with exact launch counts, the same
+    rotation on the CPU through the plain versions (the first 64 key slices
+    when all 630 would take over a minute there), decryption within delta/4
+    with the phase error beside the noise estimate, and per route the
+    rotation ms at batch 1, CMux/s at batch 16, the device's idle share, top
+    device rows and host ops per step.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -134,6 +145,40 @@ def compare_kernel(torch, table, name, bsz, kern, kern32, plain):
     table.setdefault(name, {})[bsz] = (err, ms, plain_ms, dev_ms)
 
 
+def compare_kernel64(torch, table, name, bsz, kern, plain):
+    """Holds ``kern`` against ``plain`` (int64 u64 words) bit for bit, then
+    times both (CUDA events) and the kernel's device time (profiler)."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{name} batch {bsz}: kernel != plain ({bad} words differ)")
+    ms = cuda_ms(torch, kern, KERNEL_REPS)
+    plain_ms = cuda_ms(torch, plain, KERNEL_REPS)
+    dev_ms, _ = device_time(torch, kern, KERNEL_REPS)
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    log(f"{name:22s} batch {bsz:3d} shape {tuple(got.shape)}: bit-equal; "
+        f"wrapper {ms:.4f} ms (device {dev_txt}), plain {plain_ms:.4f} ms")
+    table.setdefault(name, {})[bsz] = (0, ms, plain_ms, dev_ms)
+
+
+def count_host_ops(torch, fn) -> int:
+    """PyTorch operators dispatched by ``fn`` (each one a host-side call,
+    most of them one kernel launch on the card)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
 def time_gate(torch, label, gate, boot, ks, check):
     """Truth-checks ``gate`` once, then its host-clock latency, the
     bootstrap and key-switch parts, and the profiler's device split."""
@@ -155,6 +200,208 @@ def time_gate(torch, label, gate, boot, ks, check):
         for ms_, count, key_ in rows[:6]:
             log(f"    {ms_:9.3f} ms  x{count:<5d} {key_[:90]}")
     return mean
+
+
+DCRT_LOG_N = 12
+DCRT_MODULI = [1125899906826241, 1125899906629633]  # bench_dcrt.py's 2 x 50-bit
+DCRT_LOG_BASIS = 25  # L = 4 levels over Q ~ 2^100 (bench_dcrt.py)
+DCRT_N_LWE = 630  # BOOLEAN_128's LWE dimension
+DCRT_BATCH = 16  # bench_dcrt.py's batch
+DCRT_SIGMA = 3.2
+DCRT_CPU_SLICES = 64
+DCRT_PROFILE_STEPS = 16
+
+
+def phase10_dcrt(torch, dev, table) -> dict:
+    """Phase 10: the RNS/DCRT blind rotation at full width.  Returns the
+    launch counts of the rotations (the main path of this phase)."""
+    import math
+
+    import numpy as np
+
+    from primus_fhe_tpu_torch.boot import dcrt_blind_rotate as dbr
+    from primus_fhe_tpu_torch.decompose import BigUintApproxSignedBasis
+    from primus_fhe_tpu_torch.distr import DiscreteGaussian, sample_binary
+    from primus_fhe_tpu_torch.lattice import dcrt
+    from primus_fhe_tpu_torch.numeric.bigint import big_to_ints
+    from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
+    from primus_fhe_tpu_torch.rns import RNSBase64
+    from primus_fhe_tpu_torch.transforms import dcrt as td
+
+    n, n_lwe, k = 1 << DCRT_LOG_N, DCRT_N_LWE, 1
+    k1 = k + 1
+    base = RNSBase64(DCRT_MODULI)
+    basis = BigUintApproxSignedBasis(base, DCRT_LOG_BASIS)
+    level = basis.decompose_length
+    plan = td.build_dcrt_plan64(DCRT_LOG_N, DCRT_MODULI)
+    Q = base.q_product
+    log(f"DCRT: N={n} moduli={DCRT_MODULI} (Q = 2^{Q.bit_length() - 1}.x) L={level} x "
+        f"2^{DCRT_LOG_BASIS} k={k} n_lwe={n_lwe} sigma={DCRT_SIGMA} batch {DCRT_BATCH}; "
+        f"MXU tier {plan.mxu.planes} byte planes, route 'auto' = {td.resolve_route(plan)!r}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def residues(rows):
+        return torch.stack([torch.randint(0, q, (rows, n), generator=g, device=dev)
+                            for q in DCRT_MODULI])
+
+    # -- 1. the four kernels at the rotation's shapes ----------------------------
+    log("-- 10.1: the u64 NTT kernels vs plain versions (bit-equal)")
+    for bsz in (1, DCRT_BATCH):
+        f_in, i_in = residues(k1 * level * bsz), residues(k1 * bsz)
+        compare_kernel64(torch, table, "ntt64_forward", bsz,
+                         lambda: ntt64.ntt64_forward(plan.ntt, f_in),
+                         lambda: ntt64.ntt64_forward_plain(plan.ntt, f_in))
+        compare_kernel64(torch, table, "ntt64_inverse", bsz,
+                         lambda: ntt64.ntt64_inverse(plan.ntt, i_in),
+                         lambda: ntt64.ntt64_inverse_plain(plan.ntt, i_in))
+        compare_kernel64(torch, table, "mxu8_forward64", bsz,
+                         lambda: ntt_mxu8.mxu8_forward64(plan.mxu, f_in),
+                         lambda: ntt_mxu8.mxu8_forward64_plain(plan.mxu, f_in))
+        compare_kernel64(torch, table, "mxu8_inverse64", bsz,
+                         lambda: ntt_mxu8.mxu8_inverse64(plan.mxu, i_in),
+                         lambda: ntt_mxu8.mxu8_inverse64_plain(plan.mxu, i_in))
+
+    # -- 2. key generation on the card ---------------------------------------------
+    log("-- 10.2: DCRT bootstrap key on the card")
+    gk = torch.Generator(device=dev).manual_seed(SEED + 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, secret = dcrt.dcrt_glwe_secret(gk, k, plan)
+    lwe_secret = sample_binary(gk, (n_lwe,))
+    bsk = dbr.make_dcrt_bootstrap_key(gk, lwe_secret, secret, basis, DiscreteGaussian(DCRT_SIGMA),
+                                      plan, base)
+    torch.cuda.synchronize()
+    log(f"keygen: {time.perf_counter() - t0:.3f} s for {n_lwe} DCRT GGSWs, bsk "
+        f"{tuple(bsk.shape)} = {bsk.numel() * 8 / 1e6:.1f} MB")
+
+    # the test vector v_j = (j+1) delta on the body, and random LWE inputs
+    delta = Q >> 8
+    v = np.array([(j + 1) * delta % Q for j in range(n)], dtype=object)
+    acc_coeff = torch.zeros((len(DCRT_MODULI), k1, n), dtype=torch.int64, device=dev)
+    for mi, q in enumerate(DCRT_MODULI):
+        acc_coeff[mi, 1] = torch.tensor([int(x % q) for x in v], dtype=torch.int64, device=dev)
+    acc0 = td.dcrt_forward64_fast(plan, acc_coeff)
+    accs = acc0.unsqueeze(0).expand(DCRT_BATCH, -1, -1, -1).contiguous()
+    lwe = torch.randint(0, 2 * n, (DCRT_BATCH, n_lwe + 1), generator=g, device=dev)
+    args = (plan, basis, base, bsk)
+
+    # -- 3. the rotation on both routes, counted ----------------------------------
+    log("-- 10.3: rotation at batch 1 and 16 on route 'auto' (MXU kernels) and 'butterfly'")
+    kernels = {"ntt64_forward": ntt64.ntt64_forward, "ntt64_inverse": ntt64.ntt64_inverse,
+               "mxu8_forward64": ntt_mxu8.mxu8_forward64,
+               "mxu8_inverse64": ntt_mxu8.mxu8_inverse64}
+    own = {"auto": ("mxu8_forward64", "mxu8_inverse64"),
+           "butterfly": ("ntt64_forward", "ntt64_inverse")}
+    outs, counts = {}, {}
+    for route in ("auto", "butterfly"):
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        outs[route, DCRT_BATCH] = dbr.dcrt_blind_rotate_batched(*args, lwe, accs, route=route)
+        outs[route, 1] = dbr.dcrt_blind_rotate(*args, lwe[0], acc0, route=route)
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in kernels.items()}
+        log(f"[{route}] launches: {json.dumps(got)}")
+        # one forward call (all k+1 rows x L levels x batch x moduli) and one
+        # inverse call per CMux step, per rotation
+        want = {name: (2 * n_lwe if name in own[route] else 0) for name in kernels}
+        if got != want:
+            raise AssertionError(f"[{route}] launch counts {got}, want {want} (forward and "
+                                 f"inverse: 1 per step x {n_lwe} steps x 2 rotations)")
+        counts.update({name: got[name] for name in own[route]})
+    log(f"launch counts exact: per route, forward = inverse = {n_lwe} steps x 2 rotations "
+        f"(batch 1, batch {DCRT_BATCH}) = {2 * n_lwe}; the other route's kernels 0")
+    for bsz in (1, DCRT_BATCH):
+        if not torch.equal(outs["auto", bsz], outs["butterfly", bsz]):
+            raise AssertionError(f"batch {bsz}: the MXU and butterfly routes differ")
+    if not torch.equal(outs["auto", 1], outs["auto", DCRT_BATCH][0]):
+        raise AssertionError("the single rotation differs from row 0 of the batched one")
+    log(f"both routes: the same {outs['auto', DCRT_BATCH].numel()} words at batch "
+        f"{DCRT_BATCH} and {outs['auto', 1].numel()} at batch 1 (= row 0 of the batch)")
+
+    # -- 4. the same rotation on the CPU through the plain versions --------------
+    cut = torch.cat([lwe[:1, :DCRT_CPU_SLICES], lwe[:1, -1:]], dim=1)
+    cpu_bsk = bsk[:DCRT_CPU_SLICES].cpu()
+    t0 = time.perf_counter()
+    out_cpu = dbr.dcrt_blind_rotate_batched(plan, basis, base, cpu_bsk, cut.cpu(),
+                                            acc0.unsqueeze(0).cpu())
+    cpu_s = time.perf_counter() - t0
+    est_s = cpu_s * n_lwe / DCRT_CPU_SLICES
+    out_gpu = dbr.dcrt_blind_rotate_batched(plan, basis, base, bsk[:DCRT_CPU_SLICES], cut,
+                                            acc0.unsqueeze(0))
+    if not torch.equal(out_gpu.cpu(), out_cpu):
+        raise AssertionError("DCRT rotation on cuda and on cpu differ")
+    if est_s < 60:
+        t0 = time.perf_counter()
+        full_cpu = dbr.dcrt_blind_rotate(plan, basis, base, bsk.cpu(), lwe[0].cpu(), acc0.cpu())
+        if not torch.equal(outs["auto", 1].cpu(), full_cpu):
+            raise AssertionError("full DCRT rotation on cuda and on cpu differ")
+        log(f"cpu plain versions, all {n_lwe} key slices: the same words as cuda "
+            f"({time.perf_counter() - t0:.1f} s on the cpu)")
+    else:
+        log(f"cpu plain versions, the first {DCRT_CPU_SLICES} of {n_lwe} key slices only "
+            f"(all {n_lwe} would take ~{est_s:.0f} s there): the accumulators after step "
+            f"{DCRT_CPU_SLICES} are the same words on cuda and cpu ({cpu_s:.1f} s on the cpu)")
+
+    # -- 5. decryption ---------------------------------------------------------
+    log("-- 10.5: decryption of the batch-16 rotation")
+    ph = dcrt.dcrt_glwe_phase(outs["auto", DCRT_BATCH].transpose(0, 1), secret, plan, base)
+    got = big_to_ints(base.compose(ph))  # (B, N) ints mod Q
+    s_bits = lwe_secret.cpu().numpy()
+    lw = lwe.cpu().numpy()
+    errs = []
+    for b in range(DCRT_BATCH):
+        rot = (-int(lw[b, n_lwe]) + int((lw[b, :n_lwe] * s_bits).sum())) % (2 * n)
+        idx = (np.arange(n) + rot) % (2 * n)  # X^rot sends j to j + rot (negacyclic)
+        expect = np.empty(n, dtype=object)
+        expect[idx % n] = np.where(idx < n, v, (Q - v) % Q)
+        d = (got[b] - expect) % Q
+        errs.append(np.where(d > Q // 2, d - Q, d))
+    err = np.concatenate(errs).astype(float)
+    worst = max(abs(int(x)) for x in np.concatenate(errs))
+    if worst >= delta // 4:
+        raise AssertionError(f"decryption error {worst} >= delta/4")
+    est = DCRT_N_LWE * k1 * level * n * DCRT_SIGMA ** 2 * (1 << DCRT_LOG_BASIS) ** 2 / 12
+    log(f"all {err.size} coefficients within delta/4 = 2^{math.log2(delta // 4):.1f}: max |e| "
+        f"2^{math.log2(max(worst, 1)):.2f}, std 2^{math.log2(err.std()):.2f}; estimate "
+        f"k1*L*N*sigma^2*B^2/12 x {n_lwe} steps -> std 2^{math.log2(est) / 2:.2f}")
+
+    # -- 6./7. timings ---------------------------------------------------------
+    log("-- 10.7: timings (host clock; device split from torch.profiler)")
+    prof_lwe = torch.cat([lwe[:, :DCRT_PROFILE_STEPS], lwe[:, -1:]], dim=1)
+    step_lwe = torch.cat([lwe[:, :1], lwe[:, -1:]], dim=1)
+    rates = {}
+    for route in ("auto", "butterfly"):
+        one = wall_ms(torch, lambda: dbr.dcrt_blind_rotate(*args, lwe[0], acc0, route=route), 2)
+        many = wall_ms(torch, lambda: dbr.dcrt_blind_rotate_batched(*args, lwe, accs,
+                                                                    route=route), 2)
+        cmux_s = n_lwe * DCRT_BATCH / (min(many) / 1e3)
+        ops = count_host_ops(torch, lambda: dbr.dcrt_blind_rotate_batched(
+            plan, basis, base, bsk[:2], torch.cat([lwe[:, :2], lwe[:, -1:]], dim=1), accs,
+            route=route)) - count_host_ops(torch, lambda: dbr.dcrt_blind_rotate_batched(
+                plan, basis, base, bsk[:1], step_lwe, accs, route=route))
+        log(f"[{route}] rotation ({n_lwe} steps) batch 1: {min(one):.1f} ms (runs "
+            f"{', '.join(f'{x:.1f}' for x in one)}); batch {DCRT_BATCH}: {min(many):.1f} ms "
+            f"-> {cmux_s:.1f} CMux/s; {ops} host ops per step")
+        for bsz in (1, DCRT_BATCH):
+            short = lambda: dbr.dcrt_blind_rotate_batched(  # noqa: E731
+                plan, basis, base, bsk[:DCRT_PROFILE_STEPS], prof_lwe[:bsz], accs[:bsz],
+                route=route)
+            wall = min(wall_ms(torch, short, 2))
+            dev_ms, rows = device_time(torch, short, 1)
+            if dev_ms is None:
+                log(f"[{route}] device time not measured (the profiler saw no device activity)")
+                continue
+            log(f"[{route}] {DCRT_PROFILE_STEPS} steps at batch {bsz}: device busy "
+                f"{dev_ms:.2f} ms of {wall:.2f} ms wall -> idle share {1 - dev_ms / wall:.3f}; "
+                f"top device rows:")
+            for ms_, count, key_ in rows[:6]:
+                log(f"    {ms_:9.3f} ms  x{count:<6d} {key_[:90]}")
+        rates[route] = (min(one), cmux_s)
+    log(f"DCRT summary: MXU route {rates['auto'][0]:.1f} ms/rotation at batch 1, "
+        f"{rates['auto'][1]:.1f} CMux/s at batch {DCRT_BATCH}; butterfly route "
+        f"{rates['butterfly'][0]:.1f} ms, {rates['butterfly'][1]:.1f} CMux/s")
+    return counts
 
 
 def main() -> None:
@@ -543,6 +790,10 @@ def main() -> None:
         log(f"[ntru {kind} evk] single-gate latency (batch 1): {lat_n:.2f} ms; NAND gates/s at "
             f"batch {BATCH}: {BATCH / (rate_n / 1e3):.1f}")
 
+    # -- phase 10: the RNS/DCRT blind rotation --------------------------------
+    log("== phase 10: RNS/DCRT blind rotation at N=4096, 2 x 50-bit moduli, L=4, n_lwe=630")
+    counts_d = phase10_dcrt(torch, dev, table)
+
     # -- the kernel table -----------------------------------------------------
     sources = {
         "ntt32_forward": ("primus_fhe_tpu_torch/csrc/ntt32.cu",
@@ -560,16 +811,25 @@ def main() -> None:
         "mxu8_forward32": ("primus_fhe_tpu_torch/csrc/ntt_mxu8.cu",
                            "primus_fhe_tpu/ops/ntt_mxu8.py:917",
                            counts_m["mxu8_forward32"] + counts_n["mxu8_forward32"]),
+        "ntt64_forward": ("primus_fhe_tpu_torch/csrc/ntt64.cu",
+                          "primus_fhe_tpu/ops/ntt_pallas.py:486", counts_d["ntt64_forward"]),
+        "ntt64_inverse": ("primus_fhe_tpu_torch/csrc/ntt64.cu",
+                          "primus_fhe_tpu/ops/ntt_pallas.py:494", counts_d["ntt64_inverse"]),
+        "mxu8_forward64": ("primus_fhe_tpu_torch/csrc/ntt_mxu8.cu",
+                           "primus_fhe_tpu/ops/ntt_mxu8.py:917", counts_d["mxu8_forward64"]),
+        "mxu8_inverse64": ("primus_fhe_tpu_torch/csrc/ntt_mxu8.cu",
+                           "primus_fhe_tpu/ops/ntt_mxu8.py:959", counts_d["mxu8_inverse64"]),
     }
     kernels = []
     for name, (src, rep, launches) in sources.items():
+        bb = BATCH if BATCH in table[name] else DCRT_BATCH
         e1, ms1, pms1, dev1 = table[name][1]
-        eb, msb, pmsb, devb = table[name][BATCH]
+        eb, msb, pmsb, devb = table[name][bb]
         row = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches, "max_abs_err": max(e1, eb),
             "ms": ms1, "plain_ms": pms1, "device_ms": dev1,
-            f"ms_b{BATCH}": msb, f"plain_ms_b{BATCH}": pmsb, f"device_ms_b{BATCH}": devb,
+            f"ms_b{bb}": msb, f"plain_ms_b{bb}": pmsb, f"device_ms_b{bb}": devb,
         }
         if f"{name}@NTRU" in table:
             row["launches_ntru_path"] = counts_n["forward32" if "forward" in name else "inverse32"]

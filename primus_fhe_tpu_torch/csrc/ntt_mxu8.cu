@@ -1,5 +1,6 @@
 // Kernel C: forward negacyclic NTT of canonical residues mod p < 2^30 as a
-// byte-radix four-step on the int8 tensor cores (mxu8.cuh).
+// byte-radix four-step on the int8 tensor cores (mxu8.cuh).  Below it, the
+// u64 kernels mxu8_forward64 and mxu8_inverse64 (7 and 8 byte planes).
 //
 // Replaces the u32 tier (4 byte planes) of mxu8_fused_forward64
 // (primus_fhe_tpu/ops/ntt_mxu8.py, kernel _make_fwd_kernel8, launched via
@@ -17,6 +18,7 @@
 //
 // Values are u32 words (int32 storage on the PyTorch side).
 
+#include "modarith64.cuh"
 #include "mxu8.cuh"
 
 namespace {
@@ -60,9 +62,182 @@ __global__ void __launch_bounds__(256) ntt_mxu8_forward_kernel(
                   });
 }
 
+// ---------------------------------------------------------------------------
+// mxu8_forward64 / mxu8_inverse64: the 7- and 8-plane tiers (q < 2^62)
+//
+// Replace the q >= 2^30 tiers of mxu8_fused_forward64 / mxu8_fused_inverse64
+// (primus_fhe_tpu/ops/ntt_mxu8.py:917,959; bodies _make_fwd_kernel8 and
+// _make_inv_kernel8).  Table-driven: q, the plane matrices and the twiddle
+// tables are run-time arguments, P (output planes) a template parameter.
+//
+// Operands are the 8 unsigned bytes of each u64 word (mma u8 x s8), so any
+// u64 input is taken whole and no XOR-0x80 bias table exists; the matrices
+// hold P balanced base-256 digits of M * 2^(8l) mod q for l = 0..7.  Each
+// plane sum is exact in int32 (|d_c| < 1024 * 255 * 128 < 2^25), but
+// sum_c d_c 2^(8c) spans ~2^81, so fold_planes splits it at 2^32:
+//   L = sum_{c<4} d_c 2^(8c), H = sum_{c>=4} d_c 2^(8(c-4))   (|L|, |H| < 2^49.1)
+//   y = (L + off) + Shoup(H + off, 2^32 mod q)   (off: a multiple of q >= 2^50)
+// a u64 word congruent to the value (y < 2^51 + 3q < 2^64).  The TPU kernels'
+// Solinas and u32-pair folds are not needed: one path serves every q.
+//
+// Forward, one block per (modulus, group of G = 32 / A rows):
+//   pass 1: words transposed to [(row, k0)][k1] x w1 -> X[row][r0][k0],
+//           times tw[r0][k0] (Shoup, [0, 2q)) -> [(row, r0)][k0];
+//   pass 2: x w2 -> canonical NTT values, bit-reversed, natural (A, 128) view.
+// Inverse (mirrored): pass 1 on the natural rows [(row, r0)][r1] x wi1,
+// times twi[r0][k0] -> [(row, k0)][r0]; pass 2 x wi2 (inv_n folded in) ->
+// canonical values in normal order.
+// ---------------------------------------------------------------------------
+
+constexpr int LDA64 = 8 * PFT_MXU_B + 16;  // bytes per 128-word row, +16 against bank conflicts
+
+template <int P>
+__device__ __forceinline__ uint64_t fold_planes(const int (&d)[P], const Mod64& c) {
+  const int64_t lo = (int64_t)d[0] + (int64_t)d[1] * 256 + (int64_t)d[2] * 65536 +
+                     (int64_t)d[3] * 16777216;
+  int64_t hi = 0;
+#pragma unroll
+  for (int i = P - 1; i >= 4; --i) hi = hi * 256 + d[i];
+  return (uint64_t)(lo + (int64_t)c.off) +
+         shoup64_lazy((uint64_t)(hi + (int64_t)c.off), c.c32, c.c32_p, c.q);
+}
+
+struct Geometry64 {
+  int n, A, G, np1, kb1, lda1;
+  size_t s_cols, s_rows;  // bytes of the [(row, k0)][k1] and [(row, r0)][k0] buffers
+};
+
+__host__ __device__ inline Geometry64 geometry64(int log_n) {
+  Geometry64 g;
+  g.n = 1 << log_n;
+  g.A = g.n / PFT_MXU_B;
+  g.G = 32 / g.A;
+  g.np1 = round_up(g.A, 8);
+  g.kb1 = round_up(8 * g.A, 32);
+  g.lda1 = g.kb1 + 16;
+  g.s_cols = (size_t)g.G * PFT_MXU_B * g.lda1;
+  g.s_rows = (size_t)g.G * g.A * LDA64;
+  return g;
+}
+
+template <int P>
+__global__ void __launch_bounds__(256) ntt_mxu8_forward64_kernel(
+    const uint64_t* __restrict__ in, uint64_t* __restrict__ out, const int8_t* __restrict__ w1,
+    const int8_t* __restrict__ w2, const uint64_t* __restrict__ tw, ModSet64 ms, int rows,
+    int log_n) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int B = PFT_MXU_B;
+  const Geometry64 geo = geometry64(log_n);
+  const int n = geo.n, A = geo.A, G = geo.G;
+  const int groups = (rows + G - 1) / G;
+  const int mi = blockIdx.x / groups;
+  const int row0 = (blockIdx.x % groups) * G;
+  const int g_rows = rows - row0 < G ? rows - row0 : G;
+  const Mod64 mc = ms.m[mi];
+  uint8_t* sc = smem;               // [(row, k0)][k1 words]
+  uint8_t* sr = smem + geo.s_cols;  // [(row, r0)][k0 words]
+  const size_t base = ((size_t)mi * rows + row0) * n;
+
+  for (int i = threadIdx.x; i < g_rows * n; i += blockDim.x) {
+    const int g = i / n, c = i % n;
+    *(uint64_t*)(sc + (size_t)(g * B + c % B) * geo.lda1 + (c / B) * 8) = in[base + i];
+  }
+  __syncthreads();
+  const uint64_t* t = tw + (size_t)mi * 4 * n;
+  mm_planes_n<true, 2, P>(sc, geo.lda1, g_rows * B, w1 + (size_t)mi * P * geo.np1 * geo.kb1,
+                          geo.np1, A, geo.kb1, [&](int m, int r0, const int (&d)[P]) {
+                            const int g = m / B, k0 = m % B, idx = r0 * B + k0;
+                            *(uint64_t*)(sr + (size_t)(g * A + r0) * LDA64 + k0 * 8) =
+                                shoup64_lazy(fold_planes<P>(d, mc), t[idx], t[n + idx], mc.q);
+                          });
+  __syncthreads();
+  mm_planes_n<true, 2, P>(sr, LDA64, g_rows * A, w2 + (size_t)mi * P * B * 8 * B, B, B, 8 * B,
+                          [&](int m, int r1, const int (&d)[P]) {
+                            out[base + (size_t)m * B + r1] = canonical64(fold_planes<P>(d, mc), mc);
+                          });
+}
+
+template <int P>
+__global__ void __launch_bounds__(256) ntt_mxu8_inverse64_kernel(
+    const uint64_t* __restrict__ in, uint64_t* __restrict__ out, const int8_t* __restrict__ wi1,
+    const int8_t* __restrict__ wi2, const uint64_t* __restrict__ tw, ModSet64 ms, int rows,
+    int log_n) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int B = PFT_MXU_B;
+  const Geometry64 geo = geometry64(log_n);
+  const int n = geo.n, A = geo.A, G = geo.G;
+  const int groups = (rows + G - 1) / G;
+  const int mi = blockIdx.x / groups;
+  const int row0 = (blockIdx.x % groups) * G;
+  const int g_rows = rows - row0 < G ? rows - row0 : G;
+  const Mod64 mc = ms.m[mi];
+  uint8_t* sc = smem;               // [(row, k0)][r0 words]
+  uint8_t* sr = smem + geo.s_cols;  // [(row, r0)][r1 words]: the natural rows
+  const size_t base = ((size_t)mi * rows + row0) * n;
+
+  for (int i = threadIdx.x; i < g_rows * n; i += blockDim.x)
+    *(uint64_t*)(sr + (size_t)(i / B) * LDA64 + (i % B) * 8) = in[base + i];
+  __syncthreads();
+  const uint64_t* t = tw + (size_t)mi * 4 * n + 2 * n;
+  mm_planes_n<true, 2, P>(sr, LDA64, g_rows * A, wi1 + (size_t)mi * P * B * 8 * B, B, B, 8 * B,
+                          [&](int m, int k0, const int (&d)[P]) {
+                            const int g = m / A, r0 = m % A, idx = r0 * B + k0;
+                            *(uint64_t*)(sc + (size_t)(g * B + k0) * geo.lda1 + r0 * 8) =
+                                shoup64_lazy(fold_planes<P>(d, mc), t[idx], t[n + idx], mc.q);
+                          });
+  __syncthreads();
+  mm_planes_n<true, 2, P>(sc, geo.lda1, g_rows * B, wi2 + (size_t)mi * P * geo.np1 * geo.kb1,
+                          geo.np1, A, geo.kb1, [&](int m, int k1, const int (&d)[P]) {
+                            const int g = m / B, k0 = m % B;
+                            out[base + (size_t)g * n + k1 * B + k0] =
+                                canonical64(fold_planes<P>(d, mc), mc);
+                          });
+}
+
+template <int P>
+int launch_mxu8_64(bool inverse, const void* in, void* out, const void* wa, const void* wb,
+                   const void* tw, const ModSet64& ms, int rows, int log_n, void* stream) {
+  const Geometry64 geo = geometry64(log_n);
+  const size_t smem = geo.s_cols + geo.s_rows;
+  const int groups = (rows + geo.G - 1) / geo.G;
+  auto kernel = inverse ? ntt_mxu8_inverse64_kernel<P> : ntt_mxu8_forward64_kernel<P>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<ms.count * groups, 256, smem, (cudaStream_t)stream>>>(
+      (const uint64_t*)in, (uint64_t*)out, (const int8_t*)wa, (const int8_t*)wb,
+      (const uint64_t*)tw, ms, rows, log_n);
+  return (int)cudaGetLastError();
+}
+
+int launch_mxu8_64_any(bool inverse, const void* in, void* out, const void* wa, const void* wb,
+                       const void* tw, const void* mod_pack, int count, int rows, int log_n,
+                       int planes, void* stream) {
+  if (count < 1 || count > PFT_MAX_MOD64 || log_n < 8 || log_n > 12 || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const ModSet64 ms = unpack_mod64((const uint64_t*)mod_pack, count);
+  if (planes == 7) return launch_mxu8_64<7>(inverse, in, out, wa, wb, tw, ms, rows, log_n, stream);
+  if (planes == 8) return launch_mxu8_64<8>(inverse, in, out, wa, wb, tw, ms, rows, log_n, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
+
+int pft_ntt_mxu8_forward64(const void* in, void* out, const void* w1, const void* w2,
+                           const void* tw, const void* mod_pack, int count, int rows, int log_n,
+                           int planes, void* stream) {
+  return launch_mxu8_64_any(false, in, out, w1, w2, tw, mod_pack, count, rows, log_n, planes,
+                            stream);
+}
+
+int pft_ntt_mxu8_inverse64(const void* in, void* out, const void* wi1, const void* wi2,
+                           const void* tw, const void* mod_pack, int count, int rows, int log_n,
+                           int planes, void* stream) {
+  return launch_mxu8_64_any(true, in, out, wi1, wi2, tw, mod_pack, count, rows, log_n, planes,
+                            stream);
+}
 
 int pft_ntt_mxu8_forward(const void* in, void* out, const void* w1, const void* w2,
                          const void* tw, const void* prime_pack, int kp, int rows, int log_n,

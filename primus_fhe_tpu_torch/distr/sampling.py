@@ -1,5 +1,5 @@
 """FHE noise samplers on an explicit ``torch.Generator`` (port of the samplers
-in ``primus_fhe_tpu/distr/sampling.py`` that the TFHE and NTRU gate paths
+in ``primus_fhe_tpu/distr/sampling.py`` that the TFHE, NTRU and DCRT paths
 use).
 
 Every sampler draws on the generator's device.  ``torch.Generator`` and
@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..numeric.limb import MASK32
+from ..numeric.limb import MASK32, mul_hi_u64
 
 
 def uniform_u32(generator: torch.Generator, shape) -> torch.Tensor:
@@ -45,6 +45,17 @@ def sample_uniform(generator: torch.Generator, shape, q: int) -> torch.Tensor:
     lo = uniform_u32(generator, shape)
     hi = uniform_u32(generator, shape)
     return (hi * q + ((lo * q) >> 32)) >> 32
+
+
+def sample_uniform_u64(generator: torch.Generator, shape, q: int) -> torch.Tensor:
+    """Uniform in ``[0, q)`` for ``q < 2^62`` (int64): the 128-bit
+    multiply-shift ``floor(u * q / 2^64)`` of a 64-bit uniform ``u`` made of
+    two words."""
+    if not 1 < q < 1 << 62:
+        raise ValueError("sample_uniform_u64 needs 1 < q < 2^62")
+    lo = uniform_u32(generator, shape)
+    hi = uniform_u32(generator, shape)
+    return mul_hi_u64((hi << 32) | lo, q)
 
 
 def uniform_ternary(generator: torch.Generator, shape) -> torch.Tensor:

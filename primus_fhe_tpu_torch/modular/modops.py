@@ -1,5 +1,5 @@
-"""32-bit modular operations on int64-carried u32 words (port of the uint32
-part of ``primus_fhe_tpu/modular/modops.py``).
+"""Modular operations on int64-carried u32 and u64 words (port of the uint32
+part and of the U64 add/sub/mul part of ``primus_fhe_tpu/modular/modops.py``).
 
 Lazy-range contracts as in the reference:
 
@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from ..numeric.limb import MASK32, mul_wide_u32, mulhi_u32
-from .modulus import BarrettModulus32
+from ..numeric.limb import MASK32, ge_u64, mul_hi_u64, mul_wide_u32, mulhi_u32
+from .modulus import BarrettModulus32, BarrettModulus64
 
 
 def reduce_once32(x, q):
@@ -106,3 +106,70 @@ def dot32(a, b, m: BarrettModulus32, dim: int = -1):
     m_l = m.map(lambda x: x.unsqueeze(dim) if isinstance(x, torch.Tensor) and x.dim() else x)
     s = lazy_mul32(a, b, m_l).sum(dim=dim)
     return reduce_once32(barrett_lazy_reduce_wide32(s & MASK32, s >> 32, m), m.value)
+
+
+# ===========================================================================
+# u64 words (int64 bit patterns, q < 2^62)
+# ===========================================================================
+
+_POS63 = (1 << 63) - 1  # masks an arithmetic shift by one into a logical one
+
+
+def reduce_once64(x, q):
+    """``x mod q`` for ``x < 2q`` (unsigned compare: ``x`` may pass 2^63)."""
+    return torch.where(ge_u64(x, q), x - q, x)
+
+
+def reduce_twice64(x, q, two_q):
+    """``x mod q`` for ``x < 4q``."""
+    return reduce_once64(reduce_once64(x, two_q), q)
+
+
+def add64(a, b, q):
+    """``(a + b) mod q`` for canonical inputs."""
+    return reduce_once64(a + b, q)
+
+
+def sub64(a, b, q):
+    """``(a - b) mod q`` for canonical inputs (below 2^62: signed compare)."""
+    d = a - b
+    return torch.where(a < b, d + q, d)
+
+
+def _shr_pos(x, k):
+    """Logical ``x >> k`` of a u64 pattern for ``k >= 1`` (int or tensor)."""
+    return ((x >> 1) & _POS63) >> (k - 1)
+
+
+def mul64(a, b, m: BarrettModulus64):
+    """``a * b mod q`` canonical, for ``a * b < 2^(2s)``, ``s = bit_length(q)``
+    (so for every pair of canonical inputs).
+
+    Classical Barrett at width ``s`` (HAC 14.42, base 2): with the exact
+    128-bit product ``P``, ``q1 = floor(P / 2^(s-1))`` and ``q3 =
+    floor(q1 * mu / 2^(s+1))`` (both below 2^63), ``P - q3*q`` lies in
+    ``[0, 3q)``; two conditional subtractions finish.  The reference's
+    ratio-``2^128`` reduction gives the same canonical word.
+    """
+    s = m.shift
+    lo = a * b
+    q1 = (mul_hi_u64(a, b) << (65 - s)) | _shr_pos(lo, s - 1)
+    q3 = (mul_hi_u64(q1, m.mu) << (63 - s)) | _shr_pos(q1 * m.mu, s + 1)
+    r = lo - q3 * m.value
+    r = torch.where(ge_u64(r, 2 * m.value), r - 2 * m.value, r)
+    return reduce_once64(r, m.value)
+
+
+def sum_mod64(t, m: BarrettModulus64, dim: int):
+    """Modular sum of canonical terms over ``dim`` (``m`` broadcasts against
+    the output).  When every modulus has the same width ``s`` and ``terms *
+    2^s <= 2^63``, one int64 sum and one exact remainder; otherwise a chain
+    of :func:`add64`."""
+    count = t.shape[dim]
+    if isinstance(m.shift, int) and count << m.shift <= 1 << 63:
+        return torch.remainder(t.sum(dim=dim), m.value)
+    terms = t.unbind(dim)
+    acc = terms[0]
+    for x in terms[1:]:
+        acc = add64(acc, x, m.value)
+    return acc

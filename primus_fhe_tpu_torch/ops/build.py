@@ -23,8 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("ntt32.cu", "cmux_fused.cu", "cmux_mxu.cu", "ntt_mxu8.cu")
-HEADERS = ("modarith32.cuh", "mxu8.cuh")
+SOURCES = ("ntt32.cu", "cmux_fused.cu", "cmux_mxu.cu", "ntt_mxu8.cu", "ntt64.cu")
+HEADERS = ("modarith32.cuh", "modarith64.cuh", "mxu8.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +42,10 @@ _SIGNATURES = {
     "pft_cmux_mxu": (_P,) * 13 + (_I, _I, _I, _I, _I, _P),
     "pft_ntru_cmux_mxu": (_P,) * 12 + (_I, _I, _I, _P),
     "pft_ntt_mxu8_forward": (_P,) * 6 + (_I, _I, _I, _P),
+    "pft_ntt64_forward": (_P,) * 5 + (_I,) * 4 + (_P,),
+    "pft_ntt64_inverse": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "pft_ntt_mxu8_forward64": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "pft_ntt_mxu8_inverse64": (_P,) * 6 + (_I,) * 4 + (_P,),
 }
 
 

@@ -89,14 +89,16 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def kernel_layout(w: np.ndarray, rows: int, planes: int, used: int) -> np.ndarray:
-    """A JAX-layout plane matrix ``(4 * rows, planes * K)`` with columns
-    ``(l, k)`` -> the kernels' ``(4 * rows8, K8)`` with columns ``(k, l)``
-    for the first ``used`` planes; rows padded to a multiple of 8 and
-    columns to a multiple of 32 bytes with zeros."""
+def kernel_layout(w: np.ndarray, rows: int, planes: int, used: int,
+                  out_planes: int = 4) -> np.ndarray:
+    """A JAX-layout plane matrix ``(out_planes * rows, planes * K)`` with
+    columns ``(l, k)`` -> the kernels' ``(out_planes * rows8, K8)`` with
+    columns ``(k, l)`` for the first ``used`` planes; rows padded to a
+    multiple of 8 and columns to a multiple of 32 bytes with zeros."""
     k = w.shape[1] // planes
-    x = w.reshape(4, rows, planes, k)[:, :, :used, :].transpose(0, 1, 3, 2).reshape(4, rows, k * used)
-    out = np.zeros((4, _round_up(rows, 8), _round_up(k * used, 32)), dtype=np.int8)
+    x = w.reshape(out_planes, rows, planes, k)[:, :, :used, :].transpose(0, 1, 3, 2)
+    x = x.reshape(out_planes, rows, k * used)
+    out = np.zeros((out_planes, _round_up(rows, 8), _round_up(k * used, 32)), dtype=np.int8)
     out[:, :rows, : k * used] = x
     return out.reshape(-1, out.shape[-1])
 

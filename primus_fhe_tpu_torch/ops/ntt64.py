@@ -1,0 +1,170 @@
+"""Kernels ``ntt64_forward`` and ``ntt64_inverse``: the 64-bit negacyclic NTT
+and its inverse (``q < 2^62``, ``n <= 2^15``), one launch for every modulus of
+a DCRT plan.
+
+Replace ``pallas_forward64`` and ``pallas_inverse64``
+(``primus_fhe_tpu/ops/ntt_pallas.py:486,494``, kernels ``_make_fwd_kernel``
+and ``_make_inv_kernel``).  CUDA source: ``csrc/ntt64.cu``.
+
+Design on Hopper: as kernels 1 and 2 (:mod:`.ntt32`), one thread block per
+polynomial row with the row (n u64 words, 32 KB at n = 4096) in shared
+memory through every stage; a Shoup multiply is three native 64-bit
+multiplies, so the TPU kernels' u32-pair emulation, pre-split 16-bit limb
+tables and lane rolls are gone, and the twiddles come from the compact
+bit-reversed root tables.  The kernels run the plain version's schedule
+(:func:`..transforms.ntt.forward64` / ``inverse64``), so they are bit-equal
+to it at every ``out_factor``; the TPU forward defers its reductions and
+so agrees with them exactly only at ``out_factor=1`` (mod q otherwise).
+A row of 2^15 words (256 KB) does not fit in one block's shared memory;
+there two blocks share a row (``csrc/ntt64.cu`` says how).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..numeric.limb import u64_tensor
+from ..transforms.ntt import forward64 as _plan_forward64
+from ..transforms.ntt import inverse64 as _plan_inverse64
+from ..transforms.plan import NttPlan64, _quot64, build_plan64
+from . import build
+
+MAX_MODULI = 4  # PFT_MAX_MOD64 in csrc/modarith64.cuh
+MAX_LOG_N = 15
+
+
+def mod_pack64(plans: list[NttPlan64]) -> np.ndarray:
+    """The host pack that the kernels unpack into ``Mod64``
+    (``csrc/modarith64.cuh``): per modulus ``q, inv_n, inv_n_p, inv_n_w,
+    inv_n_w_p, 2^32 mod q, its Shoup quotient, floor(2^64 / q)`` and the
+    least multiple of ``q`` at or above 2^50."""
+    rows = []
+    for pl in plans:
+        q = pl.q
+        c32 = (1 << 32) % q
+        rows.append([q, pl.inv_n, pl.inv_n_precon, pl.inv_n_w, pl.inv_n_w_precon, c32,
+                     _quot64(c32, q), _quot64(1, q), -(-(1 << 50) // q) * q])
+    return np.array(rows, dtype=np.uint64).reshape(-1)
+
+
+class NttTables64:
+    """Per-modulus u64 NTT plans of a modulus list and their kernel-side
+    copies (``(count, n)`` root tables, u64 patterns in int64)."""
+
+    def __init__(self, log_n: int, moduli):
+        if not 1 <= len(moduli) <= MAX_MODULI:
+            raise ValueError(f"1 to {MAX_MODULI} moduli supported")
+        self.log_n = log_n
+        self.n = 1 << log_n
+        self.moduli = tuple(int(q) for q in moduli)
+        self.plans = [build_plan64(log_n, q) for q in self.moduli]
+        self.mod_pack = mod_pack64(self.plans)
+        self._plans_on = {torch.device("cpu"): self.plans}
+        self._kernel_on: dict = {}
+
+    def plans_on(self, device) -> list:
+        device = torch.device(device)
+        if device not in self._plans_on:
+            self._plans_on[device] = [pl.to(device) for pl in self.plans]
+        return self._plans_on[device]
+
+    def kernel_tables(self, device):
+        """``(roots, roots_precon, inv_roots, inv_roots_precon)``, each
+        ``(count, n)`` on ``device``."""
+        device = torch.device(device)
+        if device not in self._kernel_on:
+            self._kernel_on[device] = tuple(
+                torch.stack([getattr(pl, name) for pl in self.plans]).to(device).contiguous()
+                for name in ("roots", "roots_precon", "inv_roots", "inv_roots_precon")
+            )
+        return self._kernel_on[device]
+
+
+def reduce_to_2q(values: torch.Tensor, moduli, in_factor: int) -> torch.Tensor:
+    """The inverse kernel's input chain: from ``[0, in_factor*q)`` (a power
+    of two at least 2) down to ``[0, 2q)`` by conditional subtractions of
+    ``in_factor/2 * q``, ..., ``2q``; ``values`` is ``(count, ..., n)``."""
+    from ..modular.modops import reduce_once64
+
+    q = u64_tensor(list(moduli), values.device).reshape((-1,) + (1,) * (values.dim() - 1))
+    f = in_factor >> 1
+    while f >= 2:
+        values = reduce_once64(values, f * q)
+        f >>= 1
+    return values
+
+
+def ntt64_forward_plain(tables: NttTables64, values: torch.Tensor, out_factor: int = 1):
+    """Plain version: per-modulus :func:`transforms.ntt.forward64` on
+    ``values (count, ..., n)``."""
+    plans = tables.plans_on(values.device)
+    return torch.stack([_plan_forward64(pl, values[i], out_factor) for i, pl in enumerate(plans)])
+
+
+def ntt64_inverse_plain(tables: NttTables64, values: torch.Tensor, out_factor: int = 1,
+                        in_factor: int = 2):
+    """Plain version: the input chain, then per-modulus
+    :func:`transforms.ntt.inverse64`."""
+    values = reduce_to_2q(values, tables.moduli, in_factor)
+    plans = tables.plans_on(values.device)
+    return torch.stack([_plan_inverse64(pl, values[i], out_factor) for i, pl in enumerate(plans)])
+
+
+def _launch(wrapper, entry: str, table_idx: int, tables: NttTables64, values, out_factor,
+            *extra):
+    count, n = len(tables.moduli), tables.n
+    if values.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__}: unsupported device {values.device}")
+    if values.dtype != torch.int64 or values.shape[0] != count or values.shape[-1] != n:
+        raise ValueError(f"expected int64 (count={count}, ..., n={n}), got "
+                         f"{values.dtype} {tuple(values.shape)}")
+    if tables.log_n > MAX_LOG_N:
+        raise ValueError(f"{wrapper.__name__}: the kernels take n <= 2^{MAX_LOG_N}")
+    v = values.contiguous()
+    out = torch.empty_like(v)
+    rows = v[0].numel() // n
+    if rows:
+        tabs = tables.kernel_tables(v.device)
+        err = getattr(build.library(), entry)(
+            v.data_ptr(), out.data_ptr(), tabs[table_idx].data_ptr(),
+            tabs[table_idx + 1].data_ptr(), build.ptr(tables.mod_pack), count, rows,
+            tables.log_n, int(out_factor == 1), *extra,
+            torch.cuda.current_stream(v.device).cuda_stream,
+        )
+        build.check(err, entry)
+        wrapper.launches += 1
+    return out
+
+
+def ntt64_forward(tables: NttTables64, values: torch.Tensor, out_factor: int = 1):
+    """Forward NTT of ``values (count, ..., n)`` (modulus ``i`` on
+    ``values[i]``), u64 patterns in int64.  Input normal order in
+    ``[0,4q)``; output bit-reversed, canonical for ``out_factor=1`` and lazy
+    ``[0,4q)`` for ``4``.
+
+    CPU tensors take the plain version, CUDA tensors the kernel.
+    """
+    if out_factor not in (1, 4):
+        raise ValueError("out_factor must be 1 or 4")
+    if values.device.type == "cpu":
+        return ntt64_forward_plain(tables, values, out_factor)
+    return _launch(ntt64_forward, "pft_ntt64_forward", 0, tables, values, out_factor)
+
+
+def ntt64_inverse(tables: NttTables64, values: torch.Tensor, out_factor: int = 1,
+                  in_factor: int = 2):
+    """Inverse NTT of ``values (count, ..., n)``, bit-reversed input in
+    ``[0, in_factor*q)``; output normal order, canonical for ``out_factor=1``
+    and lazy ``[0,2q)`` for ``2``."""
+    if out_factor not in (1, 2):
+        raise ValueError("out_factor must be 1 or 2")
+    if in_factor < 2 or in_factor & (in_factor - 1):
+        raise ValueError("in_factor must be a power of two, at least 2")
+    if values.device.type == "cpu":
+        return ntt64_inverse_plain(tables, values, out_factor, in_factor)
+    return _launch(ntt64_inverse, "pft_ntt64_inverse", 2, tables, values, out_factor, in_factor)
+
+
+ntt64_forward.launches = 0
+ntt64_inverse.launches = 0

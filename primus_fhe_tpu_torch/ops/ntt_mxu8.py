@@ -1,24 +1,43 @@
-"""Kernel C: the byte-radix four-step forward NTT of the MXU key preparations.
+"""The byte-radix four-step NTT kernels on the int8 tensor cores.
 
-Replaces the u32 tier (4 byte planes, ``q < 2^30``) of
-``mxu8_fused_forward64`` (``primus_fhe_tpu/ops/ntt_mxu8.py:917``, reached
-through ``ops/mxu_common._natural_call``), which ``prepare_mxu_bsk`` and
-``prepare_mxu_evk`` run.  The 7- and 8-plane tiers, the inverse, the fused
-multiply and the round trip are not ported.  CUDA source:
-``csrc/ntt_mxu8.cu``; design and bounds are stated there.
+- Kernel C, ``mxu8_forward32``: the u32 tier (4 byte planes, ``q < 2^30``)
+  of ``mxu8_fused_forward64`` (``primus_fhe_tpu/ops/ntt_mxu8.py:917``),
+  which ``prepare_mxu_bsk`` and ``prepare_mxu_evk`` run.
+- ``mxu8_forward64`` and ``mxu8_inverse64``: the 7- and 8-plane tiers
+  (``q < 2^53`` and ``q < 2^62``) of ``mxu8_fused_forward64`` and
+  ``mxu8_fused_inverse64`` (``ntt_mxu8.py:917,959``), which the DCRT
+  transforms run for ``log_n >= 8``; with their plan
+  :class:`Mxu8NttPlan64` (port of ``ntt_mxu8.py:156-300``) and the
+  per-modulus stack :class:`Mxu8Tables64`.
+
+All reach ``pallas_call`` through ``ops/mxu_common._natural_call`` in the
+reference.  The fused-multiply inverse and the round trip are not ported.
+CUDA source: ``csrc/ntt_mxu8.cu``; design and bounds are stated there.
 
 The four-step's natural output order is the butterfly NTT's bit-reversed
-order, so the plain version is kernel 1's plain forward, canonical, viewed
-as ``(..., A, 128)``.
+order, so each plain version is the canonical butterfly transform
+(:mod:`.ntt32` or :mod:`.ntt64`); kernel C's is viewed as ``(..., A, 128)``.
+
+The u64 plan keeps the JAX plan's plane matrices with 8 operand planes
+instead of P: the kernels feed a u64 word's own 8 unsigned bytes (mma u8 x
+s8), so any u64 input is taken whole.  The JAX plan's bias, correction and
+Solinas tables exist for its XOR-0x80 signed feed and its u32-pair folds;
+none of them is ported.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..numeric.limb import narrow_u32, widen_u32
+from ..modular.factor import ShoupFactor64, factor_mul64
+from ..numeric.limb import narrow_u32, u64_tensor, widen_u32
+from ..transforms.plan import _quot64
 from . import build
+from .cmux_mxu import LANES, _balanced_digits, kernel_layout
+from .mxu_common import four_step_matrices
 from .ntt32 import forward32_plain
+from .ntt64 import NttTables64, ntt64_forward_plain, ntt64_inverse_plain
 
 
 def mxu8_forward32_plain(plan, values: torch.Tensor) -> torch.Tensor:
@@ -60,3 +79,186 @@ def mxu8_forward32(plan, values: torch.Tensor) -> torch.Tensor:
 
 
 mxu8_forward32.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The u64 tiers
+# ---------------------------------------------------------------------------
+
+
+def _planes_for(q: int) -> int:
+    """4 byte planes for ``q < 2^30``, 7 for ``q < 2^53``, 8 for ``q < 2^62``."""
+    if q < 1 << 30:
+        return 4
+    if q < 1 << 53:
+        return 7
+    if q < 1 << 62:
+        return 8
+    raise ValueError("byte-radix MXU plan requires q < 2^62")
+
+
+def byte_matrix(m, q: int, planes: int, value_planes: int) -> np.ndarray:
+    """``W[(c, r), (l, k)] = bal_c(M[r, k] * 2^(8l) mod q)``: ``planes``
+    balanced base-256 output digits, ``value_planes`` operand planes."""
+    R, K = m.shape
+    w = np.zeros((planes * R, value_planes * K), dtype=np.int8)
+    for l in range(value_planes):
+        digs = _balanced_digits((m * pow(2, 8 * l, q)) % q, planes)
+        for c in range(planes):
+            w[c * R : (c + 1) * R, l * K : (l + 1) * K] = digs[c]
+    return w
+
+
+def _precon64(m) -> np.ndarray:
+    """Object-int matrix -> u64 numpy of its values."""
+    return np.asarray([int(v) for v in np.ravel(m)], dtype=np.uint64).reshape(np.shape(m))
+
+
+class Mxu8NttPlan64:
+    """Byte-radix four-step plan of one modulus ``q < 2^62`` at ``8 <= log_n
+    <= 14``: ``A = n / 128`` rows by ``B = 128`` lanes (the JAX plan's
+    default split in that range), ``planes`` output digit planes (the
+    natural tier, or an override at least that).
+
+    ``w1``/``w2`` (forward) and ``wi1``/``wi2`` (inverse, ``inv_n`` folded
+    into ``wi2``) have rows ``(c, out)`` and columns ``(l, in)`` over all 8
+    operand planes; :meth:`jax_tables` cuts them to the JAX plan's
+    ``w1f, w2f, w1mf, w2mf`` (P operand planes).  ``tw``/``twi`` are the
+    twiddles ``(A, B)`` with their Shoup quotients.
+    """
+
+    def __init__(self, log_n: int, q: int, planes: int | None = None):
+        natural = _planes_for(q)
+        if planes is None:
+            planes = natural
+        elif planes not in (4, 7, 8) or planes < natural:
+            raise ValueError(f"planes must be in {{4,7,8}} and >= the natural tier {natural}")
+        if not 8 <= log_n <= 14:
+            raise ValueError("Mxu8NttPlan64 needs 8 <= log_n <= 14 (B = 128 lanes)")
+        self.planes = P = planes
+        self.log_n, self.n, self.q = log_n, 1 << log_n, int(q)
+        h1 = log_n - 7
+        self.A, self.B = 1 << h1, LANES
+        fs = four_step_matrices(log_n, q, h1, h1)
+        self.w1 = byte_matrix(fs["m1"], q, P, 8)  # rows (c, r0), cols (l, k1)
+        self.w2 = byte_matrix(fs["m2"], q, P, 8)  # rows (c, r1), cols (l, k0)
+        self.wi1 = byte_matrix(fs["m2i"], q, P, 8)  # rows (c, k0), cols (l, r1)
+        self.wi2 = byte_matrix(fs["m1i"], q, P, 8)  # rows (c, k1), cols (l, r0)
+        self.tw, self.twi = _precon64(fs["tw"]), _precon64(fs["twi"])
+        quot = np.vectorize(lambda v: _quot64(int(v), self.q), otypes=[object])
+        self.tw_p = _precon64(quot(fs["tw"]))
+        self.twi_p = _precon64(quot(fs["twi"]))
+
+    def jax_tables(self) -> dict:
+        """The JAX plan's ``w1f, w2f, w1mf, w2mf`` (``P`` operand planes)."""
+        P, A, B = self.planes, self.A, self.B
+        return dict(w1f=self.w1[:, : P * A], w2f=self.w2[:, : P * B].T,
+                    w1mf=self.wi1[:, : P * B].T, w2mf=self.wi2[:, : P * A])
+
+
+class Mxu8Tables64:
+    """The u64 four-step plans of every modulus of a DCRT plan at one plane
+    count (the largest natural tier, at least 7: the kernels are built for 7
+    and 8 planes), and their kernel-side copies."""
+
+    def __init__(self, ntt: NttTables64):
+        self.ntt = ntt
+        self.log_n, self.n, self.moduli = ntt.log_n, ntt.n, ntt.moduli
+        self.planes = max([7] + [_planes_for(q) for q in self.moduli])
+        self.plans = [Mxu8NttPlan64(self.log_n, q, self.planes) for q in self.moduli]
+        self.A, self.B = self.plans[0].A, self.plans[0].B
+        self._kernel_on: dict = {}
+
+    def kernel_tables(self, device) -> dict:
+        """``w1, w2, wi1, wi2`` (int8, kernel layout: columns ``(k, l)``,
+        stacked over moduli) and ``tw (count, 4, n)`` = tw, its quotient,
+        twi, its quotient (u64 patterns in int64)."""
+        device = torch.device(device)
+        if device not in self._kernel_on:
+            P, A, B = self.planes, self.A, self.B
+
+            def stack(name, rows):
+                arr = np.stack([kernel_layout(getattr(p, name), rows, 8, 8, out_planes=P)
+                                for p in self.plans])
+                return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+            tw = np.stack([np.stack([p.tw.reshape(-1), p.tw_p.reshape(-1), p.twi.reshape(-1),
+                                     p.twi_p.reshape(-1)]) for p in self.plans])
+            self._kernel_on[device] = dict(
+                w1=stack("w1", A), w2=stack("w2", B), wi1=stack("wi1", B), wi2=stack("wi2", A),
+                tw=u64_tensor(tw, device),
+            )
+        return self._kernel_on[device]
+
+
+def reduce_any64(values: torch.Tensor, moduli) -> torch.Tensor:
+    """Any u64 words ``(count, ...)`` -> canonical residues, modulus ``i`` on
+    ``values[i]`` (a Shoup multiply by 1: valid for every u64 word)."""
+    shape = (-1,) + (1,) * (values.dim() - 1)
+    q = u64_tensor(list(moduli), values.device).reshape(shape)
+    one = ShoupFactor64(1, u64_tensor([_quot64(1, m) for m in moduli], values.device).reshape(shape))
+    return factor_mul64(values, one, q)
+
+
+def mxu8_forward64_plain(tables: Mxu8Tables64, values: torch.Tensor) -> torch.Tensor:
+    """Plain version: every input word reduced mod q, then the canonical
+    butterfly forward NTT (:func:`.ntt64.ntt64_forward_plain`)."""
+    return ntt64_forward_plain(tables.ntt, reduce_any64(values, tables.moduli), 1)
+
+
+def mxu8_inverse64_plain(tables: Mxu8Tables64, values: torch.Tensor) -> torch.Tensor:
+    """Plain version: every input word reduced mod q, then the canonical
+    butterfly inverse NTT (:func:`.ntt64.ntt64_inverse_plain`)."""
+    return ntt64_inverse_plain(tables.ntt, reduce_any64(values, tables.moduli), 1)
+
+
+def _run64(wrapper, plain, entry: str, names, tables: Mxu8Tables64, values, out_factor, allowed):
+    if out_factor not in allowed:
+        raise ValueError(f"out_factor must be one of {allowed}")
+    if values.device.type == "cpu":
+        return plain(tables, values)
+    if values.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__}: unsupported device {values.device}")
+    count, n = len(tables.moduli), tables.n
+    if values.dtype != torch.int64 or values.shape[0] != count or values.shape[-1] != n:
+        raise ValueError(f"expected int64 (count={count}, ..., n={n}), got "
+                         f"{values.dtype} {tuple(values.shape)}")
+    if tables.log_n > 12:
+        raise ValueError(f"{wrapper.__name__}: the kernels take 8 <= log_n <= 12")
+    v = values.contiguous()
+    out = torch.empty_like(v)
+    rows = v[0].numel() // n
+    if rows:
+        tabs = tables.kernel_tables(v.device)
+        err = getattr(build.library(), entry)(
+            v.data_ptr(), out.data_ptr(), tabs[names[0]].data_ptr(), tabs[names[1]].data_ptr(),
+            tabs["tw"].data_ptr(), build.ptr(tables.ntt.mod_pack), count, rows, tables.log_n,
+            tables.planes, torch.cuda.current_stream(v.device).cuda_stream,
+        )
+        build.check(err, entry)
+        wrapper.launches += 1
+    return out
+
+
+def mxu8_forward64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int = 1):
+    """Forward NTT of any u64 words ``values (count, ..., n)`` (modulus ``i``
+    on ``values[i]``; int64 bit patterns) -> canonical NTT values in
+    bit-reversed order (the four-step's natural order), ``(count, ..., n)``.
+    ``out_factor`` (1, 2 or 4) bounds the output as in the reference; the
+    output is canonical for every one.
+
+    CPU tensors take the plain version, CUDA tensors the kernel (one launch
+    for every modulus)."""
+    return _run64(mxu8_forward64, mxu8_forward64_plain, "pft_ntt_mxu8_forward64", ("w1", "w2"),
+                  tables, values, out_factor, (1, 2, 4))
+
+
+def mxu8_inverse64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int = 1):
+    """Inverse NTT of any u64 words ``values (count, ..., n)`` in bit-reversed
+    order -> canonical values in normal order (``out_factor`` 1 or 2)."""
+    return _run64(mxu8_inverse64, mxu8_inverse64_plain, "pft_ntt_mxu8_inverse64",
+                  ("wi1", "wi2"), tables, values, out_factor, (1, 2))
+
+
+mxu8_forward64.launches = 0
+mxu8_inverse64.launches = 0

@@ -1,10 +1,11 @@
-"""Negacyclic NTT forward/inverse over u32 words (port of ``forward32`` and
-``inverse32`` in ``primus_fhe_tpu/transforms/ntt.py``).
+"""Negacyclic NTT forward/inverse over u32 and u64 words (port of
+``forward32``, ``inverse32``, ``forward64`` and ``inverse64`` in
+``primus_fhe_tpu/transforms/ntt.py``).
 
 Radix-2 Harvey butterflies with Shoup lazy multiplies and the
 ``[0,4q)`` / ``[0,2q)`` lazy-range discipline; each stage is a reshape to
 ``(..., m, 2, t)`` plus elementwise ops.  These are the plain versions of
-the NTT kernels in :mod:`..ops.ntt32`.
+the NTT kernels in :mod:`..ops.ntt32` and :mod:`..ops.ntt64`.
 
 - forward: normal-order input (``[0,4q)`` ok), bit-reversed output;
   ``out_factor=1`` gives canonical ``[0,q)``, ``out_factor=4`` stays lazy.
@@ -12,16 +13,18 @@ the NTT kernels in :mod:`..ops.ntt32`.
   ``out_factor=1`` canonical, ``out_factor=2`` lazy.
 
 Values below 4q < 2^32 and roots below q < 2^30 keep every product below
-2^62, so int64 holds them exactly.
+2^62, so int64 holds them exactly.  The u64 path carries bit patterns
+(:mod:`..numeric.limb`): lazy values below ``4q`` may pass 2^63 when
+``q >= 2^61``, so its range reductions compare unsigned.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..modular.modops import reduce_once32, reduce_twice32
-from ..numeric.limb import MASK32, mulhi_u32
-from .plan import NttPlan32
+from ..modular.modops import reduce_once32, reduce_once64, reduce_twice32, reduce_twice64
+from ..numeric.limb import MASK32, mul_hi_u64, mulhi_u32
+from .plan import NttPlan32, NttPlan64
 
 
 def _shoup_lazy32(y, w, w_precon, q):
@@ -85,4 +88,73 @@ def inverse32(plan: NttPlan32, values: torch.Tensor, out_factor: int = 1):
     out = torch.cat([ox, oy], dim=-1)
     if out_factor == 1:
         out = reduce_once32(out, q)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# u64 path
+# ---------------------------------------------------------------------------
+
+
+def _shoup_lazy64(y, w, w_precon, q):
+    """``y*w mod q`` in ``[0,2q)`` for any u64 ``y`` (wrapping int64)."""
+    return w * y - q * mul_hi_u64(y, w_precon)
+
+
+def forward64(plan: NttPlan64, values: torch.Tensor, out_factor: int = 1):
+    """Forward NTT over u64 patterns; input normal order in ``[0,4q)``,
+    output bit-reversed."""
+    if out_factor not in (1, 4):
+        raise ValueError("out_factor must be 1 or 4")
+    n, q = plan.n, plan.q
+    two_q = 2 * q
+    batch = values.shape[:-1]
+    v = values
+    for s in range(plan.log_n):
+        m = 1 << s
+        t = n >> (s + 1)
+        w = plan.roots[m : 2 * m].reshape(m, 1)
+        wp = plan.roots_precon[m : 2 * m].reshape(m, 1)
+        v = v.reshape(*batch, m, 2, t)
+        tx = reduce_once64(v[..., 0, :], two_q)
+        ty = _shoup_lazy64(v[..., 1, :], w, wp, q)
+        v = torch.stack([tx + ty, tx + two_q - ty], dim=-2)
+    v = v.reshape(*batch, n)
+    if out_factor == 1:
+        v = reduce_twice64(v, q, two_q)
+    return v
+
+
+def inverse64(plan: NttPlan64, values: torch.Tensor, out_factor: int = 1):
+    """Inverse NTT over u64 patterns; input bit-reversed in ``[0,2q)``,
+    normal-order output."""
+    if out_factor not in (1, 2):
+        raise ValueError("out_factor must be 1 or 2")
+    n, q = plan.n, plan.q
+    two_q = 2 * q
+    batch = values.shape[:-1]
+    v = values
+    for s in range(plan.log_n - 1):
+        t = 1 << s
+        m = n >> (s + 1)
+        start = 1 + n - (n >> s)
+        w = plan.inv_roots[start : start + m].reshape(m, 1)
+        wp = plan.inv_roots_precon[start : start + m].reshape(m, 1)
+        v = v.reshape(*batch, m, 2, t)
+        x = v[..., 0, :]
+        y = v[..., 1, :]
+        tx = reduce_once64(x + y, two_q)
+        ty = _shoup_lazy64(x + two_q - y, w, wp, q)
+        v = torch.stack([tx, ty], dim=-2)
+    v = v.reshape(*batch, n)
+    half = n >> 1
+    x = v[..., :half]
+    y = v[..., half:]
+    tx = reduce_once64(x + y, two_q)
+    ty = x + two_q - y
+    ox = _shoup_lazy64(tx, plan.inv_n, plan.inv_n_precon, q)
+    oy = _shoup_lazy64(ty, plan.inv_n_w, plan.inv_n_w_precon, q)
+    out = torch.cat([ox, oy], dim=-1)
+    if out_factor == 1:
+        out = reduce_once64(out, q)
     return out

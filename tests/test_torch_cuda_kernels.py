@@ -1,8 +1,11 @@
-"""Kernels 1-4 and A-C against their plain PyTorch versions on a CUDA card, at
-shapes ``chip_smoke.py`` does not reach: N from 32 (16 threads a block) to
-4096, three primes, the 2^1 x 12 gadget in stage 1, k=2, odd batches, and
-int32 storage; for the int8 kernels log_n 8-11, k=1 and 2, L 2-4, 1- and
-2-byte digits, and NTRU moduli of 20 and 30 bits.  Tolerance: zero
+"""Kernels 1-4, A-C and the four u64 NTT kernels against their plain PyTorch
+versions on a CUDA card, at shapes ``chip_smoke.py`` does not reach: N from
+32 (16 threads a block) to 4096, three primes, the 2^1 x 12 gadget in stage
+1, k=2, odd batches, and int32 storage; for the int8 kernels log_n 8-11,
+k=1 and 2, L 2-4, 1- and 2-byte digits, and NTRU moduli of 20 and 30 bits;
+for the u64 kernels log_n 4-15 (a row over two blocks at 15), 50- to 62-bit moduli (lazy words past 2^63),
+both input chains of the inverse, 7 and 8 byte planes on inputs past 2^63,
+and a small DCRT rotation on both routes against the CPU.  Tolerance: zero
 (bit-equal).
 
 The kernels have no CPU mode, so every test here needs the card and skips
@@ -25,7 +28,7 @@ from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
 from primus_fhe_tpu_torch.lattice import tfhe
 from primus_fhe_tpu_torch.boot import ntru_gates
 from primus_fhe_tpu_torch.boot.ntru_blind_rotate import NtruContext
-from primus_fhe_tpu_torch.ops import cmux_fused, cmux_mxu, ntru_cmux_mxu, ntt32, ntt_mxu8
+from primus_fhe_tpu_torch.ops import cmux_fused, cmux_mxu, ntru_cmux_mxu, ntt32, ntt64, ntt_mxu8
 
 pytestmark = pytest.mark.cuda
 
@@ -181,3 +184,85 @@ def test_mxu_bootstrap_and_ntru_gate(dev):
                                keys.ks_basis, ca.cpu(), cb.cpu())
     assert torch.equal(got.cpu(), cpu)
     assert keys.decrypt(got).int().tolist() == [1, 1, 1, 0]
+
+
+Q50 = [1125899906826241, 1125899906629633]  # the DCRT benchmark's moduli
+Q60 = 1152921504606830593  # the reference's 60-bit golden prime
+
+
+def _u64_words(gen, shape, dev):
+    """Uniform u64 words (int64 bit patterns), about half of them past 2^63."""
+    lo = torch.randint(0, 1 << 32, shape, generator=gen, device=dev)
+    hi = torch.randint(0, 1 << 32, shape, generator=gen, device=dev)
+    return (hi << 32) | lo
+
+
+def _below(gen, moduli, shape, factor, dev):
+    """Words in ``[0, factor * q_i)`` (any factor * q below 2^64)."""
+    from primus_fhe_tpu_torch.numeric.limb import mul_hi_u64
+
+    return torch.stack([mul_hi_u64(_u64_words(gen, shape, dev), factor * q) for q in moduli])
+
+
+@pytest.mark.parametrize("log_n,moduli", [
+    (4, Q50), (8, Q50 + [Q60]), (12, Q50), (12, [Q60, next_ntt_prime(62, 14)]),
+    (14, [next_ntt_prime(61, 14)]), (15, [next_ntt_prime(61, 15), next_ntt_prime(50, 15)]),
+])
+def test_ntt64_kernels_match_plain(dev, log_n, moduli):
+    tables = ntt64.NttTables64(log_n, moduli)
+    gen = torch.Generator(device=dev).manual_seed(log_n)
+    n = 1 << log_n
+    x = _below(gen, moduli, (3, n), 4, dev)
+    for out_factor in (1, 4):
+        want = ntt64.ntt64_forward_plain(tables, x, out_factor)
+        assert torch.equal(ntt64.ntt64_forward(tables, x, out_factor), want)
+    for in_factor in (2, 4):
+        y = _below(gen, moduli, (3, n), in_factor, dev)
+        for out_factor in (1, 2):
+            want = ntt64.ntt64_inverse_plain(tables, y, out_factor, in_factor)
+            assert torch.equal(ntt64.ntt64_inverse(tables, y, out_factor, in_factor), want)
+
+
+@pytest.mark.parametrize("log_n,moduli", [(8, Q50), (10, [Q60]), (12, Q50), (12, [Q50[0], Q60])])
+def test_mxu8_64_kernels_match_plain(dev, log_n, moduli):
+    tables = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
+    assert tables.planes == (7 if max(moduli) < 1 << 53 else 8)
+    gen = torch.Generator(device=dev).manual_seed(log_n + len(moduli))
+    for rows in (1, 5):
+        x = _u64_words(gen, (len(moduli), rows, 1 << log_n), dev)
+        assert torch.equal(ntt_mxu8.mxu8_forward64(tables, x), ntt_mxu8.mxu8_forward64_plain(tables, x))
+        assert torch.equal(ntt_mxu8.mxu8_inverse64(tables, x), ntt_mxu8.mxu8_inverse64_plain(tables, x))
+
+
+def test_dcrt_rotation_routes_and_cpu_agree(dev):
+    """A DCRT rotation at log_n=8 (n_lwe=3, batch 2) on the MXU route, the
+    butterfly route and the CPU plain versions: the same words; each route
+    launches only its own kernels, once per transform call."""
+    from primus_fhe_tpu_torch.boot.dcrt_blind_rotate import dcrt_blind_rotate_batched
+    from primus_fhe_tpu_torch.decompose import BigUintApproxSignedBasis
+    from primus_fhe_tpu_torch.rns import RNSBase64
+    from primus_fhe_tpu_torch.transforms.dcrt import build_dcrt_plan64
+
+    log_n, n_lwe, bsz = 8, 3, 2
+    n = 1 << log_n
+    base = RNSBase64(Q50)
+    basis = BigUintApproxSignedBasis(base, 25)
+    plan = build_dcrt_plan64(log_n, Q50)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bsk = _below(gen, Q50, (n_lwe, 2, basis.decompose_length, 2, n), 1, dev).movedim(0, 3)
+    acc = _below(gen, Q50, (bsz, 2, n), 1, dev).transpose(0, 1).contiguous()
+    lwe = torch.randint(0, 2 * n, (bsz, n_lwe + 1), generator=gen, device=dev)
+    kernels = (ntt64.ntt64_forward, ntt64.ntt64_inverse, ntt_mxu8.mxu8_forward64,
+               ntt_mxu8.mxu8_inverse64)
+    outs = {}
+    for route in ("auto", "butterfly"):
+        for k in kernels:
+            k.launches = 0
+        outs[route] = dcrt_blind_rotate_batched(plan, basis, base, bsk.contiguous(), lwe, acc,
+                                                route=route)
+        fwd, inv = (kernels[2], kernels[3]) if route == "auto" else (kernels[0], kernels[1])
+        assert fwd.launches == n_lwe and inv.launches == n_lwe
+        assert sum(k.launches for k in kernels) == 2 * n_lwe
+    cpu = dcrt_blind_rotate_batched(plan, basis, base, bsk.cpu().contiguous(), lwe.cpu(), acc.cpu())
+    assert torch.equal(outs["auto"], outs["butterfly"])
+    assert torch.equal(outs["auto"].cpu(), cpu)

@@ -30,6 +30,13 @@ MODULES = [
     "primus_fhe_tpu_torch.poly",
     "primus_fhe_tpu_torch.decompose.primitive",
     "primus_fhe_tpu_torch.modular.modops",
+    "primus_fhe_tpu_torch.numeric.bigint",
+    "primus_fhe_tpu_torch.ops.ntt64",
+    "primus_fhe_tpu_torch.transforms.dcrt",
+    "primus_fhe_tpu_torch.rns.base",
+    "primus_fhe_tpu_torch.decompose.big_integer",
+    "primus_fhe_tpu_torch.lattice.dcrt",
+    "primus_fhe_tpu_torch.boot.dcrt_blind_rotate",
 ]
 
 
