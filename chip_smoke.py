@@ -14,8 +14,8 @@ non-zero):
    versions) and the kernel build from ``primus_fhe_tpu_torch/csrc``;
 2. each of the seven kernels against its plain PyTorch version on the same
    CUDA inputs, at the main paths' shapes, batch 1 and 64 (bit-equal), with
-   both times from CUDA events and the kernel's device time from
-   ``torch.profiler``; kernels 1-2 also at the NTRU_128 shape;
+   both times from CUDA events and the kernel's device time from CUDA
+   events behind a sleep kernel; kernels 1-2 also at the NTRU_128 shape;
 3. ``make_context(BOOLEAN_128)`` (NTT key kind) on the card from a seeded
    generator;
 4. NAND/AND/OR truth tables, NOT, and NAND(NAND(a,b), NAND(a,b)) == AND(a,b),
@@ -48,9 +48,27 @@ non-zero):
     when all 630 would take over a minute there), decryption within delta/4
     with the phase error beside the noise estimate, and per route the
     rotation ms at batch 1, CMux/s at batch 16, the device's idle share, top
-    device rows and host ops per step.
+    device rows and host ops per step;
+11. the negacyclic product by a fixed NTT-domain operand at ``bench.py``'s
+    shape (n=4096, q = 2^50 - 2^14 + 1, batch 512): kernel E
+    (``mxu8_roundtrip64_mul``), ``mxu8_forward64`` then kernel D
+    (``mxu8_inverse64_mul``), and the butterfly route (``ntt64_forward`` at
+    ``out_factor=4``, a Shoup multiply, ``ntt64_inverse``) give the same
+    words on all 512 rows and rows 0-15 equal the plain ``negacyclic_mul64``;
+    D and E against their plain versions at 7 and 8 byte planes; per route
+    ms a trip over 20 chained trips and ``bench.py``'s modmul/s;
+12. the large-n four-step NTT at n = 2^16 over the 62-bit
+    q = 4611686018425815041, 2 rows, on the MXU and butterfly routes: the
+    forward equals the plain ``forward64``, the lazy forward round-trips,
+    both routes agree; ms a transform per route;
+13. kernels F (``rotate``) and G (``cmux_front``) at BOOLEAN_128 width,
+    batch 64, against their plain versions, and one CMux step
+    ``acc + cmux_delta(...)`` on key slice 0 through kernel G, bit-equal to
+    ``fused_cmux_step`` (kernels 3-4), with its launch counts.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (every kernel with its
+launches on its main path, its time, its plain version's time and its bound,
+the least time the card could take for the same work); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -66,6 +84,39 @@ BATCH = 64
 LAT_REPS = 5
 KERNEL_REPS = 20
 NTRU_NOISE_RECORD = 8519.48  # NOISE_CHECK_NTRU_r05.json measured_std (mod-q units)
+
+# Peaks of one H100 SXM (the bound of every kernel row): HBM3 bytes/s and
+# dense int8 tensor-core ops/s (a MAC is 2 ops) from NVIDIA's data sheet; 32-bit
+# integer multiplies/s from the CUDA throughput table for compute capability
+# 9.0 (64 a clock an SM) x 132 SMs x 1.98 GHz.  A Shoup multiply costs 3
+# 32-bit multiplies on u32 words and 10 on u64 words (3 + 3 for the two low
+# products, 4 for the high word).
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12
+INT32_MULS_S = 132 * 64 * 1.98e9
+
+
+def bound(nbytes: float, int8_macs: float = 0, muls32: float = 0) -> tuple[float, str]:
+    """``(ms, "bytes" or "operations")``: the least time the card could take
+    to read every input once and write every output once, or to do the
+    work at peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(2 * int8_macs / INT8_OPS_S, muls32 / INT32_MULS_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ntt_muls(rows: int, n: int, u64: bool = False) -> int:
+    """32-bit multiplies of ``rows`` butterfly NTTs of size ``n``: ``n/2
+    log n`` Shoup multiplies a row."""
+    return rows * (n // 2) * (n.bit_length() - 1) * (10 if u64 else 3)
+
+
+def four_step_macs(rows: int, n: int, out_planes: int, in_bytes: int) -> int:
+    """int8 MACs of ``rows`` byte-radix four-step transforms (``A = n/128``
+    by ``B = 128``): pass 1 ``B x (P A) x (V A)``, pass 2 ``A x (P B) x (V
+    B)`` a row, with P output planes and V operand bytes a word."""
+    a, b = n // 128, 128
+    return rows * out_planes * in_bytes * n * (a + b)
 
 
 def log(msg: str) -> None:
@@ -88,19 +139,21 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_time(torch, fn, reps: int):
-    """Device time (ms) of ``fn`` per run, summed over the kernels that
-    ``torch.profiler`` sees in ``reps`` runs, and the per-kernel rows
-    ``(ms total, count, name)``; ``(None, [])`` if it saw none.  Only
-    device-side rows count: a host op's row repeats its kernels' time."""
+def device_time(torch, fn):
+    """Device time (ms) of one run of ``fn``, summed over the kernels that
+    ``torch.profiler`` sees, and the per-kernel rows ``(ms total, count,
+    name)``; ``(None, [])`` if it saw none.  Only device-side rows count: a
+    host op's row repeats its kernels' time.  For runs of hundreds of
+    launches or more (a gate, 16 DCRT steps): the profiler may lose a
+    session's last launch records (seen: up to 26 of 630), so the busy time
+    is a lower bound and the idle share an upper one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        fn()
         torch.cuda.synchronize()
     rows = [
         (e.self_device_time_total / 1e3, e.count, e.key)
@@ -109,7 +162,29 @@ def device_time(torch, fn, reps: int):
     ]
     if not rows:
         return None, []
-    return sum(r[0] for r in rows) / reps, sorted(rows, reverse=True)
+    return sum(r[0] for r in rows), sorted(rows, reverse=True)
+
+
+def kernel_device_ms(torch, fn) -> float:
+    """Device ms of the kernel one wrapper call runs: the median over
+    ``KERNEL_REPS`` calls of CUDA events around the call, queued behind a
+    ~1 ms ``torch.cuda._sleep`` so that the events bracket the kernel on the
+    card and not the host's launch work.  (``torch.profiler`` is not used
+    here: in a short session it loses the last launch records, 1-20 of 20
+    in this script's later phases.)"""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(KERNEL_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
 
 
 def wall_ms(torch, fn, reps: int) -> list[float]:
@@ -124,10 +199,12 @@ def wall_ms(torch, fn, reps: int) -> list[float]:
     return out
 
 
-def compare_kernel(torch, table, name, bsz, kern, kern32, plain):
+def compare_kernel(torch, table, name, bsz, kern, kern32, plain, bnd):
     """Holds ``kern`` (int64 words) and ``kern32`` (int32 storage) against
     ``plain`` bit for bit, then times the int32 wrapper and the plain
-    version (CUDA events) and the kernel's device time (profiler)."""
+    version (CUDA events) and the kernel's device time
+    (:func:`kernel_device_ms`); ``bnd``
+    is the work's :func:`bound`."""
     got, want = kern(), plain()
     got32 = kern32()
     torch.cuda.synchronize()
@@ -138,16 +215,17 @@ def compare_kernel(torch, table, name, bsz, kern, kern32, plain):
         raise AssertionError(f"{name} batch {bsz}: int32-storage kernel != plain")
     ms = cuda_ms(torch, kern32, KERNEL_REPS)
     plain_ms = cuda_ms(torch, plain, KERNEL_REPS)
-    dev_ms, _ = device_time(torch, kern32, KERNEL_REPS)
-    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    dev_ms = kernel_device_ms(torch, kern32)
     log(f"{name:22s} batch {bsz:3d} shape {tuple(got.shape)}: bit-equal; "
-        f"wrapper {ms:.4f} ms (device {dev_txt}), plain {plain_ms:.4f} ms")
-    table.setdefault(name, {})[bsz] = (err, ms, plain_ms, dev_ms)
+        f"wrapper {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]})")
+    table.setdefault(name, {})[bsz] = (err, ms, plain_ms, dev_ms, bnd)
 
 
-def compare_kernel64(torch, table, name, bsz, kern, plain):
+def compare_kernel64(torch, table, name, bsz, kern, plain, bnd):
     """Holds ``kern`` against ``plain`` (int64 u64 words) bit for bit, then
-    times both (CUDA events) and the kernel's device time (profiler)."""
+    times both (CUDA events) and the kernel's device time
+    (:func:`kernel_device_ms`)."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     if not torch.equal(got, want):
@@ -155,11 +233,11 @@ def compare_kernel64(torch, table, name, bsz, kern, plain):
         raise AssertionError(f"{name} batch {bsz}: kernel != plain ({bad} words differ)")
     ms = cuda_ms(torch, kern, KERNEL_REPS)
     plain_ms = cuda_ms(torch, plain, KERNEL_REPS)
-    dev_ms, _ = device_time(torch, kern, KERNEL_REPS)
-    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    dev_ms = kernel_device_ms(torch, kern)
     log(f"{name:22s} batch {bsz:3d} shape {tuple(got.shape)}: bit-equal; "
-        f"wrapper {ms:.4f} ms (device {dev_txt}), plain {plain_ms:.4f} ms")
-    table.setdefault(name, {})[bsz] = (0, ms, plain_ms, dev_ms)
+        f"wrapper {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]})")
+    table.setdefault(name, {})[bsz] = (0, ms, plain_ms, dev_ms, bnd)
 
 
 def count_host_ops(torch, fn) -> int:
@@ -191,7 +269,7 @@ def time_gate(torch, label, gate, boot, ks, check):
     log(f"{label}: truth table correct; gate mean {mean:.2f} ms (min {min(gate_ms):.2f}); "
         f"bootstrap min {min(boot_ms):.2f} ms; key switch min {min(ks_ms):.2f} ms "
         f"(host clock, {LAT_REPS} runs each)")
-    dev_ms, rows = device_time(torch, gate, 1)
+    dev_ms, rows = device_time(torch, gate)
     if dev_ms is None:
         log(f"{label}: device time not measured (the profiler saw no device activity)")
     else:
@@ -248,18 +326,23 @@ def phase10_dcrt(torch, dev, table) -> dict:
     log("-- 10.1: the u64 NTT kernels vs plain versions (bit-equal)")
     for bsz in (1, DCRT_BATCH):
         f_in, i_in = residues(k1 * level * bsz), residues(k1 * bsz)
+        rf, ri = f_in.numel() // n, i_in.numel() // n  # rows over every modulus
         compare_kernel64(torch, table, "ntt64_forward", bsz,
                          lambda: ntt64.ntt64_forward(plan.ntt, f_in),
-                         lambda: ntt64.ntt64_forward_plain(plan.ntt, f_in))
+                         lambda: ntt64.ntt64_forward_plain(plan.ntt, f_in),
+                         bound(16 * rf * n, muls32=ntt_muls(rf, n, u64=True)))
         compare_kernel64(torch, table, "ntt64_inverse", bsz,
                          lambda: ntt64.ntt64_inverse(plan.ntt, i_in),
-                         lambda: ntt64.ntt64_inverse_plain(plan.ntt, i_in))
+                         lambda: ntt64.ntt64_inverse_plain(plan.ntt, i_in),
+                         bound(16 * ri * n, muls32=ntt_muls(ri, n, u64=True)))
         compare_kernel64(torch, table, "mxu8_forward64", bsz,
                          lambda: ntt_mxu8.mxu8_forward64(plan.mxu, f_in),
-                         lambda: ntt_mxu8.mxu8_forward64_plain(plan.mxu, f_in))
+                         lambda: ntt_mxu8.mxu8_forward64_plain(plan.mxu, f_in),
+                         bound(16 * rf * n, four_step_macs(rf, n, plan.mxu.planes, 8)))
         compare_kernel64(torch, table, "mxu8_inverse64", bsz,
                          lambda: ntt_mxu8.mxu8_inverse64(plan.mxu, i_in),
-                         lambda: ntt_mxu8.mxu8_inverse64_plain(plan.mxu, i_in))
+                         lambda: ntt_mxu8.mxu8_inverse64_plain(plan.mxu, i_in),
+                         bound(16 * ri * n, four_step_macs(ri, n, plan.mxu.planes, 8)))
 
     # -- 2. key generation on the card ---------------------------------------------
     log("-- 10.2: DCRT bootstrap key on the card")
@@ -388,7 +471,7 @@ def phase10_dcrt(torch, dev, table) -> dict:
                 plan, basis, base, bsk[:DCRT_PROFILE_STEPS], prof_lwe[:bsz], accs[:bsz],
                 route=route)
             wall = min(wall_ms(torch, short, 2))
-            dev_ms, rows = device_time(torch, short, 1)
+            dev_ms, rows = device_time(torch, short)
             if dev_ms is None:
                 log(f"[{route}] device time not measured (the profiler saw no device activity)")
                 continue
@@ -401,6 +484,186 @@ def phase10_dcrt(torch, dev, table) -> dict:
     log(f"DCRT summary: MXU route {rates['auto'][0]:.1f} ms/rotation at batch 1, "
         f"{rates['auto'][1]:.1f} CMux/s at batch {DCRT_BATCH}; butterfly route "
         f"{rates['butterfly'][0]:.1f} ms, {rates['butterfly'][1]:.1f} CMux/s")
+    return counts
+
+
+RT_LOG_N = 12  # bench.py's round trip: n = 4096
+RT_MODULI = (1125899906826241, 1152921504606830593)  # 7 planes (bench.py's q), 8 planes
+RT_BATCH = 512
+RT_TRIPS = 20
+RT_ORACLE_ROWS = 16
+LARGE_LOG_N = 16  # the four-step's config-2 headline shape
+LARGE_Q = 4611686018425815041
+LARGE_ROWS = 2
+
+
+def chained_ms(torch, step, x, trips: int) -> float:
+    """Milliseconds a trip of ``step`` over ``trips`` chained trips (each
+    output feeds the next call), CUDA events, after one warm-up trip."""
+    step(x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    v = x
+    start.record()
+    for _ in range(trips):
+        v = step(v)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / trips
+
+
+def phase11_roundtrip(torch, dev, table) -> dict:
+    """Phase 11: the negacyclic product by a fixed NTT-domain operand at
+    ``bench.py``'s shape.  Returns the launch counts of its main path."""
+    from primus_fhe_tpu_torch.modular.factor import ShoupFactor64, factor_mul_lazy64
+    from primus_fhe_tpu_torch.modular.modulus import barrett64
+    from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
+    from primus_fhe_tpu_torch.transforms.ntt import inverse64, negacyclic_mul64
+
+    n, log_n = 1 << RT_LOG_N, RT_LOG_N
+    kernels = {"mxu8_roundtrip64_mul": ntt_mxu8.mxu8_roundtrip64_mul,
+               "mxu8_inverse64_mul": ntt_mxu8.mxu8_inverse64_mul,
+               "mxu8_forward64": ntt_mxu8.mxu8_forward64,
+               "ntt64_forward": ntt64.ntt64_forward, "ntt64_inverse": ntt64.ntt64_inverse}
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    counts = {}
+    for q in RT_MODULI:
+        ntt = ntt64.NttTables64(log_n, [q])
+        mxu = ntt_mxu8.Mxu8Tables64(ntt)
+        P = mxu.planes
+        x = torch.randint(0, q, (1, RT_BATCH, n), generator=g, device=dev)
+        key = torch.randint(0, q, (1, n), generator=g, device=dev)  # NTT domain, bit-reversed
+        mt = mxu.mul_table(key)
+        kf = ShoupFactor64(mt[0, 0], mt[0, 1])
+        routes = {
+            "E": lambda v: ntt_mxu8.mxu8_roundtrip64_mul(mxu, v, mt),
+            "fwd+D": lambda v: ntt_mxu8.mxu8_inverse64_mul(mxu, ntt_mxu8.mxu8_forward64(mxu, v),
+                                                           mt),
+            "butterfly": lambda v: ntt64.ntt64_inverse(
+                ntt, factor_mul_lazy64(ntt64.ntt64_forward(ntt, v, 4), kf, q)),
+        }
+        log(f"-- q = {q} ({P} byte planes), n = {n}, batch {RT_BATCH}")
+        if q == RT_MODULI[0]:  # the main path: one trip on each route, counted
+            for fn in kernels.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            outs = {name: route(x) for name, route in routes.items()}
+            torch.cuda.synchronize()
+            counts = {name: fn.launches for name, fn in kernels.items()}
+            log(f"launches of one trip on each route: {json.dumps(counts)}")
+            want = {"mxu8_roundtrip64_mul": 1, "mxu8_inverse64_mul": 1, "mxu8_forward64": 1,
+                    "ntt64_forward": 1, "ntt64_inverse": 1}
+            if counts != want:
+                raise AssertionError(f"round-trip launch counts {counts}, want {want}")
+            for name in ("fwd+D", "butterfly"):
+                if not torch.equal(outs["E"], outs[name]):
+                    raise AssertionError(f"route E and route {name} differ")
+            plan = ntt.plans_on(dev)[0]
+            b = inverse64(plan, key[0])  # the coefficient-domain operand
+            oracle = negacyclic_mul64(plan, barrett64(q, dev), x[0, :RT_ORACLE_ROWS], b)
+            if not torch.equal(outs["E"][0, :RT_ORACLE_ROWS], oracle):
+                raise AssertionError("the round trip differs from the plain negacyclic_mul64")
+            log(f"routes E, forward + D and butterfly: the same {outs['E'].numel()} words on all "
+                f"{RT_BATCH} rows; rows 0-{RT_ORACLE_ROWS - 1} equal the plain negacyclic_mul64")
+        fwd = ntt_mxu8.mxu8_forward64(mxu, x)  # kernel D's input
+        words = RT_BATCH * n
+        macs = four_step_macs(RT_BATCH, n, P, 8)
+        tag = "" if q == RT_MODULI[0] else f"@{P}planes"
+        compare_kernel64(torch, table, "mxu8_inverse64_mul" + tag, RT_BATCH,
+                         lambda: ntt_mxu8.mxu8_inverse64_mul(mxu, fwd, mt),
+                         lambda: ntt_mxu8.mxu8_inverse64_mul_plain(mxu, fwd, mt),
+                         bound(8 * (2 * words + 2 * n), macs))
+        compare_kernel64(torch, table, "mxu8_roundtrip64_mul" + tag, RT_BATCH,
+                         lambda: ntt_mxu8.mxu8_roundtrip64_mul(mxu, x, mt),
+                         lambda: ntt_mxu8.mxu8_roundtrip64_mul_plain(mxu, x, mt),
+                         bound(8 * (2 * words + 2 * n), 2 * macs))
+        if q != RT_MODULI[0]:
+            continue
+        log(f"ms a trip over {RT_TRIPS} chained trips (CUDA events); bench.py's metric "
+            f"{RT_BATCH} x (n log n + n) modmuls a trip")
+        modmuls = RT_BATCH * (n * log_n + n)
+        for name, route in routes.items():
+            ms = chained_ms(torch, route, x, RT_TRIPS)
+            log(f"[{name:9s}] {ms:.4f} ms a trip -> {modmuls / (ms / 1e3):.4e} modmul/s")
+        fwd_ms = cuda_ms(torch, lambda: ntt_mxu8.mxu8_forward64(mxu, x), KERNEL_REPS)
+        e_ms = table["mxu8_roundtrip64_mul"][RT_BATCH][1]
+        d_ms = table["mxu8_inverse64_mul"][RT_BATCH][1]
+        log(f"kernel E {e_ms:.4f} ms against mxu8_forward64 {fwd_ms:.4f} + D {d_ms:.4f} = "
+            f"{fwd_ms + d_ms:.4f} ms (one trip of {16 * words / 1e6:.1f} MB through device "
+            f"memory saved)")
+    return counts
+
+
+def phase12_large(torch, dev) -> None:
+    """Phase 12: the four-step u64 NTT at n = 2^16 on both routes."""
+    from primus_fhe_tpu_torch.transforms import ntt_large
+    from primus_fhe_tpu_torch.transforms.ntt import forward64
+    from primus_fhe_tpu_torch.transforms.plan import build_plan64
+
+    n, q = 1 << LARGE_LOG_N, LARGE_Q
+    plan = ntt_large.LargeNttPlan64(LARGE_LOG_N, q)
+    log(f"n = 2^{LARGE_LOG_N} = {plan.A} x {plan.B}, q = {q}, {LARGE_ROWS} rows; route 'auto' = "
+        f"{ntt_large.resolve_route(plan)!r}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.randint(0, q, (LARGE_ROWS, n), generator=g, device=dev)
+    want = forward64(build_plan64(LARGE_LOG_N, q, dev), x)
+    outs = {}
+    for route in ("mxu8", "butterfly"):
+        outs[route] = ntt_large.large_forward64(plan, x, 1, route)
+        if not torch.equal(outs[route], want):
+            raise AssertionError(f"[{route}] the four-step forward differs from the plain forward64")
+        back = ntt_large.large_inverse64(plan, ntt_large.large_forward64(plan, x, 4, route), 1,
+                                         route)
+        if not torch.equal(back, x):
+            raise AssertionError(f"[{route}] the four-step does not round-trip")
+        f_ms = cuda_ms(torch, lambda: ntt_large.large_forward64(plan, x, 1, route), KERNEL_REPS)
+        i_ms = cuda_ms(torch, lambda: ntt_large.large_inverse64(plan, want, 1, route),
+                       KERNEL_REPS)
+        log(f"[{route:9s}] forward equals the plain forward64 and round-trips; forward "
+            f"{f_ms:.4f} ms, inverse {i_ms:.4f} ms a transform of {LARGE_ROWS} rows (CUDA events)")
+    if not torch.equal(outs["mxu8"], outs["butterfly"]):
+        raise AssertionError("the four-step routes differ")
+    log(f"both routes: the same {want.numel()} words")
+
+
+def phase13_front(torch, dev, table, conv, basis, key0, counted) -> dict:
+    """Phase 13: kernels F and G at BOOLEAN_128 width, and one CMux step
+    through ``cmux_delta``.  Returns the launch counts of that step."""
+    from primus_fhe_tpu_torch.lattice import tfhe
+    from primus_fhe_tpu_torch.ops import cmux_front, cmux_fused, rotate
+
+    n, kp, level = conv.n, conv.count, basis.decompose_length
+    k1 = key0.shape[1]
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    acc = torch.randint(0, 1 << 32, (BATCH, k1, n), generator=g, device=dev)
+    deg = torch.randint(-4 * n, 4 * n, (BATCH,), generator=g, device=dev, dtype=torch.int32)
+    acc32 = acc.to(torch.int32)
+    words = BATCH * k1 * n
+    for sub in (False, True):
+        compare_kernel(torch, table, "rotate" + ("@subtract" if sub else ""), BATCH,
+                       lambda: rotate.rotate(acc, deg, sub),
+                       lambda: rotate.rotate(acc32, deg, sub),
+                       lambda: rotate.rotate_plain(acc, deg, sub), bound(8 * words))
+    compare_kernel(torch, table, "cmux_front", BATCH,
+                   lambda: cmux_front.cmux_front(acc, deg, basis, conv.primes),
+                   lambda: cmux_front.cmux_front(acc32, deg, basis, conv.primes),
+                   lambda: cmux_front.cmux_front_plain(acc, deg, basis, conv.primes),
+                   bound(4 * (words + kp * level * words), muls32=5 * kp * level * words))
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    step = (acc + tfhe.cmux_delta(conv, basis, acc, deg, key0)) & 0xFFFFFFFF
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in counted}
+    log(f"one CMux step through cmux_delta, launches: {json.dumps(counts)}")
+    want = {name: 0 for name in counts} | {"cmux_front": 1, "forward32": 1, "inverse32": 1}
+    if counts != want:
+        raise AssertionError(f"cmux_delta launch counts {counts}, want {want}")
+    if not torch.equal(step, cmux_fused.fused_cmux_step(conv, basis, acc, deg, key0)):
+        raise AssertionError("acc + cmux_delta differs from fused_cmux_step (kernels 3-4)")
+    log(f"acc + cmux_delta(...) on key slice 0, batch {BATCH}: the same {step.numel()} words as "
+        f"fused_cmux_step (kernels 3-4)")
     return counts
 
 
@@ -417,7 +680,8 @@ def main() -> None:
     from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
     from primus_fhe_tpu_torch.lattice import keyswitch, tfhe
     from primus_fhe_tpu_torch.modular.modops import add32, neg32, sub32
-    from primus_fhe_tpu_torch.ops import build, cmux_fused, cmux_mxu, ntru_cmux_mxu, ntt32, ntt_mxu8
+    from primus_fhe_tpu_torch.ops import (build, cmux_front, cmux_fused, cmux_mxu, ntru_cmux_mxu,
+                                          ntt32, ntt_mxu8, rotate)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -484,31 +748,44 @@ def main() -> None:
         kv32, kpre32 = i32(kv, kpre)
         c_in = residues(bsz * k1 * level * k1, 1)  # bsz key slices per prime
         c_in32, = i32(c_in)
+        # work of each kernel at these shapes (u32 words, 4 bytes each)
+        xr, cr, dp = kp * rows, c_in.numel() // n, cmux_mxu.digit_planes(basis)
+        ntt_b = bound(8 * xr * n, muls32=ntt_muls(xr, n))
+        stage1_b = bound(4 * (rows * n + kp * rows * level * n),
+                         muls32=ntt_muls(kp * rows * level, n))
+        stage2_b = bound(4 * (kp * rows * level * n + kp * k1 * level * k1 * n + 2 * rows * n),
+                         muls32=kp * rows * k1 * level * n + ntt_muls(kp * rows, n))
+        mxu_a_b = bound(4 * (2 * rows * n + 2 * kp * k1 * level * k1 * n),
+                        kp * bsz * (four_step_macs(k1 * level, n, 4, dp)
+                                     + four_step_macs(k1, n, 4, 4)),
+                        3 * kp * bsz * k1 * level * k1 * n)
         compare_kernel(torch, table, "ntt32_forward", bsz,
                        lambda: ntt32.forward32(conv.ntt, x_fwd),
                        lambda: ntt32.forward32(conv.ntt, x_fwd32),
-                       lambda: ntt32.forward32_plain(conv.ntt, x_fwd))
+                       lambda: ntt32.forward32_plain(conv.ntt, x_fwd), ntt_b)
         compare_kernel(torch, table, "ntt32_inverse", bsz,
                        lambda: ntt32.inverse32(conv.ntt, x_inv),
                        lambda: ntt32.inverse32(conv.ntt, x_inv32),
-                       lambda: ntt32.inverse32_plain(conv.ntt, x_inv))
+                       lambda: ntt32.inverse32_plain(conv.ntt, x_inv), ntt_b)
         compare_kernel(torch, table, "cmux_stage1", bsz,
                        lambda: cmux_fused.cmux_stage1(conv, basis, acc, degrees),
                        lambda: cmux_fused.cmux_stage1(conv, basis, acc32, degrees),
-                       lambda: cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees))
+                       lambda: cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees), stage1_b)
         compare_kernel(torch, table, "cmux_stage2", bsz,
                        lambda: cmux_fused.cmux_stage2(conv, f, key, acc),
                        lambda: cmux_fused.cmux_stage2(conv, f32, key32, acc32),
-                       lambda: cmux_fused.cmux_stage2_plain(conv, f, key, acc))
+                       lambda: cmux_fused.cmux_stage2_plain(conv, f, key, acc), stage2_b)
         compare_kernel(torch, table, "mxu_cmux_step", bsz,
                        lambda: cmux_mxu.mxu_cmux_step(plan, basis, conv, acc, degrees, kv, kpre),
                        lambda: cmux_mxu.mxu_cmux_step(plan, basis, conv, acc32, degrees, kv32,
                                                       kpre32),
-                       lambda: cmux_mxu.mxu_cmux_step_plain(conv, basis, acc, degrees, kv))
+                       lambda: cmux_mxu.mxu_cmux_step_plain(conv, basis, acc, degrees, kv),
+                       mxu_a_b)
         compare_kernel(torch, table, "mxu8_forward32", bsz,
                        lambda: ntt_mxu8.mxu8_forward32(plan, c_in),
                        lambda: ntt_mxu8.mxu8_forward32(plan, c_in32),
-                       lambda: ntt_mxu8.mxu8_forward32_plain(plan, c_in))
+                       lambda: ntt_mxu8.mxu8_forward32_plain(plan, c_in),
+                       bound(8 * cr * n, four_step_macs(cr, n, 4, 4)))
         # NTRU_128 shapes: kernel B, and kernels 1-2 as the NTT route runs them
         n_acc = torch.randint(0, qn, (bsz, nn), generator=g, device=dev)
         n_deg = torch.randint(0, 2 * nn, (bsz,), generator=g, device=dev, dtype=torch.int32)
@@ -516,27 +793,35 @@ def main() -> None:
             nctx, torch.randint(0, qn, (1, pn.level, nn), generator=g, device=dev))
         nkv, nkpre = nkv[0], nkpre[0]
         n_acc32, nkv32, nkpre32 = i32(n_acc, nkv, nkpre)
+        ndp = cmux_mxu.digit_planes(nctx.basis)
         compare_kernel(torch, table, "ntru_cmux_step", bsz,
                        lambda: ntru_cmux_mxu.ntru_cmux_step(nplan, nctx.basis, n_acc, n_deg, nkv,
                                                             nkpre),
                        lambda: ntru_cmux_mxu.ntru_cmux_step(nplan, nctx.basis, n_acc32, n_deg,
                                                             nkv32, nkpre32),
                        lambda: ntru_cmux_mxu.ntru_cmux_step_plain(nplan, nctx.basis, n_acc, n_deg,
-                                                                  nkv))
+                                                                  nkv),
+                       bound(4 * (2 * bsz * nn + 2 * pn.level * nn),
+                             bsz * (four_step_macs(pn.level, nn, 4, ndp)
+                                    + four_step_macs(1, nn, 4, 4)),
+                             3 * bsz * pn.level * nn))
         nf = residues(bsz * pn.level, 4, qn_t, 1, nn)
         ni = residues(bsz, 2, qn_t, 1, nn)
         nf32, ni32 = i32(nf, ni)
         compare_kernel(torch, table, "ntt32_forward@NTRU", bsz,
                        lambda: ntt32.forward32(ntru_tables, nf),
                        lambda: ntt32.forward32(ntru_tables, nf32),
-                       lambda: ntt32.forward32_plain(ntru_tables, nf))
+                       lambda: ntt32.forward32_plain(ntru_tables, nf),
+                       bound(8 * nf.numel(), muls32=ntt_muls(nf.numel() // nn, nn)))
         compare_kernel(torch, table, "ntt32_inverse@NTRU", bsz,
                        lambda: ntt32.inverse32(ntru_tables, ni),
                        lambda: ntt32.inverse32(ntru_tables, ni32),
-                       lambda: ntt32.inverse32_plain(ntru_tables, ni))
+                       lambda: ntt32.inverse32_plain(ntru_tables, ni),
+                       bound(8 * ni.numel(), muls32=ntt_muls(ni.numel() // nn, nn)))
 
     counted = (ntt32.forward32, ntt32.inverse32, cmux_fused.cmux_stage1, cmux_fused.cmux_stage2,
-               cmux_mxu.mxu_cmux_step, ntru_cmux_mxu.ntru_cmux_step, ntt_mxu8.mxu8_forward32)
+               cmux_mxu.mxu_cmux_step, ntru_cmux_mxu.ntru_cmux_step, ntt_mxu8.mxu8_forward32,
+               rotate.rotate, cmux_front.cmux_front)
 
     def reset_counts():
         for fn in counted:
@@ -626,6 +911,10 @@ def main() -> None:
             raise AssertionError(f"{name}: {counts[name]} launches, want {want_cmux}")
     log(f"cmux_stage1/2: {want_cmux} = {bootstraps} bootstraps x {p.lwe_dim} steps (2 x {p.lwe_dim} "
         f"launches per bootstrap)")
+    if counts["rotate"] != bootstraps or counts["cmux_front"]:
+        raise AssertionError(f"rotate: {counts['rotate']} launches, want {bootstraps} (one a "
+                             f"bootstrap); cmux_front: {counts['cmux_front']}, want 0")
+    log(f"rotate: {counts['rotate']} = one a bootstrap (the accumulator's v * X^-b)")
 
     # -- phase 7: timings of the NTT-key path ---------------------------------
     log("== phase 7: timings (bsk_kind='ntt')")
@@ -673,6 +962,8 @@ def main() -> None:
         raise AssertionError("mxu8_forward32 was never launched in key preparation")
     if counts_m["cmux_stage1"] or counts_m["cmux_stage2"]:
         raise AssertionError("the MXU key ran the NTT-key CMux kernels")
+    if counts_m["rotate"] != bootstraps_m:
+        raise AssertionError(f"rotate: {counts_m['rotate']} launches, want {bootstraps_m}")
     log(f"mxu_cmux_step: {want_a} = {bootstraps_m} bootstraps x {p.lwe_dim} steps; "
         f"mxu8_forward32: {counts_m['mxu8_forward32']} launch(es) in key preparation")
     cts = ctx.encrypt(torch.tensor([1, 0, 1], device=dev), gen)
@@ -794,47 +1085,64 @@ def main() -> None:
     log("== phase 10: RNS/DCRT blind rotation at N=4096, 2 x 50-bit moduli, L=4, n_lwe=630")
     counts_d = phase10_dcrt(torch, dev, table)
 
+    # -- phases 11-13 ----------------------------------------------------------
+    log("== phase 11: the negacyclic product by a fixed NTT-domain operand (bench.py's shape)")
+    counts_rt = phase11_roundtrip(torch, dev, table)
+    log("== phase 12: the large-n four-step NTT at n = 2^16, q < 2^62")
+    phase12_large(torch, dev)
+    log("== phase 13: rotation and CMux front end at BOOLEAN_128 width")
+    counts_f = phase13_front(torch, dev, table, conv, basis, ctx.bsk[0], counted)
+
     # -- the kernel table -----------------------------------------------------
+    # name -> (source, TPU kernel, launches on its main path, the table key of
+    # the "ms" shape, the batch of the extra "ms_b" columns or None)
+    dcrt = (1, DCRT_BATCH)
     sources = {
-        "ntt32_forward": ("primus_fhe_tpu_torch/csrc/ntt32.cu",
-                          "primus_fhe_tpu/ops/ntt_pallas.py:848", counts["forward32"]),
-        "ntt32_inverse": ("primus_fhe_tpu_torch/csrc/ntt32.cu",
-                          "primus_fhe_tpu/ops/ntt_pallas.py:855", counts["inverse32"]),
-        "cmux_stage1": ("primus_fhe_tpu_torch/csrc/cmux_fused.cu",
-                        "primus_fhe_tpu/ops/cmux_fused.py:140", counts["cmux_stage1"]),
-        "cmux_stage2": ("primus_fhe_tpu_torch/csrc/cmux_fused.cu",
-                        "primus_fhe_tpu/ops/cmux_fused.py:226", counts["cmux_stage2"]),
-        "mxu_cmux_step": ("primus_fhe_tpu_torch/csrc/cmux_mxu.cu",
-                          "primus_fhe_tpu/ops/cmux_mxu.py:621", counts_m["mxu_cmux_step"]),
-        "ntru_cmux_step": ("primus_fhe_tpu_torch/csrc/cmux_mxu.cu",
-                           "primus_fhe_tpu/ops/ntru_cmux_mxu.py:259", counts_n["ntru_cmux_step"]),
-        "mxu8_forward32": ("primus_fhe_tpu_torch/csrc/ntt_mxu8.cu",
-                           "primus_fhe_tpu/ops/ntt_mxu8.py:917",
-                           counts_m["mxu8_forward32"] + counts_n["mxu8_forward32"]),
-        "ntt64_forward": ("primus_fhe_tpu_torch/csrc/ntt64.cu",
-                          "primus_fhe_tpu/ops/ntt_pallas.py:486", counts_d["ntt64_forward"]),
-        "ntt64_inverse": ("primus_fhe_tpu_torch/csrc/ntt64.cu",
-                          "primus_fhe_tpu/ops/ntt_pallas.py:494", counts_d["ntt64_inverse"]),
-        "mxu8_forward64": ("primus_fhe_tpu_torch/csrc/ntt_mxu8.cu",
-                           "primus_fhe_tpu/ops/ntt_mxu8.py:917", counts_d["mxu8_forward64"]),
-        "mxu8_inverse64": ("primus_fhe_tpu_torch/csrc/ntt_mxu8.cu",
-                           "primus_fhe_tpu/ops/ntt_mxu8.py:959", counts_d["mxu8_inverse64"]),
+        "ntt32_forward": ("ntt32.cu", "ops/ntt_pallas.py:848", counts["forward32"], (1, BATCH)),
+        "ntt32_inverse": ("ntt32.cu", "ops/ntt_pallas.py:855", counts["inverse32"], (1, BATCH)),
+        "cmux_stage1": ("cmux_fused.cu", "ops/cmux_fused.py:140", counts["cmux_stage1"],
+                        (1, BATCH)),
+        "cmux_stage2": ("cmux_fused.cu", "ops/cmux_fused.py:226", counts["cmux_stage2"],
+                        (1, BATCH)),
+        "mxu_cmux_step": ("cmux_mxu.cu", "ops/cmux_mxu.py:621", counts_m["mxu_cmux_step"],
+                          (1, BATCH)),
+        "ntru_cmux_step": ("cmux_mxu.cu", "ops/ntru_cmux_mxu.py:259", counts_n["ntru_cmux_step"],
+                           (1, BATCH)),
+        "mxu8_forward32": ("ntt_mxu8.cu", "ops/ntt_mxu8.py:917",
+                           counts_m["mxu8_forward32"] + counts_n["mxu8_forward32"], (1, BATCH)),
+        "ntt64_forward": ("ntt64.cu", "ops/ntt_pallas.py:486", counts_d["ntt64_forward"], dcrt),
+        "ntt64_inverse": ("ntt64.cu", "ops/ntt_pallas.py:494", counts_d["ntt64_inverse"], dcrt),
+        "mxu8_forward64": ("ntt_mxu8.cu", "ops/ntt_mxu8.py:917", counts_d["mxu8_forward64"], dcrt),
+        "mxu8_inverse64": ("ntt_mxu8.cu", "ops/ntt_mxu8.py:959", counts_d["mxu8_inverse64"], dcrt),
+        "mxu8_inverse64_mul": ("ntt_mxu8.cu", "ops/ntt_mxu8.py:968",
+                               counts_rt["mxu8_inverse64_mul"], (RT_BATCH, None)),
+        "mxu8_roundtrip64_mul": ("ntt_mxu8.cu", "ops/ntt_mxu8.py:977",
+                                 counts_rt["mxu8_roundtrip64_mul"], (RT_BATCH, None)),
+        "rotate": ("cmux_front.cu", "ops/rotate_pallas.py:29", counts["rotate"], (BATCH, None)),
+        "cmux_front": ("cmux_front.cu", "ops/cmux_pallas.py:74", counts_f["cmux_front"],
+                       (BATCH, None)),
     }
     kernels = []
-    for name, (src, rep, launches) in sources.items():
-        bb = BATCH if BATCH in table[name] else DCRT_BATCH
-        e1, ms1, pms1, dev1 = table[name][1]
-        eb, msb, pmsb, devb = table[name][bb]
+    for name, (src, rep, launches, (b0, bb)) in sources.items():
+        if launches < 1:
+            raise AssertionError(f"{name} was never launched on its main path")
+        err, ms, plain_ms, dev_ms, (bound_ms, bound_by) = table[name][b0]
         row = {
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches, "max_abs_err": max(e1, eb),
-            "ms": ms1, "plain_ms": pms1, "device_ms": dev1,
-            f"ms_b{bb}": msb, f"plain_ms_b{bb}": pmsb, f"device_ms_b{bb}": devb,
+            "name": name, "route": "cuda", "source": f"primus_fhe_tpu_torch/csrc/{src}",
+            "replaces": f"primus_fhe_tpu/{rep}", "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "batch": b0, "device_ms": dev_ms,
         }
+        if bb is not None:
+            eb, msb, pmsb, devb, (bmsb, bbyb) = table[name][bb]
+            row["max_abs_err"] = max(err, eb)
+            row.update({f"ms_b{bb}": msb, f"plain_ms_b{bb}": pmsb, f"device_ms_b{bb}": devb,
+                        f"bound_ms_b{bb}": bmsb, f"bound_by_b{bb}": bbyb})
         if f"{name}@NTRU" in table:
             row["launches_ntru_path"] = counts_n["forward32" if "forward" in name else "inverse32"]
             row["ms_ntru"] = table[f"{name}@NTRU"][1][1]
             row["plain_ms_ntru"] = table[f"{name}@NTRU"][1][2]
+            row["bound_ms_ntru"] = table[f"{name}@NTRU"][1][4][0]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

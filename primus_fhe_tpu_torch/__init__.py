@@ -3,9 +3,11 @@
 The port of :mod:`primus_fhe_tpu` to PyTorch on an NVIDIA Hopper card.  The
 JAX package stays the reference: every module here keeps its counterpart's
 path and public function names, and computes the same integers on the same
-inputs.  Host-only helpers that import no JAX (``primus_fhe_tpu.params``,
-``golden.model``, ``utils.{primes,gcd,bits}``, ``noise``) are imported from
-the JAX package, not copied.
+inputs.  The port imports nothing of the JAX package: the host-only helpers
+it needs (the parameter records, ``golden.model``, ``utils.{primes,gcd,bits}``,
+``noise``) are copies of what it calls, held equal to the originals by the
+CPU tests.  Entry points that carry keys across from the JAX package
+(``from_jax_*``) put them on the card unless asked for the CPU.
 
 How u32 values are carried
 --------------------------

@@ -21,8 +21,9 @@ import torch
 from ..lattice.rlwe import extract_lwe_torus32
 from ..lattice.tfhe import ggsw_encrypt_torus
 from ..numeric.limb import MASK32, narrow_u32, widen_u32
-from ..ops.cmux_fused import fused_cmux_step, rotate_negacyclic
+from ..ops.cmux_fused import fused_cmux_step
 from ..ops.cmux_mxu import mxu_cmux_step, plan_for, prepare_mxu_bsk
+from ..ops.rotate import rotate
 
 
 def modulus_switch(lwe: torch.Tensor, log_2n: int) -> torch.Tensor:
@@ -39,7 +40,8 @@ def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
     residues — or the MXU pack ``(vals, precons)``, each ``(n_lwe, kp,
     k+1, L, k+1, A, 128)`` (int64 or int32 storage); ``lwe_switched``:
     ``(..., n_lwe+1)`` int32 mod 2N; ``test_poly``: ``(N,)`` torus words.
-    ``acc = (0, v * X^{-b})``, then one CMux per mask element.
+    ``acc = (0, v * X^{-b})`` (kernel F on the card), then one CMux per
+    mask element.
     """
     use_mxu = isinstance(bsk_ntt, (tuple, list))
     key = bsk_ntt[0] if use_mxu else bsk_ntt
@@ -49,9 +51,8 @@ def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
     sw = lwe_switched.reshape(-1, n_lwe + 1)
     bsz = sw.shape[0]
 
-    acc = torch.zeros((bsz, k1, n), dtype=torch.int64, device=sw.device)
-    acc[:, -1, :] = rotate_negacyclic(test_poly.expand(bsz, n), -sw[:, n_lwe])
-    acc = narrow_u32(acc)
+    acc = torch.zeros((bsz, k1, n), dtype=torch.int32, device=sw.device)
+    acc[:, -1, :] = rotate(narrow_u32(test_poly).expand(bsz, n), -sw[:, n_lwe])  # kernel F
     a_t = sw[:, :n_lwe].t().to(torch.int32).contiguous()  # (n_lwe, B)
     if use_mxu:
         plan = plan_for(conv)

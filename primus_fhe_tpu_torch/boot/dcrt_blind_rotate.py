@@ -78,10 +78,11 @@ def make_dcrt_bootstrap_key(generator: torch.Generator, lwe_secret: torch.Tensor
                              batch=(lwe_secret.shape[0],), route=route)
 
 
-def from_jax_dcrt_state(*pairs, device=None):
+def from_jax_dcrt_state(*pairs, device="cuda"):
     """The reference's DCRT state -> the port's tensors: each argument is a
     ``U64(lo, hi)`` (or a ``(lo, hi)`` pair of u32 arrays) holding the
     bootstrap key ``(n_lwe, k+1, L, count, k+1, N)``, the NTT-domain secret
     ``(count, k, N)`` or accumulators; returns int64 tensors of the u64
-    words on ``device``, in the same order."""
+    words on ``device`` (the card unless the caller asks for the CPU), in the
+    same order."""
     return tuple(from_u64_pair((p[0], p[1]), device) for p in pairs)

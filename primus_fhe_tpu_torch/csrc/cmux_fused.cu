@@ -1,9 +1,9 @@
 // Kernels 3 and 4: the two launches of one blind-rotation CMux step,
 // acc <- acc + (acc * X^d - acc) [external product] GGSW.
 //
-// Replaces cmux_stage1 / cmux_stage2 (primus_fhe_tpu/ops/cmux_fused.py) and
-// takes in the math of pallas_cmux_front (ops/cmux_pallas.py) and
-// pallas_rotate (ops/rotate_pallas.py).
+// Replaces cmux_stage1 / cmux_stage2 (primus_fhe_tpu/ops/cmux_fused.py).
+// Stage 1 shares its device functions (modarith32.cuh) with kernels F and G
+// (cmux_front.cu), the standalone rotation and CMux front end.
 //
 // Stage 1: one block per (prime, accumulator row, level).  The rotate-diff
 //   is index arithmetic plus a sign, the signed gadget digit of the level is
@@ -22,29 +22,6 @@
 
 namespace {
 
-// Gadget-decomposition constants of an ApproxSignedBasis32 in torus mode
-// (host pack: level, log_basis, drop_bits, B-1, carry_mask, 2^32-B,
-// init_carry_mask or 0).
-struct BasisConsts {
-  int level, log_basis, drop_bits;
-  uint32_t bm1, cmask, mmb, init_mask;
-};
-
-// Signed digit of `level` for torus word v: the carry chain of levels
-// 0..level (decompose/primitive.py).
-__device__ __forceinline__ uint32_t signed_digit(uint32_t v, const BasisConsts& bc, int level) {
-  uint32_t carry = (v & bc.init_mask) != 0u;  // init_mask = 0 when nothing is dropped
-  uint32_t digit = 0;
-  for (int lv = 0; lv <= level; ++lv) {
-    const uint32_t temp = ((v >> (bc.drop_bits + lv * bc.log_basis)) & bc.bm1) + carry;
-    const uint32_t next = (temp & bc.cmask) != 0u;
-    const uint32_t sgn = temp > bc.bm1 ? 0u : temp + bc.mmb;
-    digit = next ? sgn : temp;
-    carry = next;
-  }
-  return digit;
-}
-
 __global__ void cmux_stage1_kernel(const uint32_t* __restrict__ acc,
                                    const int32_t* __restrict__ degrees,
                                    uint32_t* __restrict__ out, const uint32_t* __restrict__ roots,
@@ -52,23 +29,15 @@ __global__ void cmux_stage1_kernel(const uint32_t* __restrict__ acc,
                                    BasisConsts bc, int rows, int k1, int log_n) {
   extern __shared__ uint32_t sv[];
   const int n = 1 << log_n;
-  const int two_n = 2 * n;
   const int L = bc.level;
   const int l = blockIdx.x % L;
   const int row = (blockIdx.x / L) % rows;
   const int pi = blockIdx.x / (L * rows);
-  int d = degrees[row / k1] % two_n;
-  if (d < 0) d += two_n;
+  const int d = degree_mod(degrees[row / k1], n);
   const uint32_t* a = acc + (size_t)row * n;
   const PrimeConsts& pc = ps.p[pi];
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    // (acc * X^d)[c] = +-acc[(c - d) mod n], negated when (c - d) mod 2n >= n
-    int e = c - d;
-    if (e < 0) e += two_n;
-    const uint32_t src = a[e >= n ? e - n : e];
-    const uint32_t rot = e >= n ? 0u - src : src;
-    sv[c] = lift_mod_p(signed_digit(rot - a[c], bc, l), pc);
-  }
+  for (int c = threadIdx.x; c < n; c += blockDim.x)
+    sv[c] = lift_mod_p(signed_digit(rotated_at(a, c, d, n) - a[c], bc, l), pc);
   __syncthreads();
   ntt_forward_smem(sv, roots + (size_t)pi * n, roots_p + (size_t)pi * n, pc.q, log_n);
   uint32_t* dst = out + (((size_t)pi * rows + row) * L + l) * n;
@@ -131,9 +100,7 @@ int pft_cmux_stage1(const void* acc, const void* degrees, void* out, const void*
                     int bsz, int k1, int log_n, void* stream) {
   if (kp < 1 || kp > PFT_MAX_KP || log_n < 1 || log_n > 12) return (int)cudaErrorInvalidValue;
   const PrimeSet ps = unpack_primes((const uint64_t*)prime_pack, kp);
-  const uint64_t* h = (const uint64_t*)basis_pack;
-  const BasisConsts bc{(int)h[0],      (int)h[1],      (int)h[2],     (uint32_t)h[3],
-                       (uint32_t)h[4], (uint32_t)h[5], (uint32_t)h[6]};
+  const BasisConsts bc = unpack_basis((const uint64_t*)basis_pack);
   const int rows = bsz * k1;
   const size_t smem = sizeof(uint32_t) << log_n;
   cmux_stage1_kernel<<<kp * rows * bc.level, block_threads(log_n), smem, (cudaStream_t)stream>>>(

@@ -162,6 +162,55 @@ __device__ __forceinline__ void ntt_inverse_smem(uint32_t* v,
   __syncthreads();
 }
 
+// Gadget-decomposition constants of an ApproxSignedBasis32 in torus mode
+// (host pack of ops/cmux_fused._basis_pack, first 7 words: level,
+// log_basis, drop_bits, B-1, carry_mask, 2^32-B, init_carry_mask or 0).
+struct BasisConsts {
+  int level, log_basis, drop_bits;
+  uint32_t bm1, cmask, mmb, init_mask;
+};
+
+inline BasisConsts unpack_basis(const uint64_t* h) {
+  return BasisConsts{(int)h[0],      (int)h[1],      (int)h[2],     (uint32_t)h[3],
+                     (uint32_t)h[4], (uint32_t)h[5], (uint32_t)h[6]};
+}
+
+// One level of the signed-digit carry chain (decompose/primitive.py): the
+// digit of level `l` of torus word v, as a u32 (two's complement when
+// negative); `carry` goes in and out.  Start the chain with
+// carry = (v & init_mask) != 0 (init_mask = 0 when nothing is dropped).
+__device__ __forceinline__ uint32_t digit_step(uint32_t v, const BasisConsts& bc, int l,
+                                               uint32_t& carry) {
+  const uint32_t temp = ((v >> (bc.drop_bits + l * bc.log_basis)) & bc.bm1) + carry;
+  const uint32_t next = (temp & bc.cmask) != 0u;
+  const uint32_t sgn = temp > bc.bm1 ? 0u : temp + bc.mmb;
+  carry = next;
+  return next ? sgn : temp;
+}
+
+// Signed digit of `level` for torus word v: the chain of levels 0..level.
+__device__ __forceinline__ uint32_t signed_digit(uint32_t v, const BasisConsts& bc, int level) {
+  uint32_t carry = (v & bc.init_mask) != 0u;
+  uint32_t digit = 0;
+  for (int lv = 0; lv <= level; ++lv) digit = digit_step(v, bc, lv, carry);
+  return digit;
+}
+
+// Coefficient c of a * X^d mod X^n + 1 over the torus (d in [0, 2n)):
+// +-a[(c - d) mod n], negated when (c - d) mod 2n >= n.
+__device__ __forceinline__ uint32_t rotated_at(const uint32_t* a, int c, int d, int n) {
+  int e = c - d;
+  if (e < 0) e += 2 * n;
+  const uint32_t src = a[e >= n ? e - n : e];
+  return e >= n ? 0u - src : src;
+}
+
+// A degree of any sign taken mod 2n.
+__device__ __forceinline__ int degree_mod(int d, int n) {
+  d %= 2 * n;
+  return d < 0 ? d + 2 * n : d;
+}
+
 inline int block_threads(int log_n) {
   const int half = 1 << (log_n - 1);
   return half < 1024 ? half : 1024;

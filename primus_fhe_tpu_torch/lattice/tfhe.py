@@ -21,6 +21,8 @@ from ..decompose.primitive import ApproxSignedBasis32
 from ..distr.sampling import DiscreteGaussian
 from ..modular.modops import lazy_mul32, reduce_once32, sum_mod32
 from ..numeric.limb import MASK32
+from ..ops import ntt32
+from ..ops.rotate import rotate
 from ..transforms.torus import TorusConvolver32
 
 
@@ -69,6 +71,23 @@ def external_product_mac(conv: TorusConvolver32, f, key_ntt, nbatch: int):
 def _external_product_tail(conv, f, key_ntt, nbatch: int):
     """MAC + inverse NTT + CRT recombine."""
     return conv.recombine(conv.inverse(external_product_mac(conv, f, key_ntt, nbatch)))
+
+
+def cmux_delta(conv: TorusConvolver32, basis: ApproxSignedBasis32, acc, degrees, key_ntt):
+    """``(acc * X^d - acc) ⊡ key`` — one blind-rotation step's increment.
+
+    ``acc``: ``(B, k1, N)`` torus words; ``degrees``: ``(B,)`` (any sign,
+    mod 2N); ``key_ntt``: ``(kp, k1, L, k1, N)``.  On a CUDA tensor kernel G
+    (:func:`..ops.cmux_front.cmux_front`) builds the digit residues and
+    kernel 1 transforms them; on the CPU the composed path (rotation, then
+    :func:`external_product`) runs.  Both give the same words.
+    """
+    if acc.device.type == "cuda":
+        from ..ops.cmux_front import cmux_front  # a cycle at import: via ops.cmux_fused
+
+        res = cmux_front(acc, degrees, basis, conv.primes)  # (kp, B, k1, L, N)
+        return _external_product_tail(conv, ntt32.forward32(conv.ntt, res, 4), key_ntt, 1)
+    return external_product(conv, basis, rotate(acc, degrees, subtract=True), key_ntt)
 
 
 def ggsw_encrypt_torus(

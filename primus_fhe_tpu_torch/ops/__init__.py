@@ -6,7 +6,12 @@
   and the MXU bootstrap-key preparation;
 - :mod:`.ntru_cmux_mxu`: kernel B, the one-launch int8 NGS CMux step, and
   the MXU evaluation-key preparation;
-- :mod:`.ntt_mxu8`: kernel C, the int8 four-step forward NTT;
+- :mod:`.ntt_mxu8`: kernel C, the int8 four-step forward NTT; its u64
+  tiers ``mxu8_forward64``/``mxu8_inverse64``; kernels D and E, the inverse
+  with a fused key multiply and the fused round trip;
+- :mod:`.ntt64`: the u64 butterfly NTT and inverse NTT;
+- :mod:`.rotate`: kernel F, the negacyclic torus rotation;
+- :mod:`.cmux_front`: kernel G, the CMux front end (digit residues);
 - :mod:`.mxu_common`: the host four-step matrices;
 - :mod:`.build`: compiles ``csrc/`` with ``nvcc`` at first use and binds it.
 """

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("ntt32.cu", "cmux_fused.cu", "cmux_mxu.cu", "ntt_mxu8.cu", "ntt64.cu")
+SOURCES = ("ntt32.cu", "cmux_fused.cu", "cmux_mxu.cu", "ntt_mxu8.cu", "ntt64.cu", "cmux_front.cu")
 HEADERS = ("modarith32.cuh", "modarith64.cuh", "mxu8.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,6 +46,10 @@ _SIGNATURES = {
     "pft_ntt64_inverse": (_P,) * 5 + (_I,) * 5 + (_P,),
     "pft_ntt_mxu8_forward64": (_P,) * 6 + (_I,) * 4 + (_P,),
     "pft_ntt_mxu8_inverse64": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "pft_ntt_mxu8_inverse64_mul": (_P,) * 7 + (_I,) * 4 + (_P,),
+    "pft_ntt_mxu8_roundtrip64_mul": (_P,) * 9 + (_I,) * 4 + (_P,),
+    "pft_rotate": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "pft_cmux_front": (_P,) * 5 + (_I,) * 4 + (_P,),
 }
 
 

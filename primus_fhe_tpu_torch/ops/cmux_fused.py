@@ -1,10 +1,9 @@
 """Kernels 3 and 4: the fused blind-rotation CMux step, two launches per step.
 
 Replaces ``cmux_stage1`` and ``cmux_stage2``
-(``primus_fhe_tpu/ops/cmux_fused.py:140,226``); stage 1 also takes in the
-math of ``pallas_cmux_front`` (``ops/cmux_pallas.py:74``) and
-``pallas_rotate`` (``ops/rotate_pallas.py:29``).  CUDA source:
-``csrc/cmux_fused.cu``.
+(``primus_fhe_tpu/ops/cmux_fused.py:140,226``); stage 1 is kernel G
+(:mod:`.cmux_front`) with the forward NTT fused in, on the same device
+functions.  CUDA source: ``csrc/cmux_fused.cu``.
 
 - **stage 1** (:func:`cmux_stage1`): rotate-diff ``acc*X^d - acc`` ->
   signed gadget digit -> centered lift mod each prime -> forward NTT.  One
@@ -39,28 +38,16 @@ import torch
 
 from ..lattice.tfhe import external_product_mac
 from ..numeric.limb import MASK32, narrow_u32, widen_u32
-from ..poly.poly import rot_index
 from . import build
 from .ntt32 import forward32_plain, inverse32_plain
-
-
-def rotate_negacyclic(v: torch.Tensor, degrees: torch.Tensor) -> torch.Tensor:
-    """``v * X^d`` mod ``X^n + 1`` over the torus, one degree per leading row.
-
-    ``v``: ``(B, ..., n)`` words; ``degrees``: ``(B,)`` integers (any sign,
-    taken mod 2n); index math of :func:`..poly.poly.rot_index`.
-    """
-    deg = degrees.to(v.device).reshape((v.shape[0],) + (1,) * (v.dim() - 2))
-    idx, neg = rot_index(v.shape[-1], deg.expand(v.shape[:-1]))
-    g = torch.gather(v, -1, idx)
-    return torch.where(neg, (-g) & MASK32, g)
+from .rotate import rotate_plain
 
 
 def cmux_stage1_plain(conv, basis, acc: torch.Tensor, degrees: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel 3 on int64 words: ``acc (B, k1, n)``,
     ``degrees (B,)`` -> ``(kp, B*k1, L, n)`` lazy NTT-domain digits."""
     bsz, k1, n = acc.shape
-    diff = (rotate_negacyclic(acc, degrees) - acc) & MASK32
+    diff = rotate_plain(acc, degrees, subtract=True)
     digits = basis.decompose(diff)  # (L, B, k1, n)
     digits = digits.permute(1, 2, 0, 3).reshape(bsz * k1, basis.decompose_length, n)
     return forward32_plain(conv.ntt, conv.lift(digits), out_factor=4)

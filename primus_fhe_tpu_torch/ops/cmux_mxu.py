@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from primus_fhe_tpu.utils.gcd import mod_inv
+from ..utils.gcd import mod_inv
 
 from ..numeric.limb import MASK32, narrow_u32, widen_u32
 from . import build

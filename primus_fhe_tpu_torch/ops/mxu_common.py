@@ -10,9 +10,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from primus_fhe_tpu.golden.model import GoldenNtt
-from primus_fhe_tpu.utils.bits import reverse_lsbs
-from primus_fhe_tpu.utils.gcd import mod_inv
+from ..golden.model import GoldenNtt
+from ..utils.bits import reverse_lsbs
+from ..utils.gcd import mod_inv
 
 
 def _pow_table(base: int, q: int, count: int) -> list[int]:

@@ -50,15 +50,20 @@ def mod_pack64(plans: list[NttPlan64]) -> np.ndarray:
 
 class NttTables64:
     """Per-modulus u64 NTT plans of a modulus list and their kernel-side
-    copies (``(count, n)`` root tables, u64 patterns in int64)."""
+    copies (``(count, n)`` root tables, u64 patterns in int64).  ``roots``:
+    one explicit primitive ``2n``-th root per modulus (the counterpart of
+    ``PallasNttPlan64(root=)``), the minimal ones by default."""
 
-    def __init__(self, log_n: int, moduli):
+    def __init__(self, log_n: int, moduli, roots=None):
         if not 1 <= len(moduli) <= MAX_MODULI:
             raise ValueError(f"1 to {MAX_MODULI} moduli supported")
         self.log_n = log_n
         self.n = 1 << log_n
         self.moduli = tuple(int(q) for q in moduli)
-        self.plans = [build_plan64(log_n, q) for q in self.moduli]
+        self.roots = tuple(roots) if roots is not None else (None,) * len(self.moduli)
+        if len(self.roots) != len(self.moduli):
+            raise ValueError("one root per modulus")
+        self.plans = [build_plan64(log_n, q, root=r) for q, r in zip(self.moduli, self.roots)]
         self.mod_pack = mod_pack64(self.plans)
         self._plans_on = {torch.device("cpu"): self.plans}
         self._kernel_on: dict = {}

@@ -10,9 +10,16 @@
   :class:`Mxu8NttPlan64` (port of ``ntt_mxu8.py:156-300``) and the
   per-modulus stack :class:`Mxu8Tables64`.
 
-All reach ``pallas_call`` through ``ops/mxu_common._natural_call`` in the
-reference.  The fused-multiply inverse and the round trip are not ported.
-CUDA source: ``csrc/ntt_mxu8.cu``; design and bounds are stated there.
+- Kernel D, ``mxu8_inverse64_mul``, and kernel E, ``mxu8_roundtrip64_mul``:
+  ``mxu8_fused_inverse64_mul`` and ``mxu8_fused_roundtrip64_mul``
+  (``ntt_mxu8.py:968,977``), the inverse with a pointwise multiply by a
+  fixed NTT-domain operand fused in front, and the whole negacyclic product
+  by that operand (forward, multiply, inverse) in one launch; the operand
+  comes as a :meth:`Mxu8Tables64.mul_table`.
+
+All but the round trip reach ``pallas_call`` through
+``ops/mxu_common._natural_call`` in the reference.  CUDA source:
+``csrc/ntt_mxu8.cu``; design and bounds are stated there.
 
 The four-step's natural output order is the butterfly NTT's bit-reversed
 order, so each plain version is the canonical butterfly transform
@@ -30,8 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..modular.factor import ShoupFactor64, factor_mul64
-from ..numeric.limb import narrow_u32, u64_tensor, widen_u32
+from ..modular.factor import ShoupFactor64, factor_mul64, factor_mul_lazy64
+from ..numeric.limb import narrow_u32, u64_numpy, u64_tensor, widen_u32
 from ..transforms.plan import _quot64
 from . import build
 from .cmux_mxu import LANES, _balanced_digits, kernel_layout
@@ -118,7 +125,8 @@ class Mxu8NttPlan64:
     """Byte-radix four-step plan of one modulus ``q < 2^62`` at ``8 <= log_n
     <= 14``: ``A = n / 128`` rows by ``B = 128`` lanes (the JAX plan's
     default split in that range), ``planes`` output digit planes (the
-    natural tier, or an override at least that).
+    natural tier, or an override at least that), on the minimal root or an
+    explicit ``root`` (the four-step sub-plans of ``transforms.ntt_large``).
 
     ``w1``/``w2`` (forward) and ``wi1``/``wi2`` (inverse, ``inv_n`` folded
     into ``wi2``) have rows ``(c, out)`` and columns ``(l, in)`` over all 8
@@ -127,7 +135,7 @@ class Mxu8NttPlan64:
     twiddles ``(A, B)`` with their Shoup quotients.
     """
 
-    def __init__(self, log_n: int, q: int, planes: int | None = None):
+    def __init__(self, log_n: int, q: int, planes: int | None = None, root: int | None = None):
         natural = _planes_for(q)
         if planes is None:
             planes = natural
@@ -139,7 +147,7 @@ class Mxu8NttPlan64:
         self.log_n, self.n, self.q = log_n, 1 << log_n, int(q)
         h1 = log_n - 7
         self.A, self.B = 1 << h1, LANES
-        fs = four_step_matrices(log_n, q, h1, h1)
+        fs = four_step_matrices(log_n, q, h1, h1, root)
         self.w1 = byte_matrix(fs["m1"], q, P, 8)  # rows (c, r0), cols (l, k1)
         self.w2 = byte_matrix(fs["m2"], q, P, 8)  # rows (c, r1), cols (l, k0)
         self.wi1 = byte_matrix(fs["m2i"], q, P, 8)  # rows (c, k0), cols (l, r1)
@@ -157,17 +165,44 @@ class Mxu8NttPlan64:
 
 
 class Mxu8Tables64:
-    """The u64 four-step plans of every modulus of a DCRT plan at one plane
-    count (the largest natural tier, at least 7: the kernels are built for 7
-    and 8 planes), and their kernel-side copies."""
+    """The u64 four-step plans of every modulus of a butterfly table stack
+    (on its roots) at one plane count (the largest natural tier, at least 7:
+    the kernels are built for 7 and 8 planes), and their kernel-side copies.
+    The plans are built at first use: the plain versions need only ``ntt``,
+    at any ``log_n``."""
 
     def __init__(self, ntt: NttTables64):
         self.ntt = ntt
         self.log_n, self.n, self.moduli = ntt.log_n, ntt.n, ntt.moduli
         self.planes = max([7] + [_planes_for(q) for q in self.moduli])
-        self.plans = [Mxu8NttPlan64(self.log_n, q, self.planes) for q in self.moduli]
-        self.A, self.B = self.plans[0].A, self.plans[0].B
+        self.A, self.B = max(self.n // LANES, 1), LANES
+        self._plans = None
         self._kernel_on: dict = {}
+
+    @property
+    def plans(self) -> list:
+        if self._plans is None:
+            self._plans = [Mxu8NttPlan64(self.log_n, q, self.planes, r)
+                           for q, r in zip(self.moduli, self.ntt.roots)]
+        return self._plans
+
+    def mul_table(self, key) -> torch.Tensor:
+        """The fixed operand of kernels D and E (the counterpart of
+        ``Mxu8NttPlan64.inverse_mul_tabs``): ``key (count, n)`` canonical
+        NTT-domain values in the forward output's bit-reversed order ->
+        ``(count, 2, n)`` int64 on ``key``'s device, the values and their
+        Shoup quotients ``floor(key * 2^64 / q)`` (u64 patterns)."""
+        key = torch.as_tensor(key)
+        count, n = len(self.moduli), self.n
+        if key.shape != (count, n):
+            raise ValueError(f"key must be (count={count}, n={n}), got {tuple(key.shape)}")
+        vals = u64_numpy(key.to(torch.int64))
+        quot = np.empty_like(vals)
+        for i, q in enumerate(self.moduli):
+            if (vals[i] >= np.uint64(q)).any():
+                raise ValueError("key values must be canonical (below q)")
+            quot[i] = [_quot64(int(v), q) for v in vals[i]]
+        return u64_tensor(np.stack([vals, quot], axis=1), key.device)
 
     def kernel_tables(self, device) -> dict:
         """``w1, w2, wi1, wi2`` (int8, kernel layout: columns ``(k, l)``,
@@ -212,18 +247,46 @@ def mxu8_inverse64_plain(tables: Mxu8Tables64, values: torch.Tensor) -> torch.Te
     return ntt64_inverse_plain(tables.ntt, reduce_any64(values, tables.moduli), 1)
 
 
-def _run64(wrapper, plain, entry: str, names, tables: Mxu8Tables64, values, out_factor, allowed):
+def _key_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: torch.Tensor):
+    """``values (count, ..., n)`` (any u64 words) times the key of
+    ``mul_tab`` by a lazy Shoup multiply: ``[0, 2q)``."""
+    lead = (len(tables.moduli),) + (1,) * (values.dim() - 2)
+    q = u64_tensor(list(tables.moduli), values.device).reshape(lead + (1,))
+    key = ShoupFactor64(mul_tab[:, 0].reshape(lead + (tables.n,)),
+                        mul_tab[:, 1].reshape(lead + (tables.n,)))
+    return factor_mul_lazy64(values, key, q)
+
+
+def mxu8_inverse64_mul_plain(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: torch.Tensor):
+    """Plain version of kernel D: the key multiply, then the canonical
+    butterfly inverse NTT."""
+    return ntt64_inverse_plain(tables.ntt, _key_mul(tables, values, mul_tab), 1)
+
+
+def mxu8_roundtrip64_mul_plain(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: torch.Tensor):
+    """Plain version of kernel E: the forward plain version, then kernel D's."""
+    return mxu8_inverse64_mul_plain(tables, mxu8_forward64_plain(tables, values), mul_tab)
+
+
+def _run64(wrapper, plain, entry: str, names, tables: Mxu8Tables64, values, out_factor, allowed,
+           mul_tab=None):
     if out_factor not in allowed:
         raise ValueError(f"out_factor must be one of {allowed}")
+    keyed = () if mul_tab is None else (mul_tab,)
     if values.device.type == "cpu":
-        return plain(tables, values)
+        return plain(tables, values, *keyed)
     if values.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {values.device}")
     count, n = len(tables.moduli), tables.n
     if values.dtype != torch.int64 or values.shape[0] != count or values.shape[-1] != n:
         raise ValueError(f"expected int64 (count={count}, ..., n={n}), got "
                          f"{values.dtype} {tuple(values.shape)}")
-    if tables.log_n > 12:
+    if mul_tab is not None and (mul_tab.device != values.device or mul_tab.dtype != torch.int64
+                                or mul_tab.shape != (count, 2, n)
+                                or not mul_tab.is_contiguous()):
+        raise ValueError(f"{wrapper.__name__}: the key table must be a contiguous int64 "
+                         f"(count={count}, 2, n={n}) tensor on {values.device}")
+    if not 8 <= tables.log_n <= 12:
         raise ValueError(f"{wrapper.__name__}: the kernels take 8 <= log_n <= 12")
     v = values.contiguous()
     out = torch.empty_like(v)
@@ -231,9 +294,10 @@ def _run64(wrapper, plain, entry: str, names, tables: Mxu8Tables64, values, out_
     if rows:
         tabs = tables.kernel_tables(v.device)
         err = getattr(build.library(), entry)(
-            v.data_ptr(), out.data_ptr(), tabs[names[0]].data_ptr(), tabs[names[1]].data_ptr(),
-            tabs["tw"].data_ptr(), build.ptr(tables.ntt.mod_pack), count, rows, tables.log_n,
-            tables.planes, torch.cuda.current_stream(v.device).cuda_stream,
+            v.data_ptr(), out.data_ptr(), *(tabs[name].data_ptr() for name in names),
+            tabs["tw"].data_ptr(), *(t.data_ptr() for t in keyed), build.ptr(tables.ntt.mod_pack),
+            count, rows, tables.log_n, tables.planes,
+            torch.cuda.current_stream(v.device).cuda_stream,
         )
         build.check(err, entry)
         wrapper.launches += 1
@@ -260,5 +324,26 @@ def mxu8_inverse64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
                   ("wi1", "wi2"), tables, values, out_factor, (1, 2))
 
 
+def mxu8_inverse64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: torch.Tensor,
+                       out_factor: int = 1):
+    """Kernel D: ``INTT(values * key)`` for any u64 words ``values (count,
+    ..., n)`` in bit-reversed order and the key of ``mul_tab``
+    (:meth:`Mxu8Tables64.mul_table`) -> canonical values in normal order."""
+    return _run64(mxu8_inverse64_mul, mxu8_inverse64_mul_plain, "pft_ntt_mxu8_inverse64_mul",
+                  ("wi1", "wi2"), tables, values, out_factor, (1, 2), mul_tab)
+
+
+def mxu8_roundtrip64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: torch.Tensor,
+                         out_factor: int = 1):
+    """Kernel E: ``INTT(NTT(values) * key)``, the negacyclic product of any
+    u64 words ``values (count, ..., n)`` (normal order) by the fixed operand
+    of ``mul_tab`` -> canonical values in normal order, in one launch."""
+    return _run64(mxu8_roundtrip64_mul, mxu8_roundtrip64_mul_plain,
+                  "pft_ntt_mxu8_roundtrip64_mul", ("w1", "w2", "wi1", "wi2"), tables, values,
+                  out_factor, (1, 2), mul_tab)
+
+
 mxu8_forward64.launches = 0
 mxu8_inverse64.launches = 0
+mxu8_inverse64_mul.launches = 0
+mxu8_roundtrip64_mul.launches = 0

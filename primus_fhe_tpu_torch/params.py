@@ -2,8 +2,9 @@
 ``make_context`` and ``make_ntru_context`` in ``primus_fhe_tpu/params.py``).
 
 The parameter records (``TfheParams``, ``TOY``, ``BOOLEAN_128``,
-``NtruParams``, ``NTRU_128``) are the JAX package's own, which import no
-JAX.  Noise widths are kept apart, as in the reference:
+``NtruParams``, ``NTRU_128``) are copies of the JAX package's, field for
+field; the security and noise validation of the named profiles is
+documented there.  Noise widths are kept apart, as in the reference:
 
 - TFHE: the bootstrap key is GLWE-encrypted at ``glwe_sigma``;
   key-switch-key rows and fresh encryptions are LWE samples at
@@ -19,9 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from primus_fhe_tpu import noise
-from primus_fhe_tpu.params import BOOLEAN_128, NTRU_128, TOY, NtruParams, TfheParams
-
+from . import noise
 from .boot.blind_rotate import make_bootstrap_key, make_bootstrap_key_mxu
 from .boot.gates import FALSE_MU, TRUE_MU
 from .boot.ntru_blind_rotate import (
@@ -38,12 +37,78 @@ from .lattice import keyswitch, tfhe
 from .lattice.lwe import encrypt_torus32, phase_torus32
 from .lattice.ntru import to_ntt
 from .ops.ntru_cmux_mxu import prepare_mxu_evk
+from .utils.primes import next_ntt_prime
 
 __all__ = [
     "BOOLEAN_128", "NTRU_128", "NtruGateKeys", "NtruParams", "TOY", "TfheContext", "TfheParams",
     "from_jax_context", "from_jax_ntru_context", "gate_noise_stddev", "make_context",
     "make_ntru_context", "make_ntru_keys",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class TfheParams:
+    """TFHE-style torus-2^32 parameter set."""
+
+    log_n: int  # GLWE polynomial degree (N = 2^log_n)
+    glwe_dim: int  # k (mask polynomial count)
+    lwe_dim: int  # n_lwe
+    log_basis: int  # gadget basis B = 2^log_basis (bootstrap key)
+    level: int  # gadget levels (bootstrap key)
+    ks_log_basis: int  # key-switch basis
+    ks_level: int  # key-switch levels
+    lwe_sigma: float  # LWE noise stddev (torus-2^32 units)
+    glwe_sigma: float  # GLWE noise stddev
+
+    @property
+    def n(self) -> int:
+        return 1 << self.log_n
+
+
+TOY = TfheParams(
+    log_n=5, glwe_dim=1, lwe_dim=8,
+    log_basis=8, level=3, ks_log_basis=8, ks_level=3,
+    lwe_sigma=3.2, glwe_sigma=3.2,
+)
+
+# The estimator-validated 128-bit boolean profile (N=2048).
+BOOLEAN_128 = TfheParams(
+    log_n=11, glwe_dim=1, lwe_dim=630,
+    log_basis=7, level=3, ks_log_basis=1, ks_level=12,
+    lwe_sigma=2.0**18.6, glwe_sigma=3.2,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class NtruParams:
+    """NTRU (FINAL/NGS-style) mod-q parameter set; ``q`` is the largest NTT
+    prime below ``2^q_bits`` (= 1 mod 2^(log_n+1))."""
+
+    log_n: int  # NTRU ring degree (N = 2^log_n)
+    q_bits: int  # NTRU modulus size
+    lwe_dim: int  # n_lwe (binary LWE dimension)
+    log_basis: int  # gadget basis for the NGS external product
+    level: int  # gadget levels
+    ks_log_basis: int  # key-switch basis
+    ks_level: int  # key-switch levels
+    sigma: float  # NTRU-side noise stddev (keygen and evk; mod-q units)
+    lwe_sigma: float = 0.0  # LWE-side stddev: fresh encryptions and ksk rows
+
+    @property
+    def n(self) -> int:
+        return 1 << self.log_n
+
+    @property
+    def q(self) -> int:
+        return next_ntt_prime(self.q_bits, self.log_n)
+
+
+# The 128-bit-class NTRU boolean profile (FINAL geometry, N=1024).
+NTRU_128 = NtruParams(
+    log_n=10, q_bits=20, lwe_dim=700,
+    log_basis=3, level=6, ks_log_basis=1, ks_level=16,
+    sigma=0.5, lwe_sigma=52.0,
+)
 
 BSK_KINDS = ("auto", "ntt", "mxu")
 
@@ -136,8 +201,9 @@ def _t(x, device):
 
 
 def from_jax_context(params: TfheParams, bsk, ksk, lwe_secret, glwe_secret,
-                     device="cpu") -> TfheContext:
-    """The port's context over keys made by the JAX package.
+                     device="cuda") -> TfheContext:
+    """The port's context over keys made by the JAX package, on ``device``
+    (the card unless the caller asks for the CPU).
 
     Arrays come as numpy (``np.asarray`` of the JAX context's fields):
     ``bsk`` the NTT key ``(n_lwe, kp, k+1, L, k+1, N)`` or the MXU pack
@@ -246,8 +312,9 @@ def make_ntru_keys(params: NtruParams, device, generator: torch.Generator) -> Nt
 
 
 def from_jax_ntru_context(params: NtruParams, f, evk, ksk, lwe_secret,
-                          device="cpu") -> NtruGateKeys:
-    """The port's NTRU keys over keys made by the JAX package: numpy arrays
+                          device="cuda") -> NtruGateKeys:
+    """The port's NTRU keys over keys made by the JAX package, on ``device``
+    (the card unless the caller asks for the CPU): numpy arrays
     of the secret's coefficients ``f (N,)``, the evaluation key (NTT-domain
     ``(n_lwe, L, N)`` or the MXU pair ``(vals, precons)``), the key-switch
     key and the binary LWE secret."""

@@ -5,7 +5,7 @@
 negated when ``(k - d) mod 2n >= n`` (``X^n = -1``).  The degree is data,
 so the rotation is one gather plus a negation: the index math
 (:func:`rot_index`) serves the mod-q rotation here and the torus rotation
-of :func:`..ops.cmux_fused.rotate_negacyclic`.
+of :func:`..ops.rotate.rotate_plain`.
 """
 
 from __future__ import annotations

@@ -51,7 +51,10 @@ class DcrtPlan64:
 
     @property
     def mxu(self):
-        """:class:`..ops.ntt_mxu8.Mxu8Tables64` of the moduli (built once)."""
+        """:class:`..ops.ntt_mxu8.Mxu8Tables64` of the moduli (built once);
+        the byte-radix route needs ``8 <= log_n <= 14`` (``B = 128`` lanes)."""
+        if not 8 <= self.log_n <= 14:
+            raise ValueError("the byte-radix plan needs 8 <= log_n <= 14 (B = 128 lanes)")
         if self._mxu is None:
             from ..ops.ntt_mxu8 import Mxu8Tables64
 

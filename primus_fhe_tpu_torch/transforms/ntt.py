@@ -1,6 +1,7 @@
 """Negacyclic NTT forward/inverse over u32 and u64 words (port of
-``forward32``, ``inverse32``, ``forward64`` and ``inverse64`` in
-``primus_fhe_tpu/transforms/ntt.py``).
+``forward32``, ``inverse32``, ``forward64``, ``inverse64``, ``monomial64``,
+``pointwise_mul64``, ``negacyclic_mul64``, ``bit_reverse_permute`` and the
+four ``*_normal_order`` variants in ``primus_fhe_tpu/transforms/ntt.py``).
 
 Radix-2 Harvey butterflies with Shoup lazy multiplies and the
 ``[0,4q)`` / ``[0,2q)`` lazy-range discipline; each stage is a reshape to
@@ -22,8 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from ..modular.modops import reduce_once32, reduce_once64, reduce_twice32, reduce_twice64
+from ..modular.modops import mul64, reduce_once32, reduce_once64, reduce_twice32, reduce_twice64
 from ..numeric.limb import MASK32, mul_hi_u64, mulhi_u32
+from ..utils.bits import reverse_lsbs
 from .plan import NttPlan32, NttPlan64
 
 
@@ -158,3 +160,53 @@ def inverse64(plan: NttPlan64, values: torch.Tensor, out_factor: int = 1):
     if out_factor == 1:
         out = reduce_once64(out, q)
     return out
+
+
+def monomial64(plan: NttPlan64, degree, negate=False) -> torch.Tensor:
+    """NTT of ``±X^degree`` (bit-reversed output): ``out[j] =
+    psi^((2 rev(j) + 1) degree mod 2n)``, ``negate`` flips the exponent by
+    ``n`` (``psi^n = -1``).  ``degree`` may be a tensor of shape ``(..., 1)``
+    (any sign: it wraps mod 2n)."""
+    n = plan.n
+    degree = torch.as_tensor(degree, dtype=torch.int64, device=plan.ordinal_roots.device)
+    idx = (plan.monomial_base * degree) & (2 * n - 1)
+    if negate is not False:
+        idx = idx ^ (torch.as_tensor(negate, device=idx.device).to(torch.int64) * n)
+    return plan.ordinal_roots[idx]
+
+
+def pointwise_mul64(m, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Canonical ``a * b mod q`` (``m``: a ``BarrettModulus64``)."""
+    return mul64(a, b, m)
+
+
+def negacyclic_mul64(plan: NttPlan64, m, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a * b`` in ``Z_q[X]/(X^n + 1)`` for canonical coefficient vectors:
+    two forward transforms, a pointwise product, one inverse (canonical)."""
+    return inverse64(plan, mul64(forward64(plan, a), forward64(plan, b), m))
+
+
+def bit_reverse_permute(values: torch.Tensor, log_n: int) -> torch.Tensor:
+    """Reorders the last axis by bit-reversed index (its own inverse)."""
+    rev = [reverse_lsbs(i, log_n) for i in range(1 << log_n)]
+    return values[..., torch.tensor(rev, device=values.device)]
+
+
+def forward32_normal_order(plan: NttPlan32, values: torch.Tensor, out_factor: int = 1):
+    """Forward NTT with normal-order output."""
+    return bit_reverse_permute(forward32(plan, values, out_factor), plan.log_n)
+
+
+def inverse32_normal_order(plan: NttPlan32, values: torch.Tensor, out_factor: int = 1):
+    """Inverse NTT of normal-order NTT-domain input."""
+    return inverse32(plan, bit_reverse_permute(values, plan.log_n), out_factor)
+
+
+def forward64_normal_order(plan: NttPlan64, values: torch.Tensor, out_factor: int = 1):
+    """64-bit forward NTT with normal-order output."""
+    return bit_reverse_permute(forward64(plan, values, out_factor), plan.log_n)
+
+
+def inverse64_normal_order(plan: NttPlan64, values: torch.Tensor, out_factor: int = 1):
+    """64-bit inverse NTT of normal-order NTT-domain input."""
+    return inverse64(plan, bit_reverse_permute(values, plan.log_n), out_factor)

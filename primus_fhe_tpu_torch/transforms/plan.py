@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from primus_fhe_tpu.golden.model import GoldenNtt
+from ..golden.model import GoldenNtt
 
 from ..numeric.limb import u64_tensor
 
@@ -108,11 +108,13 @@ class NttPlan64:
         return dataclasses.replace(self, **fields)
 
 
-def build_plan64(log_n: int, q: int, device=None) -> NttPlan64:
-    """Builds a u64 NTT plan.  Requires prime ``q < 2^62``, ``q = 1 mod 2n``."""
+def build_plan64(log_n: int, q: int, device=None, root: int | None = None) -> NttPlan64:
+    """Builds a u64 NTT plan.  Requires prime ``q < 2^62``, ``q = 1 mod 2n``.
+    ``root``: an explicit primitive ``2n``-th root (the four-step
+    sub-plans of :mod:`.ntt_large`); the minimal one by default."""
     if q >= 1 << 62:
         raise ValueError("NttPlan64 requires q < 2^62 for the [0,4q) lazy range")
-    g = GoldenNtt(log_n, q)
+    g = GoldenNtt(log_n, q, root)
 
     def arr(vals):
         return u64_tensor([int(v) for v in vals], device)

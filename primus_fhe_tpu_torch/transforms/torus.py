@@ -19,14 +19,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from primus_fhe_tpu.utils.gcd import mod_inv
-from primus_fhe_tpu.utils.primes import next_ntt_prime
-
 from ..modular.factor import factor_mul32, shoup32
 from ..modular.modops import barrett_lazy_reduce32, mul32, reduce_once32, sub32
 from ..modular.modulus import barrett32
 from ..numeric.limb import MASK32
 from ..ops import ntt32
+from ..utils.gcd import mod_inv
+from ..utils.primes import next_ntt_prime
 
 
 class TorusConvolver32:

@@ -16,7 +16,7 @@ from primus_fhe_tpu.ops import cmux_fused as jfused
 from primus_fhe_tpu.ops.ntt_pallas import PallasNttPlan32
 from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
 from primus_fhe_tpu_torch.lattice import tfhe
-from primus_fhe_tpu_torch.ops import cmux_fused
+from primus_fhe_tpu_torch.ops import cmux_fused, rotate
 
 LOG_N = 8
 N = 1 << LOG_N
@@ -98,6 +98,6 @@ def test_rotation_matches_reference():
     rng = np.random.default_rng(5)
     v = rng.integers(0, 1 << 32, (4, 2, 64), dtype=np.uint64).astype(np.uint32)
     degrees = [0, 7, 64, 127]
-    got = cmux_fused.rotate_negacyclic(_t(v), torch.tensor(degrees)).numpy()
+    got = rotate.rotate(_t(v), torch.tensor(degrees)).numpy()
     for i, d in enumerate(degrees):
         np.testing.assert_array_equal(got[i], _np(_rotate_glwe(jnp.asarray(v[i]), jnp.int32(d), 64)))

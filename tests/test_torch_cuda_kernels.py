@@ -1,12 +1,15 @@
-"""Kernels 1-4, A-C and the four u64 NTT kernels against their plain PyTorch
+"""Kernels 1-4, A-G and the four u64 NTT kernels against their plain PyTorch
 versions on a CUDA card, at shapes ``chip_smoke.py`` does not reach: N from
 32 (16 threads a block) to 4096, three primes, the 2^1 x 12 gadget in stage
 1, k=2, odd batches, and int32 storage; for the int8 kernels log_n 8-11,
 k=1 and 2, L 2-4, 1- and 2-byte digits, and NTRU moduli of 20 and 30 bits;
 for the u64 kernels log_n 4-15 (a row over two blocks at 15), 50- to 62-bit moduli (lazy words past 2^63),
 both input chains of the inverse, 7 and 8 byte planes on inputs past 2^63,
-and a small DCRT rotation on both routes against the CPU.  Tolerance: zero
-(bit-equal).
+and a small DCRT rotation on both routes against the CPU; kernels D and E
+(the fused key multiply and round trip) at log_n 8-12, 7 and 8 planes, two
+moduli and ragged row groups, and the four-step at 2^16 on both routes;
+kernels F and G at N 32-2048, degrees of any sign, both gadgets, and
+``cmux_delta`` against kernels 3-4.  Tolerance: zero (bit-equal).
 
 The kernels have no CPU mode, so every test here needs the card and skips
 without one.  On the card (the root conftest imports JAX, which that
@@ -20,15 +23,15 @@ import dataclasses
 import pytest
 import torch
 
-from primus_fhe_tpu.utils.primes import next_ntt_prime
-
 from primus_fhe_tpu_torch import params as P
 from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap
 from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
 from primus_fhe_tpu_torch.lattice import tfhe
 from primus_fhe_tpu_torch.boot import ntru_gates
 from primus_fhe_tpu_torch.boot.ntru_blind_rotate import NtruContext
-from primus_fhe_tpu_torch.ops import cmux_fused, cmux_mxu, ntru_cmux_mxu, ntt32, ntt64, ntt_mxu8
+from primus_fhe_tpu_torch.ops import (cmux_front, cmux_fused, cmux_mxu, ntru_cmux_mxu, ntt32,
+                                      ntt64, ntt_mxu8, rotate)
+from primus_fhe_tpu_torch.utils.primes import next_ntt_prime
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +269,69 @@ def test_dcrt_rotation_routes_and_cpu_agree(dev):
     cpu = dcrt_blind_rotate_batched(plan, basis, base, bsk.cpu().contiguous(), lwe.cpu(), acc.cpu())
     assert torch.equal(outs["auto"], outs["butterfly"])
     assert torch.equal(outs["auto"].cpu(), cpu)
+
+
+@pytest.mark.parametrize("log_n,moduli", [(8, Q50), (9, [Q60]), (11, [Q50[0], Q60]), (12, Q50)])
+def test_mxu8_64_mul_kernels_match_plain(dev, log_n, moduli):
+    tables = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
+    gen = torch.Generator(device=dev).manual_seed(100 + log_n)
+    mt = tables.mul_table(_below(gen, moduli, (1 << log_n,), 1, dev))
+    for rows in (1, 5, 33):
+        x = _u64_words(gen, (len(moduli), rows, 1 << log_n), dev)
+        assert torch.equal(ntt_mxu8.mxu8_inverse64_mul(tables, x, mt),
+                           ntt_mxu8.mxu8_inverse64_mul_plain(tables, x, mt))
+        rt = ntt_mxu8.mxu8_roundtrip64_mul(tables, x, mt)
+        assert torch.equal(rt, ntt_mxu8.mxu8_roundtrip64_mul_plain(tables, x, mt))
+        fwd = ntt_mxu8.mxu8_forward64(tables, x)
+        assert torch.equal(rt, ntt_mxu8.mxu8_inverse64_mul(tables, fwd, mt))
+
+
+def test_large_ntt_routes_match_plain(dev):
+    from primus_fhe_tpu_torch.transforms import ntt_large
+    from primus_fhe_tpu_torch.transforms.ntt import forward64
+    from primus_fhe_tpu_torch.transforms.plan import build_plan64
+
+    q = next_ntt_prime(62, 16)
+    plan = ntt_large.LargeNttPlan64(16, q)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = _below(gen, [q], (2, 1 << 16), 1, dev)[0]
+    want = forward64(build_plan64(16, q, dev), x)
+    for route in ("mxu8", "butterfly"):
+        f = ntt_large.large_forward64(plan, x, 1, route)
+        assert torch.equal(f, want), route
+        assert torch.equal(ntt_large.large_inverse64(plan, ntt_large.large_forward64(
+            plan, x, 4, route), 1, route), x), route
+
+
+@pytest.mark.parametrize("log_n,k1", [(5, 2), (10, 1), (11, 2), (11, 3)])
+def test_rotate_kernel_matches_plain(dev, log_n, k1):
+    n = 1 << log_n
+    gen = torch.Generator(device=dev).manual_seed(log_n + k1)
+    v = torch.randint(0, 1 << 32, (6, k1, n), generator=gen, device=dev)
+    degrees = torch.tensor([0, 1, n, 2 * n - 1, -5, 7 * n + 3], dtype=torch.int64, device=dev)
+    for subtract in (False, True):
+        want = rotate.rotate_plain(v, degrees, subtract)
+        assert torch.equal(rotate.rotate(v, degrees, subtract), want)
+        got32 = rotate.rotate(v.to(torch.int32), degrees, subtract)
+        assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want)
+    flat = torch.randint(0, 1 << 32, (3, n), generator=gen, device=dev)
+    assert torch.equal(rotate.rotate(flat, degrees[:3]), rotate.rotate_plain(flat, degrees[:3]))
+
+
+@pytest.mark.parametrize("log_n,log_basis,level,k", [(5, 8, 3, 1), (8, 1, 12, 1), (11, 7, 3, 1),
+                                                     (9, 8, 2, 2)])
+def test_cmux_front_and_delta_match_plain(dev, log_n, log_basis, level, k):
+    n, k1 = 1 << log_n, k + 1
+    conv = tfhe.make_convolver(log_n, level, k, log_basis)
+    basis = ApproxSignedBasis32(None, log_basis, reverse_length=level)
+    gen = torch.Generator(device=dev).manual_seed(log_n * 7 + level)
+    acc = torch.randint(0, 1 << 32, (5, k1, n), generator=gen, device=dev)
+    degrees = torch.tensor([0, 3, n, 2 * n - 1, -9], dtype=torch.int32, device=dev)
+    want = cmux_front.cmux_front_plain(acc, degrees, basis, conv.primes)
+    assert torch.equal(cmux_front.cmux_front(acc, degrees, basis, conv.primes), want)
+    key = _residues(gen, conv.primes, (k1, level, k1, n), 1, dev)
+    delta = tfhe.cmux_delta(conv, basis, acc, degrees, key)
+    step = cmux_fused.fused_cmux_step(conv, basis, acc, degrees, key)
+    assert torch.equal((acc + delta) & 0xFFFFFFFF, step)
+    cpu = tfhe.cmux_delta(conv, basis, acc.cpu(), degrees.cpu(), key.cpu())
+    assert torch.equal(delta.cpu(), cpu)

@@ -202,7 +202,7 @@ def test_blind_rotate_matches_reference_on_jax_keys(ctx):
     lwes = rng.integers(0, 2 * N, (3, N_LWE + 1)).astype(np.int32)
     lwes[0] = [3, 7, 12, 30, 5]
     accs = np.stack([jfrom(jacc0)] + [_res(rng, MODULI, (K1, N)) for _ in range(2)])
-    bsk, secret, tacc = from_jax_dcrt_state(jbsk, jsecret, jto(accs))
+    bsk, secret, tacc = from_jax_dcrt_state(jbsk, jsecret, jto(accs), device="cpu")
     want = jfrom(jrot.dcrt_blind_rotate_batched(c["jplan"], c["jbasis"], c["jbase"], jbsk,
                                                 jnp.asarray(lwes), jto(accs)))
     got = dcrt_blind_rotate_batched(c["plan"], c["basis"], c["base"], bsk,

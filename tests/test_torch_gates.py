@@ -37,7 +37,7 @@ def jax_ctx():
     jctx = jparams.make_context(jax.random.PRNGKey(1), jparams.TOY, bsk_kind="ntt")
     ctx = P.from_jax_context(
         jparams.TOY, np.asarray(jctx.bsk), np.asarray(jctx.ksk),
-        np.asarray(jctx.lwe_secret), np.asarray(jctx.glwe_secret),
+        np.asarray(jctx.lwe_secret), np.asarray(jctx.glwe_secret), device="cpu",
     )
     return jctx, ctx
 

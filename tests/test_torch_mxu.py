@@ -281,7 +281,8 @@ def test_tfhe_gate_on_jax_mxu_context():
     jmxu = jparams.make_context(key, p, bsk_kind="mxu")
     jntt = jparams.make_context(key, p, bsk_kind="ntt")
     ctx = P.from_jax_context(p, tuple(np.asarray(x) for x in jmxu.bsk), np.asarray(jmxu.ksk),
-                             np.asarray(jmxu.lwe_secret), np.asarray(jmxu.glwe_secret))
+                             np.asarray(jmxu.lwe_secret), np.asarray(jmxu.glwe_secret),
+                             device="cpu")
     assert isinstance(ctx.bsk, tuple) and ctx.bsk[0].shape == tuple(jmxu.bsk[0].shape)
     rng = np.random.default_rng(8)
     s = np.asarray(jmxu.lwe_secret).astype(np.int64)

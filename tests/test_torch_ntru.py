@@ -70,10 +70,10 @@ def keys():
     evk_mxu = jnb.make_ntru_bootstrap_key_mxu(kk[2], jctx, sk, s, gauss)
     ksk = jnb.make_ntru_keyswitch_key(kk[3], jctx, sk, s, jks, JaxGaussian(PARAMS.lwe_sigma))
     port = P.from_jax_ntru_context(PARAMS, np.asarray(sk.f), np.asarray(evk), np.asarray(ksk),
-                                   np.asarray(s))
+                                   np.asarray(s), device="cpu")
     port_mxu = P.from_jax_ntru_context(PARAMS, np.asarray(sk.f),
                                        tuple(np.asarray(x) for x in evk_mxu), np.asarray(ksk),
-                                       np.asarray(s))
+                                       np.asarray(s), device="cpu")
     return dict(jctx=jctx, jks=jks, sk=sk, s=s, evk=evk, evk_mxu=evk_mxu, ksk=ksk, port=port,
                 port_mxu=port_mxu)
 

@@ -15,7 +15,9 @@
   kernel-layout plane matrices, 8 unsigned operand bytes, the 2^32 split
   fold, the same indexing) equals the plain versions at 7 and 8 planes, on
   inputs past 2^63, so the tables the card reads are right before any card
-  runs them.
+  runs them; the same model with the fixed operand's key multiply (kernel
+  D at load, kernel E after the forward's pass 2) equals the plain versions
+  of ``mxu8_inverse64_mul`` and ``mxu8_roundtrip64_mul``.
 
 Tolerance: zero (bit-equal words), or equality mod q where stated.
 """
@@ -162,8 +164,12 @@ def _consts(tables, mi):
                      "off"), (int(v) for v in pack)))
 
 
-def _model(tables, mi, rows, inverse):
-    """The forward (or inverse) kernel on ``rows (R, n)`` u64 -> ``(R, n)``."""
+def _model(tables, mi, rows, inverse, key=None):
+    """The forward (or inverse) kernel on ``rows (R, n)`` u64 -> ``(R, n)``;
+    with ``key`` (``(2, n)`` object ints: values, Shoup quotients) the
+    inverse is kernel D (the key multiply as each word is loaded) and the
+    forward is kernel E (the key on the folded pass-2 word, then the
+    inverse's two passes)."""
     tabs = {k: v.numpy() for k, v in tables.kernel_tables("cpu").items()}
     P, A, B, n = tables.planes, tables.A, tables.B, tables.n
     c = _consts(tables, mi)
@@ -177,7 +183,11 @@ def _model(tables, mi, rows, inverse):
         X = X.reshape(R, B, A).transpose(0, 2, 1)  # [row][r0][k0]
         Y = _shoup(X, tw[0][None], tw[1][None], c["q"]).reshape(R * A, B)
         F = _planes64(_bytes64(Y.astype(np.uint64), 8 * B), wb, P, B, B, c)
+        if key is not None:
+            return _model(tables, mi, _shoup(F.reshape(R, n), key[0], key[1], c["q"]), True)
         return _canonical(F, c).reshape(R, n)
+    if key is not None:
+        rows = _shoup(rows.astype(object), key[0], key[1], c["q"])
     Z = _planes64(_bytes64(rows.reshape(R * A, B), 8 * B), wa, P, B, B, c).reshape(R, A, B)
     Z = _shoup(Z, tw[2][None], tw[3][None], c["q"]).transpose(0, 2, 1).reshape(R * B, A)
     y = _planes64(_bytes64(Z.astype(np.uint64), wb.shape[1]), wb, P, wb.shape[0] // P, A, c)
@@ -197,6 +207,25 @@ def test_mxu8_64_kernel_model_matches_plain(log_n, moduli):
     for mi in range(len(moduli)):
         np.testing.assert_array_equal(_model(tables, mi, x[mi], False).astype(np.uint64), fwd[mi])
         np.testing.assert_array_equal(_model(tables, mi, x[mi], True).astype(np.uint64), inv[mi])
+
+
+@pytest.mark.parametrize("log_n,moduli", [(8, Q50), (8, [Q60, Q62]), (12, [Q50[0]])])
+def test_mxu8_64_mul_kernel_model_matches_plain(log_n, moduli):
+    """Kernels D and E on the same tables: the fused key multiply."""
+    tables = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
+    rng = np.random.default_rng(100 + log_n + len(moduli))
+    n = 1 << log_n
+    x = rng.integers(0, 1 << 64, (len(moduli), 2 if log_n == 8 else 1, n), dtype=np.uint64)
+    x[:, 0, :4] = [0, M64, 1 << 63, moduli[0]]
+    key = np.stack([rng.integers(0, q, n, dtype=np.uint64) for q in moduli])
+    key[:, :2] = [[0, q - 1] for q in moduli]
+    mt = tables.mul_table(u64_tensor(key))
+    inv = u64_numpy(ntt_mxu8.mxu8_inverse64_mul(tables, u64_tensor(x), mt))
+    rt = u64_numpy(ntt_mxu8.mxu8_roundtrip64_mul(tables, u64_tensor(x), mt))
+    for mi in range(len(moduli)):
+        k = u64_numpy(mt[mi]).astype(object)
+        np.testing.assert_array_equal(_model(tables, mi, x[mi], True, k).astype(np.uint64), inv[mi])
+        np.testing.assert_array_equal(_model(tables, mi, x[mi], False, k).astype(np.uint64), rt[mi])
 
 
 def test_kernel_wrappers_refuse_other_devices():

@@ -1,7 +1,10 @@
-"""The port imports no JAX, and ``chip_smoke.py`` refuses to run without a
-CUDA card.  Both run in a subprocess: the root conftest imports jax into
-this process."""
+"""The port imports neither JAX nor the JAX package, and ``chip_smoke.py``
+refuses to run without a CUDA card.  Both run in a subprocess: the root
+conftest imports jax into this process.  The port's copies of the JAX
+package's host helpers (parameter records, ``GoldenNtt``, ``noise``) equal
+the originals."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -37,6 +40,16 @@ MODULES = [
     "primus_fhe_tpu_torch.decompose.big_integer",
     "primus_fhe_tpu_torch.lattice.dcrt",
     "primus_fhe_tpu_torch.boot.dcrt_blind_rotate",
+    "primus_fhe_tpu_torch.golden.model",
+    "primus_fhe_tpu_torch.noise",
+    "primus_fhe_tpu_torch.utils.bits",
+    "primus_fhe_tpu_torch.utils.gcd",
+    "primus_fhe_tpu_torch.utils.primes",
+    "primus_fhe_tpu_torch.transforms.ntt",
+    "primus_fhe_tpu_torch.transforms.ntt_large",
+    "primus_fhe_tpu_torch.ops.rotate",
+    "primus_fhe_tpu_torch.ops.cmux_front",
+    "primus_fhe_tpu_torch.lattice.tfhe",
 ]
 
 
@@ -54,7 +67,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         + "".join(f"import {m}\n" for m in MODULES)
         + "import chip_smoke\n"
-        + "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'primus_fhe_tpu'))\n"
         + "assert not bad, bad\n"
         + "print('ok')\n"
     )
@@ -70,3 +83,33 @@ def test_chip_smoke_fails_without_cuda():
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_host_copies_equal_the_jax_package():
+    from primus_fhe_tpu import noise as jnoise
+    from primus_fhe_tpu import params as jparams
+    from primus_fhe_tpu.golden.model import GoldenNtt as JGolden
+    from primus_fhe_tpu.utils.primes import next_ntt_prime as jprime
+    from primus_fhe_tpu_torch import noise, params
+    from primus_fhe_tpu_torch.golden.model import GoldenNtt
+    from primus_fhe_tpu_torch.utils.primes import next_ntt_prime
+
+    for name in ("TOY", "BOOLEAN_128", "NTRU_128"):
+        assert dataclasses.asdict(getattr(params, name)) == dataclasses.asdict(
+            getattr(jparams, name)), name
+    assert params.NTRU_128.q == jparams.NTRU_128.q and params.BOOLEAN_128.n == 2048
+    for log_n, q in [(4, 998244353), (6, 1125899906826241), (5, 4611686018425815041)]:
+        g, j = GoldenNtt(log_n, q), JGolden(log_n, q)
+        for attr in ("root", "inv_root", "inv_n", "inv_n_w", "roots", "inv_roots",
+                     "ordinal_roots", "reverse_lsbs"):
+            assert getattr(g, attr) == getattr(j, attr), attr
+        r = pow(g.root, 3, q)
+        assert GoldenNtt(log_n, q, r).roots == JGolden(log_n, q, r).roots
+    assert next_ntt_prime(30, 11) == jprime(30, 11)
+    assert next_ntt_prime(50, 12, 1125899906826241) == jprime(50, 12, 1125899906826241)
+    for p in (params.BOOLEAN_128, params.TOY):
+        args = (p.lwe_dim, p.glwe_sigma, p.n, p.glwe_dim, p.level, p.log_basis, 3)
+        br, jbr = noise.blind_rotate(*args), jnoise.blind_rotate(*args)
+        assert br.variance == jbr.variance
+        ks_args = (p.lwe_sigma, p.n, p.ks_level, p.ks_log_basis, 20)
+        assert noise.key_switch(br, *ks_args).stddev == jnoise.key_switch(jbr, *ks_args).stddev
