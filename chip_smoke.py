@@ -64,7 +64,21 @@ non-zero):
 13. kernels F (``rotate``) and G (``cmux_front``) at BOOLEAN_128 width,
     batch 64, against their plain versions, and one CMux step
     ``acc + cmux_delta(...)`` on key slice 0 through kernel G, bit-equal to
-    ``fused_cmux_step`` (kernels 3-4), with its launch counts.
+    ``fused_cmux_step`` (kernels 3-4), with its launch counts;
+14. the mesh layer's multi-device step on one card: phase 10's rotation
+    (same key, inputs, 630 steps, batch 16) on a ``LocalMesh`` of (residue 2,
+    batch 2), one modulus and 8 ciphertexts a shard, route ``"auto"``: the
+    same words as phase 10's, ``mxu8_forward64``/``mxu8_inverse64`` each
+    launched 4 x 630 times (row 12: the byte-radix kernels on each shard's
+    own tables), rotation ms and CMux/s; route ``"butterfly"`` over the
+    first 64 steps against the single-card prefix; and that prefix again on
+    a world-size-1 NCCL ``ProcessGroupMesh`` (NCCL refuses two ranks on one
+    card, so the multi-shard runs use ``LocalMesh``);
+15. the coefficient-sharded NTT on ``LocalMesh``es: u32 at n = 2^12, q =
+    536813569, batch 8 over D = 2, 4, 8 against kernels 1-2, u64 at n = 2^16,
+    q = 4611686018425815041, 2 rows over D = 4 against the plain forward64,
+    both round trips, one stage launch a shard a transform; the four stage
+    kernels (row 11) against their plain versions at those shapes.
 
 The line before the last is the kernel table as JSON (every kernel with its
 launches on its main path, its time, its plain version's time and its bound,
@@ -290,9 +304,11 @@ DCRT_CPU_SLICES = 64
 DCRT_PROFILE_STEPS = 16
 
 
-def phase10_dcrt(torch, dev, table) -> dict:
+def phase10_dcrt(torch, dev, table) -> tuple[dict, dict]:
     """Phase 10: the RNS/DCRT blind rotation at full width.  Returns the
-    launch counts of the rotations (the main path of this phase)."""
+    launch counts of the rotations (the main path of this phase) and the
+    state phase 14 reuses: the plan, basis, base, key, LWE batch,
+    accumulators and the batch-16 output of route ``"auto"``."""
     import math
 
     import numpy as np
@@ -484,7 +500,9 @@ def phase10_dcrt(torch, dev, table) -> dict:
     log(f"DCRT summary: MXU route {rates['auto'][0]:.1f} ms/rotation at batch 1, "
         f"{rates['auto'][1]:.1f} CMux/s at batch {DCRT_BATCH}; butterfly route "
         f"{rates['butterfly'][0]:.1f} ms, {rates['butterfly'][1]:.1f} CMux/s")
-    return counts
+    state = dict(plan=plan, basis=basis, base=base, bsk=bsk, lwe=lwe, accs=accs,
+                 out=outs["auto", DCRT_BATCH], rates=rates)
+    return counts, state
 
 
 RT_LOG_N = 12  # bench.py's round trip: n = 4096
@@ -664,6 +682,244 @@ def phase13_front(torch, dev, table, conv, basis, key0, counted) -> dict:
         raise AssertionError("acc + cmux_delta differs from fused_cmux_step (kernels 3-4)")
     log(f"acc + cmux_delta(...) on key slice 0, batch {BATCH}: the same {step.numel()} words as "
         f"fused_cmux_step (kernels 3-4)")
+    return counts
+
+
+SHARD_MESH = (2, 2)  # phase 14: (residue, batch), one modulus and 8 ciphertexts a shard
+NCCL_BACKEND = "nccl"
+CS_Q32, CS_LOG_N32, CS_ROWS32, CS_SHARDS32 = 536813569, 12, 8, (2, 4, 8)  # bench_coeff_sharded.py
+CS_SHARDS64 = 4  # phase 15's u64 shape: phase 12's n = 2^16 and LARGE_Q over 4 shards
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase14_sharded(torch, dev, table, state) -> dict:
+    """Phase 14: the residue- and batch-sharded DCRT rotation on a
+    ``LocalMesh`` at phase 10's full width, on phase 10's key and inputs, and
+    row 12 (the byte-radix kernels on a shard's tables) at a shard's shapes.
+    Returns the launch counts of its route-``"auto"`` rotation."""
+    import torch.distributed as dist
+
+    from primus_fhe_tpu_torch.boot import dcrt_blind_rotate as dbr
+    from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8, ntt_mxu8_dyn
+    from primus_fhe_tpu_torch.parallel import (LocalMesh, ProcessGroupMesh,
+                                               make_sharded_blind_rotation, shard_rotation_inputs,
+                                               unshard)
+    from primus_fhe_tpu_torch.parallel.sharded_rotation import ACC_SPEC
+
+    plan, basis, base = state["plan"], state["basis"], state["base"]
+    bsk, lwe, accs = state["bsk"], state["lwe"], state["accs"]
+    n_lwe = bsk.shape[0]
+    kernels = {"ntt64_forward": ntt64.ntt64_forward, "ntt64_inverse": ntt64.ntt64_inverse,
+               "mxu8_forward64": ntt_mxu8.mxu8_forward64,
+               "mxu8_inverse64": ntt_mxu8.mxu8_inverse64}
+
+    def rotate(mesh, route, key, lwe_):
+        rot = make_sharded_blind_rotation(mesh, "residue", "batch", basis, plan, base, route)
+        args = shard_rotation_inputs(mesh, "residue", "batch", key, lwe_, accs)
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rot(*args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return unshard(mesh, out, ACC_SPEC), {k: fn.launches for k, fn in kernels.items()}, secs
+
+    def expect(counts, route, shards, steps):
+        own = ("mxu8_forward64", "mxu8_inverse64") if route == "auto" else (
+            "ntt64_forward", "ntt64_inverse")
+        want = {k: (shards * steps if k in own else 0) for k in kernels}
+        if counts != want:
+            raise AssertionError(f"[{route}] sharded launch counts {counts}, want {want} (one "
+                                 f"forward and one inverse a shard a step)")
+
+    mesh = LocalMesh(*SHARD_MESH, dev)
+    log(f"mesh {mesh}: {mesh.size} shards, "
+        f"{plan.count // SHARD_MESH[0]} modulus and {DCRT_BATCH // SHARD_MESH[1]} ciphertexts each")
+    out, counts, secs = rotate(mesh, "auto", bsk, lwe)
+    log(f"[auto] launches: {json.dumps(counts)}")
+    expect(counts, "auto", mesh.size, n_lwe)
+    if not torch.equal(out, state["out"]):
+        raise AssertionError("the sharded rotation differs from phase 10's single-card rotation")
+    single_ms, single_rate = state["rates"]["auto"]
+    log(f"[auto] all {n_lwe} steps: the same {out.numel()} words as phase 10's batch-{DCRT_BATCH} "
+        f"rotation; launches exact ({mesh.size} shards x {n_lwe} steps = {mesh.size * n_lwe} "
+        f"each of mxu8_forward64 and mxu8_inverse64); rotation {secs * 1e3:.1f} ms (host clock) "
+        f"-> {n_lwe * DCRT_BATCH / secs:.1f} CMux/s, against {single_rate:.1f} CMux/s single-card "
+        f"in phase 10")
+    rot = make_sharded_blind_rotation(mesh, "residue", "batch", basis, plan, base, "auto")
+
+    def prefix(steps_):
+        cut_ = torch.cat([lwe[:, :steps_], lwe[:, -1:]], dim=1)
+        args = shard_rotation_inputs(mesh, "residue", "batch", bsk[:steps_], cut_, accs)
+        return lambda: rot(*args)
+
+    short = prefix(DCRT_PROFILE_STEPS)
+    wall = min(wall_ms(torch, short, 2))
+    dev_ms, rows = device_time(torch, short)
+    ops = count_host_ops(torch, prefix(2)) - count_host_ops(torch, prefix(1))
+    if dev_ms is None:
+        log(f"[auto] sharded: device time not measured (the profiler saw no device activity); "
+            f"{ops} host ops per step")
+    else:
+        log(f"[auto] sharded, {DCRT_PROFILE_STEPS} steps at batch {DCRT_BATCH}: device busy "
+            f"{dev_ms:.2f} ms of {wall:.2f} ms wall -> idle share {1 - dev_ms / wall:.3f}; {ops} host "
+            f"ops per step; top device rows:")
+        for ms_, count, key_ in rows[:6]:
+            log(f"    {ms_:9.3f} ms  x{count:<6d} {key_[:90]}")
+
+    log("-- 14.2: row 12, mxu8_forward64/mxu8_inverse64 on shard 0's tables at a shard's "
+        "shapes (bit-equal)")
+    sp = ntt_mxu8_dyn.stack_dyn_plans(plan, SHARD_MESH[0])[0]
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    n, b_loc = plan.n, DCRT_BATCH // SHARD_MESH[1]
+    rf, ri = 2 * basis.decompose_length * b_loc * sp.count, 2 * b_loc * sp.count
+    f_in = torch.randint(0, sp.moduli[0], (sp.count, rf, n), generator=g, device=dev)
+    i_in = torch.randint(0, sp.moduli[0], (sp.count, ri, n), generator=g, device=dev)
+    compare_kernel64(torch, table, "mxu8_forward64@shard", b_loc,
+                     lambda: ntt_mxu8.mxu8_forward64(sp.mxu, f_in),
+                     lambda: ntt_mxu8.mxu8_forward64_plain(sp.mxu, f_in),
+                     bound(16 * rf * n, four_step_macs(rf, n, sp.mxu.planes, 8)))
+    compare_kernel64(torch, table, "mxu8_inverse64@shard", b_loc,
+                     lambda: ntt_mxu8.mxu8_inverse64(sp.mxu, i_in),
+                     lambda: ntt_mxu8.mxu8_inverse64_plain(sp.mxu, i_in),
+                     bound(16 * ri * n, four_step_macs(ri, n, sp.mxu.planes, 8)))
+
+    steps = DCRT_CPU_SLICES
+    cut = torch.cat([lwe[:, :steps], lwe[:, -1:]], dim=1)
+    want = dbr.dcrt_blind_rotate_batched(plan, basis, base, bsk[:steps], cut, accs,
+                                         route="butterfly")
+    out_b, counts_b, secs_b = rotate(mesh, "butterfly", bsk[:steps], cut)
+    expect(counts_b, "butterfly", mesh.size, steps)
+    if not torch.equal(out_b, want):
+        raise AssertionError("the sharded butterfly prefix differs from the single-card prefix")
+    log(f"[butterfly] the first {steps} steps: the same words as the single-card prefix; "
+        f"launches exact ({json.dumps(counts_b)}); {secs_b * 1e3:.1f} ms")
+
+    port = _free_port()
+    dist.init_process_group(NCCL_BACKEND, init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        pg = ProcessGroupMesh(1, 1, dev)
+        out_n, counts_n, secs_n = rotate(pg, "auto", bsk[:steps], cut)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    expect(counts_n, "auto", 1, steps)
+    if not torch.equal(out_n, want):
+        raise AssertionError(f"the world-size-1 {NCCL_BACKEND} prefix differs from the single-card "
+                             f"prefix")
+    log(f"[{backend} world size 1, mesh (1, 1), auto] the first {steps} steps: the same words "
+        f"(the compose's reduce-scatter and all-gather on int64 {out_n.device.type} tensors each "
+        f"step); {secs_n * 1e3:.1f} ms")
+    return counts
+
+
+def phase15_coeff(torch, dev, table) -> dict:
+    """Phase 15: the coefficient-sharded NTT on ``LocalMesh``es, held
+    against the single-card transforms, and the four stage kernels against
+    their plain versions.  Returns the stage kernels' launch counts."""
+    from primus_fhe_tpu_torch.numeric.limb import mul_hi_u64
+    from primus_fhe_tpu_torch.ops import ntt32, ntt_stages as st
+    from primus_fhe_tpu_torch.parallel import LocalMesh, shard, unshard
+    from primus_fhe_tpu_torch.parallel import coeff_sharded as cs
+    from primus_fhe_tpu_torch.transforms.ntt import forward64
+    from primus_fhe_tpu_torch.transforms.plan import build_plan64
+
+    spec = (None, "residue")
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    kernels = {"ntt32_stages_forward": st.ntt32_stages_forward,
+               "ntt32_stages_inverse": st.ntt32_stages_inverse,
+               "ntt64_stages_forward": st.ntt64_stages_forward,
+               "ntt64_stages_inverse": st.ntt64_stages_inverse}
+    q32, n32 = CS_Q32, 1 << CS_LOG_N32
+    single = ntt32.NttTables32(CS_LOG_N32, (q32,))
+    x32 = torch.randint(0, q32, (CS_ROWS32, n32), generator=g, device=dev)
+    q64, n64 = LARGE_Q, 1 << LARGE_LOG_N
+    x64 = torch.randint(0, q64, (LARGE_ROWS, n64), generator=g, device=dev)
+    want32 = ntt32.forward32(single, x32[None])[0]
+    want64 = forward64(build_plan64(LARGE_LOG_N, q64, dev), x64)
+
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    outs = {}
+    for d in CS_SHARDS32:
+        mesh = LocalMesh(d, 1, dev)
+        f = cs.coeff_sharded_forward32(mesh, "residue", CS_LOG_N32, q32, shard(mesh, x32, spec))
+        back = cs.coeff_sharded_inverse32(mesh, "residue", CS_LOG_N32, q32, f)
+        outs[32, d] = unshard(mesh, f, spec), unshard(mesh, back, spec)
+    mesh = LocalMesh(CS_SHARDS64, 1, dev)
+    f = cs.coeff_sharded_forward64(mesh, "residue", LARGE_LOG_N, q64, shard(mesh, x64, spec))
+    back = cs.coeff_sharded_inverse64(mesh, "residue", LARGE_LOG_N, q64, f)
+    outs[64, CS_SHARDS64] = unshard(mesh, f, spec), unshard(mesh, back, spec)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in kernels.items()}
+    log(f"launches: {json.dumps(counts)}")
+    want = {"ntt32_stages_forward": sum(CS_SHARDS32), "ntt32_stages_inverse": sum(CS_SHARDS32),
+            "ntt64_stages_forward": CS_SHARDS64, "ntt64_stages_inverse": CS_SHARDS64}
+    if counts != want:
+        raise AssertionError(f"stage launch counts {counts}, want {want} (one a shard a transform)")
+    inv32 = ntt32.inverse32(single, want32[None])[0]
+    for (bits, d), (fwd, back) in outs.items():
+        ref, x = (want32, x32) if bits == 32 else (want64, x64)
+        if not torch.equal(fwd, ref):
+            raise AssertionError(f"u{bits} D={d}: the sharded forward differs from the single-card one")
+        if not torch.equal(back, x) or (bits == 32 and not torch.equal(inv32, x)):
+            raise AssertionError(f"u{bits} D={d}: the sharded round trip does not return the input")
+    log(f"u32 n=2^{CS_LOG_N32} q={q32} batch {CS_ROWS32}, D = {CS_SHARDS32}: forward equal to "
+        f"forward32 (kernel 1), inverse returns the input as inverse32 (kernel 2) does; u64 "
+        f"n=2^{LARGE_LOG_N} q={q64} {LARGE_ROWS} rows, D = {CS_SHARDS64}: forward equal to the plain "
+        f"forward64, round trip returns the input; launches exact (one a shard a transform)")
+
+    log("-- 15.2: the stage kernels vs plain versions (bit-equal), shard 1's tables")
+    d = CS_SHARDS32[0]
+    log_d, width = d.bit_length() - 1, n32 // d
+    log_w, cols = CS_LOG_N32 - log_d, slice(width, 2 * width)
+    w, p = (t[log_d:, cols].to(dev) for t in cs.build_expanded_tables32(CS_LOG_N32, q32))
+    wi, pi = (t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables32(CS_LOG_N32, q32))
+    w32, p32, wi32, pi32 = (t.to(torch.int32) for t in (w, p, wi, pi))
+    xf = torch.randint(0, 4 * q32, (CS_ROWS32, width), generator=g, device=dev)
+    xi = torch.randint(0, 2 * q32, (CS_ROWS32, width), generator=g, device=dev)
+    xf32, xi32 = xf.to(torch.int32), xi.to(torch.int32)
+    b32 = bound(4 * 2 * CS_ROWS32 * width + 4 * 2 * log_w * width,
+                muls32=ntt_muls(CS_ROWS32, width))
+    compare_kernel(torch, table, "ntt32_stages_forward", CS_ROWS32,
+                   lambda: st.ntt32_stages_forward(log_w, q32, w, p, xf),
+                   lambda: st.ntt32_stages_forward(log_w, q32, w32, p32, xf32),
+                   lambda: st.ntt32_stages_forward_plain(log_w, q32, w, p, xf), b32)
+    compare_kernel(torch, table, "ntt32_stages_inverse", CS_ROWS32,
+                   lambda: st.ntt32_stages_inverse(log_w, q32, wi, pi, xi),
+                   lambda: st.ntt32_stages_inverse(log_w, q32, wi32, pi32, xi32),
+                   lambda: st.ntt32_stages_inverse_plain(log_w, q32, wi, pi, xi), b32)
+    log_d, width = CS_SHARDS64.bit_length() - 1, n64 // CS_SHARDS64
+    log_w, cols = LARGE_LOG_N - log_d, slice(width, 2 * width)
+    w, p = (t[log_d:, cols].to(dev) for t in cs.build_expanded_tables64(LARGE_LOG_N, q64))
+    wi, pi = (t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables64(LARGE_LOG_N, q64))
+    words = torch.randint(-(1 << 63), (1 << 63) - 1, (2, LARGE_ROWS, width), generator=g,
+                          device=dev)
+    xf, xi = mul_hi_u64(words[0], 4 * q64), mul_hi_u64(words[1], 2 * q64)  # [0, 4q), [0, 2q)
+    b64 = bound(8 * 2 * LARGE_ROWS * width + 8 * 2 * log_w * width,
+                muls32=ntt_muls(LARGE_ROWS, width, u64=True))
+    log(f"u64 shard: 2^{log_w} words a row, tables {2 * log_w * width * 8 / 1e6:.2f} MB; the "
+        f"forward {'defers' if st.defers64(log_w, q64) else 'does not defer'} its reductions")
+    compare_kernel64(torch, table, "ntt64_stages_forward", LARGE_ROWS,
+                     lambda: st.ntt64_stages_forward(log_w, q64, w, p, xf),
+                     lambda: st.ntt64_stages_forward_plain(log_w, q64, w, p, xf), b64)
+    compare_kernel64(torch, table, "ntt64_stages_inverse", LARGE_ROWS,
+                     lambda: st.ntt64_stages_inverse(log_w, q64, wi, pi, xi),
+                     lambda: st.ntt64_stages_inverse_plain(log_w, q64, wi, pi, xi), b64)
+    for of in (2, 4):  # the lazy outputs, which the exchange stages consume
+        if not torch.equal(st.ntt64_stages_forward(log_w, q64, w, p, xf, of),
+                           st.ntt64_stages_forward_plain(log_w, q64, w, p, xf, of)):
+            raise AssertionError(f"ntt64_stages_forward out_factor {of}: kernel != plain")
     return counts
 
 
@@ -1083,7 +1339,7 @@ def main() -> None:
 
     # -- phase 10: the RNS/DCRT blind rotation --------------------------------
     log("== phase 10: RNS/DCRT blind rotation at N=4096, 2 x 50-bit moduli, L=4, n_lwe=630")
-    counts_d = phase10_dcrt(torch, dev, table)
+    counts_d, dcrt_state = phase10_dcrt(torch, dev, table)
 
     # -- phases 11-13 ----------------------------------------------------------
     log("== phase 11: the negacyclic product by a fixed NTT-domain operand (bench.py's shape)")
@@ -1092,6 +1348,14 @@ def main() -> None:
     phase12_large(torch, dev)
     log("== phase 13: rotation and CMux front end at BOOLEAN_128 width")
     counts_f = phase13_front(torch, dev, table, conv, basis, ctx.bsk[0], counted)
+
+    # -- phases 14-15: the mesh layer on one card -------------------------------
+    log(f"== phase 14: the residue- and batch-sharded DCRT rotation on a LocalMesh "
+        f"{SHARD_MESH}, phase 10's width")
+    counts_s = phase14_sharded(torch, dev, table, dcrt_state)
+    del dcrt_state
+    log("== phase 15: the coefficient-sharded NTT on LocalMeshes")
+    counts_c = phase15_coeff(torch, dev, table)
 
     # -- the kernel table -----------------------------------------------------
     # name -> (source, TPU kernel, launches on its main path, the table key of
@@ -1121,6 +1385,14 @@ def main() -> None:
         "rotate": ("cmux_front.cu", "ops/rotate_pallas.py:29", counts["rotate"], (BATCH, None)),
         "cmux_front": ("cmux_front.cu", "ops/cmux_pallas.py:74", counts_f["cmux_front"],
                        (BATCH, None)),
+        "ntt32_stages_forward": ("ntt_stages.cu", "ops/ntt_pallas.py:620",
+                                 counts_c["ntt32_stages_forward"], (CS_ROWS32, None)),
+        "ntt32_stages_inverse": ("ntt_stages.cu", "ops/ntt_pallas.py:629",
+                                 counts_c["ntt32_stages_inverse"], (CS_ROWS32, None)),
+        "ntt64_stages_forward": ("ntt_stages.cu", "ops/ntt_pallas.py:675",
+                                 counts_c["ntt64_stages_forward"], (LARGE_ROWS, None)),
+        "ntt64_stages_inverse": ("ntt_stages.cu", "ops/ntt_pallas.py:683",
+                                 counts_c["ntt64_stages_inverse"], (LARGE_ROWS, None)),
     }
     kernels = []
     for name, (src, rep, launches, (b0, bb)) in sources.items():
@@ -1143,6 +1415,11 @@ def main() -> None:
             row["ms_ntru"] = table[f"{name}@NTRU"][1][1]
             row["plain_ms_ntru"] = table[f"{name}@NTRU"][1][2]
             row["bound_ms_ntru"] = table[f"{name}@NTRU"][1][4][0]
+        if f"{name}@shard" in table:  # row 12: the same kernels on a residue shard's tables
+            _, sms, spms, sdev, (sbms, _) = table[f"{name}@shard"][DCRT_BATCH // SHARD_MESH[1]]
+            row.update({"launches_sharded_path": counts_s[name], "ms_sharded_path": sms,
+                        "plain_ms_sharded_path": spms, "device_ms_sharded_path": sdev,
+                        "bound_ms_sharded_path": sbms})
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

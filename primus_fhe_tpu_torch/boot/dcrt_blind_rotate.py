@@ -15,7 +15,9 @@ The batch rides inside the residue-major layout ``(count, B, k+1, N)``, so
 one transform launch carries every ciphertext of the batch (the reference's
 ``_rotate_core``).  Per step: one inverse transform over ``count x B x
 (k+1)`` rows and one forward transform over ``count x (k+1) x L x B`` rows.
-``route`` picks the transform kernels (:mod:`..transforms.dcrt`).
+``route`` picks the transform kernels (:mod:`..transforms.dcrt`).  The loop,
+:func:`rotate_shards`, runs over a list of shards, so the mesh's sharded
+rotation (:mod:`..parallel.sharded_rotation`) is the same loop.
 """
 
 from __future__ import annotations
@@ -30,25 +32,43 @@ from ..rns.base import RNSBase64
 from ..transforms.dcrt import DcrtPlan64, dcrt_inverse64_fast, dcrt_monomial64
 
 
+def rotate_shards(plans, bases, gadget, bsks, lwes, accs0, route: str) -> list:
+    """The CMux loop, one bulk-synchronous step at a time over a list of
+    shards (one on a single card; the held shards of a mesh).  Per shard:
+    its ``DcrtPlan64`` and ``RNSBase64`` (its own moduli), ``bsk (n_lwe, k+1,
+    L, m, k+1, N)``, ``lwe (B, n_lwe+1)`` mod 2N, ``acc0 (m, B, k+1, N)`` NTT
+    domain.  ``gadget(diffs, ggsws)`` is the external product of each
+    shard's coefficient-domain difference with its slice of GGSW ``i``.
+    Returns the rotated accumulators, laid out as ``acc0``."""
+    n_lwe = bsks[0].shape[0]
+    mods = [base.modulus_bc(3, acc0.device) for base, acc0 in zip(bases, accs0)]
+    accs, a_ts = [], []
+    for plan, m, lwe, acc0 in zip(plans, mods, lwes, accs0):
+        lwe = lwe.to(torch.int64)
+        mono_b = dcrt_monomial64(plan, torch.remainder(-lwe[:, n_lwe], 2 * plan.n)[:, None])
+        accs.append(mul64(acc0, mono_b.unsqueeze(-2), m))
+        a_ts.append(torch.remainder(lwe[:, :n_lwe], 2 * plan.n).t())  # (n_lwe, B)
+    for i in range(n_lwe):
+        diffs = []
+        for plan, m, acc, a_t in zip(plans, mods, accs, a_ts):
+            mono = dcrt_monomial64(plan, a_t[i][:, None])  # (m, B, N)
+            rotated = mul64(acc, mono.unsqueeze(-2), m)
+            diffs.append(dcrt_inverse64_fast(plan, sub64(rotated, acc, m.value), 1, route))
+        deltas = gadget(diffs, [bsk[i] for bsk in bsks])
+        accs = [add64(acc, delta, m.value) for acc, delta, m in zip(accs, deltas, mods)]
+    return accs
+
+
 def _rotate_core(plan: DcrtPlan64, basis: BigUintApproxSignedBasis, rns_base: RNSBase64,
                  bsk: torch.Tensor, lwe_switched: torch.Tensor, acc0: torch.Tensor,
                  route: str) -> torch.Tensor:
     """``bsk (n_lwe, k+1, L, count, k+1, N)``, ``lwe_switched (B, n_lwe+1)``
     mod 2N, ``acc0 (count, B, k+1, N)`` NTT domain -> the rotated
     accumulators, same layout."""
-    n_lwe, n = bsk.shape[0], plan.n
-    m = rns_base.modulus_bc(3, acc0.device)
-    lwe = lwe_switched.to(torch.int64)
-    mono_b = dcrt_monomial64(plan, torch.remainder(-lwe[:, n_lwe], 2 * n)[:, None])
-    acc = mul64(acc0, mono_b.unsqueeze(-2), m)
-    a_t = torch.remainder(lwe[:, :n_lwe], 2 * n).t()  # (n_lwe, B)
-    for i in range(n_lwe):
-        mono = dcrt_monomial64(plan, a_t[i][:, None])  # (count, B, N)
-        rotated = mul64(acc, mono.unsqueeze(-2), m)
-        diff = dcrt_inverse64_fast(plan, sub64(rotated, acc, m.value), 1, route)
-        delta = crt_glwe_mul_dcrt_ggsw(diff, bsk[i], basis, plan, rns_base, route)
-        acc = add64(acc, delta, m.value)
-    return acc
+    def gadget(diffs, ggsws):
+        return [crt_glwe_mul_dcrt_ggsw(diffs[0], ggsws[0], basis, plan, rns_base, route)]
+
+    return rotate_shards([plan], [rns_base], gadget, [bsk], [lwe_switched], [acc0], route)[0]
 
 
 def dcrt_blind_rotate(plan: DcrtPlan64, basis: BigUintApproxSignedBasis, rns_base: RNSBase64,

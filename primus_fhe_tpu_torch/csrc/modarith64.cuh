@@ -48,6 +48,32 @@ __device__ __forceinline__ uint64_t shoup64_lazy(uint64_t y, uint64_t w, uint64_
   return w * y - q * __umul64hi(y, wp);
 }
 
+// Shoup with the TPU kernels' approximate quotient (ops/ntt_pallas.py
+// _make_shoup_lazy64(exact=False)): hi64(y * wp) without the low cross
+// products' carries, so q_hat may be under by up to 2 and the result lies in
+// [0, 4q).  The u64 stage kernels keep it, so their lazy words are the TPU's.
+__device__ __forceinline__ uint64_t shoup64_approx(uint64_t y, uint64_t w, uint64_t wp,
+                                                   uint64_t q) {
+  const uint32_t ylo = (uint32_t)y, yhi = (uint32_t)(y >> 32);
+  const uint32_t plo = (uint32_t)wp, phi = (uint32_t)(wp >> 32);
+  const uint64_t q_hat = (uint64_t)yhi * phi + __umulhi(ylo, phi) + __umulhi(yhi, plo);
+  return w * y - q * q_hat;
+}
+
+// Conditional subtractions of (cp/2) q, (cp/4) q, ..., target q, cp the least
+// power of two >= bound: takes a word below bound * q to below target * q
+// (ntt_pallas.py _reduce_chain64).
+__device__ __forceinline__ uint64_t reduce_chain64(uint64_t v, uint64_t q, int bound,
+                                                   int target) {
+  int cp = 1;
+  while (cp < bound) cp <<= 1;
+  while (cp > target) {
+    cp >>= 1;
+    v = v >= (uint64_t)cp * q ? v - (uint64_t)cp * q : v;
+  }
+  return v;
+}
+
 // Any u64 word -> its canonical residue mod q.
 __device__ __forceinline__ uint64_t canonical64(uint64_t y, const Mod64& c) {
   return reduce_once64(shoup64_lazy(y, 1, c.p1, c.q), c.q);

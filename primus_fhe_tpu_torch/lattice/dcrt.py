@@ -40,13 +40,22 @@ from ..rns.base import RNSBase64
 from ..transforms.dcrt import DcrtPlan64, dcrt_forward64_fast, dcrt_inverse64_fast
 
 
+def gadget_ntt_big(big: torch.Tensor, basis: BigUintApproxSignedBasis, plan: DcrtPlan64,
+                   rns_base: RNSBase64, route: str = "auto") -> torch.Tensor:
+    """Big integers mod Q ``(..., N, L)`` -> the NTT-domain residues of every
+    gadget digit under the moduli of ``plan`` and ``rns_base`` (all of Q's,
+    or a residue shard's), ``(count, L, ..., N)``: digits, centred re-spread,
+    one forward transform launch."""
+    digits = basis.unsigned_decompose(big)  # (L, ..., N)
+    residues = rns_base.wrapping_decompose_small(digits, basis.basis)
+    return dcrt_forward64_fast(plan, residues.contiguous(), 1, route)
+
+
 def gadget_ntt(crt_poly: torch.Tensor, basis: BigUintApproxSignedBasis, plan: DcrtPlan64,
                rns_base: RNSBase64, route: str = "auto") -> torch.Tensor:
     """Coefficient-domain residues ``(count, ..., N)`` -> the NTT-domain
     residues of every gadget digit, ``(count, L, ..., N)``."""
-    digits = basis.unsigned_decompose(rns_base.compose(crt_poly))  # (L, ..., N)
-    residues = rns_base.wrapping_decompose_small(digits, basis.basis)
-    return dcrt_forward64_fast(plan, residues.contiguous(), 1, route)
+    return gadget_ntt_big(rns_base.compose(crt_poly), basis, plan, rns_base, route)
 
 
 def add_dcrt_glev_mul_crt_poly(acc, glev, crt_poly, basis: BigUintApproxSignedBasis,
@@ -69,14 +78,20 @@ def crt_glwe_mul_dcrt_ggsw(crt_glwe, ggsw, basis: BigUintApproxSignedBasis, plan
     """External product in the RNS domain (crt.rs:200): ``crt_glwe (count,
     ..., k+1, N)`` coefficient domain times ``ggsw (k+1, L, count, k+1, N)``
     -> a DcrtGlwe ``(count, ..., k+1, N)`` in the NTT domain."""
-    f = gadget_ntt(crt_glwe, basis, plan, rns_base, route)  # (count, L, ..., k1_row, N)
-    extra = crt_glwe.dim() - 3
+    return dcrt_ggsw_mac(gadget_ntt(crt_glwe, basis, plan, rns_base, route), ggsw, rns_base)
+
+
+def dcrt_ggsw_mac(f, ggsw, rns_base: RNSBase64):
+    """The external product's multiply-accumulate: gadget digits ``f (count,
+    L, ..., k+1, N)`` (:func:`gadget_ntt`) times ``ggsw (k+1, L, count, k+1,
+    N)``, summed over rows and levels mod q -> ``(count, ..., k+1, N)``."""
+    extra = f.dim() - 4
     k1, L, count, _, n = ggsw.shape
     g = ggsw.permute(2, 1, 0, 3, 4).reshape((count, L) + (1,) * extra + (k1, k1, n))
-    m = rns_base.modulus_bc(extra + 4, crt_glwe.device)
+    m = rns_base.modulus_bc(extra + 4, f.device)
     prod = mul64(g, f.unsqueeze(-2), m)  # (count, L, ..., row, comp, N)
     prod = prod.movedim(1, -3).flatten(-4, -3)  # (count, ..., L * row, comp, N)
-    return sum_mod64(prod, rns_base.modulus_bc(extra + 2, crt_glwe.device), dim=-3)
+    return sum_mod64(prod, rns_base.modulus_bc(extra + 2, f.device), dim=-3)
 
 
 def dcrt_glwe_secret(generator: torch.Generator, k: int, plan: DcrtPlan64, route: str = "auto"):

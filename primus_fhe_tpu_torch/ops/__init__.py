@@ -12,6 +12,10 @@
 - :mod:`.ntt64`: the u64 butterfly NTT and inverse NTT;
 - :mod:`.rotate`: kernel F, the negacyclic torus rotation;
 - :mod:`.cmux_front`: kernel G, the CMux front end (digit residues);
+- :mod:`.ntt_stages`: the coefficient-sharded NTT's shard-local stage
+  kernels (u32 and u64, forward and inverse) on per-lane tables;
+- :mod:`.ntt_mxu8_dyn`: a residue shard's plan, whose tables feed the
+  byte-radix u64 kernels of :mod:`.ntt_mxu8`;
 - :mod:`.mxu_common`: the host four-step matrices;
 - :mod:`.build`: compiles ``csrc/`` with ``nvcc`` at first use and binds it.
 """

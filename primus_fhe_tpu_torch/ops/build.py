@@ -23,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("ntt32.cu", "cmux_fused.cu", "cmux_mxu.cu", "ntt_mxu8.cu", "ntt64.cu", "cmux_front.cu")
+SOURCES = ("ntt32.cu", "cmux_fused.cu", "cmux_mxu.cu", "ntt_mxu8.cu", "ntt64.cu", "cmux_front.cu",
+           "ntt_stages.cu")
 HEADERS = ("modarith32.cuh", "modarith64.cuh", "mxu8.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -32,8 +33,9 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U64 = ctypes.c_uint64
 # C entry -> argument types (pointers, host constant packs and the stream
-# are c_void_p; sizes are c_int)
+# are c_void_p; sizes are c_int; a u64 modulus is c_uint64)
 _SIGNATURES = {
     "pft_ntt32_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pft_ntt32_inverse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -50,6 +52,10 @@ _SIGNATURES = {
     "pft_ntt_mxu8_roundtrip64_mul": (_P,) * 9 + (_I,) * 4 + (_P,),
     "pft_rotate": (_P, _P, _P, _I, _I, _I, _I, _P),
     "pft_cmux_front": (_P,) * 5 + (_I,) * 4 + (_P,),
+    "pft_ntt32_stages_forward": (_P,) * 4 + (_I,) * 4 + (_P,),
+    "pft_ntt32_stages_inverse": (_P,) * 4 + (_I,) * 3 + (_P,),
+    "pft_ntt64_stages_forward": (_P,) * 4 + (_U64,) + (_I,) * 3 + (_P,),
+    "pft_ntt64_stages_inverse": (_P,) * 4 + (_U64,) + (_I,) * 3 + (_P,),
 }
 
 

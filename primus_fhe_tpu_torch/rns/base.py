@@ -111,17 +111,28 @@ class RNSBase64(_RNSBaseCommon):
         q = self.modulus_bc(values.dim(), values.device).value
         return torch.where(vb < (small_mod + 1) // 2, vb, q - small_mod + vb)
 
-    def compose(self, residues: torch.Tensor) -> torch.Tensor:
-        """Residues ``(count, ...)`` -> canonical big integers ``(..., L)``."""
+    def compose_partial(self, residues: torch.Tensor, start: int = 0) -> torch.Tensor:
+        """The CRT terms of the moduli ``start, start+1, ...`` summed mod Q:
+        residues ``(m, ...)`` of those ``m`` moduli -> canonical big integers
+        ``(..., L+1)`` below Q.  Over all moduli it is the composition; a
+        residue shard composes its own moduli and the shards' values add up
+        to it mod Q."""
         t = self.tables(residues.device)
-        extra = residues.dim() - 1
-        shape = (self.count,) + (1,) * extra
-        f = t["inv_punctured"].map(lambda x: x.reshape(shape))
-        prods = factor_mul64(residues, f, t["modulus"].value.reshape(shape))
+        m, extra = residues.shape[0], residues.dim() - 1
+        shape = (m,) + (1,) * extra
+        f, q = t["inv_punctured"], t["modulus"].value
+        if (start, m) != (0, self.count):  # a shard's moduli; all of them need no slice
+            f, q = f.map(lambda x: x[start:start + m]), q[start:start + m]
+        prods = factor_mul64(residues, f.map(lambda x: x.reshape(shape)), q.reshape(shape))
         value = torch.zeros(residues.shape[1:] + (self.big_len + 1,), dtype=torch.int64,
                             device=residues.device)
-        for i in range(self.count):
-            value, _ = big_mul_u32_add(t["punctured_limbs"][i], prods[i] & MASK32, value)
-            value, _ = big_mul_u32_add(t["punctured_limbs_shift"][i], prods[i] >> 32, value)
+        for i in range(m):
+            value, _ = big_mul_u32_add(t["punctured_limbs"][start + i], prods[i] & MASK32, value)
+            value, _ = big_mul_u32_add(t["punctured_limbs_shift"][start + i], prods[i] >> 32,
+                                       value)
             value = big_cond_sub(value, t["q_limbs_ext"])
-        return value[..., : self.big_len]
+        return value
+
+    def compose(self, residues: torch.Tensor) -> torch.Tensor:
+        """Residues ``(count, ...)`` -> canonical big integers ``(..., L)``."""
+        return self.compose_partial(residues)[..., : self.big_len]

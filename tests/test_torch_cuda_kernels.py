@@ -9,7 +9,11 @@ and a small DCRT rotation on both routes against the CPU; kernels D and E
 (the fused key multiply and round trip) at log_n 8-12, 7 and 8 planes, two
 moduli and ragged row groups, and the four-step at 2^16 on both routes;
 kernels F and G at N 32-2048, degrees of any sign, both gadgets, and
-``cmux_delta`` against kernels 3-4.  Tolerance: zero (bit-equal).
+``cmux_delta`` against kernels 3-4; the four stage kernels of the
+coefficient-sharded NTT at log_n 9-16 over 2-8 shards (u32, 50- and 62-bit
+u64, every ``out_factor`` and both ``in_factor``s), and a (2, 2)
+``LocalMesh`` DCRT rotation on both routes against the single-card one.
+Tolerance: zero (bit-equal).
 
 The kernels have no CPU mode, so every test here needs the card and skips
 without one.  On the card (the root conftest imports JAX, which that
@@ -335,3 +339,85 @@ def test_cmux_front_and_delta_match_plain(dev, log_n, log_basis, level, k):
     assert torch.equal((acc + delta) & 0xFFFFFFFF, step)
     cpu = tfhe.cmux_delta(conv, basis, acc.cpu(), degrees.cpu(), key.cpu())
     assert torch.equal(delta.cpu(), cpu)
+
+
+@pytest.mark.parametrize("log_n,d", [(12, 2), (12, 8), (16, 4), (9, 4)])
+def test_stage_kernels_match_plain(dev, log_n, d):
+    """The four stage kernels on shard 1's table slices: u32 at q = 536813569
+    (phase 15's n = 2^12), u64 on the 62-bit q = 4611686018425815041 (exact
+    Shoup) and a 50-bit q (deferred, approximate Shoup); lazy outputs too."""
+    from primus_fhe_tpu_torch.ops import ntt_stages as st
+    from primus_fhe_tpu_torch.parallel import coeff_sharded as cs
+
+    gen = torch.Generator(device=dev).manual_seed(log_n + d)
+    log_d = d.bit_length() - 1
+    log_w, width = log_n - log_d, (1 << log_n) // d
+    cols = slice(width, 2 * width)
+    if log_n <= 12:
+        q = 536813569
+        w, p = (t[log_d:, cols].to(dev) for t in cs.build_expanded_tables32(log_n, q))
+        wi, pi = (t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables32(log_n, q))
+        x = torch.randint(0, 4 * q, (8, width), generator=gen, device=dev)
+        for of in (1, 4):
+            want = st.ntt32_stages_forward_plain(log_w, q, w, p, x, of)
+            assert torch.equal(st.ntt32_stages_forward(log_w, q, w, p, x, of), want)
+            got32 = st.ntt32_stages_forward(log_w, q, w, p, x.to(torch.int32), of)
+            assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want)
+        y = torch.randint(0, 2 * q, (8, width), generator=gen, device=dev)
+        assert torch.equal(st.ntt32_stages_inverse(log_w, q, wi, pi, y),
+                           st.ntt32_stages_inverse_plain(log_w, q, wi, pi, y))
+    for q in (4611686018425815041, next_ntt_prime(50, log_n)):
+        w, p = (t[log_d:, cols].to(dev) for t in cs.build_expanded_tables64(log_n, q))
+        wi, pi = (t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables64(log_n, q))
+        x = _below(gen, [q], (2, width), 4, dev)[0]
+        for of in (1, 2, 4):
+            assert torch.equal(st.ntt64_stages_forward(log_w, q, w, p, x, of),
+                               st.ntt64_stages_forward_plain(log_w, q, w, p, x, of))
+        for in_factor in (2, 4):
+            y = _below(gen, [q], (2, width), in_factor, dev)[0]
+            assert torch.equal(st.ntt64_stages_inverse(log_w, q, wi, pi, y, in_factor),
+                               st.ntt64_stages_inverse_plain(log_w, q, wi, pi, y, in_factor))
+
+
+def test_local_mesh_rotation_and_coeff_sharded_match_single_card(dev):
+    """A (residue 2, batch 2) LocalMesh rotation step on the card equals the
+    single-card ``dcrt_blind_rotate_batched`` on both routes, with one
+    inverse and one forward launch a shard a step; the coefficient-sharded
+    u64 round trip at n = 2^12 over 4 shards equals the input."""
+    from primus_fhe_tpu_torch.boot.dcrt_blind_rotate import dcrt_blind_rotate_batched
+    from primus_fhe_tpu_torch.decompose import BigUintApproxSignedBasis
+    from primus_fhe_tpu_torch.parallel import (LocalMesh, coeff_sharded_forward64,
+                                               coeff_sharded_inverse64, make_sharded_blind_rotation,
+                                               shard, shard_rotation_inputs, unshard)
+    from primus_fhe_tpu_torch.parallel.sharded_rotation import ACC_SPEC
+    from primus_fhe_tpu_torch.rns import RNSBase64
+    from primus_fhe_tpu_torch.transforms.dcrt import build_dcrt_plan64
+    from primus_fhe_tpu_torch.transforms.ntt import forward64
+    from primus_fhe_tpu_torch.transforms.plan import build_plan64
+
+    log_n, n_lwe, bsz = 10, 3, 4
+    n = 1 << log_n
+    base = RNSBase64(Q50)
+    basis = BigUintApproxSignedBasis(base, 25)
+    plan = build_dcrt_plan64(log_n, Q50)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bsk = _below(gen, Q50, (n_lwe, 2, basis.decompose_length, 2, n), 1, dev).movedim(0, 3)
+    acc = _below(gen, Q50, (bsz, 2, n), 1, dev).transpose(0, 1).contiguous()
+    lwe = torch.randint(0, 2 * n, (bsz, n_lwe + 1), generator=gen, device=dev)
+    mesh = LocalMesh(2, 2, dev)
+    for route, fwd, inv in (("auto", ntt_mxu8.mxu8_forward64, ntt_mxu8.mxu8_inverse64),
+                            ("butterfly", ntt64.ntt64_forward, ntt64.ntt64_inverse)):
+        want = dcrt_blind_rotate_batched(plan, basis, base, bsk.contiguous(), lwe, acc, route=route)
+        fn = make_sharded_blind_rotation(mesh, "residue", "batch", basis, plan, base, route)
+        args = shard_rotation_inputs(mesh, "residue", "batch", bsk.contiguous(), lwe, acc)
+        fwd.launches = inv.launches = 0
+        got = unshard(mesh, fn(*args), ACC_SPEC)
+        assert fwd.launches == inv.launches == mesh.size * n_lwe
+        assert torch.equal(got, want)
+    q = 4611686018425815041
+    x = _below(gen, [q], (2, 1 << 12), 1, dev)[0]
+    cmesh = LocalMesh(4, 1, dev)
+    f = coeff_sharded_forward64(cmesh, "residue", 12, q, shard(cmesh, x, (None, "residue")))
+    assert torch.equal(unshard(cmesh, f, (None, "residue")), forward64(build_plan64(12, q, dev), x))
+    back = coeff_sharded_inverse64(cmesh, "residue", 12, q, f)
+    assert torch.equal(unshard(cmesh, back, (None, "residue")), x)

@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor the JAX package, and ``chip_smoke.py``
+"""The port imports neither JAX nor the JAX package (nor does the gloo tests'
+rank module ``tests/_torch_dist_workers.py``), and ``chip_smoke.py``
 refuses to run without a CUDA card.  Both run in a subprocess: the root
 conftest imports jax into this process.  The port's copies of the JAX
 package's host helpers (parameter records, ``GoldenNtt``, ``noise``) equal
@@ -50,6 +51,15 @@ MODULES = [
     "primus_fhe_tpu_torch.ops.rotate",
     "primus_fhe_tpu_torch.ops.cmux_front",
     "primus_fhe_tpu_torch.lattice.tfhe",
+    "primus_fhe_tpu_torch.ops.ntt_stages",
+    "primus_fhe_tpu_torch.ops.ntt_mxu8_dyn",
+    "primus_fhe_tpu_torch.parallel",
+    "primus_fhe_tpu_torch.parallel.mesh",
+    "primus_fhe_tpu_torch.parallel.coeff_sharded",
+    "primus_fhe_tpu_torch.parallel.overlap",
+    "primus_fhe_tpu_torch.parallel.sharded_rotation",
+    "primus_fhe_tpu_torch.parallel.entry",
+    "_torch_dist_workers",  # tests/: the gloo ranks' module
 ]
 
 
@@ -65,6 +75,7 @@ def _run(code, cwd=ROOT, extra_env=None):
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
+        + "sys.path.insert(0, 'tests')\n"
         + "".join(f"import {m}\n" for m in MODULES)
         + "import chip_smoke\n"
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'primus_fhe_tpu'))\n"
