@@ -78,7 +78,24 @@ non-zero):
     536813569, batch 8 over D = 2, 4, 8 against kernels 1-2, u64 at n = 2^16,
     q = 4611686018425815041, 2 rows over D = 4 against the plain forward64,
     both round trips, one stage launch a shard a transform; the four stage
-    kernels (row 11) against their plain versions at those shapes.
+    kernels (row 11) against their plain versions at those shapes;
+16. row 13, the coefficient-sharded byte-radix NTT (four half-transform
+    kernels around one ``all_to_all``) at ``bench_coeff_sharded_mxu.py``'s
+    shape (n = 4096, batch 64, q = 2^50 - 2^14 + 1): the sharded forward at
+    D = 1, 2, 4 on ``LocalMesh``es equals ``mxu8_forward64`` and round-trips,
+    with the D = 1 local pipeline's time against ``mxu8_forward64``'s; the
+    sharded negacyclic product at ``bench.py``'s shape (512 rows) over D = 2
+    and 4 equals kernel E, with exact launch counts and ms a trip beside E and
+    forward + D; once at 8 byte planes; K1, K2, Ki1 (with and without the
+    key) and Ki2 against their plain versions (the lazy halves below 2q and
+    equal mod q);
+17. the 32-bit DCRT transforms against kernels 1-2 and the residue- and
+    batch-sharded external product on a ``LocalMesh`` (2, 2) at BOOLEAN_128
+    width (key slice 0 of phase 3's bootstrap key, batch 64) against the
+    single-card one, with launch counts and ms;
+18. the 64-bit torus external product at N = 2048, k = 1, gadget 2^16 x 4:
+    GGSW(1) gives full-range words back, GGSW(X^3) the negacyclic shift, and a
+    random key's product equals the CPU plain versions'; launches and ms.
 
 The line before the last is the kernel table as JSON (every kernel with its
 launches on its main path, its time, its plain version's time and its bound,
@@ -923,6 +940,326 @@ def phase15_coeff(torch, dev, table) -> dict:
     return counts
 
 
+CSM_LOG_N, CSM_BATCH = 12, 64  # bench_coeff_sharded_mxu.py's shape (q = RT_MODULI[0])
+CSM_SHARDS = (2, 4)
+CSM_BATCH8 = 64  # rows of the 8-plane product (RT_MODULI[1])
+
+
+def compare_lazy64(torch, table, name, bsz, kern, plain, q, bnd):
+    """Holds a lazy kernel output against its canonical plain version: below
+    2q and equal mod q (the lazy-word rule of ``ops/ntt_mxu8_split.py``),
+    then times both and the kernel's device time like
+    :func:`compare_kernel64`."""
+    from primus_fhe_tpu_torch.modular.modops import reduce_once64
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if not bool((got >= 0).all() and (got < 2 * q).all()):
+        raise AssertionError(f"{name} batch {bsz}: a lazy word at or above 2q")
+    err = int((reduce_once64(got, q) - want).abs().max())
+    if err:
+        raise AssertionError(f"{name} batch {bsz}: kernel != plain mod q (max abs err {err})")
+    ms = cuda_ms(torch, kern, KERNEL_REPS)
+    plain_ms = cuda_ms(torch, plain, KERNEL_REPS)
+    dev_ms = kernel_device_ms(torch, kern)
+    log(f"{name:22s} batch {bsz:3d} shape {tuple(got.shape)}: below 2q, equal mod q; "
+        f"wrapper {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]})")
+    table.setdefault(name, {})[bsz] = (0, ms, plain_ms, dev_ms, bnd)
+
+
+def split_bounds(n: int, planes: int, lanes: int, rows: int, d: int, key: bool) -> dict:
+    """The :func:`bound` of each half-transform on a shard of ``d``: ``lanes``
+    (k0, batch) lanes of the column passes and ``rows`` (r0, batch) rows of
+    the row passes; pass 1 is ``P x 8A x A`` int8 MACs a lane, pass 2 ``P x
+    8B x B`` a row; each word read and written once, and the shard's
+    ``n / d`` twiddles and key words (16 bytes each, value and quotient)
+    read once."""
+    a, b = n // 128, 128
+    col, row, shard_tab = 16 * a * lanes, 16 * b * rows, 16 * n // d
+    return {
+        "split_k1": bound(col + shard_tab, lanes * planes * 8 * a * a),
+        "split_k2": bound(row, rows * planes * 8 * b * b),
+        "split_ki1": bound(row + shard_tab * (2 if key else 1), rows * planes * 8 * b * b),
+        "split_ki2": bound(col, lanes * planes * 8 * a * a),
+    }
+
+
+def phase16_sharded_mxu(torch, dev, table) -> dict:
+    """Phase 16: row 13, the coefficient-sharded byte-radix NTT.  Returns the
+    launch counts of its main path: the sharded negacyclic product at
+    ``bench.py``'s shape over D = 2 and 4."""
+    from primus_fhe_tpu_torch.ops import ntt_mxu8, ntt_mxu8_split as split
+    from primus_fhe_tpu_torch.parallel import LocalMesh, shard, unshard
+    from primus_fhe_tpu_torch.parallel import coeff_sharded_mxu as csm
+
+    coeff, ntt = (None, "residue", None), ("residue", None, None)
+    kernels = {"split_k1": split.split_k1, "split_k2": split.split_k2,
+               "split_ki1": split.split_ki1, "split_ki2": split.split_ki2}
+    q, n, log_n = RT_MODULI[0], 1 << CSM_LOG_N, CSM_LOG_N
+    plan = csm.get_sharded_plan(log_n, q)
+    tabs, A, B, P = plan.tables, plan.A, plan.B, plan.planes
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def reset():
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+
+    def read():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def sharded(d, x, mt=None, forward_only=False):
+        """Coefficient-layout shards of ``x (batch, n)`` on ``LocalMesh(d, 1)``
+        through the sharded forward (and the inverse, keyed by ``mt``)."""
+        mesh = LocalMesh(d, 1, dev)
+        xs = shard(mesh, csm.to_coeff_layout(x, A, B), coeff)
+        f = csm.sharded_mxu_forward64(mesh, "residue", log_n, q, xs)
+        if forward_only:
+            return csm.ntt_layout_to_flat(unshard(mesh, f, ntt))
+        y = csm.sharded_mxu_inverse64(mesh, "residue", log_n, q, f, mul_tab=mt)
+        return csm.from_coeff_layout(unshard(mesh, y, coeff))
+
+    log(f"n = {n} = {A} x {B}, q = {q} ({P} byte planes); D must divide A and B")
+    # -- 16.1: the forward at bench_coeff_sharded_mxu.py's shape ------------------
+    x = torch.randint(0, q, (CSM_BATCH, n), generator=g, device=dev)
+    want = ntt_mxu8.mxu8_forward64(tabs, x[None])[0]
+    reset()
+    outs = {d: sharded(d, x, forward_only=True) for d in (1,) + CSM_SHARDS}
+    back = {d: sharded(d, x) for d in (1,) + CSM_SHARDS}
+    counts_f = read()
+    total = 1 + sum(CSM_SHARDS)
+    want_f = {"split_k1": 2 * total, "split_k2": 2 * total, "split_ki1": total, "split_ki2": total}
+    if counts_f != want_f:
+        raise AssertionError(f"forward/round-trip launch counts {counts_f}, want {want_f}")
+    for d in outs:
+        if not torch.equal(outs[d], want):
+            raise AssertionError(f"D={d}: the sharded forward differs from mxu8_forward64")
+        if not torch.equal(back[d], x):
+            raise AssertionError(f"D={d}: the sharded round trip does not return the input")
+    log(f"batch {CSM_BATCH}: the sharded forward at D = 1, 2, 4 equals mxu8_forward64 "
+        f"({want.numel()} words) and the inverse returns the input; launches exact "
+        f"({json.dumps(counts_f)}: one a shard a transform)")
+
+    xc = csm.to_coeff_layout(x, A, B)
+
+    def local_pipeline():  # bench_coeff_sharded_mxu.py's D = 1 pipeline: K1, transpose, K2
+        s = split.split_k1(tabs, xc.reshape(1, A, B * CSM_BATCH), CSM_BATCH, 0)
+        s = s.reshape(A, B, CSM_BATCH).transpose(1, 2).reshape(1, A * CSM_BATCH, B)
+        return split.split_k2(tabs, s)
+
+    if not torch.equal(csm.ntt_layout_to_flat(local_pipeline().reshape(A, CSM_BATCH, B)), want):
+        raise AssertionError("the D = 1 local pipeline differs from mxu8_forward64")
+    fused_ms = cuda_ms(torch, lambda: ntt_mxu8.mxu8_forward64(tabs, x[None]), KERNEL_REPS)
+    local_ms = cuda_ms(torch, local_pipeline, KERNEL_REPS)
+    fused_ms2 = cuda_ms(torch, lambda: ntt_mxu8.mxu8_forward64(tabs, x[None]), KERNEL_REPS)
+    log(f"D = 1 local pipeline (K1, transpose, K2) {local_ms:.4f} ms against mxu8_forward64 "
+        f"{fused_ms:.4f} / {fused_ms2:.4f} ms (before / after): ratio "
+        f"{local_ms / min(fused_ms, fused_ms2):.3f} (bench_coeff_sharded_mxu.py's metric, CUDA "
+        f"events, batch {CSM_BATCH})")
+
+    # -- 16.2: the sharded negacyclic product at bench.py's shape, counted ------
+    log(f"-- 16.2: the sharded negacyclic product at bench.py's shape (n = {n}, {RT_BATCH} rows)")
+    xr = torch.randint(0, q, (RT_BATCH, n), generator=g, device=dev)
+    key = torch.randint(0, q, (1, n), generator=g, device=dev)
+    mt = tabs.mul_table(key)
+    e_out = ntt_mxu8.mxu8_roundtrip64_mul(tabs, xr[None], mt)[0]
+    reset()
+    prods = {d: sharded(d, xr, mt) for d in CSM_SHARDS}
+    counts = read()
+    want_c = {k: sum(CSM_SHARDS) for k in kernels}
+    log(f"launches of one product at D = {CSM_SHARDS}: {json.dumps(counts)}")
+    if counts != want_c:
+        raise AssertionError(f"sharded product launch counts {counts}, want {want_c}")
+    for d, out in prods.items():
+        if not torch.equal(out, e_out):
+            raise AssertionError(f"D={d}: the sharded product differs from kernel E")
+    log(f"D = {CSM_SHARDS}: the same {e_out.numel()} words as kernel E (mxu8_roundtrip64_mul)")
+    modmuls = RT_BATCH * (n * log_n + n)
+    log(f"ms a trip over {RT_TRIPS} chained trips (CUDA events; the sharded trips from and to "
+        f"coefficient-layout shards); bench.py's metric")
+    routes = {"E": (lambda v: ntt_mxu8.mxu8_roundtrip64_mul(tabs, v[None], mt)[0], xr),
+              "fwd+D": (lambda v: ntt_mxu8.mxu8_inverse64_mul(
+                  tabs, ntt_mxu8.mxu8_forward64(tabs, v[None]), mt)[0], xr)}
+    for d in CSM_SHARDS:
+        mesh = LocalMesh(d, 1, dev)
+        routes[f"sharded D={d}"] = (
+            lambda v, mesh=mesh: csm.sharded_mxu_inverse64(
+                mesh, "residue", log_n, q, csm.sharded_mxu_forward64(mesh, "residue", log_n, q, v),
+                mul_tab=mt),
+            shard(mesh, csm.to_coeff_layout(xr, A, B), coeff))
+    for name, (step, v0) in routes.items():
+        ms = chained_ms(torch, step, v0, RT_TRIPS)
+        line = f"[{name:12s}] {ms:.4f} ms a trip -> {modmuls / (ms / 1e3):.4e} modmul/s"
+        if name.startswith("sharded"):
+            ops = count_host_ops(torch, lambda: step(v0))
+            dev_ms, _ = device_time(torch, lambda: step(v0))
+            line += (f"; {ops} host ops a trip, device busy "
+                     + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms a trip "
+                        f"(idle share {1 - dev_ms / ms:.3f})"))
+        log(line)
+
+    # -- 16.3: the 8-plane tier --------------------------------------------------
+    q8 = RT_MODULI[1]
+    plan8 = csm.get_sharded_plan(log_n, q8)
+    x8 = torch.randint(0, q8, (CSM_BATCH8, n), generator=g, device=dev)
+    mt8 = plan8.tables.mul_table(torch.randint(0, q8, (1, n), generator=g, device=dev))
+    mesh = LocalMesh(CSM_SHARDS[-1], 1, dev)
+    f8 = csm.sharded_mxu_forward64(mesh, "residue", log_n, q8,
+                                   shard(mesh, csm.to_coeff_layout(x8, A, B), coeff))
+    if not torch.equal(csm.ntt_layout_to_flat(unshard(mesh, f8, ntt)),
+                       ntt_mxu8.mxu8_forward64(plan8.tables, x8[None])[0]):
+        raise AssertionError("8 planes: the sharded forward differs from mxu8_forward64")
+    p8 = csm.sharded_mxu_inverse64(mesh, "residue", log_n, q8, f8, mul_tab=mt8)
+    if not torch.equal(csm.from_coeff_layout(unshard(mesh, p8, coeff)),
+                       ntt_mxu8.mxu8_roundtrip64_mul(plan8.tables, x8[None], mt8)[0]):
+        raise AssertionError("8 planes: the sharded product differs from kernel E")
+    log(f"q = {q8} ({plan8.planes} planes), batch {CSM_BATCH8}, D = {CSM_SHARDS[-1]}: forward "
+        f"equals mxu8_forward64, product equals kernel E")
+
+    # -- 16.4: the four kernels against their plain versions ---------------------
+    d = CSM_SHARDS[0]
+    log(f"-- 16.4: K1, K2, Ki1, Ki2 vs plain versions at the product's shard shapes (D = {d}, "
+        f"shard {d - 1}, {RT_BATCH} rows)")
+    k0_off, r0_off = plan.offsets(d, d - 1)
+    lanes, rows = B // d * RT_BATCH, A // d * RT_BATCH
+    lane_in = torch.randint(0, q, (1, A, lanes), generator=g, device=dev)
+    row_in = torch.randint(0, 2 * q, (1, rows, B), generator=g, device=dev)
+    key_rows = mt.reshape(1, 2, A, B)[:, :, r0_off:r0_off + A // d].reshape(1, 2, -1).contiguous()
+    bnd = split_bounds(n, P, lanes, rows, d, True)
+    compare_lazy64(torch, table, "split_k1", RT_BATCH,
+                   lambda: split.split_k1(tabs, lane_in, RT_BATCH, k0_off),
+                   lambda: split.split_k1_plain(tabs, lane_in, RT_BATCH, k0_off), q,
+                   bnd["split_k1"])
+    compare_kernel64(torch, table, "split_k2", RT_BATCH, lambda: split.split_k2(tabs, row_in),
+                     lambda: split.split_k2_plain(tabs, row_in), bnd["split_k2"])
+    compare_lazy64(torch, table, "split_ki1", RT_BATCH,
+                   lambda: split.split_ki1(tabs, row_in, RT_BATCH, r0_off, key_rows),
+                   lambda: split.split_ki1_plain(tabs, row_in, RT_BATCH, r0_off, key_rows), q,
+                   bnd["split_ki1"])
+    compare_lazy64(torch, table, "split_ki1@nokey", RT_BATCH,
+                   lambda: split.split_ki1(tabs, row_in, RT_BATCH, r0_off),
+                   lambda: split.split_ki1_plain(tabs, row_in, RT_BATCH, r0_off), q,
+                   split_bounds(n, P, lanes, rows, d, False)["split_ki1"])
+    compare_kernel64(torch, table, "split_ki2", RT_BATCH, lambda: split.split_ki2(tabs, lane_in),
+                     lambda: split.split_ki2_plain(tabs, lane_in), bnd["split_ki2"])
+    return counts
+
+
+SHARD_DCRT_MESH = (2, 2)  # phase 17: one prime and 32 ciphertexts a shard
+
+
+def phase17_sharded_dcrt32(torch, dev, conv, basis, key0) -> dict:
+    """Phase 17: the 32-bit DCRT transforms and the residue- and
+    batch-sharded external product at BOOLEAN_128 width.  Returns the
+    kernel 1-2 launch counts of the sharded product."""
+    from primus_fhe_tpu_torch.lattice import tfhe
+    from primus_fhe_tpu_torch.ops import ntt32
+    from primus_fhe_tpu_torch.parallel import LocalMesh, sharded, unshard
+    from primus_fhe_tpu_torch.transforms import dcrt
+
+    n, kp = conv.n, conv.count
+    k1 = key0.shape[1]
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    plan = dcrt.build_dcrt_plan32(conv.log_n, conv.primes)
+    qs = torch.tensor(conv.primes, dtype=torch.int64, device=dev).reshape(kp, 1, 1)
+    x = torch.randint(0, 1 << 40, (kp, BATCH * k1, n), generator=g, device=dev) % (4 * qs)
+    y = torch.randint(0, 1 << 40, (kp, BATCH * k1, n), generator=g, device=dev) % (2 * qs)
+    for of in (1, 4):
+        if not torch.equal(dcrt.dcrt_forward32(plan, x, of), ntt32.forward32(conv.ntt, x, of)):
+            raise AssertionError(f"dcrt_forward32 out_factor {of} differs from forward32")
+    for of in (1, 2):
+        if not torch.equal(dcrt.dcrt_inverse32(plan, y, of), ntt32.inverse32(conv.ntt, y, of)):
+            raise AssertionError(f"dcrt_inverse32 out_factor {of} differs from inverse32")
+    log(f"dcrt_forward32/dcrt_inverse32 over primes {conv.primes} (one launch): equal to "
+        f"forward32/inverse32 at every out_factor, {x.numel()} words")
+    glwe = torch.randint(0, 1 << 32, (BATCH, k1, n), generator=g, device=dev)
+    want = tfhe.external_product(conv, basis, glwe, key0)
+    mesh = LocalMesh(*SHARD_DCRT_MESH, dev)
+    gs, ks = sharded.shard_external_product_inputs(mesh, glwe, key0)
+    for fn in (ntt32.forward32, ntt32.inverse32):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    out = sharded.sharded_external_product(conv, basis, gs, ks, mesh)
+    torch.cuda.synchronize()
+    counts = {"forward32": ntt32.forward32.launches, "inverse32": ntt32.inverse32.launches}
+    if counts != {"forward32": mesh.size, "inverse32": mesh.size}:
+        raise AssertionError(f"sharded product launch counts {counts}, want {mesh.size} each (one "
+                             f"a shard a transform)")
+    if not torch.equal(unshard(mesh, out, sharded.glwe_spec(3)), want):
+        raise AssertionError("the sharded external product differs from the single-card one")
+    single_ms = cuda_ms(torch, lambda: tfhe.external_product(conv, basis, glwe, key0), KERNEL_REPS)
+    sharded_ms = cuda_ms(torch, lambda: sharded.sharded_external_product(conv, basis, gs, ks, mesh),
+                         KERNEL_REPS)
+    log(f"sharded_external_product on LocalMesh {SHARD_DCRT_MESH}, batch {BATCH}, key slice 0 of "
+        f"phase 3's bootstrap key: the same {want.numel()} words as the single-card "
+        f"external_product; launches {json.dumps(counts)}; {sharded_ms:.4f} ms against "
+        f"{single_ms:.4f} ms single-card (CUDA events)")
+    return counts
+
+
+T64_LOG_BASIS, T64_LEVEL = 16, 4  # tests/test_tfhe64.py's gadget: 64 bits, none dropped
+
+
+def phase18_torus64(torch, dev, p) -> dict:
+    """Phase 18: the 64-bit torus external product at BOOLEAN_128's ring.
+    Returns the kernel 1-2 launch counts of one product."""
+    from primus_fhe_tpu_torch.decompose import ApproxSignedBasis64
+    from primus_fhe_tpu_torch.lattice import tfhe64
+    from primus_fhe_tpu_torch.ops import ntt32
+
+    n, k = p.n, p.glwe_dim
+    k1 = k + 1
+    basis = ApproxSignedBasis64(None, T64_LOG_BASIS, reverse_length=T64_LEVEL)
+    conv = tfhe64.make_convolver64(p.log_n, T64_LEVEL, k, T64_LOG_BASIS)
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    words = lambda *shape: (torch.randint(0, 1 << 32, shape, generator=g, device=dev) << 32) | (  # noqa: E731
+        torch.randint(0, 1 << 32, shape, generator=g, device=dev))
+    glwe = words(BATCH, k1, n)
+    log(f"N = {n}, k = {k}, gadget 2^{T64_LOG_BASIS} x {T64_LEVEL} (drop {basis.drop_bits} bits), "
+        f"{conv.count} primes {conv.primes}, batch {BATCH}; full-range u64 words")
+
+    def trivial_ggsw(shift):
+        """Noise-free GGSW(X^shift): row r, level l = X^shift * scalar_l at r."""
+        ggsw = torch.zeros((k1, T64_LEVEL, k1, n), dtype=torch.int64, device=dev)
+        for r in range(k1):
+            for lvl in range(T64_LEVEL):
+                ggsw[r, lvl, r, shift] = basis.scalars[lvl]
+        return tfhe64.ggsw_to_ntt64(conv, ggsw)
+
+    identity = trivial_ggsw(0)
+    for fn in (ntt32.forward32, ntt32.inverse32):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    one = tfhe64.external_product64(conv, basis, glwe, identity)
+    torch.cuda.synchronize()
+    counts = {"forward32": ntt32.forward32.launches, "inverse32": ntt32.inverse32.launches}
+    if not torch.equal(one, glwe):
+        raise AssertionError("GGSW(1) did not give back the full-range GLWE words")
+    if counts != {"forward32": 1, "inverse32": 1}:
+        raise AssertionError(f"64-bit product launch counts {counts}, want one forward (the "
+                             f"digits) and one inverse")
+    shift = tfhe64.external_product64(conv, basis, glwe, trivial_ggsw(3))
+    want = torch.cat([-glwe[..., n - 3:], glwe[..., :n - 3]], dim=-1)
+    if not torch.equal(shift, want):
+        raise AssertionError("GGSW(X^3) did not give the negacyclic shift by 3")
+    key = tfhe64.ggsw_to_ntt64(conv, words(k1, T64_LEVEL, k1, n))
+    out = tfhe64.external_product64(conv, basis, glwe, key)
+    rows = 8
+    t0 = time.perf_counter()
+    cpu = tfhe64.external_product64(conv, basis, glwe[:rows].cpu(), key.cpu())
+    cpu_s = time.perf_counter() - t0
+    if not torch.equal(out[:rows].cpu(), cpu):
+        raise AssertionError("the 64-bit external product on cuda and on cpu differ")
+    ms = cuda_ms(torch, lambda: tfhe64.external_product64(conv, basis, glwe, key), KERNEL_REPS)
+    log(f"GGSW(1): the {glwe.numel()} words back exactly; GGSW(X^3): the negacyclic shift; a "
+        f"random key: rows 0-{rows - 1} equal the cpu plain versions' ({cpu_s:.2f} s there); "
+        f"launches a product {json.dumps(counts)}; {ms:.4f} ms a product at batch {BATCH} (CUDA "
+        f"events)")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -1357,6 +1694,15 @@ def main() -> None:
     log("== phase 15: the coefficient-sharded NTT on LocalMeshes")
     counts_c = phase15_coeff(torch, dev, table)
 
+    # -- phases 16-18: row 13, the 32-bit DCRT sharding, the 64-bit torus ------
+    log("== phase 16: row 13, the coefficient-sharded byte-radix NTT around one all_to_all")
+    counts_x = phase16_sharded_mxu(torch, dev, table)
+    log(f"== phase 17: the sharded 32-bit DCRT path at BOOLEAN_128 width, LocalMesh "
+        f"{SHARD_DCRT_MESH}")
+    counts_17 = phase17_sharded_dcrt32(torch, dev, conv, basis, ctx.bsk[0])
+    log("== phase 18: the 64-bit torus external product at BOOLEAN_128's ring")
+    counts_18 = phase18_torus64(torch, dev, p)
+
     # -- the kernel table -----------------------------------------------------
     # name -> (source, TPU kernel, launches on its main path, the table key of
     # the "ms" shape, the batch of the extra "ms_b" columns or None)
@@ -1393,6 +1739,14 @@ def main() -> None:
                                  counts_c["ntt64_stages_forward"], (LARGE_ROWS, None)),
         "ntt64_stages_inverse": ("ntt_stages.cu", "ops/ntt_pallas.py:683",
                                  counts_c["ntt64_stages_inverse"], (LARGE_ROWS, None)),
+        "split_k1": ("ntt_mxu8_split.cu", "parallel/coeff_sharded_mxu.py:131",
+                     counts_x["split_k1"], (RT_BATCH, None)),
+        "split_k2": ("ntt_mxu8_split.cu", "parallel/coeff_sharded_mxu.py:184",
+                     counts_x["split_k2"], (RT_BATCH, None)),
+        "split_ki1": ("ntt_mxu8_split.cu", "parallel/coeff_sharded_mxu.py:229",
+                      counts_x["split_ki1"], (RT_BATCH, None)),
+        "split_ki2": ("ntt_mxu8_split.cu", "parallel/coeff_sharded_mxu.py:297",
+                      counts_x["split_ki2"], (RT_BATCH, None)),
     }
     kernels = []
     for name, (src, rep, launches, (b0, bb)) in sources.items():
@@ -1415,6 +1769,14 @@ def main() -> None:
             row["ms_ntru"] = table[f"{name}@NTRU"][1][1]
             row["plain_ms_ntru"] = table[f"{name}@NTRU"][1][2]
             row["bound_ms_ntru"] = table[f"{name}@NTRU"][1][4][0]
+        if name in ("ntt32_forward", "ntt32_inverse"):  # phases 17-18's paths
+            key = name.replace("ntt32_", "") + "32"
+            row.update({"launches_sharded_dcrt32_path": counts_17[key],
+                        "launches_torus64_path": counts_18[key]})
+        if f"{name}@nokey" in table:  # Ki1 without the fused key multiply
+            _, kms, kpms, kdev, (kbms, _) = table[f"{name}@nokey"][b0]
+            row.update({"ms_nokey": kms, "plain_ms_nokey": kpms, "device_ms_nokey": kdev,
+                        "bound_ms_nokey": kbms})
         if f"{name}@shard" in table:  # row 12: the same kernels on a residue shard's tables
             _, sms, spms, sdev, (sbms, _) = table[f"{name}@shard"][DCRT_BATCH // SHARD_MESH[1]]
             row.update({"launches_sharded_path": counts_s[name], "ms_sharded_path": sms,

@@ -20,8 +20,7 @@
 //
 // Values are u32 words (int32 storage on the PyTorch side).
 
-#include "modarith64.cuh"
-#include "mxu8.cuh"
+#include "mxu8_64.cuh"
 
 namespace {
 
@@ -76,7 +75,7 @@ __global__ void __launch_bounds__(256) ntt_mxu8_forward_kernel(
 // u64 input is taken whole and no XOR-0x80 bias table exists; the matrices
 // hold P balanced base-256 digits of M * 2^(8l) mod q for l = 0..7.  Each
 // plane sum is exact in int32 (|d_c| < 1024 * 255 * 128 < 2^25), but
-// sum_c d_c 2^(8c) spans ~2^81, so fold_planes splits it at 2^32:
+// sum_c d_c 2^(8c) spans ~2^81, so fold_planes (mxu8_64.cuh) splits it at 2^32:
 //   L = sum_{c<4} d_c 2^(8c), H = sum_{c>=4} d_c 2^(8(c-4))   (|L|, |H| < 2^49.1)
 //   y = (L + off) + Shoup(H + off, 2^32 mod q)   (off: a multiple of q >= 2^50)
 // a u64 word congruent to the value (y < 2^51 + 3q < 2^64).  The TPU kernels'
@@ -112,37 +111,6 @@ __global__ void __launch_bounds__(256) ntt_mxu8_forward_kernel(
 // the m16n8k32 tiles, not device memory, sets the time (the butterfly route
 // needs ~n log n 64-bit multiplies instead, and wins per call).
 // ---------------------------------------------------------------------------
-
-constexpr int LDA64 = 8 * PFT_MXU_B + 16;  // bytes per 128-word row, +16 against bank conflicts
-
-template <int P>
-__device__ __forceinline__ uint64_t fold_planes(const int (&d)[P], const Mod64& c) {
-  const int64_t lo = (int64_t)d[0] + (int64_t)d[1] * 256 + (int64_t)d[2] * 65536 +
-                     (int64_t)d[3] * 16777216;
-  int64_t hi = 0;
-#pragma unroll
-  for (int i = P - 1; i >= 4; --i) hi = hi * 256 + d[i];
-  return (uint64_t)(lo + (int64_t)c.off) +
-         shoup64_lazy((uint64_t)(hi + (int64_t)c.off), c.c32, c.c32_p, c.q);
-}
-
-struct Geometry64 {
-  int n, A, G, np1, kb1, lda1;
-  size_t s_cols, s_rows;  // bytes of the [(row, k0)][k1] and [(row, r0)][k0] buffers
-};
-
-__host__ __device__ inline Geometry64 geometry64(int log_n) {
-  Geometry64 g;
-  g.n = 1 << log_n;
-  g.A = g.n / PFT_MXU_B;
-  g.G = 32 / g.A;
-  g.np1 = round_up(g.A, 8);
-  g.kb1 = round_up(8 * g.A, 32);
-  g.lda1 = g.kb1 + 16;
-  g.s_cols = (size_t)g.G * PFT_MXU_B * g.lda1;
-  g.s_rows = (size_t)g.G * g.A * LDA64;
-  return g;
-}
 
 template <int P>
 __global__ void __launch_bounds__(256) ntt_mxu8_forward64_kernel(

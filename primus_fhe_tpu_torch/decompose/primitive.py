@@ -1,5 +1,6 @@
-"""Single-limb approximate signed decomposition of u32 words (port of
-``ApproxSignedBasis32`` in ``primus_fhe_tpu/decompose/primitive.py``).
+"""Single-limb approximate signed decomposition of u32 and u64 words (port of
+``ApproxSignedBasis32`` and ``ApproxSignedBasis64`` in
+``primus_fhe_tpu/decompose/primitive.py``).
 
 Each level extracts a window, adds the incoming carry, and branches into a
 signed digit plus the next carry:
@@ -12,7 +13,8 @@ signed digit plus the next carry:
 
 Two modes, as in the reference (basis.rs:39-178):
 
-- **torus** (``modulus=None``): values and digits are words mod 2^32;
+- **torus** (``modulus=None``): values and digits are words mod 2^32 (or
+  2^64);
 - **mod q** (NTRU path): ``value_bits`` is the bit length of ``q``, digits
   are canonical mod ``q``, and a value at or above ``wrap_threshold`` is
   first shifted by ``adjust_add`` so that its top digit rounds into the
@@ -23,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from ..numeric.limb import MASK32
+from ..modular.modops import _shr_pos
+from ..numeric.limb import MASK32, as_i64, ge_u64
 
 
 def _derive(modulus: int | None, bits: int, log_basis: int, reverse_length):
@@ -119,6 +122,50 @@ class ApproxSignedBasis32:
         )
         digit = torch.where(next_carry, signed, temp)
         return digit, next_carry.to(values.dtype)
+
+    def decompose(self, values):
+        """All levels: digits ``(L, ...)`` stacked on a new leading axis."""
+        v, carries = self.init_value_carry(values)
+        digits = []
+        for lvl in range(self.decompose_length):
+            d, carries = self.decompose_level(v, carries, lvl)
+            digits.append(d)
+        return torch.stack(digits, dim=0)
+
+
+class ApproxSignedBasis64:
+    """u64 approximate signed basis (values mod ``modulus`` or ``2^64``) on
+    int64 tensors of u64 words: shifts are logical, the wrap threshold an
+    unsigned compare, and constants past 2^63 their int64 patterns."""
+
+    def __init__(self, modulus: int | None, log_basis: int, reverse_length: int | None = None):
+        self.__dict__.update(_derive(modulus, 64, log_basis, reverse_length))
+
+    @property
+    def approximate_error_bound(self) -> int:
+        return 0 if self.drop_bits == 0 else 1 << (self.drop_bits - 1)
+
+    def init_value_carry(self, values):
+        """Pre-adjusted values and initial carries."""
+        v = values
+        if self.wrap_threshold is not None:
+            v = torch.where(ge_u64(v, as_i64(self.wrap_threshold)), v + as_i64(self.adjust_add), v)
+        if self.init_carry_mask is None:
+            return v, torch.zeros_like(v)
+        return v, ((v & as_i64(self.init_carry_mask)) != 0).to(v.dtype)
+
+    def decompose_level(self, values, carries, level: int):
+        """One signed-digit extraction; returns ``(digit, next_carries)``."""
+        shr = self.shr_bits[level]
+        if shr >= 64:
+            window = torch.zeros_like(values)
+        else:
+            window = _shr_pos(values, shr) if shr else values
+        temp = (window & as_i64(self.basis_minus_one)) + carries  # at most 2^log_basis
+        next_carry = (temp & self.carry_mask) != 0
+        signed = torch.where(temp > self.basis_minus_one, torch.zeros_like(temp),
+                             temp + as_i64(self.modulus_minus_basis))
+        return torch.where(next_carry, signed, temp), next_carry.to(values.dtype)
 
     def decompose(self, values):
         """All levels: digits ``(L, ...)`` stacked on a new leading axis."""

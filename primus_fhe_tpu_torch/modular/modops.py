@@ -1,5 +1,5 @@
 """Modular operations on int64-carried u32 and u64 words (port of the uint32
-part and of the U64 add/sub/mul part of ``primus_fhe_tpu/modular/modops.py``).
+part and of the U64 add/sub/mul/dot part of ``primus_fhe_tpu/modular/modops.py``).
 
 Lazy-range contracts as in the reference:
 
@@ -173,3 +173,12 @@ def sum_mod64(t, m: BarrettModulus64, dim: int):
     for x in terms[1:]:
         acc = add64(acc, x, m.value)
     return acc
+
+
+def dot64(a, b, m: BarrettModulus64, dim: int = -1):
+    """Modular dot product ``sum_i a_i b_i mod q`` of canonical u64 words over
+    ``dim``, canonical (``m`` broadcasts against the output shape).  Each
+    product is reduced to ``[0, q)`` and :func:`sum_mod64` sums them: the
+    canonical word of the reference's lazy products and 128-bit sum."""
+    m_l = m.map(lambda x: x.unsqueeze(dim) if isinstance(x, torch.Tensor) and x.dim() else x)
+    return sum_mod64(mul64(a, b, m_l), m, dim)

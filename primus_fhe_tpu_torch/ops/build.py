@@ -24,8 +24,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("ntt32.cu", "cmux_fused.cu", "cmux_mxu.cu", "ntt_mxu8.cu", "ntt64.cu", "cmux_front.cu",
-           "ntt_stages.cu")
-HEADERS = ("modarith32.cuh", "modarith64.cuh", "mxu8.cuh")
+           "ntt_stages.cu", "ntt_mxu8_split.cu")
+HEADERS = ("modarith32.cuh", "modarith64.cuh", "mxu8.cuh", "mxu8_64.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,6 +56,10 @@ _SIGNATURES = {
     "pft_ntt32_stages_inverse": (_P,) * 4 + (_I,) * 3 + (_P,),
     "pft_ntt64_stages_forward": (_P,) * 4 + (_U64,) + (_I,) * 3 + (_P,),
     "pft_ntt64_stages_inverse": (_P,) * 4 + (_U64,) + (_I,) * 3 + (_P,),
+    "pft_ntt_mxu8_split_k1": (_P,) * 5 + (_I,) * 6 + (_P,),
+    "pft_ntt_mxu8_split_k2": (_P,) * 5 + (_I,) * 4 + (_P,),
+    "pft_ntt_mxu8_split_ki1": (_P,) * 6 + (_I,) * 6 + (_P,),
+    "pft_ntt_mxu8_split_ki2": (_P,) * 5 + (_I,) * 4 + (_P,),
 }
 
 

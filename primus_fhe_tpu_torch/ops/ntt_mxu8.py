@@ -25,6 +25,14 @@ The four-step's natural output order is the butterfly NTT's bit-reversed
 order, so each plain version is the canonical butterfly transform
 (:mod:`.ntt32` or :mod:`.ntt64`); kernel C's is viewed as ``(..., A, 128)``.
 
+Lazy words, one rule for every byte-radix entry point (rows 9, 12 and 13):
+at ``out_factor`` 1 an output is canonical and word-equal to the
+reference's; above 1 it is congruent mod q and below ``out_factor * q``
+(the reference may leave words up to that bound, these kernels give
+canonical ones); an intermediate (row 13's pass-1 halves,
+:mod:`.ntt_mxu8_split`) is congruent mod q and below the bound its
+docstring states.
+
 The u64 plan keeps the JAX plan's plane matrices with 8 operand planes
 instead of P: the kernels feed a u64 word's own 8 unsigned bytes (mma u8 x
 s8), so any u64 input is taken whole.  The JAX plan's bias, correction and
@@ -132,7 +140,9 @@ class Mxu8NttPlan64:
     into ``wi2``) have rows ``(c, out)`` and columns ``(l, in)`` over all 8
     operand planes; :meth:`jax_tables` cuts them to the JAX plan's
     ``w1f, w2f, w1mf, w2mf`` (P operand planes).  ``tw``/``twi`` are the
-    twiddles ``(A, B)`` with their Shoup quotients.
+    twiddles ``(A, B)`` with their Shoup quotients, and ``mats`` the four
+    pass matrices ``m1 (r0, k1)``, ``m2 (r1, k0)``, ``m2i (k0, r1)``, ``m1i
+    (k1, r0)`` (rows out, columns in) as u64 words.
     """
 
     def __init__(self, log_n: int, q: int, planes: int | None = None, root: int | None = None):
@@ -153,6 +163,8 @@ class Mxu8NttPlan64:
         self.wi1 = byte_matrix(fs["m2i"], q, P, 8)  # rows (c, k0), cols (l, r1)
         self.wi2 = byte_matrix(fs["m1i"], q, P, 8)  # rows (c, k1), cols (l, r0)
         self.tw, self.twi = _precon64(fs["tw"]), _precon64(fs["twi"])
+        # the four pass matrices (rows out, columns in) for the plain halves
+        self.mats = {name: _precon64(fs[name]) for name in ("m1", "m2", "m2i", "m1i")}
         quot = np.vectorize(lambda v: _quot64(int(v), self.q), otypes=[object])
         self.tw_p = _precon64(quot(fs["tw"]))
         self.twi_p = _precon64(quot(fs["twi"]))
@@ -178,6 +190,7 @@ class Mxu8Tables64:
         self.A, self.B = max(self.n // LANES, 1), LANES
         self._plans = None
         self._kernel_on: dict = {}
+        self._mats_on: dict = {}
 
     @property
     def plans(self) -> list:
@@ -203,6 +216,27 @@ class Mxu8Tables64:
                 raise ValueError("key values must be canonical (below q)")
             quot[i] = [_quot64(int(v), q) for v in vals[i]]
         return u64_tensor(np.stack([vals, quot], axis=1), key.device)
+
+    def pass_matrices(self, device) -> dict:
+        """The four pass matrices and both twiddle tables as Shoup factors
+        stacked over the moduli, on ``device``: ``m1, m2, m2i, m1i`` (count,
+        rows out, columns in) and ``tw, twi`` (count, A, B)."""
+        device = torch.device(device)
+        if device not in self._mats_on:
+            def factor(arrays):
+                quot = [np.vectorize(lambda v, q=q: _quot64(int(v), q), otypes=[object])(a)
+                        for a, q in zip(arrays, self.moduli)]
+                return ShoupFactor64(u64_tensor(np.stack(arrays), device),
+                                     u64_tensor(np.stack(quot).astype(np.uint64), device))
+
+            mats = {name: factor([p.mats[name] for p in self.plans])
+                    for name in ("m1", "m2", "m2i", "m1i")}
+            for name in ("tw", "twi"):
+                mats[name] = ShoupFactor64(
+                    u64_tensor(np.stack([getattr(p, name) for p in self.plans]), device),
+                    u64_tensor(np.stack([getattr(p, name + "_p") for p in self.plans]), device))
+            self._mats_on[device] = mats
+        return self._mats_on[device]
 
     def kernel_tables(self, device) -> dict:
         """``w1, w2, wi1, wi2`` (int8, kernel layout: columns ``(k, l)``,
@@ -309,7 +343,8 @@ def mxu8_forward64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
     on ``values[i]``; int64 bit patterns) -> canonical NTT values in
     bit-reversed order (the four-step's natural order), ``(count, ..., n)``.
     ``out_factor`` (1, 2 or 4) bounds the output as in the reference; the
-    output is canonical for every one.
+    output is canonical for every one (the lazy-word rule of the module
+    docstring).
 
     CPU tensors take the plain version, CUDA tensors the kernel (one launch
     for every modulus)."""

@@ -16,6 +16,11 @@ residue shard's counterpart of its slice of the stacked tables is a
 tables serve the other route).  Each shard builds its tables at its own
 tier; outputs are canonical on every tier, so the JAX's homogeneous
 8-plane stacks of mixed residue sets are not needed.
+
+Lazy words follow the rule of :mod:`.ntt_mxu8`: word-equal to the
+reference at ``out_factor`` 1; above it congruent mod q and below
+``out_factor * q`` (canonical here, where the JAX forward may leave words in
+``[0, 4q)`` at ``out_factor`` 4).
 """
 
 from __future__ import annotations

@@ -12,7 +12,8 @@ backends share one interface:
   programs this way: NCCL refuses two ranks on one device.
 - :class:`ProcessGroupMesh` holds one shard per rank of ``torch.distributed``
   (gloo on the CPU, NCCL on cards), with one subgroup per axis line; the
-  XOR-partner swap is a ``batch_isend_irecv``.
+  XOR-partner swap is a ``batch_isend_irecv`` and the tiled ``all_to_all`` an
+  ``all_to_all_single``.
 
 Sharded code is written once, as bulk-synchronous steps over
 ``mesh.shards`` (the device indices this process holds) and lists of
@@ -20,6 +21,10 @@ tensors, one per held shard: a list of one under a process group, of
 ``residue * batch`` on a local mesh.  Each collective takes such a list and
 names one axis; it acts within every line of shards that differ only on that
 axis, the members ordered by their index on it (the axis index).
+``all_to_all(xs, axis, split_dim, concat_dim)`` is ``jax.lax.all_to_all(...,
+tiled=True)``: each member splits ``split_dim`` into one chunk per member,
+sends chunk ``j`` to member ``j``, and concatenates what it receives along
+``concat_dim`` in sender order.
 
 No collective takes unsigned words: neither NCCL nor gloo sums uint32, so the
 callers carry u32 lanes in int64 (twice the JAX wire bytes).
@@ -120,6 +125,14 @@ class LocalMesh(_Mesh):
                 out[m] = got[i] if i in got else torch.zeros_like(ts[i])
         return out
 
+    def all_to_all(self, xs, axis: str, split_dim: int, concat_dim: int):
+        out = [None] * self.size
+        for members, ts in self._lines(xs, axis):
+            chunks = [t.chunk(len(members), dim=split_dim) for t in ts]
+            for j, m in enumerate(members):
+                out[m] = torch.cat([c[j] for c in chunks], dim=concat_dim)
+        return out
+
     def gather_shards(self, xs):
         return list(xs)
 
@@ -199,6 +212,15 @@ class ProcessGroupMesh(_Mesh):
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return [out if out is not None else torch.zeros_like(x)]
+
+    def all_to_all(self, xs, axis: str, split_dim: int, concat_dim: int):
+        import torch.distributed as dist
+
+        g = self.axis_size(axis)
+        x = self._one(xs).movedim(split_dim, 0).contiguous()  # chunk j: rows j*c .. (j+1)*c
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self._groups[axis])
+        return [torch.cat([c.movedim(0, split_dim) for c in out.chunk(g, dim=0)], dim=concat_dim)]
 
     def gather_shards(self, xs):
         """Every device's shard (device order), gathered over all ranks."""

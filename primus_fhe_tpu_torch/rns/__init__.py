@@ -1,5 +1,6 @@
-"""RNS bases with CRT precomputations."""
+"""RNS bases with CRT precomputations and base converters."""
 
-from .base import RNSBase64
+from .base import RNSBase32, RNSBase64
+from .converter import BaseConverter32, BaseConverter64
 
-__all__ = ["RNSBase64"]
+__all__ = ["BaseConverter32", "BaseConverter64", "RNSBase32", "RNSBase64"]

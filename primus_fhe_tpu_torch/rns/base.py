@@ -1,5 +1,6 @@
-"""RNS basis over u64 moduli with CRT precomputations (port of
-``_RNSBaseCommon`` and ``RNSBase64`` in ``primus_fhe_tpu/rns/base.py``).
+"""RNS bases over u32 and u64 moduli with CRT precomputations (port of
+``_RNSBaseCommon``, ``RNSBase32`` and ``RNSBase64`` in
+``primus_fhe_tpu/rns/base.py``).
 
 Residues live modulus-major: a CRT polynomial is a ``(count, ..., N)`` int64
 tensor of u64 words.  Big integers are ``(..., L)`` u32 limb tensors
@@ -18,8 +19,9 @@ from math import gcd
 import numpy as np
 import torch
 
-from ..modular.factor import factor_mul64, shoup64
-from ..modular.modulus import barrett64
+from ..modular.factor import factor_mul32, factor_mul64, shoup32, shoup64
+from ..modular.modops import dot32
+from ..modular.modulus import barrett32, barrett64
 from ..numeric.bigint import big_cond_sub, big_from_int, big_mod_u64_dot, big_mul_u32_add
 from ..numeric.limb import MASK32, u64_tensor
 
@@ -58,6 +60,69 @@ class _RNSBaseCommon:
     def _pow_table_ints(self):
         """``2^(32 i) mod q_k``, shape ``(k, L)``."""
         return [[pow(2, 32 * i, q) for i in range(self.big_len)] for q in self.moduli_ints]
+
+
+class RNSBase32(_RNSBaseCommon):
+    """RNS basis over moduli ``q < 2^31`` (u32 residues in int64 tensors)."""
+
+    def __init__(self, moduli):
+        super().__init__(moduli)
+        if any(q >= 1 << 31 for q in self.moduli_ints):
+            raise ValueError("RNSBase32 requires q < 2^31")
+        self.modulus = barrett32(self.moduli_ints)  # (k,)
+        self.inv_punctured = shoup32(self.inv_punctured_ints, self.moduli_ints)  # (k,)
+        self.pow_table = torch.tensor(self._pow_table_ints(), dtype=torch.int64)  # (k, L)
+        self._on: dict = {}
+
+    def tables(self, device) -> dict:
+        """The device copies: ``modulus``, ``inv_punctured``, ``pow_table``
+        and the limb tables as int64 tensors."""
+        device = torch.device(device)
+        if device not in self._on:
+            self._on[device] = dict(
+                modulus=self.modulus.map(lambda x: x.to(device)),
+                inv_punctured=self.inv_punctured.map(lambda x: x.to(device)),
+                pow_table=self.pow_table.to(device),
+                punctured_limbs=torch.from_numpy(self.punctured_limbs).to(device),
+                q_limbs_ext=torch.from_numpy(self.q_limbs_ext).to(device),
+            )
+        return self._on[device]
+
+    def modulus_bc(self, extra: int, device):
+        """The Barrett record broadcast to ``(count, 1, ..., 1)``."""
+        shape = (self.count,) + (1,) * extra
+        return self.tables(device)["modulus"].map(lambda x: x.reshape(shape))
+
+    def decompose(self, values: torch.Tensor) -> torch.Tensor:
+        """Big integers ``(..., L)`` -> residues ``(count, ...)``: the dot of
+        the limbs with ``2^(32 i) mod q``."""
+        extra = values.dim() - 1
+        pow_t = self.tables(values.device)["pow_table"].reshape(
+            (self.count,) + (1,) * extra + (self.big_len,))
+        return dot32(values[None], pow_t, self.modulus_bc(extra, values.device))
+
+    def wrapping_decompose_small(self, values: torch.Tensor, small_mod: int) -> torch.Tensor:
+        """Centred lift of small values ``(...)`` into ``(count, ...)`` (see
+        :meth:`RNSBase64.wrapping_decompose_small`)."""
+        small_mod = int(small_mod)
+        vb = values[None].expand((self.count,) + tuple(values.shape))
+        if small_mod == 2:
+            return vb
+        q = self.modulus_bc(values.dim(), values.device).value
+        return torch.where(vb < (small_mod + 1) // 2, vb, q - small_mod + vb)
+
+    def compose(self, residues: torch.Tensor) -> torch.Tensor:
+        """Residues ``(count, ...)`` -> canonical big integers ``(..., L)``."""
+        t = self.tables(residues.device)
+        value = torch.zeros(residues.shape[1:] + (self.big_len + 1,), dtype=torch.int64,
+                            device=residues.device)
+        shape = (self.count,) + (1,) * (residues.dim() - 1)
+        prods = factor_mul32(residues, t["inv_punctured"].map(lambda x: x.reshape(shape)),
+                             t["modulus"].value.reshape(shape))
+        for i in range(self.count):
+            value, _ = big_mul_u32_add(t["punctured_limbs"][i], prods[i], value)
+            value = big_cond_sub(value, t["q_limbs_ext"])
+        return value[..., : self.big_len]
 
 
 class RNSBase64(_RNSBaseCommon):

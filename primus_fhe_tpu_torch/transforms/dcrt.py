@@ -1,9 +1,18 @@
-"""DCRT table: independent u64 NTTs over a stacked residue axis (port of
+"""DCRT table: independent NTTs over a stacked residue axis (port of
+``DcrtPlan32``, ``build_dcrt_plan32``, ``dcrt_forward32``, ``dcrt_inverse32``,
 ``DcrtPlan64``, ``build_dcrt_plan64``, ``dcrt_forward64``, ``dcrt_inverse64``,
 ``dcrt_monomial64`` and the routed ``dcrt_forward64_fast`` /
 ``dcrt_inverse64_fast`` of ``primus_fhe_tpu/transforms/dcrt.py``).
 
-Values are ``(count, ..., n)`` int64 tensors of u64 words, modulus ``i`` on
+The 32-bit half: ``(count, ..., n)`` int64 tensors of u32 residues, prime
+``i`` on ``values[i]``, through kernels 1-2 (:mod:`..ops.ntt32`, up to four
+primes a launch) on a CUDA tensor and their plain butterflies on the CPU;
+lazy outputs (``out_factor`` 4 forward, 2 inverse) are the butterfly's words
+on both.
+
+The 64-bit half:
+
+values are ``(count, ..., n)`` int64 tensors of u64 words, modulus ``i`` on
 ``values[i]``.  ``dcrt_forward64``/``dcrt_inverse64`` are the plain
 butterflies (the reference's XLA-staged path); the ``_fast`` transforms
 route every modulus through one kernel launch:
@@ -25,10 +34,54 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import ntt32
 from ..ops.ntt64 import NttTables64, ntt64_forward, ntt64_forward_plain, ntt64_inverse
 from ..ops.ntt64 import ntt64_inverse_plain
 
 ROUTES = ("auto", "butterfly", "mxu8")
+
+
+class DcrtPlan32:
+    """Stacked u32 NTT plans of ``moduli`` (each ``q < 2^31``, ``q = 1 mod
+    2n``): the tables of kernels 1-2, in groups of at most
+    ``ntt32.MAX_PRIMES`` primes (one launch a group)."""
+
+    def __init__(self, log_n: int, moduli):
+        self.log_n = log_n
+        self.n = 1 << log_n
+        self.moduli = tuple(int(q) for q in moduli)
+        step = ntt32.MAX_PRIMES
+        self.groups = [ntt32.NttTables32(log_n, self.moduli[i:i + step])
+                       for i in range(0, len(self.moduli), step)]
+
+    @property
+    def count(self) -> int:
+        return len(self.moduli)
+
+
+def build_dcrt_plan32(log_n: int, moduli) -> DcrtPlan32:
+    return DcrtPlan32(log_n, moduli)
+
+
+def _per_group(plan: DcrtPlan32, fn, values, out_factor):
+    if len(plan.groups) == 1:
+        return fn(plan.groups[0], values, out_factor)
+    step = ntt32.MAX_PRIMES
+    return torch.cat([fn(t, values[i * step:(i + 1) * step], out_factor)
+                      for i, t in enumerate(plan.groups)])
+
+
+def dcrt_forward32(plan: DcrtPlan32, values: torch.Tensor, out_factor: int = 1):
+    """Forward NTT over all residues ``(count, ..., n)`` (normal order, words
+    in ``[0, 4q)``) -> bit-reversed, canonical (``out_factor`` 1) or in
+    ``[0, 4q)`` (4)."""
+    return _per_group(plan, ntt32.forward32, values, out_factor)
+
+
+def dcrt_inverse32(plan: DcrtPlan32, values: torch.Tensor, out_factor: int = 1):
+    """Inverse NTT over all residues (bit-reversed input in ``[0, 2q)``) ->
+    normal order, canonical (``out_factor`` 1) or in ``[0, 2q)`` (2)."""
+    return _per_group(plan, ntt32.inverse32, values, out_factor)
 
 
 class DcrtPlan64:

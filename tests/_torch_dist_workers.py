@@ -113,7 +113,35 @@ def _dcrt(shape, inputs_path):
     return out
 
 
-TASKS = {"collectives": _collectives, "dcrt": _dcrt}
+def all_to_all_cases(mesh) -> dict:
+    """The tiled ``all_to_all`` on both axes, both dims: ``{case: [tensor per
+    held shard]}``."""
+    xs = [shard_input(s) for s in mesh.shards]
+    return {f"all_to_all{sd}{cd}/{axis}": mesh.all_to_all(xs, axis, sd, cd)
+            for axis in ("residue", "batch") for sd, cd in ((0, 1), (1, 0), (0, 0))}
+
+
+def _coeff_mxu(shape, inputs_path):
+    """The tiled ``all_to_all`` cases and the coefficient-sharded byte-radix
+    transforms on a ``shape`` process-group mesh, on the inputs saved at
+    ``inputs_path``; every output assembled on every rank."""
+    from primus_fhe_tpu_torch.parallel import coeff_sharded_mxu as csm
+    from primus_fhe_tpu_torch.parallel.mesh import ProcessGroupMesh, shard, unshard
+
+    inp = torch.load(inputs_path)
+    mesh = ProcessGroupMesh(*shape, "cpu")
+    out = {k: v[0] for k, v in all_to_all_cases(mesh).items()}
+    coeff, ntt = (None, "residue", None), ("residue", None, None)
+    log_n, q = inp["log_n"], inp["q"]
+    f = csm.sharded_mxu_forward64(mesh, "residue", log_n, q, shard(mesh, inp["coeff"], coeff))
+    out["forward"] = unshard(mesh, f, ntt)
+    out["inverse"] = unshard(mesh, csm.sharded_mxu_inverse64(mesh, "residue", log_n, q, f), coeff)
+    out["inverse_mul"] = unshard(
+        mesh, csm.sharded_mxu_inverse64(mesh, "residue", log_n, q, f, mul_tab=inp["mul_tab"]), coeff)
+    return out
+
+
+TASKS = {"collectives": _collectives, "dcrt": _dcrt, "coeff_mxu": _coeff_mxu}
 
 
 def _rank(rdv: str, world: int, rank: int, task: str, args, out_path: str) -> None:

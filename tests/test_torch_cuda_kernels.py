@@ -421,3 +421,105 @@ def test_local_mesh_rotation_and_coeff_sharded_match_single_card(dev):
     assert torch.equal(unshard(cmesh, f, (None, "residue")), forward64(build_plan64(12, q, dev), x))
     back = coeff_sharded_inverse64(cmesh, "residue", 12, q, f)
     assert torch.equal(unshard(cmesh, back, (None, "residue")), x)
+
+
+def _lazy_equal(got, plain, q):
+    """The lazy-word rule: ``got`` below 2q and equal to ``plain`` mod q."""
+    from primus_fhe_tpu_torch.modular.modops import reduce_once64
+
+    assert bool((got >= 0).all() and (got < 2 * q).all())
+    assert torch.equal(reduce_once64(got, q), plain)
+
+
+@pytest.mark.parametrize("log_n,q", [(8, Q50[0]), (12, Q50[1]), (8, Q60), (12, Q60)])
+def test_split_kernels_match_plain(dev, log_n, q):
+    """Row 13's K1, K2, Ki1 (with and without the key) and Ki2 on shard
+    ``d - 1`` of D = 1, 2, 4 (where D divides A = n / 128), batch 3 and 64:
+    K2 and Ki2 bit-equal to their plain versions, K1 and Ki1 by the lazy
+    rule; each launch counted once."""
+    from primus_fhe_tpu_torch.ops import ntt_mxu8_split as split
+    from primus_fhe_tpu_torch.parallel.coeff_sharded_mxu import get_sharded_plan
+
+    plan = get_sharded_plan(log_n, q)
+    tables, A, B = plan.tables, plan.A, plan.B
+    gen = torch.Generator(device=dev).manual_seed(log_n + q % 97)
+    mt = tables.mul_table(_below(gen, [q], (1 << log_n,), 1, dev)[0][None])
+    for d in (1, 2, 4):
+        if A % d:
+            continue
+        k0_off, r0_off = plan.offsets(d, d - 1)
+        for batch in (3, 64):
+            lanes = _u64_words(gen, (1, A, B // d * batch), dev)
+            rows = _u64_words(gen, (1, A // d * batch, B), dev)
+            key = mt.reshape(1, 2, A, B)[:, :, r0_off:r0_off + A // d].reshape(1, 2, -1)
+            key = key.contiguous()
+            for fn in (split.split_k1, split.split_k2, split.split_ki1, split.split_ki2):
+                fn.launches = 0
+            _lazy_equal(split.split_k1(tables, lanes, batch, k0_off),
+                        split.split_k1_plain(tables, lanes, batch, k0_off), q)
+            assert torch.equal(split.split_k2(tables, rows), split.split_k2_plain(tables, rows))
+            for k in (None, key):
+                _lazy_equal(split.split_ki1(tables, rows, batch, r0_off, k),
+                            split.split_ki1_plain(tables, rows, batch, r0_off, k), q)
+            assert torch.equal(split.split_ki2(tables, lanes), split.split_ki2_plain(tables, lanes))
+            assert (split.split_k1.launches, split.split_k2.launches, split.split_ki1.launches,
+                    split.split_ki2.launches) == (1, 1, 2, 1)
+
+
+@pytest.mark.parametrize("log_n,q,d", [(10, Q60, 8), (12, Q50[0], 4)])
+def test_coeff_sharded_mxu_matches_fused(dev, log_n, q, d):
+    """The sharded forward and keyed inverse on a LocalMesh equal
+    ``mxu8_forward64`` and kernel D; the plain inverse round-trips."""
+    from primus_fhe_tpu_torch.parallel import coeff_sharded_mxu as csm
+    from primus_fhe_tpu_torch.parallel import LocalMesh, shard, unshard
+
+    plan = csm.get_sharded_plan(log_n, q)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x = _below(gen, [q], (16, 1 << log_n), 1, dev)[0]
+    mt = plan.tables.mul_table(_below(gen, [q], (1 << log_n,), 1, dev)[0][None])
+    mesh = LocalMesh(d, 1, dev)
+    coeff, ntt = (None, "residue", None), ("residue", None, None)
+    f = csm.sharded_mxu_forward64(mesh, "residue", log_n, q,
+                                  shard(mesh, csm.to_coeff_layout(x, plan.A, plan.B), coeff))
+    want = ntt_mxu8.mxu8_forward64(plan.tables, x[None])[0]
+    assert torch.equal(csm.ntt_layout_to_flat(unshard(mesh, f, ntt)), want)
+    back = csm.sharded_mxu_inverse64(mesh, "residue", log_n, q, f)
+    assert torch.equal(csm.from_coeff_layout(unshard(mesh, back, coeff)), x)
+    prod = csm.sharded_mxu_inverse64(mesh, "residue", log_n, q, f, mul_tab=mt)
+    assert torch.equal(csm.from_coeff_layout(unshard(mesh, prod, coeff)),
+                       ntt_mxu8.mxu8_inverse64_mul(plan.tables, want[None], mt)[0])
+
+
+def test_dcrt32_sharded_product_and_torus64(dev):
+    """The 32-bit DCRT transforms (five primes: two launches), the sharded
+    external product on a (2, 2) LocalMesh and the 64-bit torus product on
+    the card equal their CPU runs."""
+    from primus_fhe_tpu_torch.decompose import ApproxSignedBasis64
+    from primus_fhe_tpu_torch.lattice import tfhe64
+    from primus_fhe_tpu_torch.parallel import LocalMesh, sharded, unshard
+    from primus_fhe_tpu_torch.transforms import dcrt
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    plan = dcrt.build_dcrt_plan32(10, PRIMES3 + [1073453057, 1073442817])
+    x = _residues(gen, plan.moduli, (3, 1 << 10), 4, dev)
+    for of in (1, 4):
+        assert torch.equal(dcrt.dcrt_forward32(plan, x, of).cpu(),
+                           dcrt.dcrt_forward32(plan, x.cpu(), of))
+    y = _residues(gen, plan.moduli, (3, 1 << 10), 2, dev)
+    assert torch.equal(dcrt.dcrt_inverse32(plan, y).cpu(), dcrt.dcrt_inverse32(plan, y.cpu()))
+    conv = tfhe.make_convolver(10, 3, 1, 7)
+    basis = ApproxSignedBasis32(None, 7, reverse_length=3)
+    glwe = torch.randint(0, 1 << 32, (4, 2, 1 << 10), generator=gen, device=dev)
+    key = _residues(gen, conv.primes, (2, 3, 2, 1 << 10), 1, dev)
+    mesh = LocalMesh(2, 2, dev)
+    g, k = sharded.shard_external_product_inputs(mesh, glwe, key)
+    got = unshard(mesh, sharded.sharded_external_product(conv, basis, g, k, mesh),
+                  sharded.glwe_spec(3))
+    assert torch.equal(got, tfhe.external_product(conv, basis, glwe, key))
+    b64 = ApproxSignedBasis64(None, 16, reverse_length=4)
+    c64 = tfhe64.make_convolver64(10, 4, 1, 16)
+    ggsw = _u64_words(gen, (2, 4, 2, 1 << 10), dev)
+    glwe64 = _u64_words(gen, (3, 2, 1 << 10), dev)
+    out = tfhe64.external_product64(c64, b64, glwe64, tfhe64.ggsw_to_ntt64(c64, ggsw))
+    cpu = tfhe64.external_product64(c64, b64, glwe64.cpu(), tfhe64.ggsw_to_ntt64(c64, ggsw.cpu()))
+    assert torch.equal(out.cpu(), cpu)

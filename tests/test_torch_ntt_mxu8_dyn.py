@@ -8,9 +8,11 @@ The JAX ``mxu8_dyn_forward64``/``mxu8_dyn_inverse64`` (interpret mode, as
 plan (``stack_dyn_plans``; on the CPU the plain ``mxu8_forward64_plain``/
 ``mxu8_inverse64_plain``):
 two 50-bit moduli (7 planes, each its own shard) at ``out_factor`` 1 and 4,
-and a 60-bit modulus (8 planes), log_n 8.  The port's outputs are
-canonical at every ``out_factor``; the JAX forward's may be lazy at
-``out_factor`` 4, so they are compared mod q.
+and a 60-bit modulus (8 planes), log_n 8.  The lazy-word rule of
+``ops/ntt_mxu8.py``: at ``out_factor`` 1 word-equal; above it the port's
+words are congruent to the JAX's mod q and below ``out_factor * q`` (the
+JAX forward may leave words in ``[0, 4q)`` at ``out_factor`` 4, the port's
+are canonical).
 
 Tolerance: zero (exact integers).
 """
@@ -58,6 +60,10 @@ def test_dyn_transforms_match_jax(moduli, index, out_factor):
                                   to_u64_pair(x), out_factor))
     got = ntt_mxu8.mxu8_forward64(shard.mxu, u64_tensor(x)[None], out_factor)[0]
     np.testing.assert_array_equal(u64_numpy(got), want % np.uint64(q))
+    assert (u64_numpy(got).astype(object) < out_factor * q).all()
+    assert (want.astype(object) < out_factor * q).all()
+    if out_factor == 1:
+        np.testing.assert_array_equal(u64_numpy(got), want)
     np.testing.assert_array_equal(
         u64_numpy(got), u64_numpy(ntt_mxu8.mxu8_forward64_plain(shard.mxu, u64_tensor(x)[None])[0]))
 

@@ -59,6 +59,11 @@ MODULES = [
     "primus_fhe_tpu_torch.parallel.overlap",
     "primus_fhe_tpu_torch.parallel.sharded_rotation",
     "primus_fhe_tpu_torch.parallel.entry",
+    "primus_fhe_tpu_torch.ops.ntt_mxu8_split",
+    "primus_fhe_tpu_torch.parallel.coeff_sharded_mxu",
+    "primus_fhe_tpu_torch.parallel.sharded",
+    "primus_fhe_tpu_torch.rns.converter",
+    "primus_fhe_tpu_torch.lattice.tfhe64",
     "_torch_dist_workers",  # tests/: the gloo ranks' module
 ]
 
