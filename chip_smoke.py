@@ -16,6 +16,9 @@ non-zero):
    CUDA inputs, at the main paths' shapes, batch 1 and 64 (bit-equal), with
    both times from CUDA events and the kernel's device time from CUDA
    events behind a sleep kernel; kernels 1-2 also at the NTRU_128 shape;
+   kernels A and B also with their int8 MACs a second on the device and
+   their share of the bound (their batch-64 launches run partial and whole
+   clusters of ciphertexts);
 3. ``make_context(BOOLEAN_128)`` (NTT key kind) on the card from a seeded
    generator;
 4. NAND/AND/OR truth tables, NOT, and NAND(NAND(a,b), NAND(a,b)) == AND(a,b),
@@ -142,12 +145,15 @@ def ntt_muls(rows: int, n: int, u64: bool = False) -> int:
     return rows * (n // 2) * (n.bit_length() - 1) * (10 if u64 else 3)
 
 
-def four_step_macs(rows: int, n: int, out_planes: int, in_bytes: int) -> int:
+def four_step_macs(rows: int, n: int, out_planes: int, in_bytes: int,
+                   in_bytes2: int | None = None) -> int:
     """int8 MACs of ``rows`` byte-radix four-step transforms (``A = n/128``
-    by ``B = 128``): pass 1 ``B x (P A) x (V A)``, pass 2 ``A x (P B) x (V
-    B)`` a row, with P output planes and V operand bytes a word."""
+    by ``B = 128``): pass 1 ``B x (P A) x (V A)``, pass 2 ``A x (P B) x (V2
+    B)`` a row, with P output planes, V operand bytes a word in pass 1 and
+    V2 (default V) in pass 2.  Kernels A and B feed pass 1 gadget digits
+    (V = 1 or 2 bytes) and pass 2 its u32 outputs (V2 = 4)."""
     a, b = n // 128, 128
-    return rows * out_planes * in_bytes * n * (a + b)
+    return rows * out_planes * n * (in_bytes * a + (in_bytes2 or in_bytes) * b)
 
 
 def log(msg: str) -> None:
@@ -230,12 +236,13 @@ def wall_ms(torch, fn, reps: int) -> list[float]:
     return out
 
 
-def compare_kernel(torch, table, name, bsz, kern, kern32, plain, bnd):
+def compare_kernel(torch, table, name, bsz, kern, kern32, plain, bnd, macs=None):
     """Holds ``kern`` (int64 words) and ``kern32`` (int32 storage) against
     ``plain`` bit for bit, then times the int32 wrapper and the plain
     version (CUDA events) and the kernel's device time
-    (:func:`kernel_device_ms`); ``bnd``
-    is the work's :func:`bound`."""
+    (:func:`kernel_device_ms`); ``bnd`` is the work's :func:`bound`; with
+    the work's int8 ``macs``, also the achieved MACs/s and the share of the
+    bound (bound ms / device ms)."""
     got, want = kern(), plain()
     got32 = kern32()
     torch.cuda.synchronize()
@@ -250,6 +257,9 @@ def compare_kernel(torch, table, name, bsz, kern, kern32, plain, bnd):
     log(f"{name:22s} batch {bsz:3d} shape {tuple(got.shape)}: bit-equal; "
         f"wrapper {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
         f"{bnd[0]:.4f} ms ({bnd[1]})")
+    if macs is not None:
+        log(f"{name:22s} batch {bsz:3d}: {macs} int8 MACs, {macs / (dev_ms * 1e-3):.4g} MACs/s "
+            f"on the device; share of the bound {bnd[0] / dev_ms:.4f}")
     table.setdefault(name, {})[bsz] = (err, ms, plain_ms, dev_ms, bnd)
 
 
@@ -1348,9 +1358,9 @@ def main() -> None:
                          muls32=ntt_muls(kp * rows * level, n))
         stage2_b = bound(4 * (kp * rows * level * n + kp * k1 * level * k1 * n + 2 * rows * n),
                          muls32=kp * rows * k1 * level * n + ntt_muls(kp * rows, n))
-        mxu_a_b = bound(4 * (2 * rows * n + 2 * kp * k1 * level * k1 * n),
-                        kp * bsz * (four_step_macs(k1 * level, n, 4, dp)
-                                     + four_step_macs(k1, n, 4, 4)),
+        mxu_a_macs = kp * bsz * (four_step_macs(k1 * level, n, 4, dp, 4)
+                                 + four_step_macs(k1, n, 4, 4))
+        mxu_a_b = bound(4 * (2 * rows * n + 2 * kp * k1 * level * k1 * n), mxu_a_macs,
                         3 * kp * bsz * k1 * level * k1 * n)
         compare_kernel(torch, table, "ntt32_forward", bsz,
                        lambda: ntt32.forward32(conv.ntt, x_fwd),
@@ -1373,7 +1383,7 @@ def main() -> None:
                        lambda: cmux_mxu.mxu_cmux_step(plan, basis, conv, acc32, degrees, kv32,
                                                       kpre32),
                        lambda: cmux_mxu.mxu_cmux_step_plain(conv, basis, acc, degrees, kv),
-                       mxu_a_b)
+                       mxu_a_b, mxu_a_macs)
         compare_kernel(torch, table, "mxu8_forward32", bsz,
                        lambda: ntt_mxu8.mxu8_forward32(plan, c_in),
                        lambda: ntt_mxu8.mxu8_forward32(plan, c_in32),
@@ -1387,6 +1397,7 @@ def main() -> None:
         nkv, nkpre = nkv[0], nkpre[0]
         n_acc32, nkv32, nkpre32 = i32(n_acc, nkv, nkpre)
         ndp = cmux_mxu.digit_planes(nctx.basis)
+        ntru_macs = bsz * (four_step_macs(pn.level, nn, 4, ndp, 4) + four_step_macs(1, nn, 4, 4))
         compare_kernel(torch, table, "ntru_cmux_step", bsz,
                        lambda: ntru_cmux_mxu.ntru_cmux_step(nplan, nctx.basis, n_acc, n_deg, nkv,
                                                             nkpre),
@@ -1394,10 +1405,8 @@ def main() -> None:
                                                             nkv32, nkpre32),
                        lambda: ntru_cmux_mxu.ntru_cmux_step_plain(nplan, nctx.basis, n_acc, n_deg,
                                                                   nkv),
-                       bound(4 * (2 * bsz * nn + 2 * pn.level * nn),
-                             bsz * (four_step_macs(pn.level, nn, 4, ndp)
-                                    + four_step_macs(1, nn, 4, 4)),
-                             3 * bsz * pn.level * nn))
+                       bound(4 * (2 * bsz * nn + 2 * pn.level * nn), ntru_macs,
+                             3 * bsz * pn.level * nn), ntru_macs)
         nf = residues(bsz * pn.level, 4, qn_t, 1, nn)
         ni = residues(bsz, 2, qn_t, 1, nn)
         nf32, ni32 = i32(nf, ni)
@@ -1411,6 +1420,24 @@ def main() -> None:
                        lambda: ntt32.inverse32(ntru_tables, ni32),
                        lambda: ntt32.inverse32_plain(ntru_tables, ni),
                        bound(8 * ni.numel(), muls32=ntt_muls(ni.numel() // nn, nn)))
+
+    # a partial last cluster (its spare blocks store nothing): A at batch 5,
+    # B at batch 9, against their plain versions
+    for bsz in (5, 9):
+        acc = words(bsz, k1, n)
+        degrees = torch.randint(0, 2 * n, (bsz,), generator=g, device=dev, dtype=torch.int32)
+        n_acc = torch.randint(0, qn, (bsz, nn), generator=g, device=dev)
+        n_deg = torch.randint(0, 2 * nn, (bsz,), generator=g, device=dev, dtype=torch.int32)
+        got = cmux_mxu.mxu_cmux_step(plan, basis, conv, acc, degrees, kv, kpre)
+        n_got = ntru_cmux_mxu.ntru_cmux_step(nplan, nctx.basis, n_acc, n_deg, nkv, nkpre)
+        if not (torch.equal(got, cmux_mxu.mxu_cmux_step_plain(conv, basis, acc, degrees, kv))
+                and torch.equal(n_got, ntru_cmux_mxu.ntru_cmux_step_plain(
+                    nplan, nctx.basis, n_acc, n_deg, nkv))):
+            raise AssertionError(f"kernels A/B at batch {bsz} (a partial cluster) != plain")
+        c_a = cmux_mxu.launch_clusters(False, kp, k1, p.log_n, dp, level, bsz)
+        c_b = cmux_mxu.launch_clusters(True, 1, 1, pn.log_n, ndp, pn.level, bsz)
+        log(f"mxu_cmux_step / ntru_cmux_step batch {bsz}: bit-equal, {c_a} / {c_b} ciphertexts a "
+            f"cluster ({bsz % c_a or c_a} / {bsz % c_b or c_b} in the last)")
 
     counted = (ntt32.forward32, ntt32.inverse32, cmux_fused.cmux_stage1, cmux_fused.cmux_stage2,
                cmux_mxu.mxu_cmux_step, ntru_cmux_mxu.ntru_cmux_step, ntt_mxu8.mxu8_forward32,

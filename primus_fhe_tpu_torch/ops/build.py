@@ -41,8 +41,9 @@ _SIGNATURES = {
     "pft_ntt32_inverse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pft_cmux_stage1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pft_cmux_stage2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "pft_cmux_mxu": (_P,) * 13 + (_I, _I, _I, _I, _I, _P),
-    "pft_ntru_cmux_mxu": (_P,) * 12 + (_I, _I, _I, _P),
+    "pft_cmux_mxu": (_P,) * 13 + (_I,) * 6 + (_P,),
+    "pft_ntru_cmux_mxu": (_P,) * 12 + (_I,) * 4 + (_P,),
+    "pft_cmux_mxu_clusters": (_I,) * 7 + (_P,),
     "pft_ntt_mxu8_forward": (_P,) * 6 + (_I, _I, _I, _P),
     "pft_ntt64_forward": (_P,) * 5 + (_I,) * 4 + (_P,),
     "pft_ntt64_inverse": (_P,) * 5 + (_I,) * 5 + (_P,),

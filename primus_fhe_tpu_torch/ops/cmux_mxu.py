@@ -23,16 +23,23 @@ operand bytes).
 
 The kernel
 ----------
-One thread block per (ciphertext, prime), the kp blocks of a ciphertext in
-one thread-block cluster that shares the CRT terms through distributed
-shared memory; every step of ``acc + (acc*X^d - acc) ⊡ BSK_i`` runs inside
-it (rotate-diff, digits, 4 int8 passes, Shoup MAC, CRT, wrapping add).  So
-batch 1 uses kp of 132 SMs, and the forward digits are computed once per
-prime (no recomputation per output component).  Widening batch 1 is later
+One thread block per (ciphertext, prime); every step of ``acc + (acc*X^d -
+acc) ⊡ BSK_i`` runs inside it (rotate-diff, digits, 4 int8 passes, Shoup
+MAC, CRT, wrapping add), the two large passes on ``wgmma`` from shared
+memory.  A producer warp streams the plane matrices and the key rows into a
+ring of 16 KB stages by bulk copy, in the order of :func:`wgmma_layout`'s
+tables (``w2g``, ``wi1g``).  Blocks run in clusters of ``kp * C``: the kp
+primes of a ciphertext share the CRT terms through distributed shared
+memory, and the C blocks of a prime receive each stage from one multicast
+copy; :func:`launch_clusters` picks C from the batch and the card's cluster
+occupancy.  So batch 1 uses kp of 132 SMs.  Widening batch 1 is later
 work.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -103,6 +110,50 @@ def kernel_layout(w: np.ndarray, rows: int, planes: int, used: int,
     return out.reshape(-1, out.shape[-1])
 
 
+def wgmma_layout(w: np.ndarray) -> np.ndarray:
+    """A ``(4 * 128, 512)`` kernel-layout plane matrix (rows ``(c, r1)``,
+    columns ``(k0, l)``) in kernels A/B's stream order for ``wgmma``.
+
+    Row ``(c, r1)`` with ``c = 2s + h`` and ``r1 = 32u + 8w + g`` (``u = 2
+    * round + wg``) becomes row ``16w + 8h + g`` of M tile ``2u + s``, so a
+    thread of warpgroup ``wg`` gets the four planes of output ``r1`` in its
+    accumulators.  The flat result is 16 stages of 16 KB, ``[round][k-stage
+    (8, 64 bytes of K each)]``, each ``[wg][s][k-step (2)][8 row groups][2
+    halves][8 rows][16 bytes]``: 2 KB core-matrix tiles of 64 rows by 32
+    bytes (``csrc/mxu8.cuh``)."""
+    x = w.reshape(2, 2, 2, 2, 4, 8, 8, 2, 2, 16)  # s h round wg w g ks kk half byte
+    return np.ascontiguousarray(x.transpose(2, 6, 3, 0, 7, 4, 1, 8, 5, 9)).reshape(-1)
+
+
+def cluster_ciphertexts(bsz: int, kp: int, fits) -> int:
+    """C, the ciphertexts a cluster of kernels A/B takes: ``kp * C`` blocks,
+    at most 8 (the portable cluster size), and no more than the batch.  Of
+    those, the largest C whose grid runs in the fewest waves, ``fits(C)``
+    being how many clusters of ``kp * C`` blocks the card holds at once.  A
+    larger C shares each plane-tile copy among more blocks; a wave more
+    costs a whole step."""
+    best = None
+    for c in range(max(1, min(8 // kp, bsz)), 0, -1):
+        waves = -(-(-(-bsz // c)) // max(fits(c), 1))
+        if best is None or waves < best[0]:
+            best = (waves, c)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def launch_clusters(ntru: bool, kp: int, k1: int, log_n: int, dp: int, level: int,
+                    bsz: int) -> int:
+    """:func:`cluster_ciphertexts` for kernel A (or B) at this shape and
+    batch, ``fits`` from the card's occupancy query; cached per process, as
+    the blind rotations launch the same shape hundreds of times."""
+    def fits(c: int) -> int:
+        out = ctypes.c_int(0)
+        build.check(build.library().pft_cmux_mxu_clusters(
+            int(ntru), kp, k1, log_n, dp, level, c, ctypes.addressof(out)), "cmux_mxu clusters")
+        return out.value
+    return cluster_ciphertexts(bsz, kp, fits)
+
+
 class CmuxMxuPlan:
     """Per-``(log_n, primes)`` tables of the byte-radix four-step kernels.
 
@@ -160,8 +211,10 @@ class CmuxMxuPlan:
     def kernel_tables(self, device) -> dict:
         """The kernels' tables on ``device``, stacked over primes:
         ``w1_1``/``w1_2`` (forward pass 1 for 1- or 2-byte digits), ``w1_4``
-        (kernel C's pass 1), ``w2``, ``wi1``, ``wi2`` (int8) and ``tw``
-        ``(kp, 4, n)`` = tw, its precon, twi, its precon (int32 storage)."""
+        (kernel C's pass 1), ``w2``, ``wi1``, ``wi2`` (int8), ``w2g`` and
+        ``wi1g`` (``w2`` and ``wi1`` in :func:`wgmma_layout`'s stream order,
+        kernels A and B) and ``tw`` ``(kp, 4, n)`` = tw, its precon, twi,
+        its precon (int32 storage)."""
         device = torch.device(device)
         if device not in self._kernel_on:
             A, B = self.A, self.B
@@ -170,12 +223,20 @@ class CmuxMxuPlan:
                 arr = np.stack([fn(pp) for pp in self.per_prime])
                 return torch.from_numpy(np.ascontiguousarray(arr)).to(dtype).to(device)
 
+            def w2(pp):
+                return kernel_layout(pp["w2f"].T, B, 4, 4)
+
+            def wi1(pp):
+                return kernel_layout(pp["w1mf"].T, B, 4, 4)
+
             self._kernel_on[device] = dict(
                 w1_1=stack(lambda pp: kernel_layout(pp["w1d"], A, 2, 1)),
                 w1_2=stack(lambda pp: kernel_layout(pp["w1d"], A, 2, 2)),
                 w1_4=stack(lambda pp: kernel_layout(pp["w1f"], A, 4, 4)),
-                w2=stack(lambda pp: kernel_layout(pp["w2f"].T, B, 4, 4)),
-                wi1=stack(lambda pp: kernel_layout(pp["w1mf"].T, B, 4, 4)),
+                w2=stack(w2),
+                wi1=stack(wi1),
+                w2g=stack(lambda pp: wgmma_layout(w2(pp))),
+                wi1g=stack(lambda pp: wgmma_layout(wi1(pp))),
                 wi2=stack(lambda pp: kernel_layout(pp["w2m"], A, 4, 4)),
                 tw=stack(lambda pp: np.stack(
                     [pp[k].reshape(-1) for k in ("t", "tp", "ti", "tip")]).astype(np.int64),
@@ -219,6 +280,12 @@ def mxu_cmux_step_plain(conv, basis, acc, degrees, key_vals):
     return cmux_stage2_plain(conv, cmux_stage1_plain(conv, basis, acc, degrees), key, acc)
 
 
+def _check_aligned(name: str, *ts) -> None:
+    """Kernels A and B bulk-copy key rows: their base must be 16-byte aligned."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: key rows must start on a 16-byte boundary")
+
+
 def mxu_cmux_step(plan: CmuxMxuPlan, basis, conv, acc: torch.Tensor, degrees: torch.Tensor,
                   key_vals: torch.Tensor, key_precons: torch.Tensor) -> torch.Tensor:
     """One CMux step ``acc + (acc*X^d - acc) ⊡ BSK_i`` on the MXU key pack.
@@ -250,11 +317,13 @@ def mxu_cmux_step(plan: CmuxMxuPlan, basis, conv, acc: torch.Tensor, degrees: to
     dp = digit_planes(basis)
     tabs = plan.kernel_tables(a.device)
     pack = _basis_pack(basis)  # held until the call returns
+    _check_aligned("mxu_cmux_step", kv, kpre)
     err = build.library().pft_cmux_mxu(
         a.data_ptr(), d.data_ptr(), kv.data_ptr(), kpre.data_ptr(), out.data_ptr(),
-        tabs[f"w1_{dp}"].data_ptr(), tabs["w2"].data_ptr(), tabs["wi1"].data_ptr(),
+        tabs[f"w1_{dp}"].data_ptr(), tabs["w2g"].data_ptr(), tabs["wi1g"].data_ptr(),
         tabs["wi2"].data_ptr(), tabs["tw"].data_ptr(), build.ptr(plan.ntt.prime_pack),
         build.ptr(conv.crt_pack), build.ptr(pack), kp, bsz, k1, plan.log_n, dp,
+        launch_clusters(False, kp, k1, plan.log_n, dp, level, bsz),
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     build.check(err, "mxu_cmux_step")

@@ -12,7 +12,9 @@ one conditional ``-q``), L forward NTTs as int8 products, the Shoup MAC
 against the EVK row, one inverse NTT to ``delta``, then
 ``acc + rot(delta, a) - delta`` mod q.  The rotation acts on ``delta``
 after the inverse NTT, as in the reference.  One thread block per
-ciphertext (batch 1 uses one SM; widening it is later work).
+ciphertext, in clusters of C ciphertexts that share each streamed stage
+(kernel A's design, :mod:`.cmux_mxu`); batch 1 uses one SM (widening it is
+later work).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from ..numeric.limb import narrow_u32, widen_u32
 from ..poly.poly import poly_rotate32
 from . import build
 from .cmux_fused import _basis_pack, _check_device
-from .cmux_mxu import CmuxMxuPlan, digit_planes, shoup_precons
+from .cmux_mxu import (CmuxMxuPlan, _check_aligned, digit_planes, launch_clusters,
+                       shoup_precons)
 from .ntt32 import forward32_plain, inverse32_plain
 from .ntt_mxu8 import mxu8_forward32
 
@@ -92,11 +95,14 @@ def ntru_cmux_step(plan: CmuxMxuPlan, basis, acc: torch.Tensor, degrees: torch.T
     dp = digit_planes(basis)
     tabs = plan.kernel_tables(a.device)
     pack = _basis_pack(basis)  # held until the call returns
+    _check_aligned("ntru_cmux_step", kvn, kpn)
     err = build.library().pft_ntru_cmux_mxu(
         a.data_ptr(), d.data_ptr(), kvn.data_ptr(), kpn.data_ptr(), out.data_ptr(),
-        tabs[f"w1_{dp}"].data_ptr(), tabs["w2"].data_ptr(), tabs["wi1"].data_ptr(),
+        tabs[f"w1_{dp}"].data_ptr(), tabs["w2g"].data_ptr(), tabs["wi1g"].data_ptr(),
         tabs["wi2"].data_ptr(), tabs["tw"].data_ptr(), build.ptr(plan.ntt.prime_pack),
-        build.ptr(pack), bsz, plan.log_n, dp, torch.cuda.current_stream(a.device).cuda_stream,
+        build.ptr(pack), bsz, plan.log_n, dp,
+        launch_clusters(True, 1, 1, plan.log_n, dp, basis.decompose_length, bsz),
+        torch.cuda.current_stream(a.device).cuda_stream,
     )
     build.check(err, "ntru_cmux_step")
     ntru_cmux_step.launches += 1

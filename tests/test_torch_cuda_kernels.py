@@ -1,8 +1,9 @@
 """Kernels 1-4, A-G and the four u64 NTT kernels against their plain PyTorch
 versions on a CUDA card, at shapes ``chip_smoke.py`` does not reach: N from
 32 (16 threads a block) to 4096, three primes, the 2^1 x 12 gadget in stage
-1, k=2, odd batches, and int32 storage; for the int8 kernels log_n 8-11,
-k=1 and 2, L 2-4, 1- and 2-byte digits, and NTRU moduli of 20 and 30 bits;
+1, k=2, odd batches, and int32 storage; for the int8 kernels log_n 8-12,
+k=1 and 2, L 2-4, 1- and 2-byte digits, 2-4 primes, batches that leave
+partial clusters (kernels A and B), and NTRU moduli of 20 and 30 bits;
 for the u64 kernels log_n 4-15 (a row over two blocks at 15), 50- to 62-bit moduli (lazy words past 2^63),
 both input chains of the inverse, 7 and 8 byte planes on inputs past 2^63,
 and a small DCRT rotation on both routes against the CPU; kernels D and E
@@ -35,6 +36,7 @@ from primus_fhe_tpu_torch.boot import ntru_gates
 from primus_fhe_tpu_torch.boot.ntru_blind_rotate import NtruContext
 from primus_fhe_tpu_torch.ops import (cmux_front, cmux_fused, cmux_mxu, ntru_cmux_mxu, ntt32,
                                       ntt64, ntt_mxu8, rotate)
+from primus_fhe_tpu_torch.transforms.torus import TorusConvolver32
 from primus_fhe_tpu_torch.utils.primes import next_ntt_prime
 
 pytestmark = pytest.mark.cuda
@@ -124,43 +126,61 @@ def test_mxu8_forward_matches_plain(dev, log_n, kp):
     assert torch.equal(ntt_mxu8.mxu8_forward32(plan, x.to(torch.int32)).to(torch.int64), want)
 
 
+def _cluster_batches(kp):
+    """Batches 1, C - 1, C + 1, 64 and 65 of kernels A/B (C = 8 // kp
+    ciphertexts a cluster where the card holds enough clusters): whole,
+    partial and single clusters."""
+    c = 8 // kp
+    return sorted({1, max(c - 1, 1), c + 1, 64, 65})
+
+
 @pytest.mark.parametrize(
-    "log_n,log_basis,level,k",
-    [(8, 8, 2, 1), (9, 10, 2, 2), (10, 4, 4, 1), (11, 7, 3, 1), (11, 7, 3, 2)],
+    "log_n,log_basis,level,k,bound",
+    [(8, 8, 2, 1, None), (9, 10, 2, 2, None), (10, 4, 4, 1, None), (11, 7, 3, 1, None),
+     (11, 7, 3, 2, None), (12, 7, 2, 1, None), (12, 10, 2, 1, None), (12, 8, 1, 2, None),
+     (10, 7, 3, 1, 75), (9, 8, 2, 1, 100)],
 )
-def test_mxu_cmux_step_matches_plain(dev, log_n, log_basis, level, k):
+def test_mxu_cmux_step_matches_plain(dev, log_n, log_basis, level, k, bound):
+    """Kernel A at log_n 8-12, k = 1, 2, 1- and 2-byte digits, 2-4 primes
+    (``bound`` picks 3 or 4), every batch of :func:`_cluster_batches`."""
     n, k1 = 1 << log_n, k + 1
-    conv = tfhe.make_convolver(log_n, level, k, log_basis)
+    conv = (tfhe.make_convolver(log_n, level, k, log_basis) if bound is None
+            else TorusConvolver32(log_n, bound))
     basis = ApproxSignedBasis32(None, log_basis, reverse_length=level)
     plan = cmux_mxu.plan_for(conv)
     gen = torch.Generator(device=dev).manual_seed(log_n * 10 + k)
-    acc = torch.randint(0, 1 << 32, (4, k1, n), generator=gen, device=dev)
-    degrees = torch.tensor([0, 1, n, 2 * n - 1], dtype=torch.int32, device=dev)
     ggsw = torch.randint(0, 1 << 32, (1, k1, level, k1, n), generator=gen, device=dev)
     kv, kpre = cmux_mxu.prepare_mxu_bsk(conv, ggsw)
-    want = cmux_mxu.mxu_cmux_step_plain(conv, basis, acc, degrees, kv[0])
-    got = cmux_mxu.mxu_cmux_step(plan, basis, conv, acc, degrees, kv[0], kpre[0])
-    assert torch.equal(got, want)
-    one = cmux_mxu.mxu_cmux_step(plan, basis, conv, acc[:1].to(torch.int32), degrees[:1],
-                                 kv[0], kpre[0])
-    assert torch.equal(one.to(torch.int64) & 0xFFFFFFFF, want[:1])
+    for bsz in _cluster_batches(conv.count):
+        acc = torch.randint(0, 1 << 32, (bsz, k1, n), generator=gen, device=dev)
+        degrees = torch.randint(0, 2 * n, (bsz,), generator=gen, device=dev, dtype=torch.int32)
+        degrees[:2] = torch.tensor([0, 2 * n - 1])[:bsz]
+        want = cmux_mxu.mxu_cmux_step_plain(conv, basis, acc, degrees, kv[0])
+        got = cmux_mxu.mxu_cmux_step(plan, basis, conv, acc, degrees, kv[0], kpre[0])
+        assert torch.equal(got, want), f"batch {bsz}"
+        got32 = cmux_mxu.mxu_cmux_step(plan, basis, conv, acc.to(torch.int32), degrees,
+                                       kv[0], kpre[0])
+        assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want), f"batch {bsz}, int32"
 
 
 @pytest.mark.parametrize("log_n,q_bits,log_basis,level", [(10, 20, 3, 6), (8, 30, 10, 3),
                                                           (11, 22, 4, 4), (9, 20, 1, 16)])
 def test_ntru_cmux_step_matches_plain(dev, log_n, q_bits, log_basis, level):
+    """Kernel B at every batch of :func:`_cluster_batches` (C = 8)."""
     n, q = 1 << log_n, next_ntt_prime(q_bits, log_n)
     plan = ntru_cmux_mxu.get_ntru_plan(log_n, q)
     basis = ApproxSignedBasis32(q, log_basis, level)
     gen = torch.Generator(device=dev).manual_seed(q_bits)
-    acc = torch.randint(0, q, (5, n), generator=gen, device=dev)
-    acc[0, :3] = torch.tensor([0, q - 1, basis.wrap_threshold or 1])
-    degrees = torch.tensor([0, 1, n, 2 * n - 1, 7], dtype=torch.int32, device=dev)
     coeff = torch.randint(0, q, (1, level, n), generator=gen, device=dev)
     kv, kpre = ntru_cmux_mxu.prepare_mxu_evk(NtruContext(log_n, q, log_basis, level), coeff)
-    want = ntru_cmux_mxu.ntru_cmux_step_plain(plan, basis, acc, degrees, kv[0])
-    got = ntru_cmux_mxu.ntru_cmux_step(plan, basis, acc, degrees, kv[0], kpre[0])
-    assert torch.equal(got, want)
+    for bsz in _cluster_batches(1):
+        acc = torch.randint(0, q, (bsz, n), generator=gen, device=dev)
+        acc[0, :3] = torch.tensor([0, q - 1, basis.wrap_threshold or 1])
+        degrees = torch.randint(0, 2 * n, (bsz,), generator=gen, device=dev, dtype=torch.int32)
+        degrees[:2] = torch.tensor([0, 2 * n - 1])[:bsz]
+        want = ntru_cmux_mxu.ntru_cmux_step_plain(plan, basis, acc, degrees, kv[0])
+        got = ntru_cmux_mxu.ntru_cmux_step(plan, basis, acc, degrees, kv[0], kpre[0])
+        assert torch.equal(got, want), f"batch {bsz}"
 
 
 def test_mxu_bootstrap_and_ntru_gate(dev):
