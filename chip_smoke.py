@@ -12,7 +12,8 @@ non-zero):
 
 1. device facts (``nvidia-smi`` name and power limit, torch and CUDA
    versions) and the kernel build from ``primus_fhe_tpu_torch/csrc``;
-2. each of the seven kernels against its plain PyTorch version on the same
+2. each of the six kernels (1-2, the one-launch CMux step for 3-4, A, B, C)
+   against its plain PyTorch version on the same
    CUDA inputs, at the main paths' shapes, batch 1 and 64 (bit-equal), with
    both times from CUDA events and the kernel's device time from CUDA
    events behind a sleep kernel; kernels 1-2 also at the NTRU_128 shape;
@@ -27,7 +28,7 @@ non-zero):
 5. one bootstrap through the kernels on the card and through the plain
    versions on the CPU, same keys and input: the same words;
 6. the launch counts of phases 3-4: every kernel launched, and the CMux
-   kernels exactly once per key slice per bootstrap;
+   step kernel exactly once per key slice per bootstrap;
 7. single-gate latency at batch 1 and gates/s at batch 64 (truth-checked),
    each split into bootstrap and key switch, with the device's busy time
    and top kernels from ``torch.profiler``;
@@ -298,18 +299,35 @@ def count_host_ops(torch, fn) -> int:
     return Count.n
 
 
-def time_gate(torch, label, gate, boot, ks, check):
+def enqueue_ms(torch, fn, reps: int) -> float:
+    """Least host-clock milliseconds to enqueue ``fn`` (synchronised before,
+    not inside): the host's own work when the launch queue does not fill."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return min(out)
+
+
+def time_gate(torch, label, gate, boot, ks, check, steps):
     """Truth-checks ``gate`` once, then its host-clock latency, the
-    bootstrap and key-switch parts, and the profiler's device split."""
+    bootstrap and key-switch parts, the host time a rotation step (the
+    bootstrap's enqueue over its ``steps``) and the profiler's device
+    split."""
     check(gate())
     gate_ms = wall_ms(torch, gate, LAT_REPS)
     big = boot()
     boot_ms = wall_ms(torch, boot, LAT_REPS)
     ks_ms = wall_ms(torch, lambda: ks(big), LAT_REPS)
+    host_us = enqueue_ms(torch, boot, LAT_REPS) * 1e3 / steps
     mean = sum(gate_ms) / len(gate_ms)
     log(f"{label}: truth table correct; gate mean {mean:.2f} ms (min {min(gate_ms):.2f}); "
         f"bootstrap min {min(boot_ms):.2f} ms; key switch min {min(ks_ms):.2f} ms "
-        f"(host clock, {LAT_REPS} runs each)")
+        f"(host clock, {LAT_REPS} runs each); host {host_us:.1f} us a step (bootstrap "
+        f"enqueue / {steps})")
     dev_ms, rows = device_time(torch, gate)
     if dev_ms is None:
         log(f"{label}: device time not measured (the profiler saw no device activity)")
@@ -708,7 +726,7 @@ def phase13_front(torch, dev, table, conv, basis, key0, counted) -> dict:
     if not torch.equal(step, cmux_fused.fused_cmux_step(conv, basis, acc, deg, key0)):
         raise AssertionError("acc + cmux_delta differs from fused_cmux_step (kernels 3-4)")
     log(f"acc + cmux_delta(...) on key slice 0, batch {BATCH}: the same {step.numel()} words as "
-        f"fused_cmux_step (kernels 3-4)")
+        f"fused_cmux_step (kernels 3-4, one launch)")
     return counts
 
 
@@ -1342,10 +1360,9 @@ def main() -> None:
         degrees = torch.randint(0, 2 * n, (bsz,), generator=g, device=dev, dtype=torch.int32)
         key = torch.randint(0, 1 << 40, (kp, k1, level, k1, n), generator=g, device=dev)
         key = key % qs.reshape(kp, 1, 1, 1, 1)
-        f = cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees)
         # kernel wrappers on int64 words (checked: narrow + kernel + widen)
         # and on int32 storage (timed: what the blind-rotation loop passes)
-        x_fwd32, x_inv32, acc32, f32, key32 = i32(x_fwd, x_inv, acc, f, key)
+        x_fwd32, x_inv32, acc32, key32 = i32(x_fwd, x_inv, acc, key)
         kv, kpre = cmux_mxu.prepare_mxu_bsk(conv, words(1, k1, level, k1, n))
         kv, kpre = kv[0], kpre[0]
         kv32, kpre32 = i32(kv, kpre)
@@ -1354,10 +1371,12 @@ def main() -> None:
         # work of each kernel at these shapes (u32 words, 4 bytes each)
         xr, cr, dp = kp * rows, c_in.numel() // n, cmux_mxu.digit_planes(basis)
         ntt_b = bound(8 * xr * n, muls32=ntt_muls(xr, n))
-        stage1_b = bound(4 * (rows * n + kp * rows * level * n),
-                         muls32=ntt_muls(kp * rows * level, n))
-        stage2_b = bound(4 * (kp * rows * level * n + kp * k1 * level * k1 * n + 2 * rows * n),
-                         muls32=kp * rows * k1 * level * n + ntt_muls(kp * rows, n))
+        # the one-launch step: acc in and out, the key slice, the degrees and
+        # the four root tables; kp*rows*L forward and kp*rows inverse NTTs
+        # and the MAC's kp*rows*k1*L products
+        step_b = bound(4 * (2 * rows * n + kp * k1 * level * k1 * n + bsz + 4 * kp * n),
+                       muls32=ntt_muls(kp * rows * level, n) + ntt_muls(kp * rows, n)
+                       + kp * rows * k1 * level * n)
         mxu_a_macs = kp * bsz * (four_step_macs(k1 * level, n, 4, dp, 4)
                                  + four_step_macs(k1, n, 4, 4))
         mxu_a_b = bound(4 * (2 * rows * n + 2 * kp * k1 * level * k1 * n), mxu_a_macs,
@@ -1370,14 +1389,14 @@ def main() -> None:
                        lambda: ntt32.inverse32(conv.ntt, x_inv),
                        lambda: ntt32.inverse32(conv.ntt, x_inv32),
                        lambda: ntt32.inverse32_plain(conv.ntt, x_inv), ntt_b)
-        compare_kernel(torch, table, "cmux_stage1", bsz,
-                       lambda: cmux_fused.cmux_stage1(conv, basis, acc, degrees),
-                       lambda: cmux_fused.cmux_stage1(conv, basis, acc32, degrees),
-                       lambda: cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees), stage1_b)
-        compare_kernel(torch, table, "cmux_stage2", bsz,
-                       lambda: cmux_fused.cmux_stage2(conv, f, key, acc),
-                       lambda: cmux_fused.cmux_stage2(conv, f32, key32, acc32),
-                       lambda: cmux_fused.cmux_stage2_plain(conv, f, key, acc), stage2_b)
+        compare_kernel(torch, table, "fused_cmux_step", bsz,
+                       lambda: cmux_fused.fused_cmux_step(conv, basis, acc, degrees, key),
+                       lambda: cmux_fused.fused_cmux_step(conv, basis, acc32, degrees, key32),
+                       lambda: cmux_fused.cmux_stage2_plain(
+                           conv, cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees), key,
+                           acc), step_b)
+        log(f"fused_cmux_step        batch {bsz:3d}: share of the bound "
+            f"{step_b[0] / table['fused_cmux_step'][bsz][3]:.4f}")
         compare_kernel(torch, table, "mxu_cmux_step", bsz,
                        lambda: cmux_mxu.mxu_cmux_step(plan, basis, conv, acc, degrees, kv, kpre),
                        lambda: cmux_mxu.mxu_cmux_step(plan, basis, conv, acc32, degrees, kv32,
@@ -1439,7 +1458,7 @@ def main() -> None:
         log(f"mxu_cmux_step / ntru_cmux_step batch {bsz}: bit-equal, {c_a} / {c_b} ciphertexts a "
             f"cluster ({bsz % c_a or c_a} / {bsz % c_b or c_b} in the last)")
 
-    counted = (ntt32.forward32, ntt32.inverse32, cmux_fused.cmux_stage1, cmux_fused.cmux_stage2,
+    counted = (ntt32.forward32, ntt32.inverse32, cmux_fused.fused_cmux_step,
                cmux_mxu.mxu_cmux_step, ntru_cmux_mxu.ntru_cmux_step, ntt_mxu8.mxu8_forward32,
                rotate.rotate, cmux_front.cmux_front)
 
@@ -1523,14 +1542,14 @@ def main() -> None:
     log("== phase 6: launch counts of phases 3-4")
     log(json.dumps(counts))
     want_cmux = bootstraps * p.lwe_dim
-    for name in ("forward32", "inverse32", "cmux_stage1", "cmux_stage2"):
+    for name in ("forward32", "inverse32", "fused_cmux_step"):
         if counts[name] <= 0:
             raise AssertionError(f"{name} was never launched on the NTT-key path")
-    for name in ("cmux_stage1", "cmux_stage2"):
-        if counts[name] != want_cmux:
-            raise AssertionError(f"{name}: {counts[name]} launches, want {want_cmux}")
-    log(f"cmux_stage1/2: {want_cmux} = {bootstraps} bootstraps x {p.lwe_dim} steps (2 x {p.lwe_dim} "
-        f"launches per bootstrap)")
+    if counts["fused_cmux_step"] != want_cmux:
+        raise AssertionError(f"fused_cmux_step: {counts['fused_cmux_step']} launches, "
+                             f"want {want_cmux}")
+    log(f"fused_cmux_step: {want_cmux} = {bootstraps} bootstraps x {p.lwe_dim} steps (one "
+        f"launch a step, {p.lwe_dim} a bootstrap)")
     if counts["rotate"] != bootstraps or counts["cmux_front"]:
         raise AssertionError(f"rotate: {counts['rotate']} launches, want {bootstraps} (one a "
                              f"bootstrap); cmux_front: {counts['cmux_front']}, want 0")
@@ -1551,7 +1570,7 @@ def main() -> None:
         return time_gate(
             torch, f"NAND {label}", lambda: gates.nand_gate(*args, xa, xb, p.log_n),
             lambda: bootstrap(c.conv, c.basis, c.bsk, xa, tp, p.log_n),
-            lambda big: keyswitch.key_switch(big, c.ksk, c.ks_basis), check)
+            lambda big: keyswitch.key_switch(big, c.ksk, c.ks_basis), check, p.lwe_dim)
 
     bits64 = torch.randint(0, 2, (BATCH,), generator=gen, device=dev)
     lat = time_tfhe(ctx, "ntt key, batch 1", torch.tensor([1], device=dev))
@@ -1580,8 +1599,8 @@ def main() -> None:
         raise AssertionError(f"mxu_cmux_step: {counts_m['mxu_cmux_step']} launches, want {want_a}")
     if counts_m["mxu8_forward32"] < 1:
         raise AssertionError("mxu8_forward32 was never launched in key preparation")
-    if counts_m["cmux_stage1"] or counts_m["cmux_stage2"]:
-        raise AssertionError("the MXU key ran the NTT-key CMux kernels")
+    if counts_m["fused_cmux_step"]:
+        raise AssertionError("the MXU key ran the NTT-key CMux kernel")
     if counts_m["rotate"] != bootstraps_m:
         raise AssertionError(f"rotate: {counts_m['rotate']} launches, want {bootstraps_m}")
     log(f"mxu_cmux_step: {want_a} = {bootstraps_m} bootstraps x {p.lwe_dim} steps; "
@@ -1690,7 +1709,8 @@ def main() -> None:
 
         return time_gate(
             torch, f"NTRU NAND {label}", lambda: ntru_gates.ntru_nand(*nargs, xa, xb), boot,
-            lambda big: nbr.ntru_key_switch(kctx, big, keys.ksk, keys.ks_basis), check)
+            lambda big: nbr.ntru_key_switch(kctx, big, keys.ksk, keys.ks_basis), check,
+            pn.lwe_dim)
 
     nbits64 = torch.randint(0, 2, (BATCH,), generator=gen_n, device=dev)
     ntru_rates = {}
@@ -1737,10 +1757,8 @@ def main() -> None:
     sources = {
         "ntt32_forward": ("ntt32.cu", "ops/ntt_pallas.py:848", counts["forward32"], (1, BATCH)),
         "ntt32_inverse": ("ntt32.cu", "ops/ntt_pallas.py:855", counts["inverse32"], (1, BATCH)),
-        "cmux_stage1": ("cmux_fused.cu", "ops/cmux_fused.py:140", counts["cmux_stage1"],
-                        (1, BATCH)),
-        "cmux_stage2": ("cmux_fused.cu", "ops/cmux_fused.py:226", counts["cmux_stage2"],
-                        (1, BATCH)),
+        "fused_cmux_step": ("cmux_fused.cu", ("ops/cmux_fused.py:140", "ops/cmux_fused.py:226"),
+                            counts["fused_cmux_step"], (1, BATCH)),
         "mxu_cmux_step": ("cmux_mxu.cu", "ops/cmux_mxu.py:621", counts_m["mxu_cmux_step"],
                           (1, BATCH)),
         "ntru_cmux_step": ("cmux_mxu.cu", "ops/ntru_cmux_mxu.py:259", counts_n["ntru_cmux_step"],
@@ -1782,7 +1800,9 @@ def main() -> None:
         err, ms, plain_ms, dev_ms, (bound_ms, bound_by) = table[name][b0]
         row = {
             "name": name, "route": "cuda", "source": f"primus_fhe_tpu_torch/csrc/{src}",
-            "replaces": f"primus_fhe_tpu/{rep}", "launches": launches, "max_abs_err": err,
+            "replaces": ", ".join(f"primus_fhe_tpu/{r}" for r in
+                                  ((rep,) if isinstance(rep, str) else rep)),
+            "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "batch": b0, "device_ms": dev_ms,
         }

@@ -5,7 +5,9 @@
 2. **blind rotate**: ``acc <- acc + (acc * X^{a_i} - acc) ⊡ BSK_i`` over
    the LWE mask — a Python loop over the ``n_lwe`` key slices.  The key
    pack picks the step, as in the reference: an NTT-domain key tensor runs
-   the fused two-kernel CMux (:mod:`..ops.cmux_fused`), an MXU pack
+   the one-kernel CMux step (:mod:`..ops.cmux_fused`, its launch
+   constants built once a rotation in a :class:`~..ops.cmux_fused.CmuxStepPlan`
+   and the accumulator updated in place), an MXU pack
    ``(vals, precons)`` the one-kernel int8 CMux (:mod:`..ops.cmux_mxu`),
 3. **sample extract**: GLWE coefficient 0 -> LWE.
 
@@ -21,7 +23,7 @@ import torch
 from ..lattice.rlwe import extract_lwe_torus32
 from ..lattice.tfhe import ggsw_encrypt_torus
 from ..numeric.limb import MASK32, narrow_u32, widen_u32
-from ..ops.cmux_fused import fused_cmux_step
+from ..ops.cmux_fused import CmuxStepPlan
 from ..ops.cmux_mxu import mxu_cmux_step, plan_for, prepare_mxu_bsk
 from ..ops.rotate import rotate
 
@@ -62,8 +64,9 @@ def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
             acc = mxu_cmux_step(plan, basis, conv, acc, a_t[i], kv[i], kpre[i])
     else:
         key = narrow_u32(bsk_ntt).contiguous()
+        step = CmuxStepPlan(conv, basis, k1, sw.device)
         for i in range(n_lwe):
-            acc = fused_cmux_step(conv, basis, acc, a_t[i], key[i])
+            acc = step(acc, a_t[i], key[i], out=acc)
     return widen_u32(acc).reshape(*batch, k1, n)
 
 

@@ -8,7 +8,7 @@
 //   any sign.  The blind rotation runs it once a bootstrap, for the
 //   accumulator's initial rotation v * X^-b.
 //
-// Kernel G, cmux_front: CMux stage 1 without its NTT.  The rotate-diff
+// Kernel G, cmux_front: the CMux step's front end without its NTT.  The rotate-diff
 //   acc * X^d - acc, the signed gadget digits of every level (one carry
 //   chain per coefficient, digit_step) and the centered lift of each digit
 //   mod each prime, written out as (kp, B, k1, L, N) canonical residues.

@@ -188,14 +188,6 @@ __device__ __forceinline__ uint32_t digit_step(uint32_t v, const BasisConsts& bc
   return next ? sgn : temp;
 }
 
-// Signed digit of `level` for torus word v: the chain of levels 0..level.
-__device__ __forceinline__ uint32_t signed_digit(uint32_t v, const BasisConsts& bc, int level) {
-  uint32_t carry = (v & bc.init_mask) != 0u;
-  uint32_t digit = 0;
-  for (int lv = 0; lv <= level; ++lv) digit = digit_step(v, bc, lv, carry);
-  return digit;
-}
-
 // Coefficient c of a * X^d mod X^n + 1 over the torus (d in [0, 2n)):
 // +-a[(c - d) mod n], negated when (c - d) mod 2n >= n.
 __device__ __forceinline__ uint32_t rotated_at(const uint32_t* a, int c, int d, int n) {

@@ -39,8 +39,7 @@ _U64 = ctypes.c_uint64
 _SIGNATURES = {
     "pft_ntt32_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pft_ntt32_inverse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "pft_cmux_stage1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "pft_cmux_stage2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pft_cmux_step": (_P, _P, _P, _P, _I, _P, _P),
     "pft_cmux_mxu": (_P,) * 13 + (_I,) * 6 + (_P,),
     "pft_ntru_cmux_mxu": (_P,) * 12 + (_I,) * 4 + (_P,),
     "pft_cmux_mxu_clusters": (_I,) * 7 + (_P,),

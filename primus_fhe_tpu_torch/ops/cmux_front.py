@@ -5,8 +5,8 @@ Replaces ``pallas_cmux_front`` (``primus_fhe_tpu/ops/cmux_pallas.py:74``).
 One block per accumulator row (ciphertext, component): the rotation is index
 arithmetic plus a sign, one carry chain per coefficient gives the digits of
 every level, and each digit is lifted mod every prime and written out.  It
-runs the device functions of CMux stage 1 (``csrc/modarith32.cuh``), which
-fuses the same front end with the forward NTT.  CUDA source:
+runs the device functions of the fused CMux step (``csrc/modarith32.cuh``),
+which feeds the same front end into its forward NTTs.  CUDA source:
 ``csrc/cmux_front.cu``.  Its caller is :func:`..lattice.tfhe.cmux_delta`.
 """
 

@@ -1,7 +1,8 @@
-"""Port vs reference: the plain versions of kernels 3 and 4 (the fused CMux
-stages, ``ops.cmux_fused`` on CPU tensors) against the JAX Pallas kernels
-``cmux_stage1``/``cmux_stage2`` in interpret mode, and the fused step
-against the JAX composed path.  Tolerance: zero (bit-equal, including the
+"""Port vs reference: the plain versions of the CMux step's two halves
+(``ops.cmux_fused.cmux_stage1_plain``/``cmux_stage2_plain``, which the
+one-launch kernel is held to) against the JAX Pallas kernels
+``cmux_stage1``/``cmux_stage2`` in interpret mode, and the fused step on CPU
+tensors against the JAX composed path.  Tolerance: zero (bit-equal, including the
 lazy ``[0, 4p)`` stage-1 output)."""
 
 import jax.numpy as jnp
@@ -56,7 +57,8 @@ def test_stage1_matches_pallas(setup):
         jnp.asarray(acc), jnp.asarray(DEGREES, jnp.int32), w_all, p_all, jbasis,
         tuple(jconv.primes), LOG_N, 64,
     )
-    got = cmux_fused.cmux_stage1(conv, basis, _t(acc), torch.tensor(DEGREES, dtype=torch.int32))
+    got = cmux_fused.cmux_stage1_plain(conv, basis, _t(acc),
+                                       torch.tensor(DEGREES, dtype=torch.int32))
     np.testing.assert_array_equal(got.numpy(), _np(want))
 
 
@@ -71,7 +73,7 @@ def test_stage2_matches_pallas(setup):
         f, jnp.asarray(key_ntt), jnp.asarray(acc), iw_all, ip_all, tuple(jconv.primes),
         LOG_N, LEVEL, crt, 32,
     )
-    got = cmux_fused.cmux_stage2(conv, _t(f), _t(key_ntt), _t(acc))
+    got = cmux_fused.cmux_stage2_plain(conv, _t(f), _t(key_ntt), _t(acc))
     np.testing.assert_array_equal(got.numpy(), _np(want))
 
 

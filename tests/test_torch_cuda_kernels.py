@@ -1,7 +1,8 @@
 """Kernels 1-4, A-G and the four u64 NTT kernels against their plain PyTorch
 versions on a CUDA card, at shapes ``chip_smoke.py`` does not reach: N from
-32 (16 threads a block) to 4096, three primes, the 2^1 x 12 gadget in stage
-1, k=2, odd batches, and int32 storage; for the int8 kernels log_n 8-12,
+32 (16 threads a block) to 4096, three primes, and int32 storage; the
+one-launch CMux step (kernels 3-4) at N 32-4096, the 2^1 x 12 gadget, k=2
+(clusters of 6 blocks), batches 1, 3, 64, 65 and in place; for the int8 kernels log_n 8-12,
 k=1 and 2, L 2-4, 1- and 2-byte digits, 2-4 primes, batches that leave
 partial clusters (kernels A and B), and NTRU moduli of 20 and 30 bits;
 for the u64 kernels log_n 4-15 (a row over two blocks at 15), 50- to 62-bit moduli (lazy words past 2^63),
@@ -78,40 +79,49 @@ def test_ntt_kernels_match_plain(dev, log_n):
     assert torch.equal(roundtrip, y % torch.tensor(PRIMES3, device=dev).reshape(3, 1, 1, 1))
 
 
+@pytest.mark.parametrize("bsz", [1, 3, 64, 65])
 @pytest.mark.parametrize(
     "log_n,log_basis,level,k",
-    [(5, 8, 3, 1), (8, 1, 12, 1), (11, 7, 3, 1), (8, 8, 2, 2)],
+    [(5, 8, 3, 1), (8, 1, 12, 1), (11, 7, 3, 1), (8, 8, 2, 2), (12, 7, 2, 2)],
 )
-def test_cmux_kernels_match_plain(dev, log_n, log_basis, level, k):
+def test_cmux_kernels_match_plain(dev, log_n, log_basis, level, k, bsz):
+    """The one-launch step (BOOLEAN_128 is (11, 7, 3, 1); k = 2 runs
+    clusters of 6 blocks) against the plain composition, degrees 0, 7, n,
+    2n - 1 first, then any sign; int64 words, int32 storage, and the plan
+    updating the accumulator in place."""
     n = 1 << log_n
     conv = tfhe.make_convolver(log_n, level, k, log_basis)
     basis = ApproxSignedBasis32(None, log_basis, reverse_length=level)
-    gen = torch.Generator(device=dev).manual_seed(log_n * 100 + log_basis)
-    acc = torch.randint(0, 1 << 32, (3, k + 1, n), generator=gen, device=dev)
-    degrees = torch.tensor([0, 7, 2 * n - 1], dtype=torch.int32, device=dev)
-    f_want = cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees)
-    assert torch.equal(cmux_fused.cmux_stage1(conv, basis, acc, degrees), f_want)
+    gen = torch.Generator(device=dev).manual_seed(log_n * 100 + log_basis + bsz)
+    acc = torch.randint(0, 1 << 32, (bsz, k + 1, n), generator=gen, device=dev)
+    extra = torch.randint(-4 * n, 4 * n, (max(bsz - 4, 0),), generator=gen, device=dev)
+    degrees = torch.cat([torch.tensor([7, 0, n, 2 * n - 1], device=dev)[:bsz], extra])
+    degrees = degrees.to(torch.int32)
     key = _residues(gen, conv.primes, (k + 1, level, k + 1, n), 1, dev)
-    want = cmux_fused.cmux_stage2_plain(conv, f_want, key, acc)
-    assert torch.equal(cmux_fused.cmux_stage2(conv, f_want, key, acc), want)
-    step = cmux_fused.fused_cmux_step(
-        conv, basis, acc.to(torch.int32), degrees, key.to(torch.int32)
-    )
+    want = cmux_fused.cmux_stage2_plain(
+        conv, cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees), key, acc)
+    before = cmux_fused.fused_cmux_step.launches
+    assert torch.equal(cmux_fused.fused_cmux_step(conv, basis, acc, degrees, key), want)
+    acc32, key32 = acc.to(torch.int32), key.to(torch.int32)
+    step = cmux_fused.fused_cmux_step(conv, basis, acc32, degrees, key32)
+    assert step.dtype == torch.int32
     assert torch.equal(step.to(torch.int64) & 0xFFFFFFFF, want)
+    plan = cmux_fused.CmuxStepPlan(conv, basis, k + 1, dev)
+    assert plan(acc32, degrees, key32, out=acc32) is acc32
+    assert torch.equal(acc32.to(torch.int64) & 0xFFFFFFFF, want)
+    assert cmux_fused.fused_cmux_step.launches - before == 3
 
 
 def test_launch_counts_and_toy_bootstrap(dev):
     """A TOY bootstrap on the card equals the CPU one on the same keys and
-    launches each CMux kernel once per key slice."""
+    launches the CMux step kernel once per key slice."""
     gen = torch.Generator(device=dev).manual_seed(7)
     ctx = P.make_context(P.TOY, dev, gen)
     cts = ctx.encrypt(torch.tensor([0, 1, 1], device=dev), gen)
     tp = torch.full((ctx.params.n,), 1 << 29, dtype=torch.int64, device=dev)
-    before = (cmux_fused.cmux_stage1.launches, cmux_fused.cmux_stage2.launches)
+    before = cmux_fused.fused_cmux_step.launches
     out = bootstrap(ctx.conv, ctx.basis, ctx.bsk, cts, tp, ctx.params.log_n)
-    after = (cmux_fused.cmux_stage1.launches, cmux_fused.cmux_stage2.launches)
-    assert after[0] - before[0] == ctx.params.lwe_dim
-    assert after[1] - before[1] == ctx.params.lwe_dim
+    assert cmux_fused.fused_cmux_step.launches - before == ctx.params.lwe_dim
     cpu = bootstrap(ctx.conv, ctx.basis, ctx.bsk.cpu(), cts.cpu(), tp.cpu(), ctx.params.log_n)
     assert torch.equal(out.cpu(), cpu)
 
