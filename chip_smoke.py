@@ -142,7 +142,10 @@ def bound(nbytes: float, int8_macs: float = 0, muls32: float = 0) -> tuple[float
 
 def ntt_muls(rows: int, n: int, u64: bool = False) -> int:
     """32-bit multiplies of ``rows`` butterfly NTTs of size ``n``: ``n/2
-    log n`` Shoup multiplies a row."""
+    log n`` Shoup multiplies a row.  The u64 forward and inverse NTTs are
+    bounded by this, the function's work, on either route; the fused and
+    split byte-radix kernels (C, D, E, K1-Ki2) still by their own int8 MACs
+    (:func:`four_step_macs`)."""
     return rows * (n // 2) * (n.bit_length() - 1) * (10 if u64 else 3)
 
 
@@ -399,11 +402,11 @@ def phase10_dcrt(torch, dev, table) -> tuple[dict, dict]:
         compare_kernel64(torch, table, "mxu8_forward64", bsz,
                          lambda: ntt_mxu8.mxu8_forward64(plan.mxu, f_in),
                          lambda: ntt_mxu8.mxu8_forward64_plain(plan.mxu, f_in),
-                         bound(16 * rf * n, four_step_macs(rf, n, plan.mxu.planes, 8)))
+                         bound(16 * rf * n, muls32=ntt_muls(rf, n, u64=True)))
         compare_kernel64(torch, table, "mxu8_inverse64", bsz,
                          lambda: ntt_mxu8.mxu8_inverse64(plan.mxu, i_in),
                          lambda: ntt_mxu8.mxu8_inverse64_plain(plan.mxu, i_in),
-                         bound(16 * ri * n, four_step_macs(ri, n, plan.mxu.planes, 8)))
+                         bound(16 * ri * n, muls32=ntt_muls(ri, n, u64=True)))
 
     # -- 2. key generation on the card ---------------------------------------------
     log("-- 10.2: DCRT bootstrap key on the card")
@@ -831,11 +834,11 @@ def phase14_sharded(torch, dev, table, state) -> dict:
     compare_kernel64(torch, table, "mxu8_forward64@shard", b_loc,
                      lambda: ntt_mxu8.mxu8_forward64(sp.mxu, f_in),
                      lambda: ntt_mxu8.mxu8_forward64_plain(sp.mxu, f_in),
-                     bound(16 * rf * n, four_step_macs(rf, n, sp.mxu.planes, 8)))
+                     bound(16 * rf * n, muls32=ntt_muls(rf, n, u64=True)))
     compare_kernel64(torch, table, "mxu8_inverse64@shard", b_loc,
                      lambda: ntt_mxu8.mxu8_inverse64(sp.mxu, i_in),
                      lambda: ntt_mxu8.mxu8_inverse64_plain(sp.mxu, i_in),
-                     bound(16 * ri * n, four_step_macs(ri, n, sp.mxu.planes, 8)))
+                     bound(16 * ri * n, muls32=ntt_muls(ri, n, u64=True)))
 
     steps = DCRT_CPU_SLICES
     cut = torch.cat([lwe[:, :steps], lwe[:, -1:]], dim=1)

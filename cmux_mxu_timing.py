@@ -2,14 +2,38 @@
 """Device time of kernels A (``mxu_cmux_step``), B (``ntru_cmux_step``) and
 the NTT-key CMux step (``fused_cmux_step``, kernels 3-4) on one CUDA card, at
 BOOLEAN_128 width (N = 2048, k = 1, L = 3, two primes) and NTRU_128 width
-(N = 1024, q = 1038337, L = 6), batch 1 and 64; and the NTT-key blind
+(N = 1024, q = 1038337, L = 6), batch 1 and 64; the NTT-key blind
 rotation at BOOLEAN_128 width (630 steps on a random canonical key): wall
-ms, host us a step and the device's idle share.
+ms, host us a step and the device's idle share; and the DCRT rotation's
+forward transforms, ``mxu8_forward64`` and ``ntt64_forward``, at n = 4096 on
+``bench_dcrt.py``'s two 50-bit moduli: 16 rows (batch 1), 64 rows (one
+modulus: a residue shard's call) and 256 rows (batch 16), each with its
+bound, its share of it, and ``mxu8_forward64``'s host time a call broken
+down.
 
     python3 cmux_mxu_timing.py                 # this checkout
     python3 cmux_mxu_timing.py --root DIR      # the package under DIR
     python3 cmux_mxu_timing.py --compare OLD   # OLD and this checkout in turns
     python3 cmux_mxu_timing.py --phases        # cycles per phase (clock64)
+    python3 cmux_mxu_timing.py --ntt ...       # the forward transforms only
+    python3 cmux_mxu_timing.py --ntt --phases  # mxu8_forward64's cycles per phase
+    python3 cmux_mxu_timing.py --grids         # mxu8_forward64 on every (R, S)
+
+Both forward transforms are bounded by the function they compute: 16 bytes
+a word over the HBM rate, or the butterfly's ``n / 2 log n`` Shoup
+multiplies a row (10 32-bit multiplies each) at the 32-bit multiply peak,
+whichever is larger.  ``mxu8_forward64``'s own method, its int8 MACs at the
+int8 peak, is given beside it as ``mac_roofline_ms``.  Its host time a
+call is taken with the card held busy by a sleep kernel, so that the host
+clock sees only the enqueue: the whole wrapper, the C entry alone (through
+ctypes, arguments made ready), and the wrapper's Python parts one by one;
+``loop_ms`` repeats ``chip_smoke.py``'s phase-16 reading (the mean of 20
+calls back to back between two CUDA events, the host free to run ahead),
+and ``device_max_ms`` is the slowest of the 20 device times.
+``--grids`` copies the package to ``.proof/fwd_grids``, adds to that copy's
+C entry a grid set from outside (rows a tile R in 1, 2, 4; column slices S
+in 1, 2, 4, 8), and times ``mxu8_forward64`` at the three shapes on every
+grid beside the launch's own choice; the source itself has no such knob.
 
 A kernel's device time is the median of 20 calls, each timed with CUDA
 events queued behind a ~1 ms sleep kernel, so the events bracket the kernel
@@ -108,6 +132,202 @@ def kernels(torch, dev):
     return calls
 
 
+# The forward transforms' shapes: (label, moduli, rows a modulus), and the
+# bound's peaks (H100 SXM data sheet; 64 32-bit multiplies a clock an SM x 132
+# SMs x 1.98 GHz, as chip_smoke.py counts them).
+NTT_MODULI = (1125899906826241, 1125899906629633)
+NTT_SHAPES = (("16 rows", 2, 8), ("64 rows", 1, 64), ("256 rows", 2, 128))
+HBM_BYTES_S, INT8_OPS_S, INT32_MULS_S = 3.35e12, 1979e12, 132 * 64 * 1.98e9
+
+
+def ntt_calls(torch, dev) -> dict:
+    """``{(kernel, label): (call, bound ms, tables, input, MAC roofline ms or
+    None)}`` of the two forward transforms at :data:`NTT_SHAPES`, n = 4096,
+    canonical inputs made from a seeded generator on the card.  Both share
+    the function's bound (module docstring); the byte-radix route's own
+    work, 7 planes by 8 operand bytes over both passes, is its MAC
+    roofline."""
+    from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
+    from primus_fhe_tpu_torch.transforms import dcrt as td
+
+    n, log_n = 4096, 12
+    g = torch.Generator(device=dev).manual_seed(2028)
+    calls = {}
+    for label, count, rows in NTT_SHAPES:
+        plan = td.build_dcrt_plan64(log_n, list(NTT_MODULI[:count]))
+        x = torch.stack([torch.randint(0, q, (rows, n), generator=g, device=dev)
+                         for q in NTT_MODULI[:count]])
+        words = count * rows * n
+        muls = count * rows * (n // 2) * log_n * 10
+        bound_ms = max(16 * words / HBM_BYTES_S, muls / INT32_MULS_S) * 1e3
+        macs = count * rows * plan.mxu.planes * n * 8 * (n // 128 + 128)
+        calls[("mxu8_forward64", label)] = (
+            lambda p=plan, v=x: ntt_mxu8.mxu8_forward64(p.mxu, v),
+            bound_ms, plan.mxu, x, 2 * macs / INT8_OPS_S * 1e3)
+        calls[("ntt64_forward", label)] = (
+            lambda p=plan, v=x: ntt64.ntt64_forward(p.ntt, v), bound_ms, plan.ntt, x, None)
+    return calls
+
+
+def device_times(torch, fn) -> list[float]:
+    """The :func:`device_ms` readings of ``fn``, each call timed behind a
+    sleep kernel, sorted."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)
+
+
+def loop_ms(torch, fn) -> float:
+    """``chip_smoke.cuda_ms``: the mean of :data:`REPS` calls back to back
+    between two CUDA events, after two warm-up calls; the host runs ahead,
+    so a call's enqueue counts where it is longer than its kernel."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Median over 5 runs of the host microseconds a call of ``fn``, the
+    card held busy by a ~30 ms sleep kernel so that every launch only
+    queues."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        torch.cuda._sleep(60_000_000)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(runs)[2]
+
+
+def forward_host(torch, tables, x) -> dict:
+    """Host microseconds a call of ``mxu8_forward64`` on ``x``: the wrapper,
+    the C entry alone, and the wrapper's Python parts (the checks and the
+    output's allocation, the table lookup, the stream, the pointers)."""
+    from primus_fhe_tpu_torch.ops import build, ntt_mxu8
+
+    tabs = tables.kernel_tables(x.device)
+    names = ("w1s", "w2s") if "w1s" in tabs else ("w1", "w2")  # an older checkout's tables
+    out = torch.empty_like(x)
+    entry = build.library().pft_ntt_mxu8_forward64
+    args = (x.data_ptr(), out.data_ptr(), *(tabs[k].data_ptr() for k in names),
+            tabs["tw"].data_ptr(), build.ptr(tables.ntt.mod_pack), len(tables.moduli),
+            x[0].numel() // tables.n, tables.log_n, tables.planes,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(entry(*args), "pft_ntt_mxu8_forward64")
+    if not torch.equal(out, ntt_mxu8.mxu8_forward64(tables, x)):
+        raise SystemExit("the C entry's words differ from the wrapper's")
+
+    def checks_alloc():
+        v = x.contiguous()
+        if v.dtype != torch.int64 or v.shape[0] != len(tables.moduli):
+            raise SystemExit("bad input")
+        return torch.empty_like(v)
+
+    return {
+        "wrapper_us": host_us(torch, lambda: ntt_mxu8.mxu8_forward64(tables, x)),
+        "entry_us": host_us(torch, lambda: entry(*args)),
+        "checks_alloc_us": host_us(torch, checks_alloc),
+        "tables_us": host_us(torch, lambda: tables.kernel_tables(x.device)),
+        "stream_us": host_us(torch, lambda: torch.cuda.current_stream(x.device).cuda_stream),
+        "pointers_us": host_us(torch, lambda: (x.data_ptr(), out.data_ptr(),
+                                               *(tabs[k].data_ptr() for k in names),
+                                               tabs["tw"].data_ptr(),
+                                               build.ptr(tables.ntt.mod_pack))),
+    }
+
+
+def ntt_times(torch, dev) -> dict:
+    """Device ms, bound and share of the bound of each forward call; for
+    ``mxu8_forward64`` also its MAC roofline, the slowest device time,
+    :func:`loop_ms` five times and :func:`forward_host`."""
+    out = {}
+    for (name, label), (fn, bound_ms, tables, x, mac_ms) in ntt_calls(torch, dev).items():
+        times = device_times(torch, fn)
+        ms = times[len(times) // 2]
+        row = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms}
+        if mac_ms is not None:
+            row.update(mac_roofline_ms=mac_ms, mac_share=mac_ms / ms, device_max_ms=times[-1],
+                       loop_ms=[loop_ms(torch, fn) for _ in range(5)],
+                       host=forward_host(torch, tables, x))
+        out[f"{name}@{label}"] = row
+    return out
+
+
+def grid_times(torch, dev) -> dict:
+    """In a ``--grids`` copy: ``mxu8_forward64``'s device ms at each shape
+    on the launch's own grid and on every (R, S)."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build
+
+    lib = build.library()
+    lib.pft_fwd_force_grid.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.pft_fwd_used_grid.argtypes = [ctypes.c_void_p]
+    out = {}
+    for (name, label), (fn, bound_ms, _, _, _) in ntt_calls(torch, dev).items():
+        if name != "mxu8_forward64":
+            continue
+        lib.pft_fwd_force_grid(0, 0)
+        want = fn()
+        used = (ctypes.c_int * 2)()
+        lib.pft_fwd_used_grid(ctypes.addressof(used))
+        row = {"own": list(used), "own_ms": device_ms(torch, fn), "bound_ms": bound_ms}
+        for r in (1, 2, 4):
+            for s in (1, 2, 4, 8):
+                lib.pft_fwd_force_grid(r, s)
+                if not torch.equal(fn(), want):
+                    raise SystemExit(f"grid {(r, s)} at {label}: words differ")
+                row[f"{r}x{s}"] = device_ms(torch, fn)
+        lib.pft_fwd_force_grid(0, 0)
+        out[label] = row
+    return out
+
+
+def stamp_grids(src: Path) -> None:
+    """Adds to ``ntt_mxu8.cu`` a grid set from outside the launch
+    (``pft_fwd_force_grid(R, S)``; 0, 0 for the launch's own) and a read of
+    the grid the last launch ran (``pft_fwd_used_grid``)."""
+    text = src.read_text()
+    pick = "  fwd_pick(count, rows, log_n, d->sms, d->fits, &R, &S);\n"
+    if text.count(pick) != 1:
+        raise SystemExit("cmux_mxu_timing: the forward launch's pick moved")
+    text = text.replace(pick, pick + "  if (pft_fwd_force[0] > 0) {\n    R = pft_fwd_force[0];\n"
+                        "    S = pft_fwd_force[1];\n  }\n  pft_fwd_used[0] = R;\n"
+                        "  pft_fwd_used[1] = S;\n")
+    text = text.replace("namespace {\n", "int pft_fwd_force[2] = {0, 0};\n"
+                        "int pft_fwd_used[2] = {0, 0};\nnamespace {\n", 1)
+    entries = ("int pft_fwd_force_grid(int r, int s) {\n  pft_fwd_force[0] = r;\n"
+               "  pft_fwd_force[1] = s;\n  return 0;\n}\n"
+               "int pft_fwd_used_grid(int* out) {\n  out[0] = pft_fwd_used[0];\n"
+               "  out[1] = pft_fwd_used[1];\n  return 0;\n}\n")
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + entries, 1)
+    src.write_text(text)
+
+
 def rotations(torch, dev) -> dict:
     """The NTT-key blind rotation at BOOLEAN_128 width, batch 1 and 64:
     ``{batch: {"ms", "host_us_step", "idle_share"}}``."""
@@ -160,15 +380,19 @@ def rotations(torch, dev) -> dict:
     return out
 
 
-def run_here(stamps: bool) -> dict:
+def run_here(stamps: bool, ntt_only: bool = False) -> dict:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("cmux_mxu_timing: needs a CUDA card")
     dev = torch.device("cuda", 0)
+    result = {"root": str(Path(sys.path[0]).resolve()), "card": card()}
+    if not stamps:
+        result["ntt"] = ntt_times(torch, dev)
+    if ntt_only:
+        return result
     calls = kernels(torch, dev)
-    result = {"root": str(Path(sys.path[0]).resolve()), "card": card(),
-              "ms": {f"{k}@{b}": device_ms(torch, fn) for (k, b), fn in calls.items()}}
+    result["ms"] = {f"{k}@{b}": device_ms(torch, fn) for (k, b), fn in calls.items()}
     if not stamps:
         result["rotation"] = rotations(torch, dev)
     if stamps:
@@ -313,18 +537,125 @@ def stamp_step(src: Path) -> None:
     src.write_text(text)
 
 
+FWD_PHASES = ("w1 wait", "pass 1 twiddles + chunk wait", "pass 1 wgmma",
+              "pass 1 copies + epilogue + cluster barrier", "pass 2 stage waits",
+              "pass 2 wgmma + release", "pass 2 swap + epilogue")
+
+
+def stamp_forward(src: Path) -> None:
+    """clock64() laps of thread 0 of block 0 of ``mxu8_forward64``'s kernel,
+    summed per phase over its chunks and stages (:data:`FWD_PHASES`), the
+    global timer at the first and last blocks' start and end, and a C entry
+    that reads them."""
+    text = src.read_text()
+    lap = ("{{ long long pft_n = clock64(); pft_c[{0}] += pft_n - pft_t; pft_t = pft_n; }}")
+    edits = [
+        ("  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n",
+         "  long long pft_c[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n  long long pft_t = clock64();\n"),
+        ("    for (int kk = 0; kk < geo.k1c; ++kk) wait_full(wg * geo.k1c + kk);\n",
+         lap.format(0) + "\n"),
+        ("  for (int ch = rank; ch < chunks; ch += geo.C) {\n", "    " + lap.format(3) + "\n"),
+        ("    bar_sync(1, FWD_CONSUMERS);  // chunk ch is in sc\n", "    " + lap.format(1) + "\n"),
+        ("      wgmma_commit();\n      wgmma_wait<0>();\n      wg_fence_regs(d);\n    }\n",
+         lap.format(2) + "\n"),
+        ("  cluster.sync();  // every operand row of every block of the cluster is written\n",
+         lap.format(3) + "\n"),
+        ("      wait_full(it);\n", "      " + lap.format(4) + "\n"),
+        ("        release(it - 1);\n      }\n    }\n", None),
+    ]
+    for anchor, add in edits:
+        if text.count(anchor) != 1:
+            raise SystemExit(f"cmux_mxu_timing: ntt_mxu8.cu changed near {anchor.strip()!r}")
+        if anchor.startswith("      wait_full"):
+            text = text.replace(anchor, "      " + lap.format(6) + "\n" + anchor + add)
+        elif anchor.startswith("        release"):
+            text = text.replace(anchor, anchor[:-6] + "      " + lap.format(5) + "\n    }\n")
+        else:
+            text = text.replace(anchor, anchor + add)
+    timer = ("{{ unsigned long long tg; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(tg)); "
+             "if (threadIdx.x == 0 && blockIdx.x == 0) pft_fwd_gt[{0}] = tg; "
+             "if (threadIdx.x == 0 && blockIdx.x == gridDim.x - 1) pft_fwd_gt[{1}] = tg; }}")
+    head = "  extern __shared__ __align__(16) uint8_t smem[];\n  constexpr int B = PFT_MXU_B;\n  const FwdGeometry"
+    if text.count(head) != 1:
+        raise SystemExit("cmux_mxu_timing: the forward kernel's head moved")
+    text = text.replace(head, "  " + timer.format(0, 2) + "\n" + head)
+    tail = "  }\n}\n\n// The launch of a (R, S) grid"
+    if text.count(tail) != 1:
+        raise SystemExit("cmux_mxu_timing: the forward kernel's tail moved")
+    text = text.replace(tail, "  }\n  " + lap.format(6) + "\n  if (threadIdx.x == 0 && blockIdx.x == 0)"
+                        " for (int k = 0; k < 7; ++k) pft_fwd_stamps[k] = pft_c[k];\n  "
+                        + timer.format(1, 3) + "\n}\n\n// The launch of a (R, S) grid")
+    text = text.replace("namespace {\n", "__device__ long long pft_fwd_stamps[8];\n"
+                        "__device__ unsigned long long pft_fwd_gt[4];\nnamespace {\n", 1)
+    reader = ("int pft_read_fwd_stamps(void* stamps, void* gt) {\n"
+              "  cudaError_t e = cudaMemcpyFromSymbol(stamps, pft_fwd_stamps, sizeof(pft_fwd_stamps));\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_fwd_gt, sizeof(pft_fwd_gt));\n"
+              "  return (int)e;\n}\n")
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + reader, 1)
+    src.write_text(text)
+
+
+def forward_stamps(torch) -> dict:
+    """Cycles per phase of block 0's thread 0 in the last forward launch at
+    each shape (the launch's own grid), and the first and last blocks' start
+    and end on the global timer (ns from the first start)."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build
+
+    lib = build.library()
+    lib.pft_read_fwd_stamps.argtypes = [ctypes.c_void_p] * 2
+    out = {}
+    for (name, label), (fn, _, _, _, _) in ntt_calls(torch, torch.device("cuda", 0)).items():
+        if name != "mxu8_forward64":
+            continue
+        fn()
+        torch.cuda.synchronize()
+        stamps = (ctypes.c_longlong * 8)()
+        gt = (ctypes.c_ulonglong * 4)()
+        build.check(lib.pft_read_fwd_stamps(ctypes.addressof(stamps), ctypes.addressof(gt)),
+                    "pft_read_fwd_stamps")
+        row = dict(zip(FWD_PHASES, list(stamps)[:len(FWD_PHASES)]))
+        row.update(total=sum(list(stamps)[:len(FWD_PHASES)]), first_block_ns=[0, gt[1] - gt[0]],
+                   last_block_ns=[gt[2] - gt[0], gt[3] - gt[0]])
+        out[label] = row
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, help="import primus_fhe_tpu_torch from this directory")
     ap.add_argument("--compare", type=Path, help="time OLD and this checkout in turns")
     ap.add_argument("--phases", action="store_true", help="cycles per phase, stamped copy")
+    ap.add_argument("--ntt", action="store_true", help="the forward transforms only")
+    ap.add_argument("--grids", action="store_true", help="mxu8_forward64 on every grid")
     ap.add_argument("--stamps", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
-        print(json.dumps(run_here(args.stamps)), flush=True)
+        if args.stamps and (args.ntt or args.grids):
+            import torch
+
+            res = ({"grids": grid_times(torch, torch.device("cuda", 0))} if args.grids
+                   else {"cycles": forward_stamps(torch)})
+            print(json.dumps(res), flush=True)
+            return
+        print(json.dumps(run_here(args.stamps, args.ntt)), flush=True)
         return
     print(card(), flush=True)
+    if args.grids or (args.phases and args.ntt):
+        root = HERE / ".proof" / ("fwd_grids" if args.grids else "fwd_phases")
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(HERE / "primus_fhe_tpu_torch", root / "primus_fhe_tpu_torch",
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        src = root / "primus_fhe_tpu_torch" / "csrc" / "ntt_mxu8.cu"
+        (stamp_grids if args.grids else stamp_forward)(src)
+        res = subprocess_run(root, "--stamps", "--grids" if args.grids else "--ntt")
+        for key, row in res["grids" if args.grids else "cycles"].items():
+            print(key, json.dumps(row), flush=True)
+        res["card"] = card()
+        print(json.dumps(res), flush=True)
+        return
     if args.phases:
         res = subprocess_run(stamped_copy(), "--stamps")
         for key, cyc in res["cycles"].items():
@@ -333,21 +664,32 @@ def main() -> None:
         return
     if args.compare is None:
         sys.path.insert(0, str(HERE))
-        print(json.dumps(run_here(False)), flush=True)
+        print(json.dumps(run_here(False, args.ntt)), flush=True)
         return
     runs = []
+    extra = ("--ntt",) if args.ntt else ()
     for side, root in (("old", args.compare), ("new", HERE), ("new", HERE), ("old", args.compare)):
-        res = subprocess_run(root)
+        res = subprocess_run(root, *extra)
         res["side"] = side
         runs.append(res)
         print(json.dumps(res), flush=True)
-    mean = {side: {key: sum(r["ms"][key] for r in runs if r["side"] == side) / 2
-                   for key in runs[0]["ms"]} for side in ("old", "new")}
-    rot = {side: {f"{b}:{m}": sum(r["rotation"][b][m] for r in runs if r["side"] == side) / 2
-                  for b in runs[0]["rotation"] for m in runs[0]["rotation"][b]}
-           for side in ("old", "new")}
-    print(json.dumps({"card": runs[0]["card"], "mean_ms": mean, "mean_rotation": rot,
-                      "runs": runs}), flush=True)
+
+    def mean(key, fields):
+        return {side: {f: sum(fields(r)[f] for r in runs if r["side"] == side) / 2
+                       for f in fields(runs[0])} for side in ("old", "new")} if key in runs[0] else {}
+
+    ntt = mean("ntt", lambda r: {k: v["ms"] for k, v in r["ntt"].items()})
+    if ntt:
+        ntt["share_new"] = {k: runs[1]["ntt"][k]["bound_ms"] / ntt["new"][k] for k in ntt["new"]}
+    host = mean("ntt", lambda r: {f"{k}:{part}": us for k, v in r["ntt"].items()
+                                  for part, us in v.get("host", {}).items()})
+    summary = {"card": runs[0]["card"], "mean_ntt_ms": ntt, "mean_host_us": host,
+               "mean_ms": mean("ms", lambda r: r["ms"]),
+               "mean_rotation": mean("rotation", lambda r: {
+                   f"{b}:{m}": r["rotation"][b][m] for b in r["rotation"]
+                   for m in r["rotation"][b]}),
+               "runs": runs}
+    print(json.dumps(summary), flush=True)
 
 
 if __name__ == "__main__":

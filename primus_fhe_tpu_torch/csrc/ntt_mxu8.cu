@@ -20,7 +20,11 @@
 //
 // Values are u32 words (int32 storage on the PyTorch side).
 
+#include <cooperative_groups.h>
+
 #include "mxu8_64.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -81,11 +85,12 @@ __global__ void __launch_bounds__(256) ntt_mxu8_forward_kernel(
 // a u64 word congruent to the value (y < 2^51 + 3q < 2^64).  The TPU kernels'
 // Solinas and u32-pair folds are not needed: one path serves every q.
 //
-// Forward, one block per (modulus, group of G = 32 / A rows):
-//   pass 1: words transposed to [(row, k0)][k1] x w1 -> X[row][r0][k0],
-//           times tw[r0][k0] (Shoup, [0, 2q)) -> [(row, r0)][k0];
-//   pass 2: x w2 -> canonical NTT values, bit-reversed, natural (A, 128) view.
-// Inverse (mirrored): pass 1 on the natural rows [(row, r0)][r1] x wi1,
+// Forward (its own kernel below): pass 1, words transposed to [(row,
+// k0)][k1] x w1 -> X[row][r0][k0], times tw[r0][k0] (Shoup, [0, 2q)) ->
+// [(row, r0)][k0]; pass 2, x w2 -> canonical NTT values, bit-reversed, in
+// the natural (A, 128) view.
+// Inverse, one block per (modulus, group of G = 32 / A rows), mirrored:
+// pass 1 on the natural rows [(row, r0)][r1] x wi1,
 // times twi[r0][k0] -> [(row, k0)][r0]; pass 2 x wi2 (inv_n folded in) ->
 // canonical values in normal order.
 //
@@ -102,7 +107,7 @@ __global__ void __launch_bounds__(256) ntt_mxu8_forward_kernel(
 // output never leaves shared memory.  Two buffers of the larger layout ping
 // pong: load -> X (columns), pass 1 -> Y (rows), pass 2 -> X (rows), inverse
 // pass 1 -> Y (columns), inverse pass 2 -> device memory.  E is held to 128
-// registers (two blocks an SM, as the forward kernel runs): at the 148 it
+// registers (two blocks an SM): at the 148 it
 // takes unbounded it ran one block an SM and lost to forward + D.
 //
 // What bounds D and E: per row of n = 4096 words, the four passes are
@@ -112,41 +117,460 @@ __global__ void __launch_bounds__(256) ntt_mxu8_forward_kernel(
 // needs ~n log n 64-bit multiplies instead, and wins per call).
 // ---------------------------------------------------------------------------
 
+// ---------------------------------------------------------------------------
+// mxu8_forward64 on Hopper (replaces the q >= 2^30 tiers of
+// mxu8_fused_forward64, primus_fhe_tpu/ops/ntt_mxu8.py:917, body
+// _make_fwd_kernel8 :548, through ops/mxu_common._natural_call :302).
+//
+// What bounds it: pass 2 is 29.4M of a row's 36.7M int8 MACs (n = 4096, P =
+// 7), against a plane matrix w2 of P x 128 x 1024 bytes (917 KB a modulus)
+// and 64 KB in and out a row.  Read by every row from L2, w2 is 235 MB a
+// launch at 256 rows, which set the one-row-a-block design's pace.  So a
+// block here takes a tile of R rows (R A <= 128 operand rows) and a slice of
+// S of pass 2's 128 output columns, and every w2 byte that reaches its SM
+// serves the tile's R A operand rows: (modulus, tile, slice) blocks, one
+// block an SM, the S slices of a tile one thread-block cluster, R and S
+// picked from the rows, the SM count and the card's cluster occupancy
+// (fwd_pick).  Past that (clock64 stamps, cmux_mxu_timing.py --ntt
+// --phases): both passes' epilogues, whose 64-bit folds take about as many
+// cycles as the products, and the w2 stream into an SM (~13 bytes a cycle)
+// under pass 2.
+//
+// Threads: eight consumer warps (two warpgroups) and one producer warp.
+// The producer's lane 0 streams, in the consumers' order, pass 1's w1 and
+// the slice's w2 as wgmma N-side stages (k-steps of 16 P rows, plane-major
+// groups of 8 rows, 512 P bytes each; mxu8_64.cuh), one cp.async.bulk a
+// stage, through a ring of 16 KB slots with full/empty mbarriers; the host
+// keeps both tables in that order (kernel_tables()["w1s"], ["w2s"]).  Both
+// passes are m64n(16 P)k32 wgmma (u8 operand rows x s8 plane rows, both in
+// shared memory), their N rows ordered so that each thread holds every
+// plane of its outputs and folds them without an exchange.
+//
+// Pass 1 (w1 stays in the ring until the block's last chunk): chunks of 64
+// (row, k0) operand rows (a row's k0 half, the halves outer so that a
+// thread loads its twiddles once a half), chunk ch taken by the cluster's
+// block ch % C; M = the chunk's rows, warpgroup wg's N = the planes of r0 in
+// [16 wg, 16 wg + 16).  The block's next chunk is copied into the chunk
+// buffer by cp.async while the warps fold, twiddle and store this one's
+// outputs into the operand rows (row, r0) of every block of the cluster
+// (distributed shared memory), then one cluster barrier.  Pass 2:
+// warpgroup wg takes the 64 operand rows of M tile wg (a tile of 64 or
+// fewer rows: both take its one M tile and split each stage's k-steps, then
+// swap partial sums) and accumulates a column group of 16 outputs r1 over
+// its 8 stages, then folds and stores canonical words at out[row0 * n + m *
+// 128 + r1]; rows past a partial tile are stored nowhere.
+//
+// Shared memory: the ring (5-8 slots), the pass-2 operand (round_up(R A,
+// 64) rows of 1024 bytes, core matrices), the pass-1 chunk (64 rows of kb1
+// bytes, core matrices), for one M tile the swapped partial sums, the
+// barriers: R = 4 at n = 4096 takes 5 slots, 229,456 bytes.
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_CONSUMERS = 256;
+constexpr int FWD_THREADS = FWD_CONSUMERS + 32;
+constexpr int FWD_SLOT = 16384;
+constexpr int FWD_MAX_SLOTS = 8;
+constexpr int FWD_SMEM_MAX = 232448;
+constexpr int FWD_GROUPS = 8;                 // column groups of 16 outputs r1
+constexpr int FWD_KCHUNKS = 8;                // stages a column group (128 bytes of k each)
+constexpr int FWD_OPERAND_ROWS = 128;         // pass-2 operand rows a tile holds at most
+constexpr int FWD_LOADS = 8;                  // input words a thread copies for a chunk
+
+struct FwdGeometry {
+  int n, A, C, np1, kb1, nw1, rows2, slots, stages, groups;
+  int g1, kbc, k1c;        // pass 1: r0 groups of 16 (warpgroups at work), k-chunk bytes, k-chunks
+  int mtiles;              // pass 2's 64-row M tiles: 2, or 1 split over k by the warpgroups
+  int w1_bytes, w2_bytes;  // one stage of each
+  size_t sr_off, sc_off, red_off, bar_off, smem;
+};
+
+// The cluster width of an (R, S) grid: the S slices of a tile share pass 1
+// in clusters of C blocks, no more than the tile's 2 R chunks.
+__host__ __device__ inline int fwd_cluster(int R, int S) { return S < 2 * R ? S : 2 * R; }
+
+__host__ __device__ inline FwdGeometry fwd_geometry(int log_n, int P, int R, int S) {
+  FwdGeometry g;
+  g.n = 1 << log_n;
+  g.A = g.n / PFT_MXU_B;
+  g.np1 = round_up(g.A, 8);
+  g.kb1 = round_up(8 * g.A, 32);
+  g.g1 = (g.np1 + 15) / 16;
+  g.kbc = g.kb1 < 128 ? g.kb1 : 128;
+  g.k1c = g.kb1 / g.kbc;
+  g.nw1 = g.g1 * g.k1c;
+  g.C = fwd_cluster(R, S);
+  g.rows2 = round_up(R * g.A, 64);
+  g.mtiles = g.rows2 / 64;
+  g.groups = FWD_GROUPS / S;
+  g.stages = g.nw1 + g.groups * FWD_KCHUNKS;
+  g.w1_bytes = 512 * P * (g.kbc / 32);
+  g.w2_bytes = P * 16 * 128;
+  // one M tile: each warpgroup's partial sums of the other's outputs, 4 P
+  // int32 a thread
+  const size_t red = g.mtiles == 1 ? (size_t)FWD_CONSUMERS * 4 * P * 4 : 0;
+  const size_t fixed = (size_t)g.rows2 * 1024 + (size_t)64 * g.kb1 + red;
+  g.slots = FWD_MAX_SLOTS;
+  while (g.slots > g.nw1 && (size_t)g.slots * (FWD_SLOT + 16) + fixed > FWD_SMEM_MAX) --g.slots;
+  g.sr_off = (size_t)g.slots * FWD_SLOT;
+  g.sc_off = g.sr_off + (size_t)g.rows2 * 1024;
+  g.red_off = g.sc_off + (size_t)64 * g.kb1;
+  g.bar_off = g.red_off + red;
+  g.smem = g.bar_off + (size_t)16 * g.slots;
+  return g;
+}
+
+// The grid of count moduli x rows: the largest tile (R A <= 128) with the
+// slices doubled while all of the grid's clusters run at once (fits[k]:
+// clusters of 2^k blocks the card holds), unless that leaves more than
+// three quarters of the SMs idle; then the tile halves (a full tile's two
+// 64-row wgmma M tiles do more for each SM than a smaller tile on more
+// SMs).  R and S are powers of two, so C = min(S, 2R) divides S and no
+// cluster straddles two tiles.
+inline void fwd_pick(int count, int rows, int log_n, int sms, const int* fits, int* R, int* S) {
+  int r = FWD_OPERAND_ROWS >> (log_n - 7);
+  for (;;) {
+    const int tiles = count * ((rows + r - 1) / r);
+    int s = 1;
+    while (s < FWD_GROUPS) {
+      const int c = fwd_cluster(r, 2 * s);
+      if (tiles * (2 * s / c) > fits[31 - __builtin_clz(c)]) break;
+      s *= 2;
+    }
+    if (tiles * s * 4 > sms || r == 1) {
+      *R = r;
+      *S = s;
+      return;
+    }
+    r /= 2;
+  }
+}
+
+// Starts the copy of a chunk's words (one row's k0 half: word e = (k1 = e /
+// 64, k0 = e % 64) of `src`) into the chunk buffer `sc`, pass 1's wgmma
+// operand: row k0 of kb bytes, K-major core matrices (word k1 of row k0 at
+// ((k0 / 8) (kb / 16) + k1 / 2) 128 + (k0 % 8) 16 + (k1 % 2) 8), one 8-byte
+// cp.async a word, no registers held.
+__device__ __forceinline__ void copy_chunk(uint8_t* sc, int kb, const uint64_t* src, int words) {
+#pragma unroll
+  for (int u = 0; u < FWD_LOADS; ++u) {
+    const int e = threadIdx.x + u * FWD_CONSUMERS;
+    if (e < words) {
+      const int w = e >> 6, k0 = e & 63;
+      const uint32_t dst = smem_addr(sc + ((k0 >> 3) * (kb >> 4) + (w >> 1)) * 128 +
+                                     (k0 & 7) * 16 + (w & 1) * 8);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+                   "l"(src + (size_t)w * PFT_MXU_B + k0)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 template <int P>
-__global__ void __launch_bounds__(256) ntt_mxu8_forward64_kernel(
-    const uint64_t* __restrict__ in, uint64_t* __restrict__ out, const int8_t* __restrict__ w1,
-    const int8_t* __restrict__ w2, const uint64_t* __restrict__ tw, ModSet64 ms, int rows,
-    int log_n) {
+__global__ void __launch_bounds__(FWD_THREADS, 1) ntt_mxu8_forward64_kernel(
+    const uint64_t* __restrict__ in, uint64_t* __restrict__ out, const int8_t* __restrict__ w1s,
+    const int8_t* __restrict__ w2s, const uint64_t* __restrict__ tw, ModSet64 ms, int rows,
+    int log_n, int R, int S) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int B = PFT_MXU_B;
-  const Geometry64 geo = geometry64(log_n);
-  const int n = geo.n, A = geo.A, G = geo.G;
-  const int groups = (rows + G - 1) / G;
-  const int mi = blockIdx.x / groups;
-  const int row0 = (blockIdx.x % groups) * G;
-  const int g_rows = rows - row0 < G ? rows - row0 : G;
+  const FwdGeometry geo = fwd_geometry(log_n, P, R, S);
+  const int n = geo.n, A = geo.A;
+  const int tiles = (rows + R - 1) / R;
+  const int sl = (int)blockIdx.x % S, tile = ((int)blockIdx.x / S) % tiles, rank = sl % geo.C;
+  const int mi = (int)blockIdx.x / (S * tiles);
+  const int row0 = tile * R, g_rows = rows - row0 < R ? rows - row0 : R;
   const Mod64 mc = ms.m[mi];
-  uint8_t* sc = smem;               // [(row, k0)][k1 words]
-  uint8_t* sr = smem + geo.s_cols;  // [(row, r0)][k0 words]
+  uint8_t* sr = smem + geo.sr_off;  // pass-2 operand rows (row, r0)
+  uint8_t* sc = smem + geo.sc_off;  // a pass-1 chunk: rows (row, k0)
+  const uint32_t full = smem_addr(smem + geo.bar_off), empty = full + 8 * geo.slots;
   const size_t base = ((size_t)mi * rows + row0) * n;
 
-  for (int i = threadIdx.x; i < g_rows * n; i += blockDim.x) {
-    const int g = i / n, c = i % n;
-    *(uint64_t*)(sc + (size_t)(g * B + c % B) * geo.lda1 + (c / B) * 8) = in[base + i];
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < geo.slots; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, FWD_CONSUMERS / 32);
+    }
+    fence_mbarrier_init();
   }
-  __syncthreads();
-  const uint64_t* t = tw + (size_t)mi * 4 * n;
-  mm_planes_n<true, 2, P>(sc, geo.lda1, g_rows * B, w1 + (size_t)mi * P * geo.np1 * geo.kb1,
-                          geo.np1, A, geo.kb1, [&](int m, int r0, const int (&d)[P]) {
-                            const int g = m / B, k0 = m % B, idx = r0 * B + k0;
-                            *(uint64_t*)(sr + (size_t)(g * A + r0) * LDA64 + k0 * 8) =
-                                shoup64_lazy(fold_planes<P>(d, mc), t[idx], t[n + idx], mc.q);
-                          });
-  __syncthreads();
-  mm_planes_n<true, 2, P>(sr, LDA64, g_rows * A, w2 + (size_t)mi * P * B * 8 * B, B, B, 8 * B,
-                          [&](int m, int r1, const int (&d)[P]) {
-                            out[base + (size_t)m * B + r1] = canonical64(fold_planes<P>(d, mc), mc);
-                          });
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block of the cluster runs: peers may store into its operand rows
+
+  if (threadIdx.x >= FWD_CONSUMERS) {  // the producer warp
+    // it arrives at the consumers' cluster barrier after pass 1 at once:
+    // its lane 0 waits on ring slots that only that barrier frees
+    asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+    if (threadIdx.x == FWD_CONSUMERS) {
+      const int8_t* w1m = w1s + (size_t)mi * geo.nw1 * geo.w1_bytes;
+      const int8_t* w2m = w2s + ((size_t)mi * FWD_GROUPS * FWD_KCHUNKS +
+                                 (size_t)sl * geo.groups * FWD_KCHUNKS) * geo.w2_bytes;
+      for (int i = 0; i < geo.stages; ++i) {
+        const int slot = i % geo.slots;
+        mbar_wait(empty + 8 * slot, ((uint32_t)(i / geo.slots) & 1u) ^ 1u);
+        const bool first = i < geo.nw1;
+        const uint32_t bytes = first ? geo.w1_bytes : geo.w2_bytes;
+        const int8_t* src = first ? w1m + (size_t)i * geo.w1_bytes
+                                  : w2m + (size_t)(i - geo.nw1) * geo.w2_bytes;
+        mbar_expect_tx(full + 8 * slot, bytes);
+        bulk_copy(smem_addr(smem + (size_t)slot * FWD_SLOT), src, bytes, full + 8 * slot, 0);
+      }
+    }
+    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+    return;
+  }
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  auto stage = [&](int i) { return (const int8_t*)(smem + (size_t)(i % geo.slots) * FWD_SLOT); };
+  auto wait_full = [&](int i) {
+    mbar_wait(full + 8 * (i % geo.slots), (uint32_t)(i / geo.slots) & 1u);
+  };
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (i % geo.slots));
+  };
+
+  // pass 1: chunk ch = (k0 half h = ch / g_rows, row ch % g_rows), 64 A
+  // words, taken by the cluster's block ch % C and stored into the operand
+  // rows of every block of the cluster.  On wgmma like pass 2: M = the
+  // chunk's 64 rows k0, warpgroup wg's N = planes x r0 in [16 wg, 16 wg +
+  // 16) (its w1 stages wg * k1c ..); a thread's twiddles depend on the half
+  // only
+  constexpr int NW = 16 * P;  // a stage's rows (c, r): n = 8 (c + P half) + r % 8
+  const int wg = warp >> 2, wt = tid & 127, ww = wt >> 5;
+  const uint64_t* tws = tw + (size_t)mi * 4 * n;
+  const int words = 64 * A, chunks = 2 * g_rows;
+  const uint32_t sc_addr = smem_addr(sc);
+  if (rank < chunks) {
+    const int h0 = rank / g_rows;
+    copy_chunk(sc, geo.kb1, in + base + (size_t)(rank - h0 * g_rows) * n + 64 * h0, words);
+  }
+  if (wg < geo.g1)
+    for (int kk = 0; kk < geo.k1c; ++kk) wait_full(wg * geo.k1c + kk);
+  uint64_t tv[2][4], tp[2][4];  // the twiddles of this thread's outputs in half th
+  int th = -1;
+  for (int ch = rank; ch < chunks; ch += geo.C) {
+    const int h = ch / g_rows, r = ch - h * g_rows, k0b = 64 * h;
+    if (wg < geo.g1 && h != th) {
+      th = h;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = 16 * ww + ((wt & 31) >> 2) + ((e >> 1) << 3);
+          const int r0 = 16 * wg + 8 * hh + 2 * (wt & 3) + (e & 1);
+          const int idx = (r0 < A ? r0 : A - 1) * B + k0b + m;
+          tv[hh][e] = __ldg(tws + idx);
+          tp[hh][e] = __ldg(tws + n + idx);
+        }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    fence_proxy_async();
+    bar_sync(1, FWD_CONSUMERS);  // chunk ch is in sc
+    int d[NW / 2];
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) d[i] = 0;
+    if (wg < geo.g1) {
+      wg_fence_regs(d);
+      wgmma_fence();
+      for (int kk = 0; kk < geo.k1c; ++kk) {
+        const uint32_t b_stage = smem_addr(stage(wg * geo.k1c + kk));
+        for (int s = 0; s < geo.kbc / 32; ++s)
+          WgmmaUS<NW>::mma(d, wg_desc(sc_addr + (kk * geo.kbc / 16 + 2 * s) * 128, 128, 8 * geo.kb1),
+                           wg_desc(b_stage + s * 512 * P, 128, 256));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wg_fence_regs(d);
+    }
+    bar_sync(1, FWD_CONSUMERS);  // every warp is done with sc (and, at the last chunk, with w1)
+    if (ch + geo.C >= chunks)
+      for (int i = 0; i < geo.nw1; ++i) release(i);  // w2 streams during the epilogue
+    if (ch + geo.C < chunks) {
+      const int hn = (ch + geo.C) / g_rows, rn = ch + geo.C - hn * g_rows;
+      copy_chunk(sc, geo.kb1, in + base + (size_t)rn * n + 64 * hn, words);
+    }
+    if (wg < geo.g1) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = 16 * ww + ((wt & 31) >> 2) + ((e >> 1) << 3);
+          const int r0 = 16 * wg + 8 * hh + 2 * (wt & 3) + (e & 1);
+          if (r0 < A) {
+            int dp[P];
+#pragma unroll
+            for (int c = 0; c < P; ++c) dp[c] = d[4 * (c + P * hh) + e];
+            const uint64_t y = shoup64_lazy(fold_planes<P>(dp, mc), tv[hh][e], tp[hh][e], mc.q);
+            const uint32_t at = wg_op_offset64(r * A + r0, k0b + m);
+            for (int q = 0; q < geo.C; ++q) *(uint64_t*)(cluster.map_shared_rank(sr, q) + at) = y;
+          }
+        }
+    }
+  }
+  if (rank >= chunks)
+    for (int i = 0; i < geo.nw1; ++i) release(i);  // a block without a chunk of this tile
+  asm volatile("fence.proxy.async;\n" ::: "memory");  // the operand rows, for wgmma
+  cluster.sync();  // every operand row of every block of the cluster is written
+  fence_proxy_async();
+
+  // pass 2 on wgmma: warpgroup wg multiplies M tile wg (rows 64 wg ..) by
+  // each stage, or, when the tile has one M tile, both multiply it and
+  // split each stage's four k-steps (wg: 2 wg, 2 wg + 1) and then each
+  // other's outputs (half wg of each thread's eight)
+  const int mt = geo.mtiles == 2 ? wg : 0;
+  const int s_lo = geo.mtiles == 2 ? 0 : 2 * wg, s_hi = geo.mtiles == 2 ? 4 : 2 * wg + 2;
+  const uint32_t a_tile = smem_addr(sr) + mt * 8 * PFT_WG_OP_GROUP64;
+  const int m_real = g_rows * A;
+  int* red = (int*)(smem + geo.red_off);
+  int it = geo.nw1;
+  for (int cgl = 0; cgl < geo.groups; ++cgl) {
+    int d[NW / 2];
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) d[i] = 0;
+    wg_fence_regs(d);
+    wgmma_fence();
+#pragma unroll 1
+    for (int kc = 0; kc < FWD_KCHUNKS; ++kc, ++it) {
+      wait_full(it);
+      const uint32_t b_stage = smem_addr(stage(it));
+      for (int s = s_lo; s < s_hi; ++s)
+        WgmmaUS<NW>::mma(d, wg_desc(a_tile + (kc * 8 + 2 * s) * 128, 128, PFT_WG_OP_GROUP64),
+                         wg_desc(b_stage + s * 512 * P, 128, 256));
+      wgmma_commit();
+      if (kc > 0) {
+        wgmma_wait<1>();
+        release(it - 1);
+      }
+    }
+    wgmma_wait<0>();
+    wg_fence_regs(d);
+    release(it - 1);
+    if (geo.mtiles == 1) {  // swap the halves' partial sums through shared memory
+      int* mine = red + (size_t)wg * 4 * P * 128 + wt;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (h != wg)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int c = 0; c < P; ++c) mine[(e * P + c) * 128] = d[4 * (c + P * h) + e];
+      bar_sync(1, FWD_CONSUMERS);
+      const int* theirs = red + (size_t)(1 - wg) * 4 * P * 128 + wt;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (h == wg)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int c = 0; c < P; ++c) d[4 * (c + P * h) + e] += theirs[(e * P + c) * 128];
+      bar_sync(1, FWD_CONSUMERS);  // read before the next group's partials
+    }
+    const int r1b = 16 * (sl * geo.groups + cgl) + 2 * (wt & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (geo.mtiles == 2 || h == wg)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = 64 * mt + 16 * ww + ((wt & 31) >> 2) + ((e >> 1) << 3);
+          if (m < m_real) {
+            int dp[P];
+#pragma unroll
+            for (int c = 0; c < P; ++c) dp[c] = d[4 * (c + P * h) + e];
+            out[base + (size_t)m * B + r1b + 8 * h + (e & 1)] =
+                canonical64(fold_planes<P>(dp, mc), mc);
+          }
+        }
+  }
+}
+
+// The launch of a (R, S) grid: clusters of C slices of a tile.
+template <int P>
+int configure_forward64(int count, int rows, int log_n, int R, int S, void* stream,
+                        cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const FwdGeometry geo = fwd_geometry(log_n, P, R, S);
+  if (geo.smem > FWD_SMEM_MAX || geo.slots < geo.nw1 || geo.slots < 2 || S % geo.C != 0)
+    return (int)cudaErrorInvalidValue;
+  *cfg = {};
+  cfg->gridDim = dim3(count * ((rows + R - 1) / R) * S);
+  cfg->blockDim = dim3(FWD_THREADS);
+  cfg->dynamicSmemBytes = geo.smem;
+  cfg->stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = geo.C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
+template <int P>
+int launch_forward64(const void* in, void* out, const void* w1s, const void* w2s, const void* tw,
+                     const ModSet64& ms, int rows, int log_n, int R, int S, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int err = configure_forward64<P>(ms.count, rows, log_n, R, S, stream, &cfg, &attr);
+  if (err != 0) return err;
+  err = (int)cudaLaunchKernelEx(&cfg, ntt_mxu8_forward64_kernel<P>, (const uint64_t*)in,
+                                (uint64_t*)out, (const int8_t*)w1s, (const int8_t*)w2s,
+                                (const uint64_t*)tw, ms, rows, log_n, R, S);
+  if (err != 0) return err;
+  return (int)cudaGetLastError();
+}
+
+// What the launch reads of a device, set up at its first launch there: the
+// SM count, fits[k] = how many clusters of 2^k blocks (k < 4) the card holds
+// at once at the largest block (log_n 12, 8 planes, R = 4, S = C = 2^k;
+// every shape runs one block an SM), and both instances' shared-memory cap
+// raised to FWD_SMEM_MAX (a launch asks for its own size below it).
+struct FwdDevice {
+  int sms = 0, fits[4] = {0, 0, 0, 0};
+};
+
+int forward64_device(const FwdDevice** out) {
+  static FwdDevice cached[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  FwdDevice& d = cached[dev];
+  if (d.sms == 0) {
+    FwdDevice fresh;
+    e = cudaFuncSetAttribute(ntt_mxu8_forward64_kernel<7>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_MAX);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ntt_mxu8_forward64_kernel<8>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_MAX);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&fresh.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    for (int k = 0; k < 4; ++k) {
+      cudaLaunchConfig_t cfg;
+      cudaLaunchAttribute attr;
+      const int err = configure_forward64<8>(1, 1 << k, 12, FWD_OPERAND_ROWS / 32, 1 << k,
+                                             nullptr, &cfg, &attr);
+      if (err != 0) return err;
+      e = cudaOccupancyMaxActiveClusters(&fresh.fits[k], ntt_mxu8_forward64_kernel<8>, &cfg);
+      if (e != cudaSuccess) return (int)e;
+    }
+    d = fresh;
+  }
+  *out = &d;
+  return 0;
+}
+
+int forward64_any(const void* in, void* out, const void* w1s, const void* w2s, const void* tw,
+                  const void* mod_pack, int count, int rows, int log_n, int planes, void* stream) {
+  if (count < 1 || count > PFT_MAX_MOD64 || log_n < 8 || log_n > 12 || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const FwdDevice* d = nullptr;
+  const int err = forward64_device(&d);
+  if (err != 0) return err;
+  int R, S;
+  fwd_pick(count, rows, log_n, d->sms, d->fits, &R, &S);
+  const ModSet64 ms = unpack_mod64((const uint64_t*)mod_pack, count);
+  if (planes == 7) return launch_forward64<7>(in, out, w1s, w2s, tw, ms, rows, log_n, R, S, stream);
+  if (planes == 8) return launch_forward64<8>(in, out, w1s, w2s, tw, ms, rows, log_n, R, S, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int P, bool MUL>
@@ -253,8 +677,8 @@ __global__ void __launch_bounds__(256, 2) ntt_mxu8_roundtrip64_kernel(
                           });
 }
 
-// Which u64 kernel a launch runs.
-enum class Kind64 { kForward, kInverse, kInverseMul, kRoundTrip };
+// Which row-group u64 kernel a launch runs.
+enum class Kind64 { kInverse, kInverseMul, kRoundTrip };
 
 template <int P>
 int launch_mxu8_64(Kind64 kind, const void* in, void* out, const void* const* w,
@@ -272,12 +696,6 @@ int launch_mxu8_64(Kind64 kind, const void* in, void* out, const void* const* w,
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   switch (kind) {
-    case Kind64::kForward:
-      err = cudaFuncSetAttribute(ntt_mxu8_forward64_kernel<P>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      ntt_mxu8_forward64_kernel<P><<<grid, 256, smem, st>>>(i64, o64, w0, w1, t64, ms, rows, log_n);
-      break;
     case Kind64::kInverse:
       err = cudaFuncSetAttribute(ntt_mxu8_inverse64_kernel<P, false>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -318,12 +736,11 @@ int launch_mxu8_64_any(Kind64 kind, const void* in, void* out, const void* const
 
 extern "C" {
 
+// w1, w2: the stream-order tables (kernel_tables()["w1s"], ["w2s"]).
 int pft_ntt_mxu8_forward64(const void* in, void* out, const void* w1, const void* w2,
                            const void* tw, const void* mod_pack, int count, int rows, int log_n,
                            int planes, void* stream) {
-  const void* w[2] = {w1, w2};
-  return launch_mxu8_64_any(Kind64::kForward, in, out, w, tw, nullptr, mod_pack, count, rows,
-                            log_n, planes, stream);
+  return forward64_any(in, out, w1, w2, tw, mod_pack, count, rows, log_n, planes, stream);
 }
 
 int pft_ntt_mxu8_inverse64(const void* in, void* out, const void* wi1, const void* wi2,

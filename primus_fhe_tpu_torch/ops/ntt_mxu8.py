@@ -19,7 +19,11 @@
 
 All but the round trip reach ``pallas_call`` through
 ``ops/mxu_common._natural_call`` in the reference.  CUDA source:
-``csrc/ntt_mxu8.cu``; design and bounds are stated there.
+``csrc/ntt_mxu8.cu``; design and bounds are stated there.  ``mxu8_forward64``
+runs on ``wgmma`` in clusters of blocks that each take a tile of rows and a
+slice of pass 2's output columns (the launch picks both from the rows and
+the card), streaming the plane matrices in :func:`forward_stream_tables`' order
+(``kernel_tables()["w1s"]``, ``["w2s"]``).
 
 The four-step's natural output order is the butterfly NTT's bit-reversed
 order, so each plain version is the canonical butterfly transform
@@ -240,24 +244,62 @@ class Mxu8Tables64:
 
     def kernel_tables(self, device) -> dict:
         """``w1, w2, wi1, wi2`` (int8, kernel layout: columns ``(k, l)``,
-        stacked over moduli) and ``tw (count, 4, n)`` = tw, its quotient,
-        twi, its quotient (u64 patterns in int64)."""
+        stacked over moduli), ``w1s, w2s`` (``w1``/``w2`` in the forward
+        kernel's stream order, :func:`forward_stream_tables`) and ``tw
+        (count, 4, n)`` = tw, its quotient, twi, its quotient (u64 patterns
+        in int64)."""
         device = torch.device(device)
         if device not in self._kernel_on:
             P, A, B = self.planes, self.A, self.B
-
-            def stack(name, rows):
-                arr = np.stack([kernel_layout(getattr(p, name), rows, 8, 8, out_planes=P)
-                                for p in self.plans])
-                return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
-
+            lay = {name: np.stack([kernel_layout(getattr(p, name), rows, 8, 8, out_planes=P)
+                                   for p in self.plans])
+                   for name, rows in (("w1", A), ("w2", B), ("wi1", B), ("wi2", A))}
+            streams = [forward_stream_tables(a, b, P) for a, b in zip(lay["w1"], lay["w2"])]
+            lay["w1s"] = np.stack([s[0] for s in streams])
+            lay["w2s"] = np.stack([s[1] for s in streams])
             tw = np.stack([np.stack([p.tw.reshape(-1), p.tw_p.reshape(-1), p.twi.reshape(-1),
                                      p.twi_p.reshape(-1)]) for p in self.plans])
-            self._kernel_on[device] = dict(
-                w1=stack("w1", A), w2=stack("w2", B), wi1=stack("wi1", B), wi2=stack("wi2", A),
-                tw=u64_tensor(tw, device),
-            )
+            tabs = {name: torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+                    for name, arr in lay.items()}
+            tabs["tw"] = u64_tensor(tw, device)
+            self._kernel_on[device] = tabs
         return self._kernel_on[device]
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel's stream tables (csrc/ntt_mxu8.cu, mxu8_forward64)
+# ---------------------------------------------------------------------------
+
+FWD_GROUPS = 8  # column groups of 16 pass-2 outputs r1 (so at most 8 slices)
+FWD_KCHUNKS = 8  # k-chunks of 128 bytes a column group: one ring stage each
+
+
+def _wgmma_stages(w: np.ndarray, planes: int, groups: int, kb: int) -> np.ndarray:
+    """A kernel-layout plane matrix ``(P rows_p, K)`` (rows ``(c, r)``) ->
+    the forward kernel's wgmma N-side stages: ``[group of 16 r][k-chunk of
+    kb bytes][k-step s][n-group (2 P)][k half][8 rows][16 bytes]``, n-group
+    ``c + P * half`` holding plane ``c`` of rows ``r = 16 group + 8 half +
+    rho`` (rows past ``rows_p`` zero)."""
+    P, K = planes, w.shape[1]
+    x = np.zeros((P, 16 * groups, K), dtype=np.int8)
+    x[:, : w.shape[0] // P] = w.reshape(P, -1, K)
+    x = x.reshape(P, groups, 2, 8, K // kb, kb // 32, 2, 16)
+    return x.transpose(1, 4, 5, 2, 0, 6, 3, 7)  # group, k-chunk, s, half, c, k half, rho, byte
+
+
+def forward_stream_tables(w1: np.ndarray, w2: np.ndarray, planes: int):
+    """One modulus's kernel-layout ``w1 (P np1, kb1)`` and ``w2 (P 128,
+    1024)`` -> the forward kernel's stream order, one ring stage per bulk
+    copy, each the N side of a ``wgmma`` pass (:func:`_wgmma_stages`):
+    ``w1s`` = ``ceil(np1 / 16) x kb1 / min(kb1, 128)`` stages (warpgroup
+    ``g`` of pass 1 takes r0 in ``[16 g, 16 g + 16)``), ``w2s`` = 64 stages
+    (column group ``cg < 8`` of 16 outputs ``r1``, k-chunk ``kc < 8`` of 128
+    bytes).  A slice of the output columns is a run of whole column groups,
+    so its stages are contiguous."""
+    kb1 = w1.shape[1]
+    x1 = _wgmma_stages(w1, planes, -(-(w1.shape[0] // planes) // 16), min(kb1, 128))
+    x2 = _wgmma_stages(w2, planes, FWD_GROUPS, 128)
+    return np.ascontiguousarray(x1).reshape(-1), np.ascontiguousarray(x2).reshape(-1)
 
 
 def reduce_any64(values: torch.Tensor, moduli) -> torch.Tensor:
@@ -348,7 +390,7 @@ def mxu8_forward64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
 
     CPU tensors take the plain version, CUDA tensors the kernel (one launch
     for every modulus)."""
-    return _run64(mxu8_forward64, mxu8_forward64_plain, "pft_ntt_mxu8_forward64", ("w1", "w2"),
+    return _run64(mxu8_forward64, mxu8_forward64_plain, "pft_ntt_mxu8_forward64", ("w1s", "w2s"),
                   tables, values, out_factor, (1, 2, 4))
 
 

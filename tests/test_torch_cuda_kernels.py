@@ -7,6 +7,8 @@ k=1 and 2, L 2-4, 1- and 2-byte digits, 2-4 primes, batches that leave
 partial clusters (kernels A and B), and NTRU moduli of 20 and 30 bits;
 for the u64 kernels log_n 4-15 (a row over two blocks at 15), 50- to 62-bit moduli (lazy words past 2^63),
 both input chains of the inverse, 7 and 8 byte planes on inputs past 2^63,
+the tiled ``mxu8_forward64`` at rows 1, 2, R - 1, R, R + 1, 16, 64, 256 and
+257 (clusters of 1, 2, 4 and 8 slices) and on a residue shard's tables,
 and a small DCRT rotation on both routes against the CPU; kernels D and E
 (the fused key multiply and round trip) at log_n 8-12, 7 and 8 planes, two
 moduli and ragged row groups, and the four-step at 2^16 on both routes;
@@ -269,6 +271,40 @@ def test_mxu8_64_kernels_match_plain(dev, log_n, moduli):
         x = _u64_words(gen, (len(moduli), rows, 1 << log_n), dev)
         assert torch.equal(ntt_mxu8.mxu8_forward64(tables, x), ntt_mxu8.mxu8_forward64_plain(tables, x))
         assert torch.equal(ntt_mxu8.mxu8_inverse64(tables, x), ntt_mxu8.mxu8_inverse64_plain(tables, x))
+
+
+@pytest.mark.parametrize("log_n,moduli", [
+    (8, Q50), (9, [Q60]), (10, Q50 + [Q60]), (11, [next_ntt_prime(62, 14)]), (12, Q50),
+    (12, [Q50[0], Q60]),
+])
+def test_mxu8_forward64_tiles_match_plain(dev, log_n, moduli):
+    """The tiled forward kernel at rows 1, 2, R - 1, R, R + 1, 16, 64, 256
+    and 257 a modulus (R = 128 / A, the largest tile), inputs over the whole
+    u64 range, on the launch's own grid.  At log_n 12 on two moduli an H100
+    picks clusters of 2 blocks at 1-4 and 64 rows, 4 at 5, 8 at 16 and 1 at
+    256 and 257 (``GRIDS`` in ``test_torch_ntt_mxu8_fwd_model.py``)."""
+    tables = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
+    assert tables.planes == (7 if max(moduli) < 1 << 53 else 8)
+    gen = torch.Generator(device=dev).manual_seed(100 + log_n)
+    r_max = 128 // tables.A
+    for rows in sorted({1, 2, r_max - 1, r_max, r_max + 1, 16, 64, 256, 257} - {0}):
+        x = _u64_words(gen, (len(moduli), rows, 1 << log_n), dev)
+        want = ntt_mxu8.mxu8_forward64_plain(tables, x)
+        assert torch.equal(ntt_mxu8.mxu8_forward64(tables, x), want), rows
+
+
+def test_mxu8_forward64_on_a_shard_matches_plain(dev):
+    """Row 12: the forward kernel on a residue shard's tables (one modulus,
+    ``stack_dyn_plans``) at the sharded rotation's shape, 64 rows."""
+    from primus_fhe_tpu_torch.ops.ntt_mxu8_dyn import stack_dyn_plans
+    from primus_fhe_tpu_torch.transforms import dcrt as td
+
+    plan = td.build_dcrt_plan64(12, Q50)
+    gen = torch.Generator(device=dev).manual_seed(64)
+    for sp in stack_dyn_plans(plan, 2):
+        x = _u64_words(gen, (1, 64, 4096), dev)
+        assert torch.equal(ntt_mxu8.mxu8_forward64(sp.mxu, x),
+                           ntt_mxu8.mxu8_forward64_plain(sp.mxu, x))
 
 
 def test_dcrt_rotation_routes_and_cpu_agree(dev):
