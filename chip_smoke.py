@@ -143,9 +143,10 @@ def bound(nbytes: float, int8_macs: float = 0, muls32: float = 0) -> tuple[float
 def ntt_muls(rows: int, n: int, u64: bool = False) -> int:
     """32-bit multiplies of ``rows`` butterfly NTTs of size ``n``: ``n/2
     log n`` Shoup multiplies a row.  The u64 forward and inverse NTTs are
-    bounded by this, the function's work, on either route; the fused and
-    split byte-radix kernels (C, D, E, K1-Ki2) still by their own int8 MACs
-    (:func:`four_step_macs`)."""
+    bounded by this, the function's work, on either route, and so are kernels
+    D (one inverse and the key, one Shoup multiply a word) and E (two
+    transforms and the key); kernel C and row 13's split kernels K1-Ki2
+    still by their own int8 MACs (:func:`four_step_macs`)."""
     return rows * (n // 2) * (n.bit_length() - 1) * (10 if u64 else 3)
 
 
@@ -634,16 +635,18 @@ def phase11_roundtrip(torch, dev, table) -> dict:
                 f"{RT_BATCH} rows; rows 0-{RT_ORACLE_ROWS - 1} equal the plain negacyclic_mul64")
         fwd = ntt_mxu8.mxu8_forward64(mxu, x)  # kernel D's input
         words = RT_BATCH * n
-        macs = four_step_macs(RT_BATCH, n, P, 8)
+        key_muls = 10 * words  # the key's lazy Shoup multiply, one a word
         tag = "" if q == RT_MODULI[0] else f"@{P}planes"
         compare_kernel64(torch, table, "mxu8_inverse64_mul" + tag, RT_BATCH,
                          lambda: ntt_mxu8.mxu8_inverse64_mul(mxu, fwd, mt),
                          lambda: ntt_mxu8.mxu8_inverse64_mul_plain(mxu, fwd, mt),
-                         bound(8 * (2 * words + 2 * n), macs))
+                         bound(8 * (2 * words + 2 * n),
+                               muls32=ntt_muls(RT_BATCH, n, u64=True) + key_muls))
         compare_kernel64(torch, table, "mxu8_roundtrip64_mul" + tag, RT_BATCH,
                          lambda: ntt_mxu8.mxu8_roundtrip64_mul(mxu, x, mt),
                          lambda: ntt_mxu8.mxu8_roundtrip64_mul_plain(mxu, x, mt),
-                         bound(8 * (2 * words + 2 * n), 2 * macs))
+                         bound(8 * (2 * words + 2 * n),
+                               muls32=2 * ntt_muls(RT_BATCH, n, u64=True) + key_muls))
         if q != RT_MODULI[0]:
             continue
         log(f"ms a trip over {RT_TRIPS} chained trips (CUDA events); bench.py's metric "

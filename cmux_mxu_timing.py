@@ -15,9 +15,9 @@ down.
     python3 cmux_mxu_timing.py --root DIR      # the package under DIR
     python3 cmux_mxu_timing.py --compare OLD   # OLD and this checkout in turns
     python3 cmux_mxu_timing.py --phases        # cycles per phase (clock64)
-    python3 cmux_mxu_timing.py --ntt ...       # the forward transforms only
-    python3 cmux_mxu_timing.py --ntt --phases  # mxu8_forward64's cycles per phase
-    python3 cmux_mxu_timing.py --grids         # mxu8_forward64 on every (R, S)
+    python3 cmux_mxu_timing.py --ntt ...       # the u64 transforms and round trip only
+    python3 cmux_mxu_timing.py --ntt --phases  # their byte-radix kernels' cycles per phase
+    python3 cmux_mxu_timing.py --grids         # the byte-radix transforms on every (R, S)
 
 Both forward transforms are bounded by the function they compute: 16 bytes
 a word over the HBM rate, or the butterfly's ``n / 2 log n`` Shoup
@@ -31,9 +31,10 @@ ctypes, arguments made ready), and the wrapper's Python parts one by one;
 calls back to back between two CUDA events, the host free to run ahead),
 and ``device_max_ms`` is the slowest of the 20 device times.
 ``--grids`` copies the package to ``.proof/fwd_grids``, adds to that copy's
-C entry a grid set from outside (rows a tile R in 1, 2, 4; column slices S
-in 1, 2, 4, 8), and times ``mxu8_forward64`` at the three shapes on every
-grid beside the launch's own choice; the source itself has no such knob.
+C entries a grid set from outside (rows a tile R in 1, 2, 4; column slices S
+in 1, 2, 4, 8), and times ``mxu8_forward64``, ``mxu8_inverse64`` and kernel
+D at their shapes on every grid that fits beside the launch's own choice;
+the source itself has no such knob.
 
 A kernel's device time is the median of 20 calls, each timed with CUDA
 events queued behind a ~1 ms sleep kernel, so the events bracket the kernel
@@ -132,40 +133,68 @@ def kernels(torch, dev):
     return calls
 
 
-# The forward transforms' shapes: (label, moduli, rows a modulus), and the
-# bound's peaks (H100 SXM data sheet; 64 32-bit multiplies a clock an SM x 132
-# SMs x 1.98 GHz, as chip_smoke.py counts them).
+# The u64 transforms' shapes: (label, moduli, rows a modulus) of the forward
+# (phase 10's batch 1 and 16, a residue shard's 64) and of the inverse
+# (phase 10's 4 and 64 rows, a residue shard's 16, and the forward's 16 and
+# 64 for a like comparison); kernel D at bench.py's round trip, 512 rows of
+# one modulus; the bound's peaks (H100 SXM data sheet; 64 32-bit multiplies
+# a clock an SM x 132 SMs x 1.98 GHz, as chip_smoke.py counts them).
 NTT_MODULI = (1125899906826241, 1125899906629633)
 NTT_SHAPES = (("16 rows", 2, 8), ("64 rows", 1, 64), ("256 rows", 2, 128))
+INV_SHAPES = (("4 rows", 2, 2), ("16 rows", 2, 8), ("shard 16 rows", 1, 16), ("64 rows", 1, 64),
+              ("2x32 rows", 2, 32))
+D_SHAPE = ("512 rows", 1, 512)
+RT_TRIPS = 20
 HBM_BYTES_S, INT8_OPS_S, INT32_MULS_S = 3.35e12, 1979e12, 132 * 64 * 1.98e9
 
 
 def ntt_calls(torch, dev) -> dict:
     """``{(kernel, label): (call, bound ms, tables, input, MAC roofline ms or
-    None)}`` of the two forward transforms at :data:`NTT_SHAPES`, n = 4096,
-    canonical inputs made from a seeded generator on the card.  Both share
-    the function's bound (module docstring); the byte-radix route's own
-    work, 7 planes by 8 operand bytes over both passes, is its MAC
-    roofline."""
+    None, key table or None)}`` of the forward transforms at
+    :data:`NTT_SHAPES`, the inverse ones at :data:`INV_SHAPES` and kernel D
+    at :data:`D_SHAPE`, n = 4096, canonical inputs made from a seeded
+    generator on the card.  Each is held to its function's bound (module
+    docstring; D adds its key's Shoup multiply, 10 32-bit multiplies a
+    word); the byte-radix route's own work, P planes by 8 operand bytes over
+    both passes, is its MAC roofline."""
     from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
     from primus_fhe_tpu_torch.transforms import dcrt as td
 
     n, log_n = 4096, 12
     g = torch.Generator(device=dev).manual_seed(2028)
     calls = {}
-    for label, count, rows in NTT_SHAPES:
+    shapes = ([("forward", s) for s in NTT_SHAPES] + [("inverse", s) for s in INV_SHAPES]
+              + [("mul", D_SHAPE)])
+    for kind, (label, count, rows) in shapes:
         plan = td.build_dcrt_plan64(log_n, list(NTT_MODULI[:count]))
         x = torch.stack([torch.randint(0, q, (rows, n), generator=g, device=dev)
                          for q in NTT_MODULI[:count]])
         words = count * rows * n
-        muls = count * rows * (n // 2) * log_n * 10
-        bound_ms = max(16 * words / HBM_BYTES_S, muls / INT32_MULS_S) * 1e3
-        macs = count * rows * plan.mxu.planes * n * 8 * (n // 128 + 128)
-        calls[("mxu8_forward64", label)] = (
-            lambda p=plan, v=x: ntt_mxu8.mxu8_forward64(p.mxu, v),
-            bound_ms, plan.mxu, x, 2 * macs / INT8_OPS_S * 1e3)
-        calls[("ntt64_forward", label)] = (
-            lambda p=plan, v=x: ntt64.ntt64_forward(p.ntt, v), bound_ms, plan.ntt, x, None)
+        muls = count * rows * (n // 2) * log_n * 10 + (10 * words if kind == "mul" else 0)
+        nbytes = 16 * words + (16 * count * n if kind == "mul" else 0)
+        bound_ms = max(nbytes / HBM_BYTES_S, muls / INT32_MULS_S) * 1e3
+        mac_ms = 2 * count * rows * plan.mxu.planes * n * 8 * (n // 128 + 128) / INT8_OPS_S * 1e3
+        if kind == "forward":
+            calls[("mxu8_forward64", label)] = (
+                lambda p=plan, v=x: ntt_mxu8.mxu8_forward64(p.mxu, v),
+                bound_ms, plan.mxu, x, mac_ms, None)
+            calls[("ntt64_forward", label)] = (
+                lambda p=plan, v=x: ntt64.ntt64_forward(p.ntt, v), bound_ms, plan.ntt, x, None,
+                None)
+        elif kind == "inverse":
+            calls[("mxu8_inverse64", label)] = (
+                lambda p=plan, v=x: ntt_mxu8.mxu8_inverse64(p.mxu, v),
+                bound_ms, plan.mxu, x, mac_ms, None)
+            calls[("ntt64_inverse", label)] = (
+                lambda p=plan, v=x: ntt64.ntt64_inverse(p.ntt, v), bound_ms, plan.ntt, x, None,
+                None)
+        else:
+            mt = plan.mxu.mul_table(torch.stack([torch.randint(0, q, (n,), generator=g,
+                                                               device=dev)
+                                                 for q in NTT_MODULI[:count]]))
+            calls[("mxu8_inverse64_mul", label)] = (
+                lambda p=plan, v=x, m=mt: ntt_mxu8.mxu8_inverse64_mul(p.mxu, v, m),
+                bound_ms, plan.mxu, x, mac_ms, mt)
     return calls
 
 
@@ -223,23 +252,33 @@ def host_us(torch, fn, calls: int = 200) -> float:
     return sorted(runs)[2]
 
 
-def forward_host(torch, tables, x) -> dict:
-    """Host microseconds a call of ``mxu8_forward64`` on ``x``: the wrapper,
-    the C entry alone, and the wrapper's Python parts (the checks and the
-    output's allocation, the table lookup, the stream, the pointers)."""
+ENTRIES = {"mxu8_forward64": ("pft_ntt_mxu8_forward64", ("w1s", "w2s"), ("w1", "w2")),
+           "mxu8_inverse64": ("pft_ntt_mxu8_inverse64", ("wi1s", "wi2s"), ("wi1", "wi2")),
+           "mxu8_inverse64_mul": ("pft_ntt_mxu8_inverse64_mul", ("wi1s", "wi2s"),
+                                  ("wi1", "wi2"))}
+
+
+def wrapper_host(torch, name, tables, x, key) -> dict:
+    """Host microseconds a call of the wrapper ``name`` (:data:`ENTRIES`) on
+    ``x``: the wrapper, the C entry alone, and the wrapper's Python parts
+    (the checks and the output's allocation, the table lookup, the stream,
+    the pointers)."""
     from primus_fhe_tpu_torch.ops import build, ntt_mxu8
 
+    entry_name, names, old_names = ENTRIES[name]
+    wrapper = getattr(ntt_mxu8, name)
     tabs = tables.kernel_tables(x.device)
-    names = ("w1s", "w2s") if "w1s" in tabs else ("w1", "w2")  # an older checkout's tables
+    names = names if names[0] in tabs else old_names  # an older checkout's tables
+    keyed = () if key is None else (key,)
     out = torch.empty_like(x)
-    entry = build.library().pft_ntt_mxu8_forward64
+    entry = getattr(build.library(), entry_name)
     args = (x.data_ptr(), out.data_ptr(), *(tabs[k].data_ptr() for k in names),
-            tabs["tw"].data_ptr(), build.ptr(tables.ntt.mod_pack), len(tables.moduli),
-            x[0].numel() // tables.n, tables.log_n, tables.planes,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(entry(*args), "pft_ntt_mxu8_forward64")
-    if not torch.equal(out, ntt_mxu8.mxu8_forward64(tables, x)):
-        raise SystemExit("the C entry's words differ from the wrapper's")
+            tabs["tw"].data_ptr(), *(k.data_ptr() for k in keyed),
+            build.ptr(tables.ntt.mod_pack), len(tables.moduli), x[0].numel() // tables.n,
+            tables.log_n, tables.planes, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(entry(*args), entry_name)
+    if not torch.equal(out, wrapper(tables, x, *keyed)):
+        raise SystemExit(f"{entry_name}: the C entry's words differ from the wrapper's")
 
     def checks_alloc():
         v = x.contiguous()
@@ -248,7 +287,7 @@ def forward_host(torch, tables, x) -> dict:
         return torch.empty_like(v)
 
     return {
-        "wrapper_us": host_us(torch, lambda: ntt_mxu8.mxu8_forward64(tables, x)),
+        "wrapper_us": host_us(torch, lambda: wrapper(tables, x, *keyed)),
         "entry_us": host_us(torch, lambda: entry(*args)),
         "checks_alloc_us": host_us(torch, checks_alloc),
         "tables_us": host_us(torch, lambda: tables.kernel_tables(x.device)),
@@ -260,26 +299,69 @@ def forward_host(torch, tables, x) -> dict:
     }
 
 
-def ntt_times(torch, dev) -> dict:
-    """Device ms, bound and share of the bound of each forward call; for
-    ``mxu8_forward64`` also its MAC roofline, the slowest device time,
-    :func:`loop_ms` five times and :func:`forward_host`."""
+def roundtrip_times(torch, dev) -> dict:
+    """``bench.py``'s round trip at 512 x 4096 on its modulus, ms a trip
+    over :data:`RT_TRIPS` chained trips (``chip_smoke.chained_ms``) and
+    modmul/s, on the three routes: kernel E, ``mxu8_forward64`` + D, and the
+    butterfly kernels around a torch Shoup multiply."""
+    from primus_fhe_tpu_torch.modular.factor import ShoupFactor64, factor_mul_lazy64
+    from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
+
+    n, log_n, rows, q = 4096, 12, 512, NTT_MODULI[0]
+    g = torch.Generator(device=dev).manual_seed(2029)
+    ntt = ntt64.NttTables64(log_n, [q])
+    mxu = ntt_mxu8.Mxu8Tables64(ntt)
+    x = torch.randint(0, q, (1, rows, n), generator=g, device=dev)
+    mt = mxu.mul_table(torch.randint(0, q, (1, n), generator=g, device=dev))
+    kf = ShoupFactor64(mt[0, 0], mt[0, 1])
+    routes = {
+        "E": lambda v: ntt_mxu8.mxu8_roundtrip64_mul(mxu, v, mt),
+        "fwd+D": lambda v: ntt_mxu8.mxu8_inverse64_mul(mxu, ntt_mxu8.mxu8_forward64(mxu, v), mt),
+        "butterfly": lambda v: ntt64.ntt64_inverse(
+            ntt, factor_mul_lazy64(ntt64.ntt64_forward(ntt, v, 4), kf, q)),
+    }
+    outs = {name: route(x) for name, route in routes.items()}
+    if not all(torch.equal(outs["E"], o) for o in outs.values()):
+        raise SystemExit("the round-trip routes differ")
+    modmuls = rows * (n * log_n + n)
     out = {}
-    for (name, label), (fn, bound_ms, tables, x, mac_ms) in ntt_calls(torch, dev).items():
+    for name, route in routes.items():
+        route(x)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        v = x
+        start.record()
+        for _ in range(RT_TRIPS):
+            v = route(v)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / RT_TRIPS
+        out[name] = {"ms": ms, "modmul_s": modmuls / (ms / 1e3)}
+    return out
+
+
+def ntt_times(torch, dev) -> dict:
+    """Device ms, bound and share of the bound of each transform call; for
+    the byte-radix kernels also their MAC roofline, the slowest device time,
+    :func:`loop_ms` five times and :func:`wrapper_host`."""
+    out = {}
+    for (name, label), (fn, bound_ms, tables, x, mac_ms, key) in ntt_calls(torch, dev).items():
         times = device_times(torch, fn)
         ms = times[len(times) // 2]
         row = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms}
-        if mac_ms is not None:
+        if name in ENTRIES:
             row.update(mac_roofline_ms=mac_ms, mac_share=mac_ms / ms, device_max_ms=times[-1],
                        loop_ms=[loop_ms(torch, fn) for _ in range(5)],
-                       host=forward_host(torch, tables, x))
+                       host=wrapper_host(torch, name, tables, x, key))
         out[f"{name}@{label}"] = row
     return out
 
 
 def grid_times(torch, dev) -> dict:
-    """In a ``--grids`` copy: ``mxu8_forward64``'s device ms at each shape
-    on the launch's own grid and on every (R, S)."""
+    """In a ``--grids`` copy: the byte-radix transforms' device ms at each
+    shape on the launch's own grid and on every (R, S) (None where the
+    launch refuses the grid: its shared memory does not fit)."""
     import ctypes
 
     from primus_fhe_tpu_torch.ops import build
@@ -288,8 +370,8 @@ def grid_times(torch, dev) -> dict:
     lib.pft_fwd_force_grid.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.pft_fwd_used_grid.argtypes = [ctypes.c_void_p]
     out = {}
-    for (name, label), (fn, bound_ms, _, _, _) in ntt_calls(torch, dev).items():
-        if name != "mxu8_forward64":
+    for (name, label), (fn, bound_ms, _, _, _, _) in ntt_calls(torch, dev).items():
+        if name not in ENTRIES:
             continue
         lib.pft_fwd_force_grid(0, 0)
         want = fn()
@@ -299,25 +381,32 @@ def grid_times(torch, dev) -> dict:
         for r in (1, 2, 4):
             for s in (1, 2, 4, 8):
                 lib.pft_fwd_force_grid(r, s)
-                if not torch.equal(fn(), want):
-                    raise SystemExit(f"grid {(r, s)} at {label}: words differ")
+                try:
+                    got = fn()
+                except RuntimeError:  # the launch refused a grid that does not fit
+                    row[f"{r}x{s}"] = None
+                    continue
+                if not torch.equal(got, want):
+                    raise SystemExit(f"{name} grid {(r, s)} at {label}: words differ")
                 row[f"{r}x{s}"] = device_ms(torch, fn)
         lib.pft_fwd_force_grid(0, 0)
-        out[label] = row
+        out[f"{name}@{label}"] = row
     return out
 
 
 def stamp_grids(src: Path) -> None:
-    """Adds to ``ntt_mxu8.cu`` a grid set from outside the launch
-    (``pft_fwd_force_grid(R, S)``; 0, 0 for the launch's own) and a read of
-    the grid the last launch ran (``pft_fwd_used_grid``)."""
+    """Adds to ``ntt_mxu8.cu`` a grid set from outside the launches of the
+    forward and of the inverse (``pft_fwd_force_grid(R, S)``; 0, 0 for the
+    launch's own) and a read of the grid the last launch ran
+    (``pft_fwd_used_grid``)."""
     text = src.read_text()
-    pick = "  fwd_pick(count, rows, log_n, d->sms, d->fits, &R, &S);\n"
-    if text.count(pick) != 1:
-        raise SystemExit("cmux_mxu_timing: the forward launch's pick moved")
-    text = text.replace(pick, pick + "  if (pft_fwd_force[0] > 0) {\n    R = pft_fwd_force[0];\n"
-                        "    S = pft_fwd_force[1];\n  }\n  pft_fwd_used[0] = R;\n"
-                        "  pft_fwd_used[1] = S;\n")
+    for pick in ("  fwd_pick(count, rows, log_n, d->sms, d->fits, &R, &S);\n",
+                 "  inv_pick(count, rows, log_n, d->sms, &R, &S);\n"):
+        if text.count(pick) != 1:
+            raise SystemExit("cmux_mxu_timing: a launch's pick moved")
+        text = text.replace(pick, pick + "  if (pft_fwd_force[0] > 0) {\n    R = pft_fwd_force[0];\n"
+                            "    S = pft_fwd_force[1];\n  }\n  pft_fwd_used[0] = R;\n"
+                            "  pft_fwd_used[1] = S;\n")
     text = text.replace("namespace {\n", "int pft_fwd_force[2] = {0, 0};\n"
                         "int pft_fwd_used[2] = {0, 0};\nnamespace {\n", 1)
     entries = ("int pft_fwd_force_grid(int r, int s) {\n  pft_fwd_force[0] = r;\n"
@@ -389,6 +478,7 @@ def run_here(stamps: bool, ntt_only: bool = False) -> dict:
     result = {"root": str(Path(sys.path[0]).resolve()), "card": card()}
     if not stamps:
         result["ntt"] = ntt_times(torch, dev)
+        result["roundtrip"] = roundtrip_times(torch, dev)
     if ntt_only:
         return result
     calls = kernels(torch, dev)
@@ -537,6 +627,14 @@ def stamp_step(src: Path) -> None:
     src.write_text(text)
 
 
+def kernel_region(text: str, begin: str, end: str) -> tuple[str, str, str]:
+    """``text`` split around the kernel whose definition holds ``begin``
+    (its ``__global__`` line on) up to ``end``."""
+    at = text.index("__global__", text.index(begin) - 200)
+    stop = text.index(end, at)
+    return text[:at], text[at:stop], text[stop:]
+
+
 FWD_PHASES = ("w1 wait", "pass 1 twiddles + chunk wait", "pass 1 wgmma",
               "pass 1 copies + epilogue + cluster barrier", "pass 2 stage waits",
               "pass 2 wgmma + release", "pass 2 swap + epilogue")
@@ -563,15 +661,18 @@ def stamp_forward(src: Path) -> None:
         ("      wait_full(it);\n", "      " + lap.format(4) + "\n"),
         ("        release(it - 1);\n      }\n    }\n", None),
     ]
+    pre, body, post = kernel_region(text, "ntt_mxu8_forward64_kernel(",
+                                    "// The launch of a (R, S) grid")
     for anchor, add in edits:
-        if text.count(anchor) != 1:
+        if body.count(anchor) != 1:
             raise SystemExit(f"cmux_mxu_timing: ntt_mxu8.cu changed near {anchor.strip()!r}")
         if anchor.startswith("      wait_full"):
-            text = text.replace(anchor, "      " + lap.format(6) + "\n" + anchor + add)
+            body = body.replace(anchor, "      " + lap.format(6) + "\n" + anchor + add)
         elif anchor.startswith("        release"):
-            text = text.replace(anchor, anchor[:-6] + "      " + lap.format(5) + "\n    }\n")
+            body = body.replace(anchor, anchor[:-6] + "      " + lap.format(5) + "\n    }\n")
         else:
-            text = text.replace(anchor, anchor + add)
+            body = body.replace(anchor, anchor + add)
+    text = pre + body + post
     timer = ("{{ unsigned long long tg; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(tg)); "
              "if (threadIdx.x == 0 && blockIdx.x == 0) pft_fwd_gt[{0}] = tg; "
              "if (threadIdx.x == 0 && blockIdx.x == gridDim.x - 1) pft_fwd_gt[{1}] = tg; }}")
@@ -595,30 +696,90 @@ def stamp_forward(src: Path) -> None:
     src.write_text(text)
 
 
-def forward_stamps(torch) -> dict:
-    """Cycles per phase of block 0's thread 0 in the last forward launch at
-    each shape (the launch's own grid), and the first and last blocks' start
-    and end on the global timer (ns from the first start)."""
+INV_PHASES = ("load + barrier", "pass 1 stage waits", "pass 1 wgmma + release",
+              "pass 1 epilogue", "pass 2 barrier + wi2 wait", "pass 2 wgmma",
+              "pass 2 epilogue")
+
+
+def stamp_inverse(src: Path) -> None:
+    """clock64() laps of thread 0 of block 0 of the inverse kernel
+    (``mxu8_inverse64`` and D), summed per phase over its column groups,
+    stages and tasks (:data:`INV_PHASES`), the global timer at the first and
+    last blocks' start and end, and a C entry that reads them."""
+    text = src.read_text()
+    lap = "{{ long long pft_n = clock64(); pft_c[{0}] += pft_n - pft_t; pft_t = pft_n; }}"
+    pre, body, post = kernel_region(text, "ntt_mxu8_inverse64_kernel(",
+                                    "template <int P, bool MUL>\nint launch_inverse64(")
+    timer = ("{{ unsigned long long tg; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(tg)); "
+             "if (threadIdx.x == 0 && blockIdx.x == 0) pft_inv_gt[{0}] = tg; "
+             "if (threadIdx.x == 0 && blockIdx.x == gridDim.x - 1) pft_inv_gt[{1}] = tg; }}")
+    edits = [  # (anchor, count, text before it, text after it)
+        ("  extern __shared__ __align__(16) uint8_t smem[];\n", 1, "  " + timer.format(0, 2) + "\n",
+         ""),
+        ("  const int wg = warp >> 2, wt = tid & 127, ww = wt >> 5;\n", 1, "",
+         "  long long pft_c[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n  long long pft_t = clock64();\n"),
+        ("  bar_sync(1, FWD_CONSUMERS);  // every operand row of pass 1 is written\n", 1, "",
+         "  " + lap.format(0) + "\n"),
+        ("        wait_full(it);\n", 2, "        " + lap.format("kc == 0 ? 3 : 2") + "\n",
+         "        " + lap.format(1) + "\n"),  # the epilogue before a group's first stage
+        ("      if (last) release(xfree);", 2, lap.format(2) + "\n      ", ""),
+        ("  fence_proxy_async();\n  bar_sync(1, FWD_CONSUMERS);  // every operand row of pass 2", 1,
+         "  " + lap.format(3) + "\n", ""),
+        ("  mbar_wait(w2full, 0);\n", 1, "", "  " + lap.format(4) + "\n"),
+        ("    const int mt = t / geo.g1, g = t - mt * geo.g1;\n", 1, "",
+         "    " + lap.format(6) + "\n"),
+        ("    wgmma_commit();\n    wgmma_wait<0>();\n    wg_fence_regs(d);\n", 1, "",
+         "    " + lap.format(5) + "\n"),
+    ]
+    for anchor, count, before, after in edits:
+        if body.count(anchor) != count:
+            raise SystemExit(f"cmux_mxu_timing: the inverse kernel changed near {anchor.strip()!r}")
+        body = body.replace(anchor, before + anchor + after)
+    if not body.endswith("  }\n}\n\n"):
+        raise SystemExit("cmux_mxu_timing: the inverse kernel's tail moved")
+    body = body[:-len("}\n\n")] + ("  " + lap.format(6) + "\n  if (threadIdx.x == 0 && blockIdx.x == 0)"
+                                    " for (int k = 0; k < 7; ++k) pft_inv_stamps[k] = pft_c[k];\n  "
+                                    + timer.format(1, 3) + "\n}\n\n")
+    text = pre + body + post
+    text = text.replace("namespace {\n", "__device__ long long pft_inv_stamps[8];\n"
+                        "__device__ unsigned long long pft_inv_gt[4];\nnamespace {\n", 1)
+    reader = ("int pft_read_inv_stamps(void* stamps, void* gt) {\n"
+              "  cudaError_t e = cudaMemcpyFromSymbol(stamps, pft_inv_stamps, sizeof(pft_inv_stamps));\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_inv_gt, sizeof(pft_inv_gt));\n"
+              "  return (int)e;\n}\n")
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + reader, 1)
+    src.write_text(text)
+
+
+def kernel_stamps(torch) -> dict:
+    """Cycles per phase of block 0's thread 0 in the last launch of each
+    byte-radix transform at each shape (the launch's own grid), and the
+    first and last blocks' start and end on the global timer (ns from the
+    first start): the forward's (:data:`FWD_PHASES`), the inverse's and
+    D's (:data:`INV_PHASES`)."""
     import ctypes
 
     from primus_fhe_tpu_torch.ops import build
 
     lib = build.library()
-    lib.pft_read_fwd_stamps.argtypes = [ctypes.c_void_p] * 2
+    readers = {"mxu8_forward64": (lib.pft_read_fwd_stamps, FWD_PHASES),
+               "mxu8_inverse64": (lib.pft_read_inv_stamps, INV_PHASES),
+               "mxu8_inverse64_mul": (lib.pft_read_inv_stamps, INV_PHASES)}
     out = {}
-    for (name, label), (fn, _, _, _, _) in ntt_calls(torch, torch.device("cuda", 0)).items():
-        if name != "mxu8_forward64":
+    for (name, label), (fn, _, _, _, _, _) in ntt_calls(torch, torch.device("cuda", 0)).items():
+        if name not in readers:
             continue
+        read, phases = readers[name]
+        read.argtypes = [ctypes.c_void_p] * 2
         fn()
         torch.cuda.synchronize()
         stamps = (ctypes.c_longlong * 8)()
         gt = (ctypes.c_ulonglong * 4)()
-        build.check(lib.pft_read_fwd_stamps(ctypes.addressof(stamps), ctypes.addressof(gt)),
-                    "pft_read_fwd_stamps")
-        row = dict(zip(FWD_PHASES, list(stamps)[:len(FWD_PHASES)]))
-        row.update(total=sum(list(stamps)[:len(FWD_PHASES)]), first_block_ns=[0, gt[1] - gt[0]],
+        build.check(read(ctypes.addressof(stamps), ctypes.addressof(gt)), "read stamps")
+        row = dict(zip(phases, list(stamps)[:len(phases)]))
+        row.update(total=sum(list(stamps)[:len(phases)]), first_block_ns=[0, gt[1] - gt[0]],
                    last_block_ns=[gt[2] - gt[0], gt[3] - gt[0]])
-        out[label] = row
+        out[f"{name}@{label}"] = row
     return out
 
 
@@ -627,8 +788,8 @@ def main() -> None:
     ap.add_argument("--root", type=Path, help="import primus_fhe_tpu_torch from this directory")
     ap.add_argument("--compare", type=Path, help="time OLD and this checkout in turns")
     ap.add_argument("--phases", action="store_true", help="cycles per phase, stamped copy")
-    ap.add_argument("--ntt", action="store_true", help="the forward transforms only")
-    ap.add_argument("--grids", action="store_true", help="mxu8_forward64 on every grid")
+    ap.add_argument("--ntt", action="store_true", help="the u64 transforms only")
+    ap.add_argument("--grids", action="store_true", help="the byte-radix kernels on every grid")
     ap.add_argument("--stamps", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.root is not None:
@@ -637,7 +798,7 @@ def main() -> None:
             import torch
 
             res = ({"grids": grid_times(torch, torch.device("cuda", 0))} if args.grids
-                   else {"cycles": forward_stamps(torch)})
+                   else {"cycles": kernel_stamps(torch)})
             print(json.dumps(res), flush=True)
             return
         print(json.dumps(run_here(args.stamps, args.ntt)), flush=True)
@@ -649,7 +810,11 @@ def main() -> None:
         shutil.copytree(HERE / "primus_fhe_tpu_torch", root / "primus_fhe_tpu_torch",
                         ignore=shutil.ignore_patterns("build", "__pycache__"))
         src = root / "primus_fhe_tpu_torch" / "csrc" / "ntt_mxu8.cu"
-        (stamp_grids if args.grids else stamp_forward)(src)
+        if args.grids:
+            stamp_grids(src)
+        else:
+            stamp_forward(src)
+            stamp_inverse(src)
         res = subprocess_run(root, "--stamps", "--grids" if args.grids else "--ntt")
         for key, row in res["grids" if args.grids else "cycles"].items():
             print(key, json.dumps(row), flush=True)
@@ -684,6 +849,8 @@ def main() -> None:
     host = mean("ntt", lambda r: {f"{k}:{part}": us for k, v in r["ntt"].items()
                                   for part, us in v.get("host", {}).items()})
     summary = {"card": runs[0]["card"], "mean_ntt_ms": ntt, "mean_host_us": host,
+               "mean_roundtrip_ms": mean("roundtrip", lambda r: {
+                   k: v["ms"] for k, v in r["roundtrip"].items()}),
                "mean_ms": mean("ms", lambda r: r["ms"]),
                "mean_rotation": mean("rotation", lambda r: {
                    f"{b}:{m}": r["rotation"][b][m] for b in r["rotation"]

@@ -46,7 +46,7 @@ __host__ __device__ inline Geometry64 geometry64(int log_n) {
 }
 
 // ---------------------------------------------------------------------------
-// mxu8_forward64 on wgmma (ntt_mxu8.cu).
+// mxu8_forward64, mxu8_inverse64 and kernel D on wgmma (ntt_mxu8.cu).
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
@@ -57,7 +57,8 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 // 8 rows x 1024 bytes, LBO = 128; pass 1's chunk the same with rows of kb1
 // bytes) and the plane matrix the N side (s8, a k-step's 16 P rows in 8-row
 // groups, [group][k half][8 rows][16 bytes]: LBO 128, SBO 256), so the
-// products are m64nNk32.s32.u8.s8 with N = 16 P.
+// products are m64nNk32.s32.u8.s8 with N = 16 P, or N = 64 for half a
+// k-step's rows (the inverse's pass 1 on one M tile).
 #define PFT_WG_OP_GROUP64 8192  // bytes of 8 operand rows of 1024 bytes
 
 // Byte offset of u64 word `word` (of 128) of operand row m.
@@ -69,6 +70,23 @@ __device__ __forceinline__ uint32_t wg_op_offset64(int m, int word) {
 // descriptor db); the accumulator layout of Wgmma<NW> (mxu8.cuh).
 template <int NW>
 struct WgmmaUS;
+
+template <>
+struct WgmmaUS<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
 
 template <>
 struct WgmmaUS<112> {

@@ -19,11 +19,22 @@
 
 All but the round trip reach ``pallas_call`` through
 ``ops/mxu_common._natural_call`` in the reference.  CUDA source:
-``csrc/ntt_mxu8.cu``; design and bounds are stated there.  ``mxu8_forward64``
-runs on ``wgmma`` in clusters of blocks that each take a tile of rows and a
-slice of pass 2's output columns (the launch picks both from the rows and
-the card), streaming the plane matrices in :func:`forward_stream_tables`' order
-(``kernel_tables()["w1s"]``, ``["w2s"]``).
+``csrc/ntt_mxu8.cu``; design, bounds and shared-memory budgets are stated
+there.  ``mxu8_forward64`` runs on ``wgmma`` in clusters of blocks that each
+take a tile of rows and a slice of pass 2's output columns (the launch picks
+both from the rows and the card), streaming the plane matrices in
+:func:`forward_stream_tables`' order (``kernel_tables()["w1s"]``,
+``["w2s"]``).  ``mxu8_inverse64`` and kernel D mirror it: a block takes a
+tile of R rows (``R * A <= 128``) and a slice of S of the large pass 1's 128
+output columns, streams the slice's ``wi1`` once through a ring of bulk
+copies, so that each ``wi1`` byte reaching an SM serves ``R * A`` operand
+rows (the one-row-a-block kernel served ``A``), then ``wi2`` into the tile's
+freed input buffer (:func:`inverse_stream_tables`, ``["wi1s"]``,
+``["wi2s"]``); no block needs another's output, so there is no cluster.
+Both are bounded by the function they compute (16 bytes a word through
+device memory; D adds its key), far below what either kernel reaches: the
+method's int8 products and plane-matrix streams set their pace.  Kernel E keeps the one-row-group
+``mma.sync`` design and the kernel-layout ``w1, w2, wi1, wi2``.
 
 The four-step's natural output order is the butterfly NTT's bit-reversed
 order, so each plain version is the canonical butterfly transform
@@ -244,8 +255,10 @@ class Mxu8Tables64:
 
     def kernel_tables(self, device) -> dict:
         """``w1, w2, wi1, wi2`` (int8, kernel layout: columns ``(k, l)``,
-        stacked over moduli), ``w1s, w2s`` (``w1``/``w2`` in the forward
-        kernel's stream order, :func:`forward_stream_tables`) and ``tw
+        stacked over moduli; kernel E and row 13 read them), ``w1s, w2s``
+        (``w1``/``w2`` in the forward kernel's stream order,
+        :func:`forward_stream_tables`), ``wi1s, wi2s`` (``wi1``/``wi2`` in
+        the inverse kernel's, :func:`inverse_stream_tables`) and ``tw
         (count, 4, n)`` = tw, its quotient, twi, its quotient (u64 patterns
         in int64)."""
         device = torch.device(device)
@@ -257,6 +270,9 @@ class Mxu8Tables64:
             streams = [forward_stream_tables(a, b, P) for a, b in zip(lay["w1"], lay["w2"])]
             lay["w1s"] = np.stack([s[0] for s in streams])
             lay["w2s"] = np.stack([s[1] for s in streams])
+            streams = [inverse_stream_tables(a, b, P) for a, b in zip(lay["wi1"], lay["wi2"])]
+            lay["wi1s"] = np.stack([s[0] for s in streams])
+            lay["wi2s"] = np.stack([s[1] for s in streams])
             tw = np.stack([np.stack([p.tw.reshape(-1), p.tw_p.reshape(-1), p.twi.reshape(-1),
                                      p.twi_p.reshape(-1)]) for p in self.plans])
             tabs = {name: torch.from_numpy(np.ascontiguousarray(arr)).to(device)
@@ -300,6 +316,17 @@ def forward_stream_tables(w1: np.ndarray, w2: np.ndarray, planes: int):
     x1 = _wgmma_stages(w1, planes, -(-(w1.shape[0] // planes) // 16), min(kb1, 128))
     x2 = _wgmma_stages(w2, planes, FWD_GROUPS, 128)
     return np.ascontiguousarray(x1).reshape(-1), np.ascontiguousarray(x2).reshape(-1)
+
+
+def inverse_stream_tables(wi1: np.ndarray, wi2: np.ndarray, planes: int):
+    """One modulus's kernel-layout ``wi1 (P 128, 1024)`` and ``wi2 (P np1,
+    kb1)`` -> the inverse kernel's stream order, the forward's mirrored:
+    ``wi1s`` in ``w2s``' stages (column group ``cg < 8`` of 16 outputs
+    ``k0``, k-chunk ``kc < 8`` of 128 bytes; a slice's stages contiguous),
+    ``wi2s`` in ``w1s``' (group ``g`` of 16 outputs ``k1``, k-chunk of
+    ``min(kb1, 128)`` bytes), each stage the N side of a ``wgmma`` pass."""
+    wi2s, wi1s = forward_stream_tables(wi2, wi1, planes)
+    return wi1s, wi2s
 
 
 def reduce_any64(values: torch.Tensor, moduli) -> torch.Tensor:
@@ -396,18 +423,28 @@ def mxu8_forward64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
 
 def mxu8_inverse64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int = 1):
     """Inverse NTT of any u64 words ``values (count, ..., n)`` in bit-reversed
-    order -> canonical values in normal order (``out_factor`` 1 or 2)."""
+    order -> canonical values in normal order (``out_factor`` 1 or 2; the
+    output is canonical for both).
+
+    CPU tensors take the plain version, CUDA tensors the tiled kernel (one
+    launch for every modulus), which takes ``8 <= log_n <= 12`` and raises
+    ``ValueError`` above, where the plan allows 14 (``route="auto"`` sends
+    those to the butterfly)."""
     return _run64(mxu8_inverse64, mxu8_inverse64_plain, "pft_ntt_mxu8_inverse64",
-                  ("wi1", "wi2"), tables, values, out_factor, (1, 2))
+                  ("wi1s", "wi2s"), tables, values, out_factor, (1, 2))
 
 
 def mxu8_inverse64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: torch.Tensor,
                        out_factor: int = 1):
     """Kernel D: ``INTT(values * key)`` for any u64 words ``values (count,
     ..., n)`` in bit-reversed order and the key of ``mul_tab``
-    (:meth:`Mxu8Tables64.mul_table`) -> canonical values in normal order."""
+    (:meth:`Mxu8Tables64.mul_table`) -> canonical values in normal order.
+
+    CPU tensors take the plain version, CUDA tensors :func:`mxu8_inverse64`'s
+    tiled kernel with the key multiplied in as each word is loaded; on the
+    card ``8 <= log_n <= 12`` only (``ValueError`` above)."""
     return _run64(mxu8_inverse64_mul, mxu8_inverse64_mul_plain, "pft_ntt_mxu8_inverse64_mul",
-                  ("wi1", "wi2"), tables, values, out_factor, (1, 2), mul_tab)
+                  ("wi1s", "wi2s"), tables, values, out_factor, (1, 2), mul_tab)
 
 
 def mxu8_roundtrip64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: torch.Tensor,

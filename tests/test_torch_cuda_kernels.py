@@ -9,6 +9,8 @@ for the u64 kernels log_n 4-15 (a row over two blocks at 15), 50- to 62-bit modu
 both input chains of the inverse, 7 and 8 byte planes on inputs past 2^63,
 the tiled ``mxu8_forward64`` at rows 1, 2, R - 1, R, R + 1, 16, 64, 256 and
 257 (clusters of 1, 2, 4 and 8 slices) and on a residue shard's tables,
+the tiled ``mxu8_inverse64`` and kernel D at the same rows, the inverse on
+a shard's tables and under ``ntt_large``'s mxu8 route,
 and a small DCRT rotation on both routes against the CPU; kernels D and E
 (the fused key multiply and round trip) at log_n 8-12, 7 and 8 planes, two
 moduli and ragged row groups, and the four-step at 2^16 on both routes;
@@ -305,6 +307,62 @@ def test_mxu8_forward64_on_a_shard_matches_plain(dev):
         x = _u64_words(gen, (1, 64, 4096), dev)
         assert torch.equal(ntt_mxu8.mxu8_forward64(sp.mxu, x),
                            ntt_mxu8.mxu8_forward64_plain(sp.mxu, x))
+
+
+@pytest.mark.parametrize("log_n,moduli", [
+    (8, Q50), (9, [Q60]), (10, Q50 + [Q60]), (11, [next_ntt_prime(62, 14)]), (12, Q50),
+    (12, [Q50[0], Q60]),
+])
+def test_mxu8_inverse64_tiles_match_plain(dev, log_n, moduli):
+    """The tiled inverse kernel and kernel D at rows 1, 2, R - 1, R, R + 1,
+    16, 64, 256 and 257 a modulus (R = 128 / A, the largest tile), inputs
+    over the whole u64 range, on the launch's own grid.  At log_n 12 on two
+    moduli an H100 picks (1, 8) at 1 and 2 rows, (2, 8) at 3-5, (4, 8) at
+    16, (4, 4) at 64 and (4, 2) at 256 and 257."""
+    tables = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
+    assert tables.planes == (7 if max(moduli) < 1 << 53 else 8)
+    gen = torch.Generator(device=dev).manual_seed(200 + log_n)
+    mt = tables.mul_table(_below(gen, moduli, (1 << log_n,), 1, dev))
+    r_max = 128 // tables.A
+    for rows in sorted({1, 2, r_max - 1, r_max, r_max + 1, 16, 64, 256, 257} - {0}):
+        x = _u64_words(gen, (len(moduli), rows, 1 << log_n), dev)
+        want = ntt_mxu8.mxu8_inverse64_plain(tables, x)
+        assert torch.equal(ntt_mxu8.mxu8_inverse64(tables, x), want), rows
+        want = ntt_mxu8.mxu8_inverse64_mul_plain(tables, x, mt)
+        assert torch.equal(ntt_mxu8.mxu8_inverse64_mul(tables, x, mt), want), rows
+
+
+def test_mxu8_inverse64_on_a_shard_matches_plain(dev):
+    """Row 12: the inverse kernel on a residue shard's tables (one modulus,
+    ``stack_dyn_plans``) at the sharded rotation's shape, 16 rows, and at
+    64."""
+    from primus_fhe_tpu_torch.ops.ntt_mxu8_dyn import stack_dyn_plans
+    from primus_fhe_tpu_torch.transforms import dcrt as td
+
+    plan = td.build_dcrt_plan64(12, Q50)
+    gen = torch.Generator(device=dev).manual_seed(65)
+    for sp in stack_dyn_plans(plan, 2):
+        assert "wi1s" in sp.mxu.kernel_tables(dev)
+        for rows in (16, 64):
+            x = _u64_words(gen, (1, rows, 4096), dev)
+            assert torch.equal(ntt_mxu8.mxu8_inverse64(sp.mxu, x),
+                               ntt_mxu8.mxu8_inverse64_plain(sp.mxu, x)), rows
+
+
+def test_large_ntt_mxu8_inverse_matches_butterfly(dev):
+    """``ntt_large``'s mxu8 route (its inverse sub-transforms on the tiled
+    kernel) against the butterfly route on the same canonical NTT-domain
+    words."""
+    from primus_fhe_tpu_torch.transforms import ntt_large
+
+    q = next_ntt_prime(62, 16)
+    plan = ntt_large.LargeNttPlan64(16, q)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    y = _below(gen, [q], (2, 1 << 16), 1, dev)[0]
+    ntt_mxu8.mxu8_inverse64.launches = 0
+    got = ntt_large.large_inverse64(plan, y, 1, "mxu8")
+    assert ntt_mxu8.mxu8_inverse64.launches == 2
+    assert torch.equal(got, ntt_large.large_inverse64(plan, y, 1, "butterfly"))
 
 
 def test_dcrt_rotation_routes_and_cpu_agree(dev):
