@@ -1817,11 +1817,15 @@ def main() -> None:
             row["max_abs_err"] = max(err, eb)
             row.update({f"ms_b{bb}": msb, f"plain_ms_b{bb}": pmsb, f"device_ms_b{bb}": devb,
                         f"bound_ms_b{bb}": bmsb, f"bound_by_b{bb}": bbyb})
-        if f"{name}@NTRU" in table:
+        if f"{name}@NTRU" in table:  # the NTRU NTT-evk step's shapes, batch 1 and BATCH
+            ntru = table[f"{name}@NTRU"]
             row["launches_ntru_path"] = counts_n["forward32" if "forward" in name else "inverse32"]
-            row["ms_ntru"] = table[f"{name}@NTRU"][1][1]
-            row["plain_ms_ntru"] = table[f"{name}@NTRU"][1][2]
-            row["bound_ms_ntru"] = table[f"{name}@NTRU"][1][4][0]
+            row.update({"ms_ntru": ntru[1][1], "plain_ms_ntru": ntru[1][2],
+                        "device_ms_ntru": ntru[1][3], "bound_ms_ntru": ntru[1][4][0],
+                        f"ms_ntru_b{BATCH}": ntru[BATCH][1],
+                        f"plain_ms_ntru_b{BATCH}": ntru[BATCH][2],
+                        f"device_ms_ntru_b{BATCH}": ntru[BATCH][3],
+                        f"bound_ms_ntru_b{BATCH}": ntru[BATCH][4][0]})
         if name in ("ntt32_forward", "ntt32_inverse"):  # phases 17-18's paths
             key = name.replace("ntt32_", "") + "32"
             row.update({"launches_sharded_dcrt32_path": counts_17[key],

@@ -18,6 +18,9 @@ down.
     python3 cmux_mxu_timing.py --ntt ...       # the u64 transforms and round trip only
     python3 cmux_mxu_timing.py --ntt --phases  # their byte-radix kernels' cycles per phase
     python3 cmux_mxu_timing.py --grids         # the byte-radix transforms on every (R, S)
+    python3 cmux_mxu_timing.py --ntt32 ...     # kernels 1-2 and the NTT-key step only
+    python3 cmux_mxu_timing.py --ntt32 --grids # kernels 1-2 on every tile of rows
+    python3 cmux_mxu_timing.py --ntt32 --phases  # their cycles per pass (clock64)
 
 Both forward transforms are bounded by the function they compute: 16 bytes
 a word over the HBM rate, or the butterfly's ``n / 2 log n`` Shoup
@@ -35,6 +38,20 @@ C entries a grid set from outside (rows a tile R in 1, 2, 4; column slices S
 in 1, 2, 4, 8), and times ``mxu8_forward64``, ``mxu8_inverse64`` and kernel
 D at their shapes on every grid that fits beside the launch's own choice;
 the source itself has no such knob.
+``--ntt32`` times kernels 1-2 (``forward32``, ``inverse32``) at the shapes
+their paths give them (:data:`NTT32_SHAPES`: BOOLEAN_128's external
+products at batch 1 and 64, NTRU_128's NTT-evk step at batch 1 and 64, the
+64-bit torus product's four primes at batch 1 and 64), each with its bound
+(8 bytes a word, or ``n / 2 log n`` Shoup multiplies a row of 3 32-bit
+multiplies each) and the tile of rows the launch picked, and
+``fused_cmux_step`` at batch 1 and 64; ``--ntt32 --grids`` copies the
+package to ``.proof/ntt32_tiles`` with the tile set from outside
+(``pft_ntt32_force_tile``) and times both kernels at those shapes on
+every tile of 1, 2, 4 and 8 rows; ``--ntt32 --phases`` copies it to
+``.proof/ntt32_phases`` with clock64() laps in block 0 of both kernels and
+their span on the device's global timer (:func:`stamp_ntt32`).  The
+``empty kernel`` line is the floor of this way of timing: a launch that
+does nothing, timed the same way.
 
 A kernel's device time is the median of 20 calls, each timed with CUDA
 events queued behind a ~1 ms sleep kernel, so the events bracket the kernel
@@ -196,6 +213,208 @@ def ntt_calls(torch, dev) -> dict:
                 lambda p=plan, v=x, m=mt: ntt_mxu8.mxu8_inverse64_mul(p.mxu, v, m),
                 bound_ms, plan.mxu, x, mac_ms, mt)
     return calls
+
+
+# Kernels 1-2's shapes: (label, primes, forward rows a prime, inverse rows a
+# prime, log_n).  BOOLEAN_128 (N = 2048, two primes, k1 = 2 rows a
+# ciphertext): cmux_delta's and the external products' transforms at batch 1
+# and 64; NTRU_128 (N = 1024, one prime): the NTT-evk step transforms L = 6
+# digit rows a ciphertext forward and one back; the 64-bit torus product over
+# four primes at batch 1 (k1 = 2 rows) and at phase 18's batch 64 (k1 L = 8
+# digit rows forward, k1 back).
+NTT32_SHAPES = (
+    ("BOOLEAN_128 b1", (1073692673, 1073668097), 2, 2, 11),
+    ("BOOLEAN_128 b64", (1073692673, 1073668097), 128, 128, 11),
+    ("NTRU_128 b1", (1038337,), 6, 1, 10),
+    ("NTRU_128 b64", (1038337,), 384, 64, 10),
+    ("torus64 b1", "torus64", 2, 2, 11),
+    ("torus64 b64", "torus64", 512, 128, 11),
+)
+
+
+NTT32_LOG_N = {label: log_n for label, *_, log_n in NTT32_SHAPES}
+
+
+def ntt32_calls(torch, dev) -> dict:
+    """``{(kernel, label): (call, bound ms, tables, rows a prime)}`` of
+    kernels 1-2 at :data:`NTT32_SHAPES`: inputs in the kernels' input ranges
+    ([0, 4q) forward, [0, 2q) inverse), int32 storage as the blind
+    rotations pass them, made from a seeded generator on the card."""
+    from primus_fhe_tpu_torch.lattice import tfhe64
+    from primus_fhe_tpu_torch.ops import ntt32
+
+    g = torch.Generator(device=dev).manual_seed(2030)
+    calls = {}
+    for label, primes, f_rows, i_rows, log_n in NTT32_SHAPES:
+        if primes == "torus64":  # phase 18's convolver: gadget 2^16 x 4, k = 1
+            primes = tfhe64.make_convolver64(log_n, 4, 1, 16).primes
+        tables = ntt32.NttTables32(log_n, primes)
+        n, kp = 1 << log_n, len(primes)
+        q = torch.tensor(primes, device=dev).reshape(kp, 1, 1)
+        for name, rows, factor, fn in (("forward32", f_rows, 4, ntt32.forward32),
+                                       ("inverse32", i_rows, 2, ntt32.inverse32)):
+            x = (torch.randint(0, 1 << 40, (kp, rows, n), generator=g, device=dev)
+                 % (factor * q)).to(torch.int32)
+            words = kp * rows * n
+            muls = kp * rows * (n // 2) * log_n * 3
+            bound_ms = max(8 * words / HBM_BYTES_S, muls / INT32_MULS_S) * 1e3
+            calls[(name, label)] = (lambda f=fn, t=tables, v=x: f(t, v), bound_ms, tables, rows)
+    return calls
+
+
+def ntt32_times(torch, dev) -> dict:
+    """Device ms, bound, share of the bound and the launch's tile of rows of
+    kernels 1-2 at each shape, and ``fused_cmux_step`` at batch 1 and 64."""
+    from primus_fhe_tpu_torch.ops import ntt32
+
+    out = {}
+    for (name, label), (fn, bound_ms, tables, rows) in ntt32_calls(torch, dev).items():
+        ms = device_ms(torch, fn)
+        row = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms}
+        if hasattr(ntt32, "launch_tile"):  # an older checkout picks no tile
+            row["tile"] = ntt32.launch_tile(tables, rows, name == "forward32")
+        out[f"{name}@{label}"] = row
+    for (k, b), fn in kernels(torch, dev).items():
+        if k == "step":
+            out[f"fused_cmux_step@b{b}"] = {"ms": device_ms(torch, fn)}
+    # the floor of this timing: a kernel that does nothing, timed the same way
+    out["empty kernel"] = {"ms": device_ms(torch, lambda: torch.cuda._sleep(1))}
+    return out
+
+
+def tile_times(torch, dev) -> dict:
+    """In a ``--ntt32 --grids`` copy: kernels 1-2's device ms at each shape
+    on the launch's own tile and on every tile of 1, 2, 4 and 8 rows (None
+    where it does not fit in shared memory)."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build, ntt32
+
+    lib = build.library()
+    lib.pft_ntt32_force_tile.argtypes = [ctypes.c_int]
+    out = {}
+    for (name, label), (fn, bound_ms, tables, rows) in ntt32_calls(torch, dev).items():
+        lib.pft_ntt32_force_tile(0)
+        want = fn()
+        row = {"own": ntt32.launch_tile(tables, rows, name == "forward32"),
+               "own_ms": device_ms(torch, fn), "bound_ms": bound_ms}
+        for tile in (1, 2, 4, 8):
+            lib.pft_ntt32_force_tile(tile)
+            try:
+                got = fn()
+            except RuntimeError:  # the launch refused a tile that does not fit
+                row[f"tile{tile}"] = None
+                continue
+            if not torch.equal(got, want):
+                raise SystemExit(f"{name} tile {tile} at {label}: words differ")
+            row[f"tile{tile}"] = device_ms(torch, fn)
+        lib.pft_ntt32_force_tile(0)
+        out[f"{name}@{label}"] = row
+    return out
+
+
+def stamp_ntt32(src: Path) -> None:
+    """clock64() laps of thread 0 of block 0 of kernels 1-2 (after pass 1,
+    after the table wait and barrier, after each middle pass, at the end;
+    the inverse's passes after the first as one lap), the earliest block
+    start and the latest block end on the global timer, and a C entry that
+    reads them."""
+    text = src.read_text()
+    head = ("__device__ long long pft_n32_stamps[2][8];\n"
+            "__device__ unsigned long long pft_n32_gt[2][2] = {{~0ull, 0ull}, {~0ull, 0ull}};\n"
+            "#define PFT_N32_LAP() if (threadIdx.x == 0 && blockIdx.x == 0) "
+            "pft_n32_stamps[pft_kind][pft_k++] = clock64();\n"
+            "#define PFT_N32_BEGIN(K) const int pft_kind = K; int pft_k = 0; "
+            "unsigned long long pft_g0; asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+            "\"=l\"(pft_g0)); PFT_N32_LAP()\n"
+            "#define PFT_N32_END() { PFT_N32_LAP() unsigned long long pft_g1; "
+            "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g1)); "
+            "if (threadIdx.x == 0) { atomicMin(&pft_n32_gt[pft_kind][0], pft_g0); "
+            "atomicMax(&pft_n32_gt[pft_kind][1], pft_g1); } }\n")
+    edits = [  # (anchor, count, text after it)
+        ("  const Tile t = block_tile(a);\n", 2, None),
+        ("  fwd_pass<3>(t.count, log_n, 0, FwdFirst(groots, groots_p, 8), q, src, rows);\n", 1,
+         "  PFT_N32_LAP()\n"),
+        ("  if (r == 1) inv_pass<1, Last::no>(t.count, log_n, 0, global, pc, src, rows);\n", 1,
+         "  PFT_N32_LAP()\n"),
+        ("  cp_async_wait<0>();\n  __syncthreads();\n", 2, "  PFT_N32_LAP()\n"),
+        ("    fwd_pass<3>(t.count, log_n, s0, table, q, rows, rows);\n    __syncthreads();\n", 1,
+         "    PFT_N32_LAP()\n"),
+        ("  if (r == 1) fwd_pass<1>(t.count, log_n, log_n - 1, table, q, rows, dst);\n", 1,
+         "  PFT_N32_END()\n"),
+        ("  inv_rest<SwzNtt, LAST>(rows.p, t.count, log_n, r, InvTable{tw, twp, n - m}, pc, dst);\n",
+         1, "  PFT_N32_END()\n"),
+    ]
+    for anchor, count, after in edits:
+        if text.count(anchor) != count:
+            raise SystemExit(f"cmux_mxu_timing: ntt32.cu changed near {anchor.strip()!r}")
+        if after is None:  # the two kernels' heads: forward first
+            at = text.index(anchor) + len(anchor)
+            text = text[:at] + "  PFT_N32_BEGIN(0)\n" + text[at:]
+            at = text.index(anchor, at) + len(anchor)
+            text = text[:at] + "  PFT_N32_BEGIN(1)\n" + text[at:]
+        else:
+            text = text.replace(anchor, anchor + after)
+    text = text.replace("namespace {\n", head + "namespace {\n", 1)
+    reader = ("int pft_read_n32(int kind, void* stamps, void* gt) {\n"
+              "  cudaError_t e = cudaMemcpyFromSymbol(stamps, pft_n32_stamps, 8 * sizeof(long long),"
+              " kind * 8 * sizeof(long long));\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_n32_gt, 16, kind * 16);\n"
+              "  const unsigned long long reset[2] = {~0ull, 0ull};\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(pft_n32_gt, reset, 16, kind * 16);\n"
+              "  return (int)e;\n}\n")
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + reader, 1)
+    src.write_text(text)
+
+
+def ntt32_stamps(torch, dev) -> dict:
+    """In a ``--ntt32 --phases`` copy: block 0's cycles per phase of the
+    last launch of kernels 1-2 at each shape, and the launch's span on the
+    device (earliest block start to latest block end, ns) beside its
+    event-timed device ms."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build
+
+    lib = build.library()
+    lib.pft_read_n32.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    out = {}
+    for (name, label), (fn, _, _, _) in ntt32_calls(torch, dev).items():
+        kind = 0 if name == "forward32" else 1
+        ms = device_ms(torch, fn)
+        stamps = (ctypes.c_longlong * 8)()
+        gt = (ctypes.c_ulonglong * 2)()
+        build.check(lib.pft_read_n32(kind, ctypes.addressof(stamps), ctypes.addressof(gt)),
+                    "pft_read_n32")  # resets the span
+        fn()
+        torch.cuda.synchronize()
+        build.check(lib.pft_read_n32(kind, ctypes.addressof(stamps), ctypes.addressof(gt)),
+                    "pft_read_n32")
+        passes = -(-NTT32_LOG_N[label] // 3)
+        laps = list(stamps)[:passes + 2 if kind == 0 else 4]
+        names = (["pass 1", "table wait + barrier"]
+                 + [f"pass {i}" for i in range(2, passes)] + [f"pass {passes} (stores)"]
+                 if kind == 0 else ["pass 1", "table wait + barrier", "passes 2+ (stores)"])
+        row = dict(zip(names, [laps[i + 1] - laps[i] for i in range(len(names))]))
+        row.update(total_cycles=laps[len(names)] - laps[0], span_ns=gt[1] - gt[0], event_ms=ms)
+        out[f"{name}@{label}"] = row
+    return out
+
+
+def stamp_tiles(src: Path) -> None:
+    """Adds to ``ntt32.cu`` a tile of rows set from outside the launch
+    (``pft_ntt32_force_tile(T)``; 0 for the launch's own)."""
+    text = src.read_text()
+    pick = "  a.tile = pick_tile(forward, kp, rows, log_n, *d);\n"
+    if text.count(pick) != 1:
+        raise SystemExit("cmux_mxu_timing: ntt32.cu's pick moved")
+    text = text.replace(pick, pick + "  if (pft_ntt32_force > 0) a.tile = pft_ntt32_force;\n"
+                        "  if (smem_bytes(forward, log_n, a.tile) > (size_t)SMEM_MAX)\n"
+                        "    return (int)cudaErrorInvalidValue;\n")
+    text = text.replace("namespace {\n", "int pft_ntt32_force = 0;\nnamespace {\n", 1)
+    entry = "int pft_ntt32_force_tile(int t) {\n  pft_ntt32_force = t;\n  return 0;\n}\n"
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + entry, 1)
+    src.write_text(text)
 
 
 def device_times(torch, fn) -> list[float]:
@@ -469,13 +688,16 @@ def rotations(torch, dev) -> dict:
     return out
 
 
-def run_here(stamps: bool, ntt_only: bool = False) -> dict:
+def run_here(stamps: bool, ntt_only: bool = False, ntt32_only: bool = False) -> dict:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("cmux_mxu_timing: needs a CUDA card")
     dev = torch.device("cuda", 0)
     result = {"root": str(Path(sys.path[0]).resolve()), "card": card()}
+    if ntt32_only:
+        result["ntt32"] = ntt32_times(torch, dev)
+        return result
     if not stamps:
         result["ntt"] = ntt_times(torch, dev)
         result["roundtrip"] = roundtrip_times(torch, dev)
@@ -789,11 +1011,20 @@ def main() -> None:
     ap.add_argument("--compare", type=Path, help="time OLD and this checkout in turns")
     ap.add_argument("--phases", action="store_true", help="cycles per phase, stamped copy")
     ap.add_argument("--ntt", action="store_true", help="the u64 transforms only")
+    ap.add_argument("--ntt32", action="store_true", help="kernels 1-2 and the NTT-key step only")
     ap.add_argument("--grids", action="store_true", help="the byte-radix kernels on every grid")
     ap.add_argument("--stamps", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
+        if args.stamps and args.ntt32:
+            import torch
+
+            dev = torch.device("cuda", 0)
+            res = ({"cycles": ntt32_stamps(torch, dev)} if args.phases
+                   else {"tiles": tile_times(torch, dev)})
+            print(json.dumps(res), flush=True)
+            return
         if args.stamps and (args.ntt or args.grids):
             import torch
 
@@ -801,9 +1032,22 @@ def main() -> None:
                    else {"cycles": kernel_stamps(torch)})
             print(json.dumps(res), flush=True)
             return
-        print(json.dumps(run_here(args.stamps, args.ntt)), flush=True)
+        print(json.dumps(run_here(args.stamps, args.ntt, args.ntt32)), flush=True)
         return
     print(card(), flush=True)
+    if args.ntt32 and (args.grids or args.phases):
+        root = HERE / ".proof" / ("ntt32_tiles" if args.grids else "ntt32_phases")
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(HERE / "primus_fhe_tpu_torch", root / "primus_fhe_tpu_torch",
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        src = root / "primus_fhe_tpu_torch" / "csrc" / "ntt32.cu"
+        (stamp_tiles if args.grids else stamp_ntt32)(src)
+        res = subprocess_run(root, "--stamps", "--ntt32", *(() if args.grids else ("--phases",)))
+        for key, row in res["tiles" if args.grids else "cycles"].items():
+            print(key, json.dumps(row), flush=True)
+        res["card"] = card()
+        print(json.dumps(res), flush=True)
+        return
     if args.grids or (args.phases and args.ntt):
         root = HERE / ".proof" / ("fwd_grids" if args.grids else "fwd_phases")
         shutil.rmtree(root, ignore_errors=True)
@@ -829,10 +1073,10 @@ def main() -> None:
         return
     if args.compare is None:
         sys.path.insert(0, str(HERE))
-        print(json.dumps(run_here(False, args.ntt)), flush=True)
+        print(json.dumps(run_here(False, args.ntt, args.ntt32)), flush=True)
         return
     runs = []
-    extra = ("--ntt",) if args.ntt else ()
+    extra = ("--ntt",) if args.ntt else ("--ntt32",) if args.ntt32 else ()
     for side, root in (("old", args.compare), ("new", HERE), ("new", HERE), ("old", args.compare)):
         res = subprocess_run(root, *extra)
         res["side"] = side
@@ -849,6 +1093,7 @@ def main() -> None:
     host = mean("ntt", lambda r: {f"{k}:{part}": us for k, v in r["ntt"].items()
                                   for part, us in v.get("host", {}).items()})
     summary = {"card": runs[0]["card"], "mean_ntt_ms": ntt, "mean_host_us": host,
+               "mean_ntt32_ms": mean("ntt32", lambda r: {k: v["ms"] for k, v in r["ntt32"].items()}),
                "mean_roundtrip_ms": mean("roundtrip", lambda r: {
                    k: v["ms"] for k, v in r["roundtrip"].items()}),
                "mean_ms": mean("ms", lambda r: r["ms"]),

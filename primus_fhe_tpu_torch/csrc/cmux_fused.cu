@@ -61,7 +61,9 @@
 // Shared memory holds rows at a swizzled word index (swz): every 8-word
 // radix pass and every coefficient-order sweep of a warp hits 32 distinct
 // banks (tests/test_torch_cmux_step_model.py checks the passes, the index
-// maps and the ownership against the plain versions).
+// maps and the ownership against the plain versions).  The radix passes,
+// butterflies and swizzle are csrc/ntt32_passes.cuh's, shared with kernels
+// 1-2.
 //
 // The output is the exact CRT of canonical residues, so it is bit-equal to
 // the plain composition whatever the lazy schedule inside (all words stay
@@ -75,7 +77,7 @@
 
 #include <cooperative_groups.h>
 
-#include "modarith32.cuh"
+#include "ntt32_passes.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -101,57 +103,6 @@ struct StepArgs {
   BasisConsts bc;
   int kp, k1, log_n;
 };
-
-// Shared-memory word of coefficient (or NTT slot) i: bits 0-4 XOR bits 3-7.
-__device__ __forceinline__ int swz(int i) { return i ^ ((i >> 3) & 31); }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Harvey forward butterfly (x, y) -> (x + wy, x - wy), lazy in [0, 4q).
-__device__ __forceinline__ void fwd_bf(uint32_t& x, uint32_t& y, uint32_t w, uint32_t wp,
-                                       uint32_t q) {
-  const uint32_t two_q = 2u * q;
-  const uint32_t tx = x >= two_q ? x - two_q : x;
-  const uint32_t ty = shoup_mul_lazy(y, w, wp, q);
-  x = tx + ty;
-  y = tx + two_q - ty;
-}
-
-// Gentleman-Sande inverse butterfly (x, y) -> (x + y, w (x - y)), lazy in [0, 2q).
-__device__ __forceinline__ void inv_bf(uint32_t& x, uint32_t& y, uint32_t w, uint32_t wp,
-                                       uint32_t q) {
-  const uint32_t two_q = 2u * q;
-  const uint32_t s = x + y;
-  const uint32_t d = x + two_q - y;
-  x = s >= two_q ? s - two_q : s;
-  y = shoup_mul_lazy(d, w, wp, q);
-}
-
-// R forward stages on the 2^R words v of one radix group.  tw(e, j, w, wp)
-// gives the twiddle of block j (within the group's span) at stage e.
-template <int R, class TW>
-__device__ __forceinline__ void fwd_stages(uint32_t (&v)[1 << R], TW tw, uint32_t q) {
-#pragma unroll
-  for (int e = 0; e < R; ++e) {
-    const int h = 1 << (R - 1 - e);
-#pragma unroll
-    for (int k = 0; k < (1 << R); ++k)
-      if (!(k & h)) {
-        uint32_t w, wp;
-        tw(e, k >> (R - e), w, wp);
-        fwd_bf(v[k], v[k + h], w, wp, q);
-      }
-  }
-}
 
 // Pass 1 of the forward transforms (stages 0..R-1), fused with the
 // rotate-diff and the gadget digits.  Group g holds coefficients
@@ -197,94 +148,6 @@ __device__ void digit_pass(uint32_t* rows, const uint32_t* a, int d, const Basis
       uint32_t* row = rows + (l << log_n);
 #pragma unroll
       for (int k = 0; k < G; ++k) row[swz((k << log_tl) + g)] = v[k];
-    }
-  }
-}
-
-// One radix-8 forward pass (stages s0 .. s0+2) over all L transforms:
-// group g = (hi, lo) holds slots hi * 8t + k * t + lo, t = n >> (s0 + 3).
-__device__ void fwd_pass(uint32_t* rows, int L, int log_n, int s0, const uint32_t* tw,
-                         const uint32_t* twp, uint32_t q) {
-  const int log_tl = log_n - s0 - 3;
-  const int log_g = log_n - 3;  // groups a transform
-  for (int it = threadIdx.x; it < (L << log_g); it += blockDim.x) {
-    const int g = it & ((1 << log_g) - 1);
-    const int hi = g >> log_tl, lo = g & ((1 << log_tl) - 1);
-    const int base = (hi << (log_tl + 3)) + lo;
-    uint32_t* row = rows + ((it >> log_g) << log_n);
-    uint32_t v[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = row[swz(base + (k << log_tl))];
-    fwd_stages<3>(
-        v,
-        [&](int e, int j, uint32_t& w, uint32_t& wp) {
-          const int ti = (1 << (s0 + e)) + (hi << e) + j;
-          w = tw[ti];
-          wp = twp[ti];
-        },
-        q);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) row[swz(base + (k << log_tl))] = v[k];
-  }
-}
-
-// One inverse pass of R stages s0 .. s0+R-1 on one row: group g = (hi, lo)
-// holds slots hi * 2^(s0+R) + k * 2^s0 + lo.  LAST: stage s0+R-1 is the
-// final one (inv_n folded in, canonical output).  load(c) gives slot c of
-// the pass's input, store(c, v) takes slot c of its output.
-template <int R, bool LAST, class LOAD, class STORE>
-__device__ void inv_pass(int log_n, int s0, const uint32_t* tw, const uint32_t* twp,
-                         const PrimeConsts& pc, LOAD load, STORE store) {
-  const int n = 1 << log_n;
-  const uint32_t q = pc.q, two_q = 2u * q;
-  for (int g = threadIdx.x; g < (n >> R); g += blockDim.x) {
-    const int hi = g >> s0, lo = g & ((1 << s0) - 1);
-    const int base = (hi << (s0 + R)) + lo;
-    uint32_t v[1 << R];
-#pragma unroll
-    for (int k = 0; k < (1 << R); ++k) v[k] = load(base + (k << s0));
-#pragma unroll
-    for (int e = 0; e < R; ++e) {
-      const int h = 1 << e;
-      const int start = 1 + n - (n >> (s0 + e));
-#pragma unroll
-      for (int k = 0; k < (1 << R); ++k) {
-        if (k & h) continue;
-        if (LAST && e == R - 1) {
-          const uint32_t x = v[k], y = v[k + h];
-          const uint32_t s = x + y;
-          const uint32_t tx = s >= two_q ? s - two_q : s;
-          v[k] = reduce_once(shoup_mul_lazy(tx, pc.inv_n, pc.inv_n_p, q), q);
-          v[k + h] = reduce_once(shoup_mul_lazy(x + two_q - y, pc.inv_n_w, pc.inv_n_w_p, q), q);
-        } else {
-          const int ti = start + (hi << (R - 1 - e)) + (k >> (e + 1));
-          inv_bf(v[k], v[k + h], tw[ti], twp[ti], q);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < (1 << R); ++k) store(base + (k << s0), v[k]);
-  }
-}
-
-// The inverse passes after the first: radix 8, the last one R = 1..3, whose
-// canonical output goes to last_store instead of the row.
-template <class STORE>
-__device__ void inv_rest(uint32_t* row, int log_n, const uint32_t* tw, const uint32_t* twp,
-                         const PrimeConsts& pc, STORE last_store) {
-  const auto load = [row](int c) { return row[swz(c)]; };
-  const auto keep = [row](int c, uint32_t v) { row[swz(c)] = v; };
-  for (int s0 = 3; s0 < log_n; s0 += 3) {
-    const int r = log_n - s0;
-    if (r > 3) {
-      inv_pass<3, false>(log_n, s0, tw, twp, pc, load, keep);
-      __syncthreads();
-    } else if (r == 3) {
-      inv_pass<3, true>(log_n, s0, tw, twp, pc, load, last_store);
-    } else if (r == 2) {
-      inv_pass<2, true>(log_n, s0, tw, twp, pc, load, last_store);
-    } else {
-      inv_pass<1, true>(log_n, s0, tw, twp, pc, load, last_store);
     }
   }
 }
@@ -382,8 +245,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) cmux_step_kernel(const StepArg
 
   // 2. the other forward passes, radix 8; then the inverse tables replace
   //    the forward ones
+  const SmemRows<SwzStep> digits{rows, log_n};
   for (int s0 = r0; s0 < log_n; s0 += 3) {
-    fwd_pass(rows, L, log_n, s0, tw, twp, q);
+    fwd_pass<3>(L, log_n, s0, FwdTable{tw, twp}, q, digits, digits);
     __syncthreads();
   }
   for (int i = 4 * tid; i < n; i += 4 * nt) {
@@ -411,14 +275,14 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) cmux_step_kernel(const StepArg
 
   // 4. component r: the first inverse pass adds the k1 partials of the
   //    inbox, the inverse NTT runs in inbox row 0, canonical
-  const auto summed = [&](int c) {
+  const auto summed = slot_load([&](int, int c) {
     const int p = swz(c);
     uint32_t v = inbox[p];
     for (int rr = 1; rr < k1; ++rr) v = reduce_once(v + inbox[(rr << log_n) + p], q);
     return v;
-  };
-  const auto keep = [inbox](int c, uint32_t v) { inbox[swz(c)] = v; };
-  inv_pass<3, false>(log_n, 0, tw, twp, pc, summed, keep);
+  });
+  const InvTable itw{tw, twp};
+  inv_pass<3, Last::no>(1, log_n, 0, itw, pc, summed, SmemRows<SwzStep>{inbox, log_n});
   __syncthreads();
 
   // 5. each of component r's kp blocks takes n / kp of its coefficients:
@@ -426,13 +290,13 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) cmux_step_kernel(const StepArg
   //    stores it into row pi of the CRT inbox of block (pd, r) that owns
   //    the coefficient
   const int chunk = (n + kp - 1) / kp;
-  const auto push = [&](int c, uint32_t v) {
+  const auto push = slot_store([&](int, int c, uint32_t v) {
     int pd = 0;
     while (pd + 1 < kp && c >= (pd + 1) * chunk) ++pd;
     *cluster.map_shared_rank(crt_in + (pi << log_n) + c, pd * k1 + r) =
         reduce_once(shoup_mul_lazy(v, a.crt.iw[pi], a.crt.ipq[pi], q), q);
-  };
-  inv_rest(inbox, log_n, tw, twp, pc, push);
+  });
+  inv_rest<SwzStep, Last::canonical>(inbox, 1, log_n, 3, itw, pc, push);
   cluster.sync();  // the last access to a peer's shared memory precedes this
 
   // 6. integer CRT of the kp residues and the wrapping add to acc, U

@@ -89,79 +89,6 @@ __device__ __forceinline__ uint32_t lift_mod_p(uint32_t x, const PrimeConsts& c)
   return r;
 }
 
-// Forward negacyclic NTT of v[0, n) in shared memory, in place: normal-order
-// input in [0, 4q), bit-reversed output lazy in [0, 4q).  Cooley-Tukey
-// stages with Harvey butterflies; roots/roots_p are the prime's bit-reversed
-// root table and Shoup quotients.  Every thread of the block must call it;
-// the caller synchronises before (inputs written) and it synchronises after
-// each stage.
-__device__ __forceinline__ void ntt_forward_smem(uint32_t* v, const uint32_t* __restrict__ roots,
-                                                 const uint32_t* __restrict__ roots_p,
-                                                 uint32_t q, int log_n) {
-  const int half = 1 << (log_n - 1);
-  const uint32_t two_q = 2u * q;
-  for (int s = 0; s < log_n; ++s) {
-    const int log_t = log_n - 1 - s;
-    const int t = 1 << log_t;
-    const int m = 1 << s;
-    for (int i = threadIdx.x; i < half; i += blockDim.x) {
-      const int j = i >> log_t;
-      const int xi = (j << (log_t + 1)) + (i & (t - 1));
-      const int yi = xi + t;
-      const uint32_t x = v[xi];
-      const uint32_t tx = x >= two_q ? x - two_q : x;
-      const uint32_t ty = shoup_mul_lazy(v[yi], roots[m + j], roots_p[m + j], q);
-      v[xi] = tx + ty;
-      v[yi] = tx + two_q - ty;
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse negacyclic NTT of v[0, n) in shared memory, in place: bit-reversed
-// input in [0, 2q), normal-order output, canonical if `canonical` else lazy
-// in [0, 2q).  Gentleman-Sande stages, inv_n folded into the last one.
-__device__ __forceinline__ void ntt_inverse_smem(uint32_t* v,
-                                                 const uint32_t* __restrict__ inv_roots,
-                                                 const uint32_t* __restrict__ inv_roots_p,
-                                                 const PrimeConsts& c, int log_n, bool canonical) {
-  const int n = 1 << log_n;
-  const int half = n >> 1;
-  const uint32_t q = c.q;
-  const uint32_t two_q = 2u * q;
-  for (int s = 0; s < log_n - 1; ++s) {
-    const int log_t = s;
-    const int t = 1 << log_t;
-    const int start = 1 + n - (n >> s);
-    for (int i = threadIdx.x; i < half; i += blockDim.x) {
-      const int j = i >> log_t;
-      const int xi = (j << (log_t + 1)) + (i & (t - 1));
-      const int yi = xi + t;
-      const uint32_t x = v[xi];
-      const uint32_t y = v[yi];
-      const uint32_t sxy = x + y;
-      v[xi] = sxy >= two_q ? sxy - two_q : sxy;
-      v[yi] = shoup_mul_lazy(x + two_q - y, inv_roots[start + j], inv_roots_p[start + j], q);
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < half; i += blockDim.x) {
-    const uint32_t x = v[i];
-    const uint32_t y = v[i + half];
-    const uint32_t sxy = x + y;
-    const uint32_t tx = sxy >= two_q ? sxy - two_q : sxy;
-    uint32_t ox = shoup_mul_lazy(tx, c.inv_n, c.inv_n_p, q);
-    uint32_t oy = shoup_mul_lazy(x + two_q - y, c.inv_n_w, c.inv_n_w_p, q);
-    if (canonical) {
-      ox = reduce_once(ox, q);
-      oy = reduce_once(oy, q);
-    }
-    v[i] = ox;
-    v[i + half] = oy;
-  }
-  __syncthreads();
-}
-
 // Gadget-decomposition constants of an ApproxSignedBasis32 in torus mode
 // (host pack of ops/cmux_fused._basis_pack, first 7 words: level,
 // log_basis, drop_bits, B-1, carry_mask, 2^32-B, init_carry_mask or 0).
@@ -201,9 +128,4 @@ __device__ __forceinline__ uint32_t rotated_at(const uint32_t* a, int c, int d, 
 __device__ __forceinline__ int degree_mod(int d, int n) {
   d %= 2 * n;
   return d < 0 ? d + 2 * n : d;
-}
-
-inline int block_threads(int log_n) {
-  const int half = 1 << (log_n - 1);
-  return half < 1024 ? half : 1024;
 }

@@ -170,6 +170,12 @@ def fused_cmux_step(conv, basis, acc: torch.Tensor, degrees: torch.Tensor, key: 
     tensors take the plain composition ``cmux_stage2_plain(
     cmux_stage1_plain(...))``, CUDA tensors the kernel; the output keeps
     ``acc``'s storage (int64 or int32).
+
+    The kernel's limits on the card (:class:`CmuxStepPlan` raises
+    ``ValueError`` past them, before any launch): a cluster of ``kp * k1 <=
+    8`` blocks with ``k1 <= 4``, ``L`` 1-16 (the MAC's 64-bit sum),
+    ``log_n`` 4-12, and ``(2 + kp + L + k1) * 4n`` bytes of shared memory
+    within 227 KB.  The plain composition takes any shape.
     """
     if acc.device.type == "cpu":
         return CmuxStepPlan(conv, basis, acc.shape[1], "cpu")(acc, degrees, key)

@@ -298,6 +298,15 @@ def mxu_cmux_step(plan: CmuxMxuPlan, basis, conv, acc: torch.Tensor, degrees: to
     carries the CRT constants and the plain version's transforms.  CPU
     tensors take the plain version, CUDA tensors kernel A; the output keeps
     ``acc``'s storage (int64 or int32).
+
+    Kernel A's limits on the card: ``log_n`` 8-12 and primes below 2^30
+    (:class:`CmuxMxuPlan` raises ``ValueError`` below 8 or on a larger
+    prime), at most 4 primes, gadget bases up to 2^15 (:func:`digit_planes`
+    raises ``ValueError``), key rows starting on a 16-byte boundary
+    (``ValueError``), and a block's shared memory within 227 KB (e.g. not
+    ``log_n`` 12 with ``k1 * L = 6``): the C entry refuses a shape past
+    these before any launch (a ``RuntimeError`` from :func:`build.check`),
+    so no word is wrong.
     """
     if acc.device.type == "cpu":
         out = mxu_cmux_step_plain(conv, basis, widen_u32(acc), degrees, widen_u32(key_vals))

@@ -77,7 +77,13 @@ def ntru_cmux_step(plan: CmuxMxuPlan, basis, acc: torch.Tensor, degrees: torch.T
     """One NGS CMux step on the MXU evk: ``acc (B, n)`` canonical mod q,
     ``degrees (B,)`` in ``[0, 2n)``, ``kv``/``kpre`` ``(L, A, 128)`` EVK row
     values and Shoup quotients.  CPU tensors take the plain version, CUDA
-    tensors kernel B; the output (canonical) keeps ``acc``'s storage."""
+    tensors kernel B; the output (canonical) keeps ``acc``'s storage.
+
+    Kernel B's limits on the card are kernel A's
+    (:func:`.cmux_mxu.mxu_cmux_step`) with one prime: ``log_n`` 8-12, ``q``
+    below 2^30, gadget bases up to 2^15, 16-byte aligned key rows and a
+    block's shared memory within 227 KB; past them a ``ValueError`` or the
+    C entry's refusal (``RuntimeError``) comes before any launch."""
     if acc.device.type == "cpu":
         out = ntru_cmux_step_plain(plan, basis, widen_u32(acc), degrees, widen_u32(kv))
         return narrow_u32(out) if acc.dtype == torch.int32 else out

@@ -6,16 +6,26 @@ Replaces ``pallas_forward32`` and ``pallas_inverse32``
 ``_make_fwd_kernel32``/``_make_inv_kernel32``).  CUDA source:
 ``csrc/ntt32.cu``.
 
-Design on Hopper: one thread block per polynomial row, with the row
-(N <= 4096 words, at most 16 KB) held in shared memory through every
-butterfly stage and ``__syncthreads()`` between stages; each thread runs
-one butterfly per stage (N/2 threads, capped at 1024).  The prime axis is
-part of the grid, so one launch serves every prime.  Twiddles are read from
-the compact bit-reversed root table of each prime (N roots plus N Shoup
-quotients, from ``GoldenNtt``), not the TPU's per-lane expanded tables.
-What bounds it: at N=2048 a row is 8 KB in and 8 KB out against 11 stages
-of ``__umulhi`` Shoup butterflies, so a large batch is bound by device
-memory traffic and a batch of a few rows by launch latency.
+Design on Hopper.  What bounds the transforms: at N = 2048 a row is 8 KB in
+and 8 KB out against 11k Shoup butterflies, so 256 rows (4.2 MB) are bound
+by device memory (1.25 us at 3.35 TB/s), and a few rows by latency: the
+launch, then the chain of dependent shared-memory round trips and barriers
+through log N stages.  So each thread holds one radix-8 group of 8 words in
+registers through 3 stages, and a transform is ``ceil(log N / 3)`` passes
+with a barrier between two (4 passes, 3 barriers at N = 1024 and 2048); the
+forward's first pass reads its groups straight from device memory and its
+last pass (the remainder, 1-3 stages) stores them straight back, 8 or 16
+bytes a thread, and the inverse mirrors it.  The passes between live in
+shared memory at a swizzled index on which every warp hits 32 distinct
+banks.  The forward's first pass takes its 7 roots into registers while
+the prime's root table and Shoup quotients (16 KB at N = 2048) are copied
+into shared memory; the inverse's first pass reads its twiddles from device
+memory while the part its later passes use is copied.  A block takes a
+tile of rows of one prime, so each staged table word serves the whole tile;
+the C entry picks the tile from the rows, the SM count and the blocks an
+SM holds (``csrc/ntt32.cu``'s ``pick_tile``: the smallest tile that runs
+the grid in one wave).  The passes are one copy in
+``csrc/ntt32_passes.cuh``, shared with the CMux step kernel.
 
 The butterflies are the plain version's (:mod:`..transforms.ntt`) formulas
 exactly, so canonical and lazy outputs are bit-equal to it.
@@ -33,6 +43,7 @@ from ..transforms.plan import build_plan32
 from . import build
 
 MAX_PRIMES = 4  # PFT_MAX_KP in csrc/modarith32.cuh
+MAX_LOG_N = 14  # the kernels' largest row (MAX_LOG_N in csrc/ntt32.cu)
 
 
 class NttTables32:
@@ -103,7 +114,12 @@ def _run(wrapper, plain, entry: str, table_idx: int, tables: NttTables32, values
     kp, n = len(tables.primes), tables.n
     if values.shape[0] != kp or values.shape[-1] != n:
         raise ValueError(f"expected (kp={kp}, ..., n={n}), got {tuple(values.shape)}")
+    if tables.log_n > MAX_LOG_N:
+        raise ValueError(f"{wrapper.__name__}: the kernel takes log_n 1-{MAX_LOG_N} on the card, "
+                         f"got {tables.log_n}")
     v = narrow_u32(values).contiguous()
+    if v.data_ptr() % 16:  # the kernels move words 8 or 16 bytes at a time
+        v = v.clone()
     out = torch.empty_like(v)
     rows = v[0].numel() // n
     if rows:
@@ -124,7 +140,9 @@ def forward32(tables: NttTables32, values: torch.Tensor, out_factor: int = 1):
     ``values[i]``.  Input normal order in ``[0,4q)``; output bit-reversed,
     canonical for ``out_factor=1`` and lazy ``[0,4q)`` for ``4``.
 
-    CPU tensors take the plain version, CUDA tensors the kernel.
+    CPU tensors take the plain version (any ``log_n``), CUDA tensors the
+    kernel, which takes ``log_n`` 1-14 (:data:`MAX_LOG_N`; a ``ValueError``
+    above) and at most 4 primes (:class:`NttTables32` refuses more).
     """
     if out_factor not in (1, 4):
         raise ValueError("out_factor must be 1 or 4")
@@ -134,10 +152,23 @@ def forward32(tables: NttTables32, values: torch.Tensor, out_factor: int = 1):
 def inverse32(tables: NttTables32, values: torch.Tensor, out_factor: int = 1):
     """Inverse NTT of ``values (kp, ..., n)``, bit-reversed input in
     ``[0,2q)``; output normal order, canonical for ``out_factor=1`` and
-    lazy ``[0,2q)`` for ``2``."""
+    lazy ``[0,2q)`` for ``2``.  The same devices and limits as
+    :func:`forward32`."""
     if out_factor not in (1, 2):
         raise ValueError("out_factor must be 1 or 2")
     return _run(inverse32, inverse32_plain, "pft_ntt32_inverse", 2, tables, values, out_factor)
+
+
+def launch_tile(tables: NttTables32, rows: int, forward: bool = True) -> int:
+    """Rows of one prime a block of the kernel's launch on ``rows`` rows a
+    prime, on the current CUDA device (the C entry's own pick)."""
+    import ctypes
+
+    tile = ctypes.c_int()
+    err = build.library().pft_ntt32_tile(int(forward), len(tables.primes), rows, tables.log_n,
+                                         ctypes.addressof(tile))
+    build.check(err, "pft_ntt32_tile")
+    return tile.value
 
 
 forward32.launches = 0

@@ -1,6 +1,7 @@
 """Kernels 1-4, A-G and the four u64 NTT kernels against their plain PyTorch
-versions on a CUDA card, at shapes ``chip_smoke.py`` does not reach: N from
-32 (16 threads a block) to 4096, three primes, and int32 storage; the
+versions on a CUDA card, at shapes ``chip_smoke.py`` does not reach: kernels
+1-2 at N from 2 (one pass) to 16384, 1-4 primes, 1 to 384 rows a prime and a
+ragged last tile of rows, and int32 storage; the
 one-launch CMux step (kernels 3-4) at N 32-4096, the 2^1 x 12 gadget, k=2
 (clusters of 6 blocks), batches 1, 3, 64, 65 and in place; for the int8 kernels log_n 8-12,
 k=1 and 2, L 2-4, 1- and 2-byte digits, 2-4 primes, batches that leave
@@ -62,25 +63,74 @@ def _residues(gen, primes, shape, factor, dev):
     return r % (factor * q)
 
 
-@pytest.mark.parametrize("log_n", [5, 8, 11, 12])
-def test_ntt_kernels_match_plain(dev, log_n):
-    tables = ntt32.NttTables32(log_n, PRIMES3)
+PRIMES4 = PRIMES3 + [1073643521]
+PRIMES_2E15 = [1073643521, 1073479681]  # = 1 mod 2^15: log_n 13-14
+BOOL_PRIMES = [1073692673, 1073668097]  # BOOLEAN_128's convolver
+NTRU_Q = [1038337]  # NTRU_128's q, = 1 mod 2^11
+
+
+def _ragged_rows(tables, start):
+    """The first row count from ``start`` on that the launch (on this card)
+    cuts into tiles of more than one row with a ragged last tile."""
+    for rows in range(start, start + 2048):
+        tile = ntt32.launch_tile(tables, rows)
+        if tile > 1 and rows % tile:
+            return rows
+    raise AssertionError("no ragged tile within 2048 row counts")
+
+
+@pytest.mark.parametrize("log_n,primes,rows", [
+    pytest.param(1, PRIMES3, (3, 2)), pytest.param(2, PRIMES3, (3, 2)),
+    pytest.param(3, PRIMES3, (3, 2)), pytest.param(4, PRIMES3, (3, 2)),
+    pytest.param(5, PRIMES3, (3, 2), id="5"), pytest.param(8, PRIMES3, (3, 2), id="8"),
+    pytest.param(11, PRIMES3, (3, 2), id="11"), pytest.param(12, PRIMES3, (3, 2), id="12"),
+    pytest.param(10, NTRU_Q, (1,)), pytest.param(10, NTRU_Q, (6,)),
+    pytest.param(10, NTRU_Q, (384,)), pytest.param(10, NTRU_Q, (64,)),
+    pytest.param(11, BOOL_PRIMES, (2,)), pytest.param(11, BOOL_PRIMES, (128,)),
+    pytest.param(11, BOOL_PRIMES, "ragged"), pytest.param(10, NTRU_Q, "ragged"),
+    pytest.param(11, PRIMES4, (2,)), pytest.param(12, PRIMES4, (3,)),
+    pytest.param(13, PRIMES_2E15[:1], (3,)), pytest.param(14, PRIMES_2E15, (2,)),
+])
+def test_ntt_kernels_match_plain(dev, log_n, primes, rows):
+    """Kernels 1-2 against the plain versions, every ``out_factor``: one
+    pass (log_n 1-3) and 2-5 passes, the NTRU_128 and BOOLEAN_128 shapes of
+    the blind rotations at batch 1 and 64, a ragged last tile, 4 primes and
+    log_n 13-14; int64 words and int32 storage; the round trip."""
+    tables = ntt32.NttTables32(log_n, primes)
     gen = torch.Generator(device=dev).manual_seed(log_n)
     n = 1 << log_n
-    x = _residues(gen, PRIMES3, (3, 2, n), 4, dev)
+    if rows == "ragged":
+        rows = (_ragged_rows(tables, 129),)
+    kp = len(primes)
+    x = _residues(gen, primes, rows + (n,), 4, dev)
     for out_factor in (1, 4):
         want = ntt32.forward32_plain(tables, x, out_factor)
         assert torch.equal(ntt32.forward32(tables, x, out_factor), want)
         got32 = ntt32.forward32(tables, x.to(torch.int32), out_factor)
         assert got32.dtype == torch.int32
         assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want)
-    y = _residues(gen, PRIMES3, (3, 2, n), 2, dev)
+    y = _residues(gen, primes, rows + (n,), 2, dev)
     for out_factor in (1, 2):
         want = ntt32.inverse32_plain(tables, y, out_factor)
         assert torch.equal(ntt32.inverse32(tables, y, out_factor), want)
-    roundtrip = ntt32.inverse32(tables, ntt32.forward32(tables, y % torch.tensor(
-        PRIMES3, device=dev).reshape(3, 1, 1, 1)))
-    assert torch.equal(roundtrip, y % torch.tensor(PRIMES3, device=dev).reshape(3, 1, 1, 1))
+        got32 = ntt32.inverse32(tables, y.to(torch.int32), out_factor)
+        assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want)
+    q = torch.tensor(primes, device=dev).reshape((kp,) + (1,) * (len(rows) + 1))
+    roundtrip = ntt32.inverse32(tables, ntt32.forward32(tables, y % q))
+    assert torch.equal(roundtrip, y % q)
+
+
+def test_ntt_kernels_refuse_rows_past_the_card(dev):
+    """log_n 15 takes the plain version on the CPU and a ValueError naming
+    the limit on the card, before any launch."""
+    tables = ntt32.NttTables32(15, [next_ntt_prime(30, 15)])
+    x = torch.zeros((1, 1, 1 << 15), dtype=torch.int64, device=dev)
+    before = ntt32.forward32.launches
+    with pytest.raises(ValueError, match="log_n 1-14"):
+        ntt32.forward32(tables, x)
+    with pytest.raises(ValueError, match="log_n 1-14"):
+        ntt32.inverse32(tables, x)
+    assert ntt32.forward32.launches == before
 
 
 @pytest.mark.parametrize("bsz", [1, 3, 64, 65])
