@@ -59,8 +59,10 @@ non-zero):
     (``mxu8_inverse64_mul``), and the butterfly route (``ntt64_forward`` at
     ``out_factor=4``, a Shoup multiply, ``ntt64_inverse``) give the same
     words on all 512 rows and rows 0-15 equal the plain ``negacyclic_mul64``;
-    D and E against their plain versions at 7 and 8 byte planes; per route
-    ms a trip over 20 chained trips and ``bench.py``'s modmul/s;
+    D and E against their plain versions at 7 and 8 byte planes, and the
+    butterfly route's ``ntt64_forward`` (``out_factor=4``) and
+    ``ntt64_inverse`` against theirs at the 512 rows; per route ms a trip
+    over 20 chained trips and ``bench.py``'s modmul/s;
 12. the large-n four-step NTT at n = 2^16 over the 62-bit
     q = 4611686018425815041, 2 rows, on the MXU and butterfly routes: the
     forward equals the plain ``forward64``, the lazy forward round-trips,
@@ -649,6 +651,13 @@ def phase11_roundtrip(torch, dev, table) -> dict:
                                muls32=2 * ntt_muls(RT_BATCH, n, u64=True) + key_muls))
         if q != RT_MODULI[0]:
             continue
+        row10 = bound(16 * words, muls32=ntt_muls(RT_BATCH, n, u64=True))
+        compare_kernel64(torch, table, "ntt64_forward@rt", RT_BATCH,
+                         lambda: ntt64.ntt64_forward(ntt, x, 4),
+                         lambda: ntt64.ntt64_forward_plain(ntt, x, 4), row10)
+        compare_kernel64(torch, table, "ntt64_inverse@rt", RT_BATCH,
+                         lambda: ntt64.ntt64_inverse(ntt, x),
+                         lambda: ntt64.ntt64_inverse_plain(ntt, x), row10)
         log(f"ms a trip over {RT_TRIPS} chained trips (CUDA events); bench.py's metric "
             f"{RT_BATCH} x (n log n + n) modmuls a trip")
         modmuls = RT_BATCH * (n * log_n + n)
@@ -1834,6 +1843,11 @@ def main() -> None:
             _, kms, kpms, kdev, (kbms, _) = table[f"{name}@nokey"][b0]
             row.update({"ms_nokey": kms, "plain_ms_nokey": kpms, "device_ms_nokey": kdev,
                         "bound_ms_nokey": kbms})
+        if f"{name}@rt" in table:  # row 10 on phase 11's butterfly route, 512 rows
+            _, rms, rpms, rdev, (rbms, rbby) = table[f"{name}@rt"][RT_BATCH]
+            row.update({"launches_roundtrip_path": counts_rt[name], "ms_rt": rms,
+                        "plain_ms_rt": rpms, "device_ms_rt": rdev, "bound_ms_rt": rbms,
+                        "bound_by_rt": rbby})
         if f"{name}@shard" in table:  # row 12: the same kernels on a residue shard's tables
             _, sms, spms, sdev, (sbms, _) = table[f"{name}@shard"][DCRT_BATCH // SHARD_MESH[1]]
             row.update({"launches_sharded_path": counts_s[name], "ms_sharded_path": sms,

@@ -4,12 +4,14 @@ the NTT-key CMux step (``fused_cmux_step``, kernels 3-4) on one CUDA card, at
 BOOLEAN_128 width (N = 2048, k = 1, L = 3, two primes) and NTRU_128 width
 (N = 1024, q = 1038337, L = 6), batch 1 and 64; the NTT-key blind
 rotation at BOOLEAN_128 width (630 steps on a random canonical key): wall
-ms, host us a step and the device's idle share; and the DCRT rotation's
-forward transforms, ``mxu8_forward64`` and ``ntt64_forward``, at n = 4096 on
-``bench_dcrt.py``'s two 50-bit moduli: 16 rows (batch 1), 64 rows (one
-modulus: a residue shard's call) and 256 rows (batch 16), each with its
-bound, its share of it, and ``mxu8_forward64``'s host time a call broken
-down.
+ms, host us a step and the device's idle share; and the u64 transforms
+of both routes, ``mxu8_forward64`` / ``mxu8_inverse64`` and row 10's
+``ntt64_forward`` / ``ntt64_inverse``, on ``bench_dcrt.py``'s 50-bit moduli
+at the shapes of their paths (:data:`NTT_SHAPES`, :data:`INV_SHAPES`: the
+DCRT rotation's batch 1 and 16, a residue shard's, ``bench.py``'s round
+trip of 512 rows, the four-step's sub-transforms of 256 words), each with
+its bound, its share of it, row 10's tile of rows, and the byte-radix
+wrappers' host time a call broken down.
 
     python3 cmux_mxu_timing.py                 # this checkout
     python3 cmux_mxu_timing.py --root DIR      # the package under DIR
@@ -21,6 +23,9 @@ down.
     python3 cmux_mxu_timing.py --ntt32 ...     # kernels 1-2 and the NTT-key step only
     python3 cmux_mxu_timing.py --ntt32 --grids # kernels 1-2 on every tile of rows
     python3 cmux_mxu_timing.py --ntt32 --phases  # their cycles per pass (clock64)
+    python3 cmux_mxu_timing.py --ntt64 ...     # row 10 only (with --compare OLD: in turns)
+    python3 cmux_mxu_timing.py --ntt64 --grids # row 10 on every tile of rows
+    python3 cmux_mxu_timing.py --ntt64 --phases  # its cycles per pass (clock64)
 
 Both forward transforms are bounded by the function they compute: 16 bytes
 a word over the HBM rate, or the butterfly's ``n / 2 log n`` Shoup
@@ -49,7 +54,11 @@ package to ``.proof/ntt32_tiles`` with the tile set from outside
 (``pft_ntt32_force_tile``) and times both kernels at those shapes on
 every tile of 1, 2, 4 and 8 rows; ``--ntt32 --phases`` copies it to
 ``.proof/ntt32_phases`` with clock64() laps in block 0 of both kernels and
-their span on the device's global timer (:func:`stamp_ntt32`).  The
+their span on the device's global timer (:func:`stamp_ntt32`).
+``--ntt64`` does the same for row 10 at its shapes: ``--grids`` from a copy
+in ``.proof/ntt64_tiles`` whose C entry takes the tile from outside
+(``pft_ntt64_force_tile``), ``--phases`` from ``.proof/ntt64_phases``
+(:func:`stamp_ntt64`).  The
 ``empty kernel`` line is the floor of this way of timing: a launch that
 does nothing, timed the same way.
 
@@ -150,16 +159,22 @@ def kernels(torch, dev):
     return calls
 
 
-# The u64 transforms' shapes: (label, moduli, rows a modulus) of the forward
-# (phase 10's batch 1 and 16, a residue shard's 64) and of the inverse
-# (phase 10's 4 and 64 rows, a residue shard's 16, and the forward's 16 and
-# 64 for a like comparison); kernel D at bench.py's round trip, 512 rows of
-# one modulus; the bound's peaks (H100 SXM data sheet; 64 32-bit multiplies
-# a clock an SM x 132 SMs x 1.98 GHz, as chip_smoke.py counts them).
+# The u64 transforms' shapes: (label, moduli, rows a modulus[, log_n, 12 if
+# absent]) of the forward (phase 10's batch 1 and 16, a residue shard's 64,
+# bench.py's round trip of 512 rows, phase 12's sub-transforms of 256 words)
+# and of the inverse (phase 10's 4 and 64 rows, a residue shard's 16, the
+# forward's 16 and 64 for a like comparison, the round trip's 512 rows and
+# the sub-transforms); row 10's forward on the round trip runs at
+# out_factor 4 (NTT_OUT_FACTOR), as phase 11's butterfly route calls it;
+# kernel D at bench.py's round trip, 512 rows of one modulus; the bound's
+# peaks (H100 SXM data sheet; 64 32-bit multiplies a clock an SM x 132 SMs
+# x 1.98 GHz, as chip_smoke.py counts them).
 NTT_MODULI = (1125899906826241, 1125899906629633)
-NTT_SHAPES = (("16 rows", 2, 8), ("64 rows", 1, 64), ("256 rows", 2, 128))
+NTT_SHAPES = (("16 rows", 2, 8), ("64 rows", 1, 64), ("256 rows", 2, 128), ("512 rows", 1, 512),
+              ("512 x 256", 1, 512, 8))
 INV_SHAPES = (("4 rows", 2, 2), ("16 rows", 2, 8), ("shard 16 rows", 1, 16), ("64 rows", 1, 64),
-              ("2x32 rows", 2, 32))
+              ("2x32 rows", 2, 32), ("512 rows", 1, 512), ("512 x 256", 1, 512, 8))
+NTT_OUT_FACTOR = {"512 rows": 4}
 D_SHAPE = ("512 rows", 1, 512)
 RT_TRIPS = 20
 HBM_BYTES_S, INT8_OPS_S, INT32_MULS_S = 3.35e12, 1979e12, 132 * 64 * 1.98e9
@@ -169,20 +184,22 @@ def ntt_calls(torch, dev) -> dict:
     """``{(kernel, label): (call, bound ms, tables, input, MAC roofline ms or
     None, key table or None)}`` of the forward transforms at
     :data:`NTT_SHAPES`, the inverse ones at :data:`INV_SHAPES` and kernel D
-    at :data:`D_SHAPE`, n = 4096, canonical inputs made from a seeded
-    generator on the card.  Each is held to its function's bound (module
+    at :data:`D_SHAPE` (n = 4096, or 256 where a shape says log_n 8),
+    canonical inputs made from a seeded generator on the card.  Each is
+    held to its function's bound (module
     docstring; D adds its key's Shoup multiply, 10 32-bit multiplies a
     word); the byte-radix route's own work, P planes by 8 operand bytes over
     both passes, is its MAC roofline."""
     from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
     from primus_fhe_tpu_torch.transforms import dcrt as td
 
-    n, log_n = 4096, 12
     g = torch.Generator(device=dev).manual_seed(2028)
     calls = {}
     shapes = ([("forward", s) for s in NTT_SHAPES] + [("inverse", s) for s in INV_SHAPES]
               + [("mul", D_SHAPE)])
-    for kind, (label, count, rows) in shapes:
+    for kind, (label, count, rows, *rest) in shapes:
+        log_n = rest[0] if rest else 12
+        n = 1 << log_n
         plan = td.build_dcrt_plan64(log_n, list(NTT_MODULI[:count]))
         x = torch.stack([torch.randint(0, q, (rows, n), generator=g, device=dev)
                          for q in NTT_MODULI[:count]])
@@ -195,9 +212,10 @@ def ntt_calls(torch, dev) -> dict:
             calls[("mxu8_forward64", label)] = (
                 lambda p=plan, v=x: ntt_mxu8.mxu8_forward64(p.mxu, v),
                 bound_ms, plan.mxu, x, mac_ms, None)
+            of = NTT_OUT_FACTOR.get(label, 1)
             calls[("ntt64_forward", label)] = (
-                lambda p=plan, v=x: ntt64.ntt64_forward(p.ntt, v), bound_ms, plan.ntt, x, None,
-                None)
+                lambda p=plan, v=x, f=of: ntt64.ntt64_forward(p.ntt, v, f), bound_ms, plan.ntt, x,
+                None, None)
         elif kind == "inverse":
             calls[("mxu8_inverse64", label)] = (
                 lambda p=plan, v=x: ntt_mxu8.mxu8_inverse64(p.mxu, v),
@@ -282,137 +300,210 @@ def ntt32_times(torch, dev) -> dict:
     return out
 
 
-def tile_times(torch, dev) -> dict:
-    """In a ``--ntt32 --grids`` copy: kernels 1-2's device ms at each shape
-    on the launch's own tile and on every tile of 1, 2, 4 and 8 rows (None
-    where it does not fit in shared memory)."""
-    import ctypes
-
-    from primus_fhe_tpu_torch.ops import build, ntt32
-
-    lib = build.library()
-    lib.pft_ntt32_force_tile.argtypes = [ctypes.c_int]
+def sweep_tiles(torch, calls: dict, force) -> dict:
+    """Device ms of each call ``{key: (call, bound ms, the launch's own
+    tile)}`` on its own tile and on every tile of 1, 2, 4 and 8 rows set by
+    ``force(T)`` (0: the launch's own), None where the launch refuses a tile
+    that does not fit in shared memory; every tile's words checked against
+    the own tile's."""
     out = {}
-    for (name, label), (fn, bound_ms, tables, rows) in ntt32_calls(torch, dev).items():
-        lib.pft_ntt32_force_tile(0)
+    for key, (fn, bound_ms, own) in calls.items():
+        force(0)
         want = fn()
-        row = {"own": ntt32.launch_tile(tables, rows, name == "forward32"),
-               "own_ms": device_ms(torch, fn), "bound_ms": bound_ms}
+        row = {"own": own, "own_ms": device_ms(torch, fn), "bound_ms": bound_ms}
         for tile in (1, 2, 4, 8):
-            lib.pft_ntt32_force_tile(tile)
+            force(tile)
             try:
                 got = fn()
             except RuntimeError:  # the launch refused a tile that does not fit
                 row[f"tile{tile}"] = None
                 continue
             if not torch.equal(got, want):
-                raise SystemExit(f"{name} tile {tile} at {label}: words differ")
+                raise SystemExit(f"{key} tile {tile}: words differ")
             row[f"tile{tile}"] = device_ms(torch, fn)
-        lib.pft_ntt32_force_tile(0)
-        out[f"{name}@{label}"] = row
+        force(0)
+        out[key] = row
     return out
 
 
-def stamp_ntt32(src: Path) -> None:
-    """clock64() laps of thread 0 of block 0 of kernels 1-2 (after pass 1,
-    after the table wait and barrier, after each middle pass, at the end;
-    the inverse's passes after the first as one lap), the earliest block
-    start and the latest block end on the global timer, and a C entry that
-    reads them."""
-    text = src.read_text()
-    head = ("__device__ long long pft_n32_stamps[2][8];\n"
-            "__device__ unsigned long long pft_n32_gt[2][2] = {{~0ull, 0ull}, {~0ull, 0ull}};\n"
-            "#define PFT_N32_LAP() if (threadIdx.x == 0 && blockIdx.x == 0) "
-            "pft_n32_stamps[pft_kind][pft_k++] = clock64();\n"
-            "#define PFT_N32_BEGIN(K) const int pft_kind = K; int pft_k = 0; "
-            "unsigned long long pft_g0; asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
-            "\"=l\"(pft_g0)); PFT_N32_LAP()\n"
-            "#define PFT_N32_END() { PFT_N32_LAP() unsigned long long pft_g1; "
-            "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g1)); "
-            "if (threadIdx.x == 0) { atomicMin(&pft_n32_gt[pft_kind][0], pft_g0); "
-            "atomicMax(&pft_n32_gt[pft_kind][1], pft_g1); } }\n")
-    edits = [  # (anchor, count, text after it)
-        ("  const Tile t = block_tile(a);\n", 2, None),
-        ("  fwd_pass<3>(t.count, log_n, 0, FwdFirst(groots, groots_p, 8), q, src, rows);\n", 1,
-         "  PFT_N32_LAP()\n"),
-        ("  if (r == 1) inv_pass<1, Last::no>(t.count, log_n, 0, global, pc, src, rows);\n", 1,
-         "  PFT_N32_LAP()\n"),
-        ("  cp_async_wait<0>();\n  __syncthreads();\n", 2, "  PFT_N32_LAP()\n"),
-        ("    fwd_pass<3>(t.count, log_n, s0, table, q, rows, rows);\n    __syncthreads();\n", 1,
-         "    PFT_N32_LAP()\n"),
-        ("  if (r == 1) fwd_pass<1>(t.count, log_n, log_n - 1, table, q, rows, dst);\n", 1,
-         "  PFT_N32_END()\n"),
-        ("  inv_rest<SwzNtt, LAST>(rows.p, t.count, log_n, r, InvTable{tw, twp, n - m}, pc, dst);\n",
-         1, "  PFT_N32_END()\n"),
-    ]
-    for anchor, count, after in edits:
-        if text.count(anchor) != count:
-            raise SystemExit(f"cmux_mxu_timing: ntt32.cu changed near {anchor.strip()!r}")
-        if after is None:  # the two kernels' heads: forward first
-            at = text.index(anchor) + len(anchor)
-            text = text[:at] + "  PFT_N32_BEGIN(0)\n" + text[at:]
-            at = text.index(anchor, at) + len(anchor)
-            text = text[:at] + "  PFT_N32_BEGIN(1)\n" + text[at:]
-        else:
-            text = text.replace(anchor, anchor + after)
-    text = text.replace("namespace {\n", head + "namespace {\n", 1)
-    reader = ("int pft_read_n32(int kind, void* stamps, void* gt) {\n"
-              "  cudaError_t e = cudaMemcpyFromSymbol(stamps, pft_n32_stamps, 8 * sizeof(long long),"
-              " kind * 8 * sizeof(long long));\n"
-              "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_n32_gt, 16, kind * 16);\n"
-              "  const unsigned long long reset[2] = {~0ull, 0ull};\n"
-              "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(pft_n32_gt, reset, 16, kind * 16);\n"
-              "  return (int)e;\n}\n")
-    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + reader, 1)
-    src.write_text(text)
+def tile_times(torch, dev) -> dict:
+    """In a ``--ntt32 --grids`` copy: kernels 1-2 at each shape on every
+    tile (:func:`sweep_tiles`)."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build, ntt32
+
+    lib = build.library()
+    lib.pft_ntt32_force_tile.argtypes = [ctypes.c_int]
+    calls = {f"{name}@{label}": (fn, bound_ms, ntt32.launch_tile(tables, rows,
+                                                                  name == "forward32"))
+             for (name, label), (fn, bound_ms, tables, rows) in ntt32_calls(torch, dev).items()}
+    return sweep_tiles(torch, calls, lib.pft_ntt32_force_tile)
 
 
-def ntt32_stamps(torch, dev) -> dict:
-    """In a ``--ntt32 --phases`` copy: block 0's cycles per phase of the
-    last launch of kernels 1-2 at each shape, and the launch's span on the
-    device (earliest block start to latest block end, ns) beside its
-    event-timed device ms."""
+def tile_times64(torch, dev) -> dict:
+    """In a ``--ntt64 --grids`` copy: row 10 at each shape on every tile
+    (:func:`sweep_tiles`)."""
     import ctypes
 
     from primus_fhe_tpu_torch.ops import build
 
     lib = build.library()
-    lib.pft_read_n32.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.pft_ntt64_force_tile.argtypes = [ctypes.c_int]
+    calls = {f"{name}@{label}": (fn, bound_ms, ntt64_tile(tables, name, x))
+             for (name, label), (fn, bound_ms, tables, x, _, _) in ntt_calls(torch, dev).items()
+             if name.startswith("ntt64")}
+    return sweep_tiles(torch, calls, lib.pft_ntt64_force_tile)
+
+
+def stamp_passes(src: Path, tag: str, edits: list) -> None:
+    """clock64() laps of thread 0 of block 0 of a transform's two kernels
+    (forward first; ``edits``: (anchor, count, text after it), None at the
+    kernels' heads, ``LAP`` / ``END`` in the text for a lap / the last lap),
+    the earliest block start and the latest block end on the global timer,
+    and a C entry ``pft_read_<tag>`` that reads them (kind 0 the forward, 1
+    the inverse) and resets the span."""
+    text = src.read_text()
+    up = tag.upper()
+    head = (f"__device__ long long pft_{tag}_stamps[2][8];\n"
+            f"__device__ unsigned long long pft_{tag}_gt[2][2] = "
+            "{{~0ull, 0ull}, {~0ull, 0ull}};\n"
+            f"#define PFT_{up}_LAP() if (threadIdx.x == 0 && blockIdx.x == 0) "
+            f"pft_{tag}_stamps[pft_kind][pft_k++] = clock64();\n"
+            f"#define PFT_{up}_BEGIN(K) const int pft_kind = K; int pft_k = 0; "
+            "unsigned long long pft_g0; asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+            f"\"=l\"(pft_g0)); PFT_{up}_LAP()\n"
+            f"#define PFT_{up}_END() {{ PFT_{up}_LAP() unsigned long long pft_g1; "
+            "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g1)); "
+            f"if (threadIdx.x == 0) {{ atomicMin(&pft_{tag}_gt[pft_kind][0], pft_g0); "
+            f"atomicMax(&pft_{tag}_gt[pft_kind][1], pft_g1); }} }}\n")
+    for anchor, count, after in edits:
+        if text.count(anchor) != count:
+            raise SystemExit(f"cmux_mxu_timing: {src.name} changed near {anchor.strip()!r}")
+        if after is None:  # the two kernels' heads: forward first
+            at = text.index(anchor) + len(anchor)
+            text = text[:at] + f"  PFT_{up}_BEGIN(0)\n" + text[at:]
+            at = text.index(anchor, at) + len(anchor)
+            text = text[:at] + f"  PFT_{up}_BEGIN(1)\n" + text[at:]
+        else:
+            after = after.replace("LAP", f"PFT_{up}_LAP()").replace("END", f"PFT_{up}_END()")
+            text = text.replace(anchor, anchor + after)
+    text = text.replace("namespace {\n", head + "namespace {\n", 1)
+    reader = (f"int pft_read_{tag}(int kind, void* stamps, void* gt) {{\n"
+              f"  cudaError_t e = cudaMemcpyFromSymbol(stamps, pft_{tag}_stamps, "
+              "8 * sizeof(long long),"
+              " kind * 8 * sizeof(long long));\n"
+              f"  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_{tag}_gt, 16, "
+              "kind * 16);\n"
+              "  const unsigned long long reset[2] = {~0ull, 0ull};\n"
+              f"  if (e == cudaSuccess) e = cudaMemcpyToSymbol(pft_{tag}_gt, reset, 16, "
+              "kind * 16);\n"
+              "  return (int)e;\n}\n")
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + reader, 1)
+    src.write_text(text)
+
+
+def stamp_ntt32(src: Path) -> None:
+    """:func:`stamp_passes` in kernels 1-2: laps after pass 1, after the
+    table wait and barrier, after each middle pass, at the end (the
+    inverse's passes after the first as one lap)."""
+    stamp_passes(src, "n32", [
+        ("  const Tile t = block_tile(a);\n", 2, None),
+        ("  fwd_pass<3>(t.count, log_n, 0, FwdFirst(groots, groots_p, 8), q, src, rows);\n", 1,
+         "  LAP\n"),
+        ("  if (r == 1) inv_pass<1, Last::no>(t.count, log_n, 0, global, pc, src, rows);\n", 1,
+         "  LAP\n"),
+        ("  cp_async_wait<0>();\n  __syncthreads();\n", 2, "  LAP\n"),
+        ("    fwd_pass<3>(t.count, log_n, s0, table, q, rows, rows);\n    __syncthreads();\n", 1,
+         "    LAP\n"),
+        ("  if (r == 1) fwd_pass<1>(t.count, log_n, log_n - 1, table, q, rows, dst);\n", 1,
+         "  END\n"),
+        ("  inv_rest<LAST>(rows, t.count, log_n, r, InvTable{tw, twp, n - m}, pc, dst);\n", 1,
+         "  END\n"),
+    ])
+
+
+def stamp_ntt64(src: Path) -> None:
+    """:func:`stamp_passes` in row 10's kernels, the same laps as
+    :func:`stamp_ntt32` (a row in one block)."""
+    stamp_passes(src, "n64", [
+        ("  const Tile t = block_tile(a);\n", 2, None),
+        ("  fwd_pass<3>(t.count, log_n, 0, FwdFirst(groots, groots_p, 8), q, src, rows);\n", 1,
+         "  LAP\n"),
+        ("  if (r == 1) inv_pass<1, Last::no>(t.count, log_n, 0, global, c, src, rows);\n", 1,
+         "  LAP\n"),
+        ("  cp_async_wait<0>();\n  __syncthreads();\n", 2, "  LAP\n"),
+        ("      fwd_pass<3>(t.count, l, s0, table, q, rows, rows);\n      __syncthreads();\n", 1,
+         "      LAP\n"),
+        ("    if (r == 1) fwd_pass<1>(t.count, l, l - 1, table, q, rows, dst);\n", 1,
+         "    END\n"),
+        ("  inv_rest<LAST>(rows, t.count, log_n, r, staged, c, dst);\n", 1, "  END\n"),
+    ])
+
+
+def pass_stamps(torch, tag: str, calls: dict) -> dict:
+    """In a ``--phases`` copy (:func:`stamp_passes`): block 0's cycles per
+    pass of the last launch of each call ``{key: (call, forward, log_n)}``,
+    and the launch's span on the device (earliest block start to latest
+    block end, ns) beside its event-timed device ms."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build
+
+    lib = build.library()
+    read = getattr(lib, f"pft_read_{tag}")
+    read.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     out = {}
-    for (name, label), (fn, _, _, _) in ntt32_calls(torch, dev).items():
-        kind = 0 if name == "forward32" else 1
+    for key, (fn, forward, log_n) in calls.items():
+        kind = 0 if forward else 1
         ms = device_ms(torch, fn)
         stamps = (ctypes.c_longlong * 8)()
         gt = (ctypes.c_ulonglong * 2)()
-        build.check(lib.pft_read_n32(kind, ctypes.addressof(stamps), ctypes.addressof(gt)),
-                    "pft_read_n32")  # resets the span
+        build.check(read(kind, ctypes.addressof(stamps), ctypes.addressof(gt)),
+                    f"pft_read_{tag}")  # resets the span
         fn()
         torch.cuda.synchronize()
-        build.check(lib.pft_read_n32(kind, ctypes.addressof(stamps), ctypes.addressof(gt)),
-                    "pft_read_n32")
-        passes = -(-NTT32_LOG_N[label] // 3)
-        laps = list(stamps)[:passes + 2 if kind == 0 else 4]
+        build.check(read(kind, ctypes.addressof(stamps), ctypes.addressof(gt)), f"pft_read_{tag}")
+        passes = -(-log_n // 3)
+        laps = list(stamps)[:passes + 2 if forward else 4]
         names = (["pass 1", "table wait + barrier"]
                  + [f"pass {i}" for i in range(2, passes)] + [f"pass {passes} (stores)"]
-                 if kind == 0 else ["pass 1", "table wait + barrier", "passes 2+ (stores)"])
+                 if forward else ["pass 1", "table wait + barrier", "passes 2+ (stores)"])
         row = dict(zip(names, [laps[i + 1] - laps[i] for i in range(len(names))]))
         row.update(total_cycles=laps[len(names)] - laps[0], span_ns=gt[1] - gt[0], event_ms=ms)
-        out[f"{name}@{label}"] = row
+        out[key] = row
     return out
 
 
-def stamp_tiles(src: Path) -> None:
-    """Adds to ``ntt32.cu`` a tile of rows set from outside the launch
-    (``pft_ntt32_force_tile(T)``; 0 for the launch's own)."""
+def ntt32_stamps(torch, dev) -> dict:
+    """:func:`pass_stamps` of kernels 1-2 at each shape."""
+    return pass_stamps(torch, "n32", {
+        f"{name}@{label}": (fn, name == "forward32", NTT32_LOG_N[label])
+        for (name, label), (fn, _, _, _) in ntt32_calls(torch, dev).items()})
+
+
+def ntt64_stamps(torch, dev) -> dict:
+    """:func:`pass_stamps` of row 10 at each shape."""
+    return pass_stamps(torch, "n64", {
+        f"{name}@{label}": (fn, name == "ntt64_forward", tables.log_n)
+        for (name, label), (fn, _, tables, _, _, _) in ntt_calls(torch, dev).items()
+        if name.startswith("ntt64")})
+
+
+def stamp_tiles(src: Path, tag: str, pick: str, guard: str) -> None:
+    """Adds to a transform's source a tile of rows set from outside the
+    launch (``pft_<tag>_force_tile(T)``; 0 for the launch's own), after its
+    pick line ``pick``, where ``guard`` holds, refused where it does not fit
+    in shared memory."""
     text = src.read_text()
-    pick = "  a.tile = pick_tile(forward, kp, rows, log_n, *d);\n"
     if text.count(pick) != 1:
-        raise SystemExit("cmux_mxu_timing: ntt32.cu's pick moved")
-    text = text.replace(pick, pick + "  if (pft_ntt32_force > 0) a.tile = pft_ntt32_force;\n"
-                        "  if (smem_bytes(forward, log_n, a.tile) > (size_t)SMEM_MAX)\n"
-                        "    return (int)cudaErrorInvalidValue;\n")
-    text = text.replace("namespace {\n", "int pft_ntt32_force = 0;\nnamespace {\n", 1)
-    entry = "int pft_ntt32_force_tile(int t) {\n  pft_ntt32_force = t;\n  return 0;\n}\n"
+        raise SystemExit(f"cmux_mxu_timing: {src.name}'s pick moved")
+    force = (f"  if (pft_{tag}_force > 0 && {guard}) a.tile = pft_{tag}_force;\n"
+             "  if (smem_bytes(forward, log_n, a.tile) > (size_t)SMEM_MAX)\n"
+             "    return (int)cudaErrorInvalidValue;\n")
+    text = text.replace(pick, pick + force)
+    text = text.replace("namespace {\n", f"int pft_{tag}_force = 0;\nnamespace {{\n", 1)
+    entry = f"int pft_{tag}_force_tile(int t) {{\n  pft_{tag}_force = t;\n  return 0;\n}}\n"
     text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + entry, 1)
     src.write_text(text)
 
@@ -560,20 +651,37 @@ def roundtrip_times(torch, dev) -> dict:
     return out
 
 
-def ntt_times(torch, dev) -> dict:
-    """Device ms, bound and share of the bound of each transform call; for
-    the byte-radix kernels also their MAC roofline, the slowest device time,
-    :func:`loop_ms` five times and :func:`wrapper_host`."""
+def ntt64_tile(tables, name, x):
+    """The tile of rows row 10's launch picks for ``x`` (None in an older
+    checkout, which picks none)."""
+    from primus_fhe_tpu_torch.ops import ntt64
+
+    if not hasattr(ntt64, "launch_tile"):
+        return None
+    return ntt64.launch_tile(tables, x[0].numel() // tables.n, name == "ntt64_forward")
+
+
+def ntt_times(torch, dev, row10_only: bool = False) -> dict:
+    """Device ms, bound and share of the bound of each transform call, and
+    the tile of rows row 10's launches pick; for the byte-radix kernels also
+    their MAC roofline, the slowest device time, :func:`loop_ms` five times
+    and :func:`wrapper_host` (``row10_only``: row 10's calls alone); and the
+    floor of this timing, an empty kernel."""
     out = {}
     for (name, label), (fn, bound_ms, tables, x, mac_ms, key) in ntt_calls(torch, dev).items():
+        if row10_only and not name.startswith("ntt64"):
+            continue
         times = device_times(torch, fn)
         ms = times[len(times) // 2]
         row = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms}
+        if name.startswith("ntt64"):
+            row["tile"] = ntt64_tile(tables, name, x)
         if name in ENTRIES:
             row.update(mac_roofline_ms=mac_ms, mac_share=mac_ms / ms, device_max_ms=times[-1],
                        loop_ms=[loop_ms(torch, fn) for _ in range(5)],
                        host=wrapper_host(torch, name, tables, x, key))
         out[f"{name}@{label}"] = row
+    out["empty kernel"] = {"ms": device_ms(torch, lambda: torch.cuda._sleep(1))}
     return out
 
 
@@ -688,7 +796,8 @@ def rotations(torch, dev) -> dict:
     return out
 
 
-def run_here(stamps: bool, ntt_only: bool = False, ntt32_only: bool = False) -> dict:
+def run_here(stamps: bool, ntt_only: bool = False, ntt32_only: bool = False,
+             ntt64_only: bool = False) -> dict:
     import torch
 
     if not torch.cuda.is_available():
@@ -697,6 +806,9 @@ def run_here(stamps: bool, ntt_only: bool = False, ntt32_only: bool = False) -> 
     result = {"root": str(Path(sys.path[0]).resolve()), "card": card()}
     if ntt32_only:
         result["ntt32"] = ntt32_times(torch, dev)
+        return result
+    if ntt64_only:
+        result["ntt64"] = ntt_times(torch, dev, row10_only=True)
         return result
     if not stamps:
         result["ntt"] = ntt_times(torch, dev)
@@ -1012,17 +1124,20 @@ def main() -> None:
     ap.add_argument("--phases", action="store_true", help="cycles per phase, stamped copy")
     ap.add_argument("--ntt", action="store_true", help="the u64 transforms only")
     ap.add_argument("--ntt32", action="store_true", help="kernels 1-2 and the NTT-key step only")
+    ap.add_argument("--ntt64", action="store_true", help="row 10's butterfly kernels only")
     ap.add_argument("--grids", action="store_true", help="the byte-radix kernels on every grid")
     ap.add_argument("--stamps", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
-        if args.stamps and args.ntt32:
+        if args.stamps and (args.ntt32 or args.ntt64):
             import torch
 
             dev = torch.device("cuda", 0)
-            res = ({"cycles": ntt32_stamps(torch, dev)} if args.phases
-                   else {"tiles": tile_times(torch, dev)})
+            stamps, tiles = ((ntt32_stamps, tile_times) if args.ntt32
+                             else (ntt64_stamps, tile_times64))
+            res = ({"cycles": stamps(torch, dev)} if args.phases
+                   else {"tiles": tiles(torch, dev)})
             print(json.dumps(res), flush=True)
             return
         if args.stamps and (args.ntt or args.grids):
@@ -1032,17 +1147,25 @@ def main() -> None:
                    else {"cycles": kernel_stamps(torch)})
             print(json.dumps(res), flush=True)
             return
-        print(json.dumps(run_here(args.stamps, args.ntt, args.ntt32)), flush=True)
+        print(json.dumps(run_here(args.stamps, args.ntt, args.ntt32, args.ntt64)), flush=True)
         return
     print(card(), flush=True)
-    if args.ntt32 and (args.grids or args.phases):
-        root = HERE / ".proof" / ("ntt32_tiles" if args.grids else "ntt32_phases")
+    if (args.ntt32 or args.ntt64) and (args.grids or args.phases):
+        tag = "ntt32" if args.ntt32 else "ntt64"
+        root = HERE / ".proof" / f"{tag}_{'tiles' if args.grids else 'phases'}"
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(HERE / "primus_fhe_tpu_torch", root / "primus_fhe_tpu_torch",
                         ignore=shutil.ignore_patterns("build", "__pycache__"))
-        src = root / "primus_fhe_tpu_torch" / "csrc" / "ntt32.cu"
-        (stamp_tiles if args.grids else stamp_ntt32)(src)
-        res = subprocess_run(root, "--stamps", "--ntt32", *(() if args.grids else ("--phases",)))
+        src = root / "primus_fhe_tpu_torch" / "csrc" / f"{tag}.cu"
+        if args.grids and args.ntt32:
+            stamp_tiles(src, "ntt32", "  a.tile = pick_tile(forward, kp, rows, log_n, *d);\n",
+                        "true")
+        elif args.grids:
+            stamp_tiles(src, "ntt64", "  a.tile = pick_tile(forward, count, rows, log_n, *d);\n",
+                        "!log_split(log_n)")
+        else:
+            (stamp_ntt32 if args.ntt32 else stamp_ntt64)(src)
+        res = subprocess_run(root, "--stamps", f"--{tag}", *(() if args.grids else ("--phases",)))
         for key, row in res["tiles" if args.grids else "cycles"].items():
             print(key, json.dumps(row), flush=True)
         res["card"] = card()
@@ -1073,10 +1196,11 @@ def main() -> None:
         return
     if args.compare is None:
         sys.path.insert(0, str(HERE))
-        print(json.dumps(run_here(False, args.ntt, args.ntt32)), flush=True)
+        print(json.dumps(run_here(False, args.ntt, args.ntt32, args.ntt64)), flush=True)
         return
     runs = []
-    extra = ("--ntt",) if args.ntt else ("--ntt32",) if args.ntt32 else ()
+    extra = (("--ntt",) if args.ntt else ("--ntt32",) if args.ntt32 else ("--ntt64",)
+             if args.ntt64 else ())
     for side, root in (("old", args.compare), ("new", HERE), ("new", HERE), ("old", args.compare)):
         res = subprocess_run(root, *extra)
         res["side"] = side
@@ -1089,11 +1213,13 @@ def main() -> None:
 
     ntt = mean("ntt", lambda r: {k: v["ms"] for k, v in r["ntt"].items()})
     if ntt:
-        ntt["share_new"] = {k: runs[1]["ntt"][k]["bound_ms"] / ntt["new"][k] for k in ntt["new"]}
+        ntt["share_new"] = {k: runs[1]["ntt"][k]["bound_ms"] / ntt["new"][k] for k in ntt["new"]
+                            if "bound_ms" in runs[1]["ntt"][k]}
     host = mean("ntt", lambda r: {f"{k}:{part}": us for k, v in r["ntt"].items()
                                   for part, us in v.get("host", {}).items()})
     summary = {"card": runs[0]["card"], "mean_ntt_ms": ntt, "mean_host_us": host,
                "mean_ntt32_ms": mean("ntt32", lambda r: {k: v["ms"] for k, v in r["ntt32"].items()}),
+               "mean_ntt64_ms": mean("ntt64", lambda r: {k: v["ms"] for k, v in r["ntt64"].items()}),
                "mean_roundtrip_ms": mean("roundtrip", lambda r: {
                    k: v["ms"] for k, v in r["roundtrip"].items()}),
                "mean_ms": mean("ms", lambda r: r["ms"]),

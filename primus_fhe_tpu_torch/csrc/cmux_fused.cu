@@ -62,8 +62,8 @@
 // radix pass and every coefficient-order sweep of a warp hits 32 distinct
 // banks (tests/test_torch_cmux_step_model.py checks the passes, the index
 // maps and the ownership against the plain versions).  The radix passes,
-// butterflies and swizzle are csrc/ntt32_passes.cuh's, shared with kernels
-// 1-2.
+// butterflies and swizzle are csrc/ntt_passes.cuh's, shared with kernels
+// 1-2 and row 10.
 //
 // The output is the exact CRT of canonical residues, so it is bit-equal to
 // the plain composition whatever the lazy schedule inside (all words stay
@@ -77,7 +77,7 @@
 
 #include <cooperative_groups.h>
 
-#include "ntt32_passes.cuh"
+#include "ntt_passes.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -296,7 +296,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) cmux_step_kernel(const StepArg
     *cluster.map_shared_rank(crt_in + (pi << log_n) + c, pd * k1 + r) =
         reduce_once(shoup_mul_lazy(v, a.crt.iw[pi], a.crt.ipq[pi], q), q);
   });
-  inv_rest<SwzStep, Last::canonical>(inbox, 1, log_n, 3, itw, pc, push);
+  inv_rest<Last::canonical>(SmemRows<SwzStep>{inbox, log_n}, 1, log_n, 3, itw, pc, push);
   cluster.sync();  // the last access to a peer's shared memory precedes this
 
   // 6. integer CRT of the kp residues and the wrapping add to acc, U

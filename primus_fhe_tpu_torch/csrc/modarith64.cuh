@@ -78,8 +78,3 @@ __device__ __forceinline__ uint64_t reduce_chain64(uint64_t v, uint64_t q, int b
 __device__ __forceinline__ uint64_t canonical64(uint64_t y, const Mod64& c) {
   return reduce_once64(shoup64_lazy(y, 1, c.p1, c.q), c.q);
 }
-
-inline int block_threads64(int log_n) {
-  const int half = 1 << (log_n - 1);
-  return half < 1024 ? half : 1024;
-}

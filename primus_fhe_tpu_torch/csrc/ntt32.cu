@@ -14,10 +14,11 @@
 // 2048 and took 10x its byte bound at 256 rows.
 //
 // The design on Hopper:
-// - radix-8 register passes (csrc/ntt32_passes.cuh, shared with the CMux
-//   step kernel): a thread holds 8 words in registers through 3 stages, so a
-//   transform is ceil(log_n / 3) passes with a barrier between two passes (4
-//   passes, 3 barriers at n = 1024 and 2048).  The forward's last pass and
+// - radix-8 register passes (csrc/ntt_passes.cuh, shared with the CMux
+//   step kernel and row 10's u64 kernels): a thread holds 8 words in
+//   registers through 3 stages, so a transform is ceil(log_n / 3) passes
+//   with a barrier between two passes (4 passes, 3 barriers at n = 1024 and
+//   2048).  The forward's last pass and
 //   the inverse's first take the remainder, R = 1..3 stages.  The forward's
 //   first pass reads its groups straight from global memory (a warp's loads
 //   are 128 contiguous bytes), and its last pass, whose groups are 2^R
@@ -47,7 +48,7 @@
 //
 // Values are u32 words (int32 storage on the PyTorch side).
 
-#include "ntt32_passes.cuh"
+#include "ntt_passes.cuh"
 
 namespace {
 
@@ -221,7 +222,7 @@ __global__ void __launch_bounds__(NTT_THREADS, 4) ntt32_inverse_kernel(const Ntt
 
   // radix-8 passes in shared memory; the last (inv_n folded in) stores to
   // global memory
-  inv_rest<SwzNtt, LAST>(rows.p, t.count, log_n, r, InvTable{tw, twp, n - m}, pc, dst);
+  inv_rest<LAST>(rows, t.count, log_n, r, InvTable{tw, twp, n - m}, pc, dst);
 }
 
 // What the launches read of a device, set up at the first launch there:

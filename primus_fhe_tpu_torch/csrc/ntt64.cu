@@ -1,87 +1,342 @@
-// Kernels ntt64_forward and ntt64_inverse: the 64-bit negacyclic NTT and its
-// inverse (q < 2^62, n <= 2^15), every modulus of a DCRT plan in one launch.
+// Row 10, kernels ntt64_forward and ntt64_inverse: the 64-bit negacyclic NTT
+// and its inverse (q < 2^62, n = 2^1 .. 2^15), every modulus of a DCRT plan
+// in one launch.
 //
 // Replace pallas_forward64 / pallas_inverse64
 // (primus_fhe_tpu/ops/ntt_pallas.py:486,494; bodies _make_fwd_kernel and
 // _make_inv_kernel).  The TPU kernels carry u64 words as u32 pairs with
 // pre-split 16-bit limb tables and move the butterfly partner with lane
-// rolls; here a word is a uint64_t, a Shoup multiply is three native
-// multiplies (__umul64hi), and the partner is an index into shared memory.
+// rolls; here a word is a uint64_t and a Shoup multiply is three native
+// multiplies (__umul64hi).
 //
-// One thread block per polynomial row (modulus index = row / rows_per_mod);
-// the row (n words, 32 KB at n = 4096) sits in shared memory through all
-// log_n stages, one butterfly per thread per pass.  Twiddles come from the
-// compact bit-reversed root tables (count, n).  A row of 2^15 words
-// (256 KB) does not fit in one block's shared memory, so there each row is
-// split over 2 blocks ("parts"), each holding one half: the forward runs
-// its first stage (pairs i, i + n/2) while loading, after which every stage
-// pairs words of one half; the inverse's stages pair words of one half
-// until the last, which the 2 blocks of a thread-block cluster run by
-// reading each other's half (distributed shared memory).
+// What bounds them: at n = 4096 a row is 32 KB in and 32 KB out against
+// 2048 x 12 Shoup butterflies, so a batch of hundreds of rows could be
+// bound by device memory (256 rows, 16.8 MB: 5.0 us at 3.35 TB/s), and a
+// batch of a few rows (the DCRT rotation's batch-1 step: 16 rows forward,
+// 4 inverse) is bound by the chain of one row through its stages on one SM.
+// The first design (one block a row, n/2 threads capped at 1024, one
+// radix-2 butterfly a thread a stage, both twiddle words loaded from device
+// memory at every butterfly, unswizzled rows) ran 12 barriers and 12 L2
+// round trips a row at n = 4096 and took 5.5x its byte bound at 256 rows.
+// This one (below) leaves a row's chain issue-bound on its SM: a u64
+// Shoup butterfly is three 64 x 64-bit products and its lazy reductions,
+// some 27 instructions, and a radix-8 pass of a row takes ~3.2k cycles
+// (cmux_mxu_timing.py --ntt64 --phases), 4 of them ~16k cycles at batch 1
+// and about as many a row at 256 rows, two rows to an SM.
 //
-// Schedule: the plain version's (transforms/ntt.py forward64/inverse64),
-// a reduction every stage, so canonical AND lazy outputs are bit-equal to
-// it.  The TPU forward defers its reductions while (4 + 4 log_n) q < 2^64
-// and reaches other lazy representatives (the same residues mod q).
+// The design on Hopper is kernels 1-2's (csrc/ntt32.cu) on u64 words:
+// - radix-8 register passes (csrc/ntt_passes.cuh, the templates kernels 1-2
+//   and the CMux step kernel run at 32 bits): a thread holds 8 words in
+//   registers through 3 stages, so a transform is ceil(log_n / 3) passes
+//   with a barrier after each (4 at n = 4096).  The forward's last pass and
+//   the inverse's first take the remainder, R = 1..3 stages.  The forward's
+//   first pass reads its groups straight from device memory with
+//   roots[1..7] in registers, and its last pass stores its 2^R adjacent
+//   words straight to device memory, 16 bytes an access; the inverse
+//   mirrors it (its first pass loads 2^R adjacent words and runs the input
+//   chain from [0, in_factor q) down to [0, 2q); its last folds inv_n in and
+//   stores a warp's 256 contiguous bytes at a time).  log_n <= 3 is one
+//   pass, device memory to device memory.
+// - shared memory swizzled for 8-byte words (swz64): a u64 access is served
+//   a half-warp at a time, so the swizzle makes the word index mod 16
+//   distinct across each half-warp at every pass and every coefficient-
+//   order sweep.  It acts on a word's index in the tile, so tiles of short
+//   rows, whose half-warps span rows, are conflict free too
+//   (tests/test_torch_ntt64_model.py checks both).
+// - root tables staged once a block by cp.async under the row loads and the
+//   first pass: the forward's whole table and Shoup quotients (16 bytes a
+//   word: 64 KB a modulus at n = 4096), the inverse's part that its passes
+//   after the first use (the last n / 2^R words), wherever that fits beside
+//   one row (the forward up to n = 2^13, the inverse up to 2^14); else the
+//   passes read their twiddles from device memory through L1.
+// - a tile of T rows of one modulus a block, so that each staged table word
+//   serves T rows: grid count x ceil(rows_per_mod / T), a ragged last tile
+//   loading and storing only its own rows.  The C entry picks T (pick_tile:
+//   the smallest T whose grid runs in one wave); no caller sets it.  256
+//   threads a block, fewer where the tile has fewer radix-8 groups.
+// - a row of n = 2^15 words (256 KB) does not fit one block's shared
+//   memory, so there a row is split over 2 blocks, each holding one half:
+//   the forward runs its stage 0 (pairs i, i + n/2) as it loads, keeping its
+//   half, after which every stage pairs words of one half (HalfTable gives
+//   the half's twiddles); the inverse runs its stages within the halves
+//   (HalfInvTable) and its last, which pairs the halves, over the
+//   distributed shared memory of the 2 blocks of a cluster.
 //
-// What bounds it: at n = 4096 a row is 32 KB in and out against 12 stages
-// of 2048 butterflies, so a batch of a few rows is bound by launch latency
-// and a large batch by device memory.
+// The butterflies are the plain version's (transforms/ntt.py forward64 /
+// inverse64) with its lazy ranges, applied to the same pairs stage by
+// stage, so every output word is bit-equal to it: the forward's bit-reversed
+// output lazy in [0, 4q) (past 2^63 for q near 2^62, so every comparison is
+// unsigned) or canonical, the inverse's normal-order output lazy in [0, 2q)
+// or canonical.  The TPU forward defers its reductions while (4 + 4 log_n) q
+// < 2^64 and so reaches other lazy representatives (the same residues).
 //
 // Values are u64 words (int64 storage on the PyTorch side).
 
 #include <cooperative_groups.h>
 
-#include "modarith64.cuh"
+#include "ntt_passes.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-__global__ void ntt64_forward_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
-                                     const uint64_t* __restrict__ roots,
-                                     const uint64_t* __restrict__ roots_p, ModSet64 ms,
-                                     int rows_per_mod, int log_n, int canonical, int log_split) {
-  extern __shared__ uint64_t sv[];
-  const int n = 1 << log_n, part = n >> log_split;
-  const int h = blockIdx.x & ((1 << log_split) - 1);  // which part of the row
-  const size_t row = blockIdx.x >> log_split;
-  const int mi = (int)(row / rows_per_mod);
-  const uint64_t q = ms.m[mi].q, two_q = 2 * q;
-  const uint64_t* w = roots + (size_t)mi * n;
-  const uint64_t* wp = roots_p + (size_t)mi * n;
-  const uint64_t* src = in + row * n;
-  if (log_split == 0) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) sv[i] = src[i];
-  } else {  // stage 0 (t = n/2, root w[1]) while loading; keep half h
-    for (int i = threadIdx.x; i < part; i += blockDim.x) {
-      const uint64_t tx = reduce_once64(src[i], two_q);
-      const uint64_t ty = shoup64_lazy(src[i + part], w[1], wp[1], q);
-      sv[i] = h == 0 ? tx + ty : tx + two_q - ty;
-    }
-  }
-  __syncthreads();
-  for (int s = log_split; s < log_n; ++s) {
-    const int log_t = log_n - 1 - s, t = 1 << log_t;
-    const int r0 = (1 << s) + (h << (s - log_split));  // root of this part's first block
-    for (int i = threadIdx.x; i < part / 2; i += blockDim.x) {
-      const int j = i >> log_t;
-      const int xi = (j << (log_t + 1)) + (i & (t - 1)), yi = xi + t;
-      const uint64_t tx = reduce_once64(sv[xi], two_q);
-      const uint64_t ty = shoup64_lazy(sv[yi], w[r0 + j], wp[r0 + j], q);
-      sv[xi] = tx + ty;
-      sv[yi] = tx + two_q - ty;
-    }
-    __syncthreads();
-  }
-  uint64_t* dst = out + row * n + (size_t)h * part;
-  for (int i = threadIdx.x; i < part; i += blockDim.x) {
-    uint64_t v = sv[i];
-    if (canonical) v = reduce_once64(reduce_once64(v, two_q), q);
-    dst[i] = v;
-  }
+constexpr int NTT_THREADS = 256;
+constexpr int MAX_LOG_N = 15;
+constexpr int SMEM_MAX = 232448;  // 227 KB, the most a block may ask for
+
+struct Ntt64Args {
+  const uint64_t* in;   // (count, rows, n)
+  uint64_t* out;        // (count, rows, n)
+  const uint64_t* tw;   // (count, n): the forward's roots or the inverse's
+  const uint64_t* twp;  // their Shoup quotients
+  ModSet64 ms;
+  int rows, log_n, tile, in_factor;
+};
+
+// Shared-memory word of the tile's word i: bits 3-6 XORed into bits 0-3 and
+// bits 4-5 into bits 0-1.  Each half-warp of a pass of 8 words a group at
+// any stride, of a pass of 2 or 4 adjacent words a group, and of a sweep in
+// coefficient order hits 16 distinct words mod 16.
+__device__ __forceinline__ int swz64(int i) { return i ^ ((i >> 3) & 15) ^ ((i >> 4) & 3); }
+
+// Blocks a row is split over (log2): 1 where a row overflows one block's
+// shared memory (n = 2^15).
+__host__ __device__ inline int log_split(int log_n) { return log_n > 14 ? 1 : 0; }
+
+// Stages of the forward's last pass and of the inverse's first: 1..3.
+__host__ __device__ inline int remainder_stages(int log_n) { return log_n - 3 * ((log_n - 1) / 3); }
+
+// Words of each root table a block stages: none for one pass or a split
+// row; the inverse's part that its passes after the first use (at most
+// 4096 words, 64 KB with the quotients, beside a row of at most 128 KB);
+// the forward's whole table where it fits beside one row (16 n + 8 n bytes,
+// up to n = 2^13).
+__host__ __device__ inline int staged_words(bool forward, int log_n) {
+  if (log_n <= 3 || log_split(log_n)) return 0;
+  if (!forward) return (1 << log_n) >> remainder_stages(log_n);
+  return log_n <= 13 ? 1 << log_n : 0;
 }
 
+// Threads a block: one a group of a radix-8 pass over the tile (T n / 8
+// groups), at least a warp and at most NTT_THREADS, so that a tile of short
+// rows (phase 12's n = 256) leaves no thread idle.
+inline int tile_threads(int log_n, int tile) {
+  const int groups = tile << (log_n > 3 ? log_n - log_split(log_n) - 3 : 0);
+  return groups < 32 ? 32 : groups > NTT_THREADS ? NTT_THREADS : groups;
+}
+
+inline size_t smem_bytes(bool forward, int log_n, int tile) {
+  if (log_n <= 3) return 0;
+  return 16 * (size_t)staged_words(forward, log_n) +
+         sizeof(uint64_t) * ((size_t)tile << (log_n - log_split(log_n)));
+}
+
+// The block's tile: modulus mi, `count` rows from the tile's first, at word
+// offset `off`; h is the block's half of a split row (else 0).
+struct Tile {
+  int mi, count, h;
+  size_t off;
+};
+
+__device__ __forceinline__ Tile block_tile(const Ntt64Args& a) {
+  const int split = log_split(a.log_n);
+  const int b = (int)blockIdx.x >> split;
+  const int tiles = (a.rows + a.tile - 1) / a.tile;
+  const int mi = b / tiles;
+  const int row0 = (b - mi * tiles) * a.tile;
+  return Tile{mi, min(a.tile, a.rows - row0), (int)blockIdx.x & ((1 << split) - 1),
+              ((size_t)mi * a.rows + row0) << a.log_n};
+}
+
+// Starts the copy of words [lo, hi) of a modulus's table and quotients into
+// tw[0 ..), twp[0 ..) (16 bytes a thread a step).
+__device__ __forceinline__ void stage_tables(uint64_t* tw, uint64_t* twp, const uint64_t* g,
+                                             const uint64_t* gp, int lo, int hi) {
+  for (int i = 2 * threadIdx.x; i < hi - lo; i += 2 * blockDim.x) {
+    cp_async16(tw + i, g + lo + i);
+    cp_async16(twp + i, gp + lo + i);
+  }
+  cp_async_commit();
+}
+
+// The tile's rows of 2^log_n words in shared memory: slot c of row r, the
+// tile's word i = r 2^log_n + c, at swz64(i).
+struct SmemRows64 {
+  uint64_t* p;
+  int log_n;
+  template <int G>
+  __device__ __forceinline__ void load(int row, int base, int ls, uint64_t (&v)[G]) const {
+    const int i = (row << log_n) + base;
+#pragma unroll
+    for (int k = 0; k < G; ++k) v[k] = p[swz64(i + (k << ls))];
+  }
+  template <int G>
+  __device__ __forceinline__ void store(int row, int base, int ls, const uint64_t (&v)[G]) const {
+    const int i = (row << log_n) + base;
+#pragma unroll
+    for (int k = 0; k < G; ++k) p[swz64(i + (k << ls))] = v[k];
+  }
+};
+
+// A tile's rows in device memory: a group's words in 16-byte accesses where
+// they are adjacent (ls = 0), else one word at a time (a warp's words then
+// adjacent).  CHAIN: the inverse's input chain, conditional subtractions
+// of in_factor/2 q, ..., 2q taking a word below in_factor q below 2q.
+template <bool CHAIN>
+struct GlobalIn64 {
+  const uint64_t* p;
+  int log_n;
+  uint64_t q;
+  int in_factor;
+  template <int G>
+  __device__ __forceinline__ void load(int row, int base, int ls, uint64_t (&v)[G]) const {
+    const uint64_t* r = p + ((size_t)row << log_n) + base;
+    if (ls == 0) {
+      load_words(r, v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < G; ++k) v[k] = Word<uint64_t>::ldg(r + (k << ls));
+    }
+    if (CHAIN) {
+      for (int f = in_factor >> 1; f >= 2; f >>= 1) {
+#pragma unroll
+        for (int k = 0; k < G; ++k) v[k] = reduce_once64(v[k], (uint64_t)f * q);
+      }
+    }
+  }
+};
+
+// A tile's output rows: a group's words in 16-byte stores where they are
+// adjacent (the forward's last pass, one pass), else one word at a time
+// (the inverse's last pass: slots k n/8 + g, a warp's words adjacent).
+// FOLD brings the forward's words from [0, 4q) to canonical.
+template <bool FOLD>
+struct GlobalOut64 {
+  uint64_t* p;
+  int log_n;
+  uint64_t q;
+  template <int G>
+  __device__ __forceinline__ void store(int row, int base, int ls, const uint64_t (&v)[G]) const {
+    uint64_t w[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) w[k] = FOLD ? reduce_once64(reduce_once64(v[k], 2 * q), q) : v[k];
+    uint64_t* r = p + ((size_t)row << log_n) + base;
+    if (ls == 0) {
+      store_words(r, w);
+    } else {
+#pragma unroll
+      for (int k = 0; k < G; ++k) r[k << ls] = w[k];
+    }
+  }
+};
+
+// Half h of a split row (p: the row) as the forward's first pass loads it:
+// slot c of the half is the butterfly of stage 0 on the row's words c and
+// c + n/2 (root 1), its half h kept.
+struct HalfIn {
+  const uint64_t* p;
+  int half, h;
+  uint64_t w, wp, q;
+  template <int G>
+  __device__ __forceinline__ void load(int, int base, int ls, uint64_t (&v)[G]) const {
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      uint64_t x = Word<uint64_t>::ldg(p + base + (k << ls));
+      uint64_t y = Word<uint64_t>::ldg(p + half + base + (k << ls));
+      fwd_bf(x, y, w, wp, q);
+      v[k] = h ? y : x;
+    }
+  }
+};
+
+// Half h's view of the forward's tables: its stage s0 is the row's stage
+// s0 + 1, and its group hi there the row's group h 2^s0 + hi.
+template <class TW>
+struct HalfTable {
+  TW t;
+  int h;
+  template <int R>
+  __device__ __forceinline__ void get(int s0, int hi, uint64_t (&tw)[1 << R],
+                                      uint64_t (&twp)[1 << R]) const {
+    t.template get<R>(s0 + 1, hi + (h << s0), tw, twp);
+  }
+};
+
+// Half h's view of the inverse's table: twiddle ti of a transform of the
+// half's size, stage s = log2(half) - 1 - floor(log2(half - ti)), is the
+// row's twiddle ti + half - (half >> s) + h (half >> (s + 1)).
+struct HalfInvTable {
+  const uint64_t* w;
+  const uint64_t* wp;
+  int half, h;
+  __device__ __forceinline__ void operator()(int ti, uint64_t& tw, uint64_t& twp) const {
+    const int lg = 31 - __clz(half - ti);  // half >> (s + 1)
+    const int gi = ti + half - (2 << lg) + (h << lg);
+    tw = w[gi];
+    twp = wp[gi];
+  }
+};
+
+template <bool CANON>
+__global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_forward_kernel(const Ntt64Args a) {
+  extern __shared__ __align__(16) uint64_t sm[];
+  const int log_n = a.log_n, n = 1 << log_n;
+  const Tile t = block_tile(a);
+  const uint64_t q = a.ms.m[t.mi].q;
+  const uint64_t* groots = a.tw + ((size_t)t.mi << log_n);
+  const uint64_t* groots_p = a.twp + ((size_t)t.mi << log_n);
+  const GlobalIn64<false> src{a.in + t.off, log_n};
+  if (log_n <= 3) {  // one pass, device memory to device memory
+    const GlobalOut64<CANON> dst{a.out + t.off, log_n, q};
+    const FwdFirst first(groots, groots_p, n);
+    if (log_n == 3) fwd_pass<3>(t.count, log_n, 0, first, q, src, dst);
+    if (log_n == 2) fwd_pass<2>(t.count, log_n, 0, first, q, src, dst);
+    if (log_n == 1) fwd_pass<1>(t.count, log_n, 0, first, q, src, dst);
+    return;
+  }
+  // the block holds 2^l words of each of its rows (half of a split row)
+  const int l = log_n - log_split(log_n);
+  const int m = staged_words(true, log_n);
+  const SmemRows64 rows{sm + 2 * m, l};
+  const GlobalOut64<CANON> dst{a.out + t.off + ((size_t)t.h << l), log_n, q};
+
+  // the passes after the first, radix 8 in shared memory; the last (r
+  // stages) stores to device memory
+  const auto rest = [&](const auto& table) {
+    const int r = remainder_stages(l);
+    for (int s0 = 3; s0 < l - r; s0 += 3) {
+      fwd_pass<3>(t.count, l, s0, table, q, rows, rows);
+      __syncthreads();
+    }
+    if (r == 3) fwd_pass<3>(t.count, l, l - 3, table, q, rows, dst);
+    if (r == 2) fwd_pass<2>(t.count, l, l - 2, table, q, rows, dst);
+    if (r == 1) fwd_pass<1>(t.count, l, l - 1, table, q, rows, dst);
+  };
+
+  if (l < log_n) {  // a split row: stage 0 as the half loads, then the half's stages
+    const HalfTable<FwdTable<uint64_t>> table{{groots, groots_p}, t.h};
+    const HalfIn half{a.in + t.off, 1 << l, t.h, Word<uint64_t>::ldg(groots + 1),
+                      Word<uint64_t>::ldg(groots_p + 1), q};
+    fwd_pass<3>(1, l, 0, table, q, half, rows);
+    __syncthreads();
+    rest(table);
+    return;
+  }
+
+  // pass 1 (stages 0-2): the tile's rows from device memory, twiddles in
+  // registers, under the table copy
+  if (m) stage_tables(sm, sm + m, groots, groots_p, 0, m);
+  fwd_pass<3>(t.count, log_n, 0, FwdFirst(groots, groots_p, 8), q, src, rows);
+  cp_async_wait<0>();
+  __syncthreads();
+  if (m)
+    rest(FwdTable{(const uint64_t*)sm, (const uint64_t*)sm + m});
+  else
+    rest(FwdTable{groots, groots_p});
+}
+
+// The inverse's last stage of a split row on the pair (x, y) = (words i,
+// i + n/2): inv_n and inv_n_w folded in, as the passes' final stage does.
 __device__ __forceinline__ void inverse_last_stage(uint64_t x, uint64_t y, const Mod64& c,
                                                    bool canonical, uint64_t* ox, uint64_t* oy) {
   const uint64_t q = c.q, two_q = 2 * q;
@@ -91,118 +346,204 @@ __device__ __forceinline__ void inverse_last_stage(uint64_t x, uint64_t y, const
   *oy = canonical ? reduce_once64(b, q) : b;
 }
 
-__global__ void ntt64_inverse_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
-                                     const uint64_t* __restrict__ inv_roots,
-                                     const uint64_t* __restrict__ inv_roots_p, ModSet64 ms,
-                                     int rows_per_mod, int log_n, int canonical, int in_factor,
-                                     int log_split) {
-  extern __shared__ uint64_t sv[];
-  const int n = 1 << log_n, half = n >> 1, part = n >> log_split;
-  const int h = blockIdx.x & ((1 << log_split) - 1);
-  const size_t row = blockIdx.x >> log_split;
-  const int mi = (int)(row / rows_per_mod);
-  const Mod64 c = ms.m[mi];
-  const uint64_t q = c.q, two_q = 2 * q;
-  const uint64_t* w = inv_roots + (size_t)mi * n;
-  const uint64_t* wp = inv_roots_p + (size_t)mi * n;
-  const uint64_t* src = in + row * n + (size_t)h * part;
-  for (int i = threadIdx.x; i < part; i += blockDim.x) {
-    uint64_t x = src[i];
-    for (int f = in_factor >> 1; f >= 2; f >>= 1) x = reduce_once64(x, (uint64_t)f * q);
-    sv[i] = x;  // now in [0, 2q)
-  }
-  __syncthreads();
-  for (int s = 0; s < log_n - 1; ++s) {
-    const int log_t = s, t = 1 << log_t;
-    // inv_roots are consumed in order: stage s starts at 1 + n - (n >> s)
-    const int r0 = 1 + n - (n >> s) + h * ((n >> (s + 1)) >> log_split);
-    for (int i = threadIdx.x; i < part / 2; i += blockDim.x) {
-      const int j = i >> log_t;
-      const int xi = (j << (log_t + 1)) + (i & (t - 1)), yi = xi + t;
-      const uint64_t x = sv[xi], y = sv[yi];
-      sv[xi] = reduce_once64(x + y, two_q);
-      sv[yi] = shoup64_lazy(x + two_q - y, w[r0 + j], wp[r0 + j], q);
-    }
-    __syncthreads();
-  }
-  uint64_t* dst = out + row * n;
-  if (log_split == 0) {
-    for (int i = threadIdx.x; i < half; i += blockDim.x)
-      inverse_last_stage(sv[i], sv[i + half], c, canonical != 0, dst + i, dst + i + half);
+template <bool CANON>
+__global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_inverse_kernel(const Ntt64Args a) {
+  extern __shared__ __align__(16) uint64_t sm[];
+  constexpr Last LAST = CANON ? Last::canonical : Last::lazy;
+  const int log_n = a.log_n, n = 1 << log_n;
+  const Tile t = block_tile(a);
+  const Mod64 c = a.ms.m[t.mi];
+  const uint64_t* groots = a.tw + ((size_t)t.mi << log_n);
+  const uint64_t* groots_p = a.twp + ((size_t)t.mi << log_n);
+  const InvTable global{groots, groots_p};
+  const int l = log_n - log_split(log_n);  // words a block holds of a row: 2^l
+  const GlobalIn64<true> src{a.in + t.off + ((size_t)t.h << l), log_n, c.q, a.in_factor};
+  const GlobalOut64<false> dst{a.out + t.off, log_n, c.q};
+  if (log_n <= 3) {  // one pass, device memory to device memory
+    if (log_n == 3) inv_pass<3, LAST>(t.count, log_n, 0, global, c, src, dst);
+    if (log_n == 2) inv_pass<2, LAST>(t.count, log_n, 0, global, c, src, dst);
+    if (log_n == 1) inv_pass<1, LAST>(t.count, log_n, 0, global, c, src, dst);
     return;
   }
-  // the last stage pairs the two halves: each block of the cluster finishes
-  // half of the pairs, reading x from part 0 and y from part 1
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const uint64_t* xs = cluster.map_shared_rank(sv, 0);
-  const uint64_t* ys = cluster.map_shared_rank(sv, 1);
-  for (int i = h * (half / 2) + threadIdx.x; i < (h + 1) * (half / 2); i += blockDim.x)
-    inverse_last_stage(xs[i], ys[i], c, canonical != 0, dst + i, dst + i + half);
-  cluster.sync();  // keep both halves alive until every read is done
+  const int r = remainder_stages(l);
+  const int m = staged_words(false, log_n);  // the later passes' twiddles: [n - m, n)
+  const SmemRows64 rows{sm + 2 * m, l};
+
+  if (l < log_n) {  // a split row: the stages within the half, then the last over the cluster
+    const HalfInvTable table{groots, groots_p, 1 << l, t.h};
+    if (r == 3) inv_pass<3, Last::no>(1, l, 0, table, c, src, rows);
+    if (r == 2) inv_pass<2, Last::no>(1, l, 0, table, c, src, rows);
+    if (r == 1) inv_pass<1, Last::no>(1, l, 0, table, c, src, rows);
+    __syncthreads();
+    inv_rest<Last::no>(rows, 1, l, r, table, c, rows);
+    // the last stage pairs the two halves: each block of the cluster
+    // finishes half of the pairs, reading x from half 0 and y from half 1
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const uint64_t* xs = cluster.map_shared_rank(rows.p, 0);
+    const uint64_t* ys = cluster.map_shared_rank(rows.p, 1);
+    const int half = 1 << l;
+    uint64_t* out = a.out + t.off;
+    for (int i = t.h * (half / 2) + threadIdx.x; i < (t.h + 1) * (half / 2); i += blockDim.x)
+      inverse_last_stage(xs[swz64(i)], ys[swz64(i)], c, CANON, out + i, out + i + half);
+    cluster.sync();  // keep both halves alive until every read is done
+    return;
+  }
+
+  // pass 1 (r stages): 2^r adjacent words a group from device memory, the
+  // twiddles from device memory under the copy of the later passes' part
+  stage_tables(sm, sm + m, groots, groots_p, n - m, n);
+  if (r == 3) inv_pass<3, Last::no>(t.count, log_n, 0, global, c, src, rows);
+  if (r == 2) inv_pass<2, Last::no>(t.count, log_n, 0, global, c, src, rows);
+  if (r == 1) inv_pass<1, Last::no>(t.count, log_n, 0, global, c, src, rows);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // radix-8 passes in shared memory; the last (inv_n folded in) stores to
+  // device memory
+  const InvTable staged{(const uint64_t*)sm, (const uint64_t*)sm + m, n - m};
+  inv_rest<LAST>(rows, t.count, log_n, r, staged, c, dst);
 }
 
-// Parts a row is split into (log2): 1 when a row overflows one block's
-// shared memory (n = 2^15).
-inline int log_split_for(int log_n) { return log_n > 14 ? 1 : 0; }
+// What the launches read of a device, set up at the first launch there:
+// the SM count and, for each kernel, row size and tile, how many blocks an
+// SM holds at once (0 where the tile does not fit in shared memory); the
+// kernels' shared-memory cap is raised to SMEM_MAX.
+struct Ntt64Device {
+  int sms = 0;
+  int resident[2][MAX_LOG_N + 1][4] = {};
+};
 
-template <class K>
-int prepare(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int ntt64_device(const Ntt64Device** out) {
+  static Ntt64Device cached[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  Ntt64Device& d = cached[dev];
+  if (d.sms == 0) {
+    Ntt64Device fresh;
+    const void* kernels[4] = {(const void*)ntt64_forward_kernel<true>,
+                              (const void*)ntt64_forward_kernel<false>,
+                              (const void*)ntt64_inverse_kernel<true>,
+                              (const void*)ntt64_inverse_kernel<false>};
+    for (const void* k : kernels)
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&fresh.sms, cudaDevAttrMultiProcessorCount, dev);
+    for (int f = 0; f < 2 && e == cudaSuccess; ++f)
+      for (int log_n = 1; log_n <= MAX_LOG_N && e == cudaSuccess; ++log_n)
+        for (int i = 0; i < 4 && e == cudaSuccess; ++i) {
+          const size_t smem = smem_bytes(f == 0, log_n, 1 << i);
+          if (smem <= (size_t)SMEM_MAX)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &fresh.resident[f][log_n][i], kernels[2 * f], tile_threads(log_n, 1 << i), smem);
+        }
+    if (e != cudaSuccess) return (int)e;
+    d = fresh;
+  }
+  *out = &d;
+  return 0;
 }
 
-bool valid(int count, int rows_per_mod, int log_n) {
-  return count >= 1 && count <= PFT_MAX_MOD64 && log_n >= 1 && log_n <= 15 && rows_per_mod >= 1;
+// Rows a block: the smallest tile T (1, 2, 4 or 8 rows) whose grid of
+// count ceil(rows / T) blocks runs in one wave (the SMs times the blocks an
+// SM holds at T), else the largest T that fits (each staged table word then
+// serves the most rows).  A smaller tile spreads a transform over more SMs;
+// a larger one reads the tables less often.  A split row (n = 2^15) fits
+// only T = 1.  The only copy of the rule.
+int pick_tile(bool forward, int count, int rows, int log_n, const Ntt64Device& d) {
+  int fit = 1;
+  for (int i = 0; i < 4; ++i) {
+    const int held = d.resident[forward ? 0 : 1][log_n][i];
+    if (held == 0) break;
+    fit = 1 << i;
+    if ((long)count * ((rows + fit - 1) / fit) <= (long)d.sms * held) return fit;
+  }
+  return fit;
+}
+
+bool valid(int count, int rows, int log_n) {
+  return count >= 1 && count <= PFT_MAX_MOD64 && log_n >= 1 && log_n <= MAX_LOG_N && rows >= 1;
+}
+
+int launch(bool forward, const void* in, void* out, const void* tw, const void* twp,
+           const void* mod_pack, int count, int rows, int log_n, int canonical, int in_factor,
+           void* stream) {
+  if (!valid(count, rows, log_n) || in_factor < 2 || (in_factor & (in_factor - 1)) ||
+      (((uintptr_t)in | (uintptr_t)out) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const Ntt64Device* d = nullptr;
+  const int err = ntt64_device(&d);
+  if (err != 0) return err;
+  Ntt64Args a{};
+  a.in = (const uint64_t*)in;
+  a.out = (uint64_t*)out;
+  a.tw = (const uint64_t*)tw;
+  a.twp = (const uint64_t*)twp;
+  a.ms = unpack_mod64((const uint64_t*)mod_pack, count);
+  a.rows = rows;
+  a.log_n = log_n;
+  a.in_factor = in_factor;
+  a.tile = pick_tile(forward, count, rows, log_n, *d);
+  const int split = log_split(log_n);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((count * ((rows + a.tile - 1) / a.tile)) << split);
+  cfg.blockDim = dim3(tile_threads(log_n, a.tile));
+  cfg.dynamicSmemBytes = smem_bytes(forward, log_n, a.tile);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;  // the inverse's split row: its 2 blocks in one cluster
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = !forward && split ? 1 : 0;
+  cudaError_t e;
+  if (forward)
+    e = canonical ? cudaLaunchKernelEx(&cfg, ntt64_forward_kernel<true>, a)
+                  : cudaLaunchKernelEx(&cfg, ntt64_forward_kernel<false>, a);
+  else
+    e = canonical ? cudaLaunchKernelEx(&cfg, ntt64_inverse_kernel<true>, a)
+                  : cudaLaunchKernelEx(&cfg, ntt64_inverse_kernel<false>, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// Forward NTT of count moduli x rows_per_mod rows of 2^log_n words (log_n
+// 1-15, count <= 4; in and out 16-byte aligned): roots, roots_p (count, n)
+// the bit-reversed root tables and Shoup quotients; input below 4q,
+// bit-reversed output canonical or lazy in [0, 4q).
 int pft_ntt64_forward(const void* in, void* out, const void* roots, const void* roots_p,
                       const void* mod_pack, int count, int rows_per_mod, int log_n, int canonical,
                       void* stream) {
-  if (!valid(count, rows_per_mod, log_n)) return (int)cudaErrorInvalidValue;
-  const ModSet64 ms = unpack_mod64((const uint64_t*)mod_pack, count);
-  const int ls = log_split_for(log_n);
-  const size_t smem = sizeof(uint64_t) << (log_n - ls);
-  const int err = prepare(ntt64_forward_kernel, smem);
-  if (err) return err;
-  ntt64_forward_kernel<<<(count * rows_per_mod) << ls, block_threads64(log_n - ls), smem,
-                         (cudaStream_t)stream>>>(
-      (const uint64_t*)in, (uint64_t*)out, (const uint64_t*)roots, (const uint64_t*)roots_p, ms,
-      rows_per_mod, log_n, canonical, ls);
-  return (int)cudaGetLastError();
+  return launch(true, in, out, roots, roots_p, mod_pack, count, rows_per_mod, log_n, canonical, 2,
+                stream);
 }
 
+// Inverse NTT, the same shapes: inv_roots, inv_roots_p the inverse tables;
+// bit-reversed input below in_factor q (a power of two, at least 2),
+// normal-order output canonical or lazy in [0, 2q).
 int pft_ntt64_inverse(const void* in, void* out, const void* inv_roots, const void* inv_roots_p,
                       const void* mod_pack, int count, int rows_per_mod, int log_n, int canonical,
                       int in_factor, void* stream) {
-  if (!valid(count, rows_per_mod, log_n) || in_factor < 2 || (in_factor & (in_factor - 1)))
-    return (int)cudaErrorInvalidValue;
-  const ModSet64 ms = unpack_mod64((const uint64_t*)mod_pack, count);
-  const int ls = log_split_for(log_n);
-  const size_t smem = sizeof(uint64_t) << (log_n - ls);
-  int err = prepare(ntt64_inverse_kernel, smem);
-  if (err) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((count * rows_per_mod) << ls);
-  cfg.blockDim = dim3(block_threads64(log_n - ls));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1 << ls;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = ls ? 1 : 0;
-  err = (int)cudaLaunchKernelEx(&cfg, ntt64_inverse_kernel, (const uint64_t*)in, (uint64_t*)out,
-                                (const uint64_t*)inv_roots, (const uint64_t*)inv_roots_p, ms,
-                                rows_per_mod, log_n, canonical, in_factor, ls);
-  if (err) return err;
-  return (int)cudaGetLastError();
+  return launch(false, in, out, inv_roots, inv_roots_p, mod_pack, count, rows_per_mod, log_n,
+                canonical, in_factor, stream);
+}
+
+// The rows a block the launch takes (pick_tile) on the current device.
+int pft_ntt64_tile(int forward, int count, int rows_per_mod, int log_n, int* tile) {
+  if (!valid(count, rows_per_mod, log_n)) return (int)cudaErrorInvalidValue;
+  const Ntt64Device* d = nullptr;
+  const int err = ntt64_device(&d);
+  if (err != 0) return err;
+  *tile = pick_tile(forward != 0, count, rows_per_mod, log_n, *d);
+  return 0;
 }
 
 }  // extern "C"

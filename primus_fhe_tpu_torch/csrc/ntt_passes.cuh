@@ -1,5 +1,6 @@
-// Radix-8 register passes of the 32-bit negacyclic NTT, shared by kernels
-// 1-2 (csrc/ntt32.cu) and the CMux step kernel (csrc/cmux_fused.cu).
+// Radix-8 register passes of the negacyclic NTT on u32 or u64 words, shared
+// by kernels 1-2 (csrc/ntt32.cu), the CMux step kernel (csrc/cmux_fused.cu)
+// and row 10's u64 kernels (csrc/ntt64.cu).
 //
 // A pass runs R <= 3 butterfly stages on groups of 2^R words: each thread
 // holds a group in registers through its R stages, so a transform of
@@ -14,13 +15,48 @@
 // 2^t); inverse group g holds hi * 2^(s0+R) + k * 2^s0 + lo (hi = g >> s0).
 // Where a pass reads and writes its words is the caller's: src.load(row,
 // base, ls, v) and dst.store(row, base, ls, v) move the 2^R words base +
-// k * 2^ls of row `row` (SmemRows for swizzled rows in shared memory;
+// k * 2^ls of row `row` (SmemRows for swizzled u32 rows in shared memory;
 // slot_load / slot_store adapt a function of one slot).
 //
-// Values are u32 words (int32 storage on the PyTorch side).
+// The word type W is the modulus's (uint32_t: kernels 1-2 and the step
+// kernel, int32 storage on the PyTorch side; uint64_t: row 10, int64
+// storage); Word<W> gives its Shoup multiply, its conditional subtraction
+// and its read-only load.  The schedule is the same at both widths: only
+// the word type, the Shoup multiply and the swizzle (the caller's load and
+// store functors) differ.
 #pragma once
 
 #include "modarith32.cuh"
+#include "modarith64.cuh"
+
+template <class W>
+struct Word;
+
+template <>
+struct Word<uint32_t> {
+  static __device__ __forceinline__ uint32_t sub_if(uint32_t x, uint32_t q) {
+    return reduce_once(x, q);
+  }
+  static __device__ __forceinline__ uint32_t shoup(uint32_t y, uint32_t w, uint32_t wp,
+                                                   uint32_t q) {
+    return shoup_mul_lazy(y, w, wp, q);
+  }
+  static __device__ __forceinline__ uint32_t ldg(const uint32_t* p) { return __ldg(p); }
+};
+
+template <>
+struct Word<uint64_t> {
+  static __device__ __forceinline__ uint64_t sub_if(uint64_t x, uint64_t q) {
+    return reduce_once64(x, q);
+  }
+  static __device__ __forceinline__ uint64_t shoup(uint64_t y, uint64_t w, uint64_t wp,
+                                                   uint64_t q) {
+    return shoup64_lazy(y, w, wp, q);
+  }
+  static __device__ __forceinline__ uint64_t ldg(const uint64_t* p) {
+    return __ldg(reinterpret_cast<const unsigned long long*>(p));
+  }
+};
 
 // Shared-memory word of slot i in the step kernel: bits 0-4 XOR bits 3-7.
 // Every 8-word radix pass and every coefficient-order sweep of a warp hits
@@ -79,37 +115,54 @@ __device__ __forceinline__ void store_words(uint32_t* p, const uint32_t (&v)[G])
   }
 }
 
+// G = 2, 4 or 8 adjacent u64 words at p (16-byte aligned), 16 bytes an access.
+template <int G>
+__device__ __forceinline__ void load_words(const uint64_t* p, uint64_t (&v)[G]) {
+#pragma unroll
+  for (int c = 0; c < G / 2; ++c) {
+    const ulonglong2 t = reinterpret_cast<const ulonglong2*>(p)[c];
+    v[2 * c] = t.x;
+    v[2 * c + 1] = t.y;
+  }
+}
+template <int G>
+__device__ __forceinline__ void store_words(uint64_t* p, const uint64_t (&v)[G]) {
+#pragma unroll
+  for (int c = 0; c < G / 2; ++c)
+    reinterpret_cast<ulonglong2*>(p)[c] = make_ulonglong2(v[2 * c], v[2 * c + 1]);
+}
+
 // Harvey forward butterfly (x, y) -> (x + wy, x - wy), lazy in [0, 4q).
-__device__ __forceinline__ void fwd_bf(uint32_t& x, uint32_t& y, uint32_t w, uint32_t wp,
-                                       uint32_t q) {
-  const uint32_t two_q = 2u * q;
-  const uint32_t tx = x >= two_q ? x - two_q : x;
-  const uint32_t ty = shoup_mul_lazy(y, w, wp, q);
+template <class W>
+__device__ __forceinline__ void fwd_bf(W& x, W& y, W w, W wp, W q) {
+  const W two_q = W(2) * q;
+  const W tx = x >= two_q ? x - two_q : x;
+  const W ty = Word<W>::shoup(y, w, wp, q);
   x = tx + ty;
   y = tx + two_q - ty;
 }
 
 // Gentleman-Sande inverse butterfly (x, y) -> (x + y, w (x - y)), lazy in [0, 2q).
-__device__ __forceinline__ void inv_bf(uint32_t& x, uint32_t& y, uint32_t w, uint32_t wp,
-                                       uint32_t q) {
-  const uint32_t two_q = 2u * q;
-  const uint32_t s = x + y;
-  const uint32_t d = x + two_q - y;
+template <class W>
+__device__ __forceinline__ void inv_bf(W& x, W& y, W w, W wp, W q) {
+  const W two_q = W(2) * q;
+  const W s = x + y;
+  const W d = x + two_q - y;
   x = s >= two_q ? s - two_q : s;
-  y = shoup_mul_lazy(d, w, wp, q);
+  y = Word<W>::shoup(d, w, wp, q);
 }
 
 // R forward stages on the 2^R words v of one radix group.  tw(e, j, w, wp)
 // gives the twiddle of block j (within the group's span) at stage e.
-template <int R, class TW>
-__device__ __forceinline__ void fwd_stages(uint32_t (&v)[1 << R], TW tw, uint32_t q) {
+template <int R, class TW, class W>
+__device__ __forceinline__ void fwd_stages(W (&v)[1 << R], TW tw, W q) {
 #pragma unroll
   for (int e = 0; e < R; ++e) {
     const int h = 1 << (R - 1 - e);
 #pragma unroll
     for (int k = 0; k < (1 << R); ++k)
       if (!(k & h)) {
-        uint32_t w, wp;
+        W w, wp;
         tw(e, k >> (R - e), w, wp);
         fwd_bf(v[k], v[k + h], w, wp, q);
       }
@@ -118,23 +171,24 @@ __device__ __forceinline__ void fwd_stages(uint32_t (&v)[1 << R], TW tw, uint32_
 
 // Forward twiddles of a group at stages s0 .. s0+R-1 from a root table and
 // its Shoup quotients (16-byte aligned): stage e's 2^e roots are the run at
-// 2^(s0+e) + hi 2^e, read in one access; w[2^e + j] is block j's.
+// 2^(s0+e) + hi 2^e, read in one access (two for 4 u64 roots); w[2^e + j]
+// is block j's.
+template <class W>
 struct FwdTable {
-  const uint32_t* w;
-  const uint32_t* wp;
+  const W* w;
+  const W* wp;
   template <int R>
-  __device__ __forceinline__ void get(int s0, int hi, uint32_t (&tw)[1 << R],
-                                      uint32_t (&twp)[1 << R]) const {
+  __device__ __forceinline__ void get(int s0, int hi, W (&tw)[1 << R], W (&twp)[1 << R]) const {
     tw[1] = w[(1 << s0) + hi];
     twp[1] = wp[(1 << s0) + hi];
     if constexpr (R > 1) {
-      uint32_t a[2], b[2];
+      W a[2], b[2];
       load_words(w + (2 << s0) + 2 * hi, a);
       load_words(wp + (2 << s0) + 2 * hi, b);
       tw[2] = a[0], tw[3] = a[1], twp[2] = b[0], twp[3] = b[1];
     }
     if constexpr (R > 2) {
-      uint32_t a[4], b[4];
+      W a[4], b[4];
       load_words(w + (4 << s0) + 4 * hi, a);
       load_words(wp + (4 << s0) + 4 * hi, b);
 #pragma unroll
@@ -142,21 +196,22 @@ struct FwdTable {
     }
   }
 };
+template <class W>
+FwdTable(const W*, const W*) -> FwdTable<W>;
 
 // The 7 twiddles of stages 0-2 (s0 = 0, hi = 0), held in registers.
+template <class W>
 struct FwdFirst {
-  uint32_t w[8], wp[8];
-  __device__ __forceinline__ explicit FwdFirst(const uint32_t* roots, const uint32_t* roots_p,
-                                               int count) {
+  W w[8], wp[8];
+  __device__ __forceinline__ explicit FwdFirst(const W* roots, const W* roots_p, int count) {
 #pragma unroll
     for (int i = 1; i < 8; ++i) {
-      w[i] = i < count ? __ldg(roots + i) : 0u;
-      wp[i] = i < count ? __ldg(roots_p + i) : 0u;
+      w[i] = i < count ? Word<W>::ldg(roots + i) : W(0);
+      wp[i] = i < count ? Word<W>::ldg(roots_p + i) : W(0);
     }
   }
   template <int R>
-  __device__ __forceinline__ void get(int, int, uint32_t (&tw)[1 << R],
-                                      uint32_t (&twp)[1 << R]) const {
+  __device__ __forceinline__ void get(int, int, W (&tw)[1 << R], W (&twp)[1 << R]) const {
 #pragma unroll
     for (int i = 1; i < (1 << R); ++i) tw[i] = w[i], twp[i] = wp[i];
   }
@@ -164,17 +219,22 @@ struct FwdFirst {
 
 // Inverse twiddle ti of a root table and its quotients (any memory), of
 // which w holds the words from `lo` on.
+template <class W>
 struct InvTable {
-  const uint32_t* w;
-  const uint32_t* wp;
+  const W* w;
+  const W* wp;
   int lo = 0;
-  __device__ __forceinline__ void operator()(int ti, uint32_t& tw, uint32_t& twp) const {
+  __device__ __forceinline__ void operator()(int ti, W& tw, W& twp) const {
     tw = w[ti - lo];
     twp = wp[ti - lo];
   }
 };
+template <class W>
+InvTable(const W*, const W*) -> InvTable<W>;
+template <class W>
+InvTable(const W*, const W*, int) -> InvTable<W>;
 
-// Rows of 2^log_n words in shared memory, slot c of row r at word
+// Rows of 2^log_n u32 words in shared memory, slot c of row r at word
 // r 2^log_n + SW::at(c): the group access of a pass.
 template <class SW>
 struct SmemRows {
@@ -226,8 +286,8 @@ __device__ __forceinline__ SlotStore<F> slot_store(F f) {
 // One forward pass of R stages s0 .. s0+R-1 over `count` rows, the block's
 // threads striding over (row, group); tw.get<R>(s0, hi, ...) gives a
 // group's twiddles (FwdTable, FwdFirst).
-template <int R, class TW, class LOAD, class STORE>
-__device__ void fwd_pass(int count, int log_n, int s0, const TW& tw, uint32_t q, const LOAD& src,
+template <int R, class TW, class LOAD, class STORE, class W>
+__device__ void fwd_pass(int count, int log_n, int s0, const TW& tw, W q, const LOAD& src,
                          const STORE& dst) {
   const int log_t = log_n - s0 - R;
   const int log_g = log_n - R;  // groups a row
@@ -235,12 +295,12 @@ __device__ void fwd_pass(int count, int log_n, int s0, const TW& tw, uint32_t q,
     const int g = it & ((1 << log_g) - 1);
     const int hi = g >> log_t;
     const int base = (hi << (log_t + R)) + (g & ((1 << log_t) - 1));
-    uint32_t v[1 << R], w[1 << R], wp[1 << R];
+    W v[1 << R], w[1 << R], wp[1 << R];
     src.load(it >> log_g, base, log_t, v);
     tw.template get<R>(s0, hi, w, wp);
     fwd_stages<R>(
         v,
-        [&](int e, int j, uint32_t& ww, uint32_t& wwp) {
+        [&](int e, int j, W& ww, W& wwp) {
           ww = w[(1 << e) + j];
           wwp = wp[(1 << e) + j];
         },
@@ -254,18 +314,21 @@ __device__ void fwd_pass(int count, int log_n, int s0, const TW& tw, uint32_t q,
 enum class Last { no, canonical, lazy };
 
 // One inverse pass of R stages s0 .. s0+R-1 over `count` rows;
-// tw(ti, w, wp) gives twiddle ti of the prime's inverse table.
-template <int R, Last LAST, class TW, class LOAD, class STORE>
-__device__ void inv_pass(int count, int log_n, int s0, const TW& tw, const PrimeConsts& pc,
+// tw(ti, w, wp) gives twiddle ti of the modulus's inverse table; pc holds
+// the modulus q and the final stage's inv_n, inv_n_w and their quotients
+// (PrimeConsts, Mod64).
+template <int R, Last LAST, class TW, class PC, class LOAD, class STORE>
+__device__ void inv_pass(int count, int log_n, int s0, const TW& tw, const PC& pc,
                          const LOAD& src, const STORE& dst) {
+  using W = decltype(PC::q);
   const int n = 1 << log_n;
   const int log_g = log_n - R;
-  const uint32_t q = pc.q, two_q = 2u * q;
+  const W q = pc.q, two_q = W(2) * q;
   for (int it = threadIdx.x; it < (count << log_g); it += blockDim.x) {
     const int g = it & ((1 << log_g) - 1);
     const int hi = g >> s0;
     const int base = (hi << (s0 + R)) + (g & ((1 << s0) - 1));
-    uint32_t v[1 << R];
+    W v[1 << R];
     src.load(it >> log_g, base, s0, v);
 #pragma unroll
     for (int e = 0; e < R; ++e) {
@@ -275,17 +338,17 @@ __device__ void inv_pass(int count, int log_n, int s0, const TW& tw, const Prime
       for (int k = 0; k < (1 << R); ++k) {
         if (k & h) continue;
         if (LAST != Last::no && e == R - 1) {
-          const uint32_t x = v[k], y = v[k + h];
-          const uint32_t s = x + y;
-          const uint32_t tx = s >= two_q ? s - two_q : s;
-          v[k] = shoup_mul_lazy(tx, pc.inv_n, pc.inv_n_p, q);
-          v[k + h] = shoup_mul_lazy(x + two_q - y, pc.inv_n_w, pc.inv_n_w_p, q);
+          const W x = v[k], y = v[k + h];
+          const W s = x + y;
+          const W tx = s >= two_q ? s - two_q : s;
+          v[k] = Word<W>::shoup(tx, pc.inv_n, pc.inv_n_p, q);
+          v[k + h] = Word<W>::shoup(x + two_q - y, pc.inv_n_w, pc.inv_n_w_p, q);
           if (LAST == Last::canonical) {
-            v[k] = reduce_once(v[k], q);
-            v[k + h] = reduce_once(v[k + h], q);
+            v[k] = Word<W>::sub_if(v[k], q);
+            v[k + h] = Word<W>::sub_if(v[k + h], q);
           }
         } else {
-          uint32_t w, wp;
+          W w, wp;
           tw(start + (hi << (R - 1 - e)) + (k >> (e + 1)), w, wp);
           inv_bf(v[k], v[k + h], w, wp, q);
         }
@@ -295,24 +358,24 @@ __device__ void inv_pass(int count, int log_n, int s0, const TW& tw, const Prime
   }
 }
 
-// The inverse passes from stage s0 on, over `count` rows held at SW in
-// `rows`: radix 8 with a barrier after each, the last one (R = 1..3)
-// holding the final stage, whose output goes to last_store instead.
-template <class SW, Last LAST, class TW, class STORE>
-__device__ void inv_rest(uint32_t* rows, int count, int log_n, int s0, const TW& tw,
-                         const PrimeConsts& pc, const STORE& last_store) {
-  const SmemRows<SW> sr{rows, log_n};
+// The inverse passes from stage s0 on, over `count` rows that `rows` reads
+// and writes (SmemRows): radix 8 with a barrier after each, the last one
+// (R = 1..3) holding the final stage, whose output goes to last_store
+// instead.
+template <Last LAST, class ROWS, class TW, class PC, class STORE>
+__device__ void inv_rest(const ROWS& rows, int count, int log_n, int s0, const TW& tw,
+                         const PC& pc, const STORE& last_store) {
   for (; s0 < log_n; s0 += 3) {
     const int r = log_n - s0;
     if (r > 3) {
-      inv_pass<3, Last::no>(count, log_n, s0, tw, pc, sr, sr);
+      inv_pass<3, Last::no>(count, log_n, s0, tw, pc, rows, rows);
       __syncthreads();
     } else if (r == 3) {
-      inv_pass<3, LAST>(count, log_n, s0, tw, pc, sr, last_store);
+      inv_pass<3, LAST>(count, log_n, s0, tw, pc, rows, last_store);
     } else if (r == 2) {
-      inv_pass<2, LAST>(count, log_n, s0, tw, pc, sr, last_store);
+      inv_pass<2, LAST>(count, log_n, s0, tw, pc, rows, last_store);
     } else {
-      inv_pass<1, LAST>(count, log_n, s0, tw, pc, sr, last_store);
+      inv_pass<1, LAST>(count, log_n, s0, tw, pc, rows, last_store);
     }
   }
 }

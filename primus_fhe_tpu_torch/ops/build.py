@@ -25,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("ntt32.cu", "cmux_fused.cu", "cmux_mxu.cu", "ntt_mxu8.cu", "ntt64.cu", "cmux_front.cu",
            "ntt_stages.cu", "ntt_mxu8_split.cu")
-HEADERS = ("modarith32.cuh", "modarith64.cuh", "mxu8.cuh", "mxu8_64.cuh", "ntt32_passes.cuh")
+HEADERS = ("modarith32.cuh", "modarith64.cuh", "mxu8.cuh", "mxu8_64.cuh", "ntt_passes.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,6 +47,7 @@ _SIGNATURES = {
     "pft_ntt_mxu8_forward": (_P,) * 6 + (_I, _I, _I, _P),
     "pft_ntt64_forward": (_P,) * 5 + (_I,) * 4 + (_P,),
     "pft_ntt64_inverse": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "pft_ntt64_tile": (_I, _I, _I, _I, _P),
     "pft_ntt_mxu8_forward64": (_P,) * 6 + (_I,) * 4 + (_P,),
     "pft_ntt_mxu8_inverse64": (_P,) * 6 + (_I,) * 4 + (_P,),
     "pft_ntt_mxu8_inverse64_mul": (_P,) * 7 + (_I,) * 4 + (_P,),

@@ -25,7 +25,8 @@ tile of rows of one prime, so each staged table word serves the whole tile;
 the C entry picks the tile from the rows, the SM count and the blocks an
 SM holds (``csrc/ntt32.cu``'s ``pick_tile``: the smallest tile that runs
 the grid in one wave).  The passes are one copy in
-``csrc/ntt32_passes.cuh``, shared with the CMux step kernel.
+``csrc/ntt_passes.cuh``, shared with the CMux step kernel and (at 64 bits)
+row 10's kernels.
 
 The butterflies are the plain version's (:mod:`..transforms.ntt`) formulas
 exactly, so canonical and lazy outputs are bit-equal to it.

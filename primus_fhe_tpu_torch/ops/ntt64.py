@@ -6,17 +6,39 @@ Replace ``pallas_forward64`` and ``pallas_inverse64``
 (``primus_fhe_tpu/ops/ntt_pallas.py:486,494``, kernels ``_make_fwd_kernel``
 and ``_make_inv_kernel``).  CUDA source: ``csrc/ntt64.cu``.
 
-Design on Hopper: as kernels 1 and 2 (:mod:`.ntt32`), one thread block per
-polynomial row with the row (n u64 words, 32 KB at n = 4096) in shared
-memory through every stage; a Shoup multiply is three native 64-bit
-multiplies, so the TPU kernels' u32-pair emulation, pre-split 16-bit limb
-tables and lane rolls are gone, and the twiddles come from the compact
-bit-reversed root tables.  The kernels run the plain version's schedule
-(:func:`..transforms.ntt.forward64` / ``inverse64``), so they are bit-equal
-to it at every ``out_factor``; the TPU forward defers its reductions and
-so agrees with them exactly only at ``out_factor=1`` (mod q otherwise).
-A row of 2^15 words (256 KB) does not fit in one block's shared memory;
-there two blocks share a row (``csrc/ntt64.cu`` says how).
+Design on Hopper.  What bounds the transforms: at n = 4096 a row is 32 KB
+in and 32 KB out against 2048 x 12 Shoup butterflies, so a batch of
+hundreds of rows could be bound by device memory (256 rows, 16.8 MB: 5.0
+us at 3.35 TB/s) and a batch of a few rows (the DCRT rotation's batch-1
+step: 16 rows forward, 4 inverse) is bound by the chain of one row through
+its stages on one SM; on the card that chain is issue-bound by the u64
+Shoup butterflies (three 64 x 64-bit products each), ~3.2k cycles a
+radix-8 pass of a row (``csrc/ntt64.cu`` gives the numbers).  The
+kernels run kernels 1-2's design (:mod:`.ntt32`) on u64 words, from the
+same pass templates (``csrc/ntt_passes.cuh``): each thread holds one
+radix-8 group of 8 words in registers through 3 stages, so a transform is
+``ceil(log n / 3)`` passes with a barrier after each (4 at n = 4096); the
+forward's first pass reads its groups straight from device memory with its
+7 roots in registers and its last pass (the remainder, 1-3 stages) stores
+them straight back, 16 bytes an access, and the inverse mirrors it.  The
+passes between live in shared memory at an index swizzled for 8-byte words,
+on which every half-warp hits 16 distinct words mod 16.  The root tables
+and their Shoup quotients are staged into shared memory once a block, under
+the row loads and the first pass, where they fit beside a row (the
+forward's whole table up to n = 2^13; the inverse's part after its first
+pass up to 2^14), and a block takes a tile of rows of one modulus, so each
+staged word serves the tile; the C entry picks the tile (``csrc/ntt64.cu``'s
+``pick_tile``: the smallest that runs the grid in one wave).  A Shoup
+multiply is three native 64-bit multiplies, so the TPU kernels' u32-pair
+emulation, pre-split 16-bit limb tables and lane rolls are gone.  A row of
+2^15 words (256 KB) does not fit in one block's shared memory; there two
+blocks share a row (``csrc/ntt64.cu`` says how).
+
+The kernels run the plain version's butterflies
+(:func:`..transforms.ntt.forward64` / ``inverse64``) on the same pairs,
+stage by stage, so they are bit-equal to it at every ``out_factor``; the
+TPU forward defers its reductions and so agrees with them exactly only at
+``out_factor=1`` (mod q otherwise).
 """
 
 from __future__ import annotations
@@ -148,7 +170,9 @@ def ntt64_forward(tables: NttTables64, values: torch.Tensor, out_factor: int = 1
     ``[0,4q)``; output bit-reversed, canonical for ``out_factor=1`` and lazy
     ``[0,4q)`` for ``4``.
 
-    CPU tensors take the plain version, CUDA tensors the kernel.
+    CPU tensors take the plain version (any ``log_n``), CUDA tensors the
+    kernel, which takes ``log_n`` 1-15 (:data:`MAX_LOG_N`; a ``ValueError``
+    above) and at most 4 moduli (:class:`NttTables64` refuses more).
     """
     if out_factor not in (1, 4):
         raise ValueError("out_factor must be 1 or 4")
@@ -160,8 +184,11 @@ def ntt64_forward(tables: NttTables64, values: torch.Tensor, out_factor: int = 1
 def ntt64_inverse(tables: NttTables64, values: torch.Tensor, out_factor: int = 1,
                   in_factor: int = 2):
     """Inverse NTT of ``values (count, ..., n)``, bit-reversed input in
-    ``[0, in_factor*q)``; output normal order, canonical for ``out_factor=1``
-    and lazy ``[0,2q)`` for ``2``."""
+    ``[0, in_factor*q)``, ``in_factor`` a power of two of at least 2 (a
+    ``ValueError`` otherwise); output normal order, canonical for
+    ``out_factor=1`` and lazy ``[0,2q)`` for ``2``.  The same devices and
+    limits as :func:`ntt64_forward`: the kernel takes ``log_n`` 1-15 and at
+    most 4 moduli."""
     if out_factor not in (1, 2):
         raise ValueError("out_factor must be 1 or 2")
     if in_factor < 2 or in_factor & (in_factor - 1):
@@ -169,6 +196,18 @@ def ntt64_inverse(tables: NttTables64, values: torch.Tensor, out_factor: int = 1
     if values.device.type == "cpu":
         return ntt64_inverse_plain(tables, values, out_factor, in_factor)
     return _launch(ntt64_inverse, "pft_ntt64_inverse", 2, tables, values, out_factor, in_factor)
+
+
+def launch_tile(tables: NttTables64, rows: int, forward: bool = True) -> int:
+    """Rows of one modulus a block of the kernel's launch on ``rows`` rows a
+    modulus, on the current CUDA device (the C entry's own pick)."""
+    import ctypes
+
+    tile = ctypes.c_int()
+    err = build.library().pft_ntt64_tile(int(forward), len(tables.moduli), rows, tables.log_n,
+                                         ctypes.addressof(tile))
+    build.check(err, "pft_ntt64_tile")
+    return tile.value
 
 
 ntt64_forward.launches = 0

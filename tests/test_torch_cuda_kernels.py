@@ -6,7 +6,9 @@ one-launch CMux step (kernels 3-4) at N 32-4096, the 2^1 x 12 gadget, k=2
 (clusters of 6 blocks), batches 1, 3, 64, 65 and in place; for the int8 kernels log_n 8-12,
 k=1 and 2, L 2-4, 1- and 2-byte digits, 2-4 primes, batches that leave
 partial clusters (kernels A and B), and NTRU moduli of 20 and 30 bits;
-for the u64 kernels log_n 4-15 (a row over two blocks at 15), 50- to 62-bit moduli (lazy words past 2^63),
+for the u64 butterfly kernels log_n 1-15 (one pass at 1-3, a row over two
+blocks at 15), 1-4 moduli, 1 to 512 rows a modulus and a ragged last tile,
+for the u64 kernels 50- to 62-bit moduli (lazy words past 2^63),
 both input chains of the inverse, 7 and 8 byte planes on inputs past 2^63,
 the tiled ``mxu8_forward64`` at rows 1, 2, R - 1, R, R + 1, 16, 64, 256 and
 257 (clusters of 1, 2, 4 and 8 slices) and on a residue shard's tables,
@@ -295,20 +297,44 @@ def _below(gen, moduli, shape, factor, dev):
     return torch.stack([mul_hi_u64(_u64_words(gen, shape, dev), factor * q) for q in moduli])
 
 
-@pytest.mark.parametrize("log_n,moduli", [
-    (4, Q50), (8, Q50 + [Q60]), (12, Q50), (12, [Q60, next_ntt_prime(62, 14)]),
-    (14, [next_ntt_prime(61, 14)]), (15, [next_ntt_prime(61, 15), next_ntt_prime(50, 15)]),
+Q62 = [next_ntt_prime(62, 15), next_ntt_prime(61, 15)]  # lazy [0, 4q) words past 2^63
+
+
+def _ragged_rows64(tables, start):
+    """The first row count from ``start`` on that both u64 butterfly
+    launches (on this card) cut into tiles of more than one row with a
+    ragged last tile."""
+    for rows in range(start, start + 2048):
+        tiles = [ntt64.launch_tile(tables, rows, fwd) for fwd in (True, False)]
+        if all(t > 1 and rows % t for t in tiles):
+            return rows
+    raise AssertionError("no ragged tile within 2048 row counts")
+
+
+@pytest.mark.parametrize("log_n,moduli,rows", [
+    (1, Q50, 3), (2, [Q60], 3), (3, Q50 + [Q60], 3), (4, Q50, 3), (8, Q50 + [Q60], 3),
+    (12, Q50, 1), (12, Q50, 8), (12, Q50, 128), (12, [Q50[0]], 512), (12, [Q50[0]], "ragged"),
+    (12, [Q60, next_ntt_prime(62, 14)], 3), (12, Q50 + Q62, 5), (13, [Q62[0], Q50[1]], 3),
+    (14, [next_ntt_prime(61, 14)], 3), (15, [next_ntt_prime(61, 15), next_ntt_prime(50, 15)], 3),
+    (15, [next_ntt_prime(50, 15)] + Q62 + [next_ntt_prime(40, 15)], 2),
 ])
-def test_ntt64_kernels_match_plain(dev, log_n, moduli):
+def test_ntt64_kernels_match_plain(dev, log_n, moduli, rows):
+    """Row 10 against the plain versions, every ``out_factor`` and both
+    input chains: one pass (log_n 1-3), 2-5 passes, a row over two blocks
+    (15); at log_n 12 (the DCRT path) 1, 8, 128 and 512 rows a modulus and
+    a ragged last tile; 1-4 moduli, 62-bit ones with lazy words past
+    2^63."""
     tables = ntt64.NttTables64(log_n, moduli)
-    gen = torch.Generator(device=dev).manual_seed(log_n)
+    if rows == "ragged":
+        rows = _ragged_rows64(tables, 257)
+    gen = torch.Generator(device=dev).manual_seed(log_n * 1000 + rows)
     n = 1 << log_n
-    x = _below(gen, moduli, (3, n), 4, dev)
+    x = _below(gen, moduli, (rows, n), 4, dev)
     for out_factor in (1, 4):
         want = ntt64.ntt64_forward_plain(tables, x, out_factor)
         assert torch.equal(ntt64.ntt64_forward(tables, x, out_factor), want)
     for in_factor in (2, 4):
-        y = _below(gen, moduli, (3, n), in_factor, dev)
+        y = _below(gen, moduli, (rows, n), in_factor, dev)
         for out_factor in (1, 2):
             want = ntt64.ntt64_inverse_plain(tables, y, out_factor, in_factor)
             assert torch.equal(ntt64.ntt64_inverse(tables, y, out_factor, in_factor), want)

@@ -1,5 +1,5 @@
 """A numpy model of kernels 1-2's schedule (``csrc/ntt32.cu`` on the passes
-of ``csrc/ntt32_passes.cuh``), held word for word against the plain
+of ``csrc/ntt_passes.cuh``), held word for word against the plain
 versions ``ops.ntt32.forward32_plain`` / ``inverse32_plain`` on the CPU.
 
 The model runs the kernels' data flow as written, block by block: the grid
