@@ -59,10 +59,12 @@ non-zero):
     (``mxu8_inverse64_mul``), and the butterfly route (``ntt64_forward`` at
     ``out_factor=4``, a Shoup multiply, ``ntt64_inverse``) give the same
     words on all 512 rows and rows 0-15 equal the plain ``negacyclic_mul64``;
-    D and E against their plain versions at 7 and 8 byte planes, and the
-    butterfly route's ``ntt64_forward`` (``out_factor=4``) and
-    ``ntt64_inverse`` against theirs at the 512 rows; per route ms a trip
-    over 20 chained trips and ``bench.py``'s modmul/s;
+    D and E against their plain versions at 7 and 8 byte planes, E's tile
+    of rows, device ms and share of its bound beside ``mxu8_forward64`` + D
+    at both and row 10's forward + inverse at 7, and the butterfly route's
+    ``ntt64_forward`` (``out_factor=4``) and ``ntt64_inverse`` against
+    their plain versions at the 512 rows; per route ms a trip over 20
+    chained trips and ``bench.py``'s modmul/s;
 12. the large-n four-step NTT at n = 2^16 over the 62-bit
     q = 4611686018425815041, 2 rows, on the MXU and butterfly routes: the
     forward equals the plain ``forward64``, the lazy forward round-trips,
@@ -147,8 +149,9 @@ def ntt_muls(rows: int, n: int, u64: bool = False) -> int:
     log n`` Shoup multiplies a row.  The u64 forward and inverse NTTs are
     bounded by this, the function's work, on either route, and so are kernels
     D (one inverse and the key, one Shoup multiply a word) and E (two
-    transforms and the key); kernel C and row 13's split kernels K1-Ki2
-    still by their own int8 MACs (:func:`four_step_macs`)."""
+    transforms and the key), and row 13's split kernels K1-Ki2 by their
+    sub-transforms' (:func:`split_bounds`); kernel C still by its own int8
+    MACs (:func:`four_step_macs`)."""
     return rows * (n // 2) * (n.bit_length() - 1) * (10 if u64 else 3)
 
 
@@ -649,6 +652,15 @@ def phase11_roundtrip(torch, dev, table) -> dict:
                          lambda: ntt_mxu8.mxu8_roundtrip64_mul_plain(mxu, x, mt),
                          bound(8 * (2 * words + 2 * n),
                                muls32=2 * ntt_muls(RT_BATCH, n, u64=True) + key_muls))
+        e_row = table["mxu8_roundtrip64_mul" + tag][RT_BATCH]
+        log(f"kernel E{tag}: tile of {ntt_mxu8.roundtrip_tile(mxu, RT_BATCH)} rows a block, "
+            f"device {e_row[3]:.4f} ms, share of the bound {e_row[4][0] / e_row[3]:.4f}")
+        fwd_dev = kernel_device_ms(torch, lambda: ntt_mxu8.mxu8_forward64(mxu, x))
+        d_dev = table["mxu8_inverse64_mul" + tag][RT_BATCH][3]
+        log(f"kernel E{tag} {e_row[3]:.4f} device ms against mxu8_forward64 {fwd_dev:.4f} + D "
+            f"{d_dev:.4f} = {fwd_dev + d_dev:.4f} (E / (forward + D) = "
+            f"{e_row[3] / (fwd_dev + d_dev):.4f}; one trip of {16 * words / 1e6:.1f} MB through "
+            f"device memory and one launch saved)")
         if q != RT_MODULI[0]:
             continue
         row10 = bound(16 * words, muls32=ntt_muls(RT_BATCH, n, u64=True))
@@ -658,18 +670,15 @@ def phase11_roundtrip(torch, dev, table) -> dict:
         compare_kernel64(torch, table, "ntt64_inverse@rt", RT_BATCH,
                          lambda: ntt64.ntt64_inverse(ntt, x),
                          lambda: ntt64.ntt64_inverse_plain(ntt, x), row10)
+        row10_dev = sum(table[k][RT_BATCH][3] for k in ("ntt64_forward@rt", "ntt64_inverse@rt"))
+        log(f"kernel E {e_row[3]:.4f} device ms against row 10's forward + inverse "
+            f"{row10_dev:.4f} (E / (forward + inverse) = {e_row[3] / row10_dev:.4f})")
         log(f"ms a trip over {RT_TRIPS} chained trips (CUDA events); bench.py's metric "
             f"{RT_BATCH} x (n log n + n) modmuls a trip")
         modmuls = RT_BATCH * (n * log_n + n)
         for name, route in routes.items():
             ms = chained_ms(torch, route, x, RT_TRIPS)
             log(f"[{name:9s}] {ms:.4f} ms a trip -> {modmuls / (ms / 1e3):.4e} modmul/s")
-        fwd_ms = cuda_ms(torch, lambda: ntt_mxu8.mxu8_forward64(mxu, x), KERNEL_REPS)
-        e_ms = table["mxu8_roundtrip64_mul"][RT_BATCH][1]
-        d_ms = table["mxu8_inverse64_mul"][RT_BATCH][1]
-        log(f"kernel E {e_ms:.4f} ms against mxu8_forward64 {fwd_ms:.4f} + D {d_ms:.4f} = "
-            f"{fwd_ms + d_ms:.4f} ms (one trip of {16 * words / 1e6:.1f} MB through device "
-            f"memory saved)")
     return counts
 
 
@@ -1012,19 +1021,29 @@ def compare_lazy64(torch, table, name, bsz, kern, plain, q, bnd):
 
 
 def split_bounds(n: int, planes: int, lanes: int, rows: int, d: int, key: bool) -> dict:
-    """The :func:`bound` of each half-transform on a shard of ``d``: ``lanes``
-    (k0, batch) lanes of the column passes and ``rows`` (r0, batch) rows of
-    the row passes; pass 1 is ``P x 8A x A`` int8 MACs a lane, pass 2 ``P x
-    8B x B`` a row; each word read and written once, and the shard's
-    ``n / d`` twiddles and key words (16 bytes each, value and quotient)
-    read once."""
+    """The :func:`bound` of each half-transform on a shard of ``d``, by the
+    function it computes: ``lanes`` (k0, batch) lanes of the column halves
+    and ``rows`` (r0, batch) rows of the row halves; each word read and
+    written once, and the shard's ``n / d`` twiddles and key words (16 bytes
+    each, value and quotient) read once; or its Shoup multiplies (10 32-bit
+    multiplies each) at the multiply peak: an A-point (K1, Ki2) or 128-point
+    (K2, Ki1) butterfly transform a lane or row, ``m/2 log m``, plus one a
+    word for the twiddle (K1, Ki1) and the key (Ki1), and ``inv_n`` folded
+    into the last stage (Ki2, half the words).  ``planes`` is unused by the
+    bound: the method's int8 MACs (``planes x 8m x m`` a lane or row) are
+    not the function's work."""
     a, b = n // 128, 128
     col, row, shard_tab = 16 * a * lanes, 16 * b * rows, 16 * n // d
+
+    def sub(m: int) -> int:  # Shoup multiplies of one m-point butterfly transform
+        return m // 2 * (m.bit_length() - 1)
+
     return {
-        "split_k1": bound(col + shard_tab, lanes * planes * 8 * a * a),
-        "split_k2": bound(row, rows * planes * 8 * b * b),
-        "split_ki1": bound(row + shard_tab * (2 if key else 1), rows * planes * 8 * b * b),
-        "split_ki2": bound(col, lanes * planes * 8 * a * a),
+        "split_k1": bound(col + shard_tab, muls32=10 * lanes * (sub(a) + a)),
+        "split_k2": bound(row, muls32=10 * rows * sub(b)),
+        "split_ki1": bound(row + shard_tab * (2 if key else 1),
+                           muls32=10 * rows * (sub(b) + b * (2 if key else 1))),
+        "split_ki2": bound(col, muls32=10 * lanes * (sub(a) + a // 2)),
     }
 
 
@@ -1786,7 +1805,7 @@ def main() -> None:
         "mxu8_inverse64": ("ntt_mxu8.cu", "ops/ntt_mxu8.py:959", counts_d["mxu8_inverse64"], dcrt),
         "mxu8_inverse64_mul": ("ntt_mxu8.cu", "ops/ntt_mxu8.py:968",
                                counts_rt["mxu8_inverse64_mul"], (RT_BATCH, None)),
-        "mxu8_roundtrip64_mul": ("ntt_mxu8.cu", "ops/ntt_mxu8.py:977",
+        "mxu8_roundtrip64_mul": ("ntt64.cu", "ops/ntt_mxu8.py:977",
                                  counts_rt["mxu8_roundtrip64_mul"], (RT_BATCH, None)),
         "rotate": ("cmux_front.cu", "ops/rotate_pallas.py:29", counts["rotate"], (BATCH, None)),
         "cmux_front": ("cmux_front.cu", "ops/cmux_pallas.py:74", counts_f["cmux_front"],

@@ -11,15 +11,18 @@ at the shapes of their paths (:data:`NTT_SHAPES`, :data:`INV_SHAPES`: the
 DCRT rotation's batch 1 and 16, a residue shard's, ``bench.py``'s round
 trip of 512 rows, the four-step's sub-transforms of 256 words), each with
 its bound, its share of it, row 10's tile of rows, and the byte-radix
-wrappers' host time a call broken down.
+wrappers' host time a call broken down; kernel E (``mxu8_roundtrip64_mul``)
+at the round trip's 512 rows on a 7- and an 8-plane modulus (beside row 10,
+``mxu8_forward64`` and D there) and at the card tests' shapes
+(:data:`RT_SHAPES`), with its tile of rows.
 
     python3 cmux_mxu_timing.py                 # this checkout
     python3 cmux_mxu_timing.py --root DIR      # the package under DIR
     python3 cmux_mxu_timing.py --compare OLD   # OLD and this checkout in turns
     python3 cmux_mxu_timing.py --phases        # cycles per phase (clock64)
     python3 cmux_mxu_timing.py --ntt ...       # the u64 transforms and round trip only
-    python3 cmux_mxu_timing.py --ntt --phases  # their byte-radix kernels' cycles per phase
-    python3 cmux_mxu_timing.py --grids         # the byte-radix transforms on every (R, S)
+    python3 cmux_mxu_timing.py --ntt --phases  # byte-radix cycles per phase, E's per pass
+    python3 cmux_mxu_timing.py --grids         # byte-radix on every (R, S), E on every tile
     python3 cmux_mxu_timing.py --ntt32 ...     # kernels 1-2 and the NTT-key step only
     python3 cmux_mxu_timing.py --ntt32 --grids # kernels 1-2 on every tile of rows
     python3 cmux_mxu_timing.py --ntt32 --phases  # their cycles per pass (clock64)
@@ -41,8 +44,12 @@ and ``device_max_ms`` is the slowest of the 20 device times.
 ``--grids`` copies the package to ``.proof/fwd_grids``, adds to that copy's
 C entries a grid set from outside (rows a tile R in 1, 2, 4; column slices S
 in 1, 2, 4, 8), and times ``mxu8_forward64``, ``mxu8_inverse64`` and kernel
-D at their shapes on every grid that fits beside the launch's own choice;
-the source itself has no such knob.
+D at their shapes on every grid that fits beside the launch's own choice,
+and kernel E on every tile of rows (``pft_rt64_force_tile``); the source
+itself has no such knob.  ``--ntt --phases`` stamps kernel E too
+(:func:`stamp_rt`: clock64 laps per pass).  Under ``--compare`` the
+summary gives E's device ms over row 10's two launches and over
+``mxu8_forward64`` + D at the round trip's shapes (``rt_yardstick_new``).
 ``--ntt32`` times kernels 1-2 (``forward32``, ``inverse32``) at the shapes
 their paths give them (:data:`NTT32_SHAPES`: BOOLEAN_128's external
 products at batch 1 and 64, NTRU_128's NTT-evk step at batch 1 and 64, the
@@ -170,12 +177,19 @@ def kernels(torch, dev):
 # peaks (H100 SXM data sheet; 64 32-bit multiplies a clock an SM x 132 SMs
 # x 1.98 GHz, as chip_smoke.py counts them).
 NTT_MODULI = (1125899906826241, 1125899906629633)
+Q60 = 1152921504606830593  # phase 11's 8-plane modulus
 NTT_SHAPES = (("16 rows", 2, 8), ("64 rows", 1, 64), ("256 rows", 2, 128), ("512 rows", 1, 512),
-              ("512 x 256", 1, 512, 8))
+              ("512 x 256", 1, 512, 8), ("512 rows 8 planes", (Q60,), 512))
 INV_SHAPES = (("4 rows", 2, 2), ("16 rows", 2, 8), ("shard 16 rows", 1, 16), ("64 rows", 1, 64),
-              ("2x32 rows", 2, 32), ("512 rows", 1, 512), ("512 x 256", 1, 512, 8))
-NTT_OUT_FACTOR = {"512 rows": 4}
-D_SHAPE = ("512 rows", 1, 512)
+              ("2x32 rows", 2, 32), ("512 rows", 1, 512), ("512 x 256", 1, 512, 8),
+              ("512 rows 8 planes", (Q60,), 512))
+NTT_OUT_FACTOR = {"512 rows": 4, "512 rows 8 planes": 4}
+D_SHAPES = (("512 rows", 1, 512), ("512 rows 8 planes", (Q60,), 512))
+# kernel E at phase 11's two shapes and at the card tests' (log_n 8-12; rows
+# 1, 5, 33; one 7-plane modulus, or it and an 8-plane one)
+RT_SHAPES = (("512 rows", 1, 512), ("512 rows 8 planes", (Q60,), 512)) + tuple(
+    (f"{count}x{rows} x 2^{log_n}", (NTT_MODULI[0], Q60)[:count], rows, log_n)
+    for log_n in range(8, 13) for rows in (1, 5, 33) for count in (1, 2))
 RT_TRIPS = 20
 HBM_BYTES_S, INT8_OPS_S, INT32_MULS_S = 3.35e12, 1979e12, 132 * 64 * 1.98e9
 
@@ -183,29 +197,33 @@ HBM_BYTES_S, INT8_OPS_S, INT32_MULS_S = 3.35e12, 1979e12, 132 * 64 * 1.98e9
 def ntt_calls(torch, dev) -> dict:
     """``{(kernel, label): (call, bound ms, tables, input, MAC roofline ms or
     None, key table or None)}`` of the forward transforms at
-    :data:`NTT_SHAPES`, the inverse ones at :data:`INV_SHAPES` and kernel D
-    at :data:`D_SHAPE` (n = 4096, or 256 where a shape says log_n 8),
-    canonical inputs made from a seeded generator on the card.  Each is
-    held to its function's bound (module
-    docstring; D adds its key's Shoup multiply, 10 32-bit multiplies a
-    word); the byte-radix route's own work, P planes by 8 operand bytes over
-    both passes, is its MAC roofline."""
+    :data:`NTT_SHAPES`, the inverse ones at :data:`INV_SHAPES`, kernel D at
+    :data:`D_SHAPES` and kernel E at :data:`RT_SHAPES` (n = 4096 where a
+    shape gives no log_n; the first ``count`` of :data:`NTT_MODULI`, or
+    the shape's own moduli), canonical inputs made from a seeded generator
+    on the card.  Each is held to its function's bound (module docstring; D
+    adds its key's Shoup multiply, 10 32-bit multiplies a word, and E two
+    transforms and the key); the byte-radix route's own work, P planes by 8
+    operand bytes over both passes, is its MAC roofline."""
     from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
     from primus_fhe_tpu_torch.transforms import dcrt as td
 
     g = torch.Generator(device=dev).manual_seed(2028)
     calls = {}
     shapes = ([("forward", s) for s in NTT_SHAPES] + [("inverse", s) for s in INV_SHAPES]
-              + [("mul", D_SHAPE)])
-    for kind, (label, count, rows, *rest) in shapes:
+              + [("mul", s) for s in D_SHAPES] + [("rt", s) for s in RT_SHAPES])
+    for kind, (label, moduli, rows, *rest) in shapes:
         log_n = rest[0] if rest else 12
         n = 1 << log_n
-        plan = td.build_dcrt_plan64(log_n, list(NTT_MODULI[:count]))
-        x = torch.stack([torch.randint(0, q, (rows, n), generator=g, device=dev)
-                         for q in NTT_MODULI[:count]])
+        moduli = NTT_MODULI[:moduli] if isinstance(moduli, int) else moduli
+        count = len(moduli)
+        plan = td.build_dcrt_plan64(log_n, list(moduli))
+        x = torch.stack([torch.randint(0, q, (rows, n), generator=g, device=dev) for q in moduli])
         words = count * rows * n
-        muls = count * rows * (n // 2) * log_n * 10 + (10 * words if kind == "mul" else 0)
-        nbytes = 16 * words + (16 * count * n if kind == "mul" else 0)
+        keyed = kind in ("mul", "rt")
+        muls = (count * rows * (n // 2) * log_n * 10 * (2 if kind == "rt" else 1)
+                + (10 * words if keyed else 0))
+        nbytes = 16 * words + (16 * count * n if keyed else 0)
         bound_ms = max(nbytes / HBM_BYTES_S, muls / INT32_MULS_S) * 1e3
         mac_ms = 2 * count * rows * plan.mxu.planes * n * 8 * (n // 128 + 128) / INT8_OPS_S * 1e3
         if kind == "forward":
@@ -225,11 +243,15 @@ def ntt_calls(torch, dev) -> dict:
                 None)
         else:
             mt = plan.mxu.mul_table(torch.stack([torch.randint(0, q, (n,), generator=g,
-                                                               device=dev)
-                                                 for q in NTT_MODULI[:count]]))
-            calls[("mxu8_inverse64_mul", label)] = (
-                lambda p=plan, v=x, m=mt: ntt_mxu8.mxu8_inverse64_mul(p.mxu, v, m),
-                bound_ms, plan.mxu, x, mac_ms, mt)
+                                                               device=dev) for q in moduli]))
+            if kind == "mul":
+                calls[("mxu8_inverse64_mul", label)] = (
+                    lambda p=plan, v=x, m=mt: ntt_mxu8.mxu8_inverse64_mul(p.mxu, v, m),
+                    bound_ms, plan.mxu, x, mac_ms, mt)
+            else:
+                calls[("mxu8_roundtrip64_mul", label)] = (
+                    lambda p=plan, v=x, m=mt: ntt_mxu8.mxu8_roundtrip64_mul(p.mxu, v, m),
+                    bound_ms, plan.mxu, x, None, mt)
     return calls
 
 
@@ -490,16 +512,17 @@ def ntt64_stamps(torch, dev) -> dict:
         if name.startswith("ntt64")})
 
 
-def stamp_tiles(src: Path, tag: str, pick: str, guard: str) -> None:
+def stamp_tiles(src: Path, tag: str, pick: str, guard: str,
+                smem: str = "smem_bytes(forward, log_n, a.tile)") -> None:
     """Adds to a transform's source a tile of rows set from outside the
     launch (``pft_<tag>_force_tile(T)``; 0 for the launch's own), after its
-    pick line ``pick``, where ``guard`` holds, refused where it does not fit
-    in shared memory."""
+    pick line ``pick``, where ``guard`` holds, refused where its shared
+    memory ``smem`` does not fit."""
     text = src.read_text()
     if text.count(pick) != 1:
         raise SystemExit(f"cmux_mxu_timing: {src.name}'s pick moved")
     force = (f"  if (pft_{tag}_force > 0 && {guard}) a.tile = pft_{tag}_force;\n"
-             "  if (smem_bytes(forward, log_n, a.tile) > (size_t)SMEM_MAX)\n"
+             f"  if ({smem} > (size_t)SMEM_MAX)\n"
              "    return (int)cudaErrorInvalidValue;\n")
     text = text.replace(pick, pick + force)
     text = text.replace("namespace {\n", f"int pft_{tag}_force = 0;\nnamespace {{\n", 1)
@@ -663,10 +686,12 @@ def ntt64_tile(tables, name, x):
 
 def ntt_times(torch, dev, row10_only: bool = False) -> dict:
     """Device ms, bound and share of the bound of each transform call, and
-    the tile of rows row 10's launches pick; for the byte-radix kernels also
+    the tile of rows row 10's and kernel E's launches pick; for the byte-radix kernels also
     their MAC roofline, the slowest device time, :func:`loop_ms` five times
     and :func:`wrapper_host` (``row10_only``: row 10's calls alone); and the
     floor of this timing, an empty kernel."""
+    from primus_fhe_tpu_torch.ops import ntt_mxu8
+
     out = {}
     for (name, label), (fn, bound_ms, tables, x, mac_ms, key) in ntt_calls(torch, dev).items():
         if row10_only and not name.startswith("ntt64"):
@@ -676,6 +701,8 @@ def ntt_times(torch, dev, row10_only: bool = False) -> dict:
         row = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms}
         if name.startswith("ntt64"):
             row["tile"] = ntt64_tile(tables, name, x)
+        if name == "mxu8_roundtrip64_mul" and hasattr(ntt_mxu8, "roundtrip_tile"):
+            row["tile"] = ntt_mxu8.roundtrip_tile(tables, x[0].numel() // tables.n)
         if name in ENTRIES:
             row.update(mac_roofline_ms=mac_ms, mac_share=mac_ms / ms, device_max_ms=times[-1],
                        loop_ms=[loop_ms(torch, fn) for _ in range(5)],
@@ -688,10 +715,11 @@ def ntt_times(torch, dev, row10_only: bool = False) -> dict:
 def grid_times(torch, dev) -> dict:
     """In a ``--grids`` copy: the byte-radix transforms' device ms at each
     shape on the launch's own grid and on every (R, S) (None where the
-    launch refuses the grid: its shared memory does not fit)."""
+    launch refuses the grid: its shared memory does not fit), and kernel E
+    at each shape on every tile of rows (:func:`sweep_tiles`)."""
     import ctypes
 
-    from primus_fhe_tpu_torch.ops import build
+    from primus_fhe_tpu_torch.ops import build, ntt_mxu8
 
     lib = build.library()
     lib.pft_fwd_force_grid.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -718,6 +746,12 @@ def grid_times(torch, dev) -> dict:
                 row[f"{r}x{s}"] = device_ms(torch, fn)
         lib.pft_fwd_force_grid(0, 0)
         out[f"{name}@{label}"] = row
+    lib.pft_rt64_force_tile.argtypes = [ctypes.c_int]
+    calls = {f"{name}@{label}": (fn, bound_ms, ntt_mxu8.roundtrip_tile(tables, x[0].numel()
+                                                                        // tables.n))
+             for (name, label), (fn, bound_ms, tables, x, _, _) in ntt_calls(torch, dev).items()
+             if name == "mxu8_roundtrip64_mul"}
+    out.update(sweep_tiles(torch, calls, lib.pft_rt64_force_tile))
     return out
 
 
@@ -1085,6 +1119,93 @@ def stamp_inverse(src: Path) -> None:
     src.write_text(text)
 
 
+def stamp_rt(src: Path) -> None:
+    """clock64() laps of thread 0 of block 0 of kernel E
+    (``ntt64_roundtrip_kernel`` in ``ntt64.cu``) after each pass's barrier:
+    the load with the forward's first pass, the table wait, the forward's
+    middle passes, the fused pass (the forward's last pass, the key, the
+    inverse's first), the inverse's middle passes (its ``inv_rest`` written
+    out) and the last pass with the stores; the earliest block start and
+    the latest block end on the global timer; and a C entry
+    ``pft_read_rt_stamps`` that reads them and resets the span."""
+    text = src.read_text()
+    lap = "if (threadIdx.x == 0 && blockIdx.x == 0) pft_rt_stamps[pft_k++] = clock64();"
+    timer = ("{{ unsigned long long tg; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(tg)); "
+             "if (threadIdx.x == 0) atomic{0}(&pft_rt_gt[{1}], tg); }}")
+    pre, body, post = kernel_region(text, "ntt64_roundtrip_kernel(",
+                                    "// What the launches read of a device")
+    edits = [  # (anchor, text after it)
+        ("  extern __shared__ __align__(16) uint64_t sm[];\n",
+         f"  int pft_k = 0;\n  {timer.format('Min', 0)}\n  {lap}\n"),
+        ("              AnyIn64{a.in + t.off, log_n, q, c.p1}, rows);\n", f"  {lap}\n"),
+        ("  cp_async_wait<0>();\n  __syncthreads();\n", f"  {lap}\n"),
+        ("    fwd_pass<3>(t.count, log_n, s0, table, q, rows, rows);\n    __syncthreads();\n",
+         f"    {lap}\n"),
+        ("  if (r == 1) inv_pass<1, Last::no>(t.count, log_n, 0, global, c, mid, rows);\n"
+         "  __syncthreads();\n", f"  {lap}\n"),
+    ]
+    for anchor, after in edits:
+        if body.count(anchor) != 1:
+            raise SystemExit(f"cmux_mxu_timing: kernel E changed near {anchor.strip()!r}")
+        body = body.replace(anchor, anchor + after)
+    rest = "  inv_rest<Last::canonical>(rows, t.count, log_n, r, staged, c, dst);\n"
+    if body.count(rest) != 1:
+        raise SystemExit("cmux_mxu_timing: kernel E's inverse passes moved")
+    body = body.replace(rest, (
+        "  for (int s0 = r; s0 < log_n - 3; s0 += 3) {\n"
+        "    inv_pass<3, Last::no>(t.count, log_n, s0, staged, c, rows, rows);\n"
+        f"    __syncthreads();\n    {lap}\n  }}\n"
+        "  inv_pass<3, Last::canonical>(t.count, log_n, log_n - 3, staged, c, rows, dst);\n"
+        f"  {lap}\n  {timer.format('Max', 1)}\n"))
+    text = pre + body + post
+    text = text.replace("namespace {\n", "__device__ long long pft_rt_stamps[16];\n"
+                        "__device__ unsigned long long pft_rt_gt[2] = {~0ull, 0ull};\n"
+                        "namespace {\n", 1)
+    reader = ("int pft_read_rt_stamps(void* stamps, void* gt) {\n"
+              "  cudaError_t e = cudaMemcpyFromSymbol(stamps, pft_rt_stamps, sizeof(pft_rt_stamps));\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_rt_gt, sizeof(pft_rt_gt));\n"
+              "  const unsigned long long reset[2] = {~0ull, 0ull};\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(pft_rt_gt, reset, sizeof(reset));\n"
+              "  return (int)e;\n}\n")
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + reader, 1)
+    src.write_text(text)
+
+
+def rt_stamps(torch) -> dict:
+    """In a ``--ntt --phases`` copy (:func:`stamp_rt`): block 0's cycles per
+    pass of kernel E's last launch at each of its shapes, and the launch's
+    span on the device (earliest block start to latest block end, ns)
+    beside its event-timed device ms."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build
+
+    read = build.library().pft_read_rt_stamps
+    read.argtypes = [ctypes.c_void_p] * 2
+    out = {}
+    for (name, label), (fn, _, tables, _, _, _) in ntt_calls(torch,
+                                                             torch.device("cuda", 0)).items():
+        if name != "mxu8_roundtrip64_mul":
+            continue
+        ms = device_ms(torch, fn)
+        stamps = (ctypes.c_longlong * 16)()
+        gt = (ctypes.c_ulonglong * 2)()
+        build.check(read(ctypes.addressof(stamps), ctypes.addressof(gt)), "read stamps")
+        fn()
+        torch.cuda.synchronize()
+        build.check(read(ctypes.addressof(stamps), ctypes.addressof(gt)), "read stamps")
+        p = -(-tables.log_n // 3)
+        names = (["load + forward pass 1", "table wait + barrier"]
+                 + [f"forward pass {i}" for i in range(2, p)]
+                 + [f"forward pass {p} + key + inverse pass 1"]
+                 + [f"inverse pass {i}" for i in range(2, p)] + [f"inverse pass {p} (stores)"])
+        laps = list(stamps)[:len(names) + 1]
+        row = dict(zip(names, [laps[i + 1] - laps[i] for i in range(len(names))]))
+        row.update(total_cycles=laps[-1] - laps[0], span_ns=gt[1] - gt[0], event_ms=ms)
+        out[f"{name}@{label}"] = row
+    return out
+
+
 def kernel_stamps(torch) -> dict:
     """Cycles per phase of block 0's thread 0 in the last launch of each
     byte-radix transform at each shape (the launch's own grid), and the
@@ -1144,7 +1265,7 @@ def main() -> None:
             import torch
 
             res = ({"grids": grid_times(torch, torch.device("cuda", 0))} if args.grids
-                   else {"cycles": kernel_stamps(torch)})
+                   else {"cycles": {**kernel_stamps(torch), **rt_stamps(torch)}})
             print(json.dumps(res), flush=True)
             return
         print(json.dumps(run_here(args.stamps, args.ntt, args.ntt32, args.ntt64)), flush=True)
@@ -1177,11 +1298,15 @@ def main() -> None:
         shutil.copytree(HERE / "primus_fhe_tpu_torch", root / "primus_fhe_tpu_torch",
                         ignore=shutil.ignore_patterns("build", "__pycache__"))
         src = root / "primus_fhe_tpu_torch" / "csrc" / "ntt_mxu8.cu"
+        rt_src = root / "primus_fhe_tpu_torch" / "csrc" / "ntt64.cu"
         if args.grids:
             stamp_grids(src)
+            stamp_tiles(rt_src, "rt64", "  a.tile = pick_tile(ROUNDTRIP, count, rows, log_n, *d);\n",
+                        "true", "rt_smem_bytes(log_n, a.tile)")
         else:
             stamp_forward(src)
             stamp_inverse(src)
+            stamp_rt(rt_src)
         res = subprocess_run(root, "--stamps", "--grids" if args.grids else "--ntt")
         for key, row in res["grids" if args.grids else "cycles"].items():
             print(key, json.dumps(row), flush=True)
@@ -1215,6 +1340,13 @@ def main() -> None:
     if ntt:
         ntt["share_new"] = {k: runs[1]["ntt"][k]["bound_ms"] / ntt["new"][k] for k in ntt["new"]
                             if "bound_ms" in runs[1]["ntt"][k]}
+        # kernel E against row 10's two launches and against forward + D
+        ntt["rt_yardstick_new"] = {label: {
+            "E / (ntt64_forward + ntt64_inverse)": ntt["new"][f"mxu8_roundtrip64_mul@{label}"]
+            / (ntt["new"][f"ntt64_forward@{label}"] + ntt["new"][f"ntt64_inverse@{label}"]),
+            "E / (mxu8_forward64 + D)": ntt["new"][f"mxu8_roundtrip64_mul@{label}"]
+            / (ntt["new"][f"mxu8_forward64@{label}"] + ntt["new"][f"mxu8_inverse64_mul@{label}"]),
+        } for label, *_ in D_SHAPES}
     host = mean("ntt", lambda r: {f"{k}:{part}": us for k, v in r["ntt"].items()
                                   for part, us in v.get("host", {}).items()})
     summary = {"card": runs[0]["card"], "mean_ntt_ms": ntt, "mean_host_us": host,

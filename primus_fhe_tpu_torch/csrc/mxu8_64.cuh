@@ -1,7 +1,7 @@
 // The u64 tiers (7 and 8 byte planes, q < 2^62) of the byte-radix four-step
 // NTT: the fold of the plane sums to one u64 word and the shared-memory
-// geometry of a row group, shared by ntt_mxu8.cu (the fused transforms,
-// kernels D and E) and ntt_mxu8_split.cu (the four half-transforms of the
+// geometry of a row group, shared by ntt_mxu8.cu (the fused transforms and
+// kernel D) and ntt_mxu8_split.cu (the four half-transforms of the
 // coefficient-sharded NTT).
 //
 // Each plane sum is exact in int32 (|d_c| < 1024 * 255 * 128 < 2^25), but
@@ -29,7 +29,7 @@ __device__ __forceinline__ uint64_t fold_planes(const int (&d)[P], const Mod64& 
 
 struct Geometry64 {
   int n, A, G, np1, kb1, lda1;
-  size_t s_cols, s_rows;  // bytes of the [(row, k0)][k1] and [(row, r0)][k0] buffers
+  size_t s_cols;  // bytes of the [(row, k0)][k1] buffer
 };
 
 __host__ __device__ inline Geometry64 geometry64(int log_n) {
@@ -41,7 +41,6 @@ __host__ __device__ inline Geometry64 geometry64(int log_n) {
   g.kb1 = round_up(8 * g.A, 32);
   g.lda1 = g.kb1 + 16;
   g.s_cols = (size_t)g.G * PFT_MXU_B * g.lda1;
-  g.s_rows = (size_t)g.G * g.A * LDA64;
   return g;
 }
 

@@ -1,6 +1,7 @@
 // Row 10, kernels ntt64_forward and ntt64_inverse: the 64-bit negacyclic NTT
 // and its inverse (q < 2^62, n = 2^1 .. 2^15), every modulus of a DCRT plan
-// in one launch.
+// in one launch.  Below them, kernel E (mxu8_roundtrip64_mul, the product
+// by a fixed NTT-domain operand) on the same passes and tiles.
 //
 // Replace pallas_forward64 / pallas_inverse64
 // (primus_fhe_tpu/ops/ntt_pallas.py:486,494; bodies _make_fwd_kernel and
@@ -405,13 +406,168 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_inverse_kernel(const Ntt
   inv_rest<LAST>(rows, t.count, log_n, r, staged, c, dst);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel E, mxu8_roundtrip64_mul: INTT(NTT(x) * key), the negacyclic product
+// of any u64 words by a fixed NTT-domain operand, in one launch (8 <= log_n
+// <= 12, q < 2^62).
+//
+// Replaces mxu8_fused_roundtrip64_mul (primus_fhe_tpu/ops/ntt_mxu8.py:977,
+// body _make_rt_kernel8 :726), which runs the byte-radix four-step forward,
+// the key and the four-step inverse in one TPU kernel: int8 byte planes were
+// the TPU's way to run 64-bit modular products on its matrix unit.  The
+// function stays; the method here is row 10's, above.
+//
+// What bounds it: the function is 2 x n/2 log n Shoup multiplies a row and
+// the key's n (0.0163 ms at 512 rows of n = 4096 by the 32-bit multiply peak
+// at 10 a Shoup multiply; 32 KB in and out a row, 0.0100 ms by bytes).  A
+// 64-bit Shoup multiply is ~16 IMADs in SASS, not 10, so the IMAD issue rate
+// allows ~0.026 ms there at best.  The first design (mma.sync, one block a
+// row at n = 4096, every row reading all four plane matrices, ~1.9 MB, from
+// L2) took 0.41 ms.  On this card the butterfly wins: row 10's two kernels
+// take ~0.074 ms for both transforms at that shape, under half of what
+// mxu8_forward64 + D take (0.17 ms).  A byte-radix rebuild (forward64's
+// cluster tiles, the key-multiplied pass-2 slices gathered over distributed
+// shared memory as the inverse's operand, wi1 and wi2 streamed) could at
+// best save forward + D one trip and one launch, so it would stay above the
+// butterflies.
+//
+// The design: row 10's passes (csrc/ntt_passes.cuh), a tile of T rows of
+// one modulus a block, both transforms on the same swizzled shared-memory
+// rows, so the forward's output never reaches device memory:
+// - load: the forward's first pass reads its groups from device memory
+//   (roots[1..7] in registers), each word brought to [0, 2q) by a lazy Shoup
+//   multiply by 1 as it loads (AnyIn64), since E takes any u64 word and the
+//   butterflies take words below 4q;
+// - the forward's middle passes in shared memory, radix 8;
+// - the forward's last pass (R = 1..3 stages on 2^R adjacent words, lazy in
+//   [0, 4q), not folded), the key (a lazy Shoup multiply, any u64 word in,
+//   [0, 2q) out) and the inverse's first pass (R stages on the same 2^R
+//   words, in_factor 2) are one pass: one thread holds the group in
+//   registers through all three (FwdKeyIn), so a round trip at n = 4096 is
+//   7 passes and 6 barriers, not 8 and 7.  The key and its quotients (64 KB
+//   a modulus at n = 4096, the same for every row, L2-resident) and that
+//   pass's inverse twiddles are read from device memory by the thread that
+//   needs them, 16 bytes an access for the key;
+// - the inverse's later passes in shared memory, the last folding inv_n in
+//   and storing canonical words (out_factor 1 and 2 alike): slots k n/8 + g,
+//   8 bytes a thread, a warp's 256 bytes contiguous.
+// - tables: the forward's whole table and quotients (16n bytes: 64 KB at n =
+//   4096) and the inverse's part that its later passes use (the last n / 2^R
+//   words: 8 KB) staged once a block by cp.async under the load and the
+//   first pass.  Shared memory is 16 n + 16 n / 2^R + 8 T n bytes, so at n =
+//   4096 T <= 4 (200 KB).  The C entry picks T as row 10 picks its tiles
+//   (pick_tile: the smallest whose grid runs in one wave; 4 at 512 rows).
+//
+// Every stage is the plain version's butterfly on the same pair, and the
+// output is canonical, so the words equal mxu8_roundtrip64_mul_plain's (whose
+// forward folds to canonical before the key: the lazy representatives
+// between differ, the residues do not).
+constexpr int RT_MIN_LOG_N = 8, RT_MAX_LOG_N = 12;
+
+struct Rt64Args {
+  Ntt64Args a;              // in, out, the forward's roots (tw, twp), ms, rows, log_n, tile
+  const uint64_t* itw;      // (count, n): the inverse's roots
+  const uint64_t* itwp;     // their Shoup quotients
+  const uint64_t* key;      // (count, 2, n): the key (bit-reversed) and its quotients
+};
+
+inline size_t rt_smem_bytes(int log_n, int tile) {
+  return 16 * ((size_t)1 << log_n) + 16 * (size_t)staged_words(false, log_n) +
+         sizeof(uint64_t) * ((size_t)tile << log_n);
+}
+
+// A tile's rows of any u64 words from device memory, each word reduced to
+// [0, 2q) as it loads (a lazy Shoup multiply by 1, p1 = floor(2^64 / q)).
+struct AnyIn64 {
+  const uint64_t* p;
+  int log_n;
+  uint64_t q, p1;
+  template <int G>
+  __device__ __forceinline__ void load(int row, int base, int ls, uint64_t (&v)[G]) const {
+    const uint64_t* r = p + ((size_t)row << log_n) + base;
+#pragma unroll
+    for (int k = 0; k < G; ++k) v[k] = shoup64_lazy(Word<uint64_t>::ldg(r + (k << ls)), 1, p1, q);
+  }
+};
+
+// The inverse's first pass's load in kernel E: the group's 2^R adjacent
+// words from the shared-memory rows, the forward's last pass on them (its
+// group is the same 2^R words) and the key multiply.
+struct FwdKeyIn {
+  SmemRows64 rows;
+  FwdTable<uint64_t> table;  // the staged forward table
+  const uint64_t* key;       // the modulus's key, its quotients n words on
+  int log_n;
+  uint64_t q;
+  template <int G>
+  __device__ __forceinline__ void load(int row, int base, int, uint64_t (&v)[G]) const {
+    constexpr int R = G == 8 ? 3 : G == 4 ? 2 : 1;
+    uint64_t w[G], wp[G], k[G], kp[G];
+    rows.load(row, base, 0, v);
+    table.template get<R>(log_n - R, base >> R, w, wp);
+    fwd_stages<R>(
+        v,
+        [&](int e, int j, uint64_t& ww, uint64_t& wwp) {
+          ww = w[(1 << e) + j];
+          wwp = wp[(1 << e) + j];
+        },
+        q);
+    load_words(key + base, k);
+    load_words(key + (1 << log_n) + base, kp);
+#pragma unroll
+    for (int j = 0; j < G; ++j) v[j] = shoup64_lazy(v[j], k[j], kp[j], q);
+  }
+};
+
+__global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_roundtrip_kernel(const Rt64Args e) {
+  extern __shared__ __align__(16) uint64_t sm[];
+  const Ntt64Args& a = e.a;
+  const int log_n = a.log_n, n = 1 << log_n;
+  const Tile t = block_tile(a);
+  const Mod64 c = a.ms.m[t.mi];
+  const uint64_t q = c.q;
+  const size_t mo = (size_t)t.mi << log_n;
+  const int r = remainder_stages(log_n);
+  const int m = staged_words(false, log_n);  // the inverse's later passes' twiddles: [n - m, n)
+  uint64_t* ftw = sm;                        // the forward's table, then its quotients
+  uint64_t* itw = sm + 2 * n;                // the inverse's part, then its quotients
+  const SmemRows64 rows{sm + 2 * (n + m), log_n};
+
+  // pass 1 (stages 0-2): the tile's rows from device memory, reduced as
+  // they load, under the copy of both tables
+  stage_tables(ftw, ftw + n, a.tw + mo, a.twp + mo, 0, n);
+  stage_tables(itw, itw + m, e.itw + mo, e.itwp + mo, n - m, n);
+  fwd_pass<3>(t.count, log_n, 0, FwdFirst(a.tw + mo, a.twp + mo, 8), q,
+              AnyIn64{a.in + t.off, log_n, q, c.p1}, rows);
+  cp_async_wait<0>();
+  __syncthreads();
+  const FwdTable<uint64_t> table{ftw, ftw + n};
+  for (int s0 = 3; s0 < log_n - r; s0 += 3) {
+    fwd_pass<3>(t.count, log_n, s0, table, q, rows, rows);
+    __syncthreads();
+  }
+  // the forward's last pass, the key and the inverse's first: one pass
+  const FwdKeyIn mid{rows, table, e.key + 2 * mo, log_n, q};
+  const InvTable<uint64_t> global{e.itw + mo, e.itwp + mo};
+  if (r == 3) inv_pass<3, Last::no>(t.count, log_n, 0, global, c, mid, rows);
+  if (r == 2) inv_pass<2, Last::no>(t.count, log_n, 0, global, c, mid, rows);
+  if (r == 1) inv_pass<1, Last::no>(t.count, log_n, 0, global, c, mid, rows);
+  __syncthreads();
+  // the inverse's later passes on its staged part; the last stores
+  const InvTable staged{(const uint64_t*)itw, (const uint64_t*)itw + m, n - m};
+  const GlobalOut64<false> dst{a.out + t.off, log_n, q};
+  inv_rest<Last::canonical>(rows, t.count, log_n, r, staged, c, dst);
+}
+
 // What the launches read of a device, set up at the first launch there:
-// the SM count and, for each kernel, row size and tile, how many blocks an
-// SM holds at once (0 where the tile does not fit in shared memory); the
-// kernels' shared-memory cap is raised to SMEM_MAX.
+// the SM count and, for each kernel (Kind), row size and tile, how many
+// blocks an SM holds at once (0 where the tile does not fit in shared
+// memory); the kernels' shared-memory cap is raised to SMEM_MAX.
+enum Kind { INVERSE = 0, FORWARD = 1, ROUNDTRIP = 2 };
+
 struct Ntt64Device {
   int sms = 0;
-  int resident[2][MAX_LOG_N + 1][4] = {};
+  int resident[3][MAX_LOG_N + 1][4] = {};
 };
 
 int ntt64_device(const Ntt64Device** out) {
@@ -423,23 +579,28 @@ int ntt64_device(const Ntt64Device** out) {
   Ntt64Device& d = cached[dev];
   if (d.sms == 0) {
     Ntt64Device fresh;
-    const void* kernels[4] = {(const void*)ntt64_forward_kernel<true>,
-                              (const void*)ntt64_forward_kernel<false>,
-                              (const void*)ntt64_inverse_kernel<true>,
-                              (const void*)ntt64_inverse_kernel<false>};
+    const void* kernels[5] = {(const void*)ntt64_inverse_kernel<true>,
+                              (const void*)ntt64_forward_kernel<true>,
+                              (const void*)ntt64_roundtrip_kernel,
+                              (const void*)ntt64_inverse_kernel<false>,
+                              (const void*)ntt64_forward_kernel<false>};
     for (const void* k : kernels)
       if (e == cudaSuccess)
         e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&fresh.sms, cudaDevAttrMultiProcessorCount, dev);
-    for (int f = 0; f < 2 && e == cudaSuccess; ++f)
-      for (int log_n = 1; log_n <= MAX_LOG_N && e == cudaSuccess; ++log_n)
+    for (int kind = 0; kind < 3 && e == cudaSuccess; ++kind)
+      for (int log_n = 1; log_n <= MAX_LOG_N && e == cudaSuccess; ++log_n) {
+        if (kind == ROUNDTRIP && (log_n < RT_MIN_LOG_N || log_n > RT_MAX_LOG_N)) continue;
         for (int i = 0; i < 4 && e == cudaSuccess; ++i) {
-          const size_t smem = smem_bytes(f == 0, log_n, 1 << i);
+          const size_t smem = kind == ROUNDTRIP ? rt_smem_bytes(log_n, 1 << i)
+                                                : smem_bytes(kind == FORWARD, log_n, 1 << i);
           if (smem <= (size_t)SMEM_MAX)
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &fresh.resident[f][log_n][i], kernels[2 * f], tile_threads(log_n, 1 << i), smem);
+                &fresh.resident[kind][log_n][i], kernels[kind], tile_threads(log_n, 1 << i),
+                smem);
         }
+      }
     if (e != cudaSuccess) return (int)e;
     d = fresh;
   }
@@ -452,11 +613,12 @@ int ntt64_device(const Ntt64Device** out) {
 // SM holds at T), else the largest T that fits (each staged table word then
 // serves the most rows).  A smaller tile spreads a transform over more SMs;
 // a larger one reads the tables less often.  A split row (n = 2^15) fits
-// only T = 1.  The only copy of the rule.
-int pick_tile(bool forward, int count, int rows, int log_n, const Ntt64Device& d) {
+// only T = 1.  The only copy of the rule, for the three kernels (kind: a
+// Kind; a bool forward is FORWARD or INVERSE).
+int pick_tile(int kind, int count, int rows, int log_n, const Ntt64Device& d) {
   int fit = 1;
   for (int i = 0; i < 4; ++i) {
-    const int held = d.resident[forward ? 0 : 1][log_n][i];
+    const int held = d.resident[kind][log_n][i];
     if (held == 0) break;
     fit = 1 << i;
     if ((long)count * ((rows + fit - 1) / fit) <= (long)d.sms * held) return fit;
@@ -511,6 +673,34 @@ int launch(bool forward, const void* in, void* out, const void* tw, const void* 
   return (int)cudaGetLastError();
 }
 
+int launch_roundtrip(const void* in, void* out, const void* roots, const void* roots_p,
+                     const void* inv_roots, const void* inv_roots_p, const void* key,
+                     const void* mod_pack, int count, int rows, int log_n, void* stream) {
+  if (!valid(count, rows, log_n) || log_n < RT_MIN_LOG_N || log_n > RT_MAX_LOG_N ||
+      ((uintptr_t)key & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const Ntt64Device* d = nullptr;
+  const int err = ntt64_device(&d);
+  if (err != 0) return err;
+  Rt64Args e{};
+  Ntt64Args& a = e.a;
+  a.in = (const uint64_t*)in;
+  a.out = (uint64_t*)out;
+  a.tw = (const uint64_t*)roots;
+  a.twp = (const uint64_t*)roots_p;
+  a.ms = unpack_mod64((const uint64_t*)mod_pack, count);
+  a.rows = rows;
+  a.log_n = log_n;
+  a.in_factor = 2;
+  e.itw = (const uint64_t*)inv_roots;
+  e.itwp = (const uint64_t*)inv_roots_p;
+  e.key = (const uint64_t*)key;
+  a.tile = pick_tile(ROUNDTRIP, count, rows, log_n, *d);
+  ntt64_roundtrip_kernel<<<count * ((rows + a.tile - 1) / a.tile), tile_threads(log_n, a.tile),
+                           rt_smem_bytes(log_n, a.tile), (cudaStream_t)stream>>>(e);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -536,13 +726,29 @@ int pft_ntt64_inverse(const void* in, void* out, const void* inv_roots, const vo
                 canonical, in_factor, stream);
 }
 
-// The rows a block the launch takes (pick_tile) on the current device.
-int pft_ntt64_tile(int forward, int count, int rows_per_mod, int log_n, int* tile) {
-  if (!valid(count, rows_per_mod, log_n)) return (int)cudaErrorInvalidValue;
+// Kernel E: INTT(NTT(in) * key) of count moduli x rows_per_mod rows of
+// 2^log_n words (log_n 8-12, count <= 4): any u64 words in, normal order;
+// roots, roots_p and inv_roots, inv_roots_p the forward's and the inverse's
+// (count, n) tables; key (count, 2, n, 16-byte aligned) the bit-reversed
+// key and its Shoup quotients; canonical words out, normal order.
+int pft_ntt64_roundtrip_mul(const void* in, void* out, const void* roots, const void* roots_p,
+                            const void* inv_roots, const void* inv_roots_p, const void* key,
+                            const void* mod_pack, int count, int rows_per_mod, int log_n,
+                            void* stream) {
+  return launch_roundtrip(in, out, roots, roots_p, inv_roots, inv_roots_p, key, mod_pack, count,
+                          rows_per_mod, log_n, stream);
+}
+
+// The rows a block the launch takes (pick_tile) on the current device:
+// kind 1 the forward, 0 the inverse, 2 kernel E.
+int pft_ntt64_tile(int kind, int count, int rows_per_mod, int log_n, int* tile) {
+  if (!valid(count, rows_per_mod, log_n) || kind < 0 || kind > 2 ||
+      (kind == ROUNDTRIP && (log_n < RT_MIN_LOG_N || log_n > RT_MAX_LOG_N)))
+    return (int)cudaErrorInvalidValue;
   const Ntt64Device* d = nullptr;
   const int err = ntt64_device(&d);
   if (err != 0) return err;
-  *tile = pick_tile(forward != 0, count, rows_per_mod, log_n, *d);
+  *tile = pick_tile(kind, count, rows_per_mod, log_n, *d);
   return 0;
 }
 

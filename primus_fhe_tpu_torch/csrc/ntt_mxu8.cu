@@ -1,8 +1,8 @@
 // Kernel C: forward negacyclic NTT of canonical residues mod p < 2^30 as a
 // byte-radix four-step on the int8 tensor cores (mxu8.cuh).  Below it, the
 // u64 kernels mxu8_forward64 and mxu8_inverse64 (7 and 8 byte planes), and
-// kernels D and E: the inverse with a fused key multiply and the fused round
-// trip (the negacyclic product by a fixed NTT-domain operand).
+// kernel D: the inverse with a fused key multiply.  Kernel E, the fused
+// round trip, runs on row 10's butterfly passes (csrc/ntt64.cu).
 //
 // Replaces the u32 tier (4 byte planes) of mxu8_fused_forward64
 // (primus_fhe_tpu/ops/ntt_mxu8.py, kernel _make_fwd_kernel8, launched via
@@ -99,22 +99,6 @@ __global__ void __launch_bounds__(256) ntt_mxu8_forward_kernel(
 // input word is loaded; the product (< 2q) is a u64 word like any other for
 // the unsigned-byte feed.
 //
-// Kernel E, mxu8_roundtrip64_mul (mxu8_fused_roundtrip64_mul,
-// ntt_mxu8.py:977; body _make_rt_kernel8): forward passes 1-2, the key
-// multiply on the folded pass-2 word (no canonical step: Shoup takes any
-// u64), inverse passes 1-2, all in one block per row group; the forward's
-// output never leaves shared memory.  Two buffers of the larger layout ping
-// pong: load -> X (columns), pass 1 -> Y (rows), pass 2 -> X (rows), inverse
-// pass 1 -> Y (columns), inverse pass 2 -> device memory.  E is held to 128
-// registers (two blocks an SM): at the 148 it
-// takes unbounded it ran one block an SM and lost to forward + D.
-//
-// What bounds E: the function, two transforms and the key, is ~n log n
-// Shoup multiplies a row against 32 KB in and 32 KB out (0.0163 ms by
-// operations at 512 rows of n = 4096); the method's four passes are 4 x (P
-// x 8 x n x 128) int8 products a row at P = 7, and on mma.sync the issue
-// rate of the m16n8k32 tiles, with every row reading all four plane
-// matrices from L2, sets its time.
 // ---------------------------------------------------------------------------
 
 // ---------------------------------------------------------------------------
@@ -1027,83 +1011,6 @@ int inverse64_any(const void* in, void* out, const void* wi1s, const void* wi2s,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int P>
-__global__ void __launch_bounds__(256, 2) ntt_mxu8_roundtrip64_kernel(
-    const uint64_t* __restrict__ in, uint64_t* __restrict__ out, const int8_t* __restrict__ w1,
-    const int8_t* __restrict__ w2, const int8_t* __restrict__ wi1, const int8_t* __restrict__ wi2,
-    const uint64_t* __restrict__ tw, const uint64_t* __restrict__ key, ModSet64 ms, int rows,
-    int log_n) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  constexpr int B = PFT_MXU_B;
-  const Geometry64 geo = geometry64(log_n);
-  const int n = geo.n, A = geo.A, G = geo.G;
-  const int groups = (rows + G - 1) / G;
-  const int mi = blockIdx.x / groups;
-  const int row0 = (blockIdx.x % groups) * G;
-  const int g_rows = rows - row0 < G ? rows - row0 : G;
-  const Mod64 mc = ms.m[mi];
-  uint8_t* sx = smem;                                                         // X
-  uint8_t* sy = smem + (geo.s_cols > geo.s_rows ? geo.s_cols : geo.s_rows);  // Y
-  const size_t base = ((size_t)mi * rows + row0) * n;
-
-  for (int i = threadIdx.x; i < g_rows * n; i += blockDim.x) {
-    const int g = i / n, c = i % n;
-    *(uint64_t*)(sx + (size_t)(g * B + c % B) * geo.lda1 + (c / B) * 8) = in[base + i];
-  }
-  __syncthreads();
-  const uint64_t* t = tw + (size_t)mi * 4 * n;
-  const uint64_t* kt = key + (size_t)mi * 2 * n;
-  // forward pass 1: X [(row, k0)][k1] -> Y [(row, r0)][k0], twiddled
-  mm_planes_n<true, 2, P>(sx, geo.lda1, g_rows * B, w1 + (size_t)mi * P * geo.np1 * geo.kb1,
-                          geo.np1, A, geo.kb1, [&](int m, int r0, const int (&d)[P]) {
-                            const int g = m / B, k0 = m % B, idx = r0 * B + k0;
-                            *(uint64_t*)(sy + (size_t)(g * A + r0) * LDA64 + k0 * 8) =
-                                shoup64_lazy(fold_planes<P>(d, mc), t[idx], t[n + idx], mc.q);
-                          });
-  __syncthreads();
-  // forward pass 2 and the key: Y -> X [(row, r0)][r1], the natural rows
-  mm_planes_n<true, 2, P>(sy, LDA64, g_rows * A, w2 + (size_t)mi * P * B * 8 * B, B, B, 8 * B,
-                          [&](int m, int r1, const int (&d)[P]) {
-                            const int idx = (m % A) * B + r1;
-                            *(uint64_t*)(sx + (size_t)m * LDA64 + r1 * 8) =
-                                shoup64_lazy(fold_planes<P>(d, mc), kt[idx], kt[n + idx], mc.q);
-                          });
-  __syncthreads();
-  // inverse pass 1: X -> Y [(row, k0)][r0], twiddled
-  mm_planes_n<true, 2, P>(sx, LDA64, g_rows * A, wi1 + (size_t)mi * P * B * 8 * B, B, B, 8 * B,
-                          [&](int m, int k0, const int (&d)[P]) {
-                            const int g = m / A, r0 = m % A, idx = r0 * B + k0;
-                            *(uint64_t*)(sy + (size_t)(g * B + k0) * geo.lda1 + r0 * 8) =
-                                shoup64_lazy(fold_planes<P>(d, mc), t[2 * n + idx],
-                                             t[3 * n + idx], mc.q);
-                          });
-  __syncthreads();
-  // inverse pass 2: Y -> canonical values in normal order
-  mm_planes_n<true, 2, P>(sy, geo.lda1, g_rows * B, wi2 + (size_t)mi * P * geo.np1 * geo.kb1,
-                          geo.np1, A, geo.kb1, [&](int m, int k1, const int (&d)[P]) {
-                            const int g = m / B, k0 = m % B;
-                            out[base + (size_t)g * n + k1 * B + k0] =
-                                canonical64(fold_planes<P>(d, mc), mc);
-                          });
-}
-
-// Kernel E: one block a row group.
-template <int P>
-int launch_roundtrip64(const void* in, void* out, const void* const* w, const void* tw,
-                       const void* key, const ModSet64& ms, int rows, int log_n, void* stream) {
-  const Geometry64 geo = geometry64(log_n);
-  const size_t smem = 2 * (geo.s_cols > geo.s_rows ? geo.s_cols : geo.s_rows);
-  const int grid = ms.count * ((rows + geo.G - 1) / geo.G);
-  cudaError_t err = cudaFuncSetAttribute(ntt_mxu8_roundtrip64_kernel<P>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ntt_mxu8_roundtrip64_kernel<P><<<grid, 256, smem, (cudaStream_t)stream>>>(
-      (const uint64_t*)in, (uint64_t*)out, (const int8_t*)w[0], (const int8_t*)w[1],
-      (const int8_t*)w[2], (const int8_t*)w[3], (const uint64_t*)tw, (const uint64_t*)key, ms,
-      rows, log_n);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -1128,19 +1035,6 @@ int pft_ntt_mxu8_inverse64_mul(const void* in, void* out, const void* wi1, const
                                int rows, int log_n, int planes, void* stream) {
   return inverse64_any<true>(in, out, wi1, wi2, tw, key, mod_pack, count, rows, log_n, planes,
                              stream);
-}
-
-int pft_ntt_mxu8_roundtrip64_mul(const void* in, void* out, const void* w1, const void* w2,
-                                 const void* wi1, const void* wi2, const void* tw,
-                                 const void* key, const void* mod_pack, int count, int rows,
-                                 int log_n, int planes, void* stream) {
-  if (count < 1 || count > PFT_MAX_MOD64 || log_n < 8 || log_n > 12 || rows < 1)
-    return (int)cudaErrorInvalidValue;
-  const void* w[4] = {w1, w2, wi1, wi2};
-  const ModSet64 ms = unpack_mod64((const uint64_t*)mod_pack, count);
-  if (planes == 7) return launch_roundtrip64<7>(in, out, w, tw, key, ms, rows, log_n, stream);
-  if (planes == 8) return launch_roundtrip64<8>(in, out, w, tw, key, ms, rows, log_n, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 int pft_ntt_mxu8_forward(const void* in, void* out, const void* w1, const void* w2,

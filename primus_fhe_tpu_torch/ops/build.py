@@ -48,10 +48,10 @@ _SIGNATURES = {
     "pft_ntt64_forward": (_P,) * 5 + (_I,) * 4 + (_P,),
     "pft_ntt64_inverse": (_P,) * 5 + (_I,) * 5 + (_P,),
     "pft_ntt64_tile": (_I, _I, _I, _I, _P),
+    "pft_ntt64_roundtrip_mul": (_P,) * 8 + (_I,) * 3 + (_P,),
     "pft_ntt_mxu8_forward64": (_P,) * 6 + (_I,) * 4 + (_P,),
     "pft_ntt_mxu8_inverse64": (_P,) * 6 + (_I,) * 4 + (_P,),
     "pft_ntt_mxu8_inverse64_mul": (_P,) * 7 + (_I,) * 4 + (_P,),
-    "pft_ntt_mxu8_roundtrip64_mul": (_P,) * 9 + (_I,) * 4 + (_P,),
     "pft_rotate": (_P, _P, _P, _I, _I, _I, _I, _P),
     "pft_cmux_front": (_P,) * 5 + (_I,) * 4 + (_P,),
     "pft_ntt32_stages_forward": (_P,) * 4 + (_I,) * 4 + (_P,),

@@ -201,10 +201,16 @@ def ntt64_inverse(tables: NttTables64, values: torch.Tensor, out_factor: int = 1
 def launch_tile(tables: NttTables64, rows: int, forward: bool = True) -> int:
     """Rows of one modulus a block of the kernel's launch on ``rows`` rows a
     modulus, on the current CUDA device (the C entry's own pick)."""
+    return pick_tile(int(forward), tables, rows)
+
+
+def pick_tile(kind: int, tables: NttTables64, rows: int) -> int:
+    """The C entry's tile pick for kernel ``kind`` of ``csrc/ntt64.cu`` (1
+    the forward, 0 the inverse, 2 kernel E) on ``rows`` rows a modulus."""
     import ctypes
 
     tile = ctypes.c_int()
-    err = build.library().pft_ntt64_tile(int(forward), len(tables.moduli), rows, tables.log_n,
+    err = build.library().pft_ntt64_tile(kind, len(tables.moduli), rows, tables.log_n,
                                          ctypes.addressof(tile))
     build.check(err, "pft_ntt64_tile")
     return tile.value

@@ -19,8 +19,8 @@
 
 All but the round trip reach ``pallas_call`` through
 ``ops/mxu_common._natural_call`` in the reference.  CUDA source:
-``csrc/ntt_mxu8.cu``; design, bounds and shared-memory budgets are stated
-there.  ``mxu8_forward64`` runs on ``wgmma`` in clusters of blocks that each
+``csrc/ntt_mxu8.cu`` (kernel E: ``csrc/ntt64.cu``); design, bounds and
+shared-memory budgets are stated there.  ``mxu8_forward64`` runs on ``wgmma`` in clusters of blocks that each
 take a tile of rows and a slice of pass 2's output columns (the launch picks
 both from the rows and the card), streaming the plane matrices in
 :func:`forward_stream_tables`' order (``kernel_tables()["w1s"]``,
@@ -33,8 +33,13 @@ freed input buffer (:func:`inverse_stream_tables`, ``["wi1s"]``,
 ``["wi2s"]``); no block needs another's output, so there is no cluster.
 Both are bounded by the function they compute (16 bytes a word through
 device memory; D adds its key), far below what either kernel reaches: the
-method's int8 products and plane-matrix streams set their pace.  Kernel E keeps the one-row-group
-``mma.sync`` design and the kernel-layout ``w1, w2, wi1, wi2``.
+method's int8 products and plane-matrix streams set their pace.  Kernel E
+computes the same function as ``mxu8_forward64`` then D, but on row 10's
+butterfly passes (:mod:`.ntt64`, whose root tables it reads), not on byte
+planes: a tile of rows a block runs the forward's radix-8 passes, the key
+multiply and the inverse's passes in shared memory, so the forward's words
+never reach device memory; on this card the butterflies take less than half
+the byte-radix kernels' time at ``bench.py``'s shape.
 
 The four-step's natural output order is the butterfly NTT's bit-reversed
 order, so each plain version is the canonical butterfly transform
@@ -68,6 +73,7 @@ from .cmux_mxu import LANES, _balanced_digits, kernel_layout
 from .mxu_common import four_step_matrices
 from .ntt32 import forward32_plain
 from .ntt64 import NttTables64, ntt64_forward_plain, ntt64_inverse_plain
+from .ntt64 import pick_tile as ntt64_pick_tile
 
 
 def mxu8_forward32_plain(plan, values: torch.Tensor) -> torch.Tensor:
@@ -195,8 +201,8 @@ class Mxu8Tables64:
     """The u64 four-step plans of every modulus of a butterfly table stack
     (on its roots) at one plane count (the largest natural tier, at least 7:
     the kernels are built for 7 and 8 planes), and their kernel-side copies.
-    The plans are built at first use: the plain versions need only ``ntt``,
-    at any ``log_n``."""
+    The plans are built at first use: the plain versions and kernel E need
+    only ``ntt``, at any ``log_n``."""
 
     def __init__(self, ntt: NttTables64):
         self.ntt = ntt
@@ -255,7 +261,7 @@ class Mxu8Tables64:
 
     def kernel_tables(self, device) -> dict:
         """``w1, w2, wi1, wi2`` (int8, kernel layout: columns ``(k, l)``,
-        stacked over moduli; kernel E and row 13 read them), ``w1s, w2s``
+        stacked over moduli; row 13 reads them), ``w1s, w2s``
         (``w1``/``w2`` in the forward kernel's stream order,
         :func:`forward_stream_tables`), ``wi1s, wi2s`` (``wi1``/``wi2`` in
         the inverse kernel's, :func:`inverse_stream_tables`) and ``tw
@@ -373,6 +379,9 @@ def mxu8_roundtrip64_mul_plain(tables: Mxu8Tables64, values: torch.Tensor, mul_t
 
 def _run64(wrapper, plain, entry: str, names, tables: Mxu8Tables64, values, out_factor, allowed,
            mul_tab=None):
+    """One launch of ``entry`` on ``values`` (CPU tensors: ``plain``);
+    ``names``: the byte-radix kernel tables it reads, or None for kernel E,
+    which reads the butterfly tables ``tables.ntt``."""
     if out_factor not in allowed:
         raise ValueError(f"out_factor must be one of {allowed}")
     keyed = () if mul_tab is None else (mul_tab,)
@@ -395,12 +404,15 @@ def _run64(wrapper, plain, entry: str, names, tables: Mxu8Tables64, values, out_
     out = torch.empty_like(v)
     rows = v[0].numel() // n
     if rows:
-        tabs = tables.kernel_tables(v.device)
+        if names is None:
+            tabs, planes = tables.ntt.kernel_tables(v.device), ()
+        else:
+            kt = tables.kernel_tables(v.device)
+            tabs, planes = [kt[name] for name in names] + [kt["tw"]], (tables.planes,)
         err = getattr(build.library(), entry)(
-            v.data_ptr(), out.data_ptr(), *(tabs[name].data_ptr() for name in names),
-            tabs["tw"].data_ptr(), *(t.data_ptr() for t in keyed), build.ptr(tables.ntt.mod_pack),
-            count, rows, tables.log_n, tables.planes,
-            torch.cuda.current_stream(v.device).cuda_stream,
+            v.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tabs),
+            *(t.data_ptr() for t in keyed), build.ptr(tables.ntt.mod_pack), count, rows,
+            tables.log_n, *planes, torch.cuda.current_stream(v.device).cuda_stream,
         )
         build.check(err, entry)
         wrapper.launches += 1
@@ -451,10 +463,22 @@ def mxu8_roundtrip64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: to
                          out_factor: int = 1):
     """Kernel E: ``INTT(NTT(values) * key)``, the negacyclic product of any
     u64 words ``values (count, ..., n)`` (normal order) by the fixed operand
-    of ``mul_tab`` -> canonical values in normal order, in one launch."""
-    return _run64(mxu8_roundtrip64_mul, mxu8_roundtrip64_mul_plain,
-                  "pft_ntt_mxu8_roundtrip64_mul", ("w1", "w2", "wi1", "wi2"), tables, values,
-                  out_factor, (1, 2), mul_tab)
+    of ``mul_tab`` -> canonical values in normal order (``out_factor`` 1 or
+    2; canonical for both), in one launch.
+
+    CPU tensors take the plain version, CUDA tensors the kernel of
+    ``csrc/ntt64.cu`` (row 10's radix-8 passes for both transforms, the key
+    between them, one launch for every modulus; the launch picks its tile of
+    rows, :func:`roundtrip_tile`); on the card ``8 <= log_n <= 12`` only
+    (``ValueError`` outside)."""
+    return _run64(mxu8_roundtrip64_mul, mxu8_roundtrip64_mul_plain, "pft_ntt64_roundtrip_mul",
+                  None, tables, values, out_factor, (1, 2), mul_tab)
+
+
+def roundtrip_tile(tables: Mxu8Tables64, rows: int) -> int:
+    """Rows of one modulus a block of kernel E's launch on ``rows`` rows a
+    modulus, on the current CUDA device (the C entry's own pick)."""
+    return ntt64_pick_tile(2, tables.ntt, rows)
 
 
 mxu8_forward64.launches = 0

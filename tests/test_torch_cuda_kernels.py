@@ -15,8 +15,10 @@ the tiled ``mxu8_forward64`` at rows 1, 2, R - 1, R, R + 1, 16, 64, 256 and
 the tiled ``mxu8_inverse64`` and kernel D at the same rows, the inverse on
 a shard's tables and under ``ntt_large``'s mxu8 route,
 and a small DCRT rotation on both routes against the CPU; kernels D and E
-(the fused key multiply and round trip) at log_n 8-12, 7 and 8 planes, two
-moduli and ragged row groups, and the four-step at 2^16 on both routes;
+(the fused key multiply and round trip) at every log_n 8-12, 7 and 8 planes
+(moduli up to 2^62), two moduli and E's ragged tiles, E also against
+``mxu8_forward64`` then D and the butterfly route, and the four-step at
+2^16 on both routes;
 kernels F and G at N 32-2048, degrees of any sign, both gadgets, and
 ``cmux_delta`` against kernels 3-4; the four stage kernels of the
 coefficient-sharded NTT at log_n 9-16 over 2-8 shards (u32, 50- and 62-bit
@@ -475,19 +477,47 @@ def test_dcrt_rotation_routes_and_cpu_agree(dev):
     assert torch.equal(outs["auto"].cpu(), cpu)
 
 
-@pytest.mark.parametrize("log_n,moduli", [(8, Q50), (9, [Q60]), (11, [Q50[0], Q60]), (12, Q50)])
+def _ragged_rows_rt(tables, start):
+    """The first row count from ``start`` on that kernel E's launch (on this
+    card) cuts into tiles of more than one row with a ragged last tile."""
+    for rows in range(start, start + 8192):
+        tile = ntt_mxu8.roundtrip_tile(tables, rows)
+        if tile > 1 and rows % tile:
+            return rows
+    raise AssertionError("no ragged tile within 8192 row counts")
+
+
+@pytest.mark.parametrize("log_n,moduli", [
+    (8, Q50), (9, [Q60]), (10, [Q62[0]]), (11, [Q50[0], Q60]), (12, Q50), (12, [Q62[0], Q50[1]]),
+])
 def test_mxu8_64_mul_kernels_match_plain(dev, log_n, moduli):
+    """Kernel D and kernel E against their plain versions; E also against
+    ``mxu8_forward64`` then D and against the butterfly route (row 10's
+    kernels around a torch Shoup multiply, on the reduced input), at rows 1,
+    5, 33 and at row counts around a tile edge of E's launch (the first
+    ragged tile of more than one row, one below and one above it)."""
+    from primus_fhe_tpu_torch.modular.factor import ShoupFactor64, factor_mul_lazy64
+    from primus_fhe_tpu_torch.numeric.limb import u64_tensor
+
     tables = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
     gen = torch.Generator(device=dev).manual_seed(100 + log_n)
     mt = tables.mul_table(_below(gen, moduli, (1 << log_n,), 1, dev))
-    for rows in (1, 5, 33):
+    ragged = _ragged_rows_rt(tables, 1)
+    q = u64_tensor(moduli, dev).reshape(-1, 1, 1)
+    key = ShoupFactor64(mt[:, 0, None], mt[:, 1, None])
+    for rows in (1, 5, 33, ragged - 1, ragged, ragged + 1):
         x = _u64_words(gen, (len(moduli), rows, 1 << log_n), dev)
         assert torch.equal(ntt_mxu8.mxu8_inverse64_mul(tables, x, mt),
                            ntt_mxu8.mxu8_inverse64_mul_plain(tables, x, mt))
         rt = ntt_mxu8.mxu8_roundtrip64_mul(tables, x, mt)
-        assert torch.equal(rt, ntt_mxu8.mxu8_roundtrip64_mul_plain(tables, x, mt))
+        assert torch.equal(rt, ntt_mxu8.mxu8_roundtrip64_mul_plain(tables, x, mt)), rows
         fwd = ntt_mxu8.mxu8_forward64(tables, x)
-        assert torch.equal(rt, ntt_mxu8.mxu8_inverse64_mul(tables, fwd, mt))
+        assert torch.equal(rt, ntt_mxu8.mxu8_inverse64_mul(tables, fwd, mt)), rows
+        xr = ntt_mxu8.reduce_any64(x, moduli)
+        bf = ntt64.ntt64_inverse(tables.ntt, factor_mul_lazy64(
+            ntt64.ntt64_forward(tables.ntt, xr, 4), key, q))
+        assert torch.equal(rt, bf), rows
+        assert torch.equal(ntt_mxu8.mxu8_roundtrip64_mul(tables, x, mt, 2), rt)
 
 
 def test_large_ntt_routes_match_plain(dev):

@@ -16,8 +16,10 @@
   fold, the same indexing) equals the plain versions at 7 and 8 planes, on
   inputs past 2^63, so the tables the card reads are right before any card
   runs them; the same model with the fixed operand's key multiply (kernel
-  D at load, kernel E after the forward's pass 2) equals the plain versions
-  of ``mxu8_inverse64_mul`` and ``mxu8_roundtrip64_mul``.
+  D at load; the forward then D, the route whose words kernel E gives)
+  equals the plain versions of ``mxu8_inverse64_mul`` and
+  ``mxu8_roundtrip64_mul`` (kernel E's own schedule, on row 10's passes, is
+  modelled in ``tests/test_torch_ntt_rt64_model.py``).
 
 Tolerance: zero (bit-equal words), or equality mod q where stated.
 """
@@ -168,8 +170,8 @@ def _model(tables, mi, rows, inverse, key=None):
     """The forward (or inverse) kernel on ``rows (R, n)`` u64 -> ``(R, n)``;
     with ``key`` (``(2, n)`` object ints: values, Shoup quotients) the
     inverse is kernel D (the key multiply as each word is loaded) and the
-    forward is kernel E (the key on the folded pass-2 word, then the
-    inverse's two passes)."""
+    forward is the forward + D route (the key on the folded pass-2 word,
+    then the inverse's two passes): kernel E's words."""
     tabs = {k: v.numpy() for k, v in tables.kernel_tables("cpu").items()}
     P, A, B, n = tables.planes, tables.A, tables.B, tables.n
     c = _consts(tables, mi)
@@ -211,7 +213,8 @@ def test_mxu8_64_kernel_model_matches_plain(log_n, moduli):
 
 @pytest.mark.parametrize("log_n,moduli", [(8, Q50), (8, [Q60, Q62]), (12, [Q50[0]])])
 def test_mxu8_64_mul_kernel_model_matches_plain(log_n, moduli):
-    """Kernels D and E on the same tables: the fused key multiply."""
+    """Kernel D, and the forward + D route against kernel E's plain
+    version, on the same tables: the fused key multiply."""
     tables = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
     rng = np.random.default_rng(100 + log_n + len(moduli))
     n = 1 << log_n
