@@ -94,9 +94,10 @@ non-zero):
     with the D = 1 local pipeline's time against ``mxu8_forward64``'s; the
     sharded negacyclic product at ``bench.py``'s shape (512 rows) over D = 2
     and 4 equals kernel E, with exact launch counts and ms a trip beside E and
-    forward + D; once at 8 byte planes; K1, K2, Ki1 (with and without the
-    key) and Ki2 against their plain versions (the lazy halves below 2q and
-    equal mod q);
+    forward + D, each with the card's busy time a trip with the host ahead
+    and the idle share; once at 8 byte planes; K1, K2, Ki1 (with and without
+    the key) and Ki2 against their plain versions (the lazy halves below 2q
+    and equal mod q), each with its share of its bound;
 17. the 32-bit DCRT transforms against kernels 1-2 and the residue- and
     batch-sharded external product on a ``LocalMesh`` (2, 2) at BOOLEAN_128
     width (key slice 0 of phase 3's bootstrap key, batch 64) against the
@@ -146,12 +147,14 @@ def bound(nbytes: float, int8_macs: float = 0, muls32: float = 0) -> tuple[float
 
 def ntt_muls(rows: int, n: int, u64: bool = False) -> int:
     """32-bit multiplies of ``rows`` butterfly NTTs of size ``n``: ``n/2
-    log n`` Shoup multiplies a row.  The u64 forward and inverse NTTs are
-    bounded by this, the function's work, on either route, and so are kernels
-    D (one inverse and the key, one Shoup multiply a word) and E (two
+    log n`` Shoup multiplies a row.  Every NTT kernel is bounded by this,
+    the function's work, whatever its method: the u32 and u64 forward and
+    inverse NTTs on either route, kernel C (the u32 forward on byte planes),
+    kernels D (one inverse and the key, one Shoup multiply a word) and E (two
     transforms and the key), and row 13's split kernels K1-Ki2 by their
-    sub-transforms' (:func:`split_bounds`); kernel C still by its own int8
-    MACs (:func:`four_step_macs`)."""
+    sub-transforms' (:func:`split_bounds`).  Only kernels A and B, whose
+    function is a CMux step, are held to their int8 MACs
+    (:func:`four_step_macs`)."""
     return rows * (n // 2) * (n.bit_length() - 1) * (10 if u64 else 3)
 
 
@@ -583,6 +586,33 @@ def chained_ms(torch, step, x, trips: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / trips
+
+
+def queued_ms(torch, step, x, trips: int, host_ms: float) -> tuple[float | None, float]:
+    """``(busy, enqueue)``: the card's busy milliseconds a trip of ``step``
+    and the host's milliseconds a trip to enqueue it.  ``trips`` chained
+    trips are queued behind a sleep kernel long enough (twice the
+    host-paced ``host_ms`` a trip) for the host to enqueue them all first,
+    CUDA events around them, so that no launch waits for the host (the gaps
+    between launches on the card count); the host clock times the enqueue,
+    the card asleep.  busy is None if the host still fell behind the sleep
+    (the sleep's length assumes a clock of at most 2 GHz)."""
+    step(x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sleep_ms = 2 * trips * host_ms + 1
+    torch.cuda._sleep(int(sleep_ms * 2e6))
+    t0 = time.perf_counter()
+    v = x
+    start.record()
+    for _ in range(trips):
+        v = step(v)
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    busy = None if enqueue_ms >= sleep_ms else start.elapsed_time(end) / trips
+    return busy, enqueue_ms / trips
 
 
 def phase11_roundtrip(torch, dev, table) -> dict:
@@ -1153,13 +1183,12 @@ def phase16_sharded_mxu(torch, dev, table) -> dict:
             shard(mesh, csm.to_coeff_layout(xr, A, B), coeff))
     for name, (step, v0) in routes.items():
         ms = chained_ms(torch, step, v0, RT_TRIPS)
-        line = f"[{name:12s}] {ms:.4f} ms a trip -> {modmuls / (ms / 1e3):.4e} modmul/s"
-        if name.startswith("sharded"):
-            ops = count_host_ops(torch, lambda: step(v0))
-            dev_ms, _ = device_time(torch, lambda: step(v0))
-            line += (f"; {ops} host ops a trip, device busy "
-                     + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms a trip "
-                        f"(idle share {1 - dev_ms / ms:.3f})"))
+        busy, enqueue = queued_ms(torch, step, v0, RT_TRIPS, ms)
+        line = (f"[{name:12s}] {ms:.4f} ms a trip -> {modmuls / (ms / 1e3):.4e} modmul/s; "
+                f"{count_host_ops(torch, lambda: step(v0))} host ops a trip, enqueued in "
+                f"{enqueue:.4f} ms with the card asleep; device busy "
+                + ("not measured (the host fell behind the sleep)" if busy is None else
+                   f"{busy:.4f} ms a trip with the host ahead (idle share {1 - busy / ms:.3f})"))
         log(line)
 
     # -- 16.3: the 8-plane tier --------------------------------------------------
@@ -1206,6 +1235,10 @@ def phase16_sharded_mxu(torch, dev, table) -> dict:
                    split_bounds(n, P, lanes, rows, d, False)["split_ki1"])
     compare_kernel64(torch, table, "split_ki2", RT_BATCH, lambda: split.split_ki2(tabs, lane_in),
                      lambda: split.split_ki2_plain(tabs, lane_in), bnd["split_ki2"])
+    for name in ("split_k1", "split_k2", "split_ki1", "split_ki1@nokey", "split_ki2"):
+        _, _, _, dev_ms, (bound_ms, bound_by) = table[name][RT_BATCH]
+        log(f"{name:22s} share of the bound {bound_ms / dev_ms:.4f} ({bound_ms:.4f} ms by "
+            f"{bound_by} over {dev_ms:.4f} device ms)")
     return counts
 
 
@@ -1441,7 +1474,7 @@ def main() -> None:
                        lambda: ntt_mxu8.mxu8_forward32(plan, c_in),
                        lambda: ntt_mxu8.mxu8_forward32(plan, c_in32),
                        lambda: ntt_mxu8.mxu8_forward32_plain(plan, c_in),
-                       bound(8 * cr * n, four_step_macs(cr, n, 4, 4)))
+                       bound(8 * cr * n, muls32=ntt_muls(cr, n)))
         # NTRU_128 shapes: kernel B, and kernels 1-2 as the NTT route runs them
         n_acc = torch.randint(0, qn, (bsz, nn), generator=g, device=dev)
         n_deg = torch.randint(0, 2 * nn, (bsz,), generator=g, device=dev, dtype=torch.int32)

@@ -29,6 +29,9 @@ at the round trip's 512 rows on a 7- and an 8-plane modulus (beside row 10,
     python3 cmux_mxu_timing.py --ntt64 ...     # row 10 only (with --compare OLD: in turns)
     python3 cmux_mxu_timing.py --ntt64 --grids # row 10 on every tile of rows
     python3 cmux_mxu_timing.py --ntt64 --phases  # its cycles per pass (clock64)
+    python3 cmux_mxu_timing.py --split ...     # row 13's halves (with --compare OLD: in turns)
+    python3 cmux_mxu_timing.py --split --grids # K2 and Ki1 on every tile of rows
+    python3 cmux_mxu_timing.py --split --phases  # their cycles per phase (clock64)
 
 Both forward transforms are bounded by the function they compute: 16 bytes
 a word over the HBM rate, or the butterfly's ``n / 2 log n`` Shoup
@@ -65,7 +68,18 @@ their span on the device's global timer (:func:`stamp_ntt32`).
 ``--ntt64`` does the same for row 10 at its shapes: ``--grids`` from a copy
 in ``.proof/ntt64_tiles`` whose C entry takes the tile from outside
 (``pft_ntt64_force_tile``), ``--phases`` from ``.proof/ntt64_phases``
-(:func:`stamp_ntt64`).  The
+(:func:`stamp_ntt64`).  ``--split`` times row 13's four halves (K1, K2,
+Ki1 with and without the key, Ki2) at phase 16's shard shapes
+(:data:`SPLIT_SHAPES`), each with its bound (``chip_smoke.split_bounds``),
+and phase 16.2's sharded product a trip at D = 2 and 4, host-paced and
+with the host ahead (:func:`sharded_trips`);
+under ``--compare`` the summary gives new / old per shape
+(``mean_split_ms``); ``--split --grids`` copies the package to
+``.proof/split_tiles`` with the row kernel's tile set from outside
+(``pft_split_force_tile``) and times K2 and Ki1 on every tile of 4-32
+rows beside the launch's own; ``--split --phases`` copies it to
+``.proof/split_phases`` with clock64() laps of block 0 per phase (load,
+table wait, each pass, twiddle, store; :func:`stamp_split`).  The
 ``empty kernel`` line is the floor of this way of timing: a launch that
 does nothing, timed the same way.
 
@@ -91,6 +105,7 @@ one JSON line.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import re
 import shutil
@@ -376,6 +391,266 @@ def tile_times64(torch, dev) -> dict:
              for (name, label), (fn, bound_ms, tables, x, _, _) in ntt_calls(torch, dev).items()
              if name.startswith("ntt64")}
     return sweep_tiles(torch, calls, lib.pft_ntt64_force_tile)
+
+
+# Row 13's four halves at log_n 12 (A = 32 rows of B = 128 lanes) on shard d
+# - 1 of D = d: (label, q, d, batch): phase 16.2's product (512 rows of each
+# polynomial batch, D = 2 and 4, on bench.py's 7-plane q = 2^50 - 2^14 + 1
+# and the 8-plane q) and phase 16.1's forward (batch 64, D = 1, 2, 4).
+SPLIT_SHAPES = (("D2 b512", NTT_MODULI[0], 2, 512), ("D2 b512 8 planes", Q60, 2, 512),
+                ("D4 b512", NTT_MODULI[0], 4, 512), ("D4 b512 8 planes", Q60, 4, 512),
+                ("D1 b64", NTT_MODULI[0], 1, 64), ("D2 b64", NTT_MODULI[0], 2, 64),
+                ("D4 b64", NTT_MODULI[0], 4, 64))
+SPLIT_NAMES = ("split_k1", "split_k2", "split_ki1", "split_ki1@nokey", "split_ki2")
+SPLIT_KIND = {"split_k2": 0, "split_ki1": 1, "split_ki1@nokey": 2}  # the row kernel's kinds
+SPLIT_TILES = (4, 8, 16, 32)
+
+
+def this_smoke():
+    """This checkout's ``chip_smoke.py`` (bounds and timing helpers), so that
+    both sides of ``--compare`` are timed by the same code."""
+    spec = importlib.util.spec_from_file_location("pft_chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sharded_trips(torch, dev) -> dict:
+    """Phase 16.2's sharded negacyclic product at ``bench.py``'s shape (n =
+    4096, 512 rows, q = 2^50 - 2^14 + 1) on ``LocalMesh(D, 1)``, D = 2 and
+    4, from and to coefficient-layout shards: ms a trip over 20 chained
+    trips (``chip_smoke.chained_ms``, host-paced), the card's busy ms a trip
+    with the host ahead and the host's enqueue ms a trip with the card
+    asleep (``chip_smoke.queued_ms``), and the idle share."""
+    from primus_fhe_tpu_torch.parallel import LocalMesh, shard
+    from primus_fhe_tpu_torch.parallel import coeff_sharded_mxu as csm
+
+    smoke = this_smoke()
+    q, log_n, rows = NTT_MODULI[0], 12, 512
+    plan = csm.get_sharded_plan(log_n, q)
+    g = torch.Generator(device=dev).manual_seed(2032)
+    x = torch.randint(0, q, (rows, 1 << log_n), generator=g, device=dev)
+    mt = plan.tables.mul_table(torch.randint(0, q, (1, 1 << log_n), generator=g, device=dev))
+    out = {}
+    for d in (2, 4):
+        mesh = LocalMesh(d, 1, dev)
+
+        def step(v, mesh=mesh):
+            f = csm.sharded_mxu_forward64(mesh, "residue", log_n, q, v)
+            return csm.sharded_mxu_inverse64(mesh, "residue", log_n, q, f, mul_tab=mt)
+
+        v0 = shard(mesh, csm.to_coeff_layout(x, plan.A, plan.B), (None, "residue", None))
+        ms = smoke.chained_ms(torch, step, v0, smoke.RT_TRIPS)
+        busy, enqueue = smoke.queued_ms(torch, step, v0, smoke.RT_TRIPS, ms)
+        out[f"sharded product D={d}"] = {"ms": ms, "device_ms": busy, "enqueue_ms": enqueue,
+                                         "idle": None if busy is None else 1 - busy / ms}
+    return out
+
+
+def split_calls(torch, dev) -> dict:
+    """``{(name, label): (call, bound ms, rows of the row halves)}`` of the
+    four halves (Ki1 with and without the key) at :data:`SPLIT_SHAPES`,
+    inputs as phase 16.4 makes them (K1's and Ki2's lanes below q, the row
+    halves' rows below 2q) from a seeded generator on the card, each held to
+    its function's bound (``chip_smoke.split_bounds``)."""
+    from primus_fhe_tpu_torch.ops import ntt_mxu8_split as split
+    from primus_fhe_tpu_torch.parallel.coeff_sharded_mxu import get_sharded_plan
+
+    g = torch.Generator(device=dev).manual_seed(2031)
+    calls = {}
+    for label, q, d, batch in SPLIT_SHAPES:
+        plan = get_sharded_plan(12, q)
+        tabs, A, B, n = plan.tables, plan.A, plan.B, 1 << 12
+        k0_off, r0_off = plan.offsets(d, d - 1)
+        lanes, rows = B // d * batch, A // d * batch
+        lane_in = torch.randint(0, q, (1, A, lanes), generator=g, device=dev)
+        row_in = torch.randint(0, 2 * q, (1, rows, B), generator=g, device=dev)
+        mt = tabs.mul_table(torch.randint(0, q, (1, n), generator=g, device=dev))
+        key = mt.reshape(1, 2, A, B)[:, :, r0_off:r0_off + A // d].reshape(1, 2, -1).contiguous()
+        split_bounds = this_smoke().split_bounds
+        bnd = split_bounds(n, plan.planes, lanes, rows, d, True)
+        bnd["split_ki1@nokey"] = split_bounds(n, plan.planes, lanes, rows, d, False)["split_ki1"]
+        fns = {
+            "split_k1": lambda t=tabs, v=lane_in, b=batch, o=k0_off: split.split_k1(t, v, b, o),
+            "split_k2": lambda t=tabs, v=row_in: split.split_k2(t, v),
+            "split_ki1": lambda t=tabs, v=row_in, b=batch, o=r0_off, k=key: split.split_ki1(
+                t, v, b, o, k),
+            "split_ki1@nokey": lambda t=tabs, v=row_in, b=batch, o=r0_off: split.split_ki1(
+                t, v, b, o),
+            "split_ki2": lambda t=tabs, v=lane_in: split.split_ki2(t, v),
+        }
+        for name in SPLIT_NAMES:
+            calls[(name, label)] = (fns[name], bnd[name][0], rows)
+    return calls
+
+
+def idle_us(torch, fn, calls: int = 200) -> float:
+    """Median over 5 runs of the host microseconds a call of ``fn`` with
+    nothing queued ahead of it: where the call's kernels are shorter than
+    its host time, the card idles between launches (:func:`host_us` is the
+    same with a long queue ahead)."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(runs)[2]
+
+
+def split_times(torch, dev) -> dict:
+    """Device ms, bound and share of the bound of each half at each shape,
+    the floor of this timing (an empty kernel), phase 16.2's sharded
+    product a trip (:func:`sharded_trips`), and the host us a call of each
+    half at the D = 2 product shard and of an empty kernel, behind a queue
+    (:func:`host_us`) and with none (:func:`idle_us`)."""
+    out = {}
+    for (name, label), (fn, bound_ms, _) in split_calls(torch, dev).items():
+        ms = device_ms(torch, fn)
+        out[f"{name}@{label}"] = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms}
+        if label == SPLIT_SHAPES[0][0]:
+            out[f"{name}@{label}"].update(queued_us=host_us(torch, fn), idle_us=idle_us(torch, fn))
+    empty = lambda: torch.cuda._sleep(1)  # noqa: E731
+    out["empty kernel"] = {"ms": device_ms(torch, empty), "queued_us": host_us(torch, empty),
+                           "idle_us": idle_us(torch, empty)}
+    out.update(sharded_trips(torch, dev))
+    return out
+
+
+def stamp_split(src: Path, phases: bool) -> None:
+    """A copy of ``ntt_mxu8_split.cu`` for ``--split --grids`` (the row
+    kernel's tile set from outside the launch, ``pft_split_force_tile(T)``,
+    0 for the launch's own; ``pft_split_used_tile`` reads the last launch's)
+    or ``--split --phases`` (clock64() laps of thread 0 of block 0 of the
+    row kernel after each phase, the earliest block start and latest block
+    end on the global timer, per kind; ``pft_read_split`` reads them and
+    resets the span)."""
+    text = src.read_text()
+    if not phases:
+        pick = "  a.tile = pick_rows(ms.count, rows, sms);\n"
+        if text.count(pick) != 1:
+            raise SystemExit("cmux_mxu_timing: ntt_mxu8_split.cu's pick moved")
+        text = text.replace(pick, pick + "  if (pft_split_force > 0) a.tile = pft_split_force;\n"
+                            "  pft_split_used = a.tile;\n")
+        text = text.replace("namespace {\n", "int pft_split_force = 0, pft_split_used = 0;\n"
+                            "namespace {\n", 1)
+        entry = ("int pft_split_force_tile(int t) {\n  pft_split_force = t;\n  return 0;\n}\n"
+                 "int pft_split_used_tile() { return pft_split_used; }\n")
+        text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + entry, 1)
+        src.write_text(text)
+        return
+    pre, body, post = kernel_region(text, "split_row_kernel(const RowArgs a)",
+                                    "// The SM count of the current device")
+    lap = "if (threadIdx.x == 0 && blockIdx.x == 0) pft_split_stamps[pft_kind][pft_k++] = clock64();"
+    timer = ("{{ unsigned long long tg; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(tg)); "
+             "if (threadIdx.x == 0) atomic{0}(&pft_split_gt[pft_kind][{1}], tg); }}")
+    edits = [  # (anchor, text to add, after the anchor?)
+        ("  uint64_t* slice = sm + ROW_TABLE + tr * B;\n",
+         "  constexpr int pft_kind = INVERSE ? (MUL ? 1 : 2) : 0;\n  int pft_k = 0;\n"
+         f"  {timer.format('Min', 0)}\n  {lap}\n", True),
+        ("  cp_async_wait<0>();\n  __syncthreads();  // the table\n", f"  {lap}\n", False),
+        ("  cp_async_wait<0>();\n  __syncthreads();  // the table\n", f"  {lap}\n", True),
+        ("#pragma unroll\n  for (int k = 0; k < 8; ++k) {\n    const uint64_t x[2] = {v0[k], v1[k]};\n"
+         "    store_words(row_chunk(slice, r, k, t), x);", f"  {lap}\n", False),  # pass A
+        ("    store_words(row_chunk(slice, r, k, t), x);\n  }\n  __syncwarp();\n", f"  {lap}\n",
+         True),  # to the slice
+        ("    store_words(row_chunk(slice, r, t, j), x);\n  }\n  __syncwarp();\n", f"  {lap}\n",
+         True),  # pass B / A', back to the slice
+        ("    inv_stages<3, 2>(v1, tw2, q);\n", f"    {lap}\n", True),  # stages 4-5
+        ("  // the store: chunks t + 8k", f"  {lap}\n", False),  # stage 6 and the twiddle
+    ]
+    for anchor, add, after in edits:
+        if body.count(anchor) != 1:
+            raise SystemExit(f"cmux_mxu_timing: the row kernel changed near {anchor.strip()!r}")
+        body = body.replace(anchor, anchor + add if after else add + anchor)
+    body = body.rstrip()
+    if not body.endswith("}"):
+        raise SystemExit("cmux_mxu_timing: the row kernel's end moved")
+    body = body[:-1] + f"  {lap}\n  {timer.format('Max', 1)}\n}}\n\n"
+    text = pre + body + post
+    text = text.replace("namespace {\n", "__device__ long long pft_split_stamps[3][16];\n"
+                        "__device__ unsigned long long pft_split_gt[3][2] = "
+                        "{{~0ull, 0ull}, {~0ull, 0ull}, {~0ull, 0ull}};\nnamespace {\n", 1)
+    reader = ("int pft_read_split(int kind, void* stamps, void* gt) {\n"
+              "  cudaError_t e = cudaMemcpyFromSymbol(stamps, pft_split_stamps, 128, kind * 128);\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_split_gt, 16, kind * 16);\n"
+              "  const unsigned long long reset[2] = {~0ull, 0ull};\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(pft_split_gt, reset, 16, kind * 16);\n"
+              "  return (int)e;\n}\n")
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + reader, 1)
+    src.write_text(text)
+
+
+SPLIT_PHASES = {0: ("load", "table wait", "pass A (stages 0-2)", "to the slice",
+                    "pass B (stages 3-6), back to the slice", "from the slice", "store"),
+                1: ("load + key", "table wait", "(no pass A)", "to the slice",
+                    "pass A' (stages 0-3), back to the slice", "from the slice + stages 4-5",
+                    "twiddle loads + stage 6", "store")}
+SPLIT_PHASES[2] = SPLIT_PHASES[1]
+
+
+def split_stamps(torch, dev) -> dict:
+    """In a ``--split --phases`` copy (:func:`stamp_split`): block 0's
+    cycles per phase of the row kernel's last launch at each shape, and the
+    launch's span on the device beside its event-timed device ms."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build
+
+    read = build.library().pft_read_split
+    read.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    out = {}
+    for (name, label), (fn, _, _) in split_calls(torch, dev).items():
+        if name not in SPLIT_KIND:
+            continue
+        kind = SPLIT_KIND[name]
+        ms = device_ms(torch, fn)
+        stamps = (ctypes.c_longlong * 16)()
+        gt = (ctypes.c_ulonglong * 2)()
+        build.check(read(kind, ctypes.addressof(stamps), ctypes.addressof(gt)), "pft_read_split")
+        fn()
+        torch.cuda.synchronize()
+        build.check(read(kind, ctypes.addressof(stamps), ctypes.addressof(gt)), "pft_read_split")
+        laps = list(stamps)
+        names = SPLIT_PHASES[kind]
+        row = dict(zip(names, [laps[i + 1] - laps[i] for i in range(len(names))]))
+        row.update(total_cycles=laps[len(names)] - laps[0], span_ns=gt[1] - gt[0], event_ms=ms)
+        out[f"{name}@{label}"] = row
+    return out
+
+
+def split_grids(torch, dev) -> dict:
+    """In a ``--split --grids`` copy (:func:`stamp_split`): the row kernel's
+    device ms at each shape on the launch's own tile and on every tile of
+    :data:`SPLIT_TILES` rows, every tile's words checked against the own
+    tile's."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build
+
+    lib = build.library()
+    lib.pft_split_force_tile.argtypes = [ctypes.c_int]
+    out = {}
+    for (name, label), (fn, bound_ms, _) in split_calls(torch, dev).items():
+        if name not in SPLIT_KIND:
+            continue
+        lib.pft_split_force_tile(0)
+        want = fn()
+        row = {"own": lib.pft_split_used_tile(), "own_ms": device_ms(torch, fn),
+               "bound_ms": bound_ms}
+        for tile in SPLIT_TILES:
+            lib.pft_split_force_tile(tile)
+            if not torch.equal(fn(), want):
+                raise SystemExit(f"{name}@{label} tile {tile}: words differ")
+            row[f"tile{tile}"] = device_ms(torch, fn)
+        lib.pft_split_force_tile(0)
+        out[f"{name}@{label}"] = row
+    return out
 
 
 def stamp_passes(src: Path, tag: str, edits: list) -> None:
@@ -831,13 +1106,16 @@ def rotations(torch, dev) -> dict:
 
 
 def run_here(stamps: bool, ntt_only: bool = False, ntt32_only: bool = False,
-             ntt64_only: bool = False) -> dict:
+             ntt64_only: bool = False, split_only: bool = False) -> dict:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("cmux_mxu_timing: needs a CUDA card")
     dev = torch.device("cuda", 0)
     result = {"root": str(Path(sys.path[0]).resolve()), "card": card()}
+    if split_only:
+        result["split"] = split_times(torch, dev)
+        return result
     if ntt32_only:
         result["ntt32"] = ntt32_times(torch, dev)
         return result
@@ -1246,11 +1524,20 @@ def main() -> None:
     ap.add_argument("--ntt", action="store_true", help="the u64 transforms only")
     ap.add_argument("--ntt32", action="store_true", help="kernels 1-2 and the NTT-key step only")
     ap.add_argument("--ntt64", action="store_true", help="row 10's butterfly kernels only")
+    ap.add_argument("--split", action="store_true", help="row 13's four halves only")
     ap.add_argument("--grids", action="store_true", help="the byte-radix kernels on every grid")
     ap.add_argument("--stamps", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
+        if args.stamps and args.split:
+            import torch
+
+            dev = torch.device("cuda", 0)
+            res = ({"cycles": split_stamps(torch, dev)} if args.phases
+                   else {"tiles": split_grids(torch, dev)})
+            print(json.dumps(res), flush=True)
+            return
         if args.stamps and (args.ntt32 or args.ntt64):
             import torch
 
@@ -1268,9 +1555,23 @@ def main() -> None:
                    else {"cycles": {**kernel_stamps(torch), **rt_stamps(torch)}})
             print(json.dumps(res), flush=True)
             return
-        print(json.dumps(run_here(args.stamps, args.ntt, args.ntt32, args.ntt64)), flush=True)
+        print(json.dumps(run_here(args.stamps, args.ntt, args.ntt32, args.ntt64, args.split)),
+              flush=True)
         return
     print(card(), flush=True)
+    if args.split and (args.grids or args.phases):
+        root = HERE / ".proof" / f"split_{'tiles' if args.grids else 'phases'}"
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(HERE / "primus_fhe_tpu_torch", root / "primus_fhe_tpu_torch",
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        stamp_split(root / "primus_fhe_tpu_torch" / "csrc" / "ntt_mxu8_split.cu", args.phases)
+        res = subprocess_run(root, "--stamps", "--split",
+                             "--phases" if args.phases else "--grids")
+        for key, row in res["cycles" if args.phases else "tiles"].items():
+            print(key, json.dumps(row), flush=True)
+        res["card"] = card()
+        print(json.dumps(res), flush=True)
+        return
     if (args.ntt32 or args.ntt64) and (args.grids or args.phases):
         tag = "ntt32" if args.ntt32 else "ntt64"
         root = HERE / ".proof" / f"{tag}_{'tiles' if args.grids else 'phases'}"
@@ -1321,11 +1622,12 @@ def main() -> None:
         return
     if args.compare is None:
         sys.path.insert(0, str(HERE))
-        print(json.dumps(run_here(False, args.ntt, args.ntt32, args.ntt64)), flush=True)
+        print(json.dumps(run_here(False, args.ntt, args.ntt32, args.ntt64, args.split)),
+              flush=True)
         return
     runs = []
     extra = (("--ntt",) if args.ntt else ("--ntt32",) if args.ntt32 else ("--ntt64",)
-             if args.ntt64 else ())
+             if args.ntt64 else ("--split",) if args.split else ())
     for side, root in (("old", args.compare), ("new", HERE), ("new", HERE), ("old", args.compare)):
         res = subprocess_run(root, *extra)
         res["side"] = side
@@ -1349,7 +1651,22 @@ def main() -> None:
         } for label, *_ in D_SHAPES}
     host = mean("ntt", lambda r: {f"{k}:{part}": us for k, v in r["ntt"].items()
                                   for part, us in v.get("host", {}).items()})
-    summary = {"card": runs[0]["card"], "mean_ntt_ms": ntt, "mean_host_us": host,
+    split = mean("split", lambda r: {k: v["ms"] for k, v in r["split"].items()})
+    if split:  # the table's ratios: new / old, the new run's share of the bound; the trips' busy ms
+        split["host_us"] = {side: {k: [(r["split"][k]["queued_us"], r["split"][k]["idle_us"])
+                                       for r in runs if r["side"] == side]
+                                   for k in runs[0]["split"] if "idle_us" in runs[0]["split"][k]}
+                            for side in ("old", "new")}
+        for field in ("device_ms", "enqueue_ms"):
+            split[field] = {side: {k: [r["split"][k].get(field) for r in runs
+                                       if r["side"] == side]
+                                   for k in runs[0]["split"] if k.startswith("sharded")}
+                            for side in ("old", "new")}
+        split["new_over_old"] = {k: split["new"][k] / split["old"][k] for k in split["new"]}
+        split["share_new"] = {k: runs[1]["split"][k]["bound_ms"] / split["new"][k]
+                              for k in split["new"] if "bound_ms" in runs[1]["split"][k]}
+    summary = {"card": runs[0]["card"], "mean_split_ms": split, "mean_ntt_ms": ntt,
+               "mean_host_us": host,
                "mean_ntt32_ms": mean("ntt32", lambda r: {k: v["ms"] for k, v in r["ntt32"].items()}),
                "mean_ntt64_ms": mean("ntt64", lambda r: {k: v["ms"] for k, v in r["ntt64"].items()}),
                "mean_roundtrip_ms": mean("roundtrip", lambda r: {

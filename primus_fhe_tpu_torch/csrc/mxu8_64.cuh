@@ -1,7 +1,7 @@
 // The u64 tiers (7 and 8 byte planes, q < 2^62) of the byte-radix four-step
 // NTT: the fold of the plane sums to one u64 word and the shared-memory
 // geometry of a row group, shared by ntt_mxu8.cu (the fused transforms and
-// kernel D) and ntt_mxu8_split.cu (the four half-transforms of the
+// kernel D) and ntt_mxu8_split.cu (the column halves K1 and Ki2 of the
 // coefficient-sharded NTT).
 //
 // Each plane sum is exact in int32 (|d_c| < 1024 * 255 * 128 < 2^25), but
@@ -13,8 +13,6 @@
 
 #include "modarith64.cuh"
 #include "mxu8.cuh"
-
-constexpr int LDA64 = 8 * PFT_MXU_B + 16;  // bytes per 128-word row, +16 against bank conflicts
 
 template <int P>
 __device__ __forceinline__ uint64_t fold_planes(const int (&d)[P], const Mod64& c) {

@@ -476,20 +476,6 @@ inline size_t rt_smem_bytes(int log_n, int tile) {
          sizeof(uint64_t) * ((size_t)tile << log_n);
 }
 
-// A tile's rows of any u64 words from device memory, each word reduced to
-// [0, 2q) as it loads (a lazy Shoup multiply by 1, p1 = floor(2^64 / q)).
-struct AnyIn64 {
-  const uint64_t* p;
-  int log_n;
-  uint64_t q, p1;
-  template <int G>
-  __device__ __forceinline__ void load(int row, int base, int ls, uint64_t (&v)[G]) const {
-    const uint64_t* r = p + ((size_t)row << log_n) + base;
-#pragma unroll
-    for (int k = 0; k < G; ++k) v[k] = shoup64_lazy(Word<uint64_t>::ldg(r + (k << ls)), 1, p1, q);
-  }
-};
-
 // The inverse's first pass's load in kernel E: the group's 2^R adjacent
 // words from the shared-memory rows, the forward's last pass on them (its
 // group is the same 2^R words) and the key multiply.

@@ -1,6 +1,8 @@
 // Radix-8 register passes of the negacyclic NTT on u32 or u64 words, shared
-// by kernels 1-2 (csrc/ntt32.cu), the CMux step kernel (csrc/cmux_fused.cu)
-// and row 10's u64 kernels (csrc/ntt64.cu).
+// by kernels 1-2 (csrc/ntt32.cu), the CMux step kernel (csrc/cmux_fused.cu),
+// row 10's u64 kernels and kernel E (csrc/ntt64.cu), and row 13's row
+// halves K2 and Ki1 (csrc/ntt_mxu8_split.cu: the 128-point cyclic transform,
+// from the same butterflies and table layout).
 //
 // A pass runs R <= 3 butterfly stages on groups of 2^R words: each thread
 // holds a group in registers through its R stages, so a transform of
@@ -169,10 +171,29 @@ __device__ __forceinline__ void fwd_stages(W (&v)[1 << R], TW tw, W q) {
   }
 }
 
-// Forward twiddles of a group at stages s0 .. s0+R-1 from a root table and
-// its Shoup quotients (16-byte aligned): stage e's 2^e roots are the run at
-// 2^(s0+e) + hi 2^e, read in one access (two for 4 u64 roots); w[2^e + j]
-// is block j's.
+// Gentleman-Sande stages 0 .. E-1 of the R on the 2^R words v of one radix
+// group (all R by default; E = R - 1 where the caller runs the last stage
+// itself): fwd_stages mirrored, stage e pairing slots k, k + 2^e;
+// tw(e, j, w, wp) gives the twiddle of block j at stage e.
+template <int R, int E = R, class TW, class W>
+__device__ __forceinline__ void inv_stages(W (&v)[1 << R], TW tw, W q) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int h = 1 << e;
+#pragma unroll
+    for (int k = 0; k < (1 << R); ++k)
+      if (!(k & h)) {
+        W w, wp;
+        tw(e, k >> (e + 1), w, wp);
+        inv_bf(v[k], v[k + h], w, wp, q);
+      }
+  }
+}
+
+// Forward twiddles of a group at stages s0 .. s0+R-1 (R <= 4) from a root
+// table and its Shoup quotients (16-byte aligned): stage e's 2^e roots are
+// the run at 2^(s0+e) + hi 2^e, read in one access (two for 4 u64 roots,
+// four for 8); w[2^e + j] is block j's.
 template <class W>
 struct FwdTable {
   const W* w;
@@ -193,6 +214,13 @@ struct FwdTable {
       load_words(wp + (4 << s0) + 4 * hi, b);
 #pragma unroll
       for (int j = 0; j < 4; ++j) tw[4 + j] = a[j], twp[4 + j] = b[j];
+    }
+    if constexpr (R > 3) {
+      W a[8], b[8];
+      load_words(w + (8 << s0) + 8 * hi, a);
+      load_words(wp + (8 << s0) + 8 * hi, b);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) tw[8 + j] = a[j], twp[8 + j] = b[j];
     }
   }
 };
@@ -233,6 +261,30 @@ template <class W>
 InvTable(const W*, const W*) -> InvTable<W>;
 template <class W>
 InvTable(const W*, const W*, int) -> InvTable<W>;
+
+// Rows of any u64 words in device memory (row `row` at p + row 2^log_n),
+// each word brought to [0, 2q) as it loads by a lazy Shoup multiply by 1
+// (p1 = floor(2^64 / q)): a pass's group of G words at stride 2^ls (load),
+// or G adjacent words from a 16-byte aligned word in 16-byte accesses
+// (load_adjacent).  Kernel E (csrc/ntt64.cu) and row 13's K2 and Ki1
+// (csrc/ntt_mxu8_split.cu) take any u64 word so.
+struct AnyIn64 {
+  const uint64_t* p;
+  int log_n;
+  uint64_t q, p1;
+  template <int G>
+  __device__ __forceinline__ void load(int row, int base, int ls, uint64_t (&v)[G]) const {
+    const uint64_t* r = p + ((size_t)row << log_n) + base;
+#pragma unroll
+    for (int k = 0; k < G; ++k) v[k] = shoup64_lazy(Word<uint64_t>::ldg(r + (k << ls)), 1, p1, q);
+  }
+  template <int G>
+  __device__ __forceinline__ void load_adjacent(int row, int base, uint64_t (&v)[G]) const {
+    load_words(p + ((size_t)row << log_n) + base, v);
+#pragma unroll
+    for (int k = 0; k < G; ++k) v[k] = shoup64_lazy(v[k], 1, p1, q);
+  }
+};
 
 // Rows of 2^log_n u32 words in shared memory, slot c of row r at word
 // r 2^log_n + SW::at(c): the group access of a pass.

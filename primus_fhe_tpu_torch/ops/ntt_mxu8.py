@@ -68,6 +68,7 @@ import torch
 from ..modular.factor import ShoupFactor64, factor_mul64, factor_mul_lazy64
 from ..numeric.limb import narrow_u32, u64_numpy, u64_tensor, widen_u32
 from ..transforms.plan import _quot64
+from ..utils.bits import reverse_lsbs
 from . import build
 from .cmux_mxu import LANES, _balanced_digits, kernel_layout
 from .mxu_common import four_step_matrices
@@ -150,6 +151,29 @@ def _precon64(m) -> np.ndarray:
     return np.asarray([int(v) for v in np.ravel(m)], dtype=np.uint64).reshape(np.shape(m))
 
 
+def cyclic_tables(om_b: int, q: int) -> tuple[np.ndarray, np.ndarray]:
+    """The root tables of the 128-point cyclic transform on ``om_b`` (a
+    primitive 128th root mod ``q``) in the radix passes' layout
+    (``csrc/ntt_passes.cuh``), each ``(2, 128)`` u64: the roots, then their
+    Shoup quotients; word 0 unused (0).
+
+    - forward (Cooley-Tukey stages 0-6, natural in, bit-reversed out: pass
+      2's ``m2[r1, k0] = om_b^(brv7(r1) k0)``): stage ``s``'s block ``k`` at
+      ``[2^s + k]`` = ``om_b^brv6(k)``;
+    - inverse (Gentleman-Sande stages 0-6, bit-reversed in, natural out, no
+      ``1/128``: inverse pass 1's ``m2i``): stage ``s``'s block ``j`` at
+      ``[129 - (128 >> s) + j]`` = ``om_b^-brv6(j)``.
+    """
+    om_i = pow(om_b, -1, q)
+    fwd, inv = [0] * LANES, [0] * LANES
+    for s in range(7):
+        for k in range(1 << s):
+            fwd[(1 << s) + k] = pow(om_b, reverse_lsbs(k, 6), q)
+        for j in range(64 >> s):
+            inv[LANES + 1 - (LANES >> s) + j] = pow(om_i, reverse_lsbs(j, 6), q)
+    return tuple(np.array([t, [_quot64(v, q) for v in t]], dtype=np.uint64) for t in (fwd, inv))
+
+
 class Mxu8NttPlan64:
     """Byte-radix four-step plan of one modulus ``q < 2^62`` at ``8 <= log_n
     <= 14``: ``A = n / 128`` rows by ``B = 128`` lanes (the JAX plan's
@@ -163,7 +187,10 @@ class Mxu8NttPlan64:
     ``w1f, w2f, w1mf, w2mf`` (P operand planes).  ``tw``/``twi`` are the
     twiddles ``(A, B)`` with their Shoup quotients, and ``mats`` the four
     pass matrices ``m1 (r0, k1)``, ``m2 (r1, k0)``, ``m2i (k0, r1)``, ``m1i
-    (k1, r0)`` (rows out, columns in) as u64 words.
+    (k1, r0)`` (rows out, columns in) as u64 words.  ``cyclic`` and
+    ``cyclic_inv`` are pass 2's and inverse pass 1's 128-point cyclic
+    transforms as butterfly root tables (:func:`cyclic_tables`, on ``m2``'s
+    root ``om_b = m2[brv7(1), 1]``): row 13's K2 and Ki1 run them.
     """
 
     def __init__(self, log_n: int, q: int, planes: int | None = None, root: int | None = None):
@@ -189,6 +216,7 @@ class Mxu8NttPlan64:
         quot = np.vectorize(lambda v: _quot64(int(v), self.q), otypes=[object])
         self.tw_p = _precon64(quot(fs["tw"]))
         self.twi_p = _precon64(quot(fs["twi"]))
+        self.cyclic, self.cyclic_inv = cyclic_tables(int(fs["m2"][LANES // 2, 1]), self.q)
 
     def jax_tables(self) -> dict:
         """The JAX plan's ``w1f, w2f, w1mf, w2mf`` (``P`` operand planes)."""
@@ -261,12 +289,13 @@ class Mxu8Tables64:
 
     def kernel_tables(self, device) -> dict:
         """``w1, w2, wi1, wi2`` (int8, kernel layout: columns ``(k, l)``,
-        stacked over moduli; row 13 reads them), ``w1s, w2s``
-        (``w1``/``w2`` in the forward kernel's stream order,
+        stacked over moduli; row 13's K1 and Ki2 read ``w1`` and ``wi2``),
+        ``w1s, w2s`` (``w1``/``w2`` in the forward kernel's stream order,
         :func:`forward_stream_tables`), ``wi1s, wi2s`` (``wi1``/``wi2`` in
-        the inverse kernel's, :func:`inverse_stream_tables`) and ``tw
-        (count, 4, n)`` = tw, its quotient, twi, its quotient (u64 patterns
-        in int64)."""
+        the inverse kernel's, :func:`inverse_stream_tables`), ``tw (count,
+        4, n)`` = tw, its quotient, twi, its quotient, and ``cyclic``,
+        ``cyclic_inv`` ``(count, 2, 128)`` (:func:`cyclic_tables`, row 13's
+        K2 and Ki1) (u64 patterns in int64)."""
         device = torch.device(device)
         if device not in self._kernel_on:
             P, A, B = self.planes, self.A, self.B
@@ -284,6 +313,8 @@ class Mxu8Tables64:
             tabs = {name: torch.from_numpy(np.ascontiguousarray(arr)).to(device)
                     for name, arr in lay.items()}
             tabs["tw"] = u64_tensor(tw, device)
+            for name in ("cyclic", "cyclic_inv"):
+                tabs[name] = u64_tensor(np.stack([getattr(p, name) for p in self.plans]), device)
             self._kernel_on[device] = tabs
         return self._kernel_on[device]
 

@@ -40,7 +40,9 @@ and take any u64 word.
 CPU tensors take the plain versions (exact modular matrix products on the
 plan's pass matrices, :meth:`.ntt_mxu8.Mxu8Tables64.pass_matrices`), CUDA
 tensors the kernels of ``csrc/ntt_mxu8_split.cu``, where their design and
-bounds are stated.
+bounds are stated: K1 and Ki2 on the byte planes ``w1`` / ``wi2``, K2 and
+Ki1 as butterflies (each row's 128-point cyclic transform on the root
+tables ``cyclic`` / ``cyclic_inv``, :func:`.ntt_mxu8.cyclic_tables`).
 """
 
 from __future__ import annotations
@@ -191,7 +193,7 @@ def split_k2(tables: Mxu8Tables64, values: torch.Tensor):
     _check(split_k2, tables, values, (None, tables.B))
     if values.device.type == "cpu":
         return split_k2_plain(tables, values)
-    return _launch(split_k2, "pft_ntt_mxu8_split_k2", tables, values, "w2", (),
+    return _launch(split_k2, "pft_ntt_mxu8_split_k2", tables, values, "cyclic", (),
                    (values.shape[1],))
 
 
@@ -211,7 +213,8 @@ def split_ki1(tables: Mxu8Tables64, values: torch.Tensor, batch: int, r0_off: in
     if values.device.type == "cpu":
         return split_ki1_plain(tables, values, batch, r0_off, mul_rows)
     key = () if mul_rows is None else (mul_rows.data_ptr(),)
-    return _launch(split_ki1, "pft_ntt_mxu8_split_ki1", tables, values, "wi1", key or (None,),
+    return _launch(split_ki1, "pft_ntt_mxu8_split_ki1", tables, values, "cyclic_inv",
+                   key or (None,),
                    (values.shape[1], batch, r0_off))
 
 

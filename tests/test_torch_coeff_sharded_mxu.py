@@ -14,9 +14,11 @@ its half-transforms ``ops/ntt_mxu8_split.py``), and the tiled
   single-card ``mxu8_forward64``/``mxu8_inverse64``/``mxu8_inverse64_mul``
   plain versions (already held to the JAX);
 - a numpy model of the four kernels' data flow on the kernel-layout tables
-  (the csrc's byte planes, fold and Shoup twiddle) against the plain halves,
-  shard offsets and the key included: K2 and Ki2 word-equal, K1 and Ki1
-  below 2q and equal mod q (the lazy-word rule of ``ops/ntt_mxu8_split.py``);
+  (K1 and Ki2: the csrc's byte planes, fold and Shoup twiddle; K2 and Ki1:
+  the butterfly kernel's model, ``test_torch_split_rows_model.py``) against
+  the plain halves, shard offsets and the key included: K2 and Ki2
+  word-equal, K1 and Ki1 below 2q and equal mod q (the lazy-word rule of
+  ``ops/ntt_mxu8_split.py``);
 - the layout converters against the JAX's.
 
 Tolerance: zero (exact integers).
@@ -37,6 +39,7 @@ from primus_fhe_tpu_torch.ops import ntt_mxu8, ntt_mxu8_split as split
 from primus_fhe_tpu_torch.parallel import coeff_sharded_mxu as csm
 from primus_fhe_tpu_torch.parallel.mesh import LocalMesh, shard, unshard
 from test_torch_ntt64 import _bytes64, _canonical, _consts, _planes64, _shoup
+from test_torch_split_rows_model import model_rows
 
 LOG_N, BATCH = 10, 8
 Q50 = 1125899906629633  # 7 planes, not a Solinas prime
@@ -175,9 +178,9 @@ def test_layout_converters_match_jax():
 
 
 def _model(tables, kind, x, batch=1, off=0, key=None):
-    """``split_col64_kernel`` (K1, Ki2) or ``split_row64_kernel`` (K2, Ki1)
-    of ``csrc/ntt_mxu8_split.cu`` on one modulus: ``x (A, L)`` or ``(rows,
-    128)`` u64 -> the kernel's words."""
+    """``split_col64_kernel`` (K1, Ki2) or ``split_row_kernel`` (K2, Ki1) of
+    ``csrc/ntt_mxu8_split.cu`` on one modulus: ``x (A, L)`` or ``(rows,
+    128)`` u64 (``key (2, rows / batch * 128)`` u64) -> the kernel's words."""
     tabs = {k: v.numpy() for k, v in tables.kernel_tables("cpu").items()}
     P, A, B = tables.planes, tables.A, tables.B
     c = _consts(tables, 0)
@@ -189,15 +192,7 @@ def _model(tables, kind, x, batch=1, off=0, key=None):
             return _canonical(y, c)
         k0 = off + np.arange(x.shape[1]) // batch
         return _shoup(y, tw[0][:, k0], tw[1][:, k0], c["q"])
-    if key is not None:
-        idx = (np.arange(x.shape[0]) // batch)[:, None] * B + np.arange(B)
-        x = _shoup(x.astype(object), key[0][idx], key[1][idx], c["q"]).astype(np.uint64)
-    w = tabs["w2" if kind == "k2" else "wi1"][0]
-    y = _planes64(_bytes64(x, 8 * B), w, P, B, B, c)  # (rows, B)
-    if kind == "k2":
-        return _canonical(y, c)
-    r0 = off + np.arange(x.shape[0]) // batch
-    return _shoup(y, tw[2][r0], tw[3][r0], c["q"])
+    return model_rows(tables, kind, x[None], 8, batch, off, None if key is None else key[None])[0]
 
 
 def _lazy_equal(model, plain, q):
@@ -220,7 +215,7 @@ def test_split_kernel_model_matches_plain(log_n, q, d, index):
     key = rng.integers(0, q, (1, 1 << log_n), dtype=np.uint64)
     mt = tables.mul_table(u64_tensor(key))
     mul_rows = mt.reshape(1, 2, A, B)[:, :, r0_off:r0_off + A // d].reshape(1, 2, -1).contiguous()
-    kr = u64_numpy(mul_rows[0]).astype(object)
+    kr = u64_numpy(mul_rows[0]).astype(np.uint64)
 
     k1 = split.split_k1(tables, u64_tensor(lanes)[None], batch, k0_off)
     _lazy_equal(_model(tables, "k1", lanes, batch, k0_off), u64_numpy(k1[0]), q)

@@ -661,12 +661,26 @@ def _lazy_equal(got, plain, q):
     assert torch.equal(reduce_once64(got, q), plain)
 
 
-@pytest.mark.parametrize("log_n,q", [(8, Q50[0]), (12, Q50[1]), (8, Q60), (12, Q60)])
-def test_split_kernels_match_plain(dev, log_n, q):
+def _word_extremes(x, q):
+    """``x`` with its first words set to 0, q - 1, q, 2q, 4q - 1 and 2^64 - 1
+    (int64 bit patterns), where it holds that many."""
+    flat = x.view(-1)
+    vals = [0, q - 1, q, 2 * q, 4 * q - 1, (1 << 64) - 1]
+    vals = [v - (1 << 64) if v >= 1 << 63 else v for v in vals][:flat.numel()]
+    flat[:len(vals)] = torch.tensor(vals, dtype=torch.int64, device=x.device)
+    return x
+
+
+@pytest.mark.parametrize("log_n,q,batches", [
+    (8, Q50[0], (1, 3, 64)), (12, Q50[1], (1, 3, 64)), (8, Q60, (1, 3, 64)),
+    (12, Q60, (1, 3, 64)), (12, Q50[0], (512,))])
+def test_split_kernels_match_plain(dev, log_n, q, batches):
     """Row 13's K1, K2, Ki1 (with and without the key) and Ki2 on shard
-    ``d - 1`` of D = 1, 2, 4 (where D divides A = n / 128), batch 3 and 64:
-    K2 and Ki2 bit-equal to their plain versions, K1 and Ki1 by the lazy
-    rule; each launch counted once."""
+    ``d - 1`` of D = 1, 2, 4 (where D divides A = n / 128), at each batch
+    (1 and 3 give ragged row counts: 1, 3, 8, 24 rows; 512 at log_n 12 is
+    phase 16's product, 8192 rows at D = 2), the word extremes 0, q, 2q, 4q
+    - 1 and 2^64 - 1 in: K2 and Ki2 bit-equal to their plain versions, K1
+    and Ki1 by the lazy rule; each launch counted once."""
     from primus_fhe_tpu_torch.ops import ntt_mxu8_split as split
     from primus_fhe_tpu_torch.parallel.coeff_sharded_mxu import get_sharded_plan
 
@@ -678,9 +692,9 @@ def test_split_kernels_match_plain(dev, log_n, q):
         if A % d:
             continue
         k0_off, r0_off = plan.offsets(d, d - 1)
-        for batch in (3, 64):
-            lanes = _u64_words(gen, (1, A, B // d * batch), dev)
-            rows = _u64_words(gen, (1, A // d * batch, B), dev)
+        for batch in batches:
+            lanes = _word_extremes(_u64_words(gen, (1, A, B // d * batch), dev), q)
+            rows = _word_extremes(_u64_words(gen, (1, A // d * batch, B), dev), q)
             key = mt.reshape(1, 2, A, B)[:, :, r0_off:r0_off + A // d].reshape(1, 2, -1)
             key = key.contiguous()
             for fn in (split.split_k1, split.split_k2, split.split_ki1, split.split_ki2):
