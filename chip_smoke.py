@@ -84,9 +84,13 @@ non-zero):
     card, so the multi-shard runs use ``LocalMesh``);
 15. the coefficient-sharded NTT on ``LocalMesh``es: u32 at n = 2^12, q =
     536813569, batch 8 over D = 2, 4, 8 against kernels 1-2, u64 at n = 2^16,
-    q = 4611686018425815041, 2 rows over D = 4 against the plain forward64,
-    both round trips, one stage launch a shard a transform; the four stage
-    kernels (row 11) against their plain versions at those shapes;
+    q = 4611686018425815041, 2 rows over D = 4 and 2 (rows of 2^14 and 2^15
+    words a shard) against the plain forward64, both round trips, one stage
+    launch a shard a transform; the four stage kernels (row 11) against their
+    plain versions at those shapes (the u64 pair at both shards, with the
+    cluster size and rows a block each launch picks); 15.3: the u64 forward +
+    inverse trip at D = 4 and 2 timed over 20 chained trips, with its host
+    ops, the card's busy time with the host ahead and the idle share;
 16. row 13, the coefficient-sharded byte-radix NTT (four half-transform
     kernels around one ``all_to_all``) at ``bench_coeff_sharded_mxu.py``'s
     shape (n = 4096, batch 64, q = 2^50 - 2^14 + 1): the sharded forward at
@@ -787,7 +791,9 @@ def phase13_front(torch, dev, table, conv, basis, key0, counted) -> dict:
 SHARD_MESH = (2, 2)  # phase 14: (residue, batch), one modulus and 8 ciphertexts a shard
 NCCL_BACKEND = "nccl"
 CS_Q32, CS_LOG_N32, CS_ROWS32, CS_SHARDS32 = 536813569, 12, 8, (2, 4, 8)  # bench_coeff_sharded.py
-CS_SHARDS64 = 4  # phase 15's u64 shape: phase 12's n = 2^16 and LARGE_Q over 4 shards
+CS_SHARDS64 = (4, 2)  # phase 15's u64 shape: phase 12's n = 2^16 and LARGE_Q over 4 and 2 shards
+CS_TRIPS = 20  # 15.3: chained forward + inverse trips timed
+QUEUED_OPS = 1000  # host ops queued behind one sleep: more fill the launch queue and block the host
 
 
 def _free_port() -> int:
@@ -955,15 +961,16 @@ def phase15_coeff(torch, dev, table) -> dict:
         f = cs.coeff_sharded_forward32(mesh, "residue", CS_LOG_N32, q32, shard(mesh, x32, spec))
         back = cs.coeff_sharded_inverse32(mesh, "residue", CS_LOG_N32, q32, f)
         outs[32, d] = unshard(mesh, f, spec), unshard(mesh, back, spec)
-    mesh = LocalMesh(CS_SHARDS64, 1, dev)
-    f = cs.coeff_sharded_forward64(mesh, "residue", LARGE_LOG_N, q64, shard(mesh, x64, spec))
-    back = cs.coeff_sharded_inverse64(mesh, "residue", LARGE_LOG_N, q64, f)
-    outs[64, CS_SHARDS64] = unshard(mesh, f, spec), unshard(mesh, back, spec)
+    for d in CS_SHARDS64:
+        mesh = LocalMesh(d, 1, dev)
+        f = cs.coeff_sharded_forward64(mesh, "residue", LARGE_LOG_N, q64, shard(mesh, x64, spec))
+        back = cs.coeff_sharded_inverse64(mesh, "residue", LARGE_LOG_N, q64, f)
+        outs[64, d] = unshard(mesh, f, spec), unshard(mesh, back, spec)
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in kernels.items()}
     log(f"launches: {json.dumps(counts)}")
     want = {"ntt32_stages_forward": sum(CS_SHARDS32), "ntt32_stages_inverse": sum(CS_SHARDS32),
-            "ntt64_stages_forward": CS_SHARDS64, "ntt64_stages_inverse": CS_SHARDS64}
+            "ntt64_stages_forward": sum(CS_SHARDS64), "ntt64_stages_inverse": sum(CS_SHARDS64)}
     if counts != want:
         raise AssertionError(f"stage launch counts {counts}, want {want} (one a shard a transform)")
     inv32 = ntt32.inverse32(single, want32[None])[0]
@@ -975,7 +982,8 @@ def phase15_coeff(torch, dev, table) -> dict:
             raise AssertionError(f"u{bits} D={d}: the sharded round trip does not return the input")
     log(f"u32 n=2^{CS_LOG_N32} q={q32} batch {CS_ROWS32}, D = {CS_SHARDS32}: forward equal to "
         f"forward32 (kernel 1), inverse returns the input as inverse32 (kernel 2) does; u64 "
-        f"n=2^{LARGE_LOG_N} q={q64} {LARGE_ROWS} rows, D = {CS_SHARDS64}: forward equal to the plain "
+        f"n=2^{LARGE_LOG_N} q={q64} {LARGE_ROWS} rows, D = {CS_SHARDS64} (rows of 2^"
+        f"{LARGE_LOG_N - 2} and 2^{LARGE_LOG_N - 1} words a shard): forward equal to the plain "
         f"forward64, round trip returns the input; launches exact (one a shard a transform)")
 
     log("-- 15.2: the stage kernels vs plain versions (bit-equal), shard 1's tables")
@@ -988,37 +996,74 @@ def phase15_coeff(torch, dev, table) -> dict:
     xf = torch.randint(0, 4 * q32, (CS_ROWS32, width), generator=g, device=dev)
     xi = torch.randint(0, 2 * q32, (CS_ROWS32, width), generator=g, device=dev)
     xf32, xi32 = xf.to(torch.int32), xi.to(torch.int32)
-    b32 = bound(4 * 2 * CS_ROWS32 * width + 4 * 2 * log_w * width,
-                muls32=ntt_muls(CS_ROWS32, width))
+    # the tables' entries each function reads: the forward both lanes' (w and
+    # its quotient, 8 bytes a lane a stage), the inverse the y lanes' only
+    b32f, b32i = (bound(4 * 2 * CS_ROWS32 * width + lanes * 8 * log_w,
+                        muls32=ntt_muls(CS_ROWS32, width)) for lanes in (width, width // 2))
     compare_kernel(torch, table, "ntt32_stages_forward", CS_ROWS32,
                    lambda: st.ntt32_stages_forward(log_w, q32, w, p, xf),
                    lambda: st.ntt32_stages_forward(log_w, q32, w32, p32, xf32),
-                   lambda: st.ntt32_stages_forward_plain(log_w, q32, w, p, xf), b32)
+                   lambda: st.ntt32_stages_forward_plain(log_w, q32, w, p, xf), b32f)
     compare_kernel(torch, table, "ntt32_stages_inverse", CS_ROWS32,
                    lambda: st.ntt32_stages_inverse(log_w, q32, wi, pi, xi),
                    lambda: st.ntt32_stages_inverse(log_w, q32, wi32, pi32, xi32),
-                   lambda: st.ntt32_stages_inverse_plain(log_w, q32, wi, pi, xi), b32)
-    log_d, width = CS_SHARDS64.bit_length() - 1, n64 // CS_SHARDS64
-    log_w, cols = LARGE_LOG_N - log_d, slice(width, 2 * width)
-    w, p = (t[log_d:, cols].to(dev) for t in cs.build_expanded_tables64(LARGE_LOG_N, q64))
-    wi, pi = (t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables64(LARGE_LOG_N, q64))
-    words = torch.randint(-(1 << 63), (1 << 63) - 1, (2, LARGE_ROWS, width), generator=g,
-                          device=dev)
-    xf, xi = mul_hi_u64(words[0], 4 * q64), mul_hi_u64(words[1], 2 * q64)  # [0, 4q), [0, 2q)
-    b64 = bound(8 * 2 * LARGE_ROWS * width + 8 * 2 * log_w * width,
-                muls32=ntt_muls(LARGE_ROWS, width, u64=True))
-    log(f"u64 shard: 2^{log_w} words a row, tables {2 * log_w * width * 8 / 1e6:.2f} MB; the "
-        f"forward {'defers' if st.defers64(log_w, q64) else 'does not defer'} its reductions")
-    compare_kernel64(torch, table, "ntt64_stages_forward", LARGE_ROWS,
-                     lambda: st.ntt64_stages_forward(log_w, q64, w, p, xf),
-                     lambda: st.ntt64_stages_forward_plain(log_w, q64, w, p, xf), b64)
-    compare_kernel64(torch, table, "ntt64_stages_inverse", LARGE_ROWS,
-                     lambda: st.ntt64_stages_inverse(log_w, q64, wi, pi, xi),
-                     lambda: st.ntt64_stages_inverse_plain(log_w, q64, wi, pi, xi), b64)
-    for of in (2, 4):  # the lazy outputs, which the exchange stages consume
-        if not torch.equal(st.ntt64_stages_forward(log_w, q64, w, p, xf, of),
-                           st.ntt64_stages_forward_plain(log_w, q64, w, p, xf, of)):
-            raise AssertionError(f"ntt64_stages_forward out_factor {of}: kernel != plain")
+                   lambda: st.ntt32_stages_inverse_plain(log_w, q32, wi, pi, xi), b32i)
+    for d in CS_SHARDS64:  # row 11's u64 pair at log_w 14 (D = 4) and 15 (D = 2)
+        log_d, width = d.bit_length() - 1, n64 // d
+        log_w, cols = LARGE_LOG_N - log_d, slice(width, 2 * width)
+        tag = "" if d == CS_SHARDS64[0] else f"@w{log_w}"
+        w, p = (t[log_d:, cols].to(dev) for t in cs.build_expanded_tables64(LARGE_LOG_N, q64))
+        wi, pi = (t[:log_w, cols].to(dev)
+                  for t in cs.build_expanded_inverse_tables64(LARGE_LOG_N, q64))
+        words = torch.randint(-(1 << 63), (1 << 63) - 1, (2, LARGE_ROWS, width), generator=g,
+                              device=dev)
+        xf, xi = mul_hi_u64(words[0], 4 * q64), mul_hi_u64(words[1], 2 * q64)  # [0, 4q), [0, 2q)
+        # the x lanes' entries only (w and its quotient, 16 bytes an x lane a
+        # stage): the x lane's entry serves the pair
+        tab_bytes = 16 * log_w * (width // 2)
+        b64 = bound(8 * 2 * LARGE_ROWS * width + tab_bytes,
+                    muls32=ntt_muls(LARGE_ROWS, width, u64=True))
+        grids = [st.launch_grid(log_w, q64, LARGE_ROWS, fwd) for fwd in (True, False)]
+        log(f"u64 shard of D = {d}: 2^{log_w} words a row, tables "
+            f"{tab_bytes / 1e6:.2f} MB read (x lanes); the forward "
+            f"{'defers' if st.defers64(log_w, q64) else 'does not defer'} its reductions; "
+            f"(blocks a cluster, rows a block) forward {grids[0]}, inverse {grids[1]}")
+        compare_kernel64(torch, table, "ntt64_stages_forward" + tag, LARGE_ROWS,
+                         lambda: st.ntt64_stages_forward(log_w, q64, w, p, xf),
+                         lambda: st.ntt64_stages_forward_plain(log_w, q64, w, p, xf), b64)
+        compare_kernel64(torch, table, "ntt64_stages_inverse" + tag, LARGE_ROWS,
+                         lambda: st.ntt64_stages_inverse(log_w, q64, wi, pi, xi),
+                         lambda: st.ntt64_stages_inverse_plain(log_w, q64, wi, pi, xi), b64)
+        for of in (2, 4):  # the lazy outputs, which the exchange stages consume
+            if not torch.equal(st.ntt64_stages_forward(log_w, q64, w, p, xf, of),
+                               st.ntt64_stages_forward_plain(log_w, q64, w, p, xf, of)):
+                raise AssertionError(f"ntt64_stages_forward log_w {log_w} out_factor {of}: "
+                                     "kernel != plain")
+        for name in ("ntt64_stages_forward", "ntt64_stages_inverse"):
+            _, _, _, dev_ms, (bound_ms, bound_by) = table[name + tag][LARGE_ROWS]
+            log(f"{name + tag:26s} share of the bound {bound_ms / dev_ms:.4f} ({bound_ms:.4f} ms "
+                f"by {bound_by} over {dev_ms:.4f} device ms)")
+
+    log(f"-- 15.3: the u64 forward + inverse trip at n = 2^{LARGE_LOG_N}, {LARGE_ROWS} rows, "
+        f"timed over {CS_TRIPS} chained trips (CUDA events)")
+    for d in CS_SHARDS64:
+        mesh = LocalMesh(d, 1, dev)
+
+        def step(v, mesh=mesh):
+            f = cs.coeff_sharded_forward64(mesh, "residue", LARGE_LOG_N, q64, v)
+            return cs.coeff_sharded_inverse64(mesh, "residue", LARGE_LOG_N, q64, f)
+
+        v0 = shard(mesh, x64, spec)
+        if not torch.equal(unshard(mesh, step(v0), spec), x64):
+            raise AssertionError(f"D={d}: the timed trip does not return its input")
+        ms = chained_ms(torch, step, v0, CS_TRIPS)
+        ops = count_host_ops(torch, lambda: step(v0))
+        queued = max(1, min(CS_TRIPS, QUEUED_OPS // ops))
+        busy, enqueue = queued_ms(torch, step, v0, queued, ms)
+        log(f"[u64 D={d}] {ms:.4f} ms a trip; {ops} host ops a trip, enqueued in {enqueue:.4f} ms "
+            f"with the card asleep ({queued} trips queued); device busy "
+            + ("not measured (the host fell behind the sleep)" if busy is None else
+               f"{busy:.4f} ms a trip with the host ahead (idle share {1 - busy / ms:.3f})"))
     return counts
 
 
@@ -1891,6 +1936,10 @@ def main() -> None:
             key = name.replace("ntt32_", "") + "32"
             row.update({"launches_sharded_dcrt32_path": counts_17[key],
                         "launches_torus64_path": counts_18[key]})
+        if f"{name}@w15" in table:  # row 11's u64 pair on the D = 2 shard (log_w 15)
+            _, wms, wpms, wdev, (wbms, _) = table[f"{name}@w15"][b0]
+            row.update({"ms_w15": wms, "plain_ms_w15": wpms, "device_ms_w15": wdev,
+                        "bound_ms_w15": wbms})
         if f"{name}@nokey" in table:  # Ki1 without the fused key multiply
             _, kms, kpms, kdev, (kbms, _) = table[f"{name}@nokey"][b0]
             row.update({"ms_nokey": kms, "plain_ms_nokey": kpms, "device_ms_nokey": kdev,

@@ -32,6 +32,9 @@ at the round trip's 512 rows on a 7- and an 8-plane modulus (beside row 10,
     python3 cmux_mxu_timing.py --split ...     # row 13's halves (with --compare OLD: in turns)
     python3 cmux_mxu_timing.py --split --grids # K2 and Ki1 on every tile of rows
     python3 cmux_mxu_timing.py --split --phases  # their cycles per phase (clock64)
+    python3 cmux_mxu_timing.py --stages ...    # row 11's stage kernels (with --compare OLD: in turns)
+    python3 cmux_mxu_timing.py --stages --grids  # the u64 pair on every (C, T)
+    python3 cmux_mxu_timing.py --stages --phases # their cycles per pass (clock64)
 
 Both forward transforms are bounded by the function they compute: 16 bytes
 a word over the HBM rate, or the butterfly's ``n / 2 log n`` Shoup
@@ -79,9 +82,21 @@ under ``--compare`` the summary gives new / old per shape
 (``pft_split_force_tile``) and times K2 and Ki1 on every tile of 4-32
 rows beside the launch's own; ``--split --phases`` copies it to
 ``.proof/split_phases`` with clock64() laps of block 0 per phase (load,
-table wait, each pass, twiddle, store; :func:`stamp_split`).  The
-``empty kernel`` line is the floor of this way of timing: a launch that
-does nothing, timed the same way.
+table wait, each pass, twiddle, store; :func:`stamp_split`).  ``--stages``
+times row 11's four stage kernels at :data:`STAGE_SHAPES` (the u64 pair at
+phase 15's shards of 2 x 2^14 and 2 x 2^15 words, the JAX kernel's tile of
+8 x 2^14 and the card tests' smaller shards, on the exact-Shoup and a
+deferring q; the u32 pair at phase 15's shards), each checked against its
+plain version, with its bound, share, and the u64 launch's (C, T), and
+phase 15.3's u64 trip at D = 4 and 2 (:func:`coeff_trips`); under
+``--compare`` the summary gives new / old per shape (``mean_stages_ms``,
+None where the old side refuses the shape); ``--stages --grids`` copies the
+package to ``.proof/stages_grids`` with the u64 grid set from outside
+(``pft_st64_force_grid``) and times the pair on every (C, T) beside the
+launch's own; ``--stages --phases`` copies it to ``.proof/stages_phases``
+with clock64() laps of block 0 after each pass and the stages across the
+cluster (:func:`stamp_stages`).  The ``empty kernel`` line is the floor of
+this way of timing: a launch that does nothing, timed the same way.
 
 A kernel's device time is the median of 20 calls, each timed with CUDA
 events queued behind a ~1 ms sleep kernel, so the events bracket the kernel
@@ -482,6 +497,317 @@ def split_calls(torch, dev) -> dict:
         for name in SPLIT_NAMES:
             calls[(name, label)] = (fns[name], bnd[name][0], rows)
     return calls
+
+
+# Row 11's stage kernels (--stages): (label, bits, log_n, D, rows, q), each a
+# shard's rows of 2^(log_n - log2 D) words on shard 1's table slices.  The
+# u64 pair at phase 15's D = 4 shard (2 rows of 2^14 words), the JAX
+# kernel's tile of 8 rows, the D = 2 shard (2 rows of 2^15: the first design
+# refuses it) and the card tests' smaller shards (log_w 7, 9, 11), each at q
+# = 4611686018425815041 (exact Shoup) and a 50-bit q (the forward deferring
+# its reductions); the u32 pair at phase 15's shards (8 rows of 2^11, 2^10,
+# 2^9 words, q = 536813569).  STAGE_GRIDS: the (log2 C, T) grids --grids
+# tries beside the launch's own.
+STAGE_Q62, STAGE_Q32 = 4611686018425815041, 536813569
+STAGE_Q50 = 1125899902124033  # = 1 mod 2^19 (next_ntt_prime(50, 17)): roots to n = 2^18
+STAGE_SHAPES = tuple(
+    (f"{rows}x2^{log_n - d.bit_length() + 1}{tag}", 64, log_n, d, rows, q)
+    for log_n, d, rows in ((16, 4, 2), (16, 4, 8), (16, 2, 2), (9, 4, 2), (12, 8, 2), (12, 2, 2))
+    for q, tag in ((STAGE_Q62, ""), (STAGE_Q50, " q50"))) + tuple(
+    (f"u32 8x2^{12 - d.bit_length() + 1}", 32, 12, d, 8, STAGE_Q32) for d in (2, 4, 8))
+STAGE_NAMES = {64: ("ntt64_stages_forward", "ntt64_stages_inverse"),
+               32: ("ntt32_stages_forward", "ntt32_stages_inverse")}
+STAGE_GRIDS = tuple((c, t) for c in range(4) for t in (1, 2, 4, 8))
+COEFF_TRIP_SHARDS = (4, 2)  # chip_smoke.py phase 15.3's trips
+
+
+def stage_calls(torch, dev) -> dict:
+    """``{(name, label): (call, plain call, bound ms, log_w, rows, q)}`` of
+    the four stage kernels at :data:`STAGE_SHAPES`: the forward at
+    ``out_factor`` 1 on words below 4q, the inverse at ``in_factor`` 2 on
+    words below 2q, made from a seeded generator on the card; each held to
+    its function's bound (``chip_smoke.py``'s b32f / b32i / b64: rows and
+    the table entries the function reads once over the HBM rate, or n/2 log
+    n Shoup multiplies a row)."""
+    from primus_fhe_tpu_torch.numeric.limb import mul_hi_u64
+    from primus_fhe_tpu_torch.ops import ntt_stages as st
+    from primus_fhe_tpu_torch.parallel import coeff_sharded as cs
+
+    g = torch.Generator(device=dev).manual_seed(2033)
+    calls = {}
+    for label, bits, log_n, d, rows, q in STAGE_SHAPES:
+        log_d = d.bit_length() - 1
+        log_w, width = log_n - log_d, (1 << log_n) // d
+        cols = slice(width, 2 * width)
+        build = (cs.build_expanded_tables64, cs.build_expanded_inverse_tables64) if bits == 64 \
+            else (cs.build_expanded_tables32, cs.build_expanded_inverse_tables32)
+        w, p = (t[log_d:, cols].to(dev) for t in build[0](log_n, q))
+        wi, pi = (t[:log_w, cols].to(dev) for t in build[1](log_n, q))
+        words = torch.randint(-(1 << 63), (1 << 63) - 1, (2, rows, width), generator=g,
+                              device=dev)
+        xf, xi = mul_hi_u64(words[0], 4 * q), mul_hi_u64(words[1], 2 * q)
+        size = bits // 8
+        muls = rows * (width // 2) * log_w * (10 if bits == 64 else 3)
+        # the table entries each function reads (w and its quotient): the u64
+        # pair and the u32 inverse one lane of each pair (the x lane's, the
+        # y lane's), the u32 forward both
+        lanes = (width // 2, width // 2) if bits == 64 else (width, width // 2)
+        bound_f, bound_i = (max((size * 2 * rows * width + 2 * size * log_w * n) / HBM_BYTES_S,
+                                muls / INT32_MULS_S) * 1e3 for n in lanes)
+        fwd, inv = (getattr(st, name) for name in STAGE_NAMES[bits])
+        fwd_plain, inv_plain = (getattr(st, name + "_plain") for name in STAGE_NAMES[bits])
+        calls[(STAGE_NAMES[bits][0], label)] = (
+            lambda f=fwd, lw=log_w, q=q, w=w, p=p, x=xf: f(lw, q, w, p, x),
+            lambda f=fwd_plain, lw=log_w, q=q, w=w, p=p, x=xf: f(lw, q, w, p, x),
+            bound_f, log_w, rows, q)
+        calls[(STAGE_NAMES[bits][1], label)] = (
+            lambda f=inv, lw=log_w, q=q, w=wi, p=pi, x=xi: f(lw, q, w, p, x),
+            lambda f=inv_plain, lw=log_w, q=q, w=wi, p=pi, x=xi: f(lw, q, w, p, x),
+            bound_i, log_w, rows, q)
+    return calls
+
+
+def stage_grid(name, log_w, rows, q):
+    """``(C, T)`` the u64 launch picks (None for the u32 kernels and in a
+    checkout without the rule)."""
+    from primus_fhe_tpu_torch.ops import ntt_stages as st
+
+    if not name.startswith("ntt64") or not hasattr(st, "launch_grid"):
+        return None
+    return st.launch_grid(log_w, q, rows, name.endswith("forward"))
+
+
+def coeff_trips(torch, dev) -> dict:
+    """``chip_smoke.py`` phase 15.3's u64 trip (the coefficient-sharded
+    forward then inverse at n = 2^16, q = 4611686018425815041, 2 rows) on
+    ``LocalMesh(D, 1)`` at each D of :data:`COEFF_TRIP_SHARDS`: ms a trip
+    over 20 chained trips (host-paced), the card's busy ms a trip with the
+    host ahead and the host's enqueue ms (``chip_smoke.queued_ms``, as many
+    trips queued as keep the launch queue from blocking the host), the host
+    ops a trip and the idle share; None where the checkout refuses the
+    shard."""
+    from primus_fhe_tpu_torch.parallel import LocalMesh, shard
+    from primus_fhe_tpu_torch.parallel import coeff_sharded as cs
+
+    smoke = this_smoke()
+    log_n, q, rows = smoke.LARGE_LOG_N, smoke.LARGE_Q, smoke.LARGE_ROWS
+    g = torch.Generator(device=dev).manual_seed(2034)
+    x = torch.randint(0, q, (rows, 1 << log_n), generator=g, device=dev)
+    out = {}
+    for d in COEFF_TRIP_SHARDS:
+        mesh = LocalMesh(d, 1, dev)
+
+        def step(v, mesh=mesh):
+            f = cs.coeff_sharded_forward64(mesh, "residue", log_n, q, v)
+            return cs.coeff_sharded_inverse64(mesh, "residue", log_n, q, f)
+
+        v0 = shard(mesh, x, (None, "residue"))
+        try:
+            step(v0)
+        except ValueError as e:
+            out[f"coeff trip D={d}"] = {"ms": None, "refused": str(e)}
+            continue
+        ms = smoke.chained_ms(torch, step, v0, smoke.CS_TRIPS)
+        ops = smoke.count_host_ops(torch, lambda: step(v0))
+        queued = max(1, min(smoke.CS_TRIPS, smoke.QUEUED_OPS // ops))
+        busy, enqueue = smoke.queued_ms(torch, step, v0, queued, ms)
+        out[f"coeff trip D={d}"] = {"ms": ms, "device_ms": busy, "enqueue_ms": enqueue,
+                                    "host_ops": ops, "queued_trips": queued,
+                                    "idle": None if busy is None else 1 - busy / ms}
+    return out
+
+
+def stage_times(torch, dev) -> dict:
+    """Each stage kernel at each shape: its words checked against its plain
+    version, device ms, bound, share of the bound and the u64 launch's
+    grid (None where the checkout refuses the shape); the floor of this
+    timing (an empty kernel); phase 15.3's trips (:func:`coeff_trips`)."""
+    out = {}
+    for (name, label), (fn, plain, bound_ms, log_w, rows, q) in stage_calls(torch, dev).items():
+        try:
+            got = fn()
+        except ValueError as e:
+            out[f"{name}@{label}"] = {"ms": None, "refused": str(e), "bound_ms": bound_ms}
+            continue
+        if not torch.equal(got, plain()):
+            raise SystemExit(f"{name}@{label}: kernel != plain")
+        ms = device_ms(torch, fn)
+        out[f"{name}@{label}"] = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms,
+                                  "grid": stage_grid(name, log_w, rows, q)}
+    out["empty kernel"] = {"ms": device_ms(torch, lambda: torch.cuda._sleep(1))}
+    out.update(coeff_trips(torch, dev))
+    return out
+
+
+def stage_label_laps(forward: bool, log_w: int, log_c: int) -> list[str]:
+    """The laps a ``--stages --phases`` copy stamps in block 0 of a u64 stage
+    kernel on clusters of 2^log_c blocks: the forward's stages across
+    slices (at load), then its passes (radix 8, the remainder last); the
+    inverse's passes (the remainder first), then its stages across slices;
+    each lap ends as thread 0 finishes that part (the barrier before it
+    included)."""
+    l = log_w - log_c
+    if forward:
+        sizes = [min(3, l - s) for s in range(0, l, 3)]
+    else:
+        r = l - 3 * ((l - 1) // 3)
+        sizes = [r] + [3] * ((l - r) // 3)
+    names, s0 = [], 0
+    for size in sizes:
+        names.append(f"pass stages {s0}-{s0 + size - 1}")
+        s0 += size
+    cross = f"{log_c} stages across the cluster's slices"
+    if log_c:
+        names = [cross + " (at load)"] + names if forward else names + [cross + " (store)"]
+    return names
+
+
+def stamp_stages(src: Path, phases: bool) -> None:
+    """A copy of ``ntt_stages.cu`` for ``--stages --grids`` (the u64
+    launch's grid set from outside, ``pft_st64_force_grid(log_c, T)``;
+    -1 for the launch's own; refused where it does not fit) or ``--stages
+    --phases`` (clock64() laps of thread 0 of block 0 of the u64 kernels
+    after each pass and the stages across the cluster, the earliest block
+    start and latest block end on the global timer; ``pft_read_st64(kind,
+    stamps, gt)`` reads them, kind 0 the forward, 1 the inverse)."""
+    text = src.read_text()
+    if not phases:
+        pick = "  err = pick_grid(*d, kind, rows, log_w, &a.log_c, &a.tile);\n"
+        if text.count(pick) != 1:
+            raise SystemExit("cmux_mxu_timing: ntt_stages.cu's pick moved")
+        text = text.replace(pick, pick + (
+            "  if (pft_st_force_c >= 0) {\n    a.log_c = pft_st_force_c;\n"
+            "    a.tile = pft_st_force_t;\n"
+            "    if (!grid_ok(log_w, a.log_c, a.tile)) return (int)cudaErrorInvalidValue;\n  }\n"))
+        text = text.replace("namespace {\n", "int pft_st_force_c = -1, pft_st_force_t = 1;\n"
+                            "namespace {\n", 1)
+        entry = ("int pft_st64_force_grid(int c, int t) {\n  pft_st_force_c = c;\n"
+                 "  pft_st_force_t = t;\n  return 0;\n}\n")
+        text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + entry, 1)
+        src.write_text(text)
+        return
+    head = ("__device__ long long pft_st_stamps[2][16];\n__device__ int pft_st_k[2];\n"
+            "__device__ unsigned long long pft_st_gt[2][2] = {{~0ull, 0ull}, {~0ull, 0ull}};\n"
+            "#define PFT_LAP(K) if (threadIdx.x == 0 && blockIdx.x == 0) "
+            "pft_st_stamps[K][pft_st_k[K]++ & 15] = clock64();\n"
+            "#define PFT_BEGIN(K) if (threadIdx.x == 0 && blockIdx.x == 0) pft_st_k[K] = 0; "
+            "PFT_LAP(K) unsigned long long pft_g0; "
+            "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g0));\n"
+            "#define PFT_END(K) { unsigned long long pft_g1; "
+            "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g1)); "
+            "if (threadIdx.x == 0) { atomicMin(&pft_st_gt[K][0], pft_g0); "
+            "atomicMax(&pft_st_gt[K][1], pft_g1); } }\n")
+    for fn, k in (("fwd_passes", 0), ("inv_passes", 1)):
+        start = text.index(f"__device__ __forceinline__ void {fn}(")
+        end = text.index("\n}\n", start)
+        body = re.sub(r"(lane_pass<\d, (?:true|false)>\([^;]*\));", rf"{{ \1; PFT_LAP({k}) }}",
+                      text[start:end])
+        text = text[:start] + body + text[end:]
+    edits = [  # (anchor, text before it, text after it): a lap after the stages across
+        # the cluster, the span's end at every exit
+        ("  cluster.sync();  // keep every slice alive until its peers' reads are done\n",
+         "  PFT_LAP(1)\n", ""),
+        ("  if (a.log_c == 3) cross_forward<8>(a, b, sm, bf);\n", "", "  PFT_LAP(0)\n"),
+        ("  fwd_passes(b.count, b.l, tab, bf, rows, ClusterSync{}, rows, dst);\n", "",
+         "  PFT_END(0)\n"),
+        ("               rows, dst);\n    return;\n", "", ""),
+        ("  if (a.log_c == 3) cross_inverse<8>(a, b, sm, log_c);\n", "", "  PFT_END(1)\n"),
+        ("    inv_passes(b.count, b.l, tab, a.q, log_c, src, rows, dst);\n    return;\n", "",
+         ""),
+    ]
+    for anchor, before, after in edits:
+        if text.count(anchor) != 1:
+            raise SystemExit(f"cmux_mxu_timing: ntt_stages.cu changed near {anchor.strip()!r}")
+        if anchor.endswith("return;\n"):
+            before, after = "", ""
+            anchor_new = anchor.replace("    return;\n", f"    PFT_END({int('inv' in anchor)})\n"
+                                        "    return;\n")
+            text = text.replace(anchor, anchor_new)
+        else:
+            text = text.replace(anchor, before + anchor + after)
+    for kernel, k in (("stages64_forward_kernel(const Stages64Args a) {\n", 0),
+                      ("stages64_inverse_kernel(const Stages64Args a) {\n", 1)):
+        anchor = kernel + "  extern __shared__ __align__(16) uint64_t sm[];\n"
+        if text.count(anchor) != 1:
+            raise SystemExit(f"cmux_mxu_timing: ntt_stages.cu's {kernel.strip()} moved")
+        text = text.replace(anchor, anchor + f"  PFT_BEGIN({k})\n")
+    text = text.replace("namespace {\n", head + "namespace {\n", 1)
+    reader = ("int pft_read_st64(int kind, void* stamps, void* gt) {\n"
+              "  cudaError_t e = cudaMemcpyFromSymbol(stamps, pft_st_stamps, 128, kind * 128);\n"
+              "  int k = 0;\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(&k, pft_st_k, 4, kind * 4);\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_st_gt, 16, kind * 16);\n"
+              "  const unsigned long long reset[2] = {~0ull, 0ull};\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(pft_st_gt, reset, 16, kind * 16);\n"
+              "  return e == cudaSuccess ? -k : (int)e;\n}\n")
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + reader, 1)
+    src.write_text(text)
+
+
+def stage_stamps(torch, dev) -> dict:
+    """In a ``--stages --phases`` copy (:func:`stamp_stages`): block 0's
+    cycles per part of the u64 kernels' last launch at each shape, the
+    launch's span on the device beside its event-timed device ms."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build
+
+    read = build.library().pft_read_st64
+    read.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    out = {}
+    for (name, label), (fn, _, _, log_w, rows, q) in stage_calls(torch, dev).items():
+        if not name.startswith("ntt64"):
+            continue
+        forward = name.endswith("forward")
+        c, tile = stage_grid(name, log_w, rows, q)
+        ms = device_ms(torch, fn)
+        stamps = (ctypes.c_longlong * 16)()
+        gt = (ctypes.c_ulonglong * 2)()
+        read(int(not forward), ctypes.addressof(stamps), ctypes.addressof(gt))  # resets the span
+        fn()
+        torch.cuda.synchronize()
+        k = -read(int(not forward), ctypes.addressof(stamps), ctypes.addressof(gt))
+        laps = list(stamps)[:k]
+        names = stage_label_laps(forward, log_w, c.bit_length() - 1)
+        if len(laps) != len(names) + 1:
+            raise SystemExit(f"{name}@{label}: {len(laps)} laps for {len(names)} parts")
+        row = dict(zip(names, [laps[i + 1] - laps[i] for i in range(len(names))]))
+        row.update(total_cycles=laps[-1] - laps[0], span_ns=gt[1] - gt[0], event_ms=ms,
+                   grid=[c, tile])
+        out[f"{name}@{label}"] = row
+    return out
+
+
+def stage_grids(torch, dev) -> dict:
+    """In a ``--stages --grids`` copy (:func:`stamp_stages`): the u64
+    kernels' device ms at each shape on the launch's own grid and on every
+    grid of :data:`STAGE_GRIDS` that fits, each one's words checked against
+    the own grid's."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build
+
+    lib = build.library()
+    lib.pft_st64_force_grid.argtypes = [ctypes.c_int, ctypes.c_int]
+    out = {}
+    for (name, label), (fn, _, bound_ms, log_w, rows, q) in stage_calls(torch, dev).items():
+        if not name.startswith("ntt64"):
+            continue
+        lib.pft_st64_force_grid(-1, 1)
+        want = fn()
+        row = {"own": stage_grid(name, log_w, rows, q), "own_ms": device_ms(torch, fn),
+               "bound_ms": bound_ms}
+        for c, tile in STAGE_GRIDS:
+            if log_w - c < max(c, 1) or (tile << (log_w - c)) > 1 << 14 or tile > 2 * rows:
+                continue
+            lib.pft_st64_force_grid(c, tile)
+            if not torch.equal(fn(), want):
+                raise SystemExit(f"{name}@{label} grid ({1 << c}, {tile}): words differ")
+            row[f"C{1 << c} T{tile}"] = device_ms(torch, fn)
+        lib.pft_st64_force_grid(-1, 1)
+        out[f"{name}@{label}"] = row
+    return out
 
 
 def idle_us(torch, fn, calls: int = 200) -> float:
@@ -1106,7 +1432,8 @@ def rotations(torch, dev) -> dict:
 
 
 def run_here(stamps: bool, ntt_only: bool = False, ntt32_only: bool = False,
-             ntt64_only: bool = False, split_only: bool = False) -> dict:
+             ntt64_only: bool = False, split_only: bool = False,
+             stages_only: bool = False) -> dict:
     import torch
 
     if not torch.cuda.is_available():
@@ -1115,6 +1442,9 @@ def run_here(stamps: bool, ntt_only: bool = False, ntt32_only: bool = False,
     result = {"root": str(Path(sys.path[0]).resolve()), "card": card()}
     if split_only:
         result["split"] = split_times(torch, dev)
+        return result
+    if stages_only:
+        result["stages"] = stage_times(torch, dev)
         return result
     if ntt32_only:
         result["ntt32"] = ntt32_times(torch, dev)
@@ -1525,11 +1855,20 @@ def main() -> None:
     ap.add_argument("--ntt32", action="store_true", help="kernels 1-2 and the NTT-key step only")
     ap.add_argument("--ntt64", action="store_true", help="row 10's butterfly kernels only")
     ap.add_argument("--split", action="store_true", help="row 13's four halves only")
+    ap.add_argument("--stages", action="store_true", help="row 11's stage kernels only")
     ap.add_argument("--grids", action="store_true", help="the byte-radix kernels on every grid")
     ap.add_argument("--stamps", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
+        if args.stamps and args.stages:
+            import torch
+
+            dev = torch.device("cuda", 0)
+            res = ({"cycles": stage_stamps(torch, dev)} if args.phases
+                   else {"grids": stage_grids(torch, dev)})
+            print(json.dumps(res), flush=True)
+            return
         if args.stamps and args.split:
             import torch
 
@@ -1555,10 +1894,23 @@ def main() -> None:
                    else {"cycles": {**kernel_stamps(torch), **rt_stamps(torch)}})
             print(json.dumps(res), flush=True)
             return
-        print(json.dumps(run_here(args.stamps, args.ntt, args.ntt32, args.ntt64, args.split)),
-              flush=True)
+        print(json.dumps(run_here(args.stamps, args.ntt, args.ntt32, args.ntt64, args.split,
+                                  args.stages)), flush=True)
         return
     print(card(), flush=True)
+    if args.stages and (args.grids or args.phases):
+        root = HERE / ".proof" / f"stages_{'grids' if args.grids else 'phases'}"
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(HERE / "primus_fhe_tpu_torch", root / "primus_fhe_tpu_torch",
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        stamp_stages(root / "primus_fhe_tpu_torch" / "csrc" / "ntt_stages.cu", args.phases)
+        res = subprocess_run(root, "--stamps", "--stages",
+                             "--phases" if args.phases else "--grids")
+        for key, row in res["cycles" if args.phases else "grids"].items():
+            print(key, json.dumps(row), flush=True)
+        res["card"] = card()
+        print(json.dumps(res), flush=True)
+        return
     if args.split and (args.grids or args.phases):
         root = HERE / ".proof" / f"split_{'tiles' if args.grids else 'phases'}"
         shutil.rmtree(root, ignore_errors=True)
@@ -1622,12 +1974,13 @@ def main() -> None:
         return
     if args.compare is None:
         sys.path.insert(0, str(HERE))
-        print(json.dumps(run_here(False, args.ntt, args.ntt32, args.ntt64, args.split)),
-              flush=True)
+        print(json.dumps(run_here(False, args.ntt, args.ntt32, args.ntt64, args.split,
+                                  args.stages)), flush=True)
         return
     runs = []
     extra = (("--ntt",) if args.ntt else ("--ntt32",) if args.ntt32 else ("--ntt64",)
-             if args.ntt64 else ("--split",) if args.split else ())
+             if args.ntt64 else ("--split",) if args.split else ("--stages",) if args.stages
+             else ())
     for side, root in (("old", args.compare), ("new", HERE), ("new", HERE), ("old", args.compare)):
         res = subprocess_run(root, *extra)
         res["side"] = side
@@ -1665,7 +2018,21 @@ def main() -> None:
         split["new_over_old"] = {k: split["new"][k] / split["old"][k] for k in split["new"]}
         split["share_new"] = {k: runs[1]["split"][k]["bound_ms"] / split["new"][k]
                               for k in split["new"] if "bound_ms" in runs[1]["split"][k]}
-    summary = {"card": runs[0]["card"], "mean_split_ms": split, "mean_ntt_ms": ntt,
+    stages = mean("stages", lambda r: {k: v.get("ms") or 0.0 for k, v in r["stages"].items()
+                                       if "ms" in v})
+    if stages:  # new / old per shape (None where the old side refused it), the new share
+        stages["new_over_old"] = {k: stages["new"][k] / stages["old"][k] if stages["old"][k]
+                                  else None for k in stages["new"]}
+        stages["share_new"] = {k: runs[1]["stages"][k]["bound_ms"] / stages["new"][k]
+                               for k in stages["new"]
+                               if "bound_ms" in runs[1]["stages"][k] and stages["new"][k]}
+        for field in ("device_ms", "enqueue_ms", "idle"):
+            stages[field] = {side: {k: [r["stages"][k].get(field) for r in runs
+                                        if r["side"] == side]
+                                    for k in runs[0]["stages"] if k.startswith("coeff trip")}
+                             for side in ("old", "new")}
+    summary = {"card": runs[0]["card"], "mean_stages_ms": stages, "mean_split_ms": split,
+               "mean_ntt_ms": ntt,
                "mean_host_us": host,
                "mean_ntt32_ms": mean("ntt32", lambda r: {k: v["ms"] for k, v in r["ntt32"].items()}),
                "mean_ntt64_ms": mean("ntt64", lambda r: {k: v["ms"] for k, v in r["ntt64"].items()}),

@@ -66,9 +66,6 @@ struct NttArgs {
   int rows, log_n, tile;
 };
 
-// Stages of the forward's last pass and of the inverse's first: 1..3.
-__host__ __device__ inline int remainder_stages(int log_n) { return log_n - 3 * ((log_n - 1) / 3); }
-
 // Words of each root table a block stages: none for one pass; the
 // forward's whole table; the part of the inverse's that its passes after
 // the first use.

@@ -94,18 +94,9 @@ struct Ntt64Args {
   int rows, log_n, tile, in_factor;
 };
 
-// Shared-memory word of the tile's word i: bits 3-6 XORed into bits 0-3 and
-// bits 4-5 into bits 0-1.  Each half-warp of a pass of 8 words a group at
-// any stride, of a pass of 2 or 4 adjacent words a group, and of a sweep in
-// coefficient order hits 16 distinct words mod 16.
-__device__ __forceinline__ int swz64(int i) { return i ^ ((i >> 3) & 15) ^ ((i >> 4) & 3); }
-
 // Blocks a row is split over (log2): 1 where a row overflows one block's
 // shared memory (n = 2^15).
 __host__ __device__ inline int log_split(int log_n) { return log_n > 14 ? 1 : 0; }
-
-// Stages of the forward's last pass and of the inverse's first: 1..3.
-__host__ __device__ inline int remainder_stages(int log_n) { return log_n - 3 * ((log_n - 1) / 3); }
 
 // Words of each root table a block stages: none for one pass or a split
 // row; the inverse's part that its passes after the first use (at most
@@ -159,25 +150,6 @@ __device__ __forceinline__ void stage_tables(uint64_t* tw, uint64_t* twp, const 
   }
   cp_async_commit();
 }
-
-// The tile's rows of 2^log_n words in shared memory: slot c of row r, the
-// tile's word i = r 2^log_n + c, at swz64(i).
-struct SmemRows64 {
-  uint64_t* p;
-  int log_n;
-  template <int G>
-  __device__ __forceinline__ void load(int row, int base, int ls, uint64_t (&v)[G]) const {
-    const int i = (row << log_n) + base;
-#pragma unroll
-    for (int k = 0; k < G; ++k) v[k] = p[swz64(i + (k << ls))];
-  }
-  template <int G>
-  __device__ __forceinline__ void store(int row, int base, int ls, const uint64_t (&v)[G]) const {
-    const int i = (row << log_n) + base;
-#pragma unroll
-    for (int k = 0; k < G; ++k) p[swz64(i + (k << ls))] = v[k];
-  }
-};
 
 // A tile's rows in device memory: a group's words in 16-byte accesses where
 // they are adjacent (ls = 0), else one word at a time (a warp's words then

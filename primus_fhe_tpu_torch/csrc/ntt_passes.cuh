@@ -1,8 +1,10 @@
 // Radix-8 register passes of the negacyclic NTT on u32 or u64 words, shared
 // by kernels 1-2 (csrc/ntt32.cu), the CMux step kernel (csrc/cmux_fused.cu),
-// row 10's u64 kernels and kernel E (csrc/ntt64.cu), and row 13's row
-// halves K2 and Ki1 (csrc/ntt_mxu8_split.cu: the 128-point cyclic transform,
-// from the same butterflies and table layout).
+// row 10's u64 kernels and kernel E (csrc/ntt64.cu), row 13's row halves K2
+// and Ki1 (csrc/ntt_mxu8_split.cu: the 128-point cyclic transform, from the
+// same butterflies and table layout), and row 11's u64 stage kernels
+// (csrc/ntt_stages.cu: the same slot maps on per-lane tables, with their own
+// butterflies, lane_pass at the end).
 //
 // A pass runs R <= 3 butterfly stages on groups of 2^R words: each thread
 // holds a group in registers through its R stages, so a transform of
@@ -286,6 +288,36 @@ struct AnyIn64 {
   }
 };
 
+// Stages of a forward's last pass and of an inverse's first (radix 8, the
+// remainder): 1..3.
+__host__ __device__ inline int remainder_stages(int log_n) { return log_n - 3 * ((log_n - 1) / 3); }
+
+// Shared-memory word of a tile's word i: bits 3-6 XORed into bits 0-3 and
+// bits 4-5 into bits 0-1.  Each half-warp of a pass of 8 words a group at
+// any stride, of a pass of 2 or 4 adjacent words a group, and of a sweep in
+// coefficient order hits 16 distinct words mod 16.
+__device__ __forceinline__ int swz64(int i) { return i ^ ((i >> 3) & 15) ^ ((i >> 4) & 3); }
+
+// A tile's rows of 2^log_n u64 words in shared memory (row 10, E, row 11's
+// u64 stages): slot c of row r, the tile's word i = r 2^log_n + c, at
+// swz64(i).
+struct SmemRows64 {
+  uint64_t* p;
+  int log_n;
+  template <int G>
+  __device__ __forceinline__ void load(int row, int base, int ls, uint64_t (&v)[G]) const {
+    const int i = (row << log_n) + base;
+#pragma unroll
+    for (int k = 0; k < G; ++k) v[k] = p[swz64(i + (k << ls))];
+  }
+  template <int G>
+  __device__ __forceinline__ void store(int row, int base, int ls, const uint64_t (&v)[G]) const {
+    const int i = (row << log_n) + base;
+#pragma unroll
+    for (int k = 0; k < G; ++k) p[swz64(i + (k << ls))] = v[k];
+  }
+};
+
 // Rows of 2^log_n u32 words in shared memory, slot c of row r at word
 // r 2^log_n + SW::at(c): the group access of a pass.
 template <class SW>
@@ -428,6 +460,98 @@ __device__ void inv_rest(const ROWS& rows, int count, int log_n, int s0, const T
       inv_pass<2, LAST>(count, log_n, s0, tw, pc, rows, last_store);
     } else {
       inv_pass<1, LAST>(count, log_n, s0, tw, pc, rows, last_store);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Passes on per-lane tables (row 11's u64 stage kernels, csrc/ntt_stages.cu):
+// the slot maps above, but every butterfly reads the entry of its own x slot
+// in a (stages, lanes) table, as the per-lane stage functions do, and the
+// butterfly is the caller's functor: bf.words(e, v) runs on all 2^R words
+// before stage e of the pass (the inverse's cut of their bound), then
+// bf(e, x, y, w, wp) on each pair.  Only x slots' entries are read.
+
+// First slot of group g of a pass of R stages whose group's slots lie 2^ls
+// apart (ls = t for a forward pass, s0 for an inverse one): its slots are
+// base + k 2^ls.
+__device__ __forceinline__ int group_base(int g, int ls, int R) {
+  return ((g >> ls) << (ls + R)) + (g & ((1 << ls) - 1));
+}
+
+// Whether slot k of a group is the x word of stage e: a forward stage e of
+// R pairs k with k + 2^(R-1-e), an inverse one k with k + 2^e.
+template <int R, bool INV>
+__device__ __forceinline__ constexpr bool x_slot(int e, int k) {
+  return !(k & (INV ? 1 << e : 1 << (R - 1 - e)));
+}
+
+// R stages on a group's 2^R words, forward (INV false) or inverse pairs;
+// w[e][k], wp[e][k] the entries of x slot k at stage e.
+template <int R, bool INV, class BF>
+__device__ __forceinline__ void lane_stages(uint64_t (&v)[1 << R], const uint64_t (&w)[R][1 << R],
+                                            const uint64_t (&wp)[R][1 << R], const BF& bf) {
+#pragma unroll
+  for (int e = 0; e < R; ++e) {
+    const int h = INV ? 1 << e : 1 << (R - 1 - e);
+    bf.words(e, v);
+#pragma unroll
+    for (int k = 0; k < (1 << R); ++k)
+      if (x_slot<R, INV>(e, k)) bf(e, v[k], v[k + h], w[e][k], wp[e][k]);
+  }
+}
+
+// A (stages, lanes) table and its Shoup quotients: stage s's entry of lane
+// i at s * stride + i (the pointers already at the pass's first stage and
+// the block's first lane).
+struct LaneTable {
+  const uint64_t* w;
+  const uint64_t* wp;
+  size_t stride;
+  // the same table from stage s on
+  __device__ __forceinline__ LaneTable at(int s) const {
+    return LaneTable{w + s * stride, wp + s * stride, stride};
+  }
+  // the entries of the x slots of a group at base + k 2^ls, R stages on
+  template <int R, bool INV>
+  __device__ __forceinline__ void get(int base, int ls, uint64_t (&tw)[R][1 << R],
+                                      uint64_t (&twp)[R][1 << R]) const {
+#pragma unroll
+    for (int e = 0; e < R; ++e)
+#pragma unroll
+      for (int k = 0; k < (1 << R); ++k)
+        if (x_slot<R, INV>(e, k)) {
+          const size_t i = e * stride + base + (k << ls);
+          tw[e][k] = Word<uint64_t>::ldg(w + i);
+          twp[e][k] = Word<uint64_t>::ldg(wp + i);
+        }
+  }
+};
+
+// One pass of R stages s0 .. s0+R-1 over `count` rows of 2^log_l words:
+// each thread takes groups g, g + blockDim.x, ..., reads a group's table
+// entries once (tab.get, tab at stage s0) and runs the group of every row
+// with them.  The first group's entries are read before sync(), the
+// barrier that the pass's input waits on (a block's or a cluster's, or
+// none for device memory), so they are in flight across it.
+template <int R, bool INV, class SYNC, class LOAD, class STORE, class BF>
+__device__ __forceinline__ void lane_pass(int count, int log_l, int s0, const LaneTable& tab,
+                                          const SYNC& sync, const LOAD& src, const STORE& dst,
+                                          const BF& bf) {
+  const int ls = INV ? s0 : log_l - s0 - R;
+  const int groups = 1 << (log_l - R);
+  int g = threadIdx.x;
+  uint64_t w[R][1 << R], wp[R][1 << R];
+  if (g < groups) tab.get<R, INV>(group_base(g, ls, R), ls, w, wp);
+  sync();
+  for (; g < groups; g += blockDim.x) {
+    const int base = group_base(g, ls, R);
+    if (g != (int)threadIdx.x) tab.get<R, INV>(base, ls, w, wp);
+    for (int r = 0; r < count; ++r) {
+      uint64_t v[1 << R];
+      src.load(r, base, ls, v);
+      lane_stages<R, INV>(v, w, wp, bf);
+      dst.store(r, base, ls, v);
     }
   }
 }

@@ -42,7 +42,12 @@ plan's pass matrices, :meth:`.ntt_mxu8.Mxu8Tables64.pass_matrices`), CUDA
 tensors the kernels of ``csrc/ntt_mxu8_split.cu``, where their design and
 bounds are stated: K1 and Ki2 on the byte planes ``w1`` / ``wi2``, K2 and
 Ki1 as butterflies (each row's 128-point cyclic transform on the root
-tables ``cyclic`` / ``cyclic_inv``, :func:`.ntt_mxu8.cyclic_tables`).
+tables ``cyclic`` / ``cyclic_inv``, :func:`.ntt_mxu8.cyclic_tables`).  On
+CUDA the four wrappers take ``8 <= log_n <= 12`` and raise ValueError before
+any launch above it; the JAX ``ShardedMxuPlan64`` also takes log_n 13-14
+(``A`` = 64, 128), which the plain versions compute on the CPU.  The limit
+goes with the redesign of K1 and Ki2, still byte-plane kernels whose C entry
+takes log_n 8-12 (``A <= 32``).
 """
 
 from __future__ import annotations

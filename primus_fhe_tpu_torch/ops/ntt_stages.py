@@ -13,7 +13,13 @@
 Replace ``pallas_stages_forward32``/``pallas_stages_inverse32``/
 ``pallas_stages_forward64``/``pallas_stages_inverse64``
 (``primus_fhe_tpu/ops/ntt_pallas.py:620,629,675,683``).  CUDA source:
-``csrc/ntt_stages.cu``, which states the design and what bounds it.
+``csrc/ntt_stages.cu``, which states the design and what bounds it: the
+u32 kernels run a row in one block; the u64 kernels spread a row over a
+thread-block cluster of up to 8 blocks (each holding a slice of the row,
+the stages across slices through distributed shared memory) and run the
+stages within a slice as radix-8 register passes, the launch picking the
+cluster size and the rows a block (:func:`launch_grid`).  On the card the
+u32 kernels take ``log_w <= 15``, the u64 ones ``log_w <= 16``.
 
 The twiddles are per-lane tables ``(log_w, 2^log_w)``, a shard's slice of
 :func:`..parallel.coeff_sharded.build_expanded_tables32` (or ``64``); stage
@@ -37,7 +43,7 @@ from ..numeric.limb import MASK32, mul_hi_u64, mulhi_u32, narrow_u32, widen_u32
 from . import build
 
 MAX_LOG_W32 = 15  # a row of 2^15 u32 words is 128 KB of shared memory
-MAX_LOG_W64 = 14  # a row of 2^14 u64 words is 128 KB
+MAX_LOG_W64 = 16  # a row of 2^16 u64 words (512 KB) over a cluster of >= 4 blocks
 
 
 def _pairs(v: torch.Tensor, table: torch.Tensor, t: int):
@@ -171,6 +177,8 @@ def _launch(wrapper, entry: str, log_w: int, max_log_w: int, w_loc, p_loc, v, q_
     # held in names until the launch is queued: a temporary freed earlier
     # could hand its memory to the next copy before the kernel reads it
     v, w_loc, p_loc = v.contiguous(), w_loc.contiguous(), p_loc.contiguous()
+    if v.data_ptr() % 16:  # the kernels move adjacent words 16 bytes at a time
+        v = v.clone()
     out = torch.empty_like(v)
     rows = v.numel() // width
     if rows:
@@ -234,7 +242,8 @@ def _check64(wrapper, q: int, values, *tables):
 def ntt64_stages_forward(log_w: int, q: int, w_loc, p_loc, values, out_factor: int = 1):
     """The final ``log_w`` forward stages of ``values (..., 2^log_w)`` (u64
     words in ``[0, 4q)``, ``q < 2^62``) with the per-lane tables; canonical
-    for ``out_factor=1``, ``[0, 2q)`` for ``2``, ``[0, 4q)`` for ``4``."""
+    for ``out_factor=1``, ``[0, 2q)`` for ``2``, ``[0, 4q)`` for ``4``.  On
+    the card ``1 <= log_w <= 16``."""
     if out_factor not in (1, 2, 4):
         raise ValueError("out_factor must be 1, 2 or 4")
     _check64(ntt64_stages_forward, q, values, w_loc, p_loc)
@@ -248,7 +257,7 @@ def ntt64_stages_forward(log_w: int, q: int, w_loc, p_loc, values, out_factor: i
 def ntt64_stages_inverse(log_w: int, q: int, w_loc, p_loc, values, in_factor: int = 2):
     """The first ``log_w`` inverse stages of ``values (..., 2^log_w)`` (u64
     words in ``[0, in_factor q)``, ``in_factor`` a power of two at least
-    2); output lazy ``[0, 2q)``."""
+    2); output lazy ``[0, 2q)``.  On the card ``1 <= log_w <= 16``."""
     if in_factor < 2 or in_factor & (in_factor - 1):
         raise ValueError("in_factor must be a power of two, at least 2")
     _check64(ntt64_stages_inverse, q, values, w_loc, p_loc)
@@ -257,6 +266,19 @@ def ntt64_stages_inverse(log_w: int, q: int, w_loc, p_loc, values, in_factor: in
     _check_device(ntt64_stages_inverse, values)
     return _launch(ntt64_stages_inverse, "pft_ntt64_stages_inverse", log_w, MAX_LOG_W64,
                    w_loc, p_loc, values, q, in_factor)
+
+
+def launch_grid(log_w: int, q: int, rows: int, forward: bool) -> tuple[int, int]:
+    """``(C, T)`` that a u64 launch of ``rows`` rows of ``2^log_w`` words
+    takes on the current card: clusters of ``C`` blocks a row, tiles of
+    ``T`` rows a block (the C entry's rule; asks the card)."""
+    import ctypes
+
+    log_c, tile = ctypes.c_int(), ctypes.c_int()
+    build.check(build.library().pft_ntt64_stages_grid(
+        int(forward), q, rows, log_w, ctypes.byref(log_c), ctypes.byref(tile)),
+        "pft_ntt64_stages_grid")
+    return 1 << log_c.value, tile.value
 
 
 ntt32_stages_forward.launches = 0

@@ -108,7 +108,13 @@ def _check_factor(out_factor, allowed):
 def sharded_mxu_forward64(mesh, axis: str, log_n: int, q: int, values, out_factor: int = 1):
     """Forward NTT: coefficient-layout shards ``(A, B/D, batch)`` -> NTT-layout
     shards ``(A/D, batch, B)``, canonical.  K1 on each shard's lanes, one
-    ``all_to_all`` (rows for lanes), K2 on each shard's rows."""
+    ``all_to_all`` (rows for lanes), K2 on each shard's rows.
+
+    On CUDA shards ``8 <= log_n <= 12`` (the split kernels raise ValueError
+    before any launch above it); the JAX ``ShardedMxuPlan64`` also takes
+    log_n 13-14, and so do the plain halves here on the CPU.  The limit
+    goes with the redesign of K1 / Ki2, still byte-plane kernels whose C
+    entry takes log_n 8-12 (``A <= 32``)."""
     _check_factor(out_factor, (1, 2, 4))
     plan = get_sharded_plan(log_n, q)
     A, B, d = plan.A, plan.B, mesh.axis_size(axis)
@@ -135,7 +141,8 @@ def sharded_mxu_inverse64(mesh, axis: str, log_n: int, q: int, values, out_facto
     :meth:`..ops.ntt_mxu8.Mxu8Tables64.mul_table` ``(1, 2, n)`` of a fixed
     NTT-domain operand on ``mesh.device``, fuses its pointwise multiply into
     Ki1 (each shard takes its ``A/D`` rows): the sharded counterpart of
-    ``mxu8_inverse64_mul``."""
+    ``mxu8_inverse64_mul``.  On CUDA ``8 <= log_n <= 12``, as
+    :func:`sharded_mxu_forward64` states."""
     _check_factor(out_factor, (1, 2))
     plan = get_sharded_plan(log_n, q)
     A, B, d = plan.A, plan.B, mesh.axis_size(axis)

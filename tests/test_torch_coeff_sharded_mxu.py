@@ -13,6 +13,8 @@ its half-transforms ``ops/ntt_mxu8_split.py``), and the tiled
 - D = 1, 2, 4 on ``LocalMesh`` and D = 2 on gloo against the port's
   single-card ``mxu8_forward64``/``mxu8_inverse64``/``mxu8_inverse64_mul``
   plain versions (already held to the JAX);
+- log_n 13 over D = 2 (the plain halves; the card takes log_n 8-12) against
+  the single-card ``forward64``, and its round trip;
 - a numpy model of the four kernels' data flow on the kernel-layout tables
   (K1 and Ki2: the csrc's byte planes, fold and Shoup twiddle; K2 and Ki1:
   the butterfly kernel's model, ``test_torch_split_rows_model.py``) against
@@ -38,6 +40,8 @@ from primus_fhe_tpu_torch.numeric.limb import u64_numpy, u64_tensor
 from primus_fhe_tpu_torch.ops import ntt_mxu8, ntt_mxu8_split as split
 from primus_fhe_tpu_torch.parallel import coeff_sharded_mxu as csm
 from primus_fhe_tpu_torch.parallel.mesh import LocalMesh, shard, unshard
+from primus_fhe_tpu_torch.transforms.ntt import forward64
+from primus_fhe_tpu_torch.transforms.plan import build_plan64
 from test_torch_ntt64 import _bytes64, _canonical, _consts, _planes64, _shoup
 from test_torch_split_rows_model import model_rows
 
@@ -130,6 +134,26 @@ def test_sharded_transforms_match_single_card(d, q, log_n):
     np.testing.assert_array_equal(got_f, want_f)
     np.testing.assert_array_equal(got_i, x)
     np.testing.assert_array_equal(got_m, want_m)
+
+
+def test_sharded_plain_path_at_log_n_13():
+    """log_n 13 (A = 64), which the JAX ``ShardedMxuPlan64`` takes and the
+    card refuses until K1 / Ki2 are redesigned (the card test
+    ``test_sharded_mxu_refuses_log_n_13_on_the_card``): on the CPU the plain
+    halves over D = 2 give the single-card ``forward64``'s words, and the
+    round trip returns the input."""
+    log_n, q = 13, 1125899906826241  # = 1 mod 2^14
+    x, _ = _inputs(q, 13, log_n, 2)
+    mesh = LocalMesh(2, 1, "cpu")
+    plan = csm.get_sharded_plan(log_n, q)
+    assert (plan.A, plan.B) == (64, 128)
+    f = csm.sharded_mxu_forward64(
+        mesh, "residue", log_n, q,
+        shard(mesh, csm.to_coeff_layout(u64_tensor(x), plan.A, plan.B), COEFF))
+    want = forward64(build_plan64(log_n, q, "cpu"), u64_tensor(x))
+    assert torch.equal(csm.ntt_layout_to_flat(unshard(mesh, f, NTT)), want)
+    back = csm.sharded_mxu_inverse64(mesh, "residue", log_n, q, f)
+    np.testing.assert_array_equal(u64_numpy(csm.from_coeff_layout(unshard(mesh, back, COEFF))), x)
 
 
 def test_gloo_all_to_all_and_sharded_transforms(tmp_path):

@@ -21,8 +21,10 @@ and a small DCRT rotation on both routes against the CPU; kernels D and E
 2^16 on both routes;
 kernels F and G at N 32-2048, degrees of any sign, both gadgets, and
 ``cmux_delta`` against kernels 3-4; the four stage kernels of the
-coefficient-sharded NTT at log_n 9-16 over 2-8 shards (u32, 50- and 62-bit
-u64, every ``out_factor`` and both ``in_factor``s), and a (2, 2)
+coefficient-sharded NTT at log_n 9-17 over 2-8 shards (u32, 50- and 62-bit
+u64, every ``out_factor`` and both ``in_factor``s, the input range's extreme
+words; the u64 pair at log_w 15-16 on batches 1, 3, 8), row 13's refusal
+of log_n 13 before any launch, and a (2, 2)
 ``LocalMesh`` DCRT rotation on both routes against the single-card one.
 Tolerance: zero (bit-equal).
 
@@ -571,11 +573,31 @@ def test_cmux_front_and_delta_match_plain(dev, log_n, log_basis, level, k):
     assert torch.equal(delta.cpu(), cpu)
 
 
-@pytest.mark.parametrize("log_n,d", [(12, 2), (12, 8), (16, 4), (9, 4)])
-def test_stage_kernels_match_plain(dev, log_n, d):
+def _with_extremes(x, q, factor):
+    """``x`` with the input range's extremes (0, q, 2q - 1 and the top word
+    below ``factor q``) at the start of its first row and the end of its
+    last."""
+    from primus_fhe_tpu_torch.numeric.limb import u64_tensor
+
+    top = min(factor * q, 1 << 64) - 1
+    vals = u64_tensor([0, q, 2 * q - 1, top]).to(x.device)
+    x = x.clone()
+    x[0, :4], x[-1, -4:] = vals, vals.flip(0)
+    return x
+
+
+@pytest.mark.parametrize("log_n,d,batches", [(12, 2, (2,)), (12, 8, (2,)), (16, 4, (2,)),
+                                             (9, 4, (2,)), (16, 2, (1, 3, 8)),
+                                             (17, 2, (1, 3, 8))])
+def test_stage_kernels_match_plain(dev, log_n, d, batches):
     """The four stage kernels on shard 1's table slices: u32 at q = 536813569
     (phase 15's n = 2^12), u64 on the 62-bit q = 4611686018425815041 (exact
-    Shoup) and a 50-bit q (deferred, approximate Shoup); lazy outputs too."""
+    Shoup) and a 50-bit q (deferred, approximate Shoup); lazy outputs too,
+    the input range's extreme words, and at log_w 15-16 (a row over a
+    cluster of at least 2 and 4 blocks) batches 1, 3 and 8.  The u64 grid
+    the card picks (``launch_grid``) keeps the C entry's rule: a block's
+    tile within 2^14 words, no larger than the rows need, a row split only
+    into slices of at least 2^8 words forward and 2^7 inverse."""
     from primus_fhe_tpu_torch.ops import ntt_stages as st
     from primus_fhe_tpu_torch.parallel import coeff_sharded as cs
 
@@ -599,14 +621,50 @@ def test_stage_kernels_match_plain(dev, log_n, d):
     for q in (4611686018425815041, next_ntt_prime(50, log_n)):
         w, p = (t[log_d:, cols].to(dev) for t in cs.build_expanded_tables64(log_n, q))
         wi, pi = (t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables64(log_n, q))
-        x = _below(gen, [q], (2, width), 4, dev)[0]
-        for of in (1, 2, 4):
-            assert torch.equal(st.ntt64_stages_forward(log_w, q, w, p, x, of),
-                               st.ntt64_stages_forward_plain(log_w, q, w, p, x, of))
-        for in_factor in (2, 4):
-            y = _below(gen, [q], (2, width), in_factor, dev)[0]
-            assert torch.equal(st.ntt64_stages_inverse(log_w, q, wi, pi, y, in_factor),
-                               st.ntt64_stages_inverse_plain(log_w, q, wi, pi, y, in_factor))
+        for rows in batches:
+            for forward in (True, False):  # the card's own pick, held to the C entry's rule
+                c, tile = st.launch_grid(log_w, q, rows, forward)
+                l = log_w - (c.bit_length() - 1)
+                assert c in (1, 2, 4, 8) and tile in (1, 2, 4, 8)
+                assert tile << l <= 1 << 14  # a block's tile fits its shared memory
+                assert tile == 1 or tile // 2 < rows  # no larger than the rows need
+                assert c == 1 or l >= 7 + forward  # slices of >= 2^8 words forward, 2^7 inverse
+            x = _with_extremes(_below(gen, [q], (rows, width), 4, dev)[0], q, 4)
+            for of in (1, 2, 4):
+                assert torch.equal(st.ntt64_stages_forward(log_w, q, w, p, x, of),
+                                   st.ntt64_stages_forward_plain(log_w, q, w, p, x, of))
+            for in_factor in (2, 4):
+                y = _with_extremes(_below(gen, [q], (rows, width), in_factor, dev)[0], q,
+                                   in_factor)
+                assert torch.equal(st.ntt64_stages_inverse(log_w, q, wi, pi, y, in_factor),
+                                   st.ntt64_stages_inverse_plain(log_w, q, wi, pi, y, in_factor))
+
+
+def test_sharded_mxu_refuses_log_n_13_on_the_card(dev):
+    """Row 13 on the card takes 8 <= log_n <= 12: at log_n 13 (A = 64, which
+    the JAX ``ShardedMxuPlan64`` takes) the sharded forward and inverse raise
+    ValueError before any launch of the four split kernels."""
+    from primus_fhe_tpu_torch.ops import ntt_mxu8_split as split
+    from primus_fhe_tpu_torch.parallel import LocalMesh, shard
+    from primus_fhe_tpu_torch.parallel import coeff_sharded_mxu as csm
+
+    log_n, q = 13, 1125899906826241
+    plan = csm.get_sharded_plan(log_n, q)
+    mesh = LocalMesh(2, 1, dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randint(0, q, (2, 1 << log_n), generator=gen, device=dev)
+    kernels = (split.split_k1, split.split_k2, split.split_ki1, split.split_ki2)
+    before = [k.launches for k in kernels]
+    with pytest.raises(ValueError, match="8 <= log_n <= 12"):
+        csm.sharded_mxu_forward64(mesh, "residue", log_n, q,
+                                  shard(mesh, csm.to_coeff_layout(x, plan.A, plan.B),
+                                        (None, "residue", None)))
+    with pytest.raises(ValueError, match="8 <= log_n <= 12"):
+        csm.sharded_mxu_inverse64(mesh, "residue", log_n, q,
+                                  [torch.zeros((plan.A // 2, 2, plan.B), dtype=torch.int64,
+                                               device=dev)] * 2)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
 
 
 def test_local_mesh_rotation_and_coeff_sharded_match_single_card(dev):
