@@ -101,7 +101,11 @@ non-zero):
     forward + D, each with the card's busy time a trip with the host ahead
     and the idle share; once at 8 byte planes; K1, K2, Ki1 (with and without
     the key) and Ki2 against their plain versions (the lazy halves below 2q
-    and equal mod q), each with its share of its bound;
+    and equal mod q), each with its share of its bound; the sharded product
+    at n = 2^14 (A = 128, q = next_ntt_prime(50, 14), 512 rows) over D = 2
+    and 4 against row 10's route (``ntt64_forward``, the key's Shoup
+    multiply, ``ntt64_inverse``), counted and timed the same way, and K1 /
+    Ki2 against their plain versions at its D = 2 shard;
 17. the 32-bit DCRT transforms against kernels 1-2 and the residue- and
     batch-sharded external product on a ``LocalMesh`` (2, 2) at BOOLEAN_128
     width (key slice 0 of phase 3's bootstrap key, batch 64) against the
@@ -1070,6 +1074,7 @@ def phase15_coeff(torch, dev, table) -> dict:
 CSM_LOG_N, CSM_BATCH = 12, 64  # bench_coeff_sharded_mxu.py's shape (q = RT_MODULI[0])
 CSM_SHARDS = (2, 4)
 CSM_BATCH8 = 64  # rows of the 8-plane product (RT_MODULI[1])
+CSM14_LOG_N, CSM14_Q = 14, 1125899904679937  # 16.5: n = 2^14 (A = 128), next_ntt_prime(50, 14)
 
 
 def compare_lazy64(torch, table, name, bsz, kern, plain, q, bnd):
@@ -1126,7 +1131,8 @@ def phase16_sharded_mxu(torch, dev, table) -> dict:
     """Phase 16: row 13, the coefficient-sharded byte-radix NTT.  Returns the
     launch counts of its main path: the sharded negacyclic product at
     ``bench.py``'s shape over D = 2 and 4."""
-    from primus_fhe_tpu_torch.ops import ntt_mxu8, ntt_mxu8_split as split
+    from primus_fhe_tpu_torch.modular.factor import ShoupFactor64, factor_mul_lazy64
+    from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8, ntt_mxu8_split as split
     from primus_fhe_tpu_torch.parallel import LocalMesh, shard, unshard
     from primus_fhe_tpu_torch.parallel import coeff_sharded_mxu as csm
 
@@ -1147,16 +1153,26 @@ def phase16_sharded_mxu(torch, dev, table) -> dict:
         torch.cuda.synchronize()
         return {k: fn.launches for k, fn in kernels.items()}
 
-    def sharded(d, x, mt=None, forward_only=False):
+    def sharded(d, x, mt=None, forward_only=False, log_n=log_n, q=q):
         """Coefficient-layout shards of ``x (batch, n)`` on ``LocalMesh(d, 1)``
         through the sharded forward (and the inverse, keyed by ``mt``)."""
         mesh = LocalMesh(d, 1, dev)
-        xs = shard(mesh, csm.to_coeff_layout(x, A, B), coeff)
+        xs = shard(mesh, csm.to_coeff_layout(x, x.shape[1] // B, B), coeff)
         f = csm.sharded_mxu_forward64(mesh, "residue", log_n, q, xs)
         if forward_only:
             return csm.ntt_layout_to_flat(unshard(mesh, f, ntt))
         y = csm.sharded_mxu_inverse64(mesh, "residue", log_n, q, f, mul_tab=mt)
         return csm.from_coeff_layout(unshard(mesh, y, coeff))
+
+    def trip_lines(routes, modmuls):
+        for name, (step, v0) in routes.items():
+            ms = chained_ms(torch, step, v0, RT_TRIPS)
+            busy, enqueue = queued_ms(torch, step, v0, RT_TRIPS, ms)
+            log(f"[{name:12s}] {ms:.4f} ms a trip -> {modmuls / (ms / 1e3):.4e} modmul/s; "
+                f"{count_host_ops(torch, lambda: step(v0))} host ops a trip, enqueued in "
+                f"{enqueue:.4f} ms with the card asleep; device busy "
+                + ("not measured (the host fell behind the sleep)" if busy is None else
+                   f"{busy:.4f} ms a trip with the host ahead (idle share {1 - busy / ms:.3f})"))
 
     log(f"n = {n} = {A} x {B}, q = {q} ({P} byte planes); D must divide A and B")
     # -- 16.1: the forward at bench_coeff_sharded_mxu.py's shape ------------------
@@ -1226,15 +1242,7 @@ def phase16_sharded_mxu(torch, dev, table) -> dict:
                 mesh, "residue", log_n, q, csm.sharded_mxu_forward64(mesh, "residue", log_n, q, v),
                 mul_tab=mt),
             shard(mesh, csm.to_coeff_layout(xr, A, B), coeff))
-    for name, (step, v0) in routes.items():
-        ms = chained_ms(torch, step, v0, RT_TRIPS)
-        busy, enqueue = queued_ms(torch, step, v0, RT_TRIPS, ms)
-        line = (f"[{name:12s}] {ms:.4f} ms a trip -> {modmuls / (ms / 1e3):.4e} modmul/s; "
-                f"{count_host_ops(torch, lambda: step(v0))} host ops a trip, enqueued in "
-                f"{enqueue:.4f} ms with the card asleep; device busy "
-                + ("not measured (the host fell behind the sleep)" if busy is None else
-                   f"{busy:.4f} ms a trip with the host ahead (idle share {1 - busy / ms:.3f})"))
-        log(line)
+    trip_lines(routes, modmuls)
 
     # -- 16.3: the 8-plane tier --------------------------------------------------
     q8 = RT_MODULI[1]
@@ -1284,6 +1292,59 @@ def phase16_sharded_mxu(torch, dev, table) -> dict:
         _, _, _, dev_ms, (bound_ms, bound_by) = table[name][RT_BATCH]
         log(f"{name:22s} share of the bound {bound_ms / dev_ms:.4f} ({bound_ms:.4f} ms by "
             f"{bound_by} over {dev_ms:.4f} device ms)")
+
+    # -- 16.5: the sharded product at n = 2^14 (A = 128: 4 threads a lane) ----
+    log14, q14 = CSM14_LOG_N, CSM14_Q
+    n14 = 1 << log14
+    plan14 = csm.get_sharded_plan(log14, q14)
+    tabs14, A14 = plan14.tables, plan14.A
+    log(f"-- 16.5: the sharded negacyclic product at n = {n14} = {A14} x {B} ({RT_BATCH} rows, "
+        f"q = {q14}, {plan14.planes} planes) against row 10's route")
+    x14 = torch.randint(0, q14, (RT_BATCH, n14), generator=g, device=dev)
+    mt14 = tabs14.mul_table(torch.randint(0, q14, (1, n14), generator=g, device=dev))
+    q14t = torch.tensor([q14], dtype=torch.int64, device=dev).reshape(1, 1, 1)
+
+    def row10_route(v):  # ntt64_forward, the key's lazy Shoup multiply, ntt64_inverse
+        f = ntt64.ntt64_forward(tabs14.ntt, v[None])
+        key = ShoupFactor64(mt14[:, 0, None], mt14[:, 1, None])
+        return ntt64.ntt64_inverse(tabs14.ntt, factor_mul_lazy64(f, key, q14t))[0]
+
+    want14 = row10_route(x14)
+    reset()
+    prods14 = {d: sharded(d, x14, mt14, log_n=log14, q=q14) for d in CSM_SHARDS}
+    counts14 = read()
+    log(f"launches of one product at n = {n14}, D = {CSM_SHARDS}: {json.dumps(counts14)}")
+    if counts14 != want_c:
+        raise AssertionError(f"n = {n14}: sharded product launch counts {counts14}, want {want_c}")
+    for d, out in prods14.items():
+        if not torch.equal(out, want14):
+            raise AssertionError(f"n = {n14}, D={d}: the sharded product differs from row 10's route")
+    log(f"D = {CSM_SHARDS}: the same {want14.numel()} words as row 10's route")
+    routes = {"row 10 route": (row10_route, x14)}
+    for d in CSM_SHARDS:
+        mesh = LocalMesh(d, 1, dev)
+        routes[f"sharded D={d}"] = (
+            lambda v, mesh=mesh: csm.sharded_mxu_inverse64(
+                mesh, "residue", log14, q14,
+                csm.sharded_mxu_forward64(mesh, "residue", log14, q14, v), mul_tab=mt14),
+            shard(mesh, csm.to_coeff_layout(x14, A14, B), coeff))
+    trip_lines(routes, RT_BATCH * (n14 * log14 + n14))
+    d = CSM_SHARDS[0]
+    k0_off, _ = plan14.offsets(d, d - 1)
+    lanes, rows = B // d * RT_BATCH, A14 // d * RT_BATCH
+    lane14 = torch.randint(0, q14, (1, A14, lanes), generator=g, device=dev)
+    bnd = split_bounds(n14, plan14.planes, lanes, rows, d, True)
+    compare_lazy64(torch, table, "split_k1@n14", RT_BATCH,
+                   lambda: split.split_k1(tabs14, lane14, RT_BATCH, k0_off),
+                   lambda: split.split_k1_plain(tabs14, lane14, RT_BATCH, k0_off), q14,
+                   bnd["split_k1"])
+    compare_kernel64(torch, table, "split_ki2@n14", RT_BATCH,
+                     lambda: split.split_ki2(tabs14, lane14),
+                     lambda: split.split_ki2_plain(tabs14, lane14), bnd["split_ki2"])
+    for name in ("split_k1@n14", "split_ki2@n14"):
+        _, _, _, dev_ms, (bound_ms, bound_by) = table[name][RT_BATCH]
+        log(f"{name:22s} share of the bound {bound_ms / dev_ms:.4f} ({bound_ms:.4f} ms by "
+            f"{bound_by} over {dev_ms:.4f} device ms; D = {d} shard, {lanes} lanes of {A14})")
     return counts
 
 
@@ -1940,6 +2001,10 @@ def main() -> None:
             _, wms, wpms, wdev, (wbms, _) = table[f"{name}@w15"][b0]
             row.update({"ms_w15": wms, "plain_ms_w15": wpms, "device_ms_w15": wdev,
                         "bound_ms_w15": wbms})
+        if f"{name}@n14" in table:  # K1 / Ki2 at phase 16.5's D = 2 shard, n = 2^14
+            _, nms, npms, ndev, (nbms, _) = table[f"{name}@n14"][b0]
+            row.update({"ms_n14": nms, "plain_ms_n14": npms, "device_ms_n14": ndev,
+                        "bound_ms_n14": nbms})
         if f"{name}@nokey" in table:  # Ki1 without the fused key multiply
             _, kms, kpms, kdev, (kbms, _) = table[f"{name}@nokey"][b0]
             row.update({"ms_nokey": kms, "plain_ms_nokey": kpms, "device_ms_nokey": kdev,

@@ -30,7 +30,7 @@ at the round trip's 512 rows on a 7- and an 8-plane modulus (beside row 10,
     python3 cmux_mxu_timing.py --ntt64 --grids # row 10 on every tile of rows
     python3 cmux_mxu_timing.py --ntt64 --phases  # its cycles per pass (clock64)
     python3 cmux_mxu_timing.py --split ...     # row 13's halves (with --compare OLD: in turns)
-    python3 cmux_mxu_timing.py --split --grids # K2 and Ki1 on every tile of rows
+    python3 cmux_mxu_timing.py --split --grids # the four halves on every block size
     python3 cmux_mxu_timing.py --split --phases  # their cycles per phase (clock64)
     python3 cmux_mxu_timing.py --stages ...    # row 11's stage kernels (with --compare OLD: in turns)
     python3 cmux_mxu_timing.py --stages --grids  # the u64 pair on every (C, T)
@@ -72,17 +72,22 @@ their span on the device's global timer (:func:`stamp_ntt32`).
 in ``.proof/ntt64_tiles`` whose C entry takes the tile from outside
 (``pft_ntt64_force_tile``), ``--phases`` from ``.proof/ntt64_phases``
 (:func:`stamp_ntt64`).  ``--split`` times row 13's four halves (K1, K2,
-Ki1 with and without the key, Ki2) at phase 16's shard shapes
-(:data:`SPLIT_SHAPES`), each with its bound (``chip_smoke.split_bounds``),
+Ki1 with and without the key, Ki2) at phase 16's shard shapes, n = 4096
+and 2^14 (:data:`SPLIT_SHAPES`), each with its bound
+(``chip_smoke.split_bounds``),
 and phase 16.2's sharded product a trip at D = 2 and 4, host-paced and
 with the host ahead (:func:`sharded_trips`);
 under ``--compare`` the summary gives new / old per shape
-(``mean_split_ms``); ``--split --grids`` copies the package to
-``.proof/split_tiles`` with the row kernel's tile set from outside
-(``pft_split_force_tile``) and times K2 and Ki1 on every tile of 4-32
-rows beside the launch's own; ``--split --phases`` copies it to
-``.proof/split_phases`` with clock64() laps of block 0 per phase (load,
-table wait, each pass, twiddle, store; :func:`stamp_split`).  ``--stages``
+(``mean_split_ms``, None where the old side refuses the shape); ``--split --grids`` copies the package to
+``.proof/split_tiles`` with the row kernel's tile and the column kernel's
+threads a block set from outside (``pft_split_force_tile``,
+``pft_split_force_threads``) and times K2 and Ki1 on every tile of 4-32
+rows, K1 and Ki2 on blocks of 64-256 threads, beside the launch's own;
+``--split --phases`` copies it to ``.proof/split_phases`` with clock64()
+laps of block 0 per phase (row kernel: load, table wait, each pass,
+twiddle, store; column kernel: load and table wait, the stages in each
+layout, the layout change, twiddle or last stage, store;
+:func:`stamp_split`).  ``--stages``
 times row 11's four stage kernels at :data:`STAGE_SHAPES` (the u64 pair at
 phase 15's shards of 2 x 2^14 and 2 x 2^15 words, the JAX kernel's tile of
 8 x 2^14 and the card tests' smaller shards, on the exact-Shoup and a
@@ -408,17 +413,23 @@ def tile_times64(torch, dev) -> dict:
     return sweep_tiles(torch, calls, lib.pft_ntt64_force_tile)
 
 
-# Row 13's four halves at log_n 12 (A = 32 rows of B = 128 lanes) on shard d
-# - 1 of D = d: (label, q, d, batch): phase 16.2's product (512 rows of each
-# polynomial batch, D = 2 and 4, on bench.py's 7-plane q = 2^50 - 2^14 + 1
-# and the 8-plane q) and phase 16.1's forward (batch 64, D = 1, 2, 4).
-SPLIT_SHAPES = (("D2 b512", NTT_MODULI[0], 2, 512), ("D2 b512 8 planes", Q60, 2, 512),
-                ("D4 b512", NTT_MODULI[0], 4, 512), ("D4 b512 8 planes", Q60, 4, 512),
-                ("D1 b64", NTT_MODULI[0], 1, 64), ("D2 b64", NTT_MODULI[0], 2, 64),
-                ("D4 b64", NTT_MODULI[0], 4, 64))
+# Row 13's four halves on shard d - 1 of D = d: (label, log_n, q, d, batch).
+# At log_n 12 (A = 32 rows of B = 128 lanes): phase 16.2's product (512 rows
+# of each polynomial batch, D = 2 and 4, on bench.py's 7-plane q = 2^50 -
+# 2^14 + 1 and the 8-plane q) and phase 16.1's forward (batch 64, D = 1, 2,
+# 4); at log_n 14 (A = 128: 4 threads a lane in K1 / Ki2) phase 16.5's
+# product shards (q = next_ntt_prime(50, 14); the first design refuses them).
+SPLIT_Q14 = 1125899904679937
+SPLIT_SHAPES = (("D2 b512", 12, NTT_MODULI[0], 2, 512), ("D2 b512 8 planes", 12, Q60, 2, 512),
+                ("D4 b512", 12, NTT_MODULI[0], 4, 512), ("D4 b512 8 planes", 12, Q60, 4, 512),
+                ("D1 b64", 12, NTT_MODULI[0], 1, 64), ("D2 b64", 12, NTT_MODULI[0], 2, 64),
+                ("D4 b64", 12, NTT_MODULI[0], 4, 64), ("n14 D2 b512", 14, SPLIT_Q14, 2, 512),
+                ("n14 D4 b512", 14, SPLIT_Q14, 4, 512))
 SPLIT_NAMES = ("split_k1", "split_k2", "split_ki1", "split_ki1@nokey", "split_ki2")
-SPLIT_KIND = {"split_k2": 0, "split_ki1": 1, "split_ki1@nokey": 2}  # the row kernel's kinds
-SPLIT_TILES = (4, 8, 16, 32)
+# the stamped kernels' kinds: the row kernel's three, then the column kernel's two
+SPLIT_KIND = {"split_k2": 0, "split_ki1": 1, "split_ki1@nokey": 2, "split_k1": 3, "split_ki2": 4}
+SPLIT_TILES = (4, 8, 16, 32)  # the row kernel's rows a block
+SPLIT_THREADS = (64, 128, 256)  # the column kernel's threads a block
 
 
 def this_smoke():
@@ -473,9 +484,9 @@ def split_calls(torch, dev) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(2031)
     calls = {}
-    for label, q, d, batch in SPLIT_SHAPES:
-        plan = get_sharded_plan(12, q)
-        tabs, A, B, n = plan.tables, plan.A, plan.B, 1 << 12
+    for label, log_n, q, d, batch in SPLIT_SHAPES:
+        plan = get_sharded_plan(log_n, q)
+        tabs, A, B, n = plan.tables, plan.A, plan.B, 1 << log_n
         k0_off, r0_off = plan.offsets(d, d - 1)
         lanes, rows = B // d * batch, A // d * batch
         lane_in = torch.randint(0, q, (1, A, lanes), generator=g, device=dev)
@@ -837,6 +848,11 @@ def split_times(torch, dev) -> dict:
     (:func:`host_us`) and with none (:func:`idle_us`)."""
     out = {}
     for (name, label), (fn, bound_ms, _) in split_calls(torch, dev).items():
+        try:
+            fn()
+        except ValueError as e:  # a checkout that refuses the shape (A > 32 on byte planes)
+            out[f"{name}@{label}"] = {"ms": None, "refused": str(e), "bound_ms": bound_ms}
+            continue
         ms = device_ms(torch, fn)
         out[f"{name}@{label}"] = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms}
         if label == SPLIT_SHAPES[0][0]:
@@ -850,32 +866,51 @@ def split_times(torch, dev) -> dict:
 
 def stamp_split(src: Path, phases: bool) -> None:
     """A copy of ``ntt_mxu8_split.cu`` for ``--split --grids`` (the row
-    kernel's tile set from outside the launch, ``pft_split_force_tile(T)``,
-    0 for the launch's own; ``pft_split_used_tile`` reads the last launch's)
-    or ``--split --phases`` (clock64() laps of thread 0 of block 0 of the
-    row kernel after each phase, the earliest block start and latest block
-    end on the global timer, per kind; ``pft_read_split`` reads them and
-    resets the span)."""
+    kernel's tile and the column kernel's threads a block set from outside
+    the launch, ``pft_split_force_tile(T)`` / ``pft_split_force_threads(N)``,
+    0 for the launch's own; ``pft_split_used_tile`` / ``_threads`` read the
+    last launch's) or ``--split --phases`` (clock64() laps of thread 0 of
+    block 0 of the row and column kernels after each phase, the earliest
+    block start and latest block end on the global timer, per kind;
+    ``pft_read_split`` reads them and resets the span)."""
     text = src.read_text()
     if not phases:
         pick = "  a.tile = pick_rows(ms.count, rows, sms);\n"
-        if text.count(pick) != 1:
-            raise SystemExit("cmux_mxu_timing: ntt_mxu8_split.cu's pick moved")
+        cols = "constexpr int COL_THREADS = 128;\n"
+        if text.count(pick) != 1 or text.count(cols) != 1:
+            raise SystemExit("cmux_mxu_timing: ntt_mxu8_split.cu's picks moved")
         text = text.replace(pick, pick + "  if (pft_split_force > 0) a.tile = pft_split_force;\n"
                             "  pft_split_used = a.tile;\n")
+        text = text.replace(cols, "int col_threads() {\n  pft_col_used = pft_col_force > 0 ? "
+                            "pft_col_force : 128;\n  return pft_col_used;\n}\n"
+                            "#define COL_THREADS col_threads()\n")
         text = text.replace("namespace {\n", "int pft_split_force = 0, pft_split_used = 0;\n"
-                            "namespace {\n", 1)
+                            "int pft_col_force = 0, pft_col_used = 0;\nnamespace {\n", 1)
         entry = ("int pft_split_force_tile(int t) {\n  pft_split_force = t;\n  return 0;\n}\n"
-                 "int pft_split_used_tile() { return pft_split_used; }\n")
+                 "int pft_split_used_tile() { return pft_split_used; }\n"
+                 "int pft_split_force_threads(int t) {\n  pft_col_force = t;\n  return 0;\n}\n"
+                 "int pft_split_used_threads() { return pft_col_used; }\n")
         text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + entry, 1)
         src.write_text(text)
         return
-    pre, body, post = kernel_region(text, "split_row_kernel(const RowArgs a)",
-                                    "// The SM count of the current device")
     lap = "if (threadIdx.x == 0 && blockIdx.x == 0) pft_split_stamps[pft_kind][pft_k++] = clock64();"
     timer = ("{{ unsigned long long tg; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(tg)); "
              "if (threadIdx.x == 0) atomic{0}(&pft_split_gt[pft_kind][{1}], tg); }}")
-    edits = [  # (anchor, text to add, after the anchor?)
+
+    def stamp(text, begin, end, edits):
+        """The kernel between ``begin`` and ``end`` with laps at ``edits``
+        ((anchor, text to add, after the anchor?)) and at its end."""
+        pre, body, post = kernel_region(text, begin, end)
+        for anchor, add, after in edits:
+            if body.count(anchor) != 1:
+                raise SystemExit(f"cmux_mxu_timing: a split kernel changed near {anchor.strip()!r}")
+            body = body.replace(anchor, anchor + add if after else add + anchor)
+        body = body.rstrip()
+        if not body.endswith("}"):
+            raise SystemExit("cmux_mxu_timing: a split kernel's end moved")
+        return pre + body[:-1] + f"  {lap}\n  {timer.format('Max', 1)}\n}}\n\n" + post
+
+    text = stamp(text, "split_row_kernel(const RowArgs a)", "// The SM count of the current device", [
         ("  uint64_t* slice = sm + ROW_TABLE + tr * B;\n",
          "  constexpr int pft_kind = INVERSE ? (MUL ? 1 : 2) : 0;\n  int pft_k = 0;\n"
          f"  {timer.format('Min', 0)}\n  {lap}\n", True),
@@ -889,19 +924,23 @@ def stamp_split(src: Path, phases: bool) -> None:
          True),  # pass B / A', back to the slice
         ("    inv_stages<3, 2>(v1, tw2, q);\n", f"    {lap}\n", True),  # stages 4-5
         ("  // the store: chunks t + 8k", f"  {lap}\n", False),  # stage 6 and the twiddle
-    ]
-    for anchor, add, after in edits:
-        if body.count(anchor) != 1:
-            raise SystemExit(f"cmux_mxu_timing: the row kernel changed near {anchor.strip()!r}")
-        body = body.replace(anchor, anchor + add if after else add + anchor)
-    body = body.rstrip()
-    if not body.endswith("}"):
-        raise SystemExit("cmux_mxu_timing: the row kernel's end moved")
-    body = body[:-1] + f"  {lap}\n  {timer.format('Max', 1)}\n}}\n\n"
-    text = pre + body + post
-    text = text.replace("namespace {\n", "__device__ long long pft_split_stamps[3][16];\n"
-                        "__device__ unsigned long long pft_split_gt[3][2] = "
-                        "{{~0ull, 0ull}, {~0ull, 0ull}, {~0ull, 0ull}};\nnamespace {\n", 1)
+    ])
+    text = stamp(text, "split_col_kernel(const ColArgs a)", "// Threads a block: 128 at every shape", [
+        ("  uint64_t* slots = sm + 2 * A + (threadIdx.x >> 5) * 32 * W;  // the warp's slice\n",
+         "  constexpr int pft_kind = INVERSE ? 4 : 3;\n  int pft_k = 0;\n"
+         f"  {timer.format('Min', 0)}\n  {lap}\n", True),
+        ("  __syncthreads();  // the table\n", f"  {lap}\n", True),  # loads + table
+        ("    // stages log T .. log A - 1 in L2", f"    {lap}\n", False),  # K1: L1 + layout
+        ("    // the twiddle tw[r0][k0]", f"    {lap}\n", False),  # K1: L2 stages
+        ("    const uint64_t fy = sm[0], fyp = sm[A];", f"    {lap}\n", False),  # Ki2: L2
+        ("#pragma unroll\n    for (int r = 0; r < W; ++r) v[r] = reduce_once64(v[r], q);",
+         f"    {lap}\n", False),  # Ki2: layout, L1 stages, the last stage
+        ("  // the store: the forward from L2", f"  {lap}\n", False),  # twiddle / canonical
+    ])
+    text = text.replace("namespace {\n", "__device__ long long pft_split_stamps[5][16];\n"
+                        "__device__ unsigned long long pft_split_gt[5][2] = {{~0ull, 0ull}, "
+                        "{~0ull, 0ull}, {~0ull, 0ull}, {~0ull, 0ull}, {~0ull, 0ull}};\n"
+                        "namespace {\n", 1)
     reader = ("int pft_read_split(int kind, void* stamps, void* gt) {\n"
               "  cudaError_t e = cudaMemcpyFromSymbol(stamps, pft_split_stamps, 128, kind * 128);\n"
               "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_split_gt, 16, kind * 16);\n"
@@ -916,7 +955,11 @@ SPLIT_PHASES = {0: ("load", "table wait", "pass A (stages 0-2)", "to the slice",
                     "pass B (stages 3-6), back to the slice", "from the slice", "store"),
                 1: ("load + key", "table wait", "(no pass A)", "to the slice",
                     "pass A' (stages 0-3), back to the slice", "from the slice + stages 4-5",
-                    "twiddle loads + stage 6", "store")}
+                    "twiddle loads + stage 6", "store"),
+                3: ("load + table wait", "L1 stages + layout change", "L2 stages", "twiddle",
+                    "store"),
+                4: ("load + table wait", "L2 stages", "layout change + L1 stages + last stage",
+                    "canonical", "store")}
 SPLIT_PHASES[2] = SPLIT_PHASES[1]
 
 
@@ -951,30 +994,34 @@ def split_stamps(torch, dev) -> dict:
 
 
 def split_grids(torch, dev) -> dict:
-    """In a ``--split --grids`` copy (:func:`stamp_split`): the row kernel's
-    device ms at each shape on the launch's own tile and on every tile of
-    :data:`SPLIT_TILES` rows, every tile's words checked against the own
-    tile's."""
+    """In a ``--split --grids`` copy (:func:`stamp_split`): each half's device
+    ms at each shape on the launch's own block and on every other, every
+    block's words checked against the own block's: the row kernel (K2, Ki1)
+    on tiles of :data:`SPLIT_TILES` rows, the column kernel (K1, Ki2) on
+    blocks of :data:`SPLIT_THREADS` threads."""
     import ctypes
 
     from primus_fhe_tpu_torch.ops import build
 
     lib = build.library()
     lib.pft_split_force_tile.argtypes = [ctypes.c_int]
+    lib.pft_split_force_threads.argtypes = [ctypes.c_int]
     out = {}
     for (name, label), (fn, bound_ms, _) in split_calls(torch, dev).items():
-        if name not in SPLIT_KIND:
-            continue
-        lib.pft_split_force_tile(0)
+        col = name in ("split_k1", "split_ki2")
+        force, used, sizes, tag = ((lib.pft_split_force_threads, lib.pft_split_used_threads,
+                                    SPLIT_THREADS, "threads") if col else
+                                   (lib.pft_split_force_tile, lib.pft_split_used_tile,
+                                    SPLIT_TILES, "tile"))
+        force(0)
         want = fn()
-        row = {"own": lib.pft_split_used_tile(), "own_ms": device_ms(torch, fn),
-               "bound_ms": bound_ms}
-        for tile in SPLIT_TILES:
-            lib.pft_split_force_tile(tile)
+        row = {"own": used(), "own_ms": device_ms(torch, fn), "bound_ms": bound_ms}
+        for size in sizes:
+            force(size)
             if not torch.equal(fn(), want):
-                raise SystemExit(f"{name}@{label} tile {tile}: words differ")
-            row[f"tile{tile}"] = device_ms(torch, fn)
-        lib.pft_split_force_tile(0)
+                raise SystemExit(f"{name}@{label} {tag} {size}: words differ")
+            row[f"{tag}{size}"] = device_ms(torch, fn)
+        force(0)
         out[f"{name}@{label}"] = row
     return out
 
@@ -2004,7 +2051,7 @@ def main() -> None:
         } for label, *_ in D_SHAPES}
     host = mean("ntt", lambda r: {f"{k}:{part}": us for k, v in r["ntt"].items()
                                   for part, us in v.get("host", {}).items()})
-    split = mean("split", lambda r: {k: v["ms"] for k, v in r["split"].items()})
+    split = mean("split", lambda r: {k: v["ms"] or 0.0 for k, v in r["split"].items()})
     if split:  # the table's ratios: new / old, the new run's share of the bound; the trips' busy ms
         split["host_us"] = {side: {k: [(r["split"][k]["queued_us"], r["split"][k]["idle_us"])
                                        for r in runs if r["side"] == side]
@@ -2015,9 +2062,11 @@ def main() -> None:
                                        if r["side"] == side]
                                    for k in runs[0]["split"] if k.startswith("sharded")}
                             for side in ("old", "new")}
-        split["new_over_old"] = {k: split["new"][k] / split["old"][k] for k in split["new"]}
+        split["new_over_old"] = {k: split["new"][k] / split["old"][k] if split["old"][k]
+                                 else None for k in split["new"]}
         split["share_new"] = {k: runs[1]["split"][k]["bound_ms"] / split["new"][k]
-                              for k in split["new"] if "bound_ms" in runs[1]["split"][k]}
+                              for k in split["new"]
+                              if "bound_ms" in runs[1]["split"][k] and split["new"][k]}
     stages = mean("stages", lambda r: {k: v.get("ms") or 0.0 for k, v in r["stages"].items()
                                        if "ms" in v})
     if stages:  # new / old per shape (None where the old side refused it), the new share

@@ -198,63 +198,6 @@ __device__ __forceinline__ void write_digits(uint32_t v, const MxuBasis& bc, int
   }
 }
 
-// mm_planes with NP output planes (the 7- and 8-plane tiers of the u64
-// four-step): calls epi(m, n, d) with d[c] the int32 product of plane c.
-// Same tiling and operand rules as mm_planes.
-template <bool A_UNSIGNED, int MT, int NP, class Epi>
-__device__ __forceinline__ void mm_planes_n(const uint8_t* a, int lda, int m_rows,
-                                            const int8_t* __restrict__ w, int np, int n_real,
-                                            int kb, Epi epi) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mg = (m_rows + 16 * MT - 1) / (16 * MT), nt = np >> 3;
-  const size_t plane = (size_t)np * kb;
-  for (int task = threadIdx.x >> 5; task < mg * nt; task += blockDim.x >> 5) {
-    const int m0 = (task % mg) * 16 * MT, n0 = (task / mg) << 3;
-    int acc[MT][NP][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int c = 0; c < NP; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] = 0;
-    const uint8_t* a0 = a + (size_t)(m0 + g) * lda + t * 4;
-    const int8_t* wr = w + (size_t)(n0 + g) * kb + t * 4;
-#pragma unroll 2
-    for (int k = 0; k < kb; k += 32) {
-      uint32_t b[NP][2];
-#pragma unroll
-      for (int c = 0; c < NP; ++c) {
-        const int8_t* wc = wr + c * plane + k;
-        b[c][0] = __ldg((const uint32_t*)wc);
-        b[c][1] = __ldg((const uint32_t*)(wc + 16));
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        if (m0 + 16 * i >= m_rows) break;  // uniform across the warp
-        const uint8_t* ai = a0 + (size_t)(16 * i) * lda + k;
-        const uint32_t af[4] = {*(const uint32_t*)ai, *(const uint32_t*)(ai + 8 * lda),
-                                *(const uint32_t*)(ai + 16), *(const uint32_t*)(ai + 8 * lda + 16)};
-#pragma unroll
-        for (int c = 0; c < NP; ++c) mma_k32<A_UNSIGNED>(acc[i][c], af, b[c][0], b[c][1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + 16 * i + g + ((e >> 1) << 3);
-        const int n = n0 + 2 * t + (e & 1);
-        if (m < m_rows && n < n_real) {
-          int d[NP];
-#pragma unroll
-          for (int c = 0; c < NP; ++c) d[c] = acc[i][c][e];
-          epi(m, n, d);
-        }
-      }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Hopper building blocks of kernels A and B (cmux_mxu.cu): warpgroup int8
 // products (wgmma) with both operands in shared memory, mbarriers, and 1-D

@@ -1,8 +1,6 @@
 // The u64 tiers (7 and 8 byte planes, q < 2^62) of the byte-radix four-step
-// NTT: the fold of the plane sums to one u64 word and the shared-memory
-// geometry of a row group, shared by ntt_mxu8.cu (the fused transforms and
-// kernel D) and ntt_mxu8_split.cu (the column halves K1 and Ki2 of the
-// coefficient-sharded NTT).
+// NTT: the fold of the plane sums to one u64 word and the wgmma building
+// blocks of ntt_mxu8.cu (the fused transforms and kernel D).
 //
 // Each plane sum is exact in int32 (|d_c| < 1024 * 255 * 128 < 2^25), but
 // sum_c d_c 2^(8c) spans ~2^81, so fold_planes splits it at 2^32:
@@ -23,23 +21,6 @@ __device__ __forceinline__ uint64_t fold_planes(const int (&d)[P], const Mod64& 
   for (int i = P - 1; i >= 4; --i) hi = hi * 256 + d[i];
   return (uint64_t)(lo + (int64_t)c.off) +
          shoup64_lazy((uint64_t)(hi + (int64_t)c.off), c.c32, c.c32_p, c.q);
-}
-
-struct Geometry64 {
-  int n, A, G, np1, kb1, lda1;
-  size_t s_cols;  // bytes of the [(row, k0)][k1] buffer
-};
-
-__host__ __device__ inline Geometry64 geometry64(int log_n) {
-  Geometry64 g;
-  g.n = 1 << log_n;
-  g.A = g.n / PFT_MXU_B;
-  g.G = 32 / g.A;
-  g.np1 = round_up(g.A, 8);
-  g.kb1 = round_up(8 * g.A, 32);
-  g.lda1 = g.kb1 + 16;
-  g.s_cols = (size_t)g.G * PFT_MXU_B * g.lda1;
-  return g;
 }
 
 // ---------------------------------------------------------------------------

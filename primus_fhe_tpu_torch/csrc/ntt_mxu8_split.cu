@@ -5,78 +5,44 @@
 // (primus_fhe_tpu/parallel/coeff_sharded_mxu.py:131,184,229,297; pallas_call
 // at :174, :219, :287, :332):
 //
-//   K1  = forward pass 1 + twiddle (ntt_mxu8_forward64_kernel's first half),
+//   K1  = forward pass 1 + twiddle: each lane's A-point negacyclic transform,
 //   K2  = forward pass 2: each row's 128-point cyclic transform,
 //   Ki1 = inverse pass 1 + twiddle, with kernel D's key multiply at load as
 //         an option: each row's inverse 128-point cyclic transform,
-//   Ki2 = inverse pass 2, inv_n folded into wi2 (ntt_mxu8.cu's second half).
+//   Ki2 = inverse pass 2, inv_n folded in: each lane's inverse A-point
+//         negacyclic transform.
 //
-// K1 and Ki2, the column halves, run the fused kernels' plane matrices,
-// twiddles and fold (mxu8_64.cuh) on the same Mxu8Tables64 tables.  K2 and
-// Ki1, the row halves, run butterflies (split_row_kernel, below), on the
-// tables' 128-point cyclic root tables ("cyclic", "cyclic_inv").
+// The TPU kernels run each pass as a product with a byte-plane matrix on
+// its matrix unit; here every half runs butterflies on u64 words (the radix
+// passes' butterflies and table layout, csrc/ntt_passes.cuh), no byte plane:
+// the column halves on the A-point root tables "col" / "col_inv"
+// (split_col_kernel, below), the row halves on the 128-point cyclic ones
+// "cyclic" / "cyclic_inv" (split_row_kernel), all in
+// Mxu8Tables64.split_tables.  n = A x 128 for 8 <= log_n <= 14 (A = 2 ..
+// 128), the JAX ShardedMxuPlan64's range.
 //
 // Layouts (one modulus a leading index; words are u64 bit patterns):
 //   column passes K1, Ki2: (A, L), word [k][lane] at k * L + lane, a lane
-//     being a (k0, batch) pair of the shard's B/D lanes: the pass contracts
-//     over the A axis of each lane.  A block loads G * 128 lanes, transposed
-//     to [lane][k] in shared memory, as the fused kernels' pass 1 does.
+//     being a (k0, batch) pair of the shard's B/D lanes: the pass runs over
+//     the A axis of each lane.
 //   row passes K2, Ki1: (rows, 128), a row being an (r0, batch) pair of the
-//     shard's A/D rows: the pass contracts over the 128 words of each row.
+//     shard's A/D rows: the pass runs over the 128 words of each row.
 // A lane's global k0 is k0_off + lane / batch, a row's global r0 is
 // r0_off + row / batch: the twiddles are read from the (A, B) tables at
 // those indices, where the TPU kernels read copies expanded over the batch.
 // Ki1's key is the shard's rows of the fixed operand, (2, (rows / batch) *
 // 128): values, then their Shoup quotients.
 //
-// Outputs: K1 and Ki1 lazy (the Shoup twiddle: [0, 2q), congruent to the
-// canonical pass); K2 and Ki2 canonical.  The next half takes any u64 word.
-//
-// What bounds the column halves, per transform of `rows` polynomials of n =
-// A x 128 words: pass 1 is P x 8 x n x A int8 MACs a row against 16 n bytes
-// in and out of device memory a row per half: at n = 4096, 7 planes, bound
-// by bytes; a simple mma.sync kernel is issue-bound well above it.
+// Inputs: any u64 word (each brought to [0, 2q) as it loads).  Outputs: K1
+// and Ki1 lazy (the Shoup twiddle: [0, 2q), congruent to the canonical
+// pass); K2 and Ki2 canonical.
 //
 // One launch covers every modulus of the tables (the grid's leading index).
 
-#include "mxu8_64.cuh"
+#include "mxu8.cuh"  // PFT_MXU_B
 #include "ntt_passes.cuh"
 
 namespace {
-
-template <int P, bool TWIDDLE>
-__global__ void __launch_bounds__(256) split_col64_kernel(
-    const uint64_t* __restrict__ in, uint64_t* __restrict__ out, const int8_t* __restrict__ w,
-    const uint64_t* __restrict__ tw, ModSet64 ms, int L, int batch, int k0_off, int log_n) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const Geometry64 geo = geometry64(log_n);
-  const int n = geo.n, A = geo.A, LB = geo.G * PFT_MXU_B;
-  const int blocks = (L + LB - 1) / LB;
-  const int mi = blockIdx.x / blocks;
-  const int lane0 = (blockIdx.x % blocks) * LB;
-  const int m_rows = L - lane0 < LB ? L - lane0 : LB;
-  const Mod64 mc = ms.m[mi];
-  const size_t base = (size_t)mi * A * L;
-
-  for (int i = threadIdx.x; i < A * m_rows; i += blockDim.x) {
-    const int k = i / m_rows, m = i % m_rows;
-    *(uint64_t*)(smem + (size_t)m * geo.lda1 + k * 8) = in[base + (size_t)k * L + lane0 + m];
-  }
-  __syncthreads();
-  const uint64_t* t = tw + (size_t)mi * 4 * n;  // the forward twiddles and quotients
-  mm_planes_n<true, 2, P>(smem, geo.lda1, m_rows, w + (size_t)mi * P * geo.np1 * geo.kb1, geo.np1,
-                          A, geo.kb1, [&](int m, int r, const int (&d)[P]) {
-                            const int lane = lane0 + m;
-                            uint64_t y = fold_planes<P>(d, mc);
-                            if constexpr (TWIDDLE) {
-                              const int idx = r * PFT_MXU_B + k0_off + lane / batch;
-                              y = shoup64_lazy(y, t[idx], t[n + idx], mc.q);
-                            } else {
-                              y = canonical64(y, mc);
-                            }
-                            out[base + (size_t)r * L + lane] = y;
-                          });
-}
 
 // ---------------------------------------------------------------------------
 // The row halves K2 and Ki1: each row's 128-point cyclic transform, on the
@@ -409,88 +375,334 @@ int launch_rows(bool inverse, const void* in, void* out, const void* tab, const 
   return (int)cudaGetLastError();
 }
 
-enum class Split { kK1, kK2, kKi1, kKi2 };
+// ---------------------------------------------------------------------------
+// The column halves K1 and Ki2: each lane's A-point negacyclic transform, on
+// the radix passes' butterflies (csrc/ntt_passes.cuh).
+//
+// K1's pass matrix m1[r0, k1] = psi_A^k1 om_a^(brv(r0) k1) (psi_A = psi^128,
+// a primitive 2A-th root) is the A-point negacyclic NTT with bit-reversed
+// output: log A Cooley-Tukey stages, natural in, on row 10's root table of
+// psi_A ("col": stage s's block k at [2^s + k]), lazy in [0, 4q), then the
+// twiddle tw[r0][k0] as a lazy Shoup multiply.  Ki2's m1i is its
+// Gentleman-Sande mirror (bit-reversed in, natural out; "col_inv": stage
+// s's block j at [1 + A - (A >> s) + j]) with 1/n, not 1/A, folded into the
+// last stage: x + y times Mod64.inv_n (1/n of the n-point plan), x - y
+// times col_inv's word 0 (1/n times that stage's root), canonical out.
+//
+// What bounds them: at phase 16.2's D = 2 shard (32768 lanes of 32 words)
+// 16.8 MB in and out, 0.0050 ms at 3.35 TB/s; their Shoup multiplies (80 a
+// lane for the transform, 32 for K1's twiddle, 16 for Ki2's 1/n: 0.0022 ms
+// at the 32-bit multiply peak, 10 a Shoup; chip_smoke.py split_bounds) sit
+// under it.  The first kernel here split each word into 8 byte planes,
+// staged them transposed in shared memory and multiplied them by the P A x
+// 8 A int8 plane matrix on mma.sync, folding every output's P planes: a
+// method of the TPU's matrix unit, issue-bound well above the bytes; on u64
+// words the butterflies beat it (rows 10, 13's row halves, E).
+//
+// The design: a lane's column is split over T threads of a warp (T = 1 for
+// A <= 16, 4 for A = 32, A / 16 above), W = A / T words each (at most 16),
+// held in registers through the stages:
+// - layout L2, thread u holding words u W + r (r < W): the stages whose
+//   pairs lie within a thread's W words (the forward's last log W, the
+//   inverse's first log W) run on them (fwd_stages / inv_stages, fully
+//   unrolled);
+// - layout L1, thread u holding words j W + u G + i (j < T, i < G = W / T):
+//   the stages whose pairs lie W apart or more (the forward's first log T,
+//   the inverse's last log T) run on each of the thread's G groups of T
+//   words;
+// - the one change of layout goes through the warp's slice of shared
+//   memory (W words a thread), with a __syncwarp: a column's threads are
+//   one warp's.  Word k of the warp's column c lies at ((k ^ f(k)) 32 / T
+//   + c), f(k) = ((k >> log G) ^ (k >> log W)) mod T / 2, so that each
+//   half-warp of the 8-byte accesses in either layout hits 16 distinct
+//   8-byte bank pairs (tests/test_torch_split_cols_model.py).
+// So a column goes through no barrier between stages and no stage costs
+// more than its butterflies.  Splitting it gives the SMs more warps to hide
+// the butterflies' multiply latency: on an H100 at phase 16.4's D = 2 shard
+// one thread a lane (8 warps an SM) spent 2.5x the IMAD issue of its
+// butterflies (cmux_mxu_timing.py --split --phases), and K1 took 0.0157 ms,
+// 2 threads a lane 0.0153, 4 threads 0.0146 (in turns).
+// - a warp takes 32 / T adjacent lanes: each load and store at index k is
+//   T runs of 256 / T contiguous bytes.  Each word is brought to [0, 2q) as
+//   it loads (AnyIn64's lazy Shoup multiply by 1), but for the forward's
+//   y words of stage 0, whose Shoup multiply takes any word.
+// - the root table (2A words, at most 2 KB) is staged once a block by
+//   cp.async under the loads; at each step the threads of a lane part read
+//   one entry (a broadcast).  K1's twiddles (tw[r0][k0], shared by a lane's
+//   batch: a broadcast where batch >= 32) are read ahead of the L2 stages,
+//   in flight under them: on an H100 (cmux_mxu_timing.py --split in turns)
+//   read after the stages they cost 5-10% of K1's time at n = 4096, read
+//   with the words (held in registers through the L1 stages too) 1-3%.
+// - 128 threads a block (COL_THREADS), at most 18 KB of shared memory.
+// Every word goes through device memory once each way.
 
-template <class Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+struct ColArgs {
+  const uint64_t* in;   // (count, A, lanes)
+  uint64_t* out;        // (count, A, lanes)
+  const uint64_t* tab;  // (count, 2, A): the column roots, their quotients
+  const uint64_t* tw;   // (count, 4, n): tw at 0, its quotients at n
+  ModSet64 ms;
+  int lanes, batch, k0_off, log_n;
+};
+
+// log2 T, the threads a lane: W = A / T words a thread, at most 16; 8 at
+// A = 32 (the most threads the slot swizzle allows, W >= 2T).
+__host__ __device__ constexpr int col_log_t(int log_a) {
+  return log_a <= 4 ? 0 : log_a == 5 ? 2 : log_a - 4;
 }
 
-// The column passes K1 and Ki2 on `lanes` lanes of each modulus.
-template <int P>
-int launch_cols(Split kind, const void* in, void* out, const void* w, const void* tw,
-                const ModSet64& ms, int lanes, int batch, int k0_off, int log_n, void* stream) {
-  const Geometry64 geo = geometry64(log_n);
-  const int per_block = geo.G * PFT_MXU_B;
-  const size_t smem = geo.s_cols;
-  const int grid = ms.count * ((lanes + per_block - 1) / per_block);
-  const auto i64 = (const uint64_t*)in;
-  const auto o64 = (uint64_t*)out;
-  const auto w8 = (const int8_t*)w;
-  const auto t64 = (const uint64_t*)tw;
-  cudaStream_t st = (cudaStream_t)stream;
-  int err = 0;
-  if (kind == Split::kK1) {
-    if ((err = set_smem(split_col64_kernel<P, true>, smem))) return err;
-    split_col64_kernel<P, true><<<grid, 256, smem, st>>>(i64, o64, w8, t64, ms, lanes, batch,
-                                                         k0_off, log_n);
+// Words of shared memory a block: the table, then (T > 1) W words a thread.
+inline size_t col_smem(int log_a, int threads) {
+  const int t = col_log_t(log_a);
+  return sizeof(uint64_t) * (2 * ((size_t)1 << log_a) +
+                             (t ? (size_t)threads << (log_a - t) : 0));
+}
+
+// The warp's slice of the layout change: word k of column c (of 32 / T).
+template <int LOG_T, int LOG_G, int LOG_W>
+__device__ __forceinline__ int col_slot(int k, int c) {
+  const int f = ((k >> LOG_G) ^ (k >> LOG_W)) & ((1 << LOG_T) / 2 - 1);
+  return ((k ^ f) << (5 - LOG_T)) + c;
+}
+
+template <int LOG_A, bool INVERSE>
+__global__ void __launch_bounds__(256) split_col_kernel(const ColArgs a) {
+  constexpr int A = 1 << LOG_A;
+  constexpr int LOG_T = col_log_t(LOG_A), T = 1 << LOG_T;
+  constexpr int LOG_W = LOG_A - LOG_T, W = 1 << LOG_W;  // words a thread
+  constexpr int LOG_G = LOG_W - LOG_T, G = 1 << LOG_G;  // L1: groups of T words
+  constexpr int CPW = 32 >> LOG_T;                       // lanes a warp
+  static_assert(LOG_T <= 1 || LOG_G >= 1, "the slot swizzle needs W >= 2 T");
+  extern __shared__ __align__(16) uint64_t sm[];
+  const int per_block = (blockDim.x >> 5) * CPW;
+  const int blocks = (a.lanes + per_block - 1) / per_block;
+  const int mi = blockIdx.x / blocks;
+  const int lane = threadIdx.x & 31, u = lane / CPW, cw = lane % CPW;
+  const int col = (blockIdx.x - mi * blocks) * per_block + (threadIdx.x >> 5) * CPW + cw;
+  const bool live = col < a.lanes;
+  const int c = live ? col : a.lanes - 1;  // a dead thread runs on a live lane, stores nothing
+  const Mod64 m = a.ms.m[mi];
+  const uint64_t q = m.q, two_q = 2 * q;
+  const size_t base = (size_t)mi * A * a.lanes;
+  uint64_t* slots = sm + 2 * A + (threadIdx.x >> 5) * 32 * W;  // the warp's slice
+  // word k of a thread's register r: L1 k(r) = (r / G) W + u G + r % G, L2 u W + r
+  const auto l1 = [&](int r) { return ((r >> LOG_G) << LOG_W) + (u << LOG_G) + (r & (G - 1)); };
+  const auto l2 = [&](int r) { return (u << LOG_W) + r; };
+
+  // the table, by cp.async under the loads: roots at [i], quotients at [A + i]
+  const uint64_t* g = a.tab + (size_t)mi * 2 * A;
+  for (int i = threadIdx.x; i < 2 * A; i += blockDim.x) cp_async8(sm + i, g + i);
+  cp_async_commit();
+  // the loads: the forward in L1, the inverse in L2 (the same where T = 1)
+  uint64_t v[W];
+#pragma unroll
+  for (int r = 0; r < W; ++r)
+    v[r] = Word<uint64_t>::ldg(a.in + base + (size_t)(INVERSE ? l2(r) : l1(r)) * a.lanes + c);
+#pragma unroll
+  for (int r = 0; r < W; ++r)
+    if (INVERSE || r < W / 2) v[r] = shoup64_lazy(v[r], 1, m.p1, q);
+  cp_async_wait<0>();
+  __syncthreads();  // the table
+
+  if constexpr (!INVERSE) {
+    if constexpr (LOG_T > 0) {
+      // stages 0 .. log T - 1 in L1, group i = words j W + u G + i (j < T):
+      // stage e's block j >> (log T - e), root [2^e + that]
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        uint64_t x[T];
+#pragma unroll
+        for (int j = 0; j < T; ++j) x[j] = v[j * G + i];
+        fwd_stages<LOG_T>(
+            x,
+            [&](int e, int jj, uint64_t& w, uint64_t& wp) {
+              w = sm[(1 << e) + jj];
+              wp = sm[A + (1 << e) + jj];
+            },
+            q);
+#pragma unroll
+        for (int j = 0; j < T; ++j) v[j * G + i] = x[j];
+      }
+      // L1 -> L2 through the warp's slice
+#pragma unroll
+      for (int r = 0; r < W; ++r) slots[col_slot<LOG_T, LOG_G, LOG_W>(l1(r), cw)] = v[r];
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < W; ++r) v[r] = slots[col_slot<LOG_T, LOG_G, LOG_W>(l2(r), cw)];
+    }
+    // K1's twiddles tw[r0][k0] (r0 = u W + r, the bit-reversed output
+    // index), in flight under the L2 stages
+    const size_t n = (size_t)1 << a.log_n;
+    const uint64_t* t = a.tw + 4 * n * mi + a.k0_off + c / a.batch;
+    uint64_t f[W], fp[W];
+#pragma unroll
+    for (int r = 0; r < W; ++r) {
+      const size_t idx = (size_t)l2(r) * PFT_MXU_B;
+      f[r] = Word<uint64_t>::ldg(t + idx);
+      fp[r] = Word<uint64_t>::ldg(t + n + idx);
+    }
+    // stages log T .. log A - 1 in L2: global stage log T + e, block (u << e) + j
+    fwd_stages<LOG_W>(
+        v,
+        [&](int e, int j, uint64_t& w, uint64_t& wp) {
+          const int ti = (1 << (LOG_T + e)) + (u << e) + j;
+          w = sm[ti];
+          wp = sm[A + ti];
+        },
+        q);
+    // the twiddle tw[r0][k0]
+#pragma unroll
+    for (int r = 0; r < W; ++r) v[r] = shoup64_lazy(v[r], f[r], fp[r], q);
   } else {
-    if ((err = set_smem(split_col64_kernel<P, false>, smem))) return err;
-    split_col64_kernel<P, false><<<grid, 256, smem, st>>>(i64, o64, w8, t64, ms, lanes, 1, 0,
-                                                          log_n);
+    // stages 0 .. log W - 1 in L2 (all but the last where T = 1): stage e's
+    // block u (W >> (e + 1)) + j
+    inv_stages<LOG_W, (LOG_T > 0 ? LOG_W : LOG_W - 1)>(
+        v,
+        [&](int e, int j, uint64_t& w, uint64_t& wp) {
+          const int ti = 1 + A - (A >> e) + u * (W >> (e + 1)) + j;
+          w = sm[ti];
+          wp = sm[A + ti];
+        },
+        q);
+    const uint64_t fy = sm[0], fyp = sm[A];  // the last stage's x - y factor
+    if constexpr (LOG_T > 0) {
+      // L2 -> L1 through the warp's slice
+#pragma unroll
+      for (int r = 0; r < W; ++r) slots[col_slot<LOG_T, LOG_G, LOG_W>(l2(r), cw)] = v[r];
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < W; ++r) v[r] = slots[col_slot<LOG_T, LOG_G, LOG_W>(l1(r), cw)];
+      // stages log W .. log A - 1 in L1 on each group: stage log W + e's
+      // block j >> (e + 1); the last, 1/n folded in, x + y times inv_n and
+      // x - y times word 0
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        uint64_t x[T];
+#pragma unroll
+        for (int j = 0; j < T; ++j) x[j] = v[j * G + i];
+        inv_stages<LOG_T, LOG_T - 1>(
+            x,
+            [&](int e, int jj, uint64_t& w, uint64_t& wp) {
+              const int ti = 1 + A - (A >> (LOG_W + e)) + jj;
+              w = sm[ti];
+              wp = sm[A + ti];
+            },
+            q);
+#pragma unroll
+        for (int j = 0; j < T / 2; ++j) {
+          const uint64_t xx = x[j], yy = x[j + T / 2];
+          v[j * G + i] = shoup64_lazy(reduce_once64(xx + yy, two_q), m.inv_n, m.inv_n_p, q);
+          v[(j + T / 2) * G + i] = shoup64_lazy(xx + two_q - yy, fy, fyp, q);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < W / 2; ++k) {
+        const uint64_t x = v[k], y = v[k + W / 2];
+        v[k] = shoup64_lazy(reduce_once64(x + y, two_q), m.inv_n, m.inv_n_p, q);
+        v[k + W / 2] = shoup64_lazy(x + two_q - y, fy, fyp, q);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < W; ++r) v[r] = reduce_once64(v[r], q);
   }
+  // the store: the forward from L2, the inverse from L1
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < W; ++r)
+      a.out[base + (size_t)(INVERSE ? l1(r) : l2(r)) * a.lanes + col] = v[r];
+  }
+}
+
+// Threads a block: 128 at every shape (cmux_mxu_timing.py --split --grids on
+// an H100: within 1% of the best of 64, 128 and 256 at phase 16's shards,
+// where one block an SM, the rule of pick_rows, was up to 6% slower).
+constexpr int COL_THREADS = 128;
+
+template <int LOG_A>
+int col_launch(bool inverse, int grid, const ColArgs& a, cudaStream_t st) {
+  const size_t smem = col_smem(LOG_A, COL_THREADS);
+  if (inverse)
+    split_col_kernel<LOG_A, true><<<grid, COL_THREADS, smem, st>>>(a);
+  else
+    split_col_kernel<LOG_A, false><<<grid, COL_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
+// The column passes K1 and Ki2 on `lanes` lanes of each modulus.
+int launch_cols(bool inverse, const void* in, void* out, const void* tab, const void* tw,
+                const ModSet64& ms, int lanes, int batch, int k0_off, int log_n, void* stream) {
+  if ((((uintptr_t)in | (uintptr_t)out | (uintptr_t)tab | (uintptr_t)tw) & 7) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int log_a = log_n - 7;
+  const ColArgs a{(const uint64_t*)in, (uint64_t*)out, (const uint64_t*)tab, (const uint64_t*)tw,
+                  ms, lanes, batch, k0_off, log_n};
+  const int per_block = COL_THREADS >> col_log_t(log_a);
+  const int grid = ms.count * ((lanes + per_block - 1) / per_block);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (log_a) {
+    case 1: return col_launch<1>(inverse, grid, a, st);
+    case 2: return col_launch<2>(inverse, grid, a, st);
+    case 3: return col_launch<3>(inverse, grid, a, st);
+    case 4: return col_launch<4>(inverse, grid, a, st);
+    case 5: return col_launch<5>(inverse, grid, a, st);
+    case 6: return col_launch<6>(inverse, grid, a, st);
+    case 7: return col_launch<7>(inverse, grid, a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+enum class Split { kK1, kK2, kKi1, kKi2 };
+
 // `extent`: L lanes (column passes) or rows (row passes) of each modulus;
-// `w`: the plane matrix (column passes) or the cyclic root table (row
-// passes).
+// `w`: the column root table (column passes) or the cyclic one (row
+// passes).  `planes` (7 or 8) is checked: every half runs the same kernel
+// on either tier.
 int launch_split64_any(Split kind, const void* in, void* out, const void* w, const void* tw,
                        const void* key, const void* mod_pack, int count, int extent, int batch,
                        int off, int log_n, int planes, void* stream) {
-  if (count < 1 || count > PFT_MAX_MOD64 || log_n < 8 || log_n > 12 || extent < 1 || batch < 1 ||
+  if (count < 1 || count > PFT_MAX_MOD64 || log_n < 8 || log_n > 14 || extent < 1 || batch < 1 ||
       off < 0 || (planes != 7 && planes != 8))
     return (int)cudaErrorInvalidValue;
   const ModSet64 ms = unpack_mod64((const uint64_t*)mod_pack, count);
   if (kind == Split::kK2 || kind == Split::kKi1)
     return launch_rows(kind == Split::kKi1, in, out, w, tw, key, ms, extent, batch, off, log_n,
                        stream);
-  if (planes == 7)
-    return launch_cols<7>(kind, in, out, w, tw, ms, extent, batch, off, log_n, stream);
-  return launch_cols<8>(kind, in, out, w, tw, ms, extent, batch, off, log_n, stream);
+  return launch_cols(kind == Split::kKi2, in, out, w, tw, ms, extent, batch, off, log_n, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int pft_ntt_mxu8_split_k1(const void* in, void* out, const void* w1, const void* tw,
+// K1 and Ki2: col / col_inv are the tables' A-point column root tables
+// ("col" / "col_inv", (count, 2, A)); K2 and Ki1: cyclic / cyclic_inv the
+// 128-point cyclic ones ((count, 2, 128)); planes is checked, not used.
+int pft_ntt_mxu8_split_k1(const void* in, void* out, const void* col, const void* tw,
                           const void* mod_pack, int count, int lanes, int batch, int k0_off,
                           int log_n, int planes, void* stream) {
-  return launch_split64_any(Split::kK1, in, out, w1, tw, nullptr, mod_pack, count, lanes, batch,
+  return launch_split64_any(Split::kK1, in, out, col, tw, nullptr, mod_pack, count, lanes, batch,
                             k0_off, log_n, planes, stream);
 }
 
-// K2 and Ki1: w2 / wi1 are the tables' 128-point cyclic root tables
-// ("cyclic" / "cyclic_inv", (count, 2, 128)); planes is checked, not used.
-int pft_ntt_mxu8_split_k2(const void* in, void* out, const void* w2, const void* tw,
+int pft_ntt_mxu8_split_k2(const void* in, void* out, const void* cyclic, const void* tw,
                           const void* mod_pack, int count, int rows, int log_n, int planes,
                           void* stream) {
-  return launch_split64_any(Split::kK2, in, out, w2, tw, nullptr, mod_pack, count, rows, 1, 0,
+  return launch_split64_any(Split::kK2, in, out, cyclic, tw, nullptr, mod_pack, count, rows, 1, 0,
                             log_n, planes, stream);
 }
 
-int pft_ntt_mxu8_split_ki1(const void* in, void* out, const void* wi1, const void* tw,
+int pft_ntt_mxu8_split_ki1(const void* in, void* out, const void* cyclic_inv, const void* tw,
                            const void* key, const void* mod_pack, int count, int rows, int batch,
                            int r0_off, int log_n, int planes, void* stream) {
-  return launch_split64_any(Split::kKi1, in, out, wi1, tw, key, mod_pack, count, rows, batch,
+  return launch_split64_any(Split::kKi1, in, out, cyclic_inv, tw, key, mod_pack, count, rows, batch,
                             r0_off, log_n, planes, stream);
 }
 
-int pft_ntt_mxu8_split_ki2(const void* in, void* out, const void* wi2, const void* tw,
+int pft_ntt_mxu8_split_ki2(const void* in, void* out, const void* col_inv, const void* tw,
                            const void* mod_pack, int count, int lanes, int log_n, int planes,
                            void* stream) {
-  return launch_split64_any(Split::kKi2, in, out, wi2, tw, nullptr, mod_pack, count, lanes, 1, 0,
+  return launch_split64_any(Split::kKi2, in, out, col_inv, tw, nullptr, mod_pack, count, lanes, 1, 0,
                             log_n, planes, stream);
 }
 

@@ -62,12 +62,14 @@ none of them is ported.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..modular.factor import ShoupFactor64, factor_mul64, factor_mul_lazy64
 from ..numeric.limb import narrow_u32, u64_numpy, u64_tensor, widen_u32
-from ..transforms.plan import _quot64
+from ..transforms.plan import _quot64, build_plan64
 from ..utils.bits import reverse_lsbs
 from . import build
 from .cmux_mxu import LANES, _balanced_digits, kernel_layout
@@ -174,6 +176,33 @@ def cyclic_tables(om_b: int, q: int) -> tuple[np.ndarray, np.ndarray]:
     return tuple(np.array([t, [_quot64(v, q) for v in t]], dtype=np.uint64) for t in (fwd, inv))
 
 
+def col_tables(log_n: int, q: int, psi_a: int) -> tuple[np.ndarray, np.ndarray]:
+    """The root tables of row 13's column transforms, pass 1's ``m1`` and
+    inverse pass 2's ``m1i``, each ``(2, A)`` u64: the roots, then their
+    Shoup quotients.  ``m1[r0, k1] = psi_A^k1 om_a^(brv(r0) k1)``, with
+    ``psi_A = psi^128 = m1[0, 1]`` a primitive ``2A``-th root (``psi`` the
+    plan's ``2n``-th), is the A-point negacyclic NTT with bit-reversed
+    output, so the tables are row 10's (:func:`..transforms.plan.build_plan64`
+    at ``log_A`` on root ``psi_A``, ``csrc/ntt_passes.cuh``'s layout):
+
+    - forward (Cooley-Tukey, natural in, bit-reversed out): the plan's
+      ``roots``, stage ``s``'s block ``k`` at ``[2^s + k]``;
+    - inverse (Gentleman-Sande, bit-reversed in, natural out): the plan's
+      ``inv_roots``, stage ``s``'s block ``j`` at ``[1 + A - (A >> s) +
+      j]``; ``m1i`` folds ``1/n``, not the plan's ``1/A``, into the last
+      stage, whose two factors are ``1/n`` (``Mod64.inv_n`` of the
+      ``n``-point plan) and ``1/n`` times the plan's ``inv_roots[A - 1]``,
+      held in word 0, which no stage reads.
+    """
+    log_a = log_n - 7
+    a = 1 << log_a
+    plan = build_plan64(log_a, q, root=psi_a)
+    fwd = [int(v) for v in u64_numpy(plan.roots)]
+    inv = [int(v) for v in u64_numpy(plan.inv_roots)]
+    inv[0] = pow(1 << log_n, -1, q) * inv[a - 1] % q
+    return tuple(np.array([t, [_quot64(v, q) for v in t]], dtype=np.uint64) for t in (fwd, inv))
+
+
 class Mxu8NttPlan64:
     """Byte-radix four-step plan of one modulus ``q < 2^62`` at ``8 <= log_n
     <= 14``: ``A = n / 128`` rows by ``B = 128`` lanes (the JAX plan's
@@ -190,7 +219,11 @@ class Mxu8NttPlan64:
     (k1, r0)`` (rows out, columns in) as u64 words.  ``cyclic`` and
     ``cyclic_inv`` are pass 2's and inverse pass 1's 128-point cyclic
     transforms as butterfly root tables (:func:`cyclic_tables`, on ``m2``'s
-    root ``om_b = m2[brv7(1), 1]``): row 13's K2 and Ki1 run them.
+    root ``om_b = m2[brv7(1), 1]``): row 13's K2 and Ki1 run them; ``col``
+    and ``col_inv`` pass 1's and inverse pass 2's A-point negacyclic
+    transforms (:func:`col_tables`, on ``m1``'s ``psi_A = m1[0, 1]``): K1
+    and Ki2 run them.  The byte-plane matrices are built at first use (row
+    9's kernels and the JAX tables read them; row 13 does not).
     """
 
     def __init__(self, log_n: int, q: int, planes: int | None = None, root: int | None = None):
@@ -201,15 +234,11 @@ class Mxu8NttPlan64:
             raise ValueError(f"planes must be in {{4,7,8}} and >= the natural tier {natural}")
         if not 8 <= log_n <= 14:
             raise ValueError("Mxu8NttPlan64 needs 8 <= log_n <= 14 (B = 128 lanes)")
-        self.planes = P = planes
+        self.planes = planes
         self.log_n, self.n, self.q = log_n, 1 << log_n, int(q)
         h1 = log_n - 7
         self.A, self.B = 1 << h1, LANES
-        fs = four_step_matrices(log_n, q, h1, h1, root)
-        self.w1 = byte_matrix(fs["m1"], q, P, 8)  # rows (c, r0), cols (l, k1)
-        self.w2 = byte_matrix(fs["m2"], q, P, 8)  # rows (c, r1), cols (l, k0)
-        self.wi1 = byte_matrix(fs["m2i"], q, P, 8)  # rows (c, k0), cols (l, r1)
-        self.wi2 = byte_matrix(fs["m1i"], q, P, 8)  # rows (c, k1), cols (l, r0)
+        self._fs = fs = four_step_matrices(log_n, q, h1, h1, root)
         self.tw, self.twi = _precon64(fs["tw"]), _precon64(fs["twi"])
         # the four pass matrices (rows out, columns in) for the plain halves
         self.mats = {name: _precon64(fs[name]) for name in ("m1", "m2", "m2i", "m1i")}
@@ -217,6 +246,16 @@ class Mxu8NttPlan64:
         self.tw_p = _precon64(quot(fs["tw"]))
         self.twi_p = _precon64(quot(fs["twi"]))
         self.cyclic, self.cyclic_inv = cyclic_tables(int(fs["m2"][LANES // 2, 1]), self.q)
+        self.col, self.col_inv = col_tables(log_n, self.q, int(fs["m1"][0, 1]))
+
+    def _planes(self, name):
+        return byte_matrix(self._fs[name], self.q, self.planes, 8)
+
+    # the byte-plane matrices: rows (c, out), columns (l, in)
+    w1 = functools.cached_property(lambda self: self._planes("m1"))  # (c, r0), (l, k1)
+    w2 = functools.cached_property(lambda self: self._planes("m2"))  # (c, r1), (l, k0)
+    wi1 = functools.cached_property(lambda self: self._planes("m2i"))  # (c, k0), (l, r1)
+    wi2 = functools.cached_property(lambda self: self._planes("m1i"))  # (c, k1), (l, r0)
 
     def jax_tables(self) -> dict:
         """The JAX plan's ``w1f, w2f, w1mf, w2mf`` (``P`` operand planes)."""
@@ -239,6 +278,7 @@ class Mxu8Tables64:
         self.A, self.B = max(self.n // LANES, 1), LANES
         self._plans = None
         self._kernel_on: dict = {}
+        self._split_on: dict = {}
         self._mats_on: dict = {}
 
     @property
@@ -287,15 +327,29 @@ class Mxu8Tables64:
             self._mats_on[device] = mats
         return self._mats_on[device]
 
+    def split_tables(self, device) -> dict:
+        """The tables row 13's kernels read (``csrc/ntt_mxu8_split.cu``), no
+        byte plane among them (u64 patterns in int64): ``tw (count, 4, n)``
+        = tw, its quotient, twi, its quotient; ``cyclic``, ``cyclic_inv``
+        ``(count, 2, 128)`` (:func:`cyclic_tables`, K2 and Ki1); ``col``,
+        ``col_inv`` ``(count, 2, A)`` (:func:`col_tables`, K1 and Ki2)."""
+        device = torch.device(device)
+        if device not in self._split_on:
+            tw = np.stack([np.stack([p.tw.reshape(-1), p.tw_p.reshape(-1), p.twi.reshape(-1),
+                                     p.twi_p.reshape(-1)]) for p in self.plans])
+            tabs = {"tw": u64_tensor(tw, device)}
+            for name in ("cyclic", "cyclic_inv", "col", "col_inv"):
+                tabs[name] = u64_tensor(np.stack([getattr(p, name) for p in self.plans]), device)
+            self._split_on[device] = tabs
+        return self._split_on[device]
+
     def kernel_tables(self, device) -> dict:
         """``w1, w2, wi1, wi2`` (int8, kernel layout: columns ``(k, l)``,
-        stacked over moduli; row 13's K1 and Ki2 read ``w1`` and ``wi2``),
-        ``w1s, w2s`` (``w1``/``w2`` in the forward kernel's stream order,
-        :func:`forward_stream_tables`), ``wi1s, wi2s`` (``wi1``/``wi2`` in
-        the inverse kernel's, :func:`inverse_stream_tables`), ``tw (count,
-        4, n)`` = tw, its quotient, twi, its quotient, and ``cyclic``,
-        ``cyclic_inv`` ``(count, 2, 128)`` (:func:`cyclic_tables`, row 13's
-        K2 and Ki1) (u64 patterns in int64)."""
+        stacked over moduli), ``w1s, w2s`` (``w1``/``w2`` in the forward
+        kernel's stream order, :func:`forward_stream_tables`), ``wi1s,
+        wi2s`` (``wi1``/``wi2`` in the inverse kernel's,
+        :func:`inverse_stream_tables`), and the :meth:`split_tables` (the
+        twiddles ``tw`` among them)."""
         device = torch.device(device)
         if device not in self._kernel_on:
             P, A, B = self.planes, self.A, self.B
@@ -308,13 +362,9 @@ class Mxu8Tables64:
             streams = [inverse_stream_tables(a, b, P) for a, b in zip(lay["wi1"], lay["wi2"])]
             lay["wi1s"] = np.stack([s[0] for s in streams])
             lay["wi2s"] = np.stack([s[1] for s in streams])
-            tw = np.stack([np.stack([p.tw.reshape(-1), p.tw_p.reshape(-1), p.twi.reshape(-1),
-                                     p.twi_p.reshape(-1)]) for p in self.plans])
             tabs = {name: torch.from_numpy(np.ascontiguousarray(arr)).to(device)
                     for name, arr in lay.items()}
-            tabs["tw"] = u64_tensor(tw, device)
-            for name in ("cyclic", "cyclic_inv"):
-                tabs[name] = u64_tensor(np.stack([getattr(p, name) for p in self.plans]), device)
+            tabs.update(self.split_tables(device))
             self._kernel_on[device] = tabs
         return self._kernel_on[device]
 

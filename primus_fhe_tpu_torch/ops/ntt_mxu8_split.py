@@ -40,14 +40,17 @@ and take any u64 word.
 CPU tensors take the plain versions (exact modular matrix products on the
 plan's pass matrices, :meth:`.ntt_mxu8.Mxu8Tables64.pass_matrices`), CUDA
 tensors the kernels of ``csrc/ntt_mxu8_split.cu``, where their design and
-bounds are stated: K1 and Ki2 on the byte planes ``w1`` / ``wi2``, K2 and
-Ki1 as butterflies (each row's 128-point cyclic transform on the root
-tables ``cyclic`` / ``cyclic_inv``, :func:`.ntt_mxu8.cyclic_tables`).  On
-CUDA the four wrappers take ``8 <= log_n <= 12`` and raise ValueError before
-any launch above it; the JAX ``ShardedMxuPlan64`` also takes log_n 13-14
-(``A`` = 64, 128), which the plain versions compute on the CPU.  The limit
-goes with the redesign of K1 and Ki2, still byte-plane kernels whose C entry
-takes log_n 8-12 (``A <= 32``).
+bounds are stated: every half runs butterflies on u64 words, no byte plane,
+on :meth:`.ntt_mxu8.Mxu8Tables64.split_tables`: K1 and Ki2 each lane's
+A-point negacyclic transform (row 10's root tables on ``psi^128``, ``col`` /
+``col_inv``, :func:`.ntt_mxu8.col_tables`; a lane's column in registers
+over 1 (``A <= 16``), 4 (``A = 32``) or ``A / 16`` threads of a warp, one
+layout change through shared memory between the stages within a thread's
+words and those across), K2 and
+Ki1 each row's 128-point cyclic transform (``cyclic`` / ``cyclic_inv``,
+:func:`.ntt_mxu8.cyclic_tables`).  On CUDA the four wrappers take ``8 <=
+log_n <= 14`` (``A`` = 2 to 128, the JAX ``ShardedMxuPlan64``'s range) and
+raise ValueError before any launch outside it.
 """
 
 from __future__ import annotations
@@ -152,12 +155,12 @@ def _launch(wrapper, entry, tables, values, wname, extra_ptrs, ints):
     tw, *extra_ptrs, mod_pack, count, *ints, log_n, planes, stream)``."""
     if values.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {values.device}")
-    if not 8 <= tables.log_n <= 12:
-        raise ValueError(f"{wrapper.__name__}: the kernels take 8 <= log_n <= 12")
+    if not 8 <= tables.log_n <= 14:
+        raise ValueError(f"{wrapper.__name__}: the kernels take 8 <= log_n <= 14")
     v = values.contiguous()
     out = torch.empty_like(v)
     if v.numel():
-        tabs = tables.kernel_tables(v.device)
+        tabs = tables.split_tables(v.device)
         err = getattr(build.library(), entry)(
             v.data_ptr(), out.data_ptr(), tabs[wname].data_ptr(), tabs["tw"].data_ptr(),
             *extra_ptrs, build.ptr(tables.ntt.mod_pack), len(tables.moduli), *ints,
@@ -187,7 +190,7 @@ def split_k1(tables: Mxu8Tables64, values: torch.Tensor, batch: int, k0_off: int
     _check_lanes(tables, values.shape[2], batch, k0_off)
     if values.device.type == "cpu":
         return split_k1_plain(tables, values, batch, k0_off)
-    return _launch(split_k1, "pft_ntt_mxu8_split_k1", tables, values, "w1", (),
+    return _launch(split_k1, "pft_ntt_mxu8_split_k1", tables, values, "col", (),
                    (values.shape[2], batch, k0_off))
 
 
@@ -229,7 +232,7 @@ def split_ki2(tables: Mxu8Tables64, values: torch.Tensor):
     _check(split_ki2, tables, values, (tables.A, None))
     if values.device.type == "cpu":
         return split_ki2_plain(tables, values)
-    return _launch(split_ki2, "pft_ntt_mxu8_split_ki2", tables, values, "wi2", (),
+    return _launch(split_ki2, "pft_ntt_mxu8_split_ki2", tables, values, "col_inv", (),
                    (values.shape[2],))
 
 

@@ -110,11 +110,9 @@ def sharded_mxu_forward64(mesh, axis: str, log_n: int, q: int, values, out_facto
     shards ``(A/D, batch, B)``, canonical.  K1 on each shard's lanes, one
     ``all_to_all`` (rows for lanes), K2 on each shard's rows.
 
-    On CUDA shards ``8 <= log_n <= 12`` (the split kernels raise ValueError
-    before any launch above it); the JAX ``ShardedMxuPlan64`` also takes
-    log_n 13-14, and so do the plain halves here on the CPU.  The limit
-    goes with the redesign of K1 / Ki2, still byte-plane kernels whose C
-    entry takes log_n 8-12 (``A <= 32``)."""
+    ``8 <= log_n <= 14`` (``A`` = 2 to 128), the JAX ``ShardedMxuPlan64``'s
+    range, on CUDA shards as on the CPU (the split kernels raise ValueError
+    before any launch outside it)."""
     _check_factor(out_factor, (1, 2, 4))
     plan = get_sharded_plan(log_n, q)
     A, B, d = plan.A, plan.B, mesh.axis_size(axis)
@@ -141,7 +139,7 @@ def sharded_mxu_inverse64(mesh, axis: str, log_n: int, q: int, values, out_facto
     :meth:`..ops.ntt_mxu8.Mxu8Tables64.mul_table` ``(1, 2, n)`` of a fixed
     NTT-domain operand on ``mesh.device``, fuses its pointwise multiply into
     Ki1 (each shard takes its ``A/D`` rows): the sharded counterpart of
-    ``mxu8_inverse64_mul``.  On CUDA ``8 <= log_n <= 12``, as
+    ``mxu8_inverse64_mul``.  ``8 <= log_n <= 14``, as
     :func:`sharded_mxu_forward64` states."""
     _check_factor(out_factor, (1, 2))
     plan = get_sharded_plan(log_n, q)

@@ -13,13 +13,13 @@ its half-transforms ``ops/ntt_mxu8_split.py``), and the tiled
 - D = 1, 2, 4 on ``LocalMesh`` and D = 2 on gloo against the port's
   single-card ``mxu8_forward64``/``mxu8_inverse64``/``mxu8_inverse64_mul``
   plain versions (already held to the JAX);
-- log_n 13 over D = 2 (the plain halves; the card takes log_n 8-12) against
-  the single-card ``forward64``, and its round trip;
-- a numpy model of the four kernels' data flow on the kernel-layout tables
-  (K1 and Ki2: the csrc's byte planes, fold and Shoup twiddle; K2 and Ki1:
-  the butterfly kernel's model, ``test_torch_split_rows_model.py``) against
-  the plain halves, shard offsets and the key included: K2 and Ki2
-  word-equal, K1 and Ki1 below 2q and equal mod q (the lazy-word rule of
+- log_n 13 over D = 2 (the plain halves; the card takes log_n 8-14 too)
+  against the single-card ``forward64``, and its round trip;
+- a numpy model of the four kernels' data flow on their tables (K1 and Ki2:
+  the column kernel's model, ``test_torch_split_cols_model.py``; K2 and
+  Ki1: the row kernel's, ``test_torch_split_rows_model.py``) against the
+  plain halves at log_n 8-14, shard offsets and the key included: K2 and
+  Ki2 word-equal, K1 and Ki1 below 2q and equal mod q (the lazy-word rule of
   ``ops/ntt_mxu8_split.py``);
 - the layout converters against the JAX's.
 
@@ -42,12 +42,13 @@ from primus_fhe_tpu_torch.parallel import coeff_sharded_mxu as csm
 from primus_fhe_tpu_torch.parallel.mesh import LocalMesh, shard, unshard
 from primus_fhe_tpu_torch.transforms.ntt import forward64
 from primus_fhe_tpu_torch.transforms.plan import build_plan64
-from test_torch_ntt64 import _bytes64, _canonical, _consts, _planes64, _shoup
+from test_torch_split_cols_model import Q14, model_cols
 from test_torch_split_rows_model import model_rows
 
 LOG_N, BATCH = 10, 8
 Q50 = 1125899906629633  # 7 planes, not a Solinas prime
 Q60 = 1152921504606830593  # 8 planes
+Q13 = 1125899906826241  # = 1 mod 2^14: log_n 13
 COEFF, NTT = (None, "residue", None), ("residue", None, None)
 
 
@@ -138,11 +139,11 @@ def test_sharded_transforms_match_single_card(d, q, log_n):
 
 def test_sharded_plain_path_at_log_n_13():
     """log_n 13 (A = 64), which the JAX ``ShardedMxuPlan64`` takes and the
-    card refuses until K1 / Ki2 are redesigned (the card test
-    ``test_sharded_mxu_refuses_log_n_13_on_the_card``): on the CPU the plain
-    halves over D = 2 give the single-card ``forward64``'s words, and the
-    round trip returns the input."""
-    log_n, q = 13, 1125899906826241  # = 1 mod 2^14
+    card takes too since K1 / Ki2 run butterflies (the card test
+    ``test_sharded_mxu_at_log_n_13_and_14_on_the_card``): on the CPU the
+    plain halves over D = 2 give the single-card ``forward64``'s words, and
+    the round trip returns the input."""
+    log_n, q = 13, Q13
     x, _ = _inputs(q, 13, log_n, 2)
     mesh = LocalMesh(2, 1, "cpu")
     plan = csm.get_sharded_plan(log_n, q)
@@ -202,20 +203,11 @@ def test_layout_converters_match_jax():
 
 
 def _model(tables, kind, x, batch=1, off=0, key=None):
-    """``split_col64_kernel`` (K1, Ki2) or ``split_row_kernel`` (K2, Ki1) of
+    """``split_col_kernel`` (K1, Ki2) or ``split_row_kernel`` (K2, Ki1) of
     ``csrc/ntt_mxu8_split.cu`` on one modulus: ``x (A, L)`` or ``(rows,
     128)`` u64 (``key (2, rows / batch * 128)`` u64) -> the kernel's words."""
-    tabs = {k: v.numpy() for k, v in tables.kernel_tables("cpu").items()}
-    P, A, B = tables.planes, tables.A, tables.B
-    c = _consts(tables, 0)
-    tw = tabs["tw"][0].view(np.uint64).astype(object).reshape(4, A, B)
     if kind in ("k1", "ki2"):
-        w = tabs["w1" if kind == "k1" else "wi2"][0]
-        y = _planes64(_bytes64(x.T, w.shape[1]), w, P, w.shape[0] // P, A, c).T  # (A, L)
-        if kind == "ki2":
-            return _canonical(y, c)
-        k0 = off + np.arange(x.shape[1]) // batch
-        return _shoup(y, tw[0][:, k0], tw[1][:, k0], c["q"])
+        return model_cols(tables, kind, x[None], 64, batch, off)[0]
     return model_rows(tables, kind, x[None], 8, batch, off, None if key is None else key[None])[0]
 
 
@@ -225,7 +217,8 @@ def _lazy_equal(model, plain, q):
     np.testing.assert_array_equal((model % q).astype(np.uint64), plain)
 
 
-@pytest.mark.parametrize("log_n,q,d,index", [(8, Q50, 2, 1), (10, Q60, 4, 2), (12, Q50, 8, 5)])
+@pytest.mark.parametrize("log_n,q,d,index", [(8, Q50, 2, 1), (10, Q60, 4, 2), (12, Q50, 8, 5),
+                                             (13, Q13, 2, 1), (14, Q14, 4, 3)])
 def test_split_kernel_model_matches_plain(log_n, q, d, index):
     plan = csm.get_sharded_plan(log_n, q)
     tables = plan.tables

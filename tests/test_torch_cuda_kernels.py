@@ -23,8 +23,10 @@ kernels F and G at N 32-2048, degrees of any sign, both gadgets, and
 ``cmux_delta`` against kernels 3-4; the four stage kernels of the
 coefficient-sharded NTT at log_n 9-17 over 2-8 shards (u32, 50- and 62-bit
 u64, every ``out_factor`` and both ``in_factor``s, the input range's extreme
-words; the u64 pair at log_w 15-16 on batches 1, 3, 8), row 13's refusal
-of log_n 13 before any launch, and a (2, 2)
+words; the u64 pair at log_w 15-16 on batches 1, 3, 8), row 13's split
+kernels at log_n 8-14 (7 and 8 planes) and its sharded transforms and
+product at log_n 13-14 over 2 and 4 shards against row 10, its refusal of
+log_n 7 and 15 before any launch, and a (2, 2)
 ``LocalMesh`` DCRT rotation on both routes against the single-card one.
 Tolerance: zero (bit-equal).
 
@@ -640,29 +642,64 @@ def test_stage_kernels_match_plain(dev, log_n, d, batches):
                                    st.ntt64_stages_inverse_plain(log_w, q, wi, pi, y, in_factor))
 
 
-def test_sharded_mxu_refuses_log_n_13_on_the_card(dev):
-    """Row 13 on the card takes 8 <= log_n <= 12: at log_n 13 (A = 64, which
-    the JAX ``ShardedMxuPlan64`` takes) the sharded forward and inverse raise
-    ValueError before any launch of the four split kernels."""
+Q14 = next_ntt_prime(50, 14)  # = 1 mod 2^15: row 13 at log_n 14, 7 planes
+
+
+@pytest.mark.parametrize("log_n,q", [(13, Q50[0]), (14, Q14)])
+@pytest.mark.parametrize("d", [2, 4])
+def test_sharded_mxu_at_log_n_13_and_14_on_the_card(dev, log_n, q, d):
+    """Row 13 at log_n 13 and 14 (A = 64, 128, which the JAX
+    ``ShardedMxuPlan64`` takes) over D shards of a ``LocalMesh``: the sharded
+    forward equals row 10's ``ntt64_forward``, the round trip returns the
+    input, and the keyed product equals row 10's route (``ntt64_forward``,
+    the lazy Shoup multiply by the key, ``ntt64_inverse``); each split
+    kernel launched once a shard a transform."""
+    from primus_fhe_tpu_torch.modular.factor import ShoupFactor64, factor_mul_lazy64
     from primus_fhe_tpu_torch.ops import ntt_mxu8_split as split
-    from primus_fhe_tpu_torch.parallel import LocalMesh, shard
+    from primus_fhe_tpu_torch.parallel import LocalMesh, shard, unshard
     from primus_fhe_tpu_torch.parallel import coeff_sharded_mxu as csm
 
-    log_n, q = 13, 1125899906826241
     plan = csm.get_sharded_plan(log_n, q)
-    mesh = LocalMesh(2, 1, dev)
-    gen = torch.Generator(device=dev).manual_seed(13)
-    x = torch.randint(0, q, (2, 1 << log_n), generator=gen, device=dev)
+    tables, n = plan.tables, 1 << log_n
+    mesh = LocalMesh(d, 1, dev)
+    coeff, ntt = (None, "residue", None), ("residue", None, None)
+    gen = torch.Generator(device=dev).manual_seed(log_n + d)
+    x = _below(gen, [q], (8, n), 1, dev)[0]
+    mt = tables.mul_table(_below(gen, [q], (n,), 1, dev)[0][None])
+    kernels = (split.split_k1, split.split_k2, split.split_ki1, split.split_ki2)
+    for k in kernels:
+        k.launches = 0
+    f = csm.sharded_mxu_forward64(mesh, "residue", log_n, q,
+                                  shard(mesh, csm.to_coeff_layout(x, plan.A, plan.B), coeff))
+    want = ntt64.ntt64_forward(tables.ntt, x[None])
+    assert torch.equal(csm.ntt_layout_to_flat(unshard(mesh, f, ntt)), want[0])
+    back = csm.sharded_mxu_inverse64(mesh, "residue", log_n, q, f)
+    assert torch.equal(csm.from_coeff_layout(unshard(mesh, back, coeff)), x)
+    prod = csm.sharded_mxu_inverse64(mesh, "residue", log_n, q, f, mul_tab=mt)
+    qt = torch.tensor([q], dtype=torch.int64, device=dev).reshape(1, 1, 1)
+    keyed = factor_mul_lazy64(want, ShoupFactor64(mt[:, 0, None], mt[:, 1, None]), qt)
+    assert torch.equal(csm.from_coeff_layout(unshard(mesh, prod, coeff)),
+                       ntt64.ntt64_inverse(tables.ntt, keyed)[0])
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [d, d, 2 * d, 2 * d]
+
+
+def test_split_kernels_refuse_log_n_past_the_range(dev):
+    """Row 13 on the card takes 8 <= log_n <= 14: at log_n 7 and 15 the four
+    split kernels raise ValueError before any launch."""
+    from primus_fhe_tpu_torch.ops import ntt_mxu8_split as split
+    from primus_fhe_tpu_torch.ops.ntt_mxu8 import Mxu8Tables64
+
     kernels = (split.split_k1, split.split_k2, split.split_ki1, split.split_ki2)
     before = [k.launches for k in kernels]
-    with pytest.raises(ValueError, match="8 <= log_n <= 12"):
-        csm.sharded_mxu_forward64(mesh, "residue", log_n, q,
-                                  shard(mesh, csm.to_coeff_layout(x, plan.A, plan.B),
-                                        (None, "residue", None)))
-    with pytest.raises(ValueError, match="8 <= log_n <= 12"):
-        csm.sharded_mxu_inverse64(mesh, "residue", log_n, q,
-                                  [torch.zeros((plan.A // 2, 2, plan.B), dtype=torch.int64,
-                                               device=dev)] * 2)
+    for log_n in (7, 15):
+        tables = Mxu8Tables64(ntt64.NttTables64(log_n, [Q62[0]]))
+        lanes = torch.zeros((1, tables.A, 128), dtype=torch.int64, device=dev)
+        rows = torch.zeros((1, 1, 128), dtype=torch.int64, device=dev)
+        for call in (lambda: split.split_k1(tables, lanes, 1), lambda: split.split_k2(tables, rows),
+                     lambda: split.split_ki1(tables, rows, 1), lambda: split.split_ki2(tables, lanes)):
+            with pytest.raises(ValueError, match="8 <= log_n <= 14"):
+                call()
     torch.cuda.synchronize()
     assert [k.launches for k in kernels] == before
 
@@ -731,14 +768,16 @@ def _word_extremes(x, q):
 
 @pytest.mark.parametrize("log_n,q,batches", [
     (8, Q50[0], (1, 3, 64)), (12, Q50[1], (1, 3, 64)), (8, Q60, (1, 3, 64)),
-    (12, Q60, (1, 3, 64)), (12, Q50[0], (512,))])
+    (12, Q60, (1, 3, 64)), (12, Q50[0], (512,)), (13, Q50[0], (1, 3, 64)), (13, Q60, (1, 3)),
+    (14, Q14, (1, 3, 64)), (14, Q62[0], (1, 3))])
 def test_split_kernels_match_plain(dev, log_n, q, batches):
     """Row 13's K1, K2, Ki1 (with and without the key) and Ki2 on shard
     ``d - 1`` of D = 1, 2, 4 (where D divides A = n / 128), at each batch
-    (1 and 3 give ragged row counts: 1, 3, 8, 24 rows; 512 at log_n 12 is
-    phase 16's product, 8192 rows at D = 2), the word extremes 0, q, 2q, 4q
-    - 1 and 2^64 - 1 in: K2 and Ki2 bit-equal to their plain versions, K1
-    and Ki1 by the lazy rule; each launch counted once."""
+    (1 and 3 give ragged lane and row counts; 512 at log_n 12 is phase 16's
+    product, 8192 rows at D = 2; log_n 13 and 14 split a lane over 2 and 4
+    threads), 7 and 8 planes, the word extremes 0, q, 2q, 4q - 1 and 2^64 -
+    1 in: K2 and Ki2 bit-equal to their plain versions, K1 and Ki1 by the
+    lazy rule; each launch counted once."""
     from primus_fhe_tpu_torch.ops import ntt_mxu8_split as split
     from primus_fhe_tpu_torch.parallel.coeff_sharded_mxu import get_sharded_plan
 

@@ -148,7 +148,7 @@ def _fold(d, P, c):
 
 
 def _planes64(op_bytes, w, P, np_, n_real, c):
-    """``mm_planes_n`` + ``fold_planes``: ``(m, n_real)`` object words."""
+    """The plane products + ``fold_planes``: ``(m, n_real)`` object words."""
     d = (op_bytes @ w.astype(np.int64).T).reshape(op_bytes.shape[0], P, np_)[:, :, :n_real]
     m = d.shape[0]
     flat = d.transpose(0, 2, 1).reshape(m * n_real, P).astype(object)
