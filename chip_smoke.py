@@ -796,6 +796,9 @@ SHARD_MESH = (2, 2)  # phase 14: (residue, batch), one modulus and 8 ciphertexts
 NCCL_BACKEND = "nccl"
 CS_Q32, CS_LOG_N32, CS_ROWS32, CS_SHARDS32 = 536813569, 12, 8, (2, 4, 8)  # bench_coeff_sharded.py
 CS_SHARDS64 = (4, 2)  # phase 15's u64 shape: phase 12's n = 2^16 and LARGE_Q over 4 and 2 shards
+# phase 15's u32 large ring, LARGE_ROWS rows: (log_n, D), shards of 2^14, 2^15, 2^16 words
+CS_LARGE32 = ((16, 4), (16, 2), (17, 2))
+CS_Q32L = 1073479681  # next_ntt_prime(30, 17): = 1 mod 2^18, below 2^30
 CS_TRIPS = 20  # 15.3: chained forward + inverse trips timed
 QUEUED_OPS = 1000  # host ops queued behind one sleep: more fill the launch queue and block the host
 
@@ -933,14 +936,16 @@ def phase14_sharded(torch, dev, table, state) -> dict:
 
 def phase15_coeff(torch, dev, table) -> dict:
     """Phase 15: the coefficient-sharded NTT on ``LocalMesh``es, held
-    against the single-card transforms, and the four stage kernels against
-    their plain versions.  Returns the stage kernels' launch counts."""
+    against the single-card transforms (the u32 large ring at n = 2^16 and
+    2^17 against the plain ``forward32``: kernels 1-2 take log_n <= 14),
+    and the four stage kernels against their plain versions.  Returns the
+    stage kernels' launch counts."""
     from primus_fhe_tpu_torch.numeric.limb import mul_hi_u64
     from primus_fhe_tpu_torch.ops import ntt32, ntt_stages as st
     from primus_fhe_tpu_torch.parallel import LocalMesh, shard, unshard
     from primus_fhe_tpu_torch.parallel import coeff_sharded as cs
-    from primus_fhe_tpu_torch.transforms.ntt import forward64
-    from primus_fhe_tpu_torch.transforms.plan import build_plan64
+    from primus_fhe_tpu_torch.transforms.ntt import forward32, forward64
+    from primus_fhe_tpu_torch.transforms.plan import build_plan32, build_plan64
 
     spec = (None, "residue")
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
@@ -955,6 +960,10 @@ def phase15_coeff(torch, dev, table) -> dict:
     x64 = torch.randint(0, q64, (LARGE_ROWS, n64), generator=g, device=dev)
     want32 = ntt32.forward32(single, x32[None])[0]
     want64 = forward64(build_plan64(LARGE_LOG_N, q64, dev), x64)
+    qL = CS_Q32L
+    xL = {log_n: torch.randint(0, qL, (LARGE_ROWS, 1 << log_n), generator=g, device=dev)
+          for log_n in sorted({log_n for log_n, _ in CS_LARGE32})}
+    wantL = {log_n: forward32(build_plan32(log_n, qL, dev), x) for log_n, x in xL.items()}
 
     for fn in kernels.values():
         fn.launches = 0
@@ -964,31 +973,39 @@ def phase15_coeff(torch, dev, table) -> dict:
         mesh = LocalMesh(d, 1, dev)
         f = cs.coeff_sharded_forward32(mesh, "residue", CS_LOG_N32, q32, shard(mesh, x32, spec))
         back = cs.coeff_sharded_inverse32(mesh, "residue", CS_LOG_N32, q32, f)
-        outs[32, d] = unshard(mesh, f, spec), unshard(mesh, back, spec)
+        outs["u32", d] = unshard(mesh, f, spec), unshard(mesh, back, spec), want32, x32
     for d in CS_SHARDS64:
         mesh = LocalMesh(d, 1, dev)
         f = cs.coeff_sharded_forward64(mesh, "residue", LARGE_LOG_N, q64, shard(mesh, x64, spec))
         back = cs.coeff_sharded_inverse64(mesh, "residue", LARGE_LOG_N, q64, f)
-        outs[64, d] = unshard(mesh, f, spec), unshard(mesh, back, spec)
+        outs["u64", d] = unshard(mesh, f, spec), unshard(mesh, back, spec), want64, x64
+    for log_n, d in CS_LARGE32:
+        mesh = LocalMesh(d, 1, dev)
+        f = cs.coeff_sharded_forward32(mesh, "residue", log_n, qL, shard(mesh, xL[log_n], spec))
+        back = cs.coeff_sharded_inverse32(mesh, "residue", log_n, qL, f)
+        outs[f"u32 n=2^{log_n}", d] = (unshard(mesh, f, spec), unshard(mesh, back, spec),
+                                      wantL[log_n], xL[log_n])
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in kernels.items()}
     log(f"launches: {json.dumps(counts)}")
-    want = {"ntt32_stages_forward": sum(CS_SHARDS32), "ntt32_stages_inverse": sum(CS_SHARDS32),
+    shards32 = sum(CS_SHARDS32) + sum(d for _, d in CS_LARGE32)
+    want = {"ntt32_stages_forward": shards32, "ntt32_stages_inverse": shards32,
             "ntt64_stages_forward": sum(CS_SHARDS64), "ntt64_stages_inverse": sum(CS_SHARDS64)}
     if counts != want:
         raise AssertionError(f"stage launch counts {counts}, want {want} (one a shard a transform)")
     inv32 = ntt32.inverse32(single, want32[None])[0]
-    for (bits, d), (fwd, back) in outs.items():
-        ref, x = (want32, x32) if bits == 32 else (want64, x64)
+    for (kind, d), (fwd, back, ref, x) in outs.items():
         if not torch.equal(fwd, ref):
-            raise AssertionError(f"u{bits} D={d}: the sharded forward differs from the single-card one")
-        if not torch.equal(back, x) or (bits == 32 and not torch.equal(inv32, x)):
-            raise AssertionError(f"u{bits} D={d}: the sharded round trip does not return the input")
+            raise AssertionError(f"{kind} D={d}: the sharded forward differs from the single-card one")
+        if not torch.equal(back, x) or (kind == "u32" and not torch.equal(inv32, x)):
+            raise AssertionError(f"{kind} D={d}: the sharded round trip does not return the input")
     log(f"u32 n=2^{CS_LOG_N32} q={q32} batch {CS_ROWS32}, D = {CS_SHARDS32}: forward equal to "
         f"forward32 (kernel 1), inverse returns the input as inverse32 (kernel 2) does; u64 "
         f"n=2^{LARGE_LOG_N} q={q64} {LARGE_ROWS} rows, D = {CS_SHARDS64} (rows of 2^"
         f"{LARGE_LOG_N - 2} and 2^{LARGE_LOG_N - 1} words a shard): forward equal to the plain "
-        f"forward64, round trip returns the input; launches exact (one a shard a transform)")
+        f"forward64, round trip returns the input; u32 n=2^16 and 2^17 q={qL} {LARGE_ROWS} rows, "
+        f"(log_n, D) = {CS_LARGE32}: forward equal to the plain forward32, round trip returns "
+        f"the input; launches exact (one a shard a transform)")
 
     log("-- 15.2: the stage kernels vs plain versions (bit-equal), shard 1's tables")
     d = CS_SHARDS32[0]
@@ -1012,6 +1029,36 @@ def phase15_coeff(torch, dev, table) -> dict:
                    lambda: st.ntt32_stages_inverse(log_w, q32, wi, pi, xi),
                    lambda: st.ntt32_stages_inverse(log_w, q32, wi32, pi32, xi32),
                    lambda: st.ntt32_stages_inverse_plain(log_w, q32, wi, pi, xi), b32i)
+    log_stage_shares(table, ("ntt32_stages_forward", "ntt32_stages_inverse"), CS_ROWS32,
+                     [st.launch_grid(log_w, q32, CS_ROWS32, fwd, 32) for fwd in (True, False)])
+    for log_n, d in ((16, 2), (17, 2)):  # the u32 pair at 2 x 2^15 and 2 x 2^16 (n = 2^17)
+        log_w, width = log_n - 1, 1 << (log_n - 1)
+        cols, tag = slice(width, 2 * width), f"@w{log_n - 1}"
+        w, p = (t[1:, cols].to(dev) for t in cs.build_expanded_tables32(log_n, qL))
+        wi, pi = (t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables32(log_n, qL))
+        w32, p32, wi32, pi32 = (t.to(torch.int32) for t in (w, p, wi, pi))
+        xf = torch.randint(0, 4 * qL, (LARGE_ROWS, width), generator=g, device=dev)
+        xi = torch.randint(0, 2 * qL, (LARGE_ROWS, width), generator=g, device=dev)
+        xf32, xi32 = xf.to(torch.int32), xi.to(torch.int32)
+        bf, bi = (bound(4 * 2 * LARGE_ROWS * width + lanes * 8 * log_w,
+                        muls32=ntt_muls(LARGE_ROWS, width)) for lanes in (width, width // 2))
+        log(f"u32 shard of n = 2^{log_n} over D = {d}: 2^{log_w} words a row, q = {qL}, tables "
+            f"{width * 8 * log_w / 1e6:.2f} MB read forward (both lanes), "
+            f"{width * 4 * log_w / 1e6:.2f} MB inverse (y lanes)")
+        compare_kernel(torch, table, "ntt32_stages_forward" + tag, LARGE_ROWS,
+                       lambda: st.ntt32_stages_forward(log_w, qL, w, p, xf),
+                       lambda: st.ntt32_stages_forward(log_w, qL, w32, p32, xf32),
+                       lambda: st.ntt32_stages_forward_plain(log_w, qL, w, p, xf), bf)
+        compare_kernel(torch, table, "ntt32_stages_inverse" + tag, LARGE_ROWS,
+                       lambda: st.ntt32_stages_inverse(log_w, qL, wi, pi, xi),
+                       lambda: st.ntt32_stages_inverse(log_w, qL, wi32, pi32, xi32),
+                       lambda: st.ntt32_stages_inverse_plain(log_w, qL, wi, pi, xi), bi)
+        if not torch.equal(st.ntt32_stages_forward(log_w, qL, w, p, xf, 4),
+                           st.ntt32_stages_forward_plain(log_w, qL, w, p, xf, 4)):
+            raise AssertionError(f"ntt32_stages_forward log_w {log_w} out_factor 4: kernel != plain")
+        log_stage_shares(table, ("ntt32_stages_forward" + tag, "ntt32_stages_inverse" + tag),
+                         LARGE_ROWS, [st.launch_grid(log_w, qL, LARGE_ROWS, fwd, 32)
+                                      for fwd in (True, False)])
     for d in CS_SHARDS64:  # row 11's u64 pair at log_w 14 (D = 4) and 15 (D = 2)
         log_d, width = d.bit_length() - 1, n64 // d
         log_w, cols = LARGE_LOG_N - log_d, slice(width, 2 * width)
@@ -1043,32 +1090,43 @@ def phase15_coeff(torch, dev, table) -> dict:
                                st.ntt64_stages_forward_plain(log_w, q64, w, p, xf, of)):
                 raise AssertionError(f"ntt64_stages_forward log_w {log_w} out_factor {of}: "
                                      "kernel != plain")
-        for name in ("ntt64_stages_forward", "ntt64_stages_inverse"):
-            _, _, _, dev_ms, (bound_ms, bound_by) = table[name + tag][LARGE_ROWS]
-            log(f"{name + tag:26s} share of the bound {bound_ms / dev_ms:.4f} ({bound_ms:.4f} ms "
-                f"by {bound_by} over {dev_ms:.4f} device ms)")
+        log_stage_shares(table, ("ntt64_stages_forward" + tag, "ntt64_stages_inverse" + tag),
+                         LARGE_ROWS, grids)
 
-    log(f"-- 15.3: the u64 forward + inverse trip at n = 2^{LARGE_LOG_N}, {LARGE_ROWS} rows, "
-        f"timed over {CS_TRIPS} chained trips (CUDA events)")
-    for d in CS_SHARDS64:
-        mesh = LocalMesh(d, 1, dev)
+    log(f"-- 15.3: the u64 and u32 forward + inverse trips at n = 2^{LARGE_LOG_N}, {LARGE_ROWS} "
+        f"rows, timed over {CS_TRIPS} chained trips (CUDA events)")
+    trips = (("u64", cs.coeff_sharded_forward64, cs.coeff_sharded_inverse64, q64, x64),
+             ("u32", cs.coeff_sharded_forward32, cs.coeff_sharded_inverse32, qL, xL[LARGE_LOG_N]))
+    for bits, fwd_fn, inv_fn, q, x in trips:
+        for d in CS_SHARDS64:
+            mesh = LocalMesh(d, 1, dev)
 
-        def step(v, mesh=mesh):
-            f = cs.coeff_sharded_forward64(mesh, "residue", LARGE_LOG_N, q64, v)
-            return cs.coeff_sharded_inverse64(mesh, "residue", LARGE_LOG_N, q64, f)
+            def step(v, mesh=mesh, fwd_fn=fwd_fn, inv_fn=inv_fn, q=q):
+                f = fwd_fn(mesh, "residue", LARGE_LOG_N, q, v)
+                return inv_fn(mesh, "residue", LARGE_LOG_N, q, f)
 
-        v0 = shard(mesh, x64, spec)
-        if not torch.equal(unshard(mesh, step(v0), spec), x64):
-            raise AssertionError(f"D={d}: the timed trip does not return its input")
-        ms = chained_ms(torch, step, v0, CS_TRIPS)
-        ops = count_host_ops(torch, lambda: step(v0))
-        queued = max(1, min(CS_TRIPS, QUEUED_OPS // ops))
-        busy, enqueue = queued_ms(torch, step, v0, queued, ms)
-        log(f"[u64 D={d}] {ms:.4f} ms a trip; {ops} host ops a trip, enqueued in {enqueue:.4f} ms "
-            f"with the card asleep ({queued} trips queued); device busy "
-            + ("not measured (the host fell behind the sleep)" if busy is None else
-               f"{busy:.4f} ms a trip with the host ahead (idle share {1 - busy / ms:.3f})"))
+            v0 = shard(mesh, x, spec)
+            if not torch.equal(unshard(mesh, step(v0), spec), x):
+                raise AssertionError(f"{bits} D={d}: the timed trip does not return its input")
+            ms = chained_ms(torch, step, v0, CS_TRIPS)
+            ops = count_host_ops(torch, lambda: step(v0))
+            queued = max(1, min(CS_TRIPS, QUEUED_OPS // ops))
+            busy, enqueue = queued_ms(torch, step, v0, queued, ms)
+            log(f"[{bits} D={d}] {ms:.4f} ms a trip; {ops} host ops a trip, enqueued in "
+                f"{enqueue:.4f} ms with the card asleep ({queued} trips queued); device busy "
+                + ("not measured (the host fell behind the sleep)" if busy is None else
+                   f"{busy:.4f} ms a trip with the host ahead (idle share {1 - busy / ms:.3f})"))
     return counts
+
+
+def log_stage_shares(table, names, rows, grids) -> None:
+    """Each stage kernel's share of its bound at ``rows`` rows, with the grid
+    ``(blocks a cluster, rows a block)`` its launch picked (forward, then
+    inverse)."""
+    for name, grid in zip(names, grids):
+        _, _, _, dev_ms, (bound_ms, bound_by) = table[name][rows]
+        log(f"{name:26s} share of the bound {bound_ms / dev_ms:.4f} ({bound_ms:.4f} ms by "
+            f"{bound_by} over {dev_ms:.4f} device ms); grid {grid}")
 
 
 CSM_LOG_N, CSM_BATCH = 12, 64  # bench_coeff_sharded_mxu.py's shape (q = RT_MODULI[0])
@@ -1997,10 +2055,11 @@ def main() -> None:
             key = name.replace("ntt32_", "") + "32"
             row.update({"launches_sharded_dcrt32_path": counts_17[key],
                         "launches_torus64_path": counts_18[key]})
-        if f"{name}@w15" in table:  # row 11's u64 pair on the D = 2 shard (log_w 15)
-            _, wms, wpms, wdev, (wbms, _) = table[f"{name}@w15"][b0]
-            row.update({"ms_w15": wms, "plain_ms_w15": wpms, "device_ms_w15": wdev,
-                        "bound_ms_w15": wbms})
+        for tag in ("w15", "w16"):  # row 11 on the n = 2^16, 2^17 shards over D = 2
+            if f"{name}@{tag}" in table:
+                _, wms, wpms, wdev, (wbms, _) = table[f"{name}@{tag}"][LARGE_ROWS]
+                row.update({f"ms_{tag}": wms, f"plain_ms_{tag}": wpms, f"device_ms_{tag}": wdev,
+                            f"bound_ms_{tag}": wbms})
         if f"{name}@n14" in table:  # K1 / Ki2 at phase 16.5's D = 2 shard, n = 2^14
             _, nms, npms, ndev, (nbms, _) = table[f"{name}@n14"][b0]
             row.update({"ms_n14": nms, "plain_ms_n14": npms, "device_ms_n14": ndev,

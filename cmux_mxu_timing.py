@@ -33,7 +33,7 @@ at the round trip's 512 rows on a 7- and an 8-plane modulus (beside row 10,
     python3 cmux_mxu_timing.py --split --grids # the four halves on every block size
     python3 cmux_mxu_timing.py --split --phases  # their cycles per phase (clock64)
     python3 cmux_mxu_timing.py --stages ...    # row 11's stage kernels (with --compare OLD: in turns)
-    python3 cmux_mxu_timing.py --stages --grids  # the u64 pair on every (C, T)
+    python3 cmux_mxu_timing.py --stages --grids  # the u32 and u64 pairs on every (C, T)
     python3 cmux_mxu_timing.py --stages --phases # their cycles per pass (clock64)
 
 Both forward transforms are bounded by the function they compute: 16 bytes
@@ -91,16 +91,17 @@ layout, the layout change, twiddle or last stage, store;
 times row 11's four stage kernels at :data:`STAGE_SHAPES` (the u64 pair at
 phase 15's shards of 2 x 2^14 and 2 x 2^15 words, the JAX kernel's tile of
 8 x 2^14 and the card tests' smaller shards, on the exact-Shoup and a
-deferring q; the u32 pair at phase 15's shards), each checked against its
-plain version, with its bound, share, and the u64 launch's (C, T), and
-phase 15.3's u64 trip at D = 4 and 2 (:func:`coeff_trips`); under
+deferring q; the u32 pair at phase 15's shards of n = 2^12 and the large
+ring's, 2 x 2^14 to 2 x 2^16 and 8 x 2^14), each checked against its
+plain version, with its bound, share, and the launch's (C, T), and phase
+15.3's u64 and u32 trips at D = 4 and 2 (:func:`coeff_trips`); under
 ``--compare`` the summary gives new / old per shape (``mean_stages_ms``,
 None where the old side refuses the shape); ``--stages --grids`` copies the
-package to ``.proof/stages_grids`` with the u64 grid set from outside
-(``pft_st64_force_grid``) and times the pair on every (C, T) beside the
-launch's own; ``--stages --phases`` copies it to ``.proof/stages_phases``
-with clock64() laps of block 0 after each pass and the stages across the
-cluster (:func:`stamp_stages`).  The ``empty kernel`` line is the floor of
+package to ``.proof/stages_grids`` with the grid set from outside
+(``pft_st64_force_grid``, both word types) and times both pairs on every
+(C, T) beside the launch's own; ``--stages --phases`` copies it to
+``.proof/stages_phases`` with clock64() laps of block 0 after each pass and
+the stages across the cluster (:func:`stamp_stages`).  The ``empty kernel`` line is the floor of
 this way of timing: a launch that does nothing, timed the same way.
 
 A kernel's device time is the median of 20 calls, each timed with CUDA
@@ -517,15 +518,20 @@ def split_calls(torch, dev) -> dict:
 # refuses it) and the card tests' smaller shards (log_w 7, 9, 11), each at q
 # = 4611686018425815041 (exact Shoup) and a 50-bit q (the forward deferring
 # its reductions); the u32 pair at phase 15's shards (8 rows of 2^11, 2^10,
-# 2^9 words, q = 536813569).  STAGE_GRIDS: the (log2 C, T) grids --grids
-# tries beside the launch's own.
+# 2^9 words, q = 536813569) and the large ring's (2 rows of 2^14, 2^15 and
+# 2^16 words: n = 2^16 over D = 4, 2 and n = 2^17 over D = 2; 8 rows of
+# 2^14), q = 1073479681.  STAGE_GRIDS: the (log2 C, T) grids --grids tries
+# beside the launch's own.
 STAGE_Q62, STAGE_Q32 = 4611686018425815041, 536813569
 STAGE_Q50 = 1125899902124033  # = 1 mod 2^19 (next_ntt_prime(50, 17)): roots to n = 2^18
+STAGE_Q32L = 1073479681  # next_ntt_prime(30, 17): = 1 mod 2^18, below 2^30
 STAGE_SHAPES = tuple(
     (f"{rows}x2^{log_n - d.bit_length() + 1}{tag}", 64, log_n, d, rows, q)
     for log_n, d, rows in ((16, 4, 2), (16, 4, 8), (16, 2, 2), (9, 4, 2), (12, 8, 2), (12, 2, 2))
     for q, tag in ((STAGE_Q62, ""), (STAGE_Q50, " q50"))) + tuple(
-    (f"u32 8x2^{12 - d.bit_length() + 1}", 32, 12, d, 8, STAGE_Q32) for d in (2, 4, 8))
+    (f"u32 8x2^{12 - d.bit_length() + 1}", 32, 12, d, 8, STAGE_Q32) for d in (2, 4, 8)) + tuple(
+    (f"u32 {rows}x2^{log_n - d.bit_length() + 1}", 32, log_n, d, rows, STAGE_Q32L)
+    for log_n, d, rows in ((16, 4, 2), (16, 2, 2), (16, 4, 8), (17, 2, 2)))
 STAGE_NAMES = {64: ("ntt64_stages_forward", "ntt64_stages_inverse"),
                32: ("ntt32_stages_forward", "ntt32_stages_inverse")}
 STAGE_GRIDS = tuple((c, t) for c in range(4) for t in (1, 2, 4, 8))
@@ -536,7 +542,9 @@ def stage_calls(torch, dev) -> dict:
     """``{(name, label): (call, plain call, bound ms, log_w, rows, q)}`` of
     the four stage kernels at :data:`STAGE_SHAPES`: the forward at
     ``out_factor`` 1 on words below 4q, the inverse at ``in_factor`` 2 on
-    words below 2q, made from a seeded generator on the card; each held to
+    words below 2q, made from a seeded generator on the card (the u32 pair
+    in int32 storage, words and tables, so that a call is its one launch);
+    each held to
     its function's bound (``chip_smoke.py``'s b32f / b32i / b64: rows and
     the table entries the function reads once over the HBM rate, or n/2 log
     n Shoup multiplies a row)."""
@@ -567,6 +575,12 @@ def stage_calls(torch, dev) -> dict:
                                 muls / INT32_MULS_S) * 1e3 for n in lanes)
         fwd, inv = (getattr(st, name) for name in STAGE_NAMES[bits])
         fwd_plain, inv_plain = (getattr(st, name + "_plain") for name in STAGE_NAMES[bits])
+        if bits == 32:  # int32 storage in and out: the launch alone, no conversion kernels
+            w, p, wi, pi, xf, xi = (t.to(torch.int32) for t in (w, p, wi, pi, xf, xi))
+            fwd_plain, inv_plain = (
+                lambda lw, q, w, p, x, f=f: f(lw, q, w.long() & 0xFFFFFFFF, p.long() & 0xFFFFFFFF,
+                                              x.long() & 0xFFFFFFFF).to(torch.int32)
+                for f in (fwd_plain, inv_plain))
         calls[(STAGE_NAMES[bits][0], label)] = (
             lambda f=fwd, lw=log_w, q=q, w=w, p=p, x=xf: f(lw, q, w, p, x),
             lambda f=fwd_plain, lw=log_w, q=q, w=w, p=p, x=xf: f(lw, q, w, p, x),
@@ -579,52 +593,61 @@ def stage_calls(torch, dev) -> dict:
 
 
 def stage_grid(name, log_w, rows, q):
-    """``(C, T)`` the u64 launch picks (None for the u32 kernels and in a
-    checkout without the rule)."""
+    """``(C, T)`` the launch picks (None in a checkout without the rule for
+    that word type)."""
+    import inspect
+
     from primus_fhe_tpu_torch.ops import ntt_stages as st
 
-    if not name.startswith("ntt64") or not hasattr(st, "launch_grid"):
+    if not hasattr(st, "launch_grid"):
         return None
-    return st.launch_grid(log_w, q, rows, name.endswith("forward"))
+    if name.startswith("ntt64"):
+        return st.launch_grid(log_w, q, rows, name.endswith("forward"))
+    if "bits" not in inspect.signature(st.launch_grid).parameters:
+        return None
+    return st.launch_grid(log_w, q, rows, name.endswith("forward"), 32)
 
 
 def coeff_trips(torch, dev) -> dict:
-    """``chip_smoke.py`` phase 15.3's u64 trip (the coefficient-sharded
-    forward then inverse at n = 2^16, q = 4611686018425815041, 2 rows) on
-    ``LocalMesh(D, 1)`` at each D of :data:`COEFF_TRIP_SHARDS`: ms a trip
-    over 20 chained trips (host-paced), the card's busy ms a trip with the
-    host ahead and the host's enqueue ms (``chip_smoke.queued_ms``, as many
-    trips queued as keep the launch queue from blocking the host), the host
-    ops a trip and the idle share; None where the checkout refuses the
-    shard."""
+    """``chip_smoke.py`` phase 15.3's trips (the coefficient-sharded forward
+    then inverse at n = 2^16, 2 rows; u64 at q = 4611686018425815041, u32
+    at q = 1073479681) on ``LocalMesh(D, 1)`` at each D of
+    :data:`COEFF_TRIP_SHARDS`: ms a trip over 20 chained trips
+    (host-paced), the card's busy ms a trip with the host ahead and the
+    host's enqueue ms (``chip_smoke.queued_ms``, as many trips queued as
+    keep the launch queue from blocking the host), the host ops a trip and
+    the idle share; None where the checkout refuses the shard."""
     from primus_fhe_tpu_torch.parallel import LocalMesh, shard
     from primus_fhe_tpu_torch.parallel import coeff_sharded as cs
 
     smoke = this_smoke()
-    log_n, q, rows = smoke.LARGE_LOG_N, smoke.LARGE_Q, smoke.LARGE_ROWS
+    log_n, rows = smoke.LARGE_LOG_N, smoke.LARGE_ROWS
     g = torch.Generator(device=dev).manual_seed(2034)
-    x = torch.randint(0, q, (rows, 1 << log_n), generator=g, device=dev)
     out = {}
-    for d in COEFF_TRIP_SHARDS:
-        mesh = LocalMesh(d, 1, dev)
+    for bits, q, fwd_fn, inv_fn in (
+            ("", smoke.LARGE_Q, cs.coeff_sharded_forward64, cs.coeff_sharded_inverse64),
+            ("u32 ", STAGE_Q32L, cs.coeff_sharded_forward32, cs.coeff_sharded_inverse32)):
+        x = torch.randint(0, q, (rows, 1 << log_n), generator=g, device=dev)
+        for d in COEFF_TRIP_SHARDS:
+            mesh = LocalMesh(d, 1, dev)
 
-        def step(v, mesh=mesh):
-            f = cs.coeff_sharded_forward64(mesh, "residue", log_n, q, v)
-            return cs.coeff_sharded_inverse64(mesh, "residue", log_n, q, f)
+            def step(v, mesh=mesh, q=q, fwd_fn=fwd_fn, inv_fn=inv_fn):
+                f = fwd_fn(mesh, "residue", log_n, q, v)
+                return inv_fn(mesh, "residue", log_n, q, f)
 
-        v0 = shard(mesh, x, (None, "residue"))
-        try:
-            step(v0)
-        except ValueError as e:
-            out[f"coeff trip D={d}"] = {"ms": None, "refused": str(e)}
-            continue
-        ms = smoke.chained_ms(torch, step, v0, smoke.CS_TRIPS)
-        ops = smoke.count_host_ops(torch, lambda: step(v0))
-        queued = max(1, min(smoke.CS_TRIPS, smoke.QUEUED_OPS // ops))
-        busy, enqueue = smoke.queued_ms(torch, step, v0, queued, ms)
-        out[f"coeff trip D={d}"] = {"ms": ms, "device_ms": busy, "enqueue_ms": enqueue,
-                                    "host_ops": ops, "queued_trips": queued,
-                                    "idle": None if busy is None else 1 - busy / ms}
+            v0 = shard(mesh, x, (None, "residue"))
+            try:
+                step(v0)
+            except ValueError as e:
+                out[f"{bits}coeff trip D={d}"] = {"ms": None, "refused": str(e)}
+                continue
+            ms = smoke.chained_ms(torch, step, v0, smoke.CS_TRIPS)
+            ops = smoke.count_host_ops(torch, lambda: step(v0))
+            queued = max(1, min(smoke.CS_TRIPS, smoke.QUEUED_OPS // ops))
+            busy, enqueue = smoke.queued_ms(torch, step, v0, queued, ms)
+            out[f"{bits}coeff trip D={d}"] = {"ms": ms, "device_ms": busy, "enqueue_ms": enqueue,
+                                              "host_ops": ops, "queued_trips": queued,
+                                              "idle": None if busy is None else 1 - busy / ms}
     return out
 
 
@@ -674,22 +697,23 @@ def stage_label_laps(forward: bool, log_w: int, log_c: int) -> list[str]:
 
 
 def stamp_stages(src: Path, phases: bool) -> None:
-    """A copy of ``ntt_stages.cu`` for ``--stages --grids`` (the u64
-    launch's grid set from outside, ``pft_st64_force_grid(log_c, T)``;
+    """A copy of ``ntt_stages.cu`` for ``--stages --grids`` (the launch's
+    grid, u32 or u64, set from outside, ``pft_st64_force_grid(log_c, T)``;
     -1 for the launch's own; refused where it does not fit) or ``--stages
-    --phases`` (clock64() laps of thread 0 of block 0 of the u64 kernels
+    --phases`` (clock64() laps of thread 0 of block 0 of the four kernels
     after each pass and the stages across the cluster, the earliest block
     start and latest block end on the global timer; ``pft_read_st64(kind,
-    stamps, gt)`` reads them, kind 0 the forward, 1 the inverse)."""
+    stamps, gt)`` reads them, kind 0 the last forward, 1 the last inverse)."""
     text = src.read_text()
     if not phases:
-        pick = "  err = pick_grid(*d, kind, rows, log_w, &a.log_c, &a.tile);\n"
+        pick = "  err = pick_grid(*d, kind, a.rows, a.log_w, &a.log_c, &a.tile);\n"
         if text.count(pick) != 1:
             raise SystemExit("cmux_mxu_timing: ntt_stages.cu's pick moved")
         text = text.replace(pick, pick + (
             "  if (pft_st_force_c >= 0) {\n    a.log_c = pft_st_force_c;\n"
             "    a.tile = pft_st_force_t;\n"
-            "    if (!grid_ok(log_w, a.log_c, a.tile)) return (int)cudaErrorInvalidValue;\n  }\n"))
+            "    if (!grid_ok(a.log_w, a.log_c, a.tile, log_size(kind)))\n"
+            "      return (int)cudaErrorInvalidValue;\n  }\n"))
         text = text.replace("namespace {\n", "int pft_st_force_c = -1, pft_st_force_t = 1;\n"
                             "namespace {\n", 1)
         entry = ("int pft_st64_force_grid(int c, int t) {\n  pft_st_force_c = c;\n"
@@ -702,43 +726,49 @@ def stamp_stages(src: Path, phases: bool) -> None:
             "#define PFT_LAP(K) if (threadIdx.x == 0 && blockIdx.x == 0) "
             "pft_st_stamps[K][pft_st_k[K]++ & 15] = clock64();\n"
             "#define PFT_BEGIN(K) if (threadIdx.x == 0 && blockIdx.x == 0) pft_st_k[K] = 0; "
-            "PFT_LAP(K) unsigned long long pft_g0; "
-            "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g0));\n"
+            "PFT_LAP(K) { unsigned long long pft_g0; "
+            "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g0)); "
+            "if (threadIdx.x == 0) atomicMin(&pft_st_gt[K][0], pft_g0); }\n"
             "#define PFT_END(K) { unsigned long long pft_g1; "
             "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g1)); "
-            "if (threadIdx.x == 0) { atomicMin(&pft_st_gt[K][0], pft_g0); "
-            "atomicMax(&pft_st_gt[K][1], pft_g1); } }\n")
+            "if (threadIdx.x == 0) atomicMax(&pft_st_gt[K][1], pft_g1); }\n")
     for fn, k in (("fwd_passes", 0), ("inv_passes", 1)):
         start = text.index(f"__device__ __forceinline__ void {fn}(")
         end = text.index("\n}\n", start)
         body = re.sub(r"(lane_pass<\d, (?:true|false)>\([^;]*\));", rf"{{ \1; PFT_LAP({k}) }}",
                       text[start:end])
         text = text[:start] + body + text[end:]
-    edits = [  # (anchor, text before it, text after it): a lap after the stages across
-        # the cluster, the span's end at every exit
-        ("  cluster.sync();  // keep every slice alive until its peers' reads are done\n",
-         "  PFT_LAP(1)\n", ""),
-        ("  if (a.log_c == 3) cross_forward<8>(a, b, sm, bf);\n", "", "  PFT_LAP(0)\n"),
-        ("  fwd_passes(b.count, b.l, tab, bf, rows, ClusterSync{}, rows, dst);\n", "",
-         "  PFT_END(0)\n"),
-        ("               rows, dst);\n    return;\n", "", ""),
-        ("  if (a.log_c == 3) cross_inverse<8>(a, b, sm, log_c);\n", "", "  PFT_END(1)\n"),
-        ("    inv_passes(b.count, b.l, tab, a.q, log_c, src, rows, dst);\n    return;\n", "",
+    # a lap after the stages across the cluster, the span's end at every exit:
+    # (pattern, text before it, text after it), the indent kept
+    edits = [
+        (r"( *)if constexpr \(SPLIT\) \{\n *if \(!arrived\) cluster_arrive\(\);\n", "PFT_LAP(1)",
          ""),
+        (r"( *)if \(a\.log_c == 3\) cross_forward<8>\(a, b, sm, bf\);\n", "", "PFT_LAP(0)"),
+        (r"( *)fwd_passes\(b\.count, b\.l, tab, bf, rows, ClusterSync\{\}, rows, dst[^;]*\);\n",
+         "", "PFT_END(0)"),
+        (r"NoSync\{\}, rows, dst[^;]*\);\n( *)return;\n", "PFT_END(0)", ""),
+        (r"( *)if \(a\.log_c == 3\) cross_inverse<8, FIX>\(a, b, sm, bfs\);\n", "", "PFT_END(1)"),
+        (r"inv_passes\(b\.count, b\.l, tab, bfs, src, rows, dst[^;]*\);\n( *)return;\n",
+         "PFT_END(1)", ""),
     ]
-    for anchor, before, after in edits:
-        if text.count(anchor) != 1:
-            raise SystemExit(f"cmux_mxu_timing: ntt_stages.cu changed near {anchor.strip()!r}")
-        if anchor.endswith("return;\n"):
-            before, after = "", ""
-            anchor_new = anchor.replace("    return;\n", f"    PFT_END({int('inv' in anchor)})\n"
-                                        "    return;\n")
-            text = text.replace(anchor, anchor_new)
+    for pattern, before, after in edits:
+        found = list(re.finditer(pattern, text))
+        if len(found) != 1:
+            raise SystemExit(f"cmux_mxu_timing: ntt_stages.cu changed near {pattern!r}")
+        m = found[0]
+        indent = m.group(1)
+        if pattern.endswith("return;\\n"):  # before the return
+            at = m.start(1)
+            text = text[:at] + indent + before + "\n" + text[at:]
         else:
-            text = text.replace(anchor, before + anchor + after)
-    for kernel, k in (("stages64_forward_kernel(const Stages64Args a) {\n", 0),
-                      ("stages64_inverse_kernel(const Stages64Args a) {\n", 1)):
-        anchor = kernel + "  extern __shared__ __align__(16) uint64_t sm[];\n"
+            text = (text[:m.start()] + (indent + before + "\n" if before else "") + m.group(0)
+                    + (indent + after + "\n" if after else "") + text[m.end():])
+    for kernel, k in (("stages64_forward_kernel(const StagesArgs<uint64_t> a) {\n", 0),
+                      ("stages64_inverse_kernel(const StagesArgs<uint64_t> a) {\n", 1),
+                      ("lane32_forward_kernel(const StagesArgs<uint32_t> a) {\n", 0),
+                      ("lane32_inverse_kernel(const StagesArgs<uint32_t> a) {\n", 1)):
+        words = "uint64_t sm[]" if "stages64" in kernel else "uint32_t sm32[]"
+        anchor = kernel + f"  extern __shared__ __align__(16) {words};\n"
         if text.count(anchor) != 1:
             raise SystemExit(f"cmux_mxu_timing: ntt_stages.cu's {kernel.strip()} moved")
         text = text.replace(anchor, anchor + f"  PFT_BEGIN({k})\n")
@@ -757,7 +787,7 @@ def stamp_stages(src: Path, phases: bool) -> None:
 
 def stage_stamps(torch, dev) -> dict:
     """In a ``--stages --phases`` copy (:func:`stamp_stages`): block 0's
-    cycles per part of the u64 kernels' last launch at each shape, the
+    cycles per part of each stage kernel's last launch at each shape, the
     launch's span on the device beside its event-timed device ms."""
     import ctypes
 
@@ -768,8 +798,6 @@ def stage_stamps(torch, dev) -> dict:
     read.restype = ctypes.c_int
     out = {}
     for (name, label), (fn, _, _, log_w, rows, q) in stage_calls(torch, dev).items():
-        if not name.startswith("ntt64"):
-            continue
         forward = name.endswith("forward")
         c, tile = stage_grid(name, log_w, rows, q)
         ms = device_ms(torch, fn)
@@ -791,10 +819,10 @@ def stage_stamps(torch, dev) -> dict:
 
 
 def stage_grids(torch, dev) -> dict:
-    """In a ``--stages --grids`` copy (:func:`stamp_stages`): the u64
-    kernels' device ms at each shape on the launch's own grid and on every
-    grid of :data:`STAGE_GRIDS` that fits, each one's words checked against
-    the own grid's."""
+    """In a ``--stages --grids`` copy (:func:`stamp_stages`): each stage
+    kernel's device ms at each shape on the launch's own grid and on every
+    grid of :data:`STAGE_GRIDS` that fits (a block's tile at most 128 KB),
+    each one's words checked against the own grid's."""
     import ctypes
 
     from primus_fhe_tpu_torch.ops import build
@@ -803,14 +831,13 @@ def stage_grids(torch, dev) -> dict:
     lib.pft_st64_force_grid.argtypes = [ctypes.c_int, ctypes.c_int]
     out = {}
     for (name, label), (fn, _, bound_ms, log_w, rows, q) in stage_calls(torch, dev).items():
-        if not name.startswith("ntt64"):
-            continue
+        size = 8 if name.startswith("ntt64") else 4
         lib.pft_st64_force_grid(-1, 1)
         want = fn()
         row = {"own": stage_grid(name, log_w, rows, q), "own_ms": device_ms(torch, fn),
                "bound_ms": bound_ms}
         for c, tile in STAGE_GRIDS:
-            if log_w - c < max(c, 1) or (tile << (log_w - c)) > 1 << 14 or tile > 2 * rows:
+            if log_w - c < max(c, 1) or (tile << (log_w - c)) * size > 1 << 17 or tile > 2 * rows:
                 continue
             lib.pft_st64_force_grid(c, tile)
             if not torch.equal(fn(), want):
@@ -2078,7 +2105,7 @@ def main() -> None:
         for field in ("device_ms", "enqueue_ms", "idle"):
             stages[field] = {side: {k: [r["stages"][k].get(field) for r in runs
                                         if r["side"] == side]
-                                    for k in runs[0]["stages"] if k.startswith("coeff trip")}
+                                    for k in runs[0]["stages"] if "coeff trip" in k}
                              for side in ("old", "new")}
     summary = {"card": runs[0]["card"], "mean_stages_ms": stages, "mean_split_ms": split,
                "mean_ntt_ms": ntt,

@@ -2,9 +2,9 @@
 // by kernels 1-2 (csrc/ntt32.cu), the CMux step kernel (csrc/cmux_fused.cu),
 // row 10's u64 kernels and kernel E (csrc/ntt64.cu), row 13's row halves K2
 // and Ki1 (csrc/ntt_mxu8_split.cu: the 128-point cyclic transform, from the
-// same butterflies and table layout), and row 11's u64 stage kernels
-// (csrc/ntt_stages.cu: the same slot maps on per-lane tables, with their own
-// butterflies, lane_pass at the end).
+// same butterflies and table layout), and row 11's u32 and u64 stage
+// kernels (csrc/ntt_stages.cu: the same slot maps on per-lane tables, with
+// their own butterflies, lane_pass at the end).
 //
 // A pass runs R <= 3 butterfly stages on groups of 2^R words: each thread
 // holds a group in registers through its R stages, so a transform of
@@ -465,12 +465,17 @@ __device__ void inv_rest(const ROWS& rows, int count, int log_n, int s0, const T
 }
 
 // ---------------------------------------------------------------------------
-// Passes on per-lane tables (row 11's u64 stage kernels, csrc/ntt_stages.cu):
-// the slot maps above, but every butterfly reads the entry of its own x slot
-// in a (stages, lanes) table, as the per-lane stage functions do, and the
-// butterfly is the caller's functor: bf.words(e, v) runs on all 2^R words
-// before stage e of the pass (the inverse's cut of their bound), then
-// bf(e, x, y, w, wp) on each pair.  Only x slots' entries are read.
+// Passes on per-lane tables (row 11's stage kernels, csrc/ntt_stages.cu, on
+// u32 or u64 words): the slot maps above, but every butterfly reads its
+// entries in a (stages, lanes) table, as the per-lane stage functions do,
+// and the butterfly is the caller's functor: bf.words(e, v) runs on all 2^R
+// words before stage e of the pass (the u64 inverse's cut of their bound),
+// then bf(e, x, y, ...) on each pair with the entries its slot policy
+// (BF::slots) names: the x slot's (the u64 pair: w, wp), the y slot's (the
+// u32 inverse), or both (the u32 forward's select form: w_x, wp_x, w_y,
+// wp_y).  Only those slots' entries are read.
+
+enum class Slots { x, y, both };
 
 // First slot of group g of a pass of R stages whose group's slots lie 2^ls
 // apart (ls = t for a forward pass, s0 for an inverse one): its slots are
@@ -486,44 +491,58 @@ __device__ __forceinline__ constexpr bool x_slot(int e, int k) {
   return !(k & (INV ? 1 << e : 1 << (R - 1 - e)));
 }
 
+// Whether a butterfly of policy S reads slot k's entry at stage e.
+template <Slots S, int R, bool INV>
+__device__ __forceinline__ constexpr bool read_slot(int e, int k) {
+  return S == Slots::both || x_slot<R, INV>(e, k) == (S == Slots::x);
+}
+
 // R stages on a group's 2^R words, forward (INV false) or inverse pairs;
-// w[e][k], wp[e][k] the entries of x slot k at stage e.
-template <int R, bool INV, class BF>
-__device__ __forceinline__ void lane_stages(uint64_t (&v)[1 << R], const uint64_t (&w)[R][1 << R],
-                                            const uint64_t (&wp)[R][1 << R], const BF& bf) {
+// w[e][k], wp[e][k] the entries of slot k at stage e (those BF::slots reads).
+template <int R, bool INV, class W, class BF>
+__device__ __forceinline__ void lane_stages(W (&v)[1 << R], const W (&w)[R][1 << R],
+                                            const W (&wp)[R][1 << R], const BF& bf) {
 #pragma unroll
   for (int e = 0; e < R; ++e) {
     const int h = INV ? 1 << e : 1 << (R - 1 - e);
     bf.words(e, v);
 #pragma unroll
     for (int k = 0; k < (1 << R); ++k)
-      if (x_slot<R, INV>(e, k)) bf(e, v[k], v[k + h], w[e][k], wp[e][k]);
+      if (x_slot<R, INV>(e, k)) {
+        if constexpr (BF::slots == Slots::both) {
+          bf(e, v[k], v[k + h], w[e][k], wp[e][k], w[e][k + h], wp[e][k + h]);
+        } else {
+          const int s = BF::slots == Slots::x ? k : k + h;
+          bf(e, v[k], v[k + h], w[e][s], wp[e][s]);
+        }
+      }
   }
 }
 
 // A (stages, lanes) table and its Shoup quotients: stage s's entry of lane
 // i at s * stride + i (the pointers already at the pass's first stage and
 // the block's first lane).
+template <class W>
 struct LaneTable {
-  const uint64_t* w;
-  const uint64_t* wp;
+  const W* w;
+  const W* wp;
   size_t stride;
   // the same table from stage s on
   __device__ __forceinline__ LaneTable at(int s) const {
     return LaneTable{w + s * stride, wp + s * stride, stride};
   }
-  // the entries of the x slots of a group at base + k 2^ls, R stages on
-  template <int R, bool INV>
-  __device__ __forceinline__ void get(int base, int ls, uint64_t (&tw)[R][1 << R],
-                                      uint64_t (&twp)[R][1 << R]) const {
+  // the entries of the slots S reads of a group at base + k 2^ls, R stages on
+  template <int R, bool INV, Slots S>
+  __device__ __forceinline__ void get(int base, int ls, W (&tw)[R][1 << R],
+                                      W (&twp)[R][1 << R]) const {
 #pragma unroll
     for (int e = 0; e < R; ++e)
 #pragma unroll
       for (int k = 0; k < (1 << R); ++k)
-        if (x_slot<R, INV>(e, k)) {
+        if (read_slot<S, R, INV>(e, k)) {
           const size_t i = e * stride + base + (k << ls);
-          tw[e][k] = Word<uint64_t>::ldg(w + i);
-          twp[e][k] = Word<uint64_t>::ldg(wp + i);
+          tw[e][k] = Word<W>::ldg(w + i);
+          twp[e][k] = Word<W>::ldg(wp + i);
         }
   }
 };
@@ -534,21 +553,21 @@ struct LaneTable {
 // with them.  The first group's entries are read before sync(), the
 // barrier that the pass's input waits on (a block's or a cluster's, or
 // none for device memory), so they are in flight across it.
-template <int R, bool INV, class SYNC, class LOAD, class STORE, class BF>
-__device__ __forceinline__ void lane_pass(int count, int log_l, int s0, const LaneTable& tab,
+template <int R, bool INV, class W, class SYNC, class LOAD, class STORE, class BF>
+__device__ __forceinline__ void lane_pass(int count, int log_l, int s0, const LaneTable<W>& tab,
                                           const SYNC& sync, const LOAD& src, const STORE& dst,
                                           const BF& bf) {
   const int ls = INV ? s0 : log_l - s0 - R;
   const int groups = 1 << (log_l - R);
   int g = threadIdx.x;
-  uint64_t w[R][1 << R], wp[R][1 << R];
-  if (g < groups) tab.get<R, INV>(group_base(g, ls, R), ls, w, wp);
+  W w[R][1 << R], wp[R][1 << R];
+  if (g < groups) tab.template get<R, INV, BF::slots>(group_base(g, ls, R), ls, w, wp);
   sync();
   for (; g < groups; g += blockDim.x) {
     const int base = group_base(g, ls, R);
-    if (g != (int)threadIdx.x) tab.get<R, INV>(base, ls, w, wp);
+    if (g != (int)threadIdx.x) tab.template get<R, INV, BF::slots>(base, ls, w, wp);
     for (int r = 0; r < count; ++r) {
-      uint64_t v[1 << R];
+      W v[1 << R];
       src.load(r, base, ls, v);
       lane_stages<R, INV>(v, w, wp, bf);
       dst.store(r, base, ls, v);

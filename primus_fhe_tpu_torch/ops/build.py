@@ -58,6 +58,7 @@ _SIGNATURES = {
     "pft_ntt32_stages_inverse": (_P,) * 4 + (_I,) * 3 + (_P,),
     "pft_ntt64_stages_forward": (_P,) * 4 + (_U64,) + (_I,) * 3 + (_P,),
     "pft_ntt64_stages_inverse": (_P,) * 4 + (_U64,) + (_I,) * 3 + (_P,),
+    "pft_ntt32_stages_grid": (_I, _I, _I, _I, _P, _P),
     "pft_ntt64_stages_grid": (_I, _U64, _I, _I, _P, _P),
     "pft_ntt_mxu8_split_k1": (_P,) * 5 + (_I,) * 6 + (_P,),
     "pft_ntt_mxu8_split_k2": (_P,) * 5 + (_I,) * 4 + (_P,),

@@ -13,13 +13,15 @@
 Replace ``pallas_stages_forward32``/``pallas_stages_inverse32``/
 ``pallas_stages_forward64``/``pallas_stages_inverse64``
 (``primus_fhe_tpu/ops/ntt_pallas.py:620,629,675,683``).  CUDA source:
-``csrc/ntt_stages.cu``, which states the design and what bounds it: the
-u32 kernels run a row in one block; the u64 kernels spread a row over a
-thread-block cluster of up to 8 blocks (each holding a slice of the row,
-the stages across slices through distributed shared memory) and run the
-stages within a slice as radix-8 register passes, the launch picking the
-cluster size and the rows a block (:func:`launch_grid`).  On the card the
-u32 kernels take ``log_w <= 15``, the u64 ones ``log_w <= 16``.
+``csrc/ntt_stages.cu``, which states the design and what bounds it: one
+machinery for both word types spreads a row over a thread-block cluster of
+up to 8 blocks (each holding a slice of the row, the stages across slices
+through distributed shared memory) and runs the stages within a slice as
+radix-8 register passes on the per-lane tables, each entry read once a
+tile of rows; the launch picks the cluster size and the rows a block
+(:func:`launch_grid`).  The u32 forward's butterflies read both lanes'
+entries (the TPU's select form), the u32 inverse's the y lane's, the u64
+pair's the x lane's.  On the card all four take ``log_w <= 16``.
 
 The twiddles are per-lane tables ``(log_w, 2^log_w)``, a shard's slice of
 :func:`..parallel.coeff_sharded.build_expanded_tables32` (or ``64``); stage
@@ -42,7 +44,7 @@ from ..modular.modops import reduce_once64
 from ..numeric.limb import MASK32, mul_hi_u64, mulhi_u32, narrow_u32, widen_u32
 from . import build
 
-MAX_LOG_W32 = 15  # a row of 2^15 u32 words is 128 KB of shared memory
+MAX_LOG_W32 = 16  # a row of 2^16 u32 words (256 KB) over a cluster of >= 2 blocks
 MAX_LOG_W64 = 16  # a row of 2^16 u64 words (512 KB) over a cluster of >= 4 blocks
 
 
@@ -201,7 +203,8 @@ def ntt32_stages_forward(log_w: int, q: int, w_loc, p_loc, values, out_factor: i
     """The final ``log_w`` forward stages of ``values (..., 2^log_w)`` (u32
     words in ``[0, 4q)``, ``q < 2^30``) with the per-lane tables ``w_loc``,
     ``p_loc (log_w, 2^log_w)``; canonical for ``out_factor=1``, lazy
-    ``[0, 4q)`` for ``4``.  The output keeps the input's storage."""
+    ``[0, 4q)`` for ``4``.  The output keeps the input's storage.  On the
+    card ``1 <= log_w <= 16``."""
     if out_factor not in (1, 4):
         raise ValueError("out_factor must be 1 or 4")
     if not 1 < q < 1 << 30:
@@ -219,7 +222,8 @@ def ntt32_stages_forward(log_w: int, q: int, w_loc, p_loc, values, out_factor: i
 
 def ntt32_stages_inverse(log_w: int, q: int, w_loc, p_loc, values):
     """The first ``log_w`` inverse stages of ``values (..., 2^log_w)`` (u32
-    words in ``[0, 2q)``); output lazy ``[0, 2q)``, the input's storage."""
+    words in ``[0, 2q)``); output lazy ``[0, 2q)``, the input's storage.  On
+    the card ``1 <= log_w <= 16``."""
     if not 1 < q < 1 << 30:
         raise ValueError("ntt32_stages_inverse requires q < 2^30")
     if values.device.type == "cpu":
@@ -268,16 +272,19 @@ def ntt64_stages_inverse(log_w: int, q: int, w_loc, p_loc, values, in_factor: in
                    w_loc, p_loc, values, q, in_factor)
 
 
-def launch_grid(log_w: int, q: int, rows: int, forward: bool) -> tuple[int, int]:
-    """``(C, T)`` that a u64 launch of ``rows`` rows of ``2^log_w`` words
-    takes on the current card: clusters of ``C`` blocks a row, tiles of
-    ``T`` rows a block (the C entry's rule; asks the card)."""
+def launch_grid(log_w: int, q: int, rows: int, forward: bool, bits: int = 64) -> tuple[int, int]:
+    """``(C, T)`` that a launch of the u64 (``bits=64``) or u32 (``bits=32``)
+    pair on ``rows`` rows of ``2^log_w`` words takes on the current card:
+    clusters of ``C`` blocks a row, tiles of ``T`` rows a block (the C
+    entry's rule; asks the card)."""
     import ctypes
 
+    if bits not in (32, 64):
+        raise ValueError("bits must be 32 or 64")
+    entry = f"pft_ntt{bits}_stages_grid"
     log_c, tile = ctypes.c_int(), ctypes.c_int()
-    build.check(build.library().pft_ntt64_stages_grid(
-        int(forward), q, rows, log_w, ctypes.byref(log_c), ctypes.byref(tile)),
-        "pft_ntt64_stages_grid")
+    build.check(getattr(build.library(), entry)(
+        int(forward), q, rows, log_w, ctypes.byref(log_c), ctypes.byref(tile)), entry)
     return 1 << log_c.value, tile.value
 
 

@@ -86,6 +86,31 @@ def test_stages32_plain_match_pallas():
     np.testing.assert_array_equal(got32.numpy().view(np.uint32), np.asarray(want))
 
 
+def test_stages32_plain_match_pallas_on_tables_whose_pairs_differ():
+    """The select form: the u32 forward multiplies y by the x lane's entry
+    for x' and by the y lane's for y', the inverse by the y lane's; on
+    per-lane tables drawn entry by entry (w < q, wp = floor(w 2^32 / q)),
+    whose pair entries differ, the plain versions equal the JAX kernels
+    (interpret mode) word for word, lazy outputs included."""
+    rng = np.random.default_rng(3)
+    log_w, width = 5, 32
+    w = rng.integers(0, Q32, (log_w, width), dtype=np.int64)
+    p = (w << 32) // Q32
+    jw, jpp = jnp.asarray(w.astype(np.uint32)), jnp.asarray(p.astype(np.uint32))
+    x = rng.integers(0, 4 * Q32, (3, width), dtype=np.int64)
+    for of in (1, 4):
+        want = jp.pallas_stages_forward32(log_w, Q32, jw, jpp, jnp.asarray(x.astype(np.uint32)),
+                                          out_factor=of)
+        got = st.ntt32_stages_forward(log_w, Q32, torch.from_numpy(w), torch.from_numpy(p),
+                                      torch.from_numpy(x), of)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+    x = rng.integers(0, 2 * Q32, (3, width), dtype=np.int64)
+    want = jp.pallas_stages_inverse32(log_w, Q32, jw, jpp, jnp.asarray(x.astype(np.uint32)))
+    got = st.ntt32_stages_inverse(log_w, Q32, torch.from_numpy(w), torch.from_numpy(p),
+                                  torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+
+
 @pytest.mark.parametrize("q", [Q50, Q62])
 def test_stages64_plain_match_pallas(q):
     rng = np.random.default_rng(2)

@@ -73,6 +73,7 @@ def _residues(gen, primes, shape, factor, dev):
 
 PRIMES4 = PRIMES3 + [1073643521]
 PRIMES_2E15 = [1073643521, 1073479681]  # = 1 mod 2^15: log_n 13-14
+Q32_17 = 1073479681  # next_ntt_prime(30, 17): = 1 mod 2^18, the u32 large ring's q
 BOOL_PRIMES = [1073692673, 1073668097]  # BOOLEAN_128's convolver
 NTRU_Q = [1038337]  # NTRU_128's q, = 1 mod 2^11
 
@@ -593,13 +594,18 @@ def _with_extremes(x, q, factor):
                                              (17, 2, (1, 3, 8))])
 def test_stage_kernels_match_plain(dev, log_n, d, batches):
     """The four stage kernels on shard 1's table slices: u32 at q = 536813569
-    (phase 15's n = 2^12), u64 on the 62-bit q = 4611686018425815041 (exact
-    Shoup) and a 50-bit q (deferred, approximate Shoup); lazy outputs too,
-    the input range's extreme words, and at log_w 15-16 (a row over a
-    cluster of at least 2 and 4 blocks) batches 1, 3 and 8.  The u64 grid
-    the card picks (``launch_grid``) keeps the C entry's rule: a block's
-    tile within 2^14 words, no larger than the rows need, a row split only
-    into slices of at least 2^8 words forward and 2^7 inverse."""
+    (phase 15's n = 2^12) and, at n = 2^16 and 2^17 (log_w 14-16, a row over
+    a cluster), q = 1073479681 on batches 1, 3 and 8, on the repo's tables
+    and on tables whose pair entries differ (the select form reads both
+    lanes' entries forward, the y lane's inverse), int64 and int32 storage;
+    u64 on the 62-bit q = 4611686018425815041 (exact Shoup) and a 50-bit q
+    (deferred, approximate Shoup); lazy outputs too, the input range's
+    extreme words, and at log_w 15-16 batches 1, 3 and 8.  The grid the card
+    picks (``launch_grid``) keeps the C entry's rule: a block's tile within
+    128 KB, no larger than the rows need, a u64 row split only into slices
+    of at least 2^8 words forward and 2^7 inverse, a u32 row only at 2^11
+    words and more, into slices of at least 2^8 words."""
+    from primus_fhe_tpu_torch.numeric.limb import narrow_u32, widen_u32
     from primus_fhe_tpu_torch.ops import ntt_stages as st
     from primus_fhe_tpu_torch.parallel import coeff_sharded as cs
 
@@ -607,30 +613,47 @@ def test_stage_kernels_match_plain(dev, log_n, d, batches):
     log_d = d.bit_length() - 1
     log_w, width = log_n - log_d, (1 << log_n) // d
     cols = slice(width, 2 * width)
-    if log_n <= 12:
-        q = 536813569
-        w, p = (t[log_d:, cols].to(dev) for t in cs.build_expanded_tables32(log_n, q))
-        wi, pi = (t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables32(log_n, q))
-        x = torch.randint(0, 4 * q, (8, width), generator=gen, device=dev)
-        for of in (1, 4):
-            want = st.ntt32_stages_forward_plain(log_w, q, w, p, x, of)
-            assert torch.equal(st.ntt32_stages_forward(log_w, q, w, p, x, of), want)
-            got32 = st.ntt32_stages_forward(log_w, q, w, p, x.to(torch.int32), of)
-            assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want)
-        y = torch.randint(0, 2 * q, (8, width), generator=gen, device=dev)
-        assert torch.equal(st.ntt32_stages_inverse(log_w, q, wi, pi, y),
-                           st.ntt32_stages_inverse_plain(log_w, q, wi, pi, y))
+
+    def grid_keeps_the_rule(q, rows, bits):
+        for forward in (True, False):  # the card's own pick, held to the C entry's rule
+            c, tile = st.launch_grid(log_w, q, rows, forward, bits)
+            l = log_w - (c.bit_length() - 1)
+            assert c in (1, 2, 4, 8) and tile in (1, 2, 4, 8)
+            assert (tile << l) * bits // 8 <= 1 << 17  # a block's tile fits its shared memory
+            assert tile == 1 or tile // 2 < rows  # no larger than the rows need
+            if bits == 64:  # slices of >= 2 KB forward, 1 KB inverse
+                assert c == 1 or l >= 7 + forward
+            else:  # rows of >= 2^11 words into slices of >= 2^8
+                assert c == 1 or (l >= 8 and log_w >= 11)
+
+    if log_n <= 12 or log_n >= 16:
+        q = 536813569 if log_n <= 12 else Q32_17
+        repo = tuple(t[log_d:, cols].to(dev) for t in cs.build_expanded_tables32(log_n, q)) + \
+            tuple(t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables32(log_n, q))
+        drawn = [torch.randint(0, q, (log_w, width), generator=gen, device=dev) for _ in range(2)]
+        drawn = (drawn[0], (drawn[0] << 32) // q, drawn[1], (drawn[1] << 32) // q)
+        for rows in (8,) if log_n <= 12 else (1, 3, 8):
+            grid_keeps_the_rule(q, rows, 32)
+            for w, p, wi, pi in (repo, drawn):
+                x = _with_extremes(torch.randint(0, 4 * q, (rows, width), generator=gen,
+                                                 device=dev), q, 4)
+                for of in (1, 4):
+                    want = st.ntt32_stages_forward_plain(log_w, q, w, p, x, of)
+                    assert torch.equal(st.ntt32_stages_forward(log_w, q, w, p, x, of), want)
+                    got32 = st.ntt32_stages_forward(log_w, q, narrow_u32(w), narrow_u32(p),
+                                                    narrow_u32(x), of)
+                    assert got32.dtype == torch.int32 and torch.equal(widen_u32(got32), want)
+                y = _with_extremes(torch.randint(0, 2 * q, (rows, width), generator=gen,
+                                                 device=dev), q, 2)
+                want = st.ntt32_stages_inverse_plain(log_w, q, wi, pi, y)
+                assert torch.equal(st.ntt32_stages_inverse(log_w, q, wi, pi, y), want)
+                got32 = st.ntt32_stages_inverse(log_w, q, wi, pi, narrow_u32(y))
+                assert got32.dtype == torch.int32 and torch.equal(widen_u32(got32), want)
     for q in (4611686018425815041, next_ntt_prime(50, log_n)):
         w, p = (t[log_d:, cols].to(dev) for t in cs.build_expanded_tables64(log_n, q))
         wi, pi = (t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables64(log_n, q))
         for rows in batches:
-            for forward in (True, False):  # the card's own pick, held to the C entry's rule
-                c, tile = st.launch_grid(log_w, q, rows, forward)
-                l = log_w - (c.bit_length() - 1)
-                assert c in (1, 2, 4, 8) and tile in (1, 2, 4, 8)
-                assert tile << l <= 1 << 14  # a block's tile fits its shared memory
-                assert tile == 1 or tile // 2 < rows  # no larger than the rows need
-                assert c == 1 or l >= 7 + forward  # slices of >= 2^8 words forward, 2^7 inverse
+            grid_keeps_the_rule(q, rows, 64)
             x = _with_extremes(_below(gen, [q], (rows, width), 4, dev)[0], q, 4)
             for of in (1, 2, 4):
                 assert torch.equal(st.ntt64_stages_forward(log_w, q, w, p, x, of),
@@ -640,6 +663,54 @@ def test_stage_kernels_match_plain(dev, log_n, d, batches):
                                    in_factor)
                 assert torch.equal(st.ntt64_stages_inverse(log_w, q, wi, pi, y, in_factor),
                                    st.ntt64_stages_inverse_plain(log_w, q, wi, pi, y, in_factor))
+
+
+@pytest.mark.parametrize("log_n,d", [(16, 2), (16, 4), (17, 2)])
+def test_coeff_sharded32_large_ring_matches_plain(dev, log_n, d):
+    """The u32 coefficient-sharded NTT at n = 2^16 over D = 2, 4 and n = 2^17
+    over D = 2 (shards of 2^14-2^16 words, a row over a cluster) on a
+    ``LocalMesh``, q = 1073479681: the forward equals the plain
+    ``transforms.ntt.forward32`` (kernels 1-2 take log_n <= 14), the round
+    trip returns the input, each u32 stage kernel launched once a shard a
+    transform."""
+    from primus_fhe_tpu_torch.ops import ntt_stages as st
+    from primus_fhe_tpu_torch.parallel import LocalMesh, shard, unshard
+    from primus_fhe_tpu_torch.parallel import coeff_sharded as cs
+    from primus_fhe_tpu_torch.transforms.ntt import forward32
+    from primus_fhe_tpu_torch.transforms.plan import build_plan32
+
+    q, spec = Q32_17, (None, "residue")
+    gen = torch.Generator(device=dev).manual_seed(log_n * d)
+    x = torch.randint(0, q, (2, 1 << log_n), generator=gen, device=dev)
+    mesh = LocalMesh(d, 1, dev)
+    kernels = (st.ntt32_stages_forward, st.ntt32_stages_inverse)
+    before = [k.launches for k in kernels]
+    f = cs.coeff_sharded_forward32(mesh, "residue", log_n, q, shard(mesh, x, spec))
+    assert torch.equal(unshard(mesh, f, spec), forward32(build_plan32(log_n, q, dev), x))
+    back = cs.coeff_sharded_inverse32(mesh, "residue", log_n, q, f)
+    assert torch.equal(unshard(mesh, back, spec), x)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [d, d]
+
+
+def test_stage_kernels_refuse_log_w_past_16(dev):
+    """On the card the four stage kernels take log_w <= 16: at log_w 17 each
+    raises ValueError before any launch, and no launch count moves."""
+    from primus_fhe_tpu_torch.ops import ntt_stages as st
+
+    kernels = (st.ntt32_stages_forward, st.ntt32_stages_inverse, st.ntt64_stages_forward,
+               st.ntt64_stages_inverse)
+    before = [k.launches for k in kernels]
+    tab = torch.zeros((17, 1 << 17), dtype=torch.int64, device=dev)
+    x = torch.zeros((1, 1 << 17), dtype=torch.int64, device=dev)
+    for k, q in zip(kernels, (Q32_17, Q32_17, Q62[0], Q62[0])):
+        with pytest.raises(ValueError, match="log_w <= 16"):
+            k(17, q, tab, tab, x)
+        with pytest.raises(ValueError, match="log_w <= 16"):
+            k(17, q, tab.to(torch.int32), tab.to(torch.int32), x.to(torch.int32)) \
+                if k in kernels[:2] else k(17, q, tab, tab, x)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
 
 
 Q14 = next_ntt_prime(50, 14)  # = 1 mod 2^15: row 13 at log_n 14, 7 planes

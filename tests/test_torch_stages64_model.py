@@ -49,17 +49,24 @@ Q62 = 4611686018425815041  # phase 15's q: exact Shoup, lazy words past 2^63
 Q50 = 1125899902124033  # = 1 mod 2^19: the forward defers up to log_w 16
 M32 = np.uint64(0xFFFFFFFF)
 U32 = np.uint64(32)
-TILE_WORDS = 1 << 14  # a block's tile: T rows x 2^l words
-MIN_SPLIT_LOG = 7  # the inverse's; the forward's one more
+TILE_BYTES = 1 << 17  # a block's tile: T rows x 2^l words, at most 128 KB
+MIN_SPLIT_BYTES = 1 << 10  # slices of >= 1 KB inverse, 2 KB forward
 SMS, SMEM_MAX, THREADS = 132, 232448, 256
 
 
-# -- the C entry's rules --------------------------------------------------------
+# -- the C entry's rules ---------------------------------------------------------
+# (over the word size: 8 bytes for the u64 pair, 4 for the u32 pair)
 
 
-def grid_ok(log_w, c, tile):
+def grid_ok(log_w, c, tile, size=8):
     l = log_w - c
-    return 0 <= c <= 3 and l >= max(1, c) and 1 <= tile <= 8 and tile << l <= TILE_WORDS
+    return 0 <= c <= 3 and l >= max(1, c) and 1 <= tile <= 8 and (tile << l) * size <= TILE_BYTES
+
+
+def min_split(forward, size=8):
+    """The least slice's log a split row takes: 2^7 u64 words inverse, 2^8
+    forward; 2^8 u32 words both ways."""
+    return 8 if size == 4 else (MIN_SPLIT_BYTES // size).bit_length() - 1 + forward
 
 
 def threads(l):
@@ -67,29 +74,30 @@ def threads(l):
     return min(max(groups, 32), THREADS)
 
 
-def wave_blocks(log_w, c, tile):
+def wave_blocks(log_w, c, tile, size=8):
     """A model of the card's one-wave capacity (the C entry asks the
     occupancy API): blocks an SM holds by shared memory and threads."""
     l = log_w - c
-    per_sm = min(SMEM_MAX // (8 * (tile << l)), 2048 // threads(l), 32)
+    per_sm = min(SMEM_MAX // (size * (tile << l)), 2048 // threads(l), 32)
     return SMS * per_sm // (1 << c) << c
 
 
-def pick_grid(rows, log_w, forward=True):
+def pick_grid(rows, log_w, forward=True, size=8):
     """A model of the C entry's ``pick_grid`` (the card's pick can differ
     where its occupancy differs from :func:`wave_blocks`): the fewest waves, for the forward the fewest phases
     (passes, and the stages across the cluster as one), the most SMs busy,
     the largest tile, the smallest cluster; a split row's slices at least
-    2^8 words forward, 2^7 inverse."""
+    2 KB forward, 1 KB inverse; the u32 pair (``size`` 4) splits only rows
+    of at least 2^11 words, into slices of at least 2^8 words."""
     best = None
     for c in range(4):
-        if c > 0 and log_w - c < MIN_SPLIT_LOG + forward:
+        if c > 0 and (log_w - c < min_split(forward, size) or (size == 4 and log_w < 11)):
             break
         for i in range(4):
             t = 1 << i
-            if not grid_ok(log_w, c, t) or (i > 0 and t // 2 >= rows):
+            if not grid_ok(log_w, c, t, size) or (i > 0 and t // 2 >= rows):
                 break
-            held = wave_blocks(log_w, c, t)
+            held = wave_blocks(log_w, c, t, size)
             if held <= 0:
                 continue
             grid = -(-rows // t) << c
@@ -118,7 +126,7 @@ def test_pick_grid():
             for forward in (True, False):
                 c, t = pick_grid(rows, log_w, forward)
                 assert grid_ok(log_w, c, t)
-                assert c == 0 or log_w - c >= MIN_SPLIT_LOG + forward
+                assert c == 0 or log_w - c >= 7 + forward
                 assert t == 1 or t // 2 < rows
 
 
@@ -175,38 +183,83 @@ def inverse_schedule(q, log_c, stages):
     return out, log_c
 
 
-def run_stages(v, forward, r, lanes_of, stage0, tab, q, defer, sched):
+class Word64:
+    """Row 11's u64 words for the model: an 8-byte word, swz64 on the tile's
+    word (each half-warp of an access hits 16 distinct words mod 16), the
+    butterflies of ``FwdBf64`` / ``InvBf64`` with the x lane's entry, the
+    lazy range before each stage, the output chains."""
+
+    size = 8
+
+    def __init__(self, forward, log_w, q, factor):
+        self.forward, self.q, self.factor = forward, q, factor
+        self.defer = forward and (4 + 4 * log_w) * q < 1 << 64
+        self.sched, self.log_out = inverse_schedule(q, (factor - 1).bit_length(), log_w)
+        self.log_chain = (4 + 4 * log_w - 1).bit_length()
+
+    @staticmethod
+    def smem(l, rows, slots):
+        """The shared-memory word of ``slots`` of the tile's ``rows``."""
+        return swz64((rows << l) + slots)
+
+    @staticmethod
+    def conflict_free(words):
+        half_warps_conflict_free(words)
+
+    def before(self, v, s):
+        """The words before stage ``s``: checked in range (the inverse's cut
+        first)."""
+        q = self.q
+        if self.forward:
+            check_words(v, (4 + 4 * s) * q if self.defer else 4 * q)
+            return v
+        cut, cq = self.sched[s]
+        if cut:
+            v = chain_down(v, q, cut, 1)
+        check_words(v, cq)
+        return v
+
+    def butterfly(self, v, s, k, h, entry):
+        """Stage ``s``'s butterfly on slots ``k``, ``k + h``; ``entry(slot)``
+        reads a slot's table entry."""
+        q, two_q, four_q = self.q, np.uint64(2 * self.q), np.uint64(4 * self.q)
+        w, wp = entry(k)
+        x, y = v[..., k], v[..., k + h]
+        with np.errstate(over="ignore"):
+            if self.forward and self.defer:
+                m = shoup_approx(y, w, wp, q)
+                v[..., k], v[..., k + h] = x + m, x + (four_q - m)
+            elif self.forward:
+                tx = sub_if(x, two_q)
+                m = shoup(y, w, wp, q)
+                v[..., k], v[..., k + h] = tx + m, tx + (two_q - m)
+            else:
+                cq = np.uint64(self.sched[s][1])
+                v[..., k], v[..., k + h] = x + y, shoup_approx(x + cq - y, w, wp, q)
+
+    def fix(self, v):
+        q = self.q
+        if not self.forward:
+            return chain_down(v, q, self.log_out, 1)
+        if self.defer:
+            v = chain_down(v, q, self.log_chain, 2)
+        if self.factor <= 2:
+            v = sub_if(v, 2 * q)
+        return sub_if(v, q) if self.factor == 1 else v
+
+
+def run_stages(v, word, r, lanes_of, stage0, tab):
     """R stages on groups ``v (..., 2^R)`` (slot k of a group in the last
-    axis): forward pairs k, k + 2^(R-1-e), inverse k, k + 2^e; the x slot's
-    table entry at lane ``lanes_of(k)`` (broadcast over the groups), row 11's
-    butterfly; the words' lazy range checked before each stage."""
-    two_q, four_q = np.uint64(2 * q), np.uint64(4 * q)
+    axis): forward pairs k, k + 2^(R-1-e), inverse k, k + 2^e; a slot's
+    table entry at lane ``lanes_of(slot)`` (broadcast over the groups), the
+    word's butterfly; the words' lazy range checked before each stage."""
     for e in range(r):
         s = stage0 + e
-        h = 1 << (r - 1 - e) if forward else 1 << e
-        if forward:
-            check_words(v, (4 + 4 * s) * q if defer else 4 * q)
-        else:
-            cut, cq = sched[s]
-            if cut:
-                v = chain_down(v, q, cut, 1)
-            check_words(v, cq)
+        h = 1 << (r - 1 - e) if word.forward else 1 << e
+        v = word.before(v, s)
         for k in range(1 << r):
-            if k & h:
-                continue
-            w, wp = tab.get(s, lanes_of(k))
-            x, y = v[..., k], v[..., k + h]
-            with np.errstate(over="ignore"):
-                if forward and defer:
-                    m = shoup_approx(y, w, wp, q)
-                    v[..., k], v[..., k + h] = x + m, x + (four_q - m)
-                elif forward:
-                    tx = sub_if(x, two_q)
-                    m = shoup(y, w, wp, q)
-                    v[..., k], v[..., k + h] = tx + m, tx + (two_q - m)
-                else:
-                    cq = np.uint64(sched[s][1])
-                    v[..., k], v[..., k + h] = x + y, shoup_approx(x + cq - y, w, wp, q)
+            if not k & h:
+                word.butterfly(v, s, k, h, lambda slot, s=s: tab.get(s, lanes_of(slot)))
     return v
 
 
@@ -246,31 +299,27 @@ def model(forward, log_w, q, tabs, x, log_c, tile, factor, seed=0):
     per-lane tables ``tabs`` (:class:`Tables`) on clusters of 2^log_c blocks
     and tiles of ``tile`` rows; ``factor`` is the forward's out_factor or
     the inverse's in_factor."""
-    assert grid_ok(log_w, log_c, tile)
+    return run_model(Word64(forward, log_w, q, factor), log_w, tabs, x, log_c, tile, seed)
+
+
+def run_model(word, log_w, tabs, x, log_c, tile, seed=0):
+    """A stage kernel of ``word``'s type (:class:`Word64`, or the u32 pair's)
+    on ``x (rows, 2^log_w)``: the kernels' data flow, one machinery for both
+    word types."""
+    forward = word.forward
+    assert grid_ok(log_w, log_c, tile, word.size)
     rows = x.shape[0]
     rng = np.random.default_rng(seed)
     C, l = 1 << log_c, log_w - log_c
     L = 1 << l
-    defer = forward and (4 + 4 * log_w) * q < 1 << 64
-    sched, log_out = inverse_schedule(q, (factor - 1).bit_length(), log_w)
-    log_chain = (4 + 4 * log_w - 1).bit_length()
     out = np.zeros_like(x)
     writes = np.zeros(x.shape, dtype=np.int64)
     blk = np.arange(C)[:, None, None]  # block of the cluster (slice)
 
-    def fix(v):
-        if not forward:
-            return chain_down(v, q, log_out, 1)
-        if defer:
-            v = chain_down(v, q, log_chain, 2)
-        if factor <= 2:
-            v = sub_if(v, 2 * q)
-        return sub_if(v, q) if factor == 1 else v
-
     def store(row0, cnt, cols, v):
         """Words ``v (cnt, ..., cols' shape)`` to the output rows."""
         rr = row0 + np.arange(cnt).reshape((cnt,) + (1,) * cols.ndim)
-        out[rr, cols] = fix(v)
+        out[rr, cols] = word.fix(v)
         np.add.at(writes, (np.broadcast_to(rr, v.shape), np.broadcast_to(cols, v.shape)), 1)
 
     for row0 in range(0, rows, tile):
@@ -294,9 +343,8 @@ def model(forward, log_w, q, tabs, x, log_c, tile, factor, seed=0):
             """The c stages across slices on offsets j = 0 .. L-1 (every
             block's share), ``v_in (cnt, L, C)``."""
             j = np.arange(L)
-            half_warps_conflict_free(swz64((rloc[:, :, 0] << l) + j[None, :]))
-            return run_stages(v_in, forward, log_c, lambda k: j + (k << l), stage0, tabs, q,
-                              defer, sched)
+            word.conflict_free(word.smem(l, rloc[:, :, 0], j[None, :]))
+            return run_stages(v_in, word, log_c, lambda k: j + (k << l), stage0, tabs)
 
         passes = pass_split(l, forward)
         if forward and log_c:  # the stages across slices, at load
@@ -306,7 +354,7 @@ def model(forward, log_w, q, tabs, x, log_c, tile, factor, seed=0):
             v = x[row0 + rloc, j + (k << l)].copy()  # (cnt, L, C)
             v = cross(v, 0)
             for b in range(C):
-                sm_write(b, swz64((rloc[:, :, 0] << l) + np.arange(L)[None, :]).ravel(),
+                sm_write(b, word.smem(l, rloc[:, :, 0], np.arange(L)[None, :]).ravel(),
                          v[:, :, b].ravel())
             epoch[0] += 1  # the cluster barrier before the slices' passes
 
@@ -318,26 +366,25 @@ def model(forward, log_w, q, tabs, x, log_c, tile, factor, seed=0):
             to_global = last and (forward or log_c == 0)
             if not from_global and not first:
                 epoch[0] += 1  # the block barrier before the pass
-            words = (rloc << l) + slots[None]  # (cnt, groups, 2^R), a tile's word
+            words = word.smem(l, rloc, slots[None])  # (cnt, groups, 2^R)
             for kk in range(1 << r):
-                half_warps_conflict_free(swz64(words[:, :, kk]))
+                word.conflict_free(words[:, :, kk])
             if from_global:
                 v = np.stack([x[row0 + rloc, b * L + slots[None]] for b in range(C)])
             else:
-                v = np.stack([sm_read(b, swz64(words)) for b in range(C)])
-            v = run_stages(v, forward, r, lambda k: blk * L + slots[:, k],
-                           stage_off + s0, tabs, q, defer, sched)
+                v = np.stack([sm_read(b, words) for b in range(C)])
+            v = run_stages(v, word, r, lambda k: blk * L + slots[:, k], stage_off + s0, tabs)
             if to_global:
                 for b in range(C):
                     store(row0, cnt, b * L + slots, v[b])
             else:
                 for b in range(C):
-                    sm_write(b, swz64(words).ravel(), v[b].ravel())
+                    sm_write(b, words.ravel(), v[b].ravel())
 
         if not forward and log_c:  # the stages across slices, gathered, to device memory
             epoch[0] += 1  # the cluster barrier: every slice's own stages are done
             j = np.arange(L)[None, :]
-            v = np.stack([sm_read(b, swz64((rloc[:, :, 0] << l) + j)) for b in range(C)], -1)
+            v = np.stack([sm_read(b, word.smem(l, rloc[:, :, 0], j)) for b in range(C)], -1)
             v = cross(v, l)
             k = np.arange(C)[None, None, :]
             store(row0, cnt, np.arange(L)[:, None] + (k[0] << l), v)
