@@ -19,7 +19,10 @@ non-zero):
    events behind a sleep kernel; kernels 1-2 also at the NTRU_128 shape;
    kernels A and B also with their int8 MACs a second on the device and
    their share of the bound (their batch-64 launches run partial and whole
-   clusters of ciphertexts);
+   clusters of ciphertexts); kernel C also at the key preparations' sizes
+   (BOOLEAN_128's whole bootstrap key, 2 x 7560 rows of 2048; NTRU_128's
+   evk, 4200 rows of 1024) with kernel 1's canonical forward on the same
+   words beside it;
 3. ``make_context(BOOLEAN_128)`` (NTT key kind) on the card from a seeded
    generator;
 4. NAND/AND/OR truth tables, NOT, and NAND(NAND(a,b), NAND(a,b)) == AND(a,b),
@@ -31,17 +34,19 @@ non-zero):
    step kernel exactly once per key slice per bootstrap;
 7. single-gate latency at batch 1 and gates/s at batch 64 (truth-checked),
    each split into bootstrap and key switch, with the device's busy time
-   and top kernels from ``torch.profiler``;
+   and top kernels from ``torch.profiler``, and the launches of the
+   bootstrap's start (``initial_accumulator``: the zero fill and kernel F);
 8. the MXU key kind (``bsk_kind="mxu"``, same seed as phase 3, so the same
    GGSW material): truth tables and composition with its launch counts
    (kernel A once per key slice per bootstrap, kernel C in key
-   preparation), one bootstrap through both key kinds (the same words),
-   and the phase-7 timings on this route;
+   preparation), the key preparation's seconds, one bootstrap through both
+   key kinds (the same words), and the phase-7 timings on this route;
 9. NTRU_128: keys on the card, truth tables and a composition on both
    evaluation keys (MXU: kernel B; NTT: kernels 1-2) with launch counts,
    the gate-output phase error and decision margin, one bootstrap through
    kernel B, through kernels 1-2 and through the plain versions on the CPU
-   (the same words), and latency and gates/s on both routes;
+   (the same words), the evk preparation's seconds, and latency and
+   gates/s on both routes;
 10. the RNS/DCRT blind rotation at N=4096 over the two 50-bit moduli of
     ``bench_dcrt.py`` (L=4 levels of 2^25, k=1, n_lwe=630, sigma 3.2,
     binary secrets): the four u64 NTT kernels against their plain versions
@@ -70,7 +75,9 @@ non-zero):
     forward equals the plain ``forward64``, the lazy forward round-trips,
     both routes agree; ms a transform per route;
 13. kernels F (``rotate``) and G (``cmux_front``) at BOOLEAN_128 width,
-    batch 64, against their plain versions, and one CMux step
+    batch 64, against their plain versions (F also at the bootstrap's
+    start, one broadcast test row into ``acc[:, -1, :]``, and at 1024 x 2
+    rows), and one CMux step
     ``acc + cmux_delta(...)`` on key slice 0 through kernel G, bit-equal to
     ``fused_cmux_step`` (kernels 3-4), with its launch counts;
 14. the mesh layer's multi-device step on one card: phase 10's rotation
@@ -129,6 +136,8 @@ import time
 
 SEED = 2026
 BATCH = 64
+KEY_ROWS = {"bsk": 7560, "evk": 4200}  # kernel C's rows a prime: BOOLEAN_128's key, NTRU_128's evk
+F_ROWS = 1024  # kernel F's large shape: 1024 x 2 rows of 2048
 LAT_REPS = 5
 KERNEL_REPS = 20
 NTRU_NOISE_RECORD = 8519.48  # NOISE_CHECK_NTRU_r05.json measured_std (mod-q units)
@@ -770,6 +779,26 @@ def phase13_front(torch, dev, table, conv, basis, key0, counted) -> dict:
                        lambda: rotate.rotate(acc, deg, sub),
                        lambda: rotate.rotate(acc32, deg, sub),
                        lambda: rotate.rotate_plain(acc, deg, sub), bound(8 * words))
+    # the bootstrap's start: the one test row (a broadcast view) into the
+    # accumulator's last component, as initial_accumulator launches it
+    row = torch.randint(0, 1 << 32, (n,), generator=g, device=dev)
+    row32 = row.to(torch.int32)
+    start = torch.zeros((BATCH, k1, n), dtype=torch.int32, device=dev)
+    compare_kernel(torch, table, "rotate@start", BATCH,
+                   lambda: rotate.rotate(row32.expand(BATCH, n), deg, out=start[:, -1, :]).to(
+                       torch.int64) & 0xFFFFFFFF,
+                   lambda: rotate.rotate(row32.expand(BATCH, n), deg, out=start[:, -1, :]),
+                   lambda: rotate.rotate_plain(row.expand(BATCH, n), deg),
+                   bound(4 * (n + BATCH * n)))
+    big = torch.randint(0, 1 << 32, (F_ROWS, k1, n), generator=g, device=dev)
+    big_deg = torch.randint(-4 * n, 4 * n, (F_ROWS,), generator=g, device=dev, dtype=torch.int32)
+    big32 = big.to(torch.int32)
+    f_b = bound(8 * big.numel())
+    compare_kernel(torch, table, "rotate@1024", F_ROWS, lambda: rotate.rotate(big, big_deg),
+                   lambda: rotate.rotate(big32, big_deg),
+                   lambda: rotate.rotate_plain(big, big_deg), f_b)
+    log(f"rotate@1024: share of the byte bound {f_b[0] / table['rotate@1024'][F_ROWS][3]:.3f}")
+    del big, big32
     compare_kernel(torch, table, "cmux_front", BATCH,
                    lambda: cmux_front.cmux_front(acc, deg, basis, conv.primes),
                    lambda: cmux_front.cmux_front(acc32, deg, basis, conv.primes),
@@ -1528,7 +1557,7 @@ def main() -> None:
     from primus_fhe_tpu_torch import params as P
     from primus_fhe_tpu_torch.boot import gates, ntru_gates
     from primus_fhe_tpu_torch.boot import ntru_blind_rotate as nbr
-    from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap
+    from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap, initial_accumulator
     from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
     from primus_fhe_tpu_torch.lattice import keyswitch, tfhe
     from primus_fhe_tpu_torch.modular.modops import add32, neg32, sub32
@@ -1689,6 +1718,28 @@ def main() -> None:
         log(f"mxu_cmux_step / ntru_cmux_step batch {bsz}: bit-equal, {c_a} / {c_b} ciphertexts a "
             f"cluster ({bsz % c_a or c_a} / {bsz % c_b or c_b} in the last)")
 
+    # kernel C at the key preparations' sizes, kernel 1's canonical forward
+    # (the same function, a hand-written kernel of the port) on the same words
+    for tag, cplan, primes_t, count, width in (("bsk", plan, qs, kp, n),
+                                               ("evk", nplan, qn_t, 1, nn)):
+        rows_k = KEY_ROWS[tag]
+        x_k = residues(rows_k, 1, primes_t, count, width)
+        x_k32, = i32(x_k)
+        k_b = bound(8 * x_k.numel(), muls32=ntt_muls(x_k.numel() // width, width))
+        compare_kernel(torch, table, f"mxu8_forward32@{tag}", rows_k,
+                       lambda: ntt_mxu8.mxu8_forward32(cplan, x_k),
+                       lambda: ntt_mxu8.mxu8_forward32(cplan, x_k32),
+                       lambda: ntt_mxu8.mxu8_forward32_plain(cplan, x_k), k_b)
+        compare_kernel(torch, table, f"ntt32_forward@{tag}", rows_k,
+                       lambda: ntt32.forward32(cplan.ntt, x_k),
+                       lambda: ntt32.forward32(cplan.ntt, x_k32),
+                       lambda: ntt32.forward32_plain(cplan.ntt, x_k), k_b)
+        c_ms, one_ms = (table[f"{k}@{tag}"][rows_k][3] for k in ("mxu8_forward32", "ntt32_forward"))
+        log(f"mxu8_forward32@{tag}: {count} x {rows_k} rows of {width}, tile and grid "
+            f"{ntt_mxu8.launch_grid(cplan, rows_k)}; device {c_ms:.4f} ms against kernel 1's "
+            f"{one_ms:.4f} (ratio {c_ms / one_ms:.3f}); share of the bound {k_b[0] / c_ms:.3f}")
+        del x_k, x_k32
+
     counted = (ntt32.forward32, ntt32.inverse32, cmux_fused.fused_cmux_step,
                cmux_mxu.mxu_cmux_step, ntru_cmux_mxu.ntru_cmux_step, ntt_mxu8.mxu8_forward32,
                rotate.rotate, cmux_front.cmux_front)
@@ -1808,6 +1859,15 @@ def main() -> None:
     rate = time_tfhe(ctx, f"ntt key, batch {BATCH}", bits64)
     log(f"[ntt key] single-gate latency (batch 1): {lat:.2f} ms; NAND gates/s at batch {BATCH}: "
         f"{BATCH / (rate / 1e3):.1f}")
+    # the bootstrap's start at batch 64: every launch the profiler sees
+    start_deg = -torch.randint(0, 2 * n, (BATCH,), generator=gen, device=dev, dtype=torch.int32)
+    _, start_rows = device_time(torch, lambda: initial_accumulator(tp, start_deg, k1))
+    f_starts = sum(c for _, c, key_ in start_rows if "rotate_kernel" in key_)
+    log(f"bootstrap start (initial_accumulator, batch {BATCH}): "
+        f"{sum(c for _, c, _ in start_rows)} launch(es), kernel F x{f_starts}: "
+        + "; ".join(f"{key_[:60]} x{c} ({ms_ * 1e3:.2f} us)" for ms_, c, key_ in start_rows))
+    if f_starts != 1:
+        raise AssertionError(f"the bootstrap's start launched kernel F {f_starts} times")
 
     # -- phase 8: the MXU key kind -------------------------------------------
     log("== phase 8: BOOLEAN_128 on the MXU key kind (kernel A per CMux step, kernel C in keygen)")
@@ -1836,6 +1896,11 @@ def main() -> None:
         raise AssertionError(f"rotate: {counts_m['rotate']} launches, want {bootstraps_m}")
     log(f"mxu_cmux_step: {want_a} = {bootstraps_m} bootstraps x {p.lwe_dim} steps; "
         f"mxu8_forward32: {counts_m['mxu8_forward32']} launch(es) in key preparation")
+    ggsw_c = torch.randint(0, 1 << 32, (p.lwe_dim, k1, level, k1, n), generator=gen_m, device=dev)
+    prep_s = min(wall_ms(torch, lambda: cmux_mxu.prepare_mxu_bsk(conv, ggsw_c), 3)) / 1e3
+    log(f"key preparation (prepare_mxu_bsk: lift, kernel C over {kp} x "
+        f"{p.lwe_dim * k1 * level * k1} rows, Shoup quotients): {prep_s:.4f} s (least of 3)")
+    del ggsw_c
     cts = ctx.encrypt(torch.tensor([1, 0, 1], device=dev), gen)
     b_ntt = bootstrap(ctx.conv, ctx.basis, ctx.bsk, cts, tp, p.log_n)
     b_mxu = bootstrap(ctx_m.conv, ctx_m.basis, ctx_m.bsk, cts, tp, p.log_n)
@@ -1898,6 +1963,11 @@ def main() -> None:
     log(f"ntru_cmux_step: {want_b} = {bootstraps_n['mxu']} bootstraps x {pn.lwe_dim} steps; "
         f"forward32 {counts_n['forward32']}, inverse32 {counts_n['inverse32']} (keygen, "
         f"encryption, NTT-evk route); mxu8_forward32 {counts_n['mxu8_forward32']} (evk preparation)")
+    evk_c = torch.randint(0, qn, (pn.lwe_dim, pn.level, nn), generator=gen_n, device=dev)
+    prep_n_s = min(wall_ms(torch, lambda: ntru_cmux_mxu.prepare_mxu_evk(kctx, evk_c), 3)) / 1e3
+    log(f"evk preparation (prepare_mxu_evk: kernel C over {pn.lwe_dim * pn.level} rows, Shoup "
+        f"quotients): {prep_n_s:.4f} s (least of 3)")
+    del evk_c
     nerr = torch.cat(n_errors).double()
     nstd = nerr.std().item()
     log(f"NTRU gate output phase error over {nerr.numel()} outputs: std {nstd:.1f} "
@@ -1994,7 +2064,7 @@ def main() -> None:
                           (1, BATCH)),
         "ntru_cmux_step": ("cmux_mxu.cu", "ops/ntru_cmux_mxu.py:259", counts_n["ntru_cmux_step"],
                            (1, BATCH)),
-        "mxu8_forward32": ("ntt_mxu8.cu", "ops/ntt_mxu8.py:917",
+        "mxu8_forward32": ("ntt32.cu", "ops/ntt_mxu8.py:917",
                            counts_m["mxu8_forward32"] + counts_n["mxu8_forward32"], (1, BATCH)),
         "ntt64_forward": ("ntt64.cu", "ops/ntt_pallas.py:486", counts_d["ntt64_forward"], dcrt),
         "ntt64_inverse": ("ntt64.cu", "ops/ntt_pallas.py:494", counts_d["ntt64_inverse"], dcrt),
@@ -2064,6 +2134,14 @@ def main() -> None:
             _, nms, npms, ndev, (nbms, _) = table[f"{name}@n14"][b0]
             row.update({"ms_n14": nms, "plain_ms_n14": npms, "device_ms_n14": ndev,
                         "bound_ms_n14": nbms})
+        for tag, rows_k in (("bsk", KEY_ROWS["bsk"]), ("evk", KEY_ROWS["evk"]),
+                            ("start", BATCH), ("1024", F_ROWS)):
+            # C and kernel 1 at the key preparations' sizes; F at the
+            # bootstrap's start and at 1024 x 2 rows
+            if f"{name}@{tag}" in table:
+                _, kms, kpms, kdev, (kbms, kbby) = table[f"{name}@{tag}"][rows_k]
+                row.update({f"ms_{tag}": kms, f"plain_ms_{tag}": kpms, f"device_ms_{tag}": kdev,
+                            f"bound_ms_{tag}": kbms, f"bound_by_{tag}": kbby})
         if f"{name}@nokey" in table:  # Ki1 without the fused key multiply
             _, kms, kpms, kdev, (kbms, _) = table[f"{name}@nokey"][b0]
             row.update({"ms_nokey": kms, "plain_ms_nokey": kpms, "device_ms_nokey": kdev,

@@ -35,6 +35,11 @@ at the round trip's 512 rows on a 7- and an 8-plane modulus (beside row 10,
     python3 cmux_mxu_timing.py --stages ...    # row 11's stage kernels (with --compare OLD: in turns)
     python3 cmux_mxu_timing.py --stages --grids  # the u32 and u64 pairs on every (C, T)
     python3 cmux_mxu_timing.py --stages --phases # their cycles per pass (clock64)
+    python3 cmux_mxu_timing.py --keyprep ...   # kernel C beside kernel 1 (with --compare OLD: in turns)
+    python3 cmux_mxu_timing.py --keyprep --phases  # kernel C's cycles a tile per phase (clock64)
+    python3 cmux_mxu_timing.py --keyprep --grids   # kernel C on every tile of 1-8 rows
+    python3 cmux_mxu_timing.py --rotate ...    # kernel F (with --compare OLD: in turns)
+    python3 cmux_mxu_timing.py --rotate --phases   # kernel F's cycles (clock64)
 
 Both forward transforms are bounded by the function they compute: 16 bytes
 a word over the HBM rate, or the butterfly's ``n / 2 log n`` Shoup
@@ -103,6 +108,23 @@ package to ``.proof/stages_grids`` with the grid set from outside
 ``.proof/stages_phases`` with clock64() laps of block 0 after each pass and
 the stages across the cluster (:func:`stamp_stages`).  The ``empty kernel`` line is the floor of
 this way of timing: a launch that does nothing, timed the same way.
+``--keyprep`` times kernel C (``mxu8_forward32``) and, on the same
+canonical words, kernel 1's canonical forward (the same function) at
+:data:`KEYPREP_SHAPES` (``chip_smoke.py``'s 2 x 12 and 2 x 768 rows of 2048,
+BOOLEAN_128's whole key of 2 x 7560 and NTRU_128's evk of 4200 rows of
+1024), with the bound, share, C's tile and persistent grid and C over
+kernel 1; ``--keyprep --phases`` copies the package to
+``.proof/keyprep_phases`` with clock64() laps of block 0's thread 0 summed
+over its tiles (the wait for a tile's rows, pass 1, the middle passes, the
+last pass and the store's issue; :func:`stamp_keyprep`).  ``--rotate``
+times kernel F at :data:`ROTATE_SHAPES` (phase 13's 64 x 2 rows, the
+bootstrap's start as the checkout's blind rotation runs it, with and
+without its zero fill, and 1024 x 2 rows), with the launches the profiler
+sees at the start, and kernel G at 64 x 2 rows; ``--rotate --phases``
+stamps F's block 0 (:func:`stamp_rotate`).  Both take ``--compare OLD``
+(new / old per shape in the summary); ``--keyprep --grids`` times C on
+every tile of 1-8 rows (``pft_c_force_tile``, from a copy in
+``.proof/keyprep_grids``).
 
 A kernel's device time is the median of 20 calls, each timed with CUDA
 events queued behind a ~1 ms sleep kernel, so the events bracket the kernel
@@ -649,6 +671,400 @@ def coeff_trips(torch, dev) -> dict:
                                               "host_ops": ops, "queued_trips": queued,
                                               "idle": None if busy is None else 1 - busy / ms}
     return out
+
+
+# Kernel C's shapes: (label, profile, rows a prime): chip_smoke.py's phase-2
+# batch 1 and 64 (2 x 12 and 2 x 768 rows of 2048), BOOLEAN_128's whole
+# bootstrap key (2 x 7560) and NTRU_128's evk (1 x 4200 rows of 1024).
+KEYPREP_SHAPES = (("2x12", "boolean", 12), ("2x768", "boolean", 768),
+                  ("2x7560", "boolean", 7560), ("1x4200", "ntru", 4200))
+# Kernel F's shapes: phase 13's 64 x 2 rows, the bootstrap's start (one
+# broadcast test row into acc[:, -1, :] of 64 ciphertexts; the start with
+# its zero fill too) and 1024 x 2 rows, all of 2048 words.
+ROTATE_SHAPES = (("64x2", 64), ("start 64", 64), ("start+zeros 64", 64), ("1024x2", 1024))
+
+
+def keyprep_calls(torch, dev) -> dict:
+    """``{(kernel, label): (call, bound ms, plan, rows)}`` of kernel C
+    (``mxu8_forward32``) and kernel 1's canonical forward (``forward32``,
+    the same function) on the same canonical words at
+    :data:`KEYPREP_SHAPES`, int32 storage, each checked once against the
+    plain version."""
+    from primus_fhe_tpu_torch.lattice import tfhe
+    from primus_fhe_tpu_torch.ops import cmux_mxu, ntru_cmux_mxu, ntt32, ntt_mxu8
+
+    plans = {"boolean": cmux_mxu.plan_for(tfhe.make_convolver(11, 3, 1, 7)),
+             "ntru": ntru_cmux_mxu.get_ntru_plan(10, 1038337)}
+    g = torch.Generator(device=dev).manual_seed(2031)
+    calls = {}
+    for label, which, rows in KEYPREP_SHAPES:
+        plan = plans[which]
+        kp, n = len(plan.primes), plan.n
+        q = torch.tensor(plan.primes, device=dev).reshape(kp, 1, 1)
+        x = (torch.randint(0, 1 << 40, (kp, rows, n), generator=g, device=dev) % q)
+        want = ntt_mxu8.mxu8_forward32_plain(plan, x).reshape(x.shape)
+        x = x.to(torch.int32)
+        muls = kp * rows * (n // 2) * plan.log_n * 3
+        bound_ms = max(8 * x.numel() / HBM_BYTES_S, muls / INT32_MULS_S) * 1e3
+        for name, fn in (("mxu8_forward32", lambda p=plan, v=x: ntt_mxu8.mxu8_forward32(p, v)),
+                         ("forward32", lambda p=plan, v=x: ntt32.forward32(p.ntt, v))):
+            got = fn().reshape(x.shape).to(torch.int64) & 0xFFFFFFFF
+            if not torch.equal(got, want):
+                raise SystemExit(f"{name}@{label}: words differ from the plain version")
+            calls[(name, label)] = (fn, bound_ms, plan, rows)
+    return calls
+
+
+def keyprep_times(torch, dev) -> dict:
+    """Device ms, bound and share of kernel C and kernel 1 at each shape,
+    C's (tile, grid) and kernel 1's tile, C over kernel 1, and the floor of
+    an empty launch timed the same way."""
+    from primus_fhe_tpu_torch.ops import ntt32, ntt_mxu8
+
+    out = {}
+    calls = keyprep_calls(torch, dev)
+    for (name, label), (fn, bound_ms, plan, rows) in calls.items():
+        ms = device_ms(torch, fn)
+        row = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms}
+        if name == "forward32":
+            row["tile"] = ntt32.launch_tile(plan.ntt, rows)
+        elif hasattr(ntt_mxu8, "launch_grid"):  # an older checkout runs the byte planes
+            row["tile_grid"] = ntt_mxu8.launch_grid(plan, rows)
+        out[f"{name}@{label}"] = row
+    for name in ("mxu8_forward32", "forward32"):  # the whole key, back to back: clocks, power
+        out[f"{name}@2x7560"]["sustained"] = sustained_clocks(torch, calls[(name, "2x7560")][0])
+    for label, *_ in KEYPREP_SHAPES:
+        out[f"C/kernel1@{label}"] = {"ratio": out[f"mxu8_forward32@{label}"]["ms"]
+                                     / out[f"forward32@{label}"]["ms"]}
+    out["empty kernel"] = {"ms": device_ms(torch, lambda: torch.cuda._sleep(1))}
+    return out
+
+
+def sustained_clocks(torch, fn, seconds: float = 2.0) -> dict:
+    """``fn`` back to back for ``seconds`` while ``nvidia-smi`` samples the
+    SM clock and the power draw every 100 ms: the mean device ms a call
+    over the run (CUDA events) and the samples' least, median and most."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    time.sleep(0.3)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    calls, t0 = 0, time.perf_counter()
+    start.record()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(50):
+            fn()
+        calls += 50
+        torch.cuda.synchronize()
+    end.record()
+    torch.cuda.synchronize()
+    smi.terminate()
+    out, _ = smi.communicate()
+    samples = [tuple(float(x) for x in line.split(",")) for line in out.splitlines()
+               if line.count(",") == 1][3:]  # the first ones may predate the run
+    clk = sorted(s[0] for s in samples)
+    watts = sorted(s[1] for s in samples)
+    pick = lambda xs: [xs[0], xs[len(xs) // 2], xs[-1]] if xs else None  # noqa: E731
+    return {"ms_a_call": start.elapsed_time(end) / calls, "calls": calls,
+            "sm_mhz": pick(clk), "power_w": pick(watts), "samples": len(samples)}
+
+
+def ptxas_registers(root: Path) -> dict:
+    """``{kernel: ptxas's registers line}`` of the newest kernel build under
+    ``root`` (``nvcc -Xptxas -v``'s log beside the library)."""
+    logs = sorted((root / "primus_fhe_tpu_torch" / "build").glob("libpft_kernels_*.log"),
+                  key=lambda f: f.stat().st_mtime)
+    out, name = {}, None
+    for line in (logs[-1].read_text() if logs else "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f_]+_", "", m.group(1))
+        elif name and "Used" in line and "registers" in line:
+            out[name] = line.split(":", 1)[-1].strip()
+            name = None
+    return out
+
+
+def rotate_calls(torch, dev) -> dict:
+    """``{label: (call, bound ms, plain)}`` of kernel F at
+    :data:`ROTATE_SHAPES` (int32 storage), each checked once against the
+    plain version.  The bootstrap's start runs as the checkout's blind
+    rotation runs it: into ``out=acc[:, -1, :]`` where ``rotate`` takes
+    ``out`` (one launch), else a contiguous copy of the broadcast row, the
+    rotation and a strided copy into the accumulator."""
+    import inspect
+
+    from primus_fhe_tpu_torch.ops import rotate
+
+    n, k1 = 2048, 2
+    g = torch.Generator(device=dev).manual_seed(2032)
+    takes_out = "out" in inspect.signature(rotate.rotate).parameters
+    calls = {}
+    for label, bsz in ROTATE_SHAPES:
+        deg = torch.randint(-4 * n, 4 * n, (bsz,), generator=g, device=dev, dtype=torch.int32)
+        if label.startswith("start"):
+            row = torch.randint(0, 1 << 32, (n,), generator=g, device=dev)
+            row32, acc = row.to(torch.int32), torch.zeros((bsz, k1, n), dtype=torch.int32,
+                                                          device=dev)
+            zeros = label.startswith("start+zeros")
+
+            def fn(r=row32, d=deg, a=acc, z=zeros, b=bsz):
+                if z:
+                    a = torch.zeros((b, k1, n), dtype=torch.int32, device=dev)
+                if takes_out:
+                    rotate.rotate(r.expand(b, n), d, out=a[:, -1, :])
+                else:
+                    a[:, -1, :] = rotate.rotate(r.expand(b, n), d)
+                return a[:, -1, :]
+
+            want = rotate.rotate_plain(row.expand(bsz, n), deg)
+            bound_ms = 4 * (n + bsz * n) / HBM_BYTES_S * 1e3
+        else:
+            v = torch.randint(0, 1 << 32, (bsz, k1, n), generator=g, device=dev)
+            want = rotate.rotate_plain(v, deg)
+
+            def fn(x=v.to(torch.int32), d=deg):
+                return rotate.rotate(x, d)
+
+            bound_ms = 8 * v.numel() / HBM_BYTES_S * 1e3
+        if not torch.equal(fn().to(torch.int64) & 0xFFFFFFFF, want):
+            raise SystemExit(f"rotate@{label}: words differ from the plain version")
+        calls[label] = (fn, bound_ms)
+    return calls
+
+
+def launches_seen(torch, fn) -> list:
+    """``(count, kernel)`` of every device kernel ``torch.profiler`` sees in
+    one call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.count, e.key[:80]) for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+
+
+def rotate_times(torch, dev) -> dict:
+    """Device ms, bound and share of kernel F at each shape, the launches
+    of the bootstrap's start, and the empty-launch floor."""
+    out = {}
+    for label, (fn, bound_ms) in rotate_calls(torch, dev).items():
+        ms = device_ms(torch, fn)
+        out[f"rotate@{label}"] = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms}
+        if label.startswith("start"):
+            seen = launches_seen(torch, fn)
+            out[f"rotate@{label}"].update(launches=sum(c for c, _ in seen), kernels=seen)
+    # kernel G beside it (unchanged, in turns): phase 13's CMux front end
+    from primus_fhe_tpu_torch import params as P
+    from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
+    from primus_fhe_tpu_torch.lattice import tfhe
+    from primus_fhe_tpu_torch.ops import cmux_front
+
+    p = P.BOOLEAN_128
+    basis = ApproxSignedBasis32(None, p.log_basis, reverse_length=p.level)
+    conv = tfhe.make_convolver(p.log_n, p.level, p.glwe_dim, p.log_basis)
+    g = torch.Generator(device=dev).manual_seed(2033)
+    acc = torch.randint(0, 1 << 32, (64, 2, p.n), generator=g, device=dev).to(torch.int32)
+    deg = torch.randint(0, 2 * p.n, (64,), generator=g, device=dev, dtype=torch.int32)
+    out["cmux_front@64x2"] = {"ms": device_ms(
+        torch, lambda: cmux_front.cmux_front(acc, deg, basis, conv.primes))}
+    out["empty kernel"] = {"ms": device_ms(torch, lambda: torch.cuda._sleep(1))}
+    return out
+
+
+def stamp_keyprep(src: Path) -> None:
+    """clock64() laps of thread 0 of block 0 of kernel C, summed over the
+    block's tiles: the wait for a tile's rows (its mbarrier), pass 1 with
+    the table wait and barrier, the middle passes, the last pass with the
+    store's issue; the tiles it ran and its total cycles; the launch's span
+    on the global timer (earliest block start to latest block end); a C
+    entry ``pft_read_c_laps`` that reads them and resets the span."""
+    text = src.read_text()
+    head = ("__device__ long long pft_c_laps[6];\n"
+            "__device__ unsigned long long pft_c_gt[2] = {~0ull, 0ull};\n"
+            "#define PFT_C_LAP(k) if (pft_on) { const long long t1 = clock64(); "
+            "pft_acc[k] += t1 - pft_t; pft_t = t1; }\n")
+    edits = [
+        ("  if (threadIdx.x == 0 && first < last) load(first, 0);\n",
+         "  const bool pft_on = blockIdx.x == 0 && threadIdx.x == 0;\n"
+         "  long long pft_acc[5] = {0, 0, 0, 0, 0};\n"
+         "  long long pft_t = clock64();\n  const long long pft_t0 = pft_t;\n"
+         "  unsigned long long pft_g0;\n"
+         "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g0));\n"),
+        ("    mbar_wait(smem_addr(bars + s), (i / C_SLOTS) & 1);\n", "    PFT_C_LAP(0)\n"),
+        ("    __syncthreads();\n    c_middle<LOG_N, 3, R>(count, table, q, rows);\n",
+         "    PFT_C_LAP(2)\n"),
+        ("      bulk_store(a.out + offset_of(item), smem_addr(slot), (uint32_t)count << (LOG_N + 2));"
+         "\n", "    PFT_C_LAP(3)\n    if (pft_on) pft_acc[4] += 1;\n"),
+        ("  if (threadIdx.x == 0) bulk_wait<0, false>();\n",
+         "  if (pft_on) {\n    for (int k = 0; k < 5; ++k) pft_c_laps[k] = pft_acc[k];\n"
+         "    pft_c_laps[5] = clock64() - pft_t0;\n  }\n"
+         "  if (threadIdx.x == 0) {\n    unsigned long long pft_g1;\n"
+         "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g1));\n"
+         "    atomicMin(&pft_c_gt[0], pft_g0);\n    atomicMax(&pft_c_gt[1], pft_g1);\n  }\n"),
+    ]
+    for anchor, after in edits:
+        if text.count(anchor) != 1:
+            raise SystemExit(f"cmux_mxu_timing: {src.name} changed near {anchor.strip()!r}")
+        if "c_middle" in anchor:  # pass 1's lap after its barrier, the middle's after them
+            cut = anchor.index("    c_middle")
+            text = text.replace(anchor, anchor[:cut] + "    PFT_C_LAP(1)\n" + anchor[cut:] + after)
+        else:
+            text = text.replace(anchor, anchor + after)
+    text = text.replace("namespace {\n", head + "namespace {\n", 1)
+    reader = ("int pft_read_c_laps(void* laps, void* gt) {\n"
+              "  cudaError_t e = cudaMemcpyFromSymbol(laps, pft_c_laps, sizeof(pft_c_laps));\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_c_gt, 16);\n"
+              "  const unsigned long long reset[2] = {~0ull, 0ull};\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(pft_c_gt, reset, 16);\n"
+              "  return (int)e;\n}\n")
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + reader, 1)
+    src.write_text(text)
+
+
+def stamp_rotate(src: Path) -> None:
+    """clock64() laps of thread 0 of block 0 of kernel F in its group mode:
+    from its start to its degree's arrival, then its groups; the launch's
+    span on the global timer; a C entry ``pft_read_f_laps`` that reads them
+    and resets the span."""
+    text = src.read_text()
+    head = ("__device__ long long pft_f_laps[2];\n"
+            "__device__ unsigned long long pft_f_gt[2] = {~0ull, 0ull};\n")
+    begin = "  const int count = min(a.block_rows, a.total - r0);\n"
+    degree = ("        __ldg(a.degrees + min(r0 + (int)(threadIdx.x >> lg), a.total - 1) / a.rows), "
+              "n);\n")
+    end = ("      *reinterpret_cast<uint4*>(a.out + row * a.out_stride + c) = make_uint4(v[0], v[1], "
+           "v[2], v[3]);\n    }\n")
+    for anchor in (begin, degree, end):
+        if text.count(anchor) != 1:
+            raise SystemExit(f"cmux_mxu_timing: {src.name} changed near {anchor.strip()!r}")
+    text = text.replace(begin, begin + (
+        "  const bool pft_on = blockIdx.x == 0 && threadIdx.x == 0;\n"
+        "  const long long pft_t0 = clock64();\n  long long pft_t1 = pft_t0;\n"
+        "  unsigned long long pft_g0;\n"
+        "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g0));\n"))
+    text = text.replace(degree, degree + "    if (d >= 0) pft_t1 = clock64();  // d has arrived\n")
+    text = text.replace(end, end + (
+        "    if (pft_on) {\n      pft_f_laps[0] = pft_t1 - pft_t0;\n"
+        "      pft_f_laps[1] = clock64() - pft_t1;\n    }\n"
+        "    if (threadIdx.x == 0) {\n      unsigned long long pft_g1;\n"
+        "      asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g1));\n"
+        "      atomicMin(&pft_f_gt[0], pft_g0);\n      atomicMax(&pft_f_gt[1], pft_g1);\n    }\n"))
+    text = text.replace("namespace {\n", head + "namespace {\n", 1)
+    reader = ("int pft_read_f_laps(void* laps, void* gt) {\n"
+              "  cudaError_t e = cudaMemcpyFromSymbol(laps, pft_f_laps, sizeof(pft_f_laps));\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_f_gt, 16);\n"
+              "  const unsigned long long reset[2] = {~0ull, 0ull};\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(pft_f_gt, reset, 16);\n"
+              "  return (int)e;\n}\n")
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + reader, 1)
+    src.write_text(text)
+
+
+def stamp_keyprep_grids(src: Path) -> None:
+    """Adds to kernel C's C entry a tile set from outside the launch
+    (``pft_c_force_tile(T)``, 0 for the launch's own), its grid the wave of
+    blocks the card holds at T, capped at the items."""
+    text = src.read_text()
+    pick = "  c_pick(kp, rows, log_n, *d, &a.tile, &grid);\n"
+    if text.count(pick) != 1:
+        raise SystemExit(f"cmux_mxu_timing: {src.name}'s pick moved")
+    force = ("  if (pft_c_force > 0) {\n    int i = 0;\n    while ((1 << i) < pft_c_force) ++i;\n"
+             "    const long items = (long)kp * ((rows + pft_c_force - 1) / pft_c_force);\n"
+             "    const long wave = (long)d->sms * d->c_resident[log_n][i];\n"
+             "    if (wave == 0) return (int)cudaErrorInvalidValue;\n"
+             "    a.tile = pft_c_force;\n    grid = (int)(items < wave ? items : wave);\n  }\n")
+    text = text.replace(pick, pick + force)
+    text = text.replace("namespace {\n", "int pft_c_force = 0;\nnamespace {\n", 1)
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\nint pft_c_force_tile(int t) {\n'
+                        '  pft_c_force = t;\n  return 0;\n}\n', 1)
+    src.write_text(text)
+
+
+def keyprep_grids(torch, dev) -> dict:
+    """In a ``--keyprep --grids`` copy: kernel C at each shape on every tile
+    of 1, 2, 4 and 8 rows (None where it does not fit), each tile's words
+    checked against the launch's own."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build, ntt_mxu8
+
+    force = build.library().pft_c_force_tile
+    force.argtypes = [ctypes.c_int]
+    out = {}
+    for (name, label), (fn, bound_ms, plan, rows) in keyprep_calls(torch, dev).items():
+        if name != "mxu8_forward32":
+            continue
+        force(0)
+        want = fn()
+        row = {"own": ntt_mxu8.launch_grid(plan, rows), "own_ms": device_ms(torch, fn),
+               "bound_ms": bound_ms}
+        for tile in (1, 2, 4, 8):
+            force(tile)
+            try:
+                got = fn()
+            except RuntimeError:  # the tile does not fit
+                row[f"tile{tile}"] = None
+                continue
+            if not torch.equal(got, want):
+                raise SystemExit(f"{label} tile {tile}: words differ")
+            row[f"tile{tile}"] = device_ms(torch, fn)
+        force(0)
+        out[f"mxu8_forward32@{label}"] = row
+    return out
+
+
+def read_laps(torch, entry: str, count: int, calls: dict, names) -> dict:
+    """In a stamped copy: for each call ``{key: fn}``, its event-timed
+    device ms, then one more call's laps (``count`` words from ``entry``)
+    named by ``names(laps)`` and its span on the device (ns)."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build
+
+    read = getattr(build.library(), entry)
+    read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    out = {}
+    for key, fn in calls.items():
+        ms = device_ms(torch, fn)
+        laps = (ctypes.c_longlong * count)()
+        gt = (ctypes.c_ulonglong * 2)()
+        build.check(read(ctypes.addressof(laps), ctypes.addressof(gt)), entry)  # resets the span
+        fn()
+        torch.cuda.synchronize()
+        build.check(read(ctypes.addressof(laps), ctypes.addressof(gt)), entry)
+        out[key] = {**names(list(laps)), "span_ns": gt[1] - gt[0], "event_ms": ms}
+    return out
+
+
+def keyprep_stamps(torch, dev) -> dict:
+    """In a ``--keyprep --phases`` copy: block 0's cycles a tile per phase of
+    kernel C at each shape (:func:`stamp_keyprep`)."""
+    def names(laps):
+        tiles = max(laps[4], 1)
+        row = {k: laps[i] / tiles for i, k in enumerate(
+            ("rows wait", "pass 1 + table wait", "middle passes", "last pass + store issue"))}
+        return {**row, "tiles": laps[4], "total_cycles": laps[5]}
+
+    calls = {f"mxu8_forward32@{label}": fn for (name, label), (fn, *_)
+             in keyprep_calls(torch, dev).items() if name == "mxu8_forward32"}
+    return read_laps(torch, "pft_read_c_laps", 6, calls, names)
+
+
+def rotate_stamps(torch, dev) -> dict:
+    """In a ``--rotate --phases`` copy: block 0's cycles of kernel F at each
+    shape, to its degree and its groups (:func:`stamp_rotate`)."""
+    calls = {f"rotate@{label}": fn for label, (fn, _) in rotate_calls(torch, dev).items()}
+    return read_laps(torch, "pft_read_f_laps", 2, calls,
+                     lambda laps: {"degree": laps[0], "groups": laps[1]})
 
 
 def stage_times(torch, dev) -> dict:
@@ -1507,13 +1923,20 @@ def rotations(torch, dev) -> dict:
 
 def run_here(stamps: bool, ntt_only: bool = False, ntt32_only: bool = False,
              ntt64_only: bool = False, split_only: bool = False,
-             stages_only: bool = False) -> dict:
+             stages_only: bool = False, keyprep_only: bool = False,
+             rotate_only: bool = False) -> dict:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("cmux_mxu_timing: needs a CUDA card")
     dev = torch.device("cuda", 0)
     result = {"root": str(Path(sys.path[0]).resolve()), "card": card()}
+    if keyprep_only:
+        result["keyprep"] = keyprep_times(torch, dev)
+        return result
+    if rotate_only:
+        result["rotate"] = rotate_times(torch, dev)
+        return result
     if split_only:
         result["split"] = split_times(torch, dev)
         return result
@@ -1930,11 +2353,23 @@ def main() -> None:
     ap.add_argument("--ntt64", action="store_true", help="row 10's butterfly kernels only")
     ap.add_argument("--split", action="store_true", help="row 13's four halves only")
     ap.add_argument("--stages", action="store_true", help="row 11's stage kernels only")
+    ap.add_argument("--keyprep", action="store_true", help="kernel C and kernel 1 at C's shapes")
+    ap.add_argument("--rotate", action="store_true", help="kernel F at its paths' shapes")
     ap.add_argument("--grids", action="store_true", help="the byte-radix kernels on every grid")
     ap.add_argument("--stamps", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
+        if args.stamps and (args.keyprep or args.rotate):
+            import torch
+
+            dev = torch.device("cuda", 0)
+            if args.grids:
+                res = {"grids": keyprep_grids(torch, dev)}
+            else:
+                res = {"cycles": (keyprep_stamps if args.keyprep else rotate_stamps)(torch, dev)}
+            print(json.dumps(res), flush=True)
+            return
         if args.stamps and args.stages:
             import torch
 
@@ -1969,9 +2404,26 @@ def main() -> None:
             print(json.dumps(res), flush=True)
             return
         print(json.dumps(run_here(args.stamps, args.ntt, args.ntt32, args.ntt64, args.split,
-                                  args.stages)), flush=True)
+                                  args.stages, args.keyprep, args.rotate)), flush=True)
         return
     print(card(), flush=True)
+    if (args.keyprep and args.grids) or ((args.keyprep or args.rotate) and args.phases):
+        tag = "keyprep" if args.keyprep else "rotate"
+        kind = "grids" if args.grids else "phases"
+        root = HERE / ".proof" / f"{tag}_{kind}"
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(HERE / "primus_fhe_tpu_torch", root / "primus_fhe_tpu_torch",
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        csrc = root / "primus_fhe_tpu_torch" / "csrc"
+        src = csrc / ("ntt32.cu" if args.keyprep else "cmux_front.cu")
+        {("keyprep", "phases"): stamp_keyprep, ("rotate", "phases"): stamp_rotate,
+         ("keyprep", "grids"): stamp_keyprep_grids}[tag, kind](src)
+        res = subprocess_run(root, "--stamps", f"--{tag}", f"--{kind}")
+        for key, row in res["cycles" if kind == "phases" else "grids"].items():
+            print(key, json.dumps(row), flush=True)
+        res["card"] = card()
+        print(json.dumps(res), flush=True)
+        return
     if args.stages and (args.grids or args.phases):
         root = HERE / ".proof" / f"stages_{'grids' if args.grids else 'phases'}"
         shutil.rmtree(root, ignore_errors=True)
@@ -2049,12 +2501,12 @@ def main() -> None:
     if args.compare is None:
         sys.path.insert(0, str(HERE))
         print(json.dumps(run_here(False, args.ntt, args.ntt32, args.ntt64, args.split,
-                                  args.stages)), flush=True)
+                                  args.stages, args.keyprep, args.rotate)), flush=True)
         return
     runs = []
     extra = (("--ntt",) if args.ntt else ("--ntt32",) if args.ntt32 else ("--ntt64",)
              if args.ntt64 else ("--split",) if args.split else ("--stages",) if args.stages
-             else ())
+             else ("--keyprep",) if args.keyprep else ("--rotate",) if args.rotate else ())
     for side, root in (("old", args.compare), ("new", HERE), ("new", HERE), ("old", args.compare)):
         res = subprocess_run(root, *extra)
         res["side"] = side
@@ -2107,6 +2559,26 @@ def main() -> None:
                                         if r["side"] == side]
                                     for k in runs[0]["stages"] if "coeff trip" in k}
                              for side in ("old", "new")}
+    for tag in ("keyprep", "rotate"):  # new / old per shape; C over kernel 1 on each side
+        if tag not in runs[0]:
+            continue
+        m = mean(tag, lambda r, tag=tag: {k: v["ms"] for k, v in r[tag].items() if "ms" in v})
+        m["new_over_old"] = {k: m["new"][k] / m["old"][k] for k in m["new"]}
+        m["share_new"] = {k: runs[1][tag][k]["bound_ms"] / m["new"][k] for k in m["new"]
+                          if "bound_ms" in runs[1][tag][k]}
+        if tag == "keyprep":
+            m["c_over_kernel1"] = {side: {label: m[side][f"mxu8_forward32@{label}"]
+                                          / m[side][f"forward32@{label}"]
+                                          for label, *_ in KEYPREP_SHAPES} for side in ("old", "new")}
+        else:
+            m["launches"] = {r["side"]: {k: v.get("launches") for k, v in r[tag].items()
+                                         if "launches" in v} for r in runs[:2]}
+        old_regs, new_regs = ptxas_registers(args.compare), ptxas_registers(HERE)
+        m["registers_changed"] = {k: [old_regs.get(k), new_regs.get(k)]
+                                  for k in sorted(set(old_regs) | set(new_regs))
+                                  if old_regs.get(k) != new_regs.get(k)}
+        m["registers_same"] = sum(old_regs.get(k) == v for k, v in new_regs.items())
+        print(json.dumps({f"mean_{tag}_ms": m}), flush=True)
     summary = {"card": runs[0]["card"], "mean_stages_ms": stages, "mean_split_ms": split,
                "mean_ntt_ms": ntt,
                "mean_host_us": host,

@@ -35,6 +35,18 @@ def modulus_switch(lwe: torch.Tensor, log_2n: int) -> torch.Tensor:
     return ((((lwe + half) & MASK32) >> shift) & ((1 << log_2n) - 1)).to(torch.int32)
 
 
+def initial_accumulator(test_poly, degrees, k1: int) -> torch.Tensor:
+    """``acc = (0, ..., 0, v * X^degrees[b])``, ``(B, k1, N)`` int32, for the
+    test polynomial ``v (N,)``: kernel F on the card reads the one test row
+    in place for every ciphertext (a broadcast view) and writes the
+    accumulator's last component, so the start is one launch beside the
+    zero fill."""
+    bsz, n = degrees.shape[0], test_poly.shape[-1]
+    acc = torch.zeros((bsz, k1, n), dtype=torch.int32, device=degrees.device)
+    rotate(narrow_u32(test_poly).expand(bsz, n), degrees, out=acc[:, -1, :])
+    return acc
+
+
 def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
     """Returns the rotated accumulator GLWE ``(..., k+1, N)``.
 
@@ -42,8 +54,8 @@ def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
     residues — or the MXU pack ``(vals, precons)``, each ``(n_lwe, kp,
     k+1, L, k+1, A, 128)`` (int64 or int32 storage); ``lwe_switched``:
     ``(..., n_lwe+1)`` int32 mod 2N; ``test_poly``: ``(N,)`` torus words.
-    ``acc = (0, v * X^{-b})`` (kernel F on the card), then one CMux per
-    mask element.
+    ``acc = (0, v * X^{-b})`` (:func:`initial_accumulator`), then one CMux
+    per mask element.
     """
     use_mxu = isinstance(bsk_ntt, (tuple, list))
     key = bsk_ntt[0] if use_mxu else bsk_ntt
@@ -53,8 +65,7 @@ def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
     sw = lwe_switched.reshape(-1, n_lwe + 1)
     bsz = sw.shape[0]
 
-    acc = torch.zeros((bsz, k1, n), dtype=torch.int32, device=sw.device)
-    acc[:, -1, :] = rotate(narrow_u32(test_poly).expand(bsz, n), -sw[:, n_lwe])  # kernel F
+    acc = initial_accumulator(test_poly, -sw[:, n_lwe], k1)
     a_t = sw[:, :n_lwe].t().to(torch.int32).contiguous()  # (n_lwe, B)
     if use_mxu:
         plan = plan_for(conv)
@@ -93,7 +104,7 @@ def make_bootstrap_key(lwe_secret, glwe_secret, basis, gaussian, conv, generator
 
 def make_bootstrap_key_mxu(lwe_secret, glwe_secret, basis, gaussian, conv, generator):
     """The MXU key pack ``(vals, precons)`` of the same GGSW material as
-    :func:`make_bootstrap_key` (the same generator draws): the byte-radix
+    :func:`make_bootstrap_key` (the same generator draws): the canonical
     forward transform (kernel C on a CUDA tensor) and exact Shoup
     quotients, each ``(n_lwe, kp, k+1, L, k+1, A, 128)``."""
     return prepare_mxu_bsk(conv, _bsk_coeff(lwe_secret, glwe_secret, basis, gaussian, conv,

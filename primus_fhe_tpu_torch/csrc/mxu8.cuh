@@ -16,8 +16,8 @@
 // needed).
 //
 // int32 bound: |a| <= 255, |w| <= 128 and k <= 512 bytes give
-// |Out| <= 512 * 255 * 128 < 2^24, and |value| < 2^24 * 2^25 = 2^49 before
-// the final reduction (reduce_planes).
+// |Out| <= 512 * 255 * 128 < 2^24 (reduce_planes32 below folds the four
+// planes in 32-bit arithmetic).
 //
 // Products run as mma.sync.m16n8k32 fragments: a warp takes 16 x 8 output
 // tiles, the four c planes of the same (m, n) kept in registers, so the
@@ -30,7 +30,6 @@
 
 // Launch configuration of the MXU-family kernels.
 #define PFT_MXU_B 128          // four-step column count (lanes of the natural layout)
-#define PFT_MXU_LDA2 528       // row stride (bytes) of a 4 * 128-byte operand, +16 against bank conflicts
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -54,20 +53,7 @@ __device__ __forceinline__ void mma_k32(int (&d)[4], const uint32_t (&a)[4], uin
   }
 }
 
-// sum_c 2^(8c) d_c mod q, canonical.  |sum| < 2^49 (see above); `off` is a
-// multiple of q >= 2^49, so off + sum lies in [0, 2^51) and one wide
-// Barrett pass plus one conditional subtraction finish.
-__device__ __forceinline__ uint32_t reduce_planes(int d0, int d1, int d2, int d3,
-                                                  const PrimeConsts& pc, uint64_t off) {
-  const int64_t v = (int64_t)d0 + ((int64_t)d1 << 8) + ((int64_t)d2 << 16) + ((int64_t)d3 << 24);
-  return reduce_once(barrett_lazy_wide((uint64_t)((int64_t)off + v), pc.ratio, pc.q), pc.q);
-}
-
-__host__ __device__ __forceinline__ uint64_t plane_offset(uint32_t q) {
-  return ((1ull << 49) / q + 1) * q;
-}
-
-// Block-wide product of an operand in shared memory with a plane matrix in
+// Product of an operand in shared memory with a plane matrix in
 // global memory (L2-resident):
 //
 //   a: rows m < m_rows (rounded up to 16 rows of readable memory), row
@@ -82,12 +68,12 @@ __host__ __device__ __forceinline__ uint64_t plane_offset(uint32_t q) {
 // loads are in flight during this step's products (the loads come from
 // L2, so the kernel is bound by their latency, not by the tensor cores).
 //
-// mm_planes_w is the same product over warps warp0 < nwarps only (a kernel
-// whose other warps have another role), with w in global memory or, when
-// W_SHARED, in shared memory; with W_SHARED, epi is also called on the
-// tiles' padding (m < m_rows rounded up to 16 MT, n < np) and must keep its
-// own stores in bounds: a call that branches on the bounds serialises the
-// epilogues of a warp.  mm_planes uses every warp.
+// The product runs over warps warp0 < nwarps only (a kernel whose other
+// warps have another role), with w in global memory or, when W_SHARED, in
+// shared memory; with W_SHARED, epi is also called on the tiles' padding
+// (m < m_rows rounded up to 16 MT, n < np) and must keep its own stores in
+// bounds: a call that branches on the bounds serialises the epilogues of a
+// warp.
 template <bool A_UNSIGNED, int MT, bool W_SHARED = false, class Epi>
 __device__ __forceinline__ void mm_planes_w(const uint8_t* a, int lda, int m_rows,
                                             const int8_t* __restrict__ w, int np, int n_real,
@@ -142,14 +128,6 @@ __device__ __forceinline__ void mm_planes_w(const uint8_t* a, int lda, int m_row
           epi(m, n, acc[i][0][e], acc[i][1][e], acc[i][2][e], acc[i][3][e]);
       }
   }
-}
-
-template <bool A_UNSIGNED, int MT, class Epi>
-__device__ __forceinline__ void mm_planes(const uint8_t* a, int lda, int m_rows,
-                                          const int8_t* __restrict__ w, int np, int n_real,
-                                          int kb, Epi epi) {
-  mm_planes_w<A_UNSIGNED, MT>(a, lda, m_rows, w, np, n_real, kb, threadIdx.x >> 5,
-                              blockDim.x >> 5, epi);
 }
 
 // Negacyclic source of coefficient c of v * X^d (d in [0, 2n)): index into
@@ -287,8 +265,8 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
 
 // sum_c 2^(8c) d_c mod q in 32-bit arithmetic, for plane sums |d_c| < 2^24:
 // each d_c + 2^24 times w_c = 2^(8c) mod q by Shoup (lazy, [0, 2q)), and
-// corr = -(sum_c 2^(24 + 8c)) mod q takes the offsets back out.  Canonical,
-// so it gives the words of reduce_planes.  Needs q < 2^30.
+// corr = -(sum_c 2^(24 + 8c)) mod q takes the offsets back out.  Canonical:
+// sum_c 2^(8c) d_c mod q.  Needs q < 2^30.
 struct PlaneShoup {
   uint32_t w[4], wp[4], corr, q;
 };

@@ -46,8 +46,37 @@
 // bit-equal to it: the forward's bit-reversed output lazy in [0, 4q) or
 // canonical, the inverse's normal-order output lazy in [0, 2q) or canonical.
 //
-// Values are u32 words (int32 storage on the PyTorch side).
+// Kernel C (mxu8_forward32, below them): the MXU key preparation's
+// canonical forward NTT, kernel 1's function at out_factor 1 on canonical
+// residues.  Replaces the u32 tier of mxu8_fused_forward64
+// (primus_fhe_tpu/ops/ntt_mxu8.py:917, via ops/mxu_common._natural_call);
+// the TPU kernel's byte-plane four-step is a product on the int8 matrix
+// unit, and on Hopper the same function on kernel 1's radix-8 passes costs
+// a fraction of that.  Its launch is large (prepare_mxu_bsk at BOOLEAN_128:
+// 2 x 7560 rows of 8 KB, 124 MB in and out), where the rows' bytes (0.074
+// ms at 3.35 TB/s) and the passes' multiplies take comparable time, so the
+// design overlaps them:
+// - persistent blocks: the grid is the SMs times the blocks an SM holds,
+//   capped at the work items (prime, tile of T rows); block b takes a
+//   contiguous range of items, so it stages a prime's root table and Shoup
+//   quotients (16 KB at n = 2048) once, not once a tile;
+// - a ring of three tile slots: one thread bulk-copies tile i+1's rows
+//   (cp.async.bulk, completing on the slot's mbarrier) while the block runs
+//   tile i's passes, and tile i-1's output drains from its slot to device
+//   memory by a bulk store;
+// - the passes: the first reads the slot's natural rows (a warp's words
+//   adjacent) into a swizzled work tile (SwzNtt), the middle ones run there,
+//   and the last writes its canonical words back into the slot in natural
+//   order, 2^R adjacent words a thread (the two halves of an 8-word group in
+//   the order that keeps each quarter-warp's 16-byte stores on 32 banks),
+//   from which the bulk store goes out;
+// - compile-time passes: the kernel is a template on log_n, so each pass's
+//   index math folds, and its swizzled addresses are one XOR a word
+//   (SwzRowsC); the passes are kernel 1's slots, twiddles and butterflies;
+// - the tile T: the C entry's c_pick, the only copy of the rule.
+// log_n 8-12 and kp 1-4, the byte-radix plan's range.
 
+#include "mxu8.cuh"  // mbarriers and bulk copies
 #include "ntt_passes.cuh"
 
 namespace {
@@ -222,13 +251,225 @@ __global__ void __launch_bounds__(NTT_THREADS, 4) ntt32_inverse_kernel(const Ntt
   inv_rest<LAST>(rows, t.count, log_n, r, InvTable{tw, twp, n - m}, pc, dst);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel C: the persistent forward NTT of the MXU key preparation.
+
+constexpr int C_SLOTS = 3;  // the tile computing, the next loading, the last storing
+constexpr int C_MIN_LOG_N = 8, C_MAX_LOG_N = 12;
+
+struct ForwardCArgs {
+  const uint32_t* in;   // (kp, rows, n) canonical residues
+  uint32_t* out;        // (kp, rows, n) canonical, bit-reversed
+  const uint32_t* tw;   // (kp, n) the forward roots
+  const uint32_t* twp;  // their Shoup quotients
+  PrimeSet ps;
+  int rows, tile, items;  // items = kp ceil(rows / tile); log_n is the kernel's template
+};
+
+// Shared memory of a block: the slots' mbarriers (128 bytes), the prime's
+// table and quotients, the work tile, the three slots.
+inline size_t c_smem_bytes(int log_n, int tile) {
+  return 128 + sizeof(uint32_t) * ((2ull << log_n) + ((size_t)(1 + C_SLOTS) * tile << log_n));
+}
+
+// Slot c of a row in natural order (the bulk-copied input tile).
+struct SwzNone {
+  static __device__ __forceinline__ int at(int i) { return i; }
+};
+
+// The last pass's words, brought from [0, 4q) to canonical, into a tile's
+// natural rows in shared memory: 2^R adjacent words a group (its slots
+// base .. base + 2^R - 1, ls = 0), one 8- or 16-byte store, or two 16-byte
+// stores for 8 words, the half (base >> 5) & 1 (bit 2 of the group, of the
+// lane in a warp) first: a quarter-warp's 8 stores then cover 32 distinct
+// banks (tests/test_torch_keyprep_model.py checks this).
+struct StageOut {
+  uint32_t* p;
+  int log_n;
+  uint32_t q;
+  template <int G>
+  __device__ __forceinline__ void store(int row, int base, int, const uint32_t (&v)[G]) const {
+    uint32_t w[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) w[k] = reduce_once(reduce_once(v[k], 2u * q), q);
+    uint32_t* r = p + (row << log_n) + base;
+    if constexpr (G == 8) {
+      const uint4 lo = make_uint4(w[0], w[1], w[2], w[3]);
+      const uint4 hi = make_uint4(w[4], w[5], w[6], w[7]);
+      const int h = (base >> 5) & 1;
+      reinterpret_cast<uint4*>(r)[h] = h ? hi : lo;
+      reinterpret_cast<uint4*>(r)[h ^ 1] = h ? lo : hi;
+    } else {
+      store_words(r, w);
+    }
+  }
+};
+
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N bulk stores of this thread are still reading their
+// shared memory (READ) or still in flight.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// SwzNtt rows whose pass's slots base + k 2^ls hold base and k 2^ls in
+// disjoint bits (every forward pass): SwzNtt is linear over XOR, so the slot
+// sits at at(base) ^ at(k 2^ls), the second term a constant where the pass
+// is known at compile time (kernel C's): one XOR a word, not the swizzle's
+// shifts and masks.
+struct SwzRowsC {
+  uint32_t* p;
+  int log_n;
+  template <int G>
+  __device__ __forceinline__ void load(int row, int base, int ls, uint32_t (&v)[G]) const {
+    const uint32_t* r = p + (row << log_n);
+    const int sb = SwzNtt::at(base);
+#pragma unroll
+    for (int k = 0; k < G; ++k) v[k] = r[sb ^ SwzNtt::at(k << ls)];
+  }
+  template <int G>
+  __device__ __forceinline__ void store(int row, int base, int ls, const uint32_t (&v)[G]) const {
+    uint32_t* r = p + (row << log_n);
+    const int sb = SwzNtt::at(base);
+#pragma unroll
+    for (int k = 0; k < G; ++k) r[sb ^ SwzNtt::at(k << ls)] = v[k];
+  }
+};
+
+// fwd_pass with the row size and the pass's stages known at compile time,
+// so every index, shift and mask of the loop folds (kernel C's passes; the
+// same slots, twiddles and butterflies).
+template <int LOG_N, int S0, int R, class TW, class LOAD, class STORE>
+__device__ __forceinline__ void c_pass(int count, const TW& tw, uint32_t q, const LOAD& src,
+                                       const STORE& dst) {
+  constexpr int LOG_T = LOG_N - S0 - R, LOG_G = LOG_N - R;
+  for (int it = threadIdx.x; it < (count << LOG_G); it += NTT_THREADS) {
+    const int g = it & ((1 << LOG_G) - 1);
+    const int hi = g >> LOG_T;
+    const int base = (hi << (LOG_T + R)) + (g & ((1 << LOG_T) - 1));
+    uint32_t v[1 << R], w[1 << R], wp[1 << R];
+    src.load(it >> LOG_G, base, LOG_T, v);
+    tw.template get<R>(S0, hi, w, wp);
+    fwd_stages<R>(
+        v,
+        [&](int e, int j, uint32_t& ww, uint32_t& wwp) {
+          ww = w[(1 << e) + j];
+          wwp = wp[(1 << e) + j];
+        },
+        q);
+    dst.store(it >> LOG_G, base, LOG_T, v);
+  }
+}
+
+// The middle passes (radix 8 from stage S0 while more than R_LAST stages
+// remain), a barrier after each.
+template <int LOG_N, int S0, int R_LAST, class TW, class ROWS>
+__device__ __forceinline__ void c_middle(int count, const TW& tw, uint32_t q, const ROWS& rows) {
+  if constexpr (S0 < LOG_N - R_LAST) {
+    c_pass<LOG_N, S0, 3>(count, tw, q, rows, rows);
+    __syncthreads();
+    c_middle<LOG_N, S0 + 3, R_LAST>(count, tw, q, rows);
+  }
+}
+
+template <int LOG_N>
+__global__ void __launch_bounds__(NTT_THREADS, 4) mxu8_forward32_kernel(const ForwardCArgs a) {
+  extern __shared__ __align__(128) uint8_t c_sm[];
+  constexpr int n = 1 << LOG_N;
+  constexpr int R = LOG_N - 3 * ((LOG_N - 1) / 3);  // the last pass's stages
+  const uint64_t* bars = reinterpret_cast<const uint64_t*>(c_sm);  // one a slot
+  uint32_t* tw = reinterpret_cast<uint32_t*>(c_sm + 128);
+  uint32_t* twp = tw + n;
+  uint32_t* work = twp + n;                                        // T rows, SwzNtt
+  uint32_t* slots = work + (a.tile << LOG_N);                      // C_SLOTS x T rows
+  const int slot_words = a.tile << LOG_N;
+  const int tiles = (a.rows + a.tile - 1) / a.tile;
+  // this block's items [first, last): item = prime * tiles + tile
+  const int first = (int)((long long)blockIdx.x * a.items / gridDim.x);
+  const int last = (int)((long long)(blockIdx.x + 1) * a.items / gridDim.x);
+  const auto count_of = [&](int item) { return min(a.tile, a.rows - (item % tiles) * a.tile); };
+  const auto offset_of = [&](int item) {
+    return ((size_t)(item / tiles) * a.rows + (size_t)(item % tiles) * a.tile) << LOG_N;
+  };
+  // thread 0: item's rows into slot s, completing on the slot's barrier
+  const auto load = [&](int item, int s) {
+    const uint32_t bytes = (uint32_t)count_of(item) << (LOG_N + 2);
+    const uint32_t bar = smem_addr(bars + s);
+    mbar_expect_tx(bar, bytes);
+    bulk_copy(smem_addr(slots + s * slot_words), a.in + offset_of(item), bytes, bar, 0);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C_SLOTS; ++s) mbar_init(smem_addr(bars + s), 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && first < last) load(first, 0);
+
+  const SwzRowsC rows{work, LOG_N};
+  const FwdTable table{(const uint32_t*)tw, (const uint32_t*)twp};
+  int pi = -1;
+  for (int item = first, i = 0; item < last; ++item, ++i) {
+    const int s = i % C_SLOTS;
+    const int count = count_of(item);
+    uint32_t* slot = slots + s * slot_words;
+    const int ip = item / tiles;
+    const uint32_t* groots = a.tw + ((size_t)ip << LOG_N);
+    const uint32_t* groots_p = a.twp + ((size_t)ip << LOG_N);
+    if (ip != pi) {  // every thread is past the last tile's passes (its store's barrier)
+      stage_tables(tw, twp, groots, groots_p, 0, n);
+      pi = ip;
+    }
+    if (threadIdx.x == 0 && item + 1 < last) {
+      // the next slot last held tile i + 1 - C_SLOTS, whose store went out
+      // before tile i - 1's: all but the newest store have read their slots
+      bulk_wait<1, true>();
+      load(item + 1, (i + 1) % C_SLOTS);
+    }
+    const uint32_t q = a.ps.p[ip].q;
+    const FwdFirst<uint32_t> first_tw(groots, groots_p, 8);
+    mbar_wait(smem_addr(bars + s), (i / C_SLOTS) & 1);
+
+    // pass 1 (stages 0-2): the slot's natural rows into the work tile,
+    // twiddles in registers, under a table copy
+    c_pass<LOG_N, 0, 3>(count, first_tw, q, SmemRows<SwzNone>{slot, LOG_N}, rows);
+    cp_async_wait<0>();
+    __syncthreads();
+    c_middle<LOG_N, 3, R>(count, table, q, rows);
+    // the last pass: canonical words back into the slot, natural order
+    c_pass<LOG_N, LOG_N - R, R>(count, table, q, rows, StageOut{slot, LOG_N, q});
+    fence_proxy_async();  // the slot's words, for the bulk store
+    __syncthreads();
+    if (threadIdx.x == 0)
+      bulk_store(a.out + offset_of(item), smem_addr(slot), (uint32_t)count << (LOG_N + 2));
+  }
+  if (threadIdx.x == 0) bulk_wait<0, false>();
+}
+
+// Kernel C's instances, log_n C_MIN_LOG_N .. C_MAX_LOG_N.
+const void* const C_KERNELS[C_MAX_LOG_N - C_MIN_LOG_N + 1] = {
+    (const void*)mxu8_forward32_kernel<8>, (const void*)mxu8_forward32_kernel<9>,
+    (const void*)mxu8_forward32_kernel<10>, (const void*)mxu8_forward32_kernel<11>,
+    (const void*)mxu8_forward32_kernel<12>};
+
 // What the launches read of a device, set up at the first launch there:
 // the SM count and, for each kernel, row size and tile, how many blocks an
-// SM holds at once (0 where the tile does not fit in shared memory); both
-// kernels' shared-memory cap is raised to SMEM_MAX.
+// SM holds at once (0 where the tile does not fit in shared memory; kernel
+// C's from C_MIN_LOG_N on); every kernel's shared-memory cap is raised to
+// SMEM_MAX.
 struct NttDevice {
   int sms = 0;
   int resident[2][MAX_LOG_N + 1][4] = {};
+  int c_resident[C_MAX_LOG_N + 1][4] = {};
 };
 
 int ntt_device(const NttDevice** out) {
@@ -247,6 +488,15 @@ int ntt_device(const NttDevice** out) {
     for (const void* k : kernels)
       if (e == cudaSuccess)
         e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    // kernel C: the largest shared-memory carveout, so that the blocks the
+    // occupancy query counts are the blocks an SM runs at once
+    for (const void* k : C_KERNELS) {
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&fresh.sms, cudaDevAttrMultiProcessorCount, dev);
     for (int f = 0; f < 2 && e == cudaSuccess; ++f)
       for (int log_n = 1; log_n <= MAX_LOG_N && e == cudaSuccess; ++log_n)
@@ -256,6 +506,12 @@ int ntt_device(const NttDevice** out) {
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                 &fresh.resident[f][log_n][i], kernels[2 * f], NTT_THREADS, smem);
         }
+    for (int log_n = C_MIN_LOG_N; log_n <= C_MAX_LOG_N && e == cudaSuccess; ++log_n)
+      for (int i = 0; i < 4 && e == cudaSuccess; ++i)
+        if (c_smem_bytes(log_n, 1 << i) <= (size_t)SMEM_MAX)
+          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &fresh.c_resident[log_n][i], C_KERNELS[log_n - C_MIN_LOG_N], NTT_THREADS,
+              c_smem_bytes(log_n, 1 << i));
     if (e != cudaSuccess) return (int)e;
     d = fresh;
   }
@@ -306,6 +562,57 @@ int launch(bool forward, const void* in, void* out, const void* tw, const void* 
   return (int)cudaGetLastError();
 }
 
+// Kernel C's tile and grid: T0 = 2^12 / n rows (at most 8) give each
+// radix-8 pass of a tile 512 groups, two a thread (a sweep of T = 1-8,
+// cmux_mxu_timing.py --keyprep --grids: at 4200 rows of 1024, T = 4 took
+// 0.0249 ms against T = 2's 0.0260 and T = 8's 0.0257; at 2 x 7560 rows of
+// 2048, T = 2 0.1322 against T = 1's 0.1340); of T = 1, 2, ..., T0, the
+// smallest whose kp ceil(rows / T) items run one a block in one wave (the
+// SMs times the blocks an SM holds at T), else T0, the largest that fits;
+// the grid is that wave, capped at the items, each block a range of them.
+// So a few rows spread one tile a block over as many SMs (2 x 12 rows: 24
+// blocks of one row), and a key's thousands of rows run several tiles a
+// block, their loads and stores in flight under the passes.  The only copy
+// of the rule.
+void c_pick(int kp, int rows, int log_n, const NttDevice& d, int* tile, int* grid) {
+  const int t0 = log_n >= 12 ? 1 : log_n <= 9 ? 8 : 1 << (12 - log_n);
+  int t = 1, i = 0;
+  for (; t < t0; t *= 2, ++i) {
+    const long items = (long)kp * ((rows + t - 1) / t);
+    if (d.c_resident[log_n][i + 1] == 0 || items <= (long)d.sms * d.c_resident[log_n][i]) break;
+  }
+  const long items = (long)kp * ((rows + t - 1) / t);
+  const long wave = (long)d.sms * d.c_resident[log_n][i];
+  *tile = t;
+  *grid = (int)(items < wave ? items : wave);
+}
+
+int launch_c(const void* in, void* out, const void* tw, const void* twp, const void* prime_pack,
+             int kp, int rows, int log_n, void* stream) {
+  if (kp < 1 || kp > PFT_MAX_KP || log_n < C_MIN_LOG_N || log_n > C_MAX_LOG_N || rows < 1 ||
+      (((uintptr_t)in | (uintptr_t)out) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const NttDevice* d = nullptr;
+  const int err = ntt_device(&d);
+  if (err != 0) return err;
+  ForwardCArgs a{};
+  a.in = (const uint32_t*)in;
+  a.out = (uint32_t*)out;
+  a.tw = (const uint32_t*)tw;
+  a.twp = (const uint32_t*)twp;
+  a.ps = unpack_primes((const uint64_t*)prime_pack, kp);
+  a.rows = rows;
+  int grid = 0;
+  c_pick(kp, rows, log_n, *d, &a.tile, &grid);
+  a.items = kp * ((rows + a.tile - 1) / a.tile);
+  void* args[] = {&a};
+  const cudaError_t e = cudaLaunchKernel(C_KERNELS[log_n - C_MIN_LOG_N], dim3(grid),
+                                         dim3(NTT_THREADS), args, c_smem_bytes(log_n, a.tile),
+                                         (cudaStream_t)stream);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
 }  // namespace
 
 extern "C" {
@@ -341,6 +648,27 @@ int pft_ntt32_inverse(const void* in, void* out, const void* inv_roots, const vo
                       int canonical, void* stream) {
   return launch(false, in, out, inv_roots, inv_roots_p, prime_pack, kp, rows_per_prime, log_n,
                 canonical, stream);
+}
+
+// Kernel C: the canonical forward NTT of kp primes x rows_per_prime rows of
+// 2^log_n canonical residues (log_n 8-12, kp <= 4; in and out 16-byte
+// aligned), roots and roots_p as for pft_ntt32_forward.
+int pft_mxu8_forward32(const void* in, void* out, const void* roots, const void* roots_p,
+                       const void* prime_pack, int kp, int rows_per_prime, int log_n,
+                       void* stream) {
+  return launch_c(in, out, roots, roots_p, prime_pack, kp, rows_per_prime, log_n, stream);
+}
+
+// Kernel C's tile of rows and grid (c_pick) on the current device.
+int pft_mxu8_forward32_grid(int kp, int rows_per_prime, int log_n, int* tile, int* grid) {
+  if (kp < 1 || kp > PFT_MAX_KP || log_n < C_MIN_LOG_N || log_n > C_MAX_LOG_N ||
+      rows_per_prime < 1)
+    return (int)cudaErrorInvalidValue;
+  const NttDevice* d = nullptr;
+  const int err = ntt_device(&d);
+  if (err != 0) return err;
+  c_pick(kp, rows_per_prime, log_n, *d, tile, grid);
+  return 0;
 }
 
 }  // extern "C"

@@ -6,7 +6,8 @@
   and the MXU bootstrap-key preparation;
 - :mod:`.ntru_cmux_mxu`: kernel B, the one-launch int8 NGS CMux step, and
   the MXU evaluation-key preparation;
-- :mod:`.ntt_mxu8`: kernel C, the int8 four-step forward NTT; its u64
+- :mod:`.ntt_mxu8`: kernel C, the key preparations' u32 forward NTT (a
+  persistent kernel on kernel 1's radix-8 passes); the u64 byte-radix
   tiers ``mxu8_forward64``/``mxu8_inverse64``; kernels D and E, the inverse
   with a fused key multiply and the fused round trip;
 - :mod:`.ntt64`: the u64 butterfly NTT and inverse NTT;

@@ -34,8 +34,10 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
+_I64 = ctypes.c_int64
 # C entry -> argument types (pointers, host constant packs and the stream
-# are c_void_p; sizes are c_int; a u64 modulus is c_uint64)
+# are c_void_p; sizes are c_int; a u64 modulus is c_uint64; a row stride
+# in words is c_int64)
 _SIGNATURES = {
     "pft_ntt32_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pft_ntt32_inverse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -44,7 +46,8 @@ _SIGNATURES = {
     "pft_cmux_mxu": (_P,) * 13 + (_I,) * 6 + (_P,),
     "pft_ntru_cmux_mxu": (_P,) * 12 + (_I,) * 4 + (_P,),
     "pft_cmux_mxu_clusters": (_I,) * 7 + (_P,),
-    "pft_ntt_mxu8_forward": (_P,) * 6 + (_I, _I, _I, _P),
+    "pft_mxu8_forward32": (_P,) * 5 + (_I,) * 3 + (_P,),
+    "pft_mxu8_forward32_grid": (_I, _I, _I, _P, _P),
     "pft_ntt64_forward": (_P,) * 5 + (_I,) * 4 + (_P,),
     "pft_ntt64_inverse": (_P,) * 5 + (_I,) * 5 + (_P,),
     "pft_ntt64_tile": (_I, _I, _I, _I, _P),
@@ -52,7 +55,7 @@ _SIGNATURES = {
     "pft_ntt_mxu8_forward64": (_P,) * 6 + (_I,) * 4 + (_P,),
     "pft_ntt_mxu8_inverse64": (_P,) * 6 + (_I,) * 4 + (_P,),
     "pft_ntt_mxu8_inverse64_mul": (_P,) * 7 + (_I,) * 4 + (_P,),
-    "pft_rotate": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "pft_rotate": (_P, _I64, _P, _P, _I64, _I, _I, _I, _I, _P),
     "pft_cmux_front": (_P,) * 5 + (_I,) * 4 + (_P,),
     "pft_ntt32_stages_forward": (_P,) * 4 + (_I,) * 4 + (_P,),
     "pft_ntt32_stages_inverse": (_P,) * 4 + (_I,) * 3 + (_P,),

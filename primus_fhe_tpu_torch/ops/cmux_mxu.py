@@ -11,7 +11,7 @@ The plan
 :class:`CmuxMxuPlan` keeps what the Hopper kernels read: the int8 plane
 matrices ``w1d``, ``w2f``, ``w1mf``, ``w2m`` (equal to the JAX plan's) and
 the twiddle tables ``t``/``tp`` and ``ti``/``tip`` with their Shoup
-quotients, plus ``w1f``, the 4-plane forward pass-1 matrix of kernel C.
+quotients.
 The JAX plan's bias tables (``ct``, ``cb2``, ``cti``, ``cbi``, ``b2_*``,
 ``t16``, ``w16``, ``prec1``) exist because the TPU kernel feeds XOR-0x80
 biased bytes and packs planes into 16-bit groups; the Hopper kernels feed
@@ -181,7 +181,6 @@ class CmuxMxuPlan:
             w1m = _byte_matrix4(fs["m2i"], p)  # rows (c, k0), cols (l, r1)
             self.per_prime.append(dict(
                 w1d=_byte_matrix4(fs["m1"], p, value_planes=2),  # (4A, 2A)
-                w1f=_byte_matrix4(fs["m1"], p),  # (4A, 4A), kernel C
                 w2f=np.ascontiguousarray(w2.T),
                 w1mf=np.ascontiguousarray(w1m.T),
                 w2m=_byte_matrix4(fs["m1i"], p),  # rows (c, k1), cols (l, r0)
@@ -210,11 +209,12 @@ class CmuxMxuPlan:
 
     def kernel_tables(self, device) -> dict:
         """The kernels' tables on ``device``, stacked over primes:
-        ``w1_1``/``w1_2`` (forward pass 1 for 1- or 2-byte digits), ``w1_4``
-        (kernel C's pass 1), ``w2``, ``wi1``, ``wi2`` (int8), ``w2g`` and
-        ``wi1g`` (``w2`` and ``wi1`` in :func:`wgmma_layout`'s stream order,
-        kernels A and B) and ``tw`` ``(kp, 4, n)`` = tw, its precon, twi,
-        its precon (int32 storage)."""
+        ``w1_1``/``w1_2`` (forward pass 1 for 1- or 2-byte digits), ``w2``,
+        ``wi1``, ``wi2`` (int8; ``w2`` and ``wi1`` for the plain models),
+        ``w2g`` and ``wi1g`` (``w2`` and ``wi1`` in :func:`wgmma_layout`'s
+        stream order, kernels A and B) and ``tw`` ``(kp, 4, n)`` = tw, its
+        precon, twi, its precon (int32 storage).  Kernel C reads none of
+        them: it runs on ``self.ntt``'s root tables."""
         device = torch.device(device)
         if device not in self._kernel_on:
             A, B = self.A, self.B
@@ -232,7 +232,6 @@ class CmuxMxuPlan:
             self._kernel_on[device] = dict(
                 w1_1=stack(lambda pp: kernel_layout(pp["w1d"], A, 2, 1)),
                 w1_2=stack(lambda pp: kernel_layout(pp["w1d"], A, 2, 2)),
-                w1_4=stack(lambda pp: kernel_layout(pp["w1f"], A, 4, 4)),
                 w2=stack(w2),
                 wi1=stack(wi1),
                 w2g=stack(lambda pp: wgmma_layout(w2(pp))),
@@ -355,8 +354,9 @@ def shoup_precons(vals: torch.Tensor, primes, axis: int) -> torch.Tensor:
 def prepare_mxu_bsk(conv, ggsw_coeff: torch.Tensor):
     """Coefficient-domain stacked GGSW ``(n_lwe, k1, L, k1, n)`` torus words
     -> MXU key pack ``(vals, precons)``, each ``(n_lwe, kp, k1, L, k1, A,
-    128)`` int64 and contiguous: the centered lift, kernel C per prime,
-    then the exact Shoup quotients."""
+    128)`` int64 and contiguous: the centered lift, kernel C (one launch
+    for every prime: the canonical forward NTT on kernel 1's radix-8
+    passes), then the exact Shoup quotients."""
     from .ntt_mxu8 import mxu8_forward32
 
     plan = plan_for(conv)

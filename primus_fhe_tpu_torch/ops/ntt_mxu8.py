@@ -1,8 +1,16 @@
-"""The byte-radix four-step NTT kernels on the int8 tensor cores.
+"""The byte-radix four-step NTT kernels on the int8 tensor cores, and the
+transforms of the same functions on butterflies.
 
-- Kernel C, ``mxu8_forward32``: the u32 tier (4 byte planes, ``q < 2^30``)
-  of ``mxu8_fused_forward64`` (``primus_fhe_tpu/ops/ntt_mxu8.py:917``),
-  which ``prepare_mxu_bsk`` and ``prepare_mxu_evk`` run.
+- Kernel C, ``mxu8_forward32``: the u32 tier (``q < 2^30``) of
+  ``mxu8_fused_forward64`` (``primus_fhe_tpu/ops/ntt_mxu8.py:917``), which
+  ``prepare_mxu_bsk`` and ``prepare_mxu_evk`` run.  Its function is kernel
+  1's canonical forward NTT (:mod:`.ntt32`), and so is its design: a
+  persistent kernel in ``csrc/ntt32.cu`` on kernel 1's radix-8 register
+  passes, each block taking a range of (prime, tile of rows) items, one
+  thread bulk-copying the next tile's rows into a ring of three shared
+  slots while the block transforms the current one, the output drained
+  from its slot by a bulk store (:func:`launch_grid` gives the tile and
+  grid the launch picks).  No byte plane.
 - ``mxu8_forward64`` and ``mxu8_inverse64``: the 7- and 8-plane tiers
   (``q < 2^53`` and ``q < 2^62``) of ``mxu8_fused_forward64`` and
   ``mxu8_fused_inverse64`` (``ntt_mxu8.py:917,959``), which the DCRT
@@ -19,8 +27,9 @@
 
 All but the round trip reach ``pallas_call`` through
 ``ops/mxu_common._natural_call`` in the reference.  CUDA source:
-``csrc/ntt_mxu8.cu`` (kernel E: ``csrc/ntt64.cu``); design, bounds and
-shared-memory budgets are stated there.  ``mxu8_forward64`` runs on ``wgmma`` in clusters of blocks that each
+``csrc/ntt_mxu8.cu`` (kernel C: ``csrc/ntt32.cu``; kernel E:
+``csrc/ntt64.cu``); design, bounds and shared-memory budgets are stated
+there.  ``mxu8_forward64`` runs on ``wgmma`` in clusters of blocks that each
 take a tile of rows and a slice of pass 2's output columns (the launch picks
 both from the rows and the card), streaming the plane matrices in
 :func:`forward_stream_tables`' order (``kernel_tables()["w1s"]``,
@@ -78,6 +87,8 @@ from .ntt32 import forward32_plain
 from .ntt64 import NttTables64, ntt64_forward_plain, ntt64_inverse_plain
 from .ntt64 import pick_tile as ntt64_pick_tile
 
+C_LOG_N = (8, 12)  # kernel C's rows on the card (C_MIN_LOG_N, C_MAX_LOG_N in csrc/ntt32.cu)
+
 
 def mxu8_forward32_plain(plan, values: torch.Tensor) -> torch.Tensor:
     """Plain version: per-prime canonical butterfly forward NTT."""
@@ -91,7 +102,8 @@ def mxu8_forward32(plan, values: torch.Tensor) -> torch.Tensor:
     bit-reversed order, ``(kp, ..., A, 128)``.
 
     CPU tensors take the plain version, CUDA tensors kernel C (one launch
-    for every prime); the output keeps the input's storage.
+    for every prime), which takes ``log_n`` 8-12 (a ``ValueError``
+    outside, before any launch); the output keeps the input's storage.
     """
     if values.device.type == "cpu":
         out = mxu8_forward32_plain(plan, widen_u32(values))
@@ -101,14 +113,19 @@ def mxu8_forward32(plan, values: torch.Tensor) -> torch.Tensor:
     kp, n = len(plan.primes), plan.n
     if values.shape[0] != kp or values.shape[-1] != n:
         raise ValueError(f"expected (kp={kp}, ..., n={n}), got {tuple(values.shape)}")
+    if not C_LOG_N[0] <= plan.log_n <= C_LOG_N[1]:
+        raise ValueError(f"mxu8_forward32: the kernel takes log_n {C_LOG_N[0]}-{C_LOG_N[1]} on "
+                         f"the card, got {plan.log_n}")
     v = narrow_u32(values).contiguous()
+    if v.data_ptr() % 16:  # the tiles move by bulk copies of 16-byte units
+        v = v.clone()
     out = torch.empty_like(v)
     rows = v[0].numel() // n
     if rows:
-        tabs = plan.kernel_tables(v.device)
-        err = build.library().pft_ntt_mxu8_forward(
-            v.data_ptr(), out.data_ptr(), tabs["w1_4"].data_ptr(), tabs["w2"].data_ptr(),
-            tabs["tw"].data_ptr(), build.ptr(plan.ntt.prime_pack), kp, rows, plan.log_n,
+        roots, roots_p = plan.ntt.kernel_tables(v.device)[:2]
+        err = build.library().pft_mxu8_forward32(
+            v.data_ptr(), out.data_ptr(), roots.data_ptr(), roots_p.data_ptr(),
+            build.ptr(plan.ntt.prime_pack), kp, rows, plan.log_n,
             torch.cuda.current_stream(v.device).cuda_stream,
         )
         build.check(err, "mxu8_forward32")
@@ -118,6 +135,19 @@ def mxu8_forward32(plan, values: torch.Tensor) -> torch.Tensor:
 
 
 mxu8_forward32.launches = 0
+
+
+def launch_grid(plan, rows: int) -> tuple[int, int]:
+    """``(T, blocks)`` of kernel C's launch on ``rows`` rows a prime on the
+    current CUDA device: the rows a tile and the persistent grid (the C
+    entry's own pick)."""
+    import ctypes
+
+    tile, grid = ctypes.c_int(), ctypes.c_int()
+    err = build.library().pft_mxu8_forward32_grid(len(plan.primes), rows, plan.log_n,
+                                                  ctypes.addressof(tile), ctypes.addressof(grid))
+    build.check(err, "pft_mxu8_forward32_grid")
+    return tile.value, grid.value
 
 
 # ---------------------------------------------------------------------------

@@ -102,7 +102,7 @@ def _wg_pass(table, op, rows, q):
 
 
 def _planes(a_bytes, w, np_, n_real, q):
-    """``mm_planes`` + ``reduce_planes`` (the two mma.sync passes)."""
+    """``mm_planes_w`` + ``reduce_planes32`` (the two mma.sync passes)."""
     d = a_bytes.astype(np.int64) @ w.astype(np.int64).T
     d = d.reshape(-1, 4, np_)[:, :, :n_real]
     return (d * (1 << (8 * np.arange(4)))[None, :, None]).sum(1) % q

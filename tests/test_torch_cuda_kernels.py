@@ -19,8 +19,12 @@ and a small DCRT rotation on both routes against the CPU; kernels D and E
 (moduli up to 2^62), two moduli and E's ragged tiles, E also against
 ``mxu8_forward64`` then D and the butterfly route, and the four-step at
 2^16 on both routes;
-kernels F and G at N 32-2048, degrees of any sign, both gadgets, and
-``cmux_delta`` against kernels 3-4; the four stage kernels of the
+kernel C at log_n 8-12, 1-4 primes, 1 to 769 rows a prime and over the
+key preparations' 2 x 7560 and 4200 rows (and its refusal of log_n 7 and
+13); a BOOLEAN_128 bootstrap on the MXU key against the CPU; kernel F on
+broadcast, contiguous and strided rows into new rows and ``out=`` views at
+log_n 1-16; kernels F and G at N 32-2048, degrees of any sign, both
+gadgets, and ``cmux_delta`` against kernels 3-4; the four stage kernels of the
 coefficient-sharded NTT at log_n 9-17 over 2-8 shards (u32, 50- and 62-bit
 u64, every ``out_factor`` and both ``in_factor``s, the input range's extreme
 words; the u64 pair at log_w 15-16 on batches 1, 3, 8), row 13's split
@@ -189,14 +193,62 @@ def test_launch_counts_and_toy_bootstrap(dev):
     assert torch.equal(out.cpu(), cpu)
 
 
-@pytest.mark.parametrize("log_n,kp", [(8, 1), (9, 2), (10, 3), (11, 2)])
+@pytest.mark.parametrize("log_n,kp", [(8, 1), (9, 2), (10, 3), (11, 2)]
+                         + [(log_n, kp) for log_n in range(8, 13) for kp in (1, 2)
+                            if (log_n, kp) not in ((9, 2), (11, 2))] + [(12, 4)])
 def test_mxu8_forward_matches_plain(dev, log_n, kp):
-    plan = cmux_mxu.CmuxMxuPlan(log_n, PRIMES3[:kp])
+    """Kernel C at log_n 8-12 and 1-4 primes on 1, 5, 7, 12, 769 and 7560
+    rows a prime (one tile a block, several tiles a block through the ring,
+    a ragged last tile, a block's range across two primes), int64 words
+    and int32 storage, the row and grid the launch picks."""
+    plan = cmux_mxu.CmuxMxuPlan(log_n, PRIMES4[:kp])
     gen = torch.Generator(device=dev).manual_seed(log_n)
-    x = _residues(gen, PRIMES3[:kp], (5, 1 << log_n), 1, dev)
-    want = ntt_mxu8.mxu8_forward32_plain(plan, x)
-    assert torch.equal(ntt_mxu8.mxu8_forward32(plan, x), want)
-    assert torch.equal(ntt_mxu8.mxu8_forward32(plan, x.to(torch.int32)).to(torch.int64), want)
+    for rows in (1, 5, 7, 12, 769, 7560):
+        x = _residues(gen, PRIMES4[:kp], (rows, 1 << log_n), 1, dev)
+        want = ntt_mxu8.mxu8_forward32_plain(plan, x)
+        assert torch.equal(ntt_mxu8.mxu8_forward32(plan, x), want), rows
+        got32 = ntt_mxu8.mxu8_forward32(plan, x.to(torch.int32))
+        assert got32.dtype == torch.int32
+        assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want), rows
+        tile, grid = ntt_mxu8.launch_grid(plan, rows)
+        assert tile >= 1 and 1 <= grid <= kp * -(-rows // tile)
+
+
+def test_mxu8_forward_at_the_key_preparations(dev):
+    """Kernel C over BOOLEAN_128's whole bootstrap key (2 x 7560 rows of
+    2048) and NTRU_128's evk (4200 rows of 1024), and the packs
+    ``prepare_mxu_bsk`` / ``prepare_mxu_evk`` make on the card equal the
+    ones made on the CPU from the same words."""
+    gen = torch.Generator(device=dev).manual_seed(7560)
+    conv = tfhe.make_convolver(11, 3, 1, 7)
+    plan = cmux_mxu.plan_for(conv)
+    x = _residues(gen, conv.primes, (7560, 2048), 1, dev)
+    assert torch.equal(ntt_mxu8.mxu8_forward32(plan, x.to(torch.int32)).to(torch.int64)
+                       & 0xFFFFFFFF, ntt_mxu8.mxu8_forward32_plain(plan, x))
+    nplan = ntru_cmux_mxu.get_ntru_plan(10, NTRU_Q[0])
+    y = _residues(gen, NTRU_Q, (4200, 1024), 1, dev)
+    assert torch.equal(ntt_mxu8.mxu8_forward32(nplan, y), ntt_mxu8.mxu8_forward32_plain(nplan, y))
+    ggsw = torch.randint(0, 1 << 32, (8, 2, 3, 2, 2048), generator=gen, device=dev)
+    for got, want in zip(cmux_mxu.prepare_mxu_bsk(conv, ggsw),
+                         cmux_mxu.prepare_mxu_bsk(conv, ggsw.cpu())):
+        assert torch.equal(got.cpu(), want)
+    nctx = NtruContext(10, NTRU_Q[0], 3, 6)
+    evk = torch.randint(0, NTRU_Q[0], (8, 6, 1024), generator=gen, device=dev)
+    for got, want in zip(ntru_cmux_mxu.prepare_mxu_evk(nctx, evk),
+                         ntru_cmux_mxu.prepare_mxu_evk(nctx, evk.cpu())):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("log_n", [7, 13])
+def test_mxu8_forward_refuses_log_n_outside_8_to_12(dev, log_n):
+    """Kernel C takes log_n 8-12: the plan refuses 7 and the wrapper 13
+    (``ValueError``), before any launch."""
+    before = ntt_mxu8.mxu8_forward32.launches
+    with pytest.raises(ValueError):
+        plan = cmux_mxu.CmuxMxuPlan(log_n, PRIMES_2E15[:1])
+        ntt_mxu8.mxu8_forward32(plan, torch.zeros((1, 3, 1 << log_n), dtype=torch.int32,
+                                                  device=dev))
+    assert ntt_mxu8.mxu8_forward32.launches == before
 
 
 def _cluster_batches(kp):
@@ -284,6 +336,29 @@ def test_mxu_bootstrap_and_ntru_gate(dev):
                                keys.ks_basis, ca.cpu(), cb.cpu())
     assert torch.equal(got.cpu(), cpu)
     assert keys.decrypt(got).int().tolist() == [1, 1, 1, 0]
+
+
+def test_boolean128_mxu_bootstrap_matches_plain(dev):
+    """A whole BOOLEAN_128 bootstrap on the MXU key (kernel C in key
+    preparation, kernel F at the start, kernel A a step) equals the plain
+    versions' on the CPU, and the NAND truth table holds; the start is one
+    launch of F."""
+    from primus_fhe_tpu_torch.boot import gates
+
+    p = P.BOOLEAN_128
+    gen = torch.Generator(device=dev).manual_seed(128)
+    ctx = P.make_context(p, dev, gen, bsk_kind="mxu")
+    ca, cb = ctx.encrypt(torch.tensor([0, 0, 1, 1], device=dev), gen), ctx.encrypt(
+        torch.tensor([0, 1, 0, 1], device=dev), gen)
+    nand = gates.nand_gate(ctx.conv, ctx.basis, ctx.bsk, ctx.ksk, ctx.ks_basis, ca, cb, p.log_n)
+    assert ctx.decrypt(nand).int().tolist() == [1, 1, 1, 0]
+    tp = torch.full((p.n,), gates.TRUE_MU, dtype=torch.int64, device=dev)
+    before = rotate.rotate.launches
+    out = bootstrap(ctx.conv, ctx.basis, ctx.bsk, ca[:1], tp, p.log_n)
+    assert rotate.rotate.launches == before + 1
+    cpu = bootstrap(ctx.conv, ctx.basis, tuple(x.cpu() for x in ctx.bsk), ca[:1].cpu(),
+                    tp.cpu(), p.log_n)
+    assert torch.equal(out.cpu(), cpu)
 
 
 Q50 = [1125899906826241, 1125899906629633]  # the DCRT benchmark's moduli
@@ -555,6 +630,37 @@ def test_rotate_kernel_matches_plain(dev, log_n, k1):
         assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want)
     flat = torch.randint(0, 1 << 32, (3, n), generator=gen, device=dev)
     assert torch.equal(rotate.rotate(flat, degrees[:3]), rotate.rotate_plain(flat, degrees[:3]))
+
+
+@pytest.mark.parametrize("log_n", range(1, 17))
+def test_rotate_views_match_plain(dev, log_n):
+    """Kernel F on a broadcast row (``expand``, a row stride of 0),
+    contiguous rows and rows of a wider tensor (row strides on and off 16
+    bytes), into new rows and into ``out=`` views (``acc[:, -1, :]``),
+    with and without the subtraction, degrees of either sign up to 4n; no
+    input is copied."""
+    n = 1 << log_n
+    bsz, k1 = (6, 2) if log_n <= 12 else (2, 2)
+    gen = torch.Generator(device=dev).manual_seed(100 + log_n)
+    degrees = torch.randint(-4 * n, 4 * n + 1, (bsz,), generator=gen, device=dev)
+    degrees[:2] = torch.tensor([-4 * n, 4 * n - 1])
+    row = torch.randint(0, 1 << 32, (n,), generator=gen, device=dev).to(torch.int32)
+    wide = torch.randint(0, 1 << 32, (bsz, k1, n + 8), generator=gen, device=dev)
+    odd = torch.randint(0, 1 << 32, (bsz, k1, n + 3), generator=gen, device=dev)
+    wide32 = wide.to(torch.int32)
+    sources = [row.expand(bsz, n), row.expand(bsz, k1, n), wide32[..., :n],
+               wide32[..., 4:4 + n], odd.to(torch.int32)[..., :n], wide[..., :n]]
+    for src in sources:
+        for sub in (False, True):
+            want = rotate.rotate_plain(src.to(torch.int64) & 0xFFFFFFFF, degrees, sub)
+            assert torch.equal(rotate.rotate(src, degrees, sub).to(torch.int64) & 0xFFFFFFFF,
+                               want)
+            # into every other row of an accumulator: acc[:, -1, :] for (bsz, n)
+            acc = torch.zeros(src.shape[:-1] + (2, n), dtype=torch.int32, device=dev)
+            view = acc[..., 1, :]
+            assert rotate.rotate(src, degrees, sub, out=view) is view
+            assert torch.equal(view.to(torch.int64) & 0xFFFFFFFF, want)
+            assert not acc[..., 0, :].any()
 
 
 @pytest.mark.parametrize("log_n,log_basis,level,k", [(5, 8, 3, 1), (8, 1, 12, 1), (11, 7, 3, 1),

@@ -3,10 +3,11 @@
 - ``four_step_matrices`` and the kept ``CmuxMxuPlan`` tables equal the JAX
   package's at log_n=8 (30-bit primes), log_n=11 (BOOLEAN_128's primes) and
   log_n=10 (NTRU_128's q = 1038337);
-- a numpy model of the CUDA kernels' data flow (``csrc/cmux_mxu.cu``,
-  ``csrc/ntt_mxu8.cu``: the kernel-layout plane matrices, u8/s8 operand
-  bytes, the same indexing) equals the plain versions, so the tables the
-  card reads are right before any card runs them;
+- a numpy model of the CUDA kernels' data flow (``csrc/cmux_mxu.cu``: the
+  kernel-layout plane matrices, u8/s8 operand bytes, the same indexing;
+  kernel C in ``csrc/ntt32.cu``: ``test_torch_keyprep_model.model_c``)
+  equals the plain versions, so the tables the card reads are right before
+  any card runs them;
 - kernel C's plain version equals JAX ``mxu8_fused_forward64`` (``.lo``),
   ``prepare_mxu_bsk`` equals JAX (values and precons), and
   ``mxu_cmux_step`` equals JAX ``mxu_cmux_step_nat`` at batch 4 and 1
@@ -41,6 +42,7 @@ from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
 from primus_fhe_tpu_torch.lattice import tfhe
 from primus_fhe_tpu_torch.ops import cmux_mxu, mxu_common, ntt_mxu8
 from primus_fhe_tpu_torch.ops.ntru_cmux_mxu import get_ntru_plan, ntru_cmux_step_plain
+from test_torch_keyprep_model import model_c
 
 LOG_N = 8
 N = 1 << LOG_N
@@ -119,23 +121,18 @@ def _bytes(words, kb):
     return out
 
 
-def _model_forward(plan, tabs, pi, rows, q, digits=None, dp=1):
-    """Forward four-step of kernel C (``rows (R, n)`` canonical) or of
-    kernel A/B's digit polys (``digits (R, n)`` signed): NTT values
-    ``(R, n)`` in natural order."""
+def _model_forward(plan, tabs, pi, digits, q, dp=1):
+    """Forward four-step of kernel A/B's digit polys (``digits (R, n)``
+    signed, ``dp`` bytes a digit): NTT values ``(R, n)`` in natural
+    order."""
     A, B = plan.A, plan.B
-    src = rows if digits is None else digits
-    R = src.shape[0]
-    x = src.reshape(R, A, B).transpose(0, 2, 1)  # [(row, k0)][k1]
-    if digits is None:
-        w1 = tabs["w1_4"][pi]
-        op = _bytes(x.reshape(R * B, A), w1.shape[1])
-    else:
-        w1 = tabs[f"w1_{dp}"][pi]
-        s0 = x.astype(np.int8)
-        planes = [s0, ((x - s0.astype(np.int64)) >> 8).astype(np.int8)][:dp]
-        op = np.zeros((R * B, w1.shape[1]), dtype=np.int8)
-        op[:, : A * dp] = np.stack(planes, -1).reshape(R * B, A * dp)
+    R = digits.shape[0]
+    x = digits.reshape(R, A, B).transpose(0, 2, 1)  # [(row, k0)][k1]
+    w1 = tabs[f"w1_{dp}"][pi]
+    s0 = x.astype(np.int8)
+    planes = [s0, ((x - s0.astype(np.int64)) >> 8).astype(np.int8)][:dp]
+    op = np.zeros((R * B, w1.shape[1]), dtype=np.int8)
+    op[:, : A * dp] = np.stack(planes, -1).reshape(R * B, A * dp)
     np1 = w1.shape[0] // 4
     X = _planes(op, w1, np1, A, q).reshape(R, B, A).transpose(0, 2, 1)  # [row][r0][k0]
     tw, twp = tabs["tw"][pi][0].reshape(A, B), tabs["tw"][pi][1].reshape(A, B)
@@ -159,18 +156,21 @@ def _model_inverse(plan, tabs, pi, vals, q):
 
 @pytest.mark.parametrize("log_n", [8, 10])
 def test_kernel_model_forward_matches_plain(setup, log_n):
-    """Kernel C's data flow on the kernel tables equals its plain version."""
+    """Kernel C's data flow (``model_c``: persistent tiles on kernel 1's
+    passes) equals its plain version, and kernels A/B's inverse four-step
+    on the kernel tables takes its words back."""
     conv = tfhe.make_convolver(log_n, LV, 1, LB)
     plan = cmux_mxu.plan_for(conv)
     tabs = {k: v.numpy().astype(np.int64) if v.dtype != torch.int8 else v.numpy()
             for k, v in plan.kernel_tables("cpu").items()}
     tabs["tw"] = tabs["tw"] & 0xFFFFFFFF
     rng = np.random.default_rng(log_n)
+    x = np.stack([rng.integers(0, p, (3, plan.n), dtype=np.int64) for p in conv.primes])
+    want = ntt_mxu8.mxu8_forward32_plain(plan, _t(x)).reshape(x.shape).numpy()
+    fwd = model_c(plan, x.astype(np.uint64)).astype(np.int64)
+    np.testing.assert_array_equal(fwd, want)
     for pi, p in enumerate(conv.primes):
-        rows = rng.integers(0, p, (3, plan.n), dtype=np.int64)
-        want = ntt_mxu8.mxu8_forward32_plain(plan, _t(rows)[None].repeat(len(conv.primes), 1, 1))
-        got = _model_forward(plan, tabs, pi, rows, p)
-        np.testing.assert_array_equal(got, want[pi].reshape(3, plan.n).numpy())
+        rows, got = x[pi], fwd[pi]
         back = _model_inverse(plan, tabs, pi, got, p)  # inverse carries (P/p)^-1
         c = pow((conv.product // p) % p, -1, p)
         np.testing.assert_array_equal(back, rows * c % p)
@@ -206,7 +206,7 @@ def test_kernel_model_cmux_matches_plain(log_n, log_basis, level, k):
         digits = np.where(digits >= 1 << 31, digits - (1 << 32), digits)  # as int32
         ys = []
         for pi, p in enumerate(conv.primes):
-            F = _model_forward(plan, tabs, pi, None, p, digits=digits, dp=dp)
+            F = _model_forward(plan, tabs, pi, digits, p, dp=dp)
             F = F.reshape(k1, level, n)
             mac = np.stack([sum(F[r, l] * kvn[pi, r, l, j] % p for r in range(k1)
                                 for l in range(level)) % p for j in range(k1)])
@@ -340,7 +340,7 @@ def test_ntru_plan_kernel_model_step_matches_plain():
     for b in range(2):
         d = basis.decompose(_t(acc[b])).numpy()  # (L, n) canonical mod q
         signed = np.where(d > basis.basis_minus_one, d - q, d)
-        F = _model_forward(plan, tabs, 0, None, q, digits=signed, dp=1)
+        F = _model_forward(plan, tabs, 0, signed, q, dp=1)
         mac = sum(F[l] * kv[l].reshape(n) % q for l in range(6)) % q
         delta = _model_inverse(plan, tabs, 0, mac[None], q)[0]
         idx = (np.arange(n) - degrees[b]) % (2 * n)
