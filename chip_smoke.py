@@ -76,8 +76,9 @@ non-zero):
     both routes agree; ms a transform per route;
 13. kernels F (``rotate``) and G (``cmux_front``) at BOOLEAN_128 width,
     batch 64, against their plain versions (F also at the bootstrap's
-    start, one broadcast test row into ``acc[:, -1, :]``, and at 1024 x 2
-    rows), and one CMux step
+    start, one broadcast test row into ``acc[:, -1, :]``; G also at batch
+    1; both at 1024 x 2 rows, with their shares of the byte bound), and
+    one CMux step
     ``acc + cmux_delta(...)`` on key slice 0 through kernel G, bit-equal to
     ``fused_cmux_step`` (kernels 3-4), with its launch counts;
 14. the mesh layer's multi-device step on one card: phase 10's rotation
@@ -798,12 +799,20 @@ def phase13_front(torch, dev, table, conv, basis, key0, counted) -> dict:
                    lambda: rotate.rotate(big32, big_deg),
                    lambda: rotate.rotate_plain(big, big_deg), f_b)
     log(f"rotate@1024: share of the byte bound {f_b[0] / table['rotate@1024'][F_ROWS][3]:.3f}")
+    # kernel G at batch 1, BATCH and F_ROWS: its bound the bytes once (the
+    # accumulator read, kp L residues written), the lifts' multiplies beside
+    for name, bsz, a, a32, d in (("cmux_front", 1, acc[:1], acc32[:1], deg[:1]),
+                                 ("cmux_front", BATCH, acc, acc32, deg),
+                                 ("cmux_front@1024", F_ROWS, big, big32, big_deg)):
+        w = a.numel()
+        compare_kernel(torch, table, name, bsz,
+                       lambda a=a, d=d: cmux_front.cmux_front(a, d, basis, conv.primes),
+                       lambda a32=a32, d=d: cmux_front.cmux_front(a32, d, basis, conv.primes),
+                       lambda a=a, d=d: cmux_front.cmux_front_plain(a, d, basis, conv.primes),
+                       bound(4 * (w + kp * level * w), muls32=5 * kp * level * w))
+    g_b = table["cmux_front@1024"][F_ROWS]
+    log(f"cmux_front@1024: share of the byte bound {g_b[4][0] / g_b[3]:.3f}")
     del big, big32
-    compare_kernel(torch, table, "cmux_front", BATCH,
-                   lambda: cmux_front.cmux_front(acc, deg, basis, conv.primes),
-                   lambda: cmux_front.cmux_front(acc32, deg, basis, conv.primes),
-                   lambda: cmux_front.cmux_front_plain(acc, deg, basis, conv.primes),
-                   bound(4 * (words + kp * level * words), muls32=5 * kp * level * words))
     for fn in counted:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -2076,7 +2085,7 @@ def main() -> None:
                                  counts_rt["mxu8_roundtrip64_mul"], (RT_BATCH, None)),
         "rotate": ("cmux_front.cu", "ops/rotate_pallas.py:29", counts["rotate"], (BATCH, None)),
         "cmux_front": ("cmux_front.cu", "ops/cmux_pallas.py:74", counts_f["cmux_front"],
-                       (BATCH, None)),
+                       (BATCH, 1)),
         "ntt32_stages_forward": ("ntt_stages.cu", "ops/ntt_pallas.py:620",
                                  counts_c["ntt32_stages_forward"], (CS_ROWS32, None)),
         "ntt32_stages_inverse": ("ntt_stages.cu", "ops/ntt_pallas.py:629",
@@ -2137,7 +2146,7 @@ def main() -> None:
         for tag, rows_k in (("bsk", KEY_ROWS["bsk"]), ("evk", KEY_ROWS["evk"]),
                             ("start", BATCH), ("1024", F_ROWS)):
             # C and kernel 1 at the key preparations' sizes; F at the
-            # bootstrap's start and at 1024 x 2 rows
+            # bootstrap's start and F and G at 1024 x 2 rows
             if f"{name}@{tag}" in table:
                 _, kms, kpms, kdev, (kbms, kbby) = table[f"{name}@{tag}"][rows_k]
                 row.update({f"ms_{tag}": kms, f"plain_ms_{tag}": kpms, f"device_ms_{tag}": kdev,

@@ -40,6 +40,9 @@ at the round trip's 512 rows on a 7- and an 8-plane modulus (beside row 10,
     python3 cmux_mxu_timing.py --keyprep --grids   # kernel C on every tile of 1-8 rows
     python3 cmux_mxu_timing.py --rotate ...    # kernel F (with --compare OLD: in turns)
     python3 cmux_mxu_timing.py --rotate --phases   # kernel F's cycles (clock64)
+    python3 cmux_mxu_timing.py --front ...     # kernel G (with --compare OLD: in turns)
+    python3 cmux_mxu_timing.py --front --phases    # kernel G's cycles per phase (clock64)
+    python3 cmux_mxu_timing.py --front --grids     # kernel G on every block size, both store kinds
 
 Both forward transforms are bounded by the function they compute: 16 bytes
 a word over the HBM rate, or the butterfly's ``n / 2 log n`` Shoup
@@ -120,10 +123,22 @@ last pass and the store's issue; :func:`stamp_keyprep`).  ``--rotate``
 times kernel F at :data:`ROTATE_SHAPES` (phase 13's 64 x 2 rows, the
 bootstrap's start as the checkout's blind rotation runs it, with and
 without its zero fill, and 1024 x 2 rows), with the launches the profiler
-sees at the start, and kernel G at 64 x 2 rows; ``--rotate --phases``
-stamps F's block 0 (:func:`stamp_rotate`).  Both take ``--compare OLD``
-(new / old per shape in the summary); ``--keyprep --grids`` times C on
-every tile of 1-8 rows (``pft_c_force_tile``, from a copy in
+sees at the start; ``--rotate --phases`` stamps F's block 0
+(:func:`stamp_rotate`).  ``--front`` times kernel G (``cmux_front``) at
+:data:`FRONT_SHAPES` (BOOLEAN_128's batch 1, phase 13's 64 x 2 rows and
+1024 x 2 rows), each with its byte bound, share and the launch's (mode,
+threads a block, blocks), F at 64 x 2 beside it, and
+ptxas's registers, stack and spill for every G instance; ``--front
+--phases`` copies the package to ``.proof/front_phases`` with clock64()
+laps of block 0's thread 0 (the degree, the window and own loads, the
+digits and lifts, the stores' issue, the last two summed over the kp L
+stores; :func:`stamp_front`); ``--front --grids`` times G on every block
+size of :data:`FRONT_THREADS` (``pft_g_force``) from two copies,
+``.proof/front_grids`` with the source's streaming stores (``__stcs``)
+and ``.proof/front_grids_wb`` with write-back stores.  All three
+take ``--compare OLD`` (new / old per shape in the summary; ``--front``
+also each side's grids and ptxas figures); ``--keyprep --grids`` times C
+on every tile of 1-8 rows (``pft_c_force_tile``, from a copy in
 ``.proof/keyprep_grids``).
 
 A kernel's device time is the median of 20 calls, each timed with CUDA
@@ -682,6 +697,11 @@ KEYPREP_SHAPES = (("2x12", "boolean", 12), ("2x768", "boolean", 768),
 # broadcast test row into acc[:, -1, :] of 64 ciphertexts; the start with
 # its zero fill too) and 1024 x 2 rows, all of 2048 words.
 ROTATE_SHAPES = (("64x2", 64), ("start 64", 64), ("start+zeros 64", 64), ("1024x2", 1024))
+# Kernel G's shapes at BOOLEAN_128 (n = 2048, k1 = 2, L = 3, two primes):
+# batch 1, phase 13's 64 x 2 rows and F's large 1024 x 2.  FRONT_THREADS:
+# the threads a block --front --grids tries.
+FRONT_SHAPES = (("1x2", 1), ("64x2", 64), ("1024x2", 1024))
+FRONT_THREADS = (32, 64, 128, 256, 512)
 
 
 def keyprep_calls(torch, dev) -> dict:
@@ -774,19 +794,15 @@ def sustained_clocks(torch, fn, seconds: float = 2.0) -> dict:
 
 
 def ptxas_registers(root: Path) -> dict:
-    """``{kernel: ptxas's registers line}`` of the newest kernel build under
-    ``root`` (``nvcc -Xptxas -v``'s log beside the library)."""
+    """``{kernel: registers}`` of the newest kernel build under ``root``
+    (ptxas's figures in the ``nvcc -Xptxas -v`` log beside the library)."""
+    from primus_fhe_tpu_torch.ops.build import ptxas_figures
+
     logs = sorted((root / "primus_fhe_tpu_torch" / "build").glob("libpft_kernels_*.log"),
                   key=lambda f: f.stat().st_mtime)
-    out, name = {}, None
-    for line in (logs[-1].read_text() if logs else "").splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = re.sub(r"_GLOBAL__N__[0-9a-f_]+_", "", m.group(1))
-        elif name and "Used" in line and "registers" in line:
-            out[name] = line.split(":", 1)[-1].strip()
-            name = None
-    return out
+    figures = ptxas_figures(logs[-1].read_text() if logs else "")
+    return {re.sub(r"_GLOBAL__N__[0-9a-f_]+_", "", k): v.get("registers")
+            for k, v in figures.items()}
 
 
 def rotate_calls(torch, dev) -> dict:
@@ -862,7 +878,16 @@ def rotate_times(torch, dev) -> dict:
         if label.startswith("start"):
             seen = launches_seen(torch, fn)
             out[f"rotate@{label}"].update(launches=sum(c for c, _ in seen), kernels=seen)
-    # kernel G beside it (unchanged, in turns): phase 13's CMux front end
+    out["empty kernel"] = {"ms": device_ms(torch, lambda: torch.cuda._sleep(1))}
+    return out
+
+
+def front_calls(torch, dev) -> dict:
+    """``{label: (call, bound ms, rows)}`` of kernel G at
+    :data:`FRONT_SHAPES` (int32 storage), each checked once against the
+    plain version.  The bound: the bytes once (the accumulator read, the
+    kp L residues written) over the HBM rate, the lifts' multiplies beside
+    them (bytes bound every shape)."""
     from primus_fhe_tpu_torch import params as P
     from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
     from primus_fhe_tpu_torch.lattice import tfhe
@@ -870,14 +895,166 @@ def rotate_times(torch, dev) -> dict:
 
     p = P.BOOLEAN_128
     basis = ApproxSignedBasis32(None, p.log_basis, reverse_length=p.level)
-    conv = tfhe.make_convolver(p.log_n, p.level, p.glwe_dim, p.log_basis)
+    primes = tfhe.make_convolver(p.log_n, p.level, p.glwe_dim, p.log_basis).primes
+    n, k1, kp, level = p.n, p.glwe_dim + 1, len(primes), p.level
     g = torch.Generator(device=dev).manual_seed(2033)
-    acc = torch.randint(0, 1 << 32, (64, 2, p.n), generator=g, device=dev).to(torch.int32)
-    deg = torch.randint(0, 2 * p.n, (64,), generator=g, device=dev, dtype=torch.int32)
-    out["cmux_front@64x2"] = {"ms": device_ms(
-        torch, lambda: cmux_front.cmux_front(acc, deg, basis, conv.primes))}
+    calls = {}
+    for label, bsz in FRONT_SHAPES:
+        acc = torch.randint(0, 1 << 32, (bsz, k1, n), generator=g, device=dev)
+        deg = torch.randint(-4 * n, 4 * n + 1, (bsz,), generator=g, device=dev,
+                            dtype=torch.int32)
+
+        def fn(a=acc.to(torch.int32), d=deg):
+            return cmux_front.cmux_front(a, d, basis, primes)
+
+        want = cmux_front.cmux_front_plain(acc, deg, basis, primes)
+        if not torch.equal(fn().to(torch.int64) & 0xFFFFFFFF, want):
+            raise SystemExit(f"cmux_front@{label}: words differ from the plain version")
+        words = acc.numel()
+        bound_ms = max(4 * words * (1 + kp * level) / HBM_BYTES_S,
+                       5 * kp * level * words / INT32_MULS_S) * 1e3
+        calls[label] = (fn, bound_ms, bsz * k1)
+    return calls
+
+
+def front_times(torch, dev) -> dict:
+    """Device ms, bound and share of kernel G at each shape with the
+    launch's (mode, threads a block, blocks), kernel F at phase 13's 64 x 2 beside it,
+    the empty-launch floor, and ptxas's figures for every G instance."""
+    from primus_fhe_tpu_torch.ops import build, cmux_front, rotate
+
+    out = {}
+    for label, (fn, bound_ms, rows) in front_calls(torch, dev).items():
+        ms = device_ms(torch, fn)
+        out[f"cmux_front@{label}"] = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms}
+        if hasattr(cmux_front, "launch_grid"):  # an older checkout launches a block a row
+            out[f"cmux_front@{label}"]["grid"] = cmux_front.launch_grid(rows, 11)
+    g = torch.Generator(device=dev).manual_seed(2034)
+    v = torch.randint(0, 1 << 32, (64, 2, 2048), generator=g, device=dev).to(torch.int32)
+    deg = torch.randint(-8192, 8193, (64,), generator=g, device=dev, dtype=torch.int32)
+    out["rotate@64x2"] = {"ms": device_ms(torch, lambda: rotate.rotate(v, deg))}
     out["empty kernel"] = {"ms": device_ms(torch, lambda: torch.cuda._sleep(1))}
+    log = build.build()[2]
+    out["ptxas"] = {re.sub(r"_ZN12_GLOBAL__N_1\d+", "", k): v for k, v in (
+        build.ptxas_figures(log) if hasattr(build, "ptxas_figures") else {}).items()
+        if "cmux_front_kernel" in k}
     return out
+
+
+def stamp_front(src: Path) -> None:
+    """clock64() laps of thread 0 of block 0 of kernel G in its group mode:
+    the degree's arrival, the window and own loads' (the diff ready), the
+    digits and lifts of each store and each store's issue (summed over the
+    kp L stores); its total cycles; the launch's span on the global timer;
+    a C entry ``pft_read_g_laps`` that reads them and resets the span."""
+    text = src.read_text()
+    head = ("__device__ long long pft_g_laps[5];\n"
+            "__device__ unsigned long long pft_g_gt[2] = {~0ull, 0ull};\n"
+            "#define PFT_G_LAP(k) if (pft_on) { const long long t1 = clock64(); "
+            "pft_acc[k] += t1 - pft_t; pft_t = t1; }\n")
+    degree = ("    const int row = (int)(it >> lg), c = (int)(it & ((1 << lg) - 1)) << 2;\n"
+              "    const int d = __ldg(a.degrees + ciphertext_of(row, a)) & (2 * n - 1);  // mod 2n, "
+              "any sign\n")
+    diff = "    const uint32_t diff[4] = {r.x - own.x, r.y - own.y, r.z - own.z, r.w - own.w};\n"
+    store = ("        store4(o + pi * plane, make_uint4(lift_signed(digit[0], p), "
+             "lift_signed(digit[1], p),\n"
+             "                                          lift_signed(digit[2], p), "
+             "lift_signed(digit[3], p)));\n      }\n    }\n")
+    for anchor in (degree, diff, store):
+        if text.count(anchor) != 1:
+            raise SystemExit(f"cmux_mxu_timing: {src.name} changed near {anchor.strip()!r}")
+    text = text.replace(degree, (
+        "    const bool pft_on = blockIdx.x == 0 && threadIdx.x == 0;\n"
+        "    long long pft_acc[4] = {0, 0, 0, 0};\n"
+        "    long long pft_t = clock64();\n    const long long pft_t0 = pft_t;\n"
+        "    unsigned long long pft_g0;\n"
+        "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g0));\n")
+        + degree + "    if (d >= 0) { PFT_G_LAP(0) }  // d has arrived\n")
+    text = text.replace(diff, diff + "    if ((diff[0] | 1) != 0) { PFT_G_LAP(1) }\n")
+    text = text.replace(store, (
+        "        const uint4 pft_v = make_uint4(lift_signed(digit[0], p), "
+        "lift_signed(digit[1], p),\n"
+        "                                       lift_signed(digit[2], p), "
+        "lift_signed(digit[3], p));\n"
+        "        if ((pft_v.x | 1) != 0) { PFT_G_LAP(2) }\n"
+        "        store4(o + pi * plane, pft_v);\n        PFT_G_LAP(3)\n"
+        "      }\n    }\n"
+        "    if (pft_on) {\n      for (int k = 0; k < 4; ++k) pft_g_laps[k] = pft_acc[k];\n"
+        "      pft_g_laps[4] = clock64() - pft_t0;\n    }\n"
+        "    if (threadIdx.x == 0) {\n      unsigned long long pft_g1;\n"
+        "      asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g1));\n"
+        "      atomicMin(&pft_g_gt[0], pft_g0);\n      atomicMax(&pft_g_gt[1], pft_g1);\n"
+        "    }\n"))
+    text = text.replace("namespace {\n", head + "namespace {\n", 1)
+    reader = ("int pft_read_g_laps(void* laps, void* gt) {\n"
+              "  cudaError_t e = cudaMemcpyFromSymbol(laps, pft_g_laps, sizeof(pft_g_laps));\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_g_gt, 16);\n"
+              "  const unsigned long long reset[2] = {~0ull, 0ull};\n"
+              "  if (e == cudaSuccess) e = cudaMemcpyToSymbol(pft_g_gt, reset, 16);\n"
+              "  return (int)e;\n}\n")
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + reader, 1)
+    src.write_text(text)
+
+
+def stamp_front_grids(src: Path, write_back: bool) -> None:
+    """Adds to kernel G's C entry a block size set from outside the launch
+    (``pft_g_force(T)``, 0 for the launch's own); with ``write_back``, G's
+    16-byte stores are write-back stores in place of streaming ones
+    (``st.global.cs``)."""
+    text = src.read_text()
+    pick = "  const FrontLaunch f = front_pick(a.rows, log_n, ((uintptr_t)acc & 15) == 0);\n"
+    store = "  __stcs(reinterpret_cast<uint4*>(p), v);\n"
+    for anchor in (pick, store):
+        if text.count(anchor) != 1:
+            raise SystemExit(f"cmux_mxu_timing: {src.name} changed near {anchor.strip()!r}")
+    text = text.replace(pick, pick.replace("const FrontLaunch", "FrontLaunch") + (
+        "  if (pft_g_t > 0) {\n"
+        "    f.grid = (f.grid * f.threads + pft_g_t - 1) / pft_g_t;\n"
+        "    f.threads = pft_g_t;\n  }\n"))
+    if write_back:
+        text = text.replace(store, "  *reinterpret_cast<uint4*>(p) = v;\n")
+    text = text.replace("namespace {\n", "int pft_g_t = 0;\nnamespace {\n", 1)
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\nint pft_g_force(int t) {\n'
+                        '  pft_g_t = t;\n  return 0;\n}\n', 1)
+    src.write_text(text)
+
+
+def front_grids(torch, dev) -> dict:
+    """In a ``--front --grids`` copy: kernel G at each shape on every block
+    size of :data:`FRONT_THREADS`, each checked against the launch's own
+    words."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build, cmux_front
+
+    force = build.library().pft_g_force
+    force.argtypes = [ctypes.c_int]
+    out = {}
+    for label, (fn, bound_ms, rows) in front_calls(torch, dev).items():
+        force(0)
+        want = fn()
+        row = {"own": cmux_front.launch_grid(rows, 11), "own_ms": device_ms(torch, fn),
+               "bound_ms": bound_ms}
+        for t in FRONT_THREADS:
+            force(t)
+            if not torch.equal(fn(), want):
+                raise SystemExit(f"{label} T {t}: words differ")
+            row[f"T{t}"] = device_ms(torch, fn)
+        force(0)
+        out[f"cmux_front@{label}"] = row
+    return out
+
+
+def front_stamps(torch, dev) -> dict:
+    """In a ``--front --phases`` copy: block 0's thread 0 cycles of kernel G
+    at each shape, one group (:func:`stamp_front`)."""
+    def names(laps):
+        return {**{k: laps[i] for i, k in enumerate(
+            ("degree", "windows + own", "digits + lifts", "store issue"))},
+            "total_cycles": laps[4]}
+
+    calls = {f"cmux_front@{label}": fn for label, (fn, *_) in front_calls(torch, dev).items()}
+    return read_laps(torch, "pft_read_g_laps", 5, calls, names)
 
 
 def stamp_keyprep(src: Path) -> None:
@@ -941,8 +1118,7 @@ def stamp_rotate(src: Path) -> None:
     begin = "  const int count = min(a.block_rows, a.total - r0);\n"
     degree = ("        __ldg(a.degrees + min(r0 + (int)(threadIdx.x >> lg), a.total - 1) / a.rows), "
               "n);\n")
-    end = ("      *reinterpret_cast<uint4*>(a.out + row * a.out_stride + c) = make_uint4(v[0], v[1], "
-           "v[2], v[3]);\n    }\n")
+    end = "      *reinterpret_cast<uint4*>(a.out + row * a.out_stride + c) = v;\n    }\n"
     for anchor in (begin, degree, end):
         if text.count(anchor) != 1:
             raise SystemExit(f"cmux_mxu_timing: {src.name} changed near {anchor.strip()!r}")
@@ -1924,7 +2100,7 @@ def rotations(torch, dev) -> dict:
 def run_here(stamps: bool, ntt_only: bool = False, ntt32_only: bool = False,
              ntt64_only: bool = False, split_only: bool = False,
              stages_only: bool = False, keyprep_only: bool = False,
-             rotate_only: bool = False) -> dict:
+             rotate_only: bool = False, front_only: bool = False) -> dict:
     import torch
 
     if not torch.cuda.is_available():
@@ -1936,6 +2112,9 @@ def run_here(stamps: bool, ntt_only: bool = False, ntt32_only: bool = False,
         return result
     if rotate_only:
         result["rotate"] = rotate_times(torch, dev)
+        return result
+    if front_only:
+        result["front"] = front_times(torch, dev)
         return result
     if split_only:
         result["split"] = split_times(torch, dev)
@@ -2355,19 +2534,21 @@ def main() -> None:
     ap.add_argument("--stages", action="store_true", help="row 11's stage kernels only")
     ap.add_argument("--keyprep", action="store_true", help="kernel C and kernel 1 at C's shapes")
     ap.add_argument("--rotate", action="store_true", help="kernel F at its paths' shapes")
+    ap.add_argument("--front", action="store_true", help="kernel G at its three shapes")
     ap.add_argument("--grids", action="store_true", help="the byte-radix kernels on every grid")
     ap.add_argument("--stamps", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
-        if args.stamps and (args.keyprep or args.rotate):
+        if args.stamps and (args.keyprep or args.rotate or args.front):
             import torch
 
             dev = torch.device("cuda", 0)
             if args.grids:
-                res = {"grids": keyprep_grids(torch, dev)}
+                res = {"grids": (keyprep_grids if args.keyprep else front_grids)(torch, dev)}
             else:
-                res = {"cycles": (keyprep_stamps if args.keyprep else rotate_stamps)(torch, dev)}
+                res = {"cycles": (keyprep_stamps if args.keyprep else rotate_stamps
+                                  if args.rotate else front_stamps)(torch, dev)}
             print(json.dumps(res), flush=True)
             return
         if args.stamps and args.stages:
@@ -2404,9 +2585,27 @@ def main() -> None:
             print(json.dumps(res), flush=True)
             return
         print(json.dumps(run_here(args.stamps, args.ntt, args.ntt32, args.ntt64, args.split,
-                                  args.stages, args.keyprep, args.rotate)), flush=True)
+                                  args.stages, args.keyprep, args.rotate, args.front)),
+              flush=True)
         return
     print(card(), flush=True)
+    if args.front and (args.grids or args.phases):
+        runs = {}
+        for tag, stamp in ((("front_phases", stamp_front),) if args.phases else
+                           (("front_grids", lambda src: stamp_front_grids(src, False)),
+                            ("front_grids_wb", lambda src: stamp_front_grids(src, True)))):
+            root = HERE / ".proof" / tag
+            shutil.rmtree(root, ignore_errors=True)
+            shutil.copytree(HERE / "primus_fhe_tpu_torch", root / "primus_fhe_tpu_torch",
+                            ignore=shutil.ignore_patterns("build", "__pycache__"))
+            stamp(root / "primus_fhe_tpu_torch" / "csrc" / "cmux_front.cu")
+            res = subprocess_run(root, "--stamps", "--front",
+                                 "--phases" if args.phases else "--grids")
+            for key, row in res["cycles" if args.phases else "grids"].items():
+                print(tag, key, json.dumps(row), flush=True)
+            runs[tag] = res
+        print(json.dumps({"card": card(), **runs}), flush=True)
+        return
     if (args.keyprep and args.grids) or ((args.keyprep or args.rotate) and args.phases):
         tag = "keyprep" if args.keyprep else "rotate"
         kind = "grids" if args.grids else "phases"
@@ -2501,12 +2700,14 @@ def main() -> None:
     if args.compare is None:
         sys.path.insert(0, str(HERE))
         print(json.dumps(run_here(False, args.ntt, args.ntt32, args.ntt64, args.split,
-                                  args.stages, args.keyprep, args.rotate)), flush=True)
+                                  args.stages, args.keyprep, args.rotate, args.front)),
+              flush=True)
         return
     runs = []
     extra = (("--ntt",) if args.ntt else ("--ntt32",) if args.ntt32 else ("--ntt64",)
              if args.ntt64 else ("--split",) if args.split else ("--stages",) if args.stages
-             else ("--keyprep",) if args.keyprep else ("--rotate",) if args.rotate else ())
+             else ("--keyprep",) if args.keyprep else ("--rotate",) if args.rotate
+             else ("--front",) if args.front else ())
     for side, root in (("old", args.compare), ("new", HERE), ("new", HERE), ("old", args.compare)):
         res = subprocess_run(root, *extra)
         res["side"] = side
@@ -2559,10 +2760,11 @@ def main() -> None:
                                         if r["side"] == side]
                                     for k in runs[0]["stages"] if "coeff trip" in k}
                              for side in ("old", "new")}
-    for tag in ("keyprep", "rotate"):  # new / old per shape; C over kernel 1 on each side
+    for tag in ("keyprep", "rotate", "front"):  # new / old per shape; C over kernel 1 on each side
         if tag not in runs[0]:
             continue
-        m = mean(tag, lambda r, tag=tag: {k: v["ms"] for k, v in r[tag].items() if "ms" in v})
+        m = mean(tag, lambda r, tag=tag: {k: v["ms"] for k, v in r[tag].items()
+                                          if isinstance(v, dict) and "ms" in v})
         m["new_over_old"] = {k: m["new"][k] / m["old"][k] for k in m["new"]}
         m["share_new"] = {k: runs[1][tag][k]["bound_ms"] / m["new"][k] for k in m["new"]
                           if "bound_ms" in runs[1][tag][k]}
@@ -2570,9 +2772,13 @@ def main() -> None:
             m["c_over_kernel1"] = {side: {label: m[side][f"mxu8_forward32@{label}"]
                                           / m[side][f"forward32@{label}"]
                                           for label, *_ in KEYPREP_SHAPES} for side in ("old", "new")}
-        else:
+        elif tag == "rotate":
             m["launches"] = {r["side"]: {k: v.get("launches") for k, v in r[tag].items()
                                          if "launches" in v} for r in runs[:2]}
+        else:  # G's launch and ptxas figures on each side
+            m["grid"] = {r["side"]: {k: v.get("grid") for k, v in r[tag].items()
+                                     if k.startswith("cmux_front@")} for r in runs[:2]}
+            m["ptxas"] = {r["side"]: r[tag]["ptxas"] for r in runs[:2]}
         old_regs, new_regs = ptxas_registers(args.compare), ptxas_registers(HERE)
         m["registers_changed"] = {k: [old_regs.get(k), new_regs.get(k)]
                                   for k in sorted(set(old_regs) | set(new_regs))

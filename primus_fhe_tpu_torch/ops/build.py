@@ -57,6 +57,7 @@ _SIGNATURES = {
     "pft_ntt_mxu8_inverse64_mul": (_P,) * 7 + (_I,) * 4 + (_P,),
     "pft_rotate": (_P, _I64, _P, _P, _I64, _I, _I, _I, _I, _P),
     "pft_cmux_front": (_P,) * 5 + (_I,) * 4 + (_P,),
+    "pft_cmux_front_grid": (_I,) * 3 + (_P,),
     "pft_ntt32_stages_forward": (_P,) * 4 + (_I,) * 4 + (_P,),
     "pft_ntt32_stages_inverse": (_P,) * 4 + (_I,) * 3 + (_P,),
     "pft_ntt64_stages_forward": (_P,) * 4 + (_U64,) + (_I,) * 3 + (_P,),
@@ -150,6 +151,29 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().pft_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def ptxas_figures(log: str) -> dict:
+    """``{kernel: {"registers", "stack", "spill_stores", "spill_loads"}}``
+    (bytes but for the registers) of each entry function in a build log's
+    ``ptxas -v`` lines, under its mangled name."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name is None:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                            r"spill loads", line):
+            out[name].update(zip(("stack", "spill_stores", "spill_loads"), map(int, m.groups())))
+        elif m := re.search(r"Used (\d+) registers", line):
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
 
 
 def ptr(t) -> int:

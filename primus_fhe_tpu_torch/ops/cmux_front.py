@@ -2,12 +2,18 @@
 digits -> centered lift mod each prime, without the NTT.
 
 Replaces ``pallas_cmux_front`` (``primus_fhe_tpu/ops/cmux_pallas.py:74``).
-One block per accumulator row (ciphertext, component): the rotation is index
-arithmetic plus a sign, one carry chain per coefficient gives the digits of
-every level, and each digit is lifted mod every prime and written out.  It
-runs the device functions of the fused CMux step (``csrc/modarith32.cuh``),
-which feeds the same front end into its forward NTTs.  CUDA source:
-``csrc/cmux_front.cu``.  Its caller is :func:`..lattice.tfhe.cmux_delta`.
+A thread takes a group of 4 coefficients of a row: kernel F's rotation
+window (two aligned 16-byte loads, one sign each) less the group's own
+16-byte load, four carry chains side by side giving the digits of every
+level, and each level's 4 digits lifted mod each prime and written as one
+streaming 16-byte store (kp L stores a group; kp is compiled in, so the
+primes' constants stay in the parameter bank).  The grid is flat over the
+groups, 128 threads a block (:func:`launch_grid` reads the C entry's
+rule); rows under 4 words or a source off 16-byte alignment take a
+coefficient a thread.  It runs the device functions of the fused CMux step
+(``csrc/modarith32.cuh``), which feeds the same front end into its forward
+NTTs.  CUDA source: ``csrc/cmux_front.cu``.  Its caller is
+:func:`..lattice.tfhe.cmux_delta`.
 """
 
 from __future__ import annotations
@@ -29,6 +35,18 @@ def _lift_pack(primes: tuple) -> np.ndarray:
     per prime ``q, 0, 0, 0, 0, 2^32 mod q, floor(2^64 / q)``."""
     return np.array([[p, 0, 0, 0, 0, (1 << 32) % p, (1 << 64) // p] for p in primes],
                     dtype=np.uint64).reshape(-1)
+
+
+def launch_grid(rows: int, log_n: int, aligned: bool = True) -> tuple[int, int, int]:
+    """``(groups, threads a block, blocks)`` of kernel G's launch on
+    ``rows`` rows of ``2^log_n`` words: groups 1 for a thread a group of 4
+    words, 0 for a thread a coefficient (the C entry's own rule)."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    err = build.library().pft_cmux_front_grid(rows, log_n, int(aligned), ctypes.addressof(out))
+    build.check(err, "pft_cmux_front_grid")
+    return tuple(out)
 
 
 def cmux_front_plain(acc: torch.Tensor, degrees: torch.Tensor, basis, primes) -> torch.Tensor:

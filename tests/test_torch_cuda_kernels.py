@@ -24,7 +24,10 @@ key preparations' 2 x 7560 and 4200 rows (and its refusal of log_n 7 and
 13); a BOOLEAN_128 bootstrap on the MXU key against the CPU; kernel F on
 broadcast, contiguous and strided rows into new rows and ``out=`` views at
 log_n 1-16; kernels F and G at N 32-2048, degrees of any sign, both
-gadgets, and ``cmux_delta`` against kernels 3-4; the four stage kernels of the
+gadgets, and ``cmux_delta`` against kernels 3-4; kernel G at log_n 1-3,
+11, 12 and 16, 1-4 primes, L = 3 and 12, int32 and int64 storage and a
+source off 16-byte alignment, its launch rule and its ptxas figures (no
+stack, no spill); the four stage kernels of the
 coefficient-sharded NTT at log_n 9-17 over 2-8 shards (u32, 50- and 62-bit
 u64, every ``out_factor`` and both ``in_factor``s, the input range's extreme
 words; the u64 pair at log_w 15-16 on batches 1, 3, 8), row 13's split
@@ -680,6 +683,55 @@ def test_cmux_front_and_delta_match_plain(dev, log_n, log_basis, level, k):
     assert torch.equal((acc + delta) & 0xFFFFFFFF, step)
     cpu = tfhe.cmux_delta(conv, basis, acc.cpu(), degrees.cpu(), key.cpu())
     assert torch.equal(delta.cpu(), cpu)
+
+
+@pytest.mark.parametrize("log_n", [1, 2, 3, 11, 12, 16])
+@pytest.mark.parametrize("kp", [1, 2, 3, 4])
+def test_cmux_front_kernel_matches_plain(dev, log_n, kp):
+    """Kernel G's groups (log_n >= 2, a source on 16 bytes) and its
+    coefficient-a-thread path (log_n 1, a source 4 bytes off alignment)
+    against the plain version: 1-4 primes passed directly, k1 = kp rows a
+    ciphertext, the 2^8 x 3 and 2^1 x 12 gadgets, int64 and int32 storage,
+    degrees of either sign in [-4n, 4n]."""
+    n = 1 << log_n
+    primes = PRIMES4[:kp]
+    bsz, k1 = (5 if log_n <= 12 else 2), kp
+    gen = torch.Generator(device=dev).manual_seed(300 + 8 * log_n + kp)
+    acc = torch.randint(0, 1 << 32, (bsz, k1, n), generator=gen, device=dev)
+    degrees = torch.randint(-4 * n, 4 * n + 1, (bsz,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    degrees[:2] = torch.tensor([-4 * n, 4 * n], dtype=torch.int32)
+    flat = torch.empty(acc.numel() + 1, dtype=torch.int32, device=dev)
+    off = flat[1:].view(bsz, k1, n)
+    off.copy_(acc.to(torch.int32))
+    assert off.data_ptr() % 16 == 4
+    for log_basis, level in ((8, 3), (1, 12)):
+        basis = ApproxSignedBasis32(None, log_basis, reverse_length=level)
+        want = cmux_front.cmux_front_plain(acc, degrees, basis, primes)
+        assert want.shape == (kp, bsz, k1, level, n)
+        assert torch.equal(cmux_front.cmux_front(acc, degrees, basis, primes), want)
+        got32 = cmux_front.cmux_front(acc.to(torch.int32), degrees, basis, primes)
+        assert got32.dtype == torch.int32
+        assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want)
+        got_off = cmux_front.cmux_front(off, degrees, basis, primes)
+        assert torch.equal(got_off.to(torch.int64) & 0xFFFFFFFF, want)
+
+
+def test_cmux_front_launch_rule_and_ptxas(dev):
+    """Kernel G's launch rule (``front_pick``) at the main path's shapes, and
+    ptxas's figures for every instance: no stack frame, no spill."""
+    from primus_fhe_tpu_torch.ops import build
+
+    assert cmux_front.launch_grid(128, 11) == (1, 128, 512)  # phase 13's 64 x 2 rows
+    assert cmux_front.launch_grid(2, 11) == (1, 128, 8)  # batch 1
+    assert cmux_front.launch_grid(2048, 11) == (1, 128, 8192)
+    assert cmux_front.launch_grid(128, 11, aligned=False) == (0, 128, 2048)
+    assert cmux_front.launch_grid(5, 1) == (0, 128, 1)
+    figures = {k: v for k, v in build.ptxas_figures(build.build()[2]).items()
+               if "cmux_front_kernel" in k}
+    assert len(figures) == 8, figures  # kp 1-4, groups or words
+    for name, f in figures.items():
+        assert f["stack"] == f["spill_stores"] == f["spill_loads"] == 0, (name, f)
 
 
 def _with_extremes(x, q, factor):
