@@ -120,7 +120,17 @@ non-zero):
     single-card one, with launch counts and ms;
 18. the 64-bit torus external product at N = 2048, k = 1, gadget 2^16 x 4:
     GGSW(1) gives full-range words back, GGSW(X^3) the negacyclic shift, and a
-    random key's product equals the CPU plain versions'; launches and ms.
+    random key's product equals the CPU plain versions'; launches and ms;
+19. circuit bootstrapping at BOOLEAN_128 width on phase 3's NTT key: the two
+    private KSKs (2^7 x 3) made on the card (seconds, MB); for a fresh LWE of
+    each bit, ``circuit_bootstrap`` (a GGSW at 2^3 x 3), ``ggsw_to_ntt`` and
+    one ``leveled_mux`` of two GLWEs carrying 2048 random bits: every
+    coefficient decrypts to the selected input, the phase error's std and
+    maximum beside the noise model's prediction, exact launch counts; the
+    bit-1 circuit bootstrap on the CPU (the same words); 64 fresh LWEs packed
+    into one GLWE by ``pack_lwes``, decrypted; ms of a circuit bootstrap (its
+    bootstraps and its private switches, each switch against its byte
+    bound), of a ``leveled_mux`` and of a ``pack_lwes``.
 
 The line before the last is the kernel table as JSON (every kernel with its
 launches on its main path, its time, its plain version's time and its bound,
@@ -131,6 +141,7 @@ the least time the card could take for the same work); the last line is
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1557,6 +1568,235 @@ def phase18_torus64(torch, dev, p) -> dict:
     return counts
 
 
+CB_LOG_BASIS, CB_LEVEL = 3, 3  # phase 19: the leveled-MUX gadget (B_cb, L_cb) of the GGSW
+PRIV_LOG_BASIS, PRIV_LEVEL = 7, 3  # the private functional switches' gadget
+PACK_LOG_BASIS, PACK_LEVEL = 7, 3  # the packing switch's gadget
+PACK_COUNT = 64
+CB_CPU_BUDGET_S = 90  # the cpu cross-check takes every level when they fit this
+TFHE_NOISE_RECORD = 448683.05828684  # NOISE_CHECK_r05.json measured_std: a bootstrap's output
+
+
+def cb_mux_noise_stddev(p, pbs_std: float, basis_priv, basis_cb) -> float:
+    """Predicted stddev (torus units) of the phase error of a leveled MUX on
+    a circuit-bootstrapped GGSW at profile ``p``, by ``noise.py``'s model:
+
+    - a GGSW row is a bootstrap output (``pbs_std``) through a private
+      functional switch (``noise.key_switch`` over ``n_ext + 1 = kN + 1``
+      inputs): the KSK term ``(n_ext+1) L_priv B_priv^2/12 sigma^2`` (~2^13.2
+      at 2^7 x 3) and the dropped bits (~2^14.2) beside the bootstrap's
+      ~2^18.8, which dominates;
+    - the MUX is one external product by that GGSW over the selected input's
+      fresh noise (``noise.external_product``): ``(k+1) L_cb N B_cb^2/12
+      sigma_ggsw^2`` (~2^26.8 at 2^3 x 3) and the dropped bits ``(k+1) N
+      eps^2/12 / 2`` (~2^26.7), ~2^27.2 in all against the 2^30 margin of
+      bits at 2^31 (about 7 sigma).
+    """
+    from primus_fhe_tpu_torch import noise
+
+    ggsw = noise.key_switch(noise.NoiseEstimate(pbs_std**2), p.glwe_sigma, p.glwe_dim * p.n + 1,
+                            basis_priv.decompose_length, basis_priv.log_basis,
+                            basis_priv.drop_bits)
+    return noise.external_product(noise.NoiseEstimate(p.glwe_sigma**2), ggsw.stddev, p.n,
+                                  p.glwe_dim, basis_cb.decompose_length, basis_cb.log_basis,
+                                  basis_cb.drop_bits).stddev
+
+
+def phase19_circuit_bootstrap(torch, dev, ctx, smi, cpu_boot_s, reset_counts, read_counts) -> dict:
+    """Phase 19: circuit bootstrapping (LWE bit -> GGSW) and the leveled MUX
+    at BOOLEAN_128 width on phase 3's NTT key, and the packing switch of 64
+    LWEs.  Returns the launch counts of the circuit-bootstrap path (both
+    bits: the circuit bootstrap, ``ggsw_to_ntt`` and one ``leveled_mux``)."""
+    import copy
+
+    from primus_fhe_tpu_torch import noise
+    from primus_fhe_tpu_torch.boot import circuit_bootstrap as cb
+    from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap
+    from primus_fhe_tpu_torch.boot.gates import leveled_mux
+    from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
+    from primus_fhe_tpu_torch.distr.sampling import DiscreteGaussian
+    from primus_fhe_tpu_torch.lattice import glwe, glwe_keyswitch, tfhe
+    from primus_fhe_tpu_torch.lattice.lwe import encrypt_torus32, phase_torus32
+    from primus_fhe_tpu_torch.transforms.torus import TorusConvolver32
+
+    p, conv = ctx.params, ctx.conv
+    n, k, n_lwe = p.n, p.glwe_dim, p.lwe_dim
+    k1, n_ext = k + 1, k * n
+    mask = 0xFFFFFFFF
+    basis_cb = ApproxSignedBasis32(None, CB_LOG_BASIS, reverse_length=CB_LEVEL)
+    basis_priv = ApproxSignedBasis32(None, PRIV_LOG_BASIS, reverse_length=PRIV_LEVEL)
+    # the bootstrap's convolver also serves the private switches (constant
+    # polynomials: n_ext + 1 inputs, no factor N) and the MUX: |V| < P/8
+    for what, bits in (
+            ("private switch", tfhe.external_product_bound_bits(1, PRIV_LEVEL, n_ext,
+                                                                PRIV_LOG_BASIS)),
+            ("leveled MUX", tfhe.external_product_bound_bits(n, CB_LEVEL, k, CB_LOG_BASIS))):
+        if bits + 3 >= conv.product.bit_length():
+            raise AssertionError(f"the convolver's primes do not cover the {what} ({bits} bits)")
+    model_pbs = noise.blind_rotate(n_lwe, p.glwe_sigma, n, k, p.level, p.log_basis,
+                                   ctx.basis.drop_bits).stddev
+    mux_model = lambda pbs: cb_mux_noise_stddev(p, pbs, basis_priv, basis_cb)  # noqa: E731
+    predicted = mux_model(TFHE_NOISE_RECORD)
+    log(f"[{smi}] N={n} k={k} n_lwe={n_lwe}; PBS gadget 2^{p.log_basis} x {p.level}, leveled-MUX "
+        f"gadget 2^{CB_LOG_BASIS} x {CB_LEVEL}, private switch 2^{PRIV_LOG_BASIS} x {PRIV_LEVEL}, "
+        f"convolver primes {conv.primes}; predicted MUX phase-error std {predicted:.4g} "
+        f"(2^{math.log2(predicted):.2f}) from the bootstrap noise record (2^"
+        f"{math.log2(TFHE_NOISE_RECORD):.2f}), {mux_model(model_pbs):.4g} (2^"
+        f"{math.log2(mux_model(model_pbs)):.2f}) from the model's (2^"
+        f"{math.log2(model_pbs):.2f}); margin 2^30")
+    glwe_gauss = DiscreteGaussian(p.glwe_sigma)
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    minus_x = torch.zeros(n, dtype=torch.int64, device=dev)
+    minus_x[0] = mask
+    functions = [(f"mask row {j}, f = s_{j} x", ctx.glwe_secret[j]) for j in range(k)]
+    functions.append(("body row, f = -x", minus_x))
+    ksks = []
+    for label, f in functions:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ksks.append(cb.make_private_functional_ksk(f, ctx.glwe_secret.reshape(-1),
+                                                   ctx.glwe_secret, basis_priv, glwe_gauss, conv,
+                                                   g))
+        torch.cuda.synchronize()
+        log(f"private KSK ({label}): {tuple(ksks[-1].shape)}, {ksks[-1].numel() * 8 / 1e6:.1f} MB "
+            f"of int64 words, made on the card in {time.perf_counter() - t0:.3f} s")
+
+    cts = encrypt_torus32(torch.tensor([0, 1], device=dev) << 31, ctx.lwe_secret, ctx.gaussian, g)
+    x_bits = torch.randint(0, 2, (n,), generator=g, device=dev)
+    y_bits = torch.randint(0, 2, (n,), generator=g, device=dev)
+    cx = glwe.encrypt_torus(x_bits << 31, ctx.glwe_secret, glwe_gauss, conv, g)
+    cy = glwe.encrypt_torus(y_bits << 31, ctx.glwe_secret, glwe_gauss, conv, g)
+    cb_args = (conv, ctx.basis, ctx.bsk, conv, basis_cb, basis_priv, ksks)
+
+    def cb_path(ct):
+        ggsw = cb.circuit_bootstrap(*cb_args, ct, p.log_n)
+        ggsw_ntt = tfhe.ggsw_to_ntt(conv, ggsw)
+        return ggsw, ggsw_ntt, leveled_mux(conv, basis_cb, ggsw_ntt, cx, cy)
+
+    reset_counts()
+    runs = [cb_path(cts[b]) for b in (0, 1)]
+    counts = read_counts()
+    log(f"launches of both bits' circuit bootstrap, ggsw_to_ntt and leveled_mux: "
+        f"{json.dumps(counts)}")
+    want = {"fused_cmux_step": 2 * CB_LEVEL * n_lwe, "rotate": 2 * CB_LEVEL,
+            "inverse32": 2 * (k1 * CB_LEVEL + 1), "forward32": 2 * 2}
+    for name, c in counts.items():
+        if c != want.get(name, 0):
+            raise AssertionError(f"{name}: {c} launches on the circuit-bootstrap path, want "
+                                 f"{want.get(name, 0)}")
+    log(f"exact: fused_cmux_step {CB_LEVEL} x {n_lwe} a circuit bootstrap, rotate {CB_LEVEL} (one a "
+        f"bootstrap), inverse32 {k1} x {CB_LEVEL} (one a private switch) + 1 (the MUX), "
+        f"forward32 1 (ggsw_to_ntt) + 1 (the MUX's digits), each per bit")
+
+    errors = []
+    for bit, (ggsw, _, out) in enumerate(runs):
+        if ggsw.shape != (k1, CB_LEVEL, k1, n):
+            raise AssertionError(f"GGSW shape {tuple(ggsw.shape)}")
+        sel = x_bits if bit else y_bits
+        ph = glwe.phase_torus(out, ctx.glwe_secret, conv)
+        got = ((ph + (1 << 30)) >> 31) & 1
+        bad = int((got != sel).sum())
+        if bad:
+            raise AssertionError(f"MUX on the bit-{bit} GGSW: {bad} of {n} coefficients wrong")
+        err = (ph - (sel << 31)) & mask
+        errors.append(torch.where(err >= 1 << 31, err - (1 << 32), err))
+        log(f"bit {bit}: the MUX selects {'x' if bit else 'y'} on all {n} coefficients")
+    err = torch.cat(errors).double()
+    std = err.std().item()
+    log(f"[{smi}] MUX phase error over {err.numel()} coefficients: std {std:.4g} "
+        f"(2^{math.log2(std):.2f}), max |e| {err.abs().max().item():.4g} "
+        f"(2^{math.log2(err.abs().max().item()):.2f}); predicted std {predicted:.4g} "
+        f"(2^{math.log2(predicted):.2f}); measured / predicted {std / predicted:.3f}")
+
+    # the bootstrap output noise under the GGSW rows, measured as
+    # NOISE_CHECK_r05.json was: 256 sign bootstraps, no key switch
+    pbs_bits = torch.randint(0, 2, (256,), generator=g, device=dev)
+    pbs_out = bootstrap(conv, ctx.basis, ctx.bsk, ctx.encrypt(pbs_bits, g),
+                        torch.full((n,), 1 << 28, dtype=torch.int64, device=dev), p.log_n)
+    pbs_err = (phase_torus32(pbs_out, ctx.glwe_secret.reshape(-1))
+               - torch.where(pbs_bits.bool(), 1 << 28, -(1 << 28))) & mask
+    pbs_std = torch.where(pbs_err >= 1 << 31, pbs_err - (1 << 32), pbs_err).double().std().item()
+    log(f"bootstrap output noise over {pbs_bits.numel()} sign bootstraps (no key switch): std "
+        f"{pbs_std:.4g} (2^{math.log2(pbs_std):.2f}); record 2^{math.log2(TFHE_NOISE_RECORD):.2f}, "
+        f"model 2^{math.log2(model_pbs):.2f}; the MUX model on the measured std: "
+        f"{mux_model(pbs_std):.4g} (2^{math.log2(mux_model(pbs_std)):.2f})")
+
+    # the same circuit bootstrap on the cpu (the kernels' plain versions)
+    full = CB_LEVEL * cpu_boot_s <= CB_CPU_BUDGET_S
+    basis_cpu = basis_cb
+    if not full:  # the first level: the same call with one gadget scalar
+        basis_cpu = copy.copy(basis_cb)
+        basis_cpu.scalars = basis_cb.scalars[:1]
+    t0 = time.perf_counter()
+    ggsw_cpu = cb.circuit_bootstrap(conv, ctx.basis, ctx.bsk.cpu(), conv, basis_cpu, basis_priv,
+                                    [kk.cpu() for kk in ksks], cts[1].cpu(), p.log_n)
+    cpu_s = time.perf_counter() - t0
+    ggsw_gpu = runs[1][0] if full else runs[1][0][:, :1]
+    if not torch.equal(ggsw_gpu.cpu(), ggsw_cpu):
+        raise AssertionError("the circuit bootstrap on cuda and on cpu differ")
+    log(f"circuit bootstrap of bit 1 on cuda and on cpu (keys copied with .cpu()): the same "
+        f"{ggsw_cpu.numel()} words, "
+        + (f"all {CB_LEVEL} levels" if full else
+           f"the first level's bootstrap and its {k1} private switches (all {CB_LEVEL} would take "
+           f"~{CB_LEVEL * cpu_boot_s:.0f} s; the rest checked by decryption above)")
+        + f"; {cpu_s:.2f} s on the cpu")
+
+    # the packing switch: 64 fresh LWEs into one GLWE
+    basis_pack = ApproxSignedBasis32(None, PACK_LOG_BASIS, reverse_length=PACK_LEVEL)
+    pconv = TorusConvolver32(p.log_n, tfhe.external_product_bound_bits(n, PACK_LEVEL, n_lwe,
+                                                                       PACK_LOG_BASIS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pksk = glwe_keyswitch.make_packing_keyswitch_key(ctx.lwe_secret, ctx.glwe_secret, basis_pack,
+                                                     glwe_gauss, pconv, g)
+    torch.cuda.synchronize()
+    pksk_s = time.perf_counter() - t0
+    pbits = torch.randint(0, 2, (PACK_COUNT,), generator=g, device=dev)
+    lwes = encrypt_torus32(pbits << 31, ctx.lwe_secret, ctx.gaussian, g)
+    packed = glwe_keyswitch.pack_lwes(pconv, basis_pack, lwes, pksk)
+    want_p = torch.zeros(n, dtype=torch.int64, device=dev)
+    want_p[:PACK_COUNT] = pbits
+    ph = glwe.phase_torus(packed, ctx.glwe_secret, conv)
+    got = ((ph + (1 << 30)) >> 31) & 1
+    if not torch.equal(got, want_p):
+        raise AssertionError(f"pack_lwes: {int((got != want_p).sum())} of {n} coefficients wrong")
+    perr = (ph - (want_p << 31)) & mask
+    perr = torch.where(perr >= 1 << 31, perr - (1 << 32), perr).double()
+    log(f"pack_lwes: {PACK_COUNT} fresh LWEs (bits at 2^31) into one GLWE, gadget "
+        f"2^{PACK_LOG_BASIS} x {PACK_LEVEL}, {pconv.count} primes {pconv.primes}; packing KSK "
+        f"{tuple(pksk.shape)} made in {pksk_s:.3f} s; coefficients 0-{PACK_COUNT - 1} decrypt to "
+        f"the bits and {PACK_COUNT}-{n - 1} to 0; phase error std {perr.std().item():.4g}, max "
+        f"|e| {perr.abs().max().item():.4g}")
+
+    # timings
+    ct1 = cts[1]
+    cb_ms = wall_ms(torch, lambda: cb.circuit_bootstrap(*cb_args, ct1, p.log_n), 3)
+    tp = torch.full((n,), 1 << 28, dtype=torch.int64, device=dev)
+    boots_ms = wall_ms(torch, lambda: [bootstrap(conv, ctx.basis, ctx.bsk, ct1, tp, p.log_n)
+                                       for _ in range(CB_LEVEL)], 3)
+    big = bootstrap(conv, ctx.basis, ctx.bsk, ct1, tp, p.log_n)
+    switch_ms = [cuda_ms(torch, lambda kk=kk: cb.private_functional_key_switch(
+        conv, basis_priv, big, kk), KERNEL_REPS) for kk in ksks]
+    mux_ms = cuda_ms(torch, lambda: leveled_mux(conv, basis_cb, runs[1][1], cx, cy), KERNEL_REPS)
+    pack_ms = cuda_ms(torch, lambda: glwe_keyswitch.pack_lwes(pconv, basis_pack, lwes, pksk),
+                      KERNEL_REPS)
+    ops = {name: count_host_ops(torch, fn) for name, fn in (
+        ("private switch", lambda: cb.private_functional_key_switch(conv, basis_priv, big, ksks[0])),
+        ("leveled_mux", lambda: leveled_mux(conv, basis_cb, runs[1][1], cx, cy)),
+        ("pack_lwes", lambda: glwe_keyswitch.pack_lwes(pconv, basis_pack, lwes, pksk)))}
+    log(f"host ops a call: {json.dumps(ops)}")
+    ksk_bound = bound(4 * ksks[0].numel())  # the KSK's u32 words read once
+    log(f"[{smi}] one circuit bootstrap: {min(cb_ms):.2f} ms (least of 3, host clock); its "
+        f"{CB_LEVEL} bootstraps {min(boots_ms):.2f} ms (host clock), its {k1 * CB_LEVEL} private "
+        f"switches {CB_LEVEL * sum(switch_ms):.2f} ms (CUDA events, {KERNEL_REPS} runs each)")
+    for (label, _), ms in zip(functions, switch_ms):
+        log(f"[{smi}] private switch ({label}): {ms:.4f} ms a switch against its byte bound "
+            f"{ksk_bound[0]:.4f} ms (the KSK's {ksks[0].numel()} u32 words read once at 3.35 TB/s; "
+            f"stored as int64, twice that), share {ksk_bound[0] / ms:.4f}")
+    log(f"[{smi}] one leveled_mux: {mux_ms:.4f} ms; one pack_lwes of {PACK_COUNT} LWEs: "
+        f"{pack_ms:.4f} ms (CUDA events, {KERNEL_REPS} runs each)")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -1823,11 +2063,11 @@ def main() -> None:
     out_gpu = bootstrap(ctx.conv, ctx.basis, ctx.bsk, ct, tp, p.log_n)
     t0 = time.perf_counter()
     out_cpu = bootstrap(ctx.conv, ctx.basis, ctx.bsk.cpu(), ct.cpu(), tp.cpu(), p.log_n)
-    cpu_s = time.perf_counter() - t0
+    boot_cpu_s = time.perf_counter() - t0
     if not torch.equal(out_gpu.cpu(), out_cpu):
         raise AssertionError("bootstrap on cuda and on cpu differ")
     log(f"{p.lwe_dim} steps: cuda and cpu outputs equal ({out_cpu.numel()} words); "
-        f"cpu plain bootstrap took {cpu_s:.2f} s")
+        f"cpu plain bootstrap took {boot_cpu_s:.2f} s")
 
     # -- phase 6: launch counts of the NTT-key path --------------------------
     log("== phase 6: launch counts of phases 3-4")
@@ -2060,6 +2300,12 @@ def main() -> None:
     log("== phase 18: the 64-bit torus external product at BOOLEAN_128's ring")
     counts_18 = phase18_torus64(torch, dev, p)
 
+    # -- phase 19: circuit bootstrapping ---------------------------------------
+    log("== phase 19: circuit bootstrapping (LWE bit -> GGSW), the leveled MUX and the packing "
+        "switch at BOOLEAN_128 width, NTT key")
+    counts_cb = phase19_circuit_bootstrap(torch, dev, ctx, smi, boot_cpu_s, reset_counts,
+                                          read_counts)
+
     # -- the kernel table -----------------------------------------------------
     # name -> (source, TPU kernel, launches on its main path, the table key of
     # the "ms" shape, the batch of the extra "ms_b" columns or None)
@@ -2130,6 +2376,10 @@ def main() -> None:
                         f"plain_ms_ntru_b{BATCH}": ntru[BATCH][2],
                         f"device_ms_ntru_b{BATCH}": ntru[BATCH][3],
                         f"bound_ms_ntru_b{BATCH}": ntru[BATCH][4][0]})
+        cb_name = {"ntt32_forward": "forward32", "ntt32_inverse": "inverse32",
+                   "fused_cmux_step": "fused_cmux_step", "rotate": "rotate"}.get(name)
+        if cb_name:  # phase 19's circuit bootstrap, ggsw_to_ntt and MUX, both bits
+            row["launches_cb_path"] = counts_cb[cb_name]
         if name in ("ntt32_forward", "ntt32_inverse"):  # phases 17-18's paths
             key = name.replace("ntt32_", "") + "32"
             row.update({"launches_sharded_dcrt32_path": counts_17[key],

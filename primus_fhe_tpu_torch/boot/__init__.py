@@ -1,5 +1,6 @@
 """Blind-rotation bootstrapping and the boolean gates built on it, over the
-torus (TFHE) and mod q (NTRU), and the RNS (DCRT) blind rotation
+torus (TFHE) and mod q (NTRU), circuit bootstrapping (LWE bit -> GGSW,
+:mod:`.circuit_bootstrap`) and the RNS (DCRT) blind rotation
 (:mod:`.dcrt_blind_rotate`)."""
 
 from .blind_rotate import (

@@ -8,6 +8,9 @@ switch back to the input key, so gate outputs feed gates indefinitely.
     AND(c1, c2)  = sign_bootstrap(c1 + c2 - (0, 1/8))
     OR(c1, c2)   = sign_bootstrap(c1 + c2 + (0, 1/8))
     NOT(c)       = (-a, -b)
+
+and the leveled select with an encrypted control,
+``MUX(sel, x, y) = y + (x - y) ⊡ GGSW(sel)``.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..lattice.keyswitch import key_switch
+from ..lattice.tfhe import external_product
 from ..numeric.limb import MASK32
 from .blind_rotate import bootstrap
 
@@ -51,3 +55,11 @@ def or_gate(conv, basis, bsk, ksk, ks_basis, c1, c2, log_n: int):
 def not_gate(c):
     """NOT is free: negate the whole sample."""
     return (-c) & MASK32
+
+
+def leveled_mux(conv, basis, ggsw_ntt, cx, cy):
+    """Leveled select ``y + (x - y) ⊡ GGSW(sel)`` of GLWE ciphertexts
+    ``cx``, ``cy`` ``(B..., k+1, N)`` under one key; ``ggsw_ntt (kp, k+1,
+    L, k+1, N)`` typically from :func:`.circuit_bootstrap.circuit_bootstrap`
+    and :func:`..lattice.tfhe.ggsw_to_ntt` (an encrypted bit)."""
+    return (cy + external_product(conv, basis, (cx - cy) & MASK32, ggsw_ntt)) & MASK32

@@ -36,6 +36,12 @@ def make_convolver(n_log: int, level: int, k: int, log_basis: int) -> TorusConvo
     return TorusConvolver32(n_log, external_product_bound_bits(1 << n_log, level, k, log_basis))
 
 
+def ggsw_to_ntt(conv: TorusConvolver32, ggsw_coeff: torch.Tensor) -> torch.Tensor:
+    """Coefficient GGSW ``(k+1, L, k+1, N)`` -> NTT residues ``(kp, k+1, L,
+    k+1, N)`` (convert.rs; kernel 1 on a CUDA tensor)."""
+    return conv.forward(ggsw_coeff)
+
+
 def external_product(conv: TorusConvolver32, basis: ApproxSignedBasis32, glwe, key_ntt):
     """``glwe ⊡ key`` (external_product.rs:36-93), exact.
 

@@ -130,6 +130,11 @@ def add64(a, b, q):
     return reduce_once64(a + b, q)
 
 
+def neg64(a, q):
+    """``-a mod q`` for canonical u64 words (0 maps to 0)."""
+    return torch.where(a == 0, a, q - a)
+
+
 def sub64(a, b, q):
     """``(a - b) mod q`` for canonical inputs (below 2^62: signed compare)."""
     d = a - b

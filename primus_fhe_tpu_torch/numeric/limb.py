@@ -54,6 +54,12 @@ def mul_wide_u32(a, b):
     return (a * b) & MASK32, mulhi_u32(a, b)
 
 
+def mul_lo_u32(a, b):
+    """``a * b mod 2^32`` for u32 words, every partial product below 2^48
+    (``b`` cut into 16-bit halves): no int64 product wraps."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & MASK32
+
+
 def narrow_u32(x: torch.Tensor) -> torch.Tensor:
     """int64 words -> int32 storage holding the same 32-bit pattern."""
     return x if x.dtype == torch.int32 else x.to(torch.int32)

@@ -41,7 +41,8 @@ from .utils.primes import next_ntt_prime
 
 __all__ = [
     "BOOLEAN_128", "NTRU_128", "NtruGateKeys", "NtruParams", "TOY", "TfheContext", "TfheParams",
-    "from_jax_context", "from_jax_ntru_context", "gate_noise_stddev", "make_context",
+    "from_jax_context", "from_jax_ntru_context", "from_jax_ntt_key", "gate_noise_stddev",
+    "make_context",
     "make_ntru_context", "make_ntru_keys",
 ]
 
@@ -223,6 +224,22 @@ def from_jax_context(params: TfheParams, bsk, ksk, lwe_secret, glwe_secret,
         params, basis, ks_basis, conv, DiscreteGaussian(max(params.lwe_sigma, 1e-6)),
         _t(lwe_secret, device), _t(glwe_secret, device), bsk_t, _t(ksk, device),
     )
+
+
+def from_jax_ntt_key(array, conv: tfhe.TorusConvolver32, device="cuda") -> torch.Tensor:
+    """An NTT-domain key stack made by the JAX package with ``conv``'s primes
+    (a private KSK ``(kp, n_ext+1, L, k+1, N)``, a GLWE or packing KSK
+    ``(kp, k_in, L, k_out+1, N)``, a GGSW ``(kp, k+1, L, k+1, N)``), given as
+    numpy, as a contiguous int64 tensor on ``device`` (the card unless the
+    caller asks for the CPU).  Raises ``ValueError`` unless the leading axis
+    is ``conv``'s primes and every word lies below its prime."""
+    arr = np.asarray(array).astype(np.int64)
+    if arr.ndim < 2 or arr.shape[0] != conv.count:
+        raise ValueError(f"expected ({conv.count} primes, ...), got {arr.shape}")
+    primes = np.asarray(conv.primes, dtype=np.int64).reshape((-1,) + (1,) * (arr.ndim - 1))
+    if arr.min() < 0 or (arr >= primes).any():
+        raise ValueError("a word is not a canonical residue of its prime")
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
 def gate_noise_stddev(p: TfheParams) -> float:

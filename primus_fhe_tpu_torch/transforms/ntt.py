@@ -1,6 +1,7 @@
 """Negacyclic NTT forward/inverse over u32 and u64 words (port of
-``forward32``, ``inverse32``, ``forward64``, ``inverse64``, ``monomial64``,
-``pointwise_mul64``, ``negacyclic_mul64``, ``bit_reverse_permute`` and the
+``forward32``, ``inverse32``, ``forward64``, ``inverse64``, ``monomial32``,
+``monomial64``, ``pointwise_mul32``, ``pointwise_mul64``,
+``negacyclic_mul32``, ``negacyclic_mul64``, ``bit_reverse_permute`` and the
 four ``*_normal_order`` variants in ``primus_fhe_tpu/transforms/ntt.py``).
 
 Radix-2 Harvey butterflies with Shoup lazy multiplies and the
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ..modular.modops import mul64, reduce_once32, reduce_once64, reduce_twice32, reduce_twice64
+from ..modular.modops import mul32, mul64, reduce_once32, reduce_once64, reduce_twice32, reduce_twice64
 from ..numeric.limb import MASK32, mul_hi_u64, mulhi_u32
 from ..utils.bits import reverse_lsbs
 from .plan import NttPlan32, NttPlan64
@@ -91,6 +92,25 @@ def inverse32(plan: NttPlan32, values: torch.Tensor, out_factor: int = 1):
     if out_factor == 1:
         out = reduce_once32(out, q)
     return out
+
+
+def pointwise_mul32(m, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Canonical ``a * b mod q`` of two NTT polynomials (``m``: a
+    ``BarrettModulus32``)."""
+    return mul32(a, b, m)
+
+
+def monomial32(plan: NttPlan32, degree, negate=False) -> torch.Tensor:
+    """NTT of ``±X^degree`` on a u32 plan: the table lookup of
+    :func:`monomial64`, which reads only the plan's ``ordinal_roots`` and
+    ``monomial_base``."""
+    return monomial64(plan, degree, negate)
+
+
+def negacyclic_mul32(plan: NttPlan32, m, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a * b`` in ``Z_q[X]/(X^n + 1)`` for canonical coefficient vectors:
+    two forward transforms, a pointwise product, one inverse (canonical)."""
+    return inverse32(plan, mul32(forward32(plan, a), forward32(plan, b), m))
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +182,7 @@ def inverse64(plan: NttPlan64, values: torch.Tensor, out_factor: int = 1):
     return out
 
 
-def monomial64(plan: NttPlan64, degree, negate=False) -> torch.Tensor:
+def monomial64(plan: NttPlan64 | NttPlan32, degree, negate=False) -> torch.Tensor:
     """NTT of ``±X^degree`` (bit-reversed output): ``out[j] =
     psi^((2 rev(j) + 1) degree mod 2n)``, ``negate`` flips the exponent by
     ``n`` (``psi^n = -1``).  ``degree`` may be a tensor of shape ``(..., 1)``

@@ -37,6 +37,8 @@ class NttPlan32:
     inv_n_precon: int
     inv_n_w: int  # inv_n * inv_roots[n-1] mod q
     inv_n_w_precon: int
+    ordinal_roots: torch.Tensor  # (2n,) psi^i, for monomials
+    monomial_base: torch.Tensor  # (n,) 2 * reverse_lsbs(j) + 1
 
     @property
     def n(self) -> int:
@@ -71,6 +73,8 @@ def build_plan32(log_n: int, q: int, device=None) -> NttPlan32:
         inv_n_precon=_quot32(g.inv_n, q),
         inv_n_w=g.inv_n_w,
         inv_n_w_precon=_quot32(g.inv_n_w, q),
+        ordinal_roots=arr(g.ordinal_roots),
+        monomial_base=arr([2 * i + 1 for i in g.reverse_lsbs]),
     )
 
 

@@ -34,7 +34,9 @@ words; the u64 pair at log_w 15-16 on batches 1, 3, 8), row 13's split
 kernels at log_n 8-14 (7 and 8 planes) and its sharded transforms and
 product at log_n 13-14 over 2 and 4 shards against row 10, its refusal of
 log_n 7 and 15 before any launch, and a (2, 2)
-``LocalMesh`` DCRT rotation on both routes against the single-card one.
+``LocalMesh`` DCRT rotation on both routes against the single-card one;
+at TOY size the circuit bootstrap, ``ggsw_to_ntt``, ``leveled_mux``, the
+GLWE and packing key switches and the prime-q phases against the CPU.
 Tolerance: zero (bit-equal).
 
 The kernels have no CPU mode, so every test here needs the card and skips
@@ -1093,3 +1095,61 @@ def test_dcrt32_sharded_product_and_torus64(dev):
     out = tfhe64.external_product64(c64, b64, glwe64, tfhe64.ggsw_to_ntt64(c64, ggsw))
     cpu = tfhe64.external_product64(c64, b64, glwe64.cpu(), tfhe64.ggsw_to_ntt64(c64, ggsw.cpu()))
     assert torch.equal(out.cpu(), cpu)
+
+
+def test_circuit_bootstrap_mux_and_key_switches_match_cpu(dev):
+    """At TOY size (N = 32, n_lwe = 8, the PBS gadget 2^8 x 3): the
+    circuit bootstrap (2^8 x 2, private switches 2^8 x 3), ``ggsw_to_ntt``
+    and ``leveled_mux``, ``glwe_key_switch`` (k 2 -> 1) and ``pack_lwes`` on
+    CUDA tensors (kernels 1-4 and F, the torch MAC) equal the same calls on
+    the CPU, word for word; so do the prime-q RLWE phase and GLWE phase
+    (kernels 1-2 on one prime)."""
+    from primus_fhe_tpu_torch.boot import circuit_bootstrap as cb
+    from primus_fhe_tpu_torch.boot.blind_rotate import make_bootstrap_key
+    from primus_fhe_tpu_torch.boot.gates import leveled_mux
+    from primus_fhe_tpu_torch.distr.sampling import DiscreteGaussian, sample_binary
+    from primus_fhe_tpu_torch.lattice import glev, glwe_keyswitch, rlwe
+    from primus_fhe_tpu_torch.modular.modulus import barrett32
+
+    p = P.TOY
+    n = p.n
+    gen = torch.Generator(device=dev).manual_seed(21)
+    words = lambda *shape: torch.randint(0, 1 << 32, shape, generator=gen, device=dev)  # noqa: E731
+    conv = tfhe.make_convolver(p.log_n, 3, 2, 8)
+    basis = ApproxSignedBasis32(None, 8, reverse_length=3)
+    basis_cb = ApproxSignedBasis32(None, 8, reverse_length=2)
+    gauss = DiscreteGaussian(3.2)
+    lwe_s = sample_binary(gen, (p.lwe_dim,))
+    glwe_s = sample_binary(gen, (1, n))
+    bsk = make_bootstrap_key(lwe_s, glwe_s, basis, gauss, conv, gen)
+    minus_x = torch.zeros(n, dtype=torch.int64, device=dev)
+    minus_x[0] = 0xFFFFFFFF
+    ksks = [cb.make_private_functional_ksk(f, glwe_s.reshape(-1), glwe_s, basis, gauss, conv, gen)
+            for f in (glwe_s[0], minus_x)]
+    ct = words(p.lwe_dim + 1)
+    ggsw = cb.circuit_bootstrap(conv, basis, bsk, conv, basis_cb, basis, ksks, ct, p.log_n)
+    ggsw_cpu = cb.circuit_bootstrap(conv, basis, bsk.cpu(), conv, basis_cb, basis,
+                                    [k.cpu() for k in ksks], ct.cpu(), p.log_n)
+    assert torch.equal(ggsw.cpu(), ggsw_cpu)
+    ggsw_ntt = tfhe.ggsw_to_ntt(conv, ggsw)
+    assert torch.equal(ggsw_ntt.cpu(), tfhe.ggsw_to_ntt(conv, ggsw_cpu))
+    cx, cy = words(3, 2, n), words(3, 2, n)
+    assert torch.equal(leveled_mux(conv, basis_cb, ggsw_ntt, cx, cy).cpu(),
+                       leveled_mux(conv, basis_cb, ggsw_ntt.cpu(), cx.cpu(), cy.cpu()))
+    s_in = sample_binary(gen, (2, n))
+    ksk = glwe_keyswitch.make_glwe_keyswitch_key(s_in, glwe_s, basis, gauss, conv, gen)
+    glwe_in = words(4, 3, n)
+    assert torch.equal(glwe_keyswitch.glwe_key_switch(conv, basis, glwe_in, ksk).cpu(),
+                       glwe_keyswitch.glwe_key_switch(conv, basis, glwe_in.cpu(), ksk.cpu()))
+    pksk = glwe_keyswitch.make_packing_keyswitch_key(lwe_s, glwe_s, basis, gauss, conv, gen)
+    lwes = words(n - 3, p.lwe_dim + 1)
+    assert torch.equal(glwe_keyswitch.pack_lwes(conv, basis, lwes, pksk).cpu(),
+                       glwe_keyswitch.pack_lwes(conv, basis, lwes.cpu(), pksk.cpu()))
+    q = conv.primes[0]
+    tables, m = ntt32.NttTables32(p.log_n, (q,)), barrett32(q)
+    s_ntt = ntt32.forward32(tables, sample_binary(gen, (1, 2, n)))[0]
+    c = torch.randint(0, q, (5, 3, n), generator=gen, device=dev)
+    assert torch.equal(glev.glwe_phase32(c, s_ntt, tables, m.map(lambda x: x.to(dev))).cpu(),
+                       glev.glwe_phase32(c.cpu(), s_ntt.cpu(), tables, m))
+    assert torch.equal(rlwe.phase32(c[:, :2], s_ntt[0], tables, m.map(lambda x: x.to(dev))).cpu(),
+                       rlwe.phase32(c[:, :2].cpu(), s_ntt[0].cpu(), tables, m))

@@ -2,7 +2,7 @@
 rank module ``tests/_torch_dist_workers.py``), and ``chip_smoke.py``
 refuses to run without a CUDA card.  Both run in a subprocess: the root
 conftest imports jax into this process.  The port's copies of the JAX
-package's host helpers (parameter records, ``GoldenNtt``, ``noise``) equal
+package's host helpers (parameter records, ``GoldenNtt``, ``noise``, ``distr.stats``) equal
 the originals."""
 
 import dataclasses
@@ -10,6 +10,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = [
@@ -64,6 +66,13 @@ MODULES = [
     "primus_fhe_tpu_torch.parallel.sharded",
     "primus_fhe_tpu_torch.rns.converter",
     "primus_fhe_tpu_torch.lattice.tfhe64",
+    "primus_fhe_tpu_torch.lattice.glwe_keyswitch",
+    "primus_fhe_tpu_torch.lattice.glev",
+    "primus_fhe_tpu_torch.lattice.lwe",
+    "primus_fhe_tpu_torch.lattice.rlwe",
+    "primus_fhe_tpu_torch.boot.circuit_bootstrap",
+    "primus_fhe_tpu_torch.distr.stats",
+    "primus_fhe_tpu_torch.poly.poly",
     "_torch_dist_workers",  # tests/: the gloo ranks' module
 ]
 
@@ -104,9 +113,11 @@ def test_chip_smoke_fails_without_cuda():
 def test_host_copies_equal_the_jax_package():
     from primus_fhe_tpu import noise as jnoise
     from primus_fhe_tpu import params as jparams
+    from primus_fhe_tpu.distr import stats as jstats
     from primus_fhe_tpu.golden.model import GoldenNtt as JGolden
     from primus_fhe_tpu.utils.primes import next_ntt_prime as jprime
     from primus_fhe_tpu_torch import noise, params
+    from primus_fhe_tpu_torch.distr import stats
     from primus_fhe_tpu_torch.golden.model import GoldenNtt
     from primus_fhe_tpu_torch.utils.primes import next_ntt_prime
 
@@ -129,3 +140,8 @@ def test_host_copies_equal_the_jax_package():
         assert br.variance == jbr.variance
         ks_args = (p.lwe_sigma, p.n, p.ks_level, p.ks_log_basis, 20)
         assert noise.key_switch(br, *ks_args).stddev == jnoise.key_switch(jbr, *ks_args).stddev
+    samples = np.random.default_rng(0).integers(-12, 13, 3000)
+    for name in ("sample_moments", "max_cdf_distance", "chi2_statistic"):
+        args = (samples,) if name == "sample_moments" else (samples, 3.2, 20)
+        assert getattr(stats, name)(*args) == getattr(jstats, name)(*args), name
+    assert np.array_equal(stats.discrete_gaussian_pmf(3.2, 20), jstats.discrete_gaussian_pmf(3.2, 20))
