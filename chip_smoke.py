@@ -77,7 +77,8 @@ non-zero):
 13. kernels F (``rotate``) and G (``cmux_front``) at BOOLEAN_128 width,
     batch 64, against their plain versions (F also at the bootstrap's
     start, one broadcast test row into ``acc[:, -1, :]``; G also at batch
-    1; both at 1024 x 2 rows, with their shares of the byte bound), and
+    1 and over 5 primes, two launches; both at 1024 x 2 rows, with their
+    shares of the byte bound), and
     one CMux step
     ``acc + cmux_delta(...)`` on key slice 0 through kernel G, bit-equal to
     ``fused_cmux_step`` (kernels 3-4), with its launch counts;
@@ -130,7 +131,19 @@ non-zero):
     bit-1 circuit bootstrap on the CPU (the same words); 64 fresh LWEs packed
     into one GLWE by ``pack_lwes``, decrypted; ms of a circuit bootstrap (its
     bootstraps and its private switches, each switch against its byte
-    bound), of a ``leveled_mux`` and of a ``pack_lwes``.
+    bound), of a ``leveled_mux`` and of a ``pack_lwes``;
+20. the host layer on phase 3's NTT key: ``params.save_keys`` to an
+    ``.npz`` under the build directory and ``params.load_keys`` onto the
+    card (seconds, the same words), ``tracked.gate`` NAND, AND and OR at
+    batch 64 (truth tables, output std within [0.2, 5]x of the tracked
+    prediction, ``margin(2) > 1``, exactly 630 ``fused_cmux_step`` and 1
+    ``rotate`` launches a gate, an inflated variance refused before any
+    launch, ms a gate), ``pack_container`` of the reloaded bootstrap key
+    from the card and back, the ``modops`` and ``compact`` extras on CUDA
+    tensors against the CPU's words, the ternary and CRT samplers on a CUDA
+    generator (frequencies within 5 sigma), kernel 1 refusing a 4q input
+    under ``PRIMUS_DEBUG=1`` before its launch, and ``secrets.delete``
+    zeroing the reloaded secrets on the card.
 
 The line before the last is the kernel table as JSON (every kernel with its
 launches on its main path, its time, its plain version's time and its bound,
@@ -778,6 +791,7 @@ def phase13_front(torch, dev, table, conv, basis, key0, counted) -> dict:
     through ``cmux_delta``.  Returns the launch counts of that step."""
     from primus_fhe_tpu_torch.lattice import tfhe
     from primus_fhe_tpu_torch.ops import cmux_front, cmux_fused, rotate
+    from primus_fhe_tpu_torch.utils.primes import ntt_prime_chain
 
     n, kp, level = conv.n, conv.count, basis.decompose_length
     k1 = key0.shape[1]
@@ -823,6 +837,22 @@ def phase13_front(torch, dev, table, conv, basis, key0, counted) -> dict:
                        bound(4 * (w + kp * level * w), muls32=5 * kp * level * w))
     g_b = table["cmux_front@1024"][F_ROWS]
     log(f"cmux_front@1024: share of the byte bound {g_b[4][0] / g_b[3]:.3f}")
+    # kernel G over 5 primes: a launch a group of at most 4, into slices of one output
+    primes5 = tuple(ntt_prime_chain(30, conv.log_n, 5))
+    l0 = cmux_front.cmux_front.launches
+    cmux_front.cmux_front(acc32, deg, basis, primes5)
+    torch.cuda.synchronize()
+    if cmux_front.cmux_front.launches - l0 != 2:
+        raise AssertionError(f"cmux_front over 5 primes: {cmux_front.cmux_front.launches - l0} "
+                             f"launches, want 2")
+    w = acc.numel()
+    compare_kernel(torch, table, "cmux_front@kp5", BATCH,
+                   lambda: cmux_front.cmux_front(acc, deg, basis, primes5),
+                   lambda: cmux_front.cmux_front(acc32, deg, basis, primes5),
+                   lambda: cmux_front.cmux_front_plain(acc, deg, basis, primes5),
+                   bound(4 * (w + 5 * level * w), muls32=5 * 5 * level * w))
+    log(f"cmux_front over 5 primes {primes5}: 2 launches (4 + 1 primes) a call, equal to the "
+        f"plain version")
     del big, big32
     for fn in counted:
         fn.launches = 0
@@ -1797,6 +1827,253 @@ def phase19_circuit_bootstrap(torch, dev, ctx, smi, cpu_boot_s, reset_counts, re
     return counts
 
 
+TRACKED_KINDS = ("nand", "and", "or")
+SAMPLER_DRAWS = 1 << 20  # phase 20's sampler checks: draws a test
+
+
+def _within_5_sigma(label: str, count: int, draws: int, p: float) -> str:
+    """Checks that ``count`` of ``draws`` lies within 5 sigma of ``draws p``."""
+    sigma = math.sqrt(draws * p * (1 - p))
+    if abs(count - draws * p) > 5 * sigma:
+        raise AssertionError(f"{label}: {count} of {draws}, want {draws * p:.0f} +- 5 x {sigma:.1f}")
+    return f"{label} {count / draws:.5f} (want {p}, {abs(count - draws * p) / sigma:.2f} sigma)"
+
+
+def phase20_extras(torch, dev) -> None:
+    """Phase 20.3-20.4: the modular extras on CUDA int64 tensors against the
+    same calls on their CPU copies, and the samplers on a CUDA generator."""
+    from primus_fhe_tpu_torch.distr import sampling
+    from primus_fhe_tpu_torch.modular import barrett32, barrett64, compact, modops
+
+    q32, q64 = 1073692673, 1125899906826241  # the parity tests' primes
+    qc32, qc64 = (1 << 30) - 35, (1 << 62) - 57
+    g = torch.Generator().manual_seed(SEED + 21)
+
+    def draw(q, shape=(4096,)):
+        return torch.randint(0, q, shape, generator=g, dtype=torch.int64)
+
+    a32, b32, c32 = draw(q32), draw(q32), draw(q32)
+    e32 = draw(1 << 32)
+    a64, b64, c64 = draw(q64), draw(q64), draw(q64)
+    ac, bc, cc = draw(qc32), draw(qc32), draw(qc32)
+    ad, bd = draw(qc32, (64, 53)), draw(qc32, (64, 53))
+    a6, b6 = draw(qc64), draw(qc64)
+    a6d, b6d = draw(qc64, (16, 19)), draw(qc64, (16, 19))
+    w_lo, w_hi = draw(1 << 62) << 1, draw(q64 >> 2)
+    cases = {
+        "lazy_add32": lambda o, m, n: modops.lazy_add32(o(a32 + q32 * (a32 & 1)), o(b32), 2 * q32),
+        "double32": lambda o, m, n: modops.double32(o(a32), q32),
+        "sqr32": lambda o, m, n: modops.sqr32(o(a32), m),
+        "mul_add32": lambda o, m, n: modops.mul_add32(o(a32), o(b32), o(c32), m),
+        "exp32": lambda o, m, n: modops.exp32(o(a32), q32 - 1, m),
+        "exp32 (tensor e)": lambda o, m, n: modops.exp32(o(a32), o(e32), m),
+        "exp_pow_of_2_32": lambda o, m, n: modops.exp_pow_of_2_32(o(a32), 5, m),
+        "inv32": lambda o, m, n: modops.inv32(o(a32), m, q32),
+        "div32": lambda o, m, n: modops.div32(o(a32), o(b32), m, q32),
+        "uint_mul32": lambda o, m, n: modops.uint_mul32(o(e32), o(e32.flip(0)), 12345678),
+        "double64": lambda o, m, n: modops.double64(o(a64), q64),
+        "barrett_lazy_reduce_wide64": lambda o, m, n: modops.barrett_lazy_reduce_wide64(
+            o(w_lo), o(w_hi), n),
+        "lazy_mul64": lambda o, m, n: modops.lazy_mul64(o(a64), o(b64), n),
+        "sqr64": lambda o, m, n: modops.sqr64(o(a64), n),
+        "mul_add64": lambda o, m, n: modops.mul_add64(o(a64), o(b64), o(c64), n),
+        "exp64": lambda o, m, n: modops.exp64(o(a64), 1 << 20, n),
+        "exp_pow_of_2_64": lambda o, m, n: modops.exp_pow_of_2_64(o(a64), 3, n),
+        "inv64": lambda o, m, n: modops.inv64(o(a64), n, q64),
+        "div64": lambda o, m, n: modops.div64(o(a64), o(b64), n, q64),
+        "uint_mul64": lambda o, m, n: modops.uint_mul64(o(a64), o(b64), (1 << 63) - 25),
+        "compact_add32": lambda o, m, n: compact.compact_add32(o(ac), o(bc), qc32),
+        "compact_sub32": lambda o, m, n: compact.compact_sub32(o(ac), o(bc), qc32),
+        "compact_double32": lambda o, m, n: compact.compact_double32(o(ac), qc32),
+        "compact_neg32": lambda o, m, n: compact.compact_neg32(o(ac), qc32),
+        "compact_lazy_sub32": lambda o, m, n: compact.compact_lazy_sub32(o(ac), o(bc), qc32),
+        "compact_reduce_once32": lambda o, m, n: compact.compact_reduce_once32(o(ac + bc), qc32),
+        "compact_mul32": lambda o, m, n: compact.compact_mul32(o(ac), o(bc), qc32),
+        "compact_mul_add32": lambda o, m, n: compact.compact_mul_add32(o(ac), o(bc), o(cc), qc32),
+        "compact_dot32": lambda o, m, n: compact.compact_dot32(o(ad), o(bd), qc32),
+        "compact_add64": lambda o, m, n: compact.compact_add64(o(a6), o(b6), qc64),
+        "compact_sub64": lambda o, m, n: compact.compact_sub64(o(a6), o(b6), qc64),
+        "compact_double64": lambda o, m, n: compact.compact_double64(o(a6), qc64),
+        "compact_lazy_sub64": lambda o, m, n: compact.compact_lazy_sub64(o(a6), o(b6), qc64),
+        "compact_reduce_once64": lambda o, m, n: compact.compact_reduce_once64(o(a6 + b6), qc64),
+        "compact_mul64": lambda o, m, n: compact.compact_mul64(o(a6), o(b6), qc64),
+        "compact_dot64": lambda o, m, n: compact.compact_dot64(o(a6d), o(b6d), qc64),
+    }
+    recs = {d: (barrett32(q32, d), barrett64(q64, d)) for d in ("cpu", dev)}
+    for name, fn in cases.items():
+        want = fn(lambda x: x, *recs["cpu"])
+        got = fn(lambda x: x.to(dev), *recs[dev])
+        if got.device.type != dev.type or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{name}: the card's words differ from the cpu's")
+    log(f"{len(cases)} modops and compact extras on CUDA int64 tensors: the same words as on "
+        f"the cpu ({', '.join(cases)})")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    q, moduli, draws = q32, (q32, 1073668097), SAMPLER_DRAWS
+    t = sampling.sample_ternary(gen, (draws,), q)
+    lines = [_within_5_sigma("sample_ternary P[0]", int((t == 0).sum()), draws, 0.5),
+             _within_5_sigma("P[1]", int((t == 1).sum()), draws, 0.25),
+             _within_5_sigma("P[q-1]", int((t == q - 1).sum()), draws, 0.25)]
+    crt = sampling.sample_crt_ternary(gen, (draws,), moduli)
+    qcol = torch.tensor(moduli, device=dev).unsqueeze(1)
+    signed = torch.where(crt == qcol - 1, -1, crt)
+    if crt.shape != (2, draws) or not torch.equal(signed[0], signed[1]) or int(
+            (signed.abs() > 1).sum()):
+        raise AssertionError("sample_crt_ternary: slots disagree or leave {0, 1, q - 1}")
+    lines.append(_within_5_sigma("sample_crt_ternary P[-1]", int((signed[0] == -1).sum()), draws,
+                                 0.25))
+    bits = sampling.sample_crt_binary(gen, (draws,), moduli)
+    if not torch.equal(bits[0], bits[1]):
+        raise AssertionError("sample_crt_binary: slots disagree")
+    lines.append(_within_5_sigma("sample_crt_binary P[1]", int(bits[0].sum()), draws, 0.5))
+    gauss = sampling.DiscreteGaussian(3.2)
+    gs = sampling.sample_crt_gaussian(gen, (draws,), moduli, gauss)
+    cent = torch.where(gs > qcol // 2, gs - qcol, gs)
+    if not torch.equal(cent[0], cent[1]) or int(cent.abs().max()) > 40:
+        raise AssertionError("sample_crt_gaussian: slots disagree or a draw past 12 sigma")
+    lines.append(_within_5_sigma("sample_crt_gaussian P[0]", int((cent[0] == 0).sum()), draws,
+                                 float(1 / (3.2 * math.sqrt(2 * math.pi)))))
+    u = gauss.sample_mod_u64(gen, (draws,), q64)
+    if int(((u >= 64) & (u < q64 - 64)).sum()) or int((u == q64 - 1).sum()) == 0:
+        raise AssertionError("sample_mod_u64: a draw outside [q - 64, q) + [0, 64)")
+    log(f"samplers on a CUDA generator, {draws} draws each: " + "; ".join(lines)
+        + "; sample_mod_u64 wraps negatives to q64 + s")
+
+
+def phase20_tracked(torch, dev, ctx, smi, reset_counts, read_counts) -> dict:
+    """Phase 20: the evaluation keys saved, loaded onto the card, and run as
+    noise-tracked gates; the host layer's checks beside them.  Returns the
+    launch counts of the three tracked gates."""
+    import os
+    import tempfile
+
+    from primus_fhe_tpu_torch import noise, tracked
+    from primus_fhe_tpu_torch import params as P
+    from primus_fhe_tpu_torch.boot.gates import TRUE_MU
+    from primus_fhe_tpu_torch.ops import build, ntt32
+    from primus_fhe_tpu_torch.utils import contracts, profiling, secrets, serialize
+
+    p = ctx.params
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "keys.npz")
+        with profiling.Timer() as t_save:
+            P.save_keys(path, ctx)
+        size_mb = os.path.getsize(path) / 1e6
+        with profiling.Timer() as t_load:
+            lctx = P.load_keys(path, device=dev)
+    if lctx.params != p or lctx.device != ctx.device:
+        raise AssertionError(f"load_keys: {lctx.params} on {lctx.device}")
+    for name in ("bsk", "ksk", "lwe_secret", "glwe_secret"):
+        if not torch.equal(getattr(lctx, name), getattr(ctx, name)):
+            raise AssertionError(f"load_keys: the reloaded {name} differs from the original")
+    log(f"[{smi}] save_keys: {t_save.elapsed:.3f} s ({size_mb:.1f} MB .npz); load_keys onto the "
+        f"card: {t_load.elapsed:.3f} s (profiling.Timer); bsk {tuple(lctx.bsk.shape)}, ksk "
+        f"{tuple(lctx.ksk.shape)} and both secrets equal the originals word for word")
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    idx = torch.arange(BATCH, device=dev)
+    a_bits, b_bits = (idx & 1).bool(), ((idx >> 1) & 1).bool()
+    ta, tb = tracked.encrypt_bit(lctx, g, a_bits), tracked.encrypt_bit(lctx, g, b_bits)
+    truth = {"nand": ~(a_bits & b_bits), "and": a_bits & b_bits, "or": a_bits | b_bits}
+    zero = {name: 0 for name in read_counts()}
+    want = zero | {"fused_cmux_step": p.lwe_dim, "rotate": 1}
+    totals = dict(zero)
+    errors = []
+    for kind in TRACKED_KINDS:
+        reset_counts()
+        out = tracked.gate(lctx, kind, ta, tb)
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"tracked {kind}: launches {counts}, want {want}")
+        totals = {k: totals[k] + counts[k] for k in totals}
+        ph = tracked.decrypt_phase(lctx, out)
+        if not torch.equal(ph > 0, truth[kind]):
+            raise AssertionError(f"tracked {kind}: wrong truth table")
+        errors.append(ph - torch.where(truth[kind], TRUE_MU, -TRUE_MU))
+        if out.margin(2) <= 1:
+            raise AssertionError(f"tracked {kind}: margin(2) {out.margin(2):.3f} <= 1")
+    std = torch.cat(errors).double().std().item()
+    pred = out.noise.stddev
+    if not 0.2 * pred < std < 5 * pred:
+        raise AssertionError(f"tracked gates: output std {std:.4g} outside [0.2, 5] x the "
+                             f"prediction {pred:.4g}")
+    log(f"tracked NAND, AND, OR at batch {BATCH} (each input pair {BATCH // 4} times): truth "
+        f"tables right; launches a gate {json.dumps(want)} (asserted, nothing else); output "
+        f"phase error std {std:.4g} (2^{math.log2(std):.2f}) against the tracked prediction "
+        f"{pred:.4g} (2^{math.log2(pred):.2f}), ratio {std / pred:.3f}; margin(2) "
+        f"{out.margin(2):.3f}")
+    bad = tracked.TrackedLwe(ta.ct, noise.NoiseEstimate(2.0**58))
+    reset_counts()
+    try:
+        tracked.gate(lctx, "nand", bad, bad)
+    except ValueError as e:
+        if "unsafe" not in str(e):
+            raise
+        refusal = str(e)
+    else:
+        raise AssertionError("tracked gate on an inflated variance did not refuse")
+    if read_counts() != zero:
+        raise AssertionError("the refused tracked gate launched a kernel")
+    log(f"inflated variance 2^58: {refusal!r}, no launch")
+    gate_s = []
+    for _ in range(3):
+        with profiling.Timer() as t_gate:
+            tracked.gate(lctx, "nand", ta, tb)
+        gate_s.append(t_gate.elapsed)
+    log(f"[{smi}] tracked NAND at batch {BATCH}: {1e3 * min(gate_s):.2f} ms (least of 3, "
+        f"profiling.Timer; all {', '.join(f'{1e3 * s:.2f}' for s in gate_s)})")
+
+    moduli = tuple(lctx.conv.primes)
+    with profiling.Timer() as t_pack:
+        data = serialize.pack_container("bootstrap_key", lctx.bsk, domain="ntt", moduli=moduli)
+    with profiling.Timer() as t_unpack:
+        kind, bsk2, meta = serialize.unpack_container(data, expect_kind="bootstrap_key",
+                                                      device=dev)
+    if not torch.equal(bsk2, lctx.bsk) or meta != {"domain": "ntt", "moduli": moduli}:
+        raise AssertionError("pack_container / unpack_container changed the bootstrap key")
+    log(f"[{smi}] pack_container(bootstrap_key) from the card: {len(data) / 1e6:.1f} MB in "
+        f"{t_pack.elapsed:.3f} s; unpacked onto the card in {t_unpack.elapsed:.3f} s, equal")
+    del data, bsk2
+
+    phase20_extras(torch, dev)
+
+    tabs = lctx.conv.ntt
+    col = torch.tensor(tabs.primes, device=dev).reshape(-1, 1, 1)
+    over = (4 * col).expand(len(tabs.primes), 1, tabs.n).contiguous()  # 4q: one past the contract
+    saved = os.environ.get("PRIMUS_DEBUG")
+    os.environ["PRIMUS_DEBUG"] = "1"
+    try:
+        l0 = ntt32.forward32.launches
+        try:
+            ntt32.forward32(tabs, over)
+        except contracts.RangeContractError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("PRIMUS_DEBUG=1: kernel 1 took a 4q input")
+        if ntt32.forward32.launches != l0:
+            raise AssertionError("the contract check let kernel 1 launch")
+        ntt32.forward32(tabs, over - 1)
+        torch.cuda.synchronize()
+        if ntt32.forward32.launches != l0 + 1:
+            raise AssertionError("kernel 1 did not launch on an input inside the contract")
+    finally:
+        if saved is None:
+            os.environ.pop("PRIMUS_DEBUG")
+        else:
+            os.environ["PRIMUS_DEBUG"] = saved
+    log(f"PRIMUS_DEBUG=1: kernel 1 on 4q words raised before its launch ({refusal}); on 4q - 1 "
+        f"it launched once")
+
+    secret = lctx.glwe_secret
+    view = secret.view(-1)
+    secrets.delete(lctx.lwe_secret, secret)
+    torch.cuda.synchronize()
+    if secret.device != ctx.device or int(view.abs().sum()) or int(lctx.lwe_secret.abs().sum()):
+        raise AssertionError("secrets.delete left a nonzero word")
+    log("secrets.delete zeroed the reloaded context's secrets on the card in place")
+    return totals
+
+
 def main() -> None:
     import torch
 
@@ -2306,6 +2583,11 @@ def main() -> None:
     counts_cb = phase19_circuit_bootstrap(torch, dev, ctx, smi, boot_cpu_s, reset_counts,
                                           read_counts)
 
+    # -- phase 20: keys saved and reloaded, noise-tracked gates ----------------
+    log("== phase 20: save_keys / load_keys onto the card, tracked NAND/AND/OR at batch "
+        f"{BATCH}, the host layer (modops, compact, samplers, containers, contracts, secrets)")
+    counts_tr = phase20_tracked(torch, dev, ctx, smi, reset_counts, read_counts)
+
     # -- the kernel table -----------------------------------------------------
     # name -> (source, TPU kernel, launches on its main path, the table key of
     # the "ms" shape, the batch of the extra "ms_b" columns or None)
@@ -2380,6 +2662,8 @@ def main() -> None:
                    "fused_cmux_step": "fused_cmux_step", "rotate": "rotate"}.get(name)
         if cb_name:  # phase 19's circuit bootstrap, ggsw_to_ntt and MUX, both bits
             row["launches_cb_path"] = counts_cb[cb_name]
+        if name in ("fused_cmux_step", "rotate"):  # phase 20's three tracked gates
+            row["launches_tracked_path"] = counts_tr[name]
         if name in ("ntt32_forward", "ntt32_inverse"):  # phases 17-18's paths
             key = name.replace("ntt32_", "") + "32"
             row.update({"launches_sharded_dcrt32_path": counts_17[key],

@@ -66,6 +66,22 @@ class NtruSecret:
     f_inv_ntt: torch.Tensor
 
 
+def make_ntru_context(log_n: int, q: int, log_basis: int, level: int) -> NtruContext:
+    return NtruContext(log_n, q, log_basis, level)
+
+
+def ntru_phase(ctx: NtruContext, sk: "NtruSecret", c: torch.Tensor) -> torch.Tensor:
+    """``c * f`` mod q, canonical: the decryption phase of NTRU samples ``c
+    (..., N)`` (ntru/ntt.rs:36-108), kernels 1-2 on a CUDA tensor."""
+    fc = ntt32.forward32(ctx.ntt, c.unsqueeze(0))[0]
+    return ntt32.inverse32(ctx.ntt, lazy_mul32(fc, sk.f_ntt, ctx.m).unsqueeze(0))[0]
+
+
+def rotate_poly_q(poly: torch.Tensor, degree, n: int, q) -> torch.Tensor:
+    """``poly * X^degree`` mod ``(X^N + 1, q)`` (:func:`..poly.poly.poly_rotate32`)."""
+    return poly_rotate32(poly, degree, q)
+
+
 def _pow_mod(x: torch.Tensor, e: int, q: int) -> torch.Tensor:
     """``x^e mod q`` elementwise (int64; ``q < 2^31`` keeps products exact)."""
     out = torch.ones_like(x)

@@ -1,6 +1,6 @@
-"""FHE noise samplers on an explicit ``torch.Generator`` (port of the samplers
-in ``primus_fhe_tpu/distr/sampling.py`` that the TFHE, NTRU and DCRT paths
-use).
+"""FHE noise samplers on an explicit ``torch.Generator`` (port of
+``primus_fhe_tpu/distr/sampling.py``), with the CRT-replicated samplers that
+write one logical draw into every modulus slot (``src/common.rs:129-350``).
 
 Every sampler draws on the generator's device.  ``torch.Generator`` and
 ``jax.random`` give different numbers from the same seed, so the samplers
@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..numeric.limb import MASK32, mul_hi_u64
+from ..numeric.limb import MASK32, as_i64, mul_hi_u64
 
 
 def uniform_u32(generator: torch.Generator, shape) -> torch.Tensor:
@@ -34,6 +34,17 @@ def uniform_u32(generator: torch.Generator, shape) -> torch.Tensor:
 def sample_binary(generator: torch.Generator, shape) -> torch.Tensor:
     """Uniform bits in {0, 1} (``BinaryDistr``)."""
     return uniform_u32(generator, shape) & 1
+
+
+def _ternary(b: torch.Tensor, q) -> torch.Tensor:
+    """Two uniform bits ``b`` -> 0 (b < 2), 1 (b == 2) or ``q - 1`` (b == 3)."""
+    return torch.where(b < 2, 0, torch.where(b == 2, 1, q - 1))
+
+
+def sample_ternary(generator: torch.Generator, shape, q) -> torch.Tensor:
+    """{0, +1, -1} with p = 1/2, 1/4, 1/4, -1 as ``q - 1`` (``ternary.rs:10``;
+    not :func:`uniform_ternary`'s distribution)."""
+    return _ternary(uniform_u32(generator, shape) & 3, q)
 
 
 def sample_uniform(generator: torch.Generator, shape, q: int) -> torch.Tensor:
@@ -124,6 +135,45 @@ class DiscreteGaussian:
         """Samples wrapped into ``[0, q)`` (``q < 2^31``)."""
         return self.sample_signed(generator, shape).remainder(q)
 
+    def sample_mod_u64(self, generator: torch.Generator, shape, q: int) -> torch.Tensor:
+        """Samples wrapped into ``[0, q)`` as u64 patterns (int64)."""
+        s = self.sample_signed(generator, shape)
+        return torch.where(s < 0, as_i64(q) + s, s)
+
     def sample_torus32(self, generator: torch.Generator, shape) -> torch.Tensor:
         """Samples wrapped mod 2^32 (TFHE torus)."""
         return self.sample_signed(generator, shape) & MASK32
+
+
+# ---------------------------------------------------------------------------
+# CRT-replicated sampling (src/common.rs:129-350): one logical sample written
+# into every modulus slot of a leading ``(k,)`` axis.
+# ---------------------------------------------------------------------------
+
+
+def _moduli_col(moduli, ndim: int, device) -> torch.Tensor:
+    """The moduli (a sequence or a 1-D tensor) as a ``(k, 1, ...)`` int64
+    column on ``device``."""
+    q = torch.as_tensor(moduli, dtype=torch.int64, device=device)
+    return q.reshape((-1,) + (1,) * ndim)
+
+
+def sample_crt_binary(generator: torch.Generator, shape, moduli) -> torch.Tensor:
+    """Binary samples replicated along a leading ``(k,)`` modulus axis."""
+    v = sample_binary(generator, shape)
+    return v.expand((len(moduli),) + tuple(shape))
+
+
+def sample_crt_ternary(generator: torch.Generator, shape, moduli) -> torch.Tensor:
+    """One ternary draw per position, ``-1`` as ``q_i - 1`` in slot ``i``."""
+    b = uniform_u32(generator, shape) & 3
+    return _ternary(b, _moduli_col(moduli, len(tuple(shape)), b.device))
+
+
+def sample_crt_gaussian(generator: torch.Generator, shape, moduli,
+                        gaussian: DiscreteGaussian) -> torch.Tensor:
+    """One Gaussian draw per position, a negative ``s`` as ``q_i + s`` in
+    slot ``i``."""
+    s = gaussian.sample_signed(generator, shape)
+    q = _moduli_col(moduli, s.dim(), s.device)
+    return torch.where(s < 0, q + s, s.expand(q.shape[:1] + s.shape))

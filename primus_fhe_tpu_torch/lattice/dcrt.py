@@ -94,6 +94,26 @@ def dcrt_ggsw_mac(f, ggsw, rns_base: RNSBase64):
     return sum_mod64(prod, rns_base.modulus_bc(extra + 2, f.device), dim=-3)
 
 
+def _poly_bc(dcrt_poly: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """A DCRT polynomial ``(count, N)`` shaped to broadcast against ``acc
+    (count, ..., N)``."""
+    return dcrt_poly.reshape(dcrt_poly.shape[:1] + (1,) * (acc.dim() - 2) + dcrt_poly.shape[1:])
+
+
+def dcrt_glwe_mul_poly(acc, dcrt_poly, rns_base: RNSBase64):
+    """``acc * poly`` pointwise per modulus (dcrt.rs:108): ``acc (count, ...,
+    k+1, N)`` times ``dcrt_poly (count, N)``, both NTT domain, canonical."""
+    m = rns_base.modulus_bc(acc.dim() - 1, acc.device)
+    return mul64(acc, _poly_bc(dcrt_poly, acc), m)
+
+
+def dcrt_glwe_butterfly_mul(a, rhs, dcrt_poly, rns_base: RNSBase64):
+    """``(a + rhs, (a - rhs) * poly)`` per modulus: the CMux-shaped inverse
+    butterfly of dcrt.rs:130-150, shapes as in :func:`dcrt_glwe_mul_poly`."""
+    m = rns_base.modulus_bc(a.dim() - 1, a.device)
+    return add64(a, rhs, m.value), mul64(sub64(a, rhs, m.value), _poly_bc(dcrt_poly, a), m)
+
+
 def dcrt_glwe_secret(generator: torch.Generator, k: int, plan: DcrtPlan64, route: str = "auto"):
     """A binary GLWE secret: ``(coefficients (k, N), NTT domain (count, k,
     N))``, the same polynomial under every modulus."""

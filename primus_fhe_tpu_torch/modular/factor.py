@@ -89,3 +89,21 @@ def factor_mul64(y, factor: ShoupFactor64, q):
     """``y * w mod q`` in ``[0, q)`` (unsigned compare: ``2q`` may pass 2^63)."""
     r = factor_mul_lazy64(y, factor, q)
     return torch.where(ge_u64(r, q), r - q, r)
+
+
+class MultiplyFactor32(NamedTuple):
+    """Generic precomputed multiplier (``primus_factor::MultiplyFactor``):
+    the storage of :class:`ShoupFactor32` without the canonical-result
+    contract; callers manage the output range through
+    :func:`factor_mul_lazy32`."""
+
+    value: torch.Tensor
+    quotient: torch.Tensor
+
+    def map(self, fn) -> "MultiplyFactor32":
+        return MultiplyFactor32(*(fn(x) for x in self))
+
+
+def multiply_factor32(w, q, device=None) -> MultiplyFactor32:
+    """A :class:`MultiplyFactor32` from host ints (scalar or array)."""
+    return MultiplyFactor32(*shoup32(w, q, device))

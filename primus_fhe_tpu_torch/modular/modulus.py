@@ -1,6 +1,19 @@
-"""Barrett modulus records for u32 and u64 words (port of ``BarrettModulus32``,
-``BarrettModulus64``, ``barrett32`` and ``barrett64`` in
-``primus_fhe_tpu/modular/modulus.py``)."""
+"""Modulus records for u32 and u64 words (port of
+``primus_fhe_tpu/modular/modulus.py``).
+
+=======================  =====================================================
+record                   reference analogue
+=======================  =====================================================
+``BarrettModulus32``     ``BarrettModulus<u32>``, ``q < 2^31``
+``BarrettModulus64``     ``BarrettModulus<u64>``, ``q < 2^62``
+``NativeModulus32/64``   wrapping mod ``2^BITS`` (no fields)
+``PowOf2Modulus32/64``   mask modulus ``2^k``, stores ``2^k - 1``
+``CompactModulus32/64``  add/sub-only modulus, ``q < 2^30`` / ``q < 2^62``
+``UintModulus32/64``     compare-subtract fallback, ``q < 2^31`` / ``2^63``
+=======================  =====================================================
+
+u64 fields are int64 tensors of u64 bit patterns (``numeric/limb.py``).
+"""
 
 from __future__ import annotations
 
@@ -101,3 +114,67 @@ def barrett64_int(q: int) -> BarrettModulus64:
     """A :class:`BarrettModulus64` of Python ints for one modulus: every
     modular op accepts it on any device without a copy."""
     return BarrettModulus64(*_barrett64_ints(int(q)))
+
+
+class NativeModulus32(NamedTuple):
+    """Implicit modulus 2^32 (wrapping u32 arithmetic)."""
+
+
+class NativeModulus64(NamedTuple):
+    """Implicit modulus 2^64 (wrapping u64 arithmetic)."""
+
+
+class PowOf2Modulus32(NamedTuple):
+    """Modulus ``2^k`` with ``k <= 32``; stores the mask ``2^k - 1``."""
+
+    mask: torch.Tensor
+
+
+class PowOf2Modulus64(NamedTuple):
+    """Modulus ``2^k`` with ``k <= 64``; stores the mask as a u64 pattern."""
+
+    mask: torch.Tensor
+
+
+class CompactModulus32(NamedTuple):
+    """Add/sub-only modulus ``q < 2^30`` (``src/compact/mod.rs:11-49``): no
+    Barrett ratio, for the compare-subtract ops of :mod:`.modops` and the
+    kernels of :mod:`.compact`."""
+
+    value: torch.Tensor
+
+
+class CompactModulus64(NamedTuple):
+    """Add/sub-only modulus ``q < 2^62`` (u64 pattern)."""
+
+    value: torch.Tensor
+
+
+class UintModulus32(NamedTuple):
+    """Compare-subtract fallback modulus, any ``q < 2^31``
+    (``src/uint/mod.rs:11-43``); multiplication callers should prefer
+    :class:`BarrettModulus32`."""
+
+    value: torch.Tensor
+
+
+class UintModulus64(NamedTuple):
+    """Compare-subtract fallback modulus, any ``q < 2^63`` (u64 pattern)."""
+
+    value: torch.Tensor
+
+
+def compact32(q, device=None) -> CompactModulus32:
+    """A :class:`CompactModulus32` from host ints (scalar or array)."""
+    qs = np.asarray(q, dtype=np.uint64)
+    if np.any(qs >= 1 << 30):
+        raise ValueError("CompactModulus32 requires q < 2^30")
+    return CompactModulus32(torch.from_numpy(qs.astype(np.int64)).to(device))
+
+
+def uint32_modulus(q, device=None) -> UintModulus32:
+    """A :class:`UintModulus32` from host ints (scalar or array)."""
+    qs = np.asarray(q, dtype=np.uint64)
+    if np.any(qs >= 1 << 31):
+        raise ValueError("UintModulus32 requires q < 2^31")
+    return UintModulus32(torch.from_numpy(qs.astype(np.int64)).to(device))

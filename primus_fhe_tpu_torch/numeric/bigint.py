@@ -25,6 +25,12 @@ def big_from_int(value: int, limbs: int) -> np.ndarray:
     return np.array([(value >> (32 * i)) & MASK32 for i in range(limbs)], dtype=np.int64)
 
 
+def big_to_int(limbs_arr) -> int:
+    """Host: a little-endian u32 limb vector -> a Python int."""
+    arr = np.asarray(limbs_arr.cpu() if isinstance(limbs_arr, torch.Tensor) else limbs_arr)
+    return sum(int(v) << (32 * i) for i, v in enumerate(arr.reshape(-1)))
+
+
 def big_to_ints(arr) -> np.ndarray:
     """Host: a batch ``(..., L)`` of limbs -> an object array of ints."""
     a = np.asarray(arr.cpu() if isinstance(arr, torch.Tensor) else arr).astype(object)
@@ -79,6 +85,19 @@ def big_mul_u32_add(a, scalar, acc):
         outs.append(s & MASK32)
         carry = hi[..., i] + (s >> 32)
     return torch.stack(outs, dim=-1), carry
+
+
+def big_mod_u32_dot(a, pow_table, m):
+    """``a mod q`` canonical for a 32-bit Barrett modulus via the power table
+    ``pow_table[..., i] = 2^(32 i) mod q``: each limb times its power
+    lazily, the (at most 2^31) terms summed exactly in int64, one wide
+    Barrett reduce.  ``m`` broadcasts against the output shape (the input
+    minus the limb axis)."""
+    from ..modular.modops import barrett_lazy_reduce_wide32, lazy_mul32, reduce_once32
+
+    m_l = m.map(lambda x: x.unsqueeze(-1) if isinstance(x, torch.Tensor) and x.dim() else x)
+    s = lazy_mul32(a, pow_table, m_l).sum(dim=-1)
+    return reduce_once32(barrett_lazy_reduce_wide32(s & MASK32, s >> 32, m), m.value)
 
 
 def big_mod_u64_dot(a, pow_table, m):

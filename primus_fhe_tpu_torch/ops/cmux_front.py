@@ -29,6 +29,9 @@ from .cmux_fused import _basis_pack
 from .rotate import rotate_plain
 
 
+GROUP_PRIMES = 4  # primes a launch (PFT_MAX_KP in csrc/modarith32.cuh)
+
+
 @functools.lru_cache(maxsize=None)
 def _lift_pack(primes: tuple) -> np.ndarray:
     """The kernels' ``PrimeSet`` host pack with the lift's constants only:
@@ -66,7 +69,10 @@ def cmux_front(acc: torch.Tensor, degrees: torch.Tensor, basis, primes) -> torch
     mod 2n) -> the NTT-ready digit residues ``(kp, B, k1, L, n)`` of
     ``acc*X^d - acc`` over the torus-mode gadget ``basis``, canonical mod
     each of ``primes`` (below 2^30).  CPU tensors take the plain version,
-    CUDA tensors kernel G; the output keeps ``acc``'s storage."""
+    CUDA tensors kernel G, which takes up to :data:`GROUP_PRIMES` primes a
+    launch: more primes launch it once a group, each group into its slice
+    ``out[g0:g1]`` of the one output.  The output keeps ``acc``'s
+    storage."""
     primes = tuple(int(p) for p in primes)
     if acc.device.type == "cpu":
         out = cmux_front_plain(widen_u32(acc), degrees, basis, primes)
@@ -78,8 +84,8 @@ def cmux_front(acc: torch.Tensor, degrees: torch.Tensor, basis, primes) -> torch
             torch.int32, torch.int64):
         raise ValueError(f"cmux_front: bad input {acc.dtype} {tuple(acc.shape)}, degrees "
                          f"{tuple(degrees.shape)}")
-    if not 1 <= len(primes) <= 4 or basis.modulus is not None:
-        raise ValueError("cmux_front: 1 to 4 primes and a torus-mode basis")
+    if not primes or basis.modulus is not None:
+        raise ValueError("cmux_front: at least one prime and a torus-mode basis")
     bsz, k1, n = acc.shape
     a = narrow_u32(acc).contiguous()
     d = degrees.to(torch.int32).contiguous()
@@ -87,13 +93,15 @@ def cmux_front(acc: torch.Tensor, degrees: torch.Tensor, basis, primes) -> torch
     out = torch.empty((len(primes), bsz, k1, level, n), dtype=torch.int32, device=a.device)
     if a.numel():
         pack = _basis_pack(basis)  # held until the call returns
-        err = build.library().pft_cmux_front(
-            a.data_ptr(), d.data_ptr(), out.data_ptr(), build.ptr(_lift_pack(primes)),
-            build.ptr(pack), len(primes), bsz, k1, n.bit_length() - 1,
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
-        build.check(err, "cmux_front")
-        cmux_front.launches += 1
+        for g0 in range(0, len(primes), GROUP_PRIMES):
+            group = primes[g0 : g0 + GROUP_PRIMES]
+            err = build.library().pft_cmux_front(
+                a.data_ptr(), d.data_ptr(), out[g0 : g0 + len(group)].data_ptr(),
+                build.ptr(_lift_pack(group)), build.ptr(pack), len(group), bsz, k1,
+                n.bit_length() - 1, torch.cuda.current_stream(a.device).cuda_stream,
+            )
+            build.check(err, "cmux_front")
+            cmux_front.launches += 1
     return out if acc.dtype == torch.int32 else widen_u32(out)
 
 

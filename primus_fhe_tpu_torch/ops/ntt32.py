@@ -41,6 +41,7 @@ from ..numeric.limb import narrow_u32, widen_u32
 from ..transforms.ntt import forward32 as _plan_forward32
 from ..transforms.ntt import inverse32 as _plan_inverse32
 from ..transforms.plan import build_plan32
+from ..utils.contracts import check_range_u32
 from . import build
 
 MAX_PRIMES = 4  # PFT_MAX_KP in csrc/modarith32.cuh
@@ -147,6 +148,7 @@ def forward32(tables: NttTables32, values: torch.Tensor, out_factor: int = 1):
     """
     if out_factor not in (1, 4):
         raise ValueError("out_factor must be 1 or 4")
+    check_range_u32(values, tables.primes, 4, "forward32 input")
     return _run(forward32, forward32_plain, "pft_ntt32_forward", 0, tables, values, out_factor)
 
 
@@ -157,6 +159,7 @@ def inverse32(tables: NttTables32, values: torch.Tensor, out_factor: int = 1):
     :func:`forward32`."""
     if out_factor not in (1, 2):
         raise ValueError("out_factor must be 1 or 2")
+    check_range_u32(values, tables.primes, 2, "inverse32 input")
     return _run(inverse32, inverse32_plain, "pft_ntt32_inverse", 2, tables, values, out_factor)
 
 

@@ -50,6 +50,7 @@ from ..numeric.limb import u64_tensor
 from ..transforms.ntt import forward64 as _plan_forward64
 from ..transforms.ntt import inverse64 as _plan_inverse64
 from ..transforms.plan import NttPlan64, _quot64, build_plan64
+from ..utils.contracts import check_range_u64
 from . import build
 
 MAX_MODULI = 4  # PFT_MAX_MOD64 in csrc/modarith64.cuh
@@ -176,6 +177,7 @@ def ntt64_forward(tables: NttTables64, values: torch.Tensor, out_factor: int = 1
     """
     if out_factor not in (1, 4):
         raise ValueError("out_factor must be 1 or 4")
+    check_range_u64(values, tables.moduli, 4, "ntt64_forward input")
     if values.device.type == "cpu":
         return ntt64_forward_plain(tables, values, out_factor)
     return _launch(ntt64_forward, "pft_ntt64_forward", 0, tables, values, out_factor)
@@ -193,6 +195,7 @@ def ntt64_inverse(tables: NttTables64, values: torch.Tensor, out_factor: int = 1
         raise ValueError("out_factor must be 1 or 2")
     if in_factor < 2 or in_factor & (in_factor - 1):
         raise ValueError("in_factor must be a power of two, at least 2")
+    check_range_u64(values, tables.moduli, in_factor, "ntt64_inverse input")
     if values.device.type == "cpu":
         return ntt64_inverse_plain(tables, values, out_factor, in_factor)
     return _launch(ntt64_inverse, "pft_ntt64_inverse", 2, tables, values, out_factor, in_factor)

@@ -80,6 +80,7 @@ from ..modular.factor import ShoupFactor64, factor_mul64, factor_mul_lazy64
 from ..numeric.limb import narrow_u32, u64_numpy, u64_tensor, widen_u32
 from ..transforms.plan import _quot64, build_plan64
 from ..utils.bits import reverse_lsbs
+from ..utils.contracts import check_range_u64
 from . import build
 from .cmux_mxu import LANES, _balanced_digits, kernel_layout
 from .mxu_common import four_step_matrices
@@ -539,7 +540,10 @@ def mxu8_forward64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
     docstring).
 
     CPU tensors take the plain version, CUDA tensors the kernel (one launch
-    for every modulus)."""
+    for every modulus).  Under ``PRIMUS_DEBUG=1`` it holds the input to the
+    reference's contract, words below ``2^(8 planes)`` below 8 planes."""
+    if tables.planes < 8:
+        check_range_u64(values, 1 << (8 * tables.planes), 1, "mxu8_forward64 input")
     return _run64(mxu8_forward64, mxu8_forward64_plain, "pft_ntt_mxu8_forward64", ("w1s", "w2s"),
                   tables, values, out_factor, (1, 2, 4))
 

@@ -2,9 +2,10 @@
 ``make_context`` and ``make_ntru_context`` in ``primus_fhe_tpu/params.py``).
 
 The parameter records (``TfheParams``, ``TOY``, ``BOOLEAN_128``,
-``NtruParams``, ``NTRU_128``) are copies of the JAX package's, field for
-field; the security and noise validation of the named profiles is
-documented there.  Noise widths are kept apart, as in the reference:
+``BOOLEAN_TFHE_LIB``, ``NtruParams``, ``NTRU_128``) are copies of the JAX
+package's, field for field; the security and noise validation of the named
+profiles is documented there.  ``save_keys`` / ``load_keys`` read and write
+the JAX package's key files.  Noise widths are kept apart, as in the reference:
 
 - TFHE: the bootstrap key is GLWE-encrypted at ``glwe_sigma``;
   key-switch-key rows and fresh encryptions are LWE samples at
@@ -40,10 +41,10 @@ from .ops.ntru_cmux_mxu import prepare_mxu_evk
 from .utils.primes import next_ntt_prime
 
 __all__ = [
-    "BOOLEAN_128", "NTRU_128", "NtruGateKeys", "NtruParams", "TOY", "TfheContext", "TfheParams",
-    "from_jax_context", "from_jax_ntru_context", "from_jax_ntt_key", "gate_noise_stddev",
-    "make_context",
-    "make_ntru_context", "make_ntru_keys",
+    "BOOLEAN_128", "BOOLEAN_TFHE_LIB", "NTRU_128", "NtruGateKeys", "NtruParams", "TOY",
+    "TfheContext", "TfheParams", "from_jax_context", "from_jax_ntru_context", "from_jax_ntt_key",
+    "gate_noise_stddev", "load_keys", "make_context", "make_ntru_context", "make_ntru_keys",
+    "save_keys",
 ]
 
 
@@ -77,6 +78,14 @@ BOOLEAN_128 = TfheParams(
     log_n=11, glwe_dim=1, lwe_dim=630,
     log_basis=7, level=3, ks_log_basis=1, ks_level=12,
     lwe_sigma=2.0**18.6, glwe_sigma=3.2,
+)
+
+# The classic TFHE-lib gate set (N=1024), kept for comparison with the
+# reference's benches; NOT a 128-bit profile (its GLWE layer falls short).
+BOOLEAN_TFHE_LIB = TfheParams(
+    log_n=10, glwe_dim=1, lwe_dim=630,
+    log_basis=7, level=3, ks_log_basis=2, ks_level=8,
+    lwe_sigma=2.0**17, glwe_sigma=128.0,
 )
 
 
@@ -240,6 +249,57 @@ def from_jax_ntt_key(array, conv: tfhe.TorusConvolver32, device="cuda") -> torch
     if arr.min() < 0 or (arr >= primes).any():
         raise ValueError("a word is not a canonical residue of its prime")
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _u32_host(x: torch.Tensor) -> np.ndarray:
+    """int64 (or int32-stored) u32 words on any device -> host numpy uint32."""
+    return (x.detach().to("cpu", torch.int64) & 0xFFFFFFFF).numpy().astype(np.uint32)
+
+
+def save_keys(path, ctx: TfheContext) -> None:
+    """Writes the evaluation keys, secrets and parameters to an ``.npz``
+    (``np.savez_compressed``) in the JAX package's format: the same names,
+    uint32 words in the same layouts, ``params`` int64 and ``sigmas``
+    float64, so either package loads it (:func:`load_keys`)."""
+    if isinstance(ctx.bsk, (tuple, list)):
+        raise ValueError(
+            "save_keys serializes the NTT-domain key; build the context "
+            'with bsk_kind="ntt" (the MXU key pack is a device-resident '
+            "derivative — rebuild it after load with make_bootstrap_key_mxu)"
+        )
+    p = ctx.params
+    np.savez_compressed(
+        path,
+        bsk=_u32_host(ctx.bsk),
+        ksk=_u32_host(ctx.ksk),
+        lwe_secret=_u32_host(ctx.lwe_secret),
+        glwe_secret=_u32_host(ctx.glwe_secret),
+        params=np.array([p.log_n, p.glwe_dim, p.lwe_dim, p.log_basis, p.level,
+                         p.ks_log_basis, p.ks_level], dtype=np.int64),
+        sigmas=np.array([p.lwe_sigma, p.glwe_sigma], dtype=np.float64),
+    )
+
+
+def load_keys(path, device="cuda") -> TfheContext:
+    """A full context from a :func:`save_keys` file (or the JAX package's),
+    on ``device`` (the card unless the caller asks for the CPU); bases and
+    the convolver are derived again from the parameters.  The bootstrap
+    key goes through :func:`from_jax_ntt_key` (prime axis first), which
+    refuses a word that is not a canonical residue of its prime."""
+    with np.load(path) as z:
+        pv, sig = z["params"], z["sigmas"]
+        params = TfheParams(
+            log_n=int(pv[0]), glwe_dim=int(pv[1]), lwe_dim=int(pv[2]),
+            log_basis=int(pv[3]), level=int(pv[4]), ks_log_basis=int(pv[5]),
+            ks_level=int(pv[6]), lwe_sigma=float(sig[0]), glwe_sigma=float(sig[1]),
+        )
+        basis, ks_basis, conv = _bases(params)
+        bsk = from_jax_ntt_key(np.moveaxis(z["bsk"], 1, 0), conv, device).movedim(0, 1)
+        return TfheContext(
+            params, basis, ks_basis, conv, DiscreteGaussian(max(params.lwe_sigma, 1e-6)),
+            _t(z["lwe_secret"], device), _t(z["glwe_secret"], device), bsk.contiguous(),
+            _t(z["ksk"], device),
+        )
 
 
 def gate_noise_stddev(p: TfheParams) -> float:

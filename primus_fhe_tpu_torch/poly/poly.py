@@ -14,7 +14,7 @@ index math (:func:`rot_index`) serves the mod-q rotations here and the
 torus rotation of :func:`..ops.rotate.rotate_plain`.  The reference keeps a
 gather (``poly_mul_monomial*``) and a bit chain of static rolls
 (``poly_rotate*``, the TPU's form) that give the same words; here both
-names are the gather.
+names run the gather and one sign, as kernel F does.
 """
 
 from __future__ import annotations
@@ -70,7 +70,10 @@ def poly_rotate32(a: torch.Tensor, degree, q) -> torch.Tensor:
     return _rotate(a, degree, q, modops.neg32)
 
 
-poly_mul_monomial32 = poly_rotate32
+def poly_mul_monomial32(a: torch.Tensor, degree, q) -> torch.Tensor:
+    """``a * X^degree`` (the reference's gather form): the words of
+    :func:`poly_rotate32`."""
+    return _rotate(a, degree, q, modops.neg32)
 
 
 def poly_evaluate32(a: torch.Tensor, x, m: BarrettModulus32) -> torch.Tensor:
@@ -114,4 +117,8 @@ def poly_mul_monomial64(a: torch.Tensor, degree, q) -> torch.Tensor:
     return _rotate(a, degree, q, modops.neg64)
 
 
-poly_rotate64 = poly_mul_monomial64
+def poly_rotate64(a: torch.Tensor, degree, q) -> torch.Tensor:
+    """``a * X^degree`` over u64 words (the reference's roll-chain name):
+    the words of :func:`poly_mul_monomial64`, ``degree`` broadcasting
+    against ``a.shape[:-1]``."""
+    return _rotate(a, degree, q, modops.neg64)

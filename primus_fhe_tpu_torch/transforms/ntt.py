@@ -27,6 +27,7 @@ import torch
 from ..modular.modops import mul32, mul64, reduce_once32, reduce_once64, reduce_twice32, reduce_twice64
 from ..numeric.limb import MASK32, mul_hi_u64, mulhi_u32
 from ..utils.bits import reverse_lsbs
+from ..utils.contracts import check_range_u32, check_range_u64
 from .plan import NttPlan32, NttPlan64
 
 
@@ -39,6 +40,7 @@ def forward32(plan: NttPlan32, values: torch.Tensor, out_factor: int = 1):
     """Forward NTT; input normal order, output bit-reversed."""
     if out_factor not in (1, 4):
         raise ValueError("out_factor must be 1 or 4")
+    check_range_u32(values, plan.q, 4, "forward32 input")
     n, q = plan.n, plan.q
     two_q = 2 * q
     batch = values.shape[:-1]
@@ -62,6 +64,7 @@ def inverse32(plan: NttPlan32, values: torch.Tensor, out_factor: int = 1):
     """Inverse NTT; input bit-reversed in ``[0,2q)``, normal-order output."""
     if out_factor not in (1, 2):
         raise ValueError("out_factor must be 1 or 2")
+    check_range_u32(values, plan.q, 2, "inverse32 input")
     n, q = plan.n, plan.q
     two_q = 2 * q
     batch = values.shape[:-1]
@@ -128,6 +131,7 @@ def forward64(plan: NttPlan64, values: torch.Tensor, out_factor: int = 1):
     output bit-reversed."""
     if out_factor not in (1, 4):
         raise ValueError("out_factor must be 1 or 4")
+    check_range_u64(values, plan.q, 4, "forward64 input")
     n, q = plan.n, plan.q
     two_q = 2 * q
     batch = values.shape[:-1]
@@ -152,6 +156,7 @@ def inverse64(plan: NttPlan64, values: torch.Tensor, out_factor: int = 1):
     normal-order output."""
     if out_factor not in (1, 2):
         raise ValueError("out_factor must be 1 or 2")
+    check_range_u64(values, plan.q, 2, "inverse64 input")
     n, q = plan.n, plan.q
     two_q = 2 * q
     batch = values.shape[:-1]

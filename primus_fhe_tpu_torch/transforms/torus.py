@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from ..modular.factor import factor_mul32, shoup32
-from ..modular.modops import add32, barrett_lazy_reduce32, mul32, reduce_once32, sub32
+from ..modular.modops import (add32, barrett_lazy_reduce32, lazy_mul32, mul32, reduce_once32,
+                              sub32)
 from ..modular.modulus import barrett32
 from ..numeric.limb import MASK32, as_i64, u64_tensor
 from ..ops import ntt32
@@ -135,6 +136,18 @@ class TorusConvolver32:
         ``(k, ...)`` (broadcasting)."""
         extra = max(fa.dim(), fb.dim()) - 1
         return mul32(fa, fb, self._m(fa, extra))
+
+    def add_mul_lazy(self, acc: torch.Tensor, fa: torch.Tensor, fb: torch.Tensor,
+                     extra: int | None = None) -> torch.Tensor:
+        """``acc + fa * fb`` with a lazy product, canonical (the accumulate
+        of ``FourierPolynomial::add_mul_assign``: exact, one reduce a
+        term).  ``extra``: the trailing axes after the prime axis (default:
+        from the operands)."""
+        if extra is None:
+            extra = max(acc.dim(), fa.dim(), fb.dim()) - 1
+        m = self._m(fa, extra)
+        t = lazy_mul32(fa, fb, m)
+        return reduce_once32(add32(acc, reduce_once32(t, m.value), m.value), m.value)
 
     def inverse(self, res: torch.Tensor) -> torch.Tensor:
         """NTT-domain residues -> coefficient-domain residues, canonical."""

@@ -1,2 +1,3 @@
-"""Host-side integer helpers (copies of what the port uses of
-``primus_fhe_tpu/utils``): modular inverses, NTT primes, bit reversal."""
+"""Host-side helpers (copies of ``primus_fhe_tpu/utils``): modular inverses,
+NTT primes, bit reversal, range contracts, serialization, secrets,
+profiling and the security estimator."""

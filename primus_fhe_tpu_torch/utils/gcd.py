@@ -1,5 +1,5 @@
 """Extended GCD and modular inverses over Python integers (copy of
-``xgcd``, ``gcdinv`` and ``mod_inv`` in ``primus_fhe_tpu/utils/gcd.py``).
+``primus_fhe_tpu/utils/gcd.py``).
 
 Plan-time host code: table construction needs a handful of inverses, never
 the device.
@@ -39,3 +39,23 @@ def mod_inv(a: int, m: int) -> int:
     if g != 1:
         raise ValueError(f"{a} is not invertible modulo {m}")
     return inv
+
+
+def hensel_inv_pow2(a: int, k: int) -> int:
+    """Inverse of odd ``a`` modulo ``2^k`` via Hensel / Newton lifting.
+
+    The reference seeds from a 128-entry byte table and doubles precision per
+    step (``crates/primus_gcd/src/lib.rs``); the same quadratic lift is used
+    here starting from the trivial 1-bit inverse.
+    """
+    if a % 2 == 0:
+        raise ValueError("only odd values are invertible modulo 2^k")
+    if k <= 0:
+        raise ValueError("k must be positive")
+    mask = (1 << k) - 1
+    x = 1  # inverse mod 2
+    bits = 1
+    while bits < k:
+        bits *= 2
+        x = (x * (2 - a * x)) & ((1 << min(bits, k)) - 1)
+    return x & mask

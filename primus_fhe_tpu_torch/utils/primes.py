@@ -1,4 +1,4 @@
-"""NTT-friendly primes (copy of ``is_prime`` and ``next_ntt_prime`` in
+"""NTT-friendly primes (copy of
 ``primus_fhe_tpu/utils/primes.py``), host-side and exact."""
 
 from __future__ import annotations
@@ -44,3 +44,14 @@ def next_ntt_prime(bits: int, log_n: int, below: int | None = None) -> int:
             return q
         q -= step
     raise ValueError(f"no NTT prime with {bits} bits for log_n={log_n}")
+
+
+def ntt_prime_chain(bits: int, log_n: int, count: int) -> list[int]:
+    """``count`` distinct descending NTT-friendly primes just below ``2^bits``."""
+    primes: list[int] = []
+    below: int | None = None
+    for _ in range(count):
+        q = next_ntt_prime(bits, log_n, below)
+        primes.append(q)
+        below = q
+    return primes

@@ -1153,3 +1153,61 @@ def test_circuit_bootstrap_mux_and_key_switches_match_cpu(dev):
                        glev.glwe_phase32(c.cpu(), s_ntt.cpu(), tables, m))
     assert torch.equal(rlwe.phase32(c[:, :2], s_ntt[0], tables, m.map(lambda x: x.to(dev))).cpu(),
                        rlwe.phase32(c[:, :2].cpu(), s_ntt[0].cpu(), tables, m))
+
+
+@pytest.mark.parametrize("kp", [5, 8])
+def test_cmux_front_over_four_primes(dev, kp):
+    """Kernel G over more primes than a launch takes: one launch a group of
+    at most 4 primes, each into its slice of the one output, equal to the
+    plain version (int64 and int32 storage)."""
+    primes = [next_ntt_prime(30, 11)]
+    while len(primes) < kp:
+        primes.append(next_ntt_prime(30, 11, primes[-1]))
+    gen = torch.Generator(device=dev).manual_seed(500 + kp)
+    acc = torch.randint(0, 1 << 32, (6, 2, 2048), generator=gen, device=dev)
+    degrees = torch.randint(-8192, 8193, (6,), generator=gen, device=dev, dtype=torch.int32)
+    basis = ApproxSignedBasis32(None, 7, reverse_length=3)
+    want = cmux_front.cmux_front_plain(acc, degrees, basis, primes)
+    before = cmux_front.cmux_front.launches
+    got = cmux_front.cmux_front(acc, degrees, basis, primes)
+    torch.cuda.synchronize()
+    assert cmux_front.cmux_front.launches - before == -(-kp // cmux_front.GROUP_PRIMES)
+    assert torch.equal(got, want)
+    got32 = cmux_front.cmux_front(acc.to(torch.int32), degrees, basis, primes)
+    assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want)
+
+
+def test_load_keys_and_tracked_gates_on_the_card(tmp_path):
+    """A TOY context made on the CPU, saved, and loaded onto the card by
+    ``load_keys``'s default device: the same words; tracked NAND, AND and OR
+    on the card (the fused CMux step once a key slice, kernel F once a gate)
+    give the CPU context's words and variances on the same inputs; an
+    inflated variance is refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from primus_fhe_tpu_torch import noise, tracked
+
+    p = P.TOY
+    ctx = P.make_context(p, "cpu", torch.Generator().manual_seed(22), bsk_kind="ntt")
+    P.save_keys(tmp_path / "keys.npz", ctx)
+    card = P.load_keys(tmp_path / "keys.npz")
+    assert card.device.type == "cuda"
+    for name in ("bsk", "ksk", "lwe_secret", "glwe_secret"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(ctx, name)), name
+    g = torch.Generator().manual_seed(23)
+    a = tracked.encrypt_bit(ctx, g, torch.tensor([0, 0, 1, 1]))
+    b = tracked.encrypt_bit(ctx, g, torch.tensor([0, 1, 0, 1]))
+    on_card = lambda t: tracked.TrackedLwe(t.ct.to(card.device), t.noise)  # noqa: E731
+    for kind in ("nand", "and", "or"):
+        steps, rots = cmux_fused.fused_cmux_step.launches, rotate.rotate.launches
+        got = tracked.gate(card, kind, on_card(a), on_card(b))
+        torch.cuda.synchronize()
+        assert cmux_fused.fused_cmux_step.launches - steps == p.lwe_dim
+        assert rotate.rotate.launches - rots == 1
+        want = tracked.gate(ctx, kind, a, b)
+        assert torch.equal(got.ct.cpu(), want.ct) and got.noise == want.noise
+    bad = tracked.TrackedLwe(on_card(a).ct, noise.NoiseEstimate(2.0**58))
+    steps = cmux_fused.fused_cmux_step.launches
+    with pytest.raises(ValueError, match="unsafe"):
+        tracked.gate(card, "nand", bad, bad)
+    assert cmux_fused.fused_cmux_step.launches == steps

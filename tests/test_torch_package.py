@@ -2,8 +2,8 @@
 rank module ``tests/_torch_dist_workers.py``), and ``chip_smoke.py``
 refuses to run without a CUDA card.  Both run in a subprocess: the root
 conftest imports jax into this process.  The port's copies of the JAX
-package's host helpers (parameter records, ``GoldenNtt``, ``noise``, ``distr.stats``) equal
-the originals."""
+package's host helpers (parameter records, ``golden.model``, ``noise``, ``distr.stats``,
+``utils.security``, ``distr.ziggurat``, ``transforms.fft``) equal the originals."""
 
 import dataclasses
 import os
@@ -73,6 +73,22 @@ MODULES = [
     "primus_fhe_tpu_torch.boot.circuit_bootstrap",
     "primus_fhe_tpu_torch.distr.stats",
     "primus_fhe_tpu_torch.poly.poly",
+    "primus_fhe_tpu_torch.modular",
+    "primus_fhe_tpu_torch.modular.compact",
+    "primus_fhe_tpu_torch.modular.modulus",
+    "primus_fhe_tpu_torch.modular.factor",
+    "primus_fhe_tpu_torch.distr",
+    "primus_fhe_tpu_torch.distr.ziggurat",
+    "primus_fhe_tpu_torch.transforms",
+    "primus_fhe_tpu_torch.transforms.fft",
+    "primus_fhe_tpu_torch.tracked",
+    "primus_fhe_tpu_torch.native",
+    "primus_fhe_tpu_torch.golden",
+    "primus_fhe_tpu_torch.utils.contracts",
+    "primus_fhe_tpu_torch.utils.profiling",
+    "primus_fhe_tpu_torch.utils.secrets",
+    "primus_fhe_tpu_torch.utils.security",
+    "primus_fhe_tpu_torch.utils.serialize",
     "_torch_dist_workers",  # tests/: the gloo ranks' module
 ]
 
@@ -121,7 +137,7 @@ def test_host_copies_equal_the_jax_package():
     from primus_fhe_tpu_torch.golden.model import GoldenNtt
     from primus_fhe_tpu_torch.utils.primes import next_ntt_prime
 
-    for name in ("TOY", "BOOLEAN_128", "NTRU_128"):
+    for name in ("TOY", "BOOLEAN_128", "BOOLEAN_TFHE_LIB", "NTRU_128"):
         assert dataclasses.asdict(getattr(params, name)) == dataclasses.asdict(
             getattr(jparams, name)), name
     assert params.NTRU_128.q == jparams.NTRU_128.q and params.BOOLEAN_128.n == 2048
@@ -145,3 +161,29 @@ def test_host_copies_equal_the_jax_package():
         args = (samples,) if name == "sample_moments" else (samples, 3.2, 20)
         assert getattr(stats, name)(*args) == getattr(jstats, name)(*args), name
     assert np.array_equal(stats.discrete_gaussian_pmf(3.2, 20), jstats.discrete_gaussian_pmf(3.2, 20))
+    from primus_fhe_tpu.distr import ziggurat as jzig
+    from primus_fhe_tpu.golden import model as jmodel
+    from primus_fhe_tpu.transforms import fft as jfft
+    from primus_fhe_tpu.utils import security as jsec
+    from primus_fhe_tpu_torch.distr import ziggurat
+    from primus_fhe_tpu_torch.golden import model
+    from primus_fhe_tpu_torch.transforms import fft
+    from primus_fhe_tpu_torch.utils import security
+
+    q = 1125899906826241
+    assert model.barrett_lazy_reduce_wide(12345, 678, q, 64) == jmodel.barrett_lazy_reduce_wide(
+        12345, 678, q, 64)
+    a, b = list(range(1, 17)), list(range(30, 14, -1))
+    assert model.GoldenNtt(4, q).negacyclic_mul(a, b) == jmodel.naive_negacyclic_mul(a, b, q)
+    est, jest = security.lwe_security(630, 2.0**32, 2.0**17), jsec.lwe_security(630, 2.0**32, 2.0**17)
+    assert dataclasses.astuple(est) == dataclasses.astuple(jest)
+    f = noise.NoiseEstimate(3.0)
+    assert noise.modulus_switch(f, 630, 12) == noise.NoiseEstimate(
+        jnoise.modulus_switch(jnoise.NoiseEstimate(3.0), 630, 12).variance)
+    assert noise.cmux(f, 3.2, 2048, 1, 3, 7, 11).variance == jnoise.cmux(
+        jnoise.NoiseEstimate(3.0), 3.2, 2048, 1, 3, 7, 11).variance
+    z, jz = ziggurat.DiscreteZiggurat(40.0), jzig.DiscreteZiggurat(40.0)
+    assert np.array_equal(z.x, jz.x) and np.array_equal(z.y, jz.y)
+    t, jt = fft.Complex128FftTable(4), jfft.Complex128FftTable(4)
+    assert np.array_equal(t.twist, jt.twist) and np.array_equal(t.inv_twist_scaled,
+                                                                jt.inv_twist_scaled)
