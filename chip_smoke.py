@@ -143,7 +143,21 @@ non-zero):
     tensors against the CPU's words, the ternary and CRT samplers on a CUDA
     generator (frequencies within 5 sigma), kernel 1 refusing a 4q input
     under ``PRIMUS_DEBUG=1`` before its launch, and ``secrets.delete``
-    zeroing the reloaded secrets on the card.
+    zeroing the reloaded secrets on the card;
+21. the NTT-key blind rotation past the one-launch step's caps: kernels 1-2
+    at log_n 15 and 16 (a row over a cluster) over 2 and 3 primes, 1 and 16
+    rows a prime, every ``out_factor`` against the plain versions, timed,
+    and log_n 17 refused before any launch; kernel H (``cmux_stage2``) and
+    the staged step (kernel G, kernel 1, kernel H) over 4 steps at batch 2
+    against the plain step at N = 2^15 (L 3, kp 2), 2^16 (kp 3), 2^10 with
+    k = 2 over 3 primes and 2^10 with a 2^1 x 20 gadget, H's and the step's
+    device ms at N = 2^15, batch 1 and 16, against H's bound; BOOLEAN_128
+    with its ring widened to N = 2^15 (``make_context`` on the card) running
+    a 4-bit programmable bootstrap (``lut_test_polynomial`` of 3m + 1 mod
+    16) on 16 ciphertexts, each decrypted under the GLWE key, the phase
+    error against ``noise.blind_rotate``, exact launches (630 each of G,
+    kernel 1 and H, one F, no fused step), ms at batch 1 and 16 and the
+    idle share; a BOOLEAN_128 bootstrap still on the fused step alone.
 
 The line before the last is the kernel table as JSON (every kernel with its
 launches on its main path, its time, its plain version's time and its bound,
@@ -2074,6 +2088,226 @@ def phase20_tracked(torch, dev, ctx, smi, reset_counts, read_counts) -> dict:
     return totals
 
 
+WIDE_LOG_N = 15  # phase 21: BOOLEAN_128 with its ring widened to N = 2^15
+WIDE_BATCH = 16  # 21.2's batch for kernel H's times; 21.3's 16 ciphertexts
+MSG_BITS = 4  # 21.3: the programmable bootstrap's message bits (and a padding bit)
+# 21.2: (log_n, log_basis, level, k, bound_bits or None: make_convolver's)
+STAGED_SHAPES = [(15, 7, 3, 1, None), (16, 7, 3, 1, 60), (10, 7, 3, 2, 60), (10, 1, 20, 1, None)]
+
+
+def stage2_bound(kp: int, bsz: int, k1: int, level: int, n: int) -> tuple[float, str]:
+    """Kernel H's :func:`bound`: the digits, the key slice, the accumulator
+    in and out and the inverse tables once; the MAC's products and the kp
+    B k1 inverse NTTs."""
+    nbytes = 4 * (kp * bsz * k1 * level * n + kp * k1 * level * k1 * n + 2 * bsz * k1 * n
+                  + 2 * kp * n)
+    return bound(nbytes, muls32=kp * bsz * k1 * k1 * level * n + ntt_muls(kp * bsz * k1, n))
+
+
+def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> dict:
+    """Phase 21: the NTT-key blind rotation past the one-launch step's caps.
+    21.1 kernels 1-2 at log_n 15-16 (a row over a cluster); 21.2 kernel H
+    and the staged step (kernel G, kernel 1, kernel H) against the plain
+    step; 21.3 a 4-bit programmable bootstrap at N = 2^15 on the card;
+    21.4 BOOLEAN_128 still on the fused step.  Returns 21.3's launch counts
+    of one bootstrap."""
+    import dataclasses
+
+    from primus_fhe_tpu_torch import noise
+    from primus_fhe_tpu_torch import params as P
+    from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap, lut_test_polynomial
+    from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
+    from primus_fhe_tpu_torch.lattice import tfhe
+    from primus_fhe_tpu_torch.lattice.lwe import encrypt_torus32, phase_torus32
+    from primus_fhe_tpu_torch.ops import cmux_front, cmux_fused, ntt32
+    from primus_fhe_tpu_torch.transforms.torus import TorusConvolver32
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    def residues(primes, shape, factor):
+        q = torch.tensor(primes, dtype=torch.int64, device=dev).reshape((-1,) + (1,) * len(shape))
+        return torch.randint(0, 1 << 40, (len(primes),) + shape, generator=g, device=dev) % (
+            factor * q)
+
+    # -- 21.1: kernels 1-2 at log_n 15-16 --------------------------------------
+    log("-- 21.1: kernels 1-2 at log_n 15-16 (a row over a cluster of 2 or 4 blocks)")
+    for log_n in (15, 16):
+        n = 1 << log_n
+        for kp in (2, 3):
+            tables = TorusConvolver32(log_n, 56 if kp == 2 else 60).ntt
+            if len(tables.primes) != kp:
+                raise AssertionError(f"log_n {log_n}: {len(tables.primes)} primes, want {kp}")
+            for rows in (1, WIDE_BATCH):
+                x4, x2 = residues(tables.primes, (rows, n), 4), residues(tables.primes, (rows, n), 2)
+                for of in (1, 4):
+                    if not torch.equal(ntt32.forward32(tables, x4, of),
+                                       ntt32.forward32_plain(tables, x4, of)):
+                        raise AssertionError(f"forward32 log_n {log_n} kp {kp} x {rows}: != plain")
+                for of in (1, 2):
+                    if not torch.equal(ntt32.inverse32(tables, x2, of),
+                                       ntt32.inverse32_plain(tables, x2, of)):
+                        raise AssertionError(f"inverse32 log_n {log_n} kp {kp} x {rows}: != plain")
+                b = bound(8 * kp * rows * n, muls32=ntt_muls(kp * rows, n))
+                x4_32, x2_32 = x4.to(torch.int32), x2.to(torch.int32)
+                compare_kernel(torch, table, f"ntt32_forward@log{log_n}kp{kp}", rows,
+                               lambda: ntt32.forward32(tables, x4, 4),
+                               lambda: ntt32.forward32(tables, x4_32, 4),
+                               lambda: ntt32.forward32_plain(tables, x4, 4), b)
+                compare_kernel(torch, table, f"ntt32_inverse@log{log_n}kp{kp}", rows,
+                               lambda: ntt32.inverse32(tables, x2),
+                               lambda: ntt32.inverse32(tables, x2_32),
+                               lambda: ntt32.inverse32_plain(tables, x2), b)
+    log("kernels 1-2 at log_n 15 and 16, kp 2 and 3, 1 and 16 rows a prime: every out_factor "
+        "bit-equal to the plain versions (timed: the forward at out_factor 4, the staged "
+        "route's, and the canonical inverse)")
+    big = TorusConvolver32(17).ntt
+    before = (ntt32.forward32.launches, ntt32.inverse32.launches)
+    for fn in (ntt32.forward32, ntt32.inverse32):
+        try:
+            fn(big, torch.zeros((len(big.primes), 1, 1 << 17), dtype=torch.int64, device=dev))
+        except ValueError as e:
+            if "log_n 1-16" not in str(e):
+                raise
+            refusal = str(e)
+        else:
+            raise AssertionError(f"{fn.__name__} took log_n 17 on the card")
+    if (ntt32.forward32.launches, ntt32.inverse32.launches) != before:
+        raise AssertionError("log_n 17 launched a kernel")
+    log(f"log_n 17: ValueError before any launch ({refusal})")
+
+    # -- 21.2: kernel H and the staged step ------------------------------------
+    log("-- 21.2: kernel H (cmux_stage2) and the staged step against the plain step")
+    for log_n, log_basis, level, k, bound_bits in STAGED_SHAPES:
+        conv = (TorusConvolver32(log_n, bound_bits) if bound_bits
+                else tfhe.make_convolver(log_n, level, k, log_basis))
+        basis = ApproxSignedBasis32(None, log_basis, reverse_length=level)
+        n, kp, k1 = 1 << log_n, conv.count, k + 1
+        plan = cmux_fused.CmuxStepPlan(conv, basis, k1, dev)
+        if plan.route != "staged":
+            raise AssertionError(f"{(log_n, level, kp, k1)}: route {plan.route}, want staged")
+        acc = torch.randint(0, 1 << 32, (2, k1, n), generator=g, device=dev)
+        key = residues(conv.primes, (k1, level, k1, n), 1)
+        acc32, key32 = acc.to(torch.int32), key.to(torch.int32)
+        counted = (cmux_front.cmux_front, ntt32.forward32, cmux_fused.cmux_stage2,
+                   cmux_fused.fused_cmux_step)
+        l0 = [fn.launches for fn in counted]
+        for step in range(4):
+            deg = torch.randint(0, 2 * n, (2,), generator=g, device=dev, dtype=torch.int32)
+            acc = cmux_fused.cmux_stage2_plain(
+                conv, cmux_fused.cmux_stage1_plain(conv, basis, acc, deg), key, acc)
+            plan(acc32, deg, key32, out=acc32)
+            if not torch.equal(acc32.to(torch.int64) & 0xFFFFFFFF, acc):
+                raise AssertionError(f"staged step {step} at {(log_n, level, kp, k1)} != plain")
+        launched = [fn.launches - b for fn, b in zip(counted, l0)]
+        if launched != [4, 4, 4, 0]:
+            raise AssertionError(f"staged steps at {(log_n, level, kp, k1)}: launches {launched}")
+        log(f"log_n {log_n}, 2^{log_basis} x {level}, k1 {k1} over {kp} primes (kp k1 = "
+            f"{kp * k1}): 4 staged steps at batch 2 bit-equal to the plain step; launches G / "
+            f"kernel 1 / H / fused {launched}; H's launch (blocks a row, threads, shared bytes, "
+            f"clusters held) {cmux_fused.launch_grid(conv)}")
+    wide = dataclasses.replace(P.BOOLEAN_128, log_n=WIDE_LOG_N)
+    conv = tfhe.make_convolver(wide.log_n, wide.level, wide.glwe_dim, wide.log_basis)
+    basis = ApproxSignedBasis32(None, wide.log_basis, reverse_length=wide.level)
+    n, kp, k1, level = wide.n, conv.count, wide.glwe_dim + 1, wide.level
+    key = residues(conv.primes, (k1, level, k1, n), 1)
+    key32 = key.to(torch.int32)
+    plan = cmux_fused.CmuxStepPlan(conv, basis, k1, dev)
+    for bsz in (1, WIDE_BATCH):
+        f = residues(conv.primes, (bsz * k1, level, n), 4)
+        acc = torch.randint(0, 1 << 32, (bsz, k1, n), generator=g, device=dev)
+        f32, acc32 = f.to(torch.int32), acc.to(torch.int32)
+        hb = stage2_bound(kp, bsz, k1, level, n)
+        compare_kernel(torch, table, "cmux_stage2", bsz,
+                       lambda: cmux_fused.cmux_stage2(conv, f, key, acc),
+                       lambda: cmux_fused.cmux_stage2(conv, f32, key32, acc32),
+                       lambda: cmux_fused.cmux_stage2_plain(conv, f, key, acc), hb)
+        h_ms = table["cmux_stage2"][bsz][3]
+        deg = torch.randint(0, 2 * n, (bsz,), generator=g, device=dev, dtype=torch.int32)
+        digits = torch.empty((kp, bsz, k1, level, n), dtype=torch.int32, device=dev)
+        g_ms = kernel_device_ms(torch, lambda: cmux_front.cmux_front(acc32, deg, basis,
+                                                                     conv.primes, out=digits))
+        one_ms = kernel_device_ms(torch, lambda: ntt32.forward32(conv.ntt, digits, 4, out=digits))
+        step_ms = kernel_device_ms(torch, lambda: plan(acc32, deg, key32, out=acc32))
+        log(f"[{smi}] staged step at N = 2^{WIDE_LOG_N}, batch {bsz}: device {step_ms:.4f} ms "
+            f"(CUDA events behind a sleep): G {g_ms:.4f}, kernel 1 {one_ms:.4f}, H {h_ms:.4f} "
+            f"ms; H's bound {hb[0]:.4f} ms ({hb[1]}), share {hb[0] / h_ms:.4f}")
+
+    # -- 21.3: a 4-bit programmable bootstrap at N = 2^15 -------------------------
+    log(f"-- 21.3: make_context(BOOLEAN_128 at N = 2^{WIDE_LOG_N}, bsk_kind='ntt') and a "
+        f"{MSG_BITS}-bit programmable bootstrap")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: keygen here peaks near 30 GB
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wctx = P.make_context(wide, dev, gen, bsk_kind="ntt")
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    log(f"keygen: {keygen_s:.3f} s; bsk {tuple(wctx.bsk.shape)} "
+        f"({wctx.bsk.numel() * wctx.bsk.element_size() / 1e9:.2f} GB), ksk "
+        f"{tuple(wctx.ksk.shape)}; primes {wctx.conv.primes}")
+    delta = 1 << (32 - MSG_BITS - 1)  # the padding bit: messages in [0, 2^31)
+    f_of = [(3 * m + 1) % (1 << MSG_BITS) for m in range(1 << MSG_BITS)]
+    tp = lut_test_polynomial([v * delta for v in f_of], wide.log_n, MSG_BITS).to(dev)
+    msgs = torch.arange(1 << MSG_BITS, device=dev)
+    cts = encrypt_torus32(msgs * delta, wctx.lwe_secret, wctx.gaussian, gen)
+    reset_counts()
+    out = bootstrap(wctx.conv, wctx.basis, wctx.bsk, cts, tp, wide.log_n)
+    counts = read_counts()
+    ph = phase_torus32(out, wctx.glwe_secret.reshape(-1))
+    got = ((ph + delta // 2) // delta) % (2 << MSG_BITS)
+    want = torch.tensor(f_of, device=dev)
+    log(f"16 messages m -> f(m) = 3m + 1 mod 16, decrypted under the GLWE key: "
+        f"{got.tolist()}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"programmable bootstrap: got {got.tolist()}, want {want.tolist()}")
+    err = ph - want * delta
+    err = torch.where(err >= 1 << 31, err - (1 << 32), err).double()
+    pred = noise.blind_rotate(wide.lwe_dim, wide.glwe_sigma, n, wide.glwe_dim, level,
+                              wide.log_basis, wctx.basis.drop_bits)
+    pre = noise.modulus_switch(noise.fresh_lwe(wide.lwe_sigma), wide.lwe_dim, wide.log_n + 1)
+    ks = noise.key_switch(pred, wide.lwe_sigma, wide.glwe_dim * n, wide.ks_level,
+                          wide.ks_log_basis, wctx.ks_basis.drop_bits)
+    std = err.std().item()
+    log(f"phase error of the 16 extracted samples: std {std:.1f} (2^{math.log2(std):.2f}), max "
+        f"|e| {err.abs().max().item():.0f}; noise.blind_rotate predicts {pred.stddev:.1f} "
+        f"(2^{math.log2(pred.stddev):.2f}), ratio {std / pred.stddev:.3f}; the model's margins "
+        f"at {MSG_BITS} bits: pre-rotation {pre.decryption_failure_margin(MSG_BITS):.2f}, "
+        f"bootstrapped sample {pred.decryption_failure_margin(MSG_BITS):.2f}, after the key "
+        f"switch {ks.decryption_failure_margin(MSG_BITS):.3f} (1 bit: "
+        f"{ks.decryption_failure_margin(1):.3f}; so no key switch here)")
+    want_counts = {name: 0 for name in counts} | {
+        "cmux_front": wide.lwe_dim, "forward32": wide.lwe_dim, "cmux_stage2": wide.lwe_dim,
+        "rotate": 1}
+    log(f"launches of one bootstrap at batch 16: {json.dumps(counts)}")
+    if counts != want_counts:
+        raise AssertionError(f"programmable bootstrap launches {counts}, want {want_counts}")
+    boot = lambda c: bootstrap(wctx.conv, wctx.basis, wctx.bsk, c, tp, wide.log_n)  # noqa: E731
+    lat = min(wall_ms(torch, lambda: boot(cts[:1]), 3))
+    rate = min(wall_ms(torch, lambda: boot(cts), 3))
+    busy, rows = device_time(torch, lambda: boot(cts))
+    idle = "not measured" if busy is None else f"{1 - busy / rate:.3f}"
+    log(f"[{smi}] programmable bootstrap at N = 2^{WIDE_LOG_N}: batch 1 {lat:.2f} ms, batch 16 "
+        f"{rate:.2f} ms ({16e3 / rate:.1f} bootstraps/s) (host clock, synchronised, least of "
+        f"3); device busy {busy if busy is None else round(busy, 3)} ms of the batch-16 run -> "
+        f"idle share {idle}; top device rows: "
+        + "; ".join(f"{key_[:50]} x{c} ({ms_:.2f} ms)" for ms_, c, key_ in rows[:4]))
+    del wctx, cts, out
+
+    # -- 21.4: BOOLEAN_128 stays on the fused step --------------------------------
+    p = ctx.params
+    reset_counts()
+    ct = ctx.encrypt(torch.tensor([1, 0], device=dev), gen)
+    bootstrap(ctx.conv, ctx.basis, ctx.bsk, ct,
+              torch.full((p.n,), 1 << 29, dtype=torch.int64, device=dev), p.log_n)
+    fused = read_counts()
+    if fused["fused_cmux_step"] != p.lwe_dim or fused["cmux_stage2"] or fused["cmux_front"]:
+        raise AssertionError(f"BOOLEAN_128 bootstrap launches {fused}")
+    log(f"-- 21.4: a BOOLEAN_128 bootstrap: {fused['fused_cmux_step']} fused_cmux_step "
+        f"launches, {fused['cmux_stage2']} of kernel H, {fused['cmux_front']} of G (the fused "
+        f"route, as before)")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -2268,7 +2502,7 @@ def main() -> None:
 
     counted = (ntt32.forward32, ntt32.inverse32, cmux_fused.fused_cmux_step,
                cmux_mxu.mxu_cmux_step, ntru_cmux_mxu.ntru_cmux_step, ntt_mxu8.mxu8_forward32,
-               rotate.rotate, cmux_front.cmux_front)
+               rotate.rotate, cmux_front.cmux_front, cmux_fused.cmux_stage2)
 
     def reset_counts():
         for fn in counted:
@@ -2588,6 +2822,11 @@ def main() -> None:
         f"{BATCH}, the host layer (modops, compact, samplers, containers, contracts, secrets)")
     counts_tr = phase20_tracked(torch, dev, ctx, smi, reset_counts, read_counts)
 
+    # -- phase 21: the NTT-key rotation past the one-launch step's caps --------
+    log(f"== phase 21: kernels 1-2 at log_n 15-16, kernel H and the staged CMux step, a "
+        f"{MSG_BITS}-bit programmable bootstrap at N = 2^{WIDE_LOG_N}")
+    counts_21 = phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts)
+
     # -- the kernel table -----------------------------------------------------
     # name -> (source, TPU kernel, launches on its main path, the table key of
     # the "ms" shape, the batch of the extra "ms_b" columns or None)
@@ -2630,6 +2869,8 @@ def main() -> None:
                       counts_x["split_ki1"], (RT_BATCH, None)),
         "split_ki2": ("ntt_mxu8_split.cu", "parallel/coeff_sharded_mxu.py:297",
                       counts_x["split_ki2"], (RT_BATCH, None)),
+        "cmux_stage2": ("cmux_stage2.cu", "ops/cmux_fused.py:226", counts_21["cmux_stage2"],
+                        (1, WIDE_BATCH)),
     }
     kernels = []
     for name, (src, rep, launches, (b0, bb)) in sources.items():
@@ -2664,10 +2905,17 @@ def main() -> None:
             row["launches_cb_path"] = counts_cb[cb_name]
         if name in ("fused_cmux_step", "rotate"):  # phase 20's three tracked gates
             row["launches_tracked_path"] = counts_tr[name]
-        if name in ("ntt32_forward", "ntt32_inverse"):  # phases 17-18's paths
+        if name in ("ntt32_forward", "ntt32_inverse"):  # phases 17-18's and 21.3's paths
             key = name.replace("ntt32_", "") + "32"
             row.update({"launches_sharded_dcrt32_path": counts_17[key],
-                        "launches_torus64_path": counts_18[key]})
+                        "launches_torus64_path": counts_18[key],
+                        "launches_staged_path": counts_21[key]})
+        for log_n, kp in ((15, 2), (16, 3)):  # kernels 1-2 over a cluster (21.1), 16 rows
+            if f"{name}@log{log_n}kp{kp}" in table:
+                _, lms, lpms, ldev, (lbms, lbby) = table[f"{name}@log{log_n}kp{kp}"][WIDE_BATCH]
+                row.update({f"ms_log{log_n}": lms, f"plain_ms_log{log_n}": lpms,
+                            f"device_ms_log{log_n}": ldev, f"bound_ms_log{log_n}": lbms,
+                            f"bound_by_log{log_n}": lbby})
         for tag in ("w15", "w16"):  # row 11 on the n = 2^16, 2^17 shards over D = 2
             if f"{name}@{tag}" in table:
                 _, wms, wpms, wdev, (wbms, _) = table[f"{name}@{tag}"][LARGE_ROWS]

@@ -41,6 +41,19 @@
 //   from the rows, the SM count and the blocks an SM holds; no caller sets
 //   it.  256 threads a block, several blocks an SM.
 //
+// - log_n 15-16: a row over a cluster of C = 2^(log_n - 14) blocks, one
+//   slice of 2^14 words (64 KB) a block (csrc/ntt_split.cuh): the
+//   forward's first log_n - 14 stages run on groups of one word a slice,
+//   loaded from device memory, each word stored into its slice over
+//   distributed shared memory; then the slice's stages as the radix-8
+//   passes above, on the compact root table read from device memory at the
+//   slice's offsets (FwdSliceTable), the last pass storing to device
+//   memory.  The inverse mirrors it: the slice's passes from device memory
+//   (SliceInvTable), then the last stages on groups gathered from the
+//   slices, stored to device memory.  One row a cluster of 1024-thread
+//   blocks (a slice's 2048 radix-8 groups, two a thread); the C entry picks
+//   the cluster from log_n.
+//
 // The butterflies are the plain version's (transforms/ntt.py) with its lazy
 // ranges, applied to the same pairs stage by stage, so every output word is
 // bit-equal to it: the forward's bit-reversed output lazy in [0, 4q) or
@@ -77,13 +90,16 @@
 // log_n 8-12 and kp 1-4, the byte-radix plan's range.
 
 #include "mxu8.cuh"  // mbarriers and bulk copies
-#include "ntt_passes.cuh"
+#include "ntt_split.cuh"
 
 namespace {
 
 constexpr int NTT_THREADS = 256;
 constexpr int MAX_TILE = 8;
-constexpr int MAX_LOG_N = 14;
+constexpr int TILE_MAX_LOG_N = 14;  // a row in one block's shared memory
+constexpr int MAX_LOG_N = 16;       // past it, a row over a cluster (SLICE_LOG words a block)
+constexpr int SLICE_LOG = 14;
+constexpr int SPLIT_THREADS = 1024;  // a slice's 2048 radix-8 groups, two a thread
 constexpr int SMEM_MAX = 232448;  // 227 KB, the most a block may ask for
 
 struct NttArgs {
@@ -250,6 +266,67 @@ __global__ void __launch_bounds__(NTT_THREADS, 4) ntt32_inverse_kernel(const Ntt
   // global memory
   inv_rest<LAST>(rows, t.count, log_n, r, InvTable{tw, twp, n - m}, pc, dst);
 }
+
+// log_n 15-16: one row a cluster of 2^LC blocks (LC = log_n - SLICE_LOG),
+// block `rank` holding slice rank of the row (csrc/ntt_split.cuh).  Grid:
+// kp rows clusters, cluster i the row i of the (kp, rows) rows.
+template <int LC, bool CANON>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1) ntt32_forward_split_kernel(const NttArgs a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  constexpr int l = SLICE_LOG;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int row = (int)blockIdx.x >> LC;  // prime pi = row / rows
+  const int pi = row / a.rows;
+  const uint32_t q = a.ps.p[pi].q;
+  const uint32_t* groots = a.tw + ((size_t)pi << a.log_n);
+  const uint32_t* groots_p = a.twp + ((size_t)pi << a.log_n);
+  const size_t off = (size_t)row << a.log_n;
+  const SmemRows<SwzNtt> rows{sm, l};
+  cross_forward<LC>(a.in + off, sm, l, rank, 0, groots, groots_p, q);
+  const FwdSliceTable table{groots, groots_p, (1 << LC) + rank};
+  constexpr int r = l - 3 * ((l - 1) / 3);  // the last pass's stages
+  for (int s0 = 0; s0 < l - r; s0 += 3) {
+    fwd_pass<3>(1, l, s0, table, q, rows, rows);
+    __syncthreads();
+  }
+  const GlobalOut<CANON> dst{a.out + off + ((size_t)rank << l), l, q};
+  fwd_pass<r>(1, l, l - r, table, q, rows, dst);
+}
+
+template <int LC, bool CANON>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1) ntt32_inverse_split_kernel(const NttArgs a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  constexpr int l = SLICE_LOG;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int row = (int)blockIdx.x >> LC;
+  const int pi = row / a.rows;
+  const PrimeConsts pc = a.ps.p[pi];
+  const uint32_t* w = a.tw + ((size_t)pi << a.log_n);
+  const uint32_t* wp = a.twp + ((size_t)pi << a.log_n);
+  const size_t off = (size_t)row << a.log_n;
+  const SmemRows<SwzNtt> rows{sm, l};
+  slice_inverse(SliceInvTable{w, wp, l, a.log_n, rank}, pc,
+                GlobalIn{a.in + off + ((size_t)rank << l), l}, rows, l);
+  uint32_t* out = a.out + off;
+  cross_inverse<LC, CANON ? Last::canonical : Last::lazy>(
+      sm, l, a.log_n, rank, 0, w, wp, pc, [&](int j, const uint32_t (&v)[1 << LC]) {
+#pragma unroll
+        for (int k = 0; k < (1 << LC); ++k) out[j + (k << l)] = v[k];
+      });
+  cg::this_cluster().sync();  // keep every slice alive until its peers' reads are done
+}
+
+// The split kernels, [forward][log_n - SLICE_LOG - 1][canonical].
+const void* const SPLIT_KERNELS[2][2][2] = {
+    {{(const void*)ntt32_inverse_split_kernel<1, false>,
+      (const void*)ntt32_inverse_split_kernel<1, true>},
+     {(const void*)ntt32_inverse_split_kernel<2, false>,
+      (const void*)ntt32_inverse_split_kernel<2, true>}},
+    {{(const void*)ntt32_forward_split_kernel<1, false>,
+      (const void*)ntt32_forward_split_kernel<1, true>},
+     {(const void*)ntt32_forward_split_kernel<2, false>,
+      (const void*)ntt32_forward_split_kernel<2, true>}}};
+constexpr size_t SPLIT_SMEM = sizeof(uint32_t) << SLICE_LOG;
 
 // ---------------------------------------------------------------------------
 // Kernel C: the persistent forward NTT of the MXU key preparation.
@@ -465,10 +542,10 @@ const void* const C_KERNELS[C_MAX_LOG_N - C_MIN_LOG_N + 1] = {
 // the SM count and, for each kernel, row size and tile, how many blocks an
 // SM holds at once (0 where the tile does not fit in shared memory; kernel
 // C's from C_MIN_LOG_N on); every kernel's shared-memory cap is raised to
-// SMEM_MAX.
+// SMEM_MAX (the split kernels' to their slice).
 struct NttDevice {
   int sms = 0;
-  int resident[2][MAX_LOG_N + 1][4] = {};
+  int resident[2][TILE_MAX_LOG_N + 1][4] = {};
   int c_resident[C_MAX_LOG_N + 1][4] = {};
 };
 
@@ -497,9 +574,12 @@ int ntt_device(const NttDevice** out) {
         e = cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     }
+    for (int i = 0; i < 8 && e == cudaSuccess; ++i)
+      e = cudaFuncSetAttribute((&SPLIT_KERNELS[0][0][0])[i],
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SPLIT_SMEM);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&fresh.sms, cudaDevAttrMultiProcessorCount, dev);
     for (int f = 0; f < 2 && e == cudaSuccess; ++f)
-      for (int log_n = 1; log_n <= MAX_LOG_N && e == cudaSuccess; ++log_n)
+      for (int log_n = 1; log_n <= TILE_MAX_LOG_N && e == cudaSuccess; ++log_n)
         for (int i = 0; i < 4 && e == cudaSuccess; ++i) {
           const size_t smem = smem_bytes(f == 0, log_n, 1 << i);
           if (smem <= (size_t)SMEM_MAX)
@@ -551,10 +631,31 @@ int launch(bool forward, const void* in, void* out, const void* tw, const void* 
   a.ps = unpack_primes((const uint64_t*)prime_pack, kp);
   a.rows = rows;
   a.log_n = log_n;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (log_n > TILE_MAX_LOG_N) {  // a row a cluster of 2^(log_n - SLICE_LOG) blocks
+    const int lc = log_n - SLICE_LOG;
+    a.tile = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)((long)kp * rows) << lc);
+    cfg.blockDim = dim3(SPLIT_THREADS);
+    cfg.dynamicSmemBytes = SPLIT_SMEM;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1 << lc;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    void* args[] = {&a};
+    const cudaError_t e =
+        cudaLaunchKernelExC(&cfg, SPLIT_KERNELS[forward][lc - 1][canonical != 0], args);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
   a.tile = pick_tile(forward, kp, rows, log_n, *d);
   const dim3 grid(kp * ((rows + a.tile - 1) / a.tile));
   const size_t smem = smem_bytes(forward, log_n, a.tile);
-  const cudaStream_t s = (cudaStream_t)stream;
   if (forward && canonical) ntt32_forward_kernel<true><<<grid, NTT_THREADS, smem, s>>>(a);
   if (forward && !canonical) ntt32_forward_kernel<false><<<grid, NTT_THREADS, smem, s>>>(a);
   if (!forward && canonical) ntt32_inverse_kernel<true><<<grid, NTT_THREADS, smem, s>>>(a);
@@ -620,9 +721,9 @@ extern "C" {
 const char* pft_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Forward NTT of kp primes x rows_per_prime rows of 2^log_n words (log_n
-// 1-14, kp <= 4; in and out 16-byte aligned): roots, roots_p (kp, n) the
-// bit-reversed root tables and Shoup quotients; canonical output or lazy in
-// [0, 4q).
+// 1-16, kp <= 4; in and out 16-byte aligned, out may be in): roots,
+// roots_p (kp, n) the bit-reversed root tables and Shoup quotients;
+// canonical output or lazy in [0, 4q).  log_n 15-16 run a row a cluster.
 int pft_ntt32_forward(const void* in, void* out, const void* roots, const void* roots_p,
                       const void* prime_pack, int kp, int rows_per_prime, int log_n,
                       int canonical, void* stream) {
@@ -630,14 +731,15 @@ int pft_ntt32_forward(const void* in, void* out, const void* roots, const void* 
                 stream);
 }
 
-// The rows a block the launch takes (pick_tile) on the current device.
+// The rows a block the launch takes (pick_tile) on the current device: 1
+// at log_n 15-16, where a row spans a cluster.
 int pft_ntt32_tile(int forward, int kp, int rows_per_prime, int log_n, int* tile) {
   if (kp < 1 || kp > PFT_MAX_KP || log_n < 1 || log_n > MAX_LOG_N || rows_per_prime < 1)
     return (int)cudaErrorInvalidValue;
   const NttDevice* d = nullptr;
   const int err = ntt_device(&d);
   if (err != 0) return err;
-  *tile = pick_tile(forward != 0, kp, rows_per_prime, log_n, *d);
+  *tile = log_n > TILE_MAX_LOG_N ? 1 : pick_tile(forward != 0, kp, rows_per_prime, log_n, *d);
   return 0;
 }
 

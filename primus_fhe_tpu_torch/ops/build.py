@@ -24,8 +24,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("ntt32.cu", "cmux_fused.cu", "cmux_mxu.cu", "ntt_mxu8.cu", "ntt64.cu", "cmux_front.cu",
-           "ntt_stages.cu", "ntt_mxu8_split.cu")
-HEADERS = ("modarith32.cuh", "modarith64.cuh", "mxu8.cuh", "mxu8_64.cuh", "ntt_passes.cuh")
+           "ntt_stages.cu", "ntt_mxu8_split.cu", "cmux_stage2.cu")
+HEADERS = ("modarith32.cuh", "modarith64.cuh", "mxu8.cuh", "mxu8_64.cuh", "ntt_passes.cuh",
+           "ntt_split.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +44,8 @@ _SIGNATURES = {
     "pft_ntt32_inverse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pft_ntt32_tile": (_I, _I, _I, _I, _P),
     "pft_cmux_step": (_P, _P, _P, _P, _I, _P, _P),
+    "pft_cmux_stage2": (_P, _P, _P, _P, _I, _P, _P),
+    "pft_cmux_stage2_grid": (_I, _I, _P),
     "pft_cmux_mxu": (_P,) * 13 + (_I,) * 6 + (_P,),
     "pft_ntru_cmux_mxu": (_P,) * 12 + (_I,) * 4 + (_P,),
     "pft_cmux_mxu_clusters": (_I,) * 7 + (_P,),

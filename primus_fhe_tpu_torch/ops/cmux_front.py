@@ -64,7 +64,7 @@ def cmux_front_plain(acc: torch.Tensor, degrees: torch.Tensor, basis, primes) ->
     return centered.unsqueeze(0).remainder(q.reshape((-1,) + (1,) * centered.dim()))
 
 
-def cmux_front(acc: torch.Tensor, degrees: torch.Tensor, basis, primes) -> torch.Tensor:
+def cmux_front(acc: torch.Tensor, degrees: torch.Tensor, basis, primes, out=None) -> torch.Tensor:
     """``acc (B, k1, n)`` torus words and ``degrees (B,)`` (any sign, taken
     mod 2n) -> the NTT-ready digit residues ``(kp, B, k1, L, n)`` of
     ``acc*X^d - acc`` over the torus-mode gadget ``basis``, canonical mod
@@ -72,11 +72,13 @@ def cmux_front(acc: torch.Tensor, degrees: torch.Tensor, basis, primes) -> torch
     CUDA tensors kernel G, which takes up to :data:`GROUP_PRIMES` primes a
     launch: more primes launch it once a group, each group into its slice
     ``out[g0:g1]`` of the one output.  The output keeps ``acc``'s
-    storage."""
+    storage, or goes into ``out`` (contiguous int32 ``(kp, B, k1, L, n)``,
+    16-byte aligned on the card), which is returned."""
     primes = tuple(int(p) for p in primes)
     if acc.device.type == "cpu":
-        out = cmux_front_plain(widen_u32(acc), degrees, basis, primes)
-        return narrow_u32(out) if acc.dtype == torch.int32 else out
+        res = cmux_front_plain(widen_u32(acc), degrees, basis, primes)
+        res = narrow_u32(res) if acc.dtype == torch.int32 else res
+        return res if out is None else out.copy_(res)
     if acc.device.type != "cuda" or degrees.device != acc.device:
         raise ValueError(f"cmux_front: tensors must share one CUDA device, got {acc.device}, "
                          f"{degrees.device}")
@@ -90,7 +92,14 @@ def cmux_front(acc: torch.Tensor, degrees: torch.Tensor, basis, primes) -> torch
     a = narrow_u32(acc).contiguous()
     d = degrees.to(torch.int32).contiguous()
     level = basis.decompose_length
-    out = torch.empty((len(primes), bsz, k1, level, n), dtype=torch.int32, device=a.device)
+    shape = (len(primes), bsz, k1, level, n)
+    given = out is not None
+    if not given:
+        out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    elif not (out.dtype == torch.int32 and out.shape == shape and out.device == a.device
+              and out.is_contiguous() and out.data_ptr() % 16 == 0):
+        raise ValueError(f"cmux_front: out must be contiguous 16-byte aligned int32 {shape} on "
+                         f"{a.device}")
     if a.numel():
         pack = _basis_pack(basis)  # held until the call returns
         for g0 in range(0, len(primes), GROUP_PRIMES):
@@ -102,7 +111,7 @@ def cmux_front(acc: torch.Tensor, degrees: torch.Tensor, basis, primes) -> torch
             )
             build.check(err, "cmux_front")
             cmux_front.launches += 1
-    return out if acc.dtype == torch.int32 else widen_u32(out)
+    return out if given or acc.dtype == torch.int32 else widen_u32(out)
 
 
 cmux_front.launches = 0

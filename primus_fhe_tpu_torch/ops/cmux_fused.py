@@ -20,12 +20,22 @@ ciphertext, one per (prime, accumulator row).
 Nothing goes through device memory between the phases.  What bounds it on
 the card, and the measured times, are in the source's note and PERF.md.
 
+The one-launch kernel holds a ciphertext's cluster in shared memory, so it
+takes ``kp*k1 <= 8``, ``k1 <= 4``, ``L <= 16``, ``log_n`` 4-12 and ``(2 +
+kp + L + k1) * 4n`` bytes within 227 KB.  Every other shape with ``kp <=
+4``, ``L <= 32`` and ``log_n`` 4-16 runs the staged route, under the JAX's
+names: :func:`cmux_stage1` (kernel G, then kernel 1 at ``out_factor=4``)
+writes the lazy NTT-domain digits to device memory and :func:`cmux_stage2`
+(kernel H, ``csrc/cmux_stage2.cu``: a cluster of kp blocks a ciphertext and
+output component, the MAC, the inverse NTT and the CRT) adds the product
+into ``acc``.  :func:`step_route` is the rule, a pure function of the shape.
+
 The plain versions stay the two stages (:func:`cmux_stage1_plain`,
 :func:`cmux_stage2_plain`): CPU tensors take their composition, and the
-on-card checks hold the kernel bit-equal to it.  :class:`CmuxStepPlan`
-holds what stays fixed across a rotation's steps (the constant pack, the
-table pointers, the cluster shape), so that the blind-rotation loop pays
-one bound C call a step.
+on-card checks hold both routes bit-equal to it.  :class:`CmuxStepPlan`
+holds what stays fixed across a rotation's steps (the route, the constant
+packs, the table pointers, the staged route's digit buffer), so that the
+blind-rotation loop pays one bound C call a launch.
 """
 
 from __future__ import annotations
@@ -43,6 +53,30 @@ MAX_CLUSTER = 8  # kp * k1 blocks a ciphertext (MAX_CLUSTER in csrc/cmux_fused.c
 MAX_K1 = 4  # accumulator rows (MAX_K1 there)
 MAX_LEVEL = 16  # L products below 2^60 sum below 2^64 (MAX_LEVEL there)
 SMEM_MAX = 232448  # the most shared memory a block may ask for on the card
+STAGED_MAX_KP = 4  # kernel H's primes (PFT_MAX_KP in csrc/modarith32.cuh)
+STAGED_MAX_LEVEL = 32  # kernel H's levels (H_MAX_LEVEL in csrc/cmux_stage2.cu)
+STAGED_LOG_N = (4, 16)  # kernel H's rings; kernels G and 1 take them too
+
+
+def step_route(kp: int, k1: int, level: int, log_n: int) -> str:
+    """The card's route for a CMux step of ``kp`` primes, ``k1`` accumulator
+    rows, ``level`` gadget levels and ring ``2^log_n``: ``"fused"`` (the
+    one-launch kernel) wherever it holds the shape, else ``"staged"``
+    (kernel G, kernel 1, kernel H).  A ``ValueError`` names the limit past
+    both."""
+    if (kp * k1 <= MAX_CLUSTER and k1 <= MAX_K1 and 1 <= level <= MAX_LEVEL
+            and 4 <= log_n <= 12 and (2 + kp + level + k1) * 4 << log_n <= SMEM_MAX):
+        return "fused"
+    lo, hi = STAGED_LOG_N
+    if not 1 <= kp <= STAGED_MAX_KP:
+        raise ValueError(f"CMux step: kp = {kp} primes (the card takes 1-{STAGED_MAX_KP})")
+    if not 1 <= level <= STAGED_MAX_LEVEL:
+        raise ValueError(f"CMux step: L = {level} levels (the card takes 1-{STAGED_MAX_LEVEL})")
+    if not lo <= log_n <= hi:
+        raise ValueError(f"CMux step: log_n = {log_n} (the card takes log_n {lo}-{hi})")
+    if k1 < 1:
+        raise ValueError(f"CMux step: k1 = {k1} accumulator rows")
+    return "staged"
 
 
 def cmux_stage1_plain(conv, basis, acc: torch.Tensor, degrees: torch.Tensor) -> torch.Tensor:
@@ -95,17 +129,126 @@ def step_pack(conv, basis, k1: int, table_ptrs=(0, 0, 0, 0)) -> np.ndarray:
     ])
 
 
+def stage2_pack(conv, k1: int, level: int, table_ptrs=(0, 0)) -> np.ndarray:
+    """The host pack ``pft_cmux_stage2`` reads: ``kp, k1, L, log_n``, the
+    device addresses of the ``(kp, n)`` inverse root table and its Shoup
+    quotients, then ``NttTables32.prime_pack`` (7 words a prime) and
+    ``crt_pack`` (4 a prime and P mod 2^32)."""
+    return np.concatenate([
+        np.array([conv.count, k1, level, conv.log_n, *table_ptrs], dtype=np.uint64),
+        conv.ntt.prime_pack, conv.crt_pack,
+    ])
+
+
+class Stage2Plan:
+    """Kernel H's launch constants for a convolver, ``k1`` and ``L`` on a
+    CUDA ``device``: the host pack and the inverse tables it points to
+    (held, so that they outlive every launch).  ``plan(f, key, acc, out)``
+    launches once on int32 tensors already checked by the caller."""
+
+    def __init__(self, conv, k1: int, level: int, device):
+        step_route(conv.count, k1, level, conv.log_n)  # the card's limits
+        self.k1, self.level = k1, level
+        self._tables = conv.ntt.kernel_tables(device)
+        self.pack = stage2_pack(conv, k1, level,
+                                [t.data_ptr() for t in self._tables[2:]])
+        self._pack_ptr = self.pack.ctypes.data
+        self._entry = build.library().pft_cmux_stage2
+
+    def __call__(self, f, key, acc, out, bsz: int) -> None:
+        err = self._entry(f.data_ptr(), key.data_ptr(), acc.data_ptr(), out.data_ptr(), bsz,
+                          self._pack_ptr, torch.cuda.current_stream(acc.device).cuda_stream)
+        build.check(err, "cmux_stage2")
+        cmux_stage2.launches += 1
+
+
+def launch_grid(conv) -> tuple[int, int, int, int]:
+    """Kernel H's launch on the current CUDA device for ``conv``: ``(blocks
+    a row, threads a block, shared bytes a block, clusters the card holds
+    at once)`` (the C entry's own rule)."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    err = build.library().pft_cmux_stage2_grid(conv.count, conv.log_n, ctypes.addressof(out))
+    build.check(err, "pft_cmux_stage2_grid")
+    return tuple(out)
+
+
+def cmux_stage1(conv, basis, acc: torch.Tensor, degrees: torch.Tensor, out=None) -> torch.Tensor:
+    """The step's first half, ``acc (B, k1, n)``, ``degrees (B,)`` (any
+    sign) -> the lazy ``[0, 4p)`` NTT-domain digits of ``acc*X^d - acc``,
+    ``(kp, B*k1, L, n)``.  CPU tensors take :func:`cmux_stage1_plain`; CUDA
+    tensors kernel G (:func:`..ops.cmux_front.cmux_front`) and kernel 1 at
+    ``out_factor=4`` in place: two launches, the same words.  ``out``:
+    contiguous int32 ``(kp, B, k1, L, n)`` words to write (returned in the
+    ``(kp, B*k1, L, n)`` view); else the output keeps ``acc``'s storage."""
+    from .cmux_front import cmux_front  # a cycle at import: cmux_front reads _basis_pack
+    from .ntt32 import forward32
+
+    bsz, k1, n = acc.shape
+    level = basis.decompose_length
+    if acc.device.type == "cpu":
+        res = cmux_stage1_plain(conv, basis, widen_u32(acc), degrees)
+        res = narrow_u32(res) if acc.dtype == torch.int32 else res
+        return res if out is None else out.copy_(res.reshape(out.shape)).reshape(res.shape)
+    digits = cmux_front(acc, degrees, basis, conv.primes,
+                        out=torch.empty((conv.count, bsz, k1, level, n), dtype=torch.int32,
+                                        device=acc.device) if out is None else out)
+    forward32(conv.ntt, digits, 4, out=digits)
+    digits = digits.reshape(conv.count, bsz * k1, level, n)
+    return digits if out is not None or acc.dtype == torch.int32 else widen_u32(digits)
+
+
+def cmux_stage2(conv, f: torch.Tensor, key: torch.Tensor, acc: torch.Tensor, out=None):
+    """The step's second half: ``acc + CRT(INTT(sum_{r,l} f[:, b k1 + r, l]
+    key[:, r, l, j]))`` for ``f (kp, B*k1, L, n)`` lazy ``[0, 4p)`` digits
+    (:func:`cmux_stage1`'s), ``key (kp, k1, L, k1, n)`` canonical and ``acc
+    (B, k1, n)``.  CPU tensors take :func:`cmux_stage2_plain`; CUDA tensors
+    kernel H, one launch (kp 1-4, any k1, L 1-32, log_n 4-16; a
+    ``ValueError`` past them, before any launch).  ``out`` may be ``acc``
+    (contiguous int32: the kernel adds in place); else the output keeps
+    ``acc``'s storage."""
+    if acc.device.type == "cpu":
+        res = cmux_stage2_plain(conv, widen_u32(f), widen_u32(key), widen_u32(acc))
+        res = narrow_u32(res) if acc.dtype == torch.int32 else res
+        return res if out is None else out.copy_(res)
+    _check_device("cmux_stage2", f, key, acc)
+    bsz, k1, n = acc.shape
+    level = key.shape[2]
+    if (key.shape != (conv.count, k1, level, k1, n)
+            or f.shape != (conv.count, bsz * k1, level, n)):
+        raise ValueError(f"cmux_stage2: bad shapes f {tuple(f.shape)}, key {tuple(key.shape)}, "
+                         f"acc {tuple(acc.shape)}")
+    plan = Stage2Plan(conv, k1, level, acc.device)
+    f32, key32 = narrow_u32(f).contiguous(), narrow_u32(key).contiguous()
+    a = narrow_u32(acc).contiguous()
+    given = out is not None
+    if not given:
+        out = torch.empty_like(a)
+    elif not (out.dtype == torch.int32 and out.shape == a.shape and out.device == a.device
+              and out.is_contiguous()):
+        raise ValueError(f"cmux_stage2: out must be contiguous int32 {tuple(a.shape)}")
+    if bsz:
+        plan(f32, key32, a, out, bsz)
+    return out if given or acc.dtype == torch.int32 else widen_u32(out)
+
+
 class CmuxStepPlan:
     """One rotation's CMux steps on ``device``: ``plan(acc, degrees, key)``
     is :func:`fused_cmux_step` without its per-call set-up.
 
-    Built once before the loop: the host pack the C entry reads (``kp``,
-    ``k1``, ``log_n``, the prime's root-table pointers, the prime, CRT and
-    gadget constants; the cluster is ``kp x k1``), and the bound entry.  On
+    Built once before the loop: the route (:func:`step_route`, before any
+    launch) and what it launches with.  The fused route: the host pack the
+    C entry reads (``kp``, ``k1``, ``log_n``, the prime's root-table
+    pointers, the prime, CRT and gadget constants; the cluster is ``kp x
+    k1``) and the bound entry; a step is one launch.  The staged route:
+    kernel H's :class:`Stage2Plan` and a digit buffer ``(kp, B, k1, L, n)``
+    int32 made once a batch size; a step is :func:`cmux_stage1` (kernels G
+    and 1) into the buffer, then kernel H into ``out``: three launches.  On
     the card a call takes int32 ``acc (B, k1, n)``, ``degrees (B,)`` and
-    ``key (kp, k1, L, k1, n)``, contiguous, and launches the kernel once;
-    ``out`` may be ``acc`` itself (the kernel updates it in place).  On the
-    CPU it runs the plain composition.
+    ``key (kp, k1, L, k1, n)``, contiguous; ``out`` may be ``acc`` itself
+    (either route updates it in place).  On the CPU it runs the plain
+    composition.
     """
 
     def __init__(self, conv, basis, k1: int, device):
@@ -118,15 +261,11 @@ class CmuxStepPlan:
             return
         if self.device.type != "cuda":
             raise ValueError(f"fused_cmux_step: unsupported device {self.device}")
-        if kp * k1 > MAX_CLUSTER or k1 > MAX_K1:
-            raise ValueError(f"fused_cmux_step: a cluster of kp*k1 = {kp}*{k1} blocks "
-                             f"(at most {MAX_CLUSTER}, k1 at most {MAX_K1})")
-        if not 1 <= level <= MAX_LEVEL or not 4 <= conv.log_n <= 12:
-            raise ValueError(f"fused_cmux_step: L = {level} (1-{MAX_LEVEL}), "
-                             f"log_n = {conv.log_n} (4-12)")
-        if (2 + kp + level + k1) * 4 * n > SMEM_MAX:
-            raise ValueError(f"fused_cmux_step: n = {n} with L = {level} needs more than "
-                             f"{SMEM_MAX} bytes of shared memory")
+        self.route = step_route(kp, k1, level, conv.log_n)
+        if self.route == "staged":
+            self._stage2 = Stage2Plan(conv, k1, level, self.device)
+            self._digits: dict = {}
+            return
         # held by the plan: the kernel's tables must outlive every launch
         self._tables = conv.ntt.kernel_tables(self.device)
         self.pack = step_pack(conv, basis, k1, [t.data_ptr() for t in self._tables])
@@ -153,7 +292,15 @@ class CmuxStepPlan:
                              f"{self.device}")
         if out is None:
             out = torch.empty_like(acc)
-        if bsz:
+        if bsz and self.route == "staged":
+            digits = self._digits.get(bsz)
+            if digits is None:
+                digits = self._digits[bsz] = torch.empty(
+                    (self.conv.count, bsz) + self.key_shape[1:3] + (self.acc_tail[1],),
+                    dtype=torch.int32, device=self.device)
+            f = cmux_stage1(self.conv, self.basis, acc, degrees, out=digits)
+            self._stage2(f, key, acc, out, bsz)
+        elif bsz:
             err = self._entry(acc.data_ptr(), degrees.data_ptr(), key.data_ptr(), out.data_ptr(),
                               bsz, self._pack_ptr,
                               torch.cuda.current_stream(self.device).cuda_stream)
@@ -171,11 +318,13 @@ def fused_cmux_step(conv, basis, acc: torch.Tensor, degrees: torch.Tensor, key: 
     cmux_stage1_plain(...))``, CUDA tensors the kernel; the output keeps
     ``acc``'s storage (int64 or int32).
 
-    The kernel's limits on the card (:class:`CmuxStepPlan` raises
-    ``ValueError`` past them, before any launch): a cluster of ``kp * k1 <=
-    8`` blocks with ``k1 <= 4``, ``L`` 1-16 (the MAC's 64-bit sum),
-    ``log_n`` 4-12, and ``(2 + kp + L + k1) * 4n`` bytes of shared memory
-    within 227 KB.  The plain composition takes any shape.
+    The route on the card is :func:`step_route`'s: the one-launch kernel
+    where it holds the shape (a cluster of ``kp * k1 <= 8`` blocks with
+    ``k1 <= 4``, ``L`` 1-16, ``log_n`` 4-12, ``(2 + kp + L + k1) * 4n``
+    bytes of shared memory within 227 KB), else :func:`cmux_stage1` then
+    :func:`cmux_stage2` (``kp`` 1-4, any ``k1``, ``L`` 1-32, ``log_n``
+    4-16); :class:`CmuxStepPlan` raises ``ValueError`` past those, before
+    any launch.  The plain composition takes any shape.
     """
     if acc.device.type == "cpu":
         return CmuxStepPlan(conv, basis, acc.shape[1], "cpu")(acc, degrees, key)
@@ -187,3 +336,4 @@ def fused_cmux_step(conv, basis, acc: torch.Tensor, degrees: torch.Tensor, key: 
 
 
 fused_cmux_step.launches = 0
+cmux_stage2.launches = 0

@@ -28,6 +28,12 @@ the grid in one wave).  The passes are one copy in
 ``csrc/ntt_passes.cuh``, shared with the CMux step kernel and (at 64 bits)
 row 10's kernels.
 
+At ``log_n`` 15-16 a row (128-256 KB) outgrows a block: it runs over a
+thread-block cluster of ``2^(log_n - 14)`` blocks, a slice of 2^14 words
+each (``csrc/ntt_split.cuh``).  The stages that pair words of different
+slices go over distributed shared memory; each slice runs the same radix-8
+passes on the compact root table read at its offsets.
+
 The butterflies are the plain version's (:mod:`..transforms.ntt`) formulas
 exactly, so canonical and lazy outputs are bit-equal to it.
 """
@@ -45,7 +51,7 @@ from ..utils.contracts import check_range_u32
 from . import build
 
 MAX_PRIMES = 4  # PFT_MAX_KP in csrc/modarith32.cuh
-MAX_LOG_N = 14  # the kernels' largest row (MAX_LOG_N in csrc/ntt32.cu)
+MAX_LOG_N = 16  # the kernels' largest row (MAX_LOG_N in csrc/ntt32.cu)
 
 
 class NttTables32:
@@ -105,12 +111,15 @@ def inverse32_plain(tables: NttTables32, values: torch.Tensor, out_factor: int =
     return torch.stack([_plan_inverse32(pl, values[i], out_factor) for i, pl in enumerate(plans)])
 
 
-def _run(wrapper, plain, entry: str, table_idx: int, tables: NttTables32, values, out_factor):
+def _run(wrapper, plain, entry: str, table_idx: int, tables: NttTables32, values, out_factor,
+         out=None):
     """CPU tensors -> ``plain``; CUDA tensors -> the kernel ``entry`` with
-    the tables at ``table_idx``; the output keeps the input's storage."""
+    the tables at ``table_idx``; the output keeps the input's storage, or
+    goes into ``out``."""
     if values.device.type == "cpu":
-        out = plain(tables, widen_u32(values), out_factor)
-        return narrow_u32(out) if values.dtype == torch.int32 else out
+        res = plain(tables, widen_u32(values), out_factor)
+        res = narrow_u32(res) if values.dtype == torch.int32 else res
+        return res if out is None else out.copy_(res)
     if values.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {values.device}")
     kp, n = len(tables.primes), tables.n
@@ -122,7 +131,13 @@ def _run(wrapper, plain, entry: str, table_idx: int, tables: NttTables32, values
     v = narrow_u32(values).contiguous()
     if v.data_ptr() % 16:  # the kernels move words 8 or 16 bytes at a time
         v = v.clone()
-    out = torch.empty_like(v)
+    given = out is not None
+    if not given:
+        out = torch.empty_like(v)
+    elif not (out.dtype == torch.int32 and out.shape == v.shape and out.device == v.device
+              and out.is_contiguous() and out.data_ptr() % 16 == 0):
+        raise ValueError(f"{wrapper.__name__}: out must be contiguous 16-byte aligned int32 "
+                         f"{tuple(v.shape)} on {v.device}")
     rows = v[0].numel() // n
     if rows:
         tabs = tables.kernel_tables(v.device)
@@ -134,22 +149,25 @@ def _run(wrapper, plain, entry: str, table_idx: int, tables: NttTables32, values
         )
         build.check(err, entry)
         wrapper.launches += 1
-    return out if values.dtype == torch.int32 else widen_u32(out)
+    return out if given or values.dtype == torch.int32 else widen_u32(out)
 
 
-def forward32(tables: NttTables32, values: torch.Tensor, out_factor: int = 1):
+def forward32(tables: NttTables32, values: torch.Tensor, out_factor: int = 1, out=None):
     """Forward NTT of ``values (kp, ..., n)``: prime ``i``'s transform on
     ``values[i]``.  Input normal order in ``[0,4q)``; output bit-reversed,
     canonical for ``out_factor=1`` and lazy ``[0,4q)`` for ``4``.
 
     CPU tensors take the plain version (any ``log_n``), CUDA tensors the
-    kernel, which takes ``log_n`` 1-14 (:data:`MAX_LOG_N`; a ``ValueError``
-    above) and at most 4 primes (:class:`NttTables32` refuses more).
+    kernel, which takes ``log_n`` 1-16 (:data:`MAX_LOG_N`; a ``ValueError``
+    above, before any launch; 15-16 a row over a cluster) and at most 4
+    primes (:class:`NttTables32` refuses more).  ``out``: int32 words of
+    ``values``' shape to write (may be ``values`` itself); it is returned.
     """
     if out_factor not in (1, 4):
         raise ValueError("out_factor must be 1 or 4")
     check_range_u32(values, tables.primes, 4, "forward32 input")
-    return _run(forward32, forward32_plain, "pft_ntt32_forward", 0, tables, values, out_factor)
+    return _run(forward32, forward32_plain, "pft_ntt32_forward", 0, tables, values, out_factor,
+                out)
 
 
 def inverse32(tables: NttTables32, values: torch.Tensor, out_factor: int = 1):

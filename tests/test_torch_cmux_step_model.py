@@ -361,8 +361,9 @@ def test_radix8_passes_and_sweeps_are_bank_conflict_free(log_n):
 @pytest.mark.parametrize("log_n,log_basis,level,k", [(8, 8, 2, 4), (8, 1, 17, 1), (12, 1, 12, 1)])
 def test_plan_refuses_shapes_the_kernel_does_not_take(log_n, log_basis, level, k):
     """A cluster over 8 blocks, more than 16 levels (the MAC's u64 sum) or
-    more than 227 KB of shared memory a block: refused before any launch."""
+    more than 227 KB of shared memory a block: shapes the one-launch
+    kernel does not take, which the card's route sends to the staged
+    kernels (kernel G, kernel 1, kernel H) before any launch."""
     conv = tfhe.make_convolver(log_n, level, k, log_basis)
     basis = ApproxSignedBasis32(None, log_basis, reverse_length=level)
-    with pytest.raises(ValueError):
-        cmux_fused.CmuxStepPlan(conv, basis, k + 1, torch.device("cuda"))
+    assert cmux_fused.step_route(conv.count, k + 1, basis.decompose_length, log_n) == "staged"

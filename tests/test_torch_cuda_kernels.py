@@ -139,16 +139,137 @@ def test_ntt_kernels_match_plain(dev, log_n, primes, rows):
 
 
 def test_ntt_kernels_refuse_rows_past_the_card(dev):
-    """log_n 15 takes the plain version on the CPU and a ValueError naming
+    """log_n 17 takes the plain version on the CPU and a ValueError naming
     the limit on the card, before any launch."""
-    tables = ntt32.NttTables32(15, [next_ntt_prime(30, 15)])
-    x = torch.zeros((1, 1, 1 << 15), dtype=torch.int64, device=dev)
-    before = ntt32.forward32.launches
-    with pytest.raises(ValueError, match="log_n 1-14"):
+    tables = ntt32.NttTables32(17, [next_ntt_prime(30, 17)])
+    x = torch.zeros((1, 1, 1 << 17), dtype=torch.int64, device=dev)
+    before = ntt32.forward32.launches, ntt32.inverse32.launches
+    with pytest.raises(ValueError, match="log_n 1-16"):
         ntt32.forward32(tables, x)
-    with pytest.raises(ValueError, match="log_n 1-14"):
+    with pytest.raises(ValueError, match="log_n 1-16"):
         ntt32.inverse32(tables, x)
-    assert ntt32.forward32.launches == before
+    assert (ntt32.forward32.launches, ntt32.inverse32.launches) == before
+
+
+PRIMES_2E17 = [next_ntt_prime(30, 16)]  # = 1 mod 2^17: rings to 2^16
+PRIMES_2E17 += [next_ntt_prime(30, 16, PRIMES_2E17[0])]
+PRIMES_2E17 += [next_ntt_prime(30, 16, PRIMES_2E17[1])]
+
+
+@pytest.mark.parametrize("log_n", [15, 16])
+@pytest.mark.parametrize("kp", [2, 3])
+@pytest.mark.parametrize("rows", [1, 16])
+def test_ntt_kernels_split_rows_match_plain(dev, log_n, kp, rows):
+    """Kernels 1-2 at log_n 15-16, a row over a cluster of 2 or 4 blocks:
+    every ``out_factor`` against the plain versions, the input range's
+    extreme words, int32 storage written in place (``out=`` the input),
+    the round trip."""
+    primes = PRIMES_2E17[:kp]
+    tables = ntt32.NttTables32(log_n, primes)
+    gen = torch.Generator(device=dev).manual_seed(log_n * 10 + kp + rows)
+    n = 1 << log_n
+    q = torch.tensor(primes, device=dev).reshape(kp, 1, 1)
+    x = _residues(gen, primes, (rows, n), 4, dev)
+    x[:, 0, :4] = torch.stack([torch.zeros_like(q[:, 0, 0]), 4 * q[:, 0, 0] - 1,
+                               q[:, 0, 0], 2 * q[:, 0, 0]], -1)
+    for out_factor in (1, 4):
+        want = ntt32.forward32_plain(tables, x, out_factor)
+        assert torch.equal(ntt32.forward32(tables, x, out_factor), want)
+        x32 = x.to(torch.int32)
+        assert ntt32.forward32(tables, x32, out_factor, out=x32) is x32
+        assert torch.equal(x32.to(torch.int64) & 0xFFFFFFFF, want)
+    y = x % (2 * q)
+    for out_factor in (1, 2):
+        want = ntt32.inverse32_plain(tables, y, out_factor)
+        assert torch.equal(ntt32.inverse32(tables, y, out_factor), want)
+        got32 = ntt32.inverse32(tables, y.to(torch.int32), out_factor)
+        assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want)
+    assert torch.equal(ntt32.inverse32(tables, ntt32.forward32(tables, x % q)), x % q)
+    assert ntt32.launch_tile(tables, rows) == 1
+
+
+# (log_n, log_basis, level, k, bound_bits or None): the staged route's
+# shapes of chip_smoke.py phase 21.2 and BOOLEAN_128's gadget at 2^13
+STAGED_SHAPES = [(15, 7, 3, 1, None), (16, 7, 3, 1, 60), (10, 7, 3, 2, 60), (10, 1, 20, 1, None),
+                 (13, 7, 3, 1, None), (4, 8, 3, 3, None)]
+
+
+def _staged_setup(dev, log_n, log_basis, level, k, bound, bsz, seed):
+    conv = (TorusConvolver32(log_n, bound) if bound
+            else tfhe.make_convolver(log_n, level, k, log_basis))
+    basis = ApproxSignedBasis32(None, log_basis, reverse_length=level)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = 1 << log_n
+    acc = torch.randint(0, 1 << 32, (bsz, k + 1, n), generator=gen, device=dev)
+    key = _residues(gen, conv.primes, (k + 1, level, k + 1, n), 1, dev)
+    return conv, basis, gen, acc, key
+
+
+@pytest.mark.parametrize("log_n,log_basis,level,k,bound", STAGED_SHAPES)
+def test_cmux_stage2_kernel_matches_plain(dev, log_n, log_basis, level, k, bound):
+    """Kernel H alone against ``cmux_stage2_plain`` on lazy ``[0, 4p)``
+    digits (the extreme words 0 and 4p - 1 included), batch 1 and 3, into a
+    new tensor and in place; ``cmux_stage1`` (kernels G and 1) against
+    ``cmux_stage1_plain``."""
+    for bsz in (1, 3):
+        conv, basis, gen, acc, key = _staged_setup(dev, log_n, log_basis, level, k, bound, bsz,
+                                                   log_n + 31 * level + bsz)
+        assert cmux_fused.step_route(conv.count, k + 1, level, log_n) == "staged" or log_n < 12
+        f = _residues(gen, conv.primes, (bsz * (k + 1), level, 1 << log_n), 4, dev)
+        q = torch.tensor(conv.primes, device=dev)
+        f[:, 0, 0, :2] = torch.stack([torch.zeros_like(q), 4 * q - 1], -1)
+        want = cmux_fused.cmux_stage2_plain(conv, f, key, acc)
+        before = cmux_fused.cmux_stage2.launches
+        assert torch.equal(cmux_fused.cmux_stage2(conv, f, key, acc), want)
+        acc32 = acc.to(torch.int32)
+        out = cmux_fused.cmux_stage2(conv, f.to(torch.int32), key.to(torch.int32), acc32,
+                                     out=acc32)
+        assert out is acc32 and torch.equal(acc32.to(torch.int64) & 0xFFFFFFFF, want)
+        assert cmux_fused.cmux_stage2.launches - before == 2
+        degrees = torch.randint(-4 << log_n, 4 << log_n, (bsz,), generator=gen, device=dev)
+        want1 = cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees)
+        assert torch.equal(cmux_fused.cmux_stage1(conv, basis, acc, degrees), want1)
+
+
+@pytest.mark.parametrize("log_n,log_basis,level,k,bound", STAGED_SHAPES[:4])
+def test_staged_cmux_steps_match_plain(dev, log_n, log_basis, level, k, bound):
+    """The staged route (kernel G, kernel 1, kernel H: three launches a
+    step, no fused launch) over 4 consecutive steps at batch 2, the
+    accumulator updated in place, against the plain step on the same CUDA
+    tensors."""
+    conv, basis, gen, acc, key = _staged_setup(dev, log_n, log_basis, level, k, bound, 2,
+                                               log_n * 7 + level)
+    plan = cmux_fused.CmuxStepPlan(conv, basis, k + 1, dev)
+    assert plan.route == "staged"
+    acc32, key32 = acc.to(torch.int32), key.to(torch.int32)
+    counted = (cmux_front.cmux_front, ntt32.forward32, cmux_fused.cmux_stage2,
+               cmux_fused.fused_cmux_step)
+    before = [fn.launches for fn in counted]
+    for step in range(4):
+        degrees = torch.randint(0, 2 << log_n, (2,), generator=gen, device=dev, dtype=torch.int32)
+        acc = cmux_fused.cmux_stage2_plain(
+            conv, cmux_fused.cmux_stage1_plain(conv, basis, acc, degrees), key, acc)
+        assert plan(acc32, degrees, key32, out=acc32) is acc32
+        assert torch.equal(acc32.to(torch.int64) & 0xFFFFFFFF, acc), step
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [4, 4, 4, 0]
+
+
+def test_staged_route_limits_and_fused_shapes(dev):
+    """BOOLEAN_128 and the shapes the card ran before keep the fused
+    kernel; past kp 4, L 32 or log_n 16 the plan raises before any
+    launch; kernel H's launch at log_n 16 is 2 blocks a row."""
+    for p in (P.BOOLEAN_128, P.BOOLEAN_TFHE_LIB, P.TOY):
+        conv = tfhe.make_convolver(p.log_n, p.level, p.glwe_dim, p.log_basis)
+        basis = ApproxSignedBasis32(None, p.log_basis, reverse_length=p.level)
+        assert cmux_fused.CmuxStepPlan(conv, basis, p.glwe_dim + 1, dev).route == "fused"
+    conv = tfhe.make_convolver(17, 3, 1, 1)
+    with pytest.raises(ValueError, match="log_n 4-16"):
+        cmux_fused.CmuxStepPlan(conv, ApproxSignedBasis32(None, 1, reverse_length=3), 2, dev)
+    with pytest.raises(ValueError, match="1-32"):  # no torus basis has 33 levels
+        cmux_fused.step_route(2, 2, 33, 10)
+    blocks, threads, smem, held = cmux_fused.launch_grid(TorusConvolver32(16, 60))
+    assert (blocks, threads, smem) == (2, 512, 1 << 17) and held >= 1
+    assert cmux_fused.launch_grid(TorusConvolver32(15))[:3] == (1, 512, 1 << 17)
 
 
 @pytest.mark.parametrize("bsz", [1, 3, 64, 65])
