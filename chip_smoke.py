@@ -157,7 +157,28 @@ non-zero):
     16) on 16 ciphertexts, each decrypted under the GLWE key, the phase
     error against ``noise.blind_rotate``, exact launches (630 each of G,
     kernel 1 and H, one F, no fused step), ms at batch 1 and 16 and the
-    idle share; a BOOLEAN_128 bootstrap still on the fused step alone.
+    idle share; a BOOLEAN_128 bootstrap still on the fused step alone;
+22. the MXU bootstrap key and the NTRU MXU evk past kernels A-C's caps:
+    the route rules (``mxu_step_route``, ``ntru_step_route``, on kernels A
+    and B's C entry) over a grid of shapes, ``plan_for``'s host seconds at
+    N = 2^15 and 2^16; kernel C's route (kernel 1 at ``out_factor=1``) at
+    log_n 13-16, kp 2, 16 rows, against its plain version; BOOLEAN_128 at N
+    = 4096 on the MXU key (k1 L = 6: past kernel A, so the NTT key's fused
+    step on the pack's values) running NAND at batch 64 with the key switch
+    against its truth table, exactly 630 fused-step launches a gate and
+    none of kernel A, G or H, ms at batch 1 and 64 and the idle share;
+    21.3's 4-bit programmable bootstrap at N = 2^15 on the MXU key made
+    from the same draws (the same 16 output words, 630 launches each of G,
+    kernel 1 and H), ms at batch 1 and 16 and the idle share; NTRU_128's gadget, n_lwe and
+    sigmas at N = 2^13 (``make_ntru_keys``, both evk forms), kernels I
+    (``ntru_digits``) and J (``ntru_stage2``) against their plain versions
+    at batch 1 and 16 with device ms against their bounds, the first 8
+    staged steps at batch 1 and 16 against the plain step, a full 700-step
+    rotation at batch 2 against the CPU's plain rotation (exact launches:
+    700 each of I, kernel 1 and J), the key-switched output's phase std
+    (``noise.py`` has no NTRU model: the measured std alone), the rotation's
+    ms at batch 1 and 16 and the idle share; BOOLEAN_128 and NTRU_128 still
+    on kernels A and B (630 and 700 launches a gate, none of I or J).
 
 The line before the last is the kernel table as JSON (every kernel with its
 launches on its main path, its time, its plain version's time and its bound,
@@ -2291,7 +2312,7 @@ def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> di
         f"3); device busy {busy if busy is None else round(busy, 3)} ms of the batch-16 run -> "
         f"idle share {idle}; top device rows: "
         + "; ".join(f"{key_[:50]} x{c} ({ms_:.2f} ms)" for ms_, c, key_ in rows[:4]))
-    del wctx, cts, out
+    del wctx, cts
 
     # -- 21.4: BOOLEAN_128 stays on the fused step --------------------------------
     p = ctx.params
@@ -2305,7 +2326,306 @@ def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> di
     log(f"-- 21.4: a BOOLEAN_128 bootstrap: {fused['fused_cmux_step']} fused_cmux_step "
         f"launches, {fused['cmux_stage2']} of kernel H, {fused['cmux_front']} of G (the fused "
         f"route, as before)")
-    return counts
+    return counts, out
+
+
+MXU_WIDE_LOG_N = 12  # 22.3: BOOLEAN_128 at N = 4096 on the MXU key (k1 L = 6: past kernel A)
+NTRU_WIDE_LOG_N = 13  # 22.5: NTRU_128's gadget, n_lwe and sigmas at N = 2^13
+NTRU_WIDE_BATCH = 16
+NTRU_CHECK_STEPS = 8  # 22.5: staged steps held to the plain step on the card
+
+
+def ntru_stage2_bound(bsz: int, level: int, n: int) -> tuple[float, str]:
+    """Kernel J's :func:`bound`: the digits, the evk row, the accumulator in
+    and out, the degrees and the inverse tables once; the MAC's products and
+    the B inverse NTTs."""
+    nbytes = 4 * (level * bsz * n + level * n + 2 * bsz * n + bsz + 2 * n)
+    return bound(nbytes, muls32=bsz * level * n + ntt_muls(bsz, n))
+
+
+def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) -> dict:
+    """Phase 22: the MXU key and the NTRU MXU evk past kernels A-C's caps.
+    22.1 the route rules on kernels A and B's C entry; 22.2 kernel C's route
+    at log_n 13-16; 22.3 BOOLEAN_128 at N = 4096 on the MXU key; 22.4
+    21.3's programmable bootstrap on the MXU key; 22.5 NTRU at N = 2^13 on
+    kernels I, 1 and J; 22.6 BOOLEAN_128 and NTRU_128 still on kernels A and
+    B.  Returns the launch counts of 22.4's bootstrap, 22.3's gate and 22.5's
+    rotation."""
+    import dataclasses
+
+    from primus_fhe_tpu_torch import params as P
+    from primus_fhe_tpu_torch.boot import gates, ntru_gates
+    from primus_fhe_tpu_torch.boot import ntru_blind_rotate as nbr
+    from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap, lut_test_polynomial
+    from primus_fhe_tpu_torch.lattice.lwe import encrypt_torus32
+    from primus_fhe_tpu_torch.modular.modops import add32, neg32, sub32
+    from primus_fhe_tpu_torch.ops import cmux_fused, cmux_mxu, ntru_cmux_mxu, ntt32, ntt_mxu8
+    from primus_fhe_tpu_torch.transforms.torus import TorusConvolver32
+
+    # -- 22.1: the route rules on kernels A and B's C entry -----------------------
+    log("-- 22.1: mxu_step_route / ntru_step_route on the card")
+    routes = {"mxu": 0, "fused": 0, "staged": 0}
+    levels = list(range(1, 9)) + [12, 20, 32]
+    for log_n in range(8, 17):
+        for kp in (1, 2, 4):
+            for k1 in range(1, 5):
+                for dp in (1, 2):
+                    got = [cmux_mxu.mxu_step_route(kp, k1, level, log_n, dp) for level in levels]
+                    held = [r == "mxu" for r in got]
+                    # kernel A's plan grows with L; it holds nothing past log_n 12
+                    if held != sorted(held, reverse=True) or (log_n > 12 and any(held)):
+                        raise AssertionError(f"mxu_step_route {(kp, k1, log_n, dp)}: {got}")
+                    for level, r in zip(levels, got):
+                        if r != "mxu" and r != cmux_fused.step_route(kp, k1, level, log_n):
+                            raise AssertionError(f"mxu_step_route {(kp, k1, level, log_n, dp)}")
+                        routes[r] += 1
+    for bad in ((2, 2, 3, 17, 1), (5, 2, 3, 13, 1), (2, 2, 33, 13, 1), (2, 2, 3, 11, 3)):
+        try:
+            cmux_mxu.mxu_step_route(*bad)
+        except ValueError:
+            continue
+        raise AssertionError(f"mxu_step_route took {bad}")
+    named = {"BOOLEAN_128": cmux_mxu.mxu_step_route(2, 2, 3, 11, 1),
+             "BOOLEAN_128 at N = 4096": cmux_mxu.mxu_step_route(2, 2, 3, 12, 1),
+             "BOOLEAN_128 at N = 2^15": cmux_mxu.mxu_step_route(2, 2, 3, 15, 1),
+             "NTRU_128": ntru_cmux_mxu.ntru_step_route(6, 10, 1),
+             "NTRU_128 at N = 4096": ntru_cmux_mxu.ntru_step_route(6, 12, 1),
+             "NTRU_128 at N = 2^13": ntru_cmux_mxu.ntru_step_route(6, 13, 1)}
+    if list(named.values()) != ["mxu", "fused", "staged", "mxu", "staged", "staged"]:
+        raise AssertionError(f"routes of the named shapes: {named}")
+    log(f"routes over {9 * 3 * 4 * 2 * len(levels)} shapes (log_n 8-16, kp 1, 2, 4, k1 1-4, L "
+        f"1-8, 12, 20, 32, 1-2 digit planes): {routes}; {named}; log_n 17, kp 5, L 33, 3 "
+        f"planes refused")
+    for log_n in (15, 16):
+        conv = TorusConvolver32(log_n, 56)
+        t0 = time.perf_counter()
+        cmux_mxu.CmuxMxuPlan(log_n, tuple(conv.primes)).fold_inverse_scale(conv.product)
+        log(f"plan_for's work at N = 2^{log_n} (CmuxMxuPlan + fold_inverse_scale, kp 2): "
+            f"{time.perf_counter() - t0:.4f} s host (no int8 plane matrix built)")
+
+    # -- 22.2: kernel C's route at log_n 13-16 -------------------------------------
+    log("-- 22.2: mxu8_forward32 at log_n 13-16 (kernel 1 at out_factor 1), kp 2, 16 rows")
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    for log_n in (13, 14, 15, 16):
+        conv = TorusConvolver32(log_n, 56)
+        plan = cmux_mxu.CmuxMxuPlan(log_n, tuple(conv.primes))
+        q = torch.tensor(conv.primes, dtype=torch.int64, device=dev).reshape(-1, 1, 1)
+        x = torch.randint(0, 1 << 40, (2, 16, 1 << log_n), generator=g, device=dev) % q
+        before = (ntt_mxu8.mxu8_forward32.launches, ntt32.forward32.launches)
+        got = ntt_mxu8.mxu8_forward32(plan, x)
+        launched = (ntt_mxu8.mxu8_forward32.launches - before[0],
+                    ntt32.forward32.launches - before[1])
+        if not torch.equal(got, ntt_mxu8.mxu8_forward32_plain(plan, x)) or launched != (0, 1):
+            raise AssertionError(f"mxu8_forward32 at log_n {log_n}: != plain or launches "
+                                 f"{launched}")
+        log(f"log_n {log_n}: bit-equal to the plain version; launches (kernel C, kernel 1) "
+            f"{launched}")
+
+    # -- 22.3: BOOLEAN_128 at N = 4096 on the MXU key ------------------------------
+    wide = dataclasses.replace(P.BOOLEAN_128, log_n=MXU_WIDE_LOG_N)
+    log(f"-- 22.3: make_context(BOOLEAN_128 at N = {wide.n}, bsk_kind='mxu'), NAND at batch "
+        f"{BATCH} with the key switch")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    t0 = time.perf_counter()
+    mctx = P.make_context(wide, dev, gen, bsk_kind="mxu")
+    torch.cuda.synchronize()
+    log(f"keygen: {time.perf_counter() - t0:.3f} s; bsk (vals, precons) "
+        f"{tuple(mctx.bsk[0].shape)} x 2, primes {mctx.conv.primes}")
+    args = (mctx.conv, mctx.basis, mctx.bsk, mctx.ksk, mctx.ks_basis)
+    bits_a = torch.randint(0, 2, (BATCH,), generator=gen, device=dev)
+    bits_b = torch.randint(0, 2, (BATCH,), generator=gen, device=dev)
+    ca, cb = mctx.encrypt(bits_a, gen), mctx.encrypt(bits_b, gen)
+    want = ~(bits_a.bool() & bits_b.bool())
+    reset_counts()
+    res = gates.nand_gate(*args, ca, cb, wide.log_n)
+    counts_m = read_counts()
+    if not torch.equal(mctx.decrypt(res), want):
+        raise AssertionError("NAND at N = 4096 on the MXU key: wrong truth table")
+    want_m = {name: 0 for name in counts_m} | {"fused_cmux_step": wide.lwe_dim, "rotate": 1}
+    log(f"NAND truth table at batch {BATCH} correct; launches of one gate: "
+        f"{json.dumps(counts_m)}")
+    if counts_m != want_m:
+        raise AssertionError(f"NAND at N = 4096 on the MXU key: launches {counts_m}, want {want_m}")
+    err = (mctx.phase(res) - torch.where(want, gates.TRUE_MU, -gates.TRUE_MU)).double()
+    lat = min(wall_ms(torch, lambda: gates.nand_gate(*args, ca[:1], cb[:1], wide.log_n), 3))
+    rate = min(wall_ms(torch, lambda: gates.nand_gate(*args, ca, cb, wide.log_n), 3))
+    busy, rows = device_time(torch, lambda: gates.nand_gate(*args, ca, cb, wide.log_n))
+    idle = "not measured" if busy is None else f"{1 - busy / rate:.3f}"
+    log(f"[{smi}] NAND at N = {wide.n} on the MXU key (fused step): batch 1 {lat:.2f} ms, "
+        f"batch {BATCH} {rate:.2f} ms ({BATCH * 1e3 / rate:.1f} gates/s) (host clock, "
+        f"synchronised, least of 3); device busy {busy if busy is None else round(busy, 3)} ms "
+        f"of the batch-{BATCH} gate -> idle share {idle}; output phase std {err.std().item():.1f} "
+        f"(2^{math.log2(err.std().item()):.2f}) against the 2^29 decision threshold; top rows: "
+        + "; ".join(f"{key_[:40]} x{c} ({ms_:.2f} ms)" for ms_, c, key_ in rows[:4]))
+    del mctx, args, ca, cb, res
+
+    # -- 22.4: 21.3's programmable bootstrap on the MXU key ------------------------
+    wide = dataclasses.replace(P.BOOLEAN_128, log_n=WIDE_LOG_N)
+    log(f"-- 22.4: make_context(BOOLEAN_128 at N = 2^{WIDE_LOG_N}, bsk_kind='mxu') from 21.3's "
+        f"draws and its {MSG_BITS}-bit programmable bootstrap")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wctx = P.make_context(wide, dev, gen, bsk_kind="mxu")
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    log(f"keygen: {keygen_s:.3f} s (kernel 1 prepares the MXU key at this ring); bsk (vals, "
+        f"precons) {tuple(wctx.bsk[0].shape)} x 2 ({2 * wctx.bsk[0].numel() * 8 / 1e9:.2f} GB)")
+    delta = 1 << (32 - MSG_BITS - 1)
+    f_of = [(3 * m + 1) % (1 << MSG_BITS) for m in range(1 << MSG_BITS)]
+    tp = lut_test_polynomial([v * delta for v in f_of], wide.log_n, MSG_BITS).to(dev)
+    msgs = torch.arange(1 << MSG_BITS, device=dev)
+    cts = encrypt_torus32(msgs * delta, wctx.lwe_secret, wctx.gaussian, gen)
+    reset_counts()
+    pbs = bootstrap(wctx.conv, wctx.basis, wctx.bsk, cts, tp, wide.log_n)
+    counts_p = read_counts()
+    if not torch.equal(pbs, pbs_21):
+        raise AssertionError("the programmable bootstrap on the MXU key differs from 21.3's")
+    want_p = {name: 0 for name in counts_p} | {
+        "cmux_front": wide.lwe_dim, "forward32": wide.lwe_dim, "cmux_stage2": wide.lwe_dim,
+        "rotate": 1}
+    if counts_p != want_p:
+        raise AssertionError(f"programmable bootstrap on the MXU key: launches {counts_p}")
+    log(f"the 16 outputs equal 21.3's NTT-key outputs word for word ({pbs.numel()} words); "
+        f"launches of one bootstrap: {json.dumps(counts_p)}")
+    boot = lambda c: bootstrap(wctx.conv, wctx.basis, wctx.bsk, c, tp, wide.log_n)  # noqa: E731
+    lat = min(wall_ms(torch, lambda: boot(cts[:1]), 3))
+    rate = min(wall_ms(torch, lambda: boot(cts), 3))
+    busy, rows = device_time(torch, lambda: boot(cts))
+    idle = "not measured" if busy is None else f"{1 - busy / rate:.3f}"
+    log(f"[{smi}] programmable bootstrap at N = 2^{WIDE_LOG_N} on the MXU key: batch 1 "
+        f"{lat:.2f} ms, batch 16 {rate:.2f} ms (host clock, synchronised, least of 3); device "
+        f"busy {busy if busy is None else round(busy, 3)} ms of the batch-16 run -> idle share "
+        f"{idle}")
+    del wctx, cts, pbs
+
+    # -- 22.5: NTRU at N = 2^13 on kernels I, 1 and J ------------------------------
+    pw = dataclasses.replace(P.NTRU_128, log_n=NTRU_WIDE_LOG_N)
+    log(f"-- 22.5: NTRU_128's gadget, n_lwe and sigmas at N = 2^{NTRU_WIDE_LOG_N} (q = "
+        f"{pw.q}): make_ntru_keys, kernels I and J, the staged rotation")
+    gen_n = torch.Generator(device=dev).manual_seed(SEED + 25)
+    t0 = time.perf_counter()
+    keys = P.make_ntru_keys(pw, dev, gen_n)
+    torch.cuda.synchronize()
+    kctx, qn, nn = keys.ctx, keys.ctx.q_int, keys.ctx.n
+    level = kctx.basis.decompose_length
+    log(f"make_ntru_keys: {time.perf_counter() - t0:.3f} s; evk {tuple(keys.evk.shape)}, evk_mxu "
+        f"{tuple(keys.evk_mxu[0].shape)} x 2 (kernel 1 prepared it), ksk {tuple(keys.ksk.shape)}")
+    evk_row = keys.evk_mxu[0][0].reshape(level, nn)
+    if not torch.equal(evk_row, keys.evk[0]):
+        raise AssertionError("the MXU evk's values differ from the NTT evk's")
+    for bsz in (1, NTRU_WIDE_BATCH):
+        acc = torch.randint(0, qn, (bsz, nn), generator=gen_n, device=dev)
+        acc[0, :3] = torch.tensor([0, qn - 1, kctx.basis.wrap_threshold or 1])
+        acc32 = acc.to(torch.int32)
+        deg = torch.randint(0, 2 * nn, (bsz,), generator=gen_n, device=dev, dtype=torch.int32)
+        compare_kernel(torch, table, "ntru_digits", bsz,
+                       lambda: ntru_cmux_mxu.ntru_digits(kctx.basis, acc),
+                       lambda: ntru_cmux_mxu.ntru_digits(kctx.basis, acc32),
+                       lambda: ntru_cmux_mxu.ntru_digits_plain(kctx.basis, acc),
+                       bound(4 * (bsz * nn + level * bsz * nn)))
+        f = ntru_cmux_mxu.ntru_stage1(kctx.ntt, kctx.basis, acc)
+        f32 = f.to(torch.int32)
+        evk32 = evk_row.to(torch.int32)
+        compare_kernel(torch, table, "ntru_stage2", bsz,
+                       lambda: ntru_cmux_mxu.ntru_stage2(kctx.ntt, f, evk_row, acc, deg),
+                       lambda: ntru_cmux_mxu.ntru_stage2(kctx.ntt, f32, evk32, acc32, deg),
+                       lambda: ntru_cmux_mxu.ntru_stage2_plain(kctx.ntt, f, evk_row, acc, deg),
+                       ntru_stage2_bound(bsz, level, nn))
+        step = ntru_cmux_mxu.NtruStepPlan(kctx, dev)
+        if step.route != "staged":
+            raise AssertionError(f"NTRU at N = 2^{NTRU_WIDE_LOG_N}: route {step.route}")
+        kv32 = keys.evk_mxu[0][:NTRU_CHECK_STEPS].to(torch.int32).contiguous()
+        nplan = ntru_cmux_mxu.get_ntru_plan(NTRU_WIDE_LOG_N, qn)
+        plain_acc, run = acc.clone(), acc32.clone()
+        sw = torch.randint(0, 2 * nn, (NTRU_CHECK_STEPS, bsz), generator=gen_n, device=dev,
+                           dtype=torch.int32)
+        for i in range(NTRU_CHECK_STEPS):
+            plain_acc = ntru_cmux_mxu.ntru_cmux_step_plain(nplan, kctx.basis, plain_acc, sw[i],
+                                                           keys.evk_mxu[0][i])
+            run = step(run, sw[i], kv32[i], None)
+            if not torch.equal(run.to(torch.int64), plain_acc):
+                raise AssertionError(f"NTRU staged step {i} at batch {bsz} != plain")
+        step_ms = kernel_device_ms(torch, lambda: step(run, sw[0], kv32[0], None))
+        log(f"[{smi}] the first {NTRU_CHECK_STEPS} staged steps at batch {bsz} bit-equal to the "
+            f"plain step on the card; one step {step_ms:.4f} device ms (I "
+            f"{table['ntru_digits'][bsz][3]:.4f}, J {table['ntru_stage2'][bsz][3]:.4f}, kernel 1 "
+            f"the rest); J's launch (blocks a row, threads, shared bytes) "
+            f"{ntru_cmux_mxu.launch_grid(NTRU_WIDE_LOG_N)}")
+    nt = (qn - 1) // 8
+    xa_bits = torch.tensor([1, 0], device=dev)
+    xb_bits = torch.tensor([1, 1], device=dev)
+    xa, xb = keys.encrypt(xa_bits, gen_n), keys.encrypt(xb_bits, gen_n)
+    nand_const = torch.zeros(pw.lwe_dim + 1, dtype=torch.int64, device=dev)
+    nand_const[-1] = 5 * nt % qn
+    sw = nbr.modulus_switch_q(sub32(add32(xa, xb, qn), nand_const, qn), kctx, pw.log_n + 1)
+    tpn = nbr.ntru_test_polynomial(nn, qn, nt, dev)
+    reset_counts()
+    rot = nbr.ntru_blind_rotate(kctx, keys.evk_mxu, sw, tpn)
+    counts_n = read_counts()
+    want_n = {name: 0 for name in counts_n} | {
+        "ntru_digits": pw.lwe_dim, "forward32": pw.lwe_dim, "ntru_stage2": pw.lwe_dim}
+    log(f"launches of one rotation at batch 2: {json.dumps(counts_n)}")
+    if counts_n != want_n:
+        raise AssertionError(f"NTRU staged rotation: launches {counts_n}, want {want_n}")
+    t0 = time.perf_counter()
+    rot_cpu = nbr.ntru_blind_rotate(kctx, tuple(x.cpu() for x in keys.evk_mxu), sw.cpu(),
+                                    tpn.cpu())
+    cpu_s = time.perf_counter() - t0
+    if not torch.equal(rot.cpu(), rot_cpu):
+        raise AssertionError("the NTRU staged rotation on the card differs from the CPU's")
+    log(f"the {pw.lwe_dim}-step rotation at batch 2 equals the CPU's plain rotation word for "
+        f"word ({rot.numel()} words; the CPU took {cpu_s:.2f} s)")
+    a_vec = nbr.extract_lwe_ntru(rot, qn)
+    out_s = nbr.ntru_key_switch(kctx, torch.cat([neg32(a_vec, qn), torch.zeros_like(a_vec[..., :1])],
+                                                dim=-1), keys.ksk, keys.ks_basis)
+    want_bits = ~(xa_bits.bool() & xb_bits.bool())
+    nerr = (keys.phase(out_s) - torch.where(want_bits, nt, -nt)).double()
+    log(f"NAND through the rotation and the key switch: decrypted "
+        f"{keys.decrypt(out_s).int().tolist()}, NAND {want_bits.int().tolist()}; phase error "
+        f"{nerr.tolist()} (std {nerr.std().item():.1f}) against the decision margin q/8 = "
+        f"{qn / 8:.0f}; noise.py has no NTRU model, so the truth table is not checked here")
+    big = keys.encrypt(torch.randint(0, 2, (NTRU_WIDE_BATCH,), generator=gen_n, device=dev), gen_n)
+    big_sw = nbr.modulus_switch_q(big, kctx, pw.log_n + 1)
+    lat = min(wall_ms(torch, lambda: nbr.ntru_blind_rotate(kctx, keys.evk_mxu, big_sw[:1], tpn),
+                      3))
+    rate = min(wall_ms(torch, lambda: nbr.ntru_blind_rotate(kctx, keys.evk_mxu, big_sw, tpn), 3))
+    busy, rows = device_time(torch, lambda: nbr.ntru_blind_rotate(kctx, keys.evk_mxu, big_sw, tpn))
+    idle = "not measured" if busy is None else f"{1 - busy / rate:.3f}"
+    log(f"[{smi}] NTRU staged rotation at N = 2^{NTRU_WIDE_LOG_N} ({pw.lwe_dim} steps): batch 1 "
+        f"{lat:.2f} ms, batch {NTRU_WIDE_BATCH} {rate:.2f} ms (host clock, synchronised, least "
+        f"of 3); device busy {busy if busy is None else round(busy, 3)} ms of the batch-"
+        f"{NTRU_WIDE_BATCH} run -> idle share {idle}; top rows: "
+        + "; ".join(f"{key_[:40]} x{c} ({ms_:.2f} ms)" for ms_, c, key_ in rows[:4]))
+    del keys, rot, rot_cpu
+
+    # -- 22.6: BOOLEAN_128 and NTRU_128 stay on kernels A and B --------------------
+    p = P.BOOLEAN_128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    bctx = P.make_context(p, dev, gen, bsk_kind="mxu")
+    c1, c2 = bctx.encrypt(torch.tensor([0, 1], device=dev), gen), bctx.encrypt(
+        torch.tensor([1, 1], device=dev), gen)
+    reset_counts()
+    ok_b = torch.equal(bctx.decrypt(gates.nand_gate(bctx.conv, bctx.basis, bctx.bsk, bctx.ksk,
+                                                    bctx.ks_basis, c1, c2, p.log_n)),
+                       torch.tensor([True, False], device=dev))
+    cb_ = read_counts()
+    keys = P.make_ntru_keys(P.NTRU_128, dev, gen)
+    n1, n2 = keys.encrypt([0, 1], gen), keys.encrypt([1, 1], gen)
+    reset_counts()
+    ok_n = torch.equal(keys.decrypt(ntru_gates.ntru_nand(keys.ctx, keys.evk_mxu, keys.ksk,
+                                                         keys.ks_basis, n1, n2)),
+                       torch.tensor([True, False], device=dev))
+    cn_ = read_counts()
+    seen = (cb_["mxu_cmux_step"], cn_["ntru_cmux_step"], cb_["ntru_digits"] + cn_["ntru_digits"],
+            cb_["ntru_stage2"] + cn_["ntru_stage2"], cb_["cmux_stage2"] + cn_["cmux_stage2"])
+    if not (ok_b and ok_n) or seen != (p.lwe_dim, P.NTRU_128.lwe_dim, 0, 0, 0):
+        raise AssertionError(f"22.6: NAND right {ok_b, ok_n}; launches A, B, I, J, H {seen}")
+    log(f"-- 22.6: a BOOLEAN_128 NAND on the MXU key and an NTRU_128 NAND on the MXU evk: "
+        f"right; kernel A {seen[0]}, kernel B {seen[1]}, I {seen[2]}, J {seen[3]}, H {seen[4]} "
+        f"launches")
+    return {"mxu": counts_p, "mxu4096": counts_m, "ntru": counts_n}
 
 
 def main() -> None:
@@ -2502,7 +2822,8 @@ def main() -> None:
 
     counted = (ntt32.forward32, ntt32.inverse32, cmux_fused.fused_cmux_step,
                cmux_mxu.mxu_cmux_step, ntru_cmux_mxu.ntru_cmux_step, ntt_mxu8.mxu8_forward32,
-               rotate.rotate, cmux_front.cmux_front, cmux_fused.cmux_stage2)
+               rotate.rotate, cmux_front.cmux_front, cmux_fused.cmux_stage2,
+               ntru_cmux_mxu.ntru_digits, ntru_cmux_mxu.ntru_stage2)
 
     def reset_counts():
         for fn in counted:
@@ -2825,7 +3146,13 @@ def main() -> None:
     # -- phase 21: the NTT-key rotation past the one-launch step's caps --------
     log(f"== phase 21: kernels 1-2 at log_n 15-16, kernel H and the staged CMux step, a "
         f"{MSG_BITS}-bit programmable bootstrap at N = 2^{WIDE_LOG_N}")
-    counts_21 = phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts)
+    counts_21, pbs_21 = phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts)
+
+    # -- phase 22: the MXU key and the NTRU MXU evk past kernels A-C's caps -----
+    log(f"== phase 22: the MXU key past kernel A (N = 4096 on the fused step, 2^{WIDE_LOG_N} on "
+        f"the staged route), kernel C's route at log_n 13-16, NTRU at N = "
+        f"2^{NTRU_WIDE_LOG_N} on kernels I, 1 and J")
+    counts_22 = phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts)
 
     # -- the kernel table -----------------------------------------------------
     # name -> (source, TPU kernel, launches on its main path, the table key of
@@ -2871,6 +3198,10 @@ def main() -> None:
                       counts_x["split_ki2"], (RT_BATCH, None)),
         "cmux_stage2": ("cmux_stage2.cu", "ops/cmux_fused.py:226", counts_21["cmux_stage2"],
                         (1, WIDE_BATCH)),
+        "ntru_digits": ("ntru_stage.cu", "ops/ntru_cmux_mxu.py:259",
+                        counts_22["ntru"]["ntru_digits"], (1, NTRU_WIDE_BATCH)),
+        "ntru_stage2": ("ntru_stage.cu", "ops/ntru_cmux_mxu.py:259",
+                        counts_22["ntru"]["ntru_stage2"], (1, NTRU_WIDE_BATCH)),
     }
     kernels = []
     for name, (src, rep, launches, (b0, bb)) in sources.items():
@@ -2905,6 +3236,17 @@ def main() -> None:
             row["launches_cb_path"] = counts_cb[cb_name]
         if name in ("fused_cmux_step", "rotate"):  # phase 20's three tracked gates
             row["launches_tracked_path"] = counts_tr[name]
+        path22 = {"ntt32_forward": "forward32", "cmux_front": "cmux_front",
+                  "cmux_stage2": "cmux_stage2", "rotate": "rotate",
+                  "mxu_cmux_step": "mxu_cmux_step"}.get(name)
+        if path22:  # 22.4's programmable bootstrap at N = 2^15 on the MXU key
+            row["launches_mxu_staged_path"] = counts_22["mxu"][path22]
+        if name in ("fused_cmux_step", "rotate", "mxu_cmux_step"):  # 22.3's NAND at N = 4096
+            row["launches_mxu_4096_path"] = counts_22["mxu4096"][name]
+        path22 = {"ntt32_forward": "forward32", "ntru_digits": "ntru_digits",
+                  "ntru_stage2": "ntru_stage2", "ntru_cmux_step": "ntru_cmux_step"}.get(name)
+        if path22:  # 22.5's rotation at N = 2^13
+            row["launches_ntru_staged_path"] = counts_22["ntru"][path22]
         if name in ("ntt32_forward", "ntt32_inverse"):  # phases 17-18's and 21.3's paths
             key = name.replace("ntt32_", "") + "32"
             row.update({"launches_sharded_dcrt32_path": counts_17[key],

@@ -8,7 +8,10 @@
    the one-kernel CMux step (:mod:`..ops.cmux_fused`, its launch
    constants built once a rotation in a :class:`~..ops.cmux_fused.CmuxStepPlan`
    and the accumulator updated in place), an MXU pack
-   ``(vals, precons)`` the one-kernel int8 CMux (:mod:`..ops.cmux_mxu`),
+   ``(vals, precons)`` the one-kernel int8 CMux (:mod:`..ops.cmux_mxu`)
+   where kernel A takes the shape, and elsewhere the NTT key's step on the
+   pack's values, which are the NTT key's rows
+   (:func:`~..ops.cmux_mxu.mxu_step_route`, decided once a rotation),
 3. **sample extract**: GLWE coefficient 0 -> LWE.
 
 The accumulator and the key are narrowed to int32 storage once per call and
@@ -24,7 +27,8 @@ from ..lattice.rlwe import extract_lwe_torus32
 from ..lattice.tfhe import ggsw_encrypt_torus
 from ..numeric.limb import MASK32, narrow_u32, widen_u32
 from ..ops.cmux_fused import CmuxStepPlan
-from ..ops.cmux_mxu import mxu_cmux_step, plan_for, prepare_mxu_bsk
+from ..ops.cmux_mxu import (digit_planes, mxu_cmux_step, mxu_step_route, plan_for,
+                            prepare_mxu_bsk)
 from ..ops.rotate import rotate
 
 
@@ -67,14 +71,16 @@ def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
 
     acc = initial_accumulator(test_poly, -sw[:, n_lwe], k1)
     a_t = sw[:, :n_lwe].t().to(torch.int32).contiguous()  # (n_lwe, B)
-    if use_mxu:
+    level = basis.decompose_length
+    if use_mxu and (sw.device.type == "cpu" or mxu_step_route(
+            conv.count, k1, level, conv.log_n, digit_planes(basis)) == "mxu"):
         plan = plan_for(conv)
         kv = narrow_u32(bsk_ntt[0]).contiguous()
         kpre = narrow_u32(bsk_ntt[1]).contiguous()
         for i in range(n_lwe):
             acc = mxu_cmux_step(plan, basis, conv, acc, a_t[i], kv[i], kpre[i])
-    else:
-        key = narrow_u32(bsk_ntt).contiguous()
+    else:  # the NTT key, or the MXU pack's values: the same canonical NTT rows
+        key = narrow_u32(key).reshape(n_lwe, conv.count, k1, level, k1, n).contiguous()
         step = CmuxStepPlan(conv, basis, k1, sw.device)
         for i in range(n_lwe):
             acc = step(acc, a_t[i], key[i], out=acc)

@@ -12,7 +12,9 @@ Everything is mod one NTT prime ``q < 2^30``.  The blind rotation takes
 either evaluation key: an NTT-domain ``(n_lwe, L, N)`` tensor runs the
 composed step (kernels 1-2 on a CUDA tensor, the route the reference takes
 on its accelerator for this key), an MXU pack ``(vals, precons)`` runs
-kernel B once per key slice.
+kernel B once per key slice where it takes the shape and the staged step
+(kernels I, 1 and J) elsewhere (:class:`~..ops.ntru_cmux_mxu.NtruStepPlan`,
+its route decided once a rotation).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ..modular.modops import add32, dot32, lazy_mul32, neg32, sub32
 from ..modular.modulus import barrett32_int
 from ..numeric.limb import narrow_u32, widen_u32
 from ..ops import ntt32
-from ..ops.ntru_cmux_mxu import get_ntru_plan, ntru_cmux_step, ntru_ntt_step, prepare_mxu_evk
+from ..ops.ntru_cmux_mxu import NtruStepPlan, ntru_ntt_step, prepare_mxu_evk
 from ..poly.poly import poly_rotate32
 
 # Budget of the int64 (batch, chunk, L, n_out+1) key-switch product per chunk.
@@ -166,12 +168,12 @@ def ntru_blind_rotate(ctx: NtruContext, evk, lwe_switched, test_poly):
     acc = poly_rotate32(test_poly.to(sw.device).expand(sw.shape[0], n), -sw[:, n_lwe], q)
     a_t = sw[:, :n_lwe].t().to(torch.int32).contiguous()  # (n_lwe, B)
     if use_mxu:
-        plan = get_ntru_plan(ctx.log_n, q)
+        step = NtruStepPlan(ctx, sw.device)
         kv = narrow_u32(evk[0]).contiguous()
-        kpre = narrow_u32(evk[1]).contiguous()
-        acc = narrow_u32(acc)
+        kpre = narrow_u32(evk[1]).contiguous() if step.reads_precons else None
+        acc = narrow_u32(acc).contiguous()
         for i in range(n_lwe):
-            acc = ntru_cmux_step(plan, ctx.basis, acc, a_t[i], kv[i], kpre[i])
+            acc = step(acc, a_t[i], kv[i], None if kpre is None else kpre[i])
         acc = widen_u32(acc)
     else:
         for i in range(n_lwe):

@@ -64,8 +64,11 @@
 // barriers.  BOOLEAN_128 (k1 = 2, L = 3, n = 2048): 64 + 48 + 48 + 24 KB =
 // 188,480 bytes; NTRU_128 (L = 6, n = 1024): 128 + 24 + 36 + 24 KB = 217,216
 // bytes.  Shapes whose plan exceeds 227 KB are refused (e.g. log_n 12 with
-// k1 * L = 6).  ptxas (sm_90a, 544 threads a block): 96 registers, 228-276
-// bytes of spills.
+// k1 * L = 6); the blind rotations ask pft_cmux_mxu_clusters before the
+// loop and route such shapes, and log_n 13-16, elsewhere
+// (ops/cmux_mxu.mxu_step_route, ops/ntru_cmux_mxu.ntru_step_route).
+// ptxas (sm_90a, 544 threads a block): 96 registers, 228-276 bytes of
+// spills.
 //
 // What bounds it, measured with clock64() per phase in block 0
 // (cmux_mxu_timing.py --phases, H100 80GB HBM3, 700 W): a BOOLEAN_128 block takes

@@ -1,0 +1,300 @@
+// Kernels I and J: the NGS (NTRU) CMux step on the staged route, for every
+// shape kernel B (csrc/cmux_mxu.cu) cannot hold (ops/ntru_cmux_mxu.
+// ntru_step_route: log_n 13-16, or a block's plan past 227 KB).  A step is
+//   acc <- acc + rot(delta, d) - delta mod q,
+//   delta = INTT( sum_l F(digit_l(acc)) evk_i[l] ),
+// the function of kernel B and of the JAX's ntru_cmux_step_nat
+// (primus_fhe_tpu/ops/ntru_cmux_mxu.py:259, body _make_ntru_kernel), in
+// three launches: kernel I, kernel 1 (csrc/ntt32.cu) at out_factor 4 in
+// place on I's buffer, kernel J.
+//
+// Kernel I, ntru_digits: the mod-q signed gadget digits of acc (B, n)
+//   canonical, written as L rows of [0, q) residues (L, B, n).  The JAX
+//   body's chain: the pre-adjust above wrap_threshold (v + adjust_add), the
+//   initial carry, then per level digit_step (csrc/modarith32.cuh), whose
+//   signed branch is temp + (q - B).  The JAX body then subtracts q from a
+//   digit above B - 1 to feed its int8 planes a signed digit; the residue
+//   of that digit mod q, which kernel 1 reads, is the chain's own word, so
+//   I stores it as it is: the same words as basis.decompose (its plain
+//   version).  Elementwise: a thread takes 4 adjacent words in one 16-byte
+//   load and stores each level's 4 digits in one 16-byte streaming store
+//   (read once, by kernel 1), 128 threads a block; device-memory bytes
+//   bound it (4 bytes in, 4 L out a word).
+//
+// Kernel J, ntru_stage2: per ciphertext b,
+//   - the MAC: each coefficient sums its L products f[l, b] evk[l] mod q,
+//     each lazy digit (kernel 1's [0, 4q)) brought to [0, q) first, the sum
+//     Barrett-reduced after every 16 products (kernel H's schedule), into
+//     shared memory (SwzNtt);
+//   - the inverse NTT of the row on kernel 2's radix-8 passes
+//     (csrc/ntt_passes.cuh), twiddles from device memory, canonical: delta;
+//   - the rotation: out[g] = acc[g] + (+-delta[(g - d) mod n]) - delta[g]
+//     mod q, negated where (g - d) mod 2n >= n.
+//   The rotation needs the whole row of delta.  One block holds a row up to
+//   log_n 15 (128 KB of shared memory); at log_n 16 a row runs over a
+//   cluster of 2 blocks, a slice of 2^15 words each (csrc/ntt_split.cuh,
+//   as kernel H), and the rotation reads its sources in the other slice
+//   over distributed shared memory after a cluster barrier, so delta never
+//   goes through device memory and a step stays three launches.  A block
+//   reads and writes only its slice of row acc[b], each word by one thread
+//   after every read of delta is done, so out may be acc.  What bounds it:
+//   at a small batch the chain of barriers of one row's inverse (the
+//   card's SMs mostly idle), at a large batch the bytes of f (4 L n a
+//   ciphertext).  The MAC of a 2^30 prime: every product of a canonical
+//   digit and a canonical key word is below 2^60, 16 of them and a
+//   remainder below 2q stay below 2^64.
+// Both are bit-equal to their plain versions (ops/ntru_cmux_mxu.py;
+// tests/test_torch_ntru_staged.py models J's index maps).
+//
+// Values are u32 words (int32 storage on the PyTorch side).
+
+#include "ntt_split.cuh"
+
+namespace {
+
+constexpr int I_THREADS = 128;
+constexpr int J_MAX_THREADS = 512;
+constexpr int J_MAX_LEVEL = 32;
+constexpr int J_MIN_LOG_N = 4, J_MAX_LOG_N = 16;
+constexpr int J_SLICE_MAX_LOG = 15;  // a block's slice: at most 128 KB
+constexpr int J_MAC_RUN = 16;        // products summed between two reductions
+
+struct DigitArgs {
+  const uint32_t* acc;  // (words) canonical mod q
+  uint32_t* out;        // (L, words)
+  BasisConsts bc;
+  uint32_t wrap_thr, adj_add;  // 0, 0: no pre-adjust
+  long long groups;            // words / 4
+};
+
+__global__ void __launch_bounds__(I_THREADS) ntru_digits_kernel(const DigitArgs a) {
+  const long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (it >= a.groups) return;
+  const uint4 x = __ldg(reinterpret_cast<const uint4*>(a.acc) + it);
+  uint32_t v[4] = {x.x, x.y, x.z, x.w}, carry[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (a.wrap_thr != 0u && v[k] >= a.wrap_thr) v[k] += a.adj_add;
+    carry[k] = (v[k] & a.bc.init_mask) != 0u;
+  }
+  uint4* o = reinterpret_cast<uint4*>(a.out) + it;
+  for (int l = 0; l < a.bc.level; ++l, o += a.groups) {
+    uint32_t d[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) d[k] = digit_step(v[k], a.bc, l, carry[k]);
+    __stcs(o, make_uint4(d[0], d[1], d[2], d[3]));
+  }
+}
+
+struct Stage2Args {
+  const uint32_t* f;        // (L, bsz, n), lazy in [0, 4q)
+  const uint32_t* evk;      // (L, n), canonical
+  const uint32_t* acc;      // (bsz, n), canonical; may alias out
+  const int32_t* degrees;   // (bsz,), any sign
+  uint32_t* out;
+  const uint32_t* inv_roots;  // (n,) each
+  const uint32_t* inv_roots_p;
+  PrimeConsts pc;
+  int level, log_n, bsz;
+};
+
+inline int j_threads(int l) {
+  const int t = (1 << l) >> 3;
+  return t < 32 ? 32 : t > J_MAX_THREADS ? J_MAX_THREADS : t;
+}
+
+template <int LC>
+__global__ void __launch_bounds__(J_MAX_THREADS, 1) ntru_stage2_kernel(const Stage2Args a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  constexpr int C = 1 << LC;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int s = (int)cluster.block_rank();  // this block's slice of the row
+  const int b = (int)blockIdx.x >> LC;
+  const int log_n = a.log_n, l = log_n - LC, nl = 1 << l, n = 1 << log_n;
+  const int L = a.level;
+  const PrimeConsts pc = a.pc;
+  const uint32_t q = pc.q;
+  const size_t lane0 = (size_t)s << l;
+  const size_t plane = (size_t)a.bsz << log_n;  // words of one level's rows
+
+  // 1. the MAC of the slice's coefficients, U at a time (their loads issued
+  //    together): f[lv, b] x evk[lv]
+  const uint32_t* fb = a.f + ((size_t)b << log_n) + lane0;
+  const uint32_t* kb = a.evk + lane0;
+  constexpr int U = 4;
+  for (int c0 = threadIdx.x; c0 < nl; c0 += U * blockDim.x) {
+    uint64_t sum[U] = {};
+    int run = 0;
+    for (int lv = 0; lv < L; ++lv) {
+      uint32_t fv[U], kv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = min(c0 + u * (int)blockDim.x, nl - 1);  // past the end: not stored
+        fv[u] = __ldg(fb + lv * plane + c);
+        kv[u] = __ldg(kb + ((size_t)lv << log_n) + c);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        sum[u] += (uint64_t)reduce_once(reduce_once(fv[u], 2u * q), q) * kv[u];
+      if (++run == J_MAC_RUN) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) sum[u] = barrett_lazy_wide(sum[u], pc.ratio, q);
+        run = 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u * (int)blockDim.x;
+      if (c < nl) sm[SwzNtt::at(c)] = reduce_once(barrett_lazy_wide(sum[u], pc.ratio, q), q);
+    }
+  }
+  __syncthreads();
+
+  // 2. the inverse NTT, canonical, back into the slice: delta
+  const SmemRows<SwzNtt> rows{sm, l};
+  if constexpr (LC == 0) {
+    const InvTable<uint32_t> tw{a.inv_roots, a.inv_roots_p};
+    const int r = remainder_stages(l);
+    if (r == 3) inv_pass<3, Last::no>(1, l, 0, tw, pc, rows, rows);
+    if (r == 2) inv_pass<2, Last::no>(1, l, 0, tw, pc, rows, rows);
+    if (r == 1) inv_pass<1, Last::no>(1, l, 0, tw, pc, rows, rows);
+    __syncthreads();
+    inv_rest<Last::canonical>(rows, 1, l, r, tw, pc, rows);
+    __syncthreads();
+  } else {
+    slice_inverse(SliceInvTable{a.inv_roots, a.inv_roots_p, l, log_n, s}, pc, rows, rows, l);
+    cross_inverse<LC, Last::canonical>(
+        sm, l, log_n, s, 0, a.inv_roots, a.inv_roots_p, pc, [&](int c, const uint32_t (&v)[C]) {
+#pragma unroll
+          for (int k = 0; k < C; ++k) *cluster.map_shared_rank(sm + SwzNtt::at(c), k) = v[k];
+        });
+    cluster.sync();  // every slice's delta in place
+  }
+
+  // 3. the rotation: word g of this slice takes +-delta[(g - d) mod n] from
+  //    the slice that holds it, less delta[g], plus acc[g], mod q
+  int d = __ldg(a.degrees + b) % (2 * n);
+  if (d < 0) d += 2 * n;
+  const size_t row = (size_t)b << log_n;
+  for (int c = threadIdx.x; c < nl; c += blockDim.x) {
+    const int g = (int)lane0 + c;
+    int e = g - d;
+    if (e < 0) e += 2 * n;
+    const bool neg = e >= n;
+    const int src = neg ? e - n : e;
+    uint32_t r;
+    if constexpr (LC == 0)
+      r = sm[SwzNtt::at(src)];
+    else
+      r = *cluster.map_shared_rank(sm + SwzNtt::at(src & (nl - 1)), src >> l);
+    if (neg && r != 0u) r = q - r;
+    const uint32_t own = sm[SwzNtt::at(c)];
+    const uint32_t t = r >= own ? r - own : r + q - own;
+    a.out[row + g] = reduce_once(a.acc[row + g] + t, q);
+  }
+  if constexpr (LC != 0) cluster.sync();  // keep every slice alive until its peers' reads are done
+}
+
+const void* const J_KERNELS[2] = {(const void*)ntru_stage2_kernel<0>,
+                                  (const void*)ntru_stage2_kernel<1>};
+
+// Raises both J kernels' shared-memory cap once on each device.
+int j_prepare() {
+  static bool init[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!init[dev]) {
+    for (const void* k : J_KERNELS) {
+      e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(sizeof(uint32_t) << J_SLICE_MAX_LOG));
+      if (e != cudaSuccess) return (int)e;
+    }
+    init[dev] = true;
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Kernel I on `words` canonical words mod q (a multiple of 4; acc and out
+// on 16 bytes): out (L, words) the residues of the digits.  basis_pack: the
+// host pack of ops/cmux_fused._basis_pack (10 words, mod-q mode).
+int pft_ntru_digits(const void* acc, void* out, const void* basis_pack, long long words,
+                    void* stream) {
+  const uint64_t* h = (const uint64_t*)basis_pack;
+  if (words < 4 || words % 4 != 0 || (((uintptr_t)acc | (uintptr_t)out) & 15) != 0 || h[0] < 1 ||
+      h[0] > 64 || h[9] == 0)
+    return (int)cudaErrorInvalidValue;
+  DigitArgs a{};
+  a.acc = (const uint32_t*)acc;
+  a.out = (uint32_t*)out;
+  a.bc = unpack_basis(h);
+  a.wrap_thr = (uint32_t)h[7];
+  a.adj_add = (uint32_t)h[8];
+  a.groups = words / 4;
+  const long long grid = (a.groups + I_THREADS - 1) / I_THREADS;
+  if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  ntru_digits_kernel<<<(unsigned)grid, I_THREADS, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Kernel J on bsz ciphertexts.  plan: the host pack of
+// ops/ntru_cmux_mxu.stage2_pack (L, log_n, the inverse table and its
+// quotients' device addresses, then NttTables32.prime_pack of q).  L 1-32,
+// log_n 4-16; out may be acc.
+int pft_ntru_stage2(const void* f, const void* evk, const void* acc, const void* degrees,
+                    void* out, int bsz, const void* plan, void* stream) {
+  const uint64_t* h = (const uint64_t*)plan;
+  Stage2Args a{};
+  a.level = (int)h[0];
+  a.log_n = (int)h[1];
+  if (a.level < 1 || a.level > J_MAX_LEVEL || a.log_n < J_MIN_LOG_N || a.log_n > J_MAX_LOG_N ||
+      bsz < 1 || bsz > (1 << 24))
+    return (int)cudaErrorInvalidValue;
+  a.inv_roots = (const uint32_t*)h[2];
+  a.inv_roots_p = (const uint32_t*)h[3];
+  a.pc = unpack_primes(h + 4, 1).p[0];
+  a.f = (const uint32_t*)f;
+  a.evk = (const uint32_t*)evk;
+  a.acc = (const uint32_t*)acc;
+  a.degrees = (const int32_t*)degrees;
+  a.out = (uint32_t*)out;
+  a.bsz = bsz;
+  int err = j_prepare();
+  if (err != 0) return err;
+  const int lc = a.log_n > J_SLICE_MAX_LOG ? a.log_n - J_SLICE_MAX_LOG : 0;
+  const int l = a.log_n - lc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)bsz << lc);
+  cfg.blockDim = dim3(j_threads(l));
+  cfg.dynamicSmemBytes = sizeof(uint32_t) << l;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1 << lc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&a};
+  const cudaError_t e = cudaLaunchKernelExC(&cfg, J_KERNELS[lc], args);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Kernel J's launch for log_n: out[0..2] = the blocks a row (a cluster),
+// threads a block, shared bytes a block.
+int pft_ntru_stage2_grid(int log_n, int* out) {
+  if (log_n < J_MIN_LOG_N || log_n > J_MAX_LOG_N) return (int)cudaErrorInvalidValue;
+  const int lc = log_n > J_SLICE_MAX_LOG ? log_n - J_SLICE_MAX_LOG : 0;
+  out[0] = 1 << lc;
+  out[1] = j_threads(log_n - lc);
+  out[2] = (int)(sizeof(uint32_t) << (log_n - lc));
+  return 0;
+}
+
+}  // extern "C"

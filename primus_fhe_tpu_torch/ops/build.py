@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("ntt32.cu", "cmux_fused.cu", "cmux_mxu.cu", "ntt_mxu8.cu", "ntt64.cu", "cmux_front.cu",
-           "ntt_stages.cu", "ntt_mxu8_split.cu", "cmux_stage2.cu")
+           "ntt_stages.cu", "ntt_mxu8_split.cu", "cmux_stage2.cu", "ntru_stage.cu")
 HEADERS = ("modarith32.cuh", "modarith64.cuh", "mxu8.cuh", "mxu8_64.cuh", "ntt_passes.cuh",
            "ntt_split.cuh")
 NVCC_FLAGS = (
@@ -49,6 +49,9 @@ _SIGNATURES = {
     "pft_cmux_mxu": (_P,) * 13 + (_I,) * 6 + (_P,),
     "pft_ntru_cmux_mxu": (_P,) * 12 + (_I,) * 4 + (_P,),
     "pft_cmux_mxu_clusters": (_I,) * 7 + (_P,),
+    "pft_ntru_digits": (_P, _P, _P, _I64, _P),
+    "pft_ntru_stage2": (_P,) * 5 + (_I, _P, _P),
+    "pft_ntru_stage2_grid": (_I, _P),
     "pft_mxu8_forward32": (_P,) * 5 + (_I,) * 3 + (_P,),
     "pft_mxu8_forward32_grid": (_I, _I, _I, _P, _P),
     "pft_ntt64_forward": (_P,) * 5 + (_I,) * 4 + (_P,),

@@ -34,6 +34,18 @@ memory, and the C blocks of a prime receive each stage from one multicast
 copy; :func:`launch_clusters` picks C from the batch and the card's cluster
 occupancy.  So batch 1 uses kp of 132 SMs.  Widening batch 1 is later
 work.
+
+The route
+---------
+Kernel A takes ``log_n`` 8-12 and a block's plan within 227 KB.  The
+blind rotation decides once a rotation, before any launch, where a step
+runs (:func:`mxu_step_route`): kernel A wherever its C entry's
+``configure()`` accepts the shape (:func:`mxu_holds`), else the NTT key's
+route of :mod:`.cmux_fused` (the one-launch fused step or the staged
+kernels G, 1 and H) on the pack's values, which are the canonical
+bit-reversed NTT rows the NTT key holds.  The key preparation runs kernel
+C to ``log_n`` 12 and kernel 1 at 13-16 (:func:`prepare_mxu_bsk`); the
+plan's int8 tables are built at first use, only for kernel A's shapes.
 """
 
 from __future__ import annotations
@@ -48,11 +60,14 @@ from ..utils.gcd import mod_inv
 
 from ..numeric.limb import MASK32, narrow_u32, widen_u32
 from . import build
-from .cmux_fused import _basis_pack, _check_device, cmux_stage1_plain, cmux_stage2_plain
+from .cmux_fused import (_basis_pack, _check_device, cmux_stage1_plain, cmux_stage2_plain,
+                         step_route)
 from .mxu_common import four_step_matrices
 from .ntt32 import NttTables32
 
 LANES = 128  # B: the natural layout views a length-n row as (A, 128)
+MXU_LOG_N = (8, 12)  # kernels A and B's rings (valid() in csrc/cmux_mxu.cu)
+_REFUSED = 1  # cudaErrorInvalidValue: the C entries' refusal of a shape
 
 
 def _balanced_digits(ms, planes: int):
@@ -154,6 +169,40 @@ def launch_clusters(ntru: bool, kp: int, k1: int, log_n: int, dp: int, level: in
     return cluster_ciphertexts(bsz, kp, fits)
 
 
+@functools.lru_cache(maxsize=None)
+def mxu_holds(ntru: bool, kp: int, k1: int, level: int, log_n: int, dp: int) -> bool:
+    """Whether kernel A (``ntru``: kernel B, one prime and one row) takes
+    the shape: its C entry's ``valid()`` and ``configure()`` (a block's
+    plan within 227 KB) accept it, and the card holds a cluster of it.
+    Asks the card at ``log_n`` 8-12 only; outside, ``False``."""
+    if not MXU_LOG_N[0] <= log_n <= MXU_LOG_N[1]:
+        return False
+    out = ctypes.c_int(0)
+    err = build.library().pft_cmux_mxu_clusters(int(ntru), kp, k1, log_n, dp, level, 1,
+                                                ctypes.addressof(out))
+    if err == _REFUSED:
+        return False
+    build.check(err, "cmux_mxu clusters")
+    return out.value >= 1
+
+
+def mxu_step_route(kp: int, k1: int, level: int, log_n: int, dp: int) -> str:
+    """The card's route for a CMux step on the MXU key of ``kp`` primes,
+    ``k1`` accumulator rows, ``level`` gadget levels, ring ``2^log_n`` and
+    ``dp`` digit planes (:func:`digit_planes`): ``"mxu"`` (kernel A, one
+    launch) wherever :func:`mxu_holds`, else the NTT key's route,
+    :func:`.cmux_fused.step_route`'s ``"fused"`` or ``"staged"``, on the
+    pack's values read as the NTT rows they are.  Decided from the shape
+    before any launch; a ``ValueError`` names the limit past every route."""
+    if dp not in (1, 2):
+        raise ValueError(f"MXU CMux step: {dp} digit planes (1 or 2: gadget bases up to 2^15)")
+    if log_n < MXU_LOG_N[0]:
+        raise ValueError(f"MXU CMux step: log_n = {log_n} (the MXU key needs log_n >= 8)")
+    if mxu_holds(False, kp, k1, level, log_n, dp):
+        return "mxu"
+    return step_route(kp, k1, level, log_n)
+
+
 class CmuxMxuPlan:
     """Per-``(log_n, primes)`` tables of the byte-radix four-step kernels.
 
@@ -174,20 +223,37 @@ class CmuxMxuPlan:
         if any(p >= 1 << 30 for p in self.primes):
             raise ValueError("cmux_mxu primes must be < 2^30")
         self.ntt = NttTables32(log_n, self.primes)
-        self.per_prime = []
-        for p in self.primes:
-            fs = four_step_matrices(log_n, p, h1, h1)
-            w2 = _byte_matrix4(fs["m2"], p)  # rows (c, r1), cols (l, k0)
-            w1m = _byte_matrix4(fs["m2i"], p)  # rows (c, k0), cols (l, r1)
-            self.per_prime.append(dict(
-                w1d=_byte_matrix4(fs["m1"], p, value_planes=2),  # (4A, 2A)
-                w2f=np.ascontiguousarray(w2.T),
-                w1mf=np.ascontiguousarray(w1m.T),
-                w2m=_byte_matrix4(fs["m1i"], p),  # rows (c, k1), cols (l, r0)
-                t=_u32t(fs["tw"]), tp=_precon32(fs["tw"], p),
-                ti=_u32t(fs["twi"]), tip=_precon32(fs["twi"], p),
-            ))
+        self._per_prime = None
+        self._product = None  # the CRT product whose scale w2m folds in
         self._kernel_on: dict = {}
+
+    @property
+    def per_prime(self) -> list:
+        """Kernel A's and B's int8 plane matrices and twiddles, a dict a
+        prime, built at first use: object-int matrices that cost host
+        seconds at ``A`` = 256-512, which only kernels A and B (``log_n``
+        8-12) and the plain models read; the staged route and kernel C run
+        on ``self.ntt``."""
+        if self._per_prime is None:
+            h1 = self.log_n - 7
+            per = []
+            for p in self.primes:
+                fs = four_step_matrices(self.log_n, p, h1, h1)
+                w2 = _byte_matrix4(fs["m2"], p)  # rows (c, r1), cols (l, k0)
+                w1m = _byte_matrix4(fs["m2i"], p)  # rows (c, k0), cols (l, r1)
+                m1i = fs["m1i"]
+                if self._product is not None:
+                    m1i = (m1i * mod_inv((self._product // p) % p, p)) % p
+                per.append(dict(
+                    w1d=_byte_matrix4(fs["m1"], p, value_planes=2),  # (4A, 2A)
+                    w2f=np.ascontiguousarray(w2.T),
+                    w1mf=np.ascontiguousarray(w1m.T),
+                    w2m=_byte_matrix4(m1i, p),  # rows (c, k1), cols (l, r0)
+                    t=_u32t(fs["tw"]), tp=_precon32(fs["tw"], p),
+                    ti=_u32t(fs["twi"]), tip=_precon32(fs["twi"], p),
+                ))
+            self._per_prime = per
+        return self._per_prime
 
     def crt_consts(self, product: int):
         """CRT constants under the prime product ``P``: ``((floor(2^64 /
@@ -197,15 +263,14 @@ class CmuxMxuPlan:
 
     def fold_inverse_scale(self, product: int) -> None:
         """Folds ``(P / p_i)^-1 mod p_i`` into ``w2m`` (once), so that the
-        inverse transform yields the CRT terms ``y_i`` directly."""
-        for per_p, p in zip(self.per_prime, self.primes):
-            if per_p.get("_scaled"):
-                continue
-            c = mod_inv((product // p) % p, p)
-            fs = four_step_matrices(self.log_n, p, self.log_n - 7, self.log_n - 7)
-            per_p["w2m"] = _byte_matrix4((fs["m1i"] * c) % p, p)
-            per_p["_scaled"] = True
-        self._kernel_on.clear()
+        inverse transform yields the CRT terms ``y_i`` directly; tables not
+        built yet take it when :attr:`per_prime` builds them."""
+        if self._product is not None:
+            return
+        self._product = product
+        if self._per_prime is not None:
+            self._per_prime = None
+            self._kernel_on.clear()
 
     def kernel_tables(self, device) -> dict:
         """The kernels' tables on ``device``, stacked over primes:
@@ -305,7 +370,8 @@ def mxu_cmux_step(plan: CmuxMxuPlan, basis, conv, acc: torch.Tensor, degrees: to
     (``ValueError``), and a block's shared memory within 227 KB (e.g. not
     ``log_n`` 12 with ``k1 * L = 6``): the C entry refuses a shape past
     these before any launch (a ``RuntimeError`` from :func:`build.check`),
-    so no word is wrong.
+    so no word is wrong.  The blind rotation does not reach that refusal:
+    :func:`mxu_step_route` sends such shapes to the NTT key's route.
     """
     if acc.device.type == "cpu":
         out = mxu_cmux_step_plain(conv, basis, widen_u32(acc), degrees, widen_u32(key_vals))
@@ -356,7 +422,8 @@ def prepare_mxu_bsk(conv, ggsw_coeff: torch.Tensor):
     -> MXU key pack ``(vals, precons)``, each ``(n_lwe, kp, k1, L, k1, A,
     128)`` int64 and contiguous: the centered lift, kernel C (one launch
     for every prime: the canonical forward NTT on kernel 1's radix-8
-    passes), then the exact Shoup quotients."""
+    passes; kernel 1 itself at ``log_n`` 13-16,
+    :func:`.ntt_mxu8.mxu8_forward32`), then the exact Shoup quotients."""
     from .ntt_mxu8 import mxu8_forward32
 
     plan = plan_for(conv)

@@ -15,10 +15,22 @@ after the inverse NTT, as in the reference.  One thread block per
 ciphertext, in clusters of C ciphertexts that share each streamed stage
 (kernel A's design, :mod:`.cmux_mxu`); batch 1 uses one SM (widening it is
 later work).
+
+Where kernel B cannot take the shape (:func:`ntru_step_route`: ``log_n``
+13-16, or a block's plan past 227 KB) the step runs staged, on the evk
+pack's values read as the canonical bit-reversed NTT rows they are, in
+three launches: kernel I (:func:`ntru_digits`: the mod-q gadget digits of
+the accumulator as ``[0, q)`` residues into a buffer), kernel 1 at
+``out_factor=4`` in place on it (:func:`ntru_stage1`), and kernel J
+(:func:`ntru_stage2`: the MAC against the evk row, the inverse NTT and
+``acc + rot(delta, a) - delta`` mod q, added in place).  CUDA source:
+``csrc/ntru_stage.cu``.  :class:`NtruStepPlan` holds the route and the
+buffer once a rotation.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..modular.modops import add32, sub32
@@ -26,10 +38,12 @@ from ..numeric.limb import narrow_u32, widen_u32
 from ..poly.poly import poly_rotate32
 from . import build
 from .cmux_fused import _basis_pack, _check_device
-from .cmux_mxu import (CmuxMxuPlan, _check_aligned, digit_planes, launch_clusters,
-                       shoup_precons)
-from .ntt32 import forward32_plain, inverse32_plain
+from .cmux_mxu import (MXU_LOG_N, CmuxMxuPlan, _check_aligned, digit_planes, launch_clusters,
+                       mxu_holds, shoup_precons)
+from .ntt32 import MAX_LOG_N, forward32, forward32_plain, inverse32_plain
 from .ntt_mxu8 import mxu8_forward32
+
+NTRU_STAGED_MAX_LEVEL = 32  # kernel J's levels (J_MAX_LEVEL in csrc/ntru_stage.cu)
 
 _PLANS: dict = {}
 
@@ -45,6 +59,38 @@ def get_ntru_plan(log_n: int, q: int) -> CmuxMxuPlan:
     return plan
 
 
+def ntru_step_route(level: int, log_n: int, dp: int) -> str:
+    """The card's route for an NGS CMux step on the MXU evk of ``level``
+    gadget levels, ring ``2^log_n`` and ``dp`` digit planes
+    (:func:`.cmux_mxu.digit_planes`): ``"mxu"`` (kernel B, one launch)
+    wherever kernel B takes the shape (:func:`.cmux_mxu.mxu_holds`, asked of
+    the card at ``log_n`` 8-12), else ``"staged"`` (kernels I, 1 and J) for
+    ``log_n`` 8-16 and ``level`` 1-32.  Decided from the shape before any
+    launch; a ``ValueError`` names the limit past both."""
+    if dp not in (1, 2):
+        raise ValueError(f"NTRU CMux step: {dp} digit planes (1 or 2: gadget bases up to 2^15)")
+    if mxu_holds(True, 1, 1, level, log_n, dp):
+        return "mxu"
+    if not MXU_LOG_N[0] <= log_n <= MAX_LOG_N:
+        raise ValueError(f"NTRU CMux step: log_n = {log_n} (the card takes log_n "
+                         f"{MXU_LOG_N[0]}-{MAX_LOG_N})")
+    if not 1 <= level <= NTRU_STAGED_MAX_LEVEL:
+        raise ValueError(f"NTRU CMux step: L = {level} levels (the card takes "
+                         f"1-{NTRU_STAGED_MAX_LEVEL})")
+    return "staged"
+
+
+def ntru_mac_rotate(tables, q: int, f, evk_ntt_i, acc, degrees, inverse):
+    """``acc + rot(delta, d) - delta`` mod q with ``delta =
+    inverse(sum_l f[l] evk[l])``: ``f (L, B, n)`` NTT-domain digits
+    (canonical or lazy below 4q), ``evk_ntt_i (L, n)`` canonical; the
+    step's second half (:func:`ntru_ntt_step`, kernel J's plain version)."""
+    # terms below 4q and q < 2^30: each product is exact in int64
+    mac = ((f * evk_ntt_i.unsqueeze(1)) % q).sum(dim=0) % q
+    delta = inverse(tables, mac.unsqueeze(0))[0]
+    return add32(acc, sub32(poly_rotate32(delta, degrees, q), delta, q), q)
+
+
 def ntru_ntt_step(tables, q: int, basis, acc, degrees, evk_ntt_i, forward, inverse):
     """The composed NGS step ``acc + rot(delta, a) - delta`` with
     ``delta = INTT(acc ⊠ EVK_i)``: decompose, ``forward`` each digit
@@ -57,10 +103,7 @@ def ntru_ntt_step(tables, q: int, basis, acc, degrees, evk_ntt_i, forward, inver
     their plain versions).
     """
     f = forward(tables, basis.decompose(acc).unsqueeze(0))[0]  # (L, B, n)
-    # canonical terms below 2^30: each product is exact in int64
-    mac = ((f * evk_ntt_i.unsqueeze(1)) % q).sum(dim=0) % q
-    delta = inverse(tables, mac.unsqueeze(0))[0]
-    return add32(acc, sub32(poly_rotate32(delta, degrees, q), delta, q), q)
+    return ntru_mac_rotate(tables, q, f, evk_ntt_i, acc, degrees, inverse)
 
 
 def ntru_cmux_step_plain(plan: CmuxMxuPlan, basis, acc, degrees, kv):
@@ -83,7 +126,9 @@ def ntru_cmux_step(plan: CmuxMxuPlan, basis, acc: torch.Tensor, degrees: torch.T
     (:func:`.cmux_mxu.mxu_cmux_step`) with one prime: ``log_n`` 8-12, ``q``
     below 2^30, gadget bases up to 2^15, 16-byte aligned key rows and a
     block's shared memory within 227 KB; past them a ``ValueError`` or the
-    C entry's refusal (``RuntimeError``) comes before any launch."""
+    C entry's refusal (``RuntimeError``) comes before any launch.  The
+    rotation does not reach that refusal: :class:`NtruStepPlan` sends such
+    shapes to the staged route."""
     if acc.device.type == "cpu":
         out = ntru_cmux_step_plain(plan, basis, widen_u32(acc), degrees, widen_u32(kv))
         return narrow_u32(out) if acc.dtype == torch.int32 else out
@@ -118,10 +163,220 @@ def ntru_cmux_step(plan: CmuxMxuPlan, basis, acc: torch.Tensor, degrees: torch.T
 ntru_cmux_step.launches = 0
 
 
+def ntru_digits_plain(basis, acc: torch.Tensor) -> torch.Tensor:
+    """Kernel I's plain version: the mod-q gadget digits of canonical ``acc
+    (B, n)`` as ``[0, q)`` residues, ``(L, B, n)``."""
+    return basis.decompose(acc)
+
+
+def ntru_digits(basis, acc: torch.Tensor, out=None) -> torch.Tensor:
+    """Kernel I: the mod-q gadget digits of canonical ``acc (B, n)`` as
+    ``[0, q)`` residues ``(L, B, n)``.  CPU tensors take
+    :func:`ntru_digits_plain`; CUDA tensors the kernel (a mod-q basis,
+    ``B n`` a multiple of 4).  ``out``: contiguous 16-byte aligned int32
+    ``(L, B, n)`` to write (returned); else the output keeps ``acc``'s
+    storage."""
+    if acc.device.type == "cpu":
+        res = ntru_digits_plain(basis, widen_u32(acc))
+        res = narrow_u32(res) if acc.dtype == torch.int32 else res
+        return res if out is None else out.copy_(res)
+    _check_device("ntru_digits", acc)
+    if basis.modulus is None:
+        raise ValueError("ntru_digits: the basis must be mod q")
+    a = narrow_u32(acc).contiguous()
+    if a.data_ptr() % 16:  # 16-byte loads
+        a = a.clone()
+    shape = (basis.decompose_length,) + tuple(a.shape)
+    given = out is not None
+    if not given:
+        out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    elif not (out.dtype == torch.int32 and tuple(out.shape) == shape and out.device == a.device
+              and out.is_contiguous() and out.data_ptr() % 16 == 0):
+        raise ValueError(f"ntru_digits: out must be contiguous 16-byte aligned int32 {shape}")
+    if a.numel() % 4:
+        raise ValueError(f"ntru_digits: {a.numel()} words (the kernel takes a multiple of 4)")
+    if a.numel():
+        pack = _basis_pack(basis)  # held until the call returns
+        err = build.library().pft_ntru_digits(a.data_ptr(), out.data_ptr(), build.ptr(pack),
+                                              a.numel(),
+                                              torch.cuda.current_stream(a.device).cuda_stream)
+        build.check(err, "ntru_digits")
+        ntru_digits.launches += 1
+    return out if given or acc.dtype == torch.int32 else widen_u32(out)
+
+
+def ntru_stage1(tables, basis, acc: torch.Tensor, out=None) -> torch.Tensor:
+    """The staged step's first half: ``acc (B, n)`` canonical -> the lazy
+    ``[0, 4q)`` NTT-domain digits ``(L, B, n)``.  CPU tensors take the
+    plain versions; CUDA tensors kernel I, then kernel 1 at
+    ``out_factor=4`` in place: two launches, the same words.  ``out``:
+    kernel I's ``out``."""
+    if acc.device.type == "cpu":
+        res = forward32_plain(tables, ntru_digits_plain(basis, widen_u32(acc)).unsqueeze(0), 4)[0]
+        res = narrow_u32(res) if acc.dtype == torch.int32 else res
+        return res if out is None else out.copy_(res)
+    digits = ntru_digits(basis, acc, out=out if out is not None else torch.empty(
+        (basis.decompose_length,) + tuple(acc.shape), dtype=torch.int32, device=acc.device))
+    forward32(tables, digits.unsqueeze(0), 4, out=digits.unsqueeze(0))
+    return digits if out is not None or acc.dtype == torch.int32 else widen_u32(digits)
+
+
+def ntru_stage2_plain(tables, f, evk, acc, degrees):
+    """Kernel J's plain version on int64 words: :func:`ntru_mac_rotate`
+    through the plain inverse."""
+    return ntru_mac_rotate(tables, tables.primes[0], f, evk, acc, degrees, inverse32_plain)
+
+
+def stage2_pack(tables, level: int, table_ptrs=(0, 0)) -> np.ndarray:
+    """The host pack ``pft_ntru_stage2`` reads: ``L, log_n``, the device
+    addresses of the ``(1, n)`` inverse root table and its Shoup quotients,
+    then ``NttTables32.prime_pack`` (7 words)."""
+    return np.concatenate([np.array([level, tables.log_n, *table_ptrs], dtype=np.uint64),
+                           tables.prime_pack])
+
+
+class NtruStage2Plan:
+    """Kernel J's launch constants for one-prime ``tables`` and ``L`` on a
+    CUDA ``device``: the host pack and the inverse tables it points to
+    (held, so that they outlive every launch).  ``plan(f, evk, acc,
+    degrees, out)`` launches once on int32 tensors already checked by the
+    caller."""
+
+    def __init__(self, tables, level: int, device):
+        if len(tables.primes) != 1:
+            raise ValueError("kernel J takes one prime")
+        if not 1 <= level <= NTRU_STAGED_MAX_LEVEL or not 4 <= tables.log_n <= MAX_LOG_N:
+            raise ValueError(f"kernel J: L = {level}, log_n = {tables.log_n} (the card takes L "
+                             f"1-{NTRU_STAGED_MAX_LEVEL}, log_n 4-{MAX_LOG_N})")
+        self._tables = tables.kernel_tables(device)
+        self.pack = stage2_pack(tables, level, [t.data_ptr() for t in self._tables[2:]])
+        self._pack_ptr = self.pack.ctypes.data
+        self._entry = build.library().pft_ntru_stage2
+
+    def __call__(self, f, evk, acc, degrees, out) -> None:
+        err = self._entry(f.data_ptr(), evk.data_ptr(), acc.data_ptr(), degrees.data_ptr(),
+                          out.data_ptr(), acc.shape[0], self._pack_ptr,
+                          torch.cuda.current_stream(acc.device).cuda_stream)
+        build.check(err, "ntru_stage2")
+        ntru_stage2.launches += 1
+
+
+def ntru_stage2(tables, f: torch.Tensor, evk: torch.Tensor, acc: torch.Tensor,
+                degrees: torch.Tensor, out=None) -> torch.Tensor:
+    """Kernel J: ``acc + rot(delta, d) - delta`` mod q, ``delta =
+    INTT(sum_l f[l] evk[l])``, for ``f (L, B, n)`` lazy ``[0, 4q)`` digits
+    (:func:`ntru_stage1`'s), ``evk (L, n)`` canonical, ``acc (B, n)``
+    canonical and ``degrees (B,)`` of any sign.  CPU tensors take
+    :func:`ntru_stage2_plain`; CUDA tensors the kernel, one launch (L 1-32,
+    log_n 4-16; a ``ValueError`` past them, before any launch).  ``out``
+    may be ``acc`` (contiguous int32: the kernel adds in place); else the
+    output keeps ``acc``'s storage."""
+    if acc.device.type == "cpu":
+        res = ntru_stage2_plain(tables, widen_u32(f), widen_u32(evk), widen_u32(acc), degrees)
+        res = narrow_u32(res) if acc.dtype == torch.int32 else res
+        return res if out is None else out.copy_(res)
+    _check_device("ntru_stage2", f, evk, acc, degrees)
+    bsz, n = acc.shape
+    level = evk.shape[0]
+    if evk.shape != (level, n) or f.shape != (level, bsz, n) or degrees.shape != (bsz,) \
+            or n != tables.n:
+        raise ValueError(f"ntru_stage2: bad shapes f {tuple(f.shape)}, evk {tuple(evk.shape)}, "
+                         f"acc {tuple(acc.shape)}")
+    plan = NtruStage2Plan(tables, level, acc.device)
+    f32, evk32 = narrow_u32(f).contiguous(), narrow_u32(evk).contiguous()
+    a = narrow_u32(acc).contiguous()
+    d = degrees.to(torch.int32).contiguous()
+    given = out is not None
+    if not given:
+        out = torch.empty_like(a)
+    elif not (out.dtype == torch.int32 and out.shape == a.shape and out.device == a.device
+              and out.is_contiguous()):
+        raise ValueError(f"ntru_stage2: out must be contiguous int32 {tuple(a.shape)}")
+    if bsz:
+        plan(f32, evk32, a, d, out)
+    return out if given or acc.dtype == torch.int32 else widen_u32(out)
+
+
+def launch_grid(log_n: int) -> tuple[int, int, int]:
+    """Kernel J's launch for ``log_n``: ``(blocks a row, threads a block,
+    shared bytes a block)`` (the C entry's own rule)."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    build.check(build.library().pft_ntru_stage2_grid(log_n, ctypes.addressof(out)),
+                "pft_ntru_stage2_grid")
+    return tuple(out)
+
+
+class NtruStepPlan:
+    """One NTRU rotation's CMux steps on the MXU evk on ``device``:
+    ``plan(acc, degrees, kv, kpre)`` is ``acc + rot(delta, d) - delta``.
+
+    Built once before the loop, the route is :func:`ntru_step_route`'s (a
+    ``ValueError`` before any launch past it): ``"mxu"`` runs kernel B, one
+    launch a step (:func:`ntru_cmux_step`); ``"staged"`` runs kernel I into
+    a digit buffer ``(L, B, n)`` int32 made once a batch size, kernel 1 at
+    ``out_factor=4`` in place and kernel J into ``acc`` in place: three
+    launches a step, on the evk row's values ``(L, A, 128)`` read as the
+    canonical NTT rows ``(L, n)`` they are; it does not read ``kpre``
+    (:attr:`reads_precons`).  On the card a call takes int32 ``acc (B,
+    n)`` canonical, ``degrees (B,)`` and the evk row, contiguous.  On the
+    CPU it runs the staged functions' plain versions, which equal kernel
+    B's."""
+
+    def __init__(self, ctx, device):
+        self.ctx = ctx
+        self.device = torch.device(device)
+        self.dp = digit_planes(ctx.basis)
+        self.route = None
+        if self.device.type == "cpu":
+            return
+        self.route = ntru_step_route(ctx.basis.decompose_length, ctx.log_n, self.dp)
+        if self.route == "mxu":
+            self._plan = get_ntru_plan(ctx.log_n, ctx.q_int)
+        else:
+            self._stage2 = NtruStage2Plan(ctx.ntt, ctx.basis.decompose_length, self.device)
+            self._digits: dict = {}
+
+    @property
+    def reads_precons(self) -> bool:
+        """Whether a step reads the evk's Shoup quotients (kernel B only)."""
+        return self.route == "mxu"
+
+    def __call__(self, acc: torch.Tensor, degrees: torch.Tensor, kv: torch.Tensor,
+                 kpre: torch.Tensor | None) -> torch.Tensor:
+        if self.route == "mxu":
+            return ntru_cmux_step(self._plan, self.ctx.basis, acc, degrees, kv, kpre)
+        ctx, level = self.ctx, self.ctx.basis.decompose_length
+        evk = kv.reshape(level, ctx.n)
+        if self.route is None:
+            return ntru_stage2(ctx.ntt, ntru_stage1(ctx.ntt, ctx.basis, acc), evk, acc, degrees)
+        bsz = acc.shape[0]
+        if not (acc.shape == (bsz, ctx.n) and degrees.shape == (bsz,)
+                and acc.dtype == evk.dtype == degrees.dtype == torch.int32
+                and acc.is_contiguous() and evk.is_contiguous() and degrees.is_contiguous()
+                and acc.device == evk.device == degrees.device == self.device):
+            raise ValueError("NtruStepPlan: contiguous int32 acc (B, n), degrees (B,) and evk "
+                             f"row on {self.device}")
+        if bsz:
+            digits = self._digits.get(bsz)
+            if digits is None:
+                digits = self._digits[bsz] = torch.empty((level, bsz, ctx.n), dtype=torch.int32,
+                                                         device=self.device)
+            ntru_stage1(ctx.ntt, ctx.basis, acc, out=digits)
+            self._stage2(digits, evk, acc, degrees, acc)
+        return acc
+
+
+ntru_digits.launches = 0
+ntru_stage2.launches = 0
+
+
 def prepare_mxu_evk(ctx, evk_coeff: torch.Tensor):
     """Coefficient-domain EVK ``(n_lwe, L, n)`` mod q -> MXU pack
-    ``(vals, precons)``, each ``(n_lwe, L, A, 128)`` int64: kernel C, then
-    the exact Shoup quotients."""
+    ``(vals, precons)``, each ``(n_lwe, L, A, 128)`` int64: kernel C (kernel
+    1 at ``log_n`` 13-16, :func:`.ntt_mxu8.mxu8_forward32`), then the exact
+    Shoup quotients."""
     plan = get_ntru_plan(ctx.log_n, ctx.q_int)
     vals = mxu8_forward32(plan, evk_coeff.unsqueeze(0))[0].contiguous()
     return vals, shoup_precons(vals, (ctx.q_int,), 0).contiguous()

@@ -4,7 +4,8 @@ transforms of the same functions on butterflies.
 - Kernel C, ``mxu8_forward32``: the u32 tier (``q < 2^30``) of
   ``mxu8_fused_forward64`` (``primus_fhe_tpu/ops/ntt_mxu8.py:917``), which
   ``prepare_mxu_bsk`` and ``prepare_mxu_evk`` run.  Its function is kernel
-  1's canonical forward NTT (:mod:`.ntt32`), and so is its design: a
+  1's canonical forward NTT (:mod:`.ntt32`), so at ``log_n`` 13-16 the
+  wrapper runs kernel 1 itself; at 8-12 kernel C's design is kernel 1's: a
   persistent kernel in ``csrc/ntt32.cu`` on kernel 1's radix-8 register
   passes, each block taking a range of (prime, tile of rows) items, one
   thread bulk-copying the next tile's rows into a ring of three shared
@@ -84,7 +85,7 @@ from ..utils.contracts import check_range_u64
 from . import build
 from .cmux_mxu import LANES, _balanced_digits, kernel_layout
 from .mxu_common import four_step_matrices
-from .ntt32 import forward32_plain
+from .ntt32 import MAX_LOG_N, forward32, forward32_plain
 from .ntt64 import NttTables64, ntt64_forward_plain, ntt64_inverse_plain
 from .ntt64 import pick_tile as ntt64_pick_tile
 
@@ -103,8 +104,11 @@ def mxu8_forward32(plan, values: torch.Tensor) -> torch.Tensor:
     bit-reversed order, ``(kp, ..., A, 128)``.
 
     CPU tensors take the plain version, CUDA tensors kernel C (one launch
-    for every prime), which takes ``log_n`` 8-12 (a ``ValueError``
-    outside, before any launch); the output keeps the input's storage.
+    for every prime) at ``log_n`` 8-12 and kernel 1 at ``out_factor=1``
+    (:func:`.ntt32.forward32`, its launch counted there; a row over a
+    cluster at 15-16) at 13-16: the same function, so the same words.  A
+    ``ValueError`` outside 8-16, before any launch; the output keeps the
+    input's storage.
     """
     if values.device.type == "cpu":
         out = mxu8_forward32_plain(plan, widen_u32(values))
@@ -114,9 +118,12 @@ def mxu8_forward32(plan, values: torch.Tensor) -> torch.Tensor:
     kp, n = len(plan.primes), plan.n
     if values.shape[0] != kp or values.shape[-1] != n:
         raise ValueError(f"expected (kp={kp}, ..., n={n}), got {tuple(values.shape)}")
-    if not C_LOG_N[0] <= plan.log_n <= C_LOG_N[1]:
-        raise ValueError(f"mxu8_forward32: the kernel takes log_n {C_LOG_N[0]}-{C_LOG_N[1]} on "
-                         f"the card, got {plan.log_n}")
+    if not C_LOG_N[0] <= plan.log_n <= MAX_LOG_N:
+        raise ValueError(f"mxu8_forward32: the card takes log_n {C_LOG_N[0]}-{MAX_LOG_N} (kernel "
+                         f"C to {C_LOG_N[1]}, kernel 1 above), got {plan.log_n}")
+    if plan.log_n > C_LOG_N[1]:
+        out = forward32(plan.ntt, values, 1)
+        return out.reshape(*out.shape[:-1], plan.A, plan.B)
     v = narrow_u32(values).contiguous()
     if v.data_ptr() % 16:  # the tiles move by bulk copies of 16-byte units
         v = v.clone()

@@ -372,8 +372,9 @@ class NtruGateKeys:
 
 def make_ntru_keys(params: NtruParams, device, generator: torch.Generator) -> NtruGateKeys:
     """NTRU secret, binary LWE secret, both evaluation-key forms (the MXU
-    pack for ``log_n >= 8``) from one set of NGS draws, and the key-switch
-    key, all on ``device`` from ``generator``."""
+    pack for ``log_n >= 8``; kernel C prepares it to ``log_n`` 12, kernel
+    1 at 13-16) from one set of NGS draws, and the key-switch key, all on
+    ``device`` from ``generator``."""
     device = torch.device(device)
     if generator.device.type != device.type:
         raise ValueError("the generator must live on the keys' device")

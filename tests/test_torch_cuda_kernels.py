@@ -52,7 +52,7 @@ import pytest
 import torch
 
 from primus_fhe_tpu_torch import params as P
-from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap
+from primus_fhe_tpu_torch.boot.blind_rotate import blind_rotate, bootstrap
 from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
 from primus_fhe_tpu_torch.lattice import tfhe
 from primus_fhe_tpu_torch.boot import ntru_gates
@@ -365,16 +365,174 @@ def test_mxu8_forward_at_the_key_preparations(dev):
         assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("log_n", [7, 13])
+@pytest.mark.parametrize("log_n", [7, 17])
 def test_mxu8_forward_refuses_log_n_outside_8_to_12(dev, log_n):
-    """Kernel C takes log_n 8-12: the plan refuses 7 and the wrapper 13
-    (``ValueError``), before any launch."""
-    before = ntt_mxu8.mxu8_forward32.launches
-    with pytest.raises(ValueError):
-        plan = cmux_mxu.CmuxMxuPlan(log_n, PRIMES_2E15[:1])
+    """The wrapper takes log_n 8-16 (kernel C to 12, kernel 1 at 13-16):
+    the plan refuses 7 and the wrapper 17 (``ValueError``), before any
+    launch of either kernel."""
+    before = (ntt_mxu8.mxu8_forward32.launches, ntt32.forward32.launches)
+    with pytest.raises(ValueError, match="log_n"):
+        plan = cmux_mxu.CmuxMxuPlan(log_n, (next_ntt_prime(30, log_n),))
         ntt_mxu8.mxu8_forward32(plan, torch.zeros((1, 3, 1 << log_n), dtype=torch.int32,
                                                   device=dev))
-    assert ntt_mxu8.mxu8_forward32.launches == before
+    assert (ntt_mxu8.mxu8_forward32.launches, ntt32.forward32.launches) == before
+
+
+@pytest.mark.parametrize("log_n", [13, 14, 15, 16])
+def test_mxu8_forward_route_past_kernel_c(dev, log_n):
+    """``mxu8_forward32`` at log_n 13-16 (kp 2, 1 and 16 rows a prime):
+    kernel 1 at out_factor 1, one launch, no kernel C launch, the plain
+    version's words (int64 and int32 storage)."""
+    primes = tuple(TorusConvolver32(log_n, 56).primes)
+    plan = cmux_mxu.CmuxMxuPlan(log_n, primes)
+    gen = torch.Generator(device=dev).manual_seed(log_n)
+    for rows in (1, 16):
+        x = _residues(gen, primes, (rows, 1 << log_n), 1, dev)
+        want = ntt_mxu8.mxu8_forward32_plain(plan, x)
+        before = (ntt_mxu8.mxu8_forward32.launches, ntt32.forward32.launches)
+        assert torch.equal(ntt_mxu8.mxu8_forward32(plan, x), want), rows
+        got32 = ntt_mxu8.mxu8_forward32(plan, x.to(torch.int32))
+        assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want), rows
+        assert (ntt_mxu8.mxu8_forward32.launches - before[0],
+                ntt32.forward32.launches - before[1]) == (0, 2)
+    assert plan._per_prime is None
+
+
+def test_mxu_step_route_on_a_grid(dev):
+    """``mxu_step_route`` on the card (kernel A's C entry answering) over kp
+    1, 2, 4, k1 1-4, L 1-8, 12, 20 and 32, log_n 8-17 and 1- and 2-byte
+    digits: kernel A only at log_n 8-12 and, where it holds at some L, at
+    every smaller L too (its plan grows with L); elsewhere ``step_route``'s
+    answer, and log_n 17 raises before any launch; the named shapes;
+    ``ntru_step_route`` on kernel B's answers."""
+    levels = list(range(1, 9)) + [12, 20, 32]
+    for log_n in range(8, 17):
+        for kp in (1, 2, 4):
+            for k1 in range(1, 5):
+                for dp in (1, 2):
+                    routes = [cmux_mxu.mxu_step_route(kp, k1, level, log_n, dp)
+                              for level in levels]
+                    held = [r == "mxu" for r in routes]
+                    assert held == sorted(held, reverse=True), (kp, k1, log_n, dp)
+                    assert log_n <= 12 or not any(held)
+                    for level, r in zip(levels, routes):
+                        assert r == "mxu" or r == cmux_fused.step_route(kp, k1, level, log_n)
+    assert cmux_mxu.mxu_step_route(2, 2, 3, 11, 1) == "mxu"  # BOOLEAN_128
+    assert cmux_mxu.mxu_step_route(2, 2, 3, 12, 1) == "fused"  # its gadget at N = 4096
+    assert cmux_mxu.mxu_step_route(2, 2, 3, 15, 1) == "staged"
+    with pytest.raises(ValueError, match="log_n 4-16"):
+        cmux_mxu.mxu_step_route(2, 2, 3, 17, 1)
+    assert [ntru_cmux_mxu.ntru_step_route(*s) for s in
+            ((6, 10, 1), (16, 10, 1), (20, 10, 1), (6, 12, 1), (6, 13, 1))] == [
+        "mxu", "mxu", "staged", "staged", "staged"]
+
+
+@pytest.mark.parametrize("log_n,route", [(12, "fused"), (15, "staged")])
+def test_mxu_key_past_kernel_a_matches_cpu(dev, log_n, route):
+    """``blind_rotate`` on an MXU pack made by ``prepare_mxu_bsk`` with
+    BOOLEAN_128's gadget (k = 1, 2^7 x 3) where kernel A refuses the shape:
+    at N = 4096 (k1 L = 6, a plan past 227 KB) the fused step, at N = 2^15
+    kernels G, 1 and H, once a key slice each, on the pack's values and no
+    kernel A launch; the words equal the CPU's rotation on the same pack
+    (kernel A's plain version), at batch 2 over 3 key slices."""
+    n_lwe, k1, level = 3, 2, 3
+    n = 1 << log_n
+    conv = tfhe.make_convolver(log_n, level, 1, 7)
+    basis = ApproxSignedBasis32(None, 7, reverse_length=level)
+    gen = torch.Generator(device=dev).manual_seed(log_n + 24)
+    ggsw = torch.randint(0, 1 << 32, (n_lwe, k1, level, k1, n), generator=gen, device=dev)
+    pack = cmux_mxu.prepare_mxu_bsk(conv, ggsw)
+    assert cmux_mxu.mxu_step_route(conv.count, k1, level, log_n, 1) == route
+    sw = torch.randint(0, 2 * n, (2, n_lwe + 1), generator=gen, device=dev, dtype=torch.int32)
+    tp = torch.randint(0, 1 << 32, (n,), generator=gen, device=dev)
+    counted = (cmux_mxu.mxu_cmux_step, cmux_fused.fused_cmux_step, cmux_front.cmux_front,
+               ntt32.forward32, cmux_fused.cmux_stage2)
+    before = [fn.launches for fn in counted]
+    got = blind_rotate(conv, basis, pack, sw, tp)
+    staged = n_lwe if route == "staged" else 0
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [
+        0, n_lwe - staged, staged, staged, staged]
+    want = blind_rotate(conv, basis, tuple(x.cpu() for x in pack), sw.cpu(), tp.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("log_n,q_bits,log_basis,level", [(10, 20, 3, 6), (13, 20, 3, 6),
+                                                          (16, 30, 10, 3), (9, 20, 1, 16)])
+def test_ntru_digits_kernel_matches_plain(dev, log_n, q_bits, log_basis, level):
+    """Kernel I against ``ntru_digits_plain`` at batch 1 and 3, the words
+    0, q - 1, q // 2 and the wrap threshold included, into a new tensor
+    (int64 and int32 storage) and into ``out``."""
+    n, q = 1 << log_n, next_ntt_prime(q_bits, log_n)
+    basis = ApproxSignedBasis32(q, log_basis, level)
+    gen = torch.Generator(device=dev).manual_seed(log_n + q_bits)
+    for bsz in (1, 3):
+        acc = torch.randint(0, q, (bsz, n), generator=gen, device=dev)
+        acc[0, :4] = torch.tensor([0, q - 1, q // 2, basis.wrap_threshold or 1])
+        want = ntru_cmux_mxu.ntru_digits_plain(basis, acc)
+        before = ntru_cmux_mxu.ntru_digits.launches
+        assert torch.equal(ntru_cmux_mxu.ntru_digits(basis, acc), want)
+        out = torch.empty((level, bsz, n), dtype=torch.int32, device=dev)
+        assert ntru_cmux_mxu.ntru_digits(basis, acc.to(torch.int32), out=out) is out
+        assert torch.equal(out.to(torch.int64), want)
+        assert ntru_cmux_mxu.ntru_digits.launches - before == 2
+
+
+@pytest.mark.parametrize("log_n,q_bits,level", [(10, 20, 6), (13, 20, 6), (15, 30, 3),
+                                                (16, 30, 3), (8, 20, 20)])
+def test_ntru_stage2_kernel_matches_plain(dev, log_n, q_bits, level):
+    """Kernel J against ``ntru_stage2_plain`` on lazy ``[0, 4q)`` digits
+    (0 and 4q - 1 included) at batch 1 and 5, degrees 0, 2n - 1, n and any
+    sign, into a new tensor and in place (a row over two blocks at log_n
+    16); its launch rule."""
+    n, q = 1 << log_n, next_ntt_prime(q_bits, log_n)
+    tables = ntt32.NttTables32(log_n, (q,))
+    gen = torch.Generator(device=dev).manual_seed(log_n * 5 + level)
+    evk = torch.randint(0, q, (level, n), generator=gen, device=dev)
+    for bsz in (1, 5):
+        f = torch.randint(0, 4 * q, (level, bsz, n), generator=gen, device=dev)
+        f[0, 0, :2] = torch.tensor([0, 4 * q - 1])
+        acc = torch.randint(0, q, (bsz, n), generator=gen, device=dev)
+        degrees = torch.randint(-4 * n, 4 * n, (bsz,), generator=gen, device=dev)
+        degrees[:3] = torch.tensor([0, 2 * n - 1, n])[:bsz]
+        want = ntru_cmux_mxu.ntru_stage2_plain(tables, f, evk, acc, degrees)
+        before = ntru_cmux_mxu.ntru_stage2.launches
+        assert torch.equal(ntru_cmux_mxu.ntru_stage2(tables, f, evk, acc, degrees), want)
+        acc32 = acc.to(torch.int32)
+        out = ntru_cmux_mxu.ntru_stage2(tables, f.to(torch.int32), evk.to(torch.int32), acc32,
+                                        degrees, out=acc32)
+        assert out is acc32 and torch.equal(acc32.to(torch.int64), want)
+        assert ntru_cmux_mxu.ntru_stage2.launches - before == 2
+    assert ntru_cmux_mxu.launch_grid(log_n) == ((2, 512, 1 << 17) if log_n == 16 else
+                                                (1, min(max(n >> 3, 32), 512), 4 * n))
+
+
+def test_ntru_staged_steps_match_plain(dev):
+    """``NtruStepPlan`` at N = 2^13 (NTRU_128's gadget) over 3 steps at
+    batch 2 on an evk row made by ``prepare_mxu_evk`` (kernel 1's route):
+    kernels I, 1 and J three launches each, no kernel B, the accumulator in
+    place, the plain step's words; NTRU_128 keeps kernel B."""
+    log_n = 13
+    n, q = 1 << log_n, next_ntt_prime(20, log_n)
+    ctx = NtruContext(log_n, q, 3, 6)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    coeff = torch.randint(0, q, (1, 6, n), generator=gen, device=dev)
+    kv, kpre = ntru_cmux_mxu.prepare_mxu_evk(ctx, coeff)
+    step = ntru_cmux_mxu.NtruStepPlan(ctx, dev)
+    assert step.route == "staged" and not step.reads_precons
+    plan = ntru_cmux_mxu.get_ntru_plan(log_n, q)
+    acc = torch.randint(0, q, (2, n), generator=gen, device=dev)
+    acc32, kv32 = acc.to(torch.int32), kv[0].to(torch.int32).contiguous()
+    counted = (ntru_cmux_mxu.ntru_digits, ntt32.forward32, ntru_cmux_mxu.ntru_stage2,
+               ntru_cmux_mxu.ntru_cmux_step)
+    before = [fn.launches for fn in counted]
+    for i in range(3):
+        degrees = torch.randint(0, 2 * n, (2,), generator=gen, device=dev, dtype=torch.int32)
+        acc = ntru_cmux_mxu.ntru_cmux_step_plain(plan, ctx.basis, acc, degrees, kv[0])
+        assert step(acc32, degrees, kv32, None) is acc32
+        assert torch.equal(acc32.to(torch.int64), acc), i
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [3, 3, 3, 0]
+    nctx, _ = P.make_ntru_context(P.NTRU_128)
+    assert ntru_cmux_mxu.NtruStepPlan(nctx, dev).route == "mxu"
 
 
 def _cluster_batches(kp):
