@@ -151,7 +151,8 @@ non-zero):
     the staged step (kernel G, kernel 1, kernel H) over 4 steps at batch 2
     against the plain step at N = 2^15 (L 3, kp 2), 2^16 (kp 3), 2^10 with
     k = 2 over 3 primes and 2^10 with a 2^1 x 20 gadget, H's and the step's
-    device ms at N = 2^15, batch 1 and 16, against H's bound; BOOLEAN_128
+    device ms at N = 2^15, batch 1 and 16, against H's bound, with H's grid
+    (a row over a cluster of C slices, C > 1 asserted); BOOLEAN_128
     with its ring widened to N = 2^15 (``make_context`` on the card) running
     a 4-bit programmable bootstrap (``lut_test_polynomial`` of 3m + 1 mod
     16) on 16 ciphertexts, each decrypted under the GLWE key, the phase
@@ -172,7 +173,8 @@ non-zero):
     kernel 1 and H), ms at batch 1 and 16 and the idle share; NTRU_128's gadget, n_lwe and
     sigmas at N = 2^13 (``make_ntru_keys``, both evk forms), kernels I
     (``ntru_digits``) and J (``ntru_stage2``) against their plain versions
-    at batch 1 and 16 with device ms against their bounds, the first 8
+    at batch 1 and 16 with device ms against their bounds and J's grid (C >
+    1 slices a row asserted), the first 8
     staged steps at batch 1 and 16 against the plain step, a full 700-step
     rotation at batch 2 against the CPU's plain rotation (exact launches:
     700 each of I, kernel 1 and J), the key-switched output's phase std
@@ -2225,7 +2227,7 @@ def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> di
         log(f"log_n {log_n}, 2^{log_basis} x {level}, k1 {k1} over {kp} primes (kp k1 = "
             f"{kp * k1}): 4 staged steps at batch 2 bit-equal to the plain step; launches G / "
             f"kernel 1 / H / fused {launched}; H's launch (blocks a row, threads, shared bytes, "
-            f"clusters held) {cmux_fused.launch_grid(conv)}")
+            f"clusters held) {cmux_fused.launch_grid(conv, k1, 2)}")
     wide = dataclasses.replace(P.BOOLEAN_128, log_n=WIDE_LOG_N)
     conv = tfhe.make_convolver(wide.log_n, wide.level, wide.glwe_dim, wide.log_basis)
     basis = ApproxSignedBasis32(None, wide.log_basis, reverse_length=wide.level)
@@ -2243,6 +2245,9 @@ def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> di
                        lambda: cmux_fused.cmux_stage2(conv, f32, key32, acc32),
                        lambda: cmux_fused.cmux_stage2_plain(conv, f, key, acc), hb)
         h_ms = table["cmux_stage2"][bsz][3]
+        h_grid = cmux_fused.launch_grid(conv, k1, bsz)
+        if h_grid[0] < 2:  # a row over a cluster of slices, one block a row before
+            raise AssertionError(f"kernel H at N = 2^{WIDE_LOG_N}, batch {bsz}: grid {h_grid}")
         deg = torch.randint(0, 2 * n, (bsz,), generator=g, device=dev, dtype=torch.int32)
         digits = torch.empty((kp, bsz, k1, level, n), dtype=torch.int32, device=dev)
         g_ms = kernel_device_ms(torch, lambda: cmux_front.cmux_front(acc32, deg, basis,
@@ -2251,7 +2256,8 @@ def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> di
         step_ms = kernel_device_ms(torch, lambda: plan(acc32, deg, key32, out=acc32))
         log(f"[{smi}] staged step at N = 2^{WIDE_LOG_N}, batch {bsz}: device {step_ms:.4f} ms "
             f"(CUDA events behind a sleep): G {g_ms:.4f}, kernel 1 {one_ms:.4f}, H {h_ms:.4f} "
-            f"ms; H's bound {hb[0]:.4f} ms ({hb[1]}), share {hb[0] / h_ms:.4f}")
+            f"ms; H's bound {hb[0]:.4f} ms ({hb[1]}), share {hb[0] / h_ms:.4f}; H's launch "
+            f"(blocks a row, threads, shared bytes, clusters held) {h_grid}")
 
     # -- 21.3: a 4-bit programmable bootstrap at N = 2^15 -------------------------
     log(f"-- 21.3: make_context(BOOLEAN_128 at N = 2^{WIDE_LOG_N}, bsk_kind='ntt') and a "
@@ -2548,11 +2554,14 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
             if not torch.equal(run.to(torch.int64), plain_acc):
                 raise AssertionError(f"NTRU staged step {i} at batch {bsz} != plain")
         step_ms = kernel_device_ms(torch, lambda: step(run, sw[0], kv32[0], None))
+        j_grid = ntru_cmux_mxu.launch_grid(NTRU_WIDE_LOG_N, bsz)
+        if j_grid[0] < 2:  # a row over a cluster of slices, one block a row before
+            raise AssertionError(f"kernel J at N = 2^{NTRU_WIDE_LOG_N}, batch {bsz}: {j_grid}")
         log(f"[{smi}] the first {NTRU_CHECK_STEPS} staged steps at batch {bsz} bit-equal to the "
             f"plain step on the card; one step {step_ms:.4f} device ms (I "
             f"{table['ntru_digits'][bsz][3]:.4f}, J {table['ntru_stage2'][bsz][3]:.4f}, kernel 1 "
-            f"the rest); J's launch (blocks a row, threads, shared bytes) "
-            f"{ntru_cmux_mxu.launch_grid(NTRU_WIDE_LOG_N)}")
+            f"the rest); J's launch (blocks a row, threads, shared bytes, clusters held) "
+            f"{j_grid}")
     nt = (qn - 1) // 8
     xa_bits = torch.tensor([1, 0], device=dev)
     xb_bits = torch.tensor([1, 1], device=dev)

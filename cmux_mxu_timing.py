@@ -43,6 +43,9 @@ at the round trip's 512 rows on a 7- and an 8-plane modulus (beside row 10,
     python3 cmux_mxu_timing.py --front ...     # kernel G (with --compare OLD: in turns)
     python3 cmux_mxu_timing.py --front --phases    # kernel G's cycles per phase (clock64)
     python3 cmux_mxu_timing.py --front --grids     # kernel G on every block size, both store kinds
+    python3 cmux_mxu_timing.py --stage2 ...    # kernels H and J (with --compare OLD: in turns)
+    python3 cmux_mxu_timing.py --stage2 --phases [--compare OLD]  # their cycles per phase
+    python3 cmux_mxu_timing.py --stage2 --grids    # H and J on every slice count
 
 Both forward transforms are bounded by the function they compute: 16 bytes
 a word over the HBM rate, or the butterfly's ``n / 2 log n`` Shoup
@@ -140,6 +143,18 @@ take ``--compare OLD`` (new / old per shape in the summary; ``--front``
 also each side's grids and ptxas figures); ``--keyprep --grids`` times C
 on every tile of 1-8 rows (``pft_c_force_tile``, from a copy in
 ``.proof/keyprep_grids``).
+``--stage2`` times kernels H (``cmux_stage2``) and J (``ntru_stage2``) at
+their paths' shapes (:data:`STAGE2_H_SHAPES`: ``chip_smoke.py`` phase
+21.2's; :data:`STAGE2_J_SHAPES`: phase 22.5's), each checked against its
+plain version, with its bound, share and the launch's grid, and ptxas's
+figures of every instance; ``--stage2 --phases`` copies the package to
+``.proof/stage2_phases_new`` (and OLD's to ``..._old`` with ``--compare
+OLD``, run old, new, new, old) with clock64() laps of thread 0 in every
+block (the MAC, the inverse, the CRT or rotation; block 0's and each
+phase's largest; :func:`stamp_stage2`); ``--stage2 --grids`` copies it to
+``.proof/stage2_grids`` with the slice count set from outside
+(``pft_h_force``, ``pft_j_force``) and times both on every C = 1-16 beside
+the rule's own.
 
 A kernel's device time is the median of 20 calls, each timed with CUDA
 events queued behind a ~1 ms sleep kernel, so the events bracket the kernel
@@ -1055,6 +1070,222 @@ def front_stamps(torch, dev) -> dict:
 
     calls = {f"cmux_front@{label}": fn for label, (fn, *_) in front_calls(torch, dev).items()}
     return read_laps(torch, "pft_read_g_laps", 5, calls, names)
+
+
+# --stage2: kernel H at chip_smoke.py phase 21.2's shapes (label, log_n,
+# log_basis, level, k, make_convolver's bound bits or None, batch): the
+# widened BOOLEAN_128 ring at batch 1 and 16, the ring at 2^16 over 3
+# primes, k = 2 over 3 primes and a 2^1 x 20 gadget; kernel J at phase
+# 22.5's (NTRU_128's gadget at N = 2^13, batch 1 and 16)
+STAGE2_H_SHAPES = (("2^15 b1", 15, 7, 3, 1, None, 1), ("2^15 b16", 15, 7, 3, 1, None, 16),
+                   ("2^16 kp3 b2", 16, 7, 3, 1, 60, 2), ("2^16 kp3 b16", 16, 7, 3, 1, 60, 16),
+                   ("2^10 k2 kp3 b2", 10, 7, 3, 2, 60, 2), ("2^10 L20 b2", 10, 1, 20, 1, None, 2))
+STAGE2_J_SHAPES = (("2^13 b1", 13, 1), ("2^13 b16", 13, 16))
+STAGE2_LAPS = ("MAC", "inverse", "CRT / rotation")
+
+
+def stage2_calls(torch, dev) -> dict:
+    """``{name@label: (call, bound ms, grid)}`` of kernels H and J at
+    :data:`STAGE2_H_SHAPES` / :data:`STAGE2_J_SHAPES` on int32 storage,
+    each checked once against its plain version; the bounds are
+    ``chip_smoke.py``'s (``stage2_bound``, ``ntru_stage2_bound``), the grid
+    the checkout's ``launch_grid`` (blocks a row, threads, shared bytes and,
+    for H, clusters held)."""
+    import dataclasses
+    import inspect
+
+    from primus_fhe_tpu_torch import params as P
+    from primus_fhe_tpu_torch.lattice import tfhe
+    from primus_fhe_tpu_torch.ops import cmux_fused, ntru_cmux_mxu
+    from primus_fhe_tpu_torch.ops.ntt32 import NttTables32
+    from primus_fhe_tpu_torch.transforms.torus import TorusConvolver32
+
+    smoke = this_smoke()
+    g = torch.Generator(device=dev).manual_seed(2035)
+
+    def residues(primes, shape, factor):
+        q = torch.tensor(primes, dtype=torch.int64, device=dev).reshape((-1,) + (1,) * len(shape))
+        return torch.randint(0, 1 << 40, (len(primes),) + shape, generator=g, device=dev) % (
+            factor * q)
+
+    by_batch = len(inspect.signature(cmux_fused.launch_grid).parameters) > 1
+    calls = {}
+    for label, log_n, log_basis, level, k, bits, bsz in STAGE2_H_SHAPES:
+        conv = (TorusConvolver32(log_n, bits) if bits
+                else tfhe.make_convolver(log_n, level, k, log_basis))
+        n, kp, k1 = 1 << log_n, conv.count, k + 1
+        f = residues(conv.primes, (bsz * k1, level, n), 4)
+        key = residues(conv.primes, (k1, level, k1, n), 1)
+        acc = torch.randint(0, 1 << 32, (bsz, k1, n), generator=g, device=dev)
+        want = cmux_fused.cmux_stage2_plain(conv, f, key, acc)
+        f32, key32, acc32 = f.to(torch.int32), key.to(torch.int32), acc.to(torch.int32)
+
+        def fn(conv=conv, f32=f32, key32=key32, acc32=acc32):
+            return cmux_fused.cmux_stage2(conv, f32, key32, acc32)
+
+        if not torch.equal(fn().to(torch.int64) & 0xFFFFFFFF, want):
+            raise SystemExit(f"cmux_stage2@{label}: words differ from the plain version")
+        grid = cmux_fused.launch_grid(conv, k1, bsz) if by_batch else cmux_fused.launch_grid(conv)
+        calls[f"cmux_stage2@{label}"] = (fn, smoke.stage2_bound(kp, bsz, k1, level, n)[0], grid)
+    for label, log_n, bsz in STAGE2_J_SHAPES:
+        pw = dataclasses.replace(P.NTRU_128, log_n=log_n)
+        q, n, level = pw.q, 1 << log_n, pw.level
+        tables = NttTables32(log_n, (q,))
+        f = torch.randint(0, 4 * q, (level, bsz, n), generator=g, device=dev)
+        evk = torch.randint(0, q, (level, n), generator=g, device=dev)
+        acc = torch.randint(0, q, (bsz, n), generator=g, device=dev)
+        deg = torch.randint(0, 2 * n, (bsz,), generator=g, device=dev, dtype=torch.int32)
+        want = ntru_cmux_mxu.ntru_stage2_plain(tables, f, evk, acc, deg)
+        f32, evk32, acc32 = f.to(torch.int32), evk.to(torch.int32), acc.to(torch.int32)
+
+        def fn(tables=tables, f32=f32, evk32=evk32, acc32=acc32, deg=deg):
+            return ntru_cmux_mxu.ntru_stage2(tables, f32, evk32, acc32, deg)
+
+        if not torch.equal(fn().to(torch.int64), want):
+            raise SystemExit(f"ntru_stage2@{label}: words differ from the plain version")
+        grid = (ntru_cmux_mxu.launch_grid(log_n, bsz) if len(inspect.signature(
+            ntru_cmux_mxu.launch_grid).parameters) > 1 else ntru_cmux_mxu.launch_grid(log_n))
+        calls[f"ntru_stage2@{label}"] = (fn, smoke.ntru_stage2_bound(bsz, level, n)[0], grid)
+    return calls
+
+
+def stage2_times(torch, dev) -> dict:
+    """Device ms, bound and share of kernels H and J at each shape, with the
+    launch's grid, the empty-launch floor, and ptxas's figures for every H
+    and J instance."""
+    from primus_fhe_tpu_torch.ops import build
+
+    out = {}
+    for key, (fn, bound_ms, grid) in stage2_calls(torch, dev).items():
+        ms = device_ms(torch, fn)
+        out[key] = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms, "grid": list(grid)}
+    out["empty kernel"] = {"ms": device_ms(torch, lambda: torch.cuda._sleep(1))}
+    log = build.build()[2]
+    out["ptxas"] = {re.sub(r"_ZN12_GLOBAL__N_1\d+", "", k): v for k, v in (
+        build.ptxas_figures(log) if hasattr(build, "ptxas_figures") else {}).items()
+        if "cmux_stage2_kernel" in k or "ntru_stage2_kernel" in k}
+    return out
+
+
+def stamp_stage2(src: Path, kernel: str, tag: str) -> None:
+    """clock64() laps of thread 0 in every block of ``kernel`` (H's or J's
+    body in ``src``): from its start to the line ``// 2.`` (the MAC and its
+    barrier), to ``// 3.`` (the inverse and its barrier), to the body's end
+    (the CRT or the rotation and the last cluster barrier); block 0's laps
+    and each lap's largest over the blocks, the launch's span on the global
+    timer, and a C entry ``pft_read_<tag>_laps`` that reads them and resets
+    the span and the largest laps."""
+    text = src.read_text()
+    start = text.index(f"{kernel}(const Stage2Args a) {{\n")
+    body0 = text.index("\n", start) + 1
+    end = text.index("\n}\n", body0) + 1
+    body = text[body0:end]
+    for mark in ("  // 2.", "  // 3."):
+        if body.count(mark) != 1:
+            raise SystemExit(f"cmux_mxu_timing: {src.name} {kernel} lost its {mark!r} line")
+    lap = ("  if (threadIdx.x == 0) {{ const long long pft_t1 = clock64(); "
+           "pft_laps[{k}] = pft_t1 - pft_t; pft_t = pft_t1; }}\n")
+    body = body.replace("  // 2.", lap.format(k=0) + "  // 2.", 1)
+    body = body.replace("  // 3.", lap.format(k=1) + "  // 3.", 1)
+    body = (f"  long long pft_t = clock64(), pft_laps[3] = {{0, 0, 0}};\n"
+            "  unsigned long long pft_g0 = 0;\n"
+            "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g0));\n" + body
+            + lap.format(k=2)
+            + "  if (threadIdx.x == 0) {\n"
+            "    unsigned long long pft_g1;\n"
+            "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pft_g1));\n"
+            f"    atomicMin(&pft_{tag}_gt[0], pft_g0);\n"
+            f"    atomicMax(&pft_{tag}_gt[1], pft_g1);\n"
+            "    for (int k = 0; k < 3; ++k) {\n"
+            f"      if (blockIdx.x == 0) pft_{tag}_laps[k] = pft_laps[k];\n"
+            f"      atomicMax(&pft_{tag}_laps[3 + k], pft_laps[k]);\n"
+            "    }\n  }\n")
+    # a `return` inside the body would skip the laps: the kernels have none
+    if "return;" in body:
+        raise SystemExit(f"cmux_mxu_timing: {src.name} {kernel} returns early")
+    text = text[:body0] + body + text[end:]
+    head = (f"__device__ long long pft_{tag}_laps[6];\n"
+            f"__device__ unsigned long long pft_{tag}_gt[2] = {{~0ull, 0ull}};\n")
+    text = text.replace("namespace {\n", head + "namespace {\n", 1)
+    reader = (f"int pft_read_{tag}_laps(void* laps, void* gt) {{\n"
+              f"  cudaError_t e = cudaMemcpyFromSymbol(laps, pft_{tag}_laps, "
+              f"sizeof(pft_{tag}_laps));\n"
+              f"  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, pft_{tag}_gt, 16);\n"
+              "  const unsigned long long reset[2] = {~0ull, 0ull};\n"
+              "  const long long zero[6] = {0, 0, 0, 0, 0, 0};\n"
+              f"  if (e == cudaSuccess) e = cudaMemcpyToSymbol(pft_{tag}_gt, reset, 16);\n"
+              f"  if (e == cudaSuccess) e = cudaMemcpyToSymbol(pft_{tag}_laps, zero, 48);\n"
+              "  return (int)e;\n}\n")
+    text = text.replace('extern "C" {\n', 'extern "C" {\n\n' + reader, 1)
+    src.write_text(text)
+
+
+def stamp_stage2_grids(src: Path, pick: str, held: str, tag: str) -> None:
+    """Adds to the C entry's slice rule ``pick`` (``h_pick`` / ``j_pick``)
+    a lc set from outside (``pft_<tag>_force(lc)``, -1 for the rule's own):
+    the launch then takes 2^lc slices a row where the card holds the
+    cluster (``held``'s answer), else it is refused."""
+    text = src.read_text()
+    head = re.search(rf"int {pick}\([^)]*\) {{\n", text)
+    if head is None:
+        raise SystemExit(f"cmux_mxu_timing: {src.name} lost {pick}")
+    text = (text[:head.start()] + "int pft_force_lc = -1;\n" + head.group(0)
+            + "  if (pft_force_lc >= 0) {\n    *lc = pft_force_lc;\n"
+            + f"    const int e = {held};\n"
+            + "    return e != 0 ? e : *held < 1 ? (int)cudaErrorInvalidConfiguration : 0;\n  }\n"
+            + text[head.end():])
+    text = text.replace('extern "C" {\n', f'extern "C" {{\n\nint pft_{tag}_force(int lc) {{\n'
+                        "  pft_force_lc = lc;\n  return 0;\n}\n", 1)
+    src.write_text(text)
+
+
+def stage2_grids(torch, dev) -> dict:
+    """In a ``--stage2 --grids`` copy: kernels H and J at each shape on
+    every lc of 0-4 (2^lc slices a row) beside the rule's own, each checked
+    against the rule's words (None where the card refuses the cluster)."""
+    import ctypes
+
+    from primus_fhe_tpu_torch.ops import build
+
+    lib = build.library()
+    out = {}
+    for key, (fn, bound_ms, grid) in stage2_calls(torch, dev).items():
+        force = getattr(lib, "pft_h_force" if key.startswith("cmux") else "pft_j_force")
+        force.argtypes = [ctypes.c_int]
+        force(-1)
+        want = fn()
+        row = {"own": list(grid), "own_ms": device_ms(torch, fn), "bound_ms": bound_ms}
+        for lc in range(5):
+            force(lc)
+            try:
+                got = fn()
+            except (RuntimeError, ValueError):
+                row[f"C{1 << lc}"] = None
+                continue
+            if not torch.equal(got, want):
+                raise SystemExit(f"{key} lc {lc}: words differ")
+            row[f"C{1 << lc}"] = device_ms(torch, fn)
+        force(-1)
+        out[key] = row
+    return out
+
+
+def stage2_stamps(torch, dev) -> dict:
+    """In a ``--stage2 --phases`` copy: block 0's thread 0 cycles of kernels
+    H and J at each shape per phase (:func:`stamp_stage2`), each phase's
+    largest over the blocks, the launch's span and the event-timed ms."""
+    def names(laps):
+        return {**{k: laps[i] for i, k in enumerate(STAGE2_LAPS)},
+                **{f"{k} (largest block)": laps[3 + i] for i, k in enumerate(STAGE2_LAPS)}}
+
+    calls = stage2_calls(torch, dev)
+    out = read_laps(torch, "pft_read_h_laps", 6, {k: v[0] for k, v in calls.items()
+                                                  if k.startswith("cmux")}, names)
+    out.update(read_laps(torch, "pft_read_j_laps", 6, {k: v[0] for k, v in calls.items()
+                                                       if k.startswith("ntru")}, names))
+    for k, v in out.items():
+        v["grid"] = list(calls[k][2])
+    return out
 
 
 def stamp_keyprep(src: Path) -> None:
@@ -2100,7 +2331,8 @@ def rotations(torch, dev) -> dict:
 def run_here(stamps: bool, ntt_only: bool = False, ntt32_only: bool = False,
              ntt64_only: bool = False, split_only: bool = False,
              stages_only: bool = False, keyprep_only: bool = False,
-             rotate_only: bool = False, front_only: bool = False) -> dict:
+             rotate_only: bool = False, front_only: bool = False,
+             stage2_only: bool = False) -> dict:
     import torch
 
     if not torch.cuda.is_available():
@@ -2115,6 +2347,9 @@ def run_here(stamps: bool, ntt_only: bool = False, ntt32_only: bool = False,
         return result
     if front_only:
         result["front"] = front_times(torch, dev)
+        return result
+    if stage2_only:
+        result["stage2"] = stage2_times(torch, dev)
         return result
     if split_only:
         result["split"] = split_times(torch, dev)
@@ -2535,6 +2770,7 @@ def main() -> None:
     ap.add_argument("--keyprep", action="store_true", help="kernel C and kernel 1 at C's shapes")
     ap.add_argument("--rotate", action="store_true", help="kernel F at its paths' shapes")
     ap.add_argument("--front", action="store_true", help="kernel G at its three shapes")
+    ap.add_argument("--stage2", action="store_true", help="kernels H and J at their paths' shapes")
     ap.add_argument("--grids", action="store_true", help="the byte-radix kernels on every grid")
     ap.add_argument("--stamps", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -2550,6 +2786,13 @@ def main() -> None:
                 res = {"cycles": (keyprep_stamps if args.keyprep else rotate_stamps
                                   if args.rotate else front_stamps)(torch, dev)}
             print(json.dumps(res), flush=True)
+            return
+        if args.stamps and args.stage2:
+            import torch
+
+            dev = torch.device("cuda", 0)
+            print(json.dumps({"grids": stage2_grids(torch, dev)} if args.grids
+                             else {"cycles": stage2_stamps(torch, dev)}), flush=True)
             return
         if args.stamps and args.stages:
             import torch
@@ -2585,10 +2828,48 @@ def main() -> None:
             print(json.dumps(res), flush=True)
             return
         print(json.dumps(run_here(args.stamps, args.ntt, args.ntt32, args.ntt64, args.split,
-                                  args.stages, args.keyprep, args.rotate, args.front)),
+                                  args.stages, args.keyprep, args.rotate, args.front,
+                                  args.stage2)),
               flush=True)
         return
     print(card(), flush=True)
+    if args.stage2 and args.grids:
+        root = HERE / ".proof" / "stage2_grids"
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(HERE / "primus_fhe_tpu_torch", root / "primus_fhe_tpu_torch",
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        csrc = root / "primus_fhe_tpu_torch" / "csrc"
+        stamp_stage2_grids(csrc / "cmux_stage2.cu", "h_pick",
+                           "held_clusters(kp, log_n, *lc, held)", "h")
+        stamp_stage2_grids(csrc / "ntru_stage.cu", "j_pick", "j_held(log_n, *lc, held)", "j")
+        res = subprocess_run(root, "--stamps", "--stage2", "--grids")
+        for key, row in res["grids"].items():
+            print(key, json.dumps(row), flush=True)
+        res["card"] = card()
+        print(json.dumps(res), flush=True)
+        return
+    if args.stage2 and args.phases:  # this checkout's stamped copy, OLD's beside it in turns
+        sides = [("new", HERE)] + ([("old", args.compare)] if args.compare else [])
+        roots = {}
+        for side, base in sides:
+            root = HERE / ".proof" / f"stage2_phases_{side}"
+            shutil.rmtree(root, ignore_errors=True)
+            shutil.copytree(base / "primus_fhe_tpu_torch", root / "primus_fhe_tpu_torch",
+                            ignore=shutil.ignore_patterns("build", "__pycache__"))
+            csrc = root / "primus_fhe_tpu_torch" / "csrc"
+            stamp_stage2(csrc / "cmux_stage2.cu", "cmux_stage2_kernel", "h")
+            stamp_stage2(csrc / "ntru_stage.cu", "ntru_stage2_kernel", "j")
+            roots[side] = root
+        order = ["old", "new", "new", "old"] if args.compare else ["new"]
+        runs = []
+        for side in order:
+            res = subprocess_run(roots[side], "--stamps", "--stage2", "--phases")
+            res["side"] = side
+            for key, row in res["cycles"].items():
+                print(side, key, json.dumps(row), flush=True)
+            runs.append(res)
+        print(json.dumps({"card": card(), "runs": runs}), flush=True)
+        return
     if args.front and (args.grids or args.phases):
         runs = {}
         for tag, stamp in ((("front_phases", stamp_front),) if args.phases else
@@ -2700,14 +2981,15 @@ def main() -> None:
     if args.compare is None:
         sys.path.insert(0, str(HERE))
         print(json.dumps(run_here(False, args.ntt, args.ntt32, args.ntt64, args.split,
-                                  args.stages, args.keyprep, args.rotate, args.front)),
+                                  args.stages, args.keyprep, args.rotate, args.front,
+                                  args.stage2)),
               flush=True)
         return
     runs = []
     extra = (("--ntt",) if args.ntt else ("--ntt32",) if args.ntt32 else ("--ntt64",)
              if args.ntt64 else ("--split",) if args.split else ("--stages",) if args.stages
              else ("--keyprep",) if args.keyprep else ("--rotate",) if args.rotate
-             else ("--front",) if args.front else ())
+             else ("--front",) if args.front else ("--stage2",) if args.stage2 else ())
     for side, root in (("old", args.compare), ("new", HERE), ("new", HERE), ("old", args.compare)):
         res = subprocess_run(root, *extra)
         res["side"] = side
@@ -2760,7 +3042,7 @@ def main() -> None:
                                         if r["side"] == side]
                                     for k in runs[0]["stages"] if "coeff trip" in k}
                              for side in ("old", "new")}
-    for tag in ("keyprep", "rotate", "front"):  # new / old per shape; C over kernel 1 on each side
+    for tag in ("keyprep", "rotate", "front", "stage2"):  # new / old per shape; C over kernel 1
         if tag not in runs[0]:
             continue
         m = mean(tag, lambda r, tag=tag: {k: v["ms"] for k, v in r[tag].items()
@@ -2772,6 +3054,9 @@ def main() -> None:
             m["c_over_kernel1"] = {side: {label: m[side][f"mxu8_forward32@{label}"]
                                           / m[side][f"forward32@{label}"]
                                           for label, *_ in KEYPREP_SHAPES} for side in ("old", "new")}
+        elif tag == "stage2":  # each side's grid
+            m["grid"] = {r["side"]: {k: v.get("grid") for k, v in r[tag].items()
+                                     if isinstance(v, dict) and "grid" in v} for r in runs[:2]}
         elif tag == "rotate":
             m["launches"] = {r["side"]: {k: v.get("launches") for k, v in r[tag].items()
                                          if "launches" in v} for r in runs[:2]}

@@ -8,41 +8,54 @@
 // [0, 4p); this kernel reads them, the canonical key slice (kp, k1, L, k1,
 // n), and adds into acc (B, k1, n) in place.
 //
-// Design (a simple one that is right; its times are in PERF.md):
+// What bounds it: the bytes of f and the key slice (4 kp k1 L n each a
+// ciphertext and a key row) at a large batch; at batch 1 the latency of
+// one row's chain (MAC, inverse passes, CRT), which a row over many SMs
+// shortens.  Design (redesigned for the card; times in PERF.md):
 // - one cluster of kp C blocks for each (ciphertext b, output component j):
-//   block (prime i, slice s), cluster rank i C + s.  C = 1 up to log_n 15
-//   (a row of up to 128 KB in one block's shared memory); C = 2 at log_n 16,
-//   a row over 2 blocks (csrc/ntt_split.cuh);
-// - the MAC: each coefficient of the block's slice sums its k1 L products
-//   mod its prime, each digit brought into [0, p) first (the products are
-//   below 2^60), the sum Barrett-reduced after every 16 products (16
-//   products and a remainder below 2p stay below 2^64), so any L sums
-//   exactly; the canonical sum goes into shared memory (SwzNtt);
-// - the inverse NTT of the row on kernel 2's radix-8 passes
-//   (csrc/ntt_passes.cuh), twiddles from the inverse table in device memory;
-//   at C = 2 the slice's stages first, then the last stage across the two
-//   slices; each canonical output times (P/p_i)^-1 mod p_i (the fused
-//   kernel's CRT constants, conv.crt_pack) stays in its slice;
+//   block (prime i, slice s), cluster rank i C + s, each holding a slice of
+//   2^l = n / C words in shared memory (csrc/ntt_split.cuh).  The host picks
+//   C = 1-16 (pick_slices, kp C <= 16) from the clusters the card holds:
+//   the least work a block-wave, so a small batch spreads a row over up to
+//   16 SMs (C = 8 at log_n 15, kp 2: 32 blocks at batch 1) and slices stay
+//   at 2^11 words or more; blocks of up to 512 threads, two an SM (one at
+//   C = 16, whose cross stages need the registers);
+// - while the MAC runs, a slice of up to 2^13 words copies its inverse
+//   twiddles and quotients (the row table's words SliceInvTable reads) and
+//   acc's words of its CRT chunk into shared memory by cp.async, so the
+//   passes and the CRT read neither from device memory;
+// - the MAC (slice_mac): each coefficient sums its k1 L products mod its
+//   prime, a thread a group of 4 coefficients with one 16-byte load of
+//   digits and one of key a product, 4 products' loads in flight at once;
+//   each digit brought into [0, p) first, the sum Barrett-reduced after
+//   every 16 products, so any L sums exactly; canonical into shared memory
+//   (SwzNtt);
+// - the inverse NTT of the row: the slice's stages on kernel 2's radix-8
+//   passes (slice_inverse; at C = 1 the row's own passes), the last lc
+//   stages across the C slices over distributed shared memory
+//   (cross_inverse, their few twiddles from device memory); each canonical
+//   output times (P/p_i)^-1 mod p_i (the fused kernel's CRT constants,
+//   conv.crt_pack) stays in its slice;
 // - a cluster barrier; block (i, s) then takes 1/kp of slice s's
 //   coefficients, reads their kp residues from the kp blocks of slice s over
 //   distributed shared memory, runs the fused kernel's exact integer CRT
 //   and adds into acc; a cluster barrier keeps every slice alive until its
 //   peers' reads are done.
-// Block (b, j) reads and writes only row acc[b, j], each coefficient by one
-// thread, so out may be acc.  The output is the exact CRT of canonical
+// Cluster (b, j) reads and writes only row acc[b, j], each coefficient by
+// one thread, so out may be acc.  The output is the exact CRT of canonical
 // residues: bit-equal to cmux_stage2_plain
-// (tests/test_torch_cmux_stage2_model.py models the index maps and the
-// reduction schedule).
+// (tests/test_torch_cmux_stage2_model.py models the index maps, every C and
+// the reduction schedule).
 
 #include "ntt_split.cuh"
 
 namespace {
 
-constexpr int H_MAX_THREADS = 512;
 constexpr int H_MAX_LEVEL = 32;
 constexpr int H_MIN_LOG_N = 4, H_MAX_LOG_N = 16;
 constexpr int H_SLICE_MAX_LOG = 15;  // a block's slice: at most 128 KB
-constexpr int H_MAC_RUN = 16;        // products summed between two reductions
+constexpr int H_SLICE_MIN_LOG = 11;  // split a row only into slices of 2^11 words or more
+constexpr int H_MAX_LC = 4;          // C <= 16
 
 struct Stage2Args {
   const uint32_t* f;    // (kp, bsz k1, L, n), lazy in [0, 4p)
@@ -56,13 +69,18 @@ struct Stage2Args {
   int kp, k1, level, log_n, bsz;
 };
 
-inline int h_threads(int l) {
-  const int t = (1 << l) >> 3;
-  return t < 32 ? 32 : t > H_MAX_THREADS ? H_MAX_THREADS : t;
+// Shared words of a block of kernel H on a slice of 2^l words over kp
+// primes: the slice; where it stages (l <= STAGE_MAX_LOG) also the slice's
+// inverse twiddles and quotients (2^l each) and acc's words of its CRT
+// chunk (ceil(2^l / kp)).
+inline size_t h_smem(int l, int kp) {
+  const size_t nl = (size_t)1 << l;
+  return sizeof(uint32_t) * (l <= STAGE_MAX_LOG ? 3 * nl + (nl + kp - 1) / kp : nl);
 }
 
-template <int LC>
-__global__ void __launch_bounds__(H_MAX_THREADS, 1) cmux_stage2_kernel(const Stage2Args a) {
+template <int LC, bool STAGE>
+__global__ void __launch_bounds__(SLICE_THREADS, LC < 4 ? 2 : 1)
+    cmux_stage2_kernel(const Stage2Args a) {
   extern __shared__ __align__(16) uint32_t sm[];
   constexpr int C = 1 << LC;
   cg::cluster_group cluster = cg::this_cluster();
@@ -76,85 +94,73 @@ __global__ void __launch_bounds__(H_MAX_THREADS, 1) cmux_stage2_kernel(const Sta
   const uint32_t q = pc.q;
   const size_t n = (size_t)1 << log_n;
   const size_t lane0 = (size_t)s << l;
-
-  // 1. the MAC of the slice's coefficients, U at a time (their loads issued
-  //    together): f[pi, b k1 + r, lv] x key[pi, r, lv, j]
-  const uint32_t* fb = a.f + (((size_t)pi * a.bsz * k1 + (size_t)b * k1) * L << log_n) + lane0;
-  const uint32_t* kb = a.key + (((size_t)pi * k1 * L * k1 + j) << log_n) + lane0;
-  constexpr int U = 4;
-  for (int c0 = threadIdx.x; c0 < nl; c0 += U * blockDim.x) {
-    uint64_t sum[U] = {};
-    int run = 0;
-    for (int r = 0; r < k1; ++r) {
-      for (int lv = 0; lv < L; ++lv) {
-        const size_t frow = (size_t)(r * L + lv) << log_n;
-        const size_t krow = (size_t)((r * L + lv) * k1) << log_n;
-        uint32_t fv[U], kv[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int c = min(c0 + u * (int)blockDim.x, nl - 1);  // past the end: not stored
-          fv[u] = __ldg(fb + frow + c);
-          kv[u] = __ldg(kb + krow + c);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          sum[u] += (uint64_t)reduce_once(reduce_once(fv[u], 2u * q), q) * kv[u];
-        if (++run == H_MAC_RUN) {
-#pragma unroll
-          for (int u = 0; u < U; ++u) sum[u] = barrett_lazy_wide(sum[u], pc.ratio, q);
-          run = 0;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int c = c0 + u * (int)blockDim.x;
-      if (c < nl) sm[SwzNtt::at(c)] = reduce_once(barrett_lazy_wide(sum[u], pc.ratio, q), q);
-    }
+  const size_t row = (size_t)bj * n + lane0;  // this slice of acc[b, j]
+  const int chunk = (nl + a.kp - 1) / a.kp;  // the CRT's coefficients a block
+  const int c0 = pi * chunk, c_end = min(nl, c0 + chunk);
+  const uint32_t* w = a.inv_roots + ((size_t)pi << log_n);
+  const uint32_t* wp = a.inv_roots_p + ((size_t)pi << log_n);
+  uint32_t* const tws = sm + nl;  // STAGE: the slice's inverse twiddles,
+  uint32_t* const twps = tws + nl;  // their quotients,
+  uint32_t* const accs = twps + nl;  // acc's words c0 .. c_end - 1
+  if constexpr (STAGE) {  // in flight during the MAC
+    stage_slice_table(SliceInvTable{w, wp, l, log_n, s}, tws, twps);
+    for (int c = c0 + (int)threadIdx.x; c < c_end; c += blockDim.x)
+      cp_async4(accs + c - c0, a.acc + row + c);
+    cp_async_commit();
   }
+
+  // 1. the MAC of the slice's coefficients: row t = r L + lv of the digits
+  //    f[pi, b k1 + r, lv] times the key's row t k1 + j, key[pi, r, lv, j]
+  slice_mac(a.f + (((size_t)pi * a.bsz * k1 + (size_t)b * k1) * L << log_n) + lane0, n,
+            a.key + (((size_t)pi * k1 * L * k1 + j) << log_n) + lane0, (size_t)k1 << log_n,
+            k1 * L, l, pc, sm);
+  if constexpr (STAGE) cp_async_wait<0>();
   __syncthreads();
 
   // 2. the inverse NTT; each canonical output y times (P/p_i)^-1 mod p_i,
   //    canonical, back into its slot
-  const uint32_t* w = a.inv_roots + ((size_t)pi << log_n);
-  const uint32_t* wp = a.inv_roots_p + ((size_t)pi << log_n);
   const uint32_t iw = a.crt.iw[pi], ipq = a.crt.ipq[pi];
   const SmemRows<SwzNtt> rows{sm, l};
-  if constexpr (LC == 0) {
-    const InvTable<uint32_t> tw{w, wp};
-    const int r = remainder_stages(l);
-    if (r == 3) inv_pass<3, Last::no>(1, l, 0, tw, pc, rows, rows);
-    if (r == 2) inv_pass<2, Last::no>(1, l, 0, tw, pc, rows, rows);
-    if (r == 1) inv_pass<1, Last::no>(1, l, 0, tw, pc, rows, rows);
-    __syncthreads();
-    inv_rest<Last::canonical>(rows, 1, l, r, tw, pc, slot_store([&](int, int c, uint32_t v) {
-                                sm[SwzNtt::at(c)] = reduce_once(shoup_mul_lazy(v, iw, ipq, q), q);
-                              }));
-  } else {
-    slice_inverse(SliceInvTable{w, wp, l, log_n, s}, pc, rows, rows, l);
-    cross_inverse<LC, Last::canonical>(
-        sm, l, log_n, s, pi << LC, w, wp, pc, [&](int c, const uint32_t (&v)[C]) {
+  const auto inverse = [&](const auto& tw) {
+    if constexpr (LC == 0) {
+      const int r = remainder_stages(l);
+      if (r == 3) inv_pass<3, Last::no>(1, l, 0, tw, pc, rows, rows);
+      if (r == 2) inv_pass<2, Last::no>(1, l, 0, tw, pc, rows, rows);
+      if (r == 1) inv_pass<1, Last::no>(1, l, 0, tw, pc, rows, rows);
+      __syncthreads();
+      inv_rest<Last::canonical>(rows, 1, l, r, tw, pc, slot_store([&](int, int c, uint32_t v) {
+                                  sm[SwzNtt::at(c)] =
+                                      reduce_once(shoup_mul_lazy(v, iw, ipq, q), q);
+                                }));
+    } else {
+      slice_inverse(tw, pc, rows, rows, l);
+      cross_inverse<LC, Last::canonical>(
+          sm, l, log_n, s, pi << LC, w, wp, pc, [&](int c, const uint32_t (&v)[C]) {
 #pragma unroll
-          for (int k = 0; k < C; ++k)
-            *cluster.map_shared_rank(sm + SwzNtt::at(c), (pi << LC) + k) =
-                reduce_once(shoup_mul_lazy(v[k], iw, ipq, q), q);
-        });
-  }
+            for (int k = 0; k < C; ++k)
+              *cluster.map_shared_rank(sm + SwzNtt::at(c), (pi << LC) + k) =
+                  reduce_once(shoup_mul_lazy(v[k], iw, ipq, q), q);
+          });
+    }
+  };
+  if constexpr (STAGE)
+    inverse(InvTable<uint32_t>{tws, twps});
+  else if constexpr (LC == 0)
+    inverse(InvTable<uint32_t>{w, wp});
+  else
+    inverse(SliceInvTable{w, wp, l, log_n, s});
   cluster.sync();
 
-  // 3. block (pi, s) takes coefficients [pi chunk, (pi + 1) chunk) of slice
-  //    s: the kp residues from the blocks (i, s), the integer CRT, the
-  //    wrapping add to acc
-  const int chunk = (nl + a.kp - 1) / a.kp;
-  const int c_end = min(nl, (pi + 1) * chunk);
-  const size_t row = (size_t)bj * n + lane0;
-  for (int c = pi * chunk + threadIdx.x; c < c_end; c += blockDim.x) {
+  // 3. block (pi, s) takes coefficients [c0, c_end) of slice s: the kp
+  //    residues from the blocks (i, s), the integer CRT, the wrapping add
+  //    to acc
+  for (int c = c0 + threadIdx.x; c < c_end; c += blockDim.x) {
     const uint32_t* word = sm + SwzNtt::at(c);
     uint32_t y[PFT_MAX_KP];
 #pragma unroll
     for (int i = 0; i < PFT_MAX_KP; ++i)
       if (i < a.kp) y[i] = *cluster.map_shared_rank(word, (i << LC) + s);
-    const uint32_t av = a.acc[row + c];
+    const uint32_t av = STAGE ? accs[c - c0] : a.acc[row + c];
     uint64_t fix = 0;    // sum y_i floor(2^64 / p_i), mod 2^64
     uint32_t over = 0;   // its carries out of 2^64
     uint32_t total = 0;  // sum y_i (P/p_i), mod 2^32
@@ -172,35 +178,45 @@ __global__ void __launch_bounds__(H_MAX_THREADS, 1) cmux_stage2_kernel(const Sta
   cluster.sync();  // keep every slice alive until its peers' reads are done
 }
 
-const void* const H_KERNELS[2] = {(const void*)cmux_stage2_kernel<0>,
-                                  (const void*)cmux_stage2_kernel<1>};
+// [lc][stage]
+const void* const H_KERNELS[H_MAX_LC + 1][2] = {
+    {(const void*)cmux_stage2_kernel<0, false>, (const void*)cmux_stage2_kernel<0, true>},
+    {(const void*)cmux_stage2_kernel<1, false>, (const void*)cmux_stage2_kernel<1, true>},
+    {(const void*)cmux_stage2_kernel<2, false>, (const void*)cmux_stage2_kernel<2, true>},
+    {(const void*)cmux_stage2_kernel<3, false>, (const void*)cmux_stage2_kernel<3, true>},
+    {(const void*)cmux_stage2_kernel<4, false>, (const void*)cmux_stage2_kernel<4, true>}};
 
-// Clusters of kernel H the card holds at once, by (kp, log_n), on each
-// device: set at the first launch of the shape (-1 before); a shape the
-// card cannot hold (0) is refused.
-int held_clusters(int kp, int log_n, int lc, int threads, size_t smem, int* held) {
-  static int cached[64][PFT_MAX_KP + 1][H_MAX_LOG_N + 1];
+// Clusters of kernel H the card holds at once, by (kp, log_n, lc), on each
+// device: asked at the first pick of the shape (-1 before); 0 where the
+// launch does not fit.
+int held_clusters(int kp, int log_n, int lc, int* held) {
+  static int cached[64][PFT_MAX_KP + 1][H_MAX_LOG_N + 1][H_MAX_LC + 1];
   static bool init[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!init[dev]) {
-    for (const void* k : H_KERNELS) {
-      e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)(sizeof(uint32_t) << H_SLICE_MAX_LOG));
-      if (e != cudaSuccess) return (int)e;
-    }
+    for (const auto& per_lc : H_KERNELS)
+      for (const void* k : per_lc) {
+        e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)(sizeof(uint32_t) << H_SLICE_MAX_LOG));
+        if (e == cudaSuccess)
+          e = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return (int)e;
+      }
     for (auto& per_kp : cached[dev])
-      for (int& v : per_kp) v = -1;
+      for (auto& per_n : per_kp)
+        for (int& v : per_n) v = -1;
     init[dev] = true;
   }
-  int& v = cached[dev][kp][log_n];
+  int& v = cached[dev][kp][log_n][lc];
   if (v < 0) {
+    const int l = log_n - lc;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(kp << lc);
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
+    cfg.blockDim = dim3(slice_threads(l));
+    cfg.dynamicSmemBytes = h_smem(l, kp);
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = kp << lc;
@@ -209,12 +225,23 @@ int held_clusters(int kp, int log_n, int lc, int threads, size_t smem, int* held
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     int count = 0;
-    e = cudaOccupancyMaxActiveClusters(&count, H_KERNELS[lc], &cfg);
-    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveClusters(&count, H_KERNELS[lc][l <= STAGE_MAX_LOG], &cfg);
+    if (e != cudaSuccess) {
+      (void)cudaGetLastError();  // a size the card refuses: holds none
+      count = 0;
+    }
     v = count;
   }
   *held = v;
   return 0;
+}
+
+// Kernel H's slices a row for bsz ciphertexts of k1 components over kp
+// primes at log_n: pick_slices over the clusters the card holds.
+int h_pick(int kp, int k1, int bsz, int log_n, int* lc, int* held) {
+  return pick_slices(
+      (long long)bsz * k1, kp, log_n, H_SLICE_MIN_LOG, H_SLICE_MAX_LOG,
+      [&](int c, int* count) { return held_clusters(kp, log_n, c, count); }, lc, held);
 }
 
 }  // namespace
@@ -224,7 +251,8 @@ extern "C" {
 // Kernel H on bsz ciphertexts.  plan: the host pack of
 // ops/cmux_fused.stage2_pack (kp, k1, L, log_n, the inverse table and its
 // quotients' device addresses, then NttTables32.prime_pack and
-// conv.crt_pack).  kp 1-4, any k1, L 1-32, log_n 4-16; out may be acc.
+// conv.crt_pack).  kp 1-4, any k1, L 1-32, log_n 4-16; f and key on 16
+// bytes; out may be acc.
 int pft_cmux_stage2(const void* f, const void* key, const void* acc, void* out, int bsz,
                     const void* plan, void* stream) {
   const uint64_t* h = (const uint64_t*)plan;
@@ -235,7 +263,8 @@ int pft_cmux_stage2(const void* f, const void* key, const void* acc, void* out, 
   a.log_n = (int)h[3];
   if (a.kp < 1 || a.kp > PFT_MAX_KP || a.k1 < 1 || a.level < 1 || a.level > H_MAX_LEVEL ||
       a.log_n < H_MIN_LOG_N || a.log_n > H_MAX_LOG_N || bsz < 1 ||
-      (long long)bsz * a.k1 * a.kp * 2 > 0x7fffffffLL)
+      (long long)bsz * a.k1 * a.kp * 16 > 0x7fffffffLL ||
+      (((uintptr_t)f | (uintptr_t)key) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   a.inv_roots = (const uint32_t*)h[4];
   a.inv_roots_p = (const uint32_t*)h[5];
@@ -246,18 +275,14 @@ int pft_cmux_stage2(const void* f, const void* key, const void* acc, void* out, 
   a.acc = (const uint32_t*)acc;
   a.out = (uint32_t*)out;
   a.bsz = bsz;
-  const int lc = a.log_n > H_SLICE_MAX_LOG ? a.log_n - H_SLICE_MAX_LOG : 0;
-  const int l = a.log_n - lc;
-  const int threads = h_threads(l);
-  const size_t smem = sizeof(uint32_t) << l;
-  int held = 0;
-  int err = held_clusters(a.kp, a.log_n, lc, threads, smem, &held);
+  int lc = 0, held = 0;
+  const int err = h_pick(a.kp, a.k1, bsz, a.log_n, &lc, &held);
   if (err != 0) return err;
-  if (held < 1) return (int)cudaErrorInvalidConfiguration;
+  const int l = a.log_n - lc;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((long long)bsz * a.k1 * a.kp) << lc);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.blockDim = dim3(slice_threads(l));
+  cfg.dynamicSmemBytes = h_smem(l, a.kp);
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -267,25 +292,24 @@ int pft_cmux_stage2(const void* f, const void* key, const void* acc, void* out, 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   void* args[] = {&a};
-  const cudaError_t e = cudaLaunchKernelExC(&cfg, H_KERNELS[lc], args);
+  const cudaError_t e = cudaLaunchKernelExC(&cfg, H_KERNELS[lc][l <= STAGE_MAX_LOG], args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// Kernel H's launch on the current device for (kp, log_n): out[0..3] = the
-// blocks a row (C), threads a block, shared bytes a block, clusters the
-// card holds at once.
-int pft_cmux_stage2_grid(int kp, int log_n, int* out) {
-  if (kp < 1 || kp > PFT_MAX_KP || log_n < H_MIN_LOG_N || log_n > H_MAX_LOG_N)
+// Kernel H's launch on the current device for bsz ciphertexts of k1
+// components over kp primes at log_n: out[0..3] = the blocks a row (C),
+// threads a block, shared bytes a block, clusters the card holds at once.
+int pft_cmux_stage2_grid(int kp, int k1, int bsz, int log_n, int* out) {
+  if (kp < 1 || kp > PFT_MAX_KP || k1 < 1 || bsz < 1 || log_n < H_MIN_LOG_N ||
+      log_n > H_MAX_LOG_N)
     return (int)cudaErrorInvalidValue;
-  const int lc = log_n > H_SLICE_MAX_LOG ? log_n - H_SLICE_MAX_LOG : 0;
-  const int l = log_n - lc;
-  int held = 0;
-  const int err = held_clusters(kp, log_n, lc, h_threads(l), sizeof(uint32_t) << l, &held);
+  int lc = 0, held = 0;
+  const int err = h_pick(kp, k1, bsz, log_n, &lc, &held);
   if (err != 0) return err;
   out[0] = 1 << lc;
-  out[1] = h_threads(l);
-  out[2] = (int)(sizeof(uint32_t) << l);
+  out[1] = slice_threads(log_n - lc);
+  out[2] = (int)h_smem(log_n - lc, kp);
   out[3] = held;
   return 0;
 }

@@ -21,28 +21,36 @@
 //   (read once, by kernel 1), 128 threads a block; device-memory bytes
 //   bound it (4 bytes in, 4 L out a word).
 //
-// Kernel J, ntru_stage2: per ciphertext b,
-//   - the MAC: each coefficient sums its L products f[l, b] evk[l] mod q,
-//     each lazy digit (kernel 1's [0, 4q)) brought to [0, q) first, the sum
-//     Barrett-reduced after every 16 products (kernel H's schedule), into
-//     shared memory (SwzNtt);
-//   - the inverse NTT of the row on kernel 2's radix-8 passes
-//     (csrc/ntt_passes.cuh), twiddles from device memory, canonical: delta;
+// Kernel J, ntru_stage2: per ciphertext b, a cluster of C blocks, each
+// holding a slice of 2^l = n / C words of the row in shared memory
+// (csrc/ntt_split.cuh; C = 1-16 from the host's pick_slices, as kernel H:
+// the least work a block-wave, slices of 2^10 words or more, so a small
+// batch spreads a row over up to 8 SMs at log_n 13):
+//   - the MAC (slice_mac): each coefficient sums its L products f[l, b]
+//     evk[l] mod q, each lazy digit (kernel 1's [0, 4q)) brought to [0, q)
+//     first, the sum Barrett-reduced after every 16 products (kernel H's
+//     schedule), a thread a group of 4 coefficients with 16-byte loads, 4
+//     levels' loads in flight at once; into shared memory (SwzNtt);
+//   - the inverse NTT of the row, canonical: delta.  The slice's stages on
+//     kernel 2's radix-8 passes (slice_inverse; at C = 1 the row's own
+//     passes), the last lc stages across the slices over distributed
+//     shared memory (cross_inverse); a slice of up to 2^13 words copies its
+//     twiddles and quotients and acc's words of the slice into shared
+//     memory by cp.async while the MAC runs (kernel H's staging), else the
+//     passes read their twiddles from device memory;
 //   - the rotation: out[g] = acc[g] + (+-delta[(g - d) mod n]) - delta[g]
-//     mod q, negated where (g - d) mod 2n >= n.
-//   The rotation needs the whole row of delta.  One block holds a row up to
-//   log_n 15 (128 KB of shared memory); at log_n 16 a row runs over a
-//   cluster of 2 blocks, a slice of 2^15 words each (csrc/ntt_split.cuh,
-//   as kernel H), and the rotation reads its sources in the other slice
-//   over distributed shared memory after a cluster barrier, so delta never
-//   goes through device memory and a step stays three launches.  A block
-//   reads and writes only its slice of row acc[b], each word by one thread
-//   after every read of delta is done, so out may be acc.  What bounds it:
-//   at a small batch the chain of barriers of one row's inverse (the
-//   card's SMs mostly idle), at a large batch the bytes of f (4 L n a
-//   ciphertext).  The MAC of a 2^30 prime: every product of a canonical
-//   digit and a canonical key word is below 2^60, 16 of them and a
-//   remainder below 2q stay below 2^64.
+//     mod q, negated where (g - d) mod 2n >= n.  The rotation needs the
+//     whole row of delta: after a cluster barrier each word of the slice
+//     reads its source from whichever slice holds it, over distributed
+//     shared memory, so delta never goes through device memory and a step
+//     stays three launches.
+//   A block reads and writes only its slice of row acc[b], each word by one
+//   thread after every read of delta is done, so out may be acc.  What
+//   bounds it: at a large batch the bytes of f (4 L n a ciphertext); at a
+//   small one the latency of a row's chain, which the slices shorten.  The
+//   MAC of a 2^30 prime: every product of a canonical digit and a
+//   canonical key word is below 2^60, 16 of them and a remainder below 2q
+//   stay below 2^64.
 // Both are bit-equal to their plain versions (ops/ntru_cmux_mxu.py;
 // tests/test_torch_ntru_staged.py models J's index maps).
 //
@@ -53,11 +61,11 @@
 namespace {
 
 constexpr int I_THREADS = 128;
-constexpr int J_MAX_THREADS = 512;
 constexpr int J_MAX_LEVEL = 32;
 constexpr int J_MIN_LOG_N = 4, J_MAX_LOG_N = 16;
 constexpr int J_SLICE_MAX_LOG = 15;  // a block's slice: at most 128 KB
-constexpr int J_MAC_RUN = 16;        // products summed between two reductions
+constexpr int J_SLICE_MIN_LOG = 10;  // split a row only into slices of 2^10 words or more
+constexpr int J_MAX_LC = 4;          // C <= 16
 
 struct DigitArgs {
   const uint32_t* acc;  // (words) canonical mod q
@@ -98,84 +106,74 @@ struct Stage2Args {
   int level, log_n, bsz;
 };
 
-inline int j_threads(int l) {
-  const int t = (1 << l) >> 3;
-  return t < 32 ? 32 : t > J_MAX_THREADS ? J_MAX_THREADS : t;
+// Shared words of a block of kernel J on a slice of 2^l words: the slice;
+// where it stages (l <= STAGE_MAX_LOG) also the slice's inverse twiddles
+// and quotients and acc's words of the slice (2^l each).
+inline size_t j_smem(int l) {
+  return sizeof(uint32_t) << (l <= STAGE_MAX_LOG ? l + 2 : l);
 }
 
-template <int LC>
-__global__ void __launch_bounds__(J_MAX_THREADS, 1) ntru_stage2_kernel(const Stage2Args a) {
+template <int LC, bool STAGE>
+__global__ void __launch_bounds__(SLICE_THREADS, LC < 4 ? 2 : 1)
+    ntru_stage2_kernel(const Stage2Args a) {
   extern __shared__ __align__(16) uint32_t sm[];
   constexpr int C = 1 << LC;
   cg::cluster_group cluster = cg::this_cluster();
   const int s = (int)cluster.block_rank();  // this block's slice of the row
   const int b = (int)blockIdx.x >> LC;
   const int log_n = a.log_n, l = log_n - LC, nl = 1 << l, n = 1 << log_n;
-  const int L = a.level;
   const PrimeConsts pc = a.pc;
   const uint32_t q = pc.q;
   const size_t lane0 = (size_t)s << l;
-  const size_t plane = (size_t)a.bsz << log_n;  // words of one level's rows
-
-  // 1. the MAC of the slice's coefficients, U at a time (their loads issued
-  //    together): f[lv, b] x evk[lv]
-  const uint32_t* fb = a.f + ((size_t)b << log_n) + lane0;
-  const uint32_t* kb = a.evk + lane0;
-  constexpr int U = 4;
-  for (int c0 = threadIdx.x; c0 < nl; c0 += U * blockDim.x) {
-    uint64_t sum[U] = {};
-    int run = 0;
-    for (int lv = 0; lv < L; ++lv) {
-      uint32_t fv[U], kv[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int c = min(c0 + u * (int)blockDim.x, nl - 1);  // past the end: not stored
-        fv[u] = __ldg(fb + lv * plane + c);
-        kv[u] = __ldg(kb + ((size_t)lv << log_n) + c);
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        sum[u] += (uint64_t)reduce_once(reduce_once(fv[u], 2u * q), q) * kv[u];
-      if (++run == J_MAC_RUN) {
-#pragma unroll
-        for (int u = 0; u < U; ++u) sum[u] = barrett_lazy_wide(sum[u], pc.ratio, q);
-        run = 0;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int c = c0 + u * (int)blockDim.x;
-      if (c < nl) sm[SwzNtt::at(c)] = reduce_once(barrett_lazy_wide(sum[u], pc.ratio, q), q);
-    }
+  const size_t row = ((size_t)b << log_n) + lane0;  // this slice of acc[b]
+  uint32_t* const tws = sm + nl;  // STAGE: the slice's inverse twiddles,
+  uint32_t* const twps = tws + nl;  // their quotients,
+  uint32_t* const accs = twps + nl;  // acc's words of the slice
+  if constexpr (STAGE) {  // in flight during the MAC
+    stage_slice_table(SliceInvTable{a.inv_roots, a.inv_roots_p, l, log_n, s}, tws, twps);
+    for (int c = threadIdx.x; c < nl; c += blockDim.x) cp_async4(accs + c, a.acc + row + c);
+    cp_async_commit();
   }
+
+  // 1. the MAC of the slice's coefficients: f[lv, b] x evk[lv]
+  slice_mac(a.f + ((size_t)b << log_n) + lane0, (size_t)a.bsz << log_n, a.evk + lane0,
+            (size_t)1 << log_n, a.level, l, pc, sm);
+  if constexpr (STAGE) cp_async_wait<0>();
   __syncthreads();
 
   // 2. the inverse NTT, canonical, back into the slice: delta
   const SmemRows<SwzNtt> rows{sm, l};
-  if constexpr (LC == 0) {
-    const InvTable<uint32_t> tw{a.inv_roots, a.inv_roots_p};
-    const int r = remainder_stages(l);
-    if (r == 3) inv_pass<3, Last::no>(1, l, 0, tw, pc, rows, rows);
-    if (r == 2) inv_pass<2, Last::no>(1, l, 0, tw, pc, rows, rows);
-    if (r == 1) inv_pass<1, Last::no>(1, l, 0, tw, pc, rows, rows);
-    __syncthreads();
-    inv_rest<Last::canonical>(rows, 1, l, r, tw, pc, rows);
-    __syncthreads();
-  } else {
-    slice_inverse(SliceInvTable{a.inv_roots, a.inv_roots_p, l, log_n, s}, pc, rows, rows, l);
-    cross_inverse<LC, Last::canonical>(
-        sm, l, log_n, s, 0, a.inv_roots, a.inv_roots_p, pc, [&](int c, const uint32_t (&v)[C]) {
+  const auto inverse = [&](const auto& tw) {
+    if constexpr (LC == 0) {
+      const int r = remainder_stages(l);
+      if (r == 3) inv_pass<3, Last::no>(1, l, 0, tw, pc, rows, rows);
+      if (r == 2) inv_pass<2, Last::no>(1, l, 0, tw, pc, rows, rows);
+      if (r == 1) inv_pass<1, Last::no>(1, l, 0, tw, pc, rows, rows);
+      __syncthreads();
+      inv_rest<Last::canonical>(rows, 1, l, r, tw, pc, rows);
+      __syncthreads();
+    } else {
+      slice_inverse(tw, pc, rows, rows, l);
+      cross_inverse<LC, Last::canonical>(
+          sm, l, log_n, s, 0, a.inv_roots, a.inv_roots_p, pc,
+          [&](int c, const uint32_t (&v)[C]) {
 #pragma unroll
-          for (int k = 0; k < C; ++k) *cluster.map_shared_rank(sm + SwzNtt::at(c), k) = v[k];
-        });
-    cluster.sync();  // every slice's delta in place
-  }
+            for (int k = 0; k < C; ++k) *cluster.map_shared_rank(sm + SwzNtt::at(c), k) = v[k];
+          });
+      cluster.sync();  // every slice's delta in place
+    }
+  };
+  if constexpr (STAGE)
+    inverse(InvTable<uint32_t>{tws, twps});
+  else if constexpr (LC == 0)
+    inverse(InvTable<uint32_t>{a.inv_roots, a.inv_roots_p});
+  else
+    inverse(SliceInvTable{a.inv_roots, a.inv_roots_p, l, log_n, s});
 
   // 3. the rotation: word g of this slice takes +-delta[(g - d) mod n] from
   //    the slice that holds it, less delta[g], plus acc[g], mod q
   int d = __ldg(a.degrees + b) % (2 * n);
   if (d < 0) d += 2 * n;
-  const size_t row = (size_t)b << log_n;
   for (int c = threadIdx.x; c < nl; c += blockDim.x) {
     const int g = (int)lane0 + c;
     int e = g - d;
@@ -190,30 +188,74 @@ __global__ void __launch_bounds__(J_MAX_THREADS, 1) ntru_stage2_kernel(const Sta
     if (neg && r != 0u) r = q - r;
     const uint32_t own = sm[SwzNtt::at(c)];
     const uint32_t t = r >= own ? r - own : r + q - own;
-    a.out[row + g] = reduce_once(a.acc[row + g] + t, q);
+    a.out[row + c] = reduce_once((STAGE ? accs[c] : a.acc[row + c]) + t, q);
   }
   if constexpr (LC != 0) cluster.sync();  // keep every slice alive until its peers' reads are done
 }
 
-const void* const J_KERNELS[2] = {(const void*)ntru_stage2_kernel<0>,
-                                  (const void*)ntru_stage2_kernel<1>};
+// [lc][stage]
+const void* const J_KERNELS[J_MAX_LC + 1][2] = {
+    {(const void*)ntru_stage2_kernel<0, false>, (const void*)ntru_stage2_kernel<0, true>},
+    {(const void*)ntru_stage2_kernel<1, false>, (const void*)ntru_stage2_kernel<1, true>},
+    {(const void*)ntru_stage2_kernel<2, false>, (const void*)ntru_stage2_kernel<2, true>},
+    {(const void*)ntru_stage2_kernel<3, false>, (const void*)ntru_stage2_kernel<3, true>},
+    {(const void*)ntru_stage2_kernel<4, false>, (const void*)ntru_stage2_kernel<4, true>}};
 
-// Raises both J kernels' shared-memory cap once on each device.
-int j_prepare() {
+// Clusters of kernel J the card holds at once, by (log_n, lc), on each
+// device: asked at the first pick of the shape (-1 before); 0 where the
+// launch does not fit.
+int j_held(int log_n, int lc, int* held) {
+  static int cached[64][J_MAX_LOG_N + 1][J_MAX_LC + 1];
   static bool init[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!init[dev]) {
-    for (const void* k : J_KERNELS) {
-      e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)(sizeof(uint32_t) << J_SLICE_MAX_LOG));
-      if (e != cudaSuccess) return (int)e;
-    }
+    for (const auto& per_lc : J_KERNELS)
+      for (const void* k : per_lc) {
+        e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)(sizeof(uint32_t) << J_SLICE_MAX_LOG));
+        if (e == cudaSuccess)
+          e = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return (int)e;
+      }
+    for (auto& per_n : cached[dev])
+      for (int& v : per_n) v = -1;
     init[dev] = true;
   }
+  int& v = cached[dev][log_n][lc];
+  if (v < 0) {
+    const int l = log_n - lc;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1 << lc);
+    cfg.blockDim = dim3(slice_threads(l));
+    cfg.dynamicSmemBytes = j_smem(l);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1 << lc;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int count = 0;
+    e = cudaOccupancyMaxActiveClusters(&count, J_KERNELS[lc][l <= STAGE_MAX_LOG], &cfg);
+    if (e != cudaSuccess) {
+      (void)cudaGetLastError();  // a size the card refuses: holds none
+      count = 0;
+    }
+    v = count;
+  }
+  *held = v;
   return 0;
+}
+
+// Kernel J's slices a row for bsz ciphertexts at log_n: pick_slices over
+// the clusters the card holds.
+int j_pick(int bsz, int log_n, int* lc, int* held) {
+  return pick_slices(
+      bsz, 1, log_n, J_SLICE_MIN_LOG, J_SLICE_MAX_LOG,
+      [&](int c, int* count) { return j_held(log_n, c, count); }, lc, held);
 }
 
 }  // namespace
@@ -245,7 +287,7 @@ int pft_ntru_digits(const void* acc, void* out, const void* basis_pack, long lon
 // Kernel J on bsz ciphertexts.  plan: the host pack of
 // ops/ntru_cmux_mxu.stage2_pack (L, log_n, the inverse table and its
 // quotients' device addresses, then NttTables32.prime_pack of q).  L 1-32,
-// log_n 4-16; out may be acc.
+// log_n 4-16; f and evk on 16 bytes; out may be acc.
 int pft_ntru_stage2(const void* f, const void* evk, const void* acc, const void* degrees,
                     void* out, int bsz, const void* plan, void* stream) {
   const uint64_t* h = (const uint64_t*)plan;
@@ -253,7 +295,7 @@ int pft_ntru_stage2(const void* f, const void* evk, const void* acc, const void*
   a.level = (int)h[0];
   a.log_n = (int)h[1];
   if (a.level < 1 || a.level > J_MAX_LEVEL || a.log_n < J_MIN_LOG_N || a.log_n > J_MAX_LOG_N ||
-      bsz < 1 || bsz > (1 << 24))
+      bsz < 1 || bsz > (1 << 24) || (((uintptr_t)f | (uintptr_t)evk) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   a.inv_roots = (const uint32_t*)h[2];
   a.inv_roots_p = (const uint32_t*)h[3];
@@ -264,14 +306,14 @@ int pft_ntru_stage2(const void* f, const void* evk, const void* acc, const void*
   a.degrees = (const int32_t*)degrees;
   a.out = (uint32_t*)out;
   a.bsz = bsz;
-  int err = j_prepare();
+  int lc = 0, held = 0;
+  const int err = j_pick(bsz, a.log_n, &lc, &held);
   if (err != 0) return err;
-  const int lc = a.log_n > J_SLICE_MAX_LOG ? a.log_n - J_SLICE_MAX_LOG : 0;
   const int l = a.log_n - lc;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)bsz << lc);
-  cfg.blockDim = dim3(j_threads(l));
-  cfg.dynamicSmemBytes = sizeof(uint32_t) << l;
+  cfg.blockDim = dim3(slice_threads(l));
+  cfg.dynamicSmemBytes = j_smem(l);
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -281,19 +323,24 @@ int pft_ntru_stage2(const void* f, const void* evk, const void* acc, const void*
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   void* args[] = {&a};
-  const cudaError_t e = cudaLaunchKernelExC(&cfg, J_KERNELS[lc], args);
+  const cudaError_t e = cudaLaunchKernelExC(&cfg, J_KERNELS[lc][l <= STAGE_MAX_LOG], args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// Kernel J's launch for log_n: out[0..2] = the blocks a row (a cluster),
-// threads a block, shared bytes a block.
-int pft_ntru_stage2_grid(int log_n, int* out) {
-  if (log_n < J_MIN_LOG_N || log_n > J_MAX_LOG_N) return (int)cudaErrorInvalidValue;
-  const int lc = log_n > J_SLICE_MAX_LOG ? log_n - J_SLICE_MAX_LOG : 0;
+// Kernel J's launch on the current device for bsz ciphertexts at log_n:
+// out[0..3] = the blocks a row (a cluster), threads a block, shared bytes
+// a block, clusters the card holds at once.
+int pft_ntru_stage2_grid(int log_n, int bsz, int* out) {
+  if (log_n < J_MIN_LOG_N || log_n > J_MAX_LOG_N || bsz < 1 || bsz > (1 << 24))
+    return (int)cudaErrorInvalidValue;
+  int lc = 0, held = 0;
+  const int err = j_pick(bsz, log_n, &lc, &held);
+  if (err != 0) return err;
   out[0] = 1 << lc;
-  out[1] = j_threads(log_n - lc);
-  out[2] = (int)(sizeof(uint32_t) << (log_n - lc));
+  out[1] = slice_threads(log_n - lc);
+  out[2] = (int)j_smem(log_n - lc);
+  out[3] = held;
   return 0;
 }
 

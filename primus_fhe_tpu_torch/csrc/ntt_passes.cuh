@@ -83,6 +83,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                    (uint32_t)__cvta_generic_to_shared(dst)),
                "l"(src));
 }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

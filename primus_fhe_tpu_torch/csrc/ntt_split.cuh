@@ -1,10 +1,11 @@
 // A u32 row of 2^log_n words split over a thread-block cluster of C = 2^c
 // blocks: slice k (one block) holds words k 2^l .. (k+1) 2^l - 1 of the row
 // (l = log_n - c) in its shared memory, word i of the slice at SwzNtt::at(i).
-// Kernels 1-2 at log_n 15-16 (csrc/ntt32.cu) and kernel H at log_n 16
-// (csrc/cmux_stage2.cu) run on it, with kernels 1-2's own tables: the
-// compact bit-reversed roots (forward) or inverse roots and their Shoup
-// quotients, (kp, n) words read from device memory.
+// Kernels 1-2 at log_n 15-16 (csrc/ntt32.cu) and kernels H and J
+// (csrc/cmux_stage2.cu, csrc/ntru_stage.cu: C = 1-16, pick_slices) run on
+// it, with kernels 1-2's own tables: the compact bit-reversed roots
+// (forward) or inverse roots and their Shoup quotients, (kp, n) words read
+// from device memory.
 //
 // The forward's first c stages pair words of different slices: group j is
 // the C words j + k 2^l, one a slice, at the same place in each, so its c
@@ -58,14 +59,31 @@ struct SliceInvTable {
   const uint32_t* w;
   const uint32_t* wp;
   int l, log_n, rank;
-  __device__ __forceinline__ void operator()(int ti, uint32_t& tw, uint32_t& twp) const {
+  __device__ __forceinline__ int index(int ti) const {
     const int ls = 32 - __clz((1 << l) - ti);  // l - s
     const int j = ti - 1 - (1 << l) + (1 << ls);
-    const int g = 1 + (1 << log_n) - (1 << (log_n - l + ls)) + (rank << (ls - 1)) + j;
+    return 1 + (1 << log_n) - (1 << (log_n - l + ls)) + (rank << (ls - 1)) + j;
+  }
+  __device__ __forceinline__ void operator()(int ti, uint32_t& tw, uint32_t& twp) const {
+    const int g = index(ti);
     tw = __ldg(w + g);
     twp = __ldg(wp + g);
   }
 };
+
+// Starts copying the slice's inverse twiddles and their quotients (t's
+// words for ti = 1 .. 2^l - 1; at l = log_n, rank 0 the row's own table)
+// into tw[ti], twp[ti] in shared memory, 4 bytes a cp.async (not
+// committed): the passes then read them through InvTable{tw, twp} after
+// cp_async_wait and a block barrier, not from device memory.
+__device__ __forceinline__ void stage_slice_table(const SliceInvTable& t, uint32_t* tw,
+                                                  uint32_t* twp) {
+  for (int ti = 1 + (int)threadIdx.x; ti < (1 << t.l); ti += blockDim.x) {
+    const int g = t.index(ti);
+    cp_async4(tw + ti, t.w + g);
+    cp_async4(twp + ti, t.wp + g);
+  }
+}
 
 // The forward's first LC stages of a row (in: its words in device memory,
 // below 4q) split over slices rank0 .. rank0 + C - 1 of the cluster: this
@@ -163,4 +181,111 @@ __device__ __forceinline__ void cross_inverse(uint32_t* sm, int l, int log_n, in
     }
     store(j, v);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Kernels H and J: the MAC of a slice, the threads a block and the slices a
+// row.
+
+constexpr int MAC_RUN = 16;    // products summed between two reductions
+constexpr int MAC_DEPTH = 4;   // rows whose 16-byte loads are issued together
+constexpr int SLICE_THREADS = 512;
+constexpr int MAX_CLUSTER_BLOCKS = 16;  // past 8: a non-portable cluster size
+// Slices of up to 2^13 words also hold their inverse twiddles and acc's
+// words in shared memory (at most 128 KB a block); larger ones cannot.
+constexpr int STAGE_MAX_LOG = 13;
+
+// Threads a block of a slice of 2^l words: a group of 4 words each for the
+// MAC, 32 to 512.
+inline int slice_threads(int l) {
+  const int t = (1 << l) >> 2;
+  return t < 32 ? 32 : t > SLICE_THREADS ? SLICE_THREADS : t;
+}
+
+__device__ __forceinline__ void mac4(uint64_t (&sum)[4], uint4 f, uint4 k, uint32_t q) {
+  const uint32_t two_q = 2u * q;
+  sum[0] += (uint64_t)reduce_once(reduce_once(f.x, two_q), q) * k.x;
+  sum[1] += (uint64_t)reduce_once(reduce_once(f.y, two_q), q) * k.y;
+  sum[2] += (uint64_t)reduce_once(reduce_once(f.z, two_q), q) * k.z;
+  sum[3] += (uint64_t)reduce_once(reduce_once(f.w, two_q), q) * k.w;
+}
+
+// The MAC of a slice of 2^l coefficients (l >= 2) into shared memory: word c
+// sums the `rows` products f[t][c] key[t][c] (row t of the digits at f + t
+// fs, of the key at key + t ks; the digits lazy in [0, 4q), each brought
+// into [0, q) first, the key canonical) mod q, Barrett-reduced after every
+// MAC_RUN products (16 products below 2^60 and a remainder below 2q stay
+// below 2^64, so any count sums exactly), canonical at sm[SwzNtt::at(c)].
+// A thread takes a group of 4 words: one 16-byte load of digits and one of
+// key a row, MAC_DEPTH rows' loads issued before their products.  f, key
+// and the row strides on 16 bytes.
+__device__ __forceinline__ void slice_mac(const uint32_t* f, size_t fs, const uint32_t* key,
+                                          size_t ks, int rows, int l, const PrimeConsts& pc,
+                                          uint32_t* sm) {
+  const uint32_t q = pc.q;
+  for (int c = (int)threadIdx.x << 2; c < (1 << l); c += (int)blockDim.x << 2) {
+    uint64_t sum[4] = {0, 0, 0, 0};
+    int run = 0;
+    for (int t0 = 0; t0 < rows; t0 += MAC_DEPTH) {
+      uint4 fv[MAC_DEPTH], kv[MAC_DEPTH];
+#pragma unroll
+      for (int d = 0; d < MAC_DEPTH; ++d) {
+        const size_t t = (size_t)min(t0 + d, rows - 1);  // past the last row: read, not summed
+        fv[d] = __ldg(reinterpret_cast<const uint4*>(f + t * fs + c));
+        kv[d] = __ldg(reinterpret_cast<const uint4*>(key + t * ks + c));
+      }
+#pragma unroll
+      for (int d = 0; d < MAC_DEPTH; ++d) {
+        if (t0 + d < rows) {
+          mac4(sum, fv[d], kv[d], q);
+          if (++run == MAC_RUN) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) sum[u] = barrett_lazy_wide(sum[u], pc.ratio, q);
+            run = 0;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      sm[SwzNtt::at(c + u)] = reduce_once(barrett_lazy_wide(sum[u], pc.ratio, q), q);
+  }
+}
+
+// The slices a row, 2^lc, of a kernel that runs each of `clusters` rows over
+// a cluster of kp 2^lc blocks, a slice of 2^(log_n - lc) words a block
+// (kernels H and J; the only copy of their rule).  held(lc, &count) gives
+// the clusters the card holds at once (cudaOccupancyMaxActiveClusters; 0:
+// the launch does not fit) and returns 0 or a CUDA error.  The candidates:
+// lc from lo = max(0, log_n - max_log) up, while kp 2^lc <= 16 and the
+// slice keeps 2^min_log words or more (lo itself always).  Of those the
+// card holds, the one whose waves ceil(clusters / held) times a block's
+// slice, 2^-lc, is least (the work of a block-wave); a tie goes to the
+// fewer waves, then to the larger lc.  A shape no candidate fits is
+// refused (cudaErrorInvalidConfiguration).
+template <class HELD>
+inline int pick_slices(long long clusters, int kp, int log_n, int min_log, int max_log,
+                       const HELD& held, int* lc_out, int* held_out) {
+  const int lo = log_n > max_log ? log_n - max_log : 0;
+  int best = -1, best_held = 0;
+  long long best_waves = 0;
+  for (int lc = lo; (kp << lc) <= MAX_CLUSTER_BLOCKS && (lc == lo || log_n - lc >= min_log);
+       ++lc) {
+    int count = 0;
+    const int err = held(lc, &count);
+    if (err != 0) return err;
+    if (count < 1) continue;
+    const long long waves = (clusters + count - 1) / count;
+    // waves 2^-lc against the best's, both scaled by 2^(lc + best)
+    const long long cost = best < 0 ? 0 : waves << best, best_cost = best_waves << lc;
+    if (best < 0 || cost < best_cost || (cost == best_cost && waves <= best_waves)) {
+      best = lc;
+      best_held = count;
+      best_waves = waves;
+    }
+  }
+  if (best < 0) return (int)cudaErrorInvalidConfiguration;
+  *lc_out = best;
+  *held_out = best_held;
+  return 0;
 }

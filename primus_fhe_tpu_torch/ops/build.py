@@ -45,13 +45,13 @@ _SIGNATURES = {
     "pft_ntt32_tile": (_I, _I, _I, _I, _P),
     "pft_cmux_step": (_P, _P, _P, _P, _I, _P, _P),
     "pft_cmux_stage2": (_P, _P, _P, _P, _I, _P, _P),
-    "pft_cmux_stage2_grid": (_I, _I, _P),
+    "pft_cmux_stage2_grid": (_I, _I, _I, _I, _P),
     "pft_cmux_mxu": (_P,) * 13 + (_I,) * 6 + (_P,),
     "pft_ntru_cmux_mxu": (_P,) * 12 + (_I,) * 4 + (_P,),
     "pft_cmux_mxu_clusters": (_I,) * 7 + (_P,),
     "pft_ntru_digits": (_P, _P, _P, _I64, _P),
     "pft_ntru_stage2": (_P,) * 5 + (_I, _P, _P),
-    "pft_ntru_stage2_grid": (_I, _P),
+    "pft_ntru_stage2_grid": (_I, _I, _P),
     "pft_mxu8_forward32": (_P,) * 5 + (_I,) * 3 + (_P,),
     "pft_mxu8_forward32_grid": (_I, _I, _I, _P, _P),
     "pft_ntt64_forward": (_P,) * 5 + (_I,) * 4 + (_P,),

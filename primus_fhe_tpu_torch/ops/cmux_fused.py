@@ -26,9 +26,10 @@ kp + L + k1) * 4n`` bytes within 227 KB.  Every other shape with ``kp <=
 4``, ``L <= 32`` and ``log_n`` 4-16 runs the staged route, under the JAX's
 names: :func:`cmux_stage1` (kernel G, then kernel 1 at ``out_factor=4``)
 writes the lazy NTT-domain digits to device memory and :func:`cmux_stage2`
-(kernel H, ``csrc/cmux_stage2.cu``: a cluster of kp blocks a ciphertext and
-output component, the MAC, the inverse NTT and the CRT) adds the product
-into ``acc``.  :func:`step_route` is the rule, a pure function of the shape.
+(kernel H, ``csrc/cmux_stage2.cu``: a cluster of kp x C blocks a
+ciphertext and output component, a row over C slices, the MAC, the inverse
+NTT and the CRT) adds the product into ``acc``.  :func:`step_route` is the
+rule, a pure function of the shape.
 
 The plain versions stay the two stages (:func:`cmux_stage1_plain`,
 :func:`cmux_stage2_plain`): CPU tensors take their composition, and the
@@ -111,6 +112,13 @@ def _basis_pack(basis) -> np.ndarray:
     )
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous), or a copy of it where it does not start on 16
+    bytes: kernels H and J read their digits and key rows in 16-byte
+    loads."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check_device(what: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -156,20 +164,24 @@ class Stage2Plan:
         self._entry = build.library().pft_cmux_stage2
 
     def __call__(self, f, key, acc, out, bsz: int) -> None:
+        if (f.data_ptr() | key.data_ptr()) % 16:
+            raise ValueError("cmux_stage2: the digits and the key must start on 16 bytes")
         err = self._entry(f.data_ptr(), key.data_ptr(), acc.data_ptr(), out.data_ptr(), bsz,
                           self._pack_ptr, torch.cuda.current_stream(acc.device).cuda_stream)
         build.check(err, "cmux_stage2")
         cmux_stage2.launches += 1
 
 
-def launch_grid(conv) -> tuple[int, int, int, int]:
-    """Kernel H's launch on the current CUDA device for ``conv``: ``(blocks
-    a row, threads a block, shared bytes a block, clusters the card holds
-    at once)`` (the C entry's own rule)."""
+def launch_grid(conv, k1: int, bsz: int) -> tuple[int, int, int, int]:
+    """Kernel H's launch on the current CUDA device for ``bsz`` ciphertexts
+    of ``k1`` components on ``conv``: ``(blocks a row C, threads a block,
+    shared bytes a block, clusters the card holds at once)`` (the C entry's
+    own rule, ``pick_slices`` in ``csrc/ntt_split.cuh``)."""
     import ctypes
 
     out = (ctypes.c_int * 4)()
-    err = build.library().pft_cmux_stage2_grid(conv.count, conv.log_n, ctypes.addressof(out))
+    err = build.library().pft_cmux_stage2_grid(conv.count, k1, bsz, conv.log_n,
+                                                ctypes.addressof(out))
     build.check(err, "pft_cmux_stage2_grid")
     return tuple(out)
 
@@ -220,7 +232,7 @@ def cmux_stage2(conv, f: torch.Tensor, key: torch.Tensor, acc: torch.Tensor, out
         raise ValueError(f"cmux_stage2: bad shapes f {tuple(f.shape)}, key {tuple(key.shape)}, "
                          f"acc {tuple(acc.shape)}")
     plan = Stage2Plan(conv, k1, level, acc.device)
-    f32, key32 = narrow_u32(f).contiguous(), narrow_u32(key).contiguous()
+    f32, key32 = _aligned16(narrow_u32(f).contiguous()), _aligned16(narrow_u32(key).contiguous())
     a = narrow_u32(acc).contiguous()
     given = out is not None
     if not given:

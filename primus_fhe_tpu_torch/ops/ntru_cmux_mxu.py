@@ -37,7 +37,7 @@ from ..modular.modops import add32, sub32
 from ..numeric.limb import narrow_u32, widen_u32
 from ..poly.poly import poly_rotate32
 from . import build
-from .cmux_fused import _basis_pack, _check_device
+from .cmux_fused import _aligned16, _basis_pack, _check_device
 from .cmux_mxu import (MXU_LOG_N, CmuxMxuPlan, _check_aligned, digit_planes, launch_clusters,
                        mxu_holds, shoup_precons)
 from .ntt32 import MAX_LOG_N, forward32, forward32_plain, inverse32_plain
@@ -254,6 +254,8 @@ class NtruStage2Plan:
         self._entry = build.library().pft_ntru_stage2
 
     def __call__(self, f, evk, acc, degrees, out) -> None:
+        if (f.data_ptr() | evk.data_ptr()) % 16:
+            raise ValueError("ntru_stage2: the digits and the evk row must start on 16 bytes")
         err = self._entry(f.data_ptr(), evk.data_ptr(), acc.data_ptr(), degrees.data_ptr(),
                           out.data_ptr(), acc.shape[0], self._pack_ptr,
                           torch.cuda.current_stream(acc.device).cuda_stream)
@@ -283,7 +285,7 @@ def ntru_stage2(tables, f: torch.Tensor, evk: torch.Tensor, acc: torch.Tensor,
         raise ValueError(f"ntru_stage2: bad shapes f {tuple(f.shape)}, evk {tuple(evk.shape)}, "
                          f"acc {tuple(acc.shape)}")
     plan = NtruStage2Plan(tables, level, acc.device)
-    f32, evk32 = narrow_u32(f).contiguous(), narrow_u32(evk).contiguous()
+    f32, evk32 = _aligned16(narrow_u32(f).contiguous()), _aligned16(narrow_u32(evk).contiguous())
     a = narrow_u32(acc).contiguous()
     d = degrees.to(torch.int32).contiguous()
     given = out is not None
@@ -297,13 +299,15 @@ def ntru_stage2(tables, f: torch.Tensor, evk: torch.Tensor, acc: torch.Tensor,
     return out if given or acc.dtype == torch.int32 else widen_u32(out)
 
 
-def launch_grid(log_n: int) -> tuple[int, int, int]:
-    """Kernel J's launch for ``log_n``: ``(blocks a row, threads a block,
-    shared bytes a block)`` (the C entry's own rule)."""
+def launch_grid(log_n: int, bsz: int) -> tuple[int, int, int, int]:
+    """Kernel J's launch on the current CUDA device for ``bsz`` ciphertexts
+    at ``log_n``: ``(blocks a row C, threads a block, shared bytes a block,
+    clusters the card holds at once)`` (the C entry's own rule,
+    ``pick_slices`` in ``csrc/ntt_split.cuh``)."""
     import ctypes
 
-    out = (ctypes.c_int * 3)()
-    build.check(build.library().pft_ntru_stage2_grid(log_n, ctypes.addressof(out)),
+    out = (ctypes.c_int * 4)()
+    build.check(build.library().pft_ntru_stage2_grid(log_n, bsz, ctypes.addressof(out)),
                 "pft_ntru_stage2_grid")
     return tuple(out)
 

@@ -4,19 +4,25 @@ cmux_stage2_plain`` on the CPU.
 
 The model runs the kernel's schedule as written, every block of every
 cluster: the host pack read at the C entry's offsets; the grid of ``B k1``
-clusters of ``kp C`` blocks (block (prime i, slice s) at rank ``i C + s``;
-C = 2 at log_n 16, a row over two blocks); the MAC's flat indices into
-``f`` and the key, its digits brought into ``[0, p)``, its 64-bit sums
-reduced by the kernel's Barrett estimate after every 16 products (each sum
-checked below 2^64 before every add); the swizzled slice in shared memory;
-the inverse passes (at C = 2 the slice's passes on ``SliceInvTable``, then
-the last stage across the slices), each output times ``(P/p_i)^-1`` mod
-``p_i``; the CRT split, block (i, s) taking ``[i chunk, (i+1) chunk)`` of
-slice s and reading the kp residues from the blocks (., s); the wrapping
-add.  Shapes: the widened ring of ``chip_smoke.py`` phase 21 (n = 2^15, kp
-2, k = 1, L = 3), n = 2^16 over 3 primes, k = 2 over 3 primes and a 2^1 x
-20 gadget at n = 2^10 (40 products a sum), digits at the extremes of
-``[0, 4p)``.  Tolerance: zero (bit-equal).
+clusters of ``kp C`` blocks (block (prime i, slice s) at rank ``i C + s``,
+a row over C = 2^lc slices: 1 and 2 as the first design picked them at
+log_n 15 and 16, 4 and 8 as ``pick_slices`` picks them now at a small
+batch); the MAC (``slice_mac``): a group of 4 words a thread, each row's
+16-byte loads on 16 bytes, rows in runs of ``MAC_DEPTH`` whose loads past
+the last row are read and not summed, the flat indices into ``f`` and the
+key, its digits brought into ``[0, p)``, its 64-bit sums reduced by the
+kernel's Barrett estimate after every 16 products (each sum checked below
+2^64 before every add); the swizzled slice in shared memory; the inverse
+passes (at C > 1 the slice's passes on ``SliceInvTable``, then the last lc
+stages across the slices, ``cross_inverse``), each output times
+``(P/p_i)^-1`` mod ``p_i``; the CRT split, block (i, s) taking ``[i chunk,
+(i+1) chunk)`` of slice s and reading the kp residues from the blocks (.,
+s); the wrapping add.  Shapes: the widened ring of ``chip_smoke.py`` phase
+21 (n = 2^15, kp 2, k = 1, L = 3), n = 2^16 over 3 primes, k = 2 over 3
+primes and a 2^1 x 20 gadget at n = 2^10 (40 products a sum), and at n =
+2^11-2^12 the row over C = 4 and 8 slices (cross_inverse at lc 2 and 3;
+clusters of 8-16 blocks), digits at the extremes of ``[0, 4p)``.
+Tolerance: zero (bit-equal).
 """
 
 import numpy as np
@@ -29,7 +35,8 @@ from primus_fhe_tpu_torch.transforms.torus import TorusConvolver32
 
 M32 = np.uint64(0xFFFFFFFF)
 M64 = (1 << 64) - 1
-MAC_RUN = 16  # H_MAC_RUN
+MAC_RUN = 16  # MAC_RUN in csrc/ntt_split.cuh
+MAC_DEPTH = 4  # MAC_DEPTH there
 SLICE_MAX_LOG = 15  # H_SLICE_MAX_LOG
 
 
@@ -98,6 +105,52 @@ def inv_pass(v, s0, r, slots_hi, l, table, pl, last):
     return v
 
 
+def slice_mac(ff, fb, fs, kf, kb, ks, rows, nl, q, ratio):
+    """``slice_mac`` on flat words: the 2^l canonical sums of the slice
+    whose row t of digits starts at ``fb + t fs`` and of key at ``kb + t
+    ks``; the threads' groups of 4 words side by side."""
+    c = np.arange(nl)
+    assert nl % 4 == 0 and fb % 4 == 0 == fs % 4 == kb % 4 == ks % 4  # 16-byte loads
+    acc_s = np.zeros(nl, dtype=np.uint64)
+    run = 0
+    for t0 in range(0, rows, MAC_DEPTH):
+        loads = []
+        for d in range(MAC_DEPTH):
+            t = min(t0 + d, rows - 1)  # past the last row: read, not summed
+            loads.append((ff[fb + t * fs + c], kf[kb + t * ks + c]))
+        for d, (fv, kv) in enumerate(loads):
+            if t0 + d >= rows:
+                continue
+            assert (fv < 4 * q).all() and (kv < q).all()
+            prod = reduce_once(reduce_once(fv, 2 * q), q) * kv
+            assert (acc_s.astype(object) + prod.astype(object) <= M64).all()
+            acc_s = acc_s + prod
+            run += 1
+            if run == MAC_RUN:
+                acc_s, run = barrett_lazy_wide(acc_s, ratio, q), 0
+    return reduce_once(barrett_lazy_wide(acc_s, ratio, q), q)
+
+
+def cross_inverse(sm_rows, l, log_n, lc, tw, twp, pl):
+    """``cross_inverse<lc, canonical>`` over the C slices ``sm_rows (C,
+    2^l)`` of one row: block s takes groups ``[s per, (s+1) per)``, gathers
+    word j of every slice, runs the last lc stages on the row's table and
+    hands back the C words (returned as ``(C, 2^l)``)."""
+    C = 1 << lc
+    per = 1 << (l - lc)
+    out = np.zeros_like(sm_rows)
+    written = np.zeros(sm_rows.shape, dtype=np.int64)
+    for s in range(C):
+        js = np.arange(s * per, (s + 1) * per)
+        v = inv_pass([sm_rows[k, swz(js)] for k in range(C)], l, lc, np.zeros_like(js), log_n,
+                     lambda ti: (tw[ti], twp[ti]), pl, True)
+        for k in range(C):
+            out[k, swz(js)] = v[k]
+            written[k, swz(js)] += 1
+    assert (written == 1).all()  # every word of every slice by one group of one block
+    return out
+
+
 def inverse_slice(sm, l, table, pl, passes, last_pass: bool):
     """The passes over one slice's swizzled rows ``sm (2^l,)`` in place."""
     for i, (s0, r) in enumerate(passes):
@@ -111,10 +164,11 @@ def inverse_slice(sm, l, table, pl, passes, last_pass: bool):
             sm[swz(slots[k])] = v[k]
 
 
-def model_stage2(conv, f, key, acc):
+def model_stage2(conv, f, key, acc, lc=None):
     """Kernel H on flat uint64 words: ``f (kp, B k1, L, n)`` below 4p, ``key
-    (kp, k1, L, k1, n)``, ``acc (B, k1, n)``; the host pack as the C entry
-    reads it."""
+    (kp, k1, L, k1, n)``, ``acc (B, k1, n)``, a row over 2^lc slices (by
+    default the fewest a slice of 2^15 words allows); the host pack as the C
+    entry reads it."""
     bsz, k1, n = acc.shape
     level = key.shape[2]
     h = cmux_fused.stage2_pack(conv, k1, level, (11, 12))
@@ -126,9 +180,10 @@ def model_stage2(conv, f, key, acc):
     iw, ipq = crt[0:4 * kp:4], crt[1:4 * kp:4]
     afix, pmod, pmt = crt[2:4 * kp:4], crt[3:4 * kp:4], np.uint64(crt[4 * kp])
     assert primes == conv.primes
-    lc = max(0, log_n - SLICE_MAX_LOG)
+    lc = max(0, log_n - SLICE_MAX_LOG) if lc is None else lc
     C, l = 1 << lc, log_n - lc
     nl = 1 << l
+    assert kp * C <= 16 and lc <= l
     ff, kf = f.reshape(-1), key.reshape(-1)
     out = acc.reshape(-1).copy()
     written = np.zeros(out.shape, dtype=np.int64)
@@ -138,23 +193,11 @@ def model_stage2(conv, f, key, acc):
         for rank in range(kp * C):
             pi, s = rank >> lc, rank & (C - 1)
             q, lane0 = primes[pi], s << l
+            # row t = r L + lv: f[pi, b k1 + r, lv] and key[pi, r, lv, j] (its row t k1 + j)
             fb = (((pi * bsz * k1 + b * k1) * L) << log_n) + lane0
             kb = (((pi * k1 * L * k1) + j) << log_n) + lane0
             c = np.arange(nl)
-            acc_s = np.zeros(nl, dtype=np.uint64)
-            run = 0
-            for r in range(k1):
-                for lv in range(L):
-                    fv = ff[fb + ((r * L + lv) << log_n) + c]
-                    kv = kf[kb + (((r * L + lv) * k1) << log_n) + c]
-                    assert (fv < 4 * q).all() and (kv < q).all()
-                    prod = reduce_once(reduce_once(fv, 2 * q), q) * kv
-                    assert (acc_s.astype(object) + prod.astype(object) <= M64).all()
-                    acc_s = acc_s + prod
-                    run += 1
-                    if run == MAC_RUN:
-                        acc_s, run = barrett_lazy_wide(acc_s, ratios[pi], q), 0
-            sm[pi, s, swz(c)] = reduce_once(barrett_lazy_wide(acc_s, ratios[pi], q), q)
+            sm[pi, s, swz(c)] = slice_mac(ff, fb, n, kf, kb, k1 * n, k1 * L, nl, q, ratios[pi])
         for pi in range(kp):  # the inverse
             pl = conv.ntt.plans[pi]
             q = pl.q
@@ -173,13 +216,8 @@ def model_stage2(conv, f, key, acc):
                     gi = 1 + n - (1 << (log_n - l + ls)) + (s << (ls - 1)) + jj
                     return tw[gi], twp[gi]
                 inverse_slice(sm[pi, s], l, table, pl, passes, False)
-            per = 1 << (l - lc)  # cross_inverse, LC = 1: the last stage
-            for s in range(C):
-                js = np.arange(s * per, (s + 1) * per)
-                x0, x1 = sm[pi, 0, swz(js)], sm[pi, 1, swz(js)]
-                v = inv_pass([x0, x1], l, 1, np.zeros_like(js), log_n, None, pl, True)
-                for k in range(C):
-                    sm[pi, k, swz(js)] = reduce_once(shoup(v[k], iw[pi], ipq[pi], q), q)
+            sm[pi] = reduce_once(shoup(cross_inverse(sm[pi], l, log_n, lc, tw, twp, pl),
+                                       iw[pi], ipq[pi], q), q)
         for rank in range(kp * C):  # the CRT split
             pi, s = rank >> lc, rank & (C - 1)
             chunk = -(-nl // kp)
@@ -204,10 +242,24 @@ def model_stage2(conv, f, key, acc):
 # (log_n, k, log_basis, level, bound_bits, batch)
 SHAPES = [(15, 1, 7, 3, None, 1), (16, 1, 7, 3, 60, 1), (10, 2, 7, 3, 60, 2),
           (10, 1, 1, 20, None, 2), (4, 3, 8, 3, 60, 2)]
+# (log_n, k, log_basis, level, bound_bits, batch, lc): a row over C = 4 and
+# 8 slices, kp 2 (BOOLEAN_128's gadget, clusters of 8 and 16 blocks), kp 3
+# with k = 2 (12 blocks), kp 4 (16 blocks) and the 2^1 x 20 gadget
+SLICED = [(12, 1, 7, 3, None, 1, 2), (12, 1, 7, 3, None, 2, 3), (11, 2, 7, 3, 60, 1, 2),
+          (12, 1, 7, 3, 90, 1, 2), (11, 1, 1, 20, None, 1, 3)]
 
 
 @pytest.mark.parametrize("log_n,k,log_basis,level,bound,bsz", SHAPES)
 def test_model_matches_plain(log_n, k, log_basis, level, bound, bsz):
+    _check_model(log_n, k, log_basis, level, bound, bsz, None)
+
+
+@pytest.mark.parametrize("log_n,k,log_basis,level,bound,bsz,lc", SLICED)
+def test_model_over_slices_matches_plain(log_n, k, log_basis, level, bound, bsz, lc):
+    _check_model(log_n, k, log_basis, level, bound, bsz, lc)
+
+
+def _check_model(log_n, k, log_basis, level, bound, bsz, lc):
     conv = (TorusConvolver32(log_n, bound) if bound
             else tfhe.make_convolver(log_n, level, k, log_basis))
     n, kp = 1 << log_n, conv.count
@@ -220,7 +272,8 @@ def test_model_matches_plain(log_n, k, log_basis, level, bound, bsz):
     acc = rng.integers(0, 1 << 32, (bsz, k + 1, n), dtype=np.uint64)
     want = cmux_fused.cmux_stage2_plain(conv, *(torch.from_numpy(x.astype(np.int64))
                                                 for x in (f, key, acc)))
-    np.testing.assert_array_equal(model_stage2(conv, f, key, acc).astype(np.int64), want.numpy())
+    np.testing.assert_array_equal(model_stage2(conv, f, key, acc, lc).astype(np.int64),
+                                  want.numpy())
 
 
 def test_mac_runs_stay_below_2_64():

@@ -257,7 +257,9 @@ def test_staged_cmux_steps_match_plain(dev, log_n, log_basis, level, k, bound):
 def test_staged_route_limits_and_fused_shapes(dev):
     """BOOLEAN_128 and the shapes the card ran before keep the fused
     kernel; past kp 4, L 32 or log_n 16 the plan raises before any
-    launch; kernel H's launch at log_n 16 is 2 blocks a row."""
+    launch; kernel H's launch at batch 1 spreads a row over the most slices
+    a cluster of 16 blocks holds (4 at log_n 16 over 3 primes, 8 at log_n
+    15 over 2)."""
     for p in (P.BOOLEAN_128, P.BOOLEAN_TFHE_LIB, P.TOY):
         conv = tfhe.make_convolver(p.log_n, p.level, p.glwe_dim, p.log_basis)
         basis = ApproxSignedBasis32(None, p.log_basis, reverse_length=p.level)
@@ -267,9 +269,67 @@ def test_staged_route_limits_and_fused_shapes(dev):
         cmux_fused.CmuxStepPlan(conv, ApproxSignedBasis32(None, 1, reverse_length=3), 2, dev)
     with pytest.raises(ValueError, match="1-32"):  # no torus basis has 33 levels
         cmux_fused.step_route(2, 2, 33, 10)
-    blocks, threads, smem, held = cmux_fused.launch_grid(TorusConvolver32(16, 60))
-    assert (blocks, threads, smem) == (2, 512, 1 << 17) and held >= 1
-    assert cmux_fused.launch_grid(TorusConvolver32(15))[:3] == (1, 512, 1 << 17)
+    blocks, threads, smem, held = cmux_fused.launch_grid(TorusConvolver32(16, 60), 2, 1)
+    assert (blocks, threads, smem) == (4, 512, 1 << 16) and held >= 1  # 2^14-word slices
+    wide = tfhe.make_convolver(15, 3, 1, 7)  # chip_smoke.py phase 21's ring, kp 2
+    assert cmux_fused.launch_grid(wide, 2, 1)[:3] == (8, 512, 4 * (3 * 4096 + 2048))
+
+
+def _slices_at_batch1(kp: int, log_n: int, min_log: int) -> int:
+    """The blocks a row ``pick_slices`` gives a batch whose clusters the
+    card holds in one wave at every candidate: the most, kp C <= 16 and
+    slices of 2^min_log words or more (at least the 2^15-word floor's)."""
+    lo = max(0, log_n - 15)
+    lc = lo
+    while kp << (lc + 1) <= 16 and log_n - lc - 1 >= min_log:
+        lc += 1
+    return 1 << lc
+
+
+def _check_slice_grid(grid, kp: int, log_n: int, min_log: int, acc_words) -> None:
+    """A launch of kernel H or J: 2^lc blocks a row, kp 2^lc <= 16, its
+    threads, and its shared words: the slice, and up to 2^13 words a slice
+    also the slice's twiddles and quotients and ``acc_words(2^l)`` of
+    acc."""
+    blocks, threads, smem, held = grid
+    lc = blocks.bit_length() - 1
+    l, nl = log_n - lc, 1 << (log_n - lc)
+    assert blocks == 1 << lc and kp * blocks <= 16 and held >= 1
+    assert threads == min(max(nl >> 2, 32), 512)
+    assert smem == 4 * (3 * nl + acc_words(nl) if l <= 13 else nl)
+    assert l <= 15 and (l >= min_log or lc == max(0, log_n - 15))
+
+
+@pytest.mark.parametrize("log_n", [12, 13, 14, 15, 16])
+@pytest.mark.parametrize("bits", [20, 30, 60, 90])  # kp 1, 2, 3, 4
+def test_cmux_stage2_over_slices_matches_plain(dev, log_n, bits):
+    """Kernel H at the slices a row its launch picks (``launch_grid``: a
+    cluster of kp C <= 16 blocks, slices of 2^11-2^15 words; at batch 1
+    the most slices that allows), k1 2, L 3, batch 1 and 16, against
+    ``cmux_stage2_plain``: int64 words into a new tensor, int32 storage in
+    place."""
+    conv = TorusConvolver32(log_n, bits)
+    kp, k1, level, n = conv.count, 2, 3, 1 << log_n
+    assert kp == {20: 1, 30: 2, 60: 3, 90: 4}[bits]
+    gen = torch.Generator(device=dev).manual_seed(log_n * 11 + bits)
+    key = _residues(gen, conv.primes, (k1, level, k1, n), 1, dev)
+    for bsz in (1, 16):
+        grid = cmux_fused.launch_grid(conv, k1, bsz)
+        _check_slice_grid(grid, kp, log_n, 11, lambda nl: -(-nl // kp))
+        if bsz == 1:
+            assert grid[0] == _slices_at_batch1(kp, log_n, 11), grid
+        f = _residues(gen, conv.primes, (bsz * k1, level, n), 4, dev)
+        q = torch.tensor(conv.primes, device=dev)
+        f[:, 0, 0, :2] = torch.stack([torch.zeros_like(q), 4 * q - 1], -1)
+        acc = torch.randint(0, 1 << 32, (bsz, k1, n), generator=gen, device=dev)
+        want = cmux_fused.cmux_stage2_plain(conv, f, key, acc)
+        before = cmux_fused.cmux_stage2.launches
+        assert torch.equal(cmux_fused.cmux_stage2(conv, f, key, acc), want), (bsz, grid)
+        acc32 = acc.to(torch.int32)
+        out = cmux_fused.cmux_stage2(conv, f.to(torch.int32), key.to(torch.int32), acc32,
+                                     out=acc32)
+        assert out is acc32 and torch.equal(acc32.to(torch.int64) & 0xFFFFFFFF, want)
+        assert cmux_fused.cmux_stage2.launches - before == 2
 
 
 @pytest.mark.parametrize("bsz", [1, 3, 64, 65])
@@ -482,8 +542,8 @@ def test_ntru_digits_kernel_matches_plain(dev, log_n, q_bits, log_basis, level):
 def test_ntru_stage2_kernel_matches_plain(dev, log_n, q_bits, level):
     """Kernel J against ``ntru_stage2_plain`` on lazy ``[0, 4q)`` digits
     (0 and 4q - 1 included) at batch 1 and 5, degrees 0, 2n - 1, n and any
-    sign, into a new tensor and in place (a row over two blocks at log_n
-    16); its launch rule."""
+    sign, into a new tensor and in place (a row over 4-16 blocks at log_n
+    12-16); its launch rule."""
     n, q = 1 << log_n, next_ntt_prime(q_bits, log_n)
     tables = ntt32.NttTables32(log_n, (q,))
     gen = torch.Generator(device=dev).manual_seed(log_n * 5 + level)
@@ -502,8 +562,41 @@ def test_ntru_stage2_kernel_matches_plain(dev, log_n, q_bits, level):
                                         degrees, out=acc32)
         assert out is acc32 and torch.equal(acc32.to(torch.int64), want)
         assert ntru_cmux_mxu.ntru_stage2.launches - before == 2
-    assert ntru_cmux_mxu.launch_grid(log_n) == ((2, 512, 1 << 17) if log_n == 16 else
-                                                (1, min(max(n >> 3, 32), 512), 4 * n))
+    for bsz in (1, 5):
+        grid = ntru_cmux_mxu.launch_grid(log_n, bsz)
+        _check_slice_grid(grid, 1, log_n, 10, lambda nl: nl)
+        assert grid[0] == _slices_at_batch1(1, log_n, 10), grid
+
+
+@pytest.mark.parametrize("log_n", [12, 13, 14, 15, 16])
+def test_ntru_stage2_over_slices_matches_plain(dev, log_n):
+    """Kernel J at the slices a row its launch picks (``launch_grid``: C <=
+    16 blocks, slices of 2^10-2^15 words; at batch 1 the most that allows:
+    4 at log_n 12, 8 at 13), NTRU_128's L 6 on a 30-bit q, batch 1 and 16,
+    degrees 0, n, 2n - 1 and any sign, against ``ntru_stage2_plain``: int64
+    words into a new tensor, int32 storage in place."""
+    n, q, level = 1 << log_n, next_ntt_prime(30, log_n), 6
+    tables = ntt32.NttTables32(log_n, (q,))
+    gen = torch.Generator(device=dev).manual_seed(log_n * 13)
+    evk = torch.randint(0, q, (level, n), generator=gen, device=dev)
+    for bsz in (1, 16):
+        grid = ntru_cmux_mxu.launch_grid(log_n, bsz)
+        _check_slice_grid(grid, 1, log_n, 10, lambda nl: nl)
+        if bsz == 1:
+            assert grid[0] == _slices_at_batch1(1, log_n, 10), grid
+        f = torch.randint(0, 4 * q, (level, bsz, n), generator=gen, device=dev)
+        f[0, 0, :2] = torch.tensor([0, 4 * q - 1])
+        acc = torch.randint(0, q, (bsz, n), generator=gen, device=dev)
+        degrees = torch.randint(-4 * n, 4 * n, (bsz,), generator=gen, device=dev)
+        degrees[:3] = torch.tensor([n // 2 + 3, n, 2 * n - 1])[:bsz]
+        want = ntru_cmux_mxu.ntru_stage2_plain(tables, f, evk, acc, degrees)
+        before = ntru_cmux_mxu.ntru_stage2.launches
+        assert torch.equal(ntru_cmux_mxu.ntru_stage2(tables, f, evk, acc, degrees), want)
+        acc32 = acc.to(torch.int32)
+        out = ntru_cmux_mxu.ntru_stage2(tables, f.to(torch.int32), evk.to(torch.int32), acc32,
+                                        degrees, out=acc32)
+        assert out is acc32 and torch.equal(acc32.to(torch.int64), want)
+        assert ntru_cmux_mxu.ntru_stage2.launches - before == 2
 
 
 def test_ntru_staged_steps_match_plain(dev):

@@ -12,12 +12,14 @@
 - a short rotation on JAX-made keys (``from_jax_ntru_context``) step by
   step through the staged functions equals the JAX rotation;
 - a numpy model of kernel J's schedule (the host pack at the C entry's
-  offsets, the grid of ciphertexts and slices, the MAC's flat indices and
-  reduction runs, the swizzled slice, the inverse passes and at log_n 16
-  the last stage across the two slices, the rotation's sources read from
-  whichever slice holds them, every output word written once) equals
-  ``ntru_stage2_plain``, and a model of kernel I's 16-byte groups equals
-  ``ntru_digits_plain``.
+  offsets, the grid of ciphertexts and slices, a row over C = 1, 2 (as the
+  first design picked them) and 4, 8 (as ``pick_slices`` picks them at a
+  small batch) slices, the MAC's 16-byte groups, flat indices and reduction
+  runs (``slice_mac``), the swizzled slice, the inverse passes and the last
+  lc stages across the slices (``cross_inverse``), the rotation's sources
+  read from whichever slice holds them, every output word written once)
+  equals ``ntru_stage2_plain``, and a model of kernel I's 16-byte groups
+  equals ``ntru_digits_plain``.
 
 Tolerance: zero (bit-equal words).
 """
@@ -40,13 +42,12 @@ from primus_fhe_tpu_torch.boot import ntru_blind_rotate as nb
 from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
 from primus_fhe_tpu_torch.ops import ntru_cmux_mxu as nm
 from primus_fhe_tpu_torch.ops.ntt32 import NttTables32
-from test_torch_cmux_stage2_model import (barrett_lazy_wide, inv_pass, inverse_slice,
-                                          reduce_once, remainder_stages, swz)
+from test_torch_cmux_stage2_model import (cross_inverse, inverse_slice, reduce_once,
+                                          remainder_stages, slice_mac, swz)
 from test_torch_mxu_staged import fake_card  # noqa: F401  (a fixture)
 
 jnb = importlib.import_module("primus_fhe_tpu.boot.ntru_blind_rotate")
 
-MAC_RUN = 16  # J_MAC_RUN in csrc/ntru_stage.cu
 SLICE_MAX_LOG = 15  # J_SLICE_MAX_LOG
 
 
@@ -182,10 +183,11 @@ def model_digits(basis, acc):
     return out.reshape((level,) + acc.shape)
 
 
-def model_stage2(tables, f, evk, acc, degrees):
+def model_stage2(tables, f, evk, acc, degrees, lc=None):
     """Kernel J on flat uint64 words: ``f (L, B, n)`` below 4q, ``evk (L,
-    n)``, ``acc (B, n)``, ``degrees (B,)``; the host pack as the C entry
-    reads it."""
+    n)``, ``acc (B, n)``, ``degrees (B,)``, a row over 2^lc slices (by
+    default the fewest a slice of 2^15 words allows); the host pack as the
+    C entry reads it."""
     bsz, n = acc.shape
     level = evk.shape[0]
     h = nm.stage2_pack(tables, level, (11, 12))
@@ -194,8 +196,9 @@ def model_stage2(tables, f, evk, acc, degrees):
     q, ratio = int(h[4]), int(h[4 + 6])
     pl = tables.plans[0]
     assert q == pl.q
-    lc = max(0, log_n - SLICE_MAX_LOG)
+    lc = max(0, log_n - SLICE_MAX_LOG) if lc is None else lc
     C, l = 1 << lc, log_n - lc
+    assert C <= 16 and lc <= l
     nl = 1 << l
     plane = bsz << log_n
     ff, kf = f.reshape(-1), evk.reshape(-1)
@@ -207,22 +210,10 @@ def model_stage2(tables, f, evk, acc, degrees):
     passes = [(0, r0)] + [(s0, 3) for s0 in range(r0, l, 3)]
     for b in range(bsz):  # a cluster of C blocks
         sm = np.zeros((C, nl), dtype=np.uint64)
-        for s in range(C):
+        for s in range(C):  # row lv: f[lv, b] and evk[lv]
             lane0 = s << l
-            c = np.arange(nl)
-            acc_s = np.zeros(nl, dtype=np.uint64)
-            run = 0
-            for lv in range(L):
-                fv = ff[(b << log_n) + lane0 + lv * plane + c]
-                kv = kf[(lv << log_n) + lane0 + c]
-                assert (fv < 4 * q).all() and (kv < q).all()
-                prod = reduce_once(reduce_once(fv, 2 * q), q) * kv
-                assert (acc_s.astype(object) + prod.astype(object) < 1 << 64).all()
-                acc_s = acc_s + prod
-                run += 1
-                if run == MAC_RUN:
-                    acc_s, run = barrett_lazy_wide(acc_s, ratio, q), 0
-            sm[s, swz(c)] = reduce_once(barrett_lazy_wide(acc_s, ratio, q), q)
+            sm[s, swz(np.arange(nl))] = slice_mac(ff, (b << log_n) + lane0, plane, kf, lane0, n,
+                                                  L, nl, q, ratio)
         if lc == 0:
             inverse_slice(sm[0], l, lambda ti: (tw[ti], twp[ti]), pl, passes, True)
         else:
@@ -233,13 +224,7 @@ def model_stage2(tables, f, evk, acc, degrees):
                     gi = 1 + n - (1 << (log_n - l + ls)) + (s << (ls - 1)) + jj
                     return tw[gi], twp[gi]
                 inverse_slice(sm[s], l, table, pl, passes, False)
-            per = 1 << (l - lc)  # cross_inverse: block s takes groups [s per, (s+1) per)
-            for s in range(C):
-                js = np.arange(s * per, (s + 1) * per)
-                v = inv_pass([sm[0, swz(js)], sm[1, swz(js)]], l, 1, np.zeros_like(js), log_n,
-                             None, pl, True)
-                for k in range(C):
-                    sm[k, swz(js)] = v[k]
+            sm = cross_inverse(sm, l, log_n, lc, tw, twp, pl)
         d = int(degrees[b]) % (2 * n)
         for s in range(C):  # the rotation: sources from any slice
             c = np.arange(nl)
@@ -263,10 +248,24 @@ def model_stage2(tables, f, evk, acc, degrees):
 # ring, a row over two slices at 2^16, a 30-bit q with 2-byte digits, and
 # L = 20 (a reduction inside a run)
 MODEL_SHAPES = [(13, 20, 3, 6, 2), (16, 30, 10, 3, 1), (10, 30, 10, 3, 2), (9, 20, 1, 20, 2)]
+# (log_n, q_bits, log_basis, level, batch, lc): NTRU_128's gadget over C =
+# 4 and 8 slices (the pick at 2^13 keeps 2^10 words a slice), 2-byte digits
+# mod a 30-bit q over 8, L = 20 over 4
+MODEL_SLICED = [(12, 20, 3, 6, 2, 2), (12, 20, 3, 6, 1, 3), (11, 30, 10, 3, 2, 3),
+                (10, 20, 1, 20, 1, 2)]
 
 
 @pytest.mark.parametrize("log_n,q_bits,log_basis,level,bsz", MODEL_SHAPES)
 def test_model_j_matches_plain(log_n, q_bits, log_basis, level, bsz):
+    _check_model_j(log_n, q_bits, level, bsz, None)
+
+
+@pytest.mark.parametrize("log_n,q_bits,log_basis,level,bsz,lc", MODEL_SLICED)
+def test_model_j_over_slices_matches_plain(log_n, q_bits, log_basis, level, bsz, lc):
+    _check_model_j(log_n, q_bits, level, bsz, lc)
+
+
+def _check_model_j(log_n, q_bits, level, bsz, lc):
     n = 1 << log_n
     q = next_ntt_prime(q_bits, log_n)
     tables = NttTables32(log_n, (q,))
@@ -279,7 +278,7 @@ def test_model_j_matches_plain(log_n, q_bits, log_basis, level, bsz):
     degrees = np.array([n + 3, 2 * n - 1][:bsz] if bsz > 1 else [n // 2 + 1], dtype=np.int64)
     want = nm.ntru_stage2_plain(tables, *(torch.from_numpy(x.astype(np.int64))
                                           for x in (f, evk, acc, degrees)))
-    got = model_stage2(tables, f, evk, acc, degrees)
+    got = model_stage2(tables, f, evk, acc, degrees, lc)
     np.testing.assert_array_equal(got.astype(np.int64), want.numpy())
 
 
