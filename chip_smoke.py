@@ -16,13 +16,12 @@ non-zero):
    against its plain PyTorch version on the same
    CUDA inputs, at the main paths' shapes, batch 1 and 64 (bit-equal), with
    both times from CUDA events and the kernel's device time from CUDA
-   events behind a sleep kernel; kernels 1-2 also at the NTRU_128 shape;
-   kernels A and B also with their int8 MACs a second on the device and
-   their share of the bound (their batch-64 launches run partial and whole
-   clusters of ciphertexts); kernel C also at the key preparations' sizes
-   (BOOLEAN_128's whole bootstrap key, 2 x 7560 rows of 2048; NTRU_128's
-   evk, 4200 rows of 1024) with kernel 1's canonical forward on the same
-   words beside it;
+   events behind a sleep kernel; kernels A and B also with their int8 MACs
+   a second on the device and their share of the bound (their batch-64
+   launches run partial and whole clusters of ciphertexts); kernel C also
+   at the key preparations' sizes (BOOLEAN_128's whole bootstrap key, 2 x
+   7560 rows of 2048; NTRU_128's evk, 4200 rows of 1024) with kernel 1's
+   canonical forward on the same words beside it;
 3. ``make_context(BOOLEAN_128)`` (NTT key kind) on the card from a seeded
    generator;
 4. NAND/AND/OR truth tables, NOT, and NAND(NAND(a,b), NAND(a,b)) == AND(a,b),
@@ -42,11 +41,13 @@ non-zero):
    preparation), the key preparation's seconds, one bootstrap through both
    key kinds (the same words), and the phase-7 timings on this route;
 9. NTRU_128: keys on the card, truth tables and a composition on both
-   evaluation keys (MXU: kernel B; NTT: kernels 1-2) with launch counts,
-   the gate-output phase error and decision margin, one bootstrap through
-   kernel B, through kernels 1-2 and through the plain versions on the CPU
-   (the same words), the evk preparation's seconds, and latency and
-   gates/s on both routes;
+   evaluation keys, each counted on its own: kernel B once a step on the
+   MXU pack and on the NTT evk alike (its values are the pack's words; its
+   Shoup quotients made once a rotation, timed), no launch of kernels 1-2;
+   the same NAND words on both forms, the gate-output phase error and
+   decision margin, one bootstrap on each form and through the plain
+   versions on the CPU (the same words), the evk preparation's seconds, and
+   latency and gates/s on both forms with their ratio;
 10. the RNS/DCRT blind rotation at N=4096 over the two 50-bit moduli of
     ``bench_dcrt.py`` (L=4 levels of 2^25, k=1, n_lwe=630, sigma 3.2,
     binary secrets): the four u64 NTT kernels against their plain versions
@@ -172,15 +173,22 @@ non-zero):
     from the same draws (the same 16 output words, 630 launches each of G,
     kernel 1 and H), ms at batch 1 and 16 and the idle share; NTRU_128's gadget, n_lwe and
     sigmas at N = 2^13 (``make_ntru_keys``, both evk forms), kernels I
-    (``ntru_digits``) and J (``ntru_stage2``) against their plain versions
-    at batch 1 and 16 with device ms against their bounds and J's grid (C >
-    1 slices a row asserted), the first 8
-    staged steps at batch 1 and 16 against the plain step, a full 700-step
+    (``ntru_digits``) and J (``ntru_stage2``, with the next step's digits
+    over its input: both outputs held) against their plain versions at
+    batch 1 and 16 with device ms against their bounds (J also without the
+    digits) and J's grid (C > 1 slices a row asserted), the first 8 staged
+    steps at batch 1 and 16 against the plain step, a full 700-step
     rotation at batch 2 against the CPU's plain rotation (exact launches:
-    700 each of I, kernel 1 and J), the key-switched output's phase std
-    (``noise.py`` has no NTRU model: the measured std alone), the rotation's
-    ms at batch 1 and 16 and the idle share; BOOLEAN_128 and NTRU_128 still
-    on kernels A and B (630 and 700 launches a gate, none of I or J).
+    I once, 700 each of kernel 1 and J), the key-switched output's phase
+    std (``noise.py`` has no NTRU model: the measured std alone), the
+    rotation's ms at batch 1 and 16 and the idle share; BOOLEAN_128 and
+    NTRU_128 still on kernels A and B (630 and 700 launches a gate, none of
+    I or J);
+23. DCRT bases past the four moduli of one u64 launch: 5 and 6 moduli of
+    50 bits at N = 4096 with ``bench_dcrt.py``'s gadget (2^25, L = 10 and
+    12): the four u64 transforms at the rotation's shapes against their
+    plain versions (two launches a call), 8 rotation steps at batch 2 on
+    both routes against the CPU's plain rotation, exact launch counts.
 
 The line before the last is the kernel table as JSON (every kernel with its
 launches on its main path, its time, its plain version's time and its bound,
@@ -2341,11 +2349,12 @@ NTRU_WIDE_BATCH = 16
 NTRU_CHECK_STEPS = 8  # 22.5: staged steps held to the plain step on the card
 
 
-def ntru_stage2_bound(bsz: int, level: int, n: int) -> tuple[float, str]:
+def ntru_stage2_bound(bsz: int, level: int, n: int, digits: bool = True) -> tuple[float, str]:
     """Kernel J's :func:`bound`: the digits, the evk row, the accumulator in
-    and out, the degrees and the inverse tables once; the MAC's products and
-    the B inverse NTTs."""
-    nbytes = 4 * (level * bsz * n + level * n + 2 * bsz * n + bsz + 2 * n)
+    and out, the degrees and the inverse tables once, and with ``digits``
+    the next step's digits out; the MAC's products and the B inverse
+    NTTs."""
+    nbytes = 4 * ((1 + digits) * level * bsz * n + level * n + 2 * bsz * n + bsz + 2 * n)
     return bound(nbytes, muls32=bsz * level * n + ntt_muls(bsz, n))
 
 
@@ -2534,11 +2543,29 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
         f = ntru_cmux_mxu.ntru_stage1(kctx.ntt, kctx.basis, acc)
         f32 = f.to(torch.int32)
         evk32 = evk_row.to(torch.int32)
+        # J as the staged step runs it: the accumulator and, over f, the
+        # next step's digits, both against the plain version
+        want_j, want_dig = ntru_cmux_mxu.ntru_stage2_plain(kctx.ntt, f, evk_row, acc, deg,
+                                                           kctx.basis)
+        f_dig, acc_in = f32.clone(), acc32.clone()
+        out_j = ntru_cmux_mxu.ntru_stage2(kctx.ntt, f_dig, evk32, acc_in, deg, out=acc_in,
+                                          basis=kctx.basis)
+        if not (torch.equal(out_j.to(torch.int64), want_j)
+                and torch.equal(f_dig.to(torch.int64), want_dig)):
+            raise AssertionError(f"kernel J with digits at batch {bsz}: != plain")
+        f_run = f32.clone()  # the timed calls write their digits over it
         compare_kernel(torch, table, "ntru_stage2", bsz,
+                       lambda: ntru_cmux_mxu.ntru_stage2(kctx.ntt, f32.clone(), evk32, acc32, deg,
+                                                         basis=kctx.basis).to(torch.int64),
+                       lambda: ntru_cmux_mxu.ntru_stage2(kctx.ntt, f_run, evk32, acc32, deg,
+                                                         basis=kctx.basis),
+                       lambda: ntru_cmux_mxu.ntru_stage2_plain(kctx.ntt, f, evk_row, acc, deg),
+                       ntru_stage2_bound(bsz, level, nn))
+        compare_kernel(torch, table, "ntru_stage2@nodigits", bsz,
                        lambda: ntru_cmux_mxu.ntru_stage2(kctx.ntt, f, evk_row, acc, deg),
                        lambda: ntru_cmux_mxu.ntru_stage2(kctx.ntt, f32, evk32, acc32, deg),
                        lambda: ntru_cmux_mxu.ntru_stage2_plain(kctx.ntt, f, evk_row, acc, deg),
-                       ntru_stage2_bound(bsz, level, nn))
+                       ntru_stage2_bound(bsz, level, nn, digits=False))
         step = ntru_cmux_mxu.NtruStepPlan(kctx, dev)
         if step.route != "staged":
             raise AssertionError(f"NTRU at N = 2^{NTRU_WIDE_LOG_N}: route {step.route}")
@@ -2558,9 +2585,10 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
         if j_grid[0] < 2:  # a row over a cluster of slices, one block a row before
             raise AssertionError(f"kernel J at N = 2^{NTRU_WIDE_LOG_N}, batch {bsz}: {j_grid}")
         log(f"[{smi}] the first {NTRU_CHECK_STEPS} staged steps at batch {bsz} bit-equal to the "
-            f"plain step on the card; one step {step_ms:.4f} device ms (I "
-            f"{table['ntru_digits'][bsz][3]:.4f}, J {table['ntru_stage2'][bsz][3]:.4f}, kernel 1 "
-            f"the rest); J's launch (blocks a row, threads, shared bytes, clusters held) "
+            f"plain step on the card; one step after the first {step_ms:.4f} device ms (kernel 1 "
+            f"and J with digits {table['ntru_stage2'][bsz][3]:.4f}; J without them "
+            f"{table['ntru_stage2@nodigits'][bsz][3]:.4f}, I {table['ntru_digits'][bsz][3]:.4f} "
+            f"once a rotation); J's launch (blocks a row, threads, shared bytes, clusters held) "
             f"{j_grid}")
     nt = (qn - 1) // 8
     xa_bits = torch.tensor([1, 0], device=dev)
@@ -2573,8 +2601,8 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
     reset_counts()
     rot = nbr.ntru_blind_rotate(kctx, keys.evk_mxu, sw, tpn)
     counts_n = read_counts()
-    want_n = {name: 0 for name in counts_n} | {
-        "ntru_digits": pw.lwe_dim, "forward32": pw.lwe_dim, "ntru_stage2": pw.lwe_dim}
+    want_n = {name: 0 for name in counts_n} | {  # I for the first step only
+        "ntru_digits": 1, "forward32": pw.lwe_dim, "ntru_stage2": pw.lwe_dim}
     log(f"launches of one rotation at batch 2: {json.dumps(counts_n)}")
     if counts_n != want_n:
         raise AssertionError(f"NTRU staged rotation: launches {counts_n}, want {want_n}")
@@ -2637,6 +2665,101 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
     return {"mxu": counts_p, "mxu4096": counts_m, "ntru": counts_n}
 
 
+MODULI_COUNTS = (5, 6)  # phase 23: DCRT bases past the four moduli one u64 launch takes
+MODULI_STEPS = 8
+MODULI_BATCH = 2
+
+
+def phase23_dcrt_moduli(torch, dev, table) -> dict:
+    """Phase 23: the DCRT layer at N = 4096 over 5 and 6 moduli of 50 bits
+    (``ntt_prime_chain(50, 12, count)``, the first two phase 10's) with
+    ``bench_dcrt.py``'s gadget (2^25, L = the product's bits / 25): the
+    four u64 transforms at the rotation's shapes against their plain
+    versions (two launches a call: moduli 0-3, then the rest), and
+    ``MODULI_STEPS`` rotation steps at batch ``MODULI_BATCH`` on both routes
+    against the CPU's plain rotation, with exact launch counts.  Returns
+    each count's launches of the rotation on its route."""
+    from primus_fhe_tpu_torch.boot import dcrt_blind_rotate as dbr
+    from primus_fhe_tpu_torch.decompose import BigUintApproxSignedBasis
+    from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
+    from primus_fhe_tpu_torch.rns import RNSBase64
+    from primus_fhe_tpu_torch.transforms import dcrt as td
+    from primus_fhe_tpu_torch.utils.primes import ntt_prime_chain
+
+    n, k1, steps, bsz = 1 << DCRT_LOG_N, 2, MODULI_STEPS, MODULI_BATCH
+    kernels = {"ntt64_forward": ntt64.ntt64_forward, "ntt64_inverse": ntt64.ntt64_inverse,
+               "mxu8_forward64": ntt_mxu8.mxu8_forward64,
+               "mxu8_inverse64": ntt_mxu8.mxu8_inverse64}
+    own = {"auto": ("mxu8_forward64", "mxu8_inverse64"),
+           "butterfly": ("ntt64_forward", "ntt64_inverse")}
+    counts = {}
+    for count in MODULI_COUNTS:
+        moduli = ntt_prime_chain(50, DCRT_LOG_N, count)
+        base = RNSBase64(moduli)
+        basis = BigUintApproxSignedBasis(base, DCRT_LOG_BASIS)
+        level = basis.decompose_length
+        plan = td.build_dcrt_plan64(DCRT_LOG_N, moduli)
+        groups = len(ntt64.mod_groups(count))
+        log(f"-- 23.{count}: {count} moduli {moduli} (Q = 2^{base.q_product.bit_length() - 1}.x, "
+            f"{base.big_len} limbs), L = {level} x 2^{DCRT_LOG_BASIS}, route 'auto' = "
+            f"{td.resolve_route(plan)!r}, {groups} launches a transform")
+        g = torch.Generator(device=dev).manual_seed(SEED + 30 + count)
+
+        def residues(*shape):
+            return torch.stack([torch.randint(0, q, shape, generator=g, device=dev)
+                                for q in moduli])
+
+        f_in, i_in = residues(k1 * level * bsz, n), residues(k1 * bsz, n)
+        rf, ri = f_in.numel() // n, i_in.numel() // n
+        for name, kern, plain, x, r in (
+                ("ntt64_forward", lambda x: ntt64.ntt64_forward(plan.ntt, x),
+                 lambda x: ntt64.ntt64_forward_plain(plan.ntt, x), f_in, rf),
+                ("ntt64_inverse", lambda x: ntt64.ntt64_inverse(plan.ntt, x),
+                 lambda x: ntt64.ntt64_inverse_plain(plan.ntt, x), i_in, ri),
+                ("mxu8_forward64", lambda x: ntt_mxu8.mxu8_forward64(plan.mxu, x),
+                 lambda x: ntt_mxu8.mxu8_forward64_plain(plan.mxu, x), f_in, rf),
+                ("mxu8_inverse64", lambda x: ntt_mxu8.mxu8_inverse64(plan.mxu, x),
+                 lambda x: ntt_mxu8.mxu8_inverse64_plain(plan.mxu, x), i_in, ri)):
+            before = kernels[name].launches
+            compare_kernel64(torch, table, f"{name}@m{count}", bsz, lambda: kern(x),
+                             lambda: plain(x), bound(16 * r * n, muls32=ntt_muls(r, n, u64=True)))
+            kernels[name].launches = before
+            kern(x)
+            if kernels[name].launches - before != groups:
+                raise AssertionError(f"{name} over {count} moduli: "
+                                     f"{kernels[name].launches - before} launches, want {groups}")
+        bsk = residues(steps, k1, level, k1, n).movedim(0, 3).contiguous()
+        accs = residues(bsz, k1, n).transpose(0, 1).contiguous()
+        lwe = torch.randint(0, 2 * n, (bsz, steps + 1), generator=g, device=dev)
+        outs = {}
+        for route in ("auto", "butterfly"):
+            for fn in kernels.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[route] = dbr.dcrt_blind_rotate_batched(plan, basis, base, bsk, lwe, accs,
+                                                        route=route)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = {name: fn.launches for name, fn in kernels.items()}
+            want = {name: (groups * steps if name in own[route] else 0) for name in kernels}
+            if got != want:
+                raise AssertionError(f"[{count} moduli, {route}] launches {got}, want {want}")
+            counts[count] = counts.get(count, {}) | {name: got[name] for name in own[route]}
+            log(f"[{count} moduli, {route}] {steps} steps at batch {bsz}: launches "
+                f"{json.dumps(got)} ({groups} a transform call); {secs * 1e3:.1f} ms (host "
+                f"clock, first call)")
+        t0 = time.perf_counter()
+        cpu = dbr.dcrt_blind_rotate_batched(plan, basis, base, bsk.cpu(), lwe.cpu(), accs.cpu())
+        cpu_s = time.perf_counter() - t0
+        if not (torch.equal(outs["auto"], outs["butterfly"])
+                and torch.equal(outs["auto"].cpu(), cpu)):
+            raise AssertionError(f"[{count} moduli] the routes and the CPU's rotation differ")
+        log(f"[{count} moduli] both routes and the CPU's plain rotation: the same "
+            f"{cpu.numel()} words ({cpu_s:.2f} s on the cpu)")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -2650,6 +2773,7 @@ def main() -> None:
     from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
     from primus_fhe_tpu_torch.lattice import keyswitch, tfhe
     from primus_fhe_tpu_torch.modular.modops import add32, neg32, sub32
+    from primus_fhe_tpu_torch.numeric.limb import narrow_u32
     from primus_fhe_tpu_torch.ops import (build, cmux_front, cmux_fused, cmux_mxu, ntru_cmux_mxu,
                                           ntt32, ntt_mxu8, rotate)
 
@@ -2700,7 +2824,6 @@ def main() -> None:
 
     i32 = lambda *ts: tuple(t.to(torch.int32) for t in ts)  # noqa: E731
     table = {}
-    ntru_tables = ntt32.NttTables32(pn.log_n, (qn,))
     qn_t = torch.tensor([qn], dtype=torch.int64, device=dev).reshape(1, 1, 1)
     for bsz in (1, BATCH):
         rows = bsz * k1
@@ -2757,7 +2880,7 @@ def main() -> None:
                        lambda: ntt_mxu8.mxu8_forward32(plan, c_in32),
                        lambda: ntt_mxu8.mxu8_forward32_plain(plan, c_in),
                        bound(8 * cr * n, muls32=ntt_muls(cr, n)))
-        # NTRU_128 shapes: kernel B, and kernels 1-2 as the NTT route runs them
+        # NTRU_128 shapes: kernel B (both evaluation keys run it)
         n_acc = torch.randint(0, qn, (bsz, nn), generator=g, device=dev)
         n_deg = torch.randint(0, 2 * nn, (bsz,), generator=g, device=dev, dtype=torch.int32)
         nkv, nkpre = ntru_cmux_mxu.prepare_mxu_evk(
@@ -2775,19 +2898,6 @@ def main() -> None:
                                                                   nkv),
                        bound(4 * (2 * bsz * nn + 2 * pn.level * nn), ntru_macs,
                              3 * bsz * pn.level * nn), ntru_macs)
-        nf = residues(bsz * pn.level, 4, qn_t, 1, nn)
-        ni = residues(bsz, 2, qn_t, 1, nn)
-        nf32, ni32 = i32(nf, ni)
-        compare_kernel(torch, table, "ntt32_forward@NTRU", bsz,
-                       lambda: ntt32.forward32(ntru_tables, nf),
-                       lambda: ntt32.forward32(ntru_tables, nf32),
-                       lambda: ntt32.forward32_plain(ntru_tables, nf),
-                       bound(8 * nf.numel(), muls32=ntt_muls(nf.numel() // nn, nn)))
-        compare_kernel(torch, table, "ntt32_inverse@NTRU", bsz,
-                       lambda: ntt32.inverse32(ntru_tables, ni),
-                       lambda: ntt32.inverse32(ntru_tables, ni32),
-                       lambda: ntt32.inverse32_plain(ntru_tables, ni),
-                       bound(8 * ni.numel(), muls32=ntt_muls(ni.numel() // nn, nn)))
 
     # a partial last cluster (its spare blocks store nothing): A at batch 5,
     # B at batch 9, against their plain versions
@@ -3006,7 +3116,8 @@ def main() -> None:
     del ctx_m
 
     # -- phase 9: NTRU_128 ----------------------------------------------------
-    log("== phase 9: NTRU_128 at full width (kernel B on the MXU evk; kernels 1-2 on the NTT evk)")
+    log("== phase 9: NTRU_128 at full width (kernel B on both evaluation keys, the MXU pack and "
+        "the NTT evk)")
     reset_counts()
     gen_n = torch.Generator(device=dev).manual_seed(SEED + 2)
     torch.cuda.synchronize()
@@ -3014,17 +3125,27 @@ def main() -> None:
     keys = P.make_ntru_keys(pn, dev, gen_n)
     torch.cuda.synchronize()
     keygen_n_s = time.perf_counter() - t0
+    counts_kg = read_counts()
     kctx = keys.ctx
     log(f"keygen: {keygen_n_s:.3f} s; evk {tuple(keys.evk.shape)}, evk_mxu "
-        f"{tuple(keys.evk_mxu[0].shape)} x 2, ksk {tuple(keys.ksk.shape)}")
+        f"{tuple(keys.evk_mxu[0].shape)} x 2, ksk {tuple(keys.ksk.shape)}; launches "
+        f"{json.dumps(counts_kg)}")
+    for name in ("forward32", "inverse32", "mxu8_forward32"):
+        if counts_kg[name] < 1:
+            raise AssertionError(f"{name} was never launched in the NTRU key generation")
+    if not torch.equal(keys.evk_mxu[0].reshape(keys.evk.shape), keys.evk):
+        raise AssertionError("the NTRU MXU evk's values differ from the NTT evk's")
     nt = (qn - 1) // 8
     ntru_truth = {"ntru_nand": truth["nand_gate"], "ntru_and": truth["and_gate"],
                   "ntru_or": truth["or_gate"]}
     n_errors = []
-    bootstraps_n = {}
+    counts_kind = {}
+    gate_outs = {}
     for kind, evk in (("mxu", keys.evk_mxu), ("ntt", keys.evk)):
         nargs = (kctx, evk, keys.ksk, keys.ks_basis)
-        ca, cb = keys.encrypt(a_bits, gen_n), keys.encrypt(b_bits, gen_n)
+        g_in = torch.Generator(device=dev).manual_seed(SEED + 20)  # the same inputs on both
+        ca, cb = keys.encrypt(a_bits, g_in), keys.encrypt(b_bits, g_in)
+        reset_counts()
 
         def ncheck(tag, out, want_bits):
             got = keys.decrypt(out)
@@ -3036,23 +3157,35 @@ def main() -> None:
         for name, fn in ntru_truth.items():
             ncheck(f"{name} (a,b)=(00,01,10,11)", getattr(ntru_gates, name)(*nargs, ca, cb),
                    fn(a_bits.bool(), b_bits.bool()))
-        ncheck("ntru_not (0,1)", ntru_gates.ntru_not(kctx, keys.encrypt([0, 1], gen_n)),
+        ncheck("ntru_not (0,1)", ntru_gates.ntru_not(kctx, keys.encrypt([0, 1], g_in)),
                torch.tensor([True, False], device=dev))
         nand = ntru_gates.ntru_nand(*nargs, ca, cb)
+        gate_outs[kind] = nand
         ncheck("NAND(NAND(a,b),NAND(a,b)) == AND(a,b)", ntru_gates.ntru_nand(*nargs, nand, nand),
                a_bits.bool() & b_bits.bool())
-        bootstraps_n[kind] = len(ntru_truth) + 2
-    counts_n = read_counts()
-    log(json.dumps(counts_n))
-    want_b = bootstraps_n["mxu"] * pn.lwe_dim
-    if counts_n["ntru_cmux_step"] != want_b:
-        raise AssertionError(f"ntru_cmux_step: {counts_n['ntru_cmux_step']} launches, want {want_b}")
-    for name in ("forward32", "inverse32", "mxu8_forward32"):
-        if counts_n[name] < 1:
-            raise AssertionError(f"{name} was never launched on the NTRU path")
-    log(f"ntru_cmux_step: {want_b} = {bootstraps_n['mxu']} bootstraps x {pn.lwe_dim} steps; "
-        f"forward32 {counts_n['forward32']}, inverse32 {counts_n['inverse32']} (keygen, "
-        f"encryption, NTT-evk route); mxu8_forward32 {counts_n['mxu8_forward32']} (evk preparation)")
+        counts_kind[kind] = read_counts()
+        want = {name: 0 for name in counts_kind[kind]} | {
+            "ntru_cmux_step": (len(ntru_truth) + 2) * pn.lwe_dim}
+        log(f"[ntru {kind} evk] launches: {json.dumps(counts_kind[kind])}")
+        if counts_kind[kind] != want:  # kernel B a step, no launch of kernels 1-2
+            raise AssertionError(f"[ntru {kind} evk] launches {counts_kind[kind]}, want {want}")
+    counts_n, counts_nt = counts_kind["mxu"] | {"mxu8_forward32": counts_kg["mxu8_forward32"]}, \
+        counts_kind["ntt"]
+    if not torch.equal(gate_outs["mxu"], gate_outs["ntt"]):
+        raise AssertionError("NTRU NAND on the NTT evk differs from the MXU evk's")
+    log(f"ntru_cmux_step: {counts_n['ntru_cmux_step']} launches on each evk form = "
+        f"{len(ntru_truth) + 2} bootstraps x {pn.lwe_dim} steps, no forward32 / inverse32 "
+        f"(the NTT evk's old route); the same NAND words on both forms; mxu8_forward32 "
+        f"{counts_kg['mxu8_forward32']} (evk preparation)")
+    qv = keys.evk
+    quot_ms = cuda_ms(torch, lambda: narrow_u32(cmux_mxu.shoup_precons(qv, (qn,), 0)).contiguous(),
+                      5)
+    narrow_ms = cuda_ms(torch, lambda: narrow_u32(qv).contiguous(), 5)
+    log(f"[{smi}] the NTT evk's Shoup quotients, made once a rotation on the card "
+        f"(shoup_precons and the int32 narrowing): {quot_ms:.4f} ms for {qv.numel()} words "
+        f"({qv.numel() * 8 / 1e6:.1f} MB int64 read, {qv.numel() * 4 / 1e6:.1f} MB int32 out); "
+        f"the values' narrowing, which both forms make: {narrow_ms:.4f} ms (CUDA events, mean "
+        f"of 5)")
     evk_c = torch.randint(0, qn, (pn.lwe_dim, pn.level, nn), generator=gen_n, device=dev)
     prep_n_s = min(wall_ms(torch, lambda: ntru_cmux_mxu.prepare_mxu_evk(kctx, evk_c), 3)) / 1e3
     log(f"evk preparation (prepare_mxu_evk: kernel C over {pn.lwe_dim * pn.level} rows, Shoup "
@@ -3076,10 +3209,10 @@ def main() -> None:
     cpu_n_s = time.perf_counter() - t0
     ext = [nbr.extract_lwe_ntru(r, qn).cpu() for r in (rot_b, rot_n, rot_c)]
     if not (torch.equal(ext[0], ext[1]) and torch.equal(ext[0], ext[2])):
-        raise AssertionError("NTRU bootstraps through kernel B, kernels 1-2 and the CPU differ")
-    log(f"one NTRU bootstrap (2 ciphertexts, {pn.lwe_dim} steps) through kernel B, through "
-        f"kernels 1-2 and through the plain versions on the cpu: the same {ext[0].numel()} "
-        f"words; cpu plain took {cpu_n_s:.2f} s")
+        raise AssertionError("NTRU bootstraps on the MXU evk, the NTT evk and the CPU differ")
+    log(f"one NTRU bootstrap (2 ciphertexts, {pn.lwe_dim} steps) through kernel B on the MXU "
+        f"evk, on the NTT evk and through the plain versions on the cpu: the same "
+        f"{ext[0].numel()} words; cpu plain took {cpu_n_s:.2f} s")
 
     def time_ntru(kind, evk, label, bits):
         nargs = (kctx, evk, keys.ksk, keys.ks_basis)
@@ -3109,8 +3242,12 @@ def main() -> None:
         lat_n = time_ntru(kind, evk, f"{kind} evk, batch 1", torch.tensor([1], device=dev))
         rate_n = time_ntru(kind, evk, f"{kind} evk, batch {BATCH}", nbits64)
         ntru_rates[kind] = (lat_n, BATCH / (rate_n / 1e3))
-        log(f"[ntru {kind} evk] single-gate latency (batch 1): {lat_n:.2f} ms; NAND gates/s at "
-            f"batch {BATCH}: {BATCH / (rate_n / 1e3):.1f}")
+        log(f"[{smi}] [ntru {kind} evk] single-gate latency (batch 1): {lat_n:.2f} ms; NAND "
+            f"gates/s at batch {BATCH}: {BATCH / (rate_n / 1e3):.1f}")
+    lat_ratio, rate_ratio = (ntru_rates["ntt"][i] / ntru_rates["mxu"][i] for i in (0, 1))
+    log(f"[{smi}] NTRU NAND, NTT evk / MXU evk: latency {lat_ratio:.3f}, gates/s "
+        f"{rate_ratio:.3f}; the quotients' "
+        f"{quot_ms:.4f} ms are {quot_ms / ntru_rates['ntt'][0]:.4f} of the NTT evk's batch-1 gate")
 
     # -- phase 10: the RNS/DCRT blind rotation --------------------------------
     log("== phase 10: RNS/DCRT blind rotation at N=4096, 2 x 50-bit moduli, L=4, n_lwe=630")
@@ -3162,6 +3299,11 @@ def main() -> None:
         f"the staged route), kernel C's route at log_n 13-16, NTRU at N = "
         f"2^{NTRU_WIDE_LOG_N} on kernels I, 1 and J")
     counts_22 = phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts)
+
+    # -- phase 23: DCRT bases past four moduli ---------------------------------
+    log(f"== phase 23: the DCRT layer at N = {1 << DCRT_LOG_N} over {MODULI_COUNTS} moduli of 50 "
+        f"bits, the u64 kernels a group of four moduli a launch")
+    counts_23 = phase23_dcrt_moduli(torch, dev, table)
 
     # -- the kernel table -----------------------------------------------------
     # name -> (source, TPU kernel, launches on its main path, the table key of
@@ -3230,15 +3372,8 @@ def main() -> None:
             row["max_abs_err"] = max(err, eb)
             row.update({f"ms_b{bb}": msb, f"plain_ms_b{bb}": pmsb, f"device_ms_b{bb}": devb,
                         f"bound_ms_b{bb}": bmsb, f"bound_by_b{bb}": bbyb})
-        if f"{name}@NTRU" in table:  # the NTRU NTT-evk step's shapes, batch 1 and BATCH
-            ntru = table[f"{name}@NTRU"]
-            row["launches_ntru_path"] = counts_n["forward32" if "forward" in name else "inverse32"]
-            row.update({"ms_ntru": ntru[1][1], "plain_ms_ntru": ntru[1][2],
-                        "device_ms_ntru": ntru[1][3], "bound_ms_ntru": ntru[1][4][0],
-                        f"ms_ntru_b{BATCH}": ntru[BATCH][1],
-                        f"plain_ms_ntru_b{BATCH}": ntru[BATCH][2],
-                        f"device_ms_ntru_b{BATCH}": ntru[BATCH][3],
-                        f"bound_ms_ntru_b{BATCH}": ntru[BATCH][4][0]})
+        if name == "ntru_cmux_step":  # phase 9's gates on the NTT evk
+            row["launches_ntt_evk_path"] = counts_nt["ntru_cmux_step"]
         cb_name = {"ntt32_forward": "forward32", "ntt32_inverse": "inverse32",
                    "fused_cmux_step": "fused_cmux_step", "rotate": "rotate"}.get(name)
         if cb_name:  # phase 19's circuit bootstrap, ggsw_to_ntt and MUX, both bits
@@ -3284,6 +3419,11 @@ def main() -> None:
                 _, kms, kpms, kdev, (kbms, kbby) = table[f"{name}@{tag}"][rows_k]
                 row.update({f"ms_{tag}": kms, f"plain_ms_{tag}": kpms, f"device_ms_{tag}": kdev,
                             f"bound_ms_{tag}": kbms, f"bound_by_{tag}": kbby})
+        if f"{name}@nodigits" in table:  # J without the next step's digits
+            for bsz_ in (1, NTRU_WIDE_BATCH):
+                _, kms, kpms, kdev, (kbms, _) = table[f"{name}@nodigits"][bsz_]
+                row.update({f"ms_nodigits_b{bsz_}": kms, f"device_ms_nodigits_b{bsz_}": kdev,
+                            f"bound_ms_nodigits_b{bsz_}": kbms})
         if f"{name}@nokey" in table:  # Ki1 without the fused key multiply
             _, kms, kpms, kdev, (kbms, _) = table[f"{name}@nokey"][b0]
             row.update({"ms_nokey": kms, "plain_ms_nokey": kpms, "device_ms_nokey": kdev,
@@ -3293,6 +3433,12 @@ def main() -> None:
             row.update({"launches_roundtrip_path": counts_rt[name], "ms_rt": rms,
                         "plain_ms_rt": rpms, "device_ms_rt": rdev, "bound_ms_rt": rbms,
                         "bound_by_rt": rbby})
+        for m in MODULI_COUNTS:  # phase 23's bases past four moduli, batch 2
+            if f"{name}@m{m}" in table:
+                _, mms, mpms, mdev, (mbms, _) = table[f"{name}@m{m}"][MODULI_BATCH]
+                row.update({f"launches_dcrt_m{m}_path": counts_23[m][name], f"ms_m{m}": mms,
+                            f"plain_ms_m{m}": mpms, f"device_ms_m{m}": mdev,
+                            f"bound_ms_m{m}": mbms})
         if f"{name}@shard" in table:  # row 12: the same kernels on a residue shard's tables
             _, sms, spms, sdev, (sbms, _) = table[f"{name}@shard"][DCRT_BATCH // SHARD_MESH[1]]
             row.update({"launches_sharded_path": counts_s[name], "ms_sharded_path": sms,

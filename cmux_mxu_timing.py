@@ -145,9 +145,13 @@ on every tile of 1-8 rows (``pft_c_force_tile``, from a copy in
 ``.proof/keyprep_grids``).
 ``--stage2`` times kernels H (``cmux_stage2``) and J (``ntru_stage2``) at
 their paths' shapes (:data:`STAGE2_H_SHAPES`: ``chip_smoke.py`` phase
-21.2's; :data:`STAGE2_J_SHAPES`: phase 22.5's), each checked against its
-plain version, with its bound, share and the launch's grid, and ptxas's
-figures of every instance; ``--stage2 --phases`` copies the package to
+21.2's; :data:`STAGE2_J_SHAPES`: phase 22.5's; J with the next step's
+digits where the checkout's J writes them), each checked against its
+plain version, with its bound, share and the launch's grid, ptxas's
+figures of every instance, the staged NTRU step after a rotation's first
+(``NtruStepPlan``: device ms of all its launches) and the 700-step NTRU
+rotation at 2^13 (:func:`ntru_rotations`: host-clock ms and busy ms at
+batch 1 and 16); ``--stage2 --phases`` copies the package to
 ``.proof/stage2_phases_new`` (and OLD's to ``..._old`` with ``--compare
 OLD``, run old, new, new, old) with clock64() laps of thread 0 in every
 block (the MAC, the inverse, the CRT or rotation; block 0's and each
@@ -949,6 +953,7 @@ def front_times(torch, dev) -> dict:
     deg = torch.randint(-8192, 8193, (64,), generator=g, device=dev, dtype=torch.int32)
     out["rotate@64x2"] = {"ms": device_ms(torch, lambda: rotate.rotate(v, deg))}
     out["empty kernel"] = {"ms": device_ms(torch, lambda: torch.cuda._sleep(1))}
+    out.update(ntru_rotations(torch, dev))
     log = build.build()[2]
     out["ptxas"] = {re.sub(r"_ZN12_GLOBAL__N_1\d+", "", k): v for k, v in (
         build.ptxas_figures(log) if hasattr(build, "ptxas_figures") else {}).items()
@@ -1127,8 +1132,12 @@ def stage2_calls(torch, dev) -> dict:
             raise SystemExit(f"cmux_stage2@{label}: words differ from the plain version")
         grid = cmux_fused.launch_grid(conv, k1, bsz) if by_batch else cmux_fused.launch_grid(conv)
         calls[f"cmux_stage2@{label}"] = (fn, smoke.stage2_bound(kp, bsz, k1, level, n)[0], grid)
+    # J as the checkout's staged step runs it: with the next step's digits
+    # over its input where the checkout's J writes them
+    digits = "basis" in inspect.signature(ntru_cmux_mxu.ntru_stage2).parameters
     for label, log_n, bsz in STAGE2_J_SHAPES:
         pw = dataclasses.replace(P.NTRU_128, log_n=log_n)
+        nctx = P.make_ntru_context(pw)[0]
         q, n, level = pw.q, 1 << log_n, pw.level
         tables = NttTables32(log_n, (q,))
         f = torch.randint(0, 4 * q, (level, bsz, n), generator=g, device=dev)
@@ -1137,16 +1146,79 @@ def stage2_calls(torch, dev) -> dict:
         deg = torch.randint(0, 2 * n, (bsz,), generator=g, device=dev, dtype=torch.int32)
         want = ntru_cmux_mxu.ntru_stage2_plain(tables, f, evk, acc, deg)
         f32, evk32, acc32 = f.to(torch.int32), evk.to(torch.int32), acc.to(torch.int32)
+        kw = {"basis": nctx.basis} if digits else {}
 
-        def fn(tables=tables, f32=f32, evk32=evk32, acc32=acc32, deg=deg):
-            return ntru_cmux_mxu.ntru_stage2(tables, f32, evk32, acc32, deg)
+        def fn(tables=tables, f32=f32, evk32=evk32, acc32=acc32, deg=deg, kw=kw):
+            return ntru_cmux_mxu.ntru_stage2(tables, f32, evk32, acc32, deg, **kw)
 
         if not torch.equal(fn().to(torch.int64), want):
             raise SystemExit(f"ntru_stage2@{label}: words differ from the plain version")
         grid = (ntru_cmux_mxu.launch_grid(log_n, bsz) if len(inspect.signature(
             ntru_cmux_mxu.launch_grid).parameters) > 1 else ntru_cmux_mxu.launch_grid(log_n))
-        calls[f"ntru_stage2@{label}"] = (fn, smoke.ntru_stage2_bound(bsz, level, n)[0], grid)
+        j_bound = smoke.ntru_stage2_bound(bsz, level, n)[0]
+        calls[f"ntru_stage2@{label}"] = (fn, j_bound, grid)
+        # the staged step after the rotation's first: I, kernel 1 and J (3
+        # launches) before the digits moved into J, kernel 1 and J after
+        step = ntru_cmux_mxu.NtruStepPlan(nctx, dev)
+        run = acc32.clone()
+        plain = ntru_cmux_mxu.ntru_cmux_step_plain(ntru_cmux_mxu.get_ntru_plan(log_n, q),
+                                                   nctx.basis, acc, deg, evk)
+        if not torch.equal(step(run, deg, evk32, None).to(torch.int64), plain):
+            raise SystemExit(f"ntru_step@{label}: words differ from the plain step")
+
+        def sfn(step=step, run=run, deg=deg, evk32=evk32):
+            return step(run, deg, evk32, None)
+
+        # kernel 1's digits in place, then J's bound
+        calls[f"ntru_step@{label}"] = (sfn, smoke.bound(8 * level * bsz * n)[0] + j_bound, grid)
     return calls
+
+
+def ntru_rotations(torch, dev) -> dict:
+    """The NTRU staged rotation at :data:`STAGE2_J_SHAPES`' ring (NTRU_128's
+    gadget, n_lwe and sigmas at N = 2^13, ``chip_smoke.py`` phase 22.5's),
+    batch 1 and 16 on the MXU evk: ``{"ntru_rotation@b<B>": {"ms": least of
+    3 synchronised host-clock runs}, "ntru_rotation_busy@b<B>": {"ms": the
+    device time ``torch.profiler`` sees in one run}}``."""
+    import dataclasses
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from primus_fhe_tpu_torch import params as P
+    from primus_fhe_tpu_torch.boot import ntru_blind_rotate as nbr
+
+    log_n = STAGE2_J_SHAPES[0][1]
+    pw = dataclasses.replace(P.NTRU_128, log_n=log_n)
+    g = torch.Generator(device=dev).manual_seed(2036)
+    keys = P.make_ntru_keys(pw, dev, g)
+    q, n = keys.ctx.q_int, 1 << log_n
+    tp = nbr.ntru_test_polynomial(n, q, (q - 1) // 8, dev)
+    out = {}
+    for bsz in (1, 16):
+        ct = keys.encrypt(torch.randint(0, 2, (bsz,), generator=g, device=dev), g)
+        sw = nbr.modulus_switch_q(ct, keys.ctx, log_n + 1)
+
+        def fn(sw=sw):
+            return nbr.ntru_blind_rotate(keys.ctx, keys.evk_mxu, sw, tp)
+
+        fn()
+        wall = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU) / 1e3
+        out[f"ntru_rotation@b{bsz}"] = {"ms": min(wall)}
+        out[f"ntru_rotation_busy@b{bsz}"] = {"ms": busy}
+    return out
 
 
 def stage2_times(torch, dev) -> dict:
@@ -1160,6 +1232,7 @@ def stage2_times(torch, dev) -> dict:
         ms = device_ms(torch, fn)
         out[key] = {"ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms, "grid": list(grid)}
     out["empty kernel"] = {"ms": device_ms(torch, lambda: torch.cuda._sleep(1))}
+    out.update(ntru_rotations(torch, dev))
     log = build.build()[2]
     out["ptxas"] = {re.sub(r"_ZN12_GLOBAL__N_1\d+", "", k): v for k, v in (
         build.ptxas_figures(log) if hasattr(build, "ptxas_figures") else {}).items()

@@ -9,12 +9,13 @@
 - extraction under ``f`` and a mod-q LWE key switch back to ``s``.
 
 Everything is mod one NTT prime ``q < 2^30``.  The blind rotation takes
-either evaluation key: an NTT-domain ``(n_lwe, L, N)`` tensor runs the
-composed step (kernels 1-2 on a CUDA tensor, the route the reference takes
-on its accelerator for this key), an MXU pack ``(vals, precons)`` runs
-kernel B once per key slice where it takes the shape and the staged step
-(kernels I, 1 and J) elsewhere (:class:`~..ops.ntru_cmux_mxu.NtruStepPlan`,
-its route decided once a rotation).
+either evaluation key, the NTT-domain ``(n_lwe, L, N)`` tensor or the MXU
+pack ``(vals, precons)``: the pack's values are the NTT tensor's words
+(canonical, bit-reversed), so both run one loop on
+:class:`~..ops.ntru_cmux_mxu.NtruStepPlan` (its route decided once a
+rotation): kernel B once per key slice where it takes the shape (on the NTT
+tensor with the Shoup quotients made once a rotation), else the staged step
+(kernel I for the first slice, then kernels 1 and J a slice).
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from ..modular.modops import add32, dot32, lazy_mul32, neg32, sub32
 from ..modular.modulus import barrett32_int
 from ..numeric.limb import narrow_u32, widen_u32
 from ..ops import ntt32
-from ..ops.ntru_cmux_mxu import NtruStepPlan, ntru_ntt_step, prepare_mxu_evk
+from ..ops.cmux_mxu import shoup_precons
+from ..ops.ntru_cmux_mxu import NtruStepPlan, prepare_mxu_evk
 from ..poly.poly import poly_rotate32
 
 # Budget of the int64 (batch, chunk, L, n_out+1) key-switch product per chunk.
@@ -158,28 +160,29 @@ def ntru_blind_rotate(ctx: NtruContext, evk, lwe_switched, test_poly):
     ``evk``: NTT-domain ``(n_lwe, L, N)`` or the MXU pack ``(vals,
     precons)``; ``lwe_switched``: ``(..., n_lwe+1)`` int32 mod 2N;
     ``test_poly``: ``(N,)`` mod q.  ``acc = v X^{-b}``, then one CMux per
-    mask element (a Python loop over the key slices).
+    mask element (a Python loop over the key slices on one
+    :class:`~..ops.ntru_cmux_mxu.NtruStepPlan`).  The key is narrowed to
+    int32 once a rotation; where the route reads Shoup quotients (kernel B)
+    and the key is the NTT tensor, they are made once a rotation on the
+    key's device.
     """
-    use_mxu = isinstance(evk, (tuple, list))
-    n_lwe = evk[0].shape[0] if use_mxu else evk.shape[0]
+    packed = isinstance(evk, (tuple, list))
+    vals = evk[0] if packed else evk
+    n_lwe = vals.shape[0]
     n, q = ctx.n, ctx.q_int
     batch = lwe_switched.shape[:-1]
     sw = lwe_switched.reshape(-1, n_lwe + 1)
     acc = poly_rotate32(test_poly.to(sw.device).expand(sw.shape[0], n), -sw[:, n_lwe], q)
     a_t = sw[:, :n_lwe].t().to(torch.int32).contiguous()  # (n_lwe, B)
-    if use_mxu:
-        step = NtruStepPlan(ctx, sw.device)
-        kv = narrow_u32(evk[0]).contiguous()
-        kpre = narrow_u32(evk[1]).contiguous() if step.reads_precons else None
-        acc = narrow_u32(acc).contiguous()
-        for i in range(n_lwe):
-            acc = step(acc, a_t[i], kv[i], None if kpre is None else kpre[i])
-        acc = widen_u32(acc)
-    else:
-        for i in range(n_lwe):
-            acc = ntru_ntt_step(ctx.ntt, q, ctx.basis, acc, a_t[i], evk[i],
-                                ntt32.forward32, ntt32.inverse32)
-    return acc.reshape(*batch, n)
+    step = NtruStepPlan(ctx, sw.device)
+    kv = narrow_u32(vals).contiguous()
+    kpre = None
+    if step.reads_precons:
+        kpre = narrow_u32(evk[1] if packed else shoup_precons(vals, (q,), 0)).contiguous()
+    acc = narrow_u32(acc).contiguous()
+    for i in range(n_lwe):
+        acc = step(acc, a_t[i], kv[i], None if kpre is None else kpre[i])
+    return widen_u32(acc).reshape(*batch, n)
 
 
 def extract_lwe_ntru(acc, q: int):

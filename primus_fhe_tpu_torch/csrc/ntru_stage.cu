@@ -4,22 +4,27 @@
 //   acc <- acc + rot(delta, d) - delta mod q,
 //   delta = INTT( sum_l F(digit_l(acc)) evk_i[l] ),
 // the function of kernel B and of the JAX's ntru_cmux_step_nat
-// (primus_fhe_tpu/ops/ntru_cmux_mxu.py:259, body _make_ntru_kernel), in
-// three launches: kernel I, kernel 1 (csrc/ntt32.cu) at out_factor 4 in
-// place on I's buffer, kernel J.
+// (primus_fhe_tpu/ops/ntru_cmux_mxu.py:259, body _make_ntru_kernel).  A
+// rotation runs kernel I once, for its first step, then two launches a
+// step: kernel 1 (csrc/ntt32.cu) at out_factor 4 in place on the digit
+// buffer, and kernel J, which writes the new accumulator and, over the
+// buffer, its digits: the next step's kernel-I words.
 //
-// Kernel I, ntru_digits: the mod-q signed gadget digits of acc (B, n)
-//   canonical, written as L rows of [0, q) residues (L, B, n).  The JAX
-//   body's chain: the pre-adjust above wrap_threshold (v + adjust_add), the
-//   initial carry, then per level digit_step (csrc/modarith32.cuh), whose
-//   signed branch is temp + (q - B).  The JAX body then subtracts q from a
-//   digit above B - 1 to feed its int8 planes a signed digit; the residue
-//   of that digit mod q, which kernel 1 reads, is the chain's own word, so
-//   I stores it as it is: the same words as basis.decompose (its plain
-//   version).  Elementwise: a thread takes 4 adjacent words in one 16-byte
+// The digits (chain_start, digit_step in csrc/modarith32.cuh): the mod-q
+// signed gadget digits of a canonical word, written as [0, q) residues.
+// The JAX body's chain: the pre-adjust above wrap_threshold (v +
+// adjust_add), the initial carry, then per level digit_step, whose signed
+// branch is temp + (q - B).  The JAX body then subtracts q from a digit
+// above B - 1 to feed its int8 planes a signed digit; the residue of that
+// digit mod q, which kernel 1 reads, is the chain's own word, so I and J
+// store it as it is: the same words as basis.decompose (the plain version).
+//
+// Kernel I, ntru_digits: the digits of acc (B, n) canonical, L rows of
+//   (L, B, n).  Elementwise: a thread takes 4 adjacent words in one 16-byte
 //   load and stores each level's 4 digits in one 16-byte streaming store
 //   (read once, by kernel 1), 128 threads a block; device-memory bytes
-//   bound it (4 bytes in, 4 L out a word).
+//   bound it (4 bytes in, 4 L out a word).  Alone it ran within ~1 us of an
+//   empty launch; a rotation now launches it once.
 //
 // Kernel J, ntru_stage2: per ciphertext b, a cluster of C blocks, each
 // holding a slice of 2^l = n / C words of the row in shared memory
@@ -42,17 +47,23 @@
 //     mod q, negated where (g - d) mod 2n >= n.  The rotation needs the
 //     whole row of delta: after a cluster barrier each word of the slice
 //     reads its source from whichever slice holds it, over distributed
-//     shared memory, so delta never goes through device memory and a step
-//     stays three launches.
+//     shared memory, so delta never goes through device memory;
+//   - where the launch asks for digits, each output word's L digits, by
+//     the thread that writes the word, as soon as it has it in a register.
+//     They may go over f: block (b, s) writes digits only at f's indices
+//     [l, b, slice s], which it alone read, in its MAC, before the barrier
+//     after the MAC (each read once, so the read-only path's cache serves
+//     no word after its write; the next launch reads them).
 //   A block reads and writes only its slice of row acc[b], each word by one
 //   thread after every read of delta is done, so out may be acc.  What
-//   bounds it: at a large batch the bytes of f (4 L n a ciphertext); at a
-//   small one the latency of a row's chain, which the slices shorten.  The
-//   MAC of a 2^30 prime: every product of a canonical digit and a
-//   canonical key word is below 2^60, 16 of them and a remainder below 2q
-//   stay below 2^64.
+//   bounds it: at a large batch the bytes of f (4 L n a ciphertext in, as
+//   many out with the digits); at a small one the latency of a row's
+//   chain, which the slices shorten.  The MAC of a 2^30 prime: every
+//   product of a canonical digit and a canonical key word is below 2^60, 16
+//   of them and a remainder below 2q stay below 2^64.
 // Both are bit-equal to their plain versions (ops/ntru_cmux_mxu.py;
-// tests/test_torch_ntru_staged.py models J's index maps).
+// tests/test_torch_ntru_staged.py models J's index maps and the digits'
+// writes over f).
 //
 // Values are u32 words (int32 storage on the PyTorch side).
 
@@ -67,12 +78,29 @@ constexpr int J_SLICE_MAX_LOG = 15;  // a block's slice: at most 128 KB
 constexpr int J_SLICE_MIN_LOG = 10;  // split a row only into slices of 2^10 words or more
 constexpr int J_MAX_LC = 4;          // C <= 16
 
+// The digits' chain: the basis and the pre-adjust (wrap_thr 0: none).
+struct DigitChain {
+  BasisConsts bc;
+  uint32_t wrap_thr, adj_add;
+};
+
+// From the host pack of ops/cmux_fused._basis_pack (mod-q mode).
+inline DigitChain unpack_chain(const uint64_t* h) {
+  return DigitChain{unpack_basis(h), (uint32_t)h[7], (uint32_t)h[8]};
+}
+
+// The chain's start on canonical word v: the pre-adjust (in place), then
+// the initial carry; digit_step(v, bc, l, carry) gives level l's digit.
+__device__ __forceinline__ uint32_t chain_start(uint32_t& v, const DigitChain& dc) {
+  if (dc.wrap_thr != 0u && v >= dc.wrap_thr) v += dc.adj_add;
+  return (v & dc.bc.init_mask) != 0u;
+}
+
 struct DigitArgs {
   const uint32_t* acc;  // (words) canonical mod q
   uint32_t* out;        // (L, words)
-  BasisConsts bc;
-  uint32_t wrap_thr, adj_add;  // 0, 0: no pre-adjust
-  long long groups;            // words / 4
+  DigitChain dc;
+  long long groups;  // words / 4
 };
 
 __global__ void __launch_bounds__(I_THREADS) ntru_digits_kernel(const DigitArgs a) {
@@ -81,15 +109,12 @@ __global__ void __launch_bounds__(I_THREADS) ntru_digits_kernel(const DigitArgs 
   const uint4 x = __ldg(reinterpret_cast<const uint4*>(a.acc) + it);
   uint32_t v[4] = {x.x, x.y, x.z, x.w}, carry[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (a.wrap_thr != 0u && v[k] >= a.wrap_thr) v[k] += a.adj_add;
-    carry[k] = (v[k] & a.bc.init_mask) != 0u;
-  }
+  for (int k = 0; k < 4; ++k) carry[k] = chain_start(v[k], a.dc);
   uint4* o = reinterpret_cast<uint4*>(a.out) + it;
-  for (int l = 0; l < a.bc.level; ++l, o += a.groups) {
+  for (int l = 0; l < a.dc.bc.level; ++l, o += a.groups) {
     uint32_t d[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) d[k] = digit_step(v[k], a.bc, l, carry[k]);
+    for (int k = 0; k < 4; ++k) d[k] = digit_step(v[k], a.dc.bc, l, carry[k]);
     __stcs(o, make_uint4(d[0], d[1], d[2], d[3]));
   }
 }
@@ -100,9 +125,11 @@ struct Stage2Args {
   const uint32_t* acc;      // (bsz, n), canonical; may alias out
   const int32_t* degrees;   // (bsz,), any sign
   uint32_t* out;
+  uint32_t* digits;  // (L, bsz, n): the output's digits, or nullptr; may be f
   const uint32_t* inv_roots;  // (n,) each
   const uint32_t* inv_roots_p;
   PrimeConsts pc;
+  DigitChain dc;  // where digits: L levels mod q
   int level, log_n, bsz;
 };
 
@@ -188,7 +215,14 @@ __global__ void __launch_bounds__(SLICE_THREADS, LC < 4 ? 2 : 1)
     if (neg && r != 0u) r = q - r;
     const uint32_t own = sm[SwzNtt::at(c)];
     const uint32_t t = r >= own ? r - own : r + q - own;
-    a.out[row + c] = reduce_once((STAGE ? accs[c] : a.acc[row + c]) + t, q);
+    uint32_t v = reduce_once((STAGE ? accs[c] : a.acc[row + c]) + t, q);
+    a.out[row + c] = v;
+    if (a.digits != nullptr) {  // 4. the next step's digits of the word
+      uint32_t carry = chain_start(v, a.dc);
+      uint32_t* o = a.digits + row + c;
+      for (int lv = 0; lv < a.level; ++lv, o += (size_t)a.bsz << log_n)
+        *o = digit_step(v, a.dc.bc, lv, carry);
+    }
   }
   if constexpr (LC != 0) cluster.sync();  // keep every slice alive until its peers' reads are done
 }
@@ -274,9 +308,7 @@ int pft_ntru_digits(const void* acc, void* out, const void* basis_pack, long lon
   DigitArgs a{};
   a.acc = (const uint32_t*)acc;
   a.out = (uint32_t*)out;
-  a.bc = unpack_basis(h);
-  a.wrap_thr = (uint32_t)h[7];
-  a.adj_add = (uint32_t)h[8];
+  a.dc = unpack_chain(h);
   a.groups = words / 4;
   const long long grid = (a.groups + I_THREADS - 1) / I_THREADS;
   if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -286,20 +318,25 @@ int pft_ntru_digits(const void* acc, void* out, const void* basis_pack, long lon
 
 // Kernel J on bsz ciphertexts.  plan: the host pack of
 // ops/ntru_cmux_mxu.stage2_pack (L, log_n, the inverse table and its
-// quotients' device addresses, then NttTables32.prime_pack of q).  L 1-32,
-// log_n 4-16; f and evk on 16 bytes; out may be acc.
+// quotients' device addresses, NttTables32.prime_pack of q, then the
+// digits' basis pack).  L 1-32, log_n 4-16; f and evk on 16 bytes; out may
+// be acc; digits (L, bsz, n) or nullptr, may be f (a basis mod q of L
+// levels in the pack).
 int pft_ntru_stage2(const void* f, const void* evk, const void* acc, const void* degrees,
-                    void* out, int bsz, const void* plan, void* stream) {
+                    void* out, void* digits, int bsz, const void* plan, void* stream) {
   const uint64_t* h = (const uint64_t*)plan;
   Stage2Args a{};
   a.level = (int)h[0];
   a.log_n = (int)h[1];
   if (a.level < 1 || a.level > J_MAX_LEVEL || a.log_n < J_MIN_LOG_N || a.log_n > J_MAX_LOG_N ||
-      bsz < 1 || bsz > (1 << 24) || (((uintptr_t)f | (uintptr_t)evk) & 15) != 0)
+      bsz < 1 || bsz > (1 << 24) || (((uintptr_t)f | (uintptr_t)evk) & 15) != 0 ||
+      (digits != nullptr && (h[11] != h[0] || h[20] != h[4])))
     return (int)cudaErrorInvalidValue;
   a.inv_roots = (const uint32_t*)h[2];
   a.inv_roots_p = (const uint32_t*)h[3];
   a.pc = unpack_primes(h + 4, 1).p[0];
+  a.digits = (uint32_t*)digits;
+  a.dc = unpack_chain(h + 11);
   a.f = (const uint32_t*)f;
   a.evk = (const uint32_t*)evk;
   a.acc = (const uint32_t*)acc;

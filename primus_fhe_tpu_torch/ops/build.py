@@ -50,7 +50,7 @@ _SIGNATURES = {
     "pft_ntru_cmux_mxu": (_P,) * 12 + (_I,) * 4 + (_P,),
     "pft_cmux_mxu_clusters": (_I,) * 7 + (_P,),
     "pft_ntru_digits": (_P, _P, _P, _I64, _P),
-    "pft_ntru_stage2": (_P,) * 5 + (_I, _P, _P),
+    "pft_ntru_stage2": (_P,) * 6 + (_I, _P, _P),
     "pft_ntru_stage2_grid": (_I, _I, _P),
     "pft_mxu8_forward32": (_P,) * 5 + (_I,) * 3 + (_P,),
     "pft_mxu8_forward32_grid": (_I, _I, _I, _P, _P),

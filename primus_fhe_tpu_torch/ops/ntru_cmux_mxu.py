@@ -1,10 +1,12 @@
 """Kernel B: one NGS (NTRU) CMux step per launch on the int8 tensor cores,
+the staged step (kernels I, 1 and J) for every shape kernel B cannot take,
 and the MXU evaluation-key preparation.
 
-Replaces ``ntru_cmux_step_nat`` (``primus_fhe_tpu/ops/ntru_cmux_mxu.py:259``,
-kernel ``_make_ntru_kernel``) and ports ``get_ntru_plan`` and
-``prepare_mxu_evk``.  CUDA source: ``csrc/cmux_mxu.cu`` (kernel A's
-template with one prime and no CRT).
+Kernel B replaces ``ntru_cmux_step_nat``
+(``primus_fhe_tpu/ops/ntru_cmux_mxu.py:259``, kernel ``_make_ntru_kernel``);
+this module also ports ``get_ntru_plan`` and ``prepare_mxu_evk``.  CUDA
+source: ``csrc/cmux_mxu.cu`` (kernel A's template with one prime and no
+CRT).
 
 Per step, mod one prime ``q < 2^30``: mod-q signed gadget digits of the
 accumulator (pre-adjusted above ``wrap_threshold``, made truly signed by
@@ -18,14 +20,17 @@ later work).
 
 Where kernel B cannot take the shape (:func:`ntru_step_route`: ``log_n``
 13-16, or a block's plan past 227 KB) the step runs staged, on the evk
-pack's values read as the canonical bit-reversed NTT rows they are, in
-three launches: kernel I (:func:`ntru_digits`: the mod-q gadget digits of
-the accumulator as ``[0, q)`` residues into a buffer), kernel 1 at
-``out_factor=4`` in place on it (:func:`ntru_stage1`), and kernel J
-(:func:`ntru_stage2`: the MAC against the evk row, the inverse NTT and
-``acc + rot(delta, a) - delta`` mod q, added in place).  CUDA source:
-``csrc/ntru_stage.cu``.  :class:`NtruStepPlan` holds the route and the
-buffer once a rotation.
+row's values read as the canonical bit-reversed NTT rows they are
+(``csrc/ntru_stage.cu``): kernel I (:func:`ntru_digits`: the mod-q gadget
+digits of the accumulator as ``[0, q)`` residues into a buffer), kernel 1
+at ``out_factor=4`` in place on it (:func:`ntru_stage1` is the two), and
+kernel J (:func:`ntru_stage2`: the MAC against the evk row, the inverse NTT
+and ``acc + rot(delta, a) - delta`` mod q, added in place, and the new
+accumulator's digits written over the buffer, which are the next step's
+kernel-I words).  :class:`NtruStepPlan` holds the route and the buffer once
+a rotation: kernel I for the first step only, then kernel 1 and J, two
+launches a step.  Both evaluation-key forms, the NTT-domain ``(n_lwe, L,
+N)`` tensor and the MXU pack, hold the same words and run on it.
 """
 
 from __future__ import annotations
@@ -84,35 +89,22 @@ def ntru_mac_rotate(tables, q: int, f, evk_ntt_i, acc, degrees, inverse):
     """``acc + rot(delta, d) - delta`` mod q with ``delta =
     inverse(sum_l f[l] evk[l])``: ``f (L, B, n)`` NTT-domain digits
     (canonical or lazy below 4q), ``evk_ntt_i (L, n)`` canonical; the
-    step's second half (:func:`ntru_ntt_step`, kernel J's plain version)."""
+    step's second half (kernel J's plain version)."""
     # terms below 4q and q < 2^30: each product is exact in int64
     mac = ((f * evk_ntt_i.unsqueeze(1)) % q).sum(dim=0) % q
     delta = inverse(tables, mac.unsqueeze(0))[0]
     return add32(acc, sub32(poly_rotate32(delta, degrees, q), delta, q), q)
 
 
-def ntru_ntt_step(tables, q: int, basis, acc, degrees, evk_ntt_i, forward, inverse):
-    """The composed NGS step ``acc + rot(delta, a) - delta`` with
-    ``delta = INTT(acc ⊠ EVK_i)``: decompose, ``forward`` each digit
-    polynomial, MAC, ``inverse`` (``boot/ntru_blind_rotate.py`` scan body
-    of the reference).
-
-    ``acc``: ``(B, n)`` canonical mod q; ``degrees``: ``(B,)``;
-    ``evk_ntt_i``: ``(L, n)`` canonical, bit-reversed; ``forward`` and
-    ``inverse`` take ``(tables, (1, ..., n))`` (the kernels 1-2 wrappers or
-    their plain versions).
-    """
-    f = forward(tables, basis.decompose(acc).unsqueeze(0))[0]  # (L, B, n)
-    return ntru_mac_rotate(tables, q, f, evk_ntt_i, acc, degrees, inverse)
-
-
 def ntru_cmux_step_plain(plan: CmuxMxuPlan, basis, acc, degrees, kv):
-    """Plain version of kernel B on int64 words: :func:`ntru_ntt_step`
-    through the plain butterfly transforms, the key's ``(A, B)`` view read
-    as its bit-reversed NTT row."""
-    evk = kv.reshape(kv.shape[0], plan.n)
-    return ntru_ntt_step(plan.ntt, plan.primes[0], basis, acc, degrees, evk,
-                         forward32_plain, inverse32_plain)
+    """Plain version of kernel B on int64 words: the staged step's plain
+    versions (:func:`ntru_stage1_plain`, then :func:`ntru_stage2_plain`),
+    the key's ``(A, B)`` view read as its bit-reversed NTT row; the
+    composed step ``acc + rot(delta, a) - delta`` with ``delta =
+    INTT(acc ⊠ EVK_i)`` of the reference's ``boot/ntru_blind_rotate.py``
+    scan body."""
+    f = ntru_stage1_plain(plan.ntt, basis, acc)
+    return ntru_stage2_plain(plan.ntt, f, kv.reshape(kv.shape[0], plan.n), acc, degrees)
 
 
 def ntru_cmux_step(plan: CmuxMxuPlan, basis, acc: torch.Tensor, degrees: torch.Tensor,
@@ -205,14 +197,21 @@ def ntru_digits(basis, acc: torch.Tensor, out=None) -> torch.Tensor:
     return out if given or acc.dtype == torch.int32 else widen_u32(out)
 
 
+def ntru_stage1_plain(tables, basis, acc: torch.Tensor) -> torch.Tensor:
+    """The staged step's first half on int64 words: kernel I's plain
+    version, then kernel 1's at ``out_factor=4``: the lazy ``[0, 4q)``
+    NTT-domain digits ``(L, B, n)``."""
+    return forward32_plain(tables, ntru_digits_plain(basis, acc).unsqueeze(0), 4)[0]
+
+
 def ntru_stage1(tables, basis, acc: torch.Tensor, out=None) -> torch.Tensor:
     """The staged step's first half: ``acc (B, n)`` canonical -> the lazy
-    ``[0, 4q)`` NTT-domain digits ``(L, B, n)``.  CPU tensors take the
-    plain versions; CUDA tensors kernel I, then kernel 1 at
+    ``[0, 4q)`` NTT-domain digits ``(L, B, n)``.  CPU tensors take
+    :func:`ntru_stage1_plain`; CUDA tensors kernel I, then kernel 1 at
     ``out_factor=4`` in place: two launches, the same words.  ``out``:
     kernel I's ``out``."""
     if acc.device.type == "cpu":
-        res = forward32_plain(tables, ntru_digits_plain(basis, widen_u32(acc)).unsqueeze(0), 4)[0]
+        res = ntru_stage1_plain(tables, basis, widen_u32(acc))
         res = narrow_u32(res) if acc.dtype == torch.int32 else res
         return res if out is None else out.copy_(res)
     digits = ntru_digits(basis, acc, out=out if out is not None else torch.empty(
@@ -221,50 +220,63 @@ def ntru_stage1(tables, basis, acc: torch.Tensor, out=None) -> torch.Tensor:
     return digits if out is not None or acc.dtype == torch.int32 else widen_u32(digits)
 
 
-def ntru_stage2_plain(tables, f, evk, acc, degrees):
+def ntru_stage2_plain(tables, f, evk, acc, degrees, basis=None):
     """Kernel J's plain version on int64 words: :func:`ntru_mac_rotate`
-    through the plain inverse."""
-    return ntru_mac_rotate(tables, tables.primes[0], f, evk, acc, degrees, inverse32_plain)
+    through the plain inverse; with ``basis`` also the new accumulator's
+    gadget digits, ``(out, ntru_digits_plain(basis, out))``."""
+    out = ntru_mac_rotate(tables, tables.primes[0], f, evk, acc, degrees, inverse32_plain)
+    return out if basis is None else (out, ntru_digits_plain(basis, out))
 
 
-def stage2_pack(tables, level: int, table_ptrs=(0, 0)) -> np.ndarray:
+def stage2_pack(tables, level: int, table_ptrs=(0, 0), basis=None) -> np.ndarray:
     """The host pack ``pft_ntru_stage2`` reads: ``L, log_n``, the device
     addresses of the ``(1, n)`` inverse root table and its Shoup quotients,
-    then ``NttTables32.prime_pack`` (7 words)."""
+    ``NttTables32.prime_pack`` (7 words), then the digit output's basis pack
+    (:func:`.cmux_fused._basis_pack`, 10 words; zeros without ``basis``)."""
+    chain = _basis_pack(basis) if basis is not None else np.zeros(10, dtype=np.uint64)
     return np.concatenate([np.array([level, tables.log_n, *table_ptrs], dtype=np.uint64),
-                           tables.prime_pack])
+                           tables.prime_pack, chain])
 
 
 class NtruStage2Plan:
     """Kernel J's launch constants for one-prime ``tables`` and ``L`` on a
     CUDA ``device``: the host pack and the inverse tables it points to
-    (held, so that they outlive every launch).  ``plan(f, evk, acc,
-    degrees, out)`` launches once on int32 tensors already checked by the
-    caller."""
+    (held, so that they outlive every launch); ``basis`` (mod q, ``L``
+    levels), for the digit output.  ``plan(f, evk, acc, degrees, out,
+    digits)`` launches once on int32 tensors already checked by the
+    caller; ``digits`` (or None) receives the output's gadget digits and
+    may be ``f``."""
 
-    def __init__(self, tables, level: int, device):
+    def __init__(self, tables, level: int, device, basis=None):
         if len(tables.primes) != 1:
             raise ValueError("kernel J takes one prime")
         if not 1 <= level <= NTRU_STAGED_MAX_LEVEL or not 4 <= tables.log_n <= MAX_LOG_N:
             raise ValueError(f"kernel J: L = {level}, log_n = {tables.log_n} (the card takes L "
                              f"1-{NTRU_STAGED_MAX_LEVEL}, log_n 4-{MAX_LOG_N})")
+        if basis is not None and (basis.decompose_length != level
+                                  or basis.modulus != tables.primes[0]):
+            raise ValueError("kernel J's digits: the basis must be mod q with L levels")
         self._tables = tables.kernel_tables(device)
-        self.pack = stage2_pack(tables, level, [t.data_ptr() for t in self._tables[2:]])
+        self.pack = stage2_pack(tables, level, [t.data_ptr() for t in self._tables[2:]], basis)
         self._pack_ptr = self.pack.ctypes.data
         self._entry = build.library().pft_ntru_stage2
+        self.digits = basis is not None
 
-    def __call__(self, f, evk, acc, degrees, out) -> None:
+    def __call__(self, f, evk, acc, degrees, out, digits=None) -> None:
         if (f.data_ptr() | evk.data_ptr()) % 16:
             raise ValueError("ntru_stage2: the digits and the evk row must start on 16 bytes")
+        if digits is not None and not self.digits:
+            raise ValueError("ntru_stage2: a plan without a basis writes no digits")
         err = self._entry(f.data_ptr(), evk.data_ptr(), acc.data_ptr(), degrees.data_ptr(),
-                          out.data_ptr(), acc.shape[0], self._pack_ptr,
+                          out.data_ptr(), None if digits is None else digits.data_ptr(),
+                          acc.shape[0], self._pack_ptr,
                           torch.cuda.current_stream(acc.device).cuda_stream)
         build.check(err, "ntru_stage2")
         ntru_stage2.launches += 1
 
 
 def ntru_stage2(tables, f: torch.Tensor, evk: torch.Tensor, acc: torch.Tensor,
-                degrees: torch.Tensor, out=None) -> torch.Tensor:
+                degrees: torch.Tensor, out=None, basis=None) -> torch.Tensor:
     """Kernel J: ``acc + rot(delta, d) - delta`` mod q, ``delta =
     INTT(sum_l f[l] evk[l])``, for ``f (L, B, n)`` lazy ``[0, 4q)`` digits
     (:func:`ntru_stage1`'s), ``evk (L, n)`` canonical, ``acc (B, n)``
@@ -272,9 +284,16 @@ def ntru_stage2(tables, f: torch.Tensor, evk: torch.Tensor, acc: torch.Tensor,
     :func:`ntru_stage2_plain`; CUDA tensors the kernel, one launch (L 1-32,
     log_n 4-16; a ``ValueError`` past them, before any launch).  ``out``
     may be ``acc`` (contiguous int32: the kernel adds in place); else the
-    output keeps ``acc``'s storage."""
+    output keeps ``acc``'s storage.  With ``basis`` (mod q, L levels) the
+    output's gadget digits, ``[0, q)`` residues as kernel I writes them,
+    overwrite ``f`` (then contiguous, on the card int32 on 16 bytes): the
+    next step's digits, in place."""
     if acc.device.type == "cpu":
-        res = ntru_stage2_plain(tables, widen_u32(f), widen_u32(evk), widen_u32(acc), degrees)
+        res = ntru_stage2_plain(tables, widen_u32(f), widen_u32(evk), widen_u32(acc), degrees,
+                                basis)
+        if basis is not None:
+            res, digits = res
+            f.copy_(digits)
         res = narrow_u32(res) if acc.dtype == torch.int32 else res
         return res if out is None else out.copy_(res)
     _check_device("ntru_stage2", f, evk, acc, degrees)
@@ -284,7 +303,10 @@ def ntru_stage2(tables, f: torch.Tensor, evk: torch.Tensor, acc: torch.Tensor,
             or n != tables.n:
         raise ValueError(f"ntru_stage2: bad shapes f {tuple(f.shape)}, evk {tuple(evk.shape)}, "
                          f"acc {tuple(acc.shape)}")
-    plan = NtruStage2Plan(tables, level, acc.device)
+    if basis is not None and not (f.dtype == torch.int32 and f.is_contiguous()
+                                  and f.data_ptr() % 16 == 0):
+        raise ValueError("ntru_stage2: digits over f need f contiguous int32 on 16 bytes")
+    plan = NtruStage2Plan(tables, level, acc.device, basis)
     f32, evk32 = _aligned16(narrow_u32(f).contiguous()), _aligned16(narrow_u32(evk).contiguous())
     a = narrow_u32(acc).contiguous()
     d = degrees.to(torch.int32).contiguous()
@@ -295,7 +317,7 @@ def ntru_stage2(tables, f: torch.Tensor, evk: torch.Tensor, acc: torch.Tensor,
               and out.is_contiguous()):
         raise ValueError(f"ntru_stage2: out must be contiguous int32 {tuple(a.shape)}")
     if bsz:
-        plan(f32, evk32, a, d, out)
+        plan(f32, evk32, a, d, out, None if basis is None else f32)
     return out if given or acc.dtype == torch.int32 else widen_u32(out)
 
 
@@ -313,20 +335,24 @@ def launch_grid(log_n: int, bsz: int) -> tuple[int, int, int, int]:
 
 
 class NtruStepPlan:
-    """One NTRU rotation's CMux steps on the MXU evk on ``device``:
-    ``plan(acc, degrees, kv, kpre)`` is ``acc + rot(delta, d) - delta``.
+    """One NTRU rotation's CMux steps on ``device``: ``plan(acc, degrees,
+    kv, kpre)`` is ``acc + rot(delta, d) - delta`` for the evk row ``kv``
+    (``(L, n)`` NTT-domain, or the MXU pack's ``(L, A, 128)``: the same
+    words) and its Shoup quotients ``kpre`` (the same shape, read only by
+    kernel B: :attr:`reads_precons`; else None).
 
     Built once before the loop, the route is :func:`ntru_step_route`'s (a
     ``ValueError`` before any launch past it): ``"mxu"`` runs kernel B, one
-    launch a step (:func:`ntru_cmux_step`); ``"staged"`` runs kernel I into
-    a digit buffer ``(L, B, n)`` int32 made once a batch size, kernel 1 at
-    ``out_factor=4`` in place and kernel J into ``acc`` in place: three
-    launches a step, on the evk row's values ``(L, A, 128)`` read as the
-    canonical NTT rows ``(L, n)`` they are; it does not read ``kpre``
-    (:attr:`reads_precons`).  On the card a call takes int32 ``acc (B,
-    n)`` canonical, ``degrees (B,)`` and the evk row, contiguous.  On the
-    CPU it runs the staged functions' plain versions, which equal kernel
-    B's."""
+    launch a step (:func:`ntru_cmux_step`); ``"staged"`` keeps a digit
+    buffer ``(L, B, n)`` int32 that kernel J refills with the next step's
+    digits, so kernel I runs only for the first step of an accumulator, and
+    each step is kernel 1 at ``out_factor=4`` in place on the buffer and
+    kernel J into ``acc`` and the buffer in place: two launches.  The
+    buffer belongs to the accumulator the last call returned; a call on
+    another tensor, or on one changed in place since, starts again with
+    kernel I.  On the card a call takes int32 ``acc (B, n)`` canonical,
+    ``degrees (B,)`` and the evk row, contiguous.  On the CPU it runs the
+    staged functions' plain versions, which equal kernel B's."""
 
     def __init__(self, ctx, device):
         self.ctx = ctx
@@ -335,12 +361,13 @@ class NtruStepPlan:
         self.route = None
         if self.device.type == "cpu":
             return
-        self.route = ntru_step_route(ctx.basis.decompose_length, ctx.log_n, self.dp)
+        level = ctx.basis.decompose_length
+        self.route = ntru_step_route(level, ctx.log_n, self.dp)
         if self.route == "mxu":
             self._plan = get_ntru_plan(ctx.log_n, ctx.q_int)
         else:
-            self._stage2 = NtruStage2Plan(ctx.ntt, ctx.basis.decompose_length, self.device)
-            self._digits: dict = {}
+            self._stage2 = NtruStage2Plan(ctx.ntt, level, self.device, ctx.basis)
+            self._digits = None  # (acc, its version, the buffer of its digits)
 
     @property
     def reads_precons(self) -> bool:
@@ -349,9 +376,11 @@ class NtruStepPlan:
 
     def __call__(self, acc: torch.Tensor, degrees: torch.Tensor, kv: torch.Tensor,
                  kpre: torch.Tensor | None) -> torch.Tensor:
-        if self.route == "mxu":
-            return ntru_cmux_step(self._plan, self.ctx.basis, acc, degrees, kv, kpre)
         ctx, level = self.ctx, self.ctx.basis.decompose_length
+        if self.route == "mxu":
+            want = (level, self._plan.A, self._plan.B)
+            return ntru_cmux_step(self._plan, ctx.basis, acc, degrees, kv.reshape(want),
+                                  kpre.reshape(want))
         evk = kv.reshape(level, ctx.n)
         if self.route is None:
             return ntru_stage2(ctx.ntt, ntru_stage1(ctx.ntt, ctx.basis, acc), evk, acc, degrees)
@@ -363,12 +392,15 @@ class NtruStepPlan:
             raise ValueError("NtruStepPlan: contiguous int32 acc (B, n), degrees (B,) and evk "
                              f"row on {self.device}")
         if bsz:
-            digits = self._digits.get(bsz)
-            if digits is None:
-                digits = self._digits[bsz] = torch.empty((level, bsz, ctx.n), dtype=torch.int32,
-                                                         device=self.device)
-            ntru_stage1(ctx.ntt, ctx.basis, acc, out=digits)
-            self._stage2(digits, evk, acc, degrees, acc)
+            held = self._digits
+            if held is not None and held[0] is acc and held[1] == acc._version:
+                digits = held[2]
+            else:  # the accumulator's first step: kernel I
+                digits = ntru_digits(ctx.basis, acc, out=torch.empty(
+                    (level, bsz, ctx.n), dtype=torch.int32, device=self.device))
+            forward32(ctx.ntt, digits.unsqueeze(0), 4, out=digits.unsqueeze(0))
+            self._stage2(digits, evk, acc, degrees, acc, digits)
+            self._digits = (acc, acc._version, digits)
         return acc
 
 

@@ -1,6 +1,6 @@
 """Kernels ``ntt64_forward`` and ``ntt64_inverse``: the 64-bit negacyclic NTT
-and its inverse (``q < 2^62``, ``n <= 2^15``), one launch for every modulus of
-a DCRT plan.
+and its inverse (``q < 2^62``, ``n <= 2^15``), one launch for every group of
+up to four moduli of a DCRT plan (:func:`mod_groups`).
 
 Replace ``pallas_forward64`` and ``pallas_inverse64``
 (``primus_fhe_tpu/ops/ntt_pallas.py:486,494``, kernels ``_make_fwd_kernel``
@@ -53,8 +53,22 @@ from ..transforms.plan import NttPlan64, _quot64, build_plan64
 from ..utils.contracts import check_range_u64
 from . import build
 
-MAX_MODULI = 4  # PFT_MAX_MOD64 in csrc/modarith64.cuh
+MAX_MODULI = 4  # a launch's moduli: PFT_MAX_MOD64 in csrc/modarith64.cuh
+MOD_WORDS = 9  # a modulus's words in the pack: PFT_MOD64_WORDS
 MAX_LOG_N = 15
+
+
+def mod_groups(count: int) -> list[slice]:
+    """The launches of a u64 kernel on ``count`` moduli: runs of at most
+    :data:`MAX_MODULI` consecutive moduli, one launch each (every stacked
+    operand and table is modulus-major, so a run is a contiguous slice of
+    each, and its pack the run's words of :attr:`NttTables64.mod_pack`)."""
+    return [slice(g, min(g + MAX_MODULI, count)) for g in range(0, count, MAX_MODULI)]
+
+
+def group_pack(tables: "NttTables64", group: slice) -> int:
+    """Host address of the pack of the moduli ``group`` (:func:`mod_groups`)."""
+    return build.ptr(tables.mod_pack[group.start * MOD_WORDS:group.stop * MOD_WORDS])
 
 
 def mod_pack64(plans: list[NttPlan64]) -> np.ndarray:
@@ -78,8 +92,8 @@ class NttTables64:
     ``PallasNttPlan64(root=)``), the minimal ones by default."""
 
     def __init__(self, log_n: int, moduli, roots=None):
-        if not 1 <= len(moduli) <= MAX_MODULI:
-            raise ValueError(f"1 to {MAX_MODULI} moduli supported")
+        if not moduli:
+            raise ValueError("at least one modulus")
         self.log_n = log_n
         self.n = 1 << log_n
         self.moduli = tuple(int(q) for q in moduli)
@@ -154,14 +168,15 @@ def _launch(wrapper, entry: str, table_idx: int, tables: NttTables64, values, ou
     rows = v[0].numel() // n
     if rows:
         tabs = tables.kernel_tables(v.device)
-        err = getattr(build.library(), entry)(
-            v.data_ptr(), out.data_ptr(), tabs[table_idx].data_ptr(),
-            tabs[table_idx + 1].data_ptr(), build.ptr(tables.mod_pack), count, rows,
-            tables.log_n, int(out_factor == 1), *extra,
-            torch.cuda.current_stream(v.device).cuda_stream,
-        )
-        build.check(err, entry)
-        wrapper.launches += 1
+        for g in mod_groups(count):
+            err = getattr(build.library(), entry)(
+                v[g].data_ptr(), out[g].data_ptr(), tabs[table_idx][g].data_ptr(),
+                tabs[table_idx + 1][g].data_ptr(), group_pack(tables, g), g.stop - g.start, rows,
+                tables.log_n, int(out_factor == 1), *extra,
+                torch.cuda.current_stream(v.device).cuda_stream,
+            )
+            build.check(err, entry)
+            wrapper.launches += 1
     return out
 
 
@@ -173,7 +188,7 @@ def ntt64_forward(tables: NttTables64, values: torch.Tensor, out_factor: int = 1
 
     CPU tensors take the plain version (any ``log_n``), CUDA tensors the
     kernel, which takes ``log_n`` 1-15 (:data:`MAX_LOG_N`; a ``ValueError``
-    above) and at most 4 moduli (:class:`NttTables64` refuses more).
+    above), one launch a group of up to 4 moduli (:func:`mod_groups`).
     """
     if out_factor not in (1, 4):
         raise ValueError("out_factor must be 1 or 4")
@@ -189,8 +204,8 @@ def ntt64_inverse(tables: NttTables64, values: torch.Tensor, out_factor: int = 1
     ``[0, in_factor*q)``, ``in_factor`` a power of two of at least 2 (a
     ``ValueError`` otherwise); output normal order, canonical for
     ``out_factor=1`` and lazy ``[0,2q)`` for ``2``.  The same devices and
-    limits as :func:`ntt64_forward`: the kernel takes ``log_n`` 1-15 and at
-    most 4 moduli."""
+    limits as :func:`ntt64_forward`: the kernel takes ``log_n`` 1-15, one
+    launch a group of up to 4 moduli."""
     if out_factor not in (1, 2):
         raise ValueError("out_factor must be 1 or 2")
     if in_factor < 2 or in_factor & (in_factor - 1):
@@ -209,11 +224,13 @@ def launch_tile(tables: NttTables64, rows: int, forward: bool = True) -> int:
 
 def pick_tile(kind: int, tables: NttTables64, rows: int) -> int:
     """The C entry's tile pick for kernel ``kind`` of ``csrc/ntt64.cu`` (1
-    the forward, 0 the inverse, 2 kernel E) on ``rows`` rows a modulus."""
+    the forward, 0 the inverse, 2 kernel E) on ``rows`` rows a modulus, in
+    the launch of the first group of moduli (:func:`mod_groups`)."""
     import ctypes
 
     tile = ctypes.c_int()
-    err = build.library().pft_ntt64_tile(kind, len(tables.moduli), rows, tables.log_n,
+    err = build.library().pft_ntt64_tile(kind, mod_groups(len(tables.moduli))[0].stop, rows,
+                                         tables.log_n,
                                          ctypes.addressof(tile))
     build.check(err, "pft_ntt64_tile")
     return tile.value

@@ -86,7 +86,8 @@ from . import build
 from .cmux_mxu import LANES, _balanced_digits, kernel_layout
 from .mxu_common import four_step_matrices
 from .ntt32 import MAX_LOG_N, forward32, forward32_plain
-from .ntt64 import NttTables64, ntt64_forward_plain, ntt64_inverse_plain
+from .ntt64 import NttTables64, group_pack, mod_groups, ntt64_forward_plain
+from .ntt64 import ntt64_inverse_plain
 from .ntt64 import pick_tile as ntt64_pick_tile
 
 C_LOG_N = (8, 12)  # kernel C's rows on the card (C_MIN_LOG_N, C_MAX_LOG_N in csrc/ntt32.cu)
@@ -498,7 +499,8 @@ def mxu8_roundtrip64_mul_plain(tables: Mxu8Tables64, values: torch.Tensor, mul_t
 
 def _run64(wrapper, plain, entry: str, names, tables: Mxu8Tables64, values, out_factor, allowed,
            mul_tab=None):
-    """One launch of ``entry`` on ``values`` (CPU tensors: ``plain``);
+    """One launch of ``entry`` on ``values`` a group of up to four moduli
+    (:func:`.ntt64.mod_groups`; CPU tensors: ``plain``);
     ``names``: the byte-radix kernel tables it reads, or None for kernel E,
     which reads the butterfly tables ``tables.ntt``."""
     if out_factor not in allowed:
@@ -528,13 +530,14 @@ def _run64(wrapper, plain, entry: str, names, tables: Mxu8Tables64, values, out_
         else:
             kt = tables.kernel_tables(v.device)
             tabs, planes = [kt[name] for name in names] + [kt["tw"]], (tables.planes,)
-        err = getattr(build.library(), entry)(
-            v.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tabs),
-            *(t.data_ptr() for t in keyed), build.ptr(tables.ntt.mod_pack), count, rows,
-            tables.log_n, *planes, torch.cuda.current_stream(v.device).cuda_stream,
-        )
-        build.check(err, entry)
-        wrapper.launches += 1
+        for g in mod_groups(count):
+            err = getattr(build.library(), entry)(
+                v[g].data_ptr(), out[g].data_ptr(), *(t[g].data_ptr() for t in tabs),
+                *(t[g].data_ptr() for t in keyed), group_pack(tables.ntt, g), g.stop - g.start,
+                rows, tables.log_n, *planes, torch.cuda.current_stream(v.device).cuda_stream,
+            )
+            build.check(err, entry)
+            wrapper.launches += 1
     return out
 
 
@@ -547,8 +550,9 @@ def mxu8_forward64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
     docstring).
 
     CPU tensors take the plain version, CUDA tensors the kernel (one launch
-    for every modulus).  Under ``PRIMUS_DEBUG=1`` it holds the input to the
-    reference's contract, words below ``2^(8 planes)`` below 8 planes."""
+    a group of up to four moduli).  Under ``PRIMUS_DEBUG=1`` it holds the
+    input to the reference's contract, words below ``2^(8 planes)`` below 8
+    planes."""
     if tables.planes < 8:
         check_range_u64(values, 1 << (8 * tables.planes), 1, "mxu8_forward64 input")
     return _run64(mxu8_forward64, mxu8_forward64_plain, "pft_ntt_mxu8_forward64", ("w1s", "w2s"),
@@ -561,7 +565,7 @@ def mxu8_inverse64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
     output is canonical for both).
 
     CPU tensors take the plain version, CUDA tensors the tiled kernel (one
-    launch for every modulus), which takes ``8 <= log_n <= 12`` and raises
+    launch a group of up to four moduli), which takes ``8 <= log_n <= 12`` and raises
     ``ValueError`` above, where the plan allows 14 (``route="auto"`` sends
     those to the butterfly)."""
     return _run64(mxu8_inverse64, mxu8_inverse64_plain, "pft_ntt_mxu8_inverse64",
@@ -590,7 +594,7 @@ def mxu8_roundtrip64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: to
 
     CPU tensors take the plain version, CUDA tensors the kernel of
     ``csrc/ntt64.cu`` (row 10's radix-8 passes for both transforms, the key
-    between them, one launch for every modulus; the launch picks its tile of
+    between them, one launch a group of up to four moduli; the launch picks its tile of
     rows, :func:`roundtrip_tile`); on the card ``8 <= log_n <= 12`` only
     (``ValueError`` outside)."""
     return _run64(mxu8_roundtrip64_mul, mxu8_roundtrip64_mul_plain, "pft_ntt64_roundtrip_mul",

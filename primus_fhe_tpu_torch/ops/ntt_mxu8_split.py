@@ -21,10 +21,11 @@ halves, each replacing one kernel of
 - Ki2, :func:`split_ki2` (``_ki2_inverse``, ``:297``): inverse pass 2
   (``inv_n`` folded in) on a shard's lanes: canonical coefficients.
 
-All four take a :class:`.ntt_mxu8.Mxu8Tables64` (every modulus in one launch,
-``values (count, ...)``) and the shard's place: ``k0_off``, the first global
-lane of a K1 shard, and ``r0_off``, the first global row of a Ki1 shard, so
-the twiddles come from the ``(A, B)`` tables at global indices; the
+All four take a :class:`.ntt_mxu8.Mxu8Tables64` (``values (count, ...)``,
+one launch a group of up to four moduli) and the shard's place:
+``k0_off``, the first global lane of a K1 shard, and ``r0_off``, the first
+global row of a Ki1 shard, so the twiddles come from the ``(A, B)`` tables
+at global indices; the
 reference's copies expanded over the batch, and its bias, correction and
 Solinas tables, are TPU layouts the port does not need.
 
@@ -61,6 +62,7 @@ from ..modular.factor import ShoupFactor64, factor_mul64, factor_mul_lazy64
 from ..modular.modops import add64
 from ..numeric.limb import u64_tensor
 from . import build
+from .ntt64 import group_pack, mod_groups
 from .ntt_mxu8 import Mxu8Tables64
 
 _CHUNK_WORDS = 1 << 25  # words of one chunk of a plain pass's products
@@ -150,9 +152,11 @@ def _check(wrapper, tables, values, dims, mul_rows=None):
                          f"on {values.device}")
 
 
-def _launch(wrapper, entry, tables, values, wname, extra_ptrs, ints):
-    """Runs C entry ``entry`` on the CUDA tensor ``values``: ``(in, out, w,
-    tw, *extra_ptrs, mod_pack, count, *ints, log_n, planes, stream)``."""
+def _launch(wrapper, entry, tables, values, wname, extra, ints):
+    """Runs C entry ``entry`` on the CUDA tensor ``values``, one launch a
+    group of up to four moduli (:func:`.ntt64.mod_groups`): ``(in, out, w,
+    tw, *extra, mod_pack, count, *ints, log_n, planes, stream)``, each of
+    ``extra`` a modulus-major tensor or None."""
     if values.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {values.device}")
     if not 8 <= tables.log_n <= 14:
@@ -161,12 +165,14 @@ def _launch(wrapper, entry, tables, values, wname, extra_ptrs, ints):
     out = torch.empty_like(v)
     if v.numel():
         tabs = tables.split_tables(v.device)
-        err = getattr(build.library(), entry)(
-            v.data_ptr(), out.data_ptr(), tabs[wname].data_ptr(), tabs["tw"].data_ptr(),
-            *extra_ptrs, build.ptr(tables.ntt.mod_pack), len(tables.moduli), *ints,
-            tables.log_n, tables.planes, torch.cuda.current_stream(v.device).cuda_stream)
-        build.check(err, entry)
-        wrapper.launches += 1
+        for g in mod_groups(len(tables.moduli)):
+            err = getattr(build.library(), entry)(
+                v[g].data_ptr(), out[g].data_ptr(), tabs[wname][g].data_ptr(),
+                tabs["tw"][g].data_ptr(), *(None if t is None else t[g].data_ptr() for t in extra),
+                group_pack(tables.ntt, g), g.stop - g.start, *ints, tables.log_n, tables.planes,
+                torch.cuda.current_stream(v.device).cuda_stream)
+            build.check(err, entry)
+            wrapper.launches += 1
     return out
 
 
@@ -220,10 +226,8 @@ def split_ki1(tables: Mxu8Tables64, values: torch.Tensor, batch: int, r0_off: in
         raise ValueError(f"split_ki1: key rows {tuple(mul_rows.shape)} do not match the shard")
     if values.device.type == "cpu":
         return split_ki1_plain(tables, values, batch, r0_off, mul_rows)
-    key = () if mul_rows is None else (mul_rows.data_ptr(),)
     return _launch(split_ki1, "pft_ntt_mxu8_split_ki1", tables, values, "cyclic_inv",
-                   key or (None,),
-                   (values.shape[1], batch, r0_off))
+                   (mul_rows,), (values.shape[1], batch, r0_off))
 
 
 def split_ki2(tables: Mxu8Tables64, values: torch.Tensor):

@@ -15,7 +15,8 @@ The 64-bit half:
 values are ``(count, ..., n)`` int64 tensors of u64 words, modulus ``i`` on
 ``values[i]``.  ``dcrt_forward64``/``dcrt_inverse64`` are the plain
 butterflies (the reference's XLA-staged path); the ``_fast`` transforms
-route every modulus through one kernel launch:
+route every modulus through one kernel, one launch a group of up to four
+moduli (:func:`..ops.ntt64.mod_groups`; a base may hold any number):
 
 - ``"mxu8"``: the byte-radix four-step on the int8 tensor cores
   (:func:`..ops.ntt_mxu8.mxu8_forward64`), canonical output;
@@ -169,8 +170,8 @@ def resolve_route(plan: DcrtPlan64, route: str = "auto") -> str:
 
 def dcrt_forward64_fast(plan: DcrtPlan64, values: torch.Tensor, out_factor: int = 1,
                         route: str = "auto"):
-    """Forward NTT over all residues in one kernel launch (see the module
-    docstring for the routes)."""
+    """Forward NTT over all residues, one kernel launch a group of up to
+    four moduli (see the module docstring for the routes)."""
     if resolve_route(plan, route) == "mxu8":
         from ..ops.ntt_mxu8 import mxu8_forward64
 
@@ -180,7 +181,8 @@ def dcrt_forward64_fast(plan: DcrtPlan64, values: torch.Tensor, out_factor: int 
 
 def dcrt_inverse64_fast(plan: DcrtPlan64, values: torch.Tensor, out_factor: int = 1,
                         route: str = "auto"):
-    """Inverse NTT over all residues in one kernel launch."""
+    """Inverse NTT over all residues, one kernel launch a group of up to
+    four moduli."""
     if resolve_route(plan, route) == "mxu8":
         from ..ops.ntt_mxu8 import mxu8_inverse64
 

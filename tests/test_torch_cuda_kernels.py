@@ -599,11 +599,43 @@ def test_ntru_stage2_over_slices_matches_plain(dev, log_n):
         assert ntru_cmux_mxu.ntru_stage2.launches - before == 2
 
 
+@pytest.mark.parametrize("log_n", [10, 12, 13, 14, 16])
+def test_ntru_stage2_digits_match_plain(dev, log_n):
+    """Kernel J with its digit output over ``f`` at the slices its launch
+    picks (batch 1: C = 1 at log_n 10, 4 at 12, 8 at 13, 16 at 14 and 16;
+    batch 16 beside), NTRU_128's gadget mod a 20-bit q (and 2^10 x 3 mod a
+    30-bit q at 16): the accumulator and the digits (``ntru_digits_plain``
+    of the output) equal ``ntru_stage2_plain``'s, one launch a call."""
+    q_bits, log_basis, level = (30, 10, 3) if log_n == 16 else (20, 3, 6)
+    n, q = 1 << log_n, next_ntt_prime(q_bits, log_n)
+    tables = ntt32.NttTables32(log_n, (q,))
+    basis = ApproxSignedBasis32(q, log_basis, level)
+    gen = torch.Generator(device=dev).manual_seed(log_n * 17)
+    evk = torch.randint(0, q, (level, n), generator=gen, device=dev)
+    for bsz in (1, 16):
+        grid = ntru_cmux_mxu.launch_grid(log_n, bsz)
+        if bsz == 1:
+            assert grid[0] == _slices_at_batch1(1, log_n, 10), grid
+        f = torch.randint(0, 4 * q, (level, bsz, n), generator=gen, device=dev)
+        acc = torch.randint(0, q, (bsz, n), generator=gen, device=dev)
+        degrees = torch.randint(-4 * n, 4 * n, (bsz,), generator=gen, device=dev)
+        want, want_digits = ntru_cmux_mxu.ntru_stage2_plain(tables, f, evk, acc, degrees, basis)
+        f32, acc32 = f.to(torch.int32), acc.to(torch.int32)
+        before = ntru_cmux_mxu.ntru_stage2.launches
+        out = ntru_cmux_mxu.ntru_stage2(tables, f32, evk.to(torch.int32), acc32, degrees,
+                                        out=acc32, basis=basis)
+        assert ntru_cmux_mxu.ntru_stage2.launches - before == 1
+        assert out is acc32 and torch.equal(acc32.to(torch.int64), want), bsz
+        assert torch.equal(f32.to(torch.int64), want_digits), bsz
+
+
 def test_ntru_staged_steps_match_plain(dev):
     """``NtruStepPlan`` at N = 2^13 (NTRU_128's gadget) over 3 steps at
     batch 2 on an evk row made by ``prepare_mxu_evk`` (kernel 1's route):
-    kernels I, 1 and J three launches each, no kernel B, the accumulator in
-    place, the plain step's words; NTRU_128 keeps kernel B."""
+    kernel I once (the first step; J writes the next step's digits),
+    kernels 1 and J three launches each, no kernel B, the accumulator in
+    place, the plain step's words; a new accumulator starts with kernel I
+    again; NTRU_128 keeps kernel B."""
     log_n = 13
     n, q = 1 << log_n, next_ntt_prime(20, log_n)
     ctx = NtruContext(log_n, q, 3, 6)
@@ -623,7 +655,12 @@ def test_ntru_staged_steps_match_plain(dev):
         acc = ntru_cmux_mxu.ntru_cmux_step_plain(plan, ctx.basis, acc, degrees, kv[0])
         assert step(acc32, degrees, kv32, None) is acc32
         assert torch.equal(acc32.to(torch.int64), acc), i
-    assert [fn.launches - b for fn, b in zip(counted, before)] == [3, 3, 3, 0]
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 3, 3, 0]
+    other = acc32.clone()
+    degrees = torch.randint(0, 2 * n, (2,), generator=gen, device=dev, dtype=torch.int32)
+    want = ntru_cmux_mxu.ntru_cmux_step_plain(plan, ctx.basis, acc, degrees, kv[0])
+    assert torch.equal(step(other, degrees, kv32, None).to(torch.int64), want)
+    assert ntru_cmux_mxu.ntru_digits.launches - before[0] == 2
     nctx, _ = P.make_ntru_context(P.NTRU_128)
     assert ntru_cmux_mxu.NtruStepPlan(nctx, dev).route == "mxu"
 
@@ -688,7 +725,7 @@ def test_ntru_cmux_step_matches_plain(dev, log_n, q_bits, log_basis, level):
 def test_mxu_bootstrap_and_ntru_gate(dev):
     """A small MXU-route TFHE bootstrap and an NTRU NAND on the card equal
     their CPU runs on the same keys; kernels A and B launch once per key
-    slice."""
+    slice, kernel B on both NTRU evk forms."""
     p = dataclasses.replace(P.TOY, log_n=8, lwe_dim=6)
     gen = torch.Generator(device=dev).manual_seed(8)
     ctx = P.make_context(p, dev, gen, bsk_kind="mxu")
@@ -707,7 +744,12 @@ def test_mxu_bootstrap_and_ntru_gate(dev):
     before = ntru_cmux_mxu.ntru_cmux_step.launches
     got = ntru_gates.ntru_nand(keys.ctx, keys.evk_mxu, keys.ksk, keys.ks_basis, ca, cb)
     assert ntru_cmux_mxu.ntru_cmux_step.launches - before == keys.params.lwe_dim
+    before = (ntru_cmux_mxu.ntru_cmux_step.launches, ntt32.forward32.launches,
+              ntt32.inverse32.launches)
     ntt = ntru_gates.ntru_nand(keys.ctx, keys.evk, keys.ksk, keys.ks_basis, ca, cb)
+    # the NTT evk on kernel B too, with no launch of kernels 1-2
+    assert (ntru_cmux_mxu.ntru_cmux_step.launches - before[0], ntt32.forward32.launches - before[1],
+            ntt32.inverse32.launches - before[2]) == (keys.params.lwe_dim, 0, 0)
     assert torch.equal(got, ntt)
     cpu = ntru_gates.ntru_nand(keys.ctx, tuple(x.cpu() for x in keys.evk_mxu), keys.ksk.cpu(),
                                keys.ks_basis, ca.cpu(), cb.cpu())
@@ -975,6 +1017,58 @@ def test_mxu8_64_mul_kernels_match_plain(dev, log_n, moduli):
             ntt64.ntt64_forward(tables.ntt, xr, 4), key, q))
         assert torch.equal(rt, bf), rows
         assert torch.equal(ntt_mxu8.mxu8_roundtrip64_mul(tables, x, mt, 2), rt)
+
+
+@pytest.mark.parametrize("count", [5, 6])
+def test_u64_kernels_over_groups_of_moduli_match_plain(dev, count):
+    """Every u64 wrapper that takes a modulus list on 5 and 6 moduli (two
+    launches a call: moduli 0-3, then the rest): row 10 at log_n 12 and
+    15, rows 9 and 12, kernels D and E and row 13's four halves at log_n 12
+    (D = 1, batch 2) against their plain versions, K1 and Ki1 by the lazy
+    rule; 50-bit moduli and, at 6, a 62-bit one last (8 planes)."""
+    from primus_fhe_tpu_torch.ops import ntt_mxu8_split as split
+    from primus_fhe_tpu_torch.utils.primes import ntt_prime_chain
+
+    moduli = ntt_prime_chain(50, 15, count)
+    if count == 6:
+        moduli[-1] = Q62[0]
+    gen = torch.Generator(device=dev).manual_seed(count)
+    counted = (ntt64.ntt64_forward, ntt64.ntt64_inverse, ntt_mxu8.mxu8_forward64,
+               ntt_mxu8.mxu8_inverse64, ntt_mxu8.mxu8_inverse64_mul,
+               ntt_mxu8.mxu8_roundtrip64_mul, split.split_k1, split.split_k2, split.split_ki1,
+               split.split_ki2)
+    for log_n in (12, 15):
+        n = 1 << log_n
+        tables = ntt64.NttTables64(log_n, moduli)
+        x, y = _below(gen, moduli, (3, n), 4, dev), _below(gen, moduli, (3, n), 2, dev)
+        before = ntt64.ntt64_forward.launches, ntt64.ntt64_inverse.launches
+        assert torch.equal(ntt64.ntt64_forward(tables, x, 4),
+                           ntt64.ntt64_forward_plain(tables, x, 4))
+        assert torch.equal(ntt64.ntt64_inverse(tables, y), ntt64.ntt64_inverse_plain(tables, y))
+        assert (ntt64.ntt64_forward.launches - before[0],
+                ntt64.ntt64_inverse.launches - before[1]) == (2, 2)
+    n, batch = 1 << 12, 2
+    tables = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(12, moduli))
+    mt = tables.mul_table(_below(gen, moduli, (n,), 1, dev))
+    w = _u64_words(gen, (count, 5, n), dev)
+    lanes = _u64_words(gen, (count, tables.A, tables.B * batch), dev)
+    rows = _u64_words(gen, (count, tables.A * batch, tables.B), dev)
+    before = [fn.launches for fn in counted[2:]]
+    assert torch.equal(ntt_mxu8.mxu8_forward64(tables, w), ntt_mxu8.mxu8_forward64_plain(tables, w))
+    assert torch.equal(ntt_mxu8.mxu8_inverse64(tables, w), ntt_mxu8.mxu8_inverse64_plain(tables, w))
+    assert torch.equal(ntt_mxu8.mxu8_inverse64_mul(tables, w, mt),
+                       ntt_mxu8.mxu8_inverse64_mul_plain(tables, w, mt))
+    assert torch.equal(ntt_mxu8.mxu8_roundtrip64_mul(tables, w, mt),
+                       ntt_mxu8.mxu8_roundtrip64_mul_plain(tables, w, mt))
+    lazy = [(split.split_k1(tables, lanes, batch), split.split_k1_plain(tables, lanes, batch, 0)),
+            (split.split_ki1(tables, rows, batch, 0, mt),
+             split.split_ki1_plain(tables, rows, batch, 0, mt))]
+    for got, plain in lazy:
+        for i, q in enumerate(moduli):
+            _lazy_equal(got[i:i + 1], plain[i:i + 1], q)
+    assert torch.equal(split.split_k2(tables, rows), split.split_k2_plain(tables, rows))
+    assert torch.equal(split.split_ki2(tables, lanes), split.split_ki2_plain(tables, lanes))
+    assert [fn.launches - b for fn, b in zip(counted[2:], before)] == [2] * 8
 
 
 def test_large_ntt_routes_match_plain(dev):

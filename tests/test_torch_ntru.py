@@ -9,9 +9,10 @@ q = next_ntt_prime(20, 8), NTRU_128's gadgets 2^3 x 6 and 2^1 x 16, n_lwe=8).
 - ``poly_rotate32``, ``modulus_switch_q``, ``extract_lwe_ntru``,
   ``lwe_phase_q``, the ``lattice/ntru`` products and ``ntru_key_switch``
   equal JAX on JAX-made keys;
-- a full ``ntru_blind_rotate`` on both routes (NTT evk, MXU evk) equals the
-  JAX rotation, and NAND/AND/OR/NOT on JAX-made keys through
-  ``from_jax_ntru_context`` equal the JAX gates;
+- a full ``ntru_blind_rotate`` on both evk forms (NTT evk, MXU evk) equals
+  the JAX rotation, and NAND/AND/OR/NOT on JAX-made keys through
+  ``from_jax_ntru_context`` equal the JAX gates; both forms run through
+  ``NtruStepPlan``, a call a key slice;
 - the port's own keys (``make_ntru_keys``) decrypt through every gate.
 
 Tolerance: zero (bit-equal words).
@@ -148,14 +149,34 @@ def test_ntru_key_switch_matches_jax(keys):
     np.testing.assert_array_equal(got.numpy(), _np(want))
 
 
-def test_ntru_blind_rotate_both_routes_match_jax(keys):
+@pytest.fixture
+def step_calls(monkeypatch):
+    """Counts the calls of ``NtruStepPlan`` (one a CMux step of a rotation,
+    whichever evk form it runs on)."""
+    calls = []
+    plan_call = ntru_cmux_mxu.NtruStepPlan.__call__
+
+    def counted(self, acc, degrees, kv, kpre):
+        calls.append(tuple(kv.shape))
+        return plan_call(self, acc, degrees, kv, kpre)
+
+    monkeypatch.setattr(ntru_cmux_mxu.NtruStepPlan, "__call__", counted)
+    return calls
+
+
+def test_ntru_blind_rotate_both_routes_match_jax(keys, step_calls):
+    """Both evk forms run one ``NtruStepPlan`` loop, a step a key slice:
+    the NTT evk on its ``(L, N)`` rows, the MXU pack on its ``(L, A,
+    128)`` rows."""
     jctx, port, port_mxu = keys["jctx"], keys["port"], keys["port_mxu"]
     lwe = np.random.default_rng(11).integers(0, 2 * N, (2, PARAMS.lwe_dim + 1)).astype(np.int32)
     tp = jnb.ntru_test_polynomial(N, Q, jctx.delta)
     want = _np(jnb.ntru_blind_rotate(jctx, keys["evk"], jnp.asarray(lwe), tp))
     tpt = nb.ntru_test_polynomial(N, Q, port.ctx.delta)
     got_ntt = nb.ntru_blind_rotate(port.ctx, port.evk, torch.from_numpy(lwe), tpt)
+    assert step_calls == [(PARAMS.level, N)] * PARAMS.lwe_dim
     got_mxu = nb.ntru_blind_rotate(port.ctx, port_mxu.evk_mxu, torch.from_numpy(lwe), tpt)
+    assert step_calls[PARAMS.lwe_dim:] == [(PARAMS.level, N // 128, 128)] * PARAMS.lwe_dim
     np.testing.assert_array_equal(got_ntt.numpy(), want)
     np.testing.assert_array_equal(got_mxu.numpy(), want)
 
@@ -171,7 +192,7 @@ def _jax_enc(keys, bits, seed):
 
 
 @pytest.mark.parametrize("name", ["ntru_nand", "ntru_and", "ntru_or"])
-def test_ntru_gates_match_jax(keys, name):
+def test_ntru_gates_match_jax(keys, name, step_calls):
     jctx, port, port_mxu = keys["jctx"], keys["port"], keys["port_mxu"]
     c1, c2 = _jax_enc(keys, [0, 0, 1, 1], 1), _jax_enc(keys, [0, 1, 0, 1], 2)
     if name == "ntru_nand":  # and NOT, composed: NAND(NOT a, NOT b) = OR(a, b)
@@ -181,6 +202,7 @@ def test_ntru_gates_match_jax(keys, name):
     want = _np(getattr(jng, name)(jctx, keys["evk"], keys["ksk"], keys["jks"],
                                   jnp.asarray(c1, jnp.uint32), jnp.asarray(c2, jnp.uint32)))
     got = getattr(ng, name)(port.ctx, port.evk, port.ksk, port.ks_basis, _t(c1), _t(c2))
+    assert step_calls == [(PARAMS.level, N)] * PARAMS.lwe_dim  # through NtruStepPlan
     got_mxu = getattr(ng, name)(port.ctx, port_mxu.evk_mxu, port.ksk, port.ks_basis, _t(c1),
                                 _t(c2))
     np.testing.assert_array_equal(got.numpy(), want)

@@ -18,8 +18,11 @@
   runs (``slice_mac``), the swizzled slice, the inverse passes and the last
   lc stages across the slices (``cross_inverse``), the rotation's sources
   read from whichever slice holds them, every output word written once)
-  equals ``ntru_stage2_plain``, and a model of kernel I's 16-byte groups
-  equals ``ntru_digits_plain``.
+  equals ``ntru_stage2_plain``; with its digit output over ``f`` at C = 1,
+  4, 8, 16 (each word of ``f`` read by one block alone and rewritten once
+  by it after its MAC) the digits equal ``ntru_digits_plain`` of the
+  output; and a model of kernel I's 16-byte groups equals
+  ``ntru_digits_plain``.
 
 Tolerance: zero (bit-equal words).
 """
@@ -155,44 +158,61 @@ def test_staged_rotation_on_jax_keys():
 # -- numpy models of kernels I and J -----------------------------------------
 
 
-def model_digits(basis, acc):
-    """Kernel I on flat uint64 words: each thread's group of 4 adjacent
-    words, the pre-adjust, the carry chain (digit_step), level l's 4 digits
-    stored at group it + l (words / 4) of the output."""
-    pack = nm._basis_pack(basis)
+def chain_digits(pack, v):
+    """The digit chain (``chain_start``, then ``digit_step`` a level) on
+    canonical uint64 words ``v``, from the basis pack's words: ``(L,
+    words)``."""
     level, lb, drop, bm1, cmask, mmb, init = (int(x) for x in pack[:7])
     wrap, adj = int(pack[7]), int(pack[8])
+    if wrap:
+        v = np.where(v >= wrap, (v + adj) & np.uint64(0xFFFFFFFF), v)
+    carry = ((v & np.uint64(init)) != 0).astype(np.uint64)
+    out = np.zeros((level,) + v.shape, dtype=np.uint64)
+    for lv in range(level):
+        temp = ((v >> np.uint64(drop + lv * lb)) & np.uint64(bm1)) + carry
+        nxt = ((temp & np.uint64(cmask)) != 0).astype(np.uint64)
+        sgn = np.where(temp > bm1, np.uint64(0), (temp + np.uint64(mmb)) & np.uint64(0xFFFFFFFF))
+        carry = nxt
+        out[lv] = np.where(nxt == 1, sgn, temp)
+    return out
+
+
+def model_digits(basis, acc):
+    """Kernel I on flat uint64 words: each thread's group of 4 adjacent
+    words, the chain, level l's 4 digits stored at group it + l (words / 4)
+    of the output."""
+    pack = nm._basis_pack(basis)
+    level = int(pack[0])
     words = acc.reshape(-1).astype(np.uint64)
     groups = words.size // 4
     out = np.zeros((level, words.size), dtype=np.uint64)
     written = np.zeros(level * words.size, dtype=np.int64)
     for it in range(groups):
-        v = words[4 * it:4 * it + 4].copy()
-        if wrap:
-            v = np.where(v >= wrap, (v + adj) & np.uint64(0xFFFFFFFF), v)
-        carry = ((v & np.uint64(init)) != 0).astype(np.uint64)
+        d = chain_digits(pack, words[4 * it:4 * it + 4])
         for lv in range(level):
-            temp = ((v >> np.uint64(drop + lv * lb)) & np.uint64(bm1)) + carry
-            nxt = ((temp & np.uint64(cmask)) != 0).astype(np.uint64)
-            sgn = np.where(temp > bm1, np.uint64(0), (temp + np.uint64(mmb)) & np.uint64(0xFFFFFFFF))
-            carry = nxt
             o = (it + lv * groups) * 4  # group it + l (words / 4), 16 bytes
-            out.reshape(-1)[o:o + 4] = np.where(nxt == 1, sgn, temp)
+            out.reshape(-1)[o:o + 4] = d[lv]
             written[o:o + 4] += 1
     assert (written == 1).all()
     return out.reshape((level,) + acc.shape)
 
 
-def model_stage2(tables, f, evk, acc, degrees, lc=None):
+def model_stage2(tables, f, evk, acc, degrees, lc=None, basis=None):
     """Kernel J on flat uint64 words: ``f (L, B, n)`` below 4q, ``evk (L,
     n)``, ``acc (B, n)``, ``degrees (B,)``, a row over 2^lc slices (by
     default the fewest a slice of 2^15 words allows); the host pack as the
-    C entry reads it."""
+    C entry reads it.  With ``basis`` the digits of each output word go
+    over ``f`` (updated in place), by the thread that writes the word, and
+    the model proves that each word of ``f`` is read by one block alone, in
+    its MAC, and written once, by that block, after its MAC."""
     bsz, n = acc.shape
     level = evk.shape[0]
-    h = nm.stage2_pack(tables, level, (11, 12))
+    h = nm.stage2_pack(tables, level, (11, 12), basis)
     L, log_n = int(h[0]), int(h[1])
     assert (L, tuple(h[2:4])) == (level, (11, 12))
+    if basis is not None:  # the C entry's check, and the chain's pack
+        assert int(h[11]) == L and int(h[20]) == int(h[4])
+        chain = h[11:21]
     q, ratio = int(h[4]), int(h[4 + 6])
     pl = tables.plans[0]
     assert q == pl.q
@@ -204,6 +224,9 @@ def model_stage2(tables, f, evk, acc, degrees, lc=None):
     ff, kf = f.reshape(-1), evk.reshape(-1)
     out = acc.reshape(-1).copy()
     written = np.zeros(out.shape, dtype=np.int64)
+    reader = np.full(ff.shape, -1, dtype=np.int64)  # the block that read f's word
+    f_written = np.zeros(ff.shape, dtype=np.int64)
+    mac_done = set()
     tw = pl.inv_roots.numpy().astype(np.uint64)
     twp = pl.inv_roots_precon.numpy().astype(np.uint64)
     r0 = remainder_stages(l)
@@ -212,8 +235,12 @@ def model_stage2(tables, f, evk, acc, degrees, lc=None):
         sm = np.zeros((C, nl), dtype=np.uint64)
         for s in range(C):  # row lv: f[lv, b] and evk[lv]
             lane0 = s << l
-            sm[s, swz(np.arange(nl))] = slice_mac(ff, (b << log_n) + lane0, plane, kf, lane0, n,
-                                                  L, nl, q, ratio)
+            base = (b << log_n) + lane0
+            read = (base + np.arange(L)[:, None] * plane + np.arange(nl)).reshape(-1)
+            assert (reader[read] == -1).all()  # no other block read these words
+            reader[read] = b * C + s
+            sm[s, swz(np.arange(nl))] = slice_mac(ff, base, plane, kf, lane0, n, L, nl, q, ratio)
+            mac_done.add(b * C + s)
         if lc == 0:
             inverse_slice(sm[0], l, lambda ti: (tw[ti], twp[ti]), pl, passes, True)
         else:
@@ -240,7 +267,14 @@ def model_stage2(tables, f, evk, acc, degrees, lc=None):
             row = b * n + g
             out[row] = reduce_once(out[row] + t, q)
             written[row] += 1
+            if basis is not None:  # each word's digits, level lv at row + lv plane
+                at = row[None, :] + np.arange(L)[:, None] * plane
+                assert b * C + s in mac_done and (reader[at] == b * C + s).all()
+                ff[at] = chain_digits(chain, out[row])
+                f_written[at] += 1
     assert (written == 1).all()  # every word by exactly one thread of one block
+    if basis is not None:
+        assert (f_written == 1).all()  # f's every word, once, by the block that read it
     return out.reshape(acc.shape)
 
 
@@ -280,6 +314,42 @@ def _check_model_j(log_n, q_bits, level, bsz, lc):
                                           for x in (f, evk, acc, degrees)))
     got = model_stage2(tables, f, evk, acc, degrees, lc)
     np.testing.assert_array_equal(got.astype(np.int64), want.numpy())
+
+
+# (log_n, q_bits, log_basis, level, batch, lc): J with its digits over f at
+# C = 1, 4, 8 and 16 slices a row
+MODEL_DIGITS = [(10, 20, 3, 6, 2, 0), (12, 30, 10, 3, 2, 2), (13, 20, 3, 6, 1, 3),
+                (14, 20, 3, 6, 1, 4)]
+
+
+@pytest.mark.parametrize("log_n,q_bits,log_basis,level,bsz,lc", MODEL_DIGITS)
+def test_model_j_digits_over_f(log_n, q_bits, log_basis, level, bsz, lc):
+    """J's numpy model with the digit output written over ``f`` in place:
+    every word of ``f`` read by one block alone and rewritten once by it,
+    after its MAC (asserted inside the model); the accumulator equals
+    ``ntru_stage2_plain``'s and the digits ``ntru_digits_plain`` of it, and
+    the CPU wrapper's digits over its ``f`` are the same words."""
+    n = 1 << log_n
+    q = next_ntt_prime(q_bits, log_n)
+    tables = NttTables32(log_n, (q,))
+    basis = ApproxSignedBasis32(q, log_basis, level)
+    rng = np.random.default_rng(log_n * 11 + lc)
+    f = rng.integers(0, 4 * q, (level, bsz, n), dtype=np.uint64)
+    evk = rng.integers(0, q, (level, n), dtype=np.uint64)
+    acc = rng.integers(0, q, (bsz, n), dtype=np.uint64)
+    acc[0, :2] = [q - 1, basis.wrap_threshold or 1]
+    degrees = np.array([n + 3, 2 * n - 1][:bsz], dtype=np.int64)
+    ins = [torch.from_numpy(x.astype(np.int64)) for x in (f, evk, acc, degrees)]
+    want, want_digits = nm.ntru_stage2_plain(tables, *ins, basis)
+    assert torch.equal(want_digits, nm.ntru_digits_plain(basis, want))
+    ff = f.copy()
+    got = model_stage2(tables, ff, evk, acc, degrees, lc, basis)
+    np.testing.assert_array_equal(got.astype(np.int64), want.numpy())
+    np.testing.assert_array_equal(ff.astype(np.int64), want_digits.numpy())
+    f32 = ins[0].to(torch.int32)
+    out = nm.ntru_stage2(tables, f32, ins[1], ins[2].to(torch.int32), ins[3], basis=basis)
+    assert torch.equal(out.to(torch.int64), want)
+    assert torch.equal(f32.to(torch.int64), want_digits)
 
 
 @pytest.mark.parametrize("q_bits,log_basis,level", [(20, 3, 6), (30, 10, 3), (20, 1, 16)])
