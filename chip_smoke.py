@@ -100,7 +100,9 @@ non-zero):
     plain versions at those shapes (the u64 pair at both shards, with the
     cluster size and rows a block each launch picks); 15.3: the u64 forward +
     inverse trip at D = 4 and 2 timed over 20 chained trips, with its host
-    ops, the card's busy time with the host ahead and the idle share;
+    ops, the card's busy time with the host ahead and the idle share; 15.4:
+    n = 2^18 over D = 2 (u32 and u64, shards of 2^17 words) against the
+    unsharded plain transforms, and the four stage kernels at log_w 17;
 16. row 13, the coefficient-sharded byte-radix NTT (four half-transform
     kernels around one ``all_to_all``) at ``bench_coeff_sharded_mxu.py``'s
     shape (n = 4096, batch 64, q = 2^50 - 2^14 + 1): the sharded forward at
@@ -146,25 +148,29 @@ non-zero):
     under ``PRIMUS_DEBUG=1`` before its launch, and ``secrets.delete``
     zeroing the reloaded secrets on the card;
 21. the NTT-key blind rotation past the one-launch step's caps: kernels 1-2
-    at log_n 15 and 16 (a row over a cluster) over 2 and 3 primes, 1 and 16
-    rows a prime, every ``out_factor`` against the plain versions, timed,
-    and log_n 17 refused before any launch; kernel H (``cmux_stage2``) and
-    the staged step (kernel G, kernel 1, kernel H) over 4 steps at batch 2
-    against the plain step at N = 2^15 (L 3, kp 2), 2^16 (kp 3), 2^10 with
-    k = 2 over 3 primes and 2^10 with a 2^1 x 20 gadget, H's and the step's
-    device ms at N = 2^15, batch 1 and 16, against H's bound, with H's grid
-    (a row over a cluster of C slices, C > 1 asserted); BOOLEAN_128
+    at log_n 15, 16 and 17 (a row over a cluster of 2, 4 or 8 blocks) over 2
+    and 3 primes, 1 and 16 rows a prime, every ``out_factor`` against the
+    plain versions, timed (and at the 2^17 PBS's rows), and log_n 18 refused
+    before any launch; kernel H (``cmux_stage2``) and the staged step
+    (kernel G, kernel 1, kernel H) over 4 steps at batch 2 against the plain
+    step at N = 2^15 (L 3, kp 2), 2^16 (kp 3), 2^10 with k = 2 over 3 primes,
+    2^10 with a 2^1 x 20 gadget and 2^17 (kp 3), H's and the step's device
+    ms at N = 2^15 and 2^17, batch 1 and 16, against H's bound (G and F at
+    2^17 too), with H's grid (a row over a cluster of C slices, C > 1
+    asserted); BOOLEAN_128
     with its ring widened to N = 2^15 (``make_context`` on the card) running
     a 4-bit programmable bootstrap (``lut_test_polynomial`` of 3m + 1 mod
     16) on 16 ciphertexts, each decrypted under the GLWE key, the phase
     error against ``noise.blind_rotate``, exact launches (630 each of G,
     kernel 1 and H, one F, no fused step), ms at batch 1 and 16 and the
-    idle share; a BOOLEAN_128 bootstrap still on the fused step alone;
+    idle share; a BOOLEAN_128 bootstrap still on the fused step alone; the
+    same programmable bootstrap at N = 2^17 (21.5: the key made in chunks of
+    LWE indices, keygen's seconds and peak device memory);
 22. the MXU bootstrap key and the NTRU MXU evk past kernels A-C's caps:
     the route rules (``mxu_step_route``, ``ntru_step_route``, on kernels A
     and B's C entry) over a grid of shapes, ``plan_for``'s host seconds at
     N = 2^15 and 2^16; kernel C's route (kernel 1 at ``out_factor=1``) at
-    log_n 13-16, kp 2, 16 rows, against its plain version; BOOLEAN_128 at N
+    log_n 13-17, kp 2, 16 rows, against its plain version; BOOLEAN_128 at N
     = 4096 on the MXU key (k1 L = 6: past kernel A, so the NTT key's fused
     step on the pack's values) running NAND at batch 64 with the key switch
     against its truth table, exactly 630 fused-step launches a gate and
@@ -181,14 +187,22 @@ non-zero):
     rotation at batch 2 against the CPU's plain rotation (exact launches:
     I once, 700 each of kernel 1 and J), the key-switched output's phase
     std (``noise.py`` has no NTRU model: the measured std alone), the
-    rotation's ms at batch 1 and 16 and the idle share; BOOLEAN_128 and
-    NTRU_128 still on kernels A and B (630 and 700 launches a gate, none of
-    I or J);
+    rotation's ms at batch 1 and 16 and the idle share; 22.6: the same
+    gadget at N = 2^17 (the evk alone), I and J timed, 8 staged steps against
+    the plain step, a 700-step rotation's launches and ms at batch 1 and 16;
+    BOOLEAN_128 and NTRU_128 still on kernels A and B (630 and 700 launches a
+    gate, none of I or J);
 23. DCRT bases past the four moduli of one u64 launch: 5 and 6 moduli of
     50 bits at N = 4096 with ``bench_dcrt.py``'s gadget (2^25, L = 10 and
     12): the four u64 transforms at the rotation's shapes against their
     plain versions (two launches a call), 8 rotation steps at batch 2 on
-    both routes against the CPU's plain rotation, exact launch counts.
+    both routes against the CPU's plain rotation, exact launch counts;
+    23.7: row 9's four u64 functions (forward64, inverse64, D, E) at log_n
+    13, 14 and 15 on row 10's passes against their plain versions, one
+    launch a call; 23.8: 4 DCRT rotation steps at N = 8192 on route
+    ``"mxu8"`` against ``"butterfly"`` and the CPU.
+
+Each phase ends with its seconds.
 
 The line before the last is the kernel table as JSON (every kernel with its
 launches on its main path, its time, its plain version's time and its bound,
@@ -256,7 +270,22 @@ def four_step_macs(rows: int, n: int, out_planes: int, in_bytes: int,
     return rows * out_planes * n * (in_bytes * a + (in_bytes2 or in_bytes) * b)
 
 
+_PHASE = {"name": None, "t0": 0.0}
+
+
+def end_phase() -> None:
+    """Prints the seconds of the phase that is running, if any."""
+    if _PHASE["name"] is not None:
+        log(f"   ({_PHASE['name']}: {time.perf_counter() - _PHASE['t0']:.1f} s)")
+        _PHASE["name"] = None
+
+
 def log(msg: str) -> None:
+    """Prints ``msg``; a "== phase" title first ends the running phase
+    (its seconds) and starts the next one's clock."""
+    if msg.startswith("== phase"):
+        end_phase()
+        _PHASE.update(name=msg[3:].split(":")[0], t0=time.perf_counter())
     print(msg, flush=True)
 
 
@@ -923,6 +952,8 @@ CS_SHARDS64 = (4, 2)  # phase 15's u64 shape: phase 12's n = 2^16 and LARGE_Q ov
 # phase 15's u32 large ring, LARGE_ROWS rows: (log_n, D), shards of 2^14, 2^15, 2^16 words
 CS_LARGE32 = ((16, 4), (16, 2), (17, 2))
 CS_Q32L = 1073479681  # next_ntt_prime(30, 17): = 1 mod 2^18, below 2^30
+CS_TOP_LOG_N = 18  # 15.4: n = 2^18 over D = 2, shards of 2^17 words (row 11 at log_w 17)
+CS_Q32T = 1056440321  # next_ntt_prime(30, 18): = 1 mod 2^19, below 2^30 (LARGE_Q is too)
 CS_TRIPS = 20  # 15.3: chained forward + inverse trips timed
 QUEUED_OPS = 1000  # host ops queued behind one sleep: more fill the launch queue and block the host
 
@@ -1217,6 +1248,8 @@ def phase15_coeff(torch, dev, table) -> dict:
         log_stage_shares(table, ("ntt64_stages_forward" + tag, "ntt64_stages_inverse" + tag),
                          LARGE_ROWS, grids)
 
+    phase15_top(torch, dev, table, g)
+
     log(f"-- 15.3: the u64 and u32 forward + inverse trips at n = 2^{LARGE_LOG_N}, {LARGE_ROWS} "
         f"rows, timed over {CS_TRIPS} chained trips (CUDA events)")
     trips = (("u64", cs.coeff_sharded_forward64, cs.coeff_sharded_inverse64, q64, x64),
@@ -1241,6 +1274,98 @@ def phase15_coeff(torch, dev, table) -> dict:
                 + ("not measured (the host fell behind the sleep)" if busy is None else
                    f"{busy:.4f} ms a trip with the host ahead (idle share {1 - busy / ms:.3f})"))
     return counts
+
+
+def phase15_top(torch, dev, table, g) -> None:
+    """15.4: the coefficient-sharded NTT at n = 2^18 over D = 2 (u32 at
+    ``CS_Q32T``, u64 at ``LARGE_Q``): the forward equal to the unsharded
+    plain transform, the round trip returning the input, one stage launch
+    a shard a transform; then row 11's four kernels at log_w 17 (a shard's
+    rows, its tables) against their plain versions, timed (tags "@w17")."""
+    from primus_fhe_tpu_torch.numeric.limb import mul_hi_u64
+    from primus_fhe_tpu_torch.ops import ntt_stages as st
+    from primus_fhe_tpu_torch.parallel import LocalMesh, shard, unshard
+    from primus_fhe_tpu_torch.parallel import coeff_sharded as cs
+    from primus_fhe_tpu_torch.transforms.ntt import forward32, forward64
+    from primus_fhe_tpu_torch.transforms.plan import build_plan32, build_plan64
+
+    log_n, d, spec = CS_TOP_LOG_N, 2, (None, "residue")
+    n, log_w = 1 << log_n, CS_TOP_LOG_N - 1
+    width = n // d
+    log(f"-- 15.4: n = 2^{log_n} over D = {d} (rows of 2^{log_w} words a shard), u32 q = "
+        f"{CS_Q32T} and u64 q = {LARGE_Q}, {LARGE_ROWS} rows")
+    kernels = (st.ntt32_stages_forward, st.ntt32_stages_inverse, st.ntt64_stages_forward,
+               st.ntt64_stages_inverse)
+    before = [k.launches for k in kernels]
+    mesh = LocalMesh(d, 1, dev)
+    for bits, q, fwd_fn, inv_fn, plain in (
+            (32, CS_Q32T, cs.coeff_sharded_forward32, cs.coeff_sharded_inverse32,
+             lambda x: forward32(build_plan32(log_n, CS_Q32T, dev), x)),
+            (64, LARGE_Q, cs.coeff_sharded_forward64, cs.coeff_sharded_inverse64,
+             lambda x: forward64(build_plan64(log_n, LARGE_Q, dev), x))):
+        x = torch.randint(0, q, (LARGE_ROWS, n), generator=g, device=dev)
+        f = fwd_fn(mesh, "residue", log_n, q, shard(mesh, x, spec))
+        if not torch.equal(unshard(mesh, f, spec), plain(x)):
+            raise AssertionError(f"u{bits} n = 2^{log_n} over D = {d}: the sharded forward "
+                                 "differs from the unsharded plain transform")
+        back = inv_fn(mesh, "residue", log_n, q, f)
+        if not torch.equal(unshard(mesh, back, spec), x):
+            raise AssertionError(f"u{bits} n = 2^{log_n} over D = {d}: the round trip does not "
+                                 "return the input")
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    if launched != [d] * 4:
+        raise AssertionError(f"n = 2^{log_n} over D = {d}: stage launches {launched}, want "
+                             f"{[d] * 4}")
+    log(f"u32 and u64 at n = 2^{log_n} over D = {d}: the forward equals the unsharded plain "
+        f"transform, the round trip returns the input; stage launches {launched} (one a shard "
+        "a transform)")
+    tag, cols = f"@w{log_w}", slice(width, 2 * width)
+    w, p = (t[1:, cols].to(dev) for t in cs.build_expanded_tables32(log_n, CS_Q32T))
+    wi, pi = (t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables32(log_n, CS_Q32T))
+    w32, p32, wi32, pi32 = (t.to(torch.int32) for t in (w, p, wi, pi))
+    qt = CS_Q32T
+    xf = torch.randint(0, 4 * qt, (LARGE_ROWS, width), generator=g, device=dev)
+    xi = torch.randint(0, 2 * qt, (LARGE_ROWS, width), generator=g, device=dev)
+    xf32, xi32 = xf.to(torch.int32), xi.to(torch.int32)
+    bf, bi = (bound(4 * 2 * LARGE_ROWS * width + lanes * 8 * log_w,
+                    muls32=ntt_muls(LARGE_ROWS, width)) for lanes in (width, width // 2))
+    compare_kernel(torch, table, "ntt32_stages_forward" + tag, LARGE_ROWS,
+                   lambda: st.ntt32_stages_forward(log_w, qt, w, p, xf),
+                   lambda: st.ntt32_stages_forward(log_w, qt, w32, p32, xf32),
+                   lambda: st.ntt32_stages_forward_plain(log_w, qt, w, p, xf), bf)
+    compare_kernel(torch, table, "ntt32_stages_inverse" + tag, LARGE_ROWS,
+                   lambda: st.ntt32_stages_inverse(log_w, qt, wi, pi, xi),
+                   lambda: st.ntt32_stages_inverse(log_w, qt, wi32, pi32, xi32),
+                   lambda: st.ntt32_stages_inverse_plain(log_w, qt, wi, pi, xi), bi)
+    if not torch.equal(st.ntt32_stages_forward(log_w, qt, w, p, xf, 4),
+                       st.ntt32_stages_forward_plain(log_w, qt, w, p, xf, 4)):
+        raise AssertionError(f"ntt32_stages_forward log_w {log_w} out_factor 4: kernel != plain")
+    log_stage_shares(table, ("ntt32_stages_forward" + tag, "ntt32_stages_inverse" + tag),
+                     LARGE_ROWS, [st.launch_grid(log_w, qt, LARGE_ROWS, fwd, 32)
+                                  for fwd in (True, False)])
+    q64 = LARGE_Q
+    w, p = (t[1:, cols].to(dev) for t in cs.build_expanded_tables64(log_n, q64))
+    wi, pi = (t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables64(log_n, q64))
+    words = torch.randint(-(1 << 63), (1 << 63) - 1, (2, LARGE_ROWS, width), generator=g,
+                          device=dev)
+    xf, xi = mul_hi_u64(words[0], 4 * q64), mul_hi_u64(words[1], 2 * q64)  # [0, 4q), [0, 2q)
+    b64 = bound(8 * 2 * LARGE_ROWS * width + 16 * log_w * (width // 2),
+                muls32=ntt_muls(LARGE_ROWS, width, u64=True))
+    compare_kernel64(torch, table, "ntt64_stages_forward" + tag, LARGE_ROWS,
+                     lambda: st.ntt64_stages_forward(log_w, q64, w, p, xf),
+                     lambda: st.ntt64_stages_forward_plain(log_w, q64, w, p, xf), b64)
+    compare_kernel64(torch, table, "ntt64_stages_inverse" + tag, LARGE_ROWS,
+                     lambda: st.ntt64_stages_inverse(log_w, q64, wi, pi, xi),
+                     lambda: st.ntt64_stages_inverse_plain(log_w, q64, wi, pi, xi), b64)
+    for of in (2, 4):
+        if not torch.equal(st.ntt64_stages_forward(log_w, q64, w, p, xf, of),
+                           st.ntt64_stages_forward_plain(log_w, q64, w, p, xf, of)):
+            raise AssertionError(f"ntt64_stages_forward log_w {log_w} out_factor {of}: "
+                                 "kernel != plain")
+    log_stage_shares(table, ("ntt64_stages_forward" + tag, "ntt64_stages_inverse" + tag),
+                     LARGE_ROWS, [st.launch_grid(log_w, q64, LARGE_ROWS, fwd)
+                                  for fwd in (True, False)])
 
 
 def log_stage_shares(table, names, rows, grids) -> None:
@@ -2120,10 +2245,12 @@ def phase20_tracked(torch, dev, ctx, smi, reset_counts, read_counts) -> dict:
 
 
 WIDE_LOG_N = 15  # phase 21: BOOLEAN_128 with its ring widened to N = 2^15
+TOP_LOG_N = 17  # 21.1, 21.2, 21.5 and 22.6: the widest ring kernels 1-2, H and J take
 WIDE_BATCH = 16  # 21.2's batch for kernel H's times; 21.3's 16 ciphertexts
-MSG_BITS = 4  # 21.3: the programmable bootstrap's message bits (and a padding bit)
+MSG_BITS = 4  # 21.3 and 21.5: the programmable bootstrap's message bits (and a padding bit)
 # 21.2: (log_n, log_basis, level, k, bound_bits or None: make_convolver's)
-STAGED_SHAPES = [(15, 7, 3, 1, None), (16, 7, 3, 1, 60), (10, 7, 3, 2, 60), (10, 1, 20, 1, None)]
+STAGED_SHAPES = [(15, 7, 3, 1, None), (16, 7, 3, 1, 60), (10, 7, 3, 2, 60), (10, 1, 20, 1, None),
+                 (17, 7, 3, 1, None)]
 
 
 def stage2_bound(kp: int, bsz: int, k1: int, level: int, n: int) -> tuple[float, str]:
@@ -2135,108 +2262,19 @@ def stage2_bound(kp: int, bsz: int, k1: int, level: int, n: int) -> tuple[float,
     return bound(nbytes, muls32=kp * bsz * k1 * k1 * level * n + ntt_muls(kp * bsz * k1, n))
 
 
-def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> dict:
-    """Phase 21: the NTT-key blind rotation past the one-launch step's caps.
-    21.1 kernels 1-2 at log_n 15-16 (a row over a cluster); 21.2 kernel H
-    and the staged step (kernel G, kernel 1, kernel H) against the plain
-    step; 21.3 a 4-bit programmable bootstrap at N = 2^15 on the card;
-    21.4 BOOLEAN_128 still on the fused step.  Returns 21.3's launch counts
-    of one bootstrap."""
+def time_stage2(torch, dev, table, smi, g, residues, log_n: int, tag: str) -> None:
+    """21.2's kernel H at BOOLEAN_128's gadget widened to ``2^log_n``, batch
+    1 and ``WIDE_BATCH``, against its plain version (the table's
+    ``"cmux_stage2" + tag``), and the staged step's device ms with G's and
+    kernel 1's."""
     import dataclasses
 
-    from primus_fhe_tpu_torch import noise
     from primus_fhe_tpu_torch import params as P
-    from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap, lut_test_polynomial
     from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
     from primus_fhe_tpu_torch.lattice import tfhe
-    from primus_fhe_tpu_torch.lattice.lwe import encrypt_torus32, phase_torus32
-    from primus_fhe_tpu_torch.ops import cmux_front, cmux_fused, ntt32
-    from primus_fhe_tpu_torch.transforms.torus import TorusConvolver32
+    from primus_fhe_tpu_torch.ops import cmux_front, cmux_fused, ntt32, rotate
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 21)
-
-    def residues(primes, shape, factor):
-        q = torch.tensor(primes, dtype=torch.int64, device=dev).reshape((-1,) + (1,) * len(shape))
-        return torch.randint(0, 1 << 40, (len(primes),) + shape, generator=g, device=dev) % (
-            factor * q)
-
-    # -- 21.1: kernels 1-2 at log_n 15-16 --------------------------------------
-    log("-- 21.1: kernels 1-2 at log_n 15-16 (a row over a cluster of 2 or 4 blocks)")
-    for log_n in (15, 16):
-        n = 1 << log_n
-        for kp in (2, 3):
-            tables = TorusConvolver32(log_n, 56 if kp == 2 else 60).ntt
-            if len(tables.primes) != kp:
-                raise AssertionError(f"log_n {log_n}: {len(tables.primes)} primes, want {kp}")
-            for rows in (1, WIDE_BATCH):
-                x4, x2 = residues(tables.primes, (rows, n), 4), residues(tables.primes, (rows, n), 2)
-                for of in (1, 4):
-                    if not torch.equal(ntt32.forward32(tables, x4, of),
-                                       ntt32.forward32_plain(tables, x4, of)):
-                        raise AssertionError(f"forward32 log_n {log_n} kp {kp} x {rows}: != plain")
-                for of in (1, 2):
-                    if not torch.equal(ntt32.inverse32(tables, x2, of),
-                                       ntt32.inverse32_plain(tables, x2, of)):
-                        raise AssertionError(f"inverse32 log_n {log_n} kp {kp} x {rows}: != plain")
-                b = bound(8 * kp * rows * n, muls32=ntt_muls(kp * rows, n))
-                x4_32, x2_32 = x4.to(torch.int32), x2.to(torch.int32)
-                compare_kernel(torch, table, f"ntt32_forward@log{log_n}kp{kp}", rows,
-                               lambda: ntt32.forward32(tables, x4, 4),
-                               lambda: ntt32.forward32(tables, x4_32, 4),
-                               lambda: ntt32.forward32_plain(tables, x4, 4), b)
-                compare_kernel(torch, table, f"ntt32_inverse@log{log_n}kp{kp}", rows,
-                               lambda: ntt32.inverse32(tables, x2),
-                               lambda: ntt32.inverse32(tables, x2_32),
-                               lambda: ntt32.inverse32_plain(tables, x2), b)
-    log("kernels 1-2 at log_n 15 and 16, kp 2 and 3, 1 and 16 rows a prime: every out_factor "
-        "bit-equal to the plain versions (timed: the forward at out_factor 4, the staged "
-        "route's, and the canonical inverse)")
-    big = TorusConvolver32(17).ntt
-    before = (ntt32.forward32.launches, ntt32.inverse32.launches)
-    for fn in (ntt32.forward32, ntt32.inverse32):
-        try:
-            fn(big, torch.zeros((len(big.primes), 1, 1 << 17), dtype=torch.int64, device=dev))
-        except ValueError as e:
-            if "log_n 1-16" not in str(e):
-                raise
-            refusal = str(e)
-        else:
-            raise AssertionError(f"{fn.__name__} took log_n 17 on the card")
-    if (ntt32.forward32.launches, ntt32.inverse32.launches) != before:
-        raise AssertionError("log_n 17 launched a kernel")
-    log(f"log_n 17: ValueError before any launch ({refusal})")
-
-    # -- 21.2: kernel H and the staged step ------------------------------------
-    log("-- 21.2: kernel H (cmux_stage2) and the staged step against the plain step")
-    for log_n, log_basis, level, k, bound_bits in STAGED_SHAPES:
-        conv = (TorusConvolver32(log_n, bound_bits) if bound_bits
-                else tfhe.make_convolver(log_n, level, k, log_basis))
-        basis = ApproxSignedBasis32(None, log_basis, reverse_length=level)
-        n, kp, k1 = 1 << log_n, conv.count, k + 1
-        plan = cmux_fused.CmuxStepPlan(conv, basis, k1, dev)
-        if plan.route != "staged":
-            raise AssertionError(f"{(log_n, level, kp, k1)}: route {plan.route}, want staged")
-        acc = torch.randint(0, 1 << 32, (2, k1, n), generator=g, device=dev)
-        key = residues(conv.primes, (k1, level, k1, n), 1)
-        acc32, key32 = acc.to(torch.int32), key.to(torch.int32)
-        counted = (cmux_front.cmux_front, ntt32.forward32, cmux_fused.cmux_stage2,
-                   cmux_fused.fused_cmux_step)
-        l0 = [fn.launches for fn in counted]
-        for step in range(4):
-            deg = torch.randint(0, 2 * n, (2,), generator=g, device=dev, dtype=torch.int32)
-            acc = cmux_fused.cmux_stage2_plain(
-                conv, cmux_fused.cmux_stage1_plain(conv, basis, acc, deg), key, acc)
-            plan(acc32, deg, key32, out=acc32)
-            if not torch.equal(acc32.to(torch.int64) & 0xFFFFFFFF, acc):
-                raise AssertionError(f"staged step {step} at {(log_n, level, kp, k1)} != plain")
-        launched = [fn.launches - b for fn, b in zip(counted, l0)]
-        if launched != [4, 4, 4, 0]:
-            raise AssertionError(f"staged steps at {(log_n, level, kp, k1)}: launches {launched}")
-        log(f"log_n {log_n}, 2^{log_basis} x {level}, k1 {k1} over {kp} primes (kp k1 = "
-            f"{kp * k1}): 4 staged steps at batch 2 bit-equal to the plain step; launches G / "
-            f"kernel 1 / H / fused {launched}; H's launch (blocks a row, threads, shared bytes, "
-            f"clusters held) {cmux_fused.launch_grid(conv, k1, 2)}")
-    wide = dataclasses.replace(P.BOOLEAN_128, log_n=WIDE_LOG_N)
+    wide = dataclasses.replace(P.BOOLEAN_128, log_n=log_n)
     conv = tfhe.make_convolver(wide.log_n, wide.level, wide.glwe_dim, wide.log_basis)
     basis = ApproxSignedBasis32(None, wide.log_basis, reverse_length=wide.level)
     n, kp, k1, level = wide.n, conv.count, wide.glwe_dim + 1, wide.level
@@ -2248,36 +2286,68 @@ def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> di
         acc = torch.randint(0, 1 << 32, (bsz, k1, n), generator=g, device=dev)
         f32, acc32 = f.to(torch.int32), acc.to(torch.int32)
         hb = stage2_bound(kp, bsz, k1, level, n)
-        compare_kernel(torch, table, "cmux_stage2", bsz,
+        compare_kernel(torch, table, "cmux_stage2" + tag, bsz,
                        lambda: cmux_fused.cmux_stage2(conv, f, key, acc),
                        lambda: cmux_fused.cmux_stage2(conv, f32, key32, acc32),
                        lambda: cmux_fused.cmux_stage2_plain(conv, f, key, acc), hb)
-        h_ms = table["cmux_stage2"][bsz][3]
+        h_ms = table["cmux_stage2" + tag][bsz][3]
         h_grid = cmux_fused.launch_grid(conv, k1, bsz)
         if h_grid[0] < 2:  # a row over a cluster of slices, one block a row before
-            raise AssertionError(f"kernel H at N = 2^{WIDE_LOG_N}, batch {bsz}: grid {h_grid}")
+            raise AssertionError(f"kernel H at N = 2^{log_n}, batch {bsz}: grid {h_grid}")
         deg = torch.randint(0, 2 * n, (bsz,), generator=g, device=dev, dtype=torch.int32)
+        gb = bound(4 * (bsz * k1 * n + kp * bsz * k1 * level * n))  # G: acc in, digits out
+        if tag:  # G and F at this ring in the table too (F: the bootstrap's start)
+            compare_kernel(torch, table, "cmux_front" + tag, bsz,
+                           lambda: cmux_front.cmux_front(acc, deg, basis, conv.primes),
+                           lambda: cmux_front.cmux_front(acc.to(torch.int32), deg, basis,
+                                                         conv.primes),
+                           lambda: cmux_front.cmux_front_plain(acc, deg, basis, conv.primes), gb)
+            test_row = acc[0, 0]
+            compare_kernel(torch, table, "rotate" + tag, bsz,
+                           lambda: rotate.rotate(test_row.expand(bsz, n), deg),
+                           lambda: rotate.rotate(test_row.to(torch.int32).expand(bsz, n), deg),
+                           lambda: rotate.rotate_plain(test_row.expand(bsz, n), deg),
+                           bound(4 * (n + bsz * n)))
         digits = torch.empty((kp, bsz, k1, level, n), dtype=torch.int32, device=dev)
         g_ms = kernel_device_ms(torch, lambda: cmux_front.cmux_front(acc32, deg, basis,
                                                                      conv.primes, out=digits))
         one_ms = kernel_device_ms(torch, lambda: ntt32.forward32(conv.ntt, digits, 4, out=digits))
         step_ms = kernel_device_ms(torch, lambda: plan(acc32, deg, key32, out=acc32))
-        log(f"[{smi}] staged step at N = 2^{WIDE_LOG_N}, batch {bsz}: device {step_ms:.4f} ms "
-            f"(CUDA events behind a sleep): G {g_ms:.4f}, kernel 1 {one_ms:.4f}, H {h_ms:.4f} "
-            f"ms; H's bound {hb[0]:.4f} ms ({hb[1]}), share {hb[0] / h_ms:.4f}; H's launch "
-            f"(blocks a row, threads, shared bytes, clusters held) {h_grid}")
+        log(f"[{smi}] staged step at N = 2^{log_n}, batch {bsz}: device {step_ms:.4f} ms "
+            f"(CUDA events behind a sleep): G {g_ms:.4f} (bound {gb[0]:.4f}), kernel 1 "
+            f"{one_ms:.4f}, H {h_ms:.4f} ms; H's bound {hb[0]:.4f} ms ({hb[1]}), share "
+            f"{hb[0] / h_ms:.4f}; H's launch (blocks a row, threads, shared bytes, clusters "
+            f"held) {h_grid}")
 
-    # -- 21.3: a 4-bit programmable bootstrap at N = 2^15 -------------------------
-    log(f"-- 21.3: make_context(BOOLEAN_128 at N = 2^{WIDE_LOG_N}, bsk_kind='ntt') and a "
+
+def programmable_bootstrap(torch, dev, smi, label, wide, seed, reps, reset_counts,
+                           read_counts):
+    """``make_context(wide, bsk_kind="ntt")`` on the card (its seconds and
+    peak device memory) and a ``MSG_BITS``-bit programmable bootstrap of 16
+    ciphertexts, decrypted under the GLWE key (every message to f(m)), with
+    its exact launches (G, kernel 1 and H once a key slice, F once), its
+    phase error against ``noise.blind_rotate``, and its latency at batch 1
+    and 16 (least of ``reps``), busy ms and idle share.  Returns the
+    launch counts and the 16 outputs."""
+    from primus_fhe_tpu_torch import noise
+    from primus_fhe_tpu_torch import params as P
+    from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap, lut_test_polynomial
+    from primus_fhe_tpu_torch.lattice.lwe import encrypt_torus32, phase_torus32
+
+    log(f"-- {label}: make_context(BOOLEAN_128 at N = 2^{wide.log_n}, bsk_kind='ntt') and a "
         f"{MSG_BITS}-bit programmable bootstrap")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
-    torch.cuda.empty_cache()  # the earlier phases' cached blocks: keygen here peaks near 30 GB
+    n, level = wide.n, wide.level
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     wctx = P.make_context(wide, dev, gen, bsk_kind="ntt")
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
-    log(f"keygen: {keygen_s:.3f} s; bsk {tuple(wctx.bsk.shape)} "
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"keygen: {keygen_s:.3f} s, peak device memory {peak:.2f} GB "
+        f"(torch.cuda.max_memory_allocated); bsk {tuple(wctx.bsk.shape)} "
         f"({wctx.bsk.numel() * wctx.bsk.element_size() / 1e9:.2f} GB), ksk "
         f"{tuple(wctx.ksk.shape)}; primes {wctx.conv.primes}")
     delta = 1 << (32 - MSG_BITS - 1)  # the padding bit: messages in [0, 2^31)
@@ -2310,6 +2380,9 @@ def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> di
         f"bootstrapped sample {pred.decryption_failure_margin(MSG_BITS):.2f}, after the key "
         f"switch {ks.decryption_failure_margin(MSG_BITS):.3f} (1 bit: "
         f"{ks.decryption_failure_margin(1):.3f}; so no key switch here)")
+    if pred.decryption_failure_margin(MSG_BITS) <= 1:
+        raise AssertionError(f"{MSG_BITS} message bits at N = 2^{wide.log_n}: the model's margin "
+                             f"{pred.decryption_failure_margin(MSG_BITS):.3f} is not above 1")
     want_counts = {name: 0 for name in counts} | {
         "cmux_front": wide.lwe_dim, "forward32": wide.lwe_dim, "cmux_stage2": wide.lwe_dim,
         "rotate": 1}
@@ -2317,19 +2390,162 @@ def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> di
     if counts != want_counts:
         raise AssertionError(f"programmable bootstrap launches {counts}, want {want_counts}")
     boot = lambda c: bootstrap(wctx.conv, wctx.basis, wctx.bsk, c, tp, wide.log_n)  # noqa: E731
-    lat = min(wall_ms(torch, lambda: boot(cts[:1]), 3))
-    rate = min(wall_ms(torch, lambda: boot(cts), 3))
+    lat = min(wall_ms(torch, lambda: boot(cts[:1]), reps))
+    rate = min(wall_ms(torch, lambda: boot(cts), reps))
     busy, rows = device_time(torch, lambda: boot(cts))
     idle = "not measured" if busy is None else f"{1 - busy / rate:.3f}"
-    log(f"[{smi}] programmable bootstrap at N = 2^{WIDE_LOG_N}: batch 1 {lat:.2f} ms, batch 16 "
+    log(f"[{smi}] programmable bootstrap at N = 2^{wide.log_n}: batch 1 {lat:.2f} ms, batch 16 "
         f"{rate:.2f} ms ({16e3 / rate:.1f} bootstraps/s) (host clock, synchronised, least of "
-        f"3); device busy {busy if busy is None else round(busy, 3)} ms of the batch-16 run -> "
-        f"idle share {idle}; top device rows: "
+        f"{reps}); device busy {busy if busy is None else round(busy, 3)} ms of the batch-16 run "
+        f"-> idle share {idle}; top device rows: "
         + "; ".join(f"{key_[:50]} x{c} ({ms_:.2f} ms)" for ms_, c, key_ in rows[:4]))
     del wctx, cts
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> dict:
+    """Phase 21: the NTT-key blind rotation past the one-launch step's caps.
+    21.1 kernels 1-2 at log_n 15-17 (a row over a cluster); 21.2 kernel H
+    and the staged step (kernel G, kernel 1, kernel H) against the plain
+    step, timed at N = 2^15 and 2^17; 21.3 a 4-bit programmable bootstrap
+    at N = 2^15 on the card; 21.4 BOOLEAN_128 still on the fused step; 21.5
+    the programmable bootstrap at N = 2^17.  Returns the launch counts of
+    21.3's and 21.5's bootstraps and 21.3's 16 outputs."""
+    import dataclasses
+
+    from primus_fhe_tpu_torch import params as P
+    from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap
+    from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
+    from primus_fhe_tpu_torch.lattice import tfhe
+    from primus_fhe_tpu_torch.ops import cmux_front, cmux_fused, ntt32, rotate
+    from primus_fhe_tpu_torch.transforms.torus import TorusConvolver32
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    def residues(primes, shape, factor):
+        q = torch.tensor(primes, dtype=torch.int64, device=dev).reshape((-1,) + (1,) * len(shape))
+        return torch.randint(0, 1 << 40, (len(primes),) + shape, generator=g, device=dev) % (
+            factor * q)
+
+    # -- 21.1: kernels 1-2 at log_n 15-17 --------------------------------------
+    log("-- 21.1: kernels 1-2 at log_n 15-17 (a row over a cluster of 2, 4 or 8 blocks)")
+    for log_n in (15, 16, TOP_LOG_N):
+        n = 1 << log_n
+        for kp in (2, 3):
+            tables = TorusConvolver32(log_n, 56 if kp == 2 else 60).ntt
+            if len(tables.primes) != kp:
+                raise AssertionError(f"log_n {log_n}: {len(tables.primes)} primes, want {kp}")
+            for rows in (1, WIDE_BATCH):
+                x4, x2 = residues(tables.primes, (rows, n), 4), residues(tables.primes, (rows, n), 2)
+                for of in (1, 4):
+                    if not torch.equal(ntt32.forward32(tables, x4, of),
+                                       ntt32.forward32_plain(tables, x4, of)):
+                        raise AssertionError(f"forward32 log_n {log_n} kp {kp} x {rows}: != plain")
+                for of in (1, 2):
+                    if not torch.equal(ntt32.inverse32(tables, x2, of),
+                                       ntt32.inverse32_plain(tables, x2, of)):
+                        raise AssertionError(f"inverse32 log_n {log_n} kp {kp} x {rows}: != plain")
+                b = bound(8 * kp * rows * n, muls32=ntt_muls(kp * rows, n))
+                x4_32, x2_32 = x4.to(torch.int32), x2.to(torch.int32)
+                compare_kernel(torch, table, f"ntt32_forward@log{log_n}kp{kp}", rows,
+                               lambda: ntt32.forward32(tables, x4, 4),
+                               lambda: ntt32.forward32(tables, x4_32, 4),
+                               lambda: ntt32.forward32_plain(tables, x4, 4), b)
+                compare_kernel(torch, table, f"ntt32_inverse@log{log_n}kp{kp}", rows,
+                               lambda: ntt32.inverse32(tables, x2),
+                               lambda: ntt32.inverse32(tables, x2_32),
+                               lambda: ntt32.inverse32_plain(tables, x2), b)
+    log(f"kernels 1-2 at log_n 15, 16 and {TOP_LOG_N}, kp 2 and 3, 1 and 16 rows a prime: every "
+        "out_factor bit-equal to the plain versions (timed: the forward at out_factor 4, the "
+        "staged route's, and the canonical inverse)")
+    tables = tfhe.make_convolver(TOP_LOG_N, 3, 1, 7).ntt  # the staged PBS's kernel 1 at 2^17
+    kp, n = len(tables.primes), 1 << TOP_LOG_N
+    # kp 3 (its 58-bit bound): 18 / 288 rows at batch 1 / 16
+    for bsz in (1, WIDE_BATCH):
+        rows = bsz * 2 * 3
+        x4 = residues(tables.primes, (rows, n), 4)
+        x4_32 = x4.to(torch.int32)
+        compare_kernel(torch, table, f"ntt32_forward@pbs{TOP_LOG_N}", bsz,
+                       lambda: ntt32.forward32(tables, x4, 4),
+                       lambda: ntt32.forward32(tables, x4_32, 4, out=x4_32),
+                       lambda: ntt32.forward32_plain(tables, x4, 4),
+                       bound(8 * kp * rows * n + 8 * kp * n, muls32=ntt_muls(kp * rows, n)))
+    big = TorusConvolver32(TOP_LOG_N + 1).ntt
+    before = (ntt32.forward32.launches, ntt32.inverse32.launches)
+    for fn in (ntt32.forward32, ntt32.inverse32):
+        try:
+            fn(big, torch.zeros((len(big.primes), 1, 2 << TOP_LOG_N), dtype=torch.int64,
+                                device=dev))
+        except ValueError as e:
+            if f"log_n 1-{TOP_LOG_N}" not in str(e):
+                raise
+            refusal = str(e)
+        else:
+            raise AssertionError(f"{fn.__name__} took log_n {TOP_LOG_N + 1} on the card")
+    if (ntt32.forward32.launches, ntt32.inverse32.launches) != before:
+        raise AssertionError(f"log_n {TOP_LOG_N + 1} launched a kernel")
+    log(f"log_n {TOP_LOG_N + 1}: ValueError before any launch ({refusal})")
+    wide = torch.zeros((1, 1, 2 << TOP_LOG_N), dtype=torch.int64, device=dev)
+    deg0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    before = (rotate.rotate.launches, cmux_front.cmux_front.launches)
+    for what, call in (("rotate", lambda: rotate.rotate(wide, deg0)),
+                       ("cmux_front", lambda: cmux_front.cmux_front(
+                           wide, deg0, ApproxSignedBasis32(None, 8, reverse_length=3),
+                           tables.primes))):
+        try:
+            call()
+        except ValueError as e:
+            if f"rows of up to 2^{TOP_LOG_N} words" not in str(e):
+                raise
+            refusal = str(e)
+        else:
+            raise AssertionError(f"{what} took rows of 2^{TOP_LOG_N + 1} on the card")
+    if (rotate.rotate.launches, cmux_front.cmux_front.launches) != before:
+        raise AssertionError(f"F or G launched on rows of 2^{TOP_LOG_N + 1}")
+    log(f"kernels F and G on rows of 2^{TOP_LOG_N + 1}: ValueError before any launch ({refusal})")
+
+    # -- 21.2: kernel H and the staged step ------------------------------------
+    log("-- 21.2: kernel H (cmux_stage2) and the staged step against the plain step")
+    for log_n, log_basis, level, k, bound_bits in STAGED_SHAPES:
+        conv = (TorusConvolver32(log_n, bound_bits) if bound_bits
+                else tfhe.make_convolver(log_n, level, k, log_basis))
+        basis = ApproxSignedBasis32(None, log_basis, reverse_length=level)
+        n, kp, k1 = 1 << log_n, conv.count, k + 1
+        plan = cmux_fused.CmuxStepPlan(conv, basis, k1, dev)
+        if plan.route != "staged":
+            raise AssertionError(f"{(log_n, level, kp, k1)}: route {plan.route}, want staged")
+        acc = torch.randint(0, 1 << 32, (2, k1, n), generator=g, device=dev)
+        key = residues(conv.primes, (k1, level, k1, n), 1)
+        acc32, key32 = acc.to(torch.int32), key.to(torch.int32)
+        counted = (cmux_front.cmux_front, ntt32.forward32, cmux_fused.cmux_stage2,
+                   cmux_fused.fused_cmux_step)
+        l0 = [fn.launches for fn in counted]
+        for step in range(4):
+            deg = torch.randint(0, 2 * n, (2,), generator=g, device=dev, dtype=torch.int32)
+            acc = cmux_fused.cmux_stage2_plain(
+                conv, cmux_fused.cmux_stage1_plain(conv, basis, acc, deg), key, acc)
+            plan(acc32, deg, key32, out=acc32)
+            if not torch.equal(acc32.to(torch.int64) & 0xFFFFFFFF, acc):
+                raise AssertionError(f"staged step {step} at {(log_n, level, kp, k1)} != plain")
+        launched = [fn.launches - b for fn, b in zip(counted, l0)]
+        if launched != [4, 4, 4, 0]:
+            raise AssertionError(f"staged steps at {(log_n, level, kp, k1)}: launches {launched}")
+        log(f"log_n {log_n}, 2^{log_basis} x {level}, k1 {k1} over {kp} primes (kp k1 = "
+            f"{kp * k1}): 4 staged steps at batch 2 bit-equal to the plain step; launches G / "
+            f"kernel 1 / H / fused {launched}; H's launch (blocks a row, threads, shared bytes, "
+            f"clusters held) {cmux_fused.launch_grid(conv, k1, 2)}")
+    for log_n, tag in ((WIDE_LOG_N, ""), (TOP_LOG_N, f"@log{TOP_LOG_N}")):
+        time_stage2(torch, dev, table, smi, g, residues, log_n, tag)
+    wide = dataclasses.replace(P.BOOLEAN_128, log_n=WIDE_LOG_N)
+
+    # -- 21.3: a 4-bit programmable bootstrap at N = 2^15 -------------------------
+    counts, out = programmable_bootstrap(torch, dev, smi, "21.3", wide, SEED + 23, 3,
+                                         reset_counts, read_counts)
 
     # -- 21.4: BOOLEAN_128 stays on the fused step --------------------------------
     p = ctx.params
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
     reset_counts()
     ct = ctx.encrypt(torch.tensor([1, 0], device=dev), gen)
     bootstrap(ctx.conv, ctx.basis, ctx.bsk, ct,
@@ -2340,7 +2556,12 @@ def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> di
     log(f"-- 21.4: a BOOLEAN_128 bootstrap: {fused['fused_cmux_step']} fused_cmux_step "
         f"launches, {fused['cmux_stage2']} of kernel H, {fused['cmux_front']} of G (the fused "
         f"route, as before)")
-    return counts, out
+
+    # -- 21.5: a 4-bit programmable bootstrap at N = 2^17 -------------------------
+    top = dataclasses.replace(P.BOOLEAN_128, log_n=TOP_LOG_N)
+    counts17, _ = programmable_bootstrap(torch, dev, smi, "21.5", top, SEED + 27, 2,
+                                         reset_counts, read_counts)
+    return counts, out, counts17
 
 
 MXU_WIDE_LOG_N = 12  # 22.3: BOOLEAN_128 at N = 4096 on the MXU key (k1 L = 6: past kernel A)
@@ -2358,14 +2579,145 @@ def ntru_stage2_bound(bsz: int, level: int, n: int, digits: bool = True) -> tupl
     return bound(nbytes, muls32=bsz * level * n + ntt_muls(bsz, n))
 
 
+def ntru_top(torch, dev, table, smi, reset_counts, read_counts) -> dict:
+    """22.6: NTRU_128's gadget, n_lwe and sigmas at N = 2^17 on the staged
+    route.  ``make_ntru_keys`` on the card (both evaluation-key forms, made
+    in chunks of LWE indices, and the key-switch key; its seconds and peak
+    memory); kernels I, 1 (at the step's ``L x B`` rows, kp 1) and J at
+    batch 1 and ``NTRU_WIDE_BATCH`` against their plain versions;
+    ``NTRU_CHECK_STEPS`` staged steps against the plain step; one rotation
+    on each evaluation-key form, the same words, each with the launches I 1,
+    kernel 1 and J ``n_lwe``; the latency at batch 1 (both forms) and
+    ``NTRU_WIDE_BATCH`` (MXU pack; least of 2), busy ms and idle share.
+    Returns the MXU pack's rotation's launch counts."""
+    import dataclasses
+
+    from primus_fhe_tpu_torch import params as P
+    from primus_fhe_tpu_torch.boot import ntru_blind_rotate as nbr
+    from primus_fhe_tpu_torch.ops import ntru_cmux_mxu, ntt32
+
+    pw = dataclasses.replace(P.NTRU_128, log_n=TOP_LOG_N)
+    log(f"-- 22.6: NTRU_128's gadget, n_lwe and sigmas at N = 2^{TOP_LOG_N} (q = {pw.q}): "
+        f"make_ntru_keys on the card, kernels I, 1 and J, the staged rotation on both evk forms")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    keys = P.make_ntru_keys(pw, dev, gen)
+    torch.cuda.synchronize()
+    kctx, evk_mxu = keys.ctx, keys.evk_mxu
+    qn, nn = kctx.q_int, kctx.n
+    level = kctx.basis.decompose_length
+    log(f"make_ntru_keys: {time.perf_counter() - t0:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (held after it "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB); evk {tuple(keys.evk.shape)}, evk_mxu "
+        f"{tuple(evk_mxu[0].shape)} x 2, ksk {tuple(keys.ksk.shape)}")
+    tag = f"@log{TOP_LOG_N}"
+    for bsz in (1, NTRU_WIDE_BATCH):
+        rows = level * bsz  # kernel 1 in the staged step: the digits of B rows, in place
+        x = torch.randint(0, qn, (1, rows, nn), generator=gen, device=dev)
+        x32 = x.to(torch.int32)
+        compare_kernel(torch, table, f"ntt32_forward@ntru{TOP_LOG_N}", bsz,
+                       lambda: ntt32.forward32(kctx.ntt, x, 4),
+                       lambda: ntt32.forward32(kctx.ntt, x32, 4, out=x32),
+                       lambda: ntt32.forward32_plain(kctx.ntt, x, 4),
+                       bound(8 * rows * nn + 8 * nn, muls32=ntt_muls(rows, nn)))
+        acc = torch.randint(0, qn, (bsz, nn), generator=gen, device=dev)
+        acc32 = acc.to(torch.int32)
+        deg = torch.randint(0, 2 * nn, (bsz,), generator=gen, device=dev, dtype=torch.int32)
+        compare_kernel(torch, table, "ntru_digits" + tag, bsz,
+                       lambda: ntru_cmux_mxu.ntru_digits(kctx.basis, acc),
+                       lambda: ntru_cmux_mxu.ntru_digits(kctx.basis, acc32),
+                       lambda: ntru_cmux_mxu.ntru_digits_plain(kctx.basis, acc),
+                       bound(4 * (bsz * nn + level * bsz * nn)))
+        f = ntru_cmux_mxu.ntru_stage1(kctx.ntt, kctx.basis, acc)
+        f32 = f.to(torch.int32)
+        evk_row = evk_mxu[0][0].reshape(level, nn)
+        evk32 = evk_row.to(torch.int32)
+        want_j, want_dig = ntru_cmux_mxu.ntru_stage2_plain(kctx.ntt, f, evk_row, acc, deg,
+                                                           kctx.basis)
+        f_dig, acc_in = f32.clone(), acc32.clone()
+        out_j = ntru_cmux_mxu.ntru_stage2(kctx.ntt, f_dig, evk32, acc_in, deg, out=acc_in,
+                                          basis=kctx.basis)
+        if not (torch.equal(out_j.to(torch.int64), want_j)
+                and torch.equal(f_dig.to(torch.int64), want_dig)):
+            raise AssertionError(f"kernel J with digits at N = 2^{TOP_LOG_N}, batch {bsz}: "
+                                 "!= plain")
+        f_run = f32.clone()  # the timed calls write their digits over it
+        compare_kernel(torch, table, "ntru_stage2" + tag, bsz,
+                       lambda: ntru_cmux_mxu.ntru_stage2(kctx.ntt, f32.clone(), evk32, acc32, deg,
+                                                         basis=kctx.basis).to(torch.int64),
+                       lambda: ntru_cmux_mxu.ntru_stage2(kctx.ntt, f_run, evk32, acc32, deg,
+                                                         basis=kctx.basis),
+                       lambda: ntru_cmux_mxu.ntru_stage2_plain(kctx.ntt, f, evk_row, acc, deg),
+                       ntru_stage2_bound(bsz, level, nn))
+        step = ntru_cmux_mxu.NtruStepPlan(kctx, dev)
+        if step.route != "staged":
+            raise AssertionError(f"NTRU at N = 2^{TOP_LOG_N}: route {step.route}")
+        kv32 = evk_mxu[0][:NTRU_CHECK_STEPS].to(torch.int32).contiguous()
+        nplan = ntru_cmux_mxu.get_ntru_plan(TOP_LOG_N, qn)
+        plain_acc, run = acc.clone(), acc32.clone()
+        sw = torch.randint(0, 2 * nn, (NTRU_CHECK_STEPS, bsz), generator=gen, device=dev,
+                           dtype=torch.int32)
+        for i in range(NTRU_CHECK_STEPS):
+            plain_acc = ntru_cmux_mxu.ntru_cmux_step_plain(nplan, kctx.basis, plain_acc, sw[i],
+                                                           evk_mxu[0][i])
+            run = step(run, sw[i], kv32[i], None)
+            if not torch.equal(run.to(torch.int64), plain_acc):
+                raise AssertionError(f"NTRU staged step {i} at N = 2^{TOP_LOG_N}, batch {bsz} "
+                                     "!= plain")
+        step_ms = kernel_device_ms(torch, lambda: step(run, sw[0], kv32[0], None))
+        log(f"[{smi}] N = 2^{TOP_LOG_N}: the first {NTRU_CHECK_STEPS} staged steps at batch "
+            f"{bsz} bit-equal to the plain step on the card; one step after the first "
+            f"{step_ms:.4f} device ms (kernel 1 "
+            f"{table[f'ntt32_forward@ntru{TOP_LOG_N}'][bsz][3]:.4f}, J with digits "
+            f"{table['ntru_stage2' + tag][bsz][3]:.4f}, I "
+            f"{table['ntru_digits' + tag][bsz][3]:.4f} once a rotation); J's launch (blocks a "
+            f"row, threads, shared bytes, clusters held) "
+            f"{ntru_cmux_mxu.launch_grid(TOP_LOG_N, bsz)}")
+    tpn = nbr.ntru_test_polynomial(nn, qn, (qn - 1) // 8, dev)
+    sw = torch.randint(0, 2 * nn, (NTRU_WIDE_BATCH, pw.lwe_dim + 1), generator=gen, device=dev,
+                       dtype=torch.int32)
+    rotated, counted = {}, {}
+    for form, evk in (("MXU pack", evk_mxu), ("NTT evk", keys.evk)):
+        reset_counts()
+        rotated[form] = nbr.ntru_blind_rotate(kctx, evk, sw[:1], tpn)
+        counts_form = counted[form] = read_counts()
+        want = {name: 0 for name in counts_form} | {
+            "ntru_digits": 1, "forward32": pw.lwe_dim, "ntru_stage2": pw.lwe_dim}
+        log(f"launches of one rotation at batch 1 on the {form}: {json.dumps(counts_form)}")
+        if counts_form != want:
+            raise AssertionError(f"NTRU staged rotation at N = 2^{TOP_LOG_N} on the {form}: "
+                                 f"launches {counts_form}, want {want}")
+    if not torch.equal(rotated["MXU pack"], rotated["NTT evk"]):
+        raise AssertionError(f"NTRU rotation at N = 2^{TOP_LOG_N}: the two evk forms differ")
+    counts = counted["MXU pack"]
+    lat_ntt = min(wall_ms(torch, lambda: nbr.ntru_blind_rotate(kctx, keys.evk, sw[:1], tpn), 2))
+    log(f"[{smi}] both evk forms rotate to the same {rotated['NTT evk'].numel()} words; the NTT "
+        f"evk's rotation at batch 1 {lat_ntt:.2f} ms (host clock, synchronised, least of 2)")
+    lat = min(wall_ms(torch, lambda: nbr.ntru_blind_rotate(kctx, evk_mxu, sw[:1], tpn), 2))
+    rate = min(wall_ms(torch, lambda: nbr.ntru_blind_rotate(kctx, evk_mxu, sw, tpn), 2))
+    busy, rows = device_time(torch, lambda: nbr.ntru_blind_rotate(kctx, evk_mxu, sw, tpn))
+    idle = "not measured" if busy is None else f"{1 - busy / rate:.3f}"
+    log(f"[{smi}] NTRU staged rotation at N = 2^{TOP_LOG_N} ({pw.lwe_dim} steps): batch 1 "
+        f"{lat:.2f} ms, batch {NTRU_WIDE_BATCH} {rate:.2f} ms (host clock, synchronised, least "
+        f"of 2); device busy {busy if busy is None else round(busy, 3)} ms of the batch-"
+        f"{NTRU_WIDE_BATCH} run -> idle share {idle}; top rows: "
+        + "; ".join(f"{key_[:40]} x{c} ({ms_:.2f} ms)" for ms_, c, key_ in rows[:4]))
+    del keys, evk_mxu
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) -> dict:
     """Phase 22: the MXU key and the NTRU MXU evk past kernels A-C's caps.
     22.1 the route rules on kernels A and B's C entry; 22.2 kernel C's route
     at log_n 13-16; 22.3 BOOLEAN_128 at N = 4096 on the MXU key; 22.4
     21.3's programmable bootstrap on the MXU key; 22.5 NTRU at N = 2^13 on
-    kernels I, 1 and J; 22.6 BOOLEAN_128 and NTRU_128 still on kernels A and
-    B.  Returns the launch counts of 22.4's bootstrap, 22.3's gate and 22.5's
-    rotation."""
+    kernels I, 1 and J; 22.6 NTRU at N = 2^17 on the same kernels; 22.7
+    BOOLEAN_128 and NTRU_128 still on kernels A and B.  Returns the launch
+    counts of 22.4's bootstrap, 22.3's gate and 22.5's and 22.6's
+    rotations."""
     import dataclasses
 
     from primus_fhe_tpu_torch import params as P
@@ -2381,7 +2733,7 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
     log("-- 22.1: mxu_step_route / ntru_step_route on the card")
     routes = {"mxu": 0, "fused": 0, "staged": 0}
     levels = list(range(1, 9)) + [12, 20, 32]
-    for log_n in range(8, 17):
+    for log_n in range(8, TOP_LOG_N + 1):
         for kp in (1, 2, 4):
             for k1 in range(1, 5):
                 for dp in (1, 2):
@@ -2394,7 +2746,8 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
                         if r != "mxu" and r != cmux_fused.step_route(kp, k1, level, log_n):
                             raise AssertionError(f"mxu_step_route {(kp, k1, level, log_n, dp)}")
                         routes[r] += 1
-    for bad in ((2, 2, 3, 17, 1), (5, 2, 3, 13, 1), (2, 2, 33, 13, 1), (2, 2, 3, 11, 3)):
+    for bad in ((2, 2, 3, TOP_LOG_N + 1, 1), (5, 2, 3, 13, 1), (2, 2, 33, 13, 1),
+                (2, 2, 3, 11, 3)):
         try:
             cmux_mxu.mxu_step_route(*bad)
         except ValueError:
@@ -2408,9 +2761,9 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
              "NTRU_128 at N = 2^13": ntru_cmux_mxu.ntru_step_route(6, 13, 1)}
     if list(named.values()) != ["mxu", "fused", "staged", "mxu", "staged", "staged"]:
         raise AssertionError(f"routes of the named shapes: {named}")
-    log(f"routes over {9 * 3 * 4 * 2 * len(levels)} shapes (log_n 8-16, kp 1, 2, 4, k1 1-4, L "
-        f"1-8, 12, 20, 32, 1-2 digit planes): {routes}; {named}; log_n 17, kp 5, L 33, 3 "
-        f"planes refused")
+    log(f"routes over {(TOP_LOG_N - 7) * 3 * 4 * 2 * len(levels)} shapes (log_n 8-{TOP_LOG_N}, "
+        f"kp 1, 2, 4, k1 1-4, L 1-8, 12, 20, 32, 1-2 digit planes): {routes}; {named}; log_n "
+        f"{TOP_LOG_N + 1}, kp 5, L 33, 3 planes refused")
     for log_n in (15, 16):
         conv = TorusConvolver32(log_n, 56)
         t0 = time.perf_counter()
@@ -2418,10 +2771,11 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
         log(f"plan_for's work at N = 2^{log_n} (CmuxMxuPlan + fold_inverse_scale, kp 2): "
             f"{time.perf_counter() - t0:.4f} s host (no int8 plane matrix built)")
 
-    # -- 22.2: kernel C's route at log_n 13-16 -------------------------------------
-    log("-- 22.2: mxu8_forward32 at log_n 13-16 (kernel 1 at out_factor 1), kp 2, 16 rows")
+    # -- 22.2: kernel C's route at log_n 13-17 -------------------------------------
+    log(f"-- 22.2: mxu8_forward32 at log_n 13-{TOP_LOG_N} (kernel 1 at out_factor 1), kp 2, 16 "
+        "rows")
     g = torch.Generator(device=dev).manual_seed(SEED + 22)
-    for log_n in (13, 14, 15, 16):
+    for log_n in range(13, TOP_LOG_N + 1):
         conv = TorusConvolver32(log_n, 56)
         plan = cmux_mxu.CmuxMxuPlan(log_n, tuple(conv.primes))
         q = torch.tensor(conv.primes, dtype=torch.int64, device=dev).reshape(-1, 1, 1)
@@ -2637,7 +2991,10 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
         + "; ".join(f"{key_[:40]} x{c} ({ms_:.2f} ms)" for ms_, c, key_ in rows[:4]))
     del keys, rot, rot_cpu
 
-    # -- 22.6: BOOLEAN_128 and NTRU_128 stay on kernels A and B --------------------
+    # -- 22.6: NTRU at N = 2^17 on kernels I, 1 and J ------------------------------
+    counts_top = ntru_top(torch, dev, table, smi, reset_counts, read_counts)
+
+    # -- 22.7: BOOLEAN_128 and NTRU_128 stay on kernels A and B --------------------
     p = P.BOOLEAN_128
     gen = torch.Generator(device=dev).manual_seed(SEED + 26)
     bctx = P.make_context(p, dev, gen, bsk_kind="mxu")
@@ -2658,11 +3015,11 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
     seen = (cb_["mxu_cmux_step"], cn_["ntru_cmux_step"], cb_["ntru_digits"] + cn_["ntru_digits"],
             cb_["ntru_stage2"] + cn_["ntru_stage2"], cb_["cmux_stage2"] + cn_["cmux_stage2"])
     if not (ok_b and ok_n) or seen != (p.lwe_dim, P.NTRU_128.lwe_dim, 0, 0, 0):
-        raise AssertionError(f"22.6: NAND right {ok_b, ok_n}; launches A, B, I, J, H {seen}")
-    log(f"-- 22.6: a BOOLEAN_128 NAND on the MXU key and an NTRU_128 NAND on the MXU evk: "
+        raise AssertionError(f"22.7: NAND right {ok_b, ok_n}; launches A, B, I, J, H {seen}")
+    log(f"-- 22.7: a BOOLEAN_128 NAND on the MXU key and an NTRU_128 NAND on the MXU evk: "
         f"right; kernel A {seen[0]}, kernel B {seen[1]}, I {seen[2]}, J {seen[3]}, H {seen[4]} "
         f"launches")
-    return {"mxu": counts_p, "mxu4096": counts_m, "ntru": counts_n}
+    return {"mxu": counts_p, "mxu4096": counts_m, "ntru": counts_n, "ntru_top": counts_top}
 
 
 MODULI_COUNTS = (5, 6)  # phase 23: DCRT bases past the four moduli one u64 launch takes
@@ -2720,10 +3077,9 @@ def phase23_dcrt_moduli(torch, dev, table) -> dict:
                  lambda x: ntt_mxu8.mxu8_forward64_plain(plan.mxu, x), f_in, rf),
                 ("mxu8_inverse64", lambda x: ntt_mxu8.mxu8_inverse64(plan.mxu, x),
                  lambda x: ntt_mxu8.mxu8_inverse64_plain(plan.mxu, x), i_in, ri)):
-            before = kernels[name].launches
             compare_kernel64(torch, table, f"{name}@m{count}", bsz, lambda: kern(x),
                              lambda: plain(x), bound(16 * r * n, muls32=ntt_muls(r, n, u64=True)))
-            kernels[name].launches = before
+            before = kernels[name].launches
             kern(x)
             if kernels[name].launches - before != groups:
                 raise AssertionError(f"{name} over {count} moduli: "
@@ -2758,6 +3114,101 @@ def phase23_dcrt_moduli(torch, dev, table) -> dict:
         log(f"[{count} moduli] both routes and the CPU's plain rotation: the same "
             f"{cpu.numel()} words ({cpu_s:.2f} s on the cpu)")
     return counts
+
+
+ROW9_WIDE_LOG_N = (13, 14, 15)  # 23.7: row 9's functions on row 10's passes
+# rows a modulus: the forward and E at 16 (phase 10's batch-1 forward), the inverse and D at 4
+ROW9_ROWS = (16, 4)
+ROW9_DCRT_LOG_N = 13  # 23.8: the DCRT rotation at N = 8192 on route "mxu8"
+ROW9_DCRT_STEPS = 4
+
+
+def phase23_row9_wide(torch, dev, table) -> dict:
+    """23.7: row 9's four u64 functions (``mxu8_forward64``,
+    ``mxu8_inverse64``, D and E) at log_n 13-15 over two 50-bit moduli, any
+    u64 words in, against their plain versions (one launch a call, on row
+    10's passes: ``csrc/ntt64.cu``), timed (tags "@log13" ..); 23.8
+    ``ROW9_DCRT_STEPS`` DCRT rotation steps at N = 8192, batch 2, on route
+    ``"mxu8"`` against route ``"butterfly"`` and the CPU.  Returns the
+    rotation's launches on route "mxu8"."""
+    from primus_fhe_tpu_torch.boot import dcrt_blind_rotate as dbr
+    from primus_fhe_tpu_torch.decompose import BigUintApproxSignedBasis
+    from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
+    from primus_fhe_tpu_torch.rns import RNSBase64
+    from primus_fhe_tpu_torch.transforms import dcrt as td
+    from primus_fhe_tpu_torch.utils.primes import ntt_prime_chain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    fns = {"mxu8_forward64": ntt_mxu8.mxu8_forward64, "mxu8_inverse64": ntt_mxu8.mxu8_inverse64,
+           "mxu8_inverse64_mul": ntt_mxu8.mxu8_inverse64_mul,
+           "mxu8_roundtrip64_mul": ntt_mxu8.mxu8_roundtrip64_mul}
+    for log_n in ROW9_WIDE_LOG_N:
+        n = 1 << log_n
+        moduli = ntt_prime_chain(50, log_n, 2)
+        tabs = td.build_dcrt_plan64(log_n, moduli).mxu
+        log(f"-- 23.7: row 9 at log_n {log_n} (A = {tabs.A}, B = {tabs.B} as the JAX plan), "
+            f"moduli {moduli}")
+        key = torch.stack([torch.randint(0, q, (n,), generator=g, device=dev) for q in moduli])
+        mt = tabs.mul_table(key)
+        for name, rows, keyed in (("mxu8_forward64", ROW9_ROWS[0], False),
+                                  ("mxu8_inverse64", ROW9_ROWS[1], False),
+                                  ("mxu8_inverse64_mul", ROW9_ROWS[1], True),
+                                  ("mxu8_roundtrip64_mul", ROW9_ROWS[0], True)):
+            x = torch.randint(-(1 << 63), (1 << 63) - 1, (len(moduli), rows, n), generator=g,
+                              device=dev)
+            fn, plain = fns[name], getattr(ntt_mxu8, name + "_plain")
+            args = (mt,) if keyed else ()
+            rt = name == "mxu8_roundtrip64_mul"
+            nbytes = 16 * len(moduli) * rows * n + (16 * len(moduli) * n if keyed else 0)
+            b = bound(nbytes, muls32=ntt_muls(len(moduli) * rows, n, u64=True) * (2 if rt else 1))
+            compare_kernel64(torch, table, f"{name}@log{log_n}", rows,
+                             lambda: fn(tabs, x, *args), lambda: plain(tabs, x, *args), b)
+            before = fn.launches
+            fn(tabs, x, *args)
+            if fn.launches - before != 1:
+                raise AssertionError(f"{name} at log_n {log_n}: {fn.launches - before} launches")
+        log(f"log_n {log_n}: the four wrappers bit-equal to their plain versions, one launch "
+            f"each; kernel E's tile at {ROW9_ROWS[0]} rows: "
+            f"{ntt_mxu8.roundtrip_tile(tabs, ROW9_ROWS[0])}")
+
+    log_n, steps, bsz, k1 = ROW9_DCRT_LOG_N, ROW9_DCRT_STEPS, 2, 2
+    n = 1 << log_n
+    moduli = ntt_prime_chain(50, log_n, 2)
+    base = RNSBase64(moduli)
+    basis = BigUintApproxSignedBasis(base, DCRT_LOG_BASIS)
+    level = basis.decompose_length
+    plan = td.build_dcrt_plan64(log_n, moduli)
+    log(f"-- 23.8: {steps} DCRT rotation steps at N = {n}, moduli {moduli}, L = {level} x "
+        f"2^{DCRT_LOG_BASIS}, batch {bsz}: route 'mxu8' against 'butterfly' (route 'auto' = "
+        f"{td.resolve_route(plan)!r})")
+
+    def residues(*shape):
+        return torch.stack([torch.randint(0, q, shape, generator=g, device=dev) for q in moduli])
+
+    bsk = residues(steps, k1, level, k1, n).movedim(0, 3).contiguous()
+    accs = residues(bsz, k1, n).transpose(0, 1).contiguous()
+    lwe = torch.randint(0, 2 * n, (bsz, steps + 1), generator=g, device=dev)
+    counted = {"mxu8_forward64": ntt_mxu8.mxu8_forward64,
+               "mxu8_inverse64": ntt_mxu8.mxu8_inverse64,
+               "ntt64_forward": ntt64.ntt64_forward, "ntt64_inverse": ntt64.ntt64_inverse}
+    outs, counts = {}, {}
+    for route in ("mxu8", "butterfly"):
+        before = {k: f.launches for k, f in counted.items()}
+        outs[route] = dbr.dcrt_blind_rotate_batched(plan, basis, base, bsk, lwe, accs, route=route)
+        torch.cuda.synchronize()
+        counts[route] = {k: f.launches - before[k] for k, f in counted.items()}
+    want = {"mxu8_forward64": steps, "mxu8_inverse64": steps, "ntt64_forward": 0,
+            "ntt64_inverse": 0}
+    if counts["mxu8"] != want:
+        raise AssertionError(f"route mxu8 at N = {n}: launches {counts['mxu8']}, want {want}")
+    cpu = dbr.dcrt_blind_rotate_batched(plan, basis, base, bsk.cpu(), lwe.cpu(), accs.cpu())
+    if not (torch.equal(outs["mxu8"], outs["butterfly"]) and torch.equal(outs["mxu8"].cpu(), cpu)):
+        raise AssertionError(f"the DCRT rotation at N = {n}: routes mxu8 and butterfly (or the "
+                             "CPU) differ")
+    log(f"route 'mxu8': launches {json.dumps(counts['mxu8'])}; route 'butterfly': "
+        f"{json.dumps(counts['butterfly'])}; both and the CPU's plain rotation give the same "
+        f"{cpu.numel()} words")
+    return counts["mxu8"]
 
 
 def main() -> None:
@@ -3290,20 +3741,24 @@ def main() -> None:
     counts_tr = phase20_tracked(torch, dev, ctx, smi, reset_counts, read_counts)
 
     # -- phase 21: the NTT-key rotation past the one-launch step's caps --------
-    log(f"== phase 21: kernels 1-2 at log_n 15-16, kernel H and the staged CMux step, a "
-        f"{MSG_BITS}-bit programmable bootstrap at N = 2^{WIDE_LOG_N}")
-    counts_21, pbs_21 = phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts)
+    log(f"== phase 21: kernels 1-2 at log_n 15-{TOP_LOG_N}, kernel H and the staged CMux step, "
+        f"{MSG_BITS}-bit programmable bootstraps at N = 2^{WIDE_LOG_N} and 2^{TOP_LOG_N}")
+    counts_21, pbs_21, counts_21_top = phase21_staged(torch, dev, table, ctx, smi, reset_counts,
+                                                      read_counts)
 
     # -- phase 22: the MXU key and the NTRU MXU evk past kernels A-C's caps -----
     log(f"== phase 22: the MXU key past kernel A (N = 4096 on the fused step, 2^{WIDE_LOG_N} on "
-        f"the staged route), kernel C's route at log_n 13-16, NTRU at N = "
-        f"2^{NTRU_WIDE_LOG_N} on kernels I, 1 and J")
+        f"the staged route), kernel C's route at log_n 13-{TOP_LOG_N}, NTRU at N = "
+        f"2^{NTRU_WIDE_LOG_N} and 2^{TOP_LOG_N} on kernels I, 1 and J")
     counts_22 = phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts)
 
     # -- phase 23: DCRT bases past four moduli ---------------------------------
     log(f"== phase 23: the DCRT layer at N = {1 << DCRT_LOG_N} over {MODULI_COUNTS} moduli of 50 "
         f"bits, the u64 kernels a group of four moduli a launch")
     counts_23 = phase23_dcrt_moduli(torch, dev, table)
+    counts_23w = phase23_row9_wide(torch, dev, table)
+
+    end_phase()
 
     # -- the kernel table -----------------------------------------------------
     # name -> (source, TPU kernel, launches on its main path, the table key of
@@ -3439,6 +3894,31 @@ def main() -> None:
                 row.update({f"launches_dcrt_m{m}_path": counts_23[m][name], f"ms_m{m}": mms,
                             f"plain_ms_m{m}": mpms, f"device_ms_m{m}": mdev,
                             f"bound_ms_m{m}": mbms})
+        # the rings this slice opened: kernels 1-2 at 2^17 (21.1: kp 2 and 3 at
+        # 16 rows, the staged PBS's 12 / 192 rows), H, I and J at 2^17 (21.2,
+        # 22.6), row 11 at log_w 17 (15.4), row 9 at log_n 13-15 (23.7)
+        wide_tags = [(f"log{TOP_LOG_N}kp2", WIDE_BATCH), (f"log{TOP_LOG_N}kp3", WIDE_BATCH),
+                     (f"pbs{TOP_LOG_N}", 1), (f"pbs{TOP_LOG_N}", WIDE_BATCH),
+                     (f"log{TOP_LOG_N}", 1), (f"log{TOP_LOG_N}", WIDE_BATCH),
+                     (f"ntru{TOP_LOG_N}", 1), (f"ntru{TOP_LOG_N}", NTRU_WIDE_BATCH),
+                     (f"w{CS_TOP_LOG_N - 1}", LARGE_ROWS)]
+        wide_tags += [(f"log{log_n}", r) for log_n in ROW9_WIDE_LOG_N for r in ROW9_ROWS]
+        for tag, bsz_ in wide_tags:
+            if bsz_ in table.get(f"{name}@{tag}", {}):
+                _, xms, xpms, xdev, (xbms, xbby) = table[f"{name}@{tag}"][bsz_]
+                sfx = f"{tag}_b{bsz_}"
+                row.update({f"ms_{sfx}": xms, f"plain_ms_{sfx}": xpms, f"device_ms_{sfx}": xdev,
+                            f"bound_ms_{sfx}": xbms, f"bound_by_{sfx}": xbby})
+        path_top = {"ntt32_forward": "forward32", "cmux_front": "cmux_front",
+                    "cmux_stage2": "cmux_stage2", "rotate": "rotate"}.get(name)
+        if path_top:  # 21.5's programmable bootstrap at N = 2^17
+            row[f"launches_pbs{TOP_LOG_N}_path"] = counts_21_top[path_top]
+        path_top = {"ntt32_forward": "forward32", "ntru_digits": "ntru_digits",
+                    "ntru_stage2": "ntru_stage2"}.get(name)
+        if path_top:  # 22.6's rotation at N = 2^17
+            row[f"launches_ntru{TOP_LOG_N}_path"] = counts_22["ntru_top"][path_top]
+        if name in ("mxu8_forward64", "mxu8_inverse64"):  # 23.8: N = 8192 on route "mxu8"
+            row[f"launches_dcrt{1 << ROW9_DCRT_LOG_N}_path"] = counts_23w[name]
         if f"{name}@shard" in table:  # row 12: the same kernels on a residue shard's tables
             _, sms, spms, sdev, (sbms, _) = table[f"{name}@shard"][DCRT_BATCH // SHARD_MESH[1]]
             row.update({"launches_sharded_path": counts_s[name], "ms_sharded_path": sms,

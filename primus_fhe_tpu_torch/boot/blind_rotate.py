@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from ..lattice.rlwe import extract_lwe_torus32
-from ..lattice.tfhe import ggsw_encrypt_torus
+from ..lattice.glwe import zero_sample_draws, zero_samples_from
+from ..lattice.tfhe import ggsw_encrypt_torus, ggsw_from_zero_samples
 from ..numeric.limb import MASK32, narrow_u32, widen_u32
 from ..ops.cmux_fused import CmuxStepPlan
 from ..ops.cmux_mxu import (digit_planes, mxu_cmux_step, mxu_step_route, plan_for,
@@ -87,25 +88,55 @@ def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
     return widen_u32(acc).reshape(*batch, k1, n)
 
 
+KEY_CHUNK_WORDS = 1 << 27  # NTT-domain words of a chunk of the key (1 GB of int64)
+
+
+def _bsk_messages(lwe_secret: torch.Tensor, n: int) -> torch.Tensor:
+    """The GGSW messages ``s_i`` as constant polynomials ``(n_lwe, N)``."""
+    mu = torch.zeros((lwe_secret.shape[0], n), dtype=torch.int64, device=lwe_secret.device)
+    mu[:, 0] = lwe_secret
+    return mu
+
+
 def _bsk_coeff(lwe_secret, glwe_secret, basis, gaussian, conv, generator):
     """GGSW(s_i) for every LWE key bit, coefficient domain ``(n_lwe, k+1,
     L, k+1, N)``, all encrypted in one batch."""
-    n = glwe_secret.shape[-1]
-    mu = torch.zeros((lwe_secret.shape[0], n), dtype=torch.int64, device=lwe_secret.device)
-    mu[:, 0] = lwe_secret
+    mu = _bsk_messages(lwe_secret, glwe_secret.shape[-1])
     return ggsw_encrypt_torus(mu, glwe_secret, basis, gaussian, conv, generator)
 
 
 def make_bootstrap_key(lwe_secret, glwe_secret, basis, gaussian, conv, generator):
     """BSK_i = GGSW(s_i) under the GLWE secret, stacked
-    ``(n_lwe, kp, k+1, L, k+1, N)`` in the NTT domain.
+    ``(n_lwe, kp, k+1, L, k+1, N)`` in the NTT domain (contiguous, so that
+    every key slice the CMux loop hands on is one block).
 
-    ``gaussian`` is the GLWE-side sampler (glwe_sigma).  All ``n_lwe``
-    GGSW encryptions and their forward transforms run as one batch.
+    ``gaussian`` is the GLWE-side sampler (glwe_sigma).  The random draws
+    of all ``n_lwe`` GGSW encryptions are taken in one batch, in the order
+    of :func:`..lattice.tfhe.ggsw_encrypt_torus` on all of them; the
+    samples, the messages and the forward transforms then run on chunks of
+    LWE indices of at most :data:`KEY_CHUNK_WORDS` key words each (at least
+    one index), written into the preallocated key.  Each GGSW depends on its
+    own draws alone, so the key is the one-batch key word for word; the
+    working set is a chunk's, not the key's (BOOLEAN_128's whole key is one
+    chunk; at N = 2^17 the one-batch transforms would pass 80 GB).
     """
-    ggsw_all = _bsk_coeff(lwe_secret, glwe_secret, basis, gaussian, conv, generator)
-    # contiguous, so that every key slice the CMux loop hands on is one block
-    return conv.forward(ggsw_all).movedim(0, 1).contiguous()
+    n_lwe = lwe_secret.shape[0]
+    k, n = glwe_secret.shape
+    level = basis.decompose_length
+    a, e = zero_sample_draws(glwe_secret, gaussian, generator, (n_lwe, k + 1, level))
+    mu = _bsk_messages(lwe_secret, n)
+    step = max(1, KEY_CHUNK_WORDS // (conv.count * (k + 1) * level * (k + 1) * n))
+    key = None
+    for i in range(0, n_lwe, step):
+        j = slice(i, i + step)
+        ggsw = ggsw_from_zero_samples(mu[j], zero_samples_from(glwe_secret, conv, a[j], e[j]),
+                                      basis)
+        part = conv.forward(ggsw).movedim(0, 1)
+        if key is None:
+            key = torch.empty((n_lwe,) + tuple(part.shape[1:]), dtype=part.dtype,
+                              device=part.device)
+        key[j] = part
+    return key
 
 
 def make_bootstrap_key_mxu(lwe_secret, glwe_secret, basis, gaussian, conv, generator):

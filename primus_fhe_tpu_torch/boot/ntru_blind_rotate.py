@@ -124,34 +124,85 @@ def ntru_keygen(generator: torch.Generator, ctx: NtruContext) -> NtruSecret:
 
 def ntru_encrypt_poly(generator, ctx: NtruContext, sk: NtruSecret, mu, gaussian: DiscreteGaussian):
     """``c = g/f + mu`` with Gaussian ``g`` (``mu``: ``(..., N)`` mod q)."""
-    g = gaussian.sample_mod(generator, mu.shape, ctx.q_int)
+    return ntru_encrypt_from(ctx, sk, mu, gaussian.sample_mod(generator, mu.shape, ctx.q_int))
+
+
+def ntru_encrypt_from(ctx: NtruContext, sk: NtruSecret, mu, g):
+    """``c = g/f + mu`` from the Gaussian draws ``g`` (``mu``, ``g``: ``(...,
+    N)`` mod q).  Each row depends on its own draws alone."""
     gf = from_ntt(lazy_mul32(to_ntt(g, ctx.ntt), sk.f_inv_ntt, ctx.m), ctx.ntt)
     return add32(gf, mu, ctx.q_int)
+
+
+def _ngs_messages(ctx: NtruContext, bit) -> torch.Tensor:
+    """The NGS messages of bits ``bit (...)``: ``(..., L, N)`` rows, ``B^j
+    2^drop bit`` in coefficient 0."""
+    q = ctx.q_int
+    scal = torch.tensor([s % q for s in ctx.basis.scalars], dtype=torch.int64, device=bit.device)
+    mu = torch.zeros(tuple(bit.shape) + (scal.shape[0], ctx.n), dtype=torch.int64,
+                     device=bit.device)
+    mu[..., 0] = (bit.unsqueeze(-1) * scal) % q
+    return mu
 
 
 def ngs_encrypt_bit(generator, ctx: NtruContext, sk: NtruSecret, bit, gaussian):
     """NGS ciphertexts of bits ``bit (...)``: ``(..., L, N)`` coefficient
     rows ``g_j/f + B^j 2^drop bit``, aligned with the gadget scalars of
     ``ctx.basis``."""
-    q = ctx.q_int
     bit = torch.as_tensor(bit, dtype=torch.int64, device=sk.f.device)
-    scal = torch.tensor([s % q for s in ctx.basis.scalars], dtype=torch.int64, device=bit.device)
-    mu = torch.zeros(tuple(bit.shape) + (scal.shape[0], ctx.n), dtype=torch.int64,
-                     device=bit.device)
-    mu[..., 0] = (bit.unsqueeze(-1) * scal) % q
-    return ntru_encrypt_poly(generator, ctx, sk, mu, gaussian)
+    return ntru_encrypt_poly(generator, ctx, sk, _ngs_messages(ctx, bit), gaussian)
+
+
+EVK_CHUNK_WORDS = 1 << 27  # words of a chunk of the evaluation key (1 GB of int64)
+
+
+def make_ntru_evks(generator, ctx, sk, lwe_secret, gaussian, ntt: bool = True,
+                   mxu: bool = False):
+    """EVK_i = NGS(s_i) for every LWE key bit, ``(evk, evk_mxu)``: with
+    ``ntt`` the NTT-domain rows ``(n_lwe, L, N)``, with ``mxu`` the MXU pack
+    ``(vals, precons)`` (:func:`~..ops.ntru_cmux_mxu.prepare_mxu_evk`,
+    ``log_n >= 8``); a form not asked for is None.  ``gaussian`` at the
+    NTRU-side sigma.
+
+    The Gaussian draws of all ``n_lwe`` NGS encryptions are taken in one
+    batch, in :func:`ngs_encrypt_bit`'s order; the encryptions and the
+    transforms then run on chunks of LWE indices of at most
+    :data:`EVK_CHUNK_WORDS` key words each (at least one index), written into
+    preallocated keys.  Each row depends on its own draws alone, so the keys
+    are the one-batch keys word for word; the working set is a chunk's, not
+    the key's (NTRU_128's whole key is one chunk; at N = 2^17 the one-batch
+    transforms would pass 60 GB)."""
+    bits = torch.as_tensor(lwe_secret, dtype=torch.int64, device=sk.f.device)
+    n_lwe, level = bits.shape[0], ctx.basis.decompose_length
+    g = gaussian.sample_mod(generator, (n_lwe, level, ctx.n), ctx.q_int)
+    step = max(1, EVK_CHUNK_WORDS // (level * ctx.n))
+    evk = torch.empty_like(g) if ntt else None
+    pack = None
+    for i in range(0, n_lwe, step):
+        j = slice(i, i + step)
+        c = ntru_encrypt_from(ctx, sk, _ngs_messages(ctx, bits[j]), g[j])
+        if ntt:
+            evk[j] = to_ntt(c, ctx.ntt)
+        if mxu:
+            part = prepare_mxu_evk(ctx, c)
+            if pack is None:
+                pack = tuple(torch.empty((n_lwe,) + tuple(x.shape[1:]), dtype=x.dtype,
+                                         device=x.device) for x in part)
+            for whole, x in zip(pack, part):
+                whole[j] = x
+    return evk, pack
 
 
 def make_ntru_bootstrap_key(generator, ctx, sk, lwe_secret, gaussian):
-    """EVK_i = NGS(s_i) in NTT form, ``(n_lwe, L, N)``; ``gaussian`` at the
-    NTRU-side sigma."""
-    return to_ntt(ngs_encrypt_bit(generator, ctx, sk, lwe_secret, gaussian), ctx.ntt)
+    """EVK_i = NGS(s_i) in NTT form, ``(n_lwe, L, N)`` (:func:`make_ntru_evks`);
+    ``gaussian`` at the NTRU-side sigma."""
+    return make_ntru_evks(generator, ctx, sk, lwe_secret, gaussian)[0]
 
 
 def make_ntru_bootstrap_key_mxu(generator, ctx, sk, lwe_secret, gaussian):
     """The same NGS material as :func:`make_ntru_bootstrap_key` (same
     generator draws) as the MXU pack ``(vals, precons)``."""
-    return prepare_mxu_evk(ctx, ngs_encrypt_bit(generator, ctx, sk, lwe_secret, gaussian))
+    return make_ntru_evks(generator, ctx, sk, lwe_secret, gaussian, ntt=False, mxu=True)[1]
 
 
 def ntru_blind_rotate(ctx: NtruContext, evk, lwe_switched, test_poly):
@@ -210,16 +261,23 @@ def modulus_switch_q(lwe_q, ctx: NtruContext, log_2n: int):
 
 def make_ntru_keyswitch_key(generator, ctx, sk, secret_out, ks_basis, gaussian):
     """KSK ``(N, level, n_out+1)`` mod q: ``KSK[i, l] = LWE_s(f_i B^l 2^drop)``;
-    ``gaussian`` at the LWE-side sigma."""
+    ``gaussian`` at the LWE-side sigma.  The masks' inner products run on
+    chunks of input coefficients (at N = 2^17 and NTRU_128's levels the
+    masks alone are 11.8 GB)."""
     q = ctx.q_int
     n_in, n_out, level = ctx.n, secret_out.shape[0], ks_basis.decompose_length
     a = sample_uniform(generator, (n_in, level, n_out), q)
     e = gaussian.sample_mod(generator, (n_in, level), q)
     scal = torch.tensor([s % q for s in ks_basis.scalars], dtype=torch.int64,
                         device=secret_out.device)
-    msg = (sk.f[:, None] * scal[None, :]) % q
-    b = ((a * secret_out).sum(dim=-1) + msg + e) % q
-    return torch.cat([a, b.unsqueeze(-1)], dim=-1)
+    ksk = torch.empty((n_in, level, n_out + 1), dtype=torch.int64, device=a.device)
+    ksk[..., :n_out] = a
+    chunk = max(1, _CHUNK_BYTES // (level * n_out * 8))
+    for i in range(0, n_in, chunk):
+        j = slice(i, i + chunk)
+        msg = (sk.f[j, None] * scal[None, :]) % q
+        ksk[j, :, n_out] = ((a[j] * secret_out).sum(dim=-1) + msg + e[j]) % q
+    return ksk
 
 
 def ntru_key_switch(ctx: NtruContext, lwe, ksk, ks_basis):

@@ -65,6 +65,10 @@ namespace {
 constexpr int kThreads = 256;  // a word at a time (F)
 constexpr int kFrontThreads = 128;  // kernel G
 constexpr int kMaxThreads = 1024;  // a block at most
+// Rows of up to 2^17 words: every index (a word's source e in [0, 2n), a
+// degree mod 2n, a row's groups) stays below 2^18 in an int, and a
+// row's offset is a size_t or long long product.
+constexpr int FG_MAX_LOG_N = 17;
 
 struct RotateArgs {
   const uint32_t* in;
@@ -275,12 +279,12 @@ FrontLaunch front_pick(int rows, int log_n, bool aligned) {
 extern "C" {
 
 // Kernel F on bsz ciphertexts of `rows` rows of 2^log_n words (log_n
-// 1-16): row r of the source at in + r in_stride (in_stride 0: one row for
+// 1-17): row r of the source at in + r in_stride (in_stride 0: one row for
 // all), of the output at out + r out_stride (the two must not overlap),
 // degree degrees[r / rows] of any sign.
 int pft_rotate(const void* in, long long in_stride, const void* degrees, void* out,
                long long out_stride, int bsz, int rows, int log_n, int subtract, void* stream) {
-  if (bsz < 1 || rows < 1 || log_n < 1 || log_n > 16 || in_stride < 0 || out_stride < 1 ||
+  if (bsz < 1 || rows < 1 || log_n < 1 || log_n > FG_MAX_LOG_N || in_stride < 0 || out_stride < 1 ||
       (long long)bsz * rows > (1 << 30))
     return (int)cudaErrorInvalidValue;
   RotateArgs a{};
@@ -297,7 +301,7 @@ int pft_rotate(const void* in, long long in_stride, const void* degrees, void* o
 
 int pft_cmux_front(const void* acc, const void* degrees, void* out, const void* prime_pack,
                    const void* basis_pack, int kp, int bsz, int k1, int log_n, void* stream) {
-  if (kp < 1 || kp > PFT_MAX_KP || bsz < 1 || k1 < 1 || log_n < 1 || log_n > 16 ||
+  if (kp < 1 || kp > PFT_MAX_KP || bsz < 1 || k1 < 1 || log_n < 1 || log_n > FG_MAX_LOG_N ||
       (long long)bsz * k1 > (1 << 30) || ((uintptr_t)out & 15) != 0)
     return (int)cudaErrorInvalidValue;
   FrontArgs a{};
@@ -319,10 +323,14 @@ int pft_cmux_front(const void* acc, const void* degrees, void* out, const void* 
   return (int)cudaGetLastError();
 }
 
+// Kernels F and G's largest ring: rows of up to 2^FG_MAX_LOG_N words.
+int pft_rotate_max_log_n() { return FG_MAX_LOG_N; }
+
 // Kernel G's launch (front_pick): out[0..2] = groups (1) or a coefficient
 // a thread (0), threads a block, blocks.
 int pft_cmux_front_grid(int rows, int log_n, int aligned, int* out) {
-  if (rows < 1 || rows > (1 << 30) || log_n < 1 || log_n > 16) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || rows > (1 << 30) || log_n < 1 || log_n > FG_MAX_LOG_N)
+    return (int)cudaErrorInvalidValue;
   const FrontLaunch f = front_pick(rows, log_n, aligned != 0);
   out[0] = f.groups;
   out[1] = f.threads;

@@ -18,7 +18,7 @@
 //   C = 1-16 (pick_slices, kp C <= 16) from the clusters the card holds:
 //   the least work a block-wave, so a small batch spreads a row over up to
 //   16 SMs (C = 8 at log_n 15, kp 2: 32 blocks at batch 1) and slices stay
-//   at 2^11 words or more; blocks of up to 512 threads, two an SM (one at
+//   at 2^11 words or more and at most 2^15 (128 KB: C >= 4 at log_n 17); blocks of up to 512 threads, two an SM (one at
 //   C = 16, whose cross stages need the registers);
 // - while the MAC runs, a slice of up to 2^13 words copies its inverse
 //   twiddles and quotients (the row table's words SliceInvTable reads) and
@@ -52,7 +52,7 @@
 namespace {
 
 constexpr int H_MAX_LEVEL = 32;
-constexpr int H_MIN_LOG_N = 4, H_MAX_LOG_N = 16;
+constexpr int H_MIN_LOG_N = 4, H_MAX_LOG_N = 17;
 constexpr int H_SLICE_MAX_LOG = 15;  // a block's slice: at most 128 KB
 constexpr int H_SLICE_MIN_LOG = 11;  // split a row only into slices of 2^11 words or more
 constexpr int H_MAX_LC = 4;          // C <= 16
@@ -251,7 +251,7 @@ extern "C" {
 // Kernel H on bsz ciphertexts.  plan: the host pack of
 // ops/cmux_fused.stage2_pack (kp, k1, L, log_n, the inverse table and its
 // quotients' device addresses, then NttTables32.prime_pack and
-// conv.crt_pack).  kp 1-4, any k1, L 1-32, log_n 4-16; f and key on 16
+// conv.crt_pack).  kp 1-4, any k1, L 1-32, log_n 4-17; f and key on 16
 // bytes; out may be acc.
 int pft_cmux_stage2(const void* f, const void* key, const void* acc, void* out, int bsz,
                     const void* plan, void* stream) {

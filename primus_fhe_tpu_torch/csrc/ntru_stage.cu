@@ -73,7 +73,7 @@ namespace {
 
 constexpr int I_THREADS = 128;
 constexpr int J_MAX_LEVEL = 32;
-constexpr int J_MIN_LOG_N = 4, J_MAX_LOG_N = 16;
+constexpr int J_MIN_LOG_N = 4, J_MAX_LOG_N = 17;
 constexpr int J_SLICE_MAX_LOG = 15;  // a block's slice: at most 128 KB
 constexpr int J_SLICE_MIN_LOG = 10;  // split a row only into slices of 2^10 words or more
 constexpr int J_MAX_LC = 4;          // C <= 16
@@ -319,7 +319,7 @@ int pft_ntru_digits(const void* acc, void* out, const void* basis_pack, long lon
 // Kernel J on bsz ciphertexts.  plan: the host pack of
 // ops/ntru_cmux_mxu.stage2_pack (L, log_n, the inverse table and its
 // quotients' device addresses, NttTables32.prime_pack of q, then the
-// digits' basis pack).  L 1-32, log_n 4-16; f and evk on 16 bytes; out may
+// digits' basis pack).  L 1-32, log_n 4-17; f and evk on 16 bytes; out may
 // be acc; digits (L, bsz, n) or nullptr, may be f (a basis mod q of L
 // levels in the pack).
 int pft_ntru_stage2(const void* f, const void* evk, const void* acc, const void* degrees,

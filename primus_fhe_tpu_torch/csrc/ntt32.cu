@@ -41,9 +41,10 @@
 //   from the rows, the SM count and the blocks an SM holds; no caller sets
 //   it.  256 threads a block, several blocks an SM.
 //
-// - log_n 15-16: a row over a cluster of C = 2^(log_n - 14) blocks, one
-//   slice of 2^14 words (64 KB) a block (csrc/ntt_split.cuh): the
-//   forward's first log_n - 14 stages run on groups of one word a slice,
+// - log_n 15-17: a row over a cluster of C = 2^(log_n - 14) blocks (2, 4
+//   or 8, a portable cluster size), one slice of 2^14 words (64 KB) a block
+//   (csrc/ntt_split.cuh): the forward's first log_n - 14 stages (at 17 one
+//   radix-8 group of 8 words, one a slice) run on groups of one word a slice,
 //   loaded from device memory, each word stored into its slice over
 //   distributed shared memory; then the slice's stages as the radix-8
 //   passes above, on the compact root table read from device memory at the
@@ -97,7 +98,7 @@ namespace {
 constexpr int NTT_THREADS = 256;
 constexpr int MAX_TILE = 8;
 constexpr int TILE_MAX_LOG_N = 14;  // a row in one block's shared memory
-constexpr int MAX_LOG_N = 16;       // past it, a row over a cluster (SLICE_LOG words a block)
+constexpr int MAX_LOG_N = 17;       // past TILE_MAX_LOG_N, a row over a cluster (SLICE_LOG words a block)
 constexpr int SLICE_LOG = 14;
 constexpr int SPLIT_THREADS = 1024;  // a slice's 2048 radix-8 groups, two a thread
 constexpr int SMEM_MAX = 232448;  // 227 KB, the most a block may ask for
@@ -267,7 +268,7 @@ __global__ void __launch_bounds__(NTT_THREADS, 4) ntt32_inverse_kernel(const Ntt
   inv_rest<LAST>(rows, t.count, log_n, r, InvTable{tw, twp, n - m}, pc, dst);
 }
 
-// log_n 15-16: one row a cluster of 2^LC blocks (LC = log_n - SLICE_LOG),
+// log_n 15-17: one row a cluster of 2^LC blocks (LC = log_n - SLICE_LOG),
 // block `rank` holding slice rank of the row (csrc/ntt_split.cuh).  Grid:
 // kp rows clusters, cluster i the row i of the (kp, rows) rows.
 template <int LC, bool CANON>
@@ -317,15 +318,20 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 1) ntt32_inverse_split_kernel(c
 }
 
 // The split kernels, [forward][log_n - SLICE_LOG - 1][canonical].
-const void* const SPLIT_KERNELS[2][2][2] = {
+constexpr int SPLIT_LCS = MAX_LOG_N - SLICE_LOG;
+const void* const SPLIT_KERNELS[2][SPLIT_LCS][2] = {
     {{(const void*)ntt32_inverse_split_kernel<1, false>,
       (const void*)ntt32_inverse_split_kernel<1, true>},
      {(const void*)ntt32_inverse_split_kernel<2, false>,
-      (const void*)ntt32_inverse_split_kernel<2, true>}},
+      (const void*)ntt32_inverse_split_kernel<2, true>},
+     {(const void*)ntt32_inverse_split_kernel<3, false>,
+      (const void*)ntt32_inverse_split_kernel<3, true>}},
     {{(const void*)ntt32_forward_split_kernel<1, false>,
       (const void*)ntt32_forward_split_kernel<1, true>},
      {(const void*)ntt32_forward_split_kernel<2, false>,
-      (const void*)ntt32_forward_split_kernel<2, true>}}};
+      (const void*)ntt32_forward_split_kernel<2, true>},
+     {(const void*)ntt32_forward_split_kernel<3, false>,
+      (const void*)ntt32_forward_split_kernel<3, true>}}};
 constexpr size_t SPLIT_SMEM = sizeof(uint32_t) << SLICE_LOG;
 
 // ---------------------------------------------------------------------------
@@ -574,7 +580,7 @@ int ntt_device(const NttDevice** out) {
         e = cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     }
-    for (int i = 0; i < 8 && e == cudaSuccess; ++i)
+    for (int i = 0; i < 4 * SPLIT_LCS && e == cudaSuccess; ++i)
       e = cudaFuncSetAttribute((&SPLIT_KERNELS[0][0][0])[i],
                                cudaFuncAttributeMaxDynamicSharedMemorySize, SPLIT_SMEM);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&fresh.sms, cudaDevAttrMultiProcessorCount, dev);
@@ -721,9 +727,9 @@ extern "C" {
 const char* pft_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Forward NTT of kp primes x rows_per_prime rows of 2^log_n words (log_n
-// 1-16, kp <= 4; in and out 16-byte aligned, out may be in): roots,
+// 1-17, kp <= 4; in and out 16-byte aligned, out may be in): roots,
 // roots_p (kp, n) the bit-reversed root tables and Shoup quotients;
-// canonical output or lazy in [0, 4q).  log_n 15-16 run a row a cluster.
+// canonical output or lazy in [0, 4q).  log_n 15-17 run a row a cluster.
 int pft_ntt32_forward(const void* in, void* out, const void* roots, const void* roots_p,
                       const void* prime_pack, int kp, int rows_per_prime, int log_n,
                       int canonical, void* stream) {
@@ -732,7 +738,7 @@ int pft_ntt32_forward(const void* in, void* out, const void* roots, const void* 
 }
 
 // The rows a block the launch takes (pick_tile) on the current device: 1
-// at log_n 15-16, where a row spans a cluster.
+// at log_n 15-17, where a row spans a cluster.
 int pft_ntt32_tile(int forward, int kp, int rows_per_prime, int log_n, int* tile) {
   if (kp < 1 || kp > PFT_MAX_KP || log_n < 1 || log_n > MAX_LOG_N || rows_per_prime < 1)
     return (int)cudaErrorInvalidValue;

@@ -75,6 +75,8 @@
 
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "ntt_passes.cuh"
 
 namespace cg = cooperative_groups;
@@ -92,7 +94,16 @@ struct Ntt64Args {
   const uint64_t* twp;  // their Shoup quotients
   ModSet64 ms;
   int rows, log_n, tile, in_factor;
+  const uint64_t* key;  // (count, 2, n): the inverse's IN_KEY load (kernel D's key), else unused
 };
+
+// How the inverse's first pass takes its words from device memory: the
+// input chain from [0, in_factor q) (row 10's inverse); any u64 word
+// brought to [0, 2q) by a lazy Shoup multiply by 1 (row 9's inverse64 at
+// log_n 13-15); or any u64 word times the key by a lazy Shoup multiply
+// (kernel D at log_n 13-15: E's key step without the forward).  The
+// forward's ANY flag is the second: row 9's forward64 takes any u64 word.
+enum InLoad { IN_CHAIN = 0, IN_ANY = 1, IN_KEY = 2 };
 
 // Blocks a row is split over (log2): 1 where a row overflows one block's
 // shared memory (n = 2^15).
@@ -206,16 +217,23 @@ struct GlobalOut64 {
 // Half h of a split row (p: the row) as the forward's first pass loads it:
 // slot c of the half is the butterfly of stage 0 on the row's words c and
 // c + n/2 (root 1), its half h kept.
+// ANY: each word first brought to [0, 2q) (a lazy Shoup multiply by 1, p1
+// its quotient), as AnyIn64 loads.
+template <bool ANY>
 struct HalfIn {
   const uint64_t* p;
   int half, h;
-  uint64_t w, wp, q;
+  uint64_t w, wp, q, p1;
   template <int G>
   __device__ __forceinline__ void load(int, int base, int ls, uint64_t (&v)[G]) const {
 #pragma unroll
     for (int k = 0; k < G; ++k) {
       uint64_t x = Word<uint64_t>::ldg(p + base + (k << ls));
       uint64_t y = Word<uint64_t>::ldg(p + half + base + (k << ls));
+      if (ANY) {
+        x = shoup64_lazy(x, 1, p1, q);
+        y = shoup64_lazy(y, 1, p1, q);
+      }
       fwd_bf(x, y, w, wp, q);
       v[k] = h ? y : x;
     }
@@ -250,7 +268,29 @@ struct HalfInvTable {
   }
 };
 
-template <bool CANON>
+// The words of a tile's rows (p: the first row, rows 2^log_n words apart)
+// times the key by a lazy Shoup multiply as they load: any u64 word in,
+// [0, 2q) out.  key and key_p: the key's words and quotients at the rows'
+// first slot (the key is the same for every row).
+struct KeyIn64 {
+  const uint64_t* p;
+  const uint64_t* key;
+  const uint64_t* key_p;
+  int log_n;
+  uint64_t q;
+  template <int G>
+  __device__ __forceinline__ void load(int row, int base, int ls, uint64_t (&v)[G]) const {
+    const uint64_t* r = p + ((size_t)row << log_n) + base;
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int i = base + (k << ls);
+      v[k] = shoup64_lazy(Word<uint64_t>::ldg(r + (k << ls)), Word<uint64_t>::ldg(key + i),
+                          Word<uint64_t>::ldg(key_p + i), q);
+    }
+  }
+};
+
+template <bool CANON, bool ANY>
 __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_forward_kernel(const Ntt64Args a) {
   extern __shared__ __align__(16) uint64_t sm[];
   const int log_n = a.log_n, n = 1 << log_n;
@@ -258,7 +298,12 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_forward_kernel(const Ntt
   const uint64_t q = a.ms.m[t.mi].q;
   const uint64_t* groots = a.tw + ((size_t)t.mi << log_n);
   const uint64_t* groots_p = a.twp + ((size_t)t.mi << log_n);
-  const GlobalIn64<false> src{a.in + t.off, log_n};
+  using Src = std::conditional_t<ANY, AnyIn64, GlobalIn64<false>>;
+  Src src{};
+  if constexpr (ANY)
+    src = AnyIn64{a.in + t.off, log_n, q, a.ms.m[t.mi].p1};
+  else
+    src = GlobalIn64<false>{a.in + t.off, log_n};
   if (log_n <= 3) {  // one pass, device memory to device memory
     const GlobalOut64<CANON> dst{a.out + t.off, log_n, q};
     const FwdFirst first(groots, groots_p, n);
@@ -288,8 +333,8 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_forward_kernel(const Ntt
 
   if (l < log_n) {  // a split row: stage 0 as the half loads, then the half's stages
     const HalfTable<FwdTable<uint64_t>> table{{groots, groots_p}, t.h};
-    const HalfIn half{a.in + t.off, 1 << l, t.h, Word<uint64_t>::ldg(groots + 1),
-                      Word<uint64_t>::ldg(groots_p + 1), q};
+    const HalfIn<ANY> half{a.in + t.off, 1 << l, t.h, Word<uint64_t>::ldg(groots + 1),
+                           Word<uint64_t>::ldg(groots_p + 1), q, a.ms.m[t.mi].p1};
     fwd_pass<3>(1, l, 0, table, q, half, rows);
     __syncthreads();
     rest(table);
@@ -319,7 +364,24 @@ __device__ __forceinline__ void inverse_last_stage(uint64_t x, uint64_t y, const
   *oy = canonical ? reduce_once64(b, q) : b;
 }
 
-template <bool CANON>
+// The last stage of a split row whose halves' other stages are done, each
+// in its block's rows: after a cluster barrier, block h finishes half of
+// the pairs (x from half 0, y from half 1, over distributed shared memory)
+// into the row out; a second barrier keeps both halves alive until every
+// read is done.
+__device__ __forceinline__ void split_last_stage(const SmemRows64& rows, uint64_t* out, int l,
+                                                 int h, const Mod64& c, bool canonical) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const uint64_t* xs = cluster.map_shared_rank(rows.p, 0);
+  const uint64_t* ys = cluster.map_shared_rank(rows.p, 1);
+  const int half = 1 << l;
+  for (int i = h * (half / 2) + threadIdx.x; i < (h + 1) * (half / 2); i += blockDim.x)
+    inverse_last_stage(xs[swz64(i)], ys[swz64(i)], c, canonical, out + i, out + i + half);
+  cluster.sync();
+}
+
+template <bool CANON, int LOAD>
 __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_inverse_kernel(const Ntt64Args a) {
   extern __shared__ __align__(16) uint64_t sm[];
   constexpr Last LAST = CANON ? Last::canonical : Last::lazy;
@@ -330,58 +392,58 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_inverse_kernel(const Ntt
   const uint64_t* groots_p = a.twp + ((size_t)t.mi << log_n);
   const InvTable global{groots, groots_p};
   const int l = log_n - log_split(log_n);  // words a block holds of a row: 2^l
-  const GlobalIn64<true> src{a.in + t.off + ((size_t)t.h << l), log_n, c.q, a.in_factor};
+  const uint64_t* in = a.in + t.off + ((size_t)t.h << l);
   const GlobalOut64<false> dst{a.out + t.off, log_n, c.q};
-  if (log_n <= 3) {  // one pass, device memory to device memory
-    if (log_n == 3) inv_pass<3, LAST>(t.count, log_n, 0, global, c, src, dst);
-    if (log_n == 2) inv_pass<2, LAST>(t.count, log_n, 0, global, c, src, dst);
-    if (log_n == 1) inv_pass<1, LAST>(t.count, log_n, 0, global, c, src, dst);
-    return;
-  }
-  const int r = remainder_stages(l);
-  const int m = staged_words(false, log_n);  // the later passes' twiddles: [n - m, n)
-  const SmemRows64 rows{sm + 2 * m, l};
+  const auto body = [&](const auto& src) {
+    if (log_n <= 3) {  // one pass, device memory to device memory
+      if (log_n == 3) inv_pass<3, LAST>(t.count, log_n, 0, global, c, src, dst);
+      if (log_n == 2) inv_pass<2, LAST>(t.count, log_n, 0, global, c, src, dst);
+      if (log_n == 1) inv_pass<1, LAST>(t.count, log_n, 0, global, c, src, dst);
+      return;
+    }
+    const int r = remainder_stages(l);
+    const int m = staged_words(false, log_n);  // the later passes' twiddles: [n - m, n)
+    const SmemRows64 rows{sm + 2 * m, l};
 
-  if (l < log_n) {  // a split row: the stages within the half, then the last over the cluster
-    const HalfInvTable table{groots, groots_p, 1 << l, t.h};
-    if (r == 3) inv_pass<3, Last::no>(1, l, 0, table, c, src, rows);
-    if (r == 2) inv_pass<2, Last::no>(1, l, 0, table, c, src, rows);
-    if (r == 1) inv_pass<1, Last::no>(1, l, 0, table, c, src, rows);
+    if (l < log_n) {  // a split row: the stages within the half, then the last over the cluster
+      const HalfInvTable table{groots, groots_p, 1 << l, t.h};
+      if (r == 3) inv_pass<3, Last::no>(1, l, 0, table, c, src, rows);
+      if (r == 2) inv_pass<2, Last::no>(1, l, 0, table, c, src, rows);
+      if (r == 1) inv_pass<1, Last::no>(1, l, 0, table, c, src, rows);
+      __syncthreads();
+      inv_rest<Last::no>(rows, 1, l, r, table, c, rows);
+      split_last_stage(rows, a.out + t.off, l, t.h, c, CANON);
+      return;
+    }
+
+    // pass 1 (r stages): 2^r adjacent words a group from device memory, the
+    // twiddles from device memory under the copy of the later passes' part
+    stage_tables(sm, sm + m, groots, groots_p, n - m, n);
+    if (r == 3) inv_pass<3, Last::no>(t.count, log_n, 0, global, c, src, rows);
+    if (r == 2) inv_pass<2, Last::no>(t.count, log_n, 0, global, c, src, rows);
+    if (r == 1) inv_pass<1, Last::no>(t.count, log_n, 0, global, c, src, rows);
+    cp_async_wait<0>();
     __syncthreads();
-    inv_rest<Last::no>(rows, 1, l, r, table, c, rows);
-    // the last stage pairs the two halves: each block of the cluster
-    // finishes half of the pairs, reading x from half 0 and y from half 1
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    const uint64_t* xs = cluster.map_shared_rank(rows.p, 0);
-    const uint64_t* ys = cluster.map_shared_rank(rows.p, 1);
-    const int half = 1 << l;
-    uint64_t* out = a.out + t.off;
-    for (int i = t.h * (half / 2) + threadIdx.x; i < (t.h + 1) * (half / 2); i += blockDim.x)
-      inverse_last_stage(xs[swz64(i)], ys[swz64(i)], c, CANON, out + i, out + i + half);
-    cluster.sync();  // keep both halves alive until every read is done
-    return;
+
+    // radix-8 passes in shared memory; the last (inv_n folded in) stores to
+    // device memory
+    const InvTable staged{(const uint64_t*)sm, (const uint64_t*)sm + m, n - m};
+    inv_rest<LAST>(rows, t.count, log_n, r, staged, c, dst);
+  };
+  if constexpr (LOAD == IN_CHAIN) {
+    body(GlobalIn64<true>{in, log_n, c.q, a.in_factor});
+  } else if constexpr (LOAD == IN_ANY) {
+    body(AnyIn64{in, log_n, c.q, c.p1});
+  } else {
+    const uint64_t* key = a.key + ((size_t)(2 * t.mi) << log_n) + ((size_t)t.h << l);
+    body(KeyIn64{in, key, key + n, log_n, c.q});
   }
-
-  // pass 1 (r stages): 2^r adjacent words a group from device memory, the
-  // twiddles from device memory under the copy of the later passes' part
-  stage_tables(sm, sm + m, groots, groots_p, n - m, n);
-  if (r == 3) inv_pass<3, Last::no>(t.count, log_n, 0, global, c, src, rows);
-  if (r == 2) inv_pass<2, Last::no>(t.count, log_n, 0, global, c, src, rows);
-  if (r == 1) inv_pass<1, Last::no>(t.count, log_n, 0, global, c, src, rows);
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // radix-8 passes in shared memory; the last (inv_n folded in) stores to
-  // device memory
-  const InvTable staged{(const uint64_t*)sm, (const uint64_t*)sm + m, n - m};
-  inv_rest<LAST>(rows, t.count, log_n, r, staged, c, dst);
 }
 
 // ---------------------------------------------------------------------------
 // Kernel E, mxu8_roundtrip64_mul: INTT(NTT(x) * key), the negacyclic product
 // of any u64 words by a fixed NTT-domain operand, in one launch (8 <= log_n
-// <= 12, q < 2^62).
+// <= 15, q < 2^62).
 //
 // Replaces mxu8_fused_roundtrip64_mul (primus_fhe_tpu/ops/ntt_mxu8.py:977,
 // body _make_rt_kernel8 :726), which runs the byte-radix four-step forward,
@@ -429,12 +491,25 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_inverse_kernel(const Ntt
 //   first pass.  Shared memory is 16 n + 16 n / 2^R + 8 T n bytes, so at n =
 //   4096 T <= 4 (200 KB).  The C entry picks T as row 10 picks its tiles
 //   (pick_tile: the smallest whose grid runs in one wave; 4 at 512 rows).
+// - log_n 13-15, row 9's rings past the byte-radix kernels: the forward's
+//   table no longer fits beside a row and the inverse's part, so the
+//   forward's passes read their twiddles from device memory through L1 (as
+//   row 10's forward does at 2^14); at 2^15 a row is split over a cluster
+//   of 2 blocks as row 10 splits it (the forward's stage 0 as each half
+//   loads, its words brought to [0, 2q) first; the half's stages; the key
+//   and the inverse's first pass on the same groups; the inverse's stages
+//   within the half; the last stage over distributed shared memory).
 //
 // Every stage is the plain version's butterfly on the same pair, and the
 // output is canonical, so the words equal mxu8_roundtrip64_mul_plain's (whose
 // forward folds to canonical before the key: the lazy representatives
 // between differ, the residues do not).
-constexpr int RT_MIN_LOG_N = 8, RT_MAX_LOG_N = 12;
+constexpr int RT_MIN_LOG_N = 8, RT_MAX_LOG_N = 15;
+
+// Words of the forward's table kernel E stages (with its quotients, 16
+// bytes a word): all n where they fit beside the inverse's part and a row
+// (up to n = 2^12), else none.
+__host__ __device__ inline int rt_staged_words(int log_n) { return log_n <= 12 ? 1 << log_n : 0; }
 
 struct Rt64Args {
   Ntt64Args a;              // in, out, the forward's roots (tw, twp), ms, rows, log_n, tile
@@ -444,18 +519,20 @@ struct Rt64Args {
 };
 
 inline size_t rt_smem_bytes(int log_n, int tile) {
-  return 16 * ((size_t)1 << log_n) + 16 * (size_t)staged_words(false, log_n) +
-         sizeof(uint64_t) * ((size_t)tile << log_n);
+  return 16 * (size_t)rt_staged_words(log_n) + 16 * (size_t)staged_words(false, log_n) +
+         sizeof(uint64_t) * ((size_t)tile << (log_n - log_split(log_n)));
 }
 
 // The inverse's first pass's load in kernel E: the group's 2^R adjacent
 // words from the shared-memory rows, the forward's last pass on them (its
 // group is the same 2^R words) and the key multiply.
+template <class TW>
 struct FwdKeyIn {
   SmemRows64 rows;
-  FwdTable<uint64_t> table;  // the staged forward table
-  const uint64_t* key;       // the modulus's key, its quotients n words on
-  int log_n;
+  TW table;                  // the forward's table (a half's view of it at a split row)
+  const uint64_t* key;       // the modulus's key at the rows' first slot
+  const uint64_t* key_p;     // its quotients
+  int log_n;                 // the rows' words: 2^log_n (a half at a split row)
   uint64_t q;
   template <int G>
   __device__ __forceinline__ void load(int row, int base, int, uint64_t (&v)[G]) const {
@@ -471,7 +548,7 @@ struct FwdKeyIn {
         },
         q);
     load_words(key + base, k);
-    load_words(key + (1 << log_n) + base, kp);
+    load_words(key_p + base, kp);
 #pragma unroll
     for (int j = 0; j < G; ++j) v[j] = shoup64_lazy(v[j], k[j], kp[j], q);
   }
@@ -485,36 +562,69 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_roundtrip_kernel(const R
   const Mod64 c = a.ms.m[t.mi];
   const uint64_t q = c.q;
   const size_t mo = (size_t)t.mi << log_n;
-  const int r = remainder_stages(log_n);
+  const uint64_t* key = e.key + 2 * mo;  // the key's words, then its quotients n words on
+  const int l = log_n - log_split(log_n);  // words a block holds of a row: 2^l
+  const int r = remainder_stages(l);
+
+  if (l < log_n) {  // a split row (n = 2^15): a cluster of 2 blocks, one half each
+    const SmemRows64 rows{sm, l};
+    const HalfTable<FwdTable<uint64_t>> table{{a.tw + mo, a.twp + mo}, t.h};
+    const HalfIn<true> half{a.in + t.off, 1 << l, t.h, Word<uint64_t>::ldg(a.tw + mo + 1),
+                            Word<uint64_t>::ldg(a.twp + mo + 1), q, c.p1};
+    fwd_pass<3>(1, l, 0, table, q, half, rows);
+    __syncthreads();
+    for (int s0 = 3; s0 < l - r; s0 += 3) {
+      fwd_pass<3>(1, l, s0, table, q, rows, rows);
+      __syncthreads();
+    }
+    const size_t h0 = (size_t)t.h << l;
+    const FwdKeyIn<HalfTable<FwdTable<uint64_t>>> mid{rows, table, key + h0, key + n + h0, l, q};
+    const HalfInvTable itab{e.itw + mo, e.itwp + mo, 1 << l, t.h};
+    if (r == 3) inv_pass<3, Last::no>(1, l, 0, itab, c, mid, rows);
+    if (r == 2) inv_pass<2, Last::no>(1, l, 0, itab, c, mid, rows);
+    if (r == 1) inv_pass<1, Last::no>(1, l, 0, itab, c, mid, rows);
+    __syncthreads();
+    inv_rest<Last::no>(rows, 1, l, r, itab, c, rows);
+    split_last_stage(rows, a.out + t.off, l, t.h, c, true);
+    return;
+  }
+
+  const int f = rt_staged_words(log_n);       // the forward's staged table: [0, f)
   const int m = staged_words(false, log_n);  // the inverse's later passes' twiddles: [n - m, n)
   uint64_t* ftw = sm;                        // the forward's table, then its quotients
-  uint64_t* itw = sm + 2 * n;                // the inverse's part, then its quotients
-  const SmemRows64 rows{sm + 2 * (n + m), log_n};
-
-  // pass 1 (stages 0-2): the tile's rows from device memory, reduced as
-  // they load, under the copy of both tables
-  stage_tables(ftw, ftw + n, a.tw + mo, a.twp + mo, 0, n);
-  stage_tables(itw, itw + m, e.itw + mo, e.itwp + mo, n - m, n);
-  fwd_pass<3>(t.count, log_n, 0, FwdFirst(a.tw + mo, a.twp + mo, 8), q,
-              AnyIn64{a.in + t.off, log_n, q, c.p1}, rows);
-  cp_async_wait<0>();
-  __syncthreads();
-  const FwdTable<uint64_t> table{ftw, ftw + n};
-  for (int s0 = 3; s0 < log_n - r; s0 += 3) {
-    fwd_pass<3>(t.count, log_n, s0, table, q, rows, rows);
+  uint64_t* itw = sm + 2 * f;                // the inverse's part, then its quotients
+  const SmemRows64 rows{sm + 2 * (f + m), log_n};
+  // the passes on the forward's table, staged (shared-memory loads the
+  // compiler sees as such) or not; a call each, so each is inlined alone
+  const auto run = [&](const FwdTable<uint64_t>& table) {
+    // pass 1 (stages 0-2): the tile's rows from device memory, reduced as
+    // they load, under the copy of the tables
+    fwd_pass<3>(t.count, log_n, 0, FwdFirst(a.tw + mo, a.twp + mo, 8), q,
+                AnyIn64{a.in + t.off, log_n, q, c.p1}, rows);
+    cp_async_wait<0>();
     __syncthreads();
-  }
-  // the forward's last pass, the key and the inverse's first: one pass
-  const FwdKeyIn mid{rows, table, e.key + 2 * mo, log_n, q};
-  const InvTable<uint64_t> global{e.itw + mo, e.itwp + mo};
-  if (r == 3) inv_pass<3, Last::no>(t.count, log_n, 0, global, c, mid, rows);
-  if (r == 2) inv_pass<2, Last::no>(t.count, log_n, 0, global, c, mid, rows);
-  if (r == 1) inv_pass<1, Last::no>(t.count, log_n, 0, global, c, mid, rows);
-  __syncthreads();
-  // the inverse's later passes on its staged part; the last stores
-  const InvTable staged{(const uint64_t*)itw, (const uint64_t*)itw + m, n - m};
-  const GlobalOut64<false> dst{a.out + t.off, log_n, q};
-  inv_rest<Last::canonical>(rows, t.count, log_n, r, staged, c, dst);
+    for (int s0 = 3; s0 < log_n - r; s0 += 3) {
+      fwd_pass<3>(t.count, log_n, s0, table, q, rows, rows);
+      __syncthreads();
+    }
+    // the forward's last pass, the key and the inverse's first: one pass
+    const FwdKeyIn<FwdTable<uint64_t>> mid{rows, table, key, key + n, log_n, q};
+    const InvTable<uint64_t> global{e.itw + mo, e.itwp + mo};
+    if (r == 3) inv_pass<3, Last::no>(t.count, log_n, 0, global, c, mid, rows);
+    if (r == 2) inv_pass<2, Last::no>(t.count, log_n, 0, global, c, mid, rows);
+    if (r == 1) inv_pass<1, Last::no>(t.count, log_n, 0, global, c, mid, rows);
+    __syncthreads();
+    // the inverse's later passes on its staged part; the last stores
+    const InvTable staged{(const uint64_t*)itw, (const uint64_t*)itw + m, n - m};
+    const GlobalOut64<false> dst{a.out + t.off, log_n, q};
+    inv_rest<Last::canonical>(rows, t.count, log_n, r, staged, c, dst);
+  };
+  if (f) stage_tables(ftw, ftw + f, a.tw + mo, a.twp + mo, 0, f);
+  stage_tables(itw, itw + m, e.itw + mo, e.itwp + mo, n - m, n);
+  if (f)
+    run(FwdTable<uint64_t>{ftw, ftw + f});
+  else
+    run(FwdTable<uint64_t>{a.tw + mo, a.twp + mo});
 }
 
 // What the launches read of a device, set up at the first launch there:
@@ -537,11 +647,14 @@ int ntt64_device(const Ntt64Device** out) {
   Ntt64Device& d = cached[dev];
   if (d.sms == 0) {
     Ntt64Device fresh;
-    const void* kernels[5] = {(const void*)ntt64_inverse_kernel<true>,
-                              (const void*)ntt64_forward_kernel<true>,
+    const void* kernels[8] = {(const void*)ntt64_inverse_kernel<true, IN_CHAIN>,
+                              (const void*)ntt64_forward_kernel<true, false>,
                               (const void*)ntt64_roundtrip_kernel,
-                              (const void*)ntt64_inverse_kernel<false>,
-                              (const void*)ntt64_forward_kernel<false>};
+                              (const void*)ntt64_inverse_kernel<false, IN_CHAIN>,
+                              (const void*)ntt64_forward_kernel<false, false>,
+                              (const void*)ntt64_inverse_kernel<true, IN_ANY>,
+                              (const void*)ntt64_inverse_kernel<true, IN_KEY>,
+                              (const void*)ntt64_forward_kernel<true, true>};
     for (const void* k : kernels)
       if (e == cudaSuccess)
         e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
@@ -588,11 +701,14 @@ bool valid(int count, int rows, int log_n) {
   return count >= 1 && count <= PFT_MAX_MOD64 && log_n >= 1 && log_n <= MAX_LOG_N && rows >= 1;
 }
 
+// load: the forward's (IN_CHAIN: words below 4q, IN_ANY: any u64 word) or
+// the inverse's first-pass load (InLoad; key: IN_KEY's (count, 2, n) key).
 int launch(bool forward, const void* in, void* out, const void* tw, const void* twp,
            const void* mod_pack, int count, int rows, int log_n, int canonical, int in_factor,
-           void* stream) {
+           int load, const void* key, void* stream) {
   if (!valid(count, rows, log_n) || in_factor < 2 || (in_factor & (in_factor - 1)) ||
-      (((uintptr_t)in | (uintptr_t)out) & 15) != 0)
+      (((uintptr_t)in | (uintptr_t)out | (uintptr_t)key) & 15) != 0 ||
+      (load == IN_KEY) != (key != nullptr) || (forward && load == IN_KEY))
     return (int)cudaErrorInvalidValue;
   const Ntt64Device* d = nullptr;
   const int err = ntt64_device(&d);
@@ -606,6 +722,7 @@ int launch(bool forward, const void* in, void* out, const void* tw, const void* 
   a.rows = rows;
   a.log_n = log_n;
   a.in_factor = in_factor;
+  a.key = (const uint64_t*)key;
   a.tile = pick_tile(forward, count, rows, log_n, *d);
   const int split = log_split(log_n);
   cudaLaunchConfig_t cfg = {};
@@ -621,12 +738,18 @@ int launch(bool forward, const void* in, void* out, const void* tw, const void* 
   cfg.attrs = attr;
   cfg.numAttrs = !forward && split ? 1 : 0;
   cudaError_t e;
-  if (forward)
-    e = canonical ? cudaLaunchKernelEx(&cfg, ntt64_forward_kernel<true>, a)
-                  : cudaLaunchKernelEx(&cfg, ntt64_forward_kernel<false>, a);
+  if (forward && load == IN_ANY)
+    e = cudaLaunchKernelEx(&cfg, ntt64_forward_kernel<true, true>, a);
+  else if (forward)
+    e = canonical ? cudaLaunchKernelEx(&cfg, ntt64_forward_kernel<true, false>, a)
+                  : cudaLaunchKernelEx(&cfg, ntt64_forward_kernel<false, false>, a);
+  else if (load == IN_ANY)
+    e = cudaLaunchKernelEx(&cfg, ntt64_inverse_kernel<true, IN_ANY>, a);
+  else if (load == IN_KEY)
+    e = cudaLaunchKernelEx(&cfg, ntt64_inverse_kernel<true, IN_KEY>, a);
   else
-    e = canonical ? cudaLaunchKernelEx(&cfg, ntt64_inverse_kernel<true>, a)
-                  : cudaLaunchKernelEx(&cfg, ntt64_inverse_kernel<false>, a);
+    e = canonical ? cudaLaunchKernelEx(&cfg, ntt64_inverse_kernel<true, IN_CHAIN>, a)
+                  : cudaLaunchKernelEx(&cfg, ntt64_inverse_kernel<false, IN_CHAIN>, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -654,8 +777,21 @@ int launch_roundtrip(const void* in, void* out, const void* roots, const void* r
   e.itwp = (const uint64_t*)inv_roots_p;
   e.key = (const uint64_t*)key;
   a.tile = pick_tile(ROUNDTRIP, count, rows, log_n, *d);
-  ntt64_roundtrip_kernel<<<count * ((rows + a.tile - 1) / a.tile), tile_threads(log_n, a.tile),
-                           rt_smem_bytes(log_n, a.tile), (cudaStream_t)stream>>>(e);
+  const int split = log_split(log_n);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((count * ((rows + a.tile - 1) / a.tile)) << split);
+  cfg.blockDim = dim3(tile_threads(log_n, a.tile));
+  cfg.dynamicSmemBytes = rt_smem_bytes(log_n, a.tile);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;  // a split row: its 2 blocks in one cluster
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split ? 1 : 0;
+  const cudaError_t err2 = cudaLaunchKernelEx(&cfg, ntt64_roundtrip_kernel, e);
+  if (err2 != cudaSuccess) return (int)err2;
   return (int)cudaGetLastError();
 }
 
@@ -671,7 +807,7 @@ int pft_ntt64_forward(const void* in, void* out, const void* roots, const void* 
                       const void* mod_pack, int count, int rows_per_mod, int log_n, int canonical,
                       void* stream) {
   return launch(true, in, out, roots, roots_p, mod_pack, count, rows_per_mod, log_n, canonical, 2,
-                stream);
+                IN_CHAIN, nullptr, stream);
 }
 
 // Inverse NTT, the same shapes: inv_roots, inv_roots_p the inverse tables;
@@ -681,11 +817,33 @@ int pft_ntt64_inverse(const void* in, void* out, const void* inv_roots, const vo
                       const void* mod_pack, int count, int rows_per_mod, int log_n, int canonical,
                       int in_factor, void* stream) {
   return launch(false, in, out, inv_roots, inv_roots_p, mod_pack, count, rows_per_mod, log_n,
-                canonical, in_factor, stream);
+                canonical, in_factor, IN_CHAIN, nullptr, stream);
+}
+
+// Row 9's forward64 at log_n 13-15 on the forward's passes: any u64 words
+// in (each brought to [0, 2q) as it loads), canonical bit-reversed words
+// out; the shapes and tables of pft_ntt64_forward.
+int pft_ntt64_forward_any(const void* in, void* out, const void* roots, const void* roots_p,
+                          const void* mod_pack, int count, int rows_per_mod, int log_n,
+                          void* stream) {
+  return launch(true, in, out, roots, roots_p, mod_pack, count, rows_per_mod, log_n, 1, 2,
+                IN_ANY, nullptr, stream);
+}
+
+// Kernel D at log_n 13-15 (key: the (count, 2, n) key and its Shoup
+// quotients, 16-byte aligned), or row 9's inverse64 there (key null): the
+// inverse's passes on any u64 words in bit-reversed order, each multiplied
+// by the key (or by 1) as it loads, canonical normal-order words out; the
+// shapes and tables of pft_ntt64_inverse.
+int pft_ntt64_inverse_mul(const void* in, void* out, const void* inv_roots,
+                          const void* inv_roots_p, const void* key, const void* mod_pack,
+                          int count, int rows_per_mod, int log_n, void* stream) {
+  return launch(false, in, out, inv_roots, inv_roots_p, mod_pack, count, rows_per_mod, log_n, 1,
+                2, key ? IN_KEY : IN_ANY, key, stream);
 }
 
 // Kernel E: INTT(NTT(in) * key) of count moduli x rows_per_mod rows of
-// 2^log_n words (log_n 8-12, count <= 4): any u64 words in, normal order;
+// 2^log_n words (log_n 8-15, count <= 4): any u64 words in, normal order;
 // roots, roots_p and inv_roots, inv_roots_p the forward's and the inverse's
 // (count, n) tables; key (count, 2, n, 16-byte aligned) the bit-reversed
 // key and its Shoup quotients; canonical words out, normal order.

@@ -79,8 +79,8 @@
 //   rows of at least 2^11 words split into slices of at least 2^8; a block's
 //   tile at most 128 KB) and launches with the cluster attribute; no caller
 //   sets the grid.
-//   log_w <= 16: a 512 KB u64 row over at least 4 blocks, a 256 KB u32 row
-//   over at least 2.
+//   log_w <= 17: a 1 MB u64 row over 8 blocks of 128 KB (one row a tile), a
+//   512 KB u32 row over at least 4.
 //
 // Regrouping the stages into passes and cluster stages changes no word:
 // every butterfly is the plain version's (ops/ntt_stages.py) on the same
@@ -99,7 +99,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int ST_THREADS = 256;
-constexpr int ST_MAX_LOG_W = 16;
+constexpr int ST_MAX_LOG_W = 17;
 constexpr int ST_MAX_LOG_C = 3;           // clusters of up to 8 blocks (portable)
 constexpr int ST_TILE_LOG_BYTES = 17;      // a block's T rows x 2^l words: at most 128 KB
 constexpr int ST_MIN_SPLIT_LOG_BYTES = 10;  // the u64 pick splits a row into slices of >= 1 KB
@@ -891,7 +891,7 @@ int grid_of(int kind, int rows, int log_w, int* log_c, int* tile) {
 
 extern "C" {
 
-// The u32 forward: the final log_w stages (log_w 1-16, q < 2^30) of `rows`
+// The u32 forward: the final log_w stages (log_w 1-17, q < 2^30) of `rows`
 // rows (in and out 16-byte aligned), input below 4q, output canonical or
 // lazy below 4q.
 int pft_ntt32_stages_forward(const void* in, void* out, const void* w, const void* wp, int q,
@@ -905,7 +905,7 @@ int pft_ntt32_stages_inverse(const void* in, void* out, const void* w, const voi
   return launch32(false, in, out, w, wp, q, rows, log_w, 0, stream);
 }
 
-// The u64 forward: the final log_w stages (log_w 1-16, q < 2^62) of `rows`
+// The u64 forward: the final log_w stages (log_w 1-17, q < 2^62) of `rows`
 // rows (in and out 16-byte aligned), input below 4q, output canonical or
 // lazy below out_factor q (2 or 4).
 int pft_ntt64_stages_forward(const void* in, void* out, const void* w, const void* wp,

@@ -55,7 +55,8 @@ def sample_uniform(generator: torch.Generator, shape, q: int) -> torch.Tensor:
         raise ValueError("sample_uniform needs 1 < q < 2^31")
     lo = uniform_u32(generator, shape)
     hi = uniform_u32(generator, shape)
-    return (hi * q + ((lo * q) >> 32)) >> 32
+    lo.mul_(q).bitwise_right_shift_(32)  # in place: the draws are the working set
+    return hi.mul_(q).add_(lo).bitwise_right_shift_(32)
 
 
 def sample_uniform_u64(generator: torch.Generator, shape, q: int) -> torch.Tensor:

@@ -120,9 +120,18 @@ def ggsw_encrypt_torus(
     zs = generate_random_zero_sample_torus(
         secret, gaussian, conv, generator, batch + (k + 1, level)
     )  # (*batch, k+1, L, k+1, N)
+    return ggsw_from_zero_samples(mu_poly, zs, basis)
+
+
+def ggsw_from_zero_samples(mu_poly: torch.Tensor, zs: torch.Tensor,
+                           basis: ApproxSignedBasis32) -> torch.Tensor:
+    """GGSW(mu) from its rows' GLWE(0) samples ``zs (*batch, k+1, L, k+1,
+    N)``: ``mu * B^l * 2^drop`` added at component r of row r, level l, for
+    ``mu_poly (*batch, N)``."""
+    k1 = zs.shape[-2]
     scal = torch.tensor([s & MASK32 for s in basis.scalars], dtype=torch.int64,
-                        device=secret.device)
+                        device=zs.device)
     contrib = (mu_poly.unsqueeze(-2) * scal[:, None]) & MASK32  # (*batch, L, N)
-    eye = torch.eye(k + 1, dtype=torch.int64, device=secret.device)  # (row r, component j)
+    eye = torch.eye(k1, dtype=torch.int64, device=zs.device)  # (row r, component j)
     inj = eye[:, None, :, None] * contrib.unsqueeze(-3).unsqueeze(-2)  # (*batch, k+1, L, k+1, N)
     return (zs + inj) & MASK32

@@ -58,10 +58,13 @@ _SIGNATURES = {
     "pft_ntt64_inverse": (_P,) * 5 + (_I,) * 5 + (_P,),
     "pft_ntt64_tile": (_I, _I, _I, _I, _P),
     "pft_ntt64_roundtrip_mul": (_P,) * 8 + (_I,) * 3 + (_P,),
+    "pft_ntt64_forward_any": (_P,) * 5 + (_I,) * 3 + (_P,),
+    "pft_ntt64_inverse_mul": (_P,) * 6 + (_I,) * 3 + (_P,),
     "pft_ntt_mxu8_forward64": (_P,) * 6 + (_I,) * 4 + (_P,),
     "pft_ntt_mxu8_inverse64": (_P,) * 6 + (_I,) * 4 + (_P,),
     "pft_ntt_mxu8_inverse64_mul": (_P,) * 7 + (_I,) * 4 + (_P,),
     "pft_rotate": (_P, _I64, _P, _P, _I64, _I, _I, _I, _I, _P),
+    "pft_rotate_max_log_n": (),
     "pft_cmux_front": (_P,) * 5 + (_I,) * 4 + (_P,),
     "pft_cmux_front_grid": (_I,) * 3 + (_P,),
     "pft_ntt32_stages_forward": (_P,) * 4 + (_I,) * 4 + (_P,),

@@ -26,7 +26,7 @@ import torch
 from ..numeric.limb import narrow_u32, widen_u32
 from . import build
 from .cmux_fused import _basis_pack
-from .rotate import rotate_plain
+from .rotate import check_row, rotate_plain
 
 
 GROUP_PRIMES = 4  # primes a launch (PFT_MAX_KP in csrc/modarith32.cuh)
@@ -73,7 +73,8 @@ def cmux_front(acc: torch.Tensor, degrees: torch.Tensor, basis, primes, out=None
     launch: more primes launch it once a group, each group into its slice
     ``out[g0:g1]`` of the one output.  The output keeps ``acc``'s
     storage, or goes into ``out`` (contiguous int32 ``(kp, B, k1, L, n)``,
-    16-byte aligned on the card), which is returned."""
+    16-byte aligned on the card), which is returned.  On the card rows of up
+    to ``2^17`` words (a ``ValueError`` past it, before any launch)."""
     primes = tuple(int(p) for p in primes)
     if acc.device.type == "cpu":
         res = cmux_front_plain(widen_u32(acc), degrees, basis, primes)
@@ -89,6 +90,7 @@ def cmux_front(acc: torch.Tensor, degrees: torch.Tensor, basis, primes, out=None
     if not primes or basis.modulus is not None:
         raise ValueError("cmux_front: at least one prime and a torus-mode basis")
     bsz, k1, n = acc.shape
+    check_row("cmux_front", n)
     a = narrow_u32(acc).contiguous()
     d = degrees.to(torch.int32).contiguous()
     level = basis.decompose_length

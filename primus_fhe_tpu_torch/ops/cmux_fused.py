@@ -23,7 +23,7 @@ the card, and the measured times, are in the source's note and PERF.md.
 The one-launch kernel holds a ciphertext's cluster in shared memory, so it
 takes ``kp*k1 <= 8``, ``k1 <= 4``, ``L <= 16``, ``log_n`` 4-12 and ``(2 +
 kp + L + k1) * 4n`` bytes within 227 KB.  Every other shape with ``kp <=
-4``, ``L <= 32`` and ``log_n`` 4-16 runs the staged route, under the JAX's
+4``, ``L <= 32`` and ``log_n`` 4-17 runs the staged route, under the JAX's
 names: :func:`cmux_stage1` (kernel G, then kernel 1 at ``out_factor=4``)
 writes the lazy NTT-domain digits to device memory and :func:`cmux_stage2`
 (kernel H, ``csrc/cmux_stage2.cu``: a cluster of kp x C blocks a
@@ -56,7 +56,7 @@ MAX_LEVEL = 16  # L products below 2^60 sum below 2^64 (MAX_LEVEL there)
 SMEM_MAX = 232448  # the most shared memory a block may ask for on the card
 STAGED_MAX_KP = 4  # kernel H's primes (PFT_MAX_KP in csrc/modarith32.cuh)
 STAGED_MAX_LEVEL = 32  # kernel H's levels (H_MAX_LEVEL in csrc/cmux_stage2.cu)
-STAGED_LOG_N = (4, 16)  # kernel H's rings; kernels G and 1 take them too
+STAGED_LOG_N = (4, 17)  # kernel H's rings; kernels G and 1 take them too
 
 
 def step_route(kp: int, k1: int, level: int, log_n: int) -> str:
@@ -216,7 +216,7 @@ def cmux_stage2(conv, f: torch.Tensor, key: torch.Tensor, acc: torch.Tensor, out
     key[:, r, l, j]))`` for ``f (kp, B*k1, L, n)`` lazy ``[0, 4p)`` digits
     (:func:`cmux_stage1`'s), ``key (kp, k1, L, k1, n)`` canonical and ``acc
     (B, k1, n)``.  CPU tensors take :func:`cmux_stage2_plain`; CUDA tensors
-    kernel H, one launch (kp 1-4, any k1, L 1-32, log_n 4-16; a
+    kernel H, one launch (kp 1-4, any k1, L 1-32, log_n 4-17; a
     ``ValueError`` past them, before any launch).  ``out`` may be ``acc``
     (contiguous int32: the kernel adds in place); else the output keeps
     ``acc``'s storage."""
@@ -335,7 +335,7 @@ def fused_cmux_step(conv, basis, acc: torch.Tensor, degrees: torch.Tensor, key: 
     ``k1 <= 4``, ``L`` 1-16, ``log_n`` 4-12, ``(2 + kp + L + k1) * 4n``
     bytes of shared memory within 227 KB), else :func:`cmux_stage1` then
     :func:`cmux_stage2` (``kp`` 1-4, any ``k1``, ``L`` 1-32, ``log_n``
-    4-16); :class:`CmuxStepPlan` raises ``ValueError`` past those, before
+    4-17); :class:`CmuxStepPlan` raises ``ValueError`` past those, before
     any launch.  The plain composition takes any shape.
     """
     if acc.device.type == "cpu":

@@ -44,7 +44,7 @@ runs (:func:`mxu_step_route`): kernel A wherever its C entry's
 route of :mod:`.cmux_fused` (the one-launch fused step or the staged
 kernels G, 1 and H) on the pack's values, which are the canonical
 bit-reversed NTT rows the NTT key holds.  The key preparation runs kernel
-C to ``log_n`` 12 and kernel 1 at 13-16 (:func:`prepare_mxu_bsk`); the
+C to ``log_n`` 12 and kernel 1 at 13-17 (:func:`prepare_mxu_bsk`); the
 plan's int8 tables are built at first use, only for kernel A's shapes.
 """
 
@@ -422,7 +422,7 @@ def prepare_mxu_bsk(conv, ggsw_coeff: torch.Tensor):
     -> MXU key pack ``(vals, precons)``, each ``(n_lwe, kp, k1, L, k1, A,
     128)`` int64 and contiguous: the centered lift, kernel C (one launch
     for every prime: the canonical forward NTT on kernel 1's radix-8
-    passes; kernel 1 itself at ``log_n`` 13-16,
+    passes; kernel 1 itself at ``log_n`` 13-17,
     :func:`.ntt_mxu8.mxu8_forward32`), then the exact Shoup quotients."""
     from .ntt_mxu8 import mxu8_forward32
 

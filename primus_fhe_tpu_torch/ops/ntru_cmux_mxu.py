@@ -19,7 +19,7 @@ ciphertext, in clusters of C ciphertexts that share each streamed stage
 later work).
 
 Where kernel B cannot take the shape (:func:`ntru_step_route`: ``log_n``
-13-16, or a block's plan past 227 KB) the step runs staged, on the evk
+13-17, or a block's plan past 227 KB) the step runs staged, on the evk
 row's values read as the canonical bit-reversed NTT rows they are
 (``csrc/ntru_stage.cu``): kernel I (:func:`ntru_digits`: the mod-q gadget
 digits of the accumulator as ``[0, q)`` residues into a buffer), kernel 1
@@ -70,7 +70,7 @@ def ntru_step_route(level: int, log_n: int, dp: int) -> str:
     (:func:`.cmux_mxu.digit_planes`): ``"mxu"`` (kernel B, one launch)
     wherever kernel B takes the shape (:func:`.cmux_mxu.mxu_holds`, asked of
     the card at ``log_n`` 8-12), else ``"staged"`` (kernels I, 1 and J) for
-    ``log_n`` 8-16 and ``level`` 1-32.  Decided from the shape before any
+    ``log_n`` 8-17 and ``level`` 1-32.  Decided from the shape before any
     launch; a ``ValueError`` names the limit past both."""
     if dp not in (1, 2):
         raise ValueError(f"NTRU CMux step: {dp} digit planes (1 or 2: gadget bases up to 2^15)")
@@ -282,7 +282,7 @@ def ntru_stage2(tables, f: torch.Tensor, evk: torch.Tensor, acc: torch.Tensor,
     (:func:`ntru_stage1`'s), ``evk (L, n)`` canonical, ``acc (B, n)``
     canonical and ``degrees (B,)`` of any sign.  CPU tensors take
     :func:`ntru_stage2_plain`; CUDA tensors the kernel, one launch (L 1-32,
-    log_n 4-16; a ``ValueError`` past them, before any launch).  ``out``
+    log_n 4-17; a ``ValueError`` past them, before any launch).  ``out``
     may be ``acc`` (contiguous int32: the kernel adds in place); else the
     output keeps ``acc``'s storage.  With ``basis`` (mod q, L levels) the
     output's gadget digits, ``[0, q)`` residues as kernel I writes them,
@@ -411,7 +411,7 @@ ntru_stage2.launches = 0
 def prepare_mxu_evk(ctx, evk_coeff: torch.Tensor):
     """Coefficient-domain EVK ``(n_lwe, L, n)`` mod q -> MXU pack
     ``(vals, precons)``, each ``(n_lwe, L, A, 128)`` int64: kernel C (kernel
-    1 at ``log_n`` 13-16, :func:`.ntt_mxu8.mxu8_forward32`), then the exact
+    1 at ``log_n`` 13-17, :func:`.ntt_mxu8.mxu8_forward32`), then the exact
     Shoup quotients."""
     plan = get_ntru_plan(ctx.log_n, ctx.q_int)
     vals = mxu8_forward32(plan, evk_coeff.unsqueeze(0))[0].contiguous()

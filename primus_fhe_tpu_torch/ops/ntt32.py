@@ -28,9 +28,9 @@ the grid in one wave).  The passes are one copy in
 ``csrc/ntt_passes.cuh``, shared with the CMux step kernel and (at 64 bits)
 row 10's kernels.
 
-At ``log_n`` 15-16 a row (128-256 KB) outgrows a block: it runs over a
-thread-block cluster of ``2^(log_n - 14)`` blocks, a slice of 2^14 words
-each (``csrc/ntt_split.cuh``).  The stages that pair words of different
+At ``log_n`` 15-17 a row (128-512 KB) outgrows a block: it runs over a
+thread-block cluster of ``2^(log_n - 14)`` blocks (2, 4 or 8), a slice of
+2^14 words each (``csrc/ntt_split.cuh``).  The stages that pair words of different
 slices go over distributed shared memory; each slice runs the same radix-8
 passes on the compact root table read at its offsets.
 
@@ -51,7 +51,7 @@ from ..utils.contracts import check_range_u32
 from . import build
 
 MAX_PRIMES = 4  # PFT_MAX_KP in csrc/modarith32.cuh
-MAX_LOG_N = 16  # the kernels' largest row (MAX_LOG_N in csrc/ntt32.cu)
+MAX_LOG_N = 17  # the kernels' largest row (MAX_LOG_N in csrc/ntt32.cu)
 
 
 class NttTables32:
@@ -158,8 +158,8 @@ def forward32(tables: NttTables32, values: torch.Tensor, out_factor: int = 1, ou
     canonical for ``out_factor=1`` and lazy ``[0,4q)`` for ``4``.
 
     CPU tensors take the plain version (any ``log_n``), CUDA tensors the
-    kernel, which takes ``log_n`` 1-16 (:data:`MAX_LOG_N`; a ``ValueError``
-    above, before any launch; 15-16 a row over a cluster) and at most 4
+    kernel, which takes ``log_n`` 1-17 (:data:`MAX_LOG_N`; a ``ValueError``
+    above, before any launch; 15-17 a row over a cluster) and at most 4
     primes (:class:`NttTables32` refuses more).  ``out``: int32 words of
     ``values``' shape to write (may be ``values`` itself); it is returned.
     """

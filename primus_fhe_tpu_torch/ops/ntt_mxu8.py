@@ -4,7 +4,7 @@ transforms of the same functions on butterflies.
 - Kernel C, ``mxu8_forward32``: the u32 tier (``q < 2^30``) of
   ``mxu8_fused_forward64`` (``primus_fhe_tpu/ops/ntt_mxu8.py:917``), which
   ``prepare_mxu_bsk`` and ``prepare_mxu_evk`` run.  Its function is kernel
-  1's canonical forward NTT (:mod:`.ntt32`), so at ``log_n`` 13-16 the
+  1's canonical forward NTT (:mod:`.ntt32`), so at ``log_n`` 13-17 the
   wrapper runs kernel 1 itself; at 8-12 kernel C's design is kernel 1's: a
   persistent kernel in ``csrc/ntt32.cu`` on kernel 1's radix-8 register
   passes, each block taking a range of (prime, tile of rows) items, one
@@ -25,6 +25,18 @@ transforms of the same functions on butterflies.
   fixed NTT-domain operand fused in front, and the whole negacyclic product
   by that operand (forward, multiply, inverse) in one launch; the operand
   comes as a :meth:`Mxu8Tables64.mul_table`.
+
+The byte-radix kernels take ``log_n`` 8-12 (:data:`MXU_LOG_N`).  At 13-15
+(:data:`WIDE_LOG_N`) the four u64 functions run on row 10's radix-8 passes
+(``csrc/ntt64.cu``), as kernel C runs on kernel 1 past 12: the forward's
+and the inverse's kernels with any u64 word brought below 2q as it loads
+(``pft_ntt64_forward_any``; ``pft_ntt64_inverse_mul`` with no key), kernel
+D's key multiplied in as each word loads (``pft_ntt64_inverse_mul``), and
+kernel E, whose launch takes those rings too (the forward's table read
+from device memory past 2^12, a row over a cluster of 2 blocks at 2^15).
+Each launch is counted on the wrapper the caller called.  Past 15 the plan
+builds and the plain versions compute; the card raises before any launch,
+as row 10 does (the JAX's 64-bit butterfly plan stops at 2^15 too).
 
 All but the round trip reach ``pallas_call`` through
 ``ops/mxu_common._natural_call`` in the reference.  CUDA source:
@@ -86,11 +98,23 @@ from . import build
 from .cmux_mxu import LANES, _balanced_digits, kernel_layout
 from .mxu_common import four_step_matrices
 from .ntt32 import MAX_LOG_N, forward32, forward32_plain
+from .ntt64 import MAX_LOG_N as NTT64_MAX_LOG_N
 from .ntt64 import NttTables64, group_pack, mod_groups, ntt64_forward_plain
 from .ntt64 import ntt64_inverse_plain
 from .ntt64 import pick_tile as ntt64_pick_tile
 
 C_LOG_N = (8, 12)  # kernel C's rows on the card (C_MIN_LOG_N, C_MAX_LOG_N in csrc/ntt32.cu)
+MXU_LOG_N = (8, 12)  # the u64 byte-radix kernels' rows on the card (csrc/ntt_mxu8.cu)
+WIDE_LOG_N = (13, NTT64_MAX_LOG_N)  # the same functions on row 10's passes (csrc/ntt64.cu)
+
+
+def four_step_split(log_n: int) -> tuple[int, int]:
+    """``(A, B)`` of the byte-radix plan at ``log_n >= 8``: the JAX plan's
+    default ``h1 = log_n - max(7, ceil(log_n / 2))`` (``B = 128`` lanes to
+    ``log_n`` 14, then ``B = 2^ceil(log_n / 2)``: ``A = 128, B = 256`` at
+    15)."""
+    h1 = log_n - max(LANES.bit_length() - 1, -(-log_n // 2))
+    return 1 << h1, 1 << (log_n - h1)
 
 
 def mxu8_forward32_plain(plan, values: torch.Tensor) -> torch.Tensor:
@@ -107,8 +131,8 @@ def mxu8_forward32(plan, values: torch.Tensor) -> torch.Tensor:
     CPU tensors take the plain version, CUDA tensors kernel C (one launch
     for every prime) at ``log_n`` 8-12 and kernel 1 at ``out_factor=1``
     (:func:`.ntt32.forward32`, its launch counted there; a row over a
-    cluster at 15-16) at 13-16: the same function, so the same words.  A
-    ``ValueError`` outside 8-16, before any launch; the output keeps the
+    cluster at 15-17) at 13-17: the same function, so the same words.  A
+    ``ValueError`` outside 8-17, before any launch; the output keeps the
     input's storage.
     """
     if values.device.type == "cpu":
@@ -243,9 +267,11 @@ def col_tables(log_n: int, q: int, psi_a: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 class Mxu8NttPlan64:
-    """Byte-radix four-step plan of one modulus ``q < 2^62`` at ``8 <= log_n
-    <= 14``: ``A = n / 128`` rows by ``B = 128`` lanes (the JAX plan's
-    default split in that range), ``planes`` output digit planes (the
+    """Byte-radix four-step plan of one modulus ``q < 2^62`` at ``log_n >=
+    8``: ``A`` rows by ``B`` lanes, the JAX plan's default split
+    (:func:`four_step_split`; ``B = 128`` to ``log_n`` 14) and its check
+    that ``planes * max(A, B) * 128^2`` int8 products sum within int32,
+    ``planes`` output digit planes (the
     natural tier, or an override at least that), on the minimal root or an
     explicit ``root`` (the four-step sub-plans of ``transforms.ntt_large``).
 
@@ -261,7 +287,8 @@ class Mxu8NttPlan64:
     root ``om_b = m2[brv7(1), 1]``): row 13's K2 and Ki1 run them; ``col``
     and ``col_inv`` pass 1's and inverse pass 2's A-point negacyclic
     transforms (:func:`col_tables`, on ``m1``'s ``psi_A = m1[0, 1]``): K1
-    and Ki2 run them.  The byte-plane matrices are built at first use (row
+    and Ki2 run them (all four None where ``B`` is not 128: row 13 takes
+    ``log_n`` 8-14).  The byte-plane matrices are built at first use (row
     9's kernels and the JAX tables read them; row 13 does not).
     """
 
@@ -271,12 +298,14 @@ class Mxu8NttPlan64:
             planes = natural
         elif planes not in (4, 7, 8) or planes < natural:
             raise ValueError(f"planes must be in {{4,7,8}} and >= the natural tier {natural}")
-        if not 8 <= log_n <= 14:
-            raise ValueError("Mxu8NttPlan64 needs 8 <= log_n <= 14 (B = 128 lanes)")
+        if log_n < 8:
+            raise ValueError("Mxu8NttPlan64 needs log_n >= 8 (B >= 128 lanes)")
         self.planes = planes
         self.log_n, self.n, self.q = log_n, 1 << log_n, int(q)
-        h1 = log_n - 7
-        self.A, self.B = 1 << h1, LANES
+        self.A, self.B = four_step_split(log_n)
+        if planes * max(self.A, self.B) * LANES * LANES >= 1 << 31:
+            raise ValueError("split too wide for int32 digit sums")
+        h1 = self.A.bit_length() - 1
         self._fs = fs = four_step_matrices(log_n, q, h1, h1, root)
         self.tw, self.twi = _precon64(fs["tw"]), _precon64(fs["twi"])
         # the four pass matrices (rows out, columns in) for the plain halves
@@ -284,8 +313,10 @@ class Mxu8NttPlan64:
         quot = np.vectorize(lambda v: _quot64(int(v), self.q), otypes=[object])
         self.tw_p = _precon64(quot(fs["tw"]))
         self.twi_p = _precon64(quot(fs["twi"]))
-        self.cyclic, self.cyclic_inv = cyclic_tables(int(fs["m2"][LANES // 2, 1]), self.q)
-        self.col, self.col_inv = col_tables(log_n, self.q, int(fs["m1"][0, 1]))
+        self.cyclic = self.cyclic_inv = self.col = self.col_inv = None
+        if self.B == LANES:
+            self.cyclic, self.cyclic_inv = cyclic_tables(int(fs["m2"][LANES // 2, 1]), self.q)
+            self.col, self.col_inv = col_tables(log_n, self.q, int(fs["m1"][0, 1]))
 
     def _planes(self, name):
         return byte_matrix(self._fs[name], self.q, self.planes, 8)
@@ -314,7 +345,8 @@ class Mxu8Tables64:
         self.ntt = ntt
         self.log_n, self.n, self.moduli = ntt.log_n, ntt.n, ntt.moduli
         self.planes = max([7] + [_planes_for(q) for q in self.moduli])
-        self.A, self.B = max(self.n // LANES, 1), LANES
+        self.A, self.B = (four_step_split(self.log_n) if self.log_n >= 8
+                          else (max(self.n // LANES, 1), LANES))
         self._plans = None
         self._kernel_on: dict = {}
         self._split_on: dict = {}
@@ -497,12 +529,16 @@ def mxu8_roundtrip64_mul_plain(tables: Mxu8Tables64, values: torch.Tensor, mul_t
     return mxu8_inverse64_mul_plain(tables, mxu8_forward64_plain(tables, values), mul_tab)
 
 
-def _run64(wrapper, plain, entry: str, names, tables: Mxu8Tables64, values, out_factor, allowed,
+def _run64(wrapper, plain, tables: Mxu8Tables64, values, out_factor, allowed, byte, wide,
            mul_tab=None):
-    """One launch of ``entry`` on ``values`` a group of up to four moduli
-    (:func:`.ntt64.mod_groups`; CPU tensors: ``plain``);
-    ``names``: the byte-radix kernel tables it reads, or None for kernel E,
-    which reads the butterfly tables ``tables.ntt``."""
+    """One launch on ``values`` a group of up to four moduli
+    (:func:`.ntt64.mod_groups`; CPU tensors: ``plain``).  ``byte`` is the
+    launch at ``log_n`` 8-12, ``wide`` the one at :data:`WIDE_LOG_N` (row
+    10's passes), each ``(C entry, tables, key arguments)``: the tables are
+    names in the byte-radix kernel tables (the entry then takes the digit
+    planes) or indices in the butterfly tables ``tables.ntt.kernel_tables``;
+    the key arguments are the entry's key pointers (a tensor, or None for a
+    null pointer)."""
     if out_factor not in allowed:
         raise ValueError(f"out_factor must be one of {allowed}")
     keyed = () if mul_tab is None else (mul_tab,)
@@ -519,22 +555,27 @@ def _run64(wrapper, plain, entry: str, names, tables: Mxu8Tables64, values, out_
                                 or not mul_tab.is_contiguous()):
         raise ValueError(f"{wrapper.__name__}: the key table must be a contiguous int64 "
                          f"(count={count}, 2, n={n}) tensor on {values.device}")
-    if not 8 <= tables.log_n <= 12:
-        raise ValueError(f"{wrapper.__name__}: the kernels take 8 <= log_n <= 12")
+    if not MXU_LOG_N[0] <= tables.log_n <= WIDE_LOG_N[1]:
+        raise ValueError(f"{wrapper.__name__}: the card takes {MXU_LOG_N[0]} <= log_n <= "
+                         f"{WIDE_LOG_N[1]} (byte-radix kernels to {MXU_LOG_N[1]}, row 10's "
+                         f"passes above), got {tables.log_n}")
     v = values.contiguous()
     out = torch.empty_like(v)
     rows = v[0].numel() // n
     if rows:
-        if names is None:
-            tabs, planes = tables.ntt.kernel_tables(v.device), ()
-        else:
+        entry, keys, key_args = wide if tables.log_n > MXU_LOG_N[1] else byte
+        if isinstance(keys[0], str):
             kt = tables.kernel_tables(v.device)
-            tabs, planes = [kt[name] for name in names] + [kt["tw"]], (tables.planes,)
+            tabs, planes = [kt[k] for k in keys], (tables.planes,)
+        else:
+            bt = tables.ntt.kernel_tables(v.device)
+            tabs, planes = [bt[i] for i in keys], ()
         for g in mod_groups(count):
             err = getattr(build.library(), entry)(
                 v[g].data_ptr(), out[g].data_ptr(), *(t[g].data_ptr() for t in tabs),
-                *(t[g].data_ptr() for t in keyed), group_pack(tables.ntt, g), g.stop - g.start,
-                rows, tables.log_n, *planes, torch.cuda.current_stream(v.device).cuda_stream,
+                *(None if t is None else t[g].data_ptr() for t in key_args),
+                group_pack(tables.ntt, g), g.stop - g.start, rows, tables.log_n, *planes,
+                torch.cuda.current_stream(v.device).cuda_stream,
             )
             build.check(err, entry)
             wrapper.launches += 1
@@ -550,13 +591,15 @@ def mxu8_forward64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
     docstring).
 
     CPU tensors take the plain version, CUDA tensors the kernel (one launch
-    a group of up to four moduli).  Under ``PRIMUS_DEBUG=1`` it holds the
+    a group of up to four moduli; ``log_n`` 8-12, row 10's forward at 13-15,
+    a ``ValueError`` outside).  Under ``PRIMUS_DEBUG=1`` it holds the
     input to the reference's contract, words below ``2^(8 planes)`` below 8
     planes."""
     if tables.planes < 8:
         check_range_u64(values, 1 << (8 * tables.planes), 1, "mxu8_forward64 input")
-    return _run64(mxu8_forward64, mxu8_forward64_plain, "pft_ntt_mxu8_forward64", ("w1s", "w2s"),
-                  tables, values, out_factor, (1, 2, 4))
+    return _run64(mxu8_forward64, mxu8_forward64_plain, tables, values, out_factor, (1, 2, 4),
+                  ("pft_ntt_mxu8_forward64", ("w1s", "w2s", "tw"), ()),
+                  ("pft_ntt64_forward_any", (0, 1), ()))
 
 
 def mxu8_inverse64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int = 1):
@@ -565,11 +608,14 @@ def mxu8_inverse64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
     output is canonical for both).
 
     CPU tensors take the plain version, CUDA tensors the tiled kernel (one
-    launch a group of up to four moduli), which takes ``8 <= log_n <= 12`` and raises
-    ``ValueError`` above, where the plan allows 14 (``route="auto"`` sends
-    those to the butterfly)."""
-    return _run64(mxu8_inverse64, mxu8_inverse64_plain, "pft_ntt_mxu8_inverse64",
-                  ("wi1s", "wi2s"), tables, values, out_factor, (1, 2))
+    launch a group of up to four moduli) at ``log_n`` 8-12 and row 10's
+    inverse at 13-15 (each word reduced as it loads); a ``ValueError``
+    outside, before any launch (``route="auto"`` sends 13 and up to the
+    butterfly)."""
+    # row 10's keyed inverse with a null key: each word times 1 as it loads
+    return _run64(mxu8_inverse64, mxu8_inverse64_plain, tables, values, out_factor, (1, 2),
+                  ("pft_ntt_mxu8_inverse64", ("wi1s", "wi2s", "tw"), ()),
+                  ("pft_ntt64_inverse_mul", (2, 3), (None,)))
 
 
 def mxu8_inverse64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: torch.Tensor,
@@ -579,10 +625,12 @@ def mxu8_inverse64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: torc
     (:meth:`Mxu8Tables64.mul_table`) -> canonical values in normal order.
 
     CPU tensors take the plain version, CUDA tensors :func:`mxu8_inverse64`'s
-    tiled kernel with the key multiplied in as each word is loaded; on the
-    card ``8 <= log_n <= 12`` only (``ValueError`` above)."""
-    return _run64(mxu8_inverse64_mul, mxu8_inverse64_mul_plain, "pft_ntt_mxu8_inverse64_mul",
-                  ("wi1s", "wi2s"), tables, values, out_factor, (1, 2), mul_tab)
+    tiled kernel with the key multiplied in as each word is loaded at
+    ``log_n`` 8-12, row 10's inverse with the same load at 13-15
+    (``pft_ntt64_inverse_mul``); a ``ValueError`` outside."""
+    return _run64(mxu8_inverse64_mul, mxu8_inverse64_mul_plain, tables, values, out_factor,
+                  (1, 2), ("pft_ntt_mxu8_inverse64_mul", ("wi1s", "wi2s", "tw"), (mul_tab,)),
+                  ("pft_ntt64_inverse_mul", (2, 3), (mul_tab,)), mul_tab)
 
 
 def mxu8_roundtrip64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: torch.Tensor,
@@ -595,10 +643,11 @@ def mxu8_roundtrip64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: to
     CPU tensors take the plain version, CUDA tensors the kernel of
     ``csrc/ntt64.cu`` (row 10's radix-8 passes for both transforms, the key
     between them, one launch a group of up to four moduli; the launch picks its tile of
-    rows, :func:`roundtrip_tile`); on the card ``8 <= log_n <= 12`` only
-    (``ValueError`` outside)."""
-    return _run64(mxu8_roundtrip64_mul, mxu8_roundtrip64_mul_plain, "pft_ntt64_roundtrip_mul",
-                  None, tables, values, out_factor, (1, 2), mul_tab)
+    rows, :func:`roundtrip_tile`); on the card ``log_n`` 8-15 (a row over a
+    cluster of 2 blocks at 15; a ``ValueError`` outside)."""
+    route = ("pft_ntt64_roundtrip_mul", (0, 1, 2, 3), (mul_tab,))  # the same at 8-15
+    return _run64(mxu8_roundtrip64_mul, mxu8_roundtrip64_mul_plain, tables, values, out_factor,
+                  (1, 2), route, route, mul_tab)
 
 
 def roundtrip_tile(tables: Mxu8Tables64, rows: int) -> int:

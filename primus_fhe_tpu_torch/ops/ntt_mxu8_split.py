@@ -141,6 +141,8 @@ def split_ki2_plain(tables: Mxu8Tables64, values):
 
 
 def _check(wrapper, tables, values, dims, mul_rows=None):
+    if values.device.type == "cuda" and not 8 <= tables.log_n <= 14:  # before any shape
+        raise ValueError(f"{wrapper.__name__}: the kernels take 8 <= log_n <= 14")
     count = len(tables.moduli)
     if values.dtype != torch.int64 or values.shape[0] != count or values.dim() != 3 or any(
             want is not None and got != want for got, want in zip(values.shape[1:], dims)):

@@ -21,7 +21,7 @@ radix-8 register passes on the per-lane tables, each entry read once a
 tile of rows; the launch picks the cluster size and the rows a block
 (:func:`launch_grid`).  The u32 forward's butterflies read both lanes'
 entries (the TPU's select form), the u32 inverse's the y lane's, the u64
-pair's the x lane's.  On the card all four take ``log_w <= 16``.
+pair's the x lane's.  On the card all four take ``log_w <= 17``.
 
 The twiddles are per-lane tables ``(log_w, 2^log_w)``, a shard's slice of
 :func:`..parallel.coeff_sharded.build_expanded_tables32` (or ``64``); stage
@@ -44,8 +44,8 @@ from ..modular.modops import reduce_once64
 from ..numeric.limb import MASK32, mul_hi_u64, mulhi_u32, narrow_u32, widen_u32
 from . import build
 
-MAX_LOG_W32 = 16  # a row of 2^16 u32 words (256 KB) over a cluster of >= 2 blocks
-MAX_LOG_W64 = 16  # a row of 2^16 u64 words (512 KB) over a cluster of >= 4 blocks
+MAX_LOG_W32 = 17  # a row of 2^17 u32 words (512 KB) over a cluster of >= 4 blocks
+MAX_LOG_W64 = 17  # a row of 2^17 u64 words (1 MB) over a cluster of 8 blocks, a row a tile
 
 
 def _pairs(v: torch.Tensor, table: torch.Tensor, t: int):
@@ -204,7 +204,7 @@ def ntt32_stages_forward(log_w: int, q: int, w_loc, p_loc, values, out_factor: i
     words in ``[0, 4q)``, ``q < 2^30``) with the per-lane tables ``w_loc``,
     ``p_loc (log_w, 2^log_w)``; canonical for ``out_factor=1``, lazy
     ``[0, 4q)`` for ``4``.  The output keeps the input's storage.  On the
-    card ``1 <= log_w <= 16``."""
+    card ``1 <= log_w <= 17``."""
     if out_factor not in (1, 4):
         raise ValueError("out_factor must be 1 or 4")
     if not 1 < q < 1 << 30:
@@ -223,7 +223,7 @@ def ntt32_stages_forward(log_w: int, q: int, w_loc, p_loc, values, out_factor: i
 def ntt32_stages_inverse(log_w: int, q: int, w_loc, p_loc, values):
     """The first ``log_w`` inverse stages of ``values (..., 2^log_w)`` (u32
     words in ``[0, 2q)``); output lazy ``[0, 2q)``, the input's storage.  On
-    the card ``1 <= log_w <= 16``."""
+    the card ``1 <= log_w <= 17``."""
     if not 1 < q < 1 << 30:
         raise ValueError("ntt32_stages_inverse requires q < 2^30")
     if values.device.type == "cpu":
@@ -247,7 +247,7 @@ def ntt64_stages_forward(log_w: int, q: int, w_loc, p_loc, values, out_factor: i
     """The final ``log_w`` forward stages of ``values (..., 2^log_w)`` (u64
     words in ``[0, 4q)``, ``q < 2^62``) with the per-lane tables; canonical
     for ``out_factor=1``, ``[0, 2q)`` for ``2``, ``[0, 4q)`` for ``4``.  On
-    the card ``1 <= log_w <= 16``."""
+    the card ``1 <= log_w <= 17``."""
     if out_factor not in (1, 2, 4):
         raise ValueError("out_factor must be 1, 2 or 4")
     _check64(ntt64_stages_forward, q, values, w_loc, p_loc)
@@ -261,7 +261,7 @@ def ntt64_stages_forward(log_w: int, q: int, w_loc, p_loc, values, out_factor: i
 def ntt64_stages_inverse(log_w: int, q: int, w_loc, p_loc, values, in_factor: int = 2):
     """The first ``log_w`` inverse stages of ``values (..., 2^log_w)`` (u64
     words in ``[0, in_factor q)``, ``in_factor`` a power of two at least
-    2); output lazy ``[0, 2q)``.  On the card ``1 <= log_w <= 16``."""
+    2); output lazy ``[0, 2q)``.  On the card ``1 <= log_w <= 17``."""
     if in_factor < 2 or in_factor & (in_factor - 1):
         raise ValueError("in_factor must be a power of two, at least 2")
     _check64(ntt64_stages_inverse, q, values, w_loc, p_loc)

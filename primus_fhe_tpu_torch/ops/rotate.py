@@ -43,6 +43,15 @@ def _rows(t: torch.Tensor, n: int) -> torch.Tensor | None:
         return None
 
 
+def check_row(what: str, n: int) -> None:
+    """Raises a ``ValueError`` naming the cap where kernels F and G take no
+    rows of ``n`` words: the cap is the library's own (``FG_MAX_LOG_N`` in
+    ``csrc/cmux_front.cu``, 17)."""
+    cap = build.library().pft_rotate_max_log_n()
+    if n > 1 << cap:
+        raise ValueError(f"{what}: the kernel takes rows of up to 2^{cap} words, got {n}")
+
+
 def rotate(values: torch.Tensor, degrees: torch.Tensor, subtract: bool = False,
            out: torch.Tensor | None = None) -> torch.Tensor:
     """``values[b] * X^degrees[b]`` mod ``X^n + 1`` (minus ``values[b]`` when
@@ -53,7 +62,8 @@ def rotate(values: torch.Tensor, degrees: torch.Tensor, subtract: bool = False,
     output keeps the input's storage (int64 words or int32), or goes into
     ``out``: int32 storage of ``values``' shape, any view with evenly spaced
     rows (``acc[:, -1, :]``), not overlapping ``values``; ``out`` is
-    returned."""
+    returned.  On the card rows of up to ``2^17`` words (:func:`check_row`:
+    a ``ValueError`` past it, before any launch)."""
     if out is not None and (out.dtype != torch.int32 or out.shape != values.shape
                             or out.device != values.device):
         raise ValueError(f"rotate: out must be int32 {tuple(values.shape)} on {values.device}, "
@@ -71,6 +81,7 @@ def rotate(values: torch.Tensor, degrees: torch.Tensor, subtract: bool = False,
             torch.int32, torch.int64):
         raise ValueError(f"rotate: bad input {values.dtype} {tuple(values.shape)}, degrees "
                          f"{tuple(degrees.shape)}")
+    check_row("rotate", n)
     v = narrow_u32(values)
     src = _rows(v, n)
     if src is None:

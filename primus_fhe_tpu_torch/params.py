@@ -27,8 +27,8 @@ from .boot.gates import FALSE_MU, TRUE_MU
 from .boot.ntru_blind_rotate import (
     NtruContext,
     NtruSecret,
+    make_ntru_evks,
     make_ntru_keyswitch_key,
-    ngs_encrypt_bit,
     ntru_keygen,
     ntru_secret,
 )
@@ -36,8 +36,6 @@ from .decompose.primitive import ApproxSignedBasis32
 from .distr.sampling import DiscreteGaussian, sample_binary, sample_uniform
 from .lattice import keyswitch, tfhe
 from .lattice.lwe import encrypt_torus32, phase_torus32
-from .lattice.ntru import to_ntt
-from .ops.ntru_cmux_mxu import prepare_mxu_evk
 from .utils.primes import next_ntt_prime
 
 __all__ = [
@@ -373,20 +371,21 @@ class NtruGateKeys:
 def make_ntru_keys(params: NtruParams, device, generator: torch.Generator) -> NtruGateKeys:
     """NTRU secret, binary LWE secret, both evaluation-key forms (the MXU
     pack for ``log_n >= 8``; kernel C prepares it to ``log_n`` 12, kernel
-    1 at 13-16) from one set of NGS draws, and the key-switch key, all on
-    ``device`` from ``generator``."""
+    1 at 13-17) from one set of NGS draws made in chunks of LWE indices
+    (:func:`~.boot.ntru_blind_rotate.make_ntru_evks`), and the key-switch
+    key, all on ``device`` from ``generator``.  On the card ``log_n`` up to
+    17."""
     device = torch.device(device)
     if generator.device.type != device.type:
         raise ValueError("the generator must live on the keys' device")
     ctx, ks_basis = make_ntru_context(params)
     sk = ntru_keygen(generator, ctx)
     s = sample_binary(generator, (params.lwe_dim,))
-    evk_coeff = ngs_encrypt_bit(generator, ctx, sk, s, DiscreteGaussian(params.sigma))
+    evk, evk_mxu = make_ntru_evks(generator, ctx, sk, s, DiscreteGaussian(params.sigma),
+                                  mxu=params.log_n >= 8)
     lwe_gauss = DiscreteGaussian(params.lwe_sigma)
     ksk = make_ntru_keyswitch_key(generator, ctx, sk, s, ks_basis, lwe_gauss)
-    evk_mxu = prepare_mxu_evk(ctx, evk_coeff) if params.log_n >= 8 else None
-    return NtruGateKeys(params, ctx, ks_basis, sk, s, to_ntt(evk_coeff, ctx.ntt), evk_mxu, ksk,
-                        lwe_gauss)
+    return NtruGateKeys(params, ctx, ks_basis, sk, s, evk, evk_mxu, ksk, lwe_gauss)
 
 
 def from_jax_ntru_context(params: NtruParams, f, evk, ksk, lwe_secret,

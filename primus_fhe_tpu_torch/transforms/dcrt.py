@@ -19,7 +19,8 @@ route every modulus through one kernel, one launch a group of up to four
 moduli (:func:`..ops.ntt64.mod_groups`; a base may hold any number):
 
 - ``"mxu8"``: the byte-radix four-step on the int8 tensor cores
-  (:func:`..ops.ntt_mxu8.mxu8_forward64`), canonical output;
+  (:func:`..ops.ntt_mxu8.mxu8_forward64`), canonical output; at ``log_n``
+  13-15 the same function on row 10's passes;
 - ``"butterfly"``: the 64-bit Harvey butterfly
   (:func:`..ops.ntt64.ntt64_forward`);
 - ``"auto"``: the reference's predicate ``_mxu_ok`` (``q < 2^62`` and
@@ -106,9 +107,10 @@ class DcrtPlan64:
     @property
     def mxu(self):
         """:class:`..ops.ntt_mxu8.Mxu8Tables64` of the moduli (built once);
-        the byte-radix route needs ``8 <= log_n <= 14`` (``B = 128`` lanes)."""
-        if not 8 <= self.log_n <= 14:
-            raise ValueError("the byte-radix plan needs 8 <= log_n <= 14 (B = 128 lanes)")
+        the byte-radix route needs ``log_n >= 8`` (``B >= 128`` lanes), as the
+        JAX plan does; on the card its kernels take ``log_n`` 8-15."""
+        if self.log_n < 8:
+            raise ValueError("the byte-radix plan needs log_n >= 8 (B >= 128 lanes)")
         if self._mxu is None:
             from ..ops.ntt_mxu8 import Mxu8Tables64
 

@@ -20,8 +20,8 @@ stages across the slices, ``cross_inverse``), each output times
 s); the wrapping add.  Shapes: the widened ring of ``chip_smoke.py`` phase
 21 (n = 2^15, kp 2, k = 1, L = 3), n = 2^16 over 3 primes, k = 2 over 3
 primes and a 2^1 x 20 gadget at n = 2^10 (40 products a sum), and at n =
-2^11-2^12 the row over C = 4 and 8 slices (cross_inverse at lc 2 and 3;
-clusters of 8-16 blocks), digits at the extremes of ``[0, 4p)``.
+2^11-2^12 and 2^17 the row over C = 4 and 8 slices (cross_inverse at lc 2
+and 3; clusters of 8-16 blocks), digits at the extremes of ``[0, 4p)``.
 Tolerance: zero (bit-equal).
 """
 
@@ -246,7 +246,10 @@ SHAPES = [(15, 1, 7, 3, None, 1), (16, 1, 7, 3, 60, 1), (10, 2, 7, 3, 60, 2),
 # 8 slices, kp 2 (BOOLEAN_128's gadget, clusters of 8 and 16 blocks), kp 3
 # with k = 2 (12 blocks), kp 4 (16 blocks) and the 2^1 x 20 gadget
 SLICED = [(12, 1, 7, 3, None, 1, 2), (12, 1, 7, 3, None, 2, 3), (11, 2, 7, 3, 60, 1, 2),
-          (12, 1, 7, 3, 90, 1, 2), (11, 1, 1, 20, None, 1, 3)]
+          (12, 1, 7, 3, 90, 1, 2), (11, 1, 1, 20, None, 1, 3),
+          # n = 2^17: BOOLEAN_128's gadget over its 3 primes, the one pick
+          # pick_slices has there (C = 4: slices of 2^15 words, 12 blocks)
+          (17, 1, 7, 3, None, 1, 2)]
 
 
 @pytest.mark.parametrize("log_n,k,log_basis,level,bound,bsz", SHAPES)

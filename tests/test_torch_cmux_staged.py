@@ -57,6 +57,8 @@ def _np(x):
     (2, 3, 2, 12, "fused"),  # k = 2 at N = 4096, L = 2
     (2, 2, 3, 15, "staged"),  # the widened ring of phase 21
     (3, 2, 3, 16, "staged"),
+    (2, 2, 3, 17, "staged"),  # N = 2^17: slices of 2^14-2^15 words, C = 4 or 8
+    (3, 2, 3, 17, "staged"),
     (3, 3, 3, 10, "staged"),  # k = 2 over 3 primes: a cluster of 9
     (2, 2, 20, 10, "staged"),  # the 2^1 x 20 gadget: L > 16
     (2, 2, 8, 12, "fused"),  # L = 8 at N = 4096: 224 KB
@@ -70,7 +72,7 @@ def test_step_route(kp, k1, level, log_n, route):
 
 
 @pytest.mark.parametrize("kp,k1,level,log_n,limit", [
-    (2, 2, 3, 17, "log_n 4-16"), (2, 2, 3, 3, "log_n 4-16"), (5, 2, 3, 10, "1-4"),
+    (2, 2, 3, 18, "log_n 4-17"), (2, 2, 3, 3, "log_n 4-17"), (5, 2, 3, 10, "1-4"),
     (2, 2, 33, 10, "1-32"),
 ])
 def test_step_route_refuses_past_the_card(kp, k1, level, log_n, limit):

@@ -18,19 +18,20 @@ and a small DCRT rotation on both routes against the CPU; kernels D and E
 (the fused key multiply and round trip) at every log_n 8-12, 7 and 8 planes
 (moduli up to 2^62), two moduli and E's ragged tiles, E also against
 ``mxu8_forward64`` then D and the butterfly route, and the four-step at
-2^16 on both routes;
+2^16 on both routes; row 9's four functions at log_n 13-15 on row 10's
+passes (any u64 words, two moduli) and their refusal of log_n 16;
 kernel C at log_n 8-12, 1-4 primes, 1 to 769 rows a prime and over the
 key preparations' 2 x 7560 and 4200 rows (and its refusal of log_n 7 and
 13); a BOOLEAN_128 bootstrap on the MXU key against the CPU; kernel F on
 broadcast, contiguous and strided rows into new rows and ``out=`` views at
-log_n 1-16; kernels F and G at N 32-2048, degrees of any sign, both
+log_n 1-17; kernels F and G at N 32-2048, degrees of any sign, both
 gadgets, and ``cmux_delta`` against kernels 3-4; kernel G at log_n 1-3,
-11, 12 and 16, 1-4 primes, L = 3 and 12, int32 and int64 storage and a
+11, 12, 16 and 17, 1-4 primes, L = 3 and 12, int32 and int64 storage and a
 source off 16-byte alignment, its launch rule and its ptxas figures (no
 stack, no spill); the four stage kernels of the
-coefficient-sharded NTT at log_n 9-17 over 2-8 shards (u32, 50- and 62-bit
+coefficient-sharded NTT at log_n 9-18 over 2-8 shards (u32, 50- and 62-bit
 u64, every ``out_factor`` and both ``in_factor``s, the input range's extreme
-words; the u64 pair at log_w 15-16 on batches 1, 3, 8), row 13's split
+words; the u64 pair at log_w 15-17 on batches 1, 3, 8), row 13's split
 kernels at log_n 8-14 (7 and 8 planes) and its sharded transforms and
 product at log_n 13-14 over 2 and 4 shards against row 10, its refusal of
 log_n 7 and 15 before any launch, and a (2, 2)
@@ -83,6 +84,7 @@ def _residues(gen, primes, shape, factor, dev):
 PRIMES4 = PRIMES3 + [1073643521]
 PRIMES_2E15 = [1073643521, 1073479681]  # = 1 mod 2^15: log_n 13-14
 Q32_17 = 1073479681  # next_ntt_prime(30, 17): = 1 mod 2^18, the u32 large ring's q
+Q32_18 = 1056440321  # next_ntt_prime(30, 18): = 1 mod 2^19, n = 2^18 (log_w 17 over 2 shards)
 BOOL_PRIMES = [1073692673, 1073668097]  # BOOLEAN_128's convolver
 NTRU_Q = [1038337]  # NTRU_128's q, = 1 mod 2^11
 
@@ -139,28 +141,28 @@ def test_ntt_kernels_match_plain(dev, log_n, primes, rows):
 
 
 def test_ntt_kernels_refuse_rows_past_the_card(dev):
-    """log_n 17 takes the plain version on the CPU and a ValueError naming
+    """log_n 18 takes the plain version on the CPU and a ValueError naming
     the limit on the card, before any launch."""
-    tables = ntt32.NttTables32(17, [next_ntt_prime(30, 17)])
-    x = torch.zeros((1, 1, 1 << 17), dtype=torch.int64, device=dev)
+    tables = ntt32.NttTables32(18, [next_ntt_prime(30, 18)])
+    x = torch.zeros((1, 1, 1 << 18), dtype=torch.int64, device=dev)
     before = ntt32.forward32.launches, ntt32.inverse32.launches
-    with pytest.raises(ValueError, match="log_n 1-16"):
+    with pytest.raises(ValueError, match="log_n 1-17"):
         ntt32.forward32(tables, x)
-    with pytest.raises(ValueError, match="log_n 1-16"):
+    with pytest.raises(ValueError, match="log_n 1-17"):
         ntt32.inverse32(tables, x)
     assert (ntt32.forward32.launches, ntt32.inverse32.launches) == before
 
 
-PRIMES_2E17 = [next_ntt_prime(30, 16)]  # = 1 mod 2^17: rings to 2^16
-PRIMES_2E17 += [next_ntt_prime(30, 16, PRIMES_2E17[0])]
-PRIMES_2E17 += [next_ntt_prime(30, 16, PRIMES_2E17[1])]
+PRIMES_2E17 = [next_ntt_prime(30, 17)]  # = 1 mod 2^18: rings to 2^17
+PRIMES_2E17 += [next_ntt_prime(30, 17, PRIMES_2E17[0])]
+PRIMES_2E17 += [next_ntt_prime(30, 17, PRIMES_2E17[1])]
 
 
-@pytest.mark.parametrize("log_n", [15, 16])
+@pytest.mark.parametrize("log_n", [15, 16, 17])
 @pytest.mark.parametrize("kp", [2, 3])
 @pytest.mark.parametrize("rows", [1, 16])
 def test_ntt_kernels_split_rows_match_plain(dev, log_n, kp, rows):
-    """Kernels 1-2 at log_n 15-16, a row over a cluster of 2 or 4 blocks:
+    """Kernels 1-2 at log_n 15-17, a row over a cluster of 2, 4 or 8 blocks:
     every ``out_factor`` against the plain versions, the input range's
     extreme words, int32 storage written in place (``out=`` the input),
     the round trip."""
@@ -191,7 +193,7 @@ def test_ntt_kernels_split_rows_match_plain(dev, log_n, kp, rows):
 # (log_n, log_basis, level, k, bound_bits or None): the staged route's
 # shapes of chip_smoke.py phase 21.2 and BOOLEAN_128's gadget at 2^13
 STAGED_SHAPES = [(15, 7, 3, 1, None), (16, 7, 3, 1, 60), (10, 7, 3, 2, 60), (10, 1, 20, 1, None),
-                 (13, 7, 3, 1, None), (4, 8, 3, 3, None)]
+                 (13, 7, 3, 1, None), (4, 8, 3, 3, None), (17, 7, 3, 1, None)]
 
 
 def _staged_setup(dev, log_n, log_basis, level, k, bound, bsz, seed):
@@ -256,7 +258,7 @@ def test_staged_cmux_steps_match_plain(dev, log_n, log_basis, level, k, bound):
 
 def test_staged_route_limits_and_fused_shapes(dev):
     """BOOLEAN_128 and the shapes the card ran before keep the fused
-    kernel; past kp 4, L 32 or log_n 16 the plan raises before any
+    kernel; past kp 4, L 32 or log_n 17 the plan raises before any
     launch; kernel H's launch at batch 1 spreads a row over the most slices
     a cluster of 16 blocks holds (4 at log_n 16 over 3 primes, 8 at log_n
     15 over 2)."""
@@ -264,8 +266,8 @@ def test_staged_route_limits_and_fused_shapes(dev):
         conv = tfhe.make_convolver(p.log_n, p.level, p.glwe_dim, p.log_basis)
         basis = ApproxSignedBasis32(None, p.log_basis, reverse_length=p.level)
         assert cmux_fused.CmuxStepPlan(conv, basis, p.glwe_dim + 1, dev).route == "fused"
-    conv = tfhe.make_convolver(17, 3, 1, 1)
-    with pytest.raises(ValueError, match="log_n 4-16"):
+    conv = tfhe.make_convolver(18, 3, 1, 1)
+    with pytest.raises(ValueError, match="log_n 4-17"):
         cmux_fused.CmuxStepPlan(conv, ApproxSignedBasis32(None, 1, reverse_length=3), 2, dev)
     with pytest.raises(ValueError, match="1-32"):  # no torus basis has 33 levels
         cmux_fused.step_route(2, 2, 33, 10)
@@ -300,7 +302,7 @@ def _check_slice_grid(grid, kp: int, log_n: int, min_log: int, acc_words) -> Non
     assert l <= 15 and (l >= min_log or lc == max(0, log_n - 15))
 
 
-@pytest.mark.parametrize("log_n", [12, 13, 14, 15, 16])
+@pytest.mark.parametrize("log_n", [12, 13, 14, 15, 16, 17])
 @pytest.mark.parametrize("bits", [20, 30, 60, 90])  # kp 1, 2, 3, 4
 def test_cmux_stage2_over_slices_matches_plain(dev, log_n, bits):
     """Kernel H at the slices a row its launch picks (``launch_grid``: a
@@ -425,10 +427,10 @@ def test_mxu8_forward_at_the_key_preparations(dev):
         assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("log_n", [7, 17])
+@pytest.mark.parametrize("log_n", [7, 18])
 def test_mxu8_forward_refuses_log_n_outside_8_to_12(dev, log_n):
-    """The wrapper takes log_n 8-16 (kernel C to 12, kernel 1 at 13-16):
-    the plan refuses 7 and the wrapper 17 (``ValueError``), before any
+    """The wrapper takes log_n 8-17 (kernel C to 12, kernel 1 at 13-17):
+    the plan refuses 7 and the wrapper 18 (``ValueError``), before any
     launch of either kernel."""
     before = (ntt_mxu8.mxu8_forward32.launches, ntt32.forward32.launches)
     with pytest.raises(ValueError, match="log_n"):
@@ -438,9 +440,9 @@ def test_mxu8_forward_refuses_log_n_outside_8_to_12(dev, log_n):
     assert (ntt_mxu8.mxu8_forward32.launches, ntt32.forward32.launches) == before
 
 
-@pytest.mark.parametrize("log_n", [13, 14, 15, 16])
+@pytest.mark.parametrize("log_n", [13, 14, 15, 16, 17])
 def test_mxu8_forward_route_past_kernel_c(dev, log_n):
-    """``mxu8_forward32`` at log_n 13-16 (kp 2, 1 and 16 rows a prime):
+    """``mxu8_forward32`` at log_n 13-17 (kp 2, 1 and 16 rows a prime):
     kernel 1 at out_factor 1, one launch, no kernel C launch, the plain
     version's words (int64 and int32 storage)."""
     primes = tuple(TorusConvolver32(log_n, 56).primes)
@@ -463,10 +465,10 @@ def test_mxu_step_route_on_a_grid(dev):
     1, 2, 4, k1 1-4, L 1-8, 12, 20 and 32, log_n 8-17 and 1- and 2-byte
     digits: kernel A only at log_n 8-12 and, where it holds at some L, at
     every smaller L too (its plan grows with L); elsewhere ``step_route``'s
-    answer, and log_n 17 raises before any launch; the named shapes;
+    answer, and log_n 18 raises before any launch; the named shapes;
     ``ntru_step_route`` on kernel B's answers."""
     levels = list(range(1, 9)) + [12, 20, 32]
-    for log_n in range(8, 17):
+    for log_n in range(8, 18):
         for kp in (1, 2, 4):
             for k1 in range(1, 5):
                 for dp in (1, 2):
@@ -480,8 +482,8 @@ def test_mxu_step_route_on_a_grid(dev):
     assert cmux_mxu.mxu_step_route(2, 2, 3, 11, 1) == "mxu"  # BOOLEAN_128
     assert cmux_mxu.mxu_step_route(2, 2, 3, 12, 1) == "fused"  # its gadget at N = 4096
     assert cmux_mxu.mxu_step_route(2, 2, 3, 15, 1) == "staged"
-    with pytest.raises(ValueError, match="log_n 4-16"):
-        cmux_mxu.mxu_step_route(2, 2, 3, 17, 1)
+    with pytest.raises(ValueError, match="log_n 4-17"):
+        cmux_mxu.mxu_step_route(2, 2, 3, 18, 1)
     assert [ntru_cmux_mxu.ntru_step_route(*s) for s in
             ((6, 10, 1), (16, 10, 1), (20, 10, 1), (6, 12, 1), (6, 13, 1))] == [
         "mxu", "mxu", "staged", "staged", "staged"]
@@ -568,7 +570,7 @@ def test_ntru_stage2_kernel_matches_plain(dev, log_n, q_bits, level):
         assert grid[0] == _slices_at_batch1(1, log_n, 10), grid
 
 
-@pytest.mark.parametrize("log_n", [12, 13, 14, 15, 16])
+@pytest.mark.parametrize("log_n", [12, 13, 14, 15, 16, 17])
 def test_ntru_stage2_over_slices_matches_plain(dev, log_n):
     """Kernel J at the slices a row its launch picks (``launch_grid``: C <=
     16 blocks, slices of 2^10-2^15 words; at batch 1 the most that allows:
@@ -599,7 +601,7 @@ def test_ntru_stage2_over_slices_matches_plain(dev, log_n):
         assert ntru_cmux_mxu.ntru_stage2.launches - before == 2
 
 
-@pytest.mark.parametrize("log_n", [10, 12, 13, 14, 16])
+@pytest.mark.parametrize("log_n", [10, 12, 13, 14, 16, 17])
 def test_ntru_stage2_digits_match_plain(dev, log_n):
     """Kernel J with its digit output over ``f`` at the slices its launch
     picks (batch 1: C = 1 at log_n 10, 4 at 12, 8 at 13, 16 at 14 and 16;
@@ -986,6 +988,34 @@ def _ragged_rows_rt(tables, start):
     raise AssertionError("no ragged tile within 8192 row counts")
 
 
+@pytest.mark.parametrize("log_n", [13, 14, 15])
+def test_row9_on_row10_passes_matches_plain(dev, log_n):
+    """Row 9's four functions at log_n 13-15 (``mxu8_forward64``,
+    ``mxu8_inverse64``, D and E on row 10's passes, ``csrc/ntt64.cu``): any
+    u64 words (the extremes among them) over a 62-bit and a 50-bit modulus,
+    1, 3 and 17 rows, against the plain versions, one launch a call counted
+    on the wrapper called; past 15 a ``ValueError`` before any launch."""
+    moduli = [next_ntt_prime(62, log_n), next_ntt_prime(50, log_n)]
+    n = 1 << log_n
+    tables = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
+    gen = torch.Generator(device=dev).manual_seed(log_n * 31)
+    key = torch.stack([torch.randint(0, q, (n,), generator=gen, device=dev) for q in moduli])
+    mt = tables.mul_table(key)
+    fns = (("mxu8_forward64", ()), ("mxu8_inverse64", ()), ("mxu8_inverse64_mul", (mt,)),
+           ("mxu8_roundtrip64_mul", (mt,)))
+    for rows in (1, 3, 17):
+        x = torch.randint(-(1 << 63), (1 << 63) - 1, (2, rows, n), generator=gen, device=dev)
+        x[:, 0, :3] = torch.tensor([0, -1, -(1 << 63)])
+        for name, args in fns:
+            fn, plain = getattr(ntt_mxu8, name), getattr(ntt_mxu8, name + "_plain")
+            before = fn.launches
+            assert torch.equal(fn(tables, x, *args), plain(tables, x, *args)), (name, rows)
+            assert fn.launches - before == 1, name
+    big = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(16, [next_ntt_prime(50, 16)]))
+    with pytest.raises(ValueError, match="log_n <= 15"):
+        ntt_mxu8.mxu8_forward64(big, torch.zeros((1, 1, 1 << 16), dtype=torch.int64, device=dev))
+
+
 @pytest.mark.parametrize("log_n,moduli", [
     (8, Q50), (9, [Q60]), (10, [Q62[0]]), (11, [Q50[0], Q60]), (12, Q50), (12, [Q62[0], Q50[1]]),
 ])
@@ -1103,7 +1133,7 @@ def test_rotate_kernel_matches_plain(dev, log_n, k1):
     assert torch.equal(rotate.rotate(flat, degrees[:3]), rotate.rotate_plain(flat, degrees[:3]))
 
 
-@pytest.mark.parametrize("log_n", range(1, 17))
+@pytest.mark.parametrize("log_n", range(1, 18))
 def test_rotate_views_match_plain(dev, log_n):
     """Kernel F on a broadcast row (``expand``, a row stride of 0),
     contiguous rows and rows of a wider tensor (row strides on and off 16
@@ -1153,7 +1183,7 @@ def test_cmux_front_and_delta_match_plain(dev, log_n, log_basis, level, k):
     assert torch.equal(delta.cpu(), cpu)
 
 
-@pytest.mark.parametrize("log_n", [1, 2, 3, 11, 12, 16])
+@pytest.mark.parametrize("log_n", [1, 2, 3, 11, 12, 16, 17])
 @pytest.mark.parametrize("kp", [1, 2, 3, 4])
 def test_cmux_front_kernel_matches_plain(dev, log_n, kp):
     """Kernel G's groups (log_n >= 2, a source on 16 bytes) and its
@@ -1183,6 +1213,24 @@ def test_cmux_front_kernel_matches_plain(dev, log_n, kp):
         assert torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want)
         got_off = cmux_front.cmux_front(off, degrees, basis, primes)
         assert torch.equal(got_off.to(torch.int64) & 0xFFFFFFFF, want)
+
+
+def test_rotate_and_front_refuse_rows_past_the_cap(dev):
+    """Kernels F and G take rows of up to 2^17 words, the cap the library
+    reports (``FG_MAX_LOG_N``); a row of 2^18 raises a ValueError naming
+    it, before any launch."""
+    from primus_fhe_tpu_torch.ops import build
+
+    assert build.library().pft_rotate_max_log_n() == 17
+    acc = torch.zeros((1, 1, 1 << 18), dtype=torch.int64, device=dev)
+    degrees = torch.zeros((1,), dtype=torch.int32, device=dev)
+    basis = ApproxSignedBasis32(None, 8, reverse_length=3)
+    before = (rotate.rotate.launches, cmux_front.cmux_front.launches)
+    with pytest.raises(ValueError, match=r"rows of up to 2\^17 words"):
+        rotate.rotate(acc, degrees)
+    with pytest.raises(ValueError, match=r"rows of up to 2\^17 words"):
+        cmux_front.cmux_front(acc, degrees, basis, PRIMES4[:1])
+    assert (rotate.rotate.launches, cmux_front.cmux_front.launches) == before
 
 
 def test_cmux_front_launch_rule_and_ptxas(dev):
@@ -1217,7 +1265,7 @@ def _with_extremes(x, q, factor):
 
 @pytest.mark.parametrize("log_n,d,batches", [(12, 2, (2,)), (12, 8, (2,)), (16, 4, (2,)),
                                              (9, 4, (2,)), (16, 2, (1, 3, 8)),
-                                             (17, 2, (1, 3, 8))])
+                                             (17, 2, (1, 3, 8)), (18, 2, (1, 3))])
 def test_stage_kernels_match_plain(dev, log_n, d, batches):
     """The four stage kernels on shard 1's table slices: u32 at q = 536813569
     (phase 15's n = 2^12) and, at n = 2^16 and 2^17 (log_w 14-16, a row over
@@ -1253,7 +1301,7 @@ def test_stage_kernels_match_plain(dev, log_n, d, batches):
                 assert c == 1 or (l >= 8 and log_w >= 11)
 
     if log_n <= 12 or log_n >= 16:
-        q = 536813569 if log_n <= 12 else Q32_17
+        q = 536813569 if log_n <= 12 else Q32_17 if log_n <= 17 else Q32_18
         repo = tuple(t[log_d:, cols].to(dev) for t in cs.build_expanded_tables32(log_n, q)) + \
             tuple(t[:log_w, cols].to(dev) for t in cs.build_expanded_inverse_tables32(log_n, q))
         drawn = [torch.randint(0, q, (log_w, width), generator=gen, device=dev) for _ in range(2)]
@@ -1291,7 +1339,7 @@ def test_stage_kernels_match_plain(dev, log_n, d, batches):
                                    st.ntt64_stages_inverse_plain(log_w, q, wi, pi, y, in_factor))
 
 
-@pytest.mark.parametrize("log_n,d", [(16, 2), (16, 4), (17, 2)])
+@pytest.mark.parametrize("log_n,d", [(16, 2), (16, 4), (17, 2), (18, 2)])
 def test_coeff_sharded32_large_ring_matches_plain(dev, log_n, d):
     """The u32 coefficient-sharded NTT at n = 2^16 over D = 2, 4 and n = 2^17
     over D = 2 (shards of 2^14-2^16 words, a row over a cluster) on a
@@ -1305,7 +1353,7 @@ def test_coeff_sharded32_large_ring_matches_plain(dev, log_n, d):
     from primus_fhe_tpu_torch.transforms.ntt import forward32
     from primus_fhe_tpu_torch.transforms.plan import build_plan32
 
-    q, spec = Q32_17, (None, "residue")
+    q, spec = Q32_17 if log_n <= 17 else Q32_18, (None, "residue")
     gen = torch.Generator(device=dev).manual_seed(log_n * d)
     x = torch.randint(0, q, (2, 1 << log_n), generator=gen, device=dev)
     mesh = LocalMesh(d, 1, dev)
@@ -1320,21 +1368,22 @@ def test_coeff_sharded32_large_ring_matches_plain(dev, log_n, d):
 
 
 def test_stage_kernels_refuse_log_w_past_16(dev):
-    """On the card the four stage kernels take log_w <= 16: at log_w 17 each
-    raises ValueError before any launch, and no launch count moves."""
+    """On the card the four stage kernels take log_w <= 17 (16 before: the
+    name keeps the old cap): at log_w 18 each raises ValueError before any
+    launch, and no launch count moves."""
     from primus_fhe_tpu_torch.ops import ntt_stages as st
 
     kernels = (st.ntt32_stages_forward, st.ntt32_stages_inverse, st.ntt64_stages_forward,
                st.ntt64_stages_inverse)
     before = [k.launches for k in kernels]
-    tab = torch.zeros((17, 1 << 17), dtype=torch.int64, device=dev)
-    x = torch.zeros((1, 1 << 17), dtype=torch.int64, device=dev)
+    tab = torch.zeros((18, 1 << 18), dtype=torch.int64, device=dev)
+    x = torch.zeros((1, 1 << 18), dtype=torch.int64, device=dev)
     for k, q in zip(kernels, (Q32_17, Q32_17, Q62[0], Q62[0])):
-        with pytest.raises(ValueError, match="log_w <= 16"):
-            k(17, q, tab, tab, x)
-        with pytest.raises(ValueError, match="log_w <= 16"):
-            k(17, q, tab.to(torch.int32), tab.to(torch.int32), x.to(torch.int32)) \
-                if k in kernels[:2] else k(17, q, tab, tab, x)
+        with pytest.raises(ValueError, match="log_w <= 17"):
+            k(18, q, tab, tab, x)
+        with pytest.raises(ValueError, match="log_w <= 17"):
+            k(18, q, tab.to(torch.int32), tab.to(torch.int32), x.to(torch.int32)) \
+                if k in kernels[:2] else k(18, q, tab, tab, x)
     torch.cuda.synchronize()
     assert [k.launches for k in kernels] == before
 

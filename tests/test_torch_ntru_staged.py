@@ -4,7 +4,7 @@
 - ``ntru_step_route``: kernel B wherever its C entry takes the shape
   (NTRU_128; the entry's answers from a fake library), the staged route
   past it (log_n 13-16, a plan past 227 KB), a ``ValueError`` past both
-  (log_n 17, L = 33, 3 digit planes);
+  (log_n 18, L = 33, 3 digit planes);
 - kernel I's plain version then kernel 1's, then kernel J's (the staged
   functions on CPU tensors, and ``NtruStepPlan`` on the CPU) equal JAX
   ``ntru_cmux_step_nat`` (Pallas in interpret mode) at log_n 8-10, for the
@@ -68,19 +68,19 @@ def _np(x):
     (6, 12, 1, 1, "staged"),  # 6 rows of 4096 words: a plan past 227 KB
     (16, 10, 1, 0, "mxu"), (20, 10, 1, 1, "staged"),  # 221,216 and 262,176 bytes a block
     (6, 13, 1, None, "staged"), (6, 14, 1, None, "staged"), (6, 15, 2, None, "staged"),
-    (32, 16, 1, None, "staged"),
+    (32, 16, 1, None, "staged"), (6, 17, 1, None, "staged"),  # NTRU_128's gadget at 2^17
 ])
 def test_route(fake_card, level, log_n, dp, rc, want):
     """Kernel B's answers (``rc``: 0 holds, 1 refused) come from a fake
     library here and from the card in ``chip_smoke.py`` phase 22.1; at
-    log_n 13-16 the card is not asked."""
+    log_n 13-17 the card is not asked."""
     lib = fake_card(2 if rc is None else rc)
     assert nm.ntru_step_route(level, log_n, dp) == want
     assert lib.asked == ([] if rc is None else [(1, 1, 1, log_n, dp, level, 1)])
 
 
 @pytest.mark.parametrize("level,log_n,dp,match", [
-    (6, 17, 1, "log_n"), (33, 13, 1, "L = 33"), (6, 13, 3, "digit planes"), (6, 7, 1, "log_n"),
+    (6, 18, 1, "log_n"), (33, 13, 1, "L = 33"), (6, 13, 3, "digit planes"), (6, 7, 1, "log_n"),
 ])
 def test_route_refuses(level, log_n, dp, match):
     with pytest.raises(ValueError, match=match):
@@ -286,7 +286,8 @@ MODEL_SHAPES = [(13, 20, 3, 6, 2), (16, 30, 10, 3, 1), (10, 30, 10, 3, 2), (9, 2
 # 4 and 8 slices (the pick at 2^13 keeps 2^10 words a slice), 2-byte digits
 # mod a 30-bit q over 8, L = 20 over 4
 MODEL_SLICED = [(12, 20, 3, 6, 2, 2), (12, 20, 3, 6, 1, 3), (11, 30, 10, 3, 2, 3),
-                (10, 20, 1, 20, 1, 2)]
+                (10, 20, 1, 20, 1, 2),
+                (17, 20, 3, 6, 1, 3)]  # NTRU_128's gadget at 2^17 over C = 8 (batch 16's pick)
 
 
 @pytest.mark.parametrize("log_n,q_bits,log_basis,level,bsz", MODEL_SHAPES)
@@ -319,7 +320,8 @@ def _check_model_j(log_n, q_bits, level, bsz, lc):
 # (log_n, q_bits, log_basis, level, batch, lc): J with its digits over f at
 # C = 1, 4, 8 and 16 slices a row
 MODEL_DIGITS = [(10, 20, 3, 6, 2, 0), (12, 30, 10, 3, 2, 2), (13, 20, 3, 6, 1, 3),
-                (14, 20, 3, 6, 1, 4)]
+                (14, 20, 3, 6, 1, 4),
+                (17, 20, 3, 6, 1, 4)]  # NTRU_128's gadget at 2^17 over C = 16 (batch 1's pick)
 
 
 @pytest.mark.parametrize("log_n,q_bits,log_basis,level,bsz,lc", MODEL_DIGITS)

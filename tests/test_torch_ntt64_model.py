@@ -186,8 +186,12 @@ def _u64(t: torch.Tensor) -> np.ndarray:
     return u64_numpy(t).astype(np.uint64)
 
 
-def model_forward(tables: ntt64.NttTables64, x: np.ndarray, out_factor: int, tile: int):
-    """The forward kernel on ``x (count, rows, n)`` u64 words below 4q."""
+def model_forward(tables: ntt64.NttTables64, x: np.ndarray, out_factor: int, tile: int,
+                  any_words: bool = False):
+    """The forward kernel on ``x (count, rows, n)`` u64 words below 4q; with
+    ``any_words`` (``ntt64_forward_kernel<CANON, ANY>``, row 9's forward at
+    log_n 13-15) any u64 words, each brought to [0, 2q) by a lazy Shoup
+    multiply by 1 as it loads."""
     count, rows, n = x.shape
     log_n = tables.log_n
     split = log_split(log_n)
@@ -203,6 +207,9 @@ def model_forward(tables: ntt64.NttTables64, x: np.ndarray, out_factor: int, til
         tw, twp = _u64(pl.roots), _u64(pl.roots_precon)
         for r0, cnt in tiles(rows, tile):
             src = x[mi, r0:r0 + cnt]
+            if any_words:  # AnyIn64, HalfIn<true>
+                src = shoup(src, 1, (1 << 64) // q, q)
+                check_words(src, 2 * q)
             for h in range(1 << split):
                 sm = np.zeros(cnt << l, dtype=np.uint64)  # the tile's rows, swizzled
                 for i, (s0, r) in enumerate(passes):
@@ -235,9 +242,13 @@ def model_forward(tables: ntt64.NttTables64, x: np.ndarray, out_factor: int, til
 
 
 def model_inverse(tables: ntt64.NttTables64, x: np.ndarray, out_factor: int, in_factor: int,
-                  tile: int):
+                  tile: int, load: str = "chain", key=None):
     """The inverse kernel on ``x (count, rows, n)`` u64 words below
-    ``in_factor`` q."""
+    ``in_factor`` q.  ``load`` is its first pass's load (``InLoad``): the
+    input chain (``"chain"``), any u64 word times 1 (``"any"``: row 9's
+    inverse at log_n 13-15) or times the key (``"key"``: kernel D there;
+    ``key (count, 2, n)`` its words and Shoup quotients), a lazy Shoup
+    multiply into [0, 2q) as each word loads."""
     count, rows, n = x.shape
     log_n = tables.log_n
     split = log_split(log_n)
@@ -257,7 +268,12 @@ def model_inverse(tables: ntt64.NttTables64, x: np.ndarray, out_factor: int, in_
             halves = []
             for h in range(1 << split):
                 src = x[mi, r0:r0 + cnt, h * half:(h + 1) * half].copy()
-                f = in_factor // 2  # the input chain: below in_factor q -> below 2q
+                if load == "key":  # KeyIn64: the key at the half's slots
+                    src = shoup(src, key[mi, 0, h * half:(h + 1) * half],
+                                key[mi, 1, h * half:(h + 1) * half], q)
+                elif load == "any":  # AnyIn64
+                    src = shoup(src, 1, (1 << 64) // q, q)
+                f = in_factor // 2 if load == "chain" else 1  # the input chain
                 while f >= 2:
                     src = np.where(src >= np.uint64(f * q), src - np.uint64(f * q), src)
                     f //= 2

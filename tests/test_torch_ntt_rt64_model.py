@@ -28,7 +28,8 @@ import torch
 
 from test_torch_ntt64_model import (
     SMEM_MAX, _half_warps, _u64, check_words, forward_passes, fwd_slots, fwd_stages,
-    inv_slots, inverse_passes, remainder_stages, shoup, smem_index, staged_words, tiles,
+    inv_slots, inverse_passes, log_split, remainder_stages, shoup, smem_index, staged_words,
+    tiles,
 )
 from primus_fhe_tpu_torch.numeric.limb import u64_tensor
 from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
@@ -41,8 +42,12 @@ M64 = (1 << 64) - 1
 
 
 def rt_smem_bytes(log_n: int, tile: int) -> int:
-    """``csrc/ntt64.cu``'s ``rt_smem_bytes``: both staged tables and the tile."""
-    return 16 * (1 << log_n) + 16 * staged_words(False, log_n) + 8 * (tile << log_n)
+    """``csrc/ntt64.cu``'s ``rt_smem_bytes``: the forward's staged table (to
+    n = 2^12, ``rt_staged_words``), the inverse's staged part and the tile
+    (of half rows at n = 2^15, a row over 2 blocks)."""
+    fwd = 1 << log_n if log_n <= 12 else 0
+    return (16 * fwd + 16 * staged_words(False, log_n)
+            + 8 * (tile << (log_n - log_split(log_n))))
 
 
 def rt_passes(log_n: int):

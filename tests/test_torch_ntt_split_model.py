@@ -1,10 +1,10 @@
-"""A numpy model of kernels 1-2 at log_n 15-16 (``csrc/ntt32.cu``'s split
+"""A numpy model of kernels 1-2 at log_n 15-17 (``csrc/ntt32.cu``'s split
 kernels on ``csrc/ntt_split.cuh``), held word for word against the plain
 versions ``ops.ntt32.forward32_plain`` / ``inverse32_plain`` and against
 the JAX ``transforms.ntt.forward32`` / ``inverse32`` on one row.
 
 The model runs the kernels' data flow as written: a row over a cluster of
-C = 2^(log_n - 14) blocks, slice k holding words k 2^14 .. (k+1) 2^14 - 1
+C = 2^(log_n - 14) blocks (2, 4, 8), slice k holding words k 2^14 .. (k+1) 2^14 - 1
 at the swizzled index ``SwzNtt``; the forward's first log_n - 14 stages on
 groups of one word a slice (offset j in this block's share of the
 offsets), loaded from the input, their twiddles the 7 registers of
@@ -29,8 +29,8 @@ from primus_fhe_tpu_torch.utils.primes import next_ntt_prime
 
 M32 = np.uint64(0xFFFFFFFF)
 SLICE_LOG = 14  # SLICE_LOG in csrc/ntt32.cu
-PRIMES = [next_ntt_prime(30, 16)]
-PRIMES.append(next_ntt_prime(30, 16, PRIMES[0]))
+PRIMES = [next_ntt_prime(30, 17)]  # = 1 mod 2^18: rows to 2^17
+PRIMES.append(next_ntt_prime(30, 17, PRIMES[0]))
 
 
 def swz(i):
@@ -222,10 +222,12 @@ def model_inverse(plan, x: np.ndarray, log_n: int, out_factor: int) -> np.ndarra
     return out
 
 
-@pytest.mark.parametrize("log_n", [15, 16])
+@pytest.mark.parametrize("log_n", [15, 16, 17])
 def test_split_model_matches_plain_and_jax(log_n):
     """Two primes, two rows a prime, every ``out_factor``; row 0 of prime 0
-    also against the JAX transforms (whose words the plain versions are)."""
+    also against the JAX transforms (whose words the plain versions are)
+    at 15 and 16 (at 17 their compiles would take most of the test's time:
+    the plain versions there are the same code)."""
     tables = ntt32.NttTables32(log_n, PRIMES)
     n = 1 << log_n
     rng = np.random.default_rng(log_n)
@@ -233,24 +235,26 @@ def test_split_model_matches_plain_and_jax(log_n):
     x4 = rng.integers(0, 1 << 62, (2, 2, n), dtype=np.uint64) % (4 * q)
     x4[:, 0, :2] = np.concatenate([np.zeros_like(q[:, 0]), 4 * q[:, 0] - 1], axis=1)
     x2 = x4 % (2 * q)
-    jplan = jax_plan32(log_n, PRIMES[0])
+    jplan = jax_plan32(log_n, PRIMES[0]) if log_n < 17 else None
     for of in (1, 4):
         got = np.stack([model_forward(pl, x4[i], log_n, of)
                         for i, pl in enumerate(tables.plans)])
         want = ntt32.forward32_plain(tables, torch.from_numpy(x4.astype(np.int64)), of).numpy()
         np.testing.assert_array_equal(got.astype(np.int64), want)
-        jax_row = jntt.forward32(jplan, jnp.asarray(x4[0, :1].astype(np.uint32)), of)
-        np.testing.assert_array_equal(np.asarray(jax_row).astype(np.int64), want[0, :1])
+        if jplan is not None:
+            jax_row = jntt.forward32(jplan, jnp.asarray(x4[0, :1].astype(np.uint32)), of)
+            np.testing.assert_array_equal(np.asarray(jax_row).astype(np.int64), want[0, :1])
     for of in (1, 2):
         got = np.stack([model_inverse(pl, x2[i], log_n, of)
                         for i, pl in enumerate(tables.plans)])
         want = ntt32.inverse32_plain(tables, torch.from_numpy(x2.astype(np.int64)), of).numpy()
         np.testing.assert_array_equal(got.astype(np.int64), want)
-        jax_row = jntt.inverse32(jplan, jnp.asarray(x2[0, :1].astype(np.uint32)), of)
-        np.testing.assert_array_equal(np.asarray(jax_row).astype(np.int64), want[0, :1])
+        if jplan is not None:
+            jax_row = jntt.inverse32(jplan, jnp.asarray(x2[0, :1].astype(np.uint32)), of)
+            np.testing.assert_array_equal(np.asarray(jax_row).astype(np.int64), want[0, :1])
 
 
-@pytest.mark.parametrize("log_n", [15, 16])
+@pytest.mark.parametrize("log_n", [15, 16, 17])
 def test_split_passes_cover_every_stage_once_and_banks(log_n):
     """The cross stages and the slice's passes run every stage of the row
     once, in order; each warp of a slice's radix-8 passes and of the cross
