@@ -165,7 +165,9 @@ non-zero):
     kernel 1 and H, one F, no fused step), ms at batch 1 and 16 and the
     idle share; a BOOLEAN_128 bootstrap still on the fused step alone; the
     same programmable bootstrap at N = 2^17 (21.5: the key made in chunks of
-    LWE indices, keygen's seconds and peak device memory);
+    LWE indices, keygen's seconds and peak device memory), and again on the
+    MXU key made from the same draws (in chunks, no Shoup quotients past
+    kernel A: the same 16 output words, keygen's seconds and peak memory);
 22. the MXU bootstrap key and the NTRU MXU evk past kernels A-C's caps:
     the route rules (``mxu_step_route``, ``ntru_step_route``, on kernels A
     and B's C entry) over a grid of shapes, ``plan_for``'s host seconds at
@@ -198,9 +200,13 @@ non-zero):
     plain versions (two launches a call), 8 rotation steps at batch 2 on
     both routes against the CPU's plain rotation, exact launch counts;
     23.7: row 9's four u64 functions (forward64, inverse64, D, E) at log_n
-    13, 14 and 15 on row 10's passes against their plain versions, one
-    launch a call; 23.8: 4 DCRT rotation steps at N = 8192 on route
-    ``"mxu8"`` against ``"butterfly"`` and the CPU.
+    13-17 on row 10's passes (a row over a cluster of 2, 4, 8 blocks at
+    15-17) against their plain versions, one launch a call, timed; at 16
+    and 17 row 10's forward and inverse too, and all six over 5 and 6
+    moduli (two launches a call); 23.8: 4 DCRT rotation steps at N = 8192
+    and 65536 on route ``"mxu8"`` against ``"butterfly"`` and the CPU; 23.9:
+    kernel E on ``bench.py``'s 512 rows at n = 2^16 and 2^17 against its
+    bound.
 
 Each phase ends with its seconds.
 
@@ -2404,13 +2410,78 @@ def programmable_bootstrap(torch, dev, smi, label, wide, seed, reps, reset_count
     return counts, out
 
 
+def mxu_key_bootstrap(torch, dev, smi, label, wide, seed, pbs_ref, reps, reset_counts,
+                      read_counts) -> dict:
+    """``make_context(wide, bsk_kind="mxu")`` from the generator state that
+    made ``pbs_ref``'s NTT key (``Generator(seed)``), its seconds and peak
+    device memory, and the same ``MSG_BITS``-bit programmable bootstrap of
+    16 ciphertexts on it: the same outputs word for word, with exact
+    launches (G, kernel 1 and H once a key slice, F once: the MXU pack's
+    values on the staged route, past kernel A, so the pack carries no
+    quotients), and its latency at batch 1 and 16 (least of ``reps``), busy
+    ms and idle share.  Returns the bootstrap's launch counts."""
+    from primus_fhe_tpu_torch import params as P
+    from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap, lut_test_polynomial
+    from primus_fhe_tpu_torch.lattice.lwe import encrypt_torus32
+
+    log(f"-- {label}: make_context(BOOLEAN_128 at N = 2^{wide.log_n}, bsk_kind='mxu') from the "
+        f"NTT key's draws and its {MSG_BITS}-bit programmable bootstrap")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wctx = P.make_context(wide, dev, gen, bsk_kind="mxu")
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    vals, precons = wctx.bsk
+    if precons is not None:
+        raise AssertionError(f"the MXU pack at N = 2^{wide.log_n} carries quotients past kernel A")
+    log(f"keygen: {keygen_s:.3f} s, peak device memory {peak:.2f} GB "
+        f"(torch.cuda.max_memory_allocated; kernel 1 prepares the MXU key at this ring, in "
+        f"chunks); bsk values {tuple(vals.shape)} ({vals.numel() * vals.element_size() / 1e9:.2f} "
+        f"GB), no quotients (past kernel A)")
+    delta = 1 << (32 - MSG_BITS - 1)
+    f_of = [(3 * m + 1) % (1 << MSG_BITS) for m in range(1 << MSG_BITS)]
+    tp = lut_test_polynomial([v * delta for v in f_of], wide.log_n, MSG_BITS).to(dev)
+    msgs = torch.arange(1 << MSG_BITS, device=dev)
+    cts = encrypt_torus32(msgs * delta, wctx.lwe_secret, wctx.gaussian, gen)
+    reset_counts()
+    pbs = bootstrap(wctx.conv, wctx.basis, wctx.bsk, cts, tp, wide.log_n)
+    counts_p = read_counts()
+    if not torch.equal(pbs, pbs_ref):
+        raise AssertionError(f"the programmable bootstrap on the MXU key at N = 2^{wide.log_n} "
+                             "differs from the NTT key's")
+    want_p = {name: 0 for name in counts_p} | {
+        "cmux_front": wide.lwe_dim, "forward32": wide.lwe_dim, "cmux_stage2": wide.lwe_dim,
+        "rotate": 1}
+    if counts_p != want_p:
+        raise AssertionError(f"programmable bootstrap on the MXU key: launches {counts_p}")
+    log(f"the 16 outputs equal the NTT key's word for word ({pbs.numel()} words); launches of "
+        f"one bootstrap: {json.dumps(counts_p)}")
+    boot = lambda c: bootstrap(wctx.conv, wctx.basis, wctx.bsk, c, tp, wide.log_n)  # noqa: E731
+    lat = min(wall_ms(torch, lambda: boot(cts[:1]), reps))
+    rate = min(wall_ms(torch, lambda: boot(cts), reps))
+    busy, rows = device_time(torch, lambda: boot(cts))
+    idle = "not measured" if busy is None else f"{1 - busy / rate:.3f}"
+    log(f"[{smi}] programmable bootstrap at N = 2^{wide.log_n} on the MXU key: batch 1 "
+        f"{lat:.2f} ms, batch 16 {rate:.2f} ms (host clock, synchronised, least of {reps}); "
+        f"device busy {busy if busy is None else round(busy, 3)} ms of the batch-16 run -> idle "
+        f"share {idle}")
+    del wctx, vals, cts, pbs
+    torch.cuda.empty_cache()
+    return counts_p
+
+
 def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> dict:
     """Phase 21: the NTT-key blind rotation past the one-launch step's caps.
     21.1 kernels 1-2 at log_n 15-17 (a row over a cluster); 21.2 kernel H
     and the staged step (kernel G, kernel 1, kernel H) against the plain
     step, timed at N = 2^15 and 2^17; 21.3 a 4-bit programmable bootstrap
     at N = 2^15 on the card; 21.4 BOOLEAN_128 still on the fused step; 21.5
-    the programmable bootstrap at N = 2^17.  Returns the launch counts of
+    the programmable bootstrap at N = 2^17 on the NTT key and on the MXU key
+    (made in chunks, the same 16 outputs).  Returns the launch counts of
     21.3's and 21.5's bootstraps and 21.3's 16 outputs."""
     import dataclasses
 
@@ -2557,10 +2628,12 @@ def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> di
         f"launches, {fused['cmux_stage2']} of kernel H, {fused['cmux_front']} of G (the fused "
         f"route, as before)")
 
-    # -- 21.5: a 4-bit programmable bootstrap at N = 2^17 -------------------------
+    # -- 21.5: a 4-bit programmable bootstrap at N = 2^17, on both key kinds -----
     top = dataclasses.replace(P.BOOLEAN_128, log_n=TOP_LOG_N)
-    counts17, _ = programmable_bootstrap(torch, dev, smi, "21.5", top, SEED + 27, 2,
-                                         reset_counts, read_counts)
+    counts17, out17 = programmable_bootstrap(torch, dev, smi, "21.5", top, SEED + 27, 2,
+                                             reset_counts, read_counts)
+    mxu_key_bootstrap(torch, dev, smi, "21.5", top, SEED + 27, out17, 2, reset_counts,
+                      read_counts)
     return counts, out, counts17
 
 
@@ -2723,8 +2796,6 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
     from primus_fhe_tpu_torch import params as P
     from primus_fhe_tpu_torch.boot import gates, ntru_gates
     from primus_fhe_tpu_torch.boot import ntru_blind_rotate as nbr
-    from primus_fhe_tpu_torch.boot.blind_rotate import bootstrap, lut_test_polynomial
-    from primus_fhe_tpu_torch.lattice.lwe import encrypt_torus32
     from primus_fhe_tpu_torch.modular.modops import add32, neg32, sub32
     from primus_fhe_tpu_torch.ops import cmux_fused, cmux_mxu, ntru_cmux_mxu, ntt32, ntt_mxu8
     from primus_fhe_tpu_torch.transforms.torus import TorusConvolver32
@@ -2798,8 +2869,10 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
     t0 = time.perf_counter()
     mctx = P.make_context(wide, dev, gen, bsk_kind="mxu")
     torch.cuda.synchronize()
-    log(f"keygen: {time.perf_counter() - t0:.3f} s; bsk (vals, precons) "
-        f"{tuple(mctx.bsk[0].shape)} x 2, primes {mctx.conv.primes}")
+    if mctx.bsk[1] is not None:
+        raise AssertionError("the MXU pack at N = 4096 carries quotients past kernel A")
+    log(f"keygen: {time.perf_counter() - t0:.3f} s; bsk values {tuple(mctx.bsk[0].shape)}, no "
+        f"quotients (past kernel A), primes {mctx.conv.primes}")
     args = (mctx.conv, mctx.basis, mctx.bsk, mctx.ksk, mctx.ks_basis)
     bits_a = torch.randint(0, 2, (BATCH,), generator=gen, device=dev)
     bits_b = torch.randint(0, 2, (BATCH,), generator=gen, device=dev)
@@ -2829,45 +2902,8 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
     del mctx, args, ca, cb, res
 
     # -- 22.4: 21.3's programmable bootstrap on the MXU key ------------------------
-    wide = dataclasses.replace(P.BOOLEAN_128, log_n=WIDE_LOG_N)
-    log(f"-- 22.4: make_context(BOOLEAN_128 at N = 2^{WIDE_LOG_N}, bsk_kind='mxu') from 21.3's "
-        f"draws and its {MSG_BITS}-bit programmable bootstrap")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    wctx = P.make_context(wide, dev, gen, bsk_kind="mxu")
-    torch.cuda.synchronize()
-    keygen_s = time.perf_counter() - t0
-    log(f"keygen: {keygen_s:.3f} s (kernel 1 prepares the MXU key at this ring); bsk (vals, "
-        f"precons) {tuple(wctx.bsk[0].shape)} x 2 ({2 * wctx.bsk[0].numel() * 8 / 1e9:.2f} GB)")
-    delta = 1 << (32 - MSG_BITS - 1)
-    f_of = [(3 * m + 1) % (1 << MSG_BITS) for m in range(1 << MSG_BITS)]
-    tp = lut_test_polynomial([v * delta for v in f_of], wide.log_n, MSG_BITS).to(dev)
-    msgs = torch.arange(1 << MSG_BITS, device=dev)
-    cts = encrypt_torus32(msgs * delta, wctx.lwe_secret, wctx.gaussian, gen)
-    reset_counts()
-    pbs = bootstrap(wctx.conv, wctx.basis, wctx.bsk, cts, tp, wide.log_n)
-    counts_p = read_counts()
-    if not torch.equal(pbs, pbs_21):
-        raise AssertionError("the programmable bootstrap on the MXU key differs from 21.3's")
-    want_p = {name: 0 for name in counts_p} | {
-        "cmux_front": wide.lwe_dim, "forward32": wide.lwe_dim, "cmux_stage2": wide.lwe_dim,
-        "rotate": 1}
-    if counts_p != want_p:
-        raise AssertionError(f"programmable bootstrap on the MXU key: launches {counts_p}")
-    log(f"the 16 outputs equal 21.3's NTT-key outputs word for word ({pbs.numel()} words); "
-        f"launches of one bootstrap: {json.dumps(counts_p)}")
-    boot = lambda c: bootstrap(wctx.conv, wctx.basis, wctx.bsk, c, tp, wide.log_n)  # noqa: E731
-    lat = min(wall_ms(torch, lambda: boot(cts[:1]), 3))
-    rate = min(wall_ms(torch, lambda: boot(cts), 3))
-    busy, rows = device_time(torch, lambda: boot(cts))
-    idle = "not measured" if busy is None else f"{1 - busy / rate:.3f}"
-    log(f"[{smi}] programmable bootstrap at N = 2^{WIDE_LOG_N} on the MXU key: batch 1 "
-        f"{lat:.2f} ms, batch 16 {rate:.2f} ms (host clock, synchronised, least of 3); device "
-        f"busy {busy if busy is None else round(busy, 3)} ms of the batch-16 run -> idle share "
-        f"{idle}")
-    del wctx, cts, pbs
+    counts_p = mxu_key_bootstrap(torch, dev, smi, "22.4", dataclasses.replace(
+        P.BOOLEAN_128, log_n=WIDE_LOG_N), SEED + 23, pbs_21, 3, reset_counts, read_counts)
 
     # -- 22.5: NTRU at N = 2^13 on kernels I, 1 and J ------------------------------
     pw = dataclasses.replace(P.NTRU_128, log_n=NTRU_WIDE_LOG_N)
@@ -3116,21 +3152,139 @@ def phase23_dcrt_moduli(torch, dev, table) -> dict:
     return counts
 
 
-ROW9_WIDE_LOG_N = (13, 14, 15)  # 23.7: row 9's functions on row 10's passes
+ROW9_WIDE_LOG_N = (13, 14, 15, 16, 17)  # 23.7: row 9's functions on row 10's passes
 # rows a modulus: the forward and E at 16 (phase 10's batch-1 forward), the inverse and D at 4
 ROW9_ROWS = (16, 4)
-ROW9_DCRT_LOG_N = 13  # 23.8: the DCRT rotation at N = 8192 on route "mxu8"
+CLUSTER_LOG_N = (16, 17)  # 23.7: row 10 too, and 5-6 moduli, where a row spans 4 and 8 blocks
+ROW9_DCRT_LOG_N = (13, 16)  # 23.8: the DCRT rotation at N = 8192 and 65536 on route "mxu8"
 ROW9_DCRT_STEPS = 4
+RT_WIDE_LOG_N = (16, 17)  # 23.9: kernel E on bench.py's 512 rows at these rings
 
 
 def phase23_row9_wide(torch, dev, table) -> dict:
     """23.7: row 9's four u64 functions (``mxu8_forward64``,
-    ``mxu8_inverse64``, D and E) at log_n 13-15 over two 50-bit moduli, any
+    ``mxu8_inverse64``, D and E) at log_n 13-17 over two 50-bit moduli, any
     u64 words in, against their plain versions (one launch a call, on row
-    10's passes: ``csrc/ntt64.cu``), timed (tags "@log13" ..); 23.8
-    ``ROW9_DCRT_STEPS`` DCRT rotation steps at N = 8192, batch 2, on route
-    ``"mxu8"`` against route ``"butterfly"`` and the CPU.  Returns the
-    rotation's launches on route "mxu8"."""
+    10's passes: ``csrc/ntt64.cu``, a row over a cluster at 15-17), timed
+    (tags "@log13" ..); at 16-17 row 10's forward and inverse too, row 12
+    (forward and inverse on a residue shard's tables, tags "@shard16",
+    "@shard17"), and all six over 5 and 6 moduli (two launches a call); 23.8
+    ``ROW9_DCRT_STEPS`` DCRT rotation steps at N = 8192 and 65536, batch 2,
+    on route ``"mxu8"`` against route ``"butterfly"`` and the CPU; 23.9
+    kernel E on ``bench.py``'s 512 rows at n = 2^16 and 2^17 (tags "@rt16",
+    "@rt17").  Returns the rotations' launches on route "mxu8", by N."""
+    from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8, ntt_mxu8_dyn
+    from primus_fhe_tpu_torch.transforms import dcrt as td
+    from primus_fhe_tpu_torch.utils.primes import next_ntt_prime, ntt_prime_chain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    names = ("mxu8_forward64", "mxu8_inverse64", "mxu8_inverse64_mul", "mxu8_roundtrip64_mul")
+    fns = {name: getattr(ntt_mxu8, name) for name in names}
+    fns |= {"ntt64_forward": ntt64.ntt64_forward, "ntt64_inverse": ntt64.ntt64_inverse}
+
+    def calls(tabs, x, mt, moduli):
+        """name -> (kernel, plain, keyed) of the six u64 wrappers on ``x``."""
+        out = {name: (lambda f=fns[name], a=a: f(tabs, x, *a),
+                      lambda name=name, a=a: getattr(ntt_mxu8, name + "_plain")(tabs, x, *a),
+                      bool(a))
+               for name, a in zip(names, ((), (), (mt,), (mt,)))}
+        xr = torch.stack([x[i] % q for i, q in enumerate(moduli)])  # row 10's inputs: < 4q
+        out["ntt64_forward"] = (lambda: ntt64.ntt64_forward(tabs.ntt, xr, 4),
+                                lambda: ntt64.ntt64_forward_plain(tabs.ntt, xr, 4), False)
+        out["ntt64_inverse"] = (lambda: ntt64.ntt64_inverse(tabs.ntt, xr),
+                                lambda: ntt64.ntt64_inverse_plain(tabs.ntt, xr), False)
+        return out
+
+    for log_n in ROW9_WIDE_LOG_N:
+        n = 1 << log_n
+        moduli = ntt_prime_chain(50, log_n, 2)
+        tabs = td.build_dcrt_plan64(log_n, moduli).mxu
+        log(f"-- 23.7: row 9 at log_n {log_n} (A = {tabs.A}, B = {tabs.B} as the JAX plan; a row "
+            f"over {1 << max(0, log_n - 14)} block(s)), moduli {moduli}")
+        key = torch.stack([torch.randint(0, q, (n,), generator=g, device=dev) for q in moduli])
+        mt = tabs.mul_table(key)
+        timed = names + (("ntt64_forward", "ntt64_inverse") if log_n in CLUSTER_LOG_N else ())
+        for name in timed:
+            rows = ROW9_ROWS[0] if name in ("mxu8_forward64", "mxu8_roundtrip64_mul",
+                                            "ntt64_forward") else ROW9_ROWS[1]
+            x = torch.randint(-(1 << 63), (1 << 63) - 1, (len(moduli), rows, n), generator=g,
+                              device=dev)
+            kern, plain, keyed = calls(tabs, x, mt, moduli)[name]
+            rt = name == "mxu8_roundtrip64_mul"
+            nbytes = 16 * len(moduli) * rows * n + (16 * len(moduli) * n if keyed else 0)
+            b = bound(nbytes, muls32=ntt_muls(len(moduli) * rows, n, u64=True) * (2 if rt else 1))
+            compare_kernel64(torch, table, f"{name}@log{log_n}", rows, kern, plain, b)
+            before = fns[name].launches
+            kern()
+            if fns[name].launches - before != 1:
+                raise AssertionError(f"{name} at log_n {log_n}: {fns[name].launches - before} "
+                                     "launches")
+        if log_n > ntt_mxu8.MXU_LOG_N[1] and tabs._plans is not None:
+            raise AssertionError(f"row 9 at log_n {log_n} built byte-plane plans it never reads")
+        log(f"log_n {log_n}: {len(timed)} wrappers bit-equal to their plain versions, one launch "
+            f"each; kernel E's tile at {ROW9_ROWS[0]} rows: "
+            f"{ntt_mxu8.roundtrip_tile(tabs, ROW9_ROWS[0])}")
+        if log_n not in CLUSTER_LOG_N:
+            continue
+        # row 12: the same kernels on a residue shard's tables (one modulus), at
+        # phase 14's shard shapes (8 ciphertexts, k1 2, L 4: 64 rows forward, 16 back)
+        sp = ntt_mxu8_dyn.stack_dyn_plans(td.build_dcrt_plan64(log_n, moduli), 2)[0]
+        for name, rows in (("mxu8_forward64", 64), ("mxu8_inverse64", 16)):
+            x = torch.randint(0, sp.moduli[0], (1, rows, n), generator=g, device=dev)
+            compare_kernel64(torch, table, f"{name}@shard{log_n}", rows,
+                             lambda f=fns[name], v=x: f(sp.mxu, v),
+                             lambda name=name, v=x: getattr(ntt_mxu8, name + "_plain")(sp.mxu, v),
+                             bound(16 * rows * n, muls32=ntt_muls(rows, n, u64=True)))
+        for count in MODULI_COUNTS:
+            moduli = ntt_prime_chain(50, log_n, count)
+            moduli[-1] = next_ntt_prime(62, log_n) if count == 6 else moduli[-1]
+            tabs = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
+            mt = tabs.mul_table(torch.stack([torch.randint(0, q, (n,), generator=g, device=dev)
+                                             for q in moduli]))
+            x = torch.randint(-(1 << 63), (1 << 63) - 1, (count, 2, n), generator=g, device=dev)
+            for name, (kern, plain, _) in calls(tabs, x, mt, moduli).items():
+                before = fns[name].launches
+                if not torch.equal(kern(), plain()):
+                    raise AssertionError(f"{name} at log_n {log_n} over {count} moduli != plain")
+                if fns[name].launches - before != 2:
+                    raise AssertionError(f"{name} at log_n {log_n} over {count} moduli: "
+                                         f"{fns[name].launches - before} launches, want 2")
+            log(f"log_n {log_n}, {count} moduli{' (the last of 62 bits)' if count == 6 else ''}, "
+                f"2 rows: the six u64 wrappers bit-equal to their plain versions, two launches "
+                f"each")
+
+    counts = {}
+    for log_n in ROW9_DCRT_LOG_N:
+        counts[1 << log_n] = dcrt_row9_steps(torch, dev, g, log_n)
+
+    for log_n in RT_WIDE_LOG_N:
+        n = 1 << log_n
+        q = next_ntt_prime(50, log_n)
+        tabs = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, [q]))
+        log(f"-- 23.9: kernel E on bench.py's {RT_BATCH} rows at n = 2^{log_n}, q = {q} (50 bits; "
+            f"bench.py's own q is 1 mod 2^14 only)")
+        x = torch.randint(0, q, (1, RT_BATCH, n), generator=g, device=dev)
+        mt = tabs.mul_table(torch.randint(0, q, (1, n), generator=g, device=dev))
+        words = RT_BATCH * n
+        compare_kernel64(torch, table, f"mxu8_roundtrip64_mul@rt{log_n}", RT_BATCH,
+                         lambda: ntt_mxu8.mxu8_roundtrip64_mul(tabs, x, mt),
+                         lambda: ntt_mxu8.mxu8_roundtrip64_mul_plain(tabs, x, mt),
+                         bound(8 * (2 * words + 2 * n),
+                               muls32=2 * ntt_muls(RT_BATCH, n, u64=True) + 10 * words))
+        e_row = table[f"mxu8_roundtrip64_mul@rt{log_n}"][RT_BATCH]
+        modmuls = RT_BATCH * (n * log_n + n)
+        log(f"kernel E at n = 2^{log_n} x {RT_BATCH}: device {e_row[3]:.4f} ms, share of the "
+            f"bound {e_row[4][0] / e_row[3]:.4f}; {modmuls / (e_row[3] / 1e3):.4e} modmul/s "
+            f"(bench.py's metric)")
+        del x
+    return counts
+
+
+def dcrt_row9_steps(torch, dev, g, log_n) -> dict:
+    """23.8: ``ROW9_DCRT_STEPS`` DCRT rotation steps at N = 2^log_n, batch
+    2, two 50-bit moduli, on route ``"mxu8"`` (row 9 on row 10's passes)
+    against route ``"butterfly"`` and the CPU's plain rotation.  Returns
+    route "mxu8"'s launches."""
     from primus_fhe_tpu_torch.boot import dcrt_blind_rotate as dbr
     from primus_fhe_tpu_torch.decompose import BigUintApproxSignedBasis
     from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
@@ -3138,40 +3292,7 @@ def phase23_row9_wide(torch, dev, table) -> dict:
     from primus_fhe_tpu_torch.transforms import dcrt as td
     from primus_fhe_tpu_torch.utils.primes import ntt_prime_chain
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 37)
-    fns = {"mxu8_forward64": ntt_mxu8.mxu8_forward64, "mxu8_inverse64": ntt_mxu8.mxu8_inverse64,
-           "mxu8_inverse64_mul": ntt_mxu8.mxu8_inverse64_mul,
-           "mxu8_roundtrip64_mul": ntt_mxu8.mxu8_roundtrip64_mul}
-    for log_n in ROW9_WIDE_LOG_N:
-        n = 1 << log_n
-        moduli = ntt_prime_chain(50, log_n, 2)
-        tabs = td.build_dcrt_plan64(log_n, moduli).mxu
-        log(f"-- 23.7: row 9 at log_n {log_n} (A = {tabs.A}, B = {tabs.B} as the JAX plan), "
-            f"moduli {moduli}")
-        key = torch.stack([torch.randint(0, q, (n,), generator=g, device=dev) for q in moduli])
-        mt = tabs.mul_table(key)
-        for name, rows, keyed in (("mxu8_forward64", ROW9_ROWS[0], False),
-                                  ("mxu8_inverse64", ROW9_ROWS[1], False),
-                                  ("mxu8_inverse64_mul", ROW9_ROWS[1], True),
-                                  ("mxu8_roundtrip64_mul", ROW9_ROWS[0], True)):
-            x = torch.randint(-(1 << 63), (1 << 63) - 1, (len(moduli), rows, n), generator=g,
-                              device=dev)
-            fn, plain = fns[name], getattr(ntt_mxu8, name + "_plain")
-            args = (mt,) if keyed else ()
-            rt = name == "mxu8_roundtrip64_mul"
-            nbytes = 16 * len(moduli) * rows * n + (16 * len(moduli) * n if keyed else 0)
-            b = bound(nbytes, muls32=ntt_muls(len(moduli) * rows, n, u64=True) * (2 if rt else 1))
-            compare_kernel64(torch, table, f"{name}@log{log_n}", rows,
-                             lambda: fn(tabs, x, *args), lambda: plain(tabs, x, *args), b)
-            before = fn.launches
-            fn(tabs, x, *args)
-            if fn.launches - before != 1:
-                raise AssertionError(f"{name} at log_n {log_n}: {fn.launches - before} launches")
-        log(f"log_n {log_n}: the four wrappers bit-equal to their plain versions, one launch "
-            f"each; kernel E's tile at {ROW9_ROWS[0]} rows: "
-            f"{ntt_mxu8.roundtrip_tile(tabs, ROW9_ROWS[0])}")
-
-    log_n, steps, bsz, k1 = ROW9_DCRT_LOG_N, ROW9_DCRT_STEPS, 2, 2
+    steps, bsz, k1 = ROW9_DCRT_STEPS, 2, 2
     n = 1 << log_n
     moduli = ntt_prime_chain(50, log_n, 2)
     base = RNSBase64(moduli)
@@ -3201,13 +3322,15 @@ def phase23_row9_wide(torch, dev, table) -> dict:
             "ntt64_inverse": 0}
     if counts["mxu8"] != want:
         raise AssertionError(f"route mxu8 at N = {n}: launches {counts['mxu8']}, want {want}")
+    t0 = time.perf_counter()
     cpu = dbr.dcrt_blind_rotate_batched(plan, basis, base, bsk.cpu(), lwe.cpu(), accs.cpu())
+    cpu_s = time.perf_counter() - t0
     if not (torch.equal(outs["mxu8"], outs["butterfly"]) and torch.equal(outs["mxu8"].cpu(), cpu)):
         raise AssertionError(f"the DCRT rotation at N = {n}: routes mxu8 and butterfly (or the "
                              "CPU) differ")
     log(f"route 'mxu8': launches {json.dumps(counts['mxu8'])}; route 'butterfly': "
         f"{json.dumps(counts['butterfly'])}; both and the CPU's plain rotation give the same "
-        f"{cpu.numel()} words")
+        f"{cpu.numel()} words ({cpu_s:.2f} s on the cpu)")
     return counts["mxu8"]
 
 
@@ -3756,6 +3879,9 @@ def main() -> None:
     log(f"== phase 23: the DCRT layer at N = {1 << DCRT_LOG_N} over {MODULI_COUNTS} moduli of 50 "
         f"bits, the u64 kernels a group of four moduli a launch")
     counts_23 = phase23_dcrt_moduli(torch, dev, table)
+    log(f"== phase 23.7: the u64 transforms at log_n {ROW9_WIDE_LOG_N[0]}-{ROW9_WIDE_LOG_N[-1]} "
+        f"(a row over a cluster past 14), the DCRT steps at N = "
+        f"{[1 << log_n for log_n in ROW9_DCRT_LOG_N]}, kernel E at {RT_BATCH} x 2^{RT_WIDE_LOG_N}")
     counts_23w = phase23_row9_wide(torch, dev, table)
 
     end_phase()
@@ -3896,13 +4022,16 @@ def main() -> None:
                             f"bound_ms_m{m}": mbms})
         # the rings this slice opened: kernels 1-2 at 2^17 (21.1: kp 2 and 3 at
         # 16 rows, the staged PBS's 12 / 192 rows), H, I and J at 2^17 (21.2,
-        # 22.6), row 11 at log_w 17 (15.4), row 9 at log_n 13-15 (23.7)
+        # 22.6), row 11 at log_w 17 (15.4), rows 9 and 10 at log_n 13-17 (23.7),
+        # E at 512 x 2^16, 2^17 (23.9)
         wide_tags = [(f"log{TOP_LOG_N}kp2", WIDE_BATCH), (f"log{TOP_LOG_N}kp3", WIDE_BATCH),
                      (f"pbs{TOP_LOG_N}", 1), (f"pbs{TOP_LOG_N}", WIDE_BATCH),
                      (f"log{TOP_LOG_N}", 1), (f"log{TOP_LOG_N}", WIDE_BATCH),
                      (f"ntru{TOP_LOG_N}", 1), (f"ntru{TOP_LOG_N}", NTRU_WIDE_BATCH),
                      (f"w{CS_TOP_LOG_N - 1}", LARGE_ROWS)]
         wide_tags += [(f"log{log_n}", r) for log_n in ROW9_WIDE_LOG_N for r in ROW9_ROWS]
+        wide_tags += [(f"rt{log_n}", RT_BATCH) for log_n in RT_WIDE_LOG_N]
+        wide_tags += [(f"shard{log_n}", r) for log_n in CLUSTER_LOG_N for r in (64, 16)]
         for tag, bsz_ in wide_tags:
             if bsz_ in table.get(f"{name}@{tag}", {}):
                 _, xms, xpms, xdev, (xbms, xbby) = table[f"{name}@{tag}"][bsz_]
@@ -3917,8 +4046,9 @@ def main() -> None:
                     "ntru_stage2": "ntru_stage2"}.get(name)
         if path_top:  # 22.6's rotation at N = 2^17
             row[f"launches_ntru{TOP_LOG_N}_path"] = counts_22["ntru_top"][path_top]
-        if name in ("mxu8_forward64", "mxu8_inverse64"):  # 23.8: N = 8192 on route "mxu8"
-            row[f"launches_dcrt{1 << ROW9_DCRT_LOG_N}_path"] = counts_23w[name]
+        if name in ("mxu8_forward64", "mxu8_inverse64"):  # 23.8: N = 8192, 65536 on "mxu8"
+            for dcrt_n, dcrt_counts in counts_23w.items():
+                row[f"launches_dcrt{dcrt_n}_path"] = dcrt_counts[name]
         if f"{name}@shard" in table:  # row 12: the same kernels on a residue shard's tables
             _, sms, spms, sdev, (sbms, _) = table[f"{name}@shard"][DCRT_BATCH // SHARD_MESH[1]]
             row.update({"launches_sharded_path": counts_s[name], "ms_sharded_path": sms,

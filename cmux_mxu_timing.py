@@ -276,6 +276,12 @@ INV_SHAPES = (("4 rows", 2, 2), ("16 rows", 2, 8), ("shard 16 rows", 1, 16), ("6
               ("2x32 rows", 2, 32), ("512 rows", 1, 512), ("512 x 256", 1, 512, 8),
               ("512 rows 8 planes", (Q60,), 512))
 NTT_OUT_FACTOR = {"512 rows": 4, "512 rows 8 planes": 4}
+# row 10 with a row over a cluster of 2 blocks (log_n 15; --ntt64 only):
+# phase 23.7's forward and inverse rows a modulus over its two moduli
+# (ntt_prime_chain(50, 15, 2): NTT_MODULI are 1 mod 2^14 only)
+Q50_15 = (1125899904679937, 1125899903827969)
+CLUSTER_SHAPES = (("forward", ("16 rows x 2^15", Q50_15, 16, 15)),
+                  ("inverse", ("4 rows x 2^15", Q50_15, 4, 15)))
 D_SHAPES = (("512 rows", 1, 512), ("512 rows 8 planes", (Q60,), 512))
 # kernel E at phase 11's two shapes and at the card tests' (log_n 8-12; rows
 # 1, 5, 33; one 7-plane modulus, or it and an 8-plane one)
@@ -286,7 +292,7 @@ RT_TRIPS = 20
 HBM_BYTES_S, INT8_OPS_S, INT32_MULS_S = 3.35e12, 1979e12, 132 * 64 * 1.98e9
 
 
-def ntt_calls(torch, dev) -> dict:
+def ntt_calls(torch, dev, row10_only: bool = False) -> dict:
     """``{(kernel, label): (call, bound ms, tables, input, MAC roofline ms or
     None, key table or None)}`` of the forward transforms at
     :data:`NTT_SHAPES`, the inverse ones at :data:`INV_SHAPES`, kernel D at
@@ -296,14 +302,16 @@ def ntt_calls(torch, dev) -> dict:
     on the card.  Each is held to its function's bound (module docstring; D
     adds its key's Shoup multiply, 10 32-bit multiplies a word, and E two
     transforms and the key); the byte-radix route's own work, P planes by 8
-    operand bytes over both passes, is its MAC roofline."""
+    operand bytes over both passes, is its MAC roofline.  ``row10_only``
+    adds row 10 at :data:`CLUSTER_SHAPES`."""
     from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
     from primus_fhe_tpu_torch.transforms import dcrt as td
 
     g = torch.Generator(device=dev).manual_seed(2028)
     calls = {}
     shapes = ([("forward", s) for s in NTT_SHAPES] + [("inverse", s) for s in INV_SHAPES]
-              + [("mul", s) for s in D_SHAPES] + [("rt", s) for s in RT_SHAPES])
+              + [("mul", s) for s in D_SHAPES] + [("rt", s) for s in RT_SHAPES]
+              + (list(CLUSTER_SHAPES) if row10_only else []))
     for kind, (label, moduli, rows, *rest) in shapes:
         log_n = rest[0] if rest else 12
         n = 1 << log_n
@@ -2264,7 +2272,8 @@ def ntt_times(torch, dev, row10_only: bool = False) -> dict:
     from primus_fhe_tpu_torch.ops import ntt_mxu8
 
     out = {}
-    for (name, label), (fn, bound_ms, tables, x, mac_ms, key) in ntt_calls(torch, dev).items():
+    for (name, label), (fn, bound_ms, tables, x, mac_ms, key) in ntt_calls(
+            torch, dev, row10_only).items():
         if row10_only and not name.startswith("ntt64"):
             continue
         times = device_times(torch, fn)

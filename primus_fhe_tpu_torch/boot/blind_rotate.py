@@ -11,7 +11,8 @@
    ``(vals, precons)`` the one-kernel int8 CMux (:mod:`..ops.cmux_mxu`)
    where kernel A takes the shape, and elsewhere the NTT key's step on the
    pack's values, which are the NTT key's rows
-   (:func:`~..ops.cmux_mxu.mxu_step_route`, decided once a rotation),
+   (:func:`mxu_pack_reads_quotients`, decided once a rotation; the pack
+   carries no quotients there),
 3. **sample extract**: GLWE coefficient 0 -> LWE.
 
 The accumulator and the key are narrowed to int32 storage once per call and
@@ -28,8 +29,8 @@ from ..lattice.glwe import zero_sample_draws, zero_samples_from
 from ..lattice.tfhe import ggsw_encrypt_torus, ggsw_from_zero_samples
 from ..numeric.limb import MASK32, narrow_u32, widen_u32
 from ..ops.cmux_fused import CmuxStepPlan
-from ..ops.cmux_mxu import (digit_planes, mxu_cmux_step, mxu_step_route, plan_for,
-                            prepare_mxu_bsk)
+from ..ops.cmux_mxu import (digit_planes, mxu_cmux_step, mxu_key_values, mxu_step_route,
+                            plan_for, shoup_precons)
 from ..ops.rotate import rotate
 
 
@@ -57,8 +58,10 @@ def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
 
     ``bsk_ntt``: ``(n_lwe, kp, k+1, L, k+1, N)`` — GGSW(s_i) in NTT
     residues — or the MXU pack ``(vals, precons)``, each ``(n_lwe, kp,
-    k+1, L, k+1, A, 128)`` (int64 or int32 storage); ``lwe_switched``:
-    ``(..., n_lwe+1)`` int32 mod 2N; ``test_poly``: ``(N,)`` torus words.
+    k+1, L, k+1, A, 128)`` (int64 or int32 storage; ``precons`` None where
+    the step does not read them, :func:`mxu_pack_reads_quotients`);
+    ``lwe_switched``: ``(..., n_lwe+1)`` int32 mod 2N; ``test_poly``:
+    ``(N,)`` torus words.
     ``acc = (0, v * X^{-b})`` (:func:`initial_accumulator`), then one CMux
     per mask element.
     """
@@ -73,8 +76,7 @@ def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
     acc = initial_accumulator(test_poly, -sw[:, n_lwe], k1)
     a_t = sw[:, :n_lwe].t().to(torch.int32).contiguous()  # (n_lwe, B)
     level = basis.decompose_length
-    if use_mxu and (sw.device.type == "cpu" or mxu_step_route(
-            conv.count, k1, level, conv.log_n, digit_planes(basis)) == "mxu"):
+    if use_mxu and mxu_pack_reads_quotients(conv, basis, k1, sw.device):
         plan = plan_for(conv)
         kv = narrow_u32(bsk_ntt[0]).contiguous()
         kpre = narrow_u32(bsk_ntt[1]).contiguous()
@@ -86,6 +88,15 @@ def blind_rotate(conv, basis, bsk_ntt, lwe_switched, test_poly):
         for i in range(n_lwe):
             acc = step(acc, a_t[i], key[i], out=acc)
     return widen_u32(acc).reshape(*batch, k1, n)
+
+
+def mxu_pack_reads_quotients(conv, basis, k1: int, device) -> bool:
+    """Whether a rotation on the MXU pack reads its Shoup quotients: on the
+    CPU (kernel A's plain version takes the pack whole) and on the card
+    where kernel A takes the step (:func:`~..ops.cmux_mxu.mxu_step_route`
+    ``"mxu"``).  Past kernel A the step runs on the pack's values alone."""
+    return torch.device(device).type == "cpu" or mxu_step_route(
+        conv.count, k1, basis.decompose_length, conv.log_n, digit_planes(basis)) == "mxu"
 
 
 KEY_CHUNK_WORDS = 1 << 27  # NTT-domain words of a chunk of the key (1 GB of int64)
@@ -100,26 +111,26 @@ def _bsk_messages(lwe_secret: torch.Tensor, n: int) -> torch.Tensor:
 
 def _bsk_coeff(lwe_secret, glwe_secret, basis, gaussian, conv, generator):
     """GGSW(s_i) for every LWE key bit, coefficient domain ``(n_lwe, k+1,
-    L, k+1, N)``, all encrypted in one batch."""
+    L, k+1, N)``, all encrypted in one batch: the words (and the generator
+    draws) that :func:`_chunked_key`'s chunks reproduce."""
     mu = _bsk_messages(lwe_secret, glwe_secret.shape[-1])
     return ggsw_encrypt_torus(mu, glwe_secret, basis, gaussian, conv, generator)
 
 
-def make_bootstrap_key(lwe_secret, glwe_secret, basis, gaussian, conv, generator):
-    """BSK_i = GGSW(s_i) under the GLWE secret, stacked
-    ``(n_lwe, kp, k+1, L, k+1, N)`` in the NTT domain (contiguous, so that
-    every key slice the CMux loop hands on is one block).
+def _chunked_key(lwe_secret, glwe_secret, basis, gaussian, conv, generator, transform):
+    """GGSW(s_i) for every LWE key bit under the GLWE secret, each chunk of
+    coefficient-domain GGSWs ``(m, k+1, L, k+1, N)`` mapped by ``transform``
+    into a preallocated ``(n_lwe, ...)`` key.
 
-    ``gaussian`` is the GLWE-side sampler (glwe_sigma).  The random draws
-    of all ``n_lwe`` GGSW encryptions are taken in one batch, in the order
-    of :func:`..lattice.tfhe.ggsw_encrypt_torus` on all of them; the
-    samples, the messages and the forward transforms then run on chunks of
-    LWE indices of at most :data:`KEY_CHUNK_WORDS` key words each (at least
-    one index), written into the preallocated key.  Each GGSW depends on its
-    own draws alone, so the key is the one-batch key word for word; the
-    working set is a chunk's, not the key's (BOOLEAN_128's whole key is one
-    chunk; at N = 2^17 the one-batch transforms would pass 80 GB).
-    """
+    The random draws of all ``n_lwe`` GGSW encryptions are taken in one
+    batch, in the order of :func:`..lattice.tfhe.ggsw_encrypt_torus` on all
+    of them; the samples, the messages and ``transform`` then run on chunks
+    of LWE indices of at most :data:`KEY_CHUNK_WORDS` key words each (at
+    least one index).  Each GGSW depends on its own draws alone, so the key
+    is the one-batch key word for word, and the generator's state after the
+    call is the one-batch call's; the working set is a chunk's, not the
+    key's (BOOLEAN_128's whole key is one chunk; at N = 2^17 the one-batch
+    transforms would pass 80 GB)."""
     n_lwe = lwe_secret.shape[0]
     k, n = glwe_secret.shape
     level = basis.decompose_length
@@ -129,9 +140,8 @@ def make_bootstrap_key(lwe_secret, glwe_secret, basis, gaussian, conv, generator
     key = None
     for i in range(0, n_lwe, step):
         j = slice(i, i + step)
-        ggsw = ggsw_from_zero_samples(mu[j], zero_samples_from(glwe_secret, conv, a[j], e[j]),
-                                      basis)
-        part = conv.forward(ggsw).movedim(0, 1)
+        part = transform(ggsw_from_zero_samples(
+            mu[j], zero_samples_from(glwe_secret, conv, a[j], e[j]), basis))
         if key is None:
             key = torch.empty((n_lwe,) + tuple(part.shape[1:]), dtype=part.dtype,
                               device=part.device)
@@ -139,13 +149,31 @@ def make_bootstrap_key(lwe_secret, glwe_secret, basis, gaussian, conv, generator
     return key
 
 
+def make_bootstrap_key(lwe_secret, glwe_secret, basis, gaussian, conv, generator):
+    """BSK_i = GGSW(s_i) under the GLWE secret, stacked
+    ``(n_lwe, kp, k+1, L, k+1, N)`` in the NTT domain (contiguous, so that
+    every key slice the CMux loop hands on is one block), made in chunks
+    (:func:`_chunked_key`).  ``gaussian`` is the GLWE-side sampler
+    (glwe_sigma)."""
+    return _chunked_key(lwe_secret, glwe_secret, basis, gaussian, conv, generator,
+                        lambda ggsw: conv.forward(ggsw).movedim(0, 1))
+
+
 def make_bootstrap_key_mxu(lwe_secret, glwe_secret, basis, gaussian, conv, generator):
     """The MXU key pack ``(vals, precons)`` of the same GGSW material as
-    :func:`make_bootstrap_key` (the same generator draws): the canonical
-    forward transform (kernel C on a CUDA tensor) and exact Shoup
-    quotients, each ``(n_lwe, kp, k+1, L, k+1, A, 128)``."""
-    return prepare_mxu_bsk(conv, _bsk_coeff(lwe_secret, glwe_secret, basis, gaussian, conv,
-                                            generator))
+    :func:`make_bootstrap_key` (the same generator draws, the same chunks):
+    ``vals`` the canonical forward transform (:func:`~..ops.cmux_mxu.
+    mxu_key_values`: kernel C, or kernel 1 at ``log_n`` 13-17, on a CUDA
+    tensor), ``(n_lwe, kp, k+1, L, k+1, A, 128)`` int64; ``precons`` its
+    exact Shoup quotients, the same shape, where a rotation reads them (on
+    the CPU, and on the card where kernel A takes the step:
+    :func:`mxu_pack_reads_quotients`), else None (past kernel A the step
+    reads the values alone: at N = 2^17 the values are 23.8 GB)."""
+    vals = _chunked_key(lwe_secret, glwe_secret, basis, gaussian, conv, generator,
+                        lambda ggsw: mxu_key_values(conv, ggsw))
+    if not mxu_pack_reads_quotients(conv, basis, glwe_secret.shape[0] + 1, vals.device):
+        return vals, None
+    return vals, shoup_precons(vals, conv.primes, 1).contiguous()
 
 
 def test_polynomial(n: int, message_bits: int, device=None) -> torch.Tensor:

@@ -1,5 +1,5 @@
 // Row 10, kernels ntt64_forward and ntt64_inverse: the 64-bit negacyclic NTT
-// and its inverse (q < 2^62, n = 2^1 .. 2^15), every modulus of a DCRT plan
+// and its inverse (q < 2^62, n = 2^1 .. 2^17), every modulus of a DCRT plan
 // in one launch.  Below them, kernel E (mxu8_roundtrip64_mul, the product
 // by a fixed NTT-domain operand) on the same passes and tiles.
 //
@@ -55,13 +55,18 @@
 //   loading and storing only its own rows.  The C entry picks T (pick_tile:
 //   the smallest T whose grid runs in one wave); no caller sets it.  256
 //   threads a block, fewer where the tile has fewer radix-8 groups.
-// - a row of n = 2^15 words (256 KB) does not fit one block's shared
-//   memory, so there a row is split over 2 blocks, each holding one half:
-//   the forward runs its stage 0 (pairs i, i + n/2) as it loads, keeping its
-//   half, after which every stage pairs words of one half (HalfTable gives
-//   the half's twiddles); the inverse runs its stages within the halves
-//   (HalfInvTable) and its last, which pairs the halves, over the
-//   distributed shared memory of the 2 blocks of a cluster.
+// - a row of n = 2^15 .. 2^17 words (256 KB - 1 MB) does not fit one
+//   block's shared memory, so there a row runs over a cluster of C =
+//   2^(log_n - 14) blocks (2, 4 or 8: a portable cluster size), one slice
+//   of 2^14 words (128 KB) each, as kernels 1-2 split their rows
+//   (csrc/ntt_split.cuh, on u64 words): the forward's first log_n - 14
+//   stages run on groups of one word a slice (the radix-C group j: words j +
+//   k 2^14), each block taking 1/C of the offsets and storing word k into
+//   slice k over distributed shared memory; then every stage pairs words of
+//   one slice (SliceTable gives the slice's twiddles); the inverse runs its
+//   stages within the slices (SliceInvTable) and its last log_n - 14 on
+//   groups gathered from the slices, inv_n folded into the final one.
+//   Twiddles are read from device memory through L1 there.
 //
 // The butterflies are the plain version's (transforms/ntt.py forward64 /
 // inverse64) with its lazy ranges, applied to the same pairs stage by
@@ -77,14 +82,15 @@
 
 #include <type_traits>
 
-#include "ntt_passes.cuh"
+#include "ntt_split.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int NTT_THREADS = 256;
-constexpr int MAX_LOG_N = 15;
+constexpr int MAX_LOG_N = 17;
+constexpr int SLICE_LOG = 14;  // past it, a row over a cluster of 2^(log_n - SLICE_LOG) blocks
 constexpr int SMEM_MAX = 232448;  // 227 KB, the most a block may ask for
 
 struct Ntt64Args {
@@ -100,17 +106,28 @@ struct Ntt64Args {
 // How the inverse's first pass takes its words from device memory: the
 // input chain from [0, in_factor q) (row 10's inverse); any u64 word
 // brought to [0, 2q) by a lazy Shoup multiply by 1 (row 9's inverse64 at
-// log_n 13-15); or any u64 word times the key by a lazy Shoup multiply
-// (kernel D at log_n 13-15: E's key step without the forward).  The
+// log_n 13-17); or any u64 word times the key by a lazy Shoup multiply
+// (kernel D at log_n 13-17: E's key step without the forward).  The
 // forward's ANY flag is the second: row 9's forward64 takes any u64 word.
 enum InLoad { IN_CHAIN = 0, IN_ANY = 1, IN_KEY = 2 };
 
-// Blocks a row is split over (log2): 1 where a row overflows one block's
-// shared memory (n = 2^15).
-__host__ __device__ inline int log_split(int log_n) { return log_n > 14 ? 1 : 0; }
+// Blocks a row is split over (log2): log_n - SLICE_LOG where a row
+// overflows one block's shared memory (n = 2^15 .. 2^17).
+__host__ __device__ inline int log_split(int log_n) {
+  return log_n > SLICE_LOG ? log_n - SLICE_LOG : 0;
+}
 
-// Words of each root table a block stages: none for one pass or a split
-// row; the inverse's part that its passes after the first use (at most
+// Runs f(std::integral_constant<int, LC>()) for the slices' LC = lc (1-3):
+// the cross stages are templates on LC.
+template <class F>
+__device__ __forceinline__ void with_lc(int lc, const F& f) {
+  if (lc == 1) f(std::integral_constant<int, 1>());
+  if (lc == 2) f(std::integral_constant<int, 2>());
+  if (lc == 3) f(std::integral_constant<int, 3>());
+}
+
+// Words of each root table a block stages: none for one pass or a row
+// over a cluster; the inverse's part that its passes after the first use (at most
 // 4096 words, 64 KB with the quotients, beside a row of at most 128 KB);
 // the forward's whole table where it fits beside one row (16 n + 8 n bytes,
 // up to n = 2^13).
@@ -135,7 +152,8 @@ inline size_t smem_bytes(bool forward, int log_n, int tile) {
 }
 
 // The block's tile: modulus mi, `count` rows from the tile's first, at word
-// offset `off`; h is the block's half of a split row (else 0).
+// offset `off`; h is the block's slice of a row over a cluster (its rank
+// there; else 0).
 struct Tile {
   int mi, count, h;
   size_t off;
@@ -214,57 +232,18 @@ struct GlobalOut64 {
   }
 };
 
-// Half h of a split row (p: the row) as the forward's first pass loads it:
-// slot c of the half is the butterfly of stage 0 on the row's words c and
-// c + n/2 (root 1), its half h kept.
-// ANY: each word first brought to [0, 2q) (a lazy Shoup multiply by 1, p1
-// its quotient), as AnyIn64 loads.
-template <bool ANY>
-struct HalfIn {
-  const uint64_t* p;
-  int half, h;
-  uint64_t w, wp, q, p1;
-  template <int G>
-  __device__ __forceinline__ void load(int, int base, int ls, uint64_t (&v)[G]) const {
-#pragma unroll
-    for (int k = 0; k < G; ++k) {
-      uint64_t x = Word<uint64_t>::ldg(p + base + (k << ls));
-      uint64_t y = Word<uint64_t>::ldg(p + half + base + (k << ls));
-      if (ANY) {
-        x = shoup64_lazy(x, 1, p1, q);
-        y = shoup64_lazy(y, 1, p1, q);
-      }
-      fwd_bf(x, y, w, wp, q);
-      v[k] = h ? y : x;
-    }
-  }
-};
-
-// Half h's view of the forward's tables: its stage s0 is the row's stage
-// s0 + 1, and its group hi there the row's group h 2^s0 + hi.
+// Slice h's view of the forward's tables (of a row over 2^lc slices): its
+// stage s0 is the row's stage s0 + lc, and its group hi there the row's
+// group h 2^s0 + hi (csrc/ntt_split.cuh's FwdSliceTable, with TW's 16-byte
+// loads of a stage's run of roots).
 template <class TW>
-struct HalfTable {
+struct SliceTable {
   TW t;
-  int h;
+  int lc, h;
   template <int R>
   __device__ __forceinline__ void get(int s0, int hi, uint64_t (&tw)[1 << R],
                                       uint64_t (&twp)[1 << R]) const {
-    t.template get<R>(s0 + 1, hi + (h << s0), tw, twp);
-  }
-};
-
-// Half h's view of the inverse's table: twiddle ti of a transform of the
-// half's size, stage s = log2(half) - 1 - floor(log2(half - ti)), is the
-// row's twiddle ti + half - (half >> s) + h (half >> (s + 1)).
-struct HalfInvTable {
-  const uint64_t* w;
-  const uint64_t* wp;
-  int half, h;
-  __device__ __forceinline__ void operator()(int ti, uint64_t& tw, uint64_t& twp) const {
-    const int lg = 31 - __clz(half - ti);  // half >> (s + 1)
-    const int gi = ti + half - (2 << lg) + (h << lg);
-    tw = w[gi];
-    twp = wp[gi];
+    t.template get<R>(s0 + lc, hi + (h << s0), tw, twp);
   }
 };
 
@@ -312,7 +291,8 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_forward_kernel(const Ntt
     if (log_n == 1) fwd_pass<1>(t.count, log_n, 0, first, q, src, dst);
     return;
   }
-  // the block holds 2^l words of each of its rows (half of a split row)
+  // the block holds 2^l words of each of its rows (a slice of a row over a
+  // cluster)
   const int l = log_n - log_split(log_n);
   const int m = staged_words(true, log_n);
   const SmemRows64 rows{sm + 2 * m, l};
@@ -331,11 +311,13 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_forward_kernel(const Ntt
     if (r == 1) fwd_pass<1>(t.count, l, l - 1, table, q, rows, dst);
   };
 
-  if (l < log_n) {  // a split row: stage 0 as the half loads, then the half's stages
-    const HalfTable<FwdTable<uint64_t>> table{{groots, groots_p}, t.h};
-    const HalfIn<ANY> half{a.in + t.off, 1 << l, t.h, Word<uint64_t>::ldg(groots + 1),
-                           Word<uint64_t>::ldg(groots_p + 1), q, a.ms.m[t.mi].p1};
-    fwd_pass<3>(1, l, 0, table, q, half, rows);
+  if (l < log_n) {  // a row over a cluster: the cross stages, then the slice's
+    with_lc(log_n - l, [&](auto lc) {
+      cross_forward<decltype(lc)::value, ANY>(a.in + t.off, rows.p, l, t.h, 0, groots, groots_p,
+                                               q, a.ms.m[t.mi].p1);
+    });
+    const SliceTable<FwdTable<uint64_t>> table{{groots, groots_p}, log_n - l, t.h};
+    fwd_pass<3>(1, l, 0, table, q, rows, rows);
     __syncthreads();
     rest(table);
     return;
@@ -353,32 +335,27 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_forward_kernel(const Ntt
     rest(FwdTable{groots, groots_p});
 }
 
-// The inverse's last stage of a split row on the pair (x, y) = (words i,
-// i + n/2): inv_n and inv_n_w folded in, as the passes' final stage does.
-__device__ __forceinline__ void inverse_last_stage(uint64_t x, uint64_t y, const Mod64& c,
-                                                   bool canonical, uint64_t* ox, uint64_t* oy) {
-  const uint64_t q = c.q, two_q = 2 * q;
-  uint64_t a = shoup64_lazy(reduce_once64(x + y, two_q), c.inv_n, c.inv_n_p, q);
-  uint64_t b = shoup64_lazy(x + two_q - y, c.inv_n_w, c.inv_n_w_p, q);
-  *ox = canonical ? reduce_once64(a, q) : a;
-  *oy = canonical ? reduce_once64(b, q) : b;
-}
-
-// The last stage of a split row whose halves' other stages are done, each
-// in its block's rows: after a cluster barrier, block h finishes half of
-// the pairs (x from half 0, y from half 1, over distributed shared memory)
-// into the row out; a second barrier keeps both halves alive until every
-// read is done.
-__device__ __forceinline__ void split_last_stage(const SmemRows64& rows, uint64_t* out, int l,
-                                                 int h, const Mod64& c, bool canonical) {
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const uint64_t* xs = cluster.map_shared_rank(rows.p, 0);
-  const uint64_t* ys = cluster.map_shared_rank(rows.p, 1);
-  const int half = 1 << l;
-  for (int i = h * (half / 2) + threadIdx.x; i < (h + 1) * (half / 2); i += blockDim.x)
-    inverse_last_stage(xs[swz64(i)], ys[swz64(i)], c, canonical, out + i, out + i + half);
-  cluster.sync();
+// The inverse's last log_n - l stages of a row over a cluster of 2^(log_n -
+// l) slices whose own stages are done (each in its block's rows: one row),
+// into the row out (csrc/ntt_split.cuh's cross_inverse, inv_n folded into
+// the final stage, canonical or lazy in [0, 2q)); a cluster barrier after
+// it keeps every slice alive until its peers' reads are done.
+__device__ __forceinline__ void cross_last_stages(const SmemRows64& rows, uint64_t* out,
+                                                  int log_n, int l, int h, const uint64_t* w,
+                                                  const uint64_t* wp, const Mod64& c,
+                                                  bool canonical) {
+  with_lc(log_n - l, [&](auto lc) {
+    constexpr int LC = decltype(lc)::value;
+    const auto store = [&](int j, const uint64_t (&v)[1 << LC]) {
+#pragma unroll
+      for (int k = 0; k < (1 << LC); ++k) out[j + (k << l)] = v[k];
+    };
+    if (canonical)
+      cross_inverse<LC, Last::canonical>(rows.p, l, log_n, h, 0, w, wp, c, store);
+    else
+      cross_inverse<LC, Last::lazy>(rows.p, l, log_n, h, 0, w, wp, c, store);
+  });
+  cg::this_cluster().sync();
 }
 
 template <bool CANON, int LOAD>
@@ -405,14 +382,9 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_inverse_kernel(const Ntt
     const int m = staged_words(false, log_n);  // the later passes' twiddles: [n - m, n)
     const SmemRows64 rows{sm + 2 * m, l};
 
-    if (l < log_n) {  // a split row: the stages within the half, then the last over the cluster
-      const HalfInvTable table{groots, groots_p, 1 << l, t.h};
-      if (r == 3) inv_pass<3, Last::no>(1, l, 0, table, c, src, rows);
-      if (r == 2) inv_pass<2, Last::no>(1, l, 0, table, c, src, rows);
-      if (r == 1) inv_pass<1, Last::no>(1, l, 0, table, c, src, rows);
-      __syncthreads();
-      inv_rest<Last::no>(rows, 1, l, r, table, c, rows);
-      split_last_stage(rows, a.out + t.off, l, t.h, c, CANON);
+    if (l < log_n) {  // a row over a cluster: the slice's stages, then the cross stages
+      slice_inverse(SliceInvTable{groots, groots_p, l, log_n, t.h}, c, src, rows, l);
+      cross_last_stages(rows, a.out + t.off, log_n, l, t.h, groots, groots_p, c, CANON);
       return;
     }
 
@@ -443,7 +415,7 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_inverse_kernel(const Ntt
 // ---------------------------------------------------------------------------
 // Kernel E, mxu8_roundtrip64_mul: INTT(NTT(x) * key), the negacyclic product
 // of any u64 words by a fixed NTT-domain operand, in one launch (8 <= log_n
-// <= 15, q < 2^62).
+// <= 17, q < 2^62).
 //
 // Replaces mxu8_fused_roundtrip64_mul (primus_fhe_tpu/ops/ntt_mxu8.py:977,
 // body _make_rt_kernel8 :726), which runs the byte-radix four-step forward,
@@ -491,20 +463,21 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_inverse_kernel(const Ntt
 //   first pass.  Shared memory is 16 n + 16 n / 2^R + 8 T n bytes, so at n =
 //   4096 T <= 4 (200 KB).  The C entry picks T as row 10 picks its tiles
 //   (pick_tile: the smallest whose grid runs in one wave; 4 at 512 rows).
-// - log_n 13-15, row 9's rings past the byte-radix kernels: the forward's
+// - log_n 13-17, row 9's rings past the byte-radix kernels: the forward's
 //   table no longer fits beside a row and the inverse's part, so the
 //   forward's passes read their twiddles from device memory through L1 (as
-//   row 10's forward does at 2^14); at 2^15 a row is split over a cluster
-//   of 2 blocks as row 10 splits it (the forward's stage 0 as each half
-//   loads, its words brought to [0, 2q) first; the half's stages; the key
-//   and the inverse's first pass on the same groups; the inverse's stages
-//   within the half; the last stage over distributed shared memory).
+//   row 10's forward does at 2^14); at 2^15-2^17 a row runs over a cluster
+//   of 2, 4 or 8 blocks as row 10 splits it, all in one launch: the
+//   forward's cross stages as the slices load (each word brought to [0, 2q)
+//   first), the slice's forward passes, the key and the inverse's first
+//   pass on the same groups, the inverse's stages within the slice, then
+//   the inverse's cross stages over distributed shared memory.
 //
 // Every stage is the plain version's butterfly on the same pair, and the
 // output is canonical, so the words equal mxu8_roundtrip64_mul_plain's (whose
 // forward folds to canonical before the key: the lazy representatives
 // between differ, the residues do not).
-constexpr int RT_MIN_LOG_N = 8, RT_MAX_LOG_N = 15;
+constexpr int RT_MIN_LOG_N = 8, RT_MAX_LOG_N = MAX_LOG_N;
 
 // Words of the forward's table kernel E stages (with its quotients, 16
 // bytes a word): all n where they fit beside the inverse's part and a row
@@ -529,10 +502,10 @@ inline size_t rt_smem_bytes(int log_n, int tile) {
 template <class TW>
 struct FwdKeyIn {
   SmemRows64 rows;
-  TW table;                  // the forward's table (a half's view of it at a split row)
+  TW table;                  // the forward's table (a slice's view of it over a cluster)
   const uint64_t* key;       // the modulus's key at the rows' first slot
   const uint64_t* key_p;     // its quotients
-  int log_n;                 // the rows' words: 2^log_n (a half at a split row)
+  int log_n;                 // the rows' words: 2^log_n (a slice over a cluster)
   uint64_t q;
   template <int G>
   __device__ __forceinline__ void load(int row, int base, int, uint64_t (&v)[G]) const {
@@ -566,26 +539,21 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_roundtrip_kernel(const R
   const int l = log_n - log_split(log_n);  // words a block holds of a row: 2^l
   const int r = remainder_stages(l);
 
-  if (l < log_n) {  // a split row (n = 2^15): a cluster of 2 blocks, one half each
+  if (l < log_n) {  // a row over a cluster of 2^(log_n - l) blocks, one slice each
     const SmemRows64 rows{sm, l};
-    const HalfTable<FwdTable<uint64_t>> table{{a.tw + mo, a.twp + mo}, t.h};
-    const HalfIn<true> half{a.in + t.off, 1 << l, t.h, Word<uint64_t>::ldg(a.tw + mo + 1),
-                            Word<uint64_t>::ldg(a.twp + mo + 1), q, c.p1};
-    fwd_pass<3>(1, l, 0, table, q, half, rows);
-    __syncthreads();
-    for (int s0 = 3; s0 < l - r; s0 += 3) {
+    with_lc(log_n - l, [&](auto lc) {
+      cross_forward<decltype(lc)::value, true>(a.in + t.off, sm, l, t.h, 0, a.tw + mo,
+                                                a.twp + mo, q, c.p1);
+    });
+    const SliceTable<FwdTable<uint64_t>> table{{a.tw + mo, a.twp + mo}, log_n - l, t.h};
+    for (int s0 = 0; s0 < l - r; s0 += 3) {
       fwd_pass<3>(1, l, s0, table, q, rows, rows);
       __syncthreads();
     }
     const size_t h0 = (size_t)t.h << l;
-    const FwdKeyIn<HalfTable<FwdTable<uint64_t>>> mid{rows, table, key + h0, key + n + h0, l, q};
-    const HalfInvTable itab{e.itw + mo, e.itwp + mo, 1 << l, t.h};
-    if (r == 3) inv_pass<3, Last::no>(1, l, 0, itab, c, mid, rows);
-    if (r == 2) inv_pass<2, Last::no>(1, l, 0, itab, c, mid, rows);
-    if (r == 1) inv_pass<1, Last::no>(1, l, 0, itab, c, mid, rows);
-    __syncthreads();
-    inv_rest<Last::no>(rows, 1, l, r, itab, c, rows);
-    split_last_stage(rows, a.out + t.off, l, t.h, c, true);
+    const FwdKeyIn<SliceTable<FwdTable<uint64_t>>> mid{rows, table, key + h0, key + n + h0, l, q};
+    slice_inverse(SliceInvTable{e.itw + mo, e.itwp + mo, l, log_n, t.h}, c, mid, rows, l);
+    cross_last_stages(rows, a.out + t.off, log_n, l, t.h, e.itw + mo, e.itwp + mo, c, true);
     return;
   }
 
@@ -683,9 +651,9 @@ int ntt64_device(const Ntt64Device** out) {
 // count ceil(rows / T) blocks runs in one wave (the SMs times the blocks an
 // SM holds at T), else the largest T that fits (each staged table word then
 // serves the most rows).  A smaller tile spreads a transform over more SMs;
-// a larger one reads the tables less often.  A split row (n = 2^15) fits
-// only T = 1.  The only copy of the rule, for the three kernels (kind: a
-// Kind; a bool forward is FORWARD or INVERSE).
+// a larger one reads the tables less often.  A row over a cluster (n >=
+// 2^15) fits only T = 1.  The only copy of the rule, for the three kernels
+// (kind: a Kind; a bool forward is FORWARD or INVERSE).
 int pick_tile(int kind, int count, int rows, int log_n, const Ntt64Device& d) {
   int fit = 1;
   for (int i = 0; i < 4; ++i) {
@@ -732,11 +700,11 @@ int launch(bool forward, const void* in, void* out, const void* tw, const void* 
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;  // the inverse's split row: its 2 blocks in one cluster
+  attr[0].val.clusterDim.x = 1 << split;  // a row's slices in one cluster
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = !forward && split ? 1 : 0;
+  cfg.numAttrs = split ? 1 : 0;
   cudaError_t e;
   if (forward && load == IN_ANY)
     e = cudaLaunchKernelEx(&cfg, ntt64_forward_kernel<true, true>, a);
@@ -785,7 +753,7 @@ int launch_roundtrip(const void* in, void* out, const void* roots, const void* r
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;  // a split row: its 2 blocks in one cluster
+  attr[0].val.clusterDim.x = 1 << split;  // a row's slices in one cluster
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -800,7 +768,7 @@ int launch_roundtrip(const void* in, void* out, const void* roots, const void* r
 extern "C" {
 
 // Forward NTT of count moduli x rows_per_mod rows of 2^log_n words (log_n
-// 1-15, count <= 4; in and out 16-byte aligned): roots, roots_p (count, n)
+// 1-17, count <= 4; in and out 16-byte aligned): roots, roots_p (count, n)
 // the bit-reversed root tables and Shoup quotients; input below 4q,
 // bit-reversed output canonical or lazy in [0, 4q).
 int pft_ntt64_forward(const void* in, void* out, const void* roots, const void* roots_p,
@@ -820,7 +788,7 @@ int pft_ntt64_inverse(const void* in, void* out, const void* inv_roots, const vo
                 canonical, in_factor, IN_CHAIN, nullptr, stream);
 }
 
-// Row 9's forward64 at log_n 13-15 on the forward's passes: any u64 words
+// Row 9's forward64 at log_n 13-17 on the forward's passes: any u64 words
 // in (each brought to [0, 2q) as it loads), canonical bit-reversed words
 // out; the shapes and tables of pft_ntt64_forward.
 int pft_ntt64_forward_any(const void* in, void* out, const void* roots, const void* roots_p,
@@ -830,7 +798,7 @@ int pft_ntt64_forward_any(const void* in, void* out, const void* roots, const vo
                 IN_ANY, nullptr, stream);
 }
 
-// Kernel D at log_n 13-15 (key: the (count, 2, n) key and its Shoup
+// Kernel D at log_n 13-17 (key: the (count, 2, n) key and its Shoup
 // quotients, 16-byte aligned), or row 9's inverse64 there (key null): the
 // inverse's passes on any u64 words in bit-reversed order, each multiplied
 // by the key (or by 1) as it loads, canonical normal-order words out; the
@@ -843,7 +811,7 @@ int pft_ntt64_inverse_mul(const void* in, void* out, const void* inv_roots,
 }
 
 // Kernel E: INTT(NTT(in) * key) of count moduli x rows_per_mod rows of
-// 2^log_n words (log_n 8-15, count <= 4): any u64 words in, normal order;
+// 2^log_n words (log_n 8-17, count <= 4): any u64 words in, normal order;
 // roots, roots_p and inv_roots, inv_roots_p the forward's and the inverse's
 // (count, n) tables; key (count, 2, n, 16-byte aligned) the bit-reversed
 // key and its Shoup quotients; canonical words out, normal order.

@@ -1,23 +1,25 @@
-// A u32 row of 2^log_n words split over a thread-block cluster of C = 2^c
+// A row of 2^log_n words split over a thread-block cluster of C = 2^c
 // blocks: slice k (one block) holds words k 2^l .. (k+1) 2^l - 1 of the row
-// (l = log_n - c) in its shared memory, word i of the slice at SwzNtt::at(i).
-// Kernels 1-2 at log_n 15-16 (csrc/ntt32.cu) and kernels H and J
-// (csrc/cmux_stage2.cu, csrc/ntru_stage.cu: C = 1-16, pick_slices) run on
-// it, with kernels 1-2's own tables: the compact bit-reversed roots
-// (forward) or inverse roots and their Shoup quotients, (kp, n) words read
-// from device memory.
+// (l = log_n - c) in its shared memory, word i of the slice at slice_at<W>(i)
+// (SwzNtt::at for u32 words, swz64 for u64 ones).  Kernels 1-2 at log_n
+// 15-17 (csrc/ntt32.cu) and kernels H and J (csrc/cmux_stage2.cu,
+// csrc/ntru_stage.cu: C = 1-16, pick_slices) run on it on u32 words, row 10
+// and kernel E at log_n 15-17 (csrc/ntt64.cu) on u64 words, each with its
+// own tables: the compact bit-reversed roots (forward) or inverse roots and
+// their Shoup quotients, (count, n) words read from device memory.
 //
 // The forward's first c stages pair words of different slices: group j is
 // the C words j + k 2^l, one a slice, at the same place in each, so its c
 // stages are a radix-C group at stage 0 (twiddles roots[1 .. C-1]) and word
 // k goes to slice k over distributed shared memory.  Every later stage
-// pairs words of one slice: the slice runs kernel 1's radix-8 passes
-// (fwd_pass) as a row of 2^l words, on FwdSliceTable.  The inverse mirrors
-// it: the slice's stages first (inv_pass on SliceInvTable, none of them the
-// last), then the last c stages on groups gathered from the C slices, the
-// final stage folding inv_n in.  Each pair meets the plain version's
-// butterfly with its twiddle in the plain version's lazy range, so the
-// words are the plain version's (tests/test_torch_ntt_split_model.py).
+// pairs words of one slice: the slice runs the radix-8 passes (fwd_pass) as
+// a row of 2^l words, on FwdSliceTable.  The inverse mirrors it: the
+// slice's stages first (inv_pass on SliceInvTable, none of them the last),
+// then the last c stages on groups gathered from the C slices, the final
+// stage folding inv_n in.  Each pair meets the plain version's butterfly
+// with its twiddle in the plain version's lazy range, so the words are the
+// plain version's (tests/test_torch_ntt_split_model.py,
+// tests/test_torch_ntt64_cluster.py).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -25,6 +27,15 @@
 #include "ntt_passes.cuh"
 
 namespace cg = cooperative_groups;
+
+// The slice's shared-memory word of its word i.
+template <class W>
+__device__ __forceinline__ int slice_at(int i) {
+  if constexpr (sizeof(W) == 4)
+    return SwzNtt::at(i);
+  else
+    return swz64(i);
+}
 
 // Forward twiddles of slice `rank` of C: at the row's stage c + s (the
 // slice's stage s) the slice's block j is the row's block rank 2^s + j,
@@ -55,28 +66,31 @@ struct FwdSliceTable {
 // twiddle ti = 1 + 2^l - 2^(l-s) + j of its stage s, block j; the row's
 // block at stage s is rank 2^(l-s-1) + j, at 1 + n - n 2^-s + rank
 // 2^(l-s-1) + j of the row's table.  l - s = ceil(log2(2^l + 1 - ti)).
+template <class W>
 struct SliceInvTable {
-  const uint32_t* w;
-  const uint32_t* wp;
+  const W* w;
+  const W* wp;
   int l, log_n, rank;
   __device__ __forceinline__ int index(int ti) const {
     const int ls = 32 - __clz((1 << l) - ti);  // l - s
     const int j = ti - 1 - (1 << l) + (1 << ls);
     return 1 + (1 << log_n) - (1 << (log_n - l + ls)) + (rank << (ls - 1)) + j;
   }
-  __device__ __forceinline__ void operator()(int ti, uint32_t& tw, uint32_t& twp) const {
+  __device__ __forceinline__ void operator()(int ti, W& tw, W& twp) const {
     const int g = index(ti);
-    tw = __ldg(w + g);
-    twp = __ldg(wp + g);
+    tw = Word<W>::ldg(w + g);
+    twp = Word<W>::ldg(wp + g);
   }
 };
+template <class W>
+SliceInvTable(const W*, const W*, int, int, int) -> SliceInvTable<W>;
 
 // Starts copying the slice's inverse twiddles and their quotients (t's
 // words for ti = 1 .. 2^l - 1; at l = log_n, rank 0 the row's own table)
 // into tw[ti], twp[ti] in shared memory, 4 bytes a cp.async (not
 // committed): the passes then read them through InvTable{tw, twp} after
 // cp_async_wait and a block barrier, not from device memory.
-__device__ __forceinline__ void stage_slice_table(const SliceInvTable& t, uint32_t* tw,
+__device__ __forceinline__ void stage_slice_table(const SliceInvTable<uint32_t>& t, uint32_t* tw,
                                                   uint32_t* twp) {
   for (int ti = 1 + (int)threadIdx.x; ti < (1 << t.l); ti += blockDim.x) {
     const int g = t.index(ti);
@@ -86,32 +100,35 @@ __device__ __forceinline__ void stage_slice_table(const SliceInvTable& t, uint32
 }
 
 // The forward's first LC stages of a row (in: its words in device memory,
-// below 4q) split over slices rank0 .. rank0 + C - 1 of the cluster: this
-// block (slice `rank`) takes the offsets j of its share, 2^(l - LC) of them,
-// and stores word k of each group into slice k at j.  Cluster barriers
-// before (every slice's block has started) and after (every word is in its
-// slice).
-template <int LC>
-__device__ __forceinline__ void cross_forward(const uint32_t* in, uint32_t* sm, int l, int rank,
-                                              int rank0, const uint32_t* roots,
-                                              const uint32_t* roots_p, uint32_t q) {
+// below 4q; ANY: any u64 words, each brought to [0, 2q) first by a lazy
+// Shoup multiply by 1, p1 = floor(2^64 / q)) split over slices rank0 ..
+// rank0 + C - 1 of the cluster: this block (slice `rank`) takes the offsets
+// j of its share, 2^(l - LC) of them, and stores word k of each group into
+// slice k at j.  Cluster barriers before (every slice's block has started)
+// and after (every word is in its slice).
+template <int LC, bool ANY = false, class W>
+__device__ __forceinline__ void cross_forward(const W* in, W* sm, int l, int rank, int rank0,
+                                              const W* roots, const W* roots_p, W q, W p1 = 0) {
   constexpr int C = 1 << LC;
   cg::cluster_group cluster = cg::this_cluster();
-  const FwdFirst<uint32_t> first(roots, roots_p, C);
+  const FwdFirst<W> first(roots, roots_p, C);
   const int per = 1 << (l - LC);
   cluster.sync();
   for (int j = rank * per + (int)threadIdx.x; j < (rank + 1) * per; j += blockDim.x) {
-    uint32_t v[C];
+    W v[C];
 #pragma unroll
-    for (int k = 0; k < C; ++k) v[k] = __ldg(in + j + (k << l));
+    for (int k = 0; k < C; ++k) {
+      v[k] = Word<W>::ldg(in + j + (k << l));
+      if constexpr (ANY) v[k] = Word<W>::shoup(v[k], 1, p1, q);
+    }
     fwd_stages<LC>(
         v,
-        [&](int e, int jj, uint32_t& w, uint32_t& wp) {
+        [&](int e, int jj, W& w, W& wp) {
           w = first.w[(1 << e) + jj];
           wp = first.wp[(1 << e) + jj];
         },
         q);
-    uint32_t* word = sm + SwzNtt::at(j);
+    W* word = sm + slice_at<W>(j);
 #pragma unroll
     for (int k = 0; k < C; ++k) *cluster.map_shared_rank(word, rank0 + k) = v[k];
   }
@@ -121,9 +138,9 @@ __device__ __forceinline__ void cross_forward(const uint32_t* in, uint32_t* sm, 
 // The inverse's stages 0 .. l-1 on a slice of 2^l words, none of them the
 // row's last: the remainder pass (1-3 stages) from src, the radix-8 passes
 // in the slice's rows, a block barrier after each.
-template <class TW, class SRC>
-__device__ __forceinline__ void slice_inverse(const TW& tw, const PrimeConsts& pc, const SRC& src,
-                                              const SmemRows<SwzNtt>& rows, int l) {
+template <class TW, class PC, class SRC, class ROWS>
+__device__ __forceinline__ void slice_inverse(const TW& tw, const PC& pc, const SRC& src,
+                                              const ROWS& rows, int l) {
   const int r = remainder_stages(l);
   if (r == 3) inv_pass<3, Last::no>(1, l, 0, tw, pc, src, rows);
   if (r == 2) inv_pass<2, Last::no>(1, l, 0, tw, pc, src, rows);
@@ -142,18 +159,18 @@ __device__ __forceinline__ void slice_inverse(const TW& tw, const PrimeConsts& p
 // inverse table w, wp, and hand the C words to store(j, v).  Group j is
 // this block's alone, so store may write the words back into the slices.
 // The caller holds a cluster barrier after it before a slice may end.
-template <int LC, Last LAST, class STORE>
-__device__ __forceinline__ void cross_inverse(uint32_t* sm, int l, int log_n, int rank, int rank0,
-                                              const uint32_t* w, const uint32_t* wp,
-                                              const PrimeConsts& pc, const STORE& store) {
+template <int LC, Last LAST, class W, class PC, class STORE>
+__device__ __forceinline__ void cross_inverse(W* sm, int l, int log_n, int rank, int rank0,
+                                              const W* w, const W* wp, const PC& pc,
+                                              const STORE& store) {
   constexpr int C = 1 << LC;
   cg::cluster_group cluster = cg::this_cluster();
   const int n = 1 << log_n, per = 1 << (l - LC);
-  const uint32_t q = pc.q, two_q = 2u * q;
+  const W q = pc.q, two_q = W(2) * q;
   cluster.sync();
   for (int j = rank * per + (int)threadIdx.x; j < (rank + 1) * per; j += blockDim.x) {
-    uint32_t v[C];
-    const uint32_t* word = sm + SwzNtt::at(j);
+    W v[C];
+    const W* word = sm + slice_at<W>(j);
 #pragma unroll
     for (int k = 0; k < C; ++k) v[k] = *cluster.map_shared_rank(word, rank0 + k);
 #pragma unroll
@@ -164,18 +181,18 @@ __device__ __forceinline__ void cross_inverse(uint32_t* sm, int l, int log_n, in
       for (int k = 0; k < C; ++k) {
         if (k & h) continue;
         if (e == LC - 1) {
-          const uint32_t x = v[k], y = v[k + h];
-          const uint32_t s = x + y;
-          const uint32_t tx = s >= two_q ? s - two_q : s;
-          v[k] = shoup_mul_lazy(tx, pc.inv_n, pc.inv_n_p, q);
-          v[k + h] = shoup_mul_lazy(x + two_q - y, pc.inv_n_w, pc.inv_n_w_p, q);
+          const W x = v[k], y = v[k + h];
+          const W s = x + y;
+          const W tx = s >= two_q ? s - two_q : s;
+          v[k] = Word<W>::shoup(tx, pc.inv_n, pc.inv_n_p, q);
+          v[k + h] = Word<W>::shoup(x + two_q - y, pc.inv_n_w, pc.inv_n_w_p, q);
           if (LAST == Last::canonical) {
-            v[k] = reduce_once(v[k], q);
-            v[k + h] = reduce_once(v[k + h], q);
+            v[k] = Word<W>::sub_if(v[k], q);
+            v[k + h] = Word<W>::sub_if(v[k + h], q);
           }
         } else {
           const int ti = start + (k >> (e + 1));
-          inv_bf(v[k], v[k + h], __ldg(w + ti), __ldg(wp + ti), q);
+          inv_bf(v[k], v[k + h], Word<W>::ldg(w + ti), Word<W>::ldg(wp + ti), q);
         }
       }
     }

@@ -417,15 +417,22 @@ def shoup_precons(vals: torch.Tensor, primes, axis: int) -> torch.Tensor:
     return torch.div(vals << 32, p, rounding_mode="floor")
 
 
+def mxu_key_values(conv, ggsw_coeff: torch.Tensor) -> torch.Tensor:
+    """Coefficient-domain stacked GGSW ``(n_lwe, k1, L, k1, n)`` torus words
+    -> the MXU key pack's values, ``(n_lwe, kp, k1, L, k1, A, 128)`` int64
+    (a view, prime-major underneath): the centered lift, then kernel C (one
+    launch for every prime: the canonical forward NTT on kernel 1's radix-8
+    passes; kernel 1 itself at ``log_n`` 13-17,
+    :func:`.ntt_mxu8.mxu8_forward32`)."""
+    from .ntt_mxu8 import mxu8_forward32
+
+    return mxu8_forward32(plan_for(conv), conv.lift(ggsw_coeff)).movedim(0, 1)
+
+
 def prepare_mxu_bsk(conv, ggsw_coeff: torch.Tensor):
     """Coefficient-domain stacked GGSW ``(n_lwe, k1, L, k1, n)`` torus words
     -> MXU key pack ``(vals, precons)``, each ``(n_lwe, kp, k1, L, k1, A,
-    128)`` int64 and contiguous: the centered lift, kernel C (one launch
-    for every prime: the canonical forward NTT on kernel 1's radix-8
-    passes; kernel 1 itself at ``log_n`` 13-17,
-    :func:`.ntt_mxu8.mxu8_forward32`), then the exact Shoup quotients."""
-    from .ntt_mxu8 import mxu8_forward32
-
-    plan = plan_for(conv)
-    vals = mxu8_forward32(plan, conv.lift(ggsw_coeff)).movedim(0, 1).contiguous()
+    128)`` int64 and contiguous: :func:`mxu_key_values`, then the exact
+    Shoup quotients."""
+    vals = mxu_key_values(conv, ggsw_coeff).contiguous()
     return vals, shoup_precons(vals, conv.primes, 1).contiguous()

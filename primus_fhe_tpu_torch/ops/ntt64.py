@@ -1,5 +1,5 @@
 """Kernels ``ntt64_forward`` and ``ntt64_inverse``: the 64-bit negacyclic NTT
-and its inverse (``q < 2^62``, ``n <= 2^15``), one launch for every group of
+and its inverse (``q < 2^62``, ``n <= 2^17``), one launch for every group of
 up to four moduli of a DCRT plan (:func:`mod_groups`).
 
 Replace ``pallas_forward64`` and ``pallas_inverse64``
@@ -31,8 +31,11 @@ staged word serves the tile; the C entry picks the tile (``csrc/ntt64.cu``'s
 ``pick_tile``: the smallest that runs the grid in one wave).  A Shoup
 multiply is three native 64-bit multiplies, so the TPU kernels' u32-pair
 emulation, pre-split 16-bit limb tables and lane rolls are gone.  A row of
-2^15 words (256 KB) does not fit in one block's shared memory; there two
-blocks share a row (``csrc/ntt64.cu`` says how).
+2^15-2^17 words (256 KB-1 MB) does not fit in one block's shared memory;
+there a row runs over a cluster of 2, 4 or 8 blocks, one slice of 2^14
+words each, the stages that pair words of different slices over
+distributed shared memory (``csrc/ntt64.cu`` and ``csrc/ntt_split.cuh``
+say how).
 
 The kernels run the plain version's butterflies
 (:func:`..transforms.ntt.forward64` / ``inverse64``) on the same pairs,
@@ -55,7 +58,7 @@ from . import build
 
 MAX_MODULI = 4  # a launch's moduli: PFT_MAX_MOD64 in csrc/modarith64.cuh
 MOD_WORDS = 9  # a modulus's words in the pack: PFT_MOD64_WORDS
-MAX_LOG_N = 15
+MAX_LOG_N = 17  # MAX_LOG_N in csrc/ntt64.cu: past 14, a row over a cluster of 2^(log_n - 14)
 
 
 def mod_groups(count: int) -> list[slice]:
@@ -187,8 +190,9 @@ def ntt64_forward(tables: NttTables64, values: torch.Tensor, out_factor: int = 1
     ``[0,4q)`` for ``4``.
 
     CPU tensors take the plain version (any ``log_n``), CUDA tensors the
-    kernel, which takes ``log_n`` 1-15 (:data:`MAX_LOG_N`; a ``ValueError``
-    above), one launch a group of up to 4 moduli (:func:`mod_groups`).
+    kernel, which takes ``log_n`` 1-17 (:data:`MAX_LOG_N`; a ``ValueError``
+    above, before any launch), one launch a group of up to 4 moduli
+    (:func:`mod_groups`).
     """
     if out_factor not in (1, 4):
         raise ValueError("out_factor must be 1 or 4")
@@ -204,7 +208,7 @@ def ntt64_inverse(tables: NttTables64, values: torch.Tensor, out_factor: int = 1
     ``[0, in_factor*q)``, ``in_factor`` a power of two of at least 2 (a
     ``ValueError`` otherwise); output normal order, canonical for
     ``out_factor=1`` and lazy ``[0,2q)`` for ``2``.  The same devices and
-    limits as :func:`ntt64_forward`: the kernel takes ``log_n`` 1-15, one
+    limits as :func:`ntt64_forward`: the kernel takes ``log_n`` 1-17, one
     launch a group of up to 4 moduli."""
     if out_factor not in (1, 2):
         raise ValueError("out_factor must be 1 or 2")

@@ -26,17 +26,17 @@ transforms of the same functions on butterflies.
   by that operand (forward, multiply, inverse) in one launch; the operand
   comes as a :meth:`Mxu8Tables64.mul_table`.
 
-The byte-radix kernels take ``log_n`` 8-12 (:data:`MXU_LOG_N`).  At 13-15
+The byte-radix kernels take ``log_n`` 8-12 (:data:`MXU_LOG_N`).  At 13-17
 (:data:`WIDE_LOG_N`) the four u64 functions run on row 10's radix-8 passes
 (``csrc/ntt64.cu``), as kernel C runs on kernel 1 past 12: the forward's
 and the inverse's kernels with any u64 word brought below 2q as it loads
 (``pft_ntt64_forward_any``; ``pft_ntt64_inverse_mul`` with no key), kernel
 D's key multiplied in as each word loads (``pft_ntt64_inverse_mul``), and
 kernel E, whose launch takes those rings too (the forward's table read
-from device memory past 2^12, a row over a cluster of 2 blocks at 2^15).
-Each launch is counted on the wrapper the caller called.  Past 15 the plan
-builds and the plain versions compute; the card raises before any launch,
-as row 10 does (the JAX's 64-bit butterfly plan stops at 2^15 too).
+from device memory past 2^12, a row over a cluster of 2, 4 or 8 blocks at
+2^15-2^17, still one launch).  Each launch is counted on the wrapper the
+caller called.  Past 17 the plan builds and the plain versions compute;
+the card raises before any launch, as row 10 does.
 
 All but the round trip reach ``pallas_call`` through
 ``ops/mxu_common._natural_call`` in the reference.  CUDA source:
@@ -591,7 +591,7 @@ def mxu8_forward64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
     docstring).
 
     CPU tensors take the plain version, CUDA tensors the kernel (one launch
-    a group of up to four moduli; ``log_n`` 8-12, row 10's forward at 13-15,
+    a group of up to four moduli; ``log_n`` 8-12, row 10's forward at 13-17,
     a ``ValueError`` outside).  Under ``PRIMUS_DEBUG=1`` it holds the
     input to the reference's contract, words below ``2^(8 planes)`` below 8
     planes."""
@@ -609,7 +609,7 @@ def mxu8_inverse64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
 
     CPU tensors take the plain version, CUDA tensors the tiled kernel (one
     launch a group of up to four moduli) at ``log_n`` 8-12 and row 10's
-    inverse at 13-15 (each word reduced as it loads); a ``ValueError``
+    inverse at 13-17 (each word reduced as it loads); a ``ValueError``
     outside, before any launch (``route="auto"`` sends 13 and up to the
     butterfly)."""
     # row 10's keyed inverse with a null key: each word times 1 as it loads
@@ -626,7 +626,7 @@ def mxu8_inverse64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: torc
 
     CPU tensors take the plain version, CUDA tensors :func:`mxu8_inverse64`'s
     tiled kernel with the key multiplied in as each word is loaded at
-    ``log_n`` 8-12, row 10's inverse with the same load at 13-15
+    ``log_n`` 8-12, row 10's inverse with the same load at 13-17
     (``pft_ntt64_inverse_mul``); a ``ValueError`` outside."""
     return _run64(mxu8_inverse64_mul, mxu8_inverse64_mul_plain, tables, values, out_factor,
                   (1, 2), ("pft_ntt_mxu8_inverse64_mul", ("wi1s", "wi2s", "tw"), (mul_tab,)),
@@ -643,9 +643,9 @@ def mxu8_roundtrip64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: to
     CPU tensors take the plain version, CUDA tensors the kernel of
     ``csrc/ntt64.cu`` (row 10's radix-8 passes for both transforms, the key
     between them, one launch a group of up to four moduli; the launch picks its tile of
-    rows, :func:`roundtrip_tile`); on the card ``log_n`` 8-15 (a row over a
-    cluster of 2 blocks at 15; a ``ValueError`` outside)."""
-    route = ("pft_ntt64_roundtrip_mul", (0, 1, 2, 3), (mul_tab,))  # the same at 8-15
+    rows, :func:`roundtrip_tile`); on the card ``log_n`` 8-17 (a row over a
+    cluster of 2, 4 or 8 blocks at 15-17; a ``ValueError`` outside)."""
+    route = ("pft_ntt64_roundtrip_mul", (0, 1, 2, 3), (mul_tab,))  # the same at 8-17
     return _run64(mxu8_roundtrip64_mul, mxu8_roundtrip64_mul_plain, tables, values, out_factor,
                   (1, 2), route, route, mul_tab)
 

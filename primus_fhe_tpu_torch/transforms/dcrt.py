@@ -20,7 +20,7 @@ moduli (:func:`..ops.ntt64.mod_groups`; a base may hold any number):
 
 - ``"mxu8"``: the byte-radix four-step on the int8 tensor cores
   (:func:`..ops.ntt_mxu8.mxu8_forward64`), canonical output; at ``log_n``
-  13-15 the same function on row 10's passes;
+  13-17 the same function on row 10's passes (to 2^17 on the card);
 - ``"butterfly"``: the 64-bit Harvey butterfly
   (:func:`..ops.ntt64.ntt64_forward`);
 - ``"auto"``: the reference's predicate ``_mxu_ok`` (``q < 2^62`` and
@@ -108,7 +108,8 @@ class DcrtPlan64:
     def mxu(self):
         """:class:`..ops.ntt_mxu8.Mxu8Tables64` of the moduli (built once);
         the byte-radix route needs ``log_n >= 8`` (``B >= 128`` lanes), as the
-        JAX plan does; on the card its kernels take ``log_n`` 8-15."""
+        JAX plan does; on the card its kernels take ``log_n`` 8-17 (the
+        byte-radix kernels to 12, row 10's passes above)."""
         if self.log_n < 8:
             raise ValueError("the byte-radix plan needs log_n >= 8 (B >= 128 lanes)")
         if self._mxu is None:

@@ -61,7 +61,7 @@ from primus_fhe_tpu_torch.boot.ntru_blind_rotate import NtruContext
 from primus_fhe_tpu_torch.ops import (cmux_front, cmux_fused, cmux_mxu, ntru_cmux_mxu, ntt32,
                                       ntt64, ntt_mxu8, rotate)
 from primus_fhe_tpu_torch.transforms.torus import TorusConvolver32
-from primus_fhe_tpu_torch.utils.primes import next_ntt_prime
+from primus_fhe_tpu_torch.utils.primes import next_ntt_prime, ntt_prime_chain
 
 pytestmark = pytest.mark.cuda
 
@@ -820,13 +820,16 @@ def _ragged_rows64(tables, start):
     (12, [Q60, next_ntt_prime(62, 14)], 3), (12, Q50 + Q62, 5), (13, [Q62[0], Q50[1]], 3),
     (14, [next_ntt_prime(61, 14)], 3), (15, [next_ntt_prime(61, 15), next_ntt_prime(50, 15)], 3),
     (15, [next_ntt_prime(50, 15)] + Q62 + [next_ntt_prime(40, 15)], 2),
+    (16, [next_ntt_prime(62, 16), next_ntt_prime(50, 16)], 3),
+    (17, [next_ntt_prime(62, 17), next_ntt_prime(50, 17)], 2),
+    (17, [next_ntt_prime(62, 17)] + ntt_prime_chain(50, 17, 4), 1),
 ])
 def test_ntt64_kernels_match_plain(dev, log_n, moduli, rows):
     """Row 10 against the plain versions, every ``out_factor`` and both
-    input chains: one pass (log_n 1-3), 2-5 passes, a row over two blocks
-    (15); at log_n 12 (the DCRT path) 1, 8, 128 and 512 rows a modulus and
-    a ragged last tile; 1-4 moduli, 62-bit ones with lazy words past
-    2^63."""
+    input chains: one pass (log_n 1-3), 2-5 passes, a row over a cluster of
+    2, 4 or 8 blocks (15-17); at log_n 12 (the DCRT path) 1, 8, 128 and 512
+    rows a modulus and a ragged last tile; 1-5 moduli, 62-bit ones with
+    lazy words past 2^63."""
     tables = ntt64.NttTables64(log_n, moduli)
     if rows == "ragged":
         rows = _ragged_rows64(tables, 257)
@@ -988,13 +991,14 @@ def _ragged_rows_rt(tables, start):
     raise AssertionError("no ragged tile within 8192 row counts")
 
 
-@pytest.mark.parametrize("log_n", [13, 14, 15])
+@pytest.mark.parametrize("log_n", [13, 14, 15, 16, 17])
 def test_row9_on_row10_passes_matches_plain(dev, log_n):
-    """Row 9's four functions at log_n 13-15 (``mxu8_forward64``,
-    ``mxu8_inverse64``, D and E on row 10's passes, ``csrc/ntt64.cu``): any
-    u64 words (the extremes among them) over a 62-bit and a 50-bit modulus,
-    1, 3 and 17 rows, against the plain versions, one launch a call counted
-    on the wrapper called; past 15 a ``ValueError`` before any launch."""
+    """Row 9's four functions at log_n 13-17 (``mxu8_forward64``,
+    ``mxu8_inverse64``, D and E on row 10's passes, ``csrc/ntt64.cu``; a row
+    over a cluster at 15-17): any u64 words (the extremes among them) over a
+    62-bit and a 50-bit modulus, 1, 3 and 17 rows, against the plain
+    versions, one launch a call counted on the wrapper called; past 17 a
+    ``ValueError`` before any launch, on row 10's wrappers too."""
     moduli = [next_ntt_prime(62, log_n), next_ntt_prime(50, log_n)]
     n = 1 << log_n
     tables = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
@@ -1011,9 +1015,14 @@ def test_row9_on_row10_passes_matches_plain(dev, log_n):
             before = fn.launches
             assert torch.equal(fn(tables, x, *args), plain(tables, x, *args)), (name, rows)
             assert fn.launches - before == 1, name
-    big = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(16, [next_ntt_prime(50, 16)]))
-    with pytest.raises(ValueError, match="log_n <= 15"):
-        ntt_mxu8.mxu8_forward64(big, torch.zeros((1, 1, 1 << 16), dtype=torch.int64, device=dev))
+    big = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(18, [next_ntt_prime(50, 18)]))
+    zeros = torch.zeros((1, 1, 1 << 18), dtype=torch.int64, device=dev)
+    before = [fn.launches for fn in (ntt_mxu8.mxu8_forward64, ntt64.ntt64_forward)]
+    with pytest.raises(ValueError, match="log_n <= 17"):
+        ntt_mxu8.mxu8_forward64(big, zeros)
+    with pytest.raises(ValueError, match="n <= 2\\^17"):
+        ntt64.ntt64_forward(big.ntt, zeros)
+    assert [fn.launches for fn in (ntt_mxu8.mxu8_forward64, ntt64.ntt64_forward)] == before
 
 
 @pytest.mark.parametrize("log_n,moduli", [
@@ -1047,6 +1056,37 @@ def test_mxu8_64_mul_kernels_match_plain(dev, log_n, moduli):
             ntt64.ntt64_forward(tables.ntt, xr, 4), key, q))
         assert torch.equal(rt, bf), rows
         assert torch.equal(ntt_mxu8.mxu8_roundtrip64_mul(tables, x, mt, 2), rt)
+
+
+@pytest.mark.parametrize("log_n", [16, 17])
+@pytest.mark.parametrize("count", [5, 6])
+def test_u64_cluster_rings_over_groups_of_moduli_match_plain(dev, log_n, count):
+    """Row 10's forward and inverse and row 9's four functions at log_n 16
+    and 17 (a row over a cluster of 4 and 8 blocks) on 5 and 6 moduli: two
+    launches a call (moduli 0-3, then the rest), each against its plain
+    version; 50-bit moduli and, at 6, a 62-bit one last."""
+    moduli = ntt_prime_chain(50, log_n, count)
+    if count == 6:
+        moduli[-1] = next_ntt_prime(62, log_n)
+    n = 1 << log_n
+    gen = torch.Generator(device=dev).manual_seed(log_n * 10 + count)
+    tables = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
+    mt = tables.mul_table(_below(gen, moduli, (n,), 1, dev))
+    x, y = _below(gen, moduli, (2, n), 4, dev), _below(gen, moduli, (2, n), 2, dev)
+    w = _u64_words(gen, (count, 2, n), dev)
+    calls = [
+        (ntt64.ntt64_forward, lambda: ntt64.ntt64_forward(tables.ntt, x, 4),
+         lambda: ntt64.ntt64_forward_plain(tables.ntt, x, 4)),
+        (ntt64.ntt64_inverse, lambda: ntt64.ntt64_inverse(tables.ntt, y),
+         lambda: ntt64.ntt64_inverse_plain(tables.ntt, y)),
+    ] + [(getattr(ntt_mxu8, name), lambda name=name, a=a: getattr(ntt_mxu8, name)(tables, w, *a),
+          lambda name=name, a=a: getattr(ntt_mxu8, name + "_plain")(tables, w, *a))
+         for name, a in (("mxu8_forward64", ()), ("mxu8_inverse64", ()),
+                         ("mxu8_inverse64_mul", (mt,)), ("mxu8_roundtrip64_mul", (mt,)))]
+    for fn, kern, plain in calls:
+        before = fn.launches
+        assert torch.equal(kern(), plain()), fn.__name__
+        assert fn.launches - before == 2, fn.__name__
 
 
 @pytest.mark.parametrize("count", [5, 6])

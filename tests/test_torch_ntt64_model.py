@@ -7,7 +7,10 @@ of moduli x tiles of T rows, a ragged last tile reading and writing only its
 own rows; the pass split (the forward's last pass and the inverse's first
 take the remainder, 1-3 stages; log_n <= 3 is one pass); at log_n 15 a row
 over two blocks, the forward's stage 0 run as each half loads and the
-inverse's last stage pairing the halves' shared memory; the forward's first
+inverse's last stage pairing the halves' shared memory (the half views'
+index maps are the cluster kernels' at LC = 1; the kernels' own data flow
+at 15-17, the stages across the slices over distributed shared memory, is
+modelled in ``test_torch_ntt64_cluster.py``); the forward's first
 pass reading its groups from the input with its 7 roots in registers (from
 the global table at 15), its last pass storing 2^R adjacent words; the
 inverse's first pass loading 2^R adjacent words through the input chain
