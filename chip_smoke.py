@@ -150,8 +150,7 @@ non-zero):
 21. the NTT-key blind rotation past the one-launch step's caps: kernels 1-2
     at log_n 15, 16 and 17 (a row over a cluster of 2, 4 or 8 blocks) over 2
     and 3 primes, 1 and 16 rows a prime, every ``out_factor`` against the
-    plain versions, timed (and at the 2^17 PBS's rows), and log_n 18 refused
-    before any launch; kernel H (``cmux_stage2``) and the staged step
+    plain versions, timed (and at the 2^17 PBS's rows); kernel H (``cmux_stage2``) and the staged step
     (kernel G, kernel 1, kernel H) over 4 steps at batch 2 against the plain
     step at N = 2^15 (L 3, kp 2), 2^16 (kp 3), 2^10 with k = 2 over 3 primes,
     2^10 with a 2^1 x 20 gadget and 2^17 (kp 3), H's and the step's device
@@ -206,7 +205,31 @@ non-zero):
     moduli (two launches a call); 23.8: 4 DCRT rotation steps at N = 8192
     and 65536 on route ``"mxu8"`` against ``"butterfly"`` and the CPU; 23.9:
     kernel E on ``bench.py``'s 512 rows at n = 2^16 and 2^17 against its
-    bound.
+    bound;
+24. the rings past what a cluster holds, on the four-step through device
+    memory (``csrc/ntt_columns.cu``: a column launch and a sub-row launch a
+    transform): kernels 1-2 at log_n 18, 19 and 20 over 2 and 3 primes, 1
+    and 16 rows a prime, every ``out_factor`` and in place, against the
+    plain versions with exact launches (the column launch, which the
+    transforms' C entries issue, counted on its own), the u32 and u64
+    column kernels alone against theirs, kernel 1 at the 2^18 PBS's rows;
+    each timed at 3 primes and 16 rows (past 2^18 the plain versions on
+    their checking run alone: repeated, they would cost minutes); 24.7-24.9: row 9's four u64 functions, D, E, row
+    10 and row 12 at 18-20 (23.7's shapes, the column launches asserted),
+    4 DCRT steps at N = 2^18 on both routes against the plain rotation run
+    on the card, kernel E on 512 rows of 2^18; 24.3: the staged TFHE step
+    at 18-20 (BOOLEAN_128's gadget, kp 3: G, kernel 1 and the split H,
+    mac_sub then H's column launch with the CRT) over 4 steps at batch 1
+    and 16 against the plain step, the split H and its two launches, G and
+    F against their plain versions; 24.4: the staged NTRU step at 18-20
+    (NTRU_128's gadget, the least q that has a 2^(log_n + 1)-th root; the
+    split J: mac_sub, the inverse's columns, ``ntru_finish``) over 8 steps
+    at batch 1 and 16 against the plain step, the split J with its digits
+    and ``ntru_finish`` against their plain versions; 24.6: the 4-bit
+    programmable bootstrap at N = 2^18 on the NTT key (int32 words, made in
+    chunks; keygen's seconds and peak memory), decrypted, exact launches
+    (630 each of G, kernel 1, its columns, mac_sub and H's columns, one F),
+    ms at batch 1 and 16 and the idle share.
 
 Each phase ends with its seconds.
 
@@ -218,6 +241,7 @@ the least time the card could take for the same work); the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -288,10 +312,13 @@ def end_phase() -> None:
 
 def log(msg: str) -> None:
     """Prints ``msg``; a "== phase" title first ends the running phase
-    (its seconds) and starts the next one's clock."""
+    (its seconds) and starts the next one's clock; a "-- " subtitle gets
+    the seconds of the phase so far."""
     if msg.startswith("== phase"):
         end_phase()
         _PHASE.update(name=msg[3:].split(":")[0], t0=time.perf_counter())
+    elif msg.startswith("-- ") and _PHASE["name"] is not None:
+        msg += f" [{time.perf_counter() - _PHASE['t0']:.1f} s into {_PHASE['name']}]"
     print(msg, flush=True)
 
 
@@ -371,14 +398,29 @@ def wall_ms(torch, fn, reps: int) -> list[float]:
     return out
 
 
-def compare_kernel(torch, table, name, bsz, kern, kern32, plain, bnd, macs=None):
+def once_ms(torch, fn):
+    """``(fn(), ms)``: one run of ``fn`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def compare_kernel(torch, table, name, bsz, kern, kern32, plain, bnd, macs=None,
+                   plain_once=False):
     """Holds ``kern`` (int64 words) and ``kern32`` (int32 storage) against
     ``plain`` bit for bit, then times the int32 wrapper and the plain
-    version (CUDA events) and the kernel's device time
-    (:func:`kernel_device_ms`); ``bnd`` is the work's :func:`bound`; with
-    the work's int8 ``macs``, also the achieved MACs/s and the share of the
-    bound (bound ms / device ms)."""
-    got, want = kern(), plain()
+    version (CUDA events; ``plain_once``: the plain version's one checking
+    run, for shapes where its repetitions would cost seconds) and the
+    kernel's device time (:func:`kernel_device_ms`); ``bnd`` is the work's
+    :func:`bound`; with the work's int8 ``macs``, also the achieved MACs/s
+    and the share of the bound (bound ms / device ms)."""
+    got = kern()
+    want, once = once_ms(torch, plain)
     got32 = kern32()
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
@@ -387,32 +429,32 @@ def compare_kernel(torch, table, name, bsz, kern, kern32, plain, bnd, macs=None)
     if not torch.equal(got32.to(torch.int64) & 0xFFFFFFFF, want):
         raise AssertionError(f"{name} batch {bsz}: int32-storage kernel != plain")
     ms = cuda_ms(torch, kern32, KERNEL_REPS)
-    plain_ms = cuda_ms(torch, plain, KERNEL_REPS)
+    plain_ms = once if plain_once else cuda_ms(torch, plain, KERNEL_REPS)
     dev_ms = kernel_device_ms(torch, kern32)
     log(f"{name:22s} batch {bsz:3d} shape {tuple(got.shape)}: bit-equal; "
-        f"wrapper {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-        f"{bnd[0]:.4f} ms ({bnd[1]})")
+        f"wrapper {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms"
+        f"{' (one run)' if plain_once else ''}, bound {bnd[0]:.4f} ms ({bnd[1]})")
     if macs is not None:
         log(f"{name:22s} batch {bsz:3d}: {macs} int8 MACs, {macs / (dev_ms * 1e-3):.4g} MACs/s "
             f"on the device; share of the bound {bnd[0] / dev_ms:.4f}")
     table.setdefault(name, {})[bsz] = (err, ms, plain_ms, dev_ms, bnd)
 
 
-def compare_kernel64(torch, table, name, bsz, kern, plain, bnd):
+def compare_kernel64(torch, table, name, bsz, kern, plain, bnd, plain_once=False):
     """Holds ``kern`` against ``plain`` (int64 u64 words) bit for bit, then
-    times both (CUDA events) and the kernel's device time
-    (:func:`kernel_device_ms`)."""
-    got, want = kern(), plain()
-    torch.cuda.synchronize()
+    times both (CUDA events; ``plain_once`` as :func:`compare_kernel`) and
+    the kernel's device time (:func:`kernel_device_ms`)."""
+    got = kern()
+    want, once = once_ms(torch, plain)
     if not torch.equal(got, want):
         bad = int((got != want).sum())
         raise AssertionError(f"{name} batch {bsz}: kernel != plain ({bad} words differ)")
     ms = cuda_ms(torch, kern, KERNEL_REPS)
-    plain_ms = cuda_ms(torch, plain, KERNEL_REPS)
+    plain_ms = once if plain_once else cuda_ms(torch, plain, KERNEL_REPS)
     dev_ms = kernel_device_ms(torch, kern)
     log(f"{name:22s} batch {bsz:3d} shape {tuple(got.shape)}: bit-equal; "
-        f"wrapper {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-        f"{bnd[0]:.4f} ms ({bnd[1]})")
+        f"wrapper {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms"
+        f"{' (one run)' if plain_once else ''}, bound {bnd[0]:.4f} ms ({bnd[1]})")
     table.setdefault(name, {})[bsz] = (0, ms, plain_ms, dev_ms, bnd)
 
 
@@ -2389,9 +2431,11 @@ def programmable_bootstrap(torch, dev, smi, label, wide, seed, reps, reset_count
     if pred.decryption_failure_margin(MSG_BITS) <= 1:
         raise AssertionError(f"{MSG_BITS} message bits at N = 2^{wide.log_n}: the model's margin "
                              f"{pred.decryption_failure_margin(MSG_BITS):.3f} is not above 1")
-    want_counts = {name: 0 for name in counts} | {
-        "cmux_front": wide.lwe_dim, "forward32": wide.lwe_dim, "cmux_stage2": wide.lwe_dim,
-        "rotate": 1}
+    steps = wide.lwe_dim
+    want_counts = {name: 0 for name in counts} | (
+        {"cmux_front": steps, "forward32": steps, "columns_forward": steps, "mac_sub": steps,
+         "cmux_stage2_cols": steps, "rotate": 1} if wide.log_n > TOP_LOG_N else
+        {"cmux_front": steps, "forward32": steps, "cmux_stage2": steps, "rotate": 1})
     log(f"launches of one bootstrap at batch 16: {json.dumps(counts)}")
     if counts != want_counts:
         raise AssertionError(f"programmable bootstrap launches {counts}, want {want_counts}")
@@ -2542,39 +2586,6 @@ def phase21_staged(torch, dev, table, ctx, smi, reset_counts, read_counts) -> di
                        lambda: ntt32.forward32(tables, x4_32, 4, out=x4_32),
                        lambda: ntt32.forward32_plain(tables, x4, 4),
                        bound(8 * kp * rows * n + 8 * kp * n, muls32=ntt_muls(kp * rows, n)))
-    big = TorusConvolver32(TOP_LOG_N + 1).ntt
-    before = (ntt32.forward32.launches, ntt32.inverse32.launches)
-    for fn in (ntt32.forward32, ntt32.inverse32):
-        try:
-            fn(big, torch.zeros((len(big.primes), 1, 2 << TOP_LOG_N), dtype=torch.int64,
-                                device=dev))
-        except ValueError as e:
-            if f"log_n 1-{TOP_LOG_N}" not in str(e):
-                raise
-            refusal = str(e)
-        else:
-            raise AssertionError(f"{fn.__name__} took log_n {TOP_LOG_N + 1} on the card")
-    if (ntt32.forward32.launches, ntt32.inverse32.launches) != before:
-        raise AssertionError(f"log_n {TOP_LOG_N + 1} launched a kernel")
-    log(f"log_n {TOP_LOG_N + 1}: ValueError before any launch ({refusal})")
-    wide = torch.zeros((1, 1, 2 << TOP_LOG_N), dtype=torch.int64, device=dev)
-    deg0 = torch.zeros((1,), dtype=torch.int32, device=dev)
-    before = (rotate.rotate.launches, cmux_front.cmux_front.launches)
-    for what, call in (("rotate", lambda: rotate.rotate(wide, deg0)),
-                       ("cmux_front", lambda: cmux_front.cmux_front(
-                           wide, deg0, ApproxSignedBasis32(None, 8, reverse_length=3),
-                           tables.primes))):
-        try:
-            call()
-        except ValueError as e:
-            if f"rows of up to 2^{TOP_LOG_N} words" not in str(e):
-                raise
-            refusal = str(e)
-        else:
-            raise AssertionError(f"{what} took rows of 2^{TOP_LOG_N + 1} on the card")
-    if (rotate.rotate.launches, cmux_front.cmux_front.launches) != before:
-        raise AssertionError(f"F or G launched on rows of 2^{TOP_LOG_N + 1}")
-    log(f"kernels F and G on rows of 2^{TOP_LOG_N + 1}: ValueError before any launch ({refusal})")
 
     # -- 21.2: kernel H and the staged step ------------------------------------
     log("-- 21.2: kernel H (cmux_stage2) and the staged step against the plain step")
@@ -2817,7 +2828,9 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
                         if r != "mxu" and r != cmux_fused.step_route(kp, k1, level, log_n):
                             raise AssertionError(f"mxu_step_route {(kp, k1, level, log_n, dp)}")
                         routes[r] += 1
-    for bad in ((2, 2, 3, TOP_LOG_N + 1, 1), (5, 2, 3, 13, 1), (2, 2, 33, 13, 1),
+    from primus_fhe_tpu_torch.ops.ntt_columns import MAX_LOG_N as CARD_MAX_LOG_N
+
+    for bad in ((2, 2, 3, CARD_MAX_LOG_N + 1, 1), (5, 2, 3, 13, 1), (2, 2, 33, 13, 1),
                 (2, 2, 3, 11, 3)):
         try:
             cmux_mxu.mxu_step_route(*bad)
@@ -2834,7 +2847,7 @@ def phase22_mxu_ntru(torch, dev, table, smi, pbs_21, reset_counts, read_counts) 
         raise AssertionError(f"routes of the named shapes: {named}")
     log(f"routes over {(TOP_LOG_N - 7) * 3 * 4 * 2 * len(levels)} shapes (log_n 8-{TOP_LOG_N}, "
         f"kp 1, 2, 4, k1 1-4, L 1-8, 12, 20, 32, 1-2 digit planes): {routes}; {named}; log_n "
-        f"{TOP_LOG_N + 1}, kp 5, L 33, 3 planes refused")
+        f"{CARD_MAX_LOG_N + 1}, kp 5, L 33, 3 planes refused")
     for log_n in (15, 16):
         conv = TorusConvolver32(log_n, 56)
         t0 = time.perf_counter()
@@ -3161,7 +3174,9 @@ ROW9_DCRT_STEPS = 4
 RT_WIDE_LOG_N = (16, 17)  # 23.9: kernel E on bench.py's 512 rows at these rings
 
 
-def phase23_row9_wide(torch, dev, table) -> dict:
+def phase23_row9_wide(torch, dev, table, wide=ROW9_WIDE_LOG_N, cluster=CLUSTER_LOG_N,
+                      dcrt=ROW9_DCRT_LOG_N, rt_log_n=RT_WIDE_LOG_N, moduli_counts=MODULI_COUNTS,
+                      step="23") -> dict:
     """23.7: row 9's four u64 functions (``mxu8_forward64``,
     ``mxu8_inverse64``, D and E) at log_n 13-17 over two 50-bit moduli, any
     u64 words in, against their plain versions (one launch a call, on row
@@ -3172,8 +3187,15 @@ def phase23_row9_wide(torch, dev, table) -> dict:
     ``ROW9_DCRT_STEPS`` DCRT rotation steps at N = 8192 and 65536, batch 2,
     on route ``"mxu8"`` against route ``"butterfly"`` and the CPU; 23.9
     kernel E on ``bench.py``'s 512 rows at n = 2^16 and 2^17 (tags "@rt16",
-    "@rt17").  Returns the rotations' launches on route "mxu8", by N."""
-    from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8, ntt_mxu8_dyn
+    "@rt17").  Returns the rotations' launches on route "mxu8", by N.
+    Phase 24 runs it past 2^17 (``wide``, ``cluster``, ``dcrt``, ``rt_log_n`` its
+    rings, no ``moduli_counts``): there every call also launches the
+    four-step's column kernel (forward64 and E before the sub-row launch,
+    inverse64, D and E after it), counted and asserted too, and the u64
+    column kernels are held to their plain versions (tags "@fs18u64" ..);
+    past 2^18, and for E at 512 rows past 2^17, the plain versions are
+    timed on their checking run alone."""
+    from primus_fhe_tpu_torch.ops import build, ntt64, ntt_columns, ntt_mxu8, ntt_mxu8_dyn
     from primus_fhe_tpu_torch.transforms import dcrt as td
     from primus_fhe_tpu_torch.utils.primes import next_ntt_prime, ntt_prime_chain
 
@@ -3195,15 +3217,20 @@ def phase23_row9_wide(torch, dev, table) -> dict:
                                 lambda: ntt64.ntt64_inverse_plain(tabs.ntt, xr), False)
         return out
 
-    for log_n in ROW9_WIDE_LOG_N:
+    cols = (ntt_columns.columns_forward, ntt_columns.columns_inverse)
+    want_cols = {"mxu8_forward64": (1, 0), "mxu8_inverse64": (0, 1), "mxu8_inverse64_mul": (0, 1),
+                 "mxu8_roundtrip64_mul": (1, 1), "ntt64_forward": (1, 0), "ntt64_inverse": (0, 1)}
+    for log_n in wide:
         n = 1 << log_n
+        four = ntt_columns.four_step(log_n)
         moduli = ntt_prime_chain(50, log_n, 2)
-        tabs = td.build_dcrt_plan64(log_n, moduli).mxu
-        log(f"-- 23.7: row 9 at log_n {log_n} (A = {tabs.A}, B = {tabs.B} as the JAX plan; a row "
+        plan = td.build_dcrt_plan64(log_n, moduli)
+        tabs, once = plan.mxu, log_n > FS_PBS_LOG_N
+        log(f"-- {step}.7: row 9 at log_n {log_n} (A = {tabs.A}, B = {tabs.B} as the JAX plan; a row "
             f"over {1 << max(0, log_n - 14)} block(s)), moduli {moduli}")
         key = torch.stack([torch.randint(0, q, (n,), generator=g, device=dev) for q in moduli])
         mt = tabs.mul_table(key)
-        timed = names + (("ntt64_forward", "ntt64_inverse") if log_n in CLUSTER_LOG_N else ())
+        timed = names + (("ntt64_forward", "ntt64_inverse") if log_n in cluster else ())
         for name in timed:
             rows = ROW9_ROWS[0] if name in ("mxu8_forward64", "mxu8_roundtrip64_mul",
                                             "ntt64_forward") else ROW9_ROWS[1]
@@ -3213,29 +3240,68 @@ def phase23_row9_wide(torch, dev, table) -> dict:
             rt = name == "mxu8_roundtrip64_mul"
             nbytes = 16 * len(moduli) * rows * n + (16 * len(moduli) * n if keyed else 0)
             b = bound(nbytes, muls32=ntt_muls(len(moduli) * rows, n, u64=True) * (2 if rt else 1))
-            compare_kernel64(torch, table, f"{name}@log{log_n}", rows, kern, plain, b)
+            compare_kernel64(torch, table, f"{name}@log{log_n}", rows, kern, plain, b, once)
             before = fns[name].launches
+            cols0 = tuple(fn.launches for fn in cols)
             kern()
-            if fns[name].launches - before != 1:
+            cols1 = tuple(b - a for a, b in zip(cols0, (fn.launches for fn in cols)))
+            if fns[name].launches - before != 1 or cols1 != (want_cols[name] if four else (0, 0)):
                 raise AssertionError(f"{name} at log_n {log_n}: {fns[name].launches - before} "
-                                     "launches")
+                                     f"launches, column launches {cols1}")
         if log_n > ntt_mxu8.MXU_LOG_N[1] and tabs._plans is not None:
             raise AssertionError(f"row 9 at log_n {log_n} built byte-plane plans it never reads")
         log(f"log_n {log_n}: {len(timed)} wrappers bit-equal to their plain versions, one launch "
             f"each; kernel E's tile at {ROW9_ROWS[0]} rows: "
             f"{ntt_mxu8.roundtrip_tile(tabs, ROW9_ROWS[0])}")
-        if log_n not in CLUSTER_LOG_N:
+        if four:  # the u64 column kernels alone, on the forward's and the inverse's rows
+            cq = torch.tensor(moduli, dtype=torch.int64, device=dev).reshape(-1, 1, 1)
+            bt, pack = tabs.ntt.kernel_tables(dev), build.ptr(tabs.ntt.mod_pack)
+            plans = tabs.ntt.plans_on(dev)
+            for inverse, rows in ((False, ROW9_ROWS[0]), (True, ROW9_ROWS[1])):
+                x = torch.randint(-(1 << 63), (1 << 63) - 1, (len(moduli), rows, n), generator=g,
+                                  device=dev)
+                if inverse:
+                    x = x.abs() % (2 * cq)  # the sub-row launch's lazy words
+
+                def col(x=x, inverse=inverse, rows=rows):
+                    out = torch.empty_like(x)
+                    if inverse:
+                        ntt_columns.columns_inverse(64, x, out, bt[2], bt[3], pack, len(moduli),
+                                                    rows, log_n)
+                    else:
+                        ntt_columns.columns_forward(64, x, out, bt[0], bt[1], pack, len(moduli),
+                                                    rows, log_n, any_in=True)
+                    return out
+
+                def plain(x=x, inverse=inverse):
+                    if inverse:
+                        return ntt_columns.columns_inverse_plain(plans, x, 14, 64)
+                    return ntt_columns.columns_forward_plain(plans, x, 14, 64, any_in=True)
+
+                name = "ntt_columns_inverse" if inverse else "ntt_columns_forward"
+                compare_kernel64(torch, table, f"{name}@fs{log_n}u64", rows, col, plain,
+                                 bound(16 * len(moduli) * rows * n,
+                                       muls32=10 * len(moduli) * rows * (n // 2) * (log_n - 14)),
+                                 once)
+        if log_n not in cluster:
             continue
         # row 12: the same kernels on a residue shard's tables (one modulus), at
         # phase 14's shard shapes (8 ciphertexts, k1 2, L 4: 64 rows forward, 16 back)
-        sp = ntt_mxu8_dyn.stack_dyn_plans(td.build_dcrt_plan64(log_n, moduli), 2)[0]
+        sp = ntt_mxu8_dyn.stack_dyn_plans(plan, 2)[0]
         for name, rows in (("mxu8_forward64", 64), ("mxu8_inverse64", 16)):
             x = torch.randint(0, sp.moduli[0], (1, rows, n), generator=g, device=dev)
             compare_kernel64(torch, table, f"{name}@shard{log_n}", rows,
                              lambda f=fns[name], v=x: f(sp.mxu, v),
                              lambda name=name, v=x: getattr(ntt_mxu8, name + "_plain")(sp.mxu, v),
-                             bound(16 * rows * n, muls32=ntt_muls(rows, n, u64=True)))
-        for count in MODULI_COUNTS:
+                             bound(16 * rows * n, muls32=ntt_muls(rows, n, u64=True)), once)
+            before = fns[name].launches
+            cols0 = tuple(fn.launches for fn in cols)
+            fns[name](sp.mxu, x)
+            cols1 = tuple(b - a for a, b in zip(cols0, (fn.launches for fn in cols)))
+            if fns[name].launches - before != 1 or cols1 != (want_cols[name] if four else (0, 0)):
+                raise AssertionError(f"row 12 {name} at log_n {log_n}: launches "
+                                     f"{fns[name].launches - before}, columns {cols1}")
+        for count in moduli_counts:
             moduli = ntt_prime_chain(50, log_n, count)
             moduli[-1] = next_ntt_prime(62, log_n) if count == 6 else moduli[-1]
             tabs = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
@@ -3254,14 +3320,14 @@ def phase23_row9_wide(torch, dev, table) -> dict:
                 f"each")
 
     counts = {}
-    for log_n in ROW9_DCRT_LOG_N:
-        counts[1 << log_n] = dcrt_row9_steps(torch, dev, g, log_n)
+    for log_n in dcrt:
+        counts[1 << log_n] = dcrt_row9_steps(torch, dev, g, log_n, step)
 
-    for log_n in RT_WIDE_LOG_N:
+    for log_n in rt_log_n:
         n = 1 << log_n
         q = next_ntt_prime(50, log_n)
         tabs = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, [q]))
-        log(f"-- 23.9: kernel E on bench.py's {RT_BATCH} rows at n = 2^{log_n}, q = {q} (50 bits; "
+        log(f"-- {step}.9: kernel E on bench.py's {RT_BATCH} rows at n = 2^{log_n}, q = {q} (50 bits; "
             f"bench.py's own q is 1 mod 2^14 only)")
         x = torch.randint(0, q, (1, RT_BATCH, n), generator=g, device=dev)
         mt = tabs.mul_table(torch.randint(0, q, (1, n), generator=g, device=dev))
@@ -3270,7 +3336,8 @@ def phase23_row9_wide(torch, dev, table) -> dict:
                          lambda: ntt_mxu8.mxu8_roundtrip64_mul(tabs, x, mt),
                          lambda: ntt_mxu8.mxu8_roundtrip64_mul_plain(tabs, x, mt),
                          bound(8 * (2 * words + 2 * n),
-                               muls32=2 * ntt_muls(RT_BATCH, n, u64=True) + 10 * words))
+                               muls32=2 * ntt_muls(RT_BATCH, n, u64=True) + 10 * words),
+                         log_n > TOP_LOG_N)
         e_row = table[f"mxu8_roundtrip64_mul@rt{log_n}"][RT_BATCH]
         modmuls = RT_BATCH * (n * log_n + n)
         log(f"kernel E at n = 2^{log_n} x {RT_BATCH}: device {e_row[3]:.4f} ms, share of the "
@@ -3280,12 +3347,34 @@ def phase23_row9_wide(torch, dev, table) -> dict:
     return counts
 
 
-def dcrt_row9_steps(torch, dev, g, log_n) -> dict:
+DCRT_CPU_MAX_LOG_N = 17  # 23.8 / 24.7: past it the plain rotation on the card stands in for the CPU's
+
+
+@contextlib.contextmanager
+def plain_dcrt_transforms():
+    """The DCRT layer's butterfly transforms on their plain versions, on any
+    device, while the block runs (route ``"butterfly"`` then launches no
+    kernel)."""
+    from primus_fhe_tpu_torch.ops import ntt64
+    from primus_fhe_tpu_torch.transforms import dcrt as td
+
+    saved = td.ntt64_forward, td.ntt64_inverse
+    td.ntt64_forward, td.ntt64_inverse = ntt64.ntt64_forward_plain, ntt64.ntt64_inverse_plain
+    try:
+        yield
+    finally:
+        td.ntt64_forward, td.ntt64_inverse = saved
+
+
+def dcrt_row9_steps(torch, dev, g, log_n, step="23") -> dict:
     """23.8: ``ROW9_DCRT_STEPS`` DCRT rotation steps at N = 2^log_n, batch
     2, two 50-bit moduli, on route ``"mxu8"`` (row 9 on row 10's passes)
     against route ``"butterfly"`` and the CPU's plain rotation.  Returns
-    route "mxu8"'s launches."""
+    route "mxu8"'s launches (past 2^17 the column kernels' too; there the
+    plain rotation runs on the card, not the CPU, where it would take
+    minutes)."""
     from primus_fhe_tpu_torch.boot import dcrt_blind_rotate as dbr
+    from primus_fhe_tpu_torch.ops import ntt_columns
     from primus_fhe_tpu_torch.decompose import BigUintApproxSignedBasis
     from primus_fhe_tpu_torch.ops import ntt64, ntt_mxu8
     from primus_fhe_tpu_torch.rns import RNSBase64
@@ -3299,7 +3388,7 @@ def dcrt_row9_steps(torch, dev, g, log_n) -> dict:
     basis = BigUintApproxSignedBasis(base, DCRT_LOG_BASIS)
     level = basis.decompose_length
     plan = td.build_dcrt_plan64(log_n, moduli)
-    log(f"-- 23.8: {steps} DCRT rotation steps at N = {n}, moduli {moduli}, L = {level} x "
+    log(f"-- {step}.8: {steps} DCRT rotation steps at N = {n}, moduli {moduli}, L = {level} x "
         f"2^{DCRT_LOG_BASIS}, batch {bsz}: route 'mxu8' against 'butterfly' (route 'auto' = "
         f"{td.resolve_route(plan)!r})")
 
@@ -3311,27 +3400,394 @@ def dcrt_row9_steps(torch, dev, g, log_n) -> dict:
     lwe = torch.randint(0, 2 * n, (bsz, steps + 1), generator=g, device=dev)
     counted = {"mxu8_forward64": ntt_mxu8.mxu8_forward64,
                "mxu8_inverse64": ntt_mxu8.mxu8_inverse64,
-               "ntt64_forward": ntt64.ntt64_forward, "ntt64_inverse": ntt64.ntt64_inverse}
+               "ntt64_forward": ntt64.ntt64_forward, "ntt64_inverse": ntt64.ntt64_inverse,
+               "columns_forward": ntt_columns.columns_forward,
+               "columns_inverse": ntt_columns.columns_inverse}
     outs, counts = {}, {}
     for route in ("mxu8", "butterfly"):
         before = {k: f.launches for k, f in counted.items()}
         outs[route] = dbr.dcrt_blind_rotate_batched(plan, basis, base, bsk, lwe, accs, route=route)
         torch.cuda.synchronize()
         counts[route] = {k: f.launches - before[k] for k, f in counted.items()}
+    four = steps * ntt_columns.four_step(log_n)
     want = {"mxu8_forward64": steps, "mxu8_inverse64": steps, "ntt64_forward": 0,
-            "ntt64_inverse": 0}
+            "ntt64_inverse": 0, "columns_forward": four, "columns_inverse": four}
     if counts["mxu8"] != want:
         raise AssertionError(f"route mxu8 at N = {n}: launches {counts['mxu8']}, want {want}")
     t0 = time.perf_counter()
-    cpu = dbr.dcrt_blind_rotate_batched(plan, basis, base, bsk.cpu(), lwe.cpu(), accs.cpu())
+    if log_n <= DCRT_CPU_MAX_LOG_N:
+        where = "on the cpu"
+        cpu = dbr.dcrt_blind_rotate_batched(plan, basis, base, bsk.cpu(), lwe.cpu(), accs.cpu())
+    else:
+        where = "the plain versions on the card, standing in for the CPU (minutes there)"
+        before = {k: f.launches for k, f in counted.items()}
+        with plain_dcrt_transforms():
+            cpu = dbr.dcrt_blind_rotate_batched(plan, basis, base, bsk, lwe, accs,
+                                                route="butterfly").cpu()
+        if {k: f.launches for k, f in counted.items()} != before:
+            raise AssertionError(f"the plain rotation at N = {n} launched a kernel")
     cpu_s = time.perf_counter() - t0
     if not (torch.equal(outs["mxu8"], outs["butterfly"]) and torch.equal(outs["mxu8"].cpu(), cpu)):
         raise AssertionError(f"the DCRT rotation at N = {n}: routes mxu8 and butterfly (or the "
-                             "CPU) differ")
+                             "plain rotation) differ")
     log(f"route 'mxu8': launches {json.dumps(counts['mxu8'])}; route 'butterfly': "
-        f"{json.dumps(counts['butterfly'])}; both and the CPU's plain rotation give the same "
-        f"{cpu.numel()} words ({cpu_s:.2f} s on the cpu)")
+        f"{json.dumps(counts['butterfly'])}; both and the plain rotation give the same "
+        f"{cpu.numel()} words ({cpu_s:.2f} s, {where})")
     return counts["mxu8"]
+
+
+FS_LOG_N = (18, 19, 20)  # phase 24: rings past what a cluster holds, the four-step
+FS_PBS_LOG_N = 18  # 24.6: the programmable bootstrap's ring (kp 3)
+FS_REPS = 5  # phase 24's timing repetitions (KERNEL_REPS elsewhere): its shapes are large
+
+
+def four_step_ntt32(torch, dev, table, g, residues) -> None:
+    """24.1: kernels 1-2 at log_n 18-20 (the column launch, then the
+    sub-row launch; the inverse mirrored), kp 2 and 3 at 1 and 16 rows,
+    every out_factor and the in-place out_factor 4 against the plain
+    versions, launches asserted; kp 3 at 16 rows timed, and the column
+    kernels alone against their plain versions (tags "@fs18" ..; past 2^18
+    the plain versions timed on their checking run alone); kernel 1 at the
+    2^18 PBS's rows, in place (tag "@pbs18")."""
+    from primus_fhe_tpu_torch.lattice import tfhe
+    from primus_fhe_tpu_torch.numeric.limb import widen_u32
+    from primus_fhe_tpu_torch.ops import build, ntt32
+    from primus_fhe_tpu_torch.ops import ntt_columns as nc
+    from primus_fhe_tpu_torch.transforms.torus import TorusConvolver32
+
+    counted = (ntt32.forward32, ntt32.inverse32, nc.columns_forward, nc.columns_inverse)
+    for log_n in FS_LOG_N:
+        n, c, once = 1 << log_n, log_n - nc.SUB_LOG, log_n > FS_PBS_LOG_N
+        for kp in (2, 3):
+            tables = TorusConvolver32(log_n, 56 if kp == 2 else 60).ntt
+            if len(tables.primes) != kp:
+                raise AssertionError(f"log_n {log_n}: {len(tables.primes)} primes, want {kp}")
+            for rows in (1, WIDE_BATCH):
+                x4, x2 = residues(tables.primes, (rows, n), 4), residues(tables.primes, (rows, n), 2)
+                l0 = [fn.launches for fn in counted]
+                for of in (1, 4):
+                    if not torch.equal(ntt32.forward32(tables, x4, of),
+                                       ntt32.forward32_plain(tables, x4, of)):
+                        raise AssertionError(f"forward32 log_n {log_n} kp {kp} x {rows}: != plain")
+                y = x4.to(torch.int32)
+                ntt32.forward32(tables, y, 4, out=y)
+                if not torch.equal(widen_u32(y), ntt32.forward32_plain(tables, x4, 4)):
+                    raise AssertionError(f"forward32 in place log_n {log_n} kp {kp} x {rows}")
+                for of in (1, 2):
+                    if not torch.equal(ntt32.inverse32(tables, x2, of),
+                                       ntt32.inverse32_plain(tables, x2, of)):
+                        raise AssertionError(f"inverse32 log_n {log_n} kp {kp} x {rows}: != plain")
+                launched = [fn.launches - b for fn, b in zip(counted, l0)]
+                if launched != [3, 2, 3, 2]:
+                    raise AssertionError(f"kernels 1-2 at log_n {log_n}: launches {launched} "
+                                         "(forward32, inverse32, columns forward, inverse)")
+                if rows != WIDE_BATCH or kp != 3:  # kp 2 and one row: checked, not timed
+                    continue
+                b = bound(8 * kp * rows * n + 8 * kp * n, muls32=ntt_muls(kp * rows, n))
+                x4_32, x2_32 = x4.to(torch.int32), x2.to(torch.int32)
+                compare_kernel(torch, table, f"ntt32_forward@fs{log_n}kp{kp}", rows,
+                               lambda: ntt32.forward32(tables, x4, 4),
+                               lambda: ntt32.forward32(tables, x4_32, 4),
+                               lambda: ntt32.forward32_plain(tables, x4, 4), b, plain_once=once)
+                compare_kernel(torch, table, f"ntt32_inverse@fs{log_n}kp{kp}", rows,
+                               lambda: ntt32.inverse32(tables, x2),
+                               lambda: ntt32.inverse32(tables, x2_32),
+                               lambda: ntt32.inverse32_plain(tables, x2), b, plain_once=once)
+                tabs, pack = tables.kernel_tables(dev), build.ptr(tables.prime_pack)
+                plans = tables.plans_on(dev)
+
+                def col(x32, inverse):
+                    out = torch.empty_like(x32)
+                    fn = nc.columns_inverse if inverse else nc.columns_forward
+                    fn(32, x32, out, tabs[2 * inverse], tabs[2 * inverse + 1], pack, kp, rows,
+                       log_n)
+                    return out
+                cb = bound(8 * kp * rows * n, muls32=3 * kp * rows * (n // 2) * c)
+                name = "ntt_columns_forward" + ("" if log_n == FS_PBS_LOG_N else f"@fs{log_n}")
+                compare_kernel(torch, table, name, rows,
+                               lambda: widen_u32(col(x4_32, False)), lambda: col(x4_32, False),
+                               lambda: nc.columns_forward_plain(plans, x4, nc.SUB_LOG, 32), cb,
+                               plain_once=once)
+                name = name.replace("forward", "inverse")
+                compare_kernel(torch, table, name, rows,
+                               lambda: widen_u32(col(x2_32, True)), lambda: col(x2_32, True),
+                               lambda: nc.columns_inverse_plain(plans, x2, nc.SUB_LOG, 32), cb,
+                               plain_once=once)
+            del x4, x2
+        log(f"kernels 1-2 at log_n {log_n} (2^{c} sub-rows of 2^14 words), kp 2 and 3, 1 and "
+            f"16 rows a prime: every out_factor and the in-place out_factor 4 bit-equal to the "
+            f"plain versions, two launches a call (the column launch counted on its own)")
+        torch.cuda.empty_cache()
+    tables = tfhe.make_convolver(FS_PBS_LOG_N, 3, 1, 7).ntt  # the 2^18 PBS's kernel 1
+    kp, n = len(tables.primes), 1 << FS_PBS_LOG_N
+    for bsz in (1, WIDE_BATCH):
+        rows = bsz * 2 * 3
+        x4 = residues(tables.primes, (rows, n), 4)
+        x4_32 = x4.to(torch.int32)
+        compare_kernel(torch, table, f"ntt32_forward@pbs{FS_PBS_LOG_N}", bsz,
+                       lambda: ntt32.forward32(tables, x4, 4),
+                       lambda: ntt32.forward32(tables, x4_32, 4, out=x4_32),
+                       lambda: ntt32.forward32_plain(tables, x4, 4),
+                       bound(8 * kp * rows * n + 8 * kp * n, muls32=ntt_muls(kp * rows, n)))
+
+
+def staged_four_step(torch, dev, table, smi, g, residues, log_n) -> None:
+    """24.3: BOOLEAN_128's gadget (kp 3, L 3, k1 2) at N = 2^log_n on the
+    staged step past 2^17: kernels G and 1 (the column launch and the
+    sub-row launch) and the split H (mac_sub, then H's column launch with
+    the CRT); 4 staged steps at batch 1 and 16 against the plain step with
+    exact launches; split H against ``cmux_stage2_plain``, its two launches
+    against their plain versions, G and F (tags "@fs18" ..; at 2^18 the
+    new launches' untagged rows; past 2^18 the plain versions timed on
+    their checking run alone)."""
+    from primus_fhe_tpu_torch.decompose import ApproxSignedBasis32
+    from primus_fhe_tpu_torch.lattice import tfhe
+    from primus_fhe_tpu_torch.ops import cmux_front, cmux_fused, ntt32, rotate
+    from primus_fhe_tpu_torch.ops import ntt_columns as nc
+
+    conv = tfhe.make_convolver(log_n, 3, 1, 7)
+    basis = ApproxSignedBasis32(None, 7, reverse_length=3)
+    n, kp, k1, level = 1 << log_n, conv.count, 2, 3
+    tag = f"@fs{log_n}"
+    base = log_n == FS_PBS_LOG_N  # the new launches' rows at the PBS's ring
+    once = log_n > FS_PBS_LOG_N  # the plain versions timed on their checking run
+    plan = cmux_fused.CmuxStepPlan(conv, basis, k1, dev)
+    if plan.route != "staged" or not plan._stage2.split:
+        raise AssertionError(f"N = 2^{log_n}: route {plan.route}, split H expected")
+    key = residues(conv.primes, (k1, level, k1, n), 1)
+    key32 = key.to(torch.int32)
+    counted = (cmux_front.cmux_front, ntt32.forward32, nc.columns_forward, nc.mac_sub,
+               cmux_fused.cmux_stage2_cols, cmux_fused.cmux_stage2, cmux_fused.fused_cmux_step)
+    for bsz in (1, WIDE_BATCH):
+        acc = torch.randint(0, 1 << 32, (bsz, k1, n), generator=g, device=dev)
+        acc32 = acc.to(torch.int32)
+        l0 = [fn.launches for fn in counted]
+        for i in range(4):
+            deg = torch.randint(0, 2 * n, (bsz,), generator=g, device=dev, dtype=torch.int32)
+            acc = cmux_fused.cmux_stage2_plain(
+                conv, cmux_fused.cmux_stage1_plain(conv, basis, acc, deg), key, acc)
+            plan(acc32, deg, key32, out=acc32)
+            if not torch.equal(acc32.to(torch.int64) & 0xFFFFFFFF, acc):
+                raise AssertionError(f"staged step {i} at N = 2^{log_n}, batch {bsz} != plain")
+        launched = [fn.launches - b for fn, b in zip(counted, l0)]
+        if launched != [4, 4, 4, 4, 4, 0, 0]:
+            raise AssertionError(f"staged steps at N = 2^{log_n}: launches {launched}")
+        f = residues(conv.primes, (bsz * k1, level, n), 4)
+        f32 = f.to(torch.int32)
+        hb = stage2_bound(kp, bsz, k1, level, n)
+        compare_kernel(torch, table, "cmux_stage2" + tag, bsz,
+                       lambda: cmux_fused.cmux_stage2(conv, f, key, acc),
+                       lambda: cmux_fused.cmux_stage2(conv, f32, key32, acc32),
+                       lambda: cmux_fused.cmux_stage2_plain(conv, f, key, acc), hb, plain_once=once)
+        # split H's two launches alone
+        sub_pack, part = plan._stage2._sub(bsz)
+        plans = conv.ntt.plans_on(dev)
+        f_rows = f.reshape(kp, bsz, k1 * level, n).unsqueeze(2).expand(kp, bsz, k1, k1 * level, n)
+        key_rows = key.permute(0, 3, 1, 2, 4).reshape(kp, 1, k1, k1 * level, n).expand(
+            kp, bsz, k1, k1 * level, n)
+
+        def run_sub():
+            out = torch.empty_like(part)
+            nc.mac_sub(f32, key32, out, sub_pack)
+            return out
+        compare_kernel(torch, table, "mac_sub" + ("" if base else tag), bsz,
+                       lambda: run_sub().to(torch.int64) & 0xFFFFFFFF, run_sub,
+                       lambda: nc.mac_sub_plain(plans, f_rows, key_rows).reshape(part.shape),
+                       bound(4 * (kp * bsz * k1 * level * n + kp * k1 * level * k1 * n
+                                  + kp * bsz * k1 * n),
+                             muls32=kp * bsz * k1 * k1 * level * n
+                             + 3 * kp * bsz * k1 * (n // 2) * nc.MAC_SUB_LOG), plain_once=once)
+        lazy = run_sub()
+        lazy64 = lazy.to(torch.int64) & 0xFFFFFFFF
+
+        def run_cols():
+            out = torch.empty_like(acc32)
+            cmux_fused.cmux_stage2_cols(plan._stage2, lazy, acc32, out, bsz)
+            return out
+        compare_kernel(torch, table, "cmux_stage2_cols" + ("" if base else tag), bsz,
+                       lambda: run_cols().to(torch.int64) & 0xFFFFFFFF, run_cols,
+                       lambda: cmux_fused.cmux_stage2_cols_plain(conv, lazy64, acc),
+                       bound(4 * (kp * bsz * k1 * n + 2 * bsz * k1 * n),
+                             muls32=3 * kp * bsz * k1 * (n // 2) * (log_n - nc.MAC_SUB_LOG)),
+                       plain_once=once)
+        deg = torch.randint(0, 2 * n, (bsz,), generator=g, device=dev, dtype=torch.int32)
+        gb = bound(4 * (bsz * k1 * n + kp * bsz * k1 * level * n))  # G: acc in, digits out
+        compare_kernel(torch, table, "cmux_front" + tag, bsz,
+                       lambda: cmux_front.cmux_front(acc, deg, basis, conv.primes),
+                       lambda: cmux_front.cmux_front(acc32, deg, basis, conv.primes),
+                       lambda: cmux_front.cmux_front_plain(acc, deg, basis, conv.primes), gb,
+                       plain_once=once)
+        test_row = acc[0, 0]
+        compare_kernel(torch, table, "rotate" + tag, bsz,
+                       lambda: rotate.rotate(test_row.expand(bsz, n), deg),
+                       lambda: rotate.rotate(test_row.to(torch.int32).expand(bsz, n), deg),
+                       lambda: rotate.rotate_plain(test_row.expand(bsz, n), deg),
+                       bound(4 * (n + bsz * n)), plain_once=once)
+        f0 = (rotate.rotate.launches, cmux_front.cmux_front.launches)
+        rotate.rotate(test_row.expand(bsz, n), deg)
+        cmux_front.cmux_front(acc32, deg, basis, conv.primes)
+        if (rotate.rotate.launches - f0[0], cmux_front.cmux_front.launches - f0[1]) != (1, 1):
+            raise AssertionError(f"F and G at N = 2^{log_n}: not one launch a call")
+        step_ms = kernel_device_ms(torch, lambda: plan(acc32, deg, key32, out=acc32))
+        one = table.get(f"ntt32_forward@pbs{log_n}", {}).get(bsz)
+        log(f"[{smi}] staged step at N = 2^{log_n}, batch {bsz}: 4 steps bit-equal to the plain "
+            f"step, launches G / kernel 1 / its columns / mac_sub / H's columns / H / fused "
+            f"{launched}; one step {step_ms:.4f} device ms (CUDA events behind a sleep): G "
+            f"{table['cmux_front' + tag][bsz][3]:.4f}, kernel 1 with its columns "
+            f"{'not timed here' if one is None else f'{one[3]:.4f}'}, split H "
+            f"{table['cmux_stage2' + tag][bsz][3]:.4f} ms (bound {hb[0]:.4f} ms, {hb[1]})")
+        del f, f32, f_rows, key_rows, lazy, lazy64
+    torch.cuda.empty_cache()
+
+
+def _has_ntt_prime(bits: int, log_n: int) -> bool:
+    from primus_fhe_tpu_torch.utils.primes import next_ntt_prime
+
+    try:
+        next_ntt_prime(bits, log_n)
+    except ValueError:
+        return False
+    return True
+
+
+def ntru_four_step(torch, dev, table, smi, g, log_n) -> dict:
+    """24.4: NTRU_128's gadget at N = 2^log_n on the staged route past 2^17:
+    kernel 1 (two launches) and the split J (mac_sub, the inverse's column
+    launch, ntru_finish) at batch 1 and 16 on random evk rows, 8 staged
+    steps against the plain step with exact launches, split J against
+    ``ntru_stage2_plain`` (digits too) and ntru_finish against its plain
+    version (tags "@ntru18" ..; at 2^18 ntru_finish's untagged row).
+    Returns the launches of the steps at batch 1, by wrapper."""
+    import dataclasses
+
+    from primus_fhe_tpu_torch import params as P
+    from primus_fhe_tpu_torch.ops import ntru_cmux_mxu, ntt32
+    from primus_fhe_tpu_torch.ops import ntt_columns as nc
+
+    # NTRU_128's 20-bit q has no 2^(log_n + 1)-th root past 2^17: the least
+    # q_bits that has one (23 at 2^18-2^19, 25 at 2^20), the gadget kept
+    q_bits = next(b for b in range(P.NTRU_128.q_bits, 31) if _has_ntt_prime(b, log_n))
+    pw = dataclasses.replace(P.NTRU_128, log_n=log_n, q_bits=q_bits)
+    kctx, _ = P.make_ntru_context(pw)
+    qn, nn, level = kctx.q_int, kctx.n, kctx.basis.decompose_length
+    log(f"q = {qn} ({q_bits} bits), gadget 2^{kctx.basis.log_basis} x {level}")
+    tag, once = f"@ntru{log_n}", log_n > FS_PBS_LOG_N
+    step = ntru_cmux_mxu.NtruStepPlan(kctx, dev)
+    if step.route != "staged" or not step._stage2.split:
+        raise AssertionError(f"NTRU at N = 2^{log_n}: route {step.route}, split J expected")
+    evk = torch.randint(0, qn, (NTRU_CHECK_STEPS, level, nn), generator=g, device=dev)
+    evk32 = evk.to(torch.int32)
+    counted = (ntru_cmux_mxu.ntru_digits, ntt32.forward32, nc.columns_forward, nc.mac_sub,
+               nc.columns_inverse, ntru_cmux_mxu.ntru_finish, ntru_cmux_mxu.ntru_stage2)
+    counts = {}
+    for bsz in (1, NTRU_WIDE_BATCH):
+        acc = torch.randint(0, qn, (bsz, nn), generator=g, device=dev)
+        acc32 = acc.to(torch.int32)
+        sw = torch.randint(0, 2 * nn, (NTRU_CHECK_STEPS, bsz), generator=g, device=dev,
+                           dtype=torch.int32)
+        plain_acc, run = acc.clone(), acc32.clone()
+        l0 = [fn.launches for fn in counted]
+        for i in range(NTRU_CHECK_STEPS):
+            f = ntru_cmux_mxu.ntru_stage1_plain(kctx.ntt, kctx.basis, plain_acc)
+            plain_acc = ntru_cmux_mxu.ntru_stage2_plain(kctx.ntt, f, evk[i], plain_acc, sw[i])
+            run = step(run, sw[i], evk32[i], None)
+            if not torch.equal(run.to(torch.int64), plain_acc):
+                raise AssertionError(f"NTRU staged step {i} at N = 2^{log_n}, batch {bsz} != plain")
+        s_ = NTRU_CHECK_STEPS
+        launched = [fn.launches - b for fn, b in zip(counted, l0)]
+        if launched != [1, s_, s_, s_, s_, s_, 0]:  # J past 2^17: its three launches, not one
+            raise AssertionError(f"NTRU staged steps at N = 2^{log_n}: launches {launched}")
+        f = ntru_cmux_mxu.ntru_stage1(kctx.ntt, kctx.basis, acc)
+        f32 = f.to(torch.int32)
+        deg = sw[0]
+        want_j, want_dig = ntru_cmux_mxu.ntru_stage2_plain(kctx.ntt, f, evk[0], acc, deg,
+                                                           kctx.basis)
+        f_dig, acc_in = f32.clone(), acc32.clone()
+        out_j = ntru_cmux_mxu.ntru_stage2(kctx.ntt, f_dig, evk32[0], acc_in, deg, out=acc_in,
+                                          basis=kctx.basis)
+        if not (torch.equal(out_j.to(torch.int64), want_j)
+                and torch.equal(f_dig.to(torch.int64), want_dig)):
+            raise AssertionError(f"split J with digits at N = 2^{log_n}, batch {bsz}: != plain")
+        f_run = f32.clone()
+        compare_kernel(torch, table, "ntru_stage2" + tag, bsz,
+                       lambda: ntru_cmux_mxu.ntru_stage2(kctx.ntt, f32.clone(), evk32[0], acc32,
+                                                         deg, basis=kctx.basis).to(torch.int64),
+                       lambda: ntru_cmux_mxu.ntru_stage2(kctx.ntt, f_run, evk32[0], acc32, deg,
+                                                         basis=kctx.basis),
+                       lambda: ntru_cmux_mxu.ntru_stage2_plain(kctx.ntt, f, evk[0], acc, deg),
+                       ntru_stage2_bound(bsz, level, nn), plain_once=once)
+        delta = torch.randint(0, qn, (bsz, nn), generator=g, device=dev)
+        delta32 = delta.to(torch.int32)
+        digits = torch.empty((level, bsz, nn), dtype=torch.int32, device=dev)
+
+        def fin():
+            out = torch.empty_like(acc32)
+            ntru_cmux_mxu.ntru_finish(step._stage2, delta32, acc32, deg, out, digits)
+            return out
+        want_fin, want_fd = ntru_cmux_mxu.ntru_finish_plain(qn, delta, acc, deg, kctx.basis)
+        if not (torch.equal(fin().to(torch.int64), want_fin)
+                and torch.equal(digits.to(torch.int64), want_fd)):
+            raise AssertionError(f"ntru_finish at N = 2^{log_n}, batch {bsz}: != plain")
+        compare_kernel(torch, table, "ntru_finish" + ("" if log_n == FS_PBS_LOG_N else tag), bsz,
+                       lambda: fin().to(torch.int64), fin,
+                       lambda: ntru_cmux_mxu.ntru_finish_plain(qn, delta, acc, deg),
+                       bound(4 * (3 * bsz * nn + level * bsz * nn + bsz)), plain_once=once)
+        step_ms = kernel_device_ms(torch, lambda: step(run, sw[0], evk32[0], None))
+        log(f"[{smi}] NTRU at N = 2^{log_n}, batch {bsz}: {NTRU_CHECK_STEPS} staged steps "
+            f"bit-equal to the plain step, launches I / kernel 1 / its columns / mac_sub / J's "
+            f"columns / ntru_finish / J {launched}; one step after the first {step_ms:.4f} "
+            f"device ms; split J {table['ntru_stage2' + tag][bsz][3]:.4f} ms")
+        counts = counts if bsz != 1 else dict(zip((fn.__name__ for fn in counted), launched))
+        del f, f32, f_run, f_dig
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase24_four_step(torch, dev, table, smi, reset_counts, read_counts) -> dict:
+    """Phase 24: the rings past what a cluster holds, on the four-step
+    through device memory (csrc/ntt_columns.cu).  24.1 kernels 1-2 at
+    log_n 18-20; 24.2 the u64 transforms there (row 9's four functions, D,
+    E, row 10, row 12, the u64 column kernels; :func:`phase23_row9_wide`),
+    with 24.8 the DCRT steps at N = 2^18 and 24.9 kernel E on 512 rows
+    there; 24.3 the staged TFHE step with the split H, F and G; 24.4 the
+    NTRU step with the split J; 24.6 a 4-bit programmable bootstrap at N =
+    2^18 on the int32 NTT key.  Returns the launch counts of 24.6's
+    bootstrap (key "pbs"), 24.8's DCRT steps (key "dcrt", by N) and 24.4's
+    8 NTRU steps at N = 2^18, batch 1 (key "ntru")."""
+    import dataclasses
+
+    from primus_fhe_tpu_torch import params as P
+
+    global KERNEL_REPS
+    reps, KERNEL_REPS = KERNEL_REPS, FS_REPS
+    try:
+        g = torch.Generator(device=dev).manual_seed(SEED + 29)
+
+        def residues(primes, shape, factor):
+            q = torch.tensor(primes, dtype=torch.int64, device=dev).reshape(
+                (-1,) + (1,) * len(shape))
+            return torch.randint(0, 1 << 40, (len(primes),) + shape, generator=g,
+                                 device=dev) % (factor * q)
+
+        log(f"-- 24.1: kernels 1-2 at log_n {FS_LOG_N} (the column launch and the sub-row "
+            f"launch)")
+        four_step_ntt32(torch, dev, table, g, residues)
+        counts = {"dcrt": phase23_row9_wide(torch, dev, table, wide=FS_LOG_N, cluster=FS_LOG_N,
+                                            dcrt=(FS_PBS_LOG_N,), rt_log_n=(FS_PBS_LOG_N,),
+                                            moduli_counts=(), step="24")}
+        for log_n in FS_LOG_N:
+            log(f"-- 24.3: the staged TFHE step at N = 2^{log_n} (split H)")
+            staged_four_step(torch, dev, table, smi, g, residues, log_n)
+        for log_n in FS_LOG_N:
+            log(f"-- 24.4: the staged NTRU step at N = 2^{log_n} (split J)")
+            ntru_counts = ntru_four_step(torch, dev, table, smi, g, log_n)
+            counts.setdefault("ntru", ntru_counts)
+    finally:
+        KERNEL_REPS = reps
+    top = dataclasses.replace(P.BOOLEAN_128, log_n=FS_PBS_LOG_N)
+    counts["pbs"], _ = programmable_bootstrap(torch, dev, smi, "24.6", top, SEED + 30, 2,
+                                              reset_counts, read_counts)
+    return counts
 
 
 def main() -> None:
@@ -3349,7 +3805,7 @@ def main() -> None:
     from primus_fhe_tpu_torch.modular.modops import add32, neg32, sub32
     from primus_fhe_tpu_torch.numeric.limb import narrow_u32
     from primus_fhe_tpu_torch.ops import (build, cmux_front, cmux_fused, cmux_mxu, ntru_cmux_mxu,
-                                          ntt32, ntt_mxu8, rotate)
+                                          ntt32, ntt_columns, ntt_mxu8, rotate)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3516,7 +3972,9 @@ def main() -> None:
     counted = (ntt32.forward32, ntt32.inverse32, cmux_fused.fused_cmux_step,
                cmux_mxu.mxu_cmux_step, ntru_cmux_mxu.ntru_cmux_step, ntt_mxu8.mxu8_forward32,
                rotate.rotate, cmux_front.cmux_front, cmux_fused.cmux_stage2,
-               ntru_cmux_mxu.ntru_digits, ntru_cmux_mxu.ntru_stage2)
+               ntru_cmux_mxu.ntru_digits, ntru_cmux_mxu.ntru_stage2,
+               ntt_columns.columns_forward, ntt_columns.columns_inverse, ntt_columns.mac_sub,
+               cmux_fused.cmux_stage2_cols, ntru_cmux_mxu.ntru_finish)
 
     def reset_counts():
         for fn in counted:
@@ -3633,15 +4091,23 @@ def main() -> None:
     rate = time_tfhe(ctx, f"ntt key, batch {BATCH}", bits64)
     log(f"[ntt key] single-gate latency (batch 1): {lat:.2f} ms; NAND gates/s at batch {BATCH}: "
         f"{BATCH / (rate / 1e3):.1f}")
-    # the bootstrap's start at batch 64: every launch the profiler sees
+    # the bootstrap's start at batch 64: one kernel F launch by the counters,
+    # and every launch the profiler sees (it may lose a session's last record,
+    # so its rows are shown, not held to the count)
     start_deg = -torch.randint(0, 2 * n, (BATCH,), generator=gen, device=dev, dtype=torch.int32)
+    reset_counts()
+    initial_accumulator(tp, start_deg, k1)
+    start_counts = {k: v for k, v in read_counts().items() if v}
+    if start_counts != {"rotate": 1}:
+        raise AssertionError(f"the bootstrap's start launched {start_counts}, want kernel F once")
     _, start_rows = device_time(torch, lambda: initial_accumulator(tp, start_deg, k1))
-    f_starts = sum(c for _, c, key_ in start_rows if "rotate_kernel" in key_)
-    log(f"bootstrap start (initial_accumulator, batch {BATCH}): "
-        f"{sum(c for _, c, _ in start_rows)} launch(es), kernel F x{f_starts}: "
+    f_seen = sum(c for _, c, key_ in start_rows if "rotate_kernel" in key_)
+    log(f"bootstrap start (initial_accumulator, batch {BATCH}): counted {start_counts}; the "
+        f"profiler saw {sum(c for _, c, _ in start_rows)} launch(es), kernel F x{f_seen}"
+        + ("" if f_seen else " (its record lost)") + ": "
         + "; ".join(f"{key_[:60]} x{c} ({ms_ * 1e3:.2f} us)" for ms_, c, key_ in start_rows))
-    if f_starts != 1:
-        raise AssertionError(f"the bootstrap's start launched kernel F {f_starts} times")
+    if f_seen > 1:
+        raise AssertionError(f"the profiler saw kernel F {f_seen} times in the bootstrap's start")
 
     # -- phase 8: the MXU key kind -------------------------------------------
     log("== phase 8: BOOLEAN_128 on the MXU key kind (kernel A per CMux step, kernel C in keygen)")
@@ -3884,6 +4350,12 @@ def main() -> None:
         f"{[1 << log_n for log_n in ROW9_DCRT_LOG_N]}, kernel E at {RT_BATCH} x 2^{RT_WIDE_LOG_N}")
     counts_23w = phase23_row9_wide(torch, dev, table)
 
+    # -- phase 24: rings past a cluster, the four-step through device memory ---
+    log(f"== phase 24: the four-step past 2^17: kernels 1-2, the u64 transforms, F, G and the "
+        f"split H and J at log_n {FS_LOG_N}, a {MSG_BITS}-bit programmable bootstrap at N = "
+        f"2^{FS_PBS_LOG_N}")
+    counts_24 = phase24_four_step(torch, dev, table, smi, reset_counts, read_counts)
+
     end_phase()
 
     # -- the kernel table -----------------------------------------------------
@@ -3934,6 +4406,20 @@ def main() -> None:
                         counts_22["ntru"]["ntru_digits"], (1, NTRU_WIDE_BATCH)),
         "ntru_stage2": ("ntru_stage.cu", "ops/ntru_cmux_mxu.py:259",
                         counts_22["ntru"]["ntru_stage2"], (1, NTRU_WIDE_BATCH)),
+        # the four-step's launches past 2^17 (phase 24; their rows at N = 2^18)
+        "ntt_columns_forward": ("ntt_columns.cu", ("ops/ntt_pallas.py:848",
+                                                   "ops/ntt_pallas.py:486"),
+                                counts_24["pbs"]["columns_forward"], (WIDE_BATCH, None)),
+        "ntt_columns_inverse": ("ntt_columns.cu", ("ops/ntt_pallas.py:855",
+                                                   "ops/ntt_pallas.py:494"),
+                                counts_24["dcrt"][1 << FS_PBS_LOG_N]["columns_inverse"],
+                                (WIDE_BATCH, None)),
+        "mac_sub": ("ntt_columns.cu", ("ops/cmux_fused.py:226", "ops/ntru_cmux_mxu.py:259"),
+                    counts_24["pbs"]["mac_sub"], (1, WIDE_BATCH)),
+        "cmux_stage2_cols": ("cmux_stage2.cu", "ops/cmux_fused.py:226",
+                             counts_24["pbs"]["cmux_stage2_cols"], (1, WIDE_BATCH)),
+        "ntru_finish": ("ntru_stage.cu", "ops/ntru_cmux_mxu.py:259",
+                        counts_24["ntru"]["ntru_finish"], (1, NTRU_WIDE_BATCH)),
     }
     kernels = []
     for name, (src, rep, launches, (b0, bb)) in sources.items():
@@ -4032,6 +4518,18 @@ def main() -> None:
         wide_tags += [(f"log{log_n}", r) for log_n in ROW9_WIDE_LOG_N for r in ROW9_ROWS]
         wide_tags += [(f"rt{log_n}", RT_BATCH) for log_n in RT_WIDE_LOG_N]
         wide_tags += [(f"shard{log_n}", r) for log_n in CLUSTER_LOG_N for r in (64, 16)]
+        # phase 24's rings past 2^17: kernels 1-2 (kp 2 and 3 at 16 rows, the
+        # 2^18 PBS's 18 / 288 rows), H, F, G and the new launches (batch 1
+        # and 16), J and ntru_finish, the u32 and u64 column kernels, rows 9,
+        # 10 and 12, D and E (23.7's shapes), E at 512 x 2^18
+        wide_tags += [(f"fs{L}kp{kp}", WIDE_BATCH) for L in FS_LOG_N for kp in (2, 3)]
+        wide_tags += [(f"pbs{FS_PBS_LOG_N}", 1), (f"pbs{FS_PBS_LOG_N}", WIDE_BATCH)]
+        wide_tags += [(f"fs{L}", b) for L in FS_LOG_N for b in (1, WIDE_BATCH)]
+        wide_tags += [(f"ntru{L}", b) for L in FS_LOG_N for b in (1, NTRU_WIDE_BATCH)]
+        wide_tags += [(f"fs{L}u64", r) for L in FS_LOG_N for r in ROW9_ROWS]
+        wide_tags += [(f"log{L}", r) for L in FS_LOG_N for r in ROW9_ROWS]
+        wide_tags += [(f"shard{L}", r) for L in FS_LOG_N for r in (64, 16)]
+        wide_tags += [(f"rt{FS_PBS_LOG_N}", RT_BATCH)]
         for tag, bsz_ in wide_tags:
             if bsz_ in table.get(f"{name}@{tag}", {}):
                 _, xms, xpms, xdev, (xbms, xbby) = table[f"{name}@{tag}"][bsz_]
@@ -4046,6 +4544,20 @@ def main() -> None:
                     "ntru_stage2": "ntru_stage2"}.get(name)
         if path_top:  # 22.6's rotation at N = 2^17
             row[f"launches_ntru{TOP_LOG_N}_path"] = counts_22["ntru_top"][path_top]
+        path_fs = {"ntt32_forward": "forward32", "cmux_front": "cmux_front", "rotate": "rotate",
+                   "ntt_columns_forward": "columns_forward", "mac_sub": "mac_sub",
+                   "cmux_stage2_cols": "cmux_stage2_cols"}.get(name)
+        if path_fs:  # 24.6's programmable bootstrap at N = 2^18
+            row[f"launches_pbs{FS_PBS_LOG_N}_path"] = counts_24["pbs"][path_fs]
+        path_fs = {"ntt32_forward": "forward32", "ntt_columns_forward": "columns_forward",
+                   "mac_sub": "mac_sub", "ntt_columns_inverse": "columns_inverse",
+                   "ntru_finish": "ntru_finish", "ntru_digits": "ntru_digits"}.get(name)
+        if path_fs:  # 24.4's 8 NTRU steps at N = 2^18, batch 1
+            row[f"launches_ntru{FS_PBS_LOG_N}_path"] = counts_24["ntru"][path_fs]
+        if name in ("mxu8_forward64", "mxu8_inverse64", "ntt_columns_forward",
+                    "ntt_columns_inverse"):  # 24.8: N = 2^18 on "mxu8"
+            row[f"launches_dcrt{1 << FS_PBS_LOG_N}_path"] = \
+                counts_24["dcrt"][1 << FS_PBS_LOG_N][name.replace("ntt_", "")]
         if name in ("mxu8_forward64", "mxu8_inverse64"):  # 23.8: N = 8192, 65536 on "mxu8"
             for dcrt_n, dcrt_counts in counts_23w.items():
                 row[f"launches_dcrt{dcrt_n}_path"] = dcrt_counts[name]

@@ -280,8 +280,11 @@ NTT_OUT_FACTOR = {"512 rows": 4, "512 rows 8 planes": 4}
 # phase 23.7's forward and inverse rows a modulus over its two moduli
 # (ntt_prime_chain(50, 15, 2): NTT_MODULI are 1 mod 2^14 only)
 Q50_15 = (1125899904679937, 1125899903827969)
+Q50_17 = (1125899902124033, 1125899886395393)  # ntt_prime_chain(50, 17, 2): 2^17, 8 blocks
 CLUSTER_SHAPES = (("forward", ("16 rows x 2^15", Q50_15, 16, 15)),
-                  ("inverse", ("4 rows x 2^15", Q50_15, 4, 15)))
+                  ("inverse", ("4 rows x 2^15", Q50_15, 4, 15)),
+                  ("forward", ("16 rows x 2^17", Q50_17, 16, 17)),
+                  ("inverse", ("4 rows x 2^17", Q50_17, 4, 17)))
 D_SHAPES = (("512 rows", 1, 512), ("512 rows 8 planes", (Q60,), 512))
 # kernel E at phase 11's two shapes and at the card tests' (log_n 8-12; rows
 # 1, 5, 33; one 7-plane modulus, or it and an 8-plane one)
@@ -369,6 +372,10 @@ NTT32_SHAPES = (
     ("NTRU_128 b64", (1038337,), 384, 64, 10),
     ("torus64 b1", "torus64", 2, 2, 11),
     ("torus64 b64", "torus64", 512, 128, 11),
+    # a row over a cluster of 8 blocks: chip_smoke.py 21.1's kp 2 at 16 rows
+    # and kernel 1 over 3 primes at 288 rows a prime (3x the 2^17 PBS's at batch 16)
+    ("kp2 2^17 16 rows", "kp2", 16, 16, 17),
+    ("kp3 2^17 288 rows", "pbs", 288, 288, 17),
 )
 
 
@@ -380,14 +387,19 @@ def ntt32_calls(torch, dev) -> dict:
     kernels 1-2 at :data:`NTT32_SHAPES`: inputs in the kernels' input ranges
     ([0, 4q) forward, [0, 2q) inverse), int32 storage as the blind
     rotations pass them, made from a seeded generator on the card."""
-    from primus_fhe_tpu_torch.lattice import tfhe64
+    from primus_fhe_tpu_torch.lattice import tfhe, tfhe64
     from primus_fhe_tpu_torch.ops import ntt32
+    from primus_fhe_tpu_torch.transforms.torus import TorusConvolver32
 
     g = torch.Generator(device=dev).manual_seed(2030)
     calls = {}
     for label, primes, f_rows, i_rows, log_n in NTT32_SHAPES:
         if primes == "torus64":  # phase 18's convolver: gadget 2^16 x 4, k = 1
             primes = tfhe64.make_convolver64(log_n, 4, 1, 16).primes
+        elif primes == "kp2":
+            primes = TorusConvolver32(log_n, 56).primes
+        elif primes == "pbs":  # BOOLEAN_128's gadget at this ring
+            primes = tfhe.make_convolver(log_n, 3, 1, 7).primes
         tables = ntt32.NttTables32(log_n, primes)
         n, kp = 1 << log_n, len(primes)
         q = torch.tensor(primes, device=dev).reshape(kp, 1, 1)

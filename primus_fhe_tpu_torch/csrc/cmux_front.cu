@@ -65,10 +65,11 @@ namespace {
 constexpr int kThreads = 256;  // a word at a time (F)
 constexpr int kFrontThreads = 128;  // kernel G
 constexpr int kMaxThreads = 1024;  // a block at most
-// Rows of up to 2^17 words: every index (a word's source e in [0, 2n), a
-// degree mod 2n, a row's groups) stays below 2^18 in an int, and a
-// row's offset is a size_t or long long product.
-constexpr int FG_MAX_LOG_N = 17;
+// Rows of up to 2^29 words: every index (a word's source e in [0, 2n), a
+// degree mod 2n, a row's groups) stays below 2^30 in an int, and a row's
+// offset is a size_t or long long product.  The kernels are elementwise,
+// so no ring needs more than that.
+constexpr int FG_MAX_LOG_N = 29;
 
 struct RotateArgs {
   const uint32_t* in;
@@ -279,7 +280,7 @@ FrontLaunch front_pick(int rows, int log_n, bool aligned) {
 extern "C" {
 
 // Kernel F on bsz ciphertexts of `rows` rows of 2^log_n words (log_n
-// 1-17): row r of the source at in + r in_stride (in_stride 0: one row for
+// 1-29): row r of the source at in + r in_stride (in_stride 0: one row for
 // all), of the output at out + r out_stride (the two must not overlap),
 // degree degrees[r / rows] of any sign.
 int pft_rotate(const void* in, long long in_stride, const void* degrees, void* out,

@@ -45,9 +45,11 @@
 // one thread, so out may be acc.  The output is the exact CRT of canonical
 // residues: bit-equal to cmux_stage2_plain
 // (tests/test_torch_cmux_stage2_model.py models the index maps, every C and
-// the reduction schedule).
+// the reduction schedule).  Past H_MAX_LOG_N the row no longer fits a
+// cluster, and H is two launches around the four-step (below, and
+// tests/test_torch_four_step_model.py).
 
-#include "ntt_split.cuh"
+#include "ntt_columns.cuh"
 
 namespace {
 
@@ -236,6 +238,80 @@ int held_clusters(int kp, int log_n, int lc, int* held) {
   return 0;
 }
 
+// Past H_MAX_LOG_N kernel H is split around the four-step
+// (csrc/ntt_columns.cuh): mac_sub (csrc/ntt_columns.cu) runs H's MAC and
+// the inverse's stages within each sub-row of 2^13 words, a block a sub-row
+// of a (prime, ciphertext, component), and writes each prime's lazy words
+// to device memory; this column launch then reads the same tile of columns
+// of all kp primes of a row acc[b, j], runs each prime's last log_n - 13
+// stages (inv_n folded in, canonical) times (P/p_i)^-1 mod p_i into its own
+// tile, and runs H's integer CRT and the wrapping add to acc on every word
+// of the tile: kp tiles of shared memory, each word of acc read and written
+// by one thread, so out may be acc.
+struct ColsArgs {
+  const uint32_t* part;  // (kp, bsz k1, n), lazy in [0, 2p)
+  const uint32_t* acc;   // (bsz k1, n); may alias out
+  uint32_t* out;
+  const uint32_t* inv_roots;  // (kp, n) each
+  const uint32_t* inv_roots_p;
+  PrimeSet ps;
+  CrtConsts crt;
+  int kp, rows, log_n, log_tj;  // rows: bsz k1
+};
+
+// The last pass's words of a prime, times (P/p_i)^-1 mod p_i, canonical,
+// into its column tile.
+struct CrtScaleStore {
+  ColRows<uint32_t> t;
+  uint32_t iw, ipq, q;
+  template <int G>
+  __device__ __forceinline__ void store(int row, int base, int ls, const uint32_t (&v)[G]) const {
+    uint32_t w[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) w[k] = reduce_once(shoup_mul_lazy(v[k], iw, ipq, q), q);
+    t.store(row, base, ls, w);
+  }
+};
+
+__global__ void __launch_bounds__(COL_THREADS) cmux_stage2_cols_kernel(const ColsArgs a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  constexpr int l = MAC_SUB_LOG;
+  const int log_n = a.log_n, c = log_n - l, pitch = (1 << c) + 1;
+  const int tiles = 1 << (l - a.log_tj);
+  const int bj = (int)(blockIdx.x / tiles), j0 = (int)(blockIdx.x % tiles) << a.log_tj;
+  const size_t tile_words = (size_t)pitch << a.log_tj;
+  for (int pi = 0; pi < a.kp; ++pi) {
+    const ColRows<uint32_t> t{sm + pi * tile_words, pitch};
+    col_load(t, a.log_tj, c, a.part + (((size_t)pi * a.rows + bj) << log_n), l, j0,
+             [](uint32_t v) { return v; });
+    __syncthreads();
+    const PrimeConsts pc = a.ps.p[pi];
+    col_inverse<Last::canonical>(t, a.log_tj, c, log_n, a.inv_roots + ((size_t)pi << log_n),
+                                 a.inv_roots_p + ((size_t)pi << log_n), pc,
+                                 CrtScaleStore{t, a.crt.iw[pi], a.crt.ipq[pi], pc.q});
+    __syncthreads();
+  }
+  const size_t row = (size_t)bj << log_n;
+  for (int i = threadIdx.x; i < (1 << (a.log_tj + c)); i += blockDim.x) {
+    const int k = i >> a.log_tj, jj = i & ((1 << a.log_tj) - 1);
+    const size_t at = row + ((size_t)k << l) + j0 + jj;
+    uint64_t fix = 0;    // sum y_i floor(2^64 / p_i), mod 2^64
+    uint32_t over = 0;   // its carries out of 2^64
+    uint32_t total = 0;  // sum y_i (P/p_i), mod 2^32
+#pragma unroll
+    for (int pi = 0; pi < PFT_MAX_KP; ++pi)
+      if (pi < a.kp) {
+        const uint32_t y = sm[pi * tile_words + jj * pitch + k];
+        const uint64_t nf = fix + (uint64_t)y * a.crt.afix[pi];
+        over += nf < fix;
+        fix = nf;
+        total += y * a.crt.pmod[pi];
+      }
+    const uint32_t alpha = over + (uint32_t)(fix >> 63);  // round(sum y_i / p_i)
+    a.out[at] = a.acc[at] + (total - alpha * a.crt.pmt);
+  }
+}
+
 // Kernel H's slices a row for bsz ciphertexts of k1 components over kp
 // primes at log_n: pick_slices over the clusters the card holds.
 int h_pick(int kp, int k1, int bsz, int log_n, int* lc, int* held) {
@@ -294,6 +370,46 @@ int pft_cmux_stage2(const void* f, const void* key, const void* acc, void* out, 
   void* args[] = {&a};
   const cudaError_t e = cudaLaunchKernelExC(&cfg, H_KERNELS[lc][l <= STAGE_MAX_LOG], args);
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Kernel H's column launch past H_MAX_LOG_N (log_n 18-26), after mac_sub
+// (pft_mac_sub) wrote the (kp, bsz k1, n) lazy words `part`: acc + the CRT
+// of the inverse NTT of each prime's row, into out (may be acc).  plan:
+// pft_cmux_stage2's pack.
+int pft_cmux_stage2_cols(const void* part, const void* acc, void* out, int bsz, const void* plan,
+                         void* stream) {
+  const uint64_t* h = (const uint64_t*)plan;
+  ColsArgs a{};
+  a.kp = (int)h[0];
+  const int k1 = (int)h[1];
+  a.log_n = (int)h[3];
+  if (a.kp < 1 || a.kp > PFT_MAX_KP || k1 < 1 || bsz < 1 || a.log_n <= H_MAX_LOG_N ||
+      a.log_n > FOUR_STEP_MAX_LOG_N || (long long)bsz * k1 > (1 << 24))
+    return (int)cudaErrorInvalidValue;
+  a.rows = bsz * k1;
+  a.inv_roots = (const uint32_t*)h[4];
+  a.inv_roots_p = (const uint32_t*)h[5];
+  a.ps = unpack_primes(h + 6, a.kp);
+  a.crt = unpack_crt(h + 6 + 7 * a.kp, a.kp);
+  a.part = (const uint32_t*)part;
+  a.acc = (const uint32_t*)acc;
+  a.out = (uint32_t*)out;
+  const int c = a.log_n - MAC_SUB_LOG;
+  a.log_tj = col_log_tile(c, MAC_SUB_LOG) - (a.kp > 2 ? 2 : a.kp > 1 ? 1 : 0);
+  if (a.log_tj < 0) a.log_tj = 0;
+  const size_t smem = sizeof(uint32_t) * (size_t)a.kp * (((size_t)1 << c) + 1) << a.log_tj;
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev < 64 && !raised[dev]) {
+    e = cudaFuncSetAttribute((const void*)cmux_stage2_cols_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    raised[dev] = e == cudaSuccess;
+  }
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)a.rows << (MAC_SUB_LOG - a.log_tj);
+  cmux_stage2_cols_kernel<<<(unsigned)blocks, COL_THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -63,11 +63,12 @@
 //   of them and a remainder below 2q stay below 2^64.
 // Both are bit-equal to their plain versions (ops/ntru_cmux_mxu.py;
 // tests/test_torch_ntru_staged.py models J's index maps and the digits'
-// writes over f).
+// writes over f).  Past J_MAX_LOG_N J is three launches around the
+// four-step (below; tests/test_torch_four_step_model.py).
 //
 // Values are u32 words (int32 storage on the PyTorch side).
 
-#include "ntt_split.cuh"
+#include "ntt_columns.cuh"
 
 namespace {
 
@@ -284,6 +285,52 @@ int j_held(int log_n, int lc, int* held) {
   return 0;
 }
 
+// Past J_MAX_LOG_N kernel J is split around the four-step
+// (csrc/ntt_columns.cuh) into three launches: mac_sub (csrc/ntt_columns.cu:
+// J's MAC and the inverse's stages within each sub-row of 2^13 words, lazy
+// words to device memory), the inverse's column launch (pft_ntt_columns:
+// the last log_n - 13 stages, canonical: delta), and this one, which the
+// rotation needs alone since its source words cross sub-rows: word g of
+// row b, out = acc + (+-delta[(g - d) mod n]) - delta[g] mod q (negated
+// where (g - d) mod 2n >= n), and its L digits where the launch asks for
+// them (chain_start, digit_step: kernel J's), at (L, bsz, n) (which may be
+// the digits the MAC read: mac_sub ran before).  A thread a word; each
+// word of acc read and written by one thread, so out may be acc.
+struct FinishArgs {
+  const uint32_t* delta;   // (bsz, n) canonical
+  const uint32_t* acc;     // (bsz, n) canonical; may alias out
+  const int32_t* degrees;  // (bsz,), any sign
+  uint32_t* out;
+  uint32_t* digits;  // (L, bsz, n), or nullptr
+  uint32_t q;
+  DigitChain dc;
+  int log_n, bsz;
+};
+
+__global__ void __launch_bounds__(I_THREADS) ntru_finish_kernel(const FinishArgs a) {
+  const long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long words = (long long)a.bsz << a.log_n;
+  if (it >= words) return;
+  const int n = 1 << a.log_n;
+  const int b = (int)(it >> a.log_n), g = (int)(it & (n - 1));
+  const int d = degree_mod(__ldg(a.degrees + b), n);
+  const uint32_t* row = a.delta + ((size_t)b << a.log_n);
+  int e = g - d;
+  if (e < 0) e += 2 * n;
+  const bool neg = e >= n;
+  uint32_t r = __ldg(row + (neg ? e - n : e));
+  if (neg && r != 0u) r = a.q - r;
+  const uint32_t own = __ldg(row + g);
+  const uint32_t t = r >= own ? r - own : r + a.q - own;
+  uint32_t v = reduce_once(a.acc[it] + t, a.q);
+  a.out[it] = v;
+  if (a.digits != nullptr) {
+    uint32_t carry = chain_start(v, a.dc);
+    uint32_t* o = a.digits + it;
+    for (int lv = 0; lv < a.dc.bc.level; ++lv, o += words) *o = digit_step(v, a.dc.bc, lv, carry);
+  }
+}
+
 // Kernel J's slices a row for bsz ciphertexts at log_n: pick_slices over
 // the clusters the card holds.
 int j_pick(int bsz, int log_n, int* lc, int* held) {
@@ -362,6 +409,33 @@ int pft_ntru_stage2(const void* f, const void* evk, const void* acc, const void*
   void* args[] = {&a};
   const cudaError_t e = cudaLaunchKernelExC(&cfg, J_KERNELS[lc][l <= STAGE_MAX_LOG], args);
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Kernel J's last launch past J_MAX_LOG_N (log_n 18-26), after mac_sub and
+// the inverse's column launch wrote delta (bsz, n) canonical: acc +
+// rot(delta, d) - delta into out (may be acc), and with digits (L, bsz, n)
+// the output's digits.  plan: pft_ntru_stage2's pack (its basis with the
+// digits).
+int pft_ntru_finish(const void* delta, const void* acc, const void* degrees, void* out,
+                    void* digits, int bsz, const void* plan, void* stream) {
+  const uint64_t* h = (const uint64_t*)plan;
+  FinishArgs a{};
+  a.log_n = (int)h[1];
+  if (a.log_n <= J_MAX_LOG_N || a.log_n > FOUR_STEP_MAX_LOG_N || bsz < 1 || bsz > (1 << 24) ||
+      (digits != nullptr && (h[11] != h[0] || h[20] != h[4])))
+    return (int)cudaErrorInvalidValue;
+  a.q = (uint32_t)h[4];
+  a.dc = unpack_chain(h + 11);
+  a.delta = (const uint32_t*)delta;
+  a.acc = (const uint32_t*)acc;
+  a.degrees = (const int32_t*)degrees;
+  a.out = (uint32_t*)out;
+  a.digits = (uint32_t*)digits;
+  a.bsz = bsz;
+  const long long blocks = (((long long)bsz << a.log_n) + I_THREADS - 1) / I_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  ntru_finish_kernel<<<(unsigned)blocks, I_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

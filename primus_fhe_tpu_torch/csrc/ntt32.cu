@@ -55,6 +55,15 @@
 //   blocks (a slice's 2048 radix-8 groups, two a thread); the C entry picks
 //   the cluster from log_n.
 //
+// - log_n 18-26: a row is past what a cluster holds (1 MB at 2^18), so it
+//   runs the four-step through device memory (csrc/ntt_columns.cuh): the
+//   column launch (four_step_columns, csrc/ntt_columns.cu) runs the stages
+//   across the 2^(log_n - 14) sub-rows of 2^14 words, and the sub-row
+//   launch here, a block a sub-row, the rest: the split kernels' slice body
+//   with the slice's words from device memory, FwdSliceTable /
+//   SliceInvTable at the sub-row's rank.  The inverse's sub-rows store lazy
+//   words for the column launch after them.  The C entries issue both.
+//
 // The butterflies are the plain version's (transforms/ntt.py) with its lazy
 // ranges, applied to the same pairs stage by stage, so every output word is
 // bit-equal to it: the forward's bit-reversed output lazy in [0, 4q) or
@@ -91,15 +100,15 @@
 // log_n 8-12 and kp 1-4, the byte-radix plan's range.
 
 #include "mxu8.cuh"  // mbarriers and bulk copies
-#include "ntt_split.cuh"
+#include "ntt_columns.cuh"
 
 namespace {
 
 constexpr int NTT_THREADS = 256;
 constexpr int MAX_TILE = 8;
 constexpr int TILE_MAX_LOG_N = 14;  // a row in one block's shared memory
-constexpr int MAX_LOG_N = 17;       // past TILE_MAX_LOG_N, a row over a cluster (SLICE_LOG words a block)
-constexpr int SLICE_LOG = 14;
+constexpr int MAX_LOG_N = CLUSTER_MAX_LOG_N;  // past TILE_MAX_LOG_N, a row over a cluster (SLICE_LOG words a block)
+constexpr int SLICE_LOG = SUB_LOG;
 constexpr int SPLIT_THREADS = 1024;  // a slice's 2048 radix-8 groups, two a thread
 constexpr int SMEM_MAX = 232448;  // 227 KB, the most a block may ask for
 
@@ -317,6 +326,52 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 1) ntt32_inverse_split_kernel(c
   cg::this_cluster().sync();  // keep every slice alive until its peers' reads are done
 }
 
+// log_n 18-26, the four-step's sub-row launch (csrc/ntt_columns.cuh): one
+// block a sub-row of 2^SLICE_LOG words, sub-row h of row `row` of the (kp,
+// rows) rows the block's index h + row 2^lc (lc = log_n - SLICE_LOG); the
+// slice body of the kernels above, its words from device memory.  The
+// forward's input is the column launch's output, its last pass the row's;
+// the inverse stores its lazy [0, 2q) words for the column launch.
+template <bool CANON>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1) ntt32_forward_sub_kernel(const NttArgs a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  constexpr int l = SLICE_LOG;
+  const int lc = a.log_n - l;
+  const int h = (int)(blockIdx.x & ((1u << lc) - 1));
+  const int row = (int)(blockIdx.x >> lc);
+  const int pi = row / a.rows;
+  const uint32_t q = a.ps.p[pi].q;
+  const uint32_t* groots = a.tw + ((size_t)pi << a.log_n);
+  const uint32_t* groots_p = a.twp + ((size_t)pi << a.log_n);
+  const size_t off = ((size_t)row << a.log_n) + ((size_t)h << l);
+  const SmemRows<SwzNtt> rows{sm, l};
+  const FwdSliceTable table{groots, groots_p, (1 << lc) + h};
+  constexpr int r = l - 3 * ((l - 1) / 3);  // the last pass's stages
+  fwd_pass<3>(1, l, 0, table, q, GlobalIn{a.in + off, l}, rows);
+  __syncthreads();
+  for (int s0 = 3; s0 < l - r; s0 += 3) {
+    fwd_pass<3>(1, l, s0, table, q, rows, rows);
+    __syncthreads();
+  }
+  fwd_pass<r>(1, l, l - r, table, q, rows, GlobalOut<CANON>{a.out + off, l, q});
+}
+
+__global__ void __launch_bounds__(SPLIT_THREADS, 1) ntt32_inverse_sub_kernel(const NttArgs a) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  constexpr int l = SLICE_LOG;
+  const int lc = a.log_n - l;
+  const int h = (int)(blockIdx.x & ((1u << lc) - 1));
+  const int row = (int)(blockIdx.x >> lc);
+  const int pi = row / a.rows;
+  const PrimeConsts pc = a.ps.p[pi];
+  const uint32_t* w = a.tw + ((size_t)pi << a.log_n);
+  const uint32_t* wp = a.twp + ((size_t)pi << a.log_n);
+  const size_t off = ((size_t)row << a.log_n) + ((size_t)h << l);
+  const SmemRows<SwzNtt> rows{sm, l};
+  slice_inverse(SliceInvTable{w, wp, l, a.log_n, h}, pc, GlobalIn{a.in + off, l}, rows, l);
+  for (int i = threadIdx.x; i < (1 << l); i += blockDim.x) a.out[off + i] = sm[SwzNtt::at(i)];
+}
+
 // The split kernels, [forward][log_n - SLICE_LOG - 1][canonical].
 constexpr int SPLIT_LCS = MAX_LOG_N - SLICE_LOG;
 const void* const SPLIT_KERNELS[2][SPLIT_LCS][2] = {
@@ -333,6 +388,10 @@ const void* const SPLIT_KERNELS[2][SPLIT_LCS][2] = {
      {(const void*)ntt32_forward_split_kernel<3, false>,
       (const void*)ntt32_forward_split_kernel<3, true>}}};
 constexpr size_t SPLIT_SMEM = sizeof(uint32_t) << SLICE_LOG;
+// The sub-row kernels: [0] the inverse, [1 + canonical] the forward.
+const void* const SUB_KERNELS[3] = {(const void*)ntt32_inverse_sub_kernel,
+                                    (const void*)ntt32_forward_sub_kernel<false>,
+                                    (const void*)ntt32_forward_sub_kernel<true>};
 
 // ---------------------------------------------------------------------------
 // Kernel C: the persistent forward NTT of the MXU key preparation.
@@ -583,6 +642,9 @@ int ntt_device(const NttDevice** out) {
     for (int i = 0; i < 4 * SPLIT_LCS && e == cudaSuccess; ++i)
       e = cudaFuncSetAttribute((&SPLIT_KERNELS[0][0][0])[i],
                                cudaFuncAttributeMaxDynamicSharedMemorySize, SPLIT_SMEM);
+    for (const void* k : SUB_KERNELS)
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SPLIT_SMEM);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&fresh.sms, cudaDevAttrMultiProcessorCount, dev);
     for (int f = 0; f < 2 && e == cudaSuccess; ++f)
       for (int log_n = 1; log_n <= TILE_MAX_LOG_N && e == cudaSuccess; ++log_n)
@@ -623,7 +685,7 @@ int pick_tile(bool forward, int kp, int rows, int log_n, const NttDevice& d) {
 
 int launch(bool forward, const void* in, void* out, const void* tw, const void* twp,
            const void* prime_pack, int kp, int rows, int log_n, int canonical, void* stream) {
-  if (kp < 1 || kp > PFT_MAX_KP || log_n < 1 || log_n > MAX_LOG_N || rows < 1 ||
+  if (kp < 1 || kp > PFT_MAX_KP || log_n < 1 || log_n > FOUR_STEP_MAX_LOG_N || rows < 1 ||
       (((uintptr_t)in | (uintptr_t)out) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const NttDevice* d = nullptr;
@@ -638,6 +700,26 @@ int launch(bool forward, const void* in, void* out, const void* tw, const void* 
   a.rows = rows;
   a.log_n = log_n;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (log_n > MAX_LOG_N) {  // the four-step: columns, then a block a sub-row (inverse mirrored)
+    const long long blocks = ((long long)kp * rows) << (log_n - SLICE_LOG);
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (forward) {
+      const int ce = four_step_columns(32, 0, 0, in, out, tw, twp, prime_pack, kp, rows, log_n,
+                                       stream);
+      if (ce != 0) return ce;
+      a.in = a.out;
+    }
+    a.tile = 1;
+    void* args[] = {&a};
+    const cudaError_t e =
+        cudaLaunchKernel(SUB_KERNELS[forward ? 1 + (canonical != 0) : 0], dim3((unsigned)blocks),
+                         dim3(SPLIT_THREADS), args, SPLIT_SMEM, s);
+    if (e != cudaSuccess) return (int)e;
+    const cudaError_t le = cudaGetLastError();
+    if (le != cudaSuccess || forward) return (int)le;
+    return four_step_columns(32, 1, canonical ? 0 : 1, out, out, tw, twp, prime_pack, kp, rows,
+                             log_n, stream);
+  }
   if (log_n > TILE_MAX_LOG_N) {  // a row a cluster of 2^(log_n - SLICE_LOG) blocks
     const int lc = log_n - SLICE_LOG;
     a.tile = 1;
@@ -727,9 +809,12 @@ extern "C" {
 const char* pft_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Forward NTT of kp primes x rows_per_prime rows of 2^log_n words (log_n
-// 1-17, kp <= 4; in and out 16-byte aligned, out may be in): roots,
+// 1-26, kp <= 4; in and out 16-byte aligned, out may be in): roots,
 // roots_p (kp, n) the bit-reversed root tables and Shoup quotients;
-// canonical output or lazy in [0, 4q).  log_n 15-17 run a row a cluster.
+// canonical output or lazy in [0, 4q).  log_n 15-17 run a row a cluster;
+// 18-26 the four-step, two launches: the column launch
+// (four_step_columns), then the sub-row launch (the inverse: the sub-row
+// launch's lazy words, then the column launch).
 int pft_ntt32_forward(const void* in, void* out, const void* roots, const void* roots_p,
                       const void* prime_pack, int kp, int rows_per_prime, int log_n,
                       int canonical, void* stream) {
@@ -740,7 +825,7 @@ int pft_ntt32_forward(const void* in, void* out, const void* roots, const void* 
 // The rows a block the launch takes (pick_tile) on the current device: 1
 // at log_n 15-17, where a row spans a cluster.
 int pft_ntt32_tile(int forward, int kp, int rows_per_prime, int log_n, int* tile) {
-  if (kp < 1 || kp > PFT_MAX_KP || log_n < 1 || log_n > MAX_LOG_N || rows_per_prime < 1)
+  if (kp < 1 || kp > PFT_MAX_KP || log_n < 1 || log_n > FOUR_STEP_MAX_LOG_N || rows_per_prime < 1)
     return (int)cudaErrorInvalidValue;
   const NttDevice* d = nullptr;
   const int err = ntt_device(&d);

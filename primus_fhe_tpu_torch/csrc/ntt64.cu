@@ -67,6 +67,15 @@
 //   stages within the slices (SliceInvTable) and its last log_n - 14 on
 //   groups gathered from the slices, inv_n folded into the final one.
 //   Twiddles are read from device memory through L1 there.
+// - past 2^17 (to 2^26) the four-step through device memory
+//   (csrc/ntt_columns.cuh): the column launch (four_step_columns,
+//   csrc/ntt_columns.cu) runs the stages across sub-rows, and the sub-row
+//   launch here the rest: the cluster body on one block a sub-row of 2^14
+//   words (split = log_n - 14 blocks a row, no cluster), its words from
+//   device memory, SliceTable / SliceInvTable at the sub-row's rank, the
+//   inverse's (and kernel E's) lazy words stored for the column launch
+//   after it.  Every C entry below issues its column launches itself
+//   (kernel E both: three launches), so each stays a whole transform.
 //
 // The butterflies are the plain version's (transforms/ntt.py forward64 /
 // inverse64) with its lazy ranges, applied to the same pairs stage by
@@ -82,15 +91,15 @@
 
 #include <type_traits>
 
-#include "ntt_split.cuh"
+#include "ntt_columns.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int NTT_THREADS = 256;
-constexpr int MAX_LOG_N = 17;
-constexpr int SLICE_LOG = 14;  // past it, a row over a cluster of 2^(log_n - SLICE_LOG) blocks
+constexpr int MAX_LOG_N = CLUSTER_MAX_LOG_N;  // past it, the four-step's sub-row launch
+constexpr int SLICE_LOG = SUB_LOG;  // past it, a row over 2^(log_n - SLICE_LOG) blocks
 constexpr int SMEM_MAX = 232448;  // 227 KB, the most a block may ask for
 
 struct Ntt64Args {
@@ -106,13 +115,14 @@ struct Ntt64Args {
 // How the inverse's first pass takes its words from device memory: the
 // input chain from [0, in_factor q) (row 10's inverse); any u64 word
 // brought to [0, 2q) by a lazy Shoup multiply by 1 (row 9's inverse64 at
-// log_n 13-17); or any u64 word times the key by a lazy Shoup multiply
-// (kernel D at log_n 13-17: E's key step without the forward).  The
+// log_n 13-26); or any u64 word times the key by a lazy Shoup multiply
+// (kernel D at log_n 13-26: E's key step without the forward).  The
 // forward's ANY flag is the second: row 9's forward64 takes any u64 word.
 enum InLoad { IN_CHAIN = 0, IN_ANY = 1, IN_KEY = 2 };
 
 // Blocks a row is split over (log2): log_n - SLICE_LOG where a row
-// overflows one block's shared memory (n = 2^15 .. 2^17).
+// overflows one block's shared memory (n = 2^15 .. 2^17: a cluster; past
+// MAX_LOG_N the four-step's sub-rows, one a block, no cluster).
 __host__ __device__ inline int log_split(int log_n) {
   return log_n > SLICE_LOG ? log_n - SLICE_LOG : 0;
 }
@@ -312,12 +322,17 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_forward_kernel(const Ntt
   };
 
   if (l < log_n) {  // a row over a cluster: the cross stages, then the slice's
-    with_lc(log_n - l, [&](auto lc) {
-      cross_forward<decltype(lc)::value, ANY>(a.in + t.off, rows.p, l, t.h, 0, groots, groots_p,
-                                               q, a.ms.m[t.mi].p1);
-    });
     const SliceTable<FwdTable<uint64_t>> table{{groots, groots_p}, log_n - l, t.h};
-    fwd_pass<3>(1, l, 0, table, q, rows, rows);
+    if (log_n > MAX_LOG_N) {  // a sub-row: the column launch ran the first stages
+      const GlobalIn64<false> sub{a.in + t.off + ((size_t)t.h << l), l};
+      fwd_pass<3>(1, l, 0, table, q, sub, rows);
+    } else {
+      with_lc(log_n - l, [&](auto lc) {
+        cross_forward<decltype(lc)::value, ANY>(a.in + t.off, rows.p, l, t.h, 0, groots,
+                                                 groots_p, q, a.ms.m[t.mi].p1);
+      });
+      fwd_pass<3>(1, l, 0, table, q, rows, rows);
+    }
     __syncthreads();
     rest(table);
     return;
@@ -339,11 +354,18 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_forward_kernel(const Ntt
 // l) slices whose own stages are done (each in its block's rows: one row),
 // into the row out (csrc/ntt_split.cuh's cross_inverse, inv_n folded into
 // the final stage, canonical or lazy in [0, 2q)); a cluster barrier after
-// it keeps every slice alive until its peers' reads are done.
+// it keeps every slice alive until its peers' reads are done.  Past
+// MAX_LOG_N (a sub-row a block) the slice's lazy words go to its place in
+// out, for the column launch.
 __device__ __forceinline__ void cross_last_stages(const SmemRows64& rows, uint64_t* out,
                                                   int log_n, int l, int h, const uint64_t* w,
                                                   const uint64_t* wp, const Mod64& c,
                                                   bool canonical) {
+  if (log_n > MAX_LOG_N) {
+    uint64_t* sub = out + ((size_t)h << l);
+    for (int i = threadIdx.x; i < (1 << l); i += blockDim.x) sub[i] = rows.p[swz64(i)];
+    return;
+  }
   with_lc(log_n - l, [&](auto lc) {
     constexpr int LC = decltype(lc)::value;
     const auto store = [&](int j, const uint64_t (&v)[1 << LC]) {
@@ -472,12 +494,16 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_inverse_kernel(const Ntt
 //   first), the slice's forward passes, the key and the inverse's first
 //   pass on the same groups, the inverse's stages within the slice, then
 //   the inverse's cross stages over distributed shared memory.
+// - log_n 18-26: three launches from the C entry, the forward's column
+//   launch (any u64 word brought to [0, 2q) as it loads), this kernel's
+//   slice body on each sub-row (one block a sub-row), the inverse's column
+//   launch.
 //
 // Every stage is the plain version's butterfly on the same pair, and the
 // output is canonical, so the words equal mxu8_roundtrip64_mul_plain's (whose
 // forward folds to canonical before the key: the lazy representatives
 // between differ, the residues do not).
-constexpr int RT_MIN_LOG_N = 8, RT_MAX_LOG_N = MAX_LOG_N;
+constexpr int RT_MIN_LOG_N = 8, RT_MAX_LOG_N = FOUR_STEP_MAX_LOG_N;
 
 // Words of the forward's table kernel E stages (with its quotients, 16
 // bytes a word): all n where they fit beside the inverse's part and a row
@@ -541,12 +567,20 @@ __global__ void __launch_bounds__(NTT_THREADS, 2) ntt64_roundtrip_kernel(const R
 
   if (l < log_n) {  // a row over a cluster of 2^(log_n - l) blocks, one slice each
     const SmemRows64 rows{sm, l};
-    with_lc(log_n - l, [&](auto lc) {
-      cross_forward<decltype(lc)::value, true>(a.in + t.off, sm, l, t.h, 0, a.tw + mo,
-                                                a.twp + mo, q, c.p1);
-    });
     const SliceTable<FwdTable<uint64_t>> table{{a.tw + mo, a.twp + mo}, log_n - l, t.h};
-    for (int s0 = 0; s0 < l - r; s0 += 3) {
+    int s_first = 0;
+    if (log_n > MAX_LOG_N) {  // a sub-row: the column launch ran the first stages
+      const GlobalIn64<false> sub{a.in + t.off + ((size_t)t.h << l), l};
+      fwd_pass<3>(1, l, 0, table, q, sub, rows);
+      __syncthreads();
+      s_first = 3;
+    } else {
+      with_lc(log_n - l, [&](auto lc) {
+        cross_forward<decltype(lc)::value, true>(a.in + t.off, sm, l, t.h, 0, a.tw + mo,
+                                                  a.twp + mo, q, c.p1);
+      });
+    }
+    for (int s0 = s_first; s0 < l - r; s0 += 3) {
       fwd_pass<3>(1, l, s0, table, q, rows, rows);
       __syncthreads();
     }
@@ -630,7 +664,7 @@ int ntt64_device(const Ntt64Device** out) {
       e = cudaDeviceGetAttribute(&fresh.sms, cudaDevAttrMultiProcessorCount, dev);
     for (int kind = 0; kind < 3 && e == cudaSuccess; ++kind)
       for (int log_n = 1; log_n <= MAX_LOG_N && e == cudaSuccess; ++log_n) {
-        if (kind == ROUNDTRIP && (log_n < RT_MIN_LOG_N || log_n > RT_MAX_LOG_N)) continue;
+        if (kind == ROUNDTRIP && log_n < RT_MIN_LOG_N) continue;
         for (int i = 0; i < 4 && e == cudaSuccess; ++i) {
           const size_t smem = kind == ROUNDTRIP ? rt_smem_bytes(log_n, 1 << i)
                                                 : smem_bytes(kind == FORWARD, log_n, 1 << i);
@@ -655,6 +689,7 @@ int ntt64_device(const Ntt64Device** out) {
 // 2^15) fits only T = 1.  The only copy of the rule, for the three kernels
 // (kind: a Kind; a bool forward is FORWARD or INVERSE).
 int pick_tile(int kind, int count, int rows, int log_n, const Ntt64Device& d) {
+  if (log_n > MAX_LOG_N) return 1;  // a sub-row a block
   int fit = 1;
   for (int i = 0; i < 4; ++i) {
     const int held = d.resident[kind][log_n][i];
@@ -666,7 +701,23 @@ int pick_tile(int kind, int count, int rows, int log_n, const Ntt64Device& d) {
 }
 
 bool valid(int count, int rows, int log_n) {
-  return count >= 1 && count <= PFT_MAX_MOD64 && log_n >= 1 && log_n <= MAX_LOG_N && rows >= 1;
+  return count >= 1 && count <= PFT_MAX_MOD64 && log_n >= 1 && log_n <= FOUR_STEP_MAX_LOG_N &&
+         rows >= 1 && (((long long)count * rows) << log_split(log_n)) <= 0x7fffffffLL;
+}
+
+// The launch's shape: a tile of rows a block (pick_tile; 1 where a row
+// spans blocks), and a cluster of a row's slices at log_n 15-17.
+void shape(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int count, int rows, int log_n,
+           int tile) {
+  const int split = log_split(log_n);
+  cfg.gridDim = dim3((unsigned)(count * ((rows + tile - 1) / tile)) << split);
+  cfg.blockDim = dim3(tile_threads(log_n, tile));
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1 << split;  // a row's slices in one cluster
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split && log_n <= MAX_LOG_N ? 1 : 0;
 }
 
 // load: the forward's (IN_CHAIN: words below 4q, IN_ANY: any u64 word) or
@@ -692,19 +743,18 @@ int launch(bool forward, const void* in, void* out, const void* tw, const void* 
   a.in_factor = in_factor;
   a.key = (const uint64_t*)key;
   a.tile = pick_tile(forward, count, rows, log_n, *d);
-  const int split = log_split(log_n);
+  const bool four = log_n > MAX_LOG_N;  // the four-step: the forward's columns first
+  if (four && forward) {
+    const int ce = four_step_columns(64, 0, load == IN_ANY ? 1 : 0, in, out, tw, twp, mod_pack,
+                                     count, rows, log_n, stream);
+    if (ce != 0) return ce;
+    a.in = a.out;
+  }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((count * ((rows + a.tile - 1) / a.tile)) << split);
-  cfg.blockDim = dim3(tile_threads(log_n, a.tile));
+  cudaLaunchAttribute attr[1];
+  shape(cfg, attr, count, rows, log_n, a.tile);
   cfg.dynamicSmemBytes = smem_bytes(forward, log_n, a.tile);
   cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1 << split;  // a row's slices in one cluster
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = split ? 1 : 0;
   cudaError_t e;
   if (forward && load == IN_ANY)
     e = cudaLaunchKernelEx(&cfg, ntt64_forward_kernel<true, true>, a);
@@ -719,7 +769,10 @@ int launch(bool forward, const void* in, void* out, const void* tw, const void* 
     e = canonical ? cudaLaunchKernelEx(&cfg, ntt64_inverse_kernel<true, IN_CHAIN>, a)
                   : cudaLaunchKernelEx(&cfg, ntt64_inverse_kernel<false, IN_CHAIN>, a);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !four || forward) return (int)e;
+  return four_step_columns(64, 1, canonical ? 0 : 1, out, out, tw, twp, mod_pack, count, rows,
+                           log_n, stream);  // the inverse's columns last
 }
 
 int launch_roundtrip(const void* in, void* out, const void* roots, const void* roots_p,
@@ -745,22 +798,24 @@ int launch_roundtrip(const void* in, void* out, const void* roots, const void* r
   e.itwp = (const uint64_t*)inv_roots_p;
   e.key = (const uint64_t*)key;
   a.tile = pick_tile(ROUNDTRIP, count, rows, log_n, *d);
-  const int split = log_split(log_n);
+  const bool four = log_n > MAX_LOG_N;  // the four-step: three launches
+  if (four) {
+    const int ce = four_step_columns(64, 0, 1, in, out, roots, roots_p, mod_pack, count, rows,
+                                     log_n, stream);
+    if (ce != 0) return ce;
+    a.in = a.out;
+  }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((count * ((rows + a.tile - 1) / a.tile)) << split);
-  cfg.blockDim = dim3(tile_threads(log_n, a.tile));
+  cudaLaunchAttribute attr[1];
+  shape(cfg, attr, count, rows, log_n, a.tile);
   cfg.dynamicSmemBytes = rt_smem_bytes(log_n, a.tile);
   cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1 << split;  // a row's slices in one cluster
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = split ? 1 : 0;
-  const cudaError_t err2 = cudaLaunchKernelEx(&cfg, ntt64_roundtrip_kernel, e);
+  cudaError_t err2 = cudaLaunchKernelEx(&cfg, ntt64_roundtrip_kernel, e);
   if (err2 != cudaSuccess) return (int)err2;
-  return (int)cudaGetLastError();
+  err2 = cudaGetLastError();
+  if (err2 != cudaSuccess || !four) return (int)err2;
+  return four_step_columns(64, 1, 0, out, out, inv_roots, inv_roots_p, mod_pack, count, rows,
+                           log_n, stream);
 }
 
 }  // namespace
@@ -768,7 +823,7 @@ int launch_roundtrip(const void* in, void* out, const void* roots, const void* r
 extern "C" {
 
 // Forward NTT of count moduli x rows_per_mod rows of 2^log_n words (log_n
-// 1-17, count <= 4; in and out 16-byte aligned): roots, roots_p (count, n)
+// 1-26, count <= 4; in and out 16-byte aligned): roots, roots_p (count, n)
 // the bit-reversed root tables and Shoup quotients; input below 4q,
 // bit-reversed output canonical or lazy in [0, 4q).
 int pft_ntt64_forward(const void* in, void* out, const void* roots, const void* roots_p,
@@ -788,7 +843,7 @@ int pft_ntt64_inverse(const void* in, void* out, const void* inv_roots, const vo
                 canonical, in_factor, IN_CHAIN, nullptr, stream);
 }
 
-// Row 9's forward64 at log_n 13-17 on the forward's passes: any u64 words
+// Row 9's forward64 at log_n 13-26 on the forward's passes: any u64 words
 // in (each brought to [0, 2q) as it loads), canonical bit-reversed words
 // out; the shapes and tables of pft_ntt64_forward.
 int pft_ntt64_forward_any(const void* in, void* out, const void* roots, const void* roots_p,
@@ -798,7 +853,7 @@ int pft_ntt64_forward_any(const void* in, void* out, const void* roots, const vo
                 IN_ANY, nullptr, stream);
 }
 
-// Kernel D at log_n 13-17 (key: the (count, 2, n) key and its Shoup
+// Kernel D at log_n 13-26 (key: the (count, 2, n) key and its Shoup
 // quotients, 16-byte aligned), or row 9's inverse64 there (key null): the
 // inverse's passes on any u64 words in bit-reversed order, each multiplied
 // by the key (or by 1) as it loads, canonical normal-order words out; the
@@ -811,7 +866,7 @@ int pft_ntt64_inverse_mul(const void* in, void* out, const void* inv_roots,
 }
 
 // Kernel E: INTT(NTT(in) * key) of count moduli x rows_per_mod rows of
-// 2^log_n words (log_n 8-17, count <= 4): any u64 words in, normal order;
+// 2^log_n words (log_n 8-26, count <= 4): any u64 words in, normal order;
 // roots, roots_p and inv_roots, inv_roots_p the forward's and the inverse's
 // (count, n) tables; key (count, 2, n, 16-byte aligned) the bit-reversed
 // key and its Shoup quotients; canonical words out, normal order.

@@ -19,7 +19,9 @@
 // stage folding inv_n in.  Each pair meets the plain version's butterfly
 // with its twiddle in the plain version's lazy range, so the words are the
 // plain version's (tests/test_torch_ntt_split_model.py,
-// tests/test_torch_ntt64_cluster.py).
+// tests/test_torch_ntt64_cluster.py).  Past 2^17 the same slice bodies run
+// one block a sub-row of the four-step through device memory
+// (csrc/ntt_columns.cuh), the cross stages there a column launch.
 #pragma once
 
 #include <cooperative_groups.h>

@@ -11,6 +11,8 @@
   tiers ``mxu8_forward64``/``mxu8_inverse64``; kernels D and E, the inverse
   with a fused key multiply and the fused round trip;
 - :mod:`.ntt64`: the u64 butterfly NTT and inverse NTT;
+- :mod:`.ntt_columns`: the four-step past 2^17 (the column launches of
+  both NTTs at both widths, kernels H and J's first launch there);
 - :mod:`.rotate`: kernel F, the negacyclic torus rotation;
 - :mod:`.cmux_front`: kernel G, the CMux front end (digit residues);
 - :mod:`.ntt_stages`: the coefficient-sharded NTT's shard-local stage

@@ -24,9 +24,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("ntt32.cu", "cmux_fused.cu", "cmux_mxu.cu", "ntt_mxu8.cu", "ntt64.cu", "cmux_front.cu",
-           "ntt_stages.cu", "ntt_mxu8_split.cu", "cmux_stage2.cu", "ntru_stage.cu")
+           "ntt_stages.cu", "ntt_mxu8_split.cu", "cmux_stage2.cu", "ntru_stage.cu",
+           "ntt_columns.cu")
 HEADERS = ("modarith32.cuh", "modarith64.cuh", "mxu8.cuh", "mxu8_64.cuh", "ntt_passes.cuh",
-           "ntt_split.cuh")
+           "ntt_split.cuh", "ntt_columns.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +47,10 @@ _SIGNATURES = {
     "pft_cmux_step": (_P, _P, _P, _P, _I, _P, _P),
     "pft_cmux_stage2": (_P, _P, _P, _P, _I, _P, _P),
     "pft_cmux_stage2_grid": (_I, _I, _I, _I, _P),
+    "pft_cmux_stage2_cols": (_P, _P, _P, _I, _P, _P),
+    "pft_ntt_columns": (_I, _I, _I) + (_P,) * 5 + (_I,) * 4 + (_P,),
+    "pft_mac_sub": (_P,) * 5,
+    "pft_ntru_finish": (_P,) * 5 + (_I, _P, _P),
     "pft_cmux_mxu": (_P,) * 13 + (_I,) * 6 + (_P,),
     "pft_ntru_cmux_mxu": (_P,) * 12 + (_I,) * 4 + (_P,),
     "pft_cmux_mxu_clusters": (_I,) * 7 + (_P,),
@@ -152,6 +157,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.pft_error_string.argtypes = [ctypes.c_int]
     lib.pft_error_string.restype = ctypes.c_char_p
+    lib.pft_ntt_columns_taken.argtypes = [ctypes.c_int]
+    lib.pft_ntt_columns_taken.restype = ctypes.c_uint64
     return lib
 
 

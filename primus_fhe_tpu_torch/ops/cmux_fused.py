@@ -23,12 +23,13 @@ the card, and the measured times, are in the source's note and PERF.md.
 The one-launch kernel holds a ciphertext's cluster in shared memory, so it
 takes ``kp*k1 <= 8``, ``k1 <= 4``, ``L <= 16``, ``log_n`` 4-12 and ``(2 +
 kp + L + k1) * 4n`` bytes within 227 KB.  Every other shape with ``kp <=
-4``, ``L <= 32`` and ``log_n`` 4-17 runs the staged route, under the JAX's
+4``, ``L <= 32`` and ``log_n`` 4-26 runs the staged route, under the JAX's
 names: :func:`cmux_stage1` (kernel G, then kernel 1 at ``out_factor=4``)
 writes the lazy NTT-domain digits to device memory and :func:`cmux_stage2`
 (kernel H, ``csrc/cmux_stage2.cu``: a cluster of kp x C blocks a
 ciphertext and output component, a row over C slices, the MAC, the inverse
-NTT and the CRT) adds the product into ``acc``.  :func:`step_route` is the
+NTT and the CRT; past ``log_n`` 17 two launches around the four-step,
+:class:`Stage2Plan`) adds the product into ``acc``.  :func:`step_route` is the
 rule, a pure function of the shape.
 
 The plain versions stay the two stages (:func:`cmux_stage1_plain`,
@@ -48,6 +49,8 @@ from ..lattice.tfhe import external_product_mac
 from ..numeric.limb import MASK32, narrow_u32, widen_u32
 from . import build
 from .ntt32 import forward32_plain, inverse32_plain
+from .ntt_columns import (MAC_SUB_LOG, MAX_LOG_N, four_step, inverse_stages, mac_sub,
+                          mac_sub_pack)
 from .rotate import rotate_plain
 
 MAX_CLUSTER = 8  # kp * k1 blocks a ciphertext (MAX_CLUSTER in csrc/cmux_fused.cu)
@@ -56,7 +59,7 @@ MAX_LEVEL = 16  # L products below 2^60 sum below 2^64 (MAX_LEVEL there)
 SMEM_MAX = 232448  # the most shared memory a block may ask for on the card
 STAGED_MAX_KP = 4  # kernel H's primes (PFT_MAX_KP in csrc/modarith32.cuh)
 STAGED_MAX_LEVEL = 32  # kernel H's levels (H_MAX_LEVEL in csrc/cmux_stage2.cu)
-STAGED_LOG_N = (4, 17)  # kernel H's rings; kernels G and 1 take them too
+STAGED_LOG_N = (4, MAX_LOG_N)  # kernel H's rings (split past 17); kernels G and 1 take them too
 
 
 def step_route(kp: int, k1: int, level: int, log_n: int) -> str:
@@ -152,24 +155,72 @@ class Stage2Plan:
     """Kernel H's launch constants for a convolver, ``k1`` and ``L`` on a
     CUDA ``device``: the host pack and the inverse tables it points to
     (held, so that they outlive every launch).  ``plan(f, key, acc, out)``
-    launches once on int32 tensors already checked by the caller."""
+    launches once on int32 tensors already checked by the caller.
+
+    Past ``log_n`` 17 (:attr:`split`) kernel H is two launches around the
+    four-step: :func:`.ntt_columns.mac_sub` (the MAC and each 2^13-word
+    sub-row's inverse stages, lazy words into a ``(kp, B, k1, n)`` buffer
+    the plan makes once a batch size) and :func:`cmux_stage2_cols` (the
+    last stages across the sub-rows, the CRT and the add into ``out``)."""
 
     def __init__(self, conv, k1: int, level: int, device):
         step_route(conv.count, k1, level, conv.log_n)  # the card's limits
-        self.k1, self.level = k1, level
+        self.conv, self.k1, self.level = conv, k1, level
+        self.device = torch.device(device)
         self._tables = conv.ntt.kernel_tables(device)
         self.pack = stage2_pack(conv, k1, level,
                                 [t.data_ptr() for t in self._tables[2:]])
         self._pack_ptr = self.pack.ctypes.data
+        self.split = four_step(conv.log_n)
         self._entry = build.library().pft_cmux_stage2
+        self._subs: dict = {}
+
+    def _sub(self, bsz: int):
+        """``(mac_sub's pack, the lazy-word buffer)`` of a batch size."""
+        held = self._subs.get(bsz)
+        if held is None:
+            conv, k1, level, n = self.conv, self.k1, self.level, self.conv.n
+            strides = (bsz * k1 * level * n, k1 * level * n, n, k1 * level * k1 * n, n, k1 * n)
+            pack = mac_sub_pack(conv.count, k1, bsz, k1 * level, conv.log_n, strides,
+                                [t.data_ptr() for t in self._tables[2:]], conv.ntt.prime_pack)
+            part = torch.empty((conv.count, bsz, k1, n), dtype=torch.int32, device=self.device)
+            held = self._subs[bsz] = (pack, part)
+        return held
 
     def __call__(self, f, key, acc, out, bsz: int) -> None:
         if (f.data_ptr() | key.data_ptr()) % 16:
             raise ValueError("cmux_stage2: the digits and the key must start on 16 bytes")
+        if self.split:
+            pack, part = self._sub(bsz)
+            mac_sub(f, key, part, pack)
+            cmux_stage2_cols(self, part, acc, out, bsz)
+            return
         err = self._entry(f.data_ptr(), key.data_ptr(), acc.data_ptr(), out.data_ptr(), bsz,
                           self._pack_ptr, torch.cuda.current_stream(acc.device).cuda_stream)
         build.check(err, "cmux_stage2")
         cmux_stage2.launches += 1
+
+
+def cmux_stage2_cols(plan: Stage2Plan, part, acc, out, bsz: int) -> None:
+    """Kernel H's column launch past ``log_n`` 17 on CUDA int32 tensors:
+    ``out = acc + CRT(INTT(...))`` from :func:`.ntt_columns.mac_sub`'s lazy
+    words ``part (kp, B, k1, n)`` (the inverse's last ``log_n - 13``
+    stages, canonical, then kernel H's CRT and add; ``out`` may be
+    ``acc``)."""
+    err = build.library().pft_cmux_stage2_cols(part.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                                                bsz, plan._pack_ptr,
+                                                torch.cuda.current_stream(acc.device).cuda_stream)
+    build.check(err, "cmux_stage2_cols")
+    cmux_stage2_cols.launches += 1
+
+
+def cmux_stage2_cols_plain(conv, part: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`cmux_stage2_cols` on int64 words: ``part (kp,
+    B, k1, n)`` lazy, ``acc (B, k1, n)`` -> ``acc + CRT(...)``."""
+    plans = conv.ntt.plans_on(part.device)
+    res = torch.stack([inverse_stages(pl, part[i], MAC_SUB_LOG, pl.log_n, 32, 1)
+                       for i, pl in enumerate(plans)])
+    return (acc + conv.recombine(res)) & MASK32
 
 
 def launch_grid(conv, k1: int, bsz: int) -> tuple[int, int, int, int]:
@@ -216,7 +267,8 @@ def cmux_stage2(conv, f: torch.Tensor, key: torch.Tensor, acc: torch.Tensor, out
     key[:, r, l, j]))`` for ``f (kp, B*k1, L, n)`` lazy ``[0, 4p)`` digits
     (:func:`cmux_stage1`'s), ``key (kp, k1, L, k1, n)`` canonical and ``acc
     (B, k1, n)``.  CPU tensors take :func:`cmux_stage2_plain`; CUDA tensors
-    kernel H, one launch (kp 1-4, any k1, L 1-32, log_n 4-17; a
+    kernel H, one launch (kp 1-4, any k1, L 1-32, log_n 4-17; two at 18-26,
+    :class:`Stage2Plan`; a
     ``ValueError`` past them, before any launch).  ``out`` may be ``acc``
     (contiguous int32: the kernel adds in place); else the output keeps
     ``acc``'s storage."""
@@ -335,7 +387,7 @@ def fused_cmux_step(conv, basis, acc: torch.Tensor, degrees: torch.Tensor, key: 
     ``k1 <= 4``, ``L`` 1-16, ``log_n`` 4-12, ``(2 + kp + L + k1) * 4n``
     bytes of shared memory within 227 KB), else :func:`cmux_stage1` then
     :func:`cmux_stage2` (``kp`` 1-4, any ``k1``, ``L`` 1-32, ``log_n``
-    4-17); :class:`CmuxStepPlan` raises ``ValueError`` past those, before
+    4-26); :class:`CmuxStepPlan` raises ``ValueError`` past those, before
     any launch.  The plain composition takes any shape.
     """
     if acc.device.type == "cpu":
@@ -349,3 +401,4 @@ def fused_cmux_step(conv, basis, acc: torch.Tensor, degrees: torch.Tensor, key: 
 
 fused_cmux_step.launches = 0
 cmux_stage2.launches = 0
+cmux_stage2_cols.launches = 0

@@ -46,6 +46,7 @@ from .cmux_fused import _aligned16, _basis_pack, _check_device
 from .cmux_mxu import (MXU_LOG_N, CmuxMxuPlan, _check_aligned, digit_planes, launch_clusters,
                        mxu_holds, shoup_precons)
 from .ntt32 import MAX_LOG_N, forward32, forward32_plain, inverse32_plain
+from .ntt_columns import MAC_SUB_LOG, columns_inverse, four_step, mac_sub, mac_sub_pack
 from .ntt_mxu8 import mxu8_forward32
 
 NTRU_STAGED_MAX_LEVEL = 32  # kernel J's levels (J_MAX_LEVEL in csrc/ntru_stage.cu)
@@ -245,7 +246,15 @@ class NtruStage2Plan:
     levels), for the digit output.  ``plan(f, evk, acc, degrees, out,
     digits)`` launches once on int32 tensors already checked by the
     caller; ``digits`` (or None) receives the output's gadget digits and
-    may be ``f``."""
+    may be ``f``.
+
+    Past ``log_n`` 17 (:attr:`split`) kernel J is three launches around
+    the four-step: :func:`.ntt_columns.mac_sub` (the MAC and each
+    2^13-word sub-row's inverse stages, lazy words into a ``(B, n)``
+    buffer the plan makes once a batch size), the inverse's column launch
+    (:func:`.ntt_columns.columns_inverse`, canonical: delta, in place) and
+    :func:`ntru_finish` (the rotation, whose source words cross sub-rows,
+    and the digits)."""
 
     def __init__(self, tables, level: int, device, basis=None):
         if len(tables.primes) != 1:
@@ -256,23 +265,68 @@ class NtruStage2Plan:
         if basis is not None and (basis.decompose_length != level
                                   or basis.modulus != tables.primes[0]):
             raise ValueError("kernel J's digits: the basis must be mod q with L levels")
+        self.tables, self.level, self.device = tables, level, torch.device(device)
         self._tables = tables.kernel_tables(device)
         self.pack = stage2_pack(tables, level, [t.data_ptr() for t in self._tables[2:]], basis)
         self._pack_ptr = self.pack.ctypes.data
         self._entry = build.library().pft_ntru_stage2
         self.digits = basis is not None
+        self.split = four_step(tables.log_n)
+        self._subs: dict = {}
+
+    def _sub(self, bsz: int):
+        """``(mac_sub's pack, the lazy-word buffer)`` of a batch size."""
+        held = self._subs.get(bsz)
+        if held is None:
+            n = self.tables.n
+            pack = mac_sub_pack(1, 1, bsz, self.level, self.tables.log_n,
+                                (0, n, bsz * n, 0, 0, n),
+                                [t.data_ptr() for t in self._tables[2:]], self.tables.prime_pack)
+            part = torch.empty((bsz, n), dtype=torch.int32, device=self.device)
+            held = self._subs[bsz] = (pack, part)
+        return held
 
     def __call__(self, f, evk, acc, degrees, out, digits=None) -> None:
         if (f.data_ptr() | evk.data_ptr()) % 16:
             raise ValueError("ntru_stage2: the digits and the evk row must start on 16 bytes")
         if digits is not None and not self.digits:
             raise ValueError("ntru_stage2: a plan without a basis writes no digits")
+        if self.split:
+            bsz, log_n = acc.shape[0], self.tables.log_n
+            pack, part = self._sub(bsz)
+            mac_sub(f, evk, part, pack)
+            columns_inverse(32, part, part, self._tables[2], self._tables[3],
+                            build.ptr(self.tables.prime_pack), 1, bsz, log_n, l=MAC_SUB_LOG)
+            ntru_finish(self, part, acc, degrees, out, digits)
+            return
         err = self._entry(f.data_ptr(), evk.data_ptr(), acc.data_ptr(), degrees.data_ptr(),
                           out.data_ptr(), None if digits is None else digits.data_ptr(),
                           acc.shape[0], self._pack_ptr,
                           torch.cuda.current_stream(acc.device).cuda_stream)
         build.check(err, "ntru_stage2")
         ntru_stage2.launches += 1
+
+
+def ntru_finish(plan: NtruStage2Plan, delta, acc, degrees, out, digits=None) -> None:
+    """Kernel J's last launch past ``log_n`` 17 on CUDA int32 tensors:
+    ``out = acc + rot(delta, d) - delta`` mod q for ``delta (B, n)``
+    canonical, and with ``digits`` (``(L, B, n)``, may be the digits the
+    MAC read) the output's gadget digits (``out`` may be ``acc``)."""
+    err = build.library().pft_ntru_finish(
+        delta.data_ptr(), acc.data_ptr(), degrees.data_ptr(), out.data_ptr(),
+        None if digits is None else digits.data_ptr(), acc.shape[0], plan._pack_ptr,
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    build.check(err, "ntru_finish")
+    ntru_finish.launches += 1
+
+
+def ntru_finish_plain(q: int, delta: torch.Tensor, acc: torch.Tensor, degrees: torch.Tensor,
+                      basis=None):
+    """Plain version of :func:`ntru_finish` on int64 words: ``acc +
+    rot(delta, d) - delta`` mod q, and with ``basis`` also its digits ``(L,
+    B, n)`` (:func:`ntru_digits_plain`'s words)."""
+    out = add32(acc, sub32(poly_rotate32(delta, degrees, q), delta, q), q)
+    return out if basis is None else (out, ntru_digits_plain(basis, out))
 
 
 def ntru_stage2(tables, f: torch.Tensor, evk: torch.Tensor, acc: torch.Tensor,
@@ -406,6 +460,7 @@ class NtruStepPlan:
 
 ntru_digits.launches = 0
 ntru_stage2.launches = 0
+ntru_finish.launches = 0
 
 
 def prepare_mxu_evk(ctx, evk_coeff: torch.Tensor):

@@ -32,7 +32,11 @@ At ``log_n`` 15-17 a row (128-512 KB) outgrows a block: it runs over a
 thread-block cluster of ``2^(log_n - 14)`` blocks (2, 4 or 8), a slice of
 2^14 words each (``csrc/ntt_split.cuh``).  The stages that pair words of different
 slices go over distributed shared memory; each slice runs the same radix-8
-passes on the compact root table read at its offsets.
+passes on the compact root table read at its offsets.  At 18-26 a row
+outgrows a cluster: the four-step through device memory
+(:mod:`.ntt_columns`), a column launch for the stages across the 2^14-word
+sub-rows and a sub-row launch (a block a sub-row, the slice's passes) for
+the rest; two launches a transform.
 
 The butterflies are the plain version's (:mod:`..transforms.ntt`) formulas
 exactly, so canonical and lazy outputs are bit-equal to it.
@@ -49,9 +53,9 @@ from ..transforms.ntt import inverse32 as _plan_inverse32
 from ..transforms.plan import build_plan32
 from ..utils.contracts import check_range_u32
 from . import build
+from .ntt_columns import MAX_LOG_N, check_ring, count_entry_columns, four_step
 
 MAX_PRIMES = 4  # PFT_MAX_KP in csrc/modarith32.cuh
-MAX_LOG_N = 17  # the kernels' largest row (MAX_LOG_N in csrc/ntt32.cu)
 
 
 class NttTables32:
@@ -125,9 +129,7 @@ def _run(wrapper, plain, entry: str, table_idx: int, tables: NttTables32, values
     kp, n = len(tables.primes), tables.n
     if values.shape[0] != kp or values.shape[-1] != n:
         raise ValueError(f"expected (kp={kp}, ..., n={n}), got {tuple(values.shape)}")
-    if tables.log_n > MAX_LOG_N:
-        raise ValueError(f"{wrapper.__name__}: the kernel takes log_n 1-{MAX_LOG_N} on the card, "
-                         f"got {tables.log_n}")
+    check_ring(wrapper.__name__, tables.log_n)
     v = narrow_u32(values).contiguous()
     if v.data_ptr() % 16:  # the kernels move words 8 or 16 bytes at a time
         v = v.clone()
@@ -147,6 +149,8 @@ def _run(wrapper, plain, entry: str, table_idx: int, tables: NttTables32, values
             build.ptr(tables.prime_pack), kp, rows, tables.log_n, int(out_factor == 1),
             torch.cuda.current_stream(v.device).cuda_stream,
         )
+        if four_step(tables.log_n):  # the entry's column launch, counted on its own
+            count_entry_columns()
         build.check(err, entry)
         wrapper.launches += 1
     return out if given or values.dtype == torch.int32 else widen_u32(out)
@@ -158,9 +162,11 @@ def forward32(tables: NttTables32, values: torch.Tensor, out_factor: int = 1, ou
     canonical for ``out_factor=1`` and lazy ``[0,4q)`` for ``4``.
 
     CPU tensors take the plain version (any ``log_n``), CUDA tensors the
-    kernel, which takes ``log_n`` 1-17 (:data:`MAX_LOG_N`; a ``ValueError``
-    above, before any launch; 15-17 a row over a cluster) and at most 4
-    primes (:class:`NttTables32` refuses more).  ``out``: int32 words of
+    kernel, which takes ``log_n`` 1-26 (:data:`MAX_LOG_N`; a ``ValueError``
+    above, before any launch; 15-17 a row over a cluster, 18-26 the
+    four-step: the entry's column launch, then this kernel on the sub-rows,
+    the column launch counted on :func:`.ntt_columns.columns_forward`) and
+    at most 4 primes (:class:`NttTables32` refuses more).  ``out``: int32 words of
     ``values``' shape to write (may be ``values`` itself); it is returned.
     """
     if out_factor not in (1, 4):

@@ -1,5 +1,5 @@
 """Kernels ``ntt64_forward`` and ``ntt64_inverse``: the 64-bit negacyclic NTT
-and its inverse (``q < 2^62``, ``n <= 2^17``), one launch for every group of
+and its inverse (``q < 2^62``, ``n <= 2^26``), one launch for every group of
 up to four moduli of a DCRT plan (:func:`mod_groups`).
 
 Replace ``pallas_forward64`` and ``pallas_inverse64``
@@ -35,7 +35,8 @@ emulation, pre-split 16-bit limb tables and lane rolls are gone.  A row of
 there a row runs over a cluster of 2, 4 or 8 blocks, one slice of 2^14
 words each, the stages that pair words of different slices over
 distributed shared memory (``csrc/ntt64.cu`` and ``csrc/ntt_split.cuh``
-say how).
+say how).  A row of 2^18-2^26 words runs the four-step through device
+memory (:mod:`.ntt_columns`): a column launch and a sub-row launch.
 
 The kernels run the plain version's butterflies
 (:func:`..transforms.ntt.forward64` / ``inverse64``) on the same pairs,
@@ -55,10 +56,10 @@ from ..transforms.ntt import inverse64 as _plan_inverse64
 from ..transforms.plan import NttPlan64, _quot64, build_plan64
 from ..utils.contracts import check_range_u64
 from . import build
+from .ntt_columns import MAX_LOG_N, check_ring, count_entry_columns, four_step
 
 MAX_MODULI = 4  # a launch's moduli: PFT_MAX_MOD64 in csrc/modarith64.cuh
 MOD_WORDS = 9  # a modulus's words in the pack: PFT_MOD64_WORDS
-MAX_LOG_N = 17  # MAX_LOG_N in csrc/ntt64.cu: past 14, a row over a cluster of 2^(log_n - 14)
 
 
 def mod_groups(count: int) -> list[slice]:
@@ -164,8 +165,7 @@ def _launch(wrapper, entry: str, table_idx: int, tables: NttTables64, values, ou
     if values.dtype != torch.int64 or values.shape[0] != count or values.shape[-1] != n:
         raise ValueError(f"expected int64 (count={count}, ..., n={n}), got "
                          f"{values.dtype} {tuple(values.shape)}")
-    if tables.log_n > MAX_LOG_N:
-        raise ValueError(f"{wrapper.__name__}: the kernels take n <= 2^{MAX_LOG_N}")
+    check_ring(wrapper.__name__, tables.log_n)
     v = values.contiguous()
     out = torch.empty_like(v)
     rows = v[0].numel() // n
@@ -178,6 +178,8 @@ def _launch(wrapper, entry: str, table_idx: int, tables: NttTables64, values, ou
                 tables.log_n, int(out_factor == 1), *extra,
                 torch.cuda.current_stream(v.device).cuda_stream,
             )
+            if four_step(tables.log_n):  # the entry's column launch, counted on its own
+                count_entry_columns()
             build.check(err, entry)
             wrapper.launches += 1
     return out
@@ -190,9 +192,10 @@ def ntt64_forward(tables: NttTables64, values: torch.Tensor, out_factor: int = 1
     ``[0,4q)`` for ``4``.
 
     CPU tensors take the plain version (any ``log_n``), CUDA tensors the
-    kernel, which takes ``log_n`` 1-17 (:data:`MAX_LOG_N`; a ``ValueError``
+    kernel, which takes ``log_n`` 1-26 (:data:`MAX_LOG_N`; a ``ValueError``
     above, before any launch), one launch a group of up to 4 moduli
-    (:func:`mod_groups`).
+    (:func:`mod_groups`); at 18-26 the four-step (:mod:`.ntt_columns`: the
+    column launch, then this kernel on the sub-rows, two launches a group).
     """
     if out_factor not in (1, 4):
         raise ValueError("out_factor must be 1 or 4")
@@ -208,8 +211,9 @@ def ntt64_inverse(tables: NttTables64, values: torch.Tensor, out_factor: int = 1
     ``[0, in_factor*q)``, ``in_factor`` a power of two of at least 2 (a
     ``ValueError`` otherwise); output normal order, canonical for
     ``out_factor=1`` and lazy ``[0,2q)`` for ``2``.  The same devices and
-    limits as :func:`ntt64_forward`: the kernel takes ``log_n`` 1-17, one
-    launch a group of up to 4 moduli."""
+    limits as :func:`ntt64_forward`: the kernel takes ``log_n`` 1-26, one
+    launch a group of up to 4 moduli (at 18-26 the sub-row launch, then the
+    column launch)."""
     if out_factor not in (1, 2):
         raise ValueError("out_factor must be 1 or 2")
     if in_factor < 2 or in_factor & (in_factor - 1):

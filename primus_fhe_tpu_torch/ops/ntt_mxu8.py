@@ -4,7 +4,7 @@ transforms of the same functions on butterflies.
 - Kernel C, ``mxu8_forward32``: the u32 tier (``q < 2^30``) of
   ``mxu8_fused_forward64`` (``primus_fhe_tpu/ops/ntt_mxu8.py:917``), which
   ``prepare_mxu_bsk`` and ``prepare_mxu_evk`` run.  Its function is kernel
-  1's canonical forward NTT (:mod:`.ntt32`), so at ``log_n`` 13-17 the
+  1's canonical forward NTT (:mod:`.ntt32`), so at ``log_n`` 13-26 the
   wrapper runs kernel 1 itself; at 8-12 kernel C's design is kernel 1's: a
   persistent kernel in ``csrc/ntt32.cu`` on kernel 1's radix-8 register
   passes, each block taking a range of (prime, tile of rows) items, one
@@ -26,7 +26,7 @@ transforms of the same functions on butterflies.
   by that operand (forward, multiply, inverse) in one launch; the operand
   comes as a :meth:`Mxu8Tables64.mul_table`.
 
-The byte-radix kernels take ``log_n`` 8-12 (:data:`MXU_LOG_N`).  At 13-17
+The byte-radix kernels take ``log_n`` 8-12 (:data:`MXU_LOG_N`).  At 13-26
 (:data:`WIDE_LOG_N`) the four u64 functions run on row 10's radix-8 passes
 (``csrc/ntt64.cu``), as kernel C runs on kernel 1 past 12: the forward's
 and the inverse's kernels with any u64 word brought below 2q as it loads
@@ -34,9 +34,12 @@ and the inverse's kernels with any u64 word brought below 2q as it loads
 D's key multiplied in as each word loads (``pft_ntt64_inverse_mul``), and
 kernel E, whose launch takes those rings too (the forward's table read
 from device memory past 2^12, a row over a cluster of 2, 4 or 8 blocks at
-2^15-2^17, still one launch).  Each launch is counted on the wrapper the
-caller called.  Past 17 the plan builds and the plain versions compute;
-the card raises before any launch, as row 10 does.
+2^15-2^17, still one launch).  At 18-26 each C entry runs the four-step
+(:mod:`.ntt_columns`) itself: the forward's column launch before the
+sub-row launch (forward64, E) and the inverse's after it (inverse64, D,
+E).  Each launch is counted on the wrapper the caller called (the column
+launches on their own).  Past 26 the plan builds and the plain versions compute; the
+card raises before any launch, as row 10 does.
 
 All but the round trip reach ``pallas_call`` through
 ``ops/mxu_common._natural_call`` in the reference.  CUDA source:
@@ -102,6 +105,7 @@ from .ntt64 import MAX_LOG_N as NTT64_MAX_LOG_N
 from .ntt64 import NttTables64, group_pack, mod_groups, ntt64_forward_plain
 from .ntt64 import ntt64_inverse_plain
 from .ntt64 import pick_tile as ntt64_pick_tile
+from .ntt_columns import count_entry_columns, four_step
 
 C_LOG_N = (8, 12)  # kernel C's rows on the card (C_MIN_LOG_N, C_MAX_LOG_N in csrc/ntt32.cu)
 MXU_LOG_N = (8, 12)  # the u64 byte-radix kernels' rows on the card (csrc/ntt_mxu8.cu)
@@ -131,9 +135,9 @@ def mxu8_forward32(plan, values: torch.Tensor) -> torch.Tensor:
     CPU tensors take the plain version, CUDA tensors kernel C (one launch
     for every prime) at ``log_n`` 8-12 and kernel 1 at ``out_factor=1``
     (:func:`.ntt32.forward32`, its launch counted there; a row over a
-    cluster at 15-17) at 13-17: the same function, so the same words.  A
-    ``ValueError`` outside 8-17, before any launch; the output keeps the
-    input's storage.
+    cluster at 15-17, the four-step at 18-26) at 13-26: the same function,
+    so the same words.  A ``ValueError`` outside 8-26, before any launch;
+    the output keeps the input's storage.
     """
     if values.device.type == "cpu":
         out = mxu8_forward32_plain(plan, widen_u32(values))
@@ -577,6 +581,8 @@ def _run64(wrapper, plain, tables: Mxu8Tables64, values, out_factor, allowed, by
                 group_pack(tables.ntt, g), g.stop - g.start, rows, tables.log_n, *planes,
                 torch.cuda.current_stream(v.device).cuda_stream,
             )
+            if four_step(tables.log_n):  # the entry's column launches, counted on their own
+                count_entry_columns()
             build.check(err, entry)
             wrapper.launches += 1
     return out
@@ -591,7 +597,7 @@ def mxu8_forward64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
     docstring).
 
     CPU tensors take the plain version, CUDA tensors the kernel (one launch
-    a group of up to four moduli; ``log_n`` 8-12, row 10's forward at 13-17,
+    a group of up to four moduli; ``log_n`` 8-12, row 10's forward at 13-26,
     a ``ValueError`` outside).  Under ``PRIMUS_DEBUG=1`` it holds the
     input to the reference's contract, words below ``2^(8 planes)`` below 8
     planes."""
@@ -609,7 +615,7 @@ def mxu8_inverse64(tables: Mxu8Tables64, values: torch.Tensor, out_factor: int =
 
     CPU tensors take the plain version, CUDA tensors the tiled kernel (one
     launch a group of up to four moduli) at ``log_n`` 8-12 and row 10's
-    inverse at 13-17 (each word reduced as it loads); a ``ValueError``
+    inverse at 13-26 (each word reduced as it loads); a ``ValueError``
     outside, before any launch (``route="auto"`` sends 13 and up to the
     butterfly)."""
     # row 10's keyed inverse with a null key: each word times 1 as it loads
@@ -626,7 +632,7 @@ def mxu8_inverse64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: torc
 
     CPU tensors take the plain version, CUDA tensors :func:`mxu8_inverse64`'s
     tiled kernel with the key multiplied in as each word is loaded at
-    ``log_n`` 8-12, row 10's inverse with the same load at 13-17
+    ``log_n`` 8-12, row 10's inverse with the same load at 13-26
     (``pft_ntt64_inverse_mul``); a ``ValueError`` outside."""
     return _run64(mxu8_inverse64_mul, mxu8_inverse64_mul_plain, tables, values, out_factor,
                   (1, 2), ("pft_ntt_mxu8_inverse64_mul", ("wi1s", "wi2s", "tw"), (mul_tab,)),
@@ -643,9 +649,11 @@ def mxu8_roundtrip64_mul(tables: Mxu8Tables64, values: torch.Tensor, mul_tab: to
     CPU tensors take the plain version, CUDA tensors the kernel of
     ``csrc/ntt64.cu`` (row 10's radix-8 passes for both transforms, the key
     between them, one launch a group of up to four moduli; the launch picks its tile of
-    rows, :func:`roundtrip_tile`); on the card ``log_n`` 8-17 (a row over a
-    cluster of 2, 4 or 8 blocks at 15-17; a ``ValueError`` outside)."""
-    route = ("pft_ntt64_roundtrip_mul", (0, 1, 2, 3), (mul_tab,))  # the same at 8-17
+    rows, :func:`roundtrip_tile`); on the card ``log_n`` 8-26 (a row over a
+    cluster of 2, 4 or 8 blocks at 15-17; at 18-26 three launches: the
+    forward's columns, this kernel on the sub-rows, the inverse's columns;
+    a ``ValueError`` outside)."""
+    route = ("pft_ntt64_roundtrip_mul", (0, 1, 2, 3), (mul_tab,))  # the same at 8-26
     return _run64(mxu8_roundtrip64_mul, mxu8_roundtrip64_mul_plain, tables, values, out_factor,
                   (1, 2), route, route, mul_tab)
 

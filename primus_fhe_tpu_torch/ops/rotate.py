@@ -46,7 +46,7 @@ def _rows(t: torch.Tensor, n: int) -> torch.Tensor | None:
 def check_row(what: str, n: int) -> None:
     """Raises a ``ValueError`` naming the cap where kernels F and G take no
     rows of ``n`` words: the cap is the library's own (``FG_MAX_LOG_N`` in
-    ``csrc/cmux_front.cu``, 17)."""
+    ``csrc/cmux_front.cu``, 29: every index of a row in an int)."""
     cap = build.library().pft_rotate_max_log_n()
     if n > 1 << cap:
         raise ValueError(f"{what}: the kernel takes rows of up to 2^{cap} words, got {n}")
@@ -62,7 +62,7 @@ def rotate(values: torch.Tensor, degrees: torch.Tensor, subtract: bool = False,
     output keeps the input's storage (int64 words or int32), or goes into
     ``out``: int32 storage of ``values``' shape, any view with evenly spaced
     rows (``acc[:, -1, :]``), not overlapping ``values``; ``out`` is
-    returned.  On the card rows of up to ``2^17`` words (:func:`check_row`:
+    returned.  On the card rows of up to ``2^29`` words (:func:`check_row`:
     a ``ValueError`` past it, before any launch)."""
     if out is not None and (out.dtype != torch.int32 or out.shape != values.shape
                             or out.device != values.device):

@@ -36,6 +36,7 @@ from .decompose.primitive import ApproxSignedBasis32
 from .distr.sampling import DiscreteGaussian, sample_binary, sample_uniform
 from .lattice import keyswitch, tfhe
 from .lattice.lwe import encrypt_torus32, phase_torus32
+from .numeric.limb import narrow_u32
 from .utils.primes import next_ntt_prime
 
 __all__ = [
@@ -214,19 +215,20 @@ def from_jax_context(params: TfheParams, bsk, ksk, lwe_secret, glwe_secret,
     (the card unless the caller asks for the CPU).
 
     Arrays come as numpy (``np.asarray`` of the JAX context's fields):
-    ``bsk`` the NTT key ``(n_lwe, kp, k+1, L, k+1, N)`` or the MXU pack
-    ``(vals, precons)``, ``ksk (n_in, L, n_out+1)``, ``lwe_secret
-    (n_lwe,)``, ``glwe_secret (k, N)``.
+    ``bsk`` the NTT key ``(n_lwe, kp, k+1, L, k+1, N)`` (stored as
+    :func:`make_context` stores it: int32 words, each checked to be a
+    canonical residue, :func:`_ntt_bsk`) or the MXU pack ``(vals,
+    precons)``, ``ksk (n_in, L, n_out+1)``, ``lwe_secret (n_lwe,)``,
+    ``glwe_secret (k, N)``.
     """
     basis, ks_basis, conv = _bases(params)
-    if isinstance(bsk, (tuple, list)):
-        bsk_t = tuple(_t(x, device) for x in bsk)
-        kp = bsk_t[0].shape[1]
-    else:
-        bsk_t = _t(bsk, device)
-        kp = bsk_t.shape[1]
+    kp = np.asarray(bsk[0] if isinstance(bsk, (tuple, list)) else bsk).shape[1]
     if kp != conv.count:
         raise ValueError(f"bsk has {kp} primes, the convolver {conv.count}")
+    if isinstance(bsk, (tuple, list)):
+        bsk_t = tuple(_t(x, device) for x in bsk)
+    else:
+        bsk_t = _ntt_bsk(bsk, conv, device)
     return TfheContext(
         params, basis, ks_basis, conv, DiscreteGaussian(max(params.lwe_sigma, 1e-6)),
         _t(lwe_secret, device), _t(glwe_secret, device), bsk_t, _t(ksk, device),
@@ -247,6 +249,16 @@ def from_jax_ntt_key(array, conv: tfhe.TorusConvolver32, device="cuda") -> torch
     if arr.min() < 0 or (arr >= primes).any():
         raise ValueError("a word is not a canonical residue of its prime")
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _ntt_bsk(bsk, conv: tfhe.TorusConvolver32, device) -> torch.Tensor:
+    """An NTT bootstrap key ``(n_lwe, kp, k+1, L, k+1, N)`` given as numpy,
+    in the storage :func:`..boot.blind_rotate.make_bootstrap_key` makes:
+    every word checked to be a canonical residue of its prime
+    (:func:`from_jax_ntt_key`, on the host), then kept as its 32 bits
+    (int32), contiguous on ``device``."""
+    key = from_jax_ntt_key(np.moveaxis(np.asarray(bsk), 1, 0), conv, "cpu").movedim(0, 1)
+    return narrow_u32(key).contiguous().to(device)
 
 
 def _u32_host(x: torch.Tensor) -> np.ndarray:
@@ -283,7 +295,8 @@ def load_keys(path, device="cuda") -> TfheContext:
     on ``device`` (the card unless the caller asks for the CPU); bases and
     the convolver are derived again from the parameters.  The bootstrap
     key goes through :func:`from_jax_ntt_key` (prime axis first), which
-    refuses a word that is not a canonical residue of its prime."""
+    refuses a word that is not a canonical residue of its prime, and is
+    stored as :func:`make_context` stores it (int32 words, :func:`_ntt_bsk`)."""
     with np.load(path) as z:
         pv, sig = z["params"], z["sigmas"]
         params = TfheParams(
@@ -292,11 +305,10 @@ def load_keys(path, device="cuda") -> TfheContext:
             ks_level=int(pv[6]), lwe_sigma=float(sig[0]), glwe_sigma=float(sig[1]),
         )
         basis, ks_basis, conv = _bases(params)
-        bsk = from_jax_ntt_key(np.moveaxis(z["bsk"], 1, 0), conv, device).movedim(0, 1)
         return TfheContext(
             params, basis, ks_basis, conv, DiscreteGaussian(max(params.lwe_sigma, 1e-6)),
-            _t(z["lwe_secret"], device), _t(z["glwe_secret"], device), bsk.contiguous(),
-            _t(z["ksk"], device),
+            _t(z["lwe_secret"], device), _t(z["glwe_secret"], device),
+            _ntt_bsk(z["bsk"], conv, device), _t(z["ksk"], device),
         )
 
 

@@ -72,7 +72,7 @@ def test_step_route(kp, k1, level, log_n, route):
 
 
 @pytest.mark.parametrize("kp,k1,level,log_n,limit", [
-    (2, 2, 3, 18, "log_n 4-17"), (2, 2, 3, 3, "log_n 4-17"), (5, 2, 3, 10, "1-4"),
+    (2, 2, 3, 27, "log_n 4-26"), (2, 2, 3, 3, "log_n 4-26"), (5, 2, 3, 10, "1-4"),
     (2, 2, 33, 10, "1-32"),
 ])
 def test_step_route_refuses_past_the_card(kp, k1, level, log_n, limit):

@@ -141,16 +141,62 @@ def test_ntt_kernels_match_plain(dev, log_n, primes, rows):
 
 
 def test_ntt_kernels_refuse_rows_past_the_card(dev):
-    """log_n 18 takes the plain version on the CPU and a ValueError naming
-    the limit on the card, before any launch."""
+    """log_n 27 (past the four-step's 26) raises a ValueError naming the
+    limit on the card, before any launch, the tables' own check first (a
+    view of one word a row stands in for the row)."""
     tables = ntt32.NttTables32(18, [next_ntt_prime(30, 18)])
-    x = torch.zeros((1, 1, 1 << 18), dtype=torch.int64, device=dev)
+    tables.log_n, tables.n = 27, 1 << 27  # the wrapper's check alone
+    x = torch.zeros((1, 1, 1), dtype=torch.int32, device=dev).expand(1, 1, 1 << 27)
     before = ntt32.forward32.launches, ntt32.inverse32.launches
-    with pytest.raises(ValueError, match="log_n 1-17"):
+    with pytest.raises(ValueError, match="log_n up to 26"):
         ntt32.forward32(tables, x)
-    with pytest.raises(ValueError, match="log_n 1-17"):
+    with pytest.raises(ValueError, match="log_n up to 26"):
         ntt32.inverse32(tables, x)
     assert (ntt32.forward32.launches, ntt32.inverse32.launches) == before
+
+
+@pytest.mark.parametrize("log_n", [18, 20])
+def test_four_step_kernels_match_plain(dev, log_n):
+    """The four-step past 2^17: kernels 1-2 (kp 3, 1 and 5 rows, every
+    out_factor and in place), row 10 and row 9's four functions (2 moduli),
+    each with the column launches its C entry issues counted on their own,
+    bit-equal to the plain versions."""
+    from primus_fhe_tpu_torch.ops import ntt_columns
+
+    tables = TorusConvolver32(log_n, 60).ntt
+    gen = torch.Generator(device=dev).manual_seed(log_n)
+    cols = (ntt_columns.columns_forward, ntt_columns.columns_inverse)
+    for rows in (1, 5):
+        x4 = _residues(gen, tables.primes, (rows, 1 << log_n), 4, dev)
+        x2 = _residues(gen, tables.primes, (rows, 1 << log_n), 2, dev)
+        c0 = [fn.launches for fn in cols]
+        for of in (1, 4):
+            assert torch.equal(ntt32.forward32(tables, x4, of),
+                               ntt32.forward32_plain(tables, x4, of))
+        y = x4.to(torch.int32)
+        ntt32.forward32(tables, y, 4, out=y)
+        assert torch.equal(y.to(torch.int64) & 0xFFFFFFFF, ntt32.forward32_plain(tables, x4, 4))
+        for of in (1, 2):
+            assert torch.equal(ntt32.inverse32(tables, x2, of),
+                               ntt32.inverse32_plain(tables, x2, of))
+        assert [fn.launches - b for fn, b in zip(cols, c0)] == [3, 2]
+    moduli = [next_ntt_prime(50, log_n), next_ntt_prime(62, log_n)]
+    big = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(log_n, moduli))
+    x = torch.randint(-(1 << 63), (1 << 63) - 1, (2, 3, 1 << log_n), generator=gen, device=dev)
+    mt = big.mul_table(torch.stack([torch.randint(0, q, (1 << log_n,), generator=gen, device=dev)
+                                    for q in moduli]))
+    for name, args, want in (("mxu8_forward64", (), [1, 0]), ("mxu8_inverse64", (), [0, 1]),
+                             ("mxu8_inverse64_mul", (mt,), [0, 1]),
+                             ("mxu8_roundtrip64_mul", (mt,), [1, 1])):
+        fn, plain = getattr(ntt_mxu8, name), getattr(ntt_mxu8, name + "_plain")
+        c0 = [f.launches for f in cols]
+        assert torch.equal(fn(big, x, *args), plain(big, x, *args)), name
+        assert [f.launches - b for f, b in zip(cols, c0)] == want, name  # the entry's columns
+    xr = torch.stack([x[i] % q for i, q in enumerate(moduli)])
+    assert torch.equal(ntt64.ntt64_forward(big.ntt, xr, 4), ntt64.ntt64_forward_plain(big.ntt, xr, 4))
+    assert torch.equal(ntt64.ntt64_inverse(big.ntt, xr % torch.tensor(moduli, device=dev).reshape(
+        2, 1, 1)), ntt64.ntt64_inverse_plain(big.ntt, xr % torch.tensor(moduli, device=dev)
+                                             .reshape(2, 1, 1)))
 
 
 PRIMES_2E17 = [next_ntt_prime(30, 17)]  # = 1 mod 2^18: rings to 2^17
@@ -266,9 +312,11 @@ def test_staged_route_limits_and_fused_shapes(dev):
         conv = tfhe.make_convolver(p.log_n, p.level, p.glwe_dim, p.log_basis)
         basis = ApproxSignedBasis32(None, p.log_basis, reverse_length=p.level)
         assert cmux_fused.CmuxStepPlan(conv, basis, p.glwe_dim + 1, dev).route == "fused"
-    conv = tfhe.make_convolver(18, 3, 1, 1)
-    with pytest.raises(ValueError, match="log_n 4-17"):
-        cmux_fused.CmuxStepPlan(conv, ApproxSignedBasis32(None, 1, reverse_length=3), 2, dev)
+    conv = tfhe.make_convolver(18, 3, 1, 1)  # past 2^17: staged, kernel H split in two
+    plan = cmux_fused.CmuxStepPlan(conv, ApproxSignedBasis32(None, 1, reverse_length=3), 2, dev)
+    assert plan.route == "staged" and plan._stage2.split
+    with pytest.raises(ValueError, match="log_n 4-26"):
+        cmux_fused.step_route(3, 2, 3, 27)
     with pytest.raises(ValueError, match="1-32"):  # no torus basis has 33 levels
         cmux_fused.step_route(2, 2, 33, 10)
     blocks, threads, smem, held = cmux_fused.launch_grid(TorusConvolver32(16, 60), 2, 1)
@@ -427,11 +475,11 @@ def test_mxu8_forward_at_the_key_preparations(dev):
         assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("log_n", [7, 18])
+@pytest.mark.parametrize("log_n", [7, 27])
 def test_mxu8_forward_refuses_log_n_outside_8_to_12(dev, log_n):
-    """The wrapper takes log_n 8-17 (kernel C to 12, kernel 1 at 13-17):
-    the plan refuses 7 and the wrapper 18 (``ValueError``), before any
-    launch of either kernel."""
+    """The wrapper takes log_n 8-26 (kernel C to 12, kernel 1 at 13-26):
+    the plan refuses 7 and 27 (no 30-bit NTT prime there: ``ValueError``),
+    before any launch of either kernel."""
     before = (ntt_mxu8.mxu8_forward32.launches, ntt32.forward32.launches)
     with pytest.raises(ValueError, match="log_n"):
         plan = cmux_mxu.CmuxMxuPlan(log_n, (next_ntt_prime(30, log_n),))
@@ -465,7 +513,7 @@ def test_mxu_step_route_on_a_grid(dev):
     1, 2, 4, k1 1-4, L 1-8, 12, 20 and 32, log_n 8-17 and 1- and 2-byte
     digits: kernel A only at log_n 8-12 and, where it holds at some L, at
     every smaller L too (its plan grows with L); elsewhere ``step_route``'s
-    answer, and log_n 18 raises before any launch; the named shapes;
+    answer, and log_n 27 raises before any launch; the named shapes;
     ``ntru_step_route`` on kernel B's answers."""
     levels = list(range(1, 9)) + [12, 20, 32]
     for log_n in range(8, 18):
@@ -482,8 +530,9 @@ def test_mxu_step_route_on_a_grid(dev):
     assert cmux_mxu.mxu_step_route(2, 2, 3, 11, 1) == "mxu"  # BOOLEAN_128
     assert cmux_mxu.mxu_step_route(2, 2, 3, 12, 1) == "fused"  # its gadget at N = 4096
     assert cmux_mxu.mxu_step_route(2, 2, 3, 15, 1) == "staged"
-    with pytest.raises(ValueError, match="log_n 4-17"):
-        cmux_mxu.mxu_step_route(2, 2, 3, 18, 1)
+    assert cmux_mxu.mxu_step_route(2, 2, 3, 18, 1) == "staged"  # the split H past 2^17
+    with pytest.raises(ValueError, match="log_n 4-26"):
+        cmux_mxu.mxu_step_route(2, 2, 3, 27, 1)
     assert [ntru_cmux_mxu.ntru_step_route(*s) for s in
             ((6, 10, 1), (16, 10, 1), (20, 10, 1), (6, 12, 1), (6, 13, 1))] == [
         "mxu", "mxu", "staged", "staged", "staged"]
@@ -1018,11 +1067,10 @@ def test_row9_on_row10_passes_matches_plain(dev, log_n):
     big = ntt_mxu8.Mxu8Tables64(ntt64.NttTables64(18, [next_ntt_prime(50, 18)]))
     zeros = torch.zeros((1, 1, 1 << 18), dtype=torch.int64, device=dev)
     before = [fn.launches for fn in (ntt_mxu8.mxu8_forward64, ntt64.ntt64_forward)]
-    with pytest.raises(ValueError, match="log_n <= 17"):
-        ntt_mxu8.mxu8_forward64(big, zeros)
-    with pytest.raises(ValueError, match="n <= 2\\^17"):
-        ntt64.ntt64_forward(big.ntt, zeros)
-    assert [fn.launches for fn in (ntt_mxu8.mxu8_forward64, ntt64.ntt64_forward)] == before
+    assert torch.equal(ntt_mxu8.mxu8_forward64(big, zeros), zeros)  # past 2^17: the four-step
+    assert torch.equal(ntt64.ntt64_forward(big.ntt, zeros), zeros)
+    assert [fn.launches - b for fn, b in zip((ntt_mxu8.mxu8_forward64, ntt64.ntt64_forward),
+                                             before)] == [1, 1]
 
 
 @pytest.mark.parametrize("log_n,moduli", [
@@ -1256,21 +1304,24 @@ def test_cmux_front_kernel_matches_plain(dev, log_n, kp):
 
 
 def test_rotate_and_front_refuse_rows_past_the_cap(dev):
-    """Kernels F and G take rows of up to 2^17 words, the cap the library
-    reports (``FG_MAX_LOG_N``); a row of 2^18 raises a ValueError naming
-    it, before any launch."""
+    """Kernels F and G take rows of up to 2^29 words, the cap the library
+    reports (``FG_MAX_LOG_N``: every index of a row in an int); a row of
+    2^30 (a view of one word) raises a ValueError naming it, before any
+    launch; rows of 2^18 run."""
     from primus_fhe_tpu_torch.ops import build
 
-    assert build.library().pft_rotate_max_log_n() == 17
-    acc = torch.zeros((1, 1, 1 << 18), dtype=torch.int64, device=dev)
+    assert build.library().pft_rotate_max_log_n() == 29
+    acc = torch.zeros((1, 1, 1), dtype=torch.int32, device=dev).expand(1, 1, 1 << 30)
     degrees = torch.zeros((1,), dtype=torch.int32, device=dev)
     basis = ApproxSignedBasis32(None, 8, reverse_length=3)
     before = (rotate.rotate.launches, cmux_front.cmux_front.launches)
-    with pytest.raises(ValueError, match=r"rows of up to 2\^17 words"):
+    with pytest.raises(ValueError, match=r"rows of up to 2\^29 words"):
         rotate.rotate(acc, degrees)
-    with pytest.raises(ValueError, match=r"rows of up to 2\^17 words"):
+    with pytest.raises(ValueError, match=r"rows of up to 2\^29 words"):
         cmux_front.cmux_front(acc, degrees, basis, PRIMES4[:1])
     assert (rotate.rotate.launches, cmux_front.cmux_front.launches) == before
+    row = torch.arange(1 << 18, device=dev).reshape(1, 1, -1)
+    assert torch.equal(rotate.rotate(row, degrees + 5), rotate.rotate_plain(row, degrees + 5))
 
 
 def test_cmux_front_launch_rule_and_ptxas(dev):

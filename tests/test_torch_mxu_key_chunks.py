@@ -23,6 +23,7 @@ import torch
 
 from primus_fhe_tpu_torch import params as P
 from primus_fhe_tpu_torch.distr.sampling import DiscreteGaussian, sample_binary
+from primus_fhe_tpu_torch.numeric.limb import widen_u32
 from primus_fhe_tpu_torch.ops.cmux_mxu import prepare_mxu_bsk
 
 # the module (``primus_fhe_tpu_torch.boot`` exports a function of its name)
@@ -60,7 +61,8 @@ def test_chunked_mxu_pack_equals_one_batch_pack(monkeypatch, indices):
 
     ntt = br.make_bootstrap_key(lwe_s, glwe_s, basis, gauss, conv,
                                 torch.Generator().manual_seed(SEED + 1))
-    assert torch.equal(vals.reshape(ntt.shape), ntt)
+    assert ntt.dtype == torch.int32  # the NTT key's words in their 32-bit storage
+    assert torch.equal(vals.reshape(ntt.shape), widen_u32(ntt))
 
 
 def test_pack_carries_quotients_only_where_read(monkeypatch):

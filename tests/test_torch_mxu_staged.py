@@ -2,8 +2,8 @@
 
 - ``mxu_step_route``: kernel A wherever its C entry takes the shape
   (BOOLEAN_128), else the NTT key's route (``"fused"`` at log_n 12 with
-  k1 L = 6, ``"staged"`` past the fused step and at log_n 13-17, where the
-  card is not asked), a ``ValueError`` past every route (log_n 18, 5
+  k1 L = 6, ``"staged"`` past the fused step and at log_n 13-26, where the
+  card is not asked), a ``ValueError`` past every route (log_n 27, 5
   primes, log_n 7) and for a gadget basis of 2^16 (``digit_planes``); the
   C entry's answers stand in a fake library here, its real ones are held
   on the card (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``
@@ -88,7 +88,7 @@ def test_route(fake_card, kp, k1, level, log_n, dp, rc, want):
 
 
 @pytest.mark.parametrize("kp,k1,level,log_n,dp,match", [
-    (2, 2, 3, 18, 1, "log_n = 18"), (5, 2, 3, 13, 1, "kp = 5"), (2, 2, 3, 7, 1, "log_n >= 8"),
+    (2, 2, 3, 27, 1, "log_n = 27"), (5, 2, 3, 13, 1, "kp = 5"), (2, 2, 3, 7, 1, "log_n >= 8"),
     (2, 2, 33, 13, 1, "L = 33"), (2, 2, 3, 11, 3, "digit planes"),
 ])
 def test_route_refuses(kp, k1, level, log_n, dp, match):

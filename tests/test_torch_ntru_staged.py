@@ -73,14 +73,14 @@ def _np(x):
 def test_route(fake_card, level, log_n, dp, rc, want):
     """Kernel B's answers (``rc``: 0 holds, 1 refused) come from a fake
     library here and from the card in ``chip_smoke.py`` phase 22.1; at
-    log_n 13-17 the card is not asked."""
+    log_n 13-26 the card is not asked."""
     lib = fake_card(2 if rc is None else rc)
     assert nm.ntru_step_route(level, log_n, dp) == want
     assert lib.asked == ([] if rc is None else [(1, 1, 1, log_n, dp, level, 1)])
 
 
 @pytest.mark.parametrize("level,log_n,dp,match", [
-    (6, 18, 1, "log_n"), (33, 13, 1, "L = 33"), (6, 13, 3, "digit planes"), (6, 7, 1, "log_n"),
+    (6, 27, 1, "log_n"), (33, 13, 1, "L = 33"), (6, 13, 3, "digit planes"), (6, 7, 1, "log_n"),
 ])
 def test_route_refuses(level, log_n, dp, match):
     with pytest.raises(ValueError, match=match):
